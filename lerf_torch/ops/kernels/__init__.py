@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+* K1 ``resize.steering_resize`` — ``csrc/steering_resize.cu``
+* K2 ``lut_stage.lut_stage`` — ``csrc/lut_stage.cu``
+
+Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
+kernel for CUDA tensors, counting launches in the module's ``launches``.
+The kernels build with nvcc at first launch (``_build``), never at import.
+"""

@@ -1,0 +1,125 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Every ``.cu`` under ``lerf_torch/csrc/`` compiles to an object with its own
+``nvcc`` (all started together) for ``sm_90a``; the objects link into one
+shared library with a plain C interface.  The library lands in
+``build/lerf_torch_<hash>/`` beside the package (``build/`` is git-ignored),
+keyed by a hash of the sources and flags, so a checkout builds once at
+first use and an edited source rebuilds.  Nothing here runs at import.
+
+No ``--use_fast_math`` and no FMA contraction: the decode division, the
+``expf`` and the weight products stay IEEE single-precision operations in
+the same order as the plain PyTorch twins.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = ["-std=c++17", "-O3", ARCH, "--fmad=false", "-Xptxas=-v",
+              "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return path
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return h.hexdigest()[:12]
+
+
+def _run_all(cmds):
+    """Start every command, wait for all; raise with the output of any
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(c)} failed:\n{out}")
+    return "".join(outs)
+
+
+def build():
+    """Compile the kernel library if needed.  Returns ``(path, log)``:
+    ``log`` is nvcc's output (ptxas register counts), empty when the
+    library was already built."""
+    sources = _sources()
+    out_dir = os.path.join(BUILD_ROOT, f"lerf_torch_{_digest(sources)}")
+    lib_path = os.path.join(out_dir, "liblerf_kernels.so")
+    if os.path.exists(lib_path):
+        return lib_path, ""
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                for s in sources]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                        for s, o in zip(sources, objs)])
+        tmp_lib = os.path.join(tmp, "liblerf_kernels.so")
+        log += _run_all([[nvcc, ARCH, "-shared", *objs, "-o", tmp_lib]])
+        os.replace(tmp_lib, lib_path)       # atomic against a racing build
+    return lib_path, log
+
+
+def _declare(lib):
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lerf_steering_resize.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp,          # img, codes, out, rows, cols, dx, dy
+        i32, i32, i32, i32, i32, i32,        # C, H, W, OH, OW, S
+        i32, f32, f32, f32,                  # antialias, min_scale, max_sigma, norm
+        vp]                                  # stream
+    lib.lerf_steering_resize.restype = i32
+    lib.lerf_lut_stage.argtypes = [
+        vp, vp, vp, vp,                      # img, tables, out, members (host)
+        i32, i32, i32, i32, i32, i32,        # M, C, H, W, oC, L4
+        i32, i32, i32, i32,                  # interval, den, bias, norm
+        vp]                                  # stream
+    lib.lerf_lut_stage.restype = i32
+    lib.lerf_error_string.argtypes = [i32]
+    lib.lerf_error_string.restype = ctypes.c_char_p
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()[0])
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str):
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        msg = library().lerf_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,162 @@
+"""LeRF-G LUT deploy pipeline: feature LUTs → hyper LUTs → steerable resize.
+
+The port of ``lerf_tpu.pipeline.LutPredictor``'s SR path
+(``pipeline.py:41-66,855-1017``).  On a CUDA device the frame runs as two
+K2 launches (stage 1, stage 2), one K1 launch (resize) and the uint8
+quantization; on the CPU the same calls run the kernels' plain twins.
+PyTorch runs eagerly, so there is no per-shape program cache: the
+predictor keeps one device copy of each shape's resize geometry.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .lut.io import LUTBank
+from .ops.geometry import ResizeGeometry
+from .ops.kernels.resize import ResizeOperands, steering_resize
+from .ops.lut_pipeline import (FlatTables, lut_stage1,
+                               lut_stage1_intermediate, lut_stage2)
+
+
+def _quantize_device(out: torch.Tensor, norm: int):
+    """Round (half to even, as ``jnp.round``) / clip / cast to uint8 on the
+    device when the range allows it."""
+    if norm <= 255:
+        return torch.clamp(torch.round(out), 0, norm).to(torch.uint8)
+    return out
+
+
+def _quantize_host(arr, norm):
+    """Finish quantization for outputs the device couldn't cast (norm>255)."""
+    a = np.asarray(arr)
+    if a.dtype == np.uint8:
+        return a
+    return np.clip(np.round(a), 0, norm).astype(np.uint8)
+
+
+class LutPredictor:
+    """Two-stage LUT inference: feature LUTs → hyper LUTs → steerable
+    resample, with bit-exact stage arithmetic (eval_lut_sr.py semantics).
+
+    ``device``: ``None`` → ``cuda`` (raises without a card), or ``"cpu"``.
+    The bank's int8 tables live on that device as :class:`FlatTables`.
+    """
+
+    @classmethod
+    def from_config(cls, cfg, **kwargs):
+        """Load the LUT bank named by a TestConfig and build the predictor
+        on ``cfg.device`` (reference: eval_lut_sr.py:750-775)."""
+        from .lut.io import load_lut_bank
+
+        out_c = 1 if cfg.linear else 3
+        bank = load_lut_bank(cfg.exp_dir, lut_name=cfg.lut_name,
+                             modes=tuple(cfg.modes), modes2=tuple(cfg.modes2),
+                             out_c=out_c, interval=cfg.interval,
+                             stages=cfg.stages)
+        kwargs.setdefault("device", cfg.device)
+        return cls(bank, linear=cfg.linear, modes=tuple(cfg.modes),
+                   modes2=tuple(cfg.modes2),
+                   supp_size=cfg.supp_size, max_sigma=cfg.max_sigma,
+                   stages=cfg.stages, norm=cfg.norm, **kwargs)
+
+    def __init__(self, bank: LUTBank, *, linear: bool = False,
+                 modes=("s", "c", "t"), modes2=("s", "c", "t"),
+                 supp_size: int = 2, max_sigma: float = 10.0,
+                 stages: int = 2, norm: int = 255,
+                 table_layout: str = "flat", mesh=None, device=None):
+        if linear:
+            raise NotImplementedError(
+                "LeRF-L (linear=True, amplified_linear_resize) is not ported "
+                "yet (ROADMAP Queue A item 3)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving (mesh=) is not ported yet "
+                "(ROADMAP Queue A item 12)")
+        if table_layout != "flat":
+            raise NotImplementedError(
+                f"table_layout={table_layout!r}: the port has the flat "
+                "layout only; packed/cells are ROADMAP Queue A item 2")
+        if stages != bank.stages:
+            raise ValueError(
+                f"stages={stages} but the LUT bank holds {bank.stages} "
+                f"stages ({len(bank.inter)} intermediate feature table sets "
+                "+ final feature + hyper) — load_lut_bank(stages=...) must "
+                "match (eval_lut_sr.py:747-775 loads one table set per "
+                "stage)")
+        if bank.out_c != 3:
+            raise ValueError("the Gaussian (LeRF-G) form needs out_c == 3")
+        self.device = resolve_device(device)
+        self.bank = bank
+        self.modes = tuple(modes)
+        self.modes2 = tuple(modes2)
+        self.supp_size = supp_size
+        self.max_sigma = max_sigma
+        self.stages = stages
+        self.norm = norm
+        self._s1 = FlatTables.create(bank.stage1, self.device)
+        self._s2 = FlatTables.create(bank.stage2, self.device)
+        self._inter = [FlatTables.create(t, self.device) for t in bank.inter]
+        self._resize_cache: Dict = {}
+
+    # -- stages -------------------------------------------------------------
+
+    def _stages_fn(self, img_i32: torch.Tensor):
+        """img [C,H,W] int32 → (feat int32 [C,H,W], hyper int32 [C,H,W,oC]).
+
+        Stage loop parity: eval_lut_sr.py:541-577 — each feature stage uses
+        its OWN table set; intermediate stages average over modes·4 with a
+        +norm//2 bias, the final feature stage over modes with no bias.
+        """
+        interval = self.bank.interval
+        feat = img_i32
+        for tables in self._inter:
+            feat = lut_stage1_intermediate(feat, tables, self.modes,
+                                           interval=interval, norm=self.norm)
+        feat = lut_stage1(feat, self._s1, self.modes, interval=interval,
+                          norm=self.norm)
+        hyper = lut_stage2(feat, self._s2, self.modes2, interval=interval,
+                           norm=self.norm)
+        return feat, hyper
+
+    # -- SR -----------------------------------------------------------------
+
+    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
+        """(geometry, its device operands) for one (in_sz, scale), cached."""
+        key = (in_sz, scale)
+        if key not in self._resize_cache:
+            geom = ResizeGeometry.create(in_sz, scale_factors=list(scale),
+                                         support=self.supp_size)
+            self._resize_cache[key] = (
+                geom, ResizeOperands.create(geom, self.device))
+        return self._resize_cache[key]
+
+    def run_device(self, chw: torch.Tensor, scale: Tuple[float, float]):
+        """The device part of a frame: int32 [C,H,W] on ``self.device`` →
+        (uint8 [C,oH,oW], feat, hyper), all on the device."""
+        geom, operands = self._resize_fn(tuple(chw.shape[1:]), scale)
+        feat, hyper = self._stages_fn(chw)
+        out = steering_resize(feat, hyper, geom, max_sigma=self.max_sigma,
+                              norm=self.norm, operands=operands)
+        return _quantize_device(out, self.norm), feat, hyper
+
+    def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
+                return_aux: bool = False):
+        """uint8/float [H,W,C] → uint8 [outH,outW,C] (plus feat/hyper)."""
+        img = np.asarray(img_hwc)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        chw = np.ascontiguousarray(img.transpose(2, 0, 1)).astype(np.int32)
+        if chw.size and (chw.min() < 0 or chw.max() > 255):
+            # the stages index the LUT lattice with the raw 8-bit values
+            raise ValueError("image values must lie in 0..255")
+        x = torch.from_numpy(chw).to(self.device)
+        out, feat, hyper = self.run_device(
+            x, (float(scale_h), float(scale_w)))
+        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
+        if return_aux:
+            return out_u8, feat.cpu().numpy(), hyper.cpu().numpy()
+        return out_u8
