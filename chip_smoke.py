@@ -3,21 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``LutPredictor(bank).upscale`` of a 360×640
-RGB frame at ×4 (1440×2560 out) with the seed-0 random bank of the shipped
-LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8 tables, oC 3) — and
-holds each hand-written kernel against its plain PyTorch twin on the card:
+Drives the port's two paths on a 360×640 RGB frame at ×4 (1440×2560 out)
+— the LUT form, ``LutPredictor(bank).upscale`` with the seed-0 random bank
+of the shipped LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8
+tables, oC 3), and the micro-net (SRNet) form,
+``NetPredictor.from_srnets(params, backend=...).upscale`` at the reference
+width nf = 64 with seed-0 numpy weights, for the float (K3) and the int8
+(K4) backends — and holds each hand-written kernel against its plain
+PyTorch twin on the card:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the kernel build;
 2. K1 (steering resize) vs its plain twin at 360×640, ×4 / ×2.5 / ×3.55 /
    ×0.5: float32 max-abs ≤ 1e-3; uint8 mismatches must be .5 ties;
 3. K2 (LUT stage) vs its plain twin, bit-equal: stage 1, stage 2 and a
    3-stage bank's intermediate stage;
-4. end to end on the card vs ``device="cpu"``: feat and hyper bit-equal,
-   uint8 equal but for .5 ties; K1 launched once and K2 twice;
-5. CUDA-event timing: the whole ``upscale`` call, its device part, each
-   kernel and its plain twin, with each kernel's bound;
-6. the kernels line, the card line and, last, the result line.
+4. LUT form end to end on the card vs ``device="cpu"``: feat and hyper
+   bit-equal, uint8 equal but for .5 ties; K1 launched once, K2 twice;
+5. LUT form timing: the whole ``upscale`` call, its device part, a
+   profile, each kernel and its plain twin, with each kernel's bound;
+6. K3 (float SRUnit ensemble) and K4 (int8) vs their plain twins at the
+   stage shapes, 3×360×640 with oC 1 and oC 3 — K3 sums within 2 on
+   < 0.5 % of pixels (another float32 summation order), K4 within 1 on
+   < 0.1 % (bit-equal int8 arithmetic, ``tanhf`` ulps) — with each
+   kernel's time, its twin's and its bound;
+7. net form end to end, per backend: the 360×640 frame on the card (K1
+   launched once, K3 or K4 twice, nothing else), then a 96×160 crop on
+   the card vs ``device="cpu"``: feat and hyper codes within 1 on < 0.5 %
+   of pixels, uint8 equal to the plain resize of the card's own stages
+   but for .5 ties;
+8. net form timing per backend: the whole call, its device part, a
+   profile;
+9. the kernels line, the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -36,18 +52,31 @@ import numpy as np
 LR_H, LR_W, SCALE = 360, 640, 4.0
 MODES = ("s", "c", "t")
 L4 = 17 ** 4
+NF = 64               # the reference SRNet's width
+CROP_H, CROP_W = 96, 160   # the net form's card-vs-CPU crop
 K1_ATOL = 1e-3        # float32 ops in one order; exp differs by a few ulp
 TIE_TOL = 1e-3        # a uint8 mismatch needs a value this close to k + .5
+# (max level difference, share of pixels that may differ)
+K3_TOL = (2, 0.005)   # the same float32 products summed in another order
+K4_TOL = (1, 0.001)   # int8 arithmetic bit-equal; tanhf may differ by ulps
+NET_STAGE_TOL = (1, 0.005)   # feat / hyper codes, card vs CPU
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; float32 outside the
-# tensor cores, which also bounds int32 issue from above
+# tensor cores, which also bounds int32 throughput from above; int8 on the
+# tensor cores
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
+TENSOR_INT8_OPS_PER_S = 1979e12
 # operations counted per unit of work for the bound:
 #  K1, per output pixel and neighbour: decode 7 (3 div, 3 mul, 1 sub),
 #  weight 13 (exp counted as 1), accumulate 3; antialias adds 3
 K1_OPS_PER_NEIGHBOUR = 23
 #  K2, per pixel, member and output channel: the 5 multiply-adds of the blend
 K2_OPS_PER_MEMBER_CHANNEL = 10
+#  K4, per member and pixel: requantizing a hidden activation (convert,
+#  multiply, add, round, clip) and finishing a head output (convert,
+#  multiply, add, tanh, scale, round, sum)
+K4_F32_OPS_PER_HIDDEN = 5
+K4_F32_OPS_PER_HEAD = 7
 
 
 def emit(obj):
@@ -123,7 +152,7 @@ def frame_ms(fn, frames=25, warmup=3):
     return statistics.median(times)
 
 
-def profile_upscale(pred, frame, frames=10):
+def profile_upscale(pred, frame, frames=10, **label):
     """Where a whole ``upscale`` call's time goes: torch.profiler device
     time per frame by kernel / copy, and the device's busy share of the
     host wall clock (one stream, so device activities do not overlap)."""
@@ -144,7 +173,7 @@ def profile_upscale(pred, frame, frames=10):
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
-    return {"phase": "profile", "frames": frames, "wall_ms": wall_ms,
+    return {"phase": "profile", **label, "frames": frames, "wall_ms": wall_ms,
             "device_busy_ms": busy, "busy_share": busy / wall_ms,
             "device_ms_by_name": [[k[:60], ms] for k, ms in rows[:10]]}
 
@@ -171,6 +200,238 @@ def k2_work(c, h, w, oc, n_tables, n_members):
     return nbytes, c * h * w * n_members * oc * K2_OPS_PER_MEMBER_CHANNEL
 
 
+def net_params(seed=0):
+    """Micro-net params at the reference width, from numpy: Kaiming-normal
+    weights and small non-zero biases, on the CPU."""
+    from lerf_torch.convert import lerf_nets_from_arrays
+
+    rng = np.random.RandomState(seed)
+
+    def head(oc):
+        fans = [4] + [k * NF for k in range(1, 5)] + [5 * NF]
+        p = {}
+        for k, (fan_in, out) in enumerate(zip(fans, [NF] * 5 + [oc]), 1):
+            p[f"w{k}"] = (rng.randn(fan_in, out) * np.sqrt(2.0 / fan_in)) \
+                .astype(np.float32)
+            p[f"b{k}"] = (rng.randn(out) * 0.1).astype(np.float32)
+        return p
+
+    return lerf_nets_from_arrays(
+        {"s1": {f"s1_{m}": head(1) for m in MODES},
+         "s2": {f"{m}r{r}": head(3) for m in MODES for r in (0, 1)}})
+
+
+def chain_macs(oc, nf=NF):
+    """Multiply-adds of one SRUnit member at one pixel."""
+    return 4 * nf + nf * (nf + 2 * nf + 3 * nf + 4 * nf) + 5 * nf * oc
+
+
+def k3_work(n, oc, n_members):
+    """(bytes, operations) of one K3 call over ``n`` pixels: the float32
+    image and the stacked member weights read once, the float32 [n, oC]
+    sums written once; 2 operations per multiply-add."""
+    weights = n_members * (chain_macs(oc) + 5 * NF + oc) * 4
+    nbytes = n * 4 + weights + n * oc * 4
+    return nbytes, 2 * chain_macs(oc) * n_members * n
+
+
+def k4_work(n, oc, n_members):
+    """(bytes, int8 operations, float32 operations) of one K4 call: int32
+    codes, int8 weights and float32 scales / biases read once, the float32
+    sums written once."""
+    layer_outs = 5 * NF + oc
+    weights = n_members * (chain_macs(oc) + 2 * 4 * layer_outs)
+    nbytes = n * 4 + weights + n * oc * 4
+    f32 = n * n_members * (5 * NF * K4_F32_OPS_PER_HIDDEN
+                           + oc * K4_F32_OPS_PER_HEAD)
+    return nbytes, 2 * chain_macs(oc) * n_members * n, f32
+
+
+def k4_bound(nbytes, int8_ops, f32_ops):
+    """The largest of the three times, with its name and all three."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "int8_operations": int8_ops / TENSOR_INT8_OPS_PER_S * 1e3,
+             "f32_operations": f32_ops / NON_TENSOR_OPS_PER_S * 1e3}
+    by = max(parts, key=parts.get)
+    return parts[by], ("bytes" if by == "bytes" else "operations"), parts
+
+
+def level_diff(got, want, tol, what):
+    """Max |difference| and share of differing entries of two level
+    tensors; raise unless within ``tol`` = (max, share)."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    err, share = float(d.max()), float((d > 0).double().mean())
+    if not bool(torch.isfinite(got).all()) or err > tol[0] \
+            or share >= tol[1]:
+        raise AssertionError(f"{what}: max {err}, share {share} against "
+                             f"the tolerance {tol}")
+    return err, share
+
+
+def net_kernel_phases(dev, params, qparams, rng):
+    """Phase 6: K3 and K4 against their plain twins at the stage shapes,
+    then each kernel's and twin's time beside its bound.  Returns the
+    per-kernel summaries (errors, per-frame ms, work) for the kernels
+    line."""
+    import torch
+    from lerf_torch.models import srnet
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+    from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+
+    members = srnet.stage_members(MODES)
+    m = len(members)
+    codes = torch.from_numpy(rng.randint(0, 256, (3, LR_H, LR_W))
+                             .astype(np.int32)).to(dev)
+    x = codes.to(torch.float32) / 255.0      # a deploy stage input: k/255
+    n = codes.numel()
+    out = {"srnet_ensemble": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                              "bytes": 0, "ops": 0},
+           "srnet_ensemble_int8": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                   "bytes": 0, "int8_ops": 0, "f32_ops": 0}}
+    for stage, oc in (("stage1", 1), ("stage2", 3)):
+        heads = (srnet.stage1_heads(params, 0, MODES) if oc == 1
+                 else srnet.stage2_heads(params, MODES))
+        qheads = (srnet.stage1_heads(qparams, 0, MODES) if oc == 1
+                  else srnet.stage2_heads(qparams, MODES))
+        sh = k3.StackedHeads.create(heads, dev)
+        qh = k4.QuantHeads.create(qheads, dev)
+
+        def k3_fn():
+            return k3.ensemble_sum(x, sh, members, half=127)
+
+        def k3_plain():
+            return k3.ensemble_sum_plain(x, sh, members, half=127)
+
+        def k4_fn():
+            return k4.ensemble_sum_int8(codes, qh, members, half=127)
+
+        def k4_plain():
+            return k4.ensemble_sum_int8_plain(codes, qh, members, half=127)
+
+        for name, kern, plain, tol in (
+                ("srnet_ensemble", k3_fn, k3_plain, K3_TOL),
+                ("srnet_ensemble_int8", k4_fn, k4_plain, K4_TOL)):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if got.shape != (3, LR_H, LR_W, oc) or got.shape != want.shape:
+                raise AssertionError(f"{name} {stage}: shape {got.shape}")
+            err, share = level_diff(got, want, tol, f"{name} {stage}")
+            del got, want
+            ms = event_ms(kern, iters=10)
+            plain_ms = event_ms(plain, iters=2, warmup=1)
+            row = {"kernel": name, "stage": stage, "shape": [3, LR_H, LR_W],
+                   "oc": oc, "nf": NF, "members": m, "max_abs_err": err,
+                   "share_differing": share, "tolerance": list(tol),
+                   "ms": ms, "launches_per_frame": 1, "plain_ms": plain_ms}
+            acc = out[name]
+            if name == "srnet_ensemble":
+                nbytes, ops = k3_work(n, oc, m)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+                row.update(bytes=nbytes, ops=ops)
+                acc["ops"] += ops
+            else:
+                nbytes, i8, f32 = k4_work(n, oc, m)
+                row["bound_ms"], row["bound_by"], row["bound_parts_ms"] = \
+                    k4_bound(nbytes, i8, f32)
+                row.update(bytes=nbytes, int8_ops=i8, f32_ops=f32)
+                acc["int8_ops"] += i8
+                acc["f32_ops"] += f32
+            acc["bytes"] += nbytes
+            acc["err"] = max(acc["err"], err)
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            emit(row)
+    return out
+
+
+def net_form_phases(dev, params, frame, backend):
+    """Phases 7 and 8 for one backend: the main path on the card with the
+    launch counts, the crop against the CPU path, then timing.  Returns
+    the main path's launch counts."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import lut_stage as k2
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+    from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+    from lerf_torch.ops.resample import steering_resize_codes_plain
+    from lerf_torch.pipeline import NetPredictor, _quantize_device
+
+    pred = NetPredictor.from_srnets(params, backend=backend)
+    if pred.device.type != "cuda":
+        raise AssertionError(f"default device is {pred.device}")
+    mods = {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
+            "srnet_ensemble_int8": k4}
+    for mod in mods.values():
+        mod.launches = 0
+    out, feat, hyper = pred.upscale(frame, SCALE, SCALE, return_aux=True)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    stage_kernel = ("srnet_ensemble_int8" if backend == "pallas_int8"
+                    else "srnet_ensemble")
+    want = {name: 0 for name in mods}
+    want.update({"steering_resize": 1, stage_kernel: 2})
+    if launches != want:
+        raise AssertionError(f"net form ({backend}) launches {launches}, "
+                             f"want {want}")
+    oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
+    if (out.shape != (oh, ow, 3) or out.dtype != np.uint8
+            or feat.shape != (3, LR_H, LR_W)
+            or hyper.shape != (3, LR_H, LR_W, 3)
+            or not (np.isfinite(feat).all() and np.isfinite(hyper).all())
+            or feat.min() < 0 or feat.max() > 255
+            or hyper.min() < 0 or hyper.max() > 1):
+        raise AssertionError(f"net form ({backend}): output {out.shape} "
+                             f"{out.dtype}, feat {feat.shape}, hyper "
+                             f"{hyper.shape} out of shape or range")
+
+    crop = np.ascontiguousarray(frame[:CROP_H, :CROP_W])
+    got = pred.upscale(crop, SCALE, SCALE, return_aux=True)
+    t_cpu = time.perf_counter()
+    cpu = NetPredictor.from_srnets(params, backend=backend, device="cpu")
+    ref = cpu.upscale(crop, SCALE, SCALE, return_aux=True)
+    cpu_s = time.perf_counter() - t_cpu
+    feat_err, feat_share = level_diff(
+        torch.from_numpy(got[1]), torch.from_numpy(ref[1]), NET_STAGE_TOL,
+        f"net form ({backend}) feat")
+    codes = np.round(got[2] * 255).astype(np.int32)
+    hyper_err, hyper_share = level_diff(
+        torch.from_numpy(codes), torch.from_numpy(np.round(ref[2] * 255)),
+        NET_STAGE_TOL, f"net form ({backend}) hyper codes")
+    geom = ResizeGeometry.create((CROP_H, CROP_W), scale_factors=[SCALE] * 2)
+    f32 = steering_resize_codes_plain(
+        torch.from_numpy(got[1].astype(np.int32)), torch.from_numpy(codes), geom)
+    n_tie = check_ties(
+        got[0], _quantize_device(f32, 255).numpy().transpose(1, 2, 0),
+        f32.numpy().transpose(1, 2, 0), f"net form ({backend}) crop")
+    emit({"phase": "net_end_to_end", "backend": backend, "nf": NF,
+          "in": [LR_H, LR_W], "out": [oh, ow], "scale": SCALE,
+          "launches": launches, "crop": [CROP_H, CROP_W],
+          "feat_max_diff": feat_err, "feat_share_differing": feat_share,
+          "hyper_max_diff": hyper_err, "hyper_share_differing": hyper_share,
+          "tolerance": list(NET_STAGE_TOL), "u8_mismatch_at_ties": n_tie,
+          "cpu_reference_s": cpu_s})
+
+    mp = oh * ow / 1e6
+    host = []
+    for i in range(2 + 10):
+        t = time.perf_counter()
+        pred.upscale(frame, SCALE, SCALE)
+        if i >= 2:
+            host.append((time.perf_counter() - t) * 1e3)
+    upscale_ms = statistics.median(host)
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                      .astype(np.float32) / 255).to(dev)
+    device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)),
+                         frames=10, warmup=2)
+    emit({"phase": "net_timing", "backend": backend, "frames": 10,
+          "upscale_ms": upscale_ms, "upscale_mps": mp / upscale_ms * 1e3,
+          "device_ms": device_ms, "device_mps": mp / device_ms * 1e3})
+    emit(profile_upscale(pred, frame, frames=5, form="net", backend=backend))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -184,6 +445,9 @@ def main() -> int:
     from lerf_torch.ops.kernels import _build
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+    from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+    from lerf_torch.models import srnet
     from lerf_torch.ops.resample import steering_resize_codes_plain
     from lerf_torch.pipeline import LutPredictor, _quantize_device
 
@@ -268,13 +532,17 @@ def main() -> int:
     pred = LutPredictor(bank)                # the default device: the card
     if pred.device.type != "cuda":
         raise AssertionError(f"default device is {pred.device}")
-    k1.launches = 0
-    k2.launches = 0
+    lut_mods = {"steering_resize": k1, "lut_stage": k2,
+                "srnet_ensemble": k3, "srnet_ensemble_int8": k4}
+    for mod in lut_mods.values():
+        mod.launches = 0
     out, feat_o, hyper_o = pred.upscale(frame, SCALE, SCALE, return_aux=True)
     torch.cuda.synchronize()
-    launches = {"steering_resize": k1.launches, "lut_stage": k2.launches}
-    if launches != {"steering_resize": 1, "lut_stage": 2}:
-        raise AssertionError(f"main path launches {launches}, want K1 1, K2 2")
+    launches = {name: mod.launches for name, mod in lut_mods.items()}
+    if launches != {"steering_resize": 1, "lut_stage": 2,
+                    "srnet_ensemble": 0, "srnet_ensemble_int8": 0}:
+        raise AssertionError(f"main path launches {launches}, want K1 1, "
+                             "K2 2 and no other")
     oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
     if out.shape != (oh, ow, 3) or out.dtype != np.uint8:
         raise AssertionError(f"output {out.shape} {out.dtype}")
@@ -365,7 +633,36 @@ def main() -> int:
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
     ]
 
-    # -- 6. result ----------------------------------------------------------
+    # -- 6. K3 / K4 vs their plain twins -----------------------------------
+    params = net_params()
+    qparams = srnet.quantize_lerf_params(params)
+    net = net_kernel_phases(dev, params, qparams, rng)
+
+    # -- 7, 8. the net form end to end and its timing, per backend ---------
+    net_launches = {backend: net_form_phases(dev, params, frame, backend)
+                    for backend in ("auto", "pallas_int8")}
+
+    k3s, k4s = net["srnet_ensemble"], net["srnet_ensemble_int8"]
+    k3_bound, k3_by = bound(k3s["bytes"], k3s["ops"])
+    k4_b, k4_by, _ = k4_bound(k4s["bytes"], k4s["int8_ops"], k4s["f32_ops"])
+    kernels += [
+        {"name": "srnet_ensemble", "route": "cuda",
+         "source": "lerf_torch/csrc/srnet_ensemble.cu",
+         "replaces": "lerf_tpu/ops/pallas/srnet_kernel.py:78",
+         "launches": net_launches["auto"]["srnet_ensemble"],
+         "max_abs_err": k3s["err"], "ms": k3s["ms"],
+         "plain_ms": k3s["plain_ms"], "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
+        {"name": "srnet_ensemble_int8", "route": "cuda",
+         "source": "lerf_torch/csrc/srnet_ensemble_int8.cu",
+         "replaces": "lerf_tpu/ops/pallas/srnet_kernel_int8.py:175",
+         "launches": net_launches["pallas_int8"]["srnet_ensemble_int8"],
+         "max_abs_err": k4s["err"], "ms": k4s["ms"],
+         "plain_ms": k4s["plain_ms"], "bound_ms": k4_b, "bound_by": k4_by,
+         "library_ms": None},
+    ]
+
+    # -- 9. result ----------------------------------------------------------
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,19 +1,26 @@
-"""End-user upscaling command: one image in, one image out (LUT form).
+"""End-user upscaling command: one image in, one image out.
 
+    # LUT form — -e points at a LUT bank directory; on the CUDA card
     python -m lerf_torch.cli.upscale -e models/lerf-g --input in.png \
-        --output out.png --scale 4            # on the CUDA card
+        --output out.png --scale 4
+    # micro-net form (K3 on the card; --backend pallas_int8 runs K4)
+    python -m lerf_torch.cli.upscale -e models/lerf-g --form net \
+        --twoStage --outC 3 --input in.png --output out.png --scale 2.5
     ... --platform cpu                        # on the CPU
 
-Non-integer and anisotropic scales work (``--scale 2.5``, ``--scale
-1.5x2.0``).  The port serves the LUT form, one image, through the static
-``LutPredictor.upscale`` path; ``--form net``, ``--dynamicSR``,
-``--bucket``, ``--matrix`` (warp) and several inputs are not ported yet and
-exit with a message saying so.
+``--form auto`` serves the net form when ``-e`` holds a network checkpoint
+(``Model_{loadIter:06d}.pth`` or a ``ckpt/`` directory), else the LUT bank,
+and falls back to the bank when the checkpoint is missing or cannot be
+loaded.  Non-integer and anisotropic scales work (``--scale 2.5``,
+``--scale 1.5x2.0``).  One image through the static ``upscale`` path:
+``--dynamicSR``, ``--bucket``, ``--matrix`` (warp) and several inputs are
+not ported yet and exit with a message saying so.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 import sys
 
 import numpy as np
@@ -26,7 +33,7 @@ from ..pipeline import LutPredictor
 class UpscaleConfig(TestConfig):
     input: str = ""
     output: str = ""
-    form: str = "lut"            # lut (net / auto: not ported yet)
+    form: str = "lut"            # lut | net | auto
     matrix: str = ""             # homography warp mode (not ported yet)
     out_size: str = ""           # HxW for warp mode
 
@@ -38,10 +45,17 @@ def _parse_scale(s):
     return float(s), float(s)
 
 
+# what reading a checkpoint on the host can raise: missing or unreadable
+# file, a corrupt or foreign pickle, a whole-module pickle whose reference
+# package is not importable, missing state-dict keys, an orbax directory
+CHECKPOINT_ERRORS = (OSError, EOFError, pickle.UnpicklingError, ImportError,
+                     KeyError, RuntimeError, ValueError, NotImplementedError)
+
+
 def _unported(cfg: UpscaleConfig):
     """The message for a flag whose path the port does not have yet."""
-    if cfg.form != "lut":
-        return f"--form {cfg.form} (ROADMAP Queue A items 7-8)"
+    if cfg.form != "lut" and cfg.model == "IMDN2":
+        return "--model IMDN2 (ROADMAP Queue A item 8)"
     if cfg.matrix:
         return "--matrix warp mode (ROADMAP Queue A item 5)"
     if cfg.dynamic_sr or cfg.dynamic_warp or cfg.bucket > 0:
@@ -50,6 +64,32 @@ def _unported(cfg: UpscaleConfig):
             or any(ch in cfg.input for ch in "*?[")):
         return "several inputs (ROADMAP Queue A item 11)"
     return None
+
+
+def build_predictor(cfg: UpscaleConfig):
+    """The predictor ``--form`` names.  Under ``auto`` the net form serves
+    when a checkpoint exists, and a checkpoint that is missing or cannot be
+    read falls back to the LUT bank; only the host-side read is guarded, so
+    a kernel build, launch or device error is never caught."""
+    from .eval_model import load_params, predictor_from_params
+
+    auto = cfg.form == "auto"
+    if auto:
+        has_ckpt = (os.path.isdir(os.path.join(cfg.exp_dir, "ckpt"))
+                    or os.path.exists(os.path.join(
+                        cfg.exp_dir, f"Model_{cfg.load_iter:06d}.pth")))
+        cfg.form = "net" if has_ckpt else "lut"
+    if cfg.form == "net":
+        try:
+            params = load_params(cfg)
+        except CHECKPOINT_ERRORS as e:
+            if not auto:
+                raise
+            print(f"upscale: net form unavailable ({e!r}); "
+                  f"falling back to the LUT bank", flush=True)
+        else:
+            return predictor_from_params(cfg, params)
+    return LutPredictor.from_config(cfg)
 
 
 def main(argv=None):
@@ -62,7 +102,7 @@ def main(argv=None):
     if missing:
         raise SystemExit(f"upscale: {missing} is not ported to lerf_torch "
                          "yet; use lerf_tpu.cli.upscale")
-    pred = LutPredictor.from_config(cfg)
+    pred = build_predictor(cfg)
     img = np.array(Image.open(cfg.input).convert("RGB"))
     sh, sw = _parse_scale(cfg.scale)   # "4", "2.5", or "1.5x2.0"
     out = pred.upscale(img, sh, sw)

@@ -54,7 +54,9 @@ class TestConfig(BaseConfig):
     hr_root: str = ""            # warp eval HR root (warp not ported yet)
     datasets: str = "Set5"       # comma list of benchmark sets
     scales: str = "2,3,4"        # comma list; 'HxW' pairs allowed
-    backend: str = "auto"        # net-form backend (net form not ported yet)
+    # micro-net (SRNet) backend: auto / pallas = K3 (kernel on the card,
+    # plain twin on the CPU), pallas_int8 = K4, xla = plain batched chain
+    backend: str = "auto"
     bucket: int = 0              # bucketed serving (not ported yet)
     dynamic_warp: bool = False   # dynamic warp serving (not ported yet)
     dynamic_sr: bool = False     # dynamic SR serving (not ported yet)

@@ -1,15 +1,17 @@
-"""Carry a LUT bank across from ``lerf_tpu`` to the port.
+"""Carry a LUT bank or micro-net weights across from ``lerf_tpu`` to the
+port.
 
-Both packages hold a bank as host numpy int8 tables with the same keys;
-this builds the port's :class:`~lerf_torch.lut.io.LUTBank` from the JAX
-bank's arrays without importing either package's bank class into the
-other.
+Both packages hold a bank as host numpy int8 tables with the same keys,
+and micro-net params as the same nested dict of ``w [in, out]`` / ``b
+[out]`` float32 leaves; these build the port's objects from plain numpy
+arrays without importing either package's classes into the other.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .lut.io import LUTBank
 
@@ -35,3 +37,35 @@ def bank_from_arrays(stage1: Dict[str, np.ndarray],
         out_c=out_c, interval=interval,
         inter=[{k: table(v, 1) for k, v in t.items()}
                for t in (inter or [])])
+
+
+def lerf_nets_from_arrays(params: Dict, device="cpu") -> Dict:
+    """Port micro-net params from the JAX pytree as numpy arrays, e.g.
+    ``lerf_nets_from_arrays(jax.tree.map(np.asarray, p))``.
+
+    Returns ``{"s1": {...}, "s2": {...}}`` of float32 tensors on
+    ``device``.  Raises unless every head has ``w1..w6`` / ``b1..b6`` of
+    one SRUnit's shapes: ``w1 [4, nf]``, ``wk [(k-1)·nf, nf]``, ``w6
+    [5·nf, oC]``, ``bk [nf]``, ``b6 [oC]``."""
+    if set(params) != {"s1", "s2"}:
+        raise ValueError(f"params need keys s1, s2; got {sorted(params)}")
+    out = {}
+    for sk, heads in params.items():
+        out[sk] = {}
+        for name, head in heads.items():
+            if set(head) != {f"{p}{k}" for p in "wb" for k in range(1, 7)}:
+                raise ValueError(f"{sk}/{name}: keys {sorted(head)}, want "
+                                 "w1..w6 and b1..b6")
+            nf, oc = np.shape(head["w1"])[1], np.shape(head["w6"])[-1]
+            want = {"w1": (4, nf), "w6": (5 * nf, oc), "b6": (oc,)}
+            for k in range(1, 6):
+                want.setdefault(f"w{k}", ((k - 1) * nf, nf))
+                want[f"b{k}"] = (nf,)
+            for k, shape in want.items():
+                if np.shape(head[k]) != shape:
+                    raise ValueError(f"{sk}/{name}/{k}: shape "
+                                     f"{np.shape(head[k])}, want {shape}")
+            out[sk][name] = {
+                k: torch.from_numpy(np.asarray(v, np.float32).copy())
+                .to(device) for k, v in head.items()}
+    return out

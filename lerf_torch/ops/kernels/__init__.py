@@ -2,6 +2,9 @@
 
 * K1 ``resize.steering_resize`` — ``csrc/steering_resize.cu``
 * K2 ``lut_stage.lut_stage`` — ``csrc/lut_stage.cu``
+* K3 ``srnet_ensemble.ensemble_sum`` — ``csrc/srnet_ensemble.cu``
+* K4 ``srnet_ensemble_int8.ensemble_sum_int8`` —
+  ``csrc/srnet_ensemble_int8.cu``
 
 Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
 kernel for CUDA tensors, counting launches in the module's ``launches``.

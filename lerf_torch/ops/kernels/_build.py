@@ -9,7 +9,8 @@ first use and an edited source rebuilds.  Nothing here runs at import.
 
 No ``--use_fast_math`` and no FMA contraction: the decode division, the
 ``expf`` and the weight products stay IEEE single-precision operations in
-the same order as the plain PyTorch twins.
+the same order as the plain PyTorch twins.  K3 writes its multiply-adds as
+explicit ``fmaf`` (one rounding each), which ``--fmad=false`` leaves fused.
 """
 from __future__ import annotations
 
@@ -104,6 +105,18 @@ def _declare(lib):
         i32, i32, i32, i32,                  # interval, den, bias, norm
         vp]                                  # stream
     lib.lerf_lut_stage.restype = i32
+    lib.lerf_srnet_ensemble.argtypes = [
+        vp, vp,                              # img, out
+        *[vp] * 12,                          # w1..w6, b1..b6
+        vp, i32, i32, i32, i32, i32, i32,    # members (host), M, C, H, W, nf, oC
+        f32, vp]                             # half, stream
+    lib.lerf_srnet_ensemble.restype = i32
+    lib.lerf_srnet_ensemble_int8.argtypes = [
+        vp, vp,                              # codes, out
+        *[vp] * 18,                          # w1..w6, c1..c6, b1..b6
+        vp, i32, i32, i32, i32, i32, i32,    # members (host), M, C, H, W, nf, oC
+        f32, vp]                             # half, stream
+    lib.lerf_srnet_ensemble_int8.restype = i32
     lib.lerf_error_string.argtypes = [i32]
     lib.lerf_error_string.restype = ctypes.c_char_p
 

@@ -104,16 +104,23 @@ class FlatTables:
                    table=torch.from_numpy(stacked).to(device).contiguous())
 
 
+def member_offsets(members) -> np.ndarray:
+    """int32 ``[M, 8]``: per ``(mode, rotation)`` member the 4 rotated
+    (row, col) sample offsets in role order."""
+    return np.asarray([[v for off in MODE_OFFSETS[mode]
+                        for v in rotate_offset(off, r)]
+                       for mode, r in members], np.int32).reshape(-1, 8)
+
+
 def member_descriptors(modes: Sequence[str], split_r: bool,
                        keys: Sequence[str]) -> np.ndarray:
     """int32 ``[M, 9]``: per member the 4 rotated (row, col) sample offsets
     in role order, then the index of its table in ``keys``."""
-    rows = []
-    for mode, r, key in ensemble_members(modes, split_r):
-        offs = [v for off in MODE_OFFSETS[mode]
-                for v in rotate_offset(off, r)]
-        rows.append(offs + [list(keys).index(key)])
-    return np.asarray(rows, np.int32)
+    members = ensemble_members(modes, split_r)
+    index = [[list(keys).index(key)] for _, _, key in members]
+    return np.concatenate(
+        [member_offsets([(m, r) for m, r, _ in members]),
+         np.asarray(index, np.int32)], axis=1)
 
 
 def stack_ensemble_inputs(img: torch.Tensor, modes: Sequence[str],

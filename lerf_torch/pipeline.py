@@ -1,11 +1,17 @@
-"""LeRF-G LUT deploy pipeline: feature LUTs → hyper LUTs → steerable resize.
+"""LeRF deploy pipelines: stages → hyper codes → steerable resize.
 
-The port of ``lerf_tpu.pipeline.LutPredictor``'s SR path
-(``pipeline.py:41-66,855-1017``).  On a CUDA device the frame runs as two
-K2 launches (stage 1, stage 2), one K1 launch (resize) and the uint8
-quantization; on the CPU the same calls run the kernels' plain twins.
-PyTorch runs eagerly, so there is no per-shape program cache: the
-predictor keeps one device copy of each shape's resize geometry.
+The port of ``lerf_tpu.pipeline``'s two SR predictors:
+
+* :class:`LutPredictor` (``pipeline.py:41-66,855-1017``), the LUT form: on
+  a CUDA device a frame runs as two K2 launches (stage 1, stage 2), one K1
+  launch (resize) and the uint8 quantization.
+* :class:`NetPredictor` (``pipeline.py:194-398``), the micro-net (SRNet)
+  form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
+  epilogues, one K1 launch and the quantization.
+
+On the CPU the same calls run the kernels' plain twins.  PyTorch runs
+eagerly, so there is no per-shape program cache: a predictor keeps one
+device copy of each shape's resize geometry.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from .device import resolve_device
 from .lut.io import LUTBank
+from .models import srnet
 from .ops.geometry import ResizeGeometry
 from .ops.kernels.resize import ResizeOperands, steering_resize
 from .ops.lut_pipeline import (FlatTables, lut_stage1,
@@ -160,3 +167,160 @@ class LutPredictor:
         if return_aux:
             return out_u8, feat.cpu().numpy(), hyper.cpu().numpy()
         return out_u8
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to lerf_torch yet "
+                               f"(ROADMAP Queue A item {item})")
+
+
+class NetPredictor:
+    """Two-stage *network* inference: feature net → hyper net → resample.
+
+    Mirrors ``lerf_tpu.pipeline.NetPredictor``'s static SR path with the
+    same public API as :class:`LutPredictor`.  ``stage1_fn(x)`` maps
+    [C,H,W] float32 in [0,1] → feature in [0,255] (float);
+    ``stage2_fn(x)`` maps [C,H,W] in [0,1] → int32 hyper codes
+    [C,H,W,oC] in 0..norm (``lerf_tpu``'s hyper is ``codes / norm``).
+
+    ``device``: ``None`` → ``cuda`` (raises without a card), or ``"cpu"``.
+    """
+
+    def __init__(self, stage1_fn, stage2_fn, *, linear: bool = False,
+                 two_stage: bool = True, supp_size: int = 2,
+                 max_sigma: float = 10.0, norm: int = 255, mesh=None,
+                 device=None):
+        if linear:
+            raise _unported("LeRF-L (linear=True, amplified_linear_resize)",
+                            "3")
+        if mesh is not None:
+            raise _unported("multi-device serving (mesh=)", "12")
+        self.device = resolve_device(device)
+        self.stage1_fn = stage1_fn
+        self.stage2_fn = stage2_fn
+        self.two_stage = two_stage
+        self.supp_size = supp_size
+        self.max_sigma = max_sigma
+        self.norm = norm
+        self._resize_cache: Dict = {}
+
+    @classmethod
+    def from_srnets(cls, params, *, modes=("s", "c", "t"),
+                    modes2=("s", "c", "t"), stages: int = 2,
+                    linear: bool = False, two_stage: bool = True,
+                    supp_size: int = 2, max_sigma: float = 10.0,
+                    norm: int = 255, backend: str = "auto", mesh=None,
+                    device=None):
+        """LeRF-L/G trainable form (SRNetsSWF2 pixel-MLP ensemble).
+
+        ``params``: :func:`lerf_torch.models.srnet.init_lerf_nets` layout
+        (float32 tensors on any device).  ``backend``: "auto" / "pallas"
+        run K3 (the kernel on a card, its plain twin on the CPU); "xla"
+        the plain batched chain; "pallas_int8" (opt-in) K4 on heads
+        post-training-quantized here, once, against the 17⁴ deploy
+        lattice.  The member heads are stacked on the device once, here.
+        Inference only."""
+        backend = srnet.resolve_backend(backend)
+        dev = resolve_device(device)
+        if backend == "pallas_int8":
+            params = srnet.quantize_lerf_params(params)
+        heads1 = [srnet.prepare_heads(srnet.stage1_heads(params, s, modes),
+                                      backend, dev)
+                  for s in range(stages - 1)]
+        heads2 = srnet.prepare_heads(srnet.stage2_heads(params, modes2),
+                                     backend, dev)
+
+        def s1(x):
+            return srnet.stage1_from_heads(heads1, x, modes=modes, norm=norm,
+                                           backend=backend)
+
+        def s2(x):
+            return srnet.stage2_levels(heads2, x, modes2=modes2, norm=norm,
+                                       backend=backend).to(torch.int32)
+
+        return cls(s1, s2, linear=linear, two_stage=two_stage,
+                   supp_size=supp_size, max_sigma=max_sigma, norm=norm,
+                   mesh=mesh, device=dev)
+
+    @classmethod
+    def from_imdn(cls, *args, **kwargs):
+        raise _unported("the IMDN (LeRF-Net) form, NetPredictor.from_imdn",
+                        "8")
+
+    # -- stages -------------------------------------------------------------
+
+    def _stages(self, img_f: torch.Tensor):
+        """img [C,H,W] float32 in [0,1] → (feat int32 [C,H,W], hyper codes
+        int32 [C,H,W,oC]).  ``two_stage=False`` skips the feature net like
+        the reference (eval_model.py:124-129): feat = round(img·norm), the
+        hyper net sees the image."""
+        if self.two_stage:
+            feat = self.stage1_fn(img_f)
+            hyper_in = feat / float(self.norm)
+        else:
+            feat = torch.round(img_f * self.norm)
+            hyper_in = img_f
+        return feat.to(torch.int32), self.stage2_fn(hyper_in)
+
+    # -- SR -----------------------------------------------------------------
+
+    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
+        """(geometry, its device operands) for one (in_sz, scale), cached."""
+        key = (in_sz, scale)
+        if key not in self._resize_cache:
+            geom = ResizeGeometry.create(in_sz, scale_factors=list(scale),
+                                         support=self.supp_size)
+            self._resize_cache[key] = (
+                geom, ResizeOperands.create(geom, self.device))
+        return self._resize_cache[key]
+
+    def run_device(self, img_f: torch.Tensor, scale: Tuple[float, float]):
+        """The device part of a frame: float32 [C,H,W] in [0,1] on
+        ``self.device`` → (uint8 [C,oH,oW], feat int32 [C,H,W], hyper
+        codes int32 [C,H,W,oC]), all on the device."""
+        geom, operands = self._resize_fn(tuple(img_f.shape[1:]), scale)
+        feat, hyper = self._stages(img_f)
+        out = steering_resize(feat, hyper, geom, max_sigma=self.max_sigma,
+                              norm=self.norm, operands=operands)
+        return _quantize_device(out, self.norm), feat, hyper
+
+    def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
+                return_aux: bool = False):
+        """uint8/float [H,W,C] → uint8 [outH,outW,C]; with ``return_aux``
+        also feat (float32 [C,H,W], 0..255) and hyper (float32 [C,H,W,oC]
+        in [0,1]), the types ``lerf_tpu`` returns.  Scale 1 on both axes
+        skips the nets (eval_model.py:153-154) and returns the image."""
+        img = np.asarray(img_hwc)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        chw = np.ascontiguousarray(img.transpose(2, 0, 1)) \
+            .astype(np.float32) / self.norm
+        if float(scale_h) == 1.0 and float(scale_w) == 1.0:
+            out = np.round(chw * self.norm)
+            return np.clip(out, 0, self.norm).astype(np.uint8) \
+                .transpose(1, 2, 0)
+        out, feat, hyper = self.run_device(
+            torch.from_numpy(chw).to(self.device),
+            (float(scale_h), float(scale_w)))
+        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
+        if return_aux:
+            return (out_u8, feat.cpu().numpy().astype(np.float32),
+                    (hyper.to(torch.float32) / float(self.norm)).cpu().numpy())
+        return out_u8
+
+    # -- serving forms not ported yet ----------------------------------------
+
+    def upscale_bucketed(self, *args, **kwargs):
+        raise _unported("bucketed net serving (upscale_bucketed)", "6")
+
+    def upscale_dynamic(self, *args, **kwargs):
+        raise _unported("dynamic net serving (upscale_dynamic)", "6")
+
+    def upscale_batch(self, *args, **kwargs):
+        raise _unported("batched net serving (upscale_batch)", "6")
+
+    def upscale_dynamic_async(self, *args, **kwargs):
+        raise _unported("async net serving (upscale_dynamic_async)", "11")
+
+    def warp(self, *args, **kwargs):
+        raise _unported("net-form warp (warp)", "5")

@@ -88,7 +88,8 @@ def test_upscale_cli_matches_jax(tmp_path):
     np.testing.assert_array_equal(out, jax_pred.upscale(img, 2.5, 2.5))
 
 
-@pytest.mark.parametrize("flags", [["--form", "net"], ["--dynamicSR"],
+@pytest.mark.parametrize("flags", [["--form", "net", "--model", "IMDN2"],
+                                   ["--dynamicSR"],
                                    ["--bucket", "8"],
                                    ["--matrix", "1,0,0,0,1,0,0,0,1"]],
                          ids=lambda f: f[0].lstrip("-"))
@@ -129,6 +130,10 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import lerf_torch, lerf_torch.pipeline\n"
             "import lerf_torch.cli.upscale, lerf_torch.cli.eval_lut_sr\n"
+            "import lerf_torch.cli.eval_model, lerf_torch.models.srnet\n"
+            "import lerf_torch.models.convert\n"
+            "import lerf_torch.ops.kernels.srnet_ensemble\n"
+            "import lerf_torch.ops.kernels.srnet_ensemble_int8\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'lerf_tpu'))\n"
             "assert not bad, bad\n")
