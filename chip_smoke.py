@@ -12,7 +12,9 @@ width nf = 64 with seed-0 numpy weights, for the float (K3) and the int8
 (K4) backends — and holds each hand-written kernel against its plain
 PyTorch twin on the card:
 
-1. the card (``nvidia-smi`` name and power limit), torch, the kernel build;
+1. the card (``nvidia-smi`` name and power limit), torch, the kernel build
+   with each kernel's registers, stack, spills and static shared memory
+   from ``-Xptxas -v``;
 2. K1 (steering resize) vs its plain twin at 360×640, ×4 / ×2.5 / ×3.55 /
    ×0.5: float32 max-abs ≤ 1e-3; uint8 mismatches must be .5 ties;
 3. K2 (LUT stage) vs its plain twin, bit-equal: stage 1, stage 2 and a
@@ -21,11 +23,13 @@ PyTorch twin on the card:
    bit-equal, uint8 equal but for .5 ties; K1 launched once, K2 twice;
 5. LUT form timing: the whole ``upscale`` call, its device part, a
    profile, each kernel and its plain twin, with each kernel's bound;
-6. K3 (float SRUnit ensemble) and K4 (int8) vs their plain twins at the
-   stage shapes, 3×360×640 with oC 1 and oC 3 — K3 sums within 2 on
-   < 0.5 % of pixels (another float32 summation order), K4 within 1 on
-   < 0.1 % (bit-equal int8 arithmetic, ``tanhf`` ulps) — with each
-   kernel's time, its twin's and its bound;
+6. K3 (float SRUnit ensemble, 3xTF32 on the tensor cores) and K4 (int8
+   tensor cores) vs their plain twins at the stage shapes, 3×360×640 with
+   oC 1 and oC 3 — K3 sums within 2 on < 0.5 % of pixels (products with
+   ~2⁻²² relative error, summed in another order), K4 within 1 on < 0.1 %
+   (bit-equal int8 arithmetic, ``tanhf`` ulps) — with each kernel's time,
+   its twin's, its bound (K3's the faster of float32 on the CUDA cores and
+   3xTF32 on the tensor cores, all parts printed) and its share of it;
 7. net form end to end, per backend: the 360×640 frame on the card (K1
    launched once, K3 or K4 twice, nothing else), then a 96×160 crop on
    the card vs ``device="cpu"``: feat and hyper codes within 1 on < 0.5 %
@@ -61,11 +65,14 @@ K3_TOL = (2, 0.005)   # the same float32 products summed in another order
 K4_TOL = (1, 0.001)   # int8 arithmetic bit-equal; tanhf may differ by ulps
 NET_STAGE_TOL = (1, 0.005)   # feat / hyper codes, card vs CPU
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; float32 outside the
-# tensor cores, which also bounds int32 throughput from above; int8 on the
-# tensor cores
+# tensor cores, which also bounds int32 throughput from above; TF32 and
+# int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
+TENSOR_TF32_OPS_PER_S = 495e12
 TENSOR_INT8_OPS_PER_S = 1979e12
+# K3 keeps float32 on the tensor cores as three TF32 products a multiply-add
+TF32_PRODUCTS_PER_F32 = 3
 # operations counted per unit of work for the bound:
 #  K1, per output pixel and neighbour: decode 7 (3 div, 3 mul, 1 sub),
 #  weight 13 (exp counted as 1), accumulate 3; antialias adds 3
@@ -79,8 +86,42 @@ K4_F32_OPS_PER_HIDDEN = 5
 K4_F32_OPS_PER_HEAD = 7
 
 
+CARD = None           # card_line(), set by main and put beside every time
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def emit_timed(obj):
+    """A row that holds times, with the card they were taken on."""
+    emit({**obj, "card": CARD})
+
+
+def ptxas_rows(log):
+    """Registers, static shared memory and spills of each kernel from
+    nvcc's ``-Xptxas -v`` output."""
+    import re
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"phase": "ptxas", "function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack_frame"], cur["spill_stores"], cur["spill_loads"] = \
+                map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return rows
 
 
 def card_line() -> str:
@@ -178,6 +219,20 @@ def profile_upscale(pred, frame, frames=10, **label):
             "device_ms_by_name": [[k[:60], ms] for k, ms in rows[:10]]}
 
 
+def k3_bound(nbytes, macs):
+    """The larger of bytes and operations, the operations on the faster of
+    K3's two routes (float32 on the CUDA cores, or 3xTF32 on the tensor
+    cores), with its name and all three times."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32_operations": 2 * macs / NON_TENSOR_OPS_PER_S * 1e3,
+             "tf32x3_operations": TF32_PRODUCTS_PER_F32 * 2 * macs
+             / TENSOR_TF32_OPS_PER_S * 1e3}
+    ops = min(parts["f32_operations"], parts["tf32x3_operations"])
+    if parts["bytes"] >= ops:
+        return parts["bytes"], "bytes", parts
+    return ops, "operations", parts
+
+
 def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
@@ -227,12 +282,12 @@ def chain_macs(oc, nf=NF):
 
 
 def k3_work(n, oc, n_members):
-    """(bytes, operations) of one K3 call over ``n`` pixels: the float32
+    """(bytes, multiply-adds) of one K3 call over ``n`` pixels: the float32
     image and the stacked member weights read once, the float32 [n, oC]
-    sums written once; 2 operations per multiply-add."""
+    sums written once."""
     weights = n_members * (chain_macs(oc) + 5 * NF + oc) * 4
     nbytes = n * 4 + weights + n * oc * 4
-    return nbytes, 2 * chain_macs(oc) * n_members * n
+    return nbytes, chain_macs(oc) * n_members * n
 
 
 def k4_work(n, oc, n_members):
@@ -286,7 +341,7 @@ def net_kernel_phases(dev, params, qparams, rng):
     x = codes.to(torch.float32) / 255.0      # a deploy stage input: k/255
     n = codes.numel()
     out = {"srnet_ensemble": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                              "bytes": 0, "ops": 0},
+                              "bytes": 0, "macs": 0},
            "srnet_ensemble_int8": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                    "bytes": 0, "int8_ops": 0, "f32_ops": 0}}
     for stage, oc in (("stage1", 1), ("stage2", 3)):
@@ -326,10 +381,11 @@ def net_kernel_phases(dev, params, qparams, rng):
                    "ms": ms, "launches_per_frame": 1, "plain_ms": plain_ms}
             acc = out[name]
             if name == "srnet_ensemble":
-                nbytes, ops = k3_work(n, oc, m)
-                row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
-                row.update(bytes=nbytes, ops=ops)
-                acc["ops"] += ops
+                nbytes, macs = k3_work(n, oc, m)
+                row["bound_ms"], row["bound_by"], row["bound_parts_ms"] = \
+                    k3_bound(nbytes, macs)
+                row.update(bytes=nbytes, macs=macs)
+                acc["macs"] += macs
             else:
                 nbytes, i8, f32 = k4_work(n, oc, m)
                 row["bound_ms"], row["bound_by"], row["bound_parts_ms"] = \
@@ -341,7 +397,8 @@ def net_kernel_phases(dev, params, qparams, rng):
             acc["err"] = max(acc["err"], err)
             acc["ms"] += ms
             acc["plain_ms"] += plain_ms
-            emit(row)
+            row["share_of_bound"] = row["bound_ms"] / ms
+            emit_timed(row)
     return out
 
 
@@ -425,10 +482,11 @@ def net_form_phases(dev, params, frame, backend):
                       .astype(np.float32) / 255).to(dev)
     device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)),
                          frames=10, warmup=2)
-    emit({"phase": "net_timing", "backend": backend, "frames": 10,
+    emit_timed({"phase": "net_timing", "backend": backend, "frames": 10,
           "upscale_ms": upscale_ms, "upscale_mps": mp / upscale_ms * 1e3,
           "device_ms": device_ms, "device_mps": mp / device_ms * 1e3})
-    emit(profile_upscale(pred, frame, frames=5, form="net", backend=backend))
+    emit_timed(profile_upscale(pred, frame, frames=5, form="net",
+                               backend=backend))
     return launches
 
 
@@ -451,8 +509,9 @@ def main() -> int:
     from lerf_torch.ops.resample import steering_resize_codes_plain
     from lerf_torch.pipeline import LutPredictor, _quantize_device
 
+    global CARD
     dev = torch.device("cuda")
-    card = card_line()
+    card = CARD = card_line()
 
     # -- 1. card, torch, build ---------------------------------------------
     print(card, flush=True)
@@ -463,8 +522,11 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0})
     for line in log.splitlines():
-        if "registers" in line or "stack frame" in line:
+        if ("srnet_ensemble" in line or "registers" in line
+                or "stack frame" in line):
             print("ptxas:", line.strip(), flush=True)
+    for row in ptxas_rows(log):
+        emit(row)
 
     rng = np.random.RandomState(1)
     shape = (3, LR_H, LR_W)
@@ -578,10 +640,10 @@ def main() -> int:
     x = torch.from_numpy(np.ascontiguousarray(
         frame.transpose(2, 0, 1)).astype(np.int32)).to(dev)
     device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)))
-    emit({"phase": "timing", "frames": 20, "upscale_ms": upscale_ms,
+    emit_timed({"phase": "timing", "frames": 20, "upscale_ms": upscale_ms,
           "upscale_mps": mp / upscale_ms * 1e3, "device_ms": device_ms,
           "device_mps": mp / device_ms * 1e3})
-    emit(profile_upscale(pred, frame))
+    emit_timed(profile_upscale(pred, frame))
 
     feat_d = lp.lut_stage1(x, s1, MODES)
     hyper_d = lp.lut_stage2(feat_d, s2, MODES)
@@ -601,8 +663,8 @@ def main() -> int:
         row = {"kernel": "lut_stage", "stage": name, "ms": ms,
                "launches_per_frame": 1, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "ops": nops}
-        emit(row)
+               "ops": nops, "share_of_bound": b_ms / ms}
+        emit_timed(row)
         k2_rows.append(row)
     k1_ms = event_ms(lambda: k1.steering_resize(feat_d, hyper_d, geom,
                                                 operands=ops), iters=50)
@@ -610,9 +672,10 @@ def main() -> int:
         feat_d, hyper_d, geom), iters=5, warmup=1)
     k1_bytes, k1_ops = k1_work(geom, 3)
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    emit({"kernel": "steering_resize", "ms": k1_ms, "launches_per_frame": 1,
-          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-          "bytes": k1_bytes, "ops": k1_ops})
+    emit_timed({"kernel": "steering_resize", "ms": k1_ms,
+                "launches_per_frame": 1, "plain_ms": k1_plain_ms,
+                "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
+                "ops": k1_ops, "share_of_bound": k1_bound / k1_ms})
 
     k2_bytes = sum(r["bytes"] for r in k2_rows)
     k2_ops = sum(r["ops"] for r in k2_rows)
@@ -623,14 +686,17 @@ def main() -> int:
          "replaces": "lerf_tpu/ops/pallas/resize_kernel.py:118",
          "launches": launches["steering_resize"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "share_of_bound": k1_bound / k1_ms,
+         "library_ms": None},
         {"name": "lut_stage", "route": "cuda",
          "source": "lerf_torch/csrc/lut_stage.cu",
          "replaces": "lerf_tpu/ops/lut_pipeline.py:255",
          "launches": launches["lut_stage"], "max_abs_err": 0,
          "ms": sum(r["ms"] for r in k2_rows),
          "plain_ms": sum(r["plain_ms"] for r in k2_rows),
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by,
+         "share_of_bound": k2_bound / sum(r["ms"] for r in k2_rows),
+         "library_ms": None},
     ]
 
     # -- 6. K3 / K4 vs their plain twins -----------------------------------
@@ -643,7 +709,7 @@ def main() -> int:
                     for backend in ("auto", "pallas_int8")}
 
     k3s, k4s = net["srnet_ensemble"], net["srnet_ensemble_int8"]
-    k3_bound, k3_by = bound(k3s["bytes"], k3s["ops"])
+    k3_b, k3_by, k3_parts = k3_bound(k3s["bytes"], k3s["macs"])
     k4_b, k4_by, _ = k4_bound(k4s["bytes"], k4s["int8_ops"], k4s["f32_ops"])
     kernels += [
         {"name": "srnet_ensemble", "route": "cuda",
@@ -651,15 +717,16 @@ def main() -> int:
          "replaces": "lerf_tpu/ops/pallas/srnet_kernel.py:78",
          "launches": net_launches["auto"]["srnet_ensemble"],
          "max_abs_err": k3s["err"], "ms": k3s["ms"],
-         "plain_ms": k3s["plain_ms"], "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "plain_ms": k3s["plain_ms"], "bound_ms": k3_b,
+         "bound_by": k3_by, "bound_parts_ms": k3_parts,
+         "share_of_bound": k3_b / k3s["ms"], "library_ms": None},
         {"name": "srnet_ensemble_int8", "route": "cuda",
          "source": "lerf_torch/csrc/srnet_ensemble_int8.cu",
          "replaces": "lerf_tpu/ops/pallas/srnet_kernel_int8.py:175",
          "launches": net_launches["pallas_int8"]["srnet_ensemble_int8"],
          "max_abs_err": k4s["err"], "ms": k4s["ms"],
          "plain_ms": k4s["plain_ms"], "bound_ms": k4_b, "bound_by": k4_by,
-         "library_ms": None},
+         "share_of_bound": k4_b / k4s["ms"], "library_ms": None},
     ]
 
     # -- 9. result ----------------------------------------------------------

@@ -8,9 +8,10 @@ keyed by a hash of the sources and flags, so a checkout builds once at
 first use and an edited source rebuilds.  Nothing here runs at import.
 
 No ``--use_fast_math`` and no FMA contraction: the decode division, the
-``expf`` and the weight products stay IEEE single-precision operations in
-the same order as the plain PyTorch twins.  K3 writes its multiply-adds as
-explicit ``fmaf`` (one rounding each), which ``--fmad=false`` leaves fused.
+``expf``, K3's accumulating adds and K4's requantization stay IEEE
+single-precision operations, each rounded on its own, as in the plain
+PyTorch twins.  The products of K3 and K4 run on the tensor cores
+(``mma.sync``), which the flag does not touch.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ The host prep, :func:`quantize_srunit_head` and :func:`stack_qheads`, is
 the JAX package's numpy code, copied as it is, so the port's int8 operands
 equal lerf_tpu's for the same float32 params.  The stage input is exact
 8-bit codes: the kernel reads the int32 code image and forms ``code − 128``
-itself.
+itself.  The products run on the int8 tensor cores: :class:`QuantHeads`
+carries the weights in the kernel's fragment order (:func:`int8_frags`),
+and nf is at most ``MAX_NF``.
 
 ``ensemble_sum_int8`` runs the plain twin (:func:`ensemble_sum_int8_plain`)
 for a CPU tensor and launches ``csrc/srnet_ensemble_int8.cu`` for a CUDA
@@ -25,7 +27,7 @@ import torch
 
 from ..lut_pipeline import MAX_PAD, _pad_all_sides, _sample4, member_offsets
 from . import _build
-from .srnet_ensemble import LAYERS, MAX_MEMBERS
+from .srnet_ensemble import LAYERS, MAX_MEMBERS, MAX_NF, padded_layer
 
 _SEGS = (1, 1, 2, 3, 4, 5)   # input segments per layer (of 64 features each;
                              # layer 1's "segment" is the 4-pixel input)
@@ -127,12 +129,11 @@ def stack_qheads(qheads: Sequence[Dict]):
 class QuantHeads(NamedTuple):
     """One stage's quantized member heads on one device, aligned with its
     members: ``w[k]`` int8 ``[M, out, in]`` (the :func:`stack_qheads`
-    layout), ``words[k]`` the same bytes as int32 ``[M, in/4, out]`` — four
-    consecutive inputs of one output per word, outputs contiguous, the
-    layout the kernel's ``__dp4a`` reads —, ``c[k]`` and ``b[k]`` float32
-    ``[M, out]``."""
+    layout), ``frags[k]`` the same weights in the B-fragment order of the
+    kernel's ``mma.sync.m16n8k32`` (:func:`int8_frags`), ``c[k]`` and
+    ``b[k]`` float32 ``[M, out]``."""
     w: Tuple[torch.Tensor, ...]
-    words: Tuple[torch.Tensor, ...]
+    frags: Tuple[torch.Tensor, ...]
     c: Tuple[torch.Tensor, ...]
     b: Tuple[torch.Tensor, ...]
 
@@ -145,9 +146,10 @@ class QuantHeads(NamedTuple):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
         w = tuple(up(ops[3 * i], np.int8) for i in range(6))
-        words = tuple(
-            x.view(torch.int32).transpose(1, 2).contiguous() for x in w)
-        return cls(w=w, words=words,
+        nf = w[0].shape[1]
+        return cls(w=w,
+                   frags=tuple(int8_frags(x, layer, nf)
+                               for layer, x in enumerate(w)),
                    c=tuple(up(ops[3 * i + 1][..., 0], np.float32)
                            for i in range(6)),
                    b=tuple(up(ops[3 * i + 2][..., 0], np.float32)
@@ -160,6 +162,26 @@ class QuantHeads(NamedTuple):
     @property
     def oc(self) -> int:
         return self.w[5].shape[1]
+
+
+def padded_nf(nf: int) -> int:
+    """K4's feature width: nf rounded up to 16 (two warps share a pixel
+    group's n-tiles of 8)."""
+    return -(-nf // 16) * 16
+
+
+def int8_frags(w: torch.Tensor, layer: int, nf: int) -> torch.Tensor:
+    """Stacked int8 ``[M, out, in]`` weights of ``layer`` → the B fragments
+    K4's ``mma.sync.m16n8k32`` reads, int8 ``[M, k-steps, n-tiles, 32, 8]``:
+    lane ``4g + q`` of (k-step s, n-tile t) holds inputs ``32s + 4q ..
+    +3`` and ``32s + 16 + 4q .. +3`` of output ``8t + g``; zero padding as
+    :func:`padded_layer`, to :func:`padded_nf` features and fan-ins of a
+    multiple of 32."""
+    dense = padded_layer(w.transpose(1, 2), layer, nf, padded_nf(nf), 32)
+    m, kp, np_ = dense.shape
+    return dense.reshape(m, kp // 32, 2, 4, 4, np_ // 8, 8) \
+        .permute(0, 1, 5, 6, 3, 2, 4).reshape(m, kp // 32, np_ // 8, 32, 8) \
+        .contiguous()
 
 
 def sample_x4q(codes: torch.Tensor, members) -> torch.Tensor:
@@ -209,11 +231,16 @@ def ensemble_sum_int8_plain(codes: torch.Tensor, heads: QuantHeads, members,
 
 def _check_heads(heads: QuantHeads, n_members: int, device):
     nf, oc = heads.nf, heads.oc
-    fan_in = [4] + [k * nf for k in range(1, 5)] + [5 * nf]
+    if not 0 < nf <= MAX_NF or oc not in (1, 3):
+        raise ValueError(f"srnet_ensemble_int8: nf {nf} must be "
+                         f"1..{MAX_NF} and oC {oc} 1 or 3")
+    nt = padded_nf(nf) // 8
+    ksteps = [1] + [-(-k * nt // 4) for k in range(1, 6)]
     outs = [nf] * 5 + [oc]
     for k in range(6):
-        shapes = ((heads.words[k], (n_members, fan_in[k] // 4, outs[k]),
-                   torch.int32),
+        shapes = ((heads.frags[k],
+                   (n_members, ksteps[k], nt if k < 5 else 1, 32, 8),
+                   torch.int8),
                   (heads.c[k], (n_members, outs[k]), torch.float32),
                   (heads.b[k], (n_members, outs[k]), torch.float32))
         for t, shape, dtype in shapes:
@@ -222,9 +249,6 @@ def _check_heads(heads: QuantHeads, n_members: int, device):
                 raise ValueError(
                     "srnet_ensemble_int8: heads must be QuantHeads for "
                     f"M={n_members}, nf={nf}, oC={oc} on the codes' device")
-    if nf % 4 or oc not in (1, 3):
-        raise ValueError(f"srnet_ensemble_int8: nf {nf} must be a multiple "
-                         f"of 4 and oC {oc} 1 or 3")
 
 
 def ensemble_sum_int8(codes: torch.Tensor, heads: QuantHeads, members, *,
@@ -255,7 +279,7 @@ def ensemble_sum_int8(codes: torch.Tensor, heads: QuantHeads, members, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_srnet_ensemble_int8(
             x.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in heads.words),
+            *(t.data_ptr() for t in heads.frags),
             *(t.data_ptr() for t in heads.c), *(t.data_ptr() for t in heads.b),
             offsets.ctypes.data, len(members), c, h, w, heads.nf, heads.oc,
             float(half), stream)

@@ -10,7 +10,8 @@ must be bit-equal; K1 holds atol 1e-3 on 0..255 outputs (the kernel and the
 plain twin do the same float32 operations in the same order; their ``exp``
 implementations may differ by a few ulp).  K3 sums the same float32
 products in another order, which can move a member's ``round(tanh·127)`` at
-a .5 edge: sums within 2 on < 0.5 % of pixels.  K4's hidden int8
+a .5 edge (its 3xTF32 products carry ~2⁻²² relative error, float32's
+own): sums within 2 on < 0.5 % of pixels.  K4's hidden int8
 arithmetic is bit-equal to its twin by construction and only ``tanhf`` may
 differ by an ulp: sums within 1 on < 0.1 %.
 """
@@ -43,8 +44,16 @@ STAGES = {"stage1": (lp.lut_stage1, False, 0, "stage1"),
           "intermediate": (lp.lut_stage1_intermediate, False, 127, "stage1"),
           "stage2": (lp.lut_stage2, True, 127, "stage2")}
 NET_MEMBERS = srnet.stage_members(MODES)
-# name → (nf, oC): the micro-net ensembles K3 / K4 are checked at
-NET_CASES = {"nf8-oc1": (8, 1), "nf64-oc1": (64, 1), "nf64-oc3": (64, 3)}
+# name → (nf, oC, image shape, members): the micro-net ensembles K3 / K4
+# are checked at; both tile 128 pixels, so 3×45×77 and 1×13×23 end in a
+# ragged tile; nf 8 and 12 pad K4's fan-ins to 32 and both kernels'
+# features to 16; 20 members is MAX_MEMBERS
+NET_CASES = {"nf8-oc1": (8, 1, (3, 45, 77), 12),
+             "nf64-oc1": (64, 1, (3, 45, 77), 12),
+             "nf64-oc3": (64, 3, (3, 45, 77), 12),
+             "nf8-oc3-m5": (8, 3, (2, 30, 41), 5),
+             "nf12-oc1-m20": (12, 1, (2, 30, 41), 20),
+             "nf64-oc3-m20-ragged": (64, 3, (1, 13, 23), 20)}
 
 
 @pytest.fixture
@@ -88,6 +97,29 @@ def net_params(nf=8, seed=0):
     return lerf_nets_from_arrays(
         {"s1": {f"s1_{m}": head(1) for m in MODES},
          "s2": {f"{m}r{r}": head(3) for m in MODES for r in (0, 1)}})
+
+
+def member_case(nf, oc, n_members, seed=0):
+    """``n_members`` members over the three modes (mode-major, modes
+    repeating past 12), each with its own numpy-drawn head."""
+    rng = np.random.RandomState(seed)
+    fans = [4] + [k * nf for k in range(1, 5)] + [5 * nf]
+    heads = []
+    for _ in range(n_members):
+        p = {}
+        for k, (fan_in, out) in enumerate(zip(fans, [nf] * 5 + [oc]), 1):
+            p[f"w{k}"] = (rng.randn(fan_in, out) * np.sqrt(2.0 / fan_in)) \
+                .astype(np.float32)
+            p[f"b{k}"] = (rng.randn(out) * 0.1).astype(np.float32)
+        heads.append(p)
+    members = [(MODES[(i // 4) % len(MODES)], i % 4)
+               for i in range(n_members)]
+    return heads, members
+
+
+def quantize_heads(heads, seed=0):
+    calib = np.random.RandomState(seed).rand(512, 4).astype(np.float32)
+    return [k4.quantize_srunit_head(h, calib) for h in heads]
 
 
 def net_heads(params, oc):
@@ -161,36 +193,149 @@ def test_srnet_ensemble_int8_wrapper_takes_plain_twin_on_cpu(oc):
         codes, heads, NET_MEMBERS, half=127), rtol=0, atol=0)
 
 
+def split_weights(seed=7):
+    """float32 weights over many binades, with both signs, zeros and values
+    that sit at a TF32 rounding tie."""
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(4096) * np.exp2(rng.randint(-30, 20, 4096))) \
+        .astype(np.float32)
+    ties = (rng.randint(1 << 10, 1 << 11, 64) * 2 + 1).astype(np.float32) \
+        * np.float32(2.0 ** -11)         # 12 significant bits, odd last
+    return torch.from_numpy(np.concatenate([w, ties, -ties, [0.0, -0.0]])
+                            .astype(np.float32))
+
+
+def test_tf32_split_hi_and_lo_have_low_13_mantissa_bits_zero():
+    hi, lo = k3.tf32_split(split_weights())
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+
+
+def test_tf32_split_sums_to_the_weight():
+    w = split_weights()
+    hi, lo = k3.tf32_split(w)
+    err = (hi.double() + lo.double() - w.double()).abs()
+    assert bool((err <= w.double().abs() * 2.0 ** -22).all())
+    # hi is the nearest TF32 value (ties away from zero): |w - hi| is at
+    # most half a TF32 step of w
+    step = torch.frexp(w.double())[1].double().sub(11).exp2()
+    assert bool(((w.double() - hi.double()).abs() <= step / 2).all())
+
+
+def unpack_tf32_frags(frags, layer, nf, fan_in, out):
+    """Invert :func:`k3.tf32_frags`: the ``[M, in, out]`` hi and lo and the
+    zero padding left over."""
+    m, ks, nts = frags.shape[:3]
+    dense = frags.reshape(m, ks, nts, 8, 4, 2, 2) \
+        .permute(5, 0, 1, 4, 6, 2, 3).reshape(2, m, ks * 8, nts * 8)
+    return unpad(dense, layer, nf, -(-nf // 16) * 16, fan_in, out)
+
+
+def unpack_int8_frags(frags, layer, nf, fan_in, out):
+    """Invert :func:`k4.int8_frags`: ``[M, in, out]`` and the padding."""
+    m, ks, nts = frags.shape[:3]
+    dense = frags.reshape(m, ks, nts, 8, 4, 2, 4) \
+        .permute(0, 1, 5, 4, 6, 2, 3).reshape(1, m, ks * 32, nts * 8)
+    return unpad(dense, layer, nf, -(-nf // 16) * 16, fan_in, out)
+
+
+def unpad(dense, layer, nf, nfp, fan_in, out):
+    rows = (list(range(fan_in)) if layer == 0 else
+            [s * nfp + j for s in range(layer) for j in range(nf)])
+    keep = torch.zeros(dense.shape[2:], dtype=torch.bool)
+    keep[torch.tensor(rows)[:, None], torch.arange(out)] = True
+    return dense[:, :, rows][..., :out], dense[:, :, ~keep]
+
+
+@pytest.mark.parametrize("nf,oc", [(8, 1), (12, 3), (64, 3)])
+def test_k3_fragments_round_trip_to_the_params(nf, oc):
+    heads, _ = member_case(nf, oc, 3, seed=4)
+    sh = k3.StackedHeads.create(heads)
+    for layer, (w, f) in enumerate(zip(sh.w, sh.frags)):
+        assert f.shape[-2:] == (32, 4) and f.is_contiguous()
+        (hi, lo), pad = unpack_tf32_frags(f, layer, nf, *w.shape[1:])
+        want_hi, want_lo = k3.tf32_split(w)
+        assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+        assert not bool(pad.any())
+
+
+@pytest.mark.parametrize("nf,oc", [(8, 1), (12, 3), (64, 3)])
+def test_k4_fragments_round_trip_to_the_params(nf, oc):
+    heads, _ = member_case(nf, oc, 3, seed=4)
+    qh = k4.QuantHeads.create(quantize_heads(heads))
+    for layer, (w, f) in enumerate(zip(qh.w, qh.frags)):
+        assert f.dtype == torch.int8 and f.shape[-2:] == (32, 8)
+        (got,), pad = unpack_int8_frags(f, layer, nf, w.shape[2], w.shape[1])
+        assert torch.equal(got, w.transpose(1, 2))
+        assert not bool(pad.any())
+
+
+@pytest.mark.parametrize("kernel", ["float", "int8"])
+def test_plain_member_sum_is_order_free(kernel):
+    """Permuting the members together with their heads leaves every sum
+    bit-identical: each term is an integer below 2²⁴, so float32 adds them
+    exactly in any order (what lets a kernel split the members)."""
+    heads, members = member_case(8, 3, 12, seed=9)
+    perm = np.random.RandomState(3).permutation(len(members))
+    rng = np.random.RandomState(8)
+    if kernel == "float":
+        make, fn = k3.StackedHeads.create, k3.ensemble_sum_plain
+        img = torch.from_numpy(rng.rand(2, 9, 13).astype(np.float32))
+    else:
+        heads = quantize_heads(heads)
+        make, fn = k4.QuantHeads.create, k4.ensemble_sum_int8_plain
+        img = torch.from_numpy(rng.randint(0, 256, (2, 9, 13))
+                               .astype(np.int32))
+    got = fn(img, make([heads[i] for i in perm]),
+             [members[i] for i in perm], half=127)
+    want = fn(img, make(heads), members, half=127)
+    assert torch.equal(got, want)
+
+
+def test_plain_twin_leaves_the_tf32_flag_as_it_was():
+    heads = k3.StackedHeads.create(net_heads(net_params(), 1))
+    img = torch.zeros(1, 4, 5)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            k3.ensemble_sum_plain(img, heads, NET_MEMBERS, half=127)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(NET_CASES))
 def test_srnet_ensemble_kernel_matches_plain(case, cuda_device):
-    nf, oc = NET_CASES[case]
-    heads = k3.StackedHeads.create(net_heads(net_params(nf), oc), cuda_device)
-    img = torch.from_numpy(np.random.RandomState(5).rand(3, 45, 77)
+    nf, oc, shape, n_members = NET_CASES[case]
+    heads, members = member_case(nf, oc, n_members)
+    heads = k3.StackedHeads.create(heads, cuda_device)
+    img = torch.from_numpy(np.random.RandomState(5).rand(*shape)
                            .astype(np.float32)).to(cuda_device)
     before = k3.launches
-    got = k3.ensemble_sum(img, heads, NET_MEMBERS, half=127)
+    got = k3.ensemble_sum(img, heads, members, half=127)
     torch.cuda.synchronize()
     assert k3.launches == before + 1
-    want = k3.ensemble_sum_plain(img, heads, NET_MEMBERS, half=127)
-    assert got.shape == want.shape == (3, 45, 77, oc)
+    want = k3.ensemble_sum_plain(img, heads, members, half=127)
+    assert got.shape == want.shape == shape + (oc,)
     assert_levels_close(want, got, 2, 0.005)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(NET_CASES))
 def test_srnet_ensemble_int8_kernel_matches_plain(case, cuda_device):
-    nf, oc = NET_CASES[case]
-    qp = srnet.quantize_lerf_params(net_params(nf))
-    heads = k4.QuantHeads.create(net_heads(qp, oc), cuda_device)
+    nf, oc, shape, n_members = NET_CASES[case]
+    heads, members = member_case(nf, oc, n_members)
+    heads = k4.QuantHeads.create(quantize_heads(heads), cuda_device)
     codes = torch.from_numpy(np.random.RandomState(5).randint(
-        0, 256, (3, 45, 77)).astype(np.int32)).to(cuda_device)
+        0, 256, shape).astype(np.int32)).to(cuda_device)
     before = k4.launches
-    got = k4.ensemble_sum_int8(codes, heads, NET_MEMBERS, half=127)
+    got = k4.ensemble_sum_int8(codes, heads, members, half=127)
     torch.cuda.synchronize()
     assert k4.launches == before + 1
-    want = k4.ensemble_sum_int8_plain(codes, heads, NET_MEMBERS, half=127)
-    assert got.shape == want.shape == (3, 45, 77, oc)
+    want = k4.ensemble_sum_int8_plain(codes, heads, members, half=127)
+    assert got.shape == want.shape == shape + (oc,)
     assert_levels_close(want, got, 1, 0.001)
 
 
