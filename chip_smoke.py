@@ -16,13 +16,19 @@ PyTorch twin on the card:
    with each kernel's registers, stack, spills and static shared memory
    from ``-Xptxas -v``;
 2. K1 (steering resize) vs its plain twin at 360×640, ×4 / ×2.5 / ×3.55 /
-   ×0.5: float32 max-abs ≤ 1e-3; uint8 mismatches must be .5 ties;
+   ×0.5: float32 max-abs ≤ 1e-3; K1's uint8 mode exactly equal to its
+   float mode quantized; uint8 mismatches with the twin must be .5 ties;
 3. K2 (LUT stage) vs its plain twin, bit-equal: stage 1, stage 2 and a
    3-stage bank's intermediate stage;
 4. LUT form end to end on the card vs ``device="cpu"``: feat and hyper
    bit-equal, uint8 equal but for .5 ties; K1 launched once, K2 twice;
 5. LUT form timing: the whole ``upscale`` call, its device part, a
-   profile, each kernel and its plain twin, with each kernel's bound;
+   profile, the device part's kernels (K1 and K2 and nothing else), each
+   kernel (K1 in its main-path uint8 mode, its float mode beside it) by
+   CUDA events around back-to-back calls, with torch.profiler's device
+   time of the kernel alone beside it (events read the host's rate once a
+   wrapper's Python costs more than its kernel), and its plain twin, with
+   each kernel's bound;
 6. K3 (float SRUnit ensemble, 3xTF32 on the tensor cores) and K4 (int8
    tensor cores) vs their plain twins at the stage shapes, 3×360×640 with
    oC 1 and oC 3 — K3 sums within 2 on < 0.5 % of pixels (products with
@@ -74,9 +80,12 @@ TENSOR_INT8_OPS_PER_S = 1979e12
 # K3 keeps float32 on the tensor cores as three TF32 products a multiply-add
 TF32_PRODUCTS_PER_F32 = 3
 # operations counted per unit of work for the bound:
-#  K1, per output pixel and neighbour: decode 7 (3 div, 3 mul, 1 sub),
-#  weight 13 (exp counted as 1), accumulate 3; antialias adds 3
-K1_OPS_PER_NEIGHBOUR = 23
+#  K1, per output pixel and neighbour: weight 11 (exp counted as 1),
+#  accumulate 3; antialias adds 1; per source pixel the decode, 8 (3 div,
+#  4 mul, 1 sub); per output the epilogue, 4 in uint8 (div, rint, clip)
+K1_OPS_PER_NEIGHBOUR = 14
+K1_OPS_PER_SOURCE = 8
+K1_OPS_PER_OUTPUT_U8 = 4
 #  K2, per pixel, member and output channel: the 5 multiply-adds of the blend
 K2_OPS_PER_MEMBER_CHANNEL = 10
 #  K4, per member and pixel: requantizing a hidden activation (convert,
@@ -219,6 +228,34 @@ def profile_upscale(pred, frame, frames=10, **label):
             "device_ms_by_name": [[k[:60], ms] for k, ms in rows[:10]]}
 
 
+def device_rows(fn, frames=5):
+    """torch.profiler's device activities of ``frames`` calls of ``fn``:
+    [(name, calls a frame, device ms a frame)]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count / frames, e.self_device_time_total / 1e3 / frames)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def kernel_device_ms(fn, key, frames=20):
+    """Device ms a call of ``fn`` spends in kernels whose name holds
+    ``key``, by torch.profiler: the kernel alone, whatever the host's
+    launch overhead (CUDA events around back-to-back calls read the host's
+    rate once a call's Python costs more than its kernel)."""
+    return sum(ms for name, _, ms in device_rows(fn, frames) if key in name)
+
+
 def k3_bound(nbytes, macs):
     """The larger of bytes and operations, the operations on the faster of
     K3's two routes (float32 on the CUDA cores, or 3xTF32 on the tensor
@@ -240,17 +277,23 @@ def bound(nbytes, ops):
 
 
 def k1_work(geom, c):
-    """(bytes, operations) of one K1 call: feature and codes read once,
-    the float32 output and the device geometry written/read once."""
+    """(bytes, operations) of one K1 call in uint8 mode: the int32 feature
+    and codes read once, the uint8 output written once, the device
+    geometry read once; the decode once a source pixel, the weights and
+    sums once an output and neighbour, the epilogue once an output."""
     (h, w), (oh, ow), s = geom.in_sz, geom.out_sz, geom.support
-    nbytes = c * h * w * 4 * 4 + c * oh * ow * 4 + (oh + ow) * s * 8
-    per = K1_OPS_PER_NEIGHBOUR + (3 if geom.antialias else 0)
-    return nbytes, c * oh * ow * (s * s * per + 1)
+    nbytes = c * h * w * 4 * 4 + c * oh * ow + (oh + ow) * s * 8
+    per = K1_OPS_PER_NEIGHBOUR + (1 if geom.antialias else 0)
+    ops = (c * h * w * K1_OPS_PER_SOURCE
+           + c * oh * ow * (s * s * per + K1_OPS_PER_OUTPUT_U8))
+    return nbytes, ops
 
 
 def k2_work(c, h, w, oc, n_tables, n_members):
-    """(bytes, operations) of one K2 call: image and tables read once,
-    the int32 stage output written once."""
+    """(bytes, operations) of one K2 call: the image and the int8 [K, L⁴,
+    oC] tables read once (the padded and cell-row copies K2 reads are the
+    implementation's cost, not the function's), the int32 stage output
+    written once."""
     nbytes = c * h * w * 4 + n_tables * L4 * oc + c * h * w * oc * 4
     return nbytes, c * h * w * n_members * oc * K2_OPS_PER_MEMBER_CHANNEL
 
@@ -539,6 +582,7 @@ def main() -> int:
     for scale in (4.0, 2.5, 3.55, 0.5):
         geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[scale] * 2)
         got = k1.steering_resize(feat, codes, geom)
+        got_u8 = k1.steering_resize(feat, codes, geom, out_dtype=torch.uint8)
         want = steering_resize_codes_plain(feat, codes, geom)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
@@ -546,14 +590,20 @@ def main() -> int:
         err = float((got - want).abs().max())
         if err > K1_ATOL:
             raise AssertionError(f"K1 x{scale}: max-abs {err} > {K1_ATOL}")
-        n = check_ties(_quantize_device(got, 255).cpu().numpy(),
+        if got_u8.dtype != torch.uint8 or not torch.equal(
+                got_u8, _quantize_device(got, 255)):
+            raise AssertionError(f"K1 x{scale}: the uint8 mode differs from "
+                                 "the float mode quantized")
+        n = check_ties(got_u8.cpu().numpy(),
                        _quantize_device(want, 255).cpu().numpy(),
                        want.cpu().numpy(),
                        f"K1 x{scale}")
         k1_err = max(k1_err, err)
         emit({"phase": "k1_vs_plain", "scale": scale,
               "out": list(geom.out_sz), "antialias": geom.antialias,
-              "support": geom.support, "max_abs_err": err,
+              "support": geom.support,
+              "tile": list(k1.ResizeOperands.create(geom, dev).tile),
+              "max_abs_err": err, "u8_equal_to_quantized_float": True,
               "u8_mismatch": n})
 
     # -- 3. K2 vs its plain twin -------------------------------------------
@@ -644,6 +694,18 @@ def main() -> int:
           "upscale_mps": mp / upscale_ms * 1e3, "device_ms": device_ms,
           "device_mps": mp / device_ms * 1e3})
     emit_timed(profile_upscale(pred, frame))
+    # the device part launches K1 and K2 and nothing else: no elementwise
+    # quantization after K1 (copies would be allowed; there are none)
+    rows = device_rows(lambda: pred.run_device(x, (SCALE, SCALE)))
+    stray = [name for name, _, _ in rows
+             if not ("steering_resize_kernel" in name
+                     or "lut_stage_kernel" in name
+                     or name.startswith(("Memcpy", "Memset")))]
+    emit_timed({"phase": "device_part_kernels", "form": "lut",
+                "rows": [[k[:60], n, ms] for k, n, ms in rows]})
+    if stray:
+        raise AssertionError(f"LUT run_device launches other kernels than "
+                             f"K1 and K2: {stray}")
 
     feat_d = lp.lut_stage1(x, s1, MODES)
     hyper_d = lp.lut_stage2(feat_d, s2, MODES)
@@ -655,27 +717,40 @@ def main() -> int:
         fn = lp.lut_stage1 if name == "stage1" else lp.lut_stage2
         den, bias = (3 * q, 0) if name == "stage1" else (12 * q, 127)
         ms = event_ms(lambda: fn(inp, tables, MODES), iters=50)
+        profiler_ms = kernel_device_ms(lambda: fn(inp, tables, MODES),
+                                       "lut_stage_kernel")
         plain_ms = event_ms(lambda: lp.lut_stage_plain(
             inp, tables, MODES, split_r=split_r, den=den, bias=bias),
             iters=5, warmup=1)
         nbytes, nops = k2_work(3, LR_H, LR_W, oc, len(tables.keys), 12)
         b_ms, b_by = bound(nbytes, nops)
         row = {"kernel": "lut_stage", "stage": name, "ms": ms,
-               "launches_per_frame": 1, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "ops": nops, "share_of_bound": b_ms / ms}
+               "profiler_ms": profiler_ms, "launches_per_frame": 1,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "ops": nops, "share_of_bound": b_ms / ms}
         emit_timed(row)
         k2_rows.append(row)
-    k1_ms = event_ms(lambda: k1.steering_resize(feat_d, hyper_d, geom,
-                                                operands=ops), iters=50)
-    k1_plain_ms = event_ms(lambda: steering_resize_codes_plain(
-        feat_d, hyper_d, geom), iters=5, warmup=1)
+    # K1's row is the main path's uint8 mode; the float mode beside it
+    def k1_u8():
+        return k1.steering_resize(feat_d, hyper_d, geom, operands=ops,
+                                  out_dtype=torch.uint8)
+
+    k1_ms = event_ms(k1_u8, iters=50)
+    k1_profiler_ms = kernel_device_ms(k1_u8, "steering_resize_kernel")
+    k1_float_ms = event_ms(lambda: k1.steering_resize(
+        feat_d, hyper_d, geom, operands=ops), iters=50)
+    k1_plain_ms = event_ms(lambda: _quantize_device(
+        steering_resize_codes_plain(feat_d, hyper_d, geom), 255),
+        iters=5, warmup=1)
     k1_bytes, k1_ops = k1_work(geom, 3)
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    emit_timed({"kernel": "steering_resize", "ms": k1_ms,
-                "launches_per_frame": 1, "plain_ms": k1_plain_ms,
-                "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
-                "ops": k1_ops, "share_of_bound": k1_bound / k1_ms})
+    emit_timed({"kernel": "steering_resize", "out_dtype": "uint8",
+                "tile": list(ops.tile), "ms": k1_ms,
+                "profiler_ms": k1_profiler_ms, "float_mode_ms": k1_float_ms,
+                "launches_per_frame": 1,
+                "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+                "bound_by": k1_by, "bytes": k1_bytes, "ops": k1_ops,
+                "share_of_bound": k1_bound / k1_ms})
 
     k2_bytes = sum(r["bytes"] for r in k2_rows)
     k2_ops = sum(r["ops"] for r in k2_rows)

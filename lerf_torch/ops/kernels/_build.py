@@ -98,6 +98,7 @@ def _declare(lib):
         vp, vp, vp, vp, vp, vp, vp,          # img, codes, out, rows, cols, dx, dy
         i32, i32, i32, i32, i32, i32,        # C, H, W, OH, OW, S
         i32, f32, f32, f32,                  # antialias, min_scale, max_sigma, norm
+        i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
         vp]                                  # stream
     lib.lerf_steering_resize.restype = i32
     lib.lerf_lut_stage.argtypes = [

@@ -37,15 +37,22 @@ def lut_stage(img: torch.Tensor, tables: FlatTables, modes: Sequence[str],
         raise ValueError("lut_stage: img must be int32 [..., H, W]")
     if not 0 < norm <= 255:
         raise ValueError(f"lut_stage: norm {norm} outside 1..255")
-    table = tables.table
-    if (table.device != img.device or table.dtype != torch.int8
-            or not table.is_contiguous()):
-        raise ValueError("lut_stage: tables must be contiguous int8 on "
-                         "the image's device")
-    k, l4, oc = table.shape
+    k, l4, oc = tables.table.shape
     if l4 != ((1 << (8 - interval)) + 1) ** 4 or oc not in (1, 3):
-        raise ValueError(f"lut_stage: table shape {tuple(table.shape)} does "
-                         f"not match interval {interval} / oC in (1, 3)")
+        raise ValueError(f"lut_stage: table shape "
+                         f"{tuple(tables.table.shape)} does not match "
+                         f"interval {interval} / oC in (1, 3)")
+    # oC 3 reads a corner as one word of the padded copy, oC 1 a member as
+    # one 16-byte row of the cell copy
+    if oc == 3:
+        table, want = tables.padded, (k, l4, 4)
+    else:
+        table, want = tables.cells, (k, (1 << (4 * (8 - interval))), 16)
+    if (table is None or table.device != img.device
+            or table.dtype != torch.int8 or not table.is_contiguous()
+            or table.shape != want):
+        raise ValueError("lut_stage: tables must be contiguous int8 on "
+                         "the image's device (FlatTables.create)")
     members = member_descriptors(modes, split_r, tables.keys)
     x = img.contiguous()
     h, w = x.shape[-2], x.shape[-1]

@@ -13,7 +13,9 @@ image.  All stage arithmetic is int32 with exact round-half-even division,
 so the stage outputs are bit-identical to the reference.
 
 The port has one table layout, :class:`FlatTables`: the stage's flat
-``[L⁴, oC]`` int8 tables stacked in key order.  The public stage functions
+``[L⁴, oC]`` int8 tables stacked in key order, beside the copies K2 reads
+(padded corner words for oC = 3, 16-corner cell rows for oC = 1).  The
+public stage functions
 (:func:`lut_stage1`, :func:`lut_stage1_intermediate`, :func:`lut_stage2`)
 run through the K2 wrapper (:mod:`lerf_torch.ops.kernels.lut_stage`): the
 kernel on a CUDA tensor, :func:`lut_stage_plain` on a CPU tensor.
@@ -21,7 +23,8 @@ kernel on a CUDA tensor, :func:`lut_stage_plain` on a CPU tensor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+import functools
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,17 +94,44 @@ def ensemble_members(modes: Sequence[str], split_r: bool):
 @dataclasses.dataclass(frozen=True)
 class FlatTables:
     """One stage's LUTs on the device: ``table[k]`` is the flat int8
-    ``[L⁴, oC]`` table of ``keys[k]`` (keys sorted)."""
+    ``[L⁴, oC]`` table of ``keys[k]`` (keys sorted).  K2 reads copies laid
+    out for its loads, made here once: for oC = 3 ``padded`` ``[K, L⁴, 4]``
+    (each corner's values in one aligned 4-byte word, the fourth byte
+    zero), for oC = 1 ``cells`` (:func:`cell_rows`).  The plain twin reads
+    ``table``."""
     keys: Tuple[str, ...]
     table: torch.Tensor           # int8 [K, L⁴, oC], contiguous
+    padded: Optional[torch.Tensor] = None   # int8 [K, L⁴, 4], oC = 3
+    cells: Optional[torch.Tensor] = None    # int8 [K, (L-1)⁴, 16], oC = 1
 
     @classmethod
     def create(cls, luts: Dict[str, np.ndarray], device="cpu"):
         keys = tuple(sorted(luts))
         stacked = np.stack([np.asarray(luts[k]).astype(np.int8)
                             for k in keys])
-        return cls(keys=keys,
-                   table=torch.from_numpy(stacked).to(device).contiguous())
+        table = torch.from_numpy(stacked).to(device).contiguous()
+        if table.shape[-1] == 3:
+            return cls(keys=keys, table=table, padded=torch.nn.functional
+                       .pad(table, (0, 1)).contiguous())
+        return cls(keys=keys, table=table, cells=cell_rows(table))
+
+
+def cell_rows(table: torch.Tensor) -> torch.Tensor:
+    """int8 ``[K, L⁴, 1]`` → ``[K, (L-1)⁴, 16]``: row ``cell`` of table k
+    holds the 16 corners of the MSB cell ``((a·(L-1) + b)·(L-1) + c)·(L-1)
+    + d``, corner ``bits`` at the entry raised by role a if bit 3 is set,
+    b if bit 2, c if bit 1, d if bit 0 (the JAX package's packed rows for
+    one output channel)."""
+    k, l4, _ = table.shape
+    lat = round(l4 ** 0.25)
+    if lat ** 4 != l4:
+        raise ValueError(f"table of {l4} entries is not an L⁴ lattice")
+    a = torch.arange(lat - 1, device=table.device)
+    cell = (((a[:, None, None, None] * lat + a[None, :, None, None]) * lat
+             + a[None, None, :, None]) * lat + a[None, None, None, :])
+    bits = torch.arange(16, device=table.device)
+    raise_ = sum(((bits >> (3 - r)) & 1) * lat ** (3 - r) for r in range(4))
+    return table[:, :, 0][:, cell.reshape(-1, 1) + raise_].contiguous()
 
 
 def member_offsets(members) -> np.ndarray:
@@ -115,12 +145,21 @@ def member_offsets(members) -> np.ndarray:
 def member_descriptors(modes: Sequence[str], split_r: bool,
                        keys: Sequence[str]) -> np.ndarray:
     """int32 ``[M, 9]``: per member the 4 rotated (row, col) sample offsets
-    in role order, then the index of its table in ``keys``."""
+    in role order, then the index of its table in ``keys``.  Read-only and
+    cached: K2's wrapper asks for it at every launch, on the host path of
+    a frame."""
+    return _member_descriptors(tuple(modes), bool(split_r), tuple(keys))
+
+
+@functools.lru_cache(maxsize=64)
+def _member_descriptors(modes, split_r, keys):
     members = ensemble_members(modes, split_r)
-    index = [[list(keys).index(key)] for _, _, key in members]
-    return np.concatenate(
+    index = [[keys.index(key)] for _, _, key in members]
+    desc = np.concatenate(
         [member_offsets([(m, r) for m, r, _ in members]),
          np.asarray(index, np.int32)], axis=1)
+    desc.flags.writeable = False
+    return desc
 
 
 def stack_ensemble_inputs(img: torch.Tensor, modes: Sequence[str],

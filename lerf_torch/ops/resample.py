@@ -110,3 +110,12 @@ def steering_resize_codes_plain(feat: torch.Tensor, codes: torch.Tensor,
     rho, sx, sy = split_gaussian_hyper(codes, norm)
     return steering_gaussian_resize(feat.to(torch.float32), rho, sx, sy,
                                     geom, max_sigma=max_sigma)
+
+
+def quantize_device(out: torch.Tensor, norm: int):
+    """Round (half to even, as ``jnp.round``) / clip / cast to uint8 on the
+    tensor's device when the range allows it: the plain form of K1's uint8
+    epilogue."""
+    if norm <= 255:
+        return torch.clamp(torch.round(out), 0, norm).to(torch.uint8)
+    return out

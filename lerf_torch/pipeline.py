@@ -3,11 +3,11 @@
 The port of ``lerf_tpu.pipeline``'s two SR predictors:
 
 * :class:`LutPredictor` (``pipeline.py:41-66,855-1017``), the LUT form: on
-  a CUDA device a frame runs as two K2 launches (stage 1, stage 2), one K1
-  launch (resize) and the uint8 quantization.
+  a CUDA device a frame runs as two K2 launches (stage 1, stage 2) and one
+  K1 launch, which writes the uint8 frame itself.
 * :class:`NetPredictor` (``pipeline.py:194-398``), the micro-net (SRNet)
   form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
-  epilogues, one K1 launch and the quantization.
+  epilogues and one K1 launch.
 
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
@@ -27,14 +27,14 @@ from .ops.geometry import ResizeGeometry
 from .ops.kernels.resize import ResizeOperands, steering_resize
 from .ops.lut_pipeline import (FlatTables, lut_stage1,
                                lut_stage1_intermediate, lut_stage2)
+# the uint8 cast K1 fuses, kept under its old name for callers
+from .ops.resample import quantize_device as _quantize_device  # noqa: F401
 
 
-def _quantize_device(out: torch.Tensor, norm: int):
-    """Round (half to even, as ``jnp.round``) / clip / cast to uint8 on the
-    device when the range allows it."""
-    if norm <= 255:
-        return torch.clamp(torch.round(out), 0, norm).to(torch.uint8)
-    return out
+def _out_dtype(norm: int):
+    """K1 writes uint8 itself when the range allows it; otherwise float32,
+    which ``_quantize_host`` finishes."""
+    return torch.uint8 if norm <= 255 else torch.float32
 
 
 def _quantize_host(arr, norm):
@@ -147,8 +147,9 @@ class LutPredictor:
         geom, operands = self._resize_fn(tuple(chw.shape[1:]), scale)
         feat, hyper = self._stages_fn(chw)
         out = steering_resize(feat, hyper, geom, max_sigma=self.max_sigma,
-                              norm=self.norm, operands=operands)
-        return _quantize_device(out, self.norm), feat, hyper
+                              norm=self.norm, operands=operands,
+                              out_dtype=_out_dtype(self.norm))
+        return out, feat, hyper
 
     def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
                 return_aux: bool = False):
@@ -281,8 +282,9 @@ class NetPredictor:
         geom, operands = self._resize_fn(tuple(img_f.shape[1:]), scale)
         feat, hyper = self._stages(img_f)
         out = steering_resize(feat, hyper, geom, max_sigma=self.max_sigma,
-                              norm=self.norm, operands=operands)
-        return _quantize_device(out, self.norm), feat, hyper
+                              norm=self.norm, operands=operands,
+                              out_dtype=_out_dtype(self.norm))
+        return out, feat, hyper
 
     def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
                 return_aux: bool = False):

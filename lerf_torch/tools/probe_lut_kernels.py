@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""What bounds K1 and K2 on the card: time variants of each kernel with one
+part taken out.
+
+    python3 lerf_torch/tools/probe_lut_kernels.py
+
+Each variant is the kernel's source with one text substitution, built on
+its own with the package's nvcc flags and timed with CUDA events beside
+the kernel as built, on the LUT form's main-path data: chip_smoke's
+seed-0 3×360×640 frame and random bank, K2 at stage 1 (oC 1) on the frame
+and at stage 2 (oC 3) on stage 1's output, K1 at ×4 (uint8 output) on
+both stages' outputs.
+
+* K1: float32 output instead of uint8; no ``expf``; no window load (the
+  shared-memory window filled with constants, no global reads or
+  decoding); the field of view read before the window instead of after
+  it; 2 or 8 adjacent outputs a thread instead of 4; a register cap for 6
+  or 8 blocks an SM; and the kernel as
+  built at other tile shapes.
+* K2: no table gathers (the corner index stands in for the table value);
+  byte corners from the flat tables instead of the padded words (oC 3)
+  and the 16-byte cell rows (oC 1); the samples read from
+  global memory instead of the shared-memory tile; one or four pixels a
+  thread instead of two; a runtime divisor in the epilogue; the member
+  loop unrolled by 2; a register cap for 4 or 8 blocks an SM.
+
+Only variants that keep the arithmetic compute the right numbers; each
+line says whether its output equals the kernel's.  Prints one JSON line
+per variant and the card line (name, power limit).
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+# kernel source → {variant: [(old text, new text), ...]}
+VARIANTS = {
+    "steering_resize": {
+        "no expf": [("float w = expf(-0.5f * (xn - p.y * xy + yn));",
+                     "float w = -0.5f * (xn - p.y * xy + yn);")],
+        "no window load": [(
+            "win[r * pitch + q] = make_float4(n, 2.0f * rho, sx, sy);",
+            "win[r * pitch + q] = make_float4(1.0f, 0.5f, (float)gr,"
+            " (float)gc);")],
+        "field of view read before the window": [
+            ("  // 1. the source window (or its first strip), decoded once\n"
+             "  load_window(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip,"
+             " wc, pitch, H,\n"
+             "              W, norm, max_sigma);\n"
+             "  __syncthreads();\n\n", ""),
+            ("  if (whole && !active) return;\n  int j[kVec];",
+             "  int j[kVec];"),
+            ("           antialias, m);\n\n  // 3.",
+             "           antialias, m);\n"
+             "  load_window(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip,"
+             " wc, pitch, H,\n"
+             "              W, norm, max_sigma);\n"
+             "  __syncthreads();\n"
+             "  if (whole && !active) return;\n\n  // 3.")],
+        "2 outputs a thread": [("constexpr int kVec = 4;",
+                                "constexpr int kVec = 2;")],
+        "8 outputs a thread": [("constexpr int kVec = 4;",
+                                "constexpr int kVec = 8;")],
+        "at least 6 blocks an SM": [(
+            "__launch_bounds__(kMaxThreads)",
+            "__launch_bounds__(kMaxThreads, 6)")],
+        "at least 8 blocks an SM": [(
+            "__launch_bounds__(kMaxThreads)",
+            "__launch_bounds__(kMaxThreads, 8)")],
+    },
+    "lut_stage": {
+        "no table gathers": [
+            ("return __ldg(words + corner);", "return (uint32_t)corner;"),
+            ("return __ldg(rows + cell);",
+             "return make_uint4(cell, cell >> 3, cell << 2, cell ^ 7);")],
+        # both stages read the flat [K, L4, oC] table a byte a corner and
+        # channel
+        "byte corners": [
+            ("constexpr bool kCells = OC == 1;",
+             "constexpr bool kCells = false;"),
+            ("        const uint32_t* words = (const uint32_t*)tables"
+             " + mem.tbase[m];\n"
+             "        uint32_t cw[5];\n"
+             "#pragma unroll\n"
+             "        for (int k = 0; k < 5; ++k)"
+             " cw[k] = corner_word(words, cn[k]);\n",
+             "        const signed char* bytes =\n"
+             "            (const signed char*)tables"
+             " + (size_t)mem.tbase[m] * OC;\n"),
+            ("acc[p][ch] += wt[k] * word_byte(cw[k], ch);",
+             "acc[p][ch] += wt[k] * __ldg(bytes + cn[k] * OC + ch);"),
+            ("const int rows = oc == 1 ? cells : L4;",
+             "const int rows = L4;")],
+        "samples from global memory": [(
+            "v[k] = tp[mem.soff[m][k]];",
+            "v[k] = __ldg(x + min(max(i0 + (int)threadIdx.y + p * kThreadRows"
+            " + mem.off[m][2 * k], 0), H - 1) * W"
+            " + min(max(j + mem.off[m][2 * k + 1], 0), W - 1));")],
+        "one pixel a thread": [("constexpr int kRowsPerThread = 2;",
+                                "constexpr int kRowsPerThread = 1;")],
+        "four pixels a thread": [("constexpr int kRowsPerThread = 2;",
+                                  "constexpr int kRowsPerThread = 4;")],
+        "runtime divisor": [("const int den = DEN > 0 ? DEN : den_rt;",
+                             "const int den = den_rt;")],
+        "member loop unrolled by 2": [("#pragma unroll 1\n  for (int m = 0;",
+                                       "#pragma unroll 2\n  for (int m = 0;")],
+        "at least 4 blocks an SM": [(
+            "__launch_bounds__(kTileW * kThreadRows)",
+            "__launch_bounds__(kTileW * kThreadRows, 4)")],
+        "at least 8 blocks an SM": [(
+            "__launch_bounds__(kTileW * kThreadRows)",
+            "__launch_bounds__(kTileW * kThreadRows, 8)")],
+    },
+}
+K1_TILES = ((16, 64), (8, 64), (16, 32), (8, 32), (32, 32), (4, 64))
+
+
+def build_variants(tmp):
+    """Every variant's shared library, built in parallel: {(kernel,
+    variant): path}."""
+    from lerf_torch.ops.kernels import _build
+
+    jobs = {}
+    for kernel, variants in VARIANTS.items():
+        with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
+            src = f.read()
+        for name, subs in {"as built": [], **variants}.items():
+            text = src
+            for old, new in subs:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{kernel} / {name}: substitution "
+                                       f"not found once: {old[:60]!r}")
+                text = text.replace(old, new)
+            stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
+            with open(stem + ".cu", "w") as f:
+                f.write(text)
+            jobs[(kernel, name)] = stem
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                      stem + ".cu", "-o", stem + ".so"]
+                     for stem in jobs.values()])
+    return {key: stem + ".so" for key, stem in jobs.items()}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_lut_kernels: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from lerf_torch.ops import lut_pipeline as lp
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.resample import quantize_device
+
+    card = cs.card_line()
+    dev = torch.device("cuda")
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    stream = vp(torch.cuda.current_stream().cuda_stream)
+    shape = (3, cs.LR_H, cs.LR_W)
+    # the main path's data: chip_smoke's frame, its stage 1 and stage 2
+    img = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, shape).astype(np.int32)).to(dev)
+    bank = cs.bench_bank()
+    stages = {"stage1": (lp.FlatTables.create(bank.stage1, dev), False, 48,
+                         0),
+              "stage2": (lp.FlatTables.create(bank.stage2, dev), True, 192,
+                         127)}
+    feat = lp.lut_stage1(img, stages["stage1"][0], cs.MODES)
+    codes = lp.lut_stage2(feat, stages["stage2"][0], cs.MODES)
+    stage_in = {"stage1": img, "stage2": feat}
+    geom = ResizeGeometry.create(shape[1:], scale_factors=[cs.SCALE] * 2)
+    ops = k1.ResizeOperands.create(geom, dev)
+    oh, ow = geom.out_sz
+
+    def k1_args(out, tile, u8):
+        ptrs = (feat, codes, out, ops.rows, ops.cols, ops.dis_x, ops.dis_y)
+        return [*(vp(t.data_ptr()) for t in ptrs),
+                *map(i32, (3, cs.LR_H, cs.LR_W, oh, ow, geom.support,
+                           int(geom.antialias))),
+                f32(geom.min_scale), f32(10.0), f32(255.0),
+                *map(i32, (*tile, u8)), stream]
+
+    members = {stage: lp.member_descriptors(cs.MODES, split_r, t.keys)
+               for stage, (t, split_r, _, _) in stages.items()}
+
+    def k2_args(stage, out, table):
+        tables, _, den, bias = stages[stage]
+        return [vp(stage_in[stage].data_ptr()), vp(table.data_ptr()),
+                vp(out.data_ptr()),
+                vp(members[stage].ctypes.data),
+                *map(i32, (len(members[stage]), *shape,
+                           tables.table.shape[-1], cs.L4, 4, den, bias,
+                           255)),
+                stream]
+
+    def emit(kernel, name, ms, equal, **extra):
+        print(json.dumps({"kernel": kernel, "variant": name, **extra,
+                          "ms": ms, "equals_kernel": equal, "card": card}),
+              flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_variants(tmp)
+        fns = {}
+        for key, path in libs.items():
+            fn = getattr(ctypes.CDLL(path), "lerf_" + key[0])
+            fn.restype = ctypes.c_int
+            fns[key] = fn
+
+        def timed(fn, args, what):
+            def run():
+                err = fn(*args)
+                if err:
+                    raise RuntimeError(f"{what}: CUDA error {err}")
+            return cs.event_ms(run, iters=20, warmup=2)
+
+        # K1
+        u8 = torch.empty(3, oh, ow, dtype=torch.uint8, device=dev)
+        want_u8 = torch.empty_like(u8)
+        base = fns[("steering_resize", "as built")]
+        ms = timed(base, k1_args(want_u8, ops.tile, 1), "K1")
+        emit("steering_resize", "as built", ms, True, tile=list(ops.tile))
+        f32_out = torch.empty(3, oh, ow, device=dev)
+        ms = timed(base, k1_args(f32_out, ops.tile, 0), "K1 float")
+        emit("steering_resize", "float32 output", ms, bool(torch.equal(
+            quantize_device(f32_out, 255), want_u8)))
+        for name in VARIANTS["steering_resize"]:
+            ms = timed(fns[("steering_resize", name)],
+                       k1_args(u8, ops.tile, 1), f"K1 {name}")
+            emit("steering_resize", name, ms, bool(torch.equal(u8, want_u8)))
+        rows, cols = (t.cpu().numpy() for t in (ops.rows, ops.cols))
+        for th, tw in K1_TILES:
+            tile = (th, tw, k1._window_span(rows, th),
+                    k1._window_span(cols, tw))
+            ms = timed(base, k1_args(u8, tile, 1), f"K1 tile {tile}")
+            emit("steering_resize", "as built, tile", ms,
+                 bool(torch.equal(u8, want_u8)), tile=list(tile))
+
+        # K2
+        for stage, (tables, _, _, _) in stages.items():
+            oc = tables.table.shape[-1]
+            words = tables.padded if oc == 3 else tables.cells
+            want = torch.empty(*shape, oc, dtype=torch.int32, device=dev)
+            out = torch.empty_like(want)
+            ms = timed(fns[("lut_stage", "as built")],
+                       k2_args(stage, want, words), "K2")
+            emit("lut_stage", "as built", ms, True, stage=stage)
+            for name in VARIANTS["lut_stage"]:
+                table = tables.table if name == "byte corners" else words
+                ms = timed(fns[("lut_stage", name)],
+                           k2_args(stage, out, table), f"K2 {name}")
+                emit("lut_stage", name, ms, bool(torch.equal(out, want)),
+                     stage=stage)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

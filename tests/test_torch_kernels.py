@@ -166,6 +166,128 @@ def test_resize_wrapper_takes_plain_twin_on_cpu():
         feat, codes, geom), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", sorted(RESIZE_CASES))
+def test_resize_uint8_mode_on_cpu_is_the_quantized_twin(case):
+    scale, aa = RESIZE_CASES[case]
+    feat, codes = resize_inputs()
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=list(scale),
+                                 antialias=aa)
+    before = k1.launches
+    got = k1.steering_resize(feat, codes, geom, out_dtype=torch.uint8)
+    assert k1.launches == before
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, _quantize_device(
+        steering_resize_codes_plain(feat, codes, geom), 255))
+
+
+def test_resize_uint8_mode_needs_norm_up_to_255():
+    feat, codes = resize_inputs((3, 9, 14))
+    geom = ResizeGeometry.create((9, 14), scale_factors=[2, 2])
+    with pytest.raises(ValueError, match="norm"):
+        k1.steering_resize(feat, codes, geom, norm=1023,
+                           out_dtype=torch.uint8)
+    with pytest.raises(ValueError, match="out_dtype"):
+        k1.steering_resize(feat, codes, geom, out_dtype=torch.float16)
+
+
+# K1's tile choice at the test geometries, the main path's, a deep
+# antialiased downscale whose window only a one-output tile holds, and
+# deeper ones (S 122 and 128) whose window the kernel walks in strips of rows
+TILE_CASES = {**{name: ((45, 77),) + case
+                 for name, case in RESIZE_CASES.items()},
+              "main-x4": ((360, 640), (4.0, 4.0), True),
+              "x1/32-aa": ((360, 640), (1 / 32, 1 / 32), True),
+              "x1/61-aa": ((360, 640), (1 / 61, 1 / 61), True),
+              "x1/64-aa": ((300, 200), (1 / 64, 1 / 64), True)}
+# (input shape, scale) of deep antialiased downscales: S = 128
+DEEP_AA = ((3, 300, 200), 1 / 64)
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_resize_tile_window_holds_every_tile(case):
+    in_sz, scale, aa = TILE_CASES[case]
+    geom = ResizeGeometry.create(in_sz, scale_factors=list(scale),
+                                 antialias=aa)
+    rows = geom.fov_x.astype(np.int64) - geom.pad_x[0]
+    cols = geom.fov_y.astype(np.int64) - geom.pad_y[0]
+    th, tw, wr, wc = k1.pick_tile(rows, cols)
+    assert th * -(-tw // 4) <= 256
+    assert wr * wc * k1.WINDOW_BYTES <= k1.BLOCK_SMEM_MAX
+    # every tile's source columns lie in a window of that width, and its
+    # rows in one of that height unless the kernel walks them in strips
+    tallest = k1._window_span(rows, th)
+    assert wr == tallest or (wr < tallest and geom.support >= 122)
+    for start in range(0, cols.shape[0], tw):
+        part = cols[start:start + tw]
+        assert part.max() - part[0, 0] + 1 <= wc
+    if case == "main-x4":
+        assert (th, tw) == (16, 32)
+
+
+def test_resize_operands_pick_a_tile_only_for_a_card():
+    geom = ResizeGeometry.create(DEEP_AA[0][1:], scale_factors=[DEEP_AA[1]] * 2)
+    assert k1.ResizeOperands.create(geom, "cpu").tile is None
+
+
+def test_resize_on_cpu_at_a_deep_antialiased_downscale():
+    shape, scale = DEEP_AA
+    bank = random_bank()
+    img = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, shape).astype(np.int32))
+    before = (k1.launches, k2.launches)
+    out, feat, hyper = LutPredictor(bank, device="cpu").run_device(
+        img, (scale, scale))
+    assert (k1.launches, k2.launches) == before
+    geom = ResizeGeometry.create(shape[1:], scale_factors=[scale] * 2)
+    assert geom.support == 128 and out.shape == (3,) + tuple(geom.out_sz)
+    assert torch.equal(out, _quantize_device(
+        steering_resize_codes_plain(feat, hyper, geom), 255))
+
+
+def test_run_device_writes_uint8_on_cpu():
+    bank = random_bank()
+    img = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (3, 9, 14)).astype(np.int32))
+    pred = LutPredictor(bank, device="cpu")
+    out, feat, hyper = pred.run_device(img, (2.5, 2.5))
+    geom = ResizeGeometry.create((9, 14), scale_factors=[2.5, 2.5])
+    assert out.dtype == torch.uint8
+    assert torch.equal(out, _quantize_device(
+        steering_resize_codes_plain(feat, hyper, geom), 255))
+
+
+def test_padded_tables_round_trip_to_the_flat_table():
+    tables = lp.FlatTables.create(random_bank().stage2)
+    k, l4, oc = tables.table.shape
+    assert tables.cells is None
+    assert tables.padded.shape == (k, l4, 4)
+    assert tables.padded.dtype == torch.int8
+    assert tables.padded.is_contiguous()
+    assert torch.equal(tables.padded[..., :oc], tables.table)
+    assert not bool(tables.padded[..., oc:].any())
+
+
+@pytest.mark.parametrize("lat", [17, 5])
+def test_cell_rows_hold_each_cells_16_corners(lat):
+    rng = np.random.RandomState(lat)
+    luts = {m: rng.randint(-127, 128, (lat ** 4, 1)).astype(np.int8)
+            for m in MODES}
+    tables = lp.FlatTables.create(luts)
+    k = len(MODES)
+    assert tables.padded is None
+    cells = tables.cells
+    assert cells.shape == (k, (lat - 1) ** 4, 16) and cells.is_contiguous()
+    # every corner of every cell, from the flat table by its 4D index
+    n = lat - 1
+    abcd = np.stack(np.unravel_index(np.arange(n ** 4), (n,) * 4), -1)
+    bits = (np.arange(16)[:, None] >> np.arange(3, -1, -1)) & 1   # a..d
+    corner = abcd[:, None, :] + bits[None, :, :]
+    flat = np.ravel_multi_index(tuple(np.moveaxis(corner, -1, 0)),
+                                (lat,) * 4)
+    want = tables.table[:, :, 0].numpy()[:, flat]
+    np.testing.assert_array_equal(cells.numpy(), want)
+
+
 @pytest.mark.parametrize("oc", [1, 3])
 def test_srnet_ensemble_wrapper_takes_plain_twin_on_cpu(oc):
     heads = k3.StackedHeads.create(net_heads(net_params(), oc))
@@ -418,6 +540,56 @@ def test_resize_kernel_matches_plain(case, cuda_device):
     assert k1.launches == before + 1
     torch.testing.assert_close(got, steering_resize_codes_plain(
         feat, codes, geom), rtol=0, atol=RESIZE_ATOL)
+
+
+@pytest.mark.cuda
+def test_resize_kernel_walks_a_deep_downscale_in_strips(cuda_device):
+    shape, scale = DEEP_AA
+    feat, codes = (t.to(cuda_device) for t in resize_inputs(shape))
+    geom = ResizeGeometry.create(shape[1:], scale_factors=[scale] * 2)
+    ops = k1.ResizeOperands.create(geom, cuda_device)
+    assert ops.tile[2] < geom.support      # the window is walked in strips
+    got = k1.steering_resize(feat, codes, geom, operands=ops)
+    got_u8 = k1.steering_resize(feat, codes, geom, operands=ops,
+                                out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, steering_resize_codes_plain(
+        feat, codes, geom), rtol=0, atol=RESIZE_ATOL)
+    assert torch.equal(got_u8, _quantize_device(got, 255))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RESIZE_CASES) + ["x3-odd-width"])
+def test_resize_kernel_uint8_equals_its_float_mode_quantized(case,
+                                                           cuda_device):
+    # x3 from 77 columns gives 231, not a multiple of the 4-byte store
+    scale, aa = RESIZE_CASES.get(case, ((3.0, 3.0), True))
+    feat, codes = (t.to(cuda_device) for t in resize_inputs())
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=list(scale),
+                                 antialias=aa)
+    before = k1.launches
+    got = k1.steering_resize(feat, codes, geom, out_dtype=torch.uint8)
+    f32 = k1.steering_resize(feat, codes, geom)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 2
+    assert got.dtype == torch.uint8 and got.shape == f32.shape
+    assert torch.equal(got, _quantize_device(f32, 255))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 2, 5), (1, 1, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_lut_stage_kernel_matches_plain_below_the_halo(stage, shape,
+                                                       cuda_device):
+    fn, _, _, which = STAGES[stage]
+    tables = lp.FlatTables.create(getattr(random_bank(), which), cuda_device)
+    img = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, shape).astype(np.int32)).to(cuda_device)
+    got = fn(img, tables, MODES)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, stage_plain(stage, img, tables),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -79,6 +79,23 @@ def test_resize_wrapper_on_cpu_matches_jax(case):
         np.clip(np.round(want), 0, 255).astype(np.uint8))
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_resize_wrapper_uint8_on_cpu_matches_jax(case):
+    """K1's uint8 mode (the plain twin, then round / clip / cast) against
+    lerf_tpu's resize rounded, clipped and cast the same way."""
+    scale, aa = CASES[case]
+    feat, codes = inputs(shape=(3, 17, 23), seed=1)
+    want = np.asarray(jnp.clip(jnp.round(jnp.asarray(
+        jax_resize(feat, codes, scale, aa))), 0, 255).astype(jnp.uint8))
+    before = k1.launches
+    got = k1.steering_resize(torch.from_numpy(feat), torch.from_numpy(codes),
+                             geometry(feat, scale, aa),
+                             out_dtype=torch.uint8)
+    assert k1.launches == before
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("pads", [((2, 1), (0, 3)), ((-1, -2), (1, -1)),
                                   ((-2, 3), (-1, 0))])
 @pytest.mark.parametrize("mode", ["constant", "edge"])
