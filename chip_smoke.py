@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on a 360×640 RGB frame at ×4 (1440×2560 out)
-— the LUT form, ``LutPredictor(bank).upscale`` with the seed-0 random bank
-of the shipped LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8
-tables, oC 3), and the micro-net (SRNet) form,
-``NetPredictor.from_srnets(params, backend=...).upscale`` at the reference
-width nf = 64 with seed-0 numpy weights, for the float (K3) and the int8
-(K4) backends — and holds each hand-written kernel against its plain
-PyTorch twin on the card:
+Drives the port's two forms on a 360×640 RGB frame, each through its SR
+path at ×4 and its homographic warp, both to 1440×2560 — the LUT form,
+``LutPredictor(bank).upscale`` / ``.warp`` with the seed-0 random bank of
+the shipped LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8 tables,
+oC 3), and the micro-net (SRNet) form,
+``NetPredictor.from_srnets(params, backend=...).upscale`` / ``.warp`` at
+the reference width nf = 64 with seed-0 numpy weights, for the float (K3)
+and the int8 (K4) backends — and holds each hand-written kernel against
+its plain PyTorch twin on the card:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the kernel build
    with each kernel's registers, stack, spills and static shared memory
@@ -43,7 +44,26 @@ PyTorch twin on the card:
    but for .5 ties;
 8. net form timing per backend: the whole call, its device part, a
    profile;
-9. the kernels line, the card line and, last, the result line.
+9. K5 (steering warp) vs its plain twin at 3×360×640 for three
+   homographies — the main path's (``bench_lut_warp``'s ×4 zoom composed
+   with bench.py's projective jitter, seed 0), a pure ×2.5 zoom and one
+   whose output corner (0, 0) lies above and left of the image
+   (``pad0 = 1`` on both axes, distances of 2 on the far side, NaN
+   windows): float32 max-abs ≤ 1e-3 on finite values, the NaN pattern
+   equal (count printed), the uint8 mode equal to the float mode with
+   NaN → 0 quantized, uint8 mismatches with the twin only at .5 ties;
+10. LUT warp end to end, ``LutPredictor(bank).warp(frame, M, (1440,
+   2560), return_aux=True)`` on the card vs ``device="cpu"`` on the full
+   frame: feat and hyper bit-equal, the mask equal, uint8 equal but for
+   .5 ties; K2 launched twice, K5 once, K1 never; the device part
+   (``run_warp_device``) launches K2 and K5 and nothing else (profiler);
+   then the whole call (median of 20), the device part (events), a
+   profile, and K5 alone beside its twin and its bound;
+11. net warp per backend: K3 or K4 twice and K5 once on the full frame, a
+   96×160 crop against the CPU path (phase 7's tolerances, the mask
+   equal, uint8 equal to the plain warp of the card's own stages but for
+   .5 ties), the whole call (median of 10), its device part, a profile;
+12. the kernels line, the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -93,6 +113,39 @@ K2_OPS_PER_MEMBER_CHANNEL = 10
 #  multiply, add, tanh, scale, round, sum)
 K4_F32_OPS_PER_HIDDEN = 5
 K4_F32_OPS_PER_HEAD = 7
+#  K5, per output pixel, channel and neighbour: the weight's 11 (exp as
+#  one) and 3 for the sums; per output and channel the epilogue, 5 in
+#  uint8 (div, NaN test, rint, two clips); the decode at least once a
+#  source pixel (K1_OPS_PER_SOURCE)
+K5_OPS_PER_NEIGHBOUR = 14
+K5_OPS_PER_OUTPUT_U8 = 5
+K5_OPERAND_BYTES = 24   # a pixel: int2 window corner, float4 distances
+K5_ATOL = 1e-3          # float32 ops in one order; exp differs by a few ulp
+WARP_OUT = (int(LR_H * SCALE), int(LR_W * SCALE))
+
+
+def warp_matrix(seed=0):
+    """The main path's homography: ``bench_lut_warp``'s ×4 zoom composed
+    with the projective jitter of bench.py's dynamic-warp bench,
+    ``I + randn(3, 3) · [[.05, .05, 4], [.05, .05, 4], [1e-4, 1e-4, 0]]``.
+    Seed 0 maps output (0, 0) to row 3.95, column -3.67, and the top-right
+    corner to row -60: the row axis gets ``pad0 = 0`` and still clips
+    interior windows at row -1."""
+    rng = np.random.RandomState(seed)
+    jitter = np.eye(3) + rng.randn(3, 3) * np.array(
+        [[.05, .05, 4.0], [.05, .05, 4.0], [1e-4, 1e-4, 0.0]])
+    return np.diag([SCALE, SCALE, 1.0]) @ jitter
+
+
+# name → (homography, output size) for K5 against its twin
+WARP_CASES = {
+    "main": (warp_matrix(), WARP_OUT),
+    "zoom2.5": (np.diag([2.5, 2.5, 1.0]), (900, 1600)),
+    # output (0, 0) maps to row -2.7, column -3.3 and the far corner past
+    # the image: pad0 = 1 on both axes, distances of 2 on the far side
+    "pad1": (np.array([[3.6, 0.1, 12.0], [0.05, 3.7, 10.0],
+                       [1e-5, 2e-5, 1.0]]), WARP_OUT),
+}
 
 
 CARD = None           # card_line(), set by main and put beside every time
@@ -202,10 +255,11 @@ def frame_ms(fn, frames=25, warmup=3):
     return statistics.median(times)
 
 
-def profile_upscale(pred, frame, frames=10, **label):
-    """Where a whole ``upscale`` call's time goes: torch.profiler device
-    time per frame by kernel / copy, and the device's busy share of the
-    host wall clock (one stream, so device activities do not overlap)."""
+def profile_frames(call, frames=10, **label):
+    """Where a whole call's time goes (``upscale`` or ``warp`` of one
+    frame): torch.profiler device time per frame by kernel / copy, and the
+    device's busy share of the host wall clock (one stream, so device
+    activities do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -214,7 +268,7 @@ def profile_upscale(pred, frame, frames=10, **label):
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(frames):
-            pred.upscale(frame, SCALE, SCALE)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / frames
     rows = sorted(((e.key, e.self_device_time_total / 1e3 / frames)
@@ -455,6 +509,7 @@ def net_form_phases(dev, params, frame, backend):
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import srnet_ensemble as k3
     from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+    from lerf_torch.ops.kernels import warp as k5
     from lerf_torch.ops.resample import steering_resize_codes_plain
     from lerf_torch.pipeline import NetPredictor, _quantize_device
 
@@ -462,7 +517,7 @@ def net_form_phases(dev, params, frame, backend):
     if pred.device.type != "cuda":
         raise AssertionError(f"default device is {pred.device}")
     mods = {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
-            "srnet_ensemble_int8": k4}
+            "srnet_ensemble_int8": k4, "steering_warp": k5}
     for mod in mods.values():
         mod.launches = 0
     out, feat, hyper = pred.upscale(frame, SCALE, SCALE, return_aux=True)
@@ -528,8 +583,300 @@ def net_form_phases(dev, params, frame, backend):
     emit_timed({"phase": "net_timing", "backend": backend, "frames": 10,
           "upscale_ms": upscale_ms, "upscale_mps": mp / upscale_ms * 1e3,
           "device_ms": device_ms, "device_mps": mp / device_ms * 1e3})
-    emit_timed(profile_upscale(pred, frame, frames=5, form="net",
-                               backend=backend))
+    emit_timed(profile_frames(lambda: pred.upscale(frame, SCALE, SCALE),
+                              frames=5, form="net", backend=backend))
+    return launches
+
+
+def k5_work(geom, c):
+    """(bytes, operations) of one K5 call in uint8 mode: the int32 feature
+    and codes read once, the uint8 output written once, the device
+    geometry (24 bytes an output pixel) read once; the decode once a
+    source pixel, the weights and sums once an output, channel and
+    neighbour, the epilogue once an output and channel.  Also the bytes
+    without the geometry, the bound of a kernel that derived it on the
+    card from the 3×3 matrix."""
+    (h, w), (oh, ow) = geom.in_sz, geom.out_sz
+    source = c * h * w * 4 * 4 + c * oh * ow
+    nbytes = source + oh * ow * K5_OPERAND_BYTES
+    ops = (c * h * w * K1_OPS_PER_SOURCE
+           + c * oh * ow * (4 * K5_OPS_PER_NEIGHBOUR + K5_OPS_PER_OUTPUT_U8))
+    return nbytes, ops, source
+
+
+def kernel_modules():
+    """Every kernel wrapper module by its kernel's name."""
+    from lerf_torch.ops.kernels import lut_stage as k2
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+    from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+    from lerf_torch.ops.kernels import warp as k5
+    return {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
+            "srnet_ensemble_int8": k4, "steering_warp": k5}
+
+
+def counted_run(call, want, what):
+    """Run ``call`` with every launch count at 0 just before it; read the
+    counts just after and raise unless they equal ``want`` (names left
+    out must stay 0).  Returns the call's result and the counts."""
+    import torch
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    result = call()
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    expect = {name: want.get(name, 0) for name in mods}
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches}, want {expect}")
+    return result, launches
+
+
+def warp_kernel_phase(dev, rng):
+    """Phase 9: K5 against its plain twin on the card at the stage shapes,
+    for each of ``WARP_CASES``.  Returns K5's largest error."""
+    import torch
+    from lerf_torch.ops.geometry import WarpGeometry
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (quantize_device,
+                                         steering_warp_codes_plain)
+
+    shape = (3, LR_H, LR_W)
+    feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32)).to(dev)
+    codes = torch.from_numpy(
+        rng.randint(0, 256, shape + (3,)).astype(np.int32)).to(dev)
+    worst = 0.0
+    for name, (matrix, out_sz) in WARP_CASES.items():
+        t = time.perf_counter()
+        geom = WarpGeometry.create((LR_H, LR_W), matrix, out_sz)
+        ops = k5.WarpOperands.create(geom, dev)
+        geometry_s = time.perf_counter() - t
+        got = k5.steering_warp(feat, codes, geom, operands=ops)
+        got_u8 = k5.steering_warp(feat, codes, geom, operands=ops,
+                                  out_dtype=torch.uint8)
+        want = steering_warp_codes_plain(feat, codes, geom)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        n_nan = int(nan.sum())
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(
+                f"K5 {name}: NaN pattern differs from the twin's "
+                f"({int(torch.isnan(got).sum())} against {n_nan})")
+        err = float((got[~nan] - want[~nan]).abs().max()) if n_nan < \
+            want.numel() else 0.0
+        if not err <= K5_ATOL:
+            raise AssertionError(f"K5 {name}: max-abs {err} > {K5_ATOL}")
+        if got_u8.dtype != torch.uint8 or not torch.equal(
+                got_u8, quantize_device(got, 255, nan_to_zero=True)):
+            raise AssertionError(f"K5 {name}: the uint8 mode differs from "
+                                 "the float mode with NaN → 0 quantized")
+        n_tie = check_ties(
+            got_u8.cpu().numpy(),
+            quantize_device(want, 255, nan_to_zero=True).cpu().numpy(),
+            torch.nan_to_num(want, nan=0.0).cpu().numpy(), f"K5 {name}")
+        if name == "pad1" and not ((geom.pad_x[0], geom.pad_y[0]) == (1, 1)
+                                   and n_nan > 0):
+            raise AssertionError(f"K5 pad1: pads {geom.pad_x} {geom.pad_y}, "
+                                 f"{n_nan} NaN windows; the case needs "
+                                 "pad0 = 1 on both axes and NaN windows")
+        worst = max(worst, err)
+        emit({"phase": "k5_vs_plain", "matrix": name, "out": list(out_sz),
+              "pad_x": list(geom.pad_x), "pad_y": list(geom.pad_y),
+              "nan_windows": n_nan, "max_abs_err": err,
+              "u8_equal_to_quantized_float": True, "u8_mismatch": n_tie,
+              "geometry_s": geometry_s})
+    return worst
+
+
+def lut_warp_phases(dev, bank, frame, x):
+    """Phase 10: the LUT form's warp on the card against the CPU path, the
+    launch counts, the device part's kernels, the timing, and K5 alone.
+    Returns K5's row for the kernels line (less its error)."""
+    import torch
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (_warp_dis_flat, quantize_device,
+                                         steering_warp_codes_plain)
+    from lerf_torch.pipeline import LutPredictor
+
+    matrix = WARP_CASES["main"][0]
+    pred = LutPredictor(bank)
+    t = time.perf_counter()
+    pred.warp(frame, matrix, WARP_OUT)        # the key's geometry, built once
+    first_s = time.perf_counter() - t
+    (out, mask, feat, hyper), launches = counted_run(
+        lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
+        {"lut_stage": 2, "steering_warp": 1}, "LUT warp")
+    if (out.shape != WARP_OUT + (3,) or out.dtype != np.uint8
+            or mask.shape != WARP_OUT or mask.dtype != np.bool_
+            or not mask.any()):
+        raise AssertionError(f"LUT warp: output {out.shape} {out.dtype}, "
+                             f"mask {mask.shape} {mask.dtype}")
+    t_cpu = time.perf_counter()
+    cpu = LutPredictor(bank, device="cpu")
+    want_out, want_mask, want_feat, want_hyper = cpu.warp(
+        frame, matrix, WARP_OUT, return_aux=True)
+    cpu_s = time.perf_counter() - t_cpu
+    if not (np.array_equal(feat, want_feat)
+            and np.array_equal(hyper, want_hyper)):
+        raise AssertionError("LUT warp: feat/hyper differ from the CPU path")
+    if not np.array_equal(mask, want_mask):
+        raise AssertionError("LUT warp: the mask differs from the CPU path")
+    n_tie = 0
+    geom = cpu._warp_cache[next(iter(cpu._warp_cache))][0]
+    if not np.array_equal(out, want_out):
+        f32 = torch.nan_to_num(steering_warp_codes_plain(
+            torch.from_numpy(want_feat), torch.from_numpy(want_hyper), geom),
+            nan=0.0).numpy().transpose(1, 2, 0)
+        n_tie = check_ties(out, want_out, f32, "LUT warp")
+    emit({"phase": "lut_warp_end_to_end", "in": [LR_H, LR_W],
+          "out": list(WARP_OUT), "matrix": matrix.tolist(),
+          "pad_x": list(geom.pad_x), "pad_y": list(geom.pad_y),
+          "feat_hyper_bit_equal": True, "mask_equal": True,
+          "mask_share": float(mask.mean()), "u8_mismatch_at_ties": n_tie,
+          "launches": launches, "first_call_s": first_s,
+          "cpu_reference_s": cpu_s, "cpu_reference": "full frame"})
+
+    mp = WARP_OUT[0] * WARP_OUT[1] / 1e6
+    host = []
+    for i in range(3 + 20):
+        t = time.perf_counter()
+        pred.warp(frame, matrix, WARP_OUT)
+        if i >= 3:
+            host.append((time.perf_counter() - t) * 1e3)
+    warp_ms = statistics.median(host)
+    device_ms = frame_ms(lambda: pred.run_warp_device(x, matrix, WARP_OUT))
+    emit_timed({"phase": "lut_warp_timing", "frames": 20, "warp_ms": warp_ms,
+                "warp_mps": mp / warp_ms * 1e3, "device_ms": device_ms,
+                "device_mps": mp / device_ms * 1e3})
+    emit_timed(profile_frames(lambda: pred.warp(frame, matrix, WARP_OUT),
+                              form="lut_warp"))
+    rows = device_rows(lambda: pred.run_warp_device(x, matrix, WARP_OUT))
+    emit_timed({"phase": "device_part_kernels", "form": "lut_warp",
+                "rows": [[k[:60], n, ms] for k, n, ms in rows]})
+    stray = [name for name, _, _ in rows
+             if not ("steering_warp_kernel" in name
+                     or "lut_stage_kernel" in name
+                     or name.startswith(("Memcpy", "Memset")))]
+    if stray or not any("steering_warp_kernel" in n for n, _, _ in rows):
+        raise AssertionError(f"LUT run_warp_device launches other kernels "
+                             f"than K2 and K5 (or no K5): {stray}")
+
+    # K5 alone, in the main path's uint8 mode, on the card's own stages
+    feat_d, hyper_d = pred._stages_fn(x)
+    geom, ops, _ = pred._warp_cache[next(reversed(pred._warp_cache))]
+
+    def k5_u8():
+        return k5.steering_warp(feat_d, hyper_d, geom, operands=ops,
+                                out_dtype=torch.uint8)
+
+    ms = event_ms(k5_u8, iters=50)
+    profiler_ms = kernel_device_ms(k5_u8, "steering_warp_kernel")
+    float_ms = event_ms(lambda: k5.steering_warp(feat_d, hyper_d, geom,
+                                                 operands=ops), iters=50)
+    plain_ms = event_ms(lambda: quantize_device(steering_warp_codes_plain(
+        feat_d, hyper_d, geom), 255, nan_to_zero=True), iters=5, warmup=1)
+    # the part of the twin's time that copies its host geometry to the card
+    plain_copy_ms = event_ms(lambda: (
+        torch.from_numpy(geom.lin_idx.reshape(2, 2, -1).astype(np.int64))
+        .to(dev), _warp_dis_flat(geom, torch.float32, dev)),
+        iters=5, warmup=1)
+    nbytes, nops, source_bytes = k5_work(geom, 3)
+    b_ms, b_by = bound(nbytes, nops)
+    emit_timed({"kernel": "steering_warp", "out_dtype": "uint8", "ms": ms,
+                "profiler_ms": profiler_ms, "float_mode_ms": float_ms,
+                "launches_per_frame": 1, "plain_ms": plain_ms,
+                "plain_geometry_copy_ms": plain_copy_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "ops": nops, "share_of_bound": b_ms / ms,
+                "bound_without_geometry_ms": max(
+                    source_bytes / HBM_BYTES_PER_S * 1e3,
+                    nops / NON_TENSOR_OPS_PER_S * 1e3)})
+    return {"name": "steering_warp", "route": "cuda",
+            "source": "lerf_torch/csrc/steering_warp.cu",
+            "replaces": "lerf_tpu/ops/resample.py:438",
+            "launches": launches["steering_warp"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms, "library_ms": None}
+
+
+def net_warp_phases(dev, params, frame, backend):
+    """Phase 11 for one backend: the net form's warp on the card with the
+    launch counts, a crop against the CPU path, then timing."""
+    import torch
+    from lerf_torch.ops.geometry import WarpGeometry
+    from lerf_torch.ops.resample import (quantize_device,
+                                         steering_warp_codes_plain)
+    from lerf_torch.pipeline import NetPredictor
+
+    matrix = WARP_CASES["main"][0]
+    pred = NetPredictor.from_srnets(params, backend=backend)
+    pred.warp(frame, matrix, WARP_OUT)        # the key's geometry, built once
+    stage_kernel = ("srnet_ensemble_int8" if backend == "pallas_int8"
+                    else "srnet_ensemble")
+    (out, mask, feat, hyper), launches = counted_run(
+        lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
+        {stage_kernel: 2, "steering_warp": 1}, f"net warp ({backend})")
+    if (out.shape != WARP_OUT + (3,) or out.dtype != np.uint8
+            or mask.shape != WARP_OUT or feat.shape != (3, LR_H, LR_W)
+            or hyper.shape != (3, LR_H, LR_W, 3)
+            or feat.min() < 0 or feat.max() > 255
+            or hyper.min() < 0 or hyper.max() > 1):
+        raise AssertionError(f"net warp ({backend}): output {out.shape}, "
+                             f"feat {feat.shape}, hyper {hyper.shape} out "
+                             "of shape or range")
+
+    crop = np.ascontiguousarray(frame[:CROP_H, :CROP_W])
+    crop_out = (int(CROP_H * SCALE), int(CROP_W * SCALE))
+    got = pred.warp(crop, matrix, crop_out, return_aux=True)
+    t_cpu = time.perf_counter()
+    cpu = NetPredictor.from_srnets(params, backend=backend, device="cpu")
+    ref = cpu.warp(crop, matrix, crop_out, return_aux=True)
+    cpu_s = time.perf_counter() - t_cpu
+    if not np.array_equal(got[1], ref[1]):
+        raise AssertionError(f"net warp ({backend}): the crop's mask differs")
+    feat_err, feat_share = level_diff(
+        torch.from_numpy(got[2]), torch.from_numpy(ref[2]), NET_STAGE_TOL,
+        f"net warp ({backend}) feat")
+    codes = np.round(got[3] * 255).astype(np.int32)
+    hyper_err, hyper_share = level_diff(
+        torch.from_numpy(codes), torch.from_numpy(np.round(ref[3] * 255)),
+        NET_STAGE_TOL, f"net warp ({backend}) hyper codes")
+    geom = WarpGeometry.create((CROP_H, CROP_W), matrix, crop_out)
+    f32 = steering_warp_codes_plain(
+        torch.from_numpy(got[2].astype(np.int32)), torch.from_numpy(codes),
+        geom)
+    n_tie = check_ties(
+        got[0],
+        quantize_device(f32, 255, nan_to_zero=True).numpy().transpose(1, 2, 0),
+        torch.nan_to_num(f32, nan=0.0).numpy().transpose(1, 2, 0),
+        f"net warp ({backend}) crop")
+    emit({"phase": "net_warp_end_to_end", "backend": backend, "nf": NF,
+          "in": [LR_H, LR_W], "out": list(WARP_OUT), "launches": launches,
+          "crop": [CROP_H, CROP_W], "crop_out": list(crop_out),
+          "mask_equal": True, "feat_max_diff": feat_err,
+          "feat_share_differing": feat_share, "hyper_max_diff": hyper_err,
+          "hyper_share_differing": hyper_share,
+          "tolerance": list(NET_STAGE_TOL), "u8_mismatch_at_ties": n_tie,
+          "cpu_reference_s": cpu_s})
+
+    mp = WARP_OUT[0] * WARP_OUT[1] / 1e6
+    host = []
+    for i in range(2 + 10):
+        t = time.perf_counter()
+        pred.warp(frame, matrix, WARP_OUT)
+        if i >= 2:
+            host.append((time.perf_counter() - t) * 1e3)
+    warp_ms = statistics.median(host)
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                      .astype(np.float32) / 255).to(dev)
+    device_ms = frame_ms(lambda: pred.run_warp_device(x, matrix, WARP_OUT),
+                         frames=10, warmup=2)
+    emit_timed({"phase": "net_warp_timing", "backend": backend,
+                "frames": 10, "warp_ms": warp_ms,
+                "warp_mps": mp / warp_ms * 1e3, "device_ms": device_ms,
+                "device_mps": mp / device_ms * 1e3})
+    emit_timed(profile_frames(lambda: pred.warp(frame, matrix, WARP_OUT),
+                              frames=5, form="net_warp", backend=backend))
     return launches
 
 
@@ -548,6 +895,7 @@ def main() -> int:
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import srnet_ensemble as k3
     from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+    from lerf_torch.ops.kernels import warp as k5
     from lerf_torch.models import srnet
     from lerf_torch.ops.resample import steering_resize_codes_plain
     from lerf_torch.pipeline import LutPredictor, _quantize_device
@@ -645,14 +993,16 @@ def main() -> int:
     if pred.device.type != "cuda":
         raise AssertionError(f"default device is {pred.device}")
     lut_mods = {"steering_resize": k1, "lut_stage": k2,
-                "srnet_ensemble": k3, "srnet_ensemble_int8": k4}
+                "srnet_ensemble": k3, "srnet_ensemble_int8": k4,
+                "steering_warp": k5}
     for mod in lut_mods.values():
         mod.launches = 0
     out, feat_o, hyper_o = pred.upscale(frame, SCALE, SCALE, return_aux=True)
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in lut_mods.items()}
     if launches != {"steering_resize": 1, "lut_stage": 2,
-                    "srnet_ensemble": 0, "srnet_ensemble_int8": 0}:
+                    "srnet_ensemble": 0, "srnet_ensemble_int8": 0,
+                    "steering_warp": 0}:
         raise AssertionError(f"main path launches {launches}, want K1 1, "
                              "K2 2 and no other")
     oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
@@ -693,7 +1043,8 @@ def main() -> int:
     emit_timed({"phase": "timing", "frames": 20, "upscale_ms": upscale_ms,
           "upscale_mps": mp / upscale_ms * 1e3, "device_ms": device_ms,
           "device_mps": mp / device_ms * 1e3})
-    emit_timed(profile_upscale(pred, frame))
+    emit_timed(profile_frames(lambda: pred.upscale(frame, SCALE, SCALE),
+                              form="lut"))
     # the device part launches K1 and K2 and nothing else: no elementwise
     # quantization after K1 (copies would be allowed; there are none)
     rows = device_rows(lambda: pred.run_device(x, (SCALE, SCALE)))
@@ -804,7 +1155,18 @@ def main() -> int:
          "share_of_bound": k4_b / k4s["ms"], "library_ms": None},
     ]
 
-    # -- 9. result ----------------------------------------------------------
+    # -- 9. K5 vs its plain twin ---------------------------------------------
+    k5_err = warp_kernel_phase(dev, rng)
+
+    # -- 10. the LUT warp end to end, its timing, K5 alone ------------------
+    k5_row = lut_warp_phases(dev, bank, frame, x)
+    kernels.append({**k5_row, "max_abs_err": k5_err})
+
+    # -- 11. the net warp per backend ----------------------------------------
+    for backend in ("auto", "pallas_int8"):
+        net_warp_phases(dev, params, frame, backend)
+
+    # -- 12. result ----------------------------------------------------------
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,15 +6,20 @@
     # micro-net form (K3 on the card; --backend pallas_int8 runs K4)
     python -m lerf_torch.cli.upscale -e models/lerf-g --form net \
         --twoStage --outC 3 --input in.png --output out.png --scale 2.5
+    # homographic warp with the same hyper maps (K5 on the card)
+    python -m lerf_torch.cli.upscale -e models/lerf-g --input in.png \
+        --output out.png --matrix 4,0,0,0,4,0,0,0,1 --outSize 1440x2560
     ... --platform cpu                        # on the CPU
 
 ``--form auto`` serves the net form when ``-e`` holds a network checkpoint
 (``Model_{loadIter:06d}.pth`` or a ``ckpt/`` directory), else the LUT bank,
 and falls back to the bank when the checkpoint is missing or cannot be
 loaded.  Non-integer and anisotropic scales work (``--scale 2.5``,
-``--scale 1.5x2.0``).  One image through the static ``upscale`` path:
-``--dynamicSR``, ``--bucket``, ``--matrix`` (warp) and several inputs are
-not ported yet and exit with a message saying so.
+``--scale 1.5x2.0``).  ``--matrix a,b,c,...,i --outSize HxW`` switches to
+the static homographic warp (out-of-view pixels written black).  One
+image through the static ``upscale`` / ``warp`` paths: ``--dynamicSR``,
+``--dynamicWarp``, ``--bucket`` and several inputs are not ported yet and
+exit with a message saying so.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ class UpscaleConfig(TestConfig):
     input: str = ""
     output: str = ""
     form: str = "lut"            # lut | net | auto
-    matrix: str = ""             # homography warp mode (not ported yet)
+    matrix: str = ""             # 9 comma floats → homography warp mode
     out_size: str = ""           # HxW for warp mode
 
 
@@ -43,6 +48,19 @@ def _parse_scale(s):
         sh, sw = (float(v) for v in s.split("x"))
         return sh, sw
     return float(s), float(s)
+
+
+def _parse_matrix(cfg):
+    vals = [float(v) for v in cfg.matrix.split(",")]
+    if len(vals) != 9:
+        raise SystemExit("--matrix needs 9 comma-separated floats")
+    mat = np.asarray(vals, np.float64).reshape(3, 3)
+    try:
+        oh, ow = (int(v) for v in cfg.out_size.split("x"))
+    except ValueError:
+        raise SystemExit("--matrix warp mode needs --outSize HxW "
+                         "(e.g. --outSize 512x512)")
+    return mat, (oh, ow)
 
 
 # what reading a checkpoint on the host can raise: missing or unreadable
@@ -56,8 +74,6 @@ def _unported(cfg: UpscaleConfig):
     """The message for a flag whose path the port does not have yet."""
     if cfg.form != "lut" and cfg.model == "IMDN2":
         return "--model IMDN2 (ROADMAP Queue A item 8)"
-    if cfg.matrix:
-        return "--matrix warp mode (ROADMAP Queue A item 5)"
     if cfg.dynamic_sr or cfg.dynamic_warp or cfg.bucket > 0:
         return "--dynamicSR / --dynamicWarp / --bucket (ROADMAP Queue A item 6)"
     if (os.path.isdir(cfg.input)
@@ -104,8 +120,13 @@ def main(argv=None):
                          "yet; use lerf_tpu.cli.upscale")
     pred = build_predictor(cfg)
     img = np.array(Image.open(cfg.input).convert("RGB"))
-    sh, sw = _parse_scale(cfg.scale)   # "4", "2.5", or "1.5x2.0"
-    out = pred.upscale(img, sh, sw)
+    if cfg.matrix:
+        mat, out_hw = _parse_matrix(cfg)
+        out, mask = pred.warp(img, mat, out_hw)
+        out = out * np.asarray(mask, out.dtype)[..., None]
+    else:
+        sh, sw = _parse_scale(cfg.scale)   # "4", "2.5", or "1.5x2.0"
+        out = pred.upscale(img, sh, sw)
 
     os.makedirs(os.path.dirname(os.path.abspath(cfg.output)), exist_ok=True)
     Image.fromarray(out).save(cfg.output)

@@ -51,7 +51,7 @@ class TestConfig(BaseConfig):
     result_root: str = "./results"
     load_iter: int = 50000
     lut_name: str = "LUTft"
-    hr_root: str = ""            # warp eval HR root (warp not ported yet)
+    hr_root: str = ""            # warp eval HR root (--hrRoot)
     datasets: str = "Set5"       # comma list of benchmark sets
     scales: str = "2,3,4"        # comma list; 'HxW' pairs allowed
     # micro-net (SRNet) backend: auto / pallas = K3 (kernel on the card,

@@ -1,16 +1,18 @@
-"""SR benchmark dataset reader — reference directory-layout compatible.
+"""Benchmark dataset readers — reference directory-layout compatible.
 
-The SR part of ``lerf_tpu/data/benchmarks.py``.  Layout (README.md:63-87
-of the reference):
+A copy of ``lerf_tpu/data/benchmarks.py``.  Layouts (README.md:63-87 of
+the reference):
 
     rrBenchmark/<set>/HR/*.png
     rrBenchmark/<set>/LR_bicubic/rrLR_X{h:.2f}_{w:.2f}/*.png
+    WarpBenchmark/<set>/{HR, isc, osc}/*.png + per-image 3×3 homography
+        stored as a sibling torch .pth (float64) — .npy also accepted here.
 """
 from __future__ import annotations
 
 import os
 import zlib
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 from PIL import Image
@@ -35,6 +37,18 @@ def load_image(path: str) -> np.ndarray:
 
 def save_image(path: str, img_u8: np.ndarray):
     Image.fromarray(img_u8).save(path)
+
+
+def load_matrix(path_no_ext: str) -> np.ndarray:
+    """Load a 3×3 float64 homography stored as .npy or .pth (torch)."""
+    if os.path.exists(path_no_ext + ".npy"):
+        return np.load(path_no_ext + ".npy").astype(np.float64)
+    pth = path_no_ext + ".pth"
+    if os.path.exists(pth):
+        import torch
+        return np.asarray(torch.load(pth, weights_only=False),
+                          dtype=np.float64)
+    raise FileNotFoundError(f"no homography at {path_no_ext}.(npy|pth)")
 
 
 class SRBenchmark:
@@ -72,3 +86,29 @@ class SRBenchmark:
                                                   lr.shape)), 0, 255) \
                 .astype(np.float32)
         return lr, hr, self.files[i]
+
+
+class WarpBenchmark:
+    """Homographic-warp benchmark: HR + warped-LR ('isc'/'osc') + matrices.
+
+    ``hr_root`` may differ from ``root`` when the HR images live elsewhere
+    (a warp tree that ships only isc/osc: point hr_root at rrBenchmark).
+    """
+
+    def __init__(self, root: str, dataset: str,
+                 hr_root: Optional[str] = None):
+        self.root = root
+        self.dataset = dataset
+        self.hr_dir = os.path.join(hr_root or root, dataset, "HR")
+        self.files = list_pngs(self.hr_dir)
+
+    def __len__(self):
+        return len(self.files)
+
+    def sample(self, i: int, scale_p: str):
+        name = self.files[i]
+        lr = load_image(os.path.join(self.root, self.dataset, scale_p, name))
+        hr = load_image(os.path.join(self.hr_dir, name))
+        matrix = load_matrix(os.path.join(self.root, self.dataset, scale_p,
+                                          name[:-4]))
+        return lr, hr, matrix, name

@@ -1,6 +1,6 @@
-"""SR evaluation harness reproducing the reference eval driver's metrics and
-report format (eval_lut_sr.py) — the SR part of ``lerf_tpu/evaluate.py``,
-static ``upscale`` path only."""
+"""Evaluation harnesses reproducing the reference eval scripts' metrics and
+report format (eval_lut_sr.py / eval_lut_warp.py) — ``lerf_tpu/evaluate.py``
+through the static ``upscale`` and ``warp`` paths."""
 from __future__ import annotations
 
 import os
@@ -8,9 +8,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .data.benchmarks import SRBenchmark, save_image
+from .data.benchmarks import SRBenchmark, WarpBenchmark, save_image
 from .utils.color import rgb_to_y
-from .utils.metrics import psnr, ssim
+from .utils.metrics import mpsnr, psnr, ssim
 
 
 def eval_sr_image(out_u8: np.ndarray, hr: np.ndarray,
@@ -61,6 +61,51 @@ def run_sr_benchmark(predictor, root: str, dataset: str,
     return results
 
 
+def run_warp_benchmark(predictor, root: str, dataset: str,
+                       scale_ps: Sequence[str] = ("isc", "osc"),
+                       hr_root: Optional[str] = None,
+                       result_root: Optional[str] = None,
+                       exp_name: str = "lerf",
+                       pre_upsample: bool = False,
+                       dynamic: bool = False,
+                       bucket: int = 0) -> Dict[str, float]:
+    """Evaluate homographic warping; returns {scale_p: avg mPSNR}.
+
+    ``pre_upsample`` right-multiplies the homography by the ×2 pre-upsample
+    correction (eval_model.py:220-226 / train_model.py:214-220).  The
+    dynamic and bucketed serving forms (``dynamic``, ``bucket`` > 0) are
+    not ported yet and raise.
+    """
+    if dynamic or bucket > 0:
+        raise NotImplementedError(
+            "dynamic / bucketed warp serving is not ported (ROADMAP Queue A "
+            "item 6)")
+    bench = WarpBenchmark(root, dataset, hr_root=hr_root)
+    post = np.array([[0.5, 0.0, -0.25],
+                     [0.0, 0.5, -0.25],
+                     [0.0, 0.0, 1.0]], dtype=np.float64)
+    results = {}
+    for scale_p in scale_ps:
+        vals: List[float] = []
+        out_dir = None
+        if result_root is not None:
+            out_dir = os.path.join(result_root, exp_name, dataset, scale_p)
+            os.makedirs(out_dir, exist_ok=True)
+        for i in range(len(bench)):
+            lr, hr, matrix, name = bench.sample(i, scale_p)
+            if pre_upsample:
+                matrix = matrix @ post
+            out, mask = predictor.warp(lr, matrix, hr.shape[:2])
+            mask3 = mask[:, :, None]
+            vals.append(mpsnr(out.astype(np.float64), hr, mask3))
+            if out_dir is not None:
+                white = np.full_like(hr, 255.0)
+                vis = (out * mask3 + (~mask3) * white).astype(np.uint8)
+                save_image(os.path.join(out_dir, f"{name[:-4]}_out.png"), vis)
+        results[scale_p] = float(np.mean(vals))
+    return results
+
+
 def format_sr_header(scales) -> str:
     head = ["Scale".ljust(15, " ")]
     for (sh, sw) in scales:
@@ -74,3 +119,26 @@ def format_sr_row(ds: str, res: Dict, scales) -> str:
         p, s_ = res[tuple(s)]
         row.append(f"{p:.2f}/{s_:.4f}")
     return "\t".join(row)
+
+
+def format_warp_header(scale_ps=("isc", "osc")) -> str:
+    head = ["Scale".ljust(15, " ")]
+    for p in scale_ps:
+        head.append(f"{p}\t")
+    return "\t".join(head)
+
+
+def format_warp_row(ds: str, res: Dict[str, float],
+                    scale_ps=("isc", "osc")) -> str:
+    row = [ds.ljust(15, " ")]
+    for p in scale_ps:
+        row.append(f"{res[p]:.2f}")
+    return "\t".join(row)
+
+
+def format_warp_table(dataset_results: Dict[str, Dict[str, float]],
+                      scale_ps=("isc", "osc")) -> str:
+    lines = [format_warp_header(scale_ps)]
+    for ds, res in dataset_results.items():
+        lines.append(format_warp_row(ds, res, scale_ps))
+    return "\n".join(lines)

@@ -1,10 +1,12 @@
-"""Host-side resize geometry precompute (numpy float64).
+"""Host-side resize and warp geometry precompute (numpy float64).
 
-A copy of the resize part of ``lerf_tpu/ops/geometry.py``: the projected
-grid, field of view, pads and neighbour distances of the reference
-precompute (``resize_right/resize_right2d_numpy.py:18-104``), computed
-once per (in_shape, scale) on the host in float64 and stored per axis as
-``[out, support]`` arrays (the resize field of view is separable).  The
+A copy of the resize and static-warp parts of ``lerf_tpu/ops/geometry.py``:
+the projected grid, field of view, pads and neighbour distances of the
+reference precompute (``resize_right/resize_right2d_numpy.py:18-104`` for
+resize, ``:306-407`` for warp), computed once per (in_shape, scale) or
+(in_shape, homography, out_shape) on the host in float64.  The resize
+field of view is separable and stored per axis as ``[out, support]``
+arrays; the warp's is per output pixel, ``[outH, outW, support]``.  The
 device kernels receive these arrays cast to int32 / float32, exactly as
 the JAX path casts them.
 """
@@ -99,4 +101,87 @@ class ResizeGeometry:
         return cls(in_sz=in_sz, out_sz=out, scale=scale, support=support,
                    base_support=base_support, antialias=aa,
                    min_scale=min_scale, fov_x=fov_x, fov_y=fov_y,
+                   dis_x=dis_x, dis_y=dis_y, pad_x=pad_x, pad_y=pad_y)
+
+
+def _warp_grid(matrix: np.ndarray, in_sz, out_sz):
+    """Inverse-homography projected grid, float64.
+
+    Parity: resize_right2d_numpy.py:306-342 — output pixel coords, flipped
+    (h,w)->(x,y), multiplied by inv(matrix) with the homogeneous divide,
+    flipped back and clipped to ``[0, in_sz]`` (inclusive upper bound
+    ``in_sz``, not ``in_sz-1`` — reference line 338).  Each source
+    coordinate is rank-1 in (column, row), so it is evaluated as 1-D outer
+    sums.  Returns grid_x (row coordinate), grid_y (column coordinate),
+    each [outH, outW].
+    """
+    oh, ow = out_sz
+    inv = np.linalg.inv(np.asarray(matrix, dtype=np.float64))
+    xs = np.arange(ow, dtype=np.float64)           # width coord, per column
+    ys = np.arange(oh, dtype=np.float64)[:, None]  # height coord, per row
+    den = (inv[2, 0] * xs + inv[2, 2]) + inv[2, 1] * ys
+    src_x = ((inv[0, 0] * xs + inv[0, 2]) + inv[0, 1] * ys) / den
+    src_y = ((inv[1, 0] * xs + inv[1, 2]) + inv[1, 1] * ys) / den
+    grid_x = src_y.clip(0, in_sz[0])  # row coordinate
+    grid_y = src_x.clip(0, in_sz[1])  # col coordinate
+    return grid_x, grid_y
+
+
+def _warp_axis(grid: np.ndarray, in_sz: int, support: int):
+    """Field of view / pad / clipped indices / distances for one warp axis.
+
+    Parity: resize_right2d_numpy.py:344-407, reproduced as-is.  The pads
+    come from the CORNER entries ``fov[0,0,0]`` and ``fov[-1,-1,-1]`` and
+    are clamped non-negative; the field of view is shifted by ``pad0`` and
+    then clipped to the *unpadded* bounds ``[0, in_sz-1]``, so padded index
+    0 is the pad row when ``pad0 = 1``, the last real row is then out of
+    reach, and ``pad1`` is never read.  Out-of-view gathers land on in-range
+    pixels and are suppressed by near-zero weights or the validity mask.
+    """
+    left = np.ceil(grid - support / 2.0 - _EPS).astype(np.int64)
+    fov = left[..., None] + np.arange(support, dtype=np.int64)
+    pad0 = int(max(-fov[0, 0, 0], 0))
+    pad1 = int(max(fov[-1, -1, -1] - in_sz + 1, 0))
+    fov = fov + pad0
+    fov_clipped = fov.clip(0, in_sz - 1)
+    dis = (grid[..., None] + pad0) - fov_clipped
+    return fov_clipped.astype(np.int32), dis, (pad0, pad1)
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpGeometry:
+    """Static geometry for one (in_shape, homography, out_shape) config;
+    field for field ``lerf_tpu.ops.geometry.WarpGeometry``."""
+    in_sz: tuple
+    out_sz: tuple
+    support: int
+    fov_x: np.ndarray    # [outH, outW, S] int32 row candidates (clipped)
+    fov_y: np.ndarray    # [outH, outW, S] int32 col candidates (clipped)
+    lin_idx: np.ndarray  # [S, S, outH, outW] int32 flat indices into the
+                         # padded image, support axes leading
+    dis_x: np.ndarray    # [outH, outW, S] float64
+    dis_y: np.ndarray    # [outH, outW, S] float64
+    pad_x: tuple         # (top, bottom) >= 0
+    pad_y: tuple         # (left, right) >= 0
+
+    @property
+    def padded_sz(self):
+        return (self.in_sz[0] + self.pad_x[0] + self.pad_x[1],
+                self.in_sz[1] + self.pad_y[0] + self.pad_y[1])
+
+    @classmethod
+    def create(cls, in_sz: Sequence[int], matrix, out_sz: Sequence[int],
+               support: int = 2):
+        in_sz = tuple(int(s) for s in in_sz)
+        out_sz = tuple(int(s) for s in out_sz)
+        grid_x, grid_y = _warp_grid(matrix, in_sz, out_sz)
+        fov_x, dis_x, pad_x = _warp_axis(grid_x, in_sz[0], support)
+        fov_y, dis_y, pad_y = _warp_axis(grid_y, in_sz[1], support)
+        wp = in_sz[1] + pad_y[0] + pad_y[1]
+        lin = (fov_x[:, :, :, None].astype(np.int64) * wp
+               + fov_y[:, :, None, :].astype(np.int64))   # [oh, ow, S, S]
+        lin = lin.transpose(2, 3, 0, 1)                    # [S, S, oh, ow]
+        return cls(in_sz=in_sz, out_sz=out_sz, support=support,
+                   fov_x=fov_x, fov_y=fov_y,
+                   lin_idx=np.ascontiguousarray(lin).astype(np.int32),
                    dis_x=dis_x, dis_y=dis_y, pad_x=pad_x, pad_y=pad_y)

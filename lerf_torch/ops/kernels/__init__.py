@@ -5,6 +5,7 @@
 * K3 ``srnet_ensemble.ensemble_sum`` — ``csrc/srnet_ensemble.cu``
 * K4 ``srnet_ensemble_int8.ensemble_sum_int8`` —
   ``csrc/srnet_ensemble_int8.cu``
+* K5 ``warp.steering_warp`` — ``csrc/steering_warp.cu``
 
 Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
 kernel for CUDA tensors, counting launches in the module's ``launches``.

@@ -101,6 +101,12 @@ def _declare(lib):
         i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
         vp]                                  # stream
     lib.lerf_steering_resize.restype = i32
+    lib.lerf_steering_warp.argtypes = [
+        vp, vp, vp, vp, vp,                  # img, codes, out, corners, dis
+        i32, i32, i32, i32, i32, i32,        # C, H, W, N, pad_r, pad_c
+        f32, f32, i32,                       # max_sigma, norm, u8
+        vp]                                  # stream
+    lib.lerf_steering_warp.restype = i32
     lib.lerf_lut_stage.argtypes = [
         vp, vp, vp, vp,                      # img, tables, out, members (host)
         i32, i32, i32, i32, i32, i32,        # M, C, H, W, oC, L4

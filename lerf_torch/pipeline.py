@@ -1,20 +1,23 @@
-"""LeRF deploy pipelines: stages → hyper codes → steerable resize.
+"""LeRF deploy pipelines: stages → hyper codes → steerable resize or warp.
 
-The port of ``lerf_tpu.pipeline``'s two SR predictors:
+The port of ``lerf_tpu.pipeline``'s two predictors, SR and static warp:
 
-* :class:`LutPredictor` (``pipeline.py:41-66,855-1017``), the LUT form: on
-  a CUDA device a frame runs as two K2 launches (stage 1, stage 2) and one
-  K1 launch, which writes the uint8 frame itself.
-* :class:`NetPredictor` (``pipeline.py:194-398``), the micro-net (SRNet)
-  form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
-  epilogues and one K1 launch.
+* :class:`LutPredictor` (``pipeline.py:41-66,855-1017,1219-1278``), the
+  LUT form: on a CUDA device a frame runs as two K2 launches (stage 1,
+  stage 2) and one K1 launch (``upscale``) or one K5 launch (``warp``),
+  which writes the uint8 frame itself.
+* :class:`NetPredictor` (``pipeline.py:194-398,563-601``), the micro-net
+  (SRNet) form: two K3 launches (or K4 with ``backend="pallas_int8"``),
+  the stage epilogues and one K1 or K5 launch.
 
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
-device copy of each shape's resize geometry.
+device copy of each shape's resize geometry, and of a few homographies'
+warp geometry.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Tuple
 
 import numpy as np
@@ -23,12 +26,19 @@ import torch
 from .device import resolve_device
 from .lut.io import LUTBank
 from .models import srnet
-from .ops.geometry import ResizeGeometry
+from .ops.geometry import ResizeGeometry, WarpGeometry
 from .ops.kernels.resize import ResizeOperands, steering_resize
+from .ops.kernels.warp import WarpOperands, steering_warp
 from .ops.lut_pipeline import (FlatTables, lut_stage1,
                                lut_stage1_intermediate, lut_stage2)
+from .ops.resample import nearest_warp_mask_host
 # the uint8 cast K1 fuses, kept under its old name for callers
 from .ops.resample import quantize_device as _quantize_device  # noqa: F401
+
+# Warp geometries a predictor keeps.  At 1440×2560 outputs one entry holds
+# ~90 MB of K5 operands on the card and ~240 MB of float64 / int32 host
+# geometry, so only the most recently used few stay.
+WARP_CACHE_SIZE = 4
 
 
 def _out_dtype(norm: int):
@@ -43,6 +53,60 @@ def _quantize_host(arr, norm):
     if a.dtype == np.uint8:
         return a
     return np.clip(np.round(a), 0, norm).astype(np.uint8)
+
+
+def _rgb_chw(img_hwc) -> np.ndarray:
+    """An [H,W,C] image (or a gray [H,W] one, as three channels) →
+    contiguous [C,H,W]."""
+    img = np.asarray(img_hwc)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return np.ascontiguousarray(img.transpose(2, 0, 1))
+
+
+def _lut_input(img_hwc) -> np.ndarray:
+    """The LUT form's int32 [C,H,W] input; the stages index the LUT
+    lattice with the raw 8-bit values, so they must lie in 0..255."""
+    chw = _rgb_chw(img_hwc).astype(np.int32)
+    if chw.size and (chw.min() < 0 or chw.max() > 255):
+        raise ValueError("image values must lie in 0..255")
+    return chw
+
+
+def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
+                device):
+    """(geometry, its K5 operands on a card or None, host validity mask)
+    for one (in_sz, homography, out_sz), kept in ``cache`` (least recently
+    used first, at most :data:`WARP_CACHE_SIZE` entries) under the key JAX
+    gives its warp programs (``pipeline.py:1221,1272``).  The mask is
+    geometry only, computed on the host as ``nearest_warp_mask_host``."""
+    if support != 2:
+        raise NotImplementedError(
+            f"warp with supp_size={support}: K5 and its twin take support 2 "
+            "(the deploy configuration); other supports are not ported")
+    matrix = np.asarray(matrix, dtype=np.float64)
+    key = (tuple(in_sz), matrix.tobytes(), tuple(out_sz))
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    geom = WarpGeometry.create(in_sz, matrix, out_sz, support=support)
+    operands = (WarpOperands.create(geom, device) if device.type == "cuda"
+                else None)
+    mask = nearest_warp_mask_host(tuple(in_sz), matrix, tuple(out_sz),
+                                  border=4)
+    cache[key] = (geom, operands, mask)
+    while len(cache) > WARP_CACHE_SIZE:
+        cache.popitem(last=False)
+    return cache[key]
+
+
+def _warp_out(feat, hyper, entry, max_sigma, norm):
+    """K5 on the stage outputs: uint8 [C,oH,oW] (norm ≤ 255), else float32
+    with NaN → 0 for the host to quantize."""
+    geom, operands, _ = entry
+    out = steering_warp(feat, hyper, geom, max_sigma=max_sigma, norm=norm,
+                        operands=operands, out_dtype=_out_dtype(norm))
+    return out if out.dtype == torch.uint8 else torch.nan_to_num(out, nan=0.0)
 
 
 class LutPredictor:
@@ -108,6 +172,7 @@ class LutPredictor:
         self._s2 = FlatTables.create(bank.stage2, self.device)
         self._inter = [FlatTables.create(t, self.device) for t in bank.inter]
         self._resize_cache: Dict = {}
+        self._warp_cache: OrderedDict = OrderedDict()
 
     # -- stages -------------------------------------------------------------
 
@@ -154,20 +219,47 @@ class LutPredictor:
     def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
                 return_aux: bool = False):
         """uint8/float [H,W,C] → uint8 [outH,outW,C] (plus feat/hyper)."""
-        img = np.asarray(img_hwc)
-        if img.ndim == 2:
-            img = np.stack([img] * 3, axis=-1)
-        chw = np.ascontiguousarray(img.transpose(2, 0, 1)).astype(np.int32)
-        if chw.size and (chw.min() < 0 or chw.max() > 255):
-            # the stages index the LUT lattice with the raw 8-bit values
-            raise ValueError("image values must lie in 0..255")
-        x = torch.from_numpy(chw).to(self.device)
+        x = torch.from_numpy(_lut_input(img_hwc)).to(self.device)
         out, feat, hyper = self.run_device(
             x, (float(scale_h), float(scale_w)))
         out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
         if return_aux:
             return out_u8, feat.cpu().numpy(), hyper.cpu().numpy()
         return out_u8
+
+    # -- warp ---------------------------------------------------------------
+
+    def run_warp_device(self, chw: torch.Tensor, matrix: np.ndarray,
+                        out_sz: Tuple[int, int]):
+        """The device part of a warped frame: int32 [C,H,W] on
+        ``self.device`` → (uint8 [C,oH,oW], feat, hyper), all on the
+        device: the stages, then K5 in uint8 mode (NaN windows → 0)."""
+        entry = _warp_entry(self._warp_cache, tuple(chw.shape[1:]), matrix,
+                            tuple(out_sz), self.supp_size, self.device)
+        feat, hyper = self._stages_fn(chw)
+        return (_warp_out(feat, hyper, entry, self.max_sigma, self.norm),
+                feat, hyper)
+
+    def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
+             out_hw: Tuple[int, int], return_aux: bool = False):
+        """Homographic warp: uint8/float [H,W,C] → (uint8 [oH,oW,C], bool
+        mask [oH,oW]), plus feat and hyper (int32) with ``return_aux``.
+
+        Fully out-of-view support windows (NaN) are zeroed before
+        quantization, matching the torch eval path (eval_model.py:261);
+        the mask excludes them from mPSNR.  The geometry, its device
+        operands and the mask are cached per (image size, matrix, out
+        size), for the last :data:`WARP_CACHE_SIZE` keys."""
+        chw = _lut_input(img_hwc)
+        out_sz = tuple(int(v) for v in out_hw)
+        out, feat, hyper = self.run_warp_device(
+            torch.from_numpy(chw).to(self.device), matrix, out_sz)
+        mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
+                           self.supp_size, self.device)[2].copy()
+        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
+        if return_aux:
+            return out_u8, mask, feat.cpu().numpy(), hyper.cpu().numpy()
+        return out_u8, mask
 
 
 def _unported(what: str, item: str):
@@ -204,6 +296,7 @@ class NetPredictor:
         self.max_sigma = max_sigma
         self.norm = norm
         self._resize_cache: Dict = {}
+        self._warp_cache: OrderedDict = OrderedDict()
 
     @classmethod
     def from_srnets(cls, params, *, modes=("s", "c", "t"),
@@ -292,11 +385,7 @@ class NetPredictor:
         also feat (float32 [C,H,W], 0..255) and hyper (float32 [C,H,W,oC]
         in [0,1]), the types ``lerf_tpu`` returns.  Scale 1 on both axes
         skips the nets (eval_model.py:153-154) and returns the image."""
-        img = np.asarray(img_hwc)
-        if img.ndim == 2:
-            img = np.stack([img] * 3, axis=-1)
-        chw = np.ascontiguousarray(img.transpose(2, 0, 1)) \
-            .astype(np.float32) / self.norm
+        chw = _rgb_chw(img_hwc).astype(np.float32) / self.norm
         if float(scale_h) == 1.0 and float(scale_w) == 1.0:
             out = np.round(chw * self.norm)
             return np.clip(out, 0, self.norm).astype(np.uint8) \
@@ -309,6 +398,38 @@ class NetPredictor:
             return (out_u8, feat.cpu().numpy().astype(np.float32),
                     (hyper.to(torch.float32) / float(self.norm)).cpu().numpy())
         return out_u8
+
+    # -- warp ---------------------------------------------------------------
+
+    def run_warp_device(self, img_f: torch.Tensor, matrix: np.ndarray,
+                        out_sz: Tuple[int, int]):
+        """The device part of a warped frame: float32 [C,H,W] in [0,1] on
+        ``self.device`` → (uint8 [C,oH,oW], feat int32, hyper codes int32),
+        all on the device.  The stage codes are integers, so K5 takes them
+        as the JAX path's u8 rows do (``hyper_u8 = norm == 255``)."""
+        entry = _warp_entry(self._warp_cache, tuple(img_f.shape[1:]), matrix,
+                            tuple(out_sz), self.supp_size, self.device)
+        feat, hyper = self._stages(img_f)
+        return (_warp_out(feat, hyper, entry, self.max_sigma, self.norm),
+                feat, hyper)
+
+    def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
+             out_hw: Tuple[int, int], return_aux: bool = False):
+        """Homographic warp: uint8/float [H,W,C] → (uint8 [oH,oW,C], bool
+        mask [oH,oW]); with ``return_aux`` also feat (float32, 0..255) and
+        hyper (float32 in [0,1]), as :meth:`upscale`.  NaN windows → 0;
+        geometry cached as :meth:`LutPredictor.warp` caches it."""
+        chw = _rgb_chw(img_hwc).astype(np.float32) / self.norm
+        out_sz = tuple(int(v) for v in out_hw)
+        out, feat, hyper = self.run_warp_device(
+            torch.from_numpy(chw).to(self.device), matrix, out_sz)
+        mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
+                           self.supp_size, self.device)[2].copy()
+        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
+        if return_aux:
+            return (out_u8, mask, feat.cpu().numpy().astype(np.float32),
+                    (hyper.to(torch.float32) / float(self.norm)).cpu().numpy())
+        return out_u8, mask
 
     # -- serving forms not ported yet ----------------------------------------
 
@@ -324,5 +445,8 @@ class NetPredictor:
     def upscale_dynamic_async(self, *args, **kwargs):
         raise _unported("async net serving (upscale_dynamic_async)", "11")
 
-    def warp(self, *args, **kwargs):
-        raise _unported("net-form warp (warp)", "5")
+    def warp_dynamic(self, *args, **kwargs):
+        raise _unported("dynamic net warp serving (warp_dynamic)", "6")
+
+    def warp_batch(self, *args, **kwargs):
+        raise _unported("batched net warp serving (warp_batch)", "6")

@@ -13,7 +13,10 @@ products in another order, which can move a member's ``round(tanh·127)`` at
 a .5 edge (its 3xTF32 products carry ~2⁻²² relative error, float32's
 own): sums within 2 on < 0.5 % of pixels.  K4's hidden int8
 arithmetic is bit-equal to its twin by construction and only ``tanhf`` may
-differ by an ulp: sums within 1 on < 0.1 %.
+differ by an ulp: sums within 1 on < 0.1 %.  K5 holds atol 1e-3 with the
+same NaN pattern as its twin (the same float32 operations in the same
+order; a window whose four weights all fall below 2^-126 is 0/0 on both),
+and its uint8 mode equals its float mode with NaN → 0, quantized.
 """
 import numpy as np
 import pytest
@@ -23,12 +26,15 @@ from lerf_torch.convert import lerf_nets_from_arrays
 from lerf_torch.lut.io import LUTBank
 from lerf_torch.models import srnet
 from lerf_torch.ops import lut_pipeline as lp
-from lerf_torch.ops.geometry import ResizeGeometry
+from lerf_torch.ops.geometry import ResizeGeometry, WarpGeometry
 from lerf_torch.ops.kernels import lut_stage as k2
 from lerf_torch.ops.kernels import resize as k1
 from lerf_torch.ops.kernels import srnet_ensemble as k3
 from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
-from lerf_torch.ops.resample import steering_resize_codes_plain
+from lerf_torch.ops.kernels import warp as k5
+from lerf_torch.ops.resample import (quantize_device,
+                                     steering_resize_codes_plain,
+                                     steering_warp_codes_plain)
 from lerf_torch.pipeline import LutPredictor, NetPredictor, _quantize_device
 
 MODES = ("s", "c", "t")
@@ -54,6 +60,27 @@ NET_CASES = {"nf8-oc1": (8, 1, (3, 45, 77), 12),
              "nf8-oc3-m5": (8, 3, (2, 30, 41), 5),
              "nf12-oc1-m20": (12, 1, (2, 30, 41), 20),
              "nf64-oc3-m20-ragged": (64, 3, (1, 13, 23), 20)}
+WARP_ATOL = 1e-3
+
+
+def jitter_matrix(seed, zoom):
+    """``diag(zoom) @ (I + randn · [[.05,.05,4],[.05,.05,4],[1e-4,1e-4,0]])``,
+    the projective jitter of bench.py under a zoom (x, y order)."""
+    rng = np.random.RandomState(seed)
+    scale = np.array([[.05, .05, 4], [.05, .05, 4], [1e-4, 1e-4, 0]])
+    return np.diag([zoom[1], zoom[0], 1.0]) @ (np.eye(3)
+                                               + rng.randn(3, 3) * scale)
+
+
+# name → (matrix, feature shape [C, H, W], output size): the warps K5 is
+# checked at.  "border" sends every output past the image's far corner,
+# so every distance is 2 and random codes leave NaN windows.
+WARP_CASES = {"1x1x1": (np.diag([2.0, 2.0, 1.0]), (1, 1, 1), (3, 4)),
+              "3x7x9": (jitter_matrix(0, (1.9, 1.9)), (3, 7, 9), (13, 17)),
+              "border": (np.array([[1.0, 0.0, -100.0], [0.0, 1.0, -100.0],
+                                   [0.0, 0.0, 1.0]]), (3, 7, 9), (13, 17)),
+              "x2.5-wide": (np.diag([2.5, 2.5, 1.0]), (3, 45, 77),
+                            (112, 192))}
 
 
 @pytest.fixture
@@ -616,3 +643,110 @@ def test_upscale_on_card_matches_cpu(cuda_device):
     # a pixel whose float32 value sits at a .5 rounding tie may quantize
     # one step apart; nothing else may differ
     assert np.abs(got[0].astype(int) - want[0].astype(int)).max() <= 1
+
+
+def warp_case(case, device):
+    matrix, shape, out_sz = WARP_CASES[case]
+    rng = np.random.RandomState(8)
+    feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32))
+    codes = torch.from_numpy(rng.randint(0, 256, shape + (3,))
+                             .astype(np.int32))
+    geom = WarpGeometry.create(shape[1:], matrix, out_sz)
+    return feat.to(device), codes.to(device), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
+def test_warp_kernel_matches_plain(case, cuda_device):
+    feat, codes, geom = warp_case(case, cuda_device)
+    before = k5.launches
+    got = k5.steering_warp(feat, codes, geom)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    want = steering_warp_codes_plain(feat, codes, geom)
+    assert got.shape == want.shape == (feat.shape[0],) + geom.out_sz
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if case == "border":
+        assert bool(torch.isnan(want).any())
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=WARP_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
+def test_warp_kernel_uint8_equals_its_float_mode_quantized(case,
+                                                         cuda_device):
+    feat, codes, geom = warp_case(case, cuda_device)
+    ops = k5.WarpOperands.create(geom, cuda_device)
+    got = k5.steering_warp(feat, codes, geom, operands=ops,
+                           out_dtype=torch.uint8)
+    f32 = k5.steering_warp(feat, codes, geom, operands=ops)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.shape == f32.shape
+    assert torch.equal(got, quantize_device(f32, 255, nan_to_zero=True))
+
+
+def test_warp_wrapper_rejects_mismatched_inputs():
+    feat, codes, geom = warp_case("3x7x9", "cpu")
+    other = WarpGeometry.create((8, 9), np.eye(3), (13, 17))
+    with pytest.raises(ValueError, match="geometry"):
+        k5.steering_warp(feat, codes, other)
+    with pytest.raises(ValueError, match="int32"):
+        k5.steering_warp(feat.to(torch.int64), codes, geom)
+    with pytest.raises(ValueError, match="int32"):
+        k5.steering_warp(feat, codes[..., :2], geom)
+
+
+@pytest.mark.cuda
+def test_warp_kernel_rejects_operands_of_another_device(cuda_device):
+    feat, codes, geom = warp_case("3x7x9", cuda_device)
+    cpu_ops = k5.WarpOperands.create(geom, "cpu")
+    with pytest.raises(ValueError, match="operands"):
+        k5.steering_warp(feat, codes, geom, operands=cpu_ops)
+
+
+@pytest.mark.cuda
+def test_warp_on_card_matches_cpu(cuda_device):
+    bank = random_bank()
+    img = np.random.RandomState(9).randint(0, 256, (45, 77, 3)) \
+        .astype(np.uint8)
+    matrix = jitter_matrix(1, (4.0, 4.0))
+    want = LutPredictor(bank, device="cpu").warp(img, matrix, (180, 308),
+                                                 return_aux=True)
+    before = (k1.launches, k2.launches, k5.launches)
+    got = LutPredictor(bank, device=cuda_device).warp(img, matrix, (180, 308),
+                                                      return_aux=True)
+    assert (k1.launches, k2.launches, k5.launches) == (
+        before[0], before[1] + 2, before[2] + 1)
+    np.testing.assert_array_equal(got[1], want[1])      # the mask
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+    # a pixel whose float32 value sits at a .5 rounding tie may quantize
+    # one step apart; nothing else may differ
+    assert np.abs(got[0].astype(int) - want[0].astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "pallas_int8"])
+def test_net_warp_on_card_launches_its_kernels(backend, cuda_device):
+    params = net_params(nf=64)
+    img = np.random.RandomState(10).randint(0, 256, (40, 56, 3)) \
+        .astype(np.uint8)
+    kern = k4 if backend == "pallas_int8" else k3
+    before = (k1.launches, kern.launches, k5.launches)
+    out, mask, feat, hyper = NetPredictor.from_srnets(
+        params, backend=backend, device=cuda_device).warp(
+        img, jitter_matrix(2, (4.0, 4.0)), (160, 224), return_aux=True)
+    assert (k1.launches, kern.launches, k5.launches) == (
+        before[0], before[1] + 2, before[2] + 1)
+    # the card's uint8 against the plain warp of the card's own stages
+    geom = WarpGeometry.create(img.shape[:2], jitter_matrix(2, (4.0, 4.0)),
+                               (160, 224))
+    codes = torch.from_numpy(np.round(hyper * 255).astype(np.int32))
+    plain = quantize_device(steering_warp_codes_plain(
+        torch.from_numpy(feat.astype(np.int32)), codes, geom), 255,
+        nan_to_zero=True)
+    diff = np.abs(plain.numpy().transpose(1, 2, 0).astype(int)
+                  - out.astype(int))
+    assert out.shape == (160, 224, 3) and mask.shape == (160, 224)
+    assert diff.max() <= 1

@@ -142,7 +142,7 @@ def test_net_predictor_default_device_is_cuda_and_never_falls_back():
     lambda p: NetPredictor.from_srnets(p, device="cpu")
     .upscale_batch([image()], 2, 2),
     lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .warp(image(), np.eye(3), (8, 8))],
+    .warp_dynamic(image(), np.eye(3), (8, 8))],
     ids=["linear", "mesh", "from_imdn", "bucketed", "dynamic", "batch",
          "warp"])
 def test_unported_net_options_raise(call):

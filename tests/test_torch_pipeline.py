@@ -91,7 +91,8 @@ def test_upscale_cli_matches_jax(tmp_path):
 @pytest.mark.parametrize("flags", [["--form", "net", "--model", "IMDN2"],
                                    ["--dynamicSR"],
                                    ["--bucket", "8"],
-                                   ["--matrix", "1,0,0,0,1,0,0,0,1"]],
+                                   ["--matrix", "1,0,0,0,1,0,0,0,1",
+                                    "--outSize", "8x8", "--dynamicWarp"]],
                          ids=lambda f: f[0].lstrip("-"))
 def test_upscale_cli_unported_flags_exit(flags, tmp_path):
     from lerf_torch.cli.upscale import main
@@ -130,6 +131,8 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import lerf_torch, lerf_torch.pipeline\n"
             "import lerf_torch.cli.upscale, lerf_torch.cli.eval_lut_sr\n"
+            "import lerf_torch.cli.eval_lut_warp, lerf_torch.evaluate\n"
+            "import lerf_torch.ops.kernels.warp, lerf_torch.ops.interp_kernels\n"
             "import lerf_torch.cli.eval_model, lerf_torch.models.srnet\n"
             "import lerf_torch.models.convert\n"
             "import lerf_torch.ops.kernels.srnet_ensemble\n"
