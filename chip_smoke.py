@@ -17,8 +17,10 @@ its plain PyTorch twin on the card:
    with each kernel's registers, stack, spills and static shared memory
    from ``-Xptxas -v``;
 2. K1 (steering resize) vs its plain twin at 360×640, ×4 / ×2.5 / ×3.55 /
-   ×0.5: float32 max-abs ≤ 1e-3; K1's uint8 mode exactly equal to its
-   float mode quantized; uint8 mismatches with the twin must be .5 ties;
+   ×0.5: float32 max-abs ≤ 1e-3 (whether it is bit-equal printed: the
+   twin's decode divides exactly, ``ops.lut_pipeline.divide_exact``); K1's
+   uint8 mode exactly equal to its float mode quantized; uint8 mismatches
+   with the twin must be .5 ties;
 3. K2 (LUT stage) vs its plain twin, bit-equal: stage 1, stage 2 and a
    3-stage bank's intermediate stage;
 4. LUT form end to end on the card vs ``device="cpu"``: feat and hyper
@@ -44,26 +46,35 @@ its plain PyTorch twin on the card:
    but for .5 ties;
 8. net form timing per backend: the whole call, its device part, a
    profile;
-9. K5 (steering warp) vs its plain twin at 3×360×640 for three
+9. K5 (steering warp) vs its plain twin at 3×360×640 for four
    homographies — the main path's (``bench_lut_warp``'s ×4 zoom composed
-   with bench.py's projective jitter, seed 0), a pure ×2.5 zoom and one
+   with bench.py's projective jitter, seed 0), a pure ×2.5 zoom, one
    whose output corner (0, 0) lies above and left of the image
    (``pad0 = 1`` on both axes, distances of 2 on the far side, NaN
-   windows): float32 max-abs ≤ 1e-3 on finite values, the NaN pattern
-   equal (count printed), the uint8 mode equal to the float mode with
-   NaN → 0 quantized, uint8 mismatches with the twin only at .5 ties;
+   windows) and a 1/16 minification, whose every block's footprint
+   exceeds K5's shared-memory tile (the kernel's direct path; the share
+   of such blocks printed for each): the geometry K5 derives on the card
+   (``lerf_warp_geometry``) bit-equal to the host's per-pixel operands;
+   float32 max-abs ≤ 1e-3 on finite values, the NaN pattern equal (count
+   printed), the uint8 mode equal to the float mode with NaN → 0
+   quantized, uint8 mismatches with the twin only at .5 ties;
 10. LUT warp end to end, ``LutPredictor(bank).warp(frame, M, (1440,
    2560), return_aux=True)`` on the card vs ``device="cpu"`` on the full
    frame: feat and hyper bit-equal, the mask equal, uint8 equal but for
-   .5 ties; K2 launched twice, K5 once, K1 never; the device part
-   (``run_warp_device``) launches K2 and K5 and nothing else (profiler);
-   then the whole call (median of 20), the device part (events), a
-   profile, and K5 alone beside its twin and its bound;
+   .5 ties; K2 launched twice, K5 once, K1 never; the first call of the
+   homography (``first_call_s``: its host mask and parameters); the
+   device part (``run_warp_device``) launches K2 and K5 and nothing else
+   (profiler); then the whole call (median of 20), the device part
+   (events), a profile, and K5 alone beside its twin and its bound (the
+   larger of bytes, float32 and float64 operations, all parts printed);
 11. net warp per backend: K3 or K4 twice and K5 once on the full frame, a
    96×160 crop against the CPU path (phase 7's tolerances, the mask
    equal, uint8 equal to the plain warp of the card's own stages but for
    .5 ties), the whole call (median of 10), its device part, a profile;
-12. the kernels line, the card line and, last, the result line.
+12. the exact-division findings (K1 bit-equal to its twin or not at each
+   phase 2 scale; the net crop's feat / hyper-code difference shares under
+   K3 and K4), the kernels line, the card line and, last, the result
+   line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -116,10 +127,18 @@ K4_F32_OPS_PER_HEAD = 7
 #  K5, per output pixel, channel and neighbour: the weight's 11 (exp as
 #  one) and 3 for the sums; per output and channel the epilogue, 5 in
 #  uint8 (div, NaN test, rint, two clips); the decode at least once a
-#  source pixel (K1_OPS_PER_SOURCE)
+#  source pixel (K1_OPS_PER_SOURCE).  Its geometry in float64: per output
+#  the grid's three row-term adds and two divisions, and per axis the
+#  clip (2), (g - 1) - eps (2), ceil, + pad, two distances and their
+#  casts (4): 25; per output row and column the grid's products and the
+#  column's adds, 3 and 6
 K5_OPS_PER_NEIGHBOUR = 14
 K5_OPS_PER_OUTPUT_U8 = 5
-K5_OPERAND_BYTES = 24   # a pixel: int2 window corner, float4 distances
+K5_F64_OPS_PER_OUTPUT = 25
+K5_F64_OPS_PER_ROW = 3
+K5_F64_OPS_PER_COLUMN = 6
+# H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+F64_OPS_PER_S = 34e12
 K5_ATOL = 1e-3          # float32 ops in one order; exp differs by a few ulp
 WARP_OUT = (int(LR_H * SCALE), int(LR_W * SCALE))
 
@@ -145,6 +164,8 @@ WARP_CASES = {
     # the image: pad0 = 1 on both axes, distances of 2 on the far side
     "pad1": (np.array([[3.6, 0.1, 12.0], [0.05, 3.7, 10.0],
                        [1e-5, 2e-5, 1.0]]), WARP_OUT),
+    # every block's footprint exceeds the shared-memory tile: the direct path
+    "minify16": (np.diag([1 / 16, 1 / 16, 1.0]), (22, 40)),
 }
 
 
@@ -502,7 +523,8 @@ def net_kernel_phases(dev, params, qparams, rng):
 def net_form_phases(dev, params, frame, backend):
     """Phases 7 and 8 for one backend: the main path on the card with the
     launch counts, the crop against the CPU path, then timing.  Returns
-    the main path's launch counts."""
+    the main path's launch counts and the crop's differing shares of feat
+    and hyper codes."""
     import torch
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.ops.kernels import lut_stage as k2
@@ -585,23 +607,33 @@ def net_form_phases(dev, params, frame, backend):
           "device_ms": device_ms, "device_mps": mp / device_ms * 1e3})
     emit_timed(profile_frames(lambda: pred.upscale(frame, SCALE, SCALE),
                               frames=5, form="net", backend=backend))
-    return launches
+    return launches, {"feat_share_differing": feat_share,
+                      "hyper_share_differing": hyper_share}
 
 
-def k5_work(geom, c):
-    """(bytes, operations) of one K5 call in uint8 mode: the int32 feature
-    and codes read once, the uint8 output written once, the device
-    geometry (24 bytes an output pixel) read once; the decode once a
-    source pixel, the weights and sums once an output, channel and
-    neighbour, the epilogue once an output and channel.  Also the bytes
-    without the geometry, the bound of a kernel that derived it on the
-    card from the 3×3 matrix."""
-    (h, w), (oh, ow) = geom.in_sz, geom.out_sz
-    source = c * h * w * 4 * 4 + c * oh * ow
-    nbytes = source + oh * ow * K5_OPERAND_BYTES
+def k5_work(in_sz, out_sz, c):
+    """(bytes, float32 operations, float64 operations) of one K5 call in
+    uint8 mode: the int32 feature and codes and the 3×3 float64 inverse
+    read once, the uint8 output written once; the decode once a source
+    pixel, the weights and sums once an output, channel and neighbour, the
+    epilogue once an output and channel; the geometry once an output."""
+    (h, w), (oh, ow) = in_sz, out_sz
+    nbytes = c * h * w * 4 * 4 + 9 * 8 + c * oh * ow
     ops = (c * h * w * K1_OPS_PER_SOURCE
            + c * oh * ow * (4 * K5_OPS_PER_NEIGHBOUR + K5_OPS_PER_OUTPUT_U8))
-    return nbytes, ops, source
+    f64 = (oh * ow * K5_F64_OPS_PER_OUTPUT + oh * K5_F64_OPS_PER_ROW
+           + ow * K5_F64_OPS_PER_COLUMN)
+    return nbytes, ops, f64
+
+
+def k5_bound(nbytes, ops, f64):
+    """The largest of bytes, float32 and float64 operations, with its name
+    and all three times."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32_operations": ops / NON_TENSOR_OPS_PER_S * 1e3,
+             "f64_operations": f64 / F64_OPS_PER_S * 1e3}
+    by = max(parts, key=parts.get)
+    return parts[by], ("bytes" if by == "bytes" else "operations"), parts
 
 
 def kernel_modules():
@@ -633,8 +665,9 @@ def counted_run(call, want, what):
 
 
 def warp_kernel_phase(dev, rng):
-    """Phase 9: K5 against its plain twin on the card at the stage shapes,
-    for each of ``WARP_CASES``.  Returns K5's largest error."""
+    """Phase 9: K5 and the geometry it derives against their plain twins
+    on the card at the stage shapes, for each of ``WARP_CASES``.  Returns
+    K5's largest error."""
     import torch
     from lerf_torch.ops.geometry import WarpGeometry
     from lerf_torch.ops.kernels import warp as k5
@@ -648,12 +681,24 @@ def warp_kernel_phase(dev, rng):
     worst = 0.0
     for name, (matrix, out_sz) in WARP_CASES.items():
         t = time.perf_counter()
+        params = k5.WarpParams.create((LR_H, LR_W), matrix, out_sz)
+        params_s = time.perf_counter() - t
         geom = WarpGeometry.create((LR_H, LR_W), matrix, out_sz)
-        ops = k5.WarpOperands.create(geom, dev)
-        geometry_s = time.perf_counter() - t
-        got = k5.steering_warp(feat, codes, geom, operands=ops)
-        got_u8 = k5.steering_warp(feat, codes, geom, operands=ops,
-                                  out_dtype=torch.uint8)
+        host = k5.WarpOperands.create(geom, "cpu")
+        card = k5.warp_geometry(params, dev)
+        torch.cuda.synchronize()
+        if not (card.pad == host.pad
+                and torch.equal(card.corners.cpu(), host.corners)
+                and torch.equal(card.dis.cpu(), host.dis)):
+            raise AssertionError(f"K5 {name}: the card's geometry differs "
+                                 "from the host's operands")
+        direct = k5.footprint_entries(host, (LR_H, LR_W), out_sz, 3) \
+            > k5.TILE_ENTRIES
+        if name == "minify16" and not direct.all():
+            raise AssertionError("K5 minify16: some blocks fit the tile; "
+                                 "the case must take the direct path")
+        got = k5.steering_warp(feat, codes, params)
+        got_u8 = k5.steering_warp(feat, codes, params, out_dtype=torch.uint8)
         want = steering_warp_codes_plain(feat, codes, geom)
         torch.cuda.synchronize()
         nan = torch.isnan(want)
@@ -682,9 +727,11 @@ def warp_kernel_phase(dev, rng):
         worst = max(worst, err)
         emit({"phase": "k5_vs_plain", "matrix": name, "out": list(out_sz),
               "pad_x": list(geom.pad_x), "pad_y": list(geom.pad_y),
-              "nan_windows": n_nan, "max_abs_err": err,
+              "geometry_bit_equal": True, "direct_block_share":
+              float(direct.mean()), "nan_windows": n_nan,
+              "max_abs_err": err, "bit_equal": err == 0.0,
               "u8_equal_to_quantized_float": True, "u8_mismatch": n_tie,
-              "geometry_s": geometry_s})
+              "params_s": params_s})
     return worst
 
 
@@ -701,7 +748,7 @@ def lut_warp_phases(dev, bank, frame, x):
     matrix = WARP_CASES["main"][0]
     pred = LutPredictor(bank)
     t = time.perf_counter()
-    pred.warp(frame, matrix, WARP_OUT)        # the key's geometry, built once
+    pred.warp(frame, matrix, WARP_OUT)        # the key's mask and params
     first_s = time.perf_counter() - t
     (out, mask, feat, hyper), launches = counted_run(
         lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
@@ -763,16 +810,20 @@ def lut_warp_phases(dev, bank, frame, x):
 
     # K5 alone, in the main path's uint8 mode, on the card's own stages
     feat_d, hyper_d = pred._stages_fn(x)
-    geom, ops, _ = pred._warp_cache[next(reversed(pred._warp_cache))]
+    params, _ = pred._warp_cache[next(reversed(pred._warp_cache))]
+    if not isinstance(params, k5.WarpParams):
+        raise AssertionError("LUT warp on the card caches "
+                             f"{type(params).__name__}, not WarpParams")
+    geom = params.geometry()                  # the twin's host geometry
 
     def k5_u8():
-        return k5.steering_warp(feat_d, hyper_d, geom, operands=ops,
+        return k5.steering_warp(feat_d, hyper_d, params,
                                 out_dtype=torch.uint8)
 
     ms = event_ms(k5_u8, iters=50)
     profiler_ms = kernel_device_ms(k5_u8, "steering_warp_kernel")
-    float_ms = event_ms(lambda: k5.steering_warp(feat_d, hyper_d, geom,
-                                                 operands=ops), iters=50)
+    float_ms = event_ms(lambda: k5.steering_warp(feat_d, hyper_d, params),
+                        iters=50)
     plain_ms = event_ms(lambda: quantize_device(steering_warp_codes_plain(
         feat_d, hyper_d, geom), 255, nan_to_zero=True), iters=5, warmup=1)
     # the part of the twin's time that copies its host geometry to the card
@@ -780,23 +831,22 @@ def lut_warp_phases(dev, bank, frame, x):
         torch.from_numpy(geom.lin_idx.reshape(2, 2, -1).astype(np.int64))
         .to(dev), _warp_dis_flat(geom, torch.float32, dev)),
         iters=5, warmup=1)
-    nbytes, nops, source_bytes = k5_work(geom, 3)
-    b_ms, b_by = bound(nbytes, nops)
+    nbytes, nops, f64 = k5_work((LR_H, LR_W), WARP_OUT, 3)
+    b_ms, b_by, parts = k5_bound(nbytes, nops, f64)
     emit_timed({"kernel": "steering_warp", "out_dtype": "uint8", "ms": ms,
                 "profiler_ms": profiler_ms, "float_mode_ms": float_ms,
                 "launches_per_frame": 1, "plain_ms": plain_ms,
                 "plain_geometry_copy_ms": plain_copy_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "ops": nops, "share_of_bound": b_ms / ms,
-                "bound_without_geometry_ms": max(
-                    source_bytes / HBM_BYTES_PER_S * 1e3,
-                    nops / NON_TENSOR_OPS_PER_S * 1e3)})
+                "bound_ms": b_ms, "bound_by": b_by, "bound_parts_ms": parts,
+                "bytes": nbytes, "ops": nops, "f64_ops": f64,
+                "share_of_bound": b_ms / ms})
     return {"name": "steering_warp", "route": "cuda",
             "source": "lerf_torch/csrc/steering_warp.cu",
             "replaces": "lerf_tpu/ops/resample.py:438",
             "launches": launches["steering_warp"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "share_of_bound": b_ms / ms, "library_ms": None}
+            "bound_parts_ms": parts, "share_of_bound": b_ms / ms,
+            "library_ms": None}
 
 
 def net_warp_phases(dev, params, frame, backend):
@@ -927,6 +977,7 @@ def main() -> int:
     codes = torch.from_numpy(
         rng.randint(0, 256, shape + (3,)).astype(np.int32)).to(dev)
     k1_err = 0.0
+    k1_bit_equal = {}
     for scale in (4.0, 2.5, 3.55, 0.5):
         geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[scale] * 2)
         got = k1.steering_resize(feat, codes, geom)
@@ -947,12 +998,13 @@ def main() -> int:
                        want.cpu().numpy(),
                        f"K1 x{scale}")
         k1_err = max(k1_err, err)
+        k1_bit_equal[scale] = err == 0.0
         emit({"phase": "k1_vs_plain", "scale": scale,
               "out": list(geom.out_sz), "antialias": geom.antialias,
               "support": geom.support,
               "tile": list(k1.ResizeOperands.create(geom, dev).tile),
-              "max_abs_err": err, "u8_equal_to_quantized_float": True,
-              "u8_mismatch": n})
+              "max_abs_err": err, "bit_equal": err == 0.0,
+              "u8_equal_to_quantized_float": True, "u8_mismatch": n})
 
     # -- 3. K2 vs its plain twin -------------------------------------------
     bank = bench_bank()
@@ -1131,8 +1183,9 @@ def main() -> int:
     net = net_kernel_phases(dev, params, qparams, rng)
 
     # -- 7, 8. the net form end to end and its timing, per backend ---------
-    net_launches = {backend: net_form_phases(dev, params, frame, backend)
-                    for backend in ("auto", "pallas_int8")}
+    net_runs = {backend: net_form_phases(dev, params, frame, backend)
+                for backend in ("auto", "pallas_int8")}
+    net_launches = {b: run[0] for b, run in net_runs.items()}
 
     k3s, k4s = net["srnet_ensemble"], net["srnet_ensemble_int8"]
     k3_b, k3_by, k3_parts = k3_bound(k3s["bytes"], k3s["macs"])
@@ -1167,6 +1220,11 @@ def main() -> int:
         net_warp_phases(dev, params, frame, backend)
 
     # -- 12. result ----------------------------------------------------------
+    emit({"phase": "exact_division",
+          "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
+          "k1_max_abs_err": k1_err,
+          "net_crop": {b: run[1] for b, run in net_runs.items()},
+          "crop": [CROP_H, CROP_W]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

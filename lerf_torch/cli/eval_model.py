@@ -9,10 +9,12 @@ Drop-in equivalent of the reference eval script (resample/eval_model.py) and
 
 Loads ``Model_{loadIter:06d}.pth`` from ``-e`` and prints the same table
 format; ``--backend`` picks the ensemble backend (``auto``: K3,
-``pallas_int8``: K4, ``xla``: the plain chain).  The IMDN form (``--model
-IMDN2``), orbax ``ckpt/`` checkpoints, warp evaluation and the bucketed /
-dynamic serving forms are not ported yet and exit with a message saying
-so.
+``pallas_int8``: K4, ``xla``: the plain chain).  As in the reference,
+"warp" in ``--resultRoot`` evaluates the homographic warp on a
+WarpBenchmark tree (``--hrRoot`` for the HR root) and prints the isc / osc
+table.  The IMDN form (``--model IMDN2``), orbax ``ckpt/`` checkpoints and
+the bucketed / dynamic serving forms are not ported yet and exit with a
+message saying so.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import os
 import sys
 
 from ..config import TestConfig, parse_config
-from ..evaluate import format_sr_header, format_sr_row, run_sr_benchmark
+from ..evaluate import (format_sr_header, format_sr_row, format_warp_header,
+                        format_warp_row, run_sr_benchmark,
+                        run_warp_benchmark)
 from ..pipeline import NetPredictor
 
 DEFAULT_DATASETS = ["Set5"]
@@ -68,15 +72,28 @@ def build_predictor(cfg: TestConfig) -> NetPredictor:
 
 def main(argv=None, datasets=None):
     cfg = parse_config(TestConfig, argv)
-    if "warp" in cfg.result_root:
-        raise SystemExit("eval_model: warp evaluation is not ported yet "
-                         "(ROADMAP Queue A item 5)")
-    if cfg.bucket > 0 or cfg.dynamic_sr:
+    warp = "warp" in cfg.result_root
+    if warp and (cfg.bucket > 0 or cfg.dynamic_warp):
+        raise SystemExit("eval_model: --dynamicWarp / --bucket serving is "
+                         "not ported yet (ROADMAP Queue A item 6)")
+    if not warp and (cfg.bucket > 0 or cfg.dynamic_sr):
         raise SystemExit("eval_model: --bucket / --dynamicSR serving is not "
                          "ported yet (ROADMAP Queue A item 6)")
     datasets = datasets or cfg.dataset_list() or DEFAULT_DATASETS
     pred = build_predictor(cfg)
     exp_name = cfg.exp_dir.rstrip("/").split("/")[-1]
+
+    if warp:
+        results = {}
+        print(format_warp_header(), flush=True)
+        for ds in datasets:
+            results[ds] = run_warp_benchmark(
+                pred, cfg.test_dir, ds, ("isc", "osc"),
+                hr_root=cfg.hr_root or None, result_root=cfg.result_root,
+                exp_name=exp_name,
+                pre_upsample="PreUpsample" in cfg.test_dir)
+            print(format_warp_row(ds, results[ds]), flush=True)
+        return results
 
     post = 2 if "PreUpsample" in cfg.test_dir else 1
     scales = cfg.scale_list() or [tuple(s) for s in DEFAULT_SCALES]

@@ -3,49 +3,165 @@
 // Replaces: the support-2 warp of lerf_tpu/ops/resample.py::
 // steering_gaussian_warp (u8_inputs=True), which on the TPU is no Pallas
 // kernel but an XLA row gather (_rowpack_warp_gather) followed by some twenty
-// elementwise passes, and the NaN -> 0 uint8 epilogue of
-// lerf_tpu/pipeline.py::_quantize_device(nan_to_zero=True).  The plain
-// PyTorch twin is lerf_torch/ops/resample.py::steering_warp_codes_plain.
+// elementwise passes, the float64 host geometry it gathers through
+// (lerf_tpu/ops/geometry.py::_warp_grid / _warp_axis), and the NaN -> 0
+// uint8 epilogue of lerf_tpu/pipeline.py::_quantize_device(nan_to_zero=True).
+// The plain PyTorch twins are lerf_torch/ops/resample.py::
+// steering_warp_codes_plain (the warp) and lerf_torch/ops/geometry.py::
+// warp_operands_plain (the geometry).
 //
-// What bounds it on the H100: bytes.  At 3x360x640 -> 1440x2560 the function
-// reads 11 MB of int32 feature and codes and 88 MB of per-pixel geometry
-// (24 bytes an output pixel) and writes 11 MB of uint8: 0.033 ms at
-// 3.35 TB/s; its 0.68 G float32 operations (chip_smoke.k5_work) take
-// 0.010 ms at 67 T/s.  It measures 0.187 ms on an H100 (700 W), the
-// float32 mode with 4x the output bytes the same, so the instructions
-// (three IEEE divisions and an expf a neighbour and channel) are the
-// likelier limit (PERF.md).
+// What bounds it on the H100: instruction issue, not bytes.  At 3x360x640 ->
+// 1440x2560 the function reads 11 MB of int32 feature and codes and writes
+// 11 MB of uint8 (0.0066 ms at 3.35 TB/s); its float32 work, 12
+// neighbour-channels an output at a weight and an expf each, takes 0.010 ms
+// at 67 T/s, its float64 geometry 0.0027 ms at 34 T/s.  The first design
+// (lerf_torch/tools/steering_warp_first.cu) read 24 bytes of host geometry
+// an output (88 MB) and decoded every gathered neighbour's codes with three
+// IEEE divisions (36 an output): 0.186 ms on an H100 80GB HBM3 at 700 W,
+// its float32 output as fast as its uint8 one.  This design measures
+// 0.113 ms there with its register cap, 0.126 without; from that 0.126,
+// the direct path in every block takes 0.212, windows from integer
+// arithmetic instead of the float64 geometry 0.098, no expf 0.117, the
+// host's operands read instead of the geometry 0.131
+// (lerf_torch/tools/probe_lut_kernels.py): the per-neighbour decode and
+// the float64 geometry were the costs, the operand bytes hardly.
 //
-// What the design does about it: one thread per output pixel, all C
-// channels, so the geometry (one 8-byte corner and one 16-byte distance load,
-// both coalesced) is read once a pixel and not once a channel; the output is
-// written once, as uint8 on the main path, with no float32 intermediate in
-// device memory.  The 2x2 source windows of neighbouring outputs overlap (a
-// x4 zoom reads each source pixel ~16 times), so the gathers of feature and
-// codes mostly hit L1 / L2.  A source tile in shared memory and geometry
-// computed on the card are later work.
-//
-// Semantics, those of the JAX path's geometry (lerf_tpu/ops/geometry.py::
-// _warp_axis): a pixel's two rows are clip(corner + s, 0, H - 1) in padded
-// coordinates, clipped to the UNPADDED bounds, and its source row is that
-// minus pad_r (0 or 1); source row -1 is the pad row, where the feature is 0
-// (constant pad) and the codes are row 0's (edge pad); likewise columns.
-// Neighbours run (0,0), (0,1), (1,0), (1,1); the codes decode as
-// code / norm * 2 - 1 and code / norm * max_sigma; the weight is
-// exp(-0.5 * ((sx dx)^2 - 2 rho (sx dx)(sy dy) + (sy dy)^2)) in the plain
-// twin's operation order, flushed to 0 below FLT_MIN (the reference backends
-// flush subnormals, so such a window is 0/0 = NaN there); one division at
-// the end.  Built without fast math and without FMA contraction, so each
-// operation is a single IEEE operation as in the twin; expf may differ from
-// PyTorch's exp by a few ulp.
+// What the design does about it:
+// - No geometry from the host.  Each thread derives its outputs' window
+//   rows, columns and distances from the nine float64 entries of the
+//   inverse homography and the two pads, in the operation order of
+//   _warp_grid / _warp_axis: each step one IEEE double operation (__dmul_rn,
+//   __dadd_rn, __dsub_rn, __ddiv_rn: no contraction into FMA whatever the
+//   flags), the distances cast to float32 once (__double2float_rn), so they
+//   are the host's bit for bit.  Two float64 divisions and some thirty
+//   other float64 operations an output, on the FP64 pipe.  The column's
+//   terms are computed once a thread.  lerf_warp_geometry writes the same
+//   values as the host's per-pixel operands, for the checks only.
+// - The source tile decoded once.  A block owns a 16 x 32 output tile
+//   (256 threads, two rows a thread).  It reduces its windows to the
+//   footprint rectangle in padded coordinates; where that rectangle times C
+//   fits kTileEntries, the block loads it once, coalesced, decoded into
+//   shared memory as float4 {feature, 2 rho, sx, sy} with the twin's float
+//   operations (code / norm * 2 - 1, code / norm * max_sigma; 2 rho is
+//   exact): padded row or column -1 is the pad, feature 0 (constant pad)
+//   and the codes of row / column 0 (edge pad).  The neighbour loop then
+//   reads shared memory only: three divisions a source pixel instead of
+//   three a neighbour.
+// - Blocks whose footprint does not fit (strong minification, or near the
+//   horizon of a projective map) take the direct path in the same kernel:
+//   each neighbour decoded from global memory, as the first design did.
+// - All C channels in one block, so the geometry is derived once an output;
+//   a warp writes 32 adjacent outputs of a row (one 32-byte sector in
+//   uint8).
+// Semantics, those of the JAX path's geometry (_warp_axis): a pixel's two
+// rows are clip(left + s, 0, H - 1) in padded coordinates, clipped to the
+// UNPADDED bounds, and its source row is that minus pad_r (0 or 1); source
+// row -1 is the pad row.  Neighbours run (0,0), (0,1), (1,0), (1,1); the
+// weight is exp(-0.5 * ((sx dx)^2 - 2 rho (sx dx)(sy dy) + (sy dy)^2)) in
+// the plain twin's operation order, flushed to 0 below FLT_MIN (the
+// reference backends flush subnormals, so such a window is 0/0 = NaN
+// there); one division at the end.  Built without fast math and without
+// FMA contraction, so each float32 operation is a single IEEE operation as
+// in the twin; expf may differ from PyTorch's exp by a few ulp.  A
+// projection 0/0 (output on the horizon line through the origin) is NaN on
+// the host and clips to 0 here.
 #include <cfloat>
+#include <climits>
 #include <cstdint>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTileH = 16;                  // outputs a block: rows
+constexpr int kTileW = 32;                  // and columns (one warp a row)
+constexpr int kThreadRows = 8;              // 256 threads
+constexpr int kRowsPerThread = kTileH / kThreadRows;
+constexpr int kTileEntries = 2048;          // float4s of footprint: 32 KB
+constexpr int kMinBlocks = 4;               // blocks an SM (register cap)
+constexpr double kEps = 1.1920928955078125e-07;   // float32 eps (_EPS)
+
+// One homography's geometry, by value: the inverse matrix row-major, the
+// unpadded input and the output sizes, the leading pads (0 or 1).
+struct Warp {
+  double m[9];
+  int H, W, OH, OW, pad_r, pad_c;
+};
+
+// One output's window: padded rows r[0..1], columns q[0..1], each clipped
+// to [0, in - 1], and its four float32 distances.
+struct Window {
+  int r[2], q[2];
+  float dx[2], dy[2];
+};
+
+// The terms of _warp_grid that depend on the output column j only:
+// inv[k, 0] * x + inv[k, 2] for the denominator and both numerators.
+struct Column {
+  double den, num_x, num_y;
+};
+
+__device__ __forceinline__ Column column_terms(const Warp& w, int j) {
+  const double x = (double)j;
+  return {__dadd_rn(__dmul_rn(w.m[6], x), w.m[8]),
+          __dadd_rn(__dmul_rn(w.m[0], x), w.m[2]),
+          __dadd_rn(__dmul_rn(w.m[3], x), w.m[5])};
+}
+
+// _warp_axis for support 2 on one coordinate: g = clip(src, 0, n), left =
+// ceil((g - 1) - eps) + pad, f_s = clip(left + s, 0, n - 1),
+// d_s = float32((g + pad) - f_s).
+__device__ __forceinline__ void axis(double src, int n, int pad, int* f,
+                                     float* d) {
+  const double g = fmin(fmax(src, 0.0), (double)n);
+  const int left = (int)ceil(__dsub_rn(__dsub_rn(g, 1.0), kEps)) + pad;
+  const double gp = __dadd_rn(g, (double)pad);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    f[s] = min(max(left + s, 0), n - 1);
+    d[s] = __double2float_rn(__dsub_rn(gp, (double)f[s]));
+  }
+}
+
+// _warp_grid at output (i, j): den = (i20 x + i22) + i21 y, src = (...) /
+// den, the row from src_y, the column from src_x.
+__device__ __forceinline__ Window window_at(const Warp& w, const Column& col,
+                                            int i) {
+  const double y = (double)i;
+  const double den = __dadd_rn(col.den, __dmul_rn(w.m[7], y));
+  const double sx = __ddiv_rn(__dadd_rn(col.num_x, __dmul_rn(w.m[1], y)), den);
+  const double sy = __ddiv_rn(__dadd_rn(col.num_y, __dmul_rn(w.m[4], y)), den);
+  Window p;
+  axis(sy, w.H, w.pad_r, p.r, p.dx);
+  axis(sx, w.W, w.pad_c, p.q, p.dy);
+  return p;
+}
+
+// Source pixel (sr, sc) of channel c (-1: the pad row / column) decoded as
+// {feature, 2 rho, sx, sy}.
+__device__ __forceinline__ float4 decode(const int* img, const int* codes,
+                                         int c, int sr, int sc, int H, int W,
+                                         float norm, float max_sigma) {
+  const size_t e = ((size_t)c * H + max(sr, 0)) * W + max(sc, 0);
+  const int* code = codes + e * 3;
+  const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
+  const float sx = (float)__ldg(code + 1) / norm * max_sigma;
+  const float sy = (float)__ldg(code + 2) / norm * max_sigma;
+  const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
+  return make_float4(v, 2.0f * rho, sx, sy);
+}
+
+// One neighbour's weight in the twin's float order, flushed below FLT_MIN.
+__device__ __forceinline__ float weight(float4 p, float dx, float dy) {
+  const float a = p.z * dx;
+  const float b = p.w * dy;
+  const float xn = a * a;
+  const float yn = b * b;
+  const float xy = a * p.w * dy;
+  const float w = expf(-0.5f * (xn - p.y * xy + yn));
+  return w < FLT_MIN ? 0.0f : w;
+}
 
 __device__ __forceinline__ float finish(float v, float, float*) { return v; }
 
@@ -56,91 +172,183 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
   return (unsigned char)fminf(fmaxf(rintf(v), 0.0f), norm);
 }
 
+// At least kMinBlocks blocks an SM: registers capped at 64 (80 uncapped,
+// three blocks an SM), which measured 10 % faster; six blocks (40) slower
+// (lerf_torch/tools/probe_lut_kernels.py).
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads) steering_warp_kernel(
-    const int* __restrict__ img,        // [C, H, W] int32 feature (0..norm)
-    const int* __restrict__ codes,      // [C, H, W, 3] int32 hyper codes
-    OutT* __restrict__ out,             // [C, N] float32 or uint8
-    const int2* __restrict__ corners,   // [N] (row, col), padded coordinates
-    const float4* __restrict__ dis,     // [N] (dx0, dx1, dy0, dy1)
-    int C, int H, int W, int N, int pad_r, int pad_c, float max_sigma,
-    float norm) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int2 corner = __ldg(corners + n);
-  const float4 d = __ldg(dis + n);
-  const float dx[2] = {d.x, d.y};
-  const float dy[2] = {d.z, d.w};
-  int r[2], q[2];
+__global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
+    steering_warp_kernel(
+    const int* __restrict__ img,     // [C, H, W] int32 feature (0..norm)
+    const int* __restrict__ codes,   // [C, H, W, 3] int32 hyper codes
+    OutT* __restrict__ out,          // [C, OH, OW] float32 or uint8
+    const Warp w, int C, float max_sigma, float norm) {
+  __shared__ float4 tile[kTileEntries];   // [C][rows][cols] of the footprint
+  __shared__ int box[4];                  // row min, max, column min, max
+  const int tid = threadIdx.y * kTileW + threadIdx.x;
+  const int j = blockIdx.x * kTileW + threadIdx.x;
+
+  // 1. this thread's windows, from the matrix in float64
+  const Column col = column_terms(w, min(j, w.OW - 1));
+  Window px[kRowsPerThread];
+  bool ok[kRowsPerThread];
+  int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    r[s] = min(max(corner.x + s, 0), H - 1) - pad_r;   // -1: the pad row
-    q[s] = min(max(corner.y + s, 0), W - 1) - pad_c;
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+    ok[k] = j < w.OW && i < w.OH;
+    if (!ok[k]) continue;
+    px[k] = window_at(w, col, i);
+    rmin = min(rmin, px[k].r[0]);
+    rmax = max(rmax, px[k].r[1]);
+    cmin = min(cmin, px[k].q[0]);
+    cmax = max(cmax, px[k].q[1]);
   }
-  const size_t plane = (size_t)H * W;
-  for (int c = 0; c < C; ++c) {
-    const int* x = img + c * plane;
-    const int* hyp = codes + c * plane * 3;
-    float wn = 0.0f, ws = 0.0f;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const size_t e = (size_t)max(r[s], 0) * W + max(q[t], 0);
-        const float v =
-            (r[s] >= 0 && q[t] >= 0) ? (float)__ldg(x + e) : 0.0f;
-        const int* code = hyp + e * 3;
-        const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
-        const float sx = (float)__ldg(code + 1) / norm * max_sigma;
-        const float sy = (float)__ldg(code + 2) / norm * max_sigma;
-        const float a = sx * dx[s];
-        const float b = sy * dy[t];
-        const float xn = a * a;
-        const float yn = b * b;
-        const float xy = a * sy * dy[t];
-        float w = expf(-0.5f * (xn - 2.0f * rho * xy + yn));
-        if (w < FLT_MIN) w = 0.0f;
-        wn += w * v;
-        ws += w;
-      }
+
+  // 2. the block's footprint: the rectangle of padded rows and columns its
+  // windows read
+  if (tid == 0) {
+    box[0] = box[2] = INT_MAX;
+    box[1] = box[3] = INT_MIN;
+  }
+  __syncthreads();
+  rmin = __reduce_min_sync(0xffffffffu, rmin);
+  rmax = __reduce_max_sync(0xffffffffu, rmax);
+  cmin = __reduce_min_sync(0xffffffffu, cmin);
+  cmax = __reduce_max_sync(0xffffffffu, cmax);
+  if ((tid & 31) == 0) {
+    atomicMin(box, rmin);
+    atomicMax(box + 1, rmax);
+    atomicMin(box + 2, cmin);
+    atomicMax(box + 3, cmax);
+  }
+  __syncthreads();
+  const int r_lo = box[0], c_lo = box[2];
+  const int nr = box[1] - r_lo + 1, nc = box[3] - c_lo + 1;
+  const bool shared = (long long)nr * nc * C <= kTileEntries;  // block-uniform
+
+  // 3. the footprint decoded once into shared memory, where it fits
+  if (shared) {
+    const int plane = nr * nc;
+    for (int e = tid; e < plane * C; e += kTileW * kThreadRows) {
+      const int c = e / plane;
+      const int rc = e - c * plane;
+      const int r = rc / nc;
+      tile[e] = decode(img, codes, c, r_lo + r - w.pad_r,
+                       c_lo + (rc - r * nc) - w.pad_c, w.H, w.W, norm,
+                       max_sigma);
     }
-    out[c * (size_t)N + n] = finish(wn / ws, norm, out);
+    __syncthreads();
+  }
+
+  // 4. the weighted sums, s-major, t-minor, and the epilogue
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    if (!ok[k]) continue;
+    const Window& p = px[k];
+    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+    for (int c = 0; c < C; ++c) {
+      float wn = 0.0f, ws = 0.0f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const float4 v =
+              shared ? tile[(c * nr + p.r[s] - r_lo) * nc + p.q[t] - c_lo]
+                     : decode(img, codes, c, p.r[s] - w.pad_r,
+                              p.q[t] - w.pad_c, w.H, w.W, norm, max_sigma);
+          const float wt = weight(v, p.dx[s], p.dy[t]);
+          wn += wt * v.x;
+          ws += wt;
+        }
+      }
+      out[((size_t)c * w.OH + i) * w.OW + j] = finish(wn / ws, norm, out);
+    }
   }
 }
 
-template <typename OutT>
-cudaError_t launch(const void* img, const void* codes, void* out,
-                   const void* corners, const void* dis, int C, int H, int W,
-                   int N, int pad_r, int pad_c, float max_sigma, float norm,
-                   cudaStream_t stream) {
-  const int blocks = (N + kThreads - 1) / kThreads;
-  steering_warp_kernel<OutT><<<blocks, kThreads, 0, stream>>>(
-      (const int*)img, (const int*)codes, (OutT*)out, (const int2*)corners,
-      (const float4*)dis, C, H, W, N, pad_r, pad_c, max_sigma, norm);
-  return cudaGetLastError();
+// The per-pixel operands of the host's WarpOperands from window_at: the
+// unclipped window corner (row, col) as _unclipped_corner recovers it from
+// the clipped pair (-1 where the pair is (0, 0)) and (dx0, dx1, dy0, dy1).
+__global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
+    int2* __restrict__ corners, float4* __restrict__ dis, const Warp w) {
+  const int j = blockIdx.x * kTileW + threadIdx.x;
+  if (j >= w.OW) return;
+  const Column col = column_terms(w, j);
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+    if (i >= w.OH) return;
+    const Window p = window_at(w, col, i);
+    const size_t n = (size_t)i * w.OW + j;
+    corners[n] = make_int2(p.r[1] == 0 ? -1 : p.r[0],
+                           p.q[1] == 0 ? -1 : p.q[0]);
+    dis[n] = make_float4(p.dx[0], p.dx[1], p.dy[0], p.dy[1]);
+  }
+}
+
+int make_warp(const double* inv, int H, int W, int OH, int OW, int pad_r,
+              int pad_c, Warp* w) {
+  if (H < 1 || W < 1 || pad_r < 0 || pad_c < 0 ||
+      (OH + kTileH - 1) / kTileH > 65535)
+    return (int)cudaErrorInvalidValue;
+  memcpy(w->m, inv, sizeof(w->m));
+  w->H = H;
+  w->W = W;
+  w->OH = OH;
+  w->OW = OW;
+  w->pad_r = pad_r;
+  w->pad_c = pad_c;
+  return 0;
+}
+
+dim3 grid_of(const Warp& w) {
+  return dim3((w.OW + kTileW - 1) / kTileW, (w.OH + kTileH - 1) / kTileH);
 }
 
 }  // namespace
 
-// N = oH * oW output pixels.  pad_r, pad_c: the geometry's leading pads
-// (0 or 1).  out_u8: 1 writes uint8 clip(rint(nan_to_num(.)), 0, norm)
-// (norm <= 255), 0 float32 with NaN where a window's weights all vanish.
+// inv: the 3x3 inverse homography, row-major float64, in host memory (read
+// before the call returns).  H, W: the unpadded input; pad_r, pad_c: the
+// geometry's leading pads (0 or 1).  out_u8: 1 writes uint8
+// clip(rint(nan_to_num(.)), 0, norm) (norm <= 255), 0 float32 with NaN where
+// a window's weights all vanish.
 extern "C" int lerf_steering_warp(const void* img, const void* codes,
-                                  void* out, const void* corners,
-                                  const void* dis, int C, int H, int W, int N,
-                                  int pad_r, int pad_c, float max_sigma,
-                                  float norm, int out_u8, void* stream) {
-  if ((long long)C * N == 0) return 0;
-  if (H < 1 || W < 1 || pad_r < 0 || pad_c < 0 ||
-      (out_u8 && !(norm <= 255.0f)))
-    return (int)cudaErrorInvalidValue;
+                                  void* out, const double* inv, int C, int H,
+                                  int W, int OH, int OW, int pad_r, int pad_c,
+                                  float max_sigma, float norm, int out_u8,
+                                  void* stream) {
+  if ((long long)C * OH * OW == 0) return 0;
+  Warp w;
+  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, &w);
+  if (err) return err;
+  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 block(kTileW, kThreadRows);
+  if (out_u8)
+    steering_warp_kernel<unsigned char><<<grid_of(w), block, 0, s>>>(
+        (const int*)img, (const int*)codes, (unsigned char*)out, w, C,
+        max_sigma, norm);
+  else
+    steering_warp_kernel<float><<<grid_of(w), block, 0, s>>>(
+        (const int*)img, (const int*)codes, (float*)out, w, C, max_sigma,
+        norm);
+  return (int)cudaGetLastError();
+}
+
+// The geometry K5 derives, written out: corners [OH * OW] int2 and dis
+// [OH * OW] float4, as WarpOperands lays them out.  For the checks; K5 does
+// not read them.
+extern "C" int lerf_warp_geometry(void* corners, void* dis, const double* inv,
+                                  int H, int W, int OH, int OW, int pad_r,
+                                  int pad_c, void* stream) {
+  if ((long long)OH * OW == 0) return 0;
   if ((uintptr_t)corners % sizeof(int2) || (uintptr_t)dis % sizeof(float4))
     return (int)cudaErrorMisalignedAddress;
-  cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      out_u8 ? launch<unsigned char>(img, codes, out, corners, dis, C, H, W,
-                                     N, pad_r, pad_c, max_sigma, norm, s)
-             : launch<float>(img, codes, out, corners, dis, C, H, W, N,
-                             pad_r, pad_c, max_sigma, norm, s);
-  return (int)err;
+  Warp w;
+  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, &w);
+  if (err) return err;
+  warp_geometry_kernel<<<grid_of(w), dim3(kTileW, kThreadRows), 0,
+                         (cudaStream_t)stream>>>((int2*)corners,
+                                                 (float4*)dis, w);
+  return (int)cudaGetLastError();
 }

@@ -28,6 +28,7 @@ import torch
 from ..ops.kernels import srnet_ensemble as k3
 from ..ops.kernels import srnet_ensemble_int8 as k4
 from ..ops.kernels.srnet_ensemble import LAYERS, sample_x4, srunit_chain
+from ..ops.lut_pipeline import divide_exact
 
 BACKENDS = ("xla", "pallas", "pallas_int8")
 
@@ -202,7 +203,8 @@ def stage1_from_heads(stage_heads, x: torch.Tensor, *, modes, norm: int,
             avg, bias, div = float(len(modes)), 0.0, 1.0
         else:
             avg, bias, div = float(len(modes) * 4), float(half), float(norm)
-        x = torch.clamp(round_ste(pred / avg) + bias, 0, norm) / div
+        x = divide_exact(torch.clamp(round_ste(divide_exact(pred, avg))
+                                     + bias, 0, norm), div)
     return x
 
 
@@ -214,7 +216,7 @@ def stage2_levels(heads, x: torch.Tensor, *, modes2, norm: int,
     pred = _ensemble_pred(heads, x, stage_members(modes2), half,
                           backend=backend)
     avg = float(len(modes2) * 4)
-    return torch.clamp(round_ste(pred / avg + half), 0, norm)
+    return torch.clamp(round_ste(divide_exact(pred, avg) + half), 0, norm)
 
 
 def predict_stage1(params: Dict, x: torch.Tensor, *,
@@ -240,9 +242,9 @@ def predict_stage2(params: Dict, x: torch.Tensor, *,
     [0,1] (model.py:101-112): clamp(round(pred/12 + 127), 0, 255)/255.
     The levels before the division are the int32 codes the resize kernel
     takes (:func:`predict_stage2_codes`)."""
-    return stage2_levels(stage2_heads(params, modes2), x, modes2=modes2,
-                         norm=norm, backend=resolve_backend(backend)) \
-        / float(norm)
+    return divide_exact(
+        stage2_levels(stage2_heads(params, modes2), x, modes2=modes2,
+                      norm=norm, backend=resolve_backend(backend)), norm)
 
 
 def predict_stage2_codes(params: Dict, x: torch.Tensor, *,

@@ -6,9 +6,11 @@ reference precompute (``resize_right/resize_right2d_numpy.py:18-104`` for
 resize, ``:306-407`` for warp), computed once per (in_shape, scale) or
 (in_shape, homography, out_shape) on the host in float64.  The resize
 field of view is separable and stored per axis as ``[out, support]``
-arrays; the warp's is per output pixel, ``[outH, outW, support]``.  The
-device kernels receive these arrays cast to int32 / float32, exactly as
-the JAX path casts them.
+arrays; the warp's is per output pixel, ``[outH, outW, support]``.  K1
+receives its arrays cast to int32 / float32, exactly as the JAX path
+casts them.  K5 derives the warp's on the card from the inverse matrix;
+:func:`warp_pads` and :func:`warp_operands_plain` are that derivation's
+plain twin, the same float64 operations in torch.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from math import ceil
 from typing import Sequence
 
 import numpy as np
+import torch
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -146,6 +149,72 @@ def _warp_axis(grid: np.ndarray, in_sz: int, support: int):
     fov_clipped = fov.clip(0, in_sz - 1)
     dis = (grid[..., None] + pad0) - fov_clipped
     return fov_clipped.astype(np.int32), dis, (pad0, pad1)
+
+
+def _inv_entries(inv):
+    """The 3×3 inverse as nine Python floats (row-major lists): scalars a
+    float64 tensor multiplies exactly, where a numpy scalar would not
+    stay a tensor operand."""
+    return [[float(v) for v in row]
+            for row in np.asarray(inv, dtype=np.float64).reshape(3, 3)]
+
+
+def _warp_grid_at(inv, ys: torch.Tensor, xs: torch.Tensor, in_sz):
+    """:func:`_warp_grid`'s operation sequence at float64 output rows
+    ``ys`` and columns ``xs`` (broadcast against each other), one IEEE
+    float64 operation a step: the same values as the host grid there."""
+    m = _inv_entries(inv)
+    den = (m[2][0] * xs + m[2][2]) + m[2][1] * ys
+    src_x = ((m[0][0] * xs + m[0][2]) + m[0][1] * ys) / den
+    src_y = ((m[1][0] * xs + m[1][2]) + m[1][1] * ys) / den
+    return src_y.clamp(0, in_sz[0]), src_x.clamp(0, in_sz[1])
+
+
+def _warp_left(grid: torch.Tensor, support: int) -> torch.Tensor:
+    """``_warp_axis``'s unpadded window start, int64."""
+    return torch.ceil((grid - support / 2.0) - _EPS).to(torch.int64)
+
+
+def warp_pads(inv, in_sz, out_sz, support: int = 2):
+    """``(pad_x, pad_y)`` of :class:`WarpGeometry` from the inverse
+    homography ``inv`` (``np.linalg.inv`` of the matrix, as
+    :func:`_warp_grid` makes it) alone: ``_warp_axis`` reads its pads from
+    the field of view at the two corner outputs, so the grid is evaluated
+    there only, in the same operations."""
+    oh, ow = (int(s) for s in out_sz)
+    ys = torch.tensor([0.0, oh - 1.0], dtype=torch.float64)
+    xs = torch.tensor([0.0, ow - 1.0], dtype=torch.float64)
+    pads = []
+    for grid, n in zip(_warp_grid_at(inv, ys, xs, in_sz), in_sz):
+        first, last = (int(v) for v in _warp_left(grid, support))
+        pads.append((max(-first, 0), max(last + support - int(n), 0)))
+    return tuple(pads)
+
+
+def warp_operands_plain(inv, in_sz, out_sz):
+    """The support-2 warp geometry K5 derives on the card, from the inverse
+    homography alone, in torch float64 on the CPU: ``(corners, dis, pad)``
+    laid out as ``kernels.warp.WarpOperands`` (int32 [oH·oW, 2] unclipped
+    window corners (row, col) in padded coordinates, float32 [oH·oW, 4]
+    distances (dx0, dx1, dy0, dy1), the leading pads), and equal to
+    ``WarpOperands.create`` of the host :class:`WarpGeometry`.  Each step is
+    the host's: the grid of :func:`_warp_grid`, then per axis ``ceil((g -
+    1) - eps)``, ``+ pad0``, the clip to ``[0, in - 1]``, ``(g + pad0) -
+    fov``, cast to float32 once."""
+    oh, ow = (int(s) for s in out_sz)
+    ys = torch.arange(oh, dtype=torch.float64)[:, None]
+    xs = torch.arange(ow, dtype=torch.float64)
+    grids = _warp_grid_at(inv, ys, xs, in_sz)
+    pad = tuple(p0 for p0, _ in warp_pads(inv, in_sz, out_sz))
+    corners, dis = [], []
+    for grid, n, p0 in zip(grids, in_sz, pad):
+        left = _warp_left(grid, 2) + p0
+        fov = [(left + s).clamp(0, int(n) - 1) for s in (0, 1)]
+        corners.append(torch.where(fov[1] == 0, -1, fov[0]))
+        shifted = grid + p0
+        dis += [shifted - f for f in fov]
+    return (torch.stack(corners, -1).reshape(-1, 2).to(torch.int32),
+            torch.stack(dis, -1).reshape(-1, 4).to(torch.float32), pad)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -101,12 +101,18 @@ def _declare(lib):
         i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
         vp]                                  # stream
     lib.lerf_steering_resize.restype = i32
+    f64p = ctypes.POINTER(ctypes.c_double)
     lib.lerf_steering_warp.argtypes = [
-        vp, vp, vp, vp, vp,                  # img, codes, out, corners, dis
-        i32, i32, i32, i32, i32, i32,        # C, H, W, N, pad_r, pad_c
+        vp, vp, vp, f64p,                    # img, codes, out, inv (host)
+        i32, i32, i32, i32, i32, i32, i32,   # C, H, W, OH, OW, pad_r, pad_c
         f32, f32, i32,                       # max_sigma, norm, u8
         vp]                                  # stream
     lib.lerf_steering_warp.restype = i32
+    lib.lerf_warp_geometry.argtypes = [
+        vp, vp, f64p,                        # corners, dis, inv (host)
+        i32, i32, i32, i32, i32, i32,        # H, W, OH, OW, pad_r, pad_c
+        vp]                                  # stream
+    lib.lerf_warp_geometry.restype = i32
     lib.lerf_lut_stage.argtypes = [
         vp, vp, vp, vp,                      # img, tables, out, members (host)
         i32, i32, i32, i32, i32, i32,        # M, C, H, W, oC, L4

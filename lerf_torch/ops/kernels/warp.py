@@ -6,27 +6,72 @@
 uint8) for CPU tensors and launches ``csrc/steering_warp.cu`` for CUDA
 tensors; it never falls back from the card to the plain version.
 ``launches`` counts kernel launches.
+
+On the card K5 takes the homography itself, as :class:`WarpParams` (the
+float64 inverse matrix, the two leading pads and the sizes), and derives
+each output's window on the card in float64, bit-equal to the host
+geometry.  :class:`WarpOperands` is that geometry in the host's per-pixel
+form (:func:`lerf_torch.ops.geometry.warp_operands_plain` computes the
+same); :func:`warp_geometry` writes it from the card's derivation, for the
+checks.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from ..geometry import WarpGeometry
+from ..geometry import WarpGeometry, warp_pads
 from ..resample import (_unclipped_corner, quantize_device,
                         steering_warp_codes_plain)
 from . import _build
 
 launches = 0
 
+# K5's blocks: TILE output rows × columns, and the float4 entries
+# (footprint rows × columns × C) a block decodes into shared memory; a
+# block whose footprint needs more takes the kernel's direct path.  Kept
+# equal to kTileH, kTileW and kTileEntries of csrc/steering_warp.cu.
+TILE = (16, 32)
+TILE_ENTRIES = 2048
+
+
+class WarpParams(NamedTuple):
+    """One support-2 warp as K5 takes it: the homography ``matrix`` and
+    its float64 inverse ``inv`` (``np.linalg.inv``, as the host geometry
+    makes it), the leading pads ``(pad_x[0], pad_y[0])`` of the host
+    geometry (:func:`~lerf_torch.ops.geometry.warp_pads`) and the sizes."""
+    matrix: Tuple[float, ...]   # 9, row-major
+    inv: Tuple[float, ...]      # 9, row-major
+    pad: Tuple[int, int]
+    in_sz: Tuple[int, int]
+    out_sz: Tuple[int, int]
+
+    @classmethod
+    def create(cls, in_sz, matrix, out_sz):
+        in_sz = tuple(int(s) for s in in_sz)
+        out_sz = tuple(int(s) for s in out_sz)
+        matrix = np.asarray(matrix, dtype=np.float64).reshape(3, 3)
+        inv = np.linalg.inv(matrix)
+        (px, _), (py, _) = warp_pads(inv, in_sz, out_sz)
+        return cls(matrix=tuple(map(float, matrix.ravel())),
+                   inv=tuple(map(float, inv.ravel())), pad=(px, py),
+                   in_sz=in_sz, out_sz=out_sz)
+
+    def geometry(self) -> WarpGeometry:
+        """The host geometry of the same warp (the plain twin's input)."""
+        return WarpGeometry.create(self.in_sz,
+                                   np.asarray(self.matrix).reshape(3, 3),
+                                   self.out_sz)
+
 
 class WarpOperands(NamedTuple):
-    """One support-2 warp geometry on the device, per output pixel n
-    (row-major over [oH, oW]): the unclipped top-left corner of its 2×2
-    window in padded coordinates, from which the kernel clips the two rows
-    and the two columns into [0, in-1] as the geometry does, and the four
+    """One support-2 warp geometry in the host's per-pixel form, per output
+    pixel n (row-major over [oH, oW]): the unclipped top-left corner of its
+    2×2 window in padded coordinates, from which the two rows and the two
+    columns clip into [0, in-1] as the geometry does, and the four
     distances cast float64 → float32 once.  24 bytes a pixel."""
     corners: torch.Tensor  # [N, 2] int32 (row, col), padded coordinates
     dis: torch.Tensor      # [N, 4] float32 (dx0, dx1, dy0, dy1)
@@ -47,17 +92,65 @@ class WarpOperands(NamedTuple):
             pad=(int(geom.pad_x[0]), int(geom.pad_y[0])))
 
 
-def steering_warp(feat: torch.Tensor, codes: torch.Tensor,
-                  geom: WarpGeometry, *, max_sigma: float = 10.0,
-                  norm: int = 255, operands: WarpOperands = None,
+def footprint_entries(operands: WarpOperands, in_sz, out_sz,
+                      channels: int) -> np.ndarray:
+    """[blocks_y, blocks_x] int64: the shared-memory float4 entries each K5
+    block's footprint needs (the rectangle of padded rows × columns its
+    outputs' windows read, × ``channels``), from the per-pixel operands;
+    a block above :data:`TILE_ENTRIES` takes the kernel's direct path."""
+    oh, ow = out_sz
+    corners = operands.corners.cpu().numpy().astype(np.int64)
+    corners = corners.reshape(oh, ow, 2)
+    th, tw = TILE
+    by, bx = -(-oh // th), -(-ow // tw)
+    # ragged blocks: the cells past the output stay neutral
+    lo = np.full((by * th, bx * tw, 2), np.iinfo(np.int64).max)
+    hi = np.full((by * th, bx * tw, 2), np.iinfo(np.int64).min)
+    for k, n in enumerate(in_sz):
+        lo[:oh, :ow, k] = np.clip(corners[..., k], 0, n - 1)
+        hi[:oh, :ow, k] = np.clip(corners[..., k] + 1, 0, n - 1)
+    lo = lo.reshape(by, th, bx, tw, 2).min(axis=(1, 3))
+    hi = hi.reshape(by, th, bx, tw, 2).max(axis=(1, 3))
+    span = hi - lo + 1
+    return span[..., 0] * span[..., 1] * channels
+
+
+def _inv_array(params: WarpParams):
+    return (ctypes.c_double * 9)(*params.inv)
+
+
+def warp_geometry(params: WarpParams, device) -> WarpOperands:
+    """The geometry K5 derives on the card, written out as
+    :class:`WarpOperands` (``lerf_warp_geometry``): for the checks against
+    the host's ``WarpOperands.create``.  Not on the main path."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"warp_geometry: the card's geometry needs a CUDA "
+                         f"device, not {device}")
+    (H, W), (OH, OW) = params.in_sz, params.out_sz
+    corners = torch.empty((OH * OW, 2), dtype=torch.int32, device=device)
+    dis = torch.empty((OH * OW, 4), dtype=torch.float32, device=device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lerf_warp_geometry(
+            corners.data_ptr(), dis.data_ptr(), _inv_array(params), H, W,
+            OH, OW, *params.pad, stream)
+    _build.check(err, "warp_geometry launch")
+    return WarpOperands(corners=corners, dis=dis, pad=tuple(params.pad))
+
+
+def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
+                  max_sigma: float = 10.0, norm: int = 255,
                   out_dtype: torch.dtype = torch.float32):
     """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] → [C, oH,
     oW]: float32 (NaN where a window's weights all vanish), or with
     ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the frame with NaN → 0,
     rounded half to even, clipped to 0..norm and cast, as
     :func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero``
-    does.  ``operands``: the geometry already on the device (the
-    predictors keep one per key); made here when not given."""
+    does.  ``warp``: :class:`WarpParams` (the card takes nothing else; the
+    CPU twin makes its host geometry from it), or for CPU tensors a
+    support-2 :class:`~lerf_torch.ops.geometry.WarpGeometry`."""
     if out_dtype not in (torch.float32, torch.uint8):
         raise ValueError(f"steering_warp: out_dtype {out_dtype} is not "
                          "float32 or uint8")
@@ -69,9 +162,10 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor,
             or codes.shape != (C, H, W, 3) or codes.device != feat.device):
         raise ValueError("steering_warp: feat int32 [C,H,W] and codes "
                          "int32 [C,H,W,3] on one device")
-    if tuple(geom.in_sz) != (H, W):
-        raise ValueError(f"geometry is for {geom.in_sz}, image is {(H, W)}")
+    if tuple(warp.in_sz) != (H, W):
+        raise ValueError(f"geometry is for {warp.in_sz}, image is {(H, W)}")
     if feat.device.type == "cpu":
+        geom = warp.geometry() if isinstance(warp, WarpParams) else warp
         out = steering_warp_codes_plain(feat, codes, geom,
                                         max_sigma=max_sigma, norm=norm)
         return quantize_device(out, norm, nan_to_zero=True) \
@@ -79,13 +173,10 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor,
     global launches
     if feat.device.type != "cuda":
         raise ValueError(f"steering_warp: unsupported device {feat.device}")
-    if operands is None:
-        operands = WarpOperands.create(geom, feat.device)
-    OH, OW = geom.out_sz
-    if (operands.corners.device != feat.device
-            or operands.corners.shape != (OH * OW, 2)):
-        raise ValueError("steering_warp: operands made for another device "
-                         "or geometry")
+    if not isinstance(warp, WarpParams):
+        raise ValueError("steering_warp: on a card K5 takes WarpParams (the "
+                         "matrix), not a host geometry")
+    OH, OW = warp.out_sz
     feat, codes = feat.contiguous(), codes.contiguous()
     out = torch.empty((C, OH, OW), dtype=out_dtype, device=feat.device)
     lib = _build.library()
@@ -93,9 +184,8 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_steering_warp(
             feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
-            operands.corners.data_ptr(), operands.dis.data_ptr(),
-            C, H, W, OH * OW, *operands.pad, float(max_sigma), float(norm),
-            int(out_dtype == torch.uint8), stream)
+            _inv_array(warp), C, H, W, OH, OW, *warp.pad, float(max_sigma),
+            float(norm), int(out_dtype == torch.uint8), stream)
     _build.check(err, "steering_warp launch")
     launches += 1
     return out

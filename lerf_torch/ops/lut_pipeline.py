@@ -254,8 +254,17 @@ def lut_stage2(img: torch.Tensor, tables: FlatTables, modes2: Sequence[str],
                   interval=interval, norm=norm)
 
 
+def divide_exact(x: torch.Tensor, divisor) -> torch.Tensor:
+    """``x / divisor`` (a number, such as ``norm``) as IEEE division on any
+    device: the divisor is a 0-d tensor of ``x``'s type on ``x``'s device.
+    PyTorch's CUDA division by a Python scalar multiplies by the scalar's
+    reciprocal instead, which lands an ulp away from the quotient for some
+    values; the CPU, ``lerf_tpu`` and the kernels divide."""
+    return x / torch.full((), float(divisor), dtype=x.dtype, device=x.device)
+
+
 def split_gaussian_hyper(hyper_u8: torch.Tensor, norm: int = 255):
     """[..., C, H, W, 3] int codes -> (rho, sigma_x, sigma_y) float32
     [..., C, H, W] in [0, 1] (eval_lut_sr.py:648-661)."""
-    hyper = hyper_u8.to(torch.float32) / float(norm)
+    hyper = divide_exact(hyper_u8.to(torch.float32), norm)
     return hyper[..., 0], hyper[..., 1], hyper[..., 2]

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from . import interp_kernels
 from .geometry import ResizeGeometry, WarpGeometry, _warp_axis, _warp_grid
-from .lut_pipeline import edge_index, split_gaussian_hyper
+from .lut_pipeline import divide_exact, edge_index, split_gaussian_hyper
 
 
 def pad2d(x: torch.Tensor, pad_x, pad_y, mode: str = "constant"):
@@ -298,10 +298,9 @@ def steering_warp_codes_plain(feat: torch.Tensor, codes: torch.Tensor,
     :func:`steering_gaussian_warp` (gather the integers, then decode
     ``code / norm``), for any ``norm``.
 
-    The divisor is a tensor on the device: PyTorch's CUDA division by a
-    Python scalar multiplies by its reciprocal, which rounds an ulp away
-    from the IEEE division the kernel (and the CPU) does, and far from
-    the image an ulp of a decoded σ moves a tiny weight enough to show."""
+    The division is :func:`~lerf_torch.ops.lut_pipeline.divide_exact`'s
+    IEEE division on every device, as in the kernel: far from the image an
+    ulp of a decoded σ moves a tiny weight enough to show."""
     if geom.support != 2:
         raise ValueError("steering_warp_codes_plain: support 2 only")
     C = feat.shape[0]
@@ -312,11 +311,11 @@ def steering_warp_codes_plain(feat: torch.Tensor, codes: torch.Tensor,
     lin = torch.from_numpy(geom.lin_idx.reshape(2, 2, -1)
                            .astype(np.int64)).to(dev)
     dx, dy = _warp_dis_flat(geom, torch.float32, dev)
-    den = torch.full((), float(norm), dtype=torch.float32, device=dev)
     wn = ws = None
     for s, t in ((0, 0), (0, 1), (1, 0), (1, 1)):
         x = xp.index_select(1, lin[s, t]).to(torch.float32)
-        u = cp.index_select(2, lin[s, t]).to(torch.float32) / den
+        u = divide_exact(cp.index_select(2, lin[s, t]).to(torch.float32),
+                           norm)
         r, sx, sy = decode_gaussian_hyper(u[:, 0], u[:, 1], u[:, 2],
                                           max_sigma)
         w = flush_subnormal(steering_gaussian_weight(r, sx, sy, dx[s], dy[t]))

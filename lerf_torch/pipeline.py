@@ -12,8 +12,9 @@ The port of ``lerf_tpu.pipeline``'s two predictors, SR and static warp:
 
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
-device copy of each shape's resize geometry, and of a few homographies'
-warp geometry.
+device copy of each shape's resize geometry, and for a few homographies
+the warp's parameters (on a card) or host geometry (on the CPU) and its
+validity mask.
 """
 from __future__ import annotations
 
@@ -28,16 +29,17 @@ from .lut.io import LUTBank
 from .models import srnet
 from .ops.geometry import ResizeGeometry, WarpGeometry
 from .ops.kernels.resize import ResizeOperands, steering_resize
-from .ops.kernels.warp import WarpOperands, steering_warp
-from .ops.lut_pipeline import (FlatTables, lut_stage1,
+from .ops.kernels.warp import WarpParams, steering_warp
+from .ops.lut_pipeline import (FlatTables, divide_exact, lut_stage1,
                                lut_stage1_intermediate, lut_stage2)
 from .ops.resample import nearest_warp_mask_host
 # the uint8 cast K1 fuses, kept under its old name for callers
 from .ops.resample import quantize_device as _quantize_device  # noqa: F401
 
-# Warp geometries a predictor keeps.  At 1440×2560 outputs one entry holds
-# ~90 MB of K5 operands on the card and ~240 MB of float64 / int32 host
-# geometry, so only the most recently used few stay.
+# Warps a predictor keeps.  At 1440×2560 outputs an entry holds the 3.7 MB
+# host mask, and on the CPU ~240 MB of float64 / int32 host geometry for
+# the plain twin (on a card K5 takes the matrix and derives the rest), so
+# only the most recently used few stay.
 WARP_CACHE_SIZE = 4
 
 
@@ -75,10 +77,12 @@ def _lut_input(img_hwc) -> np.ndarray:
 
 def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
                 device):
-    """(geometry, its K5 operands on a card or None, host validity mask)
-    for one (in_sz, homography, out_sz), kept in ``cache`` (least recently
-    used first, at most :data:`WARP_CACHE_SIZE` entries) under the key JAX
-    gives its warp programs (``pipeline.py:1221,1272``).  The mask is
+    """(the warp K5 takes, host validity mask) for one (in_sz, homography,
+    out_sz), kept in ``cache`` (least recently used first, at most
+    :data:`WARP_CACHE_SIZE` entries) under the key JAX gives its warp
+    programs (``pipeline.py:1221,1272``).  The warp is :class:`WarpParams`
+    on a card (the matrix: K5 derives the geometry itself) and the host
+    :class:`WarpGeometry` its plain twin reads on the CPU.  The mask is
     geometry only, computed on the host as ``nearest_warp_mask_host``."""
     if support != 2:
         raise NotImplementedError(
@@ -89,12 +93,11 @@ def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
     if key in cache:
         cache.move_to_end(key)
         return cache[key]
-    geom = WarpGeometry.create(in_sz, matrix, out_sz, support=support)
-    operands = (WarpOperands.create(geom, device) if device.type == "cuda"
-                else None)
+    warp = (WarpParams.create(in_sz, matrix, out_sz) if device.type == "cuda"
+            else WarpGeometry.create(in_sz, matrix, out_sz, support=support))
     mask = nearest_warp_mask_host(tuple(in_sz), matrix, tuple(out_sz),
                                   border=4)
-    cache[key] = (geom, operands, mask)
+    cache[key] = (warp, mask)
     while len(cache) > WARP_CACHE_SIZE:
         cache.popitem(last=False)
     return cache[key]
@@ -103,9 +106,9 @@ def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
 def _warp_out(feat, hyper, entry, max_sigma, norm):
     """K5 on the stage outputs: uint8 [C,oH,oW] (norm ≤ 255), else float32
     with NaN → 0 for the host to quantize."""
-    geom, operands, _ = entry
-    out = steering_warp(feat, hyper, geom, max_sigma=max_sigma, norm=norm,
-                        operands=operands, out_dtype=_out_dtype(norm))
+    warp, _ = entry
+    out = steering_warp(feat, hyper, warp, max_sigma=max_sigma, norm=norm,
+                        out_dtype=_out_dtype(norm))
     return out if out.dtype == torch.uint8 else torch.nan_to_num(out, nan=0.0)
 
 
@@ -247,15 +250,16 @@ class LutPredictor:
 
         Fully out-of-view support windows (NaN) are zeroed before
         quantization, matching the torch eval path (eval_model.py:261);
-        the mask excludes them from mPSNR.  The geometry, its device
-        operands and the mask are cached per (image size, matrix, out
-        size), for the last :data:`WARP_CACHE_SIZE` keys."""
+        the mask excludes them from mPSNR.  The warp's parameters (or on
+        the CPU its host geometry) and the mask are cached per (image
+        size, matrix, out size), for the last :data:`WARP_CACHE_SIZE`
+        keys."""
         chw = _lut_input(img_hwc)
         out_sz = tuple(int(v) for v in out_hw)
         out, feat, hyper = self.run_warp_device(
             torch.from_numpy(chw).to(self.device), matrix, out_sz)
         mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
-                           self.supp_size, self.device)[2].copy()
+                           self.supp_size, self.device)[1].copy()
         out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
         if return_aux:
             return out_u8, mask, feat.cpu().numpy(), hyper.cpu().numpy()
@@ -350,7 +354,7 @@ class NetPredictor:
         hyper net sees the image."""
         if self.two_stage:
             feat = self.stage1_fn(img_f)
-            hyper_in = feat / float(self.norm)
+            hyper_in = divide_exact(feat, self.norm)
         else:
             feat = torch.round(img_f * self.norm)
             hyper_in = img_f
@@ -396,7 +400,8 @@ class NetPredictor:
         out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
         if return_aux:
             return (out_u8, feat.cpu().numpy().astype(np.float32),
-                    (hyper.to(torch.float32) / float(self.norm)).cpu().numpy())
+                    divide_exact(hyper.to(torch.float32), self.norm)
+                    .cpu().numpy())
         return out_u8
 
     # -- warp ---------------------------------------------------------------
@@ -424,11 +429,12 @@ class NetPredictor:
         out, feat, hyper = self.run_warp_device(
             torch.from_numpy(chw).to(self.device), matrix, out_sz)
         mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
-                           self.supp_size, self.device)[2].copy()
+                           self.supp_size, self.device)[1].copy()
         out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
         if return_aux:
             return (out_u8, mask, feat.cpu().numpy().astype(np.float32),
-                    (hyper.to(torch.float32) / float(self.norm)).cpu().numpy())
+                    divide_exact(hyper.to(torch.float32), self.norm)
+                    .cpu().numpy())
         return out_u8, mask
 
     # -- serving forms not ported yet ----------------------------------------

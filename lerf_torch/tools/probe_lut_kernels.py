@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What bounds K1 and K2 on the card: time variants of each kernel with one
-part taken out.
+"""What bounds K1, K2 and K5 on the card: time variants of each kernel with
+one part taken out.
 
     python3 lerf_torch/tools/probe_lut_kernels.py
 
@@ -8,8 +8,9 @@ Each variant is the kernel's source with one text substitution, built on
 its own with the package's nvcc flags and timed with CUDA events beside
 the kernel as built, on the LUT form's main-path data: chip_smoke's
 seed-0 3×360×640 frame and random bank, K2 at stage 1 (oC 1) on the frame
-and at stage 2 (oC 3) on stage 1's output, K1 at ×4 (uint8 output) on
-both stages' outputs.
+and at stage 2 (oC 3) on stage 1's output, K1 at ×4 (uint8 output) and K5
+under the main path's homography to 1440×2560 (uint8 output) on both
+stages' outputs.
 
 * K1: float32 output instead of uint8; no ``expf``; no window load (the
   shared-memory window filled with constants, no global reads or
@@ -23,6 +24,15 @@ both stages' outputs.
   global memory instead of the shared-memory tile; one or four pixels a
   thread instead of two; a runtime divisor in the epilogue; the member
   loop unrolled by 2; a register cap for 4 or 8 blocks an SM.
+* K5: float32 output instead of uint8; no ``expf``; the direct path in
+  every block (each neighbour decoded from global memory, no shared-memory
+  tile); each window from integer arithmetic instead of the float64
+  geometry (the ×4 zoom without its jitter: what the geometry costs);
+  4 output rows a thread instead of 2; no register cap, or one for 6
+  blocks an SM instead of 4; 32-row tiles; the host's per-pixel operands (24 bytes an output, made by
+  ``WarpOperands.create``) read instead of the geometry derived in
+  float64; and the first design, ``steering_warp_first.cu`` beside this
+  script (host operands, each neighbour decoded, one output a thread).
 
 Only variants that keep the arithmetic compute the right numbers; each
 line says whether its output equals the kernel's.  Prints one JSON line
@@ -120,7 +130,62 @@ VARIANTS = {
             "__launch_bounds__(kTileW * kThreadRows)",
             "__launch_bounds__(kTileW * kThreadRows, 8)")],
     },
+    "steering_warp": {
+        "no expf": [("const float w = expf(-0.5f * (xn - p.y * xy + yn));",
+                     "const float w = -0.5f * (xn - p.y * xy + yn);")],
+        "direct path": [(
+            "const bool shared = (long long)nr * nc * C <= kTileEntries;",
+            "const bool shared = false;")],
+        # a window from integer arithmetic (the ×4 zoom without the
+        # jitter): what the float64 geometry costs, without reading operands
+        "geometry from integers": [(
+            "    px[k] = window_at(w, col, i);",
+            "    {\n"
+            "      const int r0 = min(i / 4, w.H - 1), q0 = min(j / 4, w.W - 1);\n"
+            "      px[k].r[0] = r0; px[k].r[1] = min(r0 + 1, w.H - 1);\n"
+            "      px[k].q[0] = q0; px[k].q[1] = min(q0 + 1, w.W - 1);\n"
+            "      px[k].dx[0] = 0.375f; px[k].dx[1] = -0.625f;\n"
+            "      px[k].dy[0] = 0.375f; px[k].dy[1] = -0.625f;\n"
+            "    }")],
+        "4 rows a thread": [("constexpr int kThreadRows = 8;",
+                             "constexpr int kThreadRows = 4;")],
+        "no register cap": [("constexpr int kMinBlocks = 4;",
+                             "constexpr int kMinBlocks = 1;")],
+        "at least 6 blocks an SM": [("constexpr int kMinBlocks = 4;",
+                                     "constexpr int kMinBlocks = 6;")],
+        "32-row tiles": [("constexpr int kTileH = 16;",
+                          "constexpr int kTileH = 32;")],
+        # the entry takes the host's corners and distances after the
+        # stream; each thread reads its windows from them
+        "host operands": [
+            ("struct Warp {\n  double m[9];",
+             "struct Warp {\n  const int2* corners;\n  const float4* dis;\n"
+             "  double m[9];"),
+            ("    px[k] = window_at(w, col, i);",
+             "    {\n"
+             "      const size_t n_ = (size_t)i * w.OW + j;\n"
+             "      const int2 c_ = __ldg(w.corners + n_);\n"
+             "      const float4 d_ = __ldg(w.dis + n_);\n"
+             "      for (int s = 0; s < 2; ++s) {\n"
+             "        px[k].r[s] = min(max(c_.x + s, 0), w.H - 1);\n"
+             "        px[k].q[s] = min(max(c_.y + s, 0), w.W - 1);\n"
+             "      }\n"
+             "      px[k].dx[0] = d_.x; px[k].dx[1] = d_.y;\n"
+             "      px[k].dy[0] = d_.z; px[k].dy[1] = d_.w;\n"
+             "    }"),
+            ("float max_sigma, float norm, int out_u8,\n"
+             "                                  void* stream) {",
+             "float max_sigma, float norm, int out_u8,\n"
+             "                                  void* stream, "
+             "const void* corners, const void* dis) {"),
+            ("  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;",
+             "  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;\n"
+             "  w.corners = (const int2*)corners;\n"
+             "  w.dis = (const float4*)dis;")],
+    },
 }
+# kernel → {variant: source file beside this script}: whole other designs
+OTHER_SOURCES = {"steering_warp": {"first design": "steering_warp_first.cu"}}
 K1_TILES = ((16, 64), (8, 64), (16, 32), (8, 32), (32, 32), (4, 64))
 
 
@@ -130,6 +195,14 @@ def build_variants(tmp):
     from lerf_torch.ops.kernels import _build
 
     jobs = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kernel, others in OTHER_SOURCES.items():
+        for name, fname in others.items():
+            stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
+            with open(os.path.join(here, fname)) as f, \
+                    open(stem + ".cu", "w") as g:
+                g.write(f.read())
+            jobs[(kernel, name)] = stem
     for kernel, variants in VARIANTS.items():
         with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
             src = f.read()
@@ -160,6 +233,7 @@ def main() -> int:
     from lerf_torch.ops import lut_pipeline as lp
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
     from lerf_torch.ops.resample import quantize_device
 
     card = cs.card_line()
@@ -260,6 +334,45 @@ def main() -> int:
                            k2_args(stage, out, table), f"K2 {name}")
                 emit("lut_stage", name, ms, bool(torch.equal(out, want)),
                      stage=stage)
+
+        # K5 on the main path's homography
+        params = k5.WarpParams.create(shape[1:], cs.WARP_CASES["main"][0],
+                                      cs.WARP_OUT)
+        host = k5.WarpOperands.create(params.geometry(), dev)
+        inv = (ctypes.c_double * 9)(*params.inv)
+        woh, wow = cs.WARP_OUT
+
+        def k5_args(out, u8, operands=False):
+            args = [vp(feat.data_ptr()), vp(codes.data_ptr()),
+                    vp(out.data_ptr()), inv,
+                    *map(i32, (3, cs.LR_H, cs.LR_W, woh, wow, *params.pad)),
+                    f32(10.0), f32(255.0), i32(u8), stream]
+            if operands:
+                args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]
+            return args
+
+        def first_args(out):
+            return [*(vp(t.data_ptr()) for t in (feat, codes, out,
+                                                 host.corners, host.dis)),
+                    *map(i32, (3, cs.LR_H, cs.LR_W, woh * wow, *params.pad)),
+                    f32(10.0), f32(255.0), i32(1), stream]
+
+        want = torch.empty(3, woh, wow, dtype=torch.uint8, device=dev)
+        out = torch.empty_like(want)
+        base = fns[("steering_warp", "as built")]
+        ms = timed(base, k5_args(want, 1), "K5")
+        emit("steering_warp", "as built", ms, True)
+        f32_out = torch.empty(3, woh, wow, device=dev)
+        ms = timed(base, k5_args(f32_out, 0), "K5 float")
+        emit("steering_warp", "float32 output", ms, bool(torch.equal(
+            quantize_device(f32_out, 255, nan_to_zero=True), want)))
+        for name in VARIANTS["steering_warp"]:
+            ms = timed(fns[("steering_warp", name)],
+                       k5_args(out, 1, name == "host operands"), f"K5 {name}")
+            emit("steering_warp", name, ms, bool(torch.equal(out, want)))
+        ms = timed(fns[("steering_warp", "first design")], first_args(out),
+                   "K5 first design")
+        emit("steering_warp", "first design", ms, bool(torch.equal(out, want)))
     print(card)
     return 0
 

@@ -16,7 +16,9 @@ arithmetic is bit-equal to its twin by construction and only ``tanhf`` may
 differ by an ulp: sums within 1 on < 0.1 %.  K5 holds atol 1e-3 with the
 same NaN pattern as its twin (the same float32 operations in the same
 order; a window whose four weights all fall below 2^-126 is 0/0 on both),
-and its uint8 mode equals its float mode with NaN → 0, quantized.
+and its uint8 mode equals its float mode with NaN → 0, quantized; the
+geometry K5 derives on the card from the matrix is bit-equal to the
+host's (the same float64 operations, one at a time).
 """
 import numpy as np
 import pytest
@@ -72,15 +74,37 @@ def jitter_matrix(seed, zoom):
                                                + rng.randn(3, 3) * scale)
 
 
-# name → (matrix, feature shape [C, H, W], output size): the warps K5 is
-# checked at.  "border" sends every output past the image's far corner,
-# so every distance is 2 and random codes leave NaN windows.
-WARP_CASES = {"1x1x1": (np.diag([2.0, 2.0, 1.0]), (1, 1, 1), (3, 4)),
-              "3x7x9": (jitter_matrix(0, (1.9, 1.9)), (3, 7, 9), (13, 17)),
-              "border": (np.array([[1.0, 0.0, -100.0], [0.0, 1.0, -100.0],
-                                   [0.0, 0.0, 1.0]]), (3, 7, 9), (13, 17)),
-              "x2.5-wide": (np.diag([2.5, 2.5, 1.0]), (3, 45, 77),
-                            (112, 192))}
+def rotation_matrix(theta, zoom, shift):
+    """A rotation by ``theta`` under a zoom, then a shift (x, y order)."""
+    c, s = np.cos(theta) * zoom, np.sin(theta) * zoom
+    return np.array([[c, -s, shift[0]], [s, c, shift[1]], [0.0, 0.0, 1.0]])
+
+
+# name → (matrix, feature shape [C, H, W], output size): the warps K5 and
+# its on-card geometry are checked at.  "border" sends every output past
+# the image's far corner, so every distance is 2 and random codes leave NaN
+# windows.  "main" is the main path's homography (the ×4 zoom under the
+# projective jitter, seed 0), "zoom2.5" and "pad1" (output (0, 0) above and
+# left of the image: pad0 = 1 on both axes) its other full-frame checks;
+# "minify16" is a 1/16 minification, whose blocks' footprints exceed the
+# shared-memory tile, so K5 takes its direct path there; "rotation" mixes
+# blocks of both paths in one launch.
+WARP_CASES = {
+    "1x1x1": (np.diag([2.0, 2.0, 1.0]), (1, 1, 1), (3, 4)),
+    "1x1-13x17": (np.diag([2.0, 2.0, 1.0]), (1, 1, 1), (13, 17)),
+    "3x7x9": (jitter_matrix(0, (1.9, 1.9)), (3, 7, 9), (13, 17)),
+    "border": (np.array([[1.0, 0.0, -100.0], [0.0, 1.0, -100.0],
+                         [0.0, 0.0, 1.0]]), (3, 7, 9), (13, 17)),
+    "x2.5-wide": (np.diag([2.5, 2.5, 1.0]), (3, 45, 77), (112, 192)),
+    "identity": (np.eye(3), (3, 45, 77), (45, 77)),
+    "rotation": (rotation_matrix(0.6, 1.0, (20.0, -6.0)), (3, 40, 56),
+                 (60, 84)),
+    "minify16": (np.diag([1 / 16, 1 / 16, 1.0]), (3, 320, 640), (20, 40)),
+    "main": (jitter_matrix(0, (4.0, 4.0)), (3, 360, 640), (1440, 2560)),
+    "zoom2.5": (np.diag([2.5, 2.5, 1.0]), (3, 360, 640), (900, 1600)),
+    "pad1": (np.array([[3.6, 0.1, 12.0], [0.05, 3.7, 10.0],
+                       [1e-5, 2e-5, 1.0]]), (3, 360, 640), (1440, 2560)),
+}
 
 
 @pytest.fixture
@@ -646,21 +670,53 @@ def test_upscale_on_card_matches_cpu(cuda_device):
 
 
 def warp_case(case, device):
+    """Random stage outputs of the case's shape on ``device``, its host
+    geometry (the twin's) and its WarpParams (K5's)."""
     matrix, shape, out_sz = WARP_CASES[case]
     rng = np.random.RandomState(8)
     feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32))
     codes = torch.from_numpy(rng.randint(0, 256, shape + (3,))
                              .astype(np.int32))
     geom = WarpGeometry.create(shape[1:], matrix, out_sz)
-    return feat.to(device), codes.to(device), geom
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz)
+    return feat.to(device), codes.to(device), geom, params
+
+
+def test_divide_exact_is_true_division():
+    codes = torch.arange(256, dtype=torch.float32)
+    want = torch.from_numpy(codes.numpy() / np.float32(255.0))
+    assert torch.equal(lp.divide_exact(codes, 255), want)
+    assert lp.divide_exact(codes, 255).dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_divide_exact_on_card_is_the_cpu_quotient(cuda_device):
+    codes = torch.arange(256, dtype=torch.float32)
+    got = lp.divide_exact(codes.to(cuda_device), 255)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), lp.divide_exact(codes, 255))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
+def test_warp_geometry_on_card_equals_host_operands(case, cuda_device):
+    matrix, shape, out_sz = WARP_CASES[case]
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz)
+    got = k5.warp_geometry(params, cuda_device)
+    torch.cuda.synchronize()
+    want = k5.WarpOperands.create(
+        WarpGeometry.create(shape[1:], matrix, out_sz), "cpu")
+    assert got.pad == want.pad
+    assert torch.equal(got.corners.cpu(), want.corners)
+    assert torch.equal(got.dis.cpu(), want.dis)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(WARP_CASES))
 def test_warp_kernel_matches_plain(case, cuda_device):
-    feat, codes, geom = warp_case(case, cuda_device)
+    feat, codes, geom, params = warp_case(case, cuda_device)
     before = k5.launches
-    got = k5.steering_warp(feat, codes, geom)
+    got = k5.steering_warp(feat, codes, params)
     torch.cuda.synchronize()
     assert k5.launches == before + 1
     want = steering_warp_codes_plain(feat, codes, geom)
@@ -676,18 +732,32 @@ def test_warp_kernel_matches_plain(case, cuda_device):
 @pytest.mark.parametrize("case", sorted(WARP_CASES))
 def test_warp_kernel_uint8_equals_its_float_mode_quantized(case,
                                                          cuda_device):
-    feat, codes, geom = warp_case(case, cuda_device)
-    ops = k5.WarpOperands.create(geom, cuda_device)
-    got = k5.steering_warp(feat, codes, geom, operands=ops,
-                           out_dtype=torch.uint8)
-    f32 = k5.steering_warp(feat, codes, geom, operands=ops)
+    feat, codes, _, params = warp_case(case, cuda_device)
+    got = k5.steering_warp(feat, codes, params, out_dtype=torch.uint8)
+    f32 = k5.steering_warp(feat, codes, params)
     torch.cuda.synchronize()
     assert got.dtype == torch.uint8 and got.shape == f32.shape
     assert torch.equal(got, quantize_device(f32, 255, nan_to_zero=True))
 
 
+@pytest.mark.cuda
+def test_warp_kernel_direct_path_matches_plain(cuda_device):
+    """Every block of the 1/16 minification reads a footprint larger than
+    the shared-memory tile, so each takes the kernel's direct path."""
+    feat, codes, geom, params = warp_case("minify16", cuda_device)
+    entries = k5.footprint_entries(k5.WarpOperands.create(geom, "cpu"),
+                                   geom.in_sz, geom.out_sz, feat.shape[0])
+    assert (entries > k5.TILE_ENTRIES).all()
+    got = k5.steering_warp(feat, codes, params)
+    torch.cuda.synchronize()
+    want = steering_warp_codes_plain(feat, codes, geom)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=WARP_ATOL)
+
+
 def test_warp_wrapper_rejects_mismatched_inputs():
-    feat, codes, geom = warp_case("3x7x9", "cpu")
+    feat, codes, geom, _ = warp_case("3x7x9", "cpu")
     other = WarpGeometry.create((8, 9), np.eye(3), (13, 17))
     with pytest.raises(ValueError, match="geometry"):
         k5.steering_warp(feat, codes, other)
@@ -698,11 +768,13 @@ def test_warp_wrapper_rejects_mismatched_inputs():
 
 
 @pytest.mark.cuda
-def test_warp_kernel_rejects_operands_of_another_device(cuda_device):
-    feat, codes, geom = warp_case("3x7x9", cuda_device)
-    cpu_ops = k5.WarpOperands.create(geom, "cpu")
-    with pytest.raises(ValueError, match="operands"):
-        k5.steering_warp(feat, codes, geom, operands=cpu_ops)
+def test_warp_kernel_rejects_a_host_geometry(cuda_device):
+    feat, codes, geom, _ = warp_case("3x7x9", cuda_device)
+    with pytest.raises(ValueError, match="WarpParams"):
+        k5.steering_warp(feat, codes, geom)
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.warp_geometry(k5.WarpParams.create((7, 9), np.eye(3), (13, 17)),
+                         "cpu")
 
 
 @pytest.mark.cuda

@@ -204,11 +204,35 @@ def test_eval_model_cli_prints_jax_table(tmp_path, capsys):
                       / "Tiny")
 
 
+def test_eval_model_cli_warp_prints_jax_table(tmp_path, capsys):
+    """"warp" in --resultRoot runs the warp benchmark, as lerf_tpu's
+    eval_model does: the same table on a synthetic WarpBenchmark tree."""
+    from lerf_tpu.cli.eval_model import main as jax_main
+    from lerf_torch.cli.eval_model import main as torch_main
+    from test_torch_warp import warp_tree
+
+    exp = net_experiment(tmp_path)
+    root = warp_tree(tmp_path)
+    capsys.readouterr()
+    args = ["-e", str(exp), "--testDir", str(root), "--datasets", "Tiny",
+            "--twoStage", "--outC", "3", "--nf", "8", "--platform", "cpu"]
+    want = jax_main(args + ["--resultRoot", str(tmp_path / "warp_jax")])
+    want_out = capsys.readouterr().out.splitlines()
+    got = torch_main(args + ["--resultRoot", str(tmp_path / "warp_torch")])
+    got_out = capsys.readouterr().out.splitlines()
+    assert got_out == want_out and len(got_out) == 2
+    assert sorted(got["Tiny"]) == sorted(want["Tiny"]) == ["isc", "osc"]
+    for p in ("isc", "osc"):
+        assert abs(got["Tiny"][p] - want["Tiny"][p]) <= 0.01
+    assert sorted(os.listdir(tmp_path / "warp_torch" / "lerf-net" / "Tiny"
+                             / "osc")) == ["0_out.png", "1_out.png"]
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--model", "IMDN2"], "item 8"),
     (["--bucket", "8"], "item 6"),
-    (["--resultRoot", "results/warp"], "item 5")],
-    ids=["imdn", "bucket", "warp"])
+    (["--resultRoot", "results/warp", "--dynamicWarp"], "item 6")],
+    ids=["imdn", "bucket", "warp-dynamic"])
 def test_eval_model_cli_unported_exit(flags, match, tmp_path):
     from lerf_torch.cli.eval_model import main
 

@@ -363,7 +363,7 @@ def test_lut_warp_caches_a_few_geometries():
     # the latest key is cached; the mask returned is a copy of the cached
     again = port.warp(img, MATRICES["jitter"][0] * (1 + k), SMALL[1])[1]
     again[:] = False
-    assert list(port._warp_cache.values())[-1][2].any()
+    assert list(port._warp_cache.values())[-1][1].any()
     with pytest.raises(NotImplementedError, match="support"):
         port_of(shared_lut_predictor(), device="cpu", supp_size=3).warp(
             img, MATRICES["jitter"][0], SMALL[1])
