@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's two forms on a 360×640 RGB frame, each through its SR
-path at ×4 and its homographic warp, both to 1440×2560 — the LUT form,
+path at ×4 and its homographic warp, both to 1440×2560, in both kernels,
+LeRF-G and LeRF-L, and the SR serving forms — the LUT form,
 ``LutPredictor(bank).upscale`` / ``.warp`` with the seed-0 random bank of
 the shipped LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8 tables,
 oC 3), and the micro-net (SRNet) form,
@@ -71,10 +72,38 @@ its plain PyTorch twin on the card:
    96×160 crop against the CPU path (phase 7's tolerances, the mask
    equal, uint8 equal to the plain warp of the card's own stages but for
    .5 ties), the whole call (median of 10), its device part, a profile;
-12. the exact-division findings (K1 bit-equal to its twin or not at each
-   phase 2 scale; the net crop's feat / hyper-code difference shares under
-   K3 and K4), the kernels line, the card line and, last, the result
-   line.
+12. K1's amplified-linear (LeRF-L) mode vs its twin at the phase 2 scales
+   (one α code a pixel): float32 max-abs ≤ 1e-3 (bit-equality printed),
+   the uint8 mode its float mode quantized (NaN → 0), uint8 mismatches
+   only at .5 ties;
+13. K5's linear mode vs its twin at the four phase 9 matrices, and K5 at
+   supports 3 and 4, Gaussian and linear, at the main matrix and the ×2.5
+   zoom: the card's geometry (corners, distances, the linear mode's
+   float64 branch masks) bit-equal to the host's, finite values within
+   1e-3, the NaN pattern equal (counts printed), uint8 only at ties;
+14. the LeRF-L LUT form (``bench_bank(out_c=1)``: stage 2 gives α) on the
+   full frame, ``upscale`` ×4 and ``warp``, on the card vs the CPU: feat
+   and hyper bit-equal, the mask equal, uint8 equal but for ties; K2
+   twice and K1 (SR) or K5 (warp) once, and the device parts launching
+   nothing else (profiler); the whole calls (median of 20), the device
+   parts, and K1's and K5's linear modes alone by events and by the
+   profiler beside their twins and bounds;
+15. the LeRF-L micro-net form (nf 64, K3): K3 twice and K1 or K5 once on
+   the full frame, the warp's frame against the plain warp of its own
+   stages, a 96×160 crop against the CPU path (phase 7's tolerances);
+16. the LUT warp at ``supp_size`` 4 (K2 twice, K5 once), then K5 alone at
+   support 4 beside its twin and its bound;
+17. the SR serving forms, LUT form, LeRF-G and LeRF-L:
+   ``upscale_dynamic`` at ×4 and ×2.5 (granularity 0 and 64) and ×0.5,
+   ``upscale_bucketed(..., 64)`` at ×4 (bucket 384×640) and
+   ``upscale_batch`` of 4 frames at ×4, each bit-equal to ``upscale`` on
+   the card frame by frame and each call K2 twice and K1 once (the batch
+   too); the batch's ms a frame beside ``upscale``'s;
+18. the exact-division findings (K1 bit-equal to its twin or not at each
+   phase 2 scale, in both modes; the net crop's feat / hyper-code
+   difference shares under K3 and K4), the kernels line (K1's and K5's
+   rows with their ``linear`` mode and K5's ``support4`` beside), the
+   card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -134,9 +163,15 @@ K4_F32_OPS_PER_HEAD = 7
 #  column's adds, 3 and 6
 K5_OPS_PER_NEIGHBOUR = 14
 K5_OPS_PER_OUTPUT_U8 = 5
-K5_F64_OPS_PER_OUTPUT = 25
 K5_F64_OPS_PER_ROW = 3
 K5_F64_OPS_PER_COLUMN = 6
+#  the amplified-linear modes (LeRF-L), per output (and channel) and
+#  neighbour: per axis α·x, ±1 and the clip at 0 (3), the product (1), the
+#  sums (3): 10; the decode, 3 a source pixel (division, multiply,
+#  subtract); K5's branch tests, 2 float64 comparisons a distance
+LIN_OPS_PER_NEIGHBOUR = 10
+LIN_OPS_PER_SOURCE = 3
+K5_F64_BRANCH_OPS = 2
 # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 F64_OPS_PER_S = 34e12
 K5_ATOL = 1e-3          # float32 ops in one order; exp differs by a few ulp
@@ -215,16 +250,17 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def bench_bank(seed=0, stages=2):
-    """The random bank of bench.py: shipped LeRF-G shapes, seeded."""
+def bench_bank(seed=0, stages=2, out_c=3):
+    """The random bank of bench.py: shipped LeRF-G shapes (``out_c`` 3), or
+    with ``out_c=1`` LeRF-L's (stage 2 gives α alone), seeded."""
     from lerf_torch.lut.io import LUTBank
 
     rng = np.random.RandomState(seed)
     feature = [{m: rng.randint(-127, 128, (L4, 1)).astype(np.int8)
                 for m in MODES} for _ in range(stages - 1)]
-    s2 = {f"{m}r{r}": rng.randint(-127, 128, (L4, 3)).astype(np.int8)
+    s2 = {f"{m}r{r}": rng.randint(-127, 128, (L4, out_c)).astype(np.int8)
           for m in MODES for r in (0, 1)}
-    return LUTBank(stage1=feature[-1], stage2=s2, out_c=3,
+    return LUTBank(stage1=feature[-1], stage2=s2, out_c=out_c,
                    inter=feature[:-1])
 
 
@@ -303,32 +339,70 @@ def profile_frames(call, frames=10, **label):
             "device_ms_by_name": [[k[:60], ms] for k, ms in rows[:10]]}
 
 
-def device_rows(fn, frames=5):
+def device_rows(fn, frames=5, attempts=3):
     """torch.profiler's device activities of ``frames`` calls of ``fn``:
-    [(name, calls a frame, device ms a frame)]."""
+    [(name, calls a frame, device ms a frame)].  In some windows the
+    profiler records no device activity at all; such a window is profiled
+    again, up to ``attempts`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.key, e.count / frames, e.self_device_time_total / 1e3 / frames)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count / frames,
+                 e.self_device_time_total / 1e3 / frames)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            return rows
+    return rows
 
 
 def kernel_device_ms(fn, key, frames=20):
-    """Device ms a call of ``fn`` spends in kernels whose name holds
-    ``key``, by torch.profiler: the kernel alone, whatever the host's
-    launch overhead (CUDA events around back-to-back calls read the host's
-    rate once a call's Python costs more than its kernel)."""
-    return sum(ms for name, _, ms in device_rows(fn, frames) if key in name)
+    """Device ms of one launch of the kernel whose name holds ``key`` (one
+    a call of ``fn``), by torch.profiler: the kernel alone, whatever the
+    host's launch overhead (CUDA events around back-to-back calls read the
+    host's rate once a call's Python costs more than its kernel).  The
+    mean over the launches the profiler recorded: in some windows it drops
+    rows, so a sum over ``frames`` would read low."""
+    rows = [(n, ms / n) for name, n, ms in device_rows(fn, frames)
+            if key in name]
+    launches = sum(n for n, _ in rows)
+    return sum(n * ms for n, ms in rows) / launches if launches else 0.0
+
+
+def device_part_only(fn, allowed, what):
+    """torch.profiler's device rows of ``fn``: raise if a kernel is not one
+    of ``allowed`` (names held in the kernel's symbol; copies allowed) or
+    none of them shows.  (The launch counts prove each kernel ran; the
+    profiler drops rows in some windows.)  Returns the rows."""
+    rows = device_rows(fn)
+    stray = [name for name, _, _ in rows
+             if not (any(k in name for k in allowed)
+                     or name.startswith(("Memcpy", "Memset")))]
+    if stray or not any(k in n for k in allowed for n, _, _ in rows):
+        raise AssertionError(f"{what}: kernels other than {allowed}: "
+                             f"{stray}, or none of them")
+    return rows
+
+
+def host_call_ms(call, frames, warmup=2):
+    """Median host ms of whole calls (copies and host work included)."""
+    times = []
+    for i in range(warmup + frames):
+        t = time.perf_counter()
+        call()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
 
 
 def k3_bound(nbytes, macs):
@@ -351,15 +425,20 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(geom, c):
+def k1_work(geom, c, linear=False):
     """(bytes, operations) of one K1 call in uint8 mode: the int32 feature
-    and codes read once, the uint8 output written once, the device
-    geometry read once; the decode once a source pixel, the weights and
-    sums once an output and neighbour, the epilogue once an output."""
+    and codes (3 a pixel, 1 in the linear mode) read once, the uint8
+    output written once, the device geometry (rows, distances and, linear,
+    masks) read once; the decode once a source pixel, the weights and sums
+    once an output and neighbour, the epilogue once an output."""
     (h, w), (oh, ow), s = geom.in_sz, geom.out_sz, geom.support
-    nbytes = c * h * w * 4 * 4 + c * oh * ow + (oh + ow) * s * 8
-    per = K1_OPS_PER_NEIGHBOUR + (1 if geom.antialias else 0)
-    ops = (c * h * w * K1_OPS_PER_SOURCE
+    codes = 1 if linear else 3
+    nbytes = (c * h * w * 4 * (1 + codes) + c * oh * ow
+              + (oh + ow) * s * (9 if linear else 8))
+    per = (LIN_OPS_PER_NEIGHBOUR if linear else K1_OPS_PER_NEIGHBOUR) \
+        + (1 if geom.antialias else 0)
+    src = LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE
+    ops = (c * h * w * src
            + c * oh * ow * (s * s * per + K1_OPS_PER_OUTPUT_U8))
     return nbytes, ops
 
@@ -373,9 +452,10 @@ def k2_work(c, h, w, oc, n_tables, n_members):
     return nbytes, c * h * w * n_members * oc * K2_OPS_PER_MEMBER_CHANNEL
 
 
-def net_params(seed=0):
+def net_params(seed=0, out_c=3):
     """Micro-net params at the reference width, from numpy: Kaiming-normal
-    weights and small non-zero biases, on the CPU."""
+    weights and small non-zero biases, on the CPU; stage 2 with ``out_c``
+    outputs (1 for LeRF-L)."""
     from lerf_torch.convert import lerf_nets_from_arrays
 
     rng = np.random.RandomState(seed)
@@ -391,7 +471,7 @@ def net_params(seed=0):
 
     return lerf_nets_from_arrays(
         {"s1": {f"s1_{m}": head(1) for m in MODES},
-         "s2": {f"{m}r{r}": head(3) for m in MODES for r in (0, 1)}})
+         "s2": {f"{m}r{r}": head(out_c) for m in MODES for r in (0, 1)}})
 
 
 def chain_macs(oc, nf=NF):
@@ -591,13 +671,7 @@ def net_form_phases(dev, params, frame, backend):
           "cpu_reference_s": cpu_s})
 
     mp = oh * ow / 1e6
-    host = []
-    for i in range(2 + 10):
-        t = time.perf_counter()
-        pred.upscale(frame, SCALE, SCALE)
-        if i >= 2:
-            host.append((time.perf_counter() - t) * 1e3)
-    upscale_ms = statistics.median(host)
+    upscale_ms = host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE), 10)
     x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
                       .astype(np.float32) / 255).to(dev)
     device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)),
@@ -611,18 +685,27 @@ def net_form_phases(dev, params, frame, backend):
                       "hyper_share_differing": hyper_share}
 
 
-def k5_work(in_sz, out_sz, c):
+def k5_work(in_sz, out_sz, c, linear=False, support=2):
     """(bytes, float32 operations, float64 operations) of one K5 call in
-    uint8 mode: the int32 feature and codes and the 3×3 float64 inverse
-    read once, the uint8 output written once; the decode once a source
-    pixel, the weights and sums once an output, channel and neighbour, the
-    epilogue once an output and channel; the geometry once an output."""
+    uint8 mode: the int32 feature and codes (3 a pixel, 1 linear) and the
+    3×3 float64 inverse read once, the uint8 output written once; the
+    decode once a source pixel, the weights and sums once an output,
+    channel and neighbour (support²), the epilogue once an output and
+    channel; the geometry once an output: the grid's three row-term adds
+    and two divisions, per axis the clip (2), (g - S/2) - eps (2), ceil and
+    + pad, and per distance its subtraction and cast (2, with the linear
+    branch tests 4); per output row and column the grid's products and the
+    column's adds."""
     (h, w), (oh, ow) = in_sz, out_sz
-    nbytes = c * h * w * 4 * 4 + 9 * 8 + c * oh * ow
-    ops = (c * h * w * K1_OPS_PER_SOURCE
-           + c * oh * ow * (4 * K5_OPS_PER_NEIGHBOUR + K5_OPS_PER_OUTPUT_U8))
-    f64 = (oh * ow * K5_F64_OPS_PER_OUTPUT + oh * K5_F64_OPS_PER_ROW
-           + ow * K5_F64_OPS_PER_COLUMN)
+    codes = 1 if linear else 3
+    nbytes = c * h * w * 4 * (1 + codes) + 9 * 8 + c * oh * ow
+    per = LIN_OPS_PER_NEIGHBOUR if linear else K5_OPS_PER_NEIGHBOUR
+    src = LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE
+    ops = (c * h * w * src + c * oh * ow
+           * (support * support * per + K5_OPS_PER_OUTPUT_U8))
+    per_distance = 2 + (K5_F64_BRANCH_OPS if linear else 0)
+    f64 = (oh * ow * (5 + 2 * (6 + support * per_distance))
+           + oh * K5_F64_OPS_PER_ROW + ow * K5_F64_OPS_PER_COLUMN)
     return nbytes, ops, f64
 
 
@@ -784,32 +867,22 @@ def lut_warp_phases(dev, bank, frame, x):
           "cpu_reference_s": cpu_s, "cpu_reference": "full frame"})
 
     mp = WARP_OUT[0] * WARP_OUT[1] / 1e6
-    host = []
-    for i in range(3 + 20):
-        t = time.perf_counter()
-        pred.warp(frame, matrix, WARP_OUT)
-        if i >= 3:
-            host.append((time.perf_counter() - t) * 1e3)
-    warp_ms = statistics.median(host)
+    warp_ms = host_call_ms(lambda: pred.warp(frame, matrix, WARP_OUT), 20,
+                           warmup=3)
     device_ms = frame_ms(lambda: pred.run_warp_device(x, matrix, WARP_OUT))
     emit_timed({"phase": "lut_warp_timing", "frames": 20, "warp_ms": warp_ms,
                 "warp_mps": mp / warp_ms * 1e3, "device_ms": device_ms,
                 "device_mps": mp / device_ms * 1e3})
     emit_timed(profile_frames(lambda: pred.warp(frame, matrix, WARP_OUT),
                               form="lut_warp"))
-    rows = device_rows(lambda: pred.run_warp_device(x, matrix, WARP_OUT))
+    rows = device_part_only(
+        lambda: pred.run_warp_device(x, matrix, WARP_OUT),
+        ("steering_warp_kernel", "lut_stage_kernel"), "LUT run_warp_device")
     emit_timed({"phase": "device_part_kernels", "form": "lut_warp",
                 "rows": [[k[:60], n, ms] for k, n, ms in rows]})
-    stray = [name for name, _, _ in rows
-             if not ("steering_warp_kernel" in name
-                     or "lut_stage_kernel" in name
-                     or name.startswith(("Memcpy", "Memset")))]
-    if stray or not any("steering_warp_kernel" in n for n, _, _ in rows):
-        raise AssertionError(f"LUT run_warp_device launches other kernels "
-                             f"than K2 and K5 (or no K5): {stray}")
 
     # K5 alone, in the main path's uint8 mode, on the card's own stages
-    feat_d, hyper_d = pred._stages_fn(x)
+    feat_d, hyper_d = pred._stages(x)
     params, _ = pred._warp_cache[next(reversed(pred._warp_cache))]
     if not isinstance(params, k5.WarpParams):
         raise AssertionError("LUT warp on the card caches "
@@ -910,13 +983,7 @@ def net_warp_phases(dev, params, frame, backend):
           "cpu_reference_s": cpu_s})
 
     mp = WARP_OUT[0] * WARP_OUT[1] / 1e6
-    host = []
-    for i in range(2 + 10):
-        t = time.perf_counter()
-        pred.warp(frame, matrix, WARP_OUT)
-        if i >= 2:
-            host.append((time.perf_counter() - t) * 1e3)
-    warp_ms = statistics.median(host)
+    warp_ms = host_call_ms(lambda: pred.warp(frame, matrix, WARP_OUT), 10)
     x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
                       .astype(np.float32) / 255).to(dev)
     device_ms = frame_ms(lambda: pred.run_warp_device(x, matrix, WARP_OUT),
@@ -928,6 +995,398 @@ def net_warp_phases(dev, params, frame, backend):
     emit_timed(profile_frames(lambda: pred.warp(frame, matrix, WARP_OUT),
                               frames=5, form="net_warp", backend=backend))
     return launches
+
+
+def linear_kernel_phases(dev, rng):
+    """Phases 12 and 13: K1's and K5's amplified-linear modes, and K5 at
+    supports 3 and 4 in both modes, against their plain twins on the card
+    at the stage shapes.  Returns the largest errors and K1's bit-equality
+    by scale."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (linear_resize_codes_plain,
+                                         linear_warp_codes_plain,
+                                         quantize_device,
+                                         steering_warp_codes_plain)
+
+    shape = (3, LR_H, LR_W)
+    feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32)).to(dev)
+    alpha = torch.from_numpy(
+        rng.randint(0, 256, shape + (1,)).astype(np.int32)).to(dev)
+    codes = torch.from_numpy(
+        rng.randint(0, 256, shape + (3,)).astype(np.int32)).to(dev)
+    out = {"k1_linear": 0.0, "k5_linear": 0.0, "k5_support": 0.0,
+           "k1_linear_bit_equal": {}}
+    for scale in (4.0, 2.5, 3.55, 0.5):
+        geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[scale] * 2)
+        got = k1.steering_resize(feat, alpha, geom, linear=True)
+        got_u8 = k1.steering_resize(feat, alpha, geom, linear=True,
+                                    out_dtype=torch.uint8)
+        want = linear_resize_codes_plain(feat, alpha, geom)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 linear x{scale}: non-finite output")
+        err = float((got - want).abs().max())
+        if err > K1_ATOL:
+            raise AssertionError(f"K1 linear x{scale}: max-abs {err}")
+        if not torch.equal(got_u8, quantize_device(got, 255,
+                                                   nan_to_zero=True)):
+            raise AssertionError(f"K1 linear x{scale}: the uint8 mode "
+                                 "differs from the float mode quantized")
+        n = check_ties(got_u8.cpu().numpy(),
+                       quantize_device(want, 255).cpu().numpy(),
+                       want.cpu().numpy(), f"K1 linear x{scale}")
+        out["k1_linear"] = max(out["k1_linear"], err)
+        out["k1_linear_bit_equal"][str(scale)] = err == 0.0
+        emit({"phase": "k1_linear_vs_plain", "scale": scale,
+              "out": list(geom.out_sz), "antialias": geom.antialias,
+              "support": geom.support,
+              "tile": list(k1.ResizeOperands.create(geom, dev,
+                                                    linear=True).tile),
+              "max_abs_err": err, "bit_equal": err == 0.0,
+              "u8_equal_to_quantized_float": True, "u8_mismatch": n})
+
+    # K5: the linear mode at the four matrices, then supports 3 and 4 in
+    # both modes at the main matrix and the x2.5 zoom
+    cases = [(name, 2, True) for name in WARP_CASES] + [
+        (name, s, lin) for name in ("main", "zoom2.5") for s in (3, 4)
+        for lin in (False, True)]
+    geoms = out["geoms"] = {}      # (matrix, support) → (params, geometry)
+    for name, support, linear in cases:
+        matrix, out_sz = WARP_CASES[name]
+        if (name, support) not in geoms:
+            params = k5.WarpParams.create((LR_H, LR_W), matrix, out_sz,
+                                          support=support)
+            geom = params.geometry()
+            host = k5.WarpOperands.create(geom, "cpu")
+            card = k5.warp_geometry(params, dev)
+            torch.cuda.synchronize()
+            if not (card.pad == host.pad
+                    and torch.equal(card.corners.cpu(), host.corners)
+                    and torch.equal(card.dis.cpu(), host.dis)
+                    and torch.equal(card.masks.cpu(), host.masks)):
+                raise AssertionError(f"K5 {name} S={support}: the card's "
+                                     "geometry differs from the host's")
+            geoms[name, support] = (params, geom)
+        params, geom = geoms[name, support]
+        hyper = alpha if linear else codes
+        got = k5.steering_warp(feat, hyper, params, linear=linear)
+        got_u8 = k5.steering_warp(feat, hyper, params, linear=linear,
+                                  out_dtype=torch.uint8)
+        twin = linear_warp_codes_plain if linear \
+            else steering_warp_codes_plain
+        want = twin(feat, hyper, geom)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        n_nan = int(nan.sum())
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(
+                f"K5 {name} S={support} linear={linear}: NaN pattern "
+                f"{int(torch.isnan(got).sum())} against {n_nan}")
+        err = float((got[~nan] - want[~nan]).abs().max()) if n_nan < \
+            want.numel() else 0.0
+        if not err <= K5_ATOL:
+            raise AssertionError(f"K5 {name} S={support} linear={linear}: "
+                                 f"max-abs {err}")
+        if not torch.equal(got_u8, quantize_device(got, 255,
+                                                   nan_to_zero=True)):
+            raise AssertionError(f"K5 {name} S={support}: the uint8 mode "
+                                 "differs from the float mode quantized")
+        n_tie = check_ties(
+            got_u8.cpu().numpy(),
+            quantize_device(want, 255, nan_to_zero=True).cpu().numpy(),
+            torch.nan_to_num(want, nan=0.0).cpu().numpy(),
+            f"K5 {name} S={support}")
+        key = "k5_linear" if support == 2 else "k5_support"
+        out[key] = max(out[key], err)
+        emit({"phase": "k5_mode_vs_plain", "matrix": name,
+              "support": support, "linear": linear, "out": list(out_sz),
+              "pad_x": list(geom.pad_x), "pad_y": list(geom.pad_y),
+              "geometry_bit_equal": True, "nan_windows": n_nan,
+              "max_abs_err": err, "bit_equal": err == 0.0,
+              "u8_equal_to_quantized_float": True, "u8_mismatch": n_tie})
+    return out
+
+
+def lerf_l_lut_phases(dev, bank, frame):
+    """Phase 14: the LeRF-L LUT form end to end on the full frame (SR at
+    x4 and the warp) against the CPU path, the launches, the device parts'
+    kernels, and the timing of the calls and of K1's and K5's linear modes.
+    Returns their kernel rows (the ``linear`` entries of the kernels line).
+    """
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry, WarpGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (linear_resize_codes_plain,
+                                         linear_warp_codes_plain,
+                                         quantize_device)
+    from lerf_torch.pipeline import LutPredictor
+
+    matrix = WARP_CASES["main"][0]
+    pred = LutPredictor(bank, linear=True)
+    cpu = LutPredictor(bank, linear=True, device="cpu")
+    oh, ow = WARP_OUT
+    (out, feat, hyper), sr_launches = counted_run(
+        lambda: pred.upscale(frame, SCALE, SCALE, return_aux=True),
+        {"lut_stage": 2, "steering_resize": 1}, "LeRF-L upscale")
+    t_cpu = time.perf_counter()
+    want = cpu.upscale(frame, SCALE, SCALE, return_aux=True)
+    cpu_sr_s = time.perf_counter() - t_cpu
+    if (out.shape != (oh, ow, 3) or hyper.shape != (3, LR_H, LR_W, 1)
+            or not (np.array_equal(feat, want[1])
+                    and np.array_equal(hyper, want[2]))):
+        raise AssertionError("LeRF-L upscale: shape or stages differ from "
+                             "the CPU path")
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    f32 = linear_resize_codes_plain(torch.from_numpy(want[1]),
+                                    torch.from_numpy(want[2]), geom)
+    sr_ties = check_ties(out, want[0], f32.numpy().transpose(1, 2, 0),
+                         "LeRF-L upscale")
+
+    pred.warp(frame, matrix, WARP_OUT)          # the key's mask and params
+    (wout, mask, wfeat, whyper), warp_launches = counted_run(
+        lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
+        {"lut_stage": 2, "steering_warp": 1}, "LeRF-L warp")
+    t_cpu = time.perf_counter()
+    wwant = cpu.warp(frame, matrix, WARP_OUT, return_aux=True)
+    cpu_warp_s = time.perf_counter() - t_cpu
+    if not (np.array_equal(wfeat, wwant[2]) and np.array_equal(whyper,
+                                                               wwant[3])
+            and np.array_equal(mask, wwant[1])):
+        raise AssertionError("LeRF-L warp: stages or mask differ from the "
+                             "CPU path")
+    wgeom = WarpGeometry.create((LR_H, LR_W), matrix, WARP_OUT)
+    wf32 = torch.nan_to_num(linear_warp_codes_plain(
+        torch.from_numpy(wwant[2]), torch.from_numpy(wwant[3]), wgeom),
+        nan=0.0).numpy().transpose(1, 2, 0)
+    warp_ties = check_ties(wout, wwant[0], wf32, "LeRF-L warp")
+
+    x = torch.from_numpy(np.ascontiguousarray(
+        frame.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+    sr_rows = device_part_only(lambda: pred.run_device(x, (SCALE, SCALE)),
+                               ("steering_resize_kernel", "lut_stage_kernel"),
+                               "LeRF-L run_device")
+    warp_rows = device_part_only(
+        lambda: pred.run_warp_device(x, matrix, WARP_OUT),
+        ("steering_warp_kernel", "lut_stage_kernel"),
+        "LeRF-L run_warp_device")
+    emit({"phase": "lerf_l_lut_end_to_end", "in": [LR_H, LR_W],
+          "out": [oh, ow], "feat_hyper_bit_equal": True, "mask_equal": True,
+          "sr_u8_mismatch_at_ties": sr_ties,
+          "warp_u8_mismatch_at_ties": warp_ties,
+          "sr_launches": sr_launches, "warp_launches": warp_launches,
+          "cpu_reference_s": [cpu_sr_s, cpu_warp_s],
+          "sr_device_rows": [[k[:60], n, ms] for k, n, ms in sr_rows],
+          "warp_device_rows": [[k[:60], n, ms] for k, n, ms in warp_rows]})
+
+    mp = oh * ow / 1e6
+    upscale_ms = host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE), 20)
+    warp_ms = host_call_ms(lambda: pred.warp(frame, matrix, WARP_OUT), 20)
+    sr_dev = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)), frames=15)
+    warp_dev = frame_ms(lambda: pred.run_warp_device(x, matrix, WARP_OUT),
+                        frames=15)
+    emit_timed({"phase": "lerf_l_lut_timing", "frames": 20,
+                "upscale_ms": upscale_ms, "upscale_mps": mp / upscale_ms * 1e3,
+                "upscale_device_ms": sr_dev, "warp_ms": warp_ms,
+                "warp_mps": mp / warp_ms * 1e3, "warp_device_ms": warp_dev})
+
+    # K1 and K5 alone in their linear uint8 modes on the card's own stages
+    feat_d, hyper_d = pred._stages(x)
+    _, ops = pred._resize_fn((LR_H, LR_W), (SCALE, SCALE))
+    params = k5.WarpParams.create((LR_H, LR_W), matrix, WARP_OUT)
+
+    def k1_u8():
+        return k1.steering_resize(feat_d, hyper_d, geom, operands=ops,
+                                  linear=True, out_dtype=torch.uint8)
+
+    def k5_u8():
+        return k5.steering_warp(feat_d, hyper_d, params, linear=True,
+                                out_dtype=torch.uint8)
+
+    rows = {}
+    for name, fn, plain, work, launches in (
+            ("steering_resize", k1_u8,
+             lambda: quantize_device(linear_resize_codes_plain(
+                 feat_d, hyper_d, geom), 255, nan_to_zero=True),
+             lambda: bound(*k1_work(geom, 3, linear=True)) + (None,),
+             sr_launches["steering_resize"]),
+            ("steering_warp", k5_u8,
+             lambda: quantize_device(linear_warp_codes_plain(
+                 feat_d, hyper_d, wgeom), 255, nan_to_zero=True),
+             lambda: k5_bound(*k5_work((LR_H, LR_W), WARP_OUT, 3,
+                                       linear=True)),
+             warp_launches["steering_warp"])):
+        ms = event_ms(fn, iters=50)
+        profiler_ms = kernel_device_ms(fn, name + "_kernel")
+        plain_ms = event_ms(plain, iters=3, warmup=1)
+        b_ms, b_by, parts = work()
+        row = {"kernel": name, "mode": "linear", "out_dtype": "uint8",
+               "ms": ms, "profiler_ms": profiler_ms,
+               "launches": launches, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "share_of_bound": b_ms / ms}
+        if parts is not None:
+            row["bound_parts_ms"] = parts
+        emit_timed(row)
+        rows[name] = row
+    return rows
+
+
+def lerf_l_net_phases(dev, params, frame):
+    """Phase 15: the LeRF-L micro-net form (nf 64, K3): the full frame's
+    SR and warp with their launches, a 96×160 crop against the CPU path
+    (phase 7's tolerances), and the warp's frame against the plain warp of
+    the card's own stages."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry, WarpGeometry
+    from lerf_torch.ops.resample import (linear_resize_codes_plain,
+                                         linear_warp_codes_plain,
+                                         quantize_device)
+    from lerf_torch.pipeline import NetPredictor
+
+    matrix = WARP_CASES["main"][0]
+    pred = NetPredictor.from_srnets(params, linear=True)
+    out, sr_launches = counted_run(
+        lambda: pred.upscale(frame, SCALE, SCALE),
+        {"srnet_ensemble": 2, "steering_resize": 1}, "LeRF-L net upscale")
+    pred.warp(frame, matrix, WARP_OUT)
+    (wout, mask, feat, hyper), warp_launches = counted_run(
+        lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
+        {"srnet_ensemble": 2, "steering_warp": 1}, "LeRF-L net warp")
+    if out.shape != WARP_OUT + (3,) or hyper.shape != (3, LR_H, LR_W, 1):
+        raise AssertionError(f"LeRF-L net: output {out.shape}, hyper "
+                             f"{hyper.shape}")
+    codes = np.round(hyper * 255).astype(np.int32)
+    f32 = torch.nan_to_num(linear_warp_codes_plain(
+        torch.from_numpy(feat.astype(np.int32)).to(dev),
+        torch.from_numpy(codes).to(dev),
+        WarpGeometry.create((LR_H, LR_W), matrix, WARP_OUT)), nan=0.0)
+    warp_ties = check_ties(
+        wout, quantize_device(f32, 255).cpu().numpy().transpose(1, 2, 0),
+        f32.cpu().numpy().transpose(1, 2, 0), "LeRF-L net warp")
+
+    crop = np.ascontiguousarray(frame[:CROP_H, :CROP_W])
+    got = pred.upscale(crop, SCALE, SCALE, return_aux=True)
+    t_cpu = time.perf_counter()
+    ref = NetPredictor.from_srnets(params, linear=True, device="cpu") \
+        .upscale(crop, SCALE, SCALE, return_aux=True)
+    cpu_s = time.perf_counter() - t_cpu
+    feat_err, feat_share = level_diff(
+        torch.from_numpy(got[1]), torch.from_numpy(ref[1]), NET_STAGE_TOL,
+        "LeRF-L net feat")
+    ccodes = np.round(got[2] * 255).astype(np.int32)
+    hyper_err, hyper_share = level_diff(
+        torch.from_numpy(ccodes), torch.from_numpy(np.round(ref[2] * 255)),
+        NET_STAGE_TOL, "LeRF-L net hyper codes")
+    cf32 = linear_resize_codes_plain(
+        torch.from_numpy(got[1].astype(np.int32)), torch.from_numpy(ccodes),
+        ResizeGeometry.create((CROP_H, CROP_W), scale_factors=[SCALE] * 2))
+    crop_ties = check_ties(
+        got[0], quantize_device(cf32, 255).numpy().transpose(1, 2, 0),
+        cf32.numpy().transpose(1, 2, 0), "LeRF-L net crop")
+    emit({"phase": "lerf_l_net_end_to_end", "backend": "auto", "nf": NF,
+          "sr_launches": sr_launches, "warp_launches": warp_launches,
+          "warp_u8_mismatch_at_ties": warp_ties, "crop": [CROP_H, CROP_W],
+          "feat_max_diff": feat_err, "feat_share_differing": feat_share,
+          "hyper_max_diff": hyper_err, "hyper_share_differing": hyper_share,
+          "tolerance": list(NET_STAGE_TOL), "crop_u8_mismatch_at_ties":
+          crop_ties, "cpu_reference_s": cpu_s})
+    return {"srnet_ensemble": sr_launches["srnet_ensemble"]}
+
+
+def k5_support4_phase(dev, bank, frame, x, params, geom):
+    """Phase 16: the LUT warp at ``supp_size`` 4 on the full frame (K2
+    twice, K5 once), then K5 alone at support 4 on its stages beside its
+    twin and its bound.  ``params``, ``geom``: the main matrix's warp at
+    support 4 (phase 13's).  Returns K5's row at support 4."""
+    import torch
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (quantize_device,
+                                         steering_warp_codes_plain)
+    from lerf_torch.pipeline import LutPredictor
+
+    matrix = WARP_CASES["main"][0]
+    pred = LutPredictor(bank, supp_size=4)
+    pred.warp(frame, matrix, WARP_OUT)
+    _, launches = counted_run(lambda: pred.warp(frame, matrix, WARP_OUT),
+                              {"lut_stage": 2, "steering_warp": 1},
+                              "LUT warp at support 4")
+    feat, hyper = pred._stages(x)
+
+    def k5_u8():
+        return k5.steering_warp(feat, hyper, params, out_dtype=torch.uint8)
+
+    ms = event_ms(k5_u8, iters=30)
+    profiler_ms = kernel_device_ms(k5_u8, "steering_warp_kernel")
+    plain_ms = event_ms(lambda: quantize_device(steering_warp_codes_plain(
+        feat, hyper, geom), 255, nan_to_zero=True), iters=2, warmup=1)
+    b_ms, b_by, parts = k5_bound(*k5_work((LR_H, LR_W), WARP_OUT, 3,
+                                          support=4))
+    row = {"kernel": "steering_warp", "support": 4, "out_dtype": "uint8",
+           "ms": ms, "profiler_ms": profiler_ms,
+           "launches": launches["steering_warp"], "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_parts_ms": parts,
+           "share_of_bound": b_ms / ms}
+    emit_timed(row)
+    return row
+
+
+def serving_phases(dev, banks, frame):
+    """Phase 17: the SR serving forms on the card, LUT form, LeRF-G and
+    LeRF-L: ``upscale_dynamic`` at x4, x2.5 (granularity 0 and 64) and x0.5
+    (antialiased), ``upscale_bucketed(..., 64)`` at x4 on the 360×640 frame
+    (bucket 384×640: out == scale·in holds for both) and ``upscale_batch``
+    of 4 frames at x4 — each bit-equal to ``upscale`` on the card, frame by
+    frame, and each call K2 twice and K1 once, the batch too.  Returns the
+    launch counts of the forms' calls."""
+    from lerf_torch.pipeline import LutPredictor
+
+    rng = np.random.RandomState(5)
+    frames = np.stack([frame] + [rng.randint(0, 256, frame.shape)
+                                 .astype(np.uint8) for _ in range(3)])
+    want_launches = {"lut_stage": 2, "steering_resize": 1}
+    counts = {}
+    for form, linear in (("lerf_g", False), ("lerf_l", True)):
+        pred = LutPredictor(banks[form], linear=linear)
+        static = {s: pred.upscale(frame, s, s) for s in (4.0, 2.5, 0.5)}
+        calls = {f"dynamic x{s} g{g}": (s, (lambda s=s, g=g: pred.upscale_dynamic(
+            frame, s, s, granularity=g))) for s in (4.0, 2.5) for g in (0, 64)}
+        calls["dynamic x0.5 g0"] = (0.5, lambda: pred.upscale_dynamic(
+            frame, 0.5, 0.5))
+        calls["bucketed x4 g64"] = (4.0, lambda: pred.upscale_bucketed(
+            frame, SCALE, SCALE, 64))
+        for name, (s, call) in calls.items():
+            got, launches = counted_run(call, want_launches,
+                                        f"{form} {name}")
+            if not np.array_equal(got, static[s]):
+                raise AssertionError(f"{form} {name}: not bit-equal to "
+                                     "upscale on the card")
+            counts[f"{form} {name}"] = launches
+        got, launches = counted_run(
+            lambda: pred.upscale_batch(frames, SCALE, SCALE), want_launches,
+            f"{form} batch of 4")
+        for b in range(len(frames)):
+            if not np.array_equal(got[b], pred.upscale(frames[b], SCALE,
+                                                       SCALE)):
+                raise AssertionError(f"{form} batch frame {b}: not "
+                                     "bit-equal to upscale on the card")
+        counts[f"{form} batch"] = launches
+        batch_ms = host_call_ms(
+            lambda: pred.upscale_batch(frames, SCALE, SCALE), 5)
+        upscale_ms = host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE),
+                                  10)
+        dynamic_ms = host_call_ms(lambda: pred.upscale_dynamic(
+            frame, 2.5, 2.5, granularity=64), 10)
+        emit_timed({"phase": "sr_serving", "form": form,
+                    "bit_equal_to_upscale": sorted(calls) + ["batch"],
+                    "launches": want_launches, "batch": len(frames),
+                    "batch_ms_per_frame": batch_ms / len(frames),
+                    "upscale_ms": upscale_ms,
+                    "dynamic_x2.5_g64_ms": dynamic_ms})
+    return counts
 
 
 def main() -> int:
@@ -1082,13 +1541,8 @@ def main() -> int:
 
     # -- 5. timing ----------------------------------------------------------
     mp = oh * ow / 1e6
-    host = []
-    for i in range(3 + 20):
-        t = time.perf_counter()
-        pred.upscale(frame, SCALE, SCALE)
-        if i >= 3:
-            host.append((time.perf_counter() - t) * 1e3)
-    upscale_ms = statistics.median(host)
+    upscale_ms = host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE), 20,
+                              warmup=3)
     x = torch.from_numpy(np.ascontiguousarray(
         frame.transpose(2, 0, 1)).astype(np.int32)).to(dev)
     device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)))
@@ -1099,16 +1553,11 @@ def main() -> int:
                               form="lut"))
     # the device part launches K1 and K2 and nothing else: no elementwise
     # quantization after K1 (copies would be allowed; there are none)
-    rows = device_rows(lambda: pred.run_device(x, (SCALE, SCALE)))
-    stray = [name for name, _, _ in rows
-             if not ("steering_resize_kernel" in name
-                     or "lut_stage_kernel" in name
-                     or name.startswith(("Memcpy", "Memset")))]
+    rows = device_part_only(lambda: pred.run_device(x, (SCALE, SCALE)),
+                            ("steering_resize_kernel", "lut_stage_kernel"),
+                            "LUT run_device")
     emit_timed({"phase": "device_part_kernels", "form": "lut",
                 "rows": [[k[:60], n, ms] for k, n, ms in rows]})
-    if stray:
-        raise AssertionError(f"LUT run_device launches other kernels than "
-                             f"K1 and K2: {stray}")
 
     feat_d = lp.lut_stage1(x, s1, MODES)
     hyper_d = lp.lut_stage2(feat_d, s2, MODES)
@@ -1219,10 +1668,41 @@ def main() -> int:
     for backend in ("auto", "pallas_int8"):
         net_warp_phases(dev, params, frame, backend)
 
-    # -- 12. result ----------------------------------------------------------
+    # -- 12, 13. K1's and K5's linear modes, K5 at supports 3 and 4 --------
+    lin = linear_kernel_phases(dev, rng)
+
+    # -- 14. LeRF-L, LUT form, end to end, and its kernels' timing ---------
+    bank_l = bench_bank(out_c=1)
+    lin_rows = lerf_l_lut_phases(dev, bank_l, frame)
+
+    # -- 15. LeRF-L, net form ------------------------------------------------
+    lerf_l_net_phases(dev, net_params(out_c=1), frame)
+
+    # -- 16. K5 at support 4 on the LUT warp --------------------------------
+    s4_row = k5_support4_phase(dev, bank, frame, x,
+                               *lin.pop("geoms")["main", 4])
+
+    # -- 17. the SR serving forms on the card --------------------------------
+    serving_phases(dev, {"lerf_g": bank, "lerf_l": bank_l}, frame)
+
+    # the kernels line: K1's and K5's linear modes and K5 at support 4
+    # beside their main-path rows
+    keys = ("launches", "ms", "profiler_ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound")
+    kernels[0]["linear"] = {"max_abs_err": lin["k1_linear"],
+                            **{k: lin_rows["steering_resize"][k]
+                               for k in keys}}
+    kernels[-1]["linear"] = {"max_abs_err": lin["k5_linear"],
+                             **{k: lin_rows["steering_warp"][k]
+                                for k in keys}}
+    kernels[-1]["support4"] = {"max_abs_err": lin["k5_support"],
+                               **{k: s4_row[k] for k in keys}}
+
+    # -- 18. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,
+          "k1_linear_bit_equal_to_twin": lin["k1_linear_bit_equal"],
           "net_crop": {b: run[1] for b, run in net_runs.items()},
           "crop": [CROP_H, CROP_W]})
     print(card, flush=True)

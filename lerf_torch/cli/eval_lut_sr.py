@@ -6,8 +6,11 @@ of ``lerf_tpu.cli.eval_lut_sr``, on the CUDA card (or ``--platform cpu``):
     python -m lerf_torch.cli.eval_lut_sr --testDir data/rrBenchmark \
         --resultRoot results/sr --lutName LUTft -e models/lerf-g
 
-Prints the same table format.  Static ``upscale`` path only: the bucketed
-and dynamic serving forms are not ported yet.
+Prints the same table format.  ``--dynamicSR`` serves through
+``upscale_dynamic`` (``--bucket g`` its granularity), ``--bucket g`` alone
+through ``upscale_bucketed``: the same table, both forms bit-equal to
+``upscale``.  ``--linear`` evaluates a LeRF-L bank (stage 2 with one
+output), ``--suppSize`` sets the resample's support.
 """
 from __future__ import annotations
 
@@ -23,9 +26,6 @@ DEFAULT_SCALES = [[2, 2], [3, 3], [4, 4]]
 
 def main(argv=None, datasets=None, scales=None):
     cfg = parse_config(TestConfig, argv)
-    if cfg.bucket > 0 or cfg.dynamic_sr:
-        raise SystemExit("eval_lut_sr: --bucket / --dynamicSR serving is not "
-                         "ported yet (ROADMAP Queue A item 6)")
     datasets = datasets or cfg.dataset_list() or DEFAULT_DATASETS
     scales = scales or cfg.scale_list() or DEFAULT_SCALES
 
@@ -44,7 +44,8 @@ def main(argv=None, datasets=None, scales=None):
         all_results[ds] = run_sr_benchmark(
             pred, cfg.test_dir, ds, [tuple(s) for s in scales],
             result_root=cfg.result_root, exp_name=exp_name,
-            lut_name=cfg.lut_name, post=post, nsigma=cfg.nsigma)
+            lut_name=cfg.lut_name, post=post, nsigma=cfg.nsigma,
+            bucket=cfg.bucket, dynamic=cfg.dynamic_sr)
         print(format_sr_row(ds, all_results[ds], scales), flush=True)
     return all_results
 

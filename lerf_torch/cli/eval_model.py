@@ -12,9 +12,12 @@ format; ``--backend`` picks the ensemble backend (``auto``: K3,
 ``pallas_int8``: K4, ``xla``: the plain chain).  As in the reference,
 "warp" in ``--resultRoot`` evaluates the homographic warp on a
 WarpBenchmark tree (``--hrRoot`` for the HR root) and prints the isc / osc
-table.  The IMDN form (``--model IMDN2``), orbax ``ckpt/`` checkpoints and
-the bucketed / dynamic serving forms are not ported yet and exit with a
-message saying so.
+table.  ``--linear`` evaluates a LeRF-L checkpoint (stage-2 heads with one
+output); SR serves through ``upscale_dynamic`` with ``--dynamicSR`` and
+``upscale_bucketed`` with ``--bucket g``.  The IMDN form (``--model
+IMDN2``), orbax ``ckpt/`` checkpoints and the warp's ``--dynamicWarp`` /
+``--bucket`` serving forms are not ported yet and exit with a message
+saying so.
 """
 from __future__ import annotations
 
@@ -76,9 +79,6 @@ def main(argv=None, datasets=None):
     if warp and (cfg.bucket > 0 or cfg.dynamic_warp):
         raise SystemExit("eval_model: --dynamicWarp / --bucket serving is "
                          "not ported yet (ROADMAP Queue A item 6)")
-    if not warp and (cfg.bucket > 0 or cfg.dynamic_sr):
-        raise SystemExit("eval_model: --bucket / --dynamicSR serving is not "
-                         "ported yet (ROADMAP Queue A item 6)")
     datasets = datasets or cfg.dataset_list() or DEFAULT_DATASETS
     pred = build_predictor(cfg)
     exp_name = cfg.exp_dir.rstrip("/").split("/")[-1]
@@ -102,7 +102,8 @@ def main(argv=None, datasets=None):
     for ds in datasets:
         results[ds] = run_sr_benchmark(
             pred, cfg.test_dir, ds, scales, result_root=cfg.result_root,
-            exp_name=exp_name, post=post, nsigma=cfg.nsigma)
+            exp_name=exp_name, post=post, nsigma=cfg.nsigma,
+            bucket=cfg.bucket, dynamic=cfg.dynamic_sr)
         print(format_sr_row(ds, results[ds], scales), flush=True)
     return results
 

@@ -15,11 +15,14 @@
 (``Model_{loadIter:06d}.pth`` or a ``ckpt/`` directory), else the LUT bank,
 and falls back to the bank when the checkpoint is missing or cannot be
 loaded.  Non-integer and anisotropic scales work (``--scale 2.5``,
-``--scale 1.5x2.0``).  ``--matrix a,b,c,...,i --outSize HxW`` switches to
-the static homographic warp (out-of-view pixels written black).  One
-image through the static ``upscale`` / ``warp`` paths: ``--dynamicSR``,
-``--dynamicWarp``, ``--bucket`` and several inputs are not ported yet and
-exit with a message saying so.
+``--scale 1.5x2.0``); ``--dynamicSR`` serves through ``upscale_dynamic``
+(``--bucket g`` its granularity), ``--bucket g`` alone through
+``upscale_bucketed`` (bit-equal to the static path), ``--linear`` reads a
+LeRF-L bank or checkpoint and ``--suppSize`` sets the resample's support.
+``--matrix a,b,c,...,i --outSize HxW`` switches to the static homographic
+warp (out-of-view pixels written black).  One image at a time: the warp's
+``--dynamicWarp`` / ``--bucket`` serving forms and several inputs are not
+ported yet and exit with a message saying so.
 """
 from __future__ import annotations
 
@@ -74,8 +77,8 @@ def _unported(cfg: UpscaleConfig):
     """The message for a flag whose path the port does not have yet."""
     if cfg.form != "lut" and cfg.model == "IMDN2":
         return "--model IMDN2 (ROADMAP Queue A item 8)"
-    if cfg.dynamic_sr or cfg.dynamic_warp or cfg.bucket > 0:
-        return "--dynamicSR / --dynamicWarp / --bucket (ROADMAP Queue A item 6)"
+    if cfg.dynamic_warp or (cfg.matrix and cfg.bucket > 0):
+        return "--dynamicWarp / --bucket warp serving (ROADMAP Queue A item 6)"
     if (os.path.isdir(cfg.input)
             or any(ch in cfg.input for ch in "*?[")):
         return "several inputs (ROADMAP Queue A item 11)"
@@ -126,7 +129,12 @@ def main(argv=None):
         out = out * np.asarray(mask, out.dtype)[..., None]
     else:
         sh, sw = _parse_scale(cfg.scale)   # "4", "2.5", or "1.5x2.0"
-        out = pred.upscale(img, sh, sw)
+        if cfg.dynamic_sr:
+            out = pred.upscale_dynamic(img, sh, sw, granularity=cfg.bucket)
+        elif cfg.bucket > 0:
+            out = pred.upscale_bucketed(img, sh, sw, granularity=cfg.bucket)
+        else:
+            out = pred.upscale(img, sh, sw)
 
     os.makedirs(os.path.dirname(os.path.abspath(cfg.output)), exist_ok=True)
     Image.fromarray(out).save(cfg.output)

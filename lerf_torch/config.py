@@ -57,9 +57,9 @@ class TestConfig(BaseConfig):
     # micro-net (SRNet) backend: auto / pallas = K3 (kernel on the card,
     # plain twin on the CPU), pallas_int8 = K4, xla = plain batched chain
     backend: str = "auto"
-    bucket: int = 0              # bucketed serving (not ported yet)
+    bucket: int = 0              # SR bucket granularity (warp: not ported)
     dynamic_warp: bool = False   # dynamic warp serving (not ported yet)
-    dynamic_sr: bool = False     # dynamic SR serving (not ported yet)
+    dynamic_sr: bool = False     # dynamic SR serving (upscale_dynamic)
 
     def dataset_list(self):
         return [d for d in self.datasets.split(",") if d]

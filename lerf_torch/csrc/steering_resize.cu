@@ -1,10 +1,20 @@
-// K1: steerable-Gaussian resize from the stage-2 codes, for sm_90a.
+// K1: steerable resize from the stage-2 codes, for sm_90a.
 //
 // Replaces: lerf_tpu/ops/pallas/resize_kernel.py::steering_gaussian_resize_pallas
 // (body _kernel), which computes lerf_tpu/ops/resample.py::steering_gaussian_resize.
 // Unlike the Pallas kernel (periodic scales, support 2, no antialias), this one
 // takes every ResizeGeometry: periodic and non-periodic scales and the
-// antialiased downscale with its inflated support.
+// antialiased downscale with its inflated support.  A second mode computes
+// lerf_tpu/ops/resample.py::amplified_linear_resize (LeRF-L), which on the TPU
+// is XLA: one code a pixel, alpha = code / norm * 2 - 1 (max_alpha 1), and the
+// weight max(lin(alpha, dx), 0) * max(lin(alpha, dy), 0), lin(a, x) = a x + 1
+// on the negative branch, 1 - a x on the positive one, 0 off both.  The
+// branches are the host's float64 masks of min_scale * dis (2 bits an output
+// and neighbour, uint8 operands): the reference resolves them in float64,
+// where a float32 distance can land on the other side of 0 or 1.  In this mode
+// the distances arrive as float32(min_scale * dis), scaled in float64 on the
+// host, and an antialiased weight is min_scale * w after the product, as
+// lerf_tpu does; the window entry is float2 {feature, alpha}.
 //
 // What bounds it on the H100: operations.  At 360x640 -> x4 it reads 11 MB of
 // int32 feature and codes and writes 11 MB of uint8 (0.0066 ms at 3.35 TB/s);
@@ -44,6 +54,8 @@
 // library is built without fast math and without FMA contraction, so each
 // product, the expf and the final division are single IEEE operations in
 // the order of the plain PyTorch twin.
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,69 +65,100 @@ constexpr int kMaxThreads = 256;         // a block; the host's tiles fit
 constexpr int kMaxSmem = 232448;         // the H100's opt-in block limit
 constexpr int kDefaultSmem = 48 * 1024;  // above this only after opting in
 
+// The geometry's device arrays: rows / cols [O, S], the mode's distances,
+// and in the linear mode the branch bits (bit 0 negative, bit 1 positive).
+struct Geo {
+  const int* rows;
+  const int* cols;
+  const float* dis_x;
+  const float* dis_y;
+  const unsigned char* mask_x;
+  const unsigned char* mask_y;
+};
+
 // A thread's field of view, local to the block's source window.  KS > 0:
 // the support is known at compile time and the values sit in registers.
-template <int KS>
+// scale: the Gaussian mode's antialias, which scales the distances by m.
+template <int KS, bool kLinear>
 struct Fov {
+  static constexpr int KM = kLinear ? KS : 1;   // masks: the linear mode's
   int lr[KS];
   float dx[KS];
+  unsigned char mx[KM];
   int lc[kVec][KS];
   float dy[kVec][KS];
+  unsigned char my[kVec][KM];
 
-  __device__ void load(const int* rows, const int* cols, const float* dis_x,
-                       const float* dis_y, int i, const int* j, int r_lo,
-                       int c_lo, int, int antialias, float m) {
+  __device__ void load(const Geo& g, int i, const int* j, int r_lo, int c_lo,
+                       int, int scale, float m) {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
-      lr[s] = rows[i * KS + s] - r_lo;
-      dx[s] = antialias ? m * dis_x[i * KS + s] : dis_x[i * KS + s];
+      lr[s] = g.rows[i * KS + s] - r_lo;
+      dx[s] = scale ? m * g.dis_x[i * KS + s] : g.dis_x[i * KS + s];
+      if (kLinear) mx[s % KM] = g.mask_x[i * KS + s];
     }
 #pragma unroll
     for (int v = 0; v < kVec; ++v) {
 #pragma unroll
       for (int t = 0; t < KS; ++t) {
-        lc[v][t] = cols[j[v] * KS + t] - c_lo;
-        dy[v][t] = antialias ? m * dis_y[j[v] * KS + t] : dis_y[j[v] * KS + t];
+        lc[v][t] = g.cols[j[v] * KS + t] - c_lo;
+        dy[v][t] = scale ? m * g.dis_y[j[v] * KS + t] : g.dis_y[j[v] * KS + t];
+        if (kLinear) my[v][t % KM] = g.mask_y[j[v] * KS + t];
       }
     }
   }
   __device__ int row(int s) const { return lr[s]; }
   __device__ float dxs(int s) const { return dx[s]; }
+  __device__ unsigned mxs(int s) const { return mx[s % KM]; }
   __device__ int col(int v, int t) const { return lc[v][t]; }
   __device__ float dyt(int v, int t) const { return dy[v][t]; }
+  __device__ unsigned myt(int v, int t) const { return my[v][t % KM]; }
 };
 
 // Any other support: read each value where it is used.
-template <>
-struct Fov<0> {
-  const int* rows;
-  const int* cols;
-  const float* dis_x;
-  const float* dis_y;
-  int i, j[kVec], r_lo, c_lo, S, antialias;
+template <bool kLinear>
+struct Fov<0, kLinear> {
+  Geo g;
+  int i, j[kVec], r_lo, c_lo, S, scale;
   float m;
 
-  __device__ void load(const int* rows_, const int* cols_,
-                       const float* dis_x_, const float* dis_y_, int i_,
-                       const int* j_, int r_lo_, int c_lo_, int S_,
-                       int antialias_, float m_) {
-    rows = rows_; cols = cols_; dis_x = dis_x_; dis_y = dis_y_;
-    i = i_; r_lo = r_lo_; c_lo = c_lo_; S = S_; antialias = antialias_;
-    m = m_;
+  __device__ void load(const Geo& g_, int i_, const int* j_, int r_lo_,
+                       int c_lo_, int S_, int scale_, float m_) {
+    g = g_;
+    i = i_; r_lo = r_lo_; c_lo = c_lo_; S = S_; scale = scale_; m = m_;
     for (int v = 0; v < kVec; ++v) j[v] = j_[v];
   }
-  __device__ int row(int s) const { return rows[i * S + s] - r_lo; }
+  __device__ int row(int s) const { return g.rows[i * S + s] - r_lo; }
   __device__ float dxs(int s) const {
-    return antialias ? m * dis_x[i * S + s] : dis_x[i * S + s];
+    return scale ? m * g.dis_x[i * S + s] : g.dis_x[i * S + s];
   }
-  __device__ int col(int v, int t) const { return cols[j[v] * S + t] - c_lo; }
+  __device__ unsigned mxs(int s) const { return g.mask_x[i * S + s]; }
+  __device__ int col(int v, int t) const {
+    return g.cols[j[v] * S + t] - c_lo;
+  }
   __device__ float dyt(int v, int t) const {
-    return antialias ? m * dis_y[j[v] * S + t] : dis_y[j[v] * S + t];
+    return scale ? m * g.dis_y[j[v] * S + t] : g.dis_y[j[v] * S + t];
+  }
+  __device__ unsigned myt(int v, int t) const {
+    return g.mask_y[j[v] * S + t];
   }
 };
 
+// The window entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
+template <bool kLinear>
+using Entry = typename std::conditional<kLinear, float2, float4>::type;
+
+// One branch of the amplified-linear kernel: a x + 1 (bit 0), 1 - a x (bit
+// 1), else 0, as lerf_tpu's (a x + 1) neg + (1 - a x) pos gives it.
+__device__ __forceinline__ float lin(float a, float x, unsigned mask) {
+  const float ax = a * x;
+  return (mask & 1u) ? ax + 1.0f : ((mask & 2u) ? 1.0f - ax : 0.0f);
+}
+
 __device__ __forceinline__ float finish(float v, float, float*) { return v; }
 
+// clip(rint(.), 0, norm); a 0/0 window (NaN) writes 0, as the warp's
+// nan_to_num does (fmaxf returns its other operand for a NaN)
 __device__ __forceinline__ unsigned char finish(float v, float norm,
                                                 unsigned char*) {
   return (unsigned char)fminf(fmaxf(rintf(v), 0.0f), norm);
@@ -131,10 +174,12 @@ __device__ __forceinline__ void store_vec(T* p, const T* o) {
 }
 
 // Window rows [k0, k0 + nrows) of the block's source window, decoded into
-// shared memory as {feature, 2 rho, sx, sy}.
+// shared memory as {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
+template <bool kLinear>
 __device__ __forceinline__ void load_window(
-    float4* win, const int* x, const int* hyp, int r_lo, int c_lo, int k0,
-    int nrows, int wc, int pitch, int H, int W, float norm, float max_sigma) {
+    Entry<kLinear>* win, const int* x, const int* hyp, int r_lo, int c_lo,
+    int k0, int nrows, int wc, int pitch, int H, int W, float norm,
+    float max_sigma) {
   const int nthreads = blockDim.x * blockDim.y;
   for (int e = threadIdx.y * blockDim.x + threadIdx.x; e < nrows * wc;
        e += nthreads) {
@@ -143,42 +188,55 @@ __device__ __forceinline__ void load_window(
     const int gr = r_lo + k0 + r, gc = c_lo + q;
     const int rc = min(max(gr, 0), H - 1);
     const int cc = min(max(gc, 0), W - 1);
-    const int* code = hyp + ((size_t)rc * W + cc) * 3;
-    const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
-    const float sx = (float)__ldg(code + 1) / norm * max_sigma;
-    const float sy = (float)__ldg(code + 2) / norm * max_sigma;
     const float n = (gr >= 0 && gr < H && gc >= 0 && gc < W)
                         ? (float)__ldg(x + (size_t)gr * W + gc) : 0.0f;
-    win[r * pitch + q] = make_float4(n, 2.0f * rho, sx, sy);
+    if constexpr (kLinear) {
+      const int* code = hyp + (size_t)rc * W + cc;
+      win[r * pitch + q] =
+          make_float2(n, (float)__ldg(code) / norm * 2.0f - 1.0f);
+    } else {
+      const int* code = hyp + ((size_t)rc * W + cc) * 3;
+      const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
+      const float sx = (float)__ldg(code + 1) / norm * max_sigma;
+      const float sy = (float)__ldg(code + 2) / norm * max_sigma;
+      win[r * pitch + q] = make_float4(n, 2.0f * rho, sx, sy);
+    }
   }
 }
 
 // The weighted sums over the neighbours whose source row lies in window
 // rows [k0, k0 + nrows), s-major, t-minor.  kStrip false: all of them (the
 // whole window is in shared memory).
-template <bool kStrip, int KS>
+template <bool kStrip, int KS, bool kLinear>
 __device__ __forceinline__ void accumulate(
-    const float4* win, const Fov<KS>& fov, int S_rt, int pitch, int k0,
-    int nrows, int antialias, float m, float* wn, float* ws) {
+    const Entry<kLinear>* win, const Fov<KS, kLinear>& fov, int S_rt,
+    int pitch, int k0, int nrows, int antialias, float m, float* wn,
+    float* ws) {
   const int S = KS > 0 ? KS : S_rt;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int r = fov.row(s) - k0;
     if (kStrip && (r < 0 || r >= nrows)) continue;
-    const float4* wrow = win + r * pitch;
+    const Entry<kLinear>* wrow = win + r * pitch;
     const float dx = fov.dxs(s);
 #pragma unroll
     for (int t = 0; t < S; ++t) {
 #pragma unroll
       for (int v = 0; v < kVec; ++v) {
-        const float4 p = wrow[fov.col(v, t)];   // {n, 2 rho, sx, sy}
+        const Entry<kLinear> p = wrow[fov.col(v, t)];
         const float dy = fov.dyt(v, t);
-        const float a = p.z * dx;
-        const float b = p.w * dy;
-        const float xn = a * a;
-        const float yn = b * b;
-        const float xy = a * p.w * dy;
-        float w = expf(-0.5f * (xn - p.y * xy + yn));
+        float w;
+        if constexpr (kLinear) {              // {n, alpha}
+          w = fmaxf(lin(p.y, dx, fov.mxs(s)), 0.0f) *
+              fmaxf(lin(p.y, dy, fov.myt(v, t)), 0.0f);
+        } else {                              // {n, 2 rho, sx, sy}
+          const float a = p.z * dx;
+          const float b = p.w * dy;
+          const float xn = a * a;
+          const float yn = b * b;
+          const float xy = a * p.w * dy;
+          w = expf(-0.5f * (xn - p.y * xy + yn));
+        }
         if (antialias) w = m * w;
         wn[v] += w * p.x;
         ws[v] += w;
@@ -187,37 +245,38 @@ __device__ __forceinline__ void accumulate(
   }
 }
 
-template <int KS, typename OutT>
+// geo: rows [OH, S] / cols [OW, S] (source indices, may fall outside the
+// image), the mode's distances and masks.  hyper_c: codes a pixel (3, or 1
+// in the linear mode).  scale: the Gaussian antialias's m * distance.
+template <int KS, typename OutT, bool kLinear>
 __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
     const int* __restrict__ img,      // [C, H, W] int32 feature (0..norm)
-    const int* __restrict__ codes,    // [C, H, W, 3] int32 hyper codes
+    const int* __restrict__ codes,    // [C, H, W, hyper_c] int32 codes
     OutT* __restrict__ out,           // [C, OH, OW] float32 or uint8
-    const int* __restrict__ rows,     // [OH, S] source rows, may be outside [0, H)
-    const int* __restrict__ cols,     // [OW, S] source cols, may be outside [0, W)
-    const float* __restrict__ dis_x,  // [OH, S]
-    const float* __restrict__ dis_y,  // [OW, S]
-    int H, int W, int OH, int OW, int S_rt, int tile_h, int tile_w,
-    int strip, int pitch, int vec_ok, int antialias, float m,
-    float max_sigma, float norm) {
-  extern __shared__ float4 win[];     // [strip rows][pitch]
+    const Geo geo, int H, int W, int OH, int OW, int S_rt, int tile_h,
+    int tile_w, int strip, int pitch, int vec_ok, int antialias, int scale,
+    float m, float max_sigma, float norm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Entry<kLinear>* win = reinterpret_cast<Entry<kLinear>*>(smem);
   const int S = KS > 0 ? KS : S_rt;
+  const int hyper_c = kLinear ? 1 : 3;
   const int c = blockIdx.z;
   const int i0 = blockIdx.y * tile_h, j0 = blockIdx.x * tile_w;
   const int i_end = min(i0 + tile_h, OH) - 1;   // the tile's last row
   const int j_end = min(j0 + tile_w, OW) - 1;   // and column
-  const int r_lo = rows[i0 * S], c_lo = cols[j0 * S];
-  const int wr = rows[i_end * S + S - 1] - r_lo + 1;
-  const int wc = cols[j_end * S + S - 1] - c_lo + 1;
+  const int r_lo = geo.rows[i0 * S], c_lo = geo.cols[j0 * S];
+  const int wr = geo.rows[i_end * S + S - 1] - r_lo + 1;
+  const int wc = geo.cols[j_end * S + S - 1] - c_lo + 1;
   const int* x = img + (size_t)c * H * W;
-  const int* hyp = codes + (size_t)c * H * W * 3;
+  const int* hyp = codes + (size_t)c * H * W * hyper_c;
   // the whole window fits in shared memory: always for S 2 and 4 (a
   // one-output window of 4 x 4 fits, so the host's tile holds its whole
   // window), else unless the window is walked in strips of rows (S >= 121)
   const bool whole = KS > 0 || wr <= strip;
 
   // 1. the source window (or its first strip), decoded once
-  load_window(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip, wc, pitch, H,
-              W, norm, max_sigma);
+  load_window<kLinear>(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip, wc,
+                       pitch, H, W, norm, max_sigma);
   __syncthreads();
 
   // 2. kVec outputs of one row a thread (reading the field of view before
@@ -230,9 +289,8 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   int j[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) j[v] = min(jb + v, j_end);
-  Fov<KS> fov;
-  fov.load(rows, cols, dis_x, dis_y, min(i, i_end), j, r_lo, c_lo, S,
-           antialias, m);
+  Fov<KS, kLinear> fov;
+  fov.load(geo, min(i, i_end), j, r_lo, c_lo, S, scale, m);
 
   // 3. the weighted sums, s-major, t-minor (the strips run in row order,
   // and a thread's rows rise with s)
@@ -248,8 +306,8 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
       k0 += strip;
       if (k0 >= wr) break;
       __syncthreads();
-      load_window(win, x, hyp, r_lo, c_lo, k0, min(strip, wr - k0), wc,
-                  pitch, H, W, norm, max_sigma);
+      load_window<kLinear>(win, x, hyp, r_lo, c_lo, k0, min(strip, wr - k0),
+                           wc, pitch, H, W, norm, max_sigma);
       __syncthreads();
     }
     if (!active) return;
@@ -269,51 +327,52 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   }
 }
 
-template <int KS, typename OutT>
-cudaError_t launch(const void* img, const void* codes, void* out,
-                   const void* rows, const void* cols, const void* dis_x,
-                   const void* dis_y, int C, int H, int W, int OH, int OW,
-                   int S, int tile_h, int tile_w, int strip, int pitch,
-                   int smem, int antialias, float m, float max_sigma,
-                   float norm, cudaStream_t stream) {
-  auto kernel = steering_resize_kernel<KS, OutT>;
-  if (smem > kDefaultSmem) {
+// The launch parameters every instantiation shares.
+struct Launch {
+  const void* img;
+  const void* codes;
+  void* out;
+  Geo geo;
+  int C, H, W, OH, OW, S, tile_h, tile_w, strip, pitch, smem, antialias,
+      scale;
+  float m, max_sigma, norm;
+};
+
+template <int KS, typename OutT, bool kLinear>
+cudaError_t launch(const Launch& a, cudaStream_t stream) {
+  auto kernel = steering_resize_kernel<KS, OutT, kLinear>;
+  if (a.smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((OW + tile_w - 1) / tile_w, (OH + tile_h - 1) / tile_h, C);
-  const dim3 block((tile_w + kVec - 1) / kVec, tile_h);
-  const int vec_ok = OW % kVec == 0 && tile_w % kVec == 0;
-  kernel<<<grid, block, smem, stream>>>(
-      (const int*)img, (const int*)codes, (OutT*)out, (const int*)rows,
-      (const int*)cols, (const float*)dis_x, (const float*)dis_y, H, W, OH,
-      OW, S, tile_h, tile_w, strip, pitch, vec_ok, antialias, m, max_sigma,
-      norm);
+  const dim3 grid((a.OW + a.tile_w - 1) / a.tile_w,
+                  (a.OH + a.tile_h - 1) / a.tile_h, a.C);
+  const dim3 block((a.tile_w + kVec - 1) / kVec, a.tile_h);
+  const int vec_ok = a.OW % kVec == 0 && a.tile_w % kVec == 0;
+  kernel<<<grid, block, a.smem, stream>>>(
+      (const int*)a.img, (const int*)a.codes, (OutT*)a.out, a.geo, a.H, a.W,
+      a.OH, a.OW, a.S, a.tile_h, a.tile_w, a.strip, a.pitch, vec_ok,
+      a.antialias, a.scale, a.m, a.max_sigma, a.norm);
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t dispatch(const void* img, const void* codes, void* out,
-                     const void* rows, const void* cols, const void* dis_x,
-                     const void* dis_y, int C, int H, int W, int OH, int OW,
-                     int S, int tile_h, int tile_w, int strip, int pitch,
-                     int smem, int antialias, float m, float max_sigma,
-                     float norm, cudaStream_t stream) {
-  switch (S) {
+template <typename OutT, bool kLinear>
+cudaError_t dispatch(const Launch& a, cudaStream_t stream) {
+  switch (a.S) {
     case 2:
-      return launch<2, OutT>(img, codes, out, rows, cols, dis_x, dis_y, C, H,
-                             W, OH, OW, S, tile_h, tile_w, strip, pitch,
-                             smem, antialias, m, max_sigma, norm, stream);
+      return launch<2, OutT, kLinear>(a, stream);
     case 4:
-      return launch<4, OutT>(img, codes, out, rows, cols, dis_x, dis_y, C, H,
-                             W, OH, OW, S, tile_h, tile_w, strip, pitch,
-                             smem, antialias, m, max_sigma, norm, stream);
+      return launch<4, OutT, kLinear>(a, stream);
     default:
-      return launch<0, OutT>(img, codes, out, rows, cols, dis_x, dis_y, C, H,
-                             W, OH, OW, S, tile_h, tile_w, strip, pitch,
-                             smem, antialias, m, max_sigma, norm, stream);
+      return launch<0, OutT, kLinear>(a, stream);
   }
+}
+
+template <bool kLinear>
+cudaError_t dispatch_mode(const Launch& a, int out_u8, cudaStream_t stream) {
+  return out_u8 ? dispatch<unsigned char, kLinear>(a, stream)
+                : dispatch<float, kLinear>(a, stream);
 }
 
 }  // namespace
@@ -322,33 +381,36 @@ cudaError_t dispatch(const void* img, const void* codes, void* out,
 // any tile of this geometry; win_rows: the source rows a block holds in
 // shared memory at once, the tallest window's where it fits (the host
 // computes both), else fewer, and the kernel walks a taller window in strips
-// of win_rows rows.  out_u8: 1 writes uint8 clip(rint(.), 0, norm) (norm <=
-// 255), 0 float32.
+// of win_rows rows.  linear: 0 the steerable Gaussian (codes [C, H, W, 3],
+// dis_* the float32 distances, scaled by min_scale here when antialias), 1
+// the amplified-linear kernel (codes [C, H, W, 1], dis_* float32(min_scale
+// * dis), mask_* their float64 branch bits [O, S] uint8).  out_u8: 1 writes
+// uint8 clip(rint(.), 0, norm) (norm <= 255), 0 float32.
 extern "C" int lerf_steering_resize(
     const void* img, const void* codes, void* out, const void* rows,
     const void* cols, const void* dis_x, const void* dis_y,
-    int C, int H, int W, int OH, int OW, int S,
-    int antialias, float min_scale, float max_sigma, float norm,
-    int tile_h, int tile_w, int win_rows, int win_cols, int out_u8,
-    void* stream) {
+    const void* mask_x, const void* mask_y, int C, int H, int W, int OH,
+    int OW, int S, int antialias, int linear, float min_scale,
+    float max_sigma, float norm, int tile_h, int tile_w,
+    int win_rows, int win_cols, int out_u8, void* stream) {
   if ((long long)C * OH * OW == 0) return 0;
   if (S < 1 || tile_h < 1 || tile_w < 1 || win_rows < 1 || win_cols < 1 ||
       C > 65535 || (OH + tile_h - 1) / tile_h > 65535 ||
       ((tile_w + kVec - 1) / kVec) * tile_h > kMaxThreads ||
-      (out_u8 && !(norm <= 255.0f)))
+      (out_u8 && !(norm <= 255.0f)) ||
+      (linear && (mask_x == nullptr || mask_y == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const long long smem = (long long)win_rows * win_cols * sizeof(float4);
+  const long long smem = (long long)win_rows * win_cols *
+                         (linear ? sizeof(float2) : sizeof(float4));
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const Launch a{img, codes, out,
+                 {(const int*)rows, (const int*)cols, (const float*)dis_x,
+                  (const float*)dis_y, (const unsigned char*)mask_x,
+                  (const unsigned char*)mask_y},
+                 C, H, W, OH, OW, S, tile_h, tile_w, win_rows, win_cols,
+                 (int)smem, antialias, antialias && !linear, min_scale,
+                 max_sigma, norm};
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      out_u8 ? dispatch<unsigned char>(img, codes, out, rows, cols, dis_x,
-                                       dis_y, C, H, W, OH, OW, S, tile_h,
-                                       tile_w, win_rows, win_cols, (int)smem,
-                                       antialias, min_scale, max_sigma, norm,
-                                       s)
-             : dispatch<float>(img, codes, out, rows, cols, dis_x, dis_y, C,
-                               H, W, OH, OW, S, tile_h, tile_w, win_rows,
-                               win_cols, (int)smem, antialias, min_scale,
-                               max_sigma, norm, s);
-  return (int)err;
+  return (int)(linear ? dispatch_mode<true>(a, out_u8, s)
+                      : dispatch_mode<false>(a, out_u8, s));
 }

@@ -1,7 +1,7 @@
-// K5: steerable-Gaussian homographic warp from the stage-2 codes, for sm_90a.
+// K5: steerable homographic warp from the stage-2 codes, for sm_90a.
 //
-// Replaces: the support-2 warp of lerf_tpu/ops/resample.py::
-// steering_gaussian_warp (u8_inputs=True), which on the TPU is no Pallas
+// Replaces: the warp of lerf_tpu/ops/resample.py::steering_gaussian_warp
+// (u8_inputs=True) and ::amplified_linear_warp, which on the TPU is no Pallas
 // kernel but an XLA row gather (_rowpack_warp_gather) followed by some twenty
 // elementwise passes, the float64 host geometry it gathers through
 // (lerf_tpu/ops/geometry.py::_warp_grid / _warp_axis), and the NaN -> 0
@@ -53,14 +53,28 @@
 // - All C channels in one block, so the geometry is derived once an output;
 //   a warp writes 32 adjacent outputs of a row (one 32-byte sector in
 //   uint8).
-// Semantics, those of the JAX path's geometry (_warp_axis): a pixel's two
-// rows are clip(left + s, 0, H - 1) in padded coordinates, clipped to the
-// UNPADDED bounds, and its source row is that minus pad_r (0 or 1); source
-// row -1 is the pad row.  Neighbours run (0,0), (0,1), (1,0), (1,1); the
-// weight is exp(-0.5 * ((sx dx)^2 - 2 rho (sx dx)(sy dy) + (sy dy)^2)) in
-// the plain twin's operation order, flushed to 0 below FLT_MIN (the
-// reference backends flush subnormals, so such a window is 0/0 = NaN
-// there); one division at the end.  Built without fast math and without
+// - Any support S, at run time (the deploy form's 2 compiled with its
+//   windows in registers; any other S derives each row, column and distance
+//   where it is used).  The footprint grows with S, and a block whose
+//   footprint exceeds the tile takes the direct path.
+// - The amplified-linear mode (LeRF-L): one code a pixel, decoded into a
+//   float2 {feature, alpha} tile entry as alpha = code / norm * 2 - 1
+//   (max_alpha 1); the weight max(lin(alpha, dx), 0) * max(lin(alpha, dy), 0),
+//   lin(a, x) = a x + 1 on the negative branch, 1 - a x on the positive one,
+//   0 off both.  The branches are those of the reference's float64 masks:
+//   evaluated here on the float64 distance before its one cast to float32,
+//   the same double the host's geometry holds, so they are the host masks
+//   of lerf_tpu's _branch_masks bit for bit, with no per-pixel operand.
+// Semantics, those of the JAX path's geometry (_warp_axis): a pixel's S
+// rows are clip(left + s, 0, H - 1) in padded coordinates, left = ceil((g -
+// S/2) - eps) + pad_r, clipped to the UNPADDED bounds, and its source row is
+// that minus pad_r (0 .. S/2); a negative source row is a pad row.
+// Neighbours run s-major, t-minor ((0,0), (0,1), (1,0), (1,1) at S = 2); the
+// Gaussian weight is exp(-0.5 * ((sx dx)^2 - 2 rho (sx dx)(sy dy) +
+// (sy dy)^2)) in the plain twin's operation order, flushed to 0 below
+// FLT_MIN (the reference backends flush subnormals, so such a window is 0/0
+// = NaN there; a linear weight is 0 or at least 2^-48, never subnormal);
+// one division at the end.  Built without fast math and without
 // FMA contraction, so each float32 operation is a single IEEE operation as
 // in the twin; expf may differ from PyTorch's exp by a few ulp.  A
 // projection 0/0 (output on the horizon line through the origin) is NaN on
@@ -69,6 +83,7 @@
 #include <climits>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -78,22 +93,15 @@ constexpr int kTileH = 16;                  // outputs a block: rows
 constexpr int kTileW = 32;                  // and columns (one warp a row)
 constexpr int kThreadRows = 8;              // 256 threads
 constexpr int kRowsPerThread = kTileH / kThreadRows;
-constexpr int kTileEntries = 2048;          // float4s of footprint: 32 KB
+constexpr int kTileEntries = 2048;          // entries of footprint: 32 KB
 constexpr int kMinBlocks = 4;               // blocks an SM (register cap)
 constexpr double kEps = 1.1920928955078125e-07;   // float32 eps (_EPS)
 
 // One homography's geometry, by value: the inverse matrix row-major, the
-// unpadded input and the output sizes, the leading pads (0 or 1).
+// unpadded input and the output sizes, the leading pads, the support.
 struct Warp {
   double m[9];
-  int H, W, OH, OW, pad_r, pad_c;
-};
-
-// One output's window: padded rows r[0..1], columns q[0..1], each clipped
-// to [0, in - 1], and its four float32 distances.
-struct Window {
-  int r[2], q[2];
-  float dx[2], dy[2];
+  int H, W, OH, OW, pad_r, pad_c, S;
 };
 
 // The terms of _warp_grid that depend on the output column j only:
@@ -109,51 +117,136 @@ __device__ __forceinline__ Column column_terms(const Warp& w, int j) {
           __dadd_rn(__dmul_rn(w.m[3], x), w.m[5])};
 }
 
-// _warp_axis for support 2 on one coordinate: g = clip(src, 0, n), left =
-// ceil((g - 1) - eps) + pad, f_s = clip(left + s, 0, n - 1),
-// d_s = float32((g + pad) - f_s).
-__device__ __forceinline__ void axis(double src, int n, int pad, int* f,
-                                     float* d) {
+// _warp_axis on one coordinate: g = clip(src, 0, n), left = ceil((g - S/2)
+// - eps) + pad, f_s = clip(left + s, 0, n - 1), d_s = (g + pad) - f_s in
+// float64 (the host's dis), cast to float32 once where it is used.
+struct Axis {
+  int left, n;
+  double gp;                                // g + pad
+  __device__ int at(int s) const { return min(max(left + s, 0), n - 1); }
+  __device__ double d(int s) const { return __dsub_rn(gp, (double)at(s)); }
+};
+
+__device__ __forceinline__ Axis axis(double src, int n, int pad, int S) {
   const double g = fmin(fmax(src, 0.0), (double)n);
-  const int left = (int)ceil(__dsub_rn(__dsub_rn(g, 1.0), kEps)) + pad;
-  const double gp = __dadd_rn(g, (double)pad);
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    f[s] = min(max(left + s, 0), n - 1);
-    d[s] = __double2float_rn(__dsub_rn(gp, (double)f[s]));
-  }
+  return {(int)ceil(__dsub_rn(__dsub_rn(g, 0.5 * S), kEps)) + pad, n,
+          __dadd_rn(g, (double)pad)};
 }
+
+// The linear kernel's branch of a float64 distance, as _branch_masks:
+// bit 0 for -1 <= d < 0, bit 1 for 0 <= d <= 1.
+__device__ __forceinline__ unsigned branch(double d) {
+  return (-1.0 <= d && d < 0.0) ? 1u : ((0.0 <= d && d <= 1.0) ? 2u : 0u);
+}
+
+// One output's window.  KS > 0: the support known at compile time, its
+// S rows, columns and float32 distances in registers, and where kBits (the
+// linear mode) the 2S branches two bits each in one word (rows from bit 0,
+// columns from bit 2 KS): the Gaussian mode evaluates no branch.
+template <int KS, bool kBits>
+struct Window {
+  int r[KS], q[KS];
+  float dx[KS], dy[KS];
+  unsigned bits;
+
+  __device__ void set(const Axis& ar, const Axis& ac, int) {
+    bits = 0u;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const double d = ar.d(s);
+      r[s] = ar.at(s);
+      dx[s] = __double2float_rn(d);
+      if constexpr (kBits) bits |= branch(d) << (2 * s);
+    }
+#pragma unroll
+    for (int t = 0; t < KS; ++t) {
+      const double d = ac.d(t);
+      q[t] = ac.at(t);
+      dy[t] = __double2float_rn(d);
+      if constexpr (kBits) bits |= branch(d) << (2 * (KS + t));
+    }
+  }
+  __device__ int support() const { return KS; }
+  __device__ int row(int s) const { return r[s]; }
+  __device__ int col(int t) const { return q[t]; }
+  __device__ float dxs(int s) const { return dx[s]; }
+  __device__ float dyt(int t) const { return dy[t]; }
+  __device__ unsigned bxs(int s) const { return (bits >> (2 * s)) & 3u; }
+  __device__ unsigned byt(int t) const {
+    return (bits >> (2 * (KS + t))) & 3u;
+  }
+};
+
+// Any other support: the two axes, each value derived where it is used.
+template <bool kBits>
+struct Window<0, kBits> {
+  Axis ar, ac;
+  int S;
+
+  __device__ void set(const Axis& ar_, const Axis& ac_, int S_) {
+    ar = ar_;
+    ac = ac_;
+    S = S_;
+  }
+  __device__ int support() const { return S; }
+  __device__ int row(int s) const { return ar.at(s); }
+  __device__ int col(int t) const { return ac.at(t); }
+  __device__ float dxs(int s) const { return __double2float_rn(ar.d(s)); }
+  __device__ float dyt(int t) const { return __double2float_rn(ac.d(t)); }
+  __device__ unsigned bxs(int s) const { return branch(ar.d(s)); }
+  __device__ unsigned byt(int t) const { return branch(ac.d(t)); }
+};
 
 // _warp_grid at output (i, j): den = (i20 x + i22) + i21 y, src = (...) /
 // den, the row from src_y, the column from src_x.
-__device__ __forceinline__ Window window_at(const Warp& w, const Column& col,
-                                            int i) {
+template <int KS, bool kBits>
+__device__ __forceinline__ Window<KS, kBits> window_at(const Warp& w,
+                                                       const Column& col,
+                                                       int i) {
   const double y = (double)i;
   const double den = __dadd_rn(col.den, __dmul_rn(w.m[7], y));
   const double sx = __ddiv_rn(__dadd_rn(col.num_x, __dmul_rn(w.m[1], y)), den);
   const double sy = __ddiv_rn(__dadd_rn(col.num_y, __dmul_rn(w.m[4], y)), den);
-  Window p;
-  axis(sy, w.H, w.pad_r, p.r, p.dx);
-  axis(sx, w.W, w.pad_c, p.q, p.dy);
+  const int S = KS > 0 ? KS : w.S;      // a constant S / 2 where it can be
+  Window<KS, kBits> p;
+  p.set(axis(sy, w.H, w.pad_r, S), axis(sx, w.W, w.pad_c, S), S);
   return p;
 }
 
-// Source pixel (sr, sc) of channel c (-1: the pad row / column) decoded as
-// {feature, 2 rho, sx, sy}.
-__device__ __forceinline__ float4 decode(const int* img, const int* codes,
-                                         int c, int sr, int sc, int H, int W,
-                                         float norm, float max_sigma) {
+// The tile entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
+template <bool kLinear>
+using Entry = typename std::conditional<kLinear, float2, float4>::type;
+
+// Source pixel (sr, sc) of channel c (negative: a pad row / column)
+// decoded.
+template <bool kLinear>
+__device__ __forceinline__ Entry<kLinear> decode(
+    const int* img, const int* codes, int c, int sr, int sc, int H, int W,
+    float norm, float max_sigma) {
   const size_t e = ((size_t)c * H + max(sr, 0)) * W + max(sc, 0);
-  const int* code = codes + e * 3;
-  const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
-  const float sx = (float)__ldg(code + 1) / norm * max_sigma;
-  const float sy = (float)__ldg(code + 2) / norm * max_sigma;
   const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
-  return make_float4(v, 2.0f * rho, sx, sy);
+  if constexpr (kLinear) {
+    return make_float2(v, (float)__ldg(codes + e) / norm * 2.0f - 1.0f);
+  } else {
+    const int* code = codes + e * 3;
+    const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
+    const float sx = (float)__ldg(code + 1) / norm * max_sigma;
+    const float sy = (float)__ldg(code + 2) / norm * max_sigma;
+    return make_float4(v, 2.0f * rho, sx, sy);
+  }
 }
 
-// One neighbour's weight in the twin's float order, flushed below FLT_MIN.
-__device__ __forceinline__ float weight(float4 p, float dx, float dy) {
+// One branch of the amplified-linear kernel: a x + 1 (bit 0), 1 - a x (bit
+// 1), else 0, as lerf_tpu's (a x + 1) neg + (1 - a x) pos gives it.
+__device__ __forceinline__ float lin(float a, float x, unsigned mask) {
+  const float ax = a * x;
+  return (mask & 1u) ? ax + 1.0f : ((mask & 2u) ? 1.0f - ax : 0.0f);
+}
+
+// One neighbour's weight in the twin's float order: the Gaussian flushed
+// below FLT_MIN, the linear kernel clipped at 0 on both axes.
+__device__ __forceinline__ float weight(float4 p, float dx, float dy,
+                                        unsigned, unsigned) {
   const float a = p.z * dx;
   const float b = p.w * dy;
   const float xn = a * a;
@@ -161,6 +254,11 @@ __device__ __forceinline__ float weight(float4 p, float dx, float dy) {
   const float xy = a * p.w * dy;
   const float w = expf(-0.5f * (xn - p.y * xy + yn));
   return w < FLT_MIN ? 0.0f : w;
+}
+
+__device__ __forceinline__ float weight(float2 p, float dx, float dy,
+                                        unsigned bx, unsigned by) {
+  return fmaxf(lin(p.y, dx, bx), 0.0f) * fmaxf(lin(p.y, dy, by), 0.0f);
 }
 
 __device__ __forceinline__ float finish(float v, float, float*) { return v; }
@@ -175,21 +273,21 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
 // At least kMinBlocks blocks an SM: registers capped at 64 (80 uncapped,
 // three blocks an SM), which measured 10 % faster; six blocks (40) slower
 // (lerf_torch/tools/probe_lut_kernels.py).
-template <typename OutT>
+template <int KS, typename OutT, bool kLinear>
 __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
     steering_warp_kernel(
     const int* __restrict__ img,     // [C, H, W] int32 feature (0..norm)
-    const int* __restrict__ codes,   // [C, H, W, 3] int32 hyper codes
+    const int* __restrict__ codes,   // [C, H, W, 3 or 1] int32 hyper codes
     OutT* __restrict__ out,          // [C, OH, OW] float32 or uint8
     const Warp w, int C, float max_sigma, float norm) {
-  __shared__ float4 tile[kTileEntries];   // [C][rows][cols] of the footprint
+  __shared__ Entry<kLinear> tile[kTileEntries];   // [C][rows][cols]
   __shared__ int box[4];                  // row min, max, column min, max
   const int tid = threadIdx.y * kTileW + threadIdx.x;
   const int j = blockIdx.x * kTileW + threadIdx.x;
 
   // 1. this thread's windows, from the matrix in float64
   const Column col = column_terms(w, min(j, w.OW - 1));
-  Window px[kRowsPerThread];
+  Window<KS, kLinear> px[kRowsPerThread];
   bool ok[kRowsPerThread];
   int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
 #pragma unroll
@@ -197,11 +295,12 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     ok[k] = j < w.OW && i < w.OH;
     if (!ok[k]) continue;
-    px[k] = window_at(w, col, i);
-    rmin = min(rmin, px[k].r[0]);
-    rmax = max(rmax, px[k].r[1]);
-    cmin = min(cmin, px[k].q[0]);
-    cmax = max(cmax, px[k].q[1]);
+    px[k] = window_at<KS, kLinear>(w, col, i);
+    const int S = px[k].support();
+    rmin = min(rmin, px[k].row(0));
+    rmax = max(rmax, px[k].row(S - 1));
+    cmin = min(cmin, px[k].col(0));
+    cmax = max(cmax, px[k].col(S - 1));
   }
 
   // 2. the block's footprint: the rectangle of padded rows and columns its
@@ -233,9 +332,9 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
       const int c = e / plane;
       const int rc = e - c * plane;
       const int r = rc / nc;
-      tile[e] = decode(img, codes, c, r_lo + r - w.pad_r,
-                       c_lo + (rc - r * nc) - w.pad_c, w.H, w.W, norm,
-                       max_sigma);
+      tile[e] = decode<kLinear>(img, codes, c, r_lo + r - w.pad_r,
+                                c_lo + (rc - r * nc) - w.pad_c, w.H, w.W,
+                                norm, max_sigma);
     }
     __syncthreads();
   }
@@ -244,19 +343,24 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
     if (!ok[k]) continue;
-    const Window& p = px[k];
+    const Window<KS, kLinear>& p = px[k];
+    const int S = p.support();
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     for (int c = 0; c < C; ++c) {
       float wn = 0.0f, ws = 0.0f;
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
+      for (int s = 0; s < S; ++s) {
+        const int r = p.row(s);
+        const float dx = p.dxs(s);
+        const unsigned bx = p.bxs(s);
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const float4 v =
-              shared ? tile[(c * nr + p.r[s] - r_lo) * nc + p.q[t] - c_lo]
-                     : decode(img, codes, c, p.r[s] - w.pad_r,
-                              p.q[t] - w.pad_c, w.H, w.W, norm, max_sigma);
-          const float wt = weight(v, p.dx[s], p.dy[t]);
+        for (int t = 0; t < S; ++t) {
+          const Entry<kLinear> v =
+              shared ? tile[(c * nr + r - r_lo) * nc + p.col(t) - c_lo]
+                     : decode<kLinear>(img, codes, c, r - w.pad_r,
+                                       p.col(t) - w.pad_c, w.H, w.W, norm,
+                                       max_sigma);
+          const float wt = weight(v, dx, p.dyt(t), bx, p.byt(t));
           wn += wt * v.x;
           ws += wt;
         }
@@ -266,29 +370,38 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
   }
 }
 
-// The per-pixel operands of the host's WarpOperands from window_at: the
-// unclipped window corner (row, col) as _unclipped_corner recovers it from
-// the clipped pair (-1 where the pair is (0, 0)) and (dx0, dx1, dy0, dy1).
+// The per-pixel geometry of the host's WarpOperands from window_at: the
+// window corner (row, col) as geometry.window_corner recovers it from the
+// clipped indices (f_0 where above 0, else f_S-1 - (S - 1)), the 2S
+// distances (dx_0..dx_S-1, dy_0..dy_S-1) and their float64 branch bits.
 __global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
-    int2* __restrict__ corners, float4* __restrict__ dis, const Warp w) {
+    int2* __restrict__ corners, float* __restrict__ dis,
+    unsigned char* __restrict__ masks, const Warp w) {
   const int j = blockIdx.x * kTileW + threadIdx.x;
   if (j >= w.OW) return;
   const Column col = column_terms(w, j);
+  const int S = w.S;
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     if (i >= w.OH) return;
-    const Window p = window_at(w, col, i);
+    const Window<0, true> p = window_at<0, true>(w, col, i);
     const size_t n = (size_t)i * w.OW + j;
-    corners[n] = make_int2(p.r[1] == 0 ? -1 : p.r[0],
-                           p.q[1] == 0 ? -1 : p.q[0]);
-    dis[n] = make_float4(p.dx[0], p.dx[1], p.dy[0], p.dy[1]);
+    corners[n] = make_int2(
+        p.row(0) == 0 ? p.row(S - 1) - (S - 1) : p.row(0),
+        p.col(0) == 0 ? p.col(S - 1) - (S - 1) : p.col(0));
+    for (int s = 0; s < S; ++s) {
+      dis[n * 2 * S + s] = p.dxs(s);
+      dis[n * 2 * S + S + s] = p.dyt(s);
+      masks[n * 2 * S + s] = (unsigned char)p.bxs(s);
+      masks[n * 2 * S + S + s] = (unsigned char)p.byt(s);
+    }
   }
 }
 
 int make_warp(const double* inv, int H, int W, int OH, int OW, int pad_r,
-              int pad_c, Warp* w) {
-  if (H < 1 || W < 1 || pad_r < 0 || pad_c < 0 ||
+              int pad_c, int S, Warp* w) {
+  if (H < 1 || W < 1 || pad_r < 0 || pad_c < 0 || S < 1 ||
       (OH + kTileH - 1) / kTileH > 65535)
     return (int)cudaErrorInvalidValue;
   memcpy(w->m, inv, sizeof(w->m));
@@ -298,6 +411,7 @@ int make_warp(const double* inv, int H, int W, int OH, int OW, int pad_r,
   w->OW = OW;
   w->pad_r = pad_r;
   w->pad_c = pad_c;
+  w->S = S;
   return 0;
 }
 
@@ -305,50 +419,68 @@ dim3 grid_of(const Warp& w) {
   return dim3((w.OW + kTileW - 1) / kTileW, (w.OH + kTileH - 1) / kTileH);
 }
 
+template <typename OutT, bool kLinear>
+void launch(const int* img, const int* codes, void* out, const Warp& w,
+            int C, float max_sigma, float norm, cudaStream_t s) {
+  const dim3 block(kTileW, kThreadRows);
+  if (w.S == 2)
+    steering_warp_kernel<2, OutT, kLinear><<<grid_of(w), block, 0, s>>>(
+        img, codes, (OutT*)out, w, C, max_sigma, norm);
+  else
+    steering_warp_kernel<0, OutT, kLinear><<<grid_of(w), block, 0, s>>>(
+        img, codes, (OutT*)out, w, C, max_sigma, norm);
+}
+
 }  // namespace
 
 // inv: the 3x3 inverse homography, row-major float64, in host memory (read
 // before the call returns).  H, W: the unpadded input; pad_r, pad_c: the
-// geometry's leading pads (0 or 1).  out_u8: 1 writes uint8
-// clip(rint(nan_to_num(.)), 0, norm) (norm <= 255), 0 float32 with NaN where
-// a window's weights all vanish.
+// geometry's leading pads; S: the support.  linear: 0 the steerable Gaussian
+// (codes [C, H, W, 3]), 1 the amplified-linear kernel (codes [C, H, W, 1]).
+// out_u8: 1 writes uint8 clip(rint(nan_to_num(.)), 0, norm) (norm <= 255),
+// 0 float32 with NaN where a window's weights all vanish.
 extern "C" int lerf_steering_warp(const void* img, const void* codes,
                                   void* out, const double* inv, int C, int H,
                                   int W, int OH, int OW, int pad_r, int pad_c,
-                                  float max_sigma, float norm, int out_u8,
-                                  void* stream) {
+                                  int S, int linear, float max_sigma,
+                                  float norm, int out_u8, void* stream) {
   if ((long long)C * OH * OW == 0) return 0;
   Warp w;
-  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, &w);
+  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, S, &w);
   if (err) return err;
   if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 block(kTileW, kThreadRows);
-  if (out_u8)
-    steering_warp_kernel<unsigned char><<<grid_of(w), block, 0, s>>>(
-        (const int*)img, (const int*)codes, (unsigned char*)out, w, C,
-        max_sigma, norm);
-  else
-    steering_warp_kernel<float><<<grid_of(w), block, 0, s>>>(
-        (const int*)img, (const int*)codes, (float*)out, w, C, max_sigma,
-        norm);
+  const int* x = (const int*)img;
+  const int* c = (const int*)codes;
+  if (linear) {
+    if (out_u8)
+      launch<unsigned char, true>(x, c, out, w, C, max_sigma, norm, s);
+    else
+      launch<float, true>(x, c, out, w, C, max_sigma, norm, s);
+  } else {
+    if (out_u8)
+      launch<unsigned char, false>(x, c, out, w, C, max_sigma, norm, s);
+    else
+      launch<float, false>(x, c, out, w, C, max_sigma, norm, s);
+  }
   return (int)cudaGetLastError();
 }
 
-// The geometry K5 derives, written out: corners [OH * OW] int2 and dis
-// [OH * OW] float4, as WarpOperands lays them out.  For the checks; K5 does
-// not read them.
-extern "C" int lerf_warp_geometry(void* corners, void* dis, const double* inv,
-                                  int H, int W, int OH, int OW, int pad_r,
-                                  int pad_c, void* stream) {
+// The geometry K5 derives, written out: corners [OH * OW] int2, dis
+// [OH * OW, 2S] float32 and masks [OH * OW, 2S] uint8, as WarpOperands lays
+// them out.  For the checks; K5 does not read them.
+extern "C" int lerf_warp_geometry(void* corners, void* dis, void* masks,
+                                  const double* inv, int H, int W, int OH,
+                                  int OW, int pad_r, int pad_c, int S,
+                                  void* stream) {
   if ((long long)OH * OW == 0) return 0;
-  if ((uintptr_t)corners % sizeof(int2) || (uintptr_t)dis % sizeof(float4))
+  if ((uintptr_t)corners % sizeof(int2) || (uintptr_t)dis % sizeof(float))
     return (int)cudaErrorMisalignedAddress;
   Warp w;
-  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, &w);
+  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, S, &w);
   if (err) return err;
   warp_geometry_kernel<<<grid_of(w), dim3(kTileW, kThreadRows), 0,
-                         (cudaStream_t)stream>>>((int2*)corners,
-                                                 (float4*)dis, w);
+                         (cudaStream_t)stream>>>(
+      (int2*)corners, (float*)dis, (unsigned char*)masks, w);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Evaluation harnesses reproducing the reference eval scripts' metrics and
-report format (eval_lut_sr.py / eval_lut_warp.py) — ``lerf_tpu/evaluate.py``
-through the static ``upscale`` and ``warp`` paths."""
+report format (eval_lut_sr.py / eval_lut_warp.py) — ``lerf_tpu/evaluate.py``:
+SR through ``upscale``, ``upscale_bucketed`` or ``upscale_dynamic``, the
+warp through the static ``warp``."""
 from __future__ import annotations
 
 import os
@@ -33,12 +34,16 @@ def run_sr_benchmark(predictor, root: str, dataset: str,
                      scales: Sequence[Tuple[float, float]],
                      result_root: Optional[str] = None,
                      exp_name: str = "lerf", lut_name: str = "LUTft",
-                     post: int = 1, nsigma: float = -1.0) -> Dict:
+                     post: int = 1, nsigma: float = -1.0,
+                     bucket: int = 0, dynamic: bool = False) -> Dict:
     """Evaluate arbitrary-scale SR on one dataset.
 
     ``post`` divides the resampling scale for pre-upsampled inputs
     (LeRF-Net++ convention, eval_lut_sr.py:630-646); ``nsigma`` > 0 enables
-    noisy (denoising-mode) evaluation.  Returns {scale: (avg_psnr, avg_ssim)}.
+    noisy (denoising-mode) evaluation.  ``dynamic`` serves through
+    ``upscale_dynamic`` (with ``bucket`` > 0 as its granularity),
+    ``bucket`` > 0 alone through ``upscale_bucketed``; both are bit-equal
+    to ``upscale``.  Returns {scale: (avg_psnr, avg_ssim)}.
     """
     bench = SRBenchmark(root, dataset, nsigma=nsigma)
     results = {}
@@ -51,7 +56,14 @@ def run_sr_benchmark(predictor, root: str, dataset: str,
             os.makedirs(out_dir, exist_ok=True)
         for i in range(len(bench)):
             lr, hr, name = bench.pair(i, sh, sw)
-            out = predictor.upscale(lr, sh / post, sw / post)
+            if dynamic:
+                out = predictor.upscale_dynamic(lr, sh / post, sw / post,
+                                                granularity=bucket)
+            elif bucket > 0:
+                out = predictor.upscale_bucketed(lr, sh / post, sw / post,
+                                                 granularity=bucket)
+            else:
+                out = predictor.upscale(lr, sh / post, sw / post)
             vals.append(eval_sr_image(out, hr, sh, sw))
             if out_dir is not None:
                 save_image(os.path.join(out_dir, f"{name[:-4]}_{lut_name}.png"),

@@ -1,14 +1,16 @@
 """Host-side resize and warp geometry precompute (numpy float64).
 
-A copy of the resize and static-warp parts of ``lerf_tpu/ops/geometry.py``:
-the projected grid, field of view, pads and neighbour distances of the
-reference precompute (``resize_right/resize_right2d_numpy.py:18-104`` for
-resize, ``:306-407`` for warp), computed once per (in_shape, scale) or
-(in_shape, homography, out_shape) on the host in float64.  The resize
-field of view is separable and stored per axis as ``[out, support]``
-arrays; the warp's is per output pixel, ``[outH, outW, support]``.  K1
-receives its arrays cast to int32 / float32, exactly as the JAX path
-casts them.  K5 derives the warp's on the card from the inverse matrix;
+A copy of the resize, serving-resize and static-warp parts of
+``lerf_tpu/ops/geometry.py``: the projected grid, field of view, pads and
+neighbour distances of the reference precompute
+(``resize_right/resize_right2d_numpy.py:18-104`` for resize, ``:306-407``
+for warp), computed once per (in_shape, scale) or (in_shape, homography,
+out_shape) on the host in float64.  The resize field of view is separable
+and stored per axis as ``[out, support]`` arrays (:class:`ResizeGeometry`,
+or :class:`ResizeOperands` over a fixed pad for dynamic-scale serving);
+the warp's is per output pixel, ``[outH, outW, support]``.  K1 receives
+its arrays cast to int32 / float32, exactly as the JAX path casts them.
+K5 derives the warp's on the card from the inverse matrix;
 :func:`warp_pads` and :func:`warp_operands_plain` are that derivation's
 plain twin, the same float64 operations in torch.
 """
@@ -107,6 +109,183 @@ class ResizeGeometry:
                    dis_x=dis_x, dis_y=dis_y, pad_x=pad_x, pad_y=pad_y)
 
 
+def _resize_serving_axis(in_sz: int, out_sz: int, scale: float,
+                         support: int):
+    """Per-axis operands for dynamic-scale serving
+    (``lerf_tpu.ops.geometry._resize_serving_axis``): the exact
+    :func:`_resize_axis` grid / left / distance lines, re-expressed over a
+    FIXED ±1 pad.  For an upscale at support 2 the reference's per-scale
+    pads lie in {0, 1} per side, so padded index ``j`` of the
+    ``pad0``-padded plane is index ``j - pad0 + 1`` of a plane padded by
+    one row / column on each side, for both pad modes.
+
+    Returns ``(idx, dis)``: the left neighbour ``[out]`` in the ±1-padded
+    plane (neighbour ``s`` at ``idx + s``) and the float64 distances
+    ``[out, S]``, the values of ``ResizeGeometry.dis_*``."""
+    grid = (np.arange(out_sz, dtype=np.float64) / scale
+            + (in_sz - 1) / 2.0 - (out_sz - 1) / (2.0 * scale))
+    left = np.ceil(grid - support / 2.0 - _EPS).astype(np.int64)
+    idx = left + 1
+    if idx[0] != 0 or idx.min() < 0 or idx.max() + support - 1 > in_sz + 1:
+        raise ValueError(
+            "scale outside the ±1-frame serving envelope (upscaling only)")
+    # the static path shifts grid and fov by pad0 (== 1 here) BEFORE it
+    # subtracts; ``grid - fov`` directly differs by an ulp at grids that are
+    # not representable (e.g. 1/3)
+    dis = ((grid + 1.0)[:, None]
+           - (idx[:, None] + np.arange(support, dtype=np.int64)[None, :]))
+    return idx.astype(np.int32), dis
+
+
+# the distance of an inactive (support-bucket pad) neighbour slot: far
+# enough that the float64 linear branch masks are zero and the float32
+# Gaussian exponent underflows, small enough that its square stays finite
+_FAR = 1.0e8
+
+
+def _resize_serving_axis_aa(in_sz: int, out_sz: int, scale: float,
+                            sup_true: int, sup_bucket: int, pad: int):
+    """Per-axis operands of the any-scale serving envelope
+    (``lerf_tpu.ops.geometry._resize_serving_axis_aa``): the
+    :func:`_resize_axis` lines at the true (antialias-inflated) support,
+    over a FIXED ±``pad`` frame, distances in the static path's float64
+    order (grid and fov both shifted by the true ``pad0`` first).  Slots
+    ``s >= sup_true`` (the support bucket's padding) get distance
+    :data:`_FAR` and weight mask 0.
+
+    Returns ``(idx [out] int32, dis [out, sup_bucket] float64,
+    wmask [out, sup_bucket] float32)``."""
+    grid = (np.arange(out_sz, dtype=np.float64) / scale
+            + (in_sz - 1) / 2.0 - (out_sz - 1) / (2.0 * scale))
+    left = np.ceil(grid - sup_true / 2.0 - _EPS).astype(np.int64)
+    pad0 = int(-left[0])          # the static path's pad (may be negative)
+    idx = left + pad
+    if idx.min() < 0 or idx.max() + sup_true - 1 > in_sz + 2 * pad - 1:
+        raise ValueError("scale outside the ±pad serving frame "
+                         f"(support {sup_true}, pad {pad})")
+    offs = np.arange(sup_true, dtype=np.int64)[None, :]
+    dis = np.full((out_sz, sup_bucket), _FAR, np.float64)
+    dis[:, :sup_true] = (grid + pad0)[:, None] - (left[:, None] + offs + pad0)
+    wmask = np.zeros((out_sz, sup_bucket), np.float32)
+    wmask[:, :sup_true] = 1.0
+    return idx.astype(np.int32), dis, wmask
+
+
+def support_bucket(sup_true: int, floor: int = 2, cap: int = 64) -> int:
+    """Smallest power of two ≥ ``sup_true`` (≥ ``floor``); raises beyond
+    ``cap`` (cap 64: antialiased downscales to scale 1/32 serve
+    dynamically; smaller scales keep the per-shape path)."""
+    b = floor
+    while b < sup_true:
+        b *= 2
+    if b > cap:
+        raise ValueError(f"support {sup_true} beyond the serving cap {cap}")
+    return b
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizeOperands:
+    """The scale-dependent geometry of dynamic-scale SR serving
+    (``upscale_dynamic``) as data: per axis the left neighbour in a frame
+    padded by a fixed ``pad`` and the float64 distances, two O(out) host
+    passes a request; field for field ``lerf_tpu.ops.geometry.
+    ResizeOperands``, whose program serves any scale at a shape pair.
+
+    :meth:`create` is the upscale form (support 2, ±1 frame).
+    :meth:`create_any` also serves antialiased downscales: the inflated
+    support ``ceil(2 / min_scale)`` rounds up to a power-of-two bucket
+    whose extra slots carry zero weight, the frame pad is ``bucket/2 + 1``
+    and ``aa_scale`` is the kernel scale.  On the CPU the rings resize
+    (``ops.resample.resize_rings``) reads these; on a card K1 takes the
+    true support's rows, columns and distances from them
+    (``kernels.resize.ResizeOperands.from_serving``)."""
+    in_sz: tuple
+    out_sz: tuple
+    support: int         # serving support bucket (2 = upscale deploy form)
+    idx_x: np.ndarray    # [outH] int32 left-neighbour row into ±pad plane
+    idx_y: np.ndarray    # [outW] int32
+    dis_x: np.ndarray    # [outH, S] float64
+    dis_y: np.ndarray    # [outW, S] float64
+    pad: int = 1         # fixed frame pad per side
+    aa_scale: float = 1.0          # min(scale) when antialiasing, else 1
+    wmask_x: np.ndarray = None     # [outH, S] float32 0/1 — AA only
+    wmask_y: np.ndarray = None     # [outW, S]
+
+    @property
+    def true_support(self) -> int:
+        """The support the weights use: the bucket's active slots."""
+        if self.wmask_x is None:
+            return self.support
+        return int(self.wmask_x[0].sum())
+
+    @classmethod
+    def create(cls, in_sz: Sequence[int], scale_factors=None, out_sz=None,
+               support: int = 2):
+        in_sz = tuple(int(s) for s in in_sz)
+        scale, out = resolve_scale_and_out_sz(in_sz, scale_factors, out_sz)
+        if support != 2:
+            raise ValueError("dynamic resize serving is support-2 only")
+        if scale[0] < 1.0 or scale[1] < 1.0:
+            raise ValueError("dynamic resize serving is upscale-only "
+                             "(anti-aliased downscale inflates support; "
+                             "use create_any)")
+        idx_x, dis_x = _resize_serving_axis(in_sz[0], out[0], scale[0],
+                                            support)
+        idx_y, dis_y = _resize_serving_axis(in_sz[1], out[1], scale[1],
+                                            support)
+        return cls(in_sz=in_sz, out_sz=out, support=support,
+                   idx_x=idx_x, idx_y=idx_y, dis_x=dis_x, dis_y=dis_y)
+
+    @classmethod
+    def create_any(cls, in_sz: Sequence[int], scale_factors=None,
+                   out_sz=None, support: int = 2, sup_cap: int = 64):
+        """Any-scale operands: upscales through :meth:`create`; a downscale
+        (or mixed) request through the antialiased support-bucket frame,
+        the support inflated globally by the smaller axis scale
+        (resize_right2d_numpy.py:52-55,186-193)."""
+        in_sz = tuple(int(s) for s in in_sz)
+        scale, out = resolve_scale_and_out_sz(in_sz, scale_factors, out_sz)
+        if support != 2:
+            raise ValueError("dynamic resize serving is support-2 only")
+        if scale[0] >= 1.0 and scale[1] >= 1.0:
+            # the resolved scale, not out / in: out is a ceil
+            return cls.create(in_sz, scale_factors=list(scale), out_sz=out,
+                              support=support)
+        m = min(scale)
+        sup_true = ceil(support / m)
+        bucket = support_bucket(sup_true, floor=2 * support, cap=sup_cap)
+        pad = bucket // 2 + 1
+        idx_x, dis_x, wm_x = _resize_serving_axis_aa(
+            in_sz[0], out[0], scale[0], sup_true, bucket, pad)
+        idx_y, dis_y, wm_y = _resize_serving_axis_aa(
+            in_sz[1], out[1], scale[1], sup_true, bucket, pad)
+        return cls(in_sz=in_sz, out_sz=out, support=bucket,
+                   idx_x=idx_x, idx_y=idx_y, dis_x=dis_x, dis_y=dis_y,
+                   pad=pad, aa_scale=m, wmask_x=wm_x, wmask_y=wm_y)
+
+    def for_bucket(self, in_bucket: Sequence[int], out_bucket: Sequence[int]):
+        """The operands for bucket-shaped frames (``upscale_dynamic`` with
+        ``granularity > 0``): the true geometry, the arrays padded to the
+        out bucket (extra outputs gather plane index 0 at distance 0 and
+        are cropped).  The input needs nothing: the callers zero the
+        feature and re-clamp the codes beyond the valid region, which
+        reproduces the true plane's own ±1 pad rows.  Upscale form only."""
+        if self.aa_scale < 1.0:
+            raise ValueError("bucketed frames are upscale-only")
+        hb, wb = (int(v) for v in in_bucket)
+        ohb, owb = (int(v) for v in out_bucket)
+        if (hb < self.in_sz[0] or wb < self.in_sz[1]
+                or ohb < self.out_sz[0] or owb < self.out_sz[1]):
+            raise ValueError("bucket smaller than the true shapes")
+        padx = (0, ohb - self.out_sz[0])
+        pady = (0, owb - self.out_sz[1])
+        return dataclasses.replace(
+            self,
+            idx_x=np.pad(self.idx_x, padx), idx_y=np.pad(self.idx_y, pady),
+            dis_x=np.pad(self.dis_x, (padx, (0, 0))),
+            dis_y=np.pad(self.dis_y, (pady, (0, 0))))
+
+
 def _warp_grid(matrix: np.ndarray, in_sz, out_sz):
     """Inverse-homography projected grid, float64.
 
@@ -191,30 +370,46 @@ def warp_pads(inv, in_sz, out_sz, support: int = 2):
     return tuple(pads)
 
 
-def warp_operands_plain(inv, in_sz, out_sz):
-    """The support-2 warp geometry K5 derives on the card, from the inverse
-    homography alone, in torch float64 on the CPU: ``(corners, dis, pad)``
-    laid out as ``kernels.warp.WarpOperands`` (int32 [oH·oW, 2] unclipped
-    window corners (row, col) in padded coordinates, float32 [oH·oW, 4]
-    distances (dx0, dx1, dy0, dy1), the leading pads), and equal to
-    ``WarpOperands.create`` of the host :class:`WarpGeometry`.  Each step is
-    the host's: the grid of :func:`_warp_grid`, then per axis ``ceil((g -
-    1) - eps)``, ``+ pad0``, the clip to ``[0, in - 1]``, ``(g + pad0) -
-    fov``, cast to float32 once."""
+def window_corner(fov):
+    """The window corner of a clipped field of view ``[..., S]`` (K5's
+    per-axis left index in padded coordinates): from it, ``clip(corner +
+    s, 0, in - 1)`` gives back the S clipped indices.  The first index
+    where it is above 0, else the last one less ``S - 1`` (-1 for a
+    support-2 pair clipped to (0, 0)).  Works on numpy arrays and
+    tensors."""
+    S = fov.shape[-1]
+    return fov[..., 0] + (fov[..., 0] == 0) * (fov[..., -1] - (S - 1))
+
+
+def warp_operands_plain(inv, in_sz, out_sz, support: int = 2):
+    """The warp geometry K5 derives on the card, from the inverse
+    homography alone, in torch float64 on the CPU: ``(corners, dis, masks,
+    pad)`` laid out as ``kernels.warp.WarpOperands`` (int32 [oH·oW, 2]
+    window corners (row, col) in padded coordinates (:func:`window_corner`),
+    float32 [oH·oW, 2S] distances (dx_0..dx_S-1, dy_0..dy_S-1), uint8
+    [oH·oW, 2S] linear branch bits of the float64 distances, the leading
+    pads), equal to ``WarpOperands.create`` of the host
+    :class:`WarpGeometry`.  Each step is the host's: the grid of
+    :func:`_warp_grid`, then per axis ``ceil((g - S/2) - eps)``, ``+
+    pad0``, the clip to ``[0, in - 1]``, ``(g + pad0) - fov``, cast to
+    float32 once; the masks on the float64 distances."""
     oh, ow = (int(s) for s in out_sz)
     ys = torch.arange(oh, dtype=torch.float64)[:, None]
     xs = torch.arange(ow, dtype=torch.float64)
     grids = _warp_grid_at(inv, ys, xs, in_sz)
-    pad = tuple(p0 for p0, _ in warp_pads(inv, in_sz, out_sz))
+    pad = tuple(p0 for p0, _ in warp_pads(inv, in_sz, out_sz, support))
     corners, dis = [], []
     for grid, n, p0 in zip(grids, in_sz, pad):
-        left = _warp_left(grid, 2) + p0
-        fov = [(left + s).clamp(0, int(n) - 1) for s in (0, 1)]
-        corners.append(torch.where(fov[1] == 0, -1, fov[0]))
-        shifted = grid + p0
-        dis += [shifted - f for f in fov]
+        left = _warp_left(grid, support) + p0
+        fov = torch.stack([(left + s).clamp(0, int(n) - 1)
+                           for s in range(support)], -1)
+        corners.append(window_corner(fov))
+        dis.append((grid + p0)[..., None] - fov)
+    dis64 = torch.cat(dis, -1).reshape(-1, 2 * support)
+    neg = ((-1.0 <= dis64) & (dis64 < 0.0)).to(torch.uint8)
+    pos = ((0.0 <= dis64) & (dis64 <= 1.0)).to(torch.uint8)
     return (torch.stack(corners, -1).reshape(-1, 2).to(torch.int32),
-            torch.stack(dis, -1).reshape(-1, 4).to(torch.float32), pad)
+            dis64.to(torch.float32), neg | (pos << 1), pad)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
-* K1 ``resize.steering_resize`` — ``csrc/steering_resize.cu``
+* K1 ``resize.steering_resize`` (and ``steering_resize_serving``, the
+  same kernel on the serving geometry) — ``csrc/steering_resize.cu``
 * K2 ``lut_stage.lut_stage`` — ``csrc/lut_stage.cu``
 * K3 ``srnet_ensemble.ensemble_sum`` — ``csrc/srnet_ensemble.cu``
 * K4 ``srnet_ensemble_int8.ensemble_sum_int8`` —

@@ -96,8 +96,10 @@ def _declare(lib):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lerf_steering_resize.argtypes = [
         vp, vp, vp, vp, vp, vp, vp,          # img, codes, out, rows, cols, dx, dy
+        vp, vp,                              # mask_x, mask_y (linear mode)
         i32, i32, i32, i32, i32, i32,        # C, H, W, OH, OW, S
-        i32, f32, f32, f32,                  # antialias, min_scale, max_sigma, norm
+        i32, i32, f32, f32, f32,             # antialias, linear, min_scale,
+                                             # max_sigma, norm
         i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
         vp]                                  # stream
     lib.lerf_steering_resize.restype = i32
@@ -105,12 +107,13 @@ def _declare(lib):
     lib.lerf_steering_warp.argtypes = [
         vp, vp, vp, f64p,                    # img, codes, out, inv (host)
         i32, i32, i32, i32, i32, i32, i32,   # C, H, W, OH, OW, pad_r, pad_c
+        i32, i32,                            # support, linear
         f32, f32, i32,                       # max_sigma, norm, u8
         vp]                                  # stream
     lib.lerf_steering_warp.restype = i32
     lib.lerf_warp_geometry.argtypes = [
-        vp, vp, f64p,                        # corners, dis, inv (host)
-        i32, i32, i32, i32, i32, i32,        # H, W, OH, OW, pad_r, pad_c
+        vp, vp, vp, f64p,                    # corners, dis, masks, inv (host)
+        i32, i32, i32, i32, i32, i32, i32,   # H, W, OH, OW, pad_r, pad_c, S
         vp]                                  # stream
     lib.lerf_warp_geometry.restype = i32
     lib.lerf_lut_stage.argtypes = [

@@ -1,11 +1,18 @@
-"""K1 wrapper: steerable-Gaussian resize from the stage outputs.
+"""K1 wrapper: steerable resize from the stage outputs.
 
 ``steering_resize`` runs the plain twin
-(:func:`lerf_torch.ops.resample.steering_resize_codes_plain`, then
-:func:`~lerf_torch.ops.resample.quantize_device` for uint8) for CPU tensors
-and launches ``csrc/steering_resize.cu`` for CUDA tensors; it never falls
-back from the card to the plain version.  ``launches`` counts kernel
-launches.
+(:func:`lerf_torch.ops.resample.steering_resize_codes_plain`, or in the
+amplified-linear mode :func:`~lerf_torch.ops.resample.linear_resize_codes_plain`,
+then :func:`~lerf_torch.ops.resample.quantize_device` for uint8) for CPU
+tensors and launches ``csrc/steering_resize.cu`` for CUDA tensors; it never
+falls back from the card to the plain version.  ``steering_resize_serving``
+is the same kernel on the dynamic-scale serving geometry
+(:class:`lerf_torch.ops.geometry.ResizeOperands`), whose plain form is the
+rings resize.  ``launches`` counts kernel launches.
+
+The mode follows the hyper codes: the steerable Gaussian (LeRF-G) takes
+three codes a pixel (ρ, σx, σy), the amplified-linear kernel (LeRF-L,
+``linear=True``) one (α).
 """
 from __future__ import annotations
 
@@ -14,8 +21,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..geometry import ResizeGeometry
-from ..resample import quantize_device, steering_resize_codes_plain
+from .. import geometry as geo
+from ..resample import (branch_bits, linear_resize_codes_plain,
+                        quantize_device, resize_codes_rings_plain,
+                        resize_rings, steering_resize_codes_plain)
 from . import _build
 
 launches = 0
@@ -27,6 +36,7 @@ launches = 0
 TILES = ((16, 32), (8, 32), (4, 32), (4, 16), (2, 16), (2, 8), (1, 8),
          (1, 4), (1, 1))
 WINDOW_BYTES = 16                  # float4 {feature, 2 rho, sx, sy}
+LINEAR_WINDOW_BYTES = 8            # float2 {feature, alpha}
 BLOCK_SMEM_MAX = 232448            # H100: the opt-in limit of one block
 SM_SMEM = 233472                   # H100: shared memory of one SM
 SM_THREADS = 2048
@@ -40,7 +50,8 @@ def _window_span(fov: np.ndarray, tile: int) -> int:
     return int((fov[ends, -1] - fov[starts, 0]).max()) + 1
 
 
-def pick_tile(rows: np.ndarray, cols: np.ndarray):
+def pick_tile(rows: np.ndarray, cols: np.ndarray,
+              entry_bytes: int = WINDOW_BYTES):
     """(tile_h, tile_w, window rows, window cols) for K1.  Of the tiles
     whose whole source window fits one block's shared memory, the one that
     keeps the most threads resident on an SM, then the largest.  Where none
@@ -54,7 +65,7 @@ def pick_tile(rows: np.ndarray, cols: np.ndarray):
     best = strips = None
     for th, tw in TILES:
         wr, wc = _window_span(rows, th), _window_span(cols, tw)
-        row_bytes = wc * WINDOW_BYTES
+        row_bytes = wc * entry_bytes
         if wr * row_bytes > BLOCK_SMEM_MAX:
             if strips is None and row_bytes <= BLOCK_SMEM_MAX:
                 strips = (th, tw, BLOCK_SMEM_MAX // row_bytes, wc)
@@ -74,78 +85,198 @@ def pick_tile(rows: np.ndarray, cols: np.ndarray):
 
 
 class ResizeOperands(NamedTuple):
-    """One geometry's field of view on the device: source rows/cols in
-    unpadded coordinates (int32, may fall outside the image — the kernel
-    maps the pads), the distances cast float64 → float32, and on a card
-    K1's tile with its source window (:func:`pick_tile`)."""
+    """One geometry's field of view on the device, in one mode: source
+    rows / cols in unpadded coordinates (int32, may fall outside the image
+    — the kernel maps the pads), and on a card K1's tile with its source
+    window (:func:`pick_tile`).  The Gaussian mode takes the distances
+    cast float64 → float32 (``dis_*``; K1 scales them by ``min_scale``
+    itself on an antialiased downscale, as the JAX path does); the linear
+    mode takes ``lin_*`` = float32(``min_scale``·dis) scaled in float64,
+    with the branch masks of those float64 values (``mask_*``, bit 0
+    negative, bit 1 positive, :func:`~lerf_torch.ops.resample.branch_bits`).
+    ``in_sz`` is the frame K1 reads (a bucket frame may hold the image and
+    its pad rows); ``out_sz``, ``support``, ``antialias`` and
+    ``min_scale`` are the geometry's."""
     rows: torch.Tensor     # [OH, S]
     cols: torch.Tensor     # [OW, S]
-    dis_x: torch.Tensor    # [OH, S]
-    dis_y: torch.Tensor    # [OW, S]
+    dis_x: Optional[torch.Tensor]    # [OH, S] Gaussian mode
+    dis_y: Optional[torch.Tensor]    # [OW, S]
+    lin_x: Optional[torch.Tensor]    # [OH, S] linear mode
+    lin_y: Optional[torch.Tensor]    # [OW, S]
+    mask_x: Optional[torch.Tensor]   # [OH, S] uint8, linear mode
+    mask_y: Optional[torch.Tensor]   # [OW, S]
     tile: Optional[tuple]  # (tile_h, tile_w, window rows, window cols)
+    in_sz: tuple
+    out_sz: tuple
+    support: int
+    antialias: bool
+    min_scale: float
+    linear: bool
 
     @classmethod
-    def create(cls, geom: ResizeGeometry, device):
+    def create(cls, geom: geo.ResizeGeometry, device, linear: bool = False):
+        """From a static :class:`~lerf_torch.ops.geometry.ResizeGeometry`."""
+        return cls._from_axes(
+            geom.fov_x.astype(np.int64) - geom.pad_x[0],
+            geom.fov_y.astype(np.int64) - geom.pad_y[0], geom.dis_x,
+            geom.dis_y, in_sz=tuple(geom.in_sz), out_sz=tuple(geom.out_sz),
+            antialias=geom.antialias, min_scale=geom.min_scale,
+            linear=linear, device=device)
+
+    @classmethod
+    def from_serving(cls, ops: geo.ResizeOperands, device,
+                     linear: bool = False, frame=None):
+        """From the serving geometry: its true support only (a support
+        bucket's extra slots carry zero weight, and adding zeros changes no
+        sum), rows and columns moved from the ±pad frame to unpadded
+        coordinates — the static geometry's own operands.  ``frame``: the
+        (bucket) frame K1 reads, when larger than the image."""
+        s = ops.true_support
+        offs = np.arange(s, dtype=np.int64)[None, :]
+        return cls._from_axes(
+            ops.idx_x.astype(np.int64)[:, None] + offs - ops.pad,
+            ops.idx_y.astype(np.int64)[:, None] + offs - ops.pad,
+            ops.dis_x[:, :s], ops.dis_y[:, :s],
+            in_sz=tuple(frame or ops.in_sz), out_sz=tuple(ops.out_sz),
+            antialias=ops.aa_scale < 1.0, min_scale=ops.aa_scale,
+            linear=linear, device=device)
+
+    @classmethod
+    def _from_axes(cls, rows, cols, dis_x, dis_y, *, in_sz, out_sz,
+                   antialias, min_scale, linear, device):
         def up(a, dt):
             return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
 
-        rows = geom.fov_x.astype(np.int64) - geom.pad_x[0]
-        cols = geom.fov_y.astype(np.int64) - geom.pad_y[0]
-        tile = (pick_tile(rows, cols) if torch.device(device).type == "cuda"
-                else None)
+        gauss = lin = (None, None, None, None)
+        if linear:
+            m64 = min_scale if antialias else 1.0
+            lx, ly = m64 * dis_x, m64 * dis_y          # float64
+            lin = (up(lx, np.float32), up(ly, np.float32),
+                   up(branch_bits(lx), np.uint8), up(branch_bits(ly), np.uint8))
+        else:
+            gauss = (up(dis_x, np.float32), up(dis_y, np.float32))
+        tile = (pick_tile(rows, cols, LINEAR_WINDOW_BYTES if linear
+                          else WINDOW_BYTES)
+                if torch.device(device).type == "cuda" else None)
         return cls(rows=up(rows, np.int32), cols=up(cols, np.int32),
-                   dis_x=up(geom.dis_x, np.float32),
-                   dis_y=up(geom.dis_y, np.float32), tile=tile)
+                   dis_x=gauss[0], dis_y=gauss[1], lin_x=lin[0],
+                   lin_y=lin[1], mask_x=lin[2], mask_y=lin[3], tile=tile,
+                   in_sz=tuple(in_sz), out_sz=tuple(out_sz),
+                   support=int(rows.shape[1]), antialias=bool(antialias),
+                   min_scale=float(min_scale), linear=bool(linear))
+
+
+def _check(feat, codes, norm, linear, out_dtype, what):
+    if out_dtype not in (torch.float32, torch.uint8):
+        raise ValueError(f"{what}: out_dtype {out_dtype} is not float32 or "
+                         "uint8")
+    if out_dtype == torch.uint8 and not norm <= 255:
+        raise ValueError(f"{what}: uint8 output needs norm <= 255, not "
+                         f"{norm}")
+    C, H, W = feat.shape
+    oc = 1 if linear else 3
+    if (feat.dtype != torch.int32 or codes.dtype != torch.int32
+            or codes.shape != (C, H, W, oc) or codes.device != feat.device):
+        raise ValueError(f"{what}: feat int32 [C,H,W] and codes int32 "
+                         f"[C,H,W,{oc}] ({'linear' if linear else 'Gaussian'}"
+                         " mode) on one device")
+
+
+def _finish(out, norm, linear, out_dtype):
+    """The plain form of K1's epilogue: the linear mode maps a 0/0 window
+    (NaN) to 0 before the cast, as the kernel does."""
+    return quantize_device(out, norm, nan_to_zero=linear) \
+        if out_dtype == torch.uint8 else out
 
 
 def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
-                    geom: ResizeGeometry, *, max_sigma: float = 10.0,
-                    norm: int = 255, operands: ResizeOperands = None,
+                    geom: Optional[geo.ResizeGeometry] = None, *,
+                    max_sigma: float = 10.0, norm: int = 255,
+                    linear: bool = False,
+                    operands: ResizeOperands = None,
                     out_dtype: torch.dtype = torch.float32):
-    """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] → [C, OH,
-    OW]: float32, or with ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the
-    frame rounded half to even, clipped to 0..norm and cast, as
-    :func:`~lerf_torch.ops.resample.quantize_device` does.  ``operands``:
-    the geometry already on the device (the predictor keeps one per shape);
-    made here when not given."""
-    if out_dtype not in (torch.float32, torch.uint8):
-        raise ValueError(f"steering_resize: out_dtype {out_dtype} is not "
-                         "float32 or uint8")
-    if out_dtype == torch.uint8 and not norm <= 255:
-        raise ValueError(f"steering_resize: uint8 output needs norm <= 255, "
-                         f"not {norm}")
+    """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] (Gaussian)
+    or [C, H, W, 1] (``linear``) → [C, OH, OW]: float32, or with
+    ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the frame rounded half to
+    even, clipped to 0..norm and cast, as
+    :func:`~lerf_torch.ops.resample.quantize_device` does.  ``geom``: the
+    static geometry (the CPU twin's input); ``operands``: the geometry
+    already on the card (a predictor keeps one per shape), made from
+    ``geom`` when not given."""
+    _check(feat, codes, norm, linear, out_dtype, "steering_resize")
     if feat.device.type == "cpu":
-        out = steering_resize_codes_plain(feat, codes, geom,
-                                          max_sigma=max_sigma, norm=norm)
-        return quantize_device(out, norm) if out_dtype == torch.uint8 \
-            else out
-    global launches
+        out = (linear_resize_codes_plain(feat, codes, geom, norm=norm)
+               if linear else steering_resize_codes_plain(
+                   feat, codes, geom, max_sigma=max_sigma, norm=norm))
+        return _finish(out, norm, linear, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError(f"steering_resize: unsupported device {feat.device}")
-    C, H, W = feat.shape
-    if (feat.dtype != torch.int32 or codes.dtype != torch.int32
-            or codes.shape != (C, H, W, 3) or codes.device != feat.device):
-        raise ValueError("steering_resize: feat int32 [C,H,W] and codes "
-                         "int32 [C,H,W,3] on one device")
-    if tuple(geom.in_sz) != (H, W):
-        raise ValueError(f"geometry is for {geom.in_sz}, image is {(H, W)}")
     if operands is None:
-        operands = ResizeOperands.create(geom, feat.device)
+        operands = ResizeOperands.create(geom, feat.device, linear=linear)
+    return _launch(feat, codes, operands, max_sigma=max_sigma, norm=norm,
+                   linear=linear, out_dtype=out_dtype)
+
+
+def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
+                            ops: geo.ResizeOperands, *, out_frame=None,
+                            max_sigma: float = 10.0, norm: int = 255,
+                            linear: bool = False,
+                            out_dtype: torch.dtype = torch.float32):
+    """The resize of ``upscale_dynamic``: the stage outputs of a frame
+    ``[C, H, W]`` — the image, or a bucket holding it, zero feature and
+    re-clamped codes beyond it — resized through the serving geometry
+    ``ops`` → [C, OH, OW] of the true output.  CPU tensors take the plain
+    rings resize (``ops.for_bucket(frame, out_frame)`` on a bucket, as
+    lerf_tpu's program does, then cropped); CUDA tensors K1 on
+    :meth:`ResizeOperands.from_serving`."""
+    _check(feat, codes, norm, linear, out_dtype, "steering_resize_serving")
+    frame = tuple(feat.shape[1:])
+    oh, ow = ops.out_sz
+    if feat.device.type == "cpu":
+        o = ops if frame == tuple(ops.in_sz) else \
+            ops.for_bucket(frame, out_frame or ops.out_sz)
+        out = resize_codes_rings_plain(
+            feat, codes, resize_rings(o, linear=linear), linear=linear,
+            max_sigma=max_sigma, norm=norm, pad=o.pad)
+        return _finish(out[:, :oh, :ow].contiguous(), norm, linear, out_dtype)
+    if feat.device.type != "cuda":
+        raise ValueError("steering_resize_serving: unsupported device "
+                         f"{feat.device}")
+    operands = ResizeOperands.from_serving(ops, feat.device, linear=linear,
+                                           frame=frame)
+    return _launch(feat, codes, operands, max_sigma=max_sigma, norm=norm,
+                   linear=linear, out_dtype=out_dtype)
+
+
+def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
+            linear, out_dtype):
+    global launches
+    C, H, W = feat.shape
+    if operands.in_sz != (H, W):
+        raise ValueError(f"geometry is for {operands.in_sz}, image is "
+                         f"{(H, W)}")
     if operands.tile is None or operands.rows.device != feat.device:
         raise ValueError("steering_resize: operands made for another device")
+    if operands.linear != linear:
+        raise ValueError("steering_resize: operands made for the other mode")
     feat, codes = feat.contiguous(), codes.contiguous()
-    OH, OW = geom.out_sz
+    OH, OW = operands.out_sz
     out = torch.empty((C, OH, OW), dtype=out_dtype, device=feat.device)
+    dis = ((operands.lin_x, operands.lin_y) if linear
+           else (operands.dis_x, operands.dis_y))
+    masks = ((operands.mask_x.data_ptr(), operands.mask_y.data_ptr())
+             if linear else (None, None))
     lib = _build.library()
     with torch.cuda.device(feat.device):    # launch on the tensors' card
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_steering_resize(
             feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
             operands.rows.data_ptr(), operands.cols.data_ptr(),
-            operands.dis_x.data_ptr(), operands.dis_y.data_ptr(),
-            C, H, W, OH, OW, geom.support, int(geom.antialias),
-            float(geom.min_scale), float(max_sigma), float(norm),
-            *operands.tile, int(out_dtype == torch.uint8), stream)
+            dis[0].data_ptr(), dis[1].data_ptr(), *masks,
+            C, H, W, OH, OW, operands.support, int(operands.antialias),
+            int(linear), float(operands.min_scale), float(max_sigma),
+            float(norm), *operands.tile,
+            int(out_dtype == torch.uint8), stream)
     _build.check(err, "steering_resize launch")
     launches += 1
     return out

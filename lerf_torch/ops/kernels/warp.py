@@ -1,19 +1,20 @@
-"""K5 wrapper: steerable-Gaussian homographic warp from the stage outputs.
+"""K5 wrapper: steerable homographic warp from the stage outputs.
 
 ``steering_warp`` runs the plain twin
-(:func:`lerf_torch.ops.resample.steering_warp_codes_plain`, then
-:func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero`` for
-uint8) for CPU tensors and launches ``csrc/steering_warp.cu`` for CUDA
+(:func:`lerf_torch.ops.resample.steering_warp_codes_plain`, or in the
+amplified-linear mode :func:`~lerf_torch.ops.resample.linear_warp_codes_plain`,
+then :func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero``
+for uint8) for CPU tensors and launches ``csrc/steering_warp.cu`` for CUDA
 tensors; it never falls back from the card to the plain version.
 ``launches`` counts kernel launches.
 
 On the card K5 takes the homography itself, as :class:`WarpParams` (the
-float64 inverse matrix, the two leading pads and the sizes), and derives
-each output's window on the card in float64, bit-equal to the host
-geometry.  :class:`WarpOperands` is that geometry in the host's per-pixel
-form (:func:`lerf_torch.ops.geometry.warp_operands_plain` computes the
-same); :func:`warp_geometry` writes it from the card's derivation, for the
-checks.
+float64 inverse matrix, the two leading pads, the support and the sizes),
+and derives each output's window on the card in float64, bit-equal to the
+host geometry, the linear mode's branch masks included.
+:class:`WarpOperands` is that geometry in the host's per-pixel form
+(:func:`lerf_torch.ops.geometry.warp_operands_plain` computes the same);
+:func:`warp_geometry` writes it from the card's derivation, for the checks.
 """
 from __future__ import annotations
 
@@ -23,82 +24,90 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..geometry import WarpGeometry, warp_pads
-from ..resample import (_unclipped_corner, quantize_device,
-                        steering_warp_codes_plain)
+from ..geometry import WarpGeometry, warp_pads, window_corner
+from ..resample import (branch_bits, linear_warp_codes_plain,
+                        quantize_device, steering_warp_codes_plain)
 from . import _build
 
 launches = 0
 
-# K5's blocks: TILE output rows × columns, and the float4 entries
-# (footprint rows × columns × C) a block decodes into shared memory; a
-# block whose footprint needs more takes the kernel's direct path.  Kept
-# equal to kTileH, kTileW and kTileEntries of csrc/steering_warp.cu.
+# K5's blocks: TILE output rows × columns, and the tile entries (footprint
+# rows × columns × C) a block decodes into shared memory; a block whose
+# footprint needs more takes the kernel's direct path.  Kept equal to
+# kTileH, kTileW and kTileEntries of csrc/steering_warp.cu.
 TILE = (16, 32)
 TILE_ENTRIES = 2048
 
 
 class WarpParams(NamedTuple):
-    """One support-2 warp as K5 takes it: the homography ``matrix`` and
-    its float64 inverse ``inv`` (``np.linalg.inv``, as the host geometry
-    makes it), the leading pads ``(pad_x[0], pad_y[0])`` of the host
-    geometry (:func:`~lerf_torch.ops.geometry.warp_pads`) and the sizes."""
+    """One warp as K5 takes it: the homography ``matrix`` and its float64
+    inverse ``inv`` (``np.linalg.inv``, as the host geometry makes it), the
+    leading pads ``(pad_x[0], pad_y[0])`` of the host geometry
+    (:func:`~lerf_torch.ops.geometry.warp_pads`), the sizes and the
+    support."""
     matrix: Tuple[float, ...]   # 9, row-major
     inv: Tuple[float, ...]      # 9, row-major
     pad: Tuple[int, int]
     in_sz: Tuple[int, int]
     out_sz: Tuple[int, int]
+    support: int = 2
 
     @classmethod
-    def create(cls, in_sz, matrix, out_sz):
+    def create(cls, in_sz, matrix, out_sz, support: int = 2):
         in_sz = tuple(int(s) for s in in_sz)
         out_sz = tuple(int(s) for s in out_sz)
         matrix = np.asarray(matrix, dtype=np.float64).reshape(3, 3)
         inv = np.linalg.inv(matrix)
-        (px, _), (py, _) = warp_pads(inv, in_sz, out_sz)
+        (px, _), (py, _) = warp_pads(inv, in_sz, out_sz, support)
         return cls(matrix=tuple(map(float, matrix.ravel())),
                    inv=tuple(map(float, inv.ravel())), pad=(px, py),
-                   in_sz=in_sz, out_sz=out_sz)
+                   in_sz=in_sz, out_sz=out_sz, support=int(support))
 
     def geometry(self) -> WarpGeometry:
         """The host geometry of the same warp (the plain twin's input)."""
         return WarpGeometry.create(self.in_sz,
                                    np.asarray(self.matrix).reshape(3, 3),
-                                   self.out_sz)
+                                   self.out_sz, support=self.support)
 
 
 class WarpOperands(NamedTuple):
-    """One support-2 warp geometry in the host's per-pixel form, per output
-    pixel n (row-major over [oH, oW]): the unclipped top-left corner of its
-    2×2 window in padded coordinates, from which the two rows and the two
-    columns clip into [0, in-1] as the geometry does, and the four
-    distances cast float64 → float32 once.  24 bytes a pixel."""
+    """One warp geometry in the host's per-pixel form, per output pixel n
+    (row-major over [oH, oW]): the corner of its S×S window in padded
+    coordinates (:func:`~lerf_torch.ops.geometry.window_corner`), from
+    which the S rows and the S columns clip into [0, in-1] as the geometry
+    does, the 2S distances cast float64 → float32 once, and the linear
+    kernel's branch bits of the float64 distances (bit 0 negative, bit 1
+    positive)."""
     corners: torch.Tensor  # [N, 2] int32 (row, col), padded coordinates
-    dis: torch.Tensor      # [N, 4] float32 (dx0, dx1, dy0, dy1)
+    dis: torch.Tensor      # [N, 2S] float32 (dx_0..dx_S-1, dy_0..dy_S-1)
+    masks: torch.Tensor    # [N, 2S] uint8, the same order
     pad: tuple             # (pad_x[0], pad_y[0]): padded → source index
 
     @classmethod
     def create(cls, geom: WarpGeometry, device):
-        if geom.support != 2:
-            raise ValueError("K5 takes support-2 warp geometries")
-        corners = np.stack([_unclipped_corner(geom.fov_x),
-                            _unclipped_corner(geom.fov_y)], -1)
+        corners = np.stack([window_corner(geom.fov_x.astype(np.int64)),
+                            window_corner(geom.fov_y.astype(np.int64))], -1)
         dis = np.concatenate([geom.dis_x, geom.dis_y], -1)
-        return cls(
-            corners=torch.from_numpy(np.ascontiguousarray(
-                corners.reshape(-1, 2), np.int32)).to(device),
-            dis=torch.from_numpy(np.ascontiguousarray(
-                dis.reshape(-1, 4), np.float32)).to(device),
-            pad=(int(geom.pad_x[0]), int(geom.pad_y[0])))
+        n = 2 * geom.support
+
+        def up(a, dt):
+            return torch.from_numpy(np.ascontiguousarray(
+                a.reshape(-1, a.shape[-1]), dt)).to(device)
+
+        return cls(corners=up(corners, np.int32),
+                   dis=up(dis.reshape(-1, n), np.float32),
+                   masks=up(branch_bits(dis).reshape(-1, n), np.uint8),
+                   pad=(int(geom.pad_x[0]), int(geom.pad_y[0])))
 
 
 def footprint_entries(operands: WarpOperands, in_sz, out_sz,
                       channels: int) -> np.ndarray:
-    """[blocks_y, blocks_x] int64: the shared-memory float4 entries each K5
+    """[blocks_y, blocks_x] int64: the shared-memory tile entries each K5
     block's footprint needs (the rectangle of padded rows × columns its
     outputs' windows read, × ``channels``), from the per-pixel operands;
     a block above :data:`TILE_ENTRIES` takes the kernel's direct path."""
     oh, ow = out_sz
+    support = operands.dis.shape[1] // 2
     corners = operands.corners.cpu().numpy().astype(np.int64)
     corners = corners.reshape(oh, ow, 2)
     th, tw = TILE
@@ -108,7 +117,7 @@ def footprint_entries(operands: WarpOperands, in_sz, out_sz,
     hi = np.full((by * th, bx * tw, 2), np.iinfo(np.int64).min)
     for k, n in enumerate(in_sz):
         lo[:oh, :ow, k] = np.clip(corners[..., k], 0, n - 1)
-        hi[:oh, :ow, k] = np.clip(corners[..., k] + 1, 0, n - 1)
+        hi[:oh, :ow, k] = np.clip(corners[..., k] + support - 1, 0, n - 1)
     lo = lo.reshape(by, th, bx, tw, 2).min(axis=(1, 3))
     hi = hi.reshape(by, th, bx, tw, 2).max(axis=(1, 3))
     span = hi - lo + 1
@@ -128,29 +137,34 @@ def warp_geometry(params: WarpParams, device) -> WarpOperands:
         raise ValueError(f"warp_geometry: the card's geometry needs a CUDA "
                          f"device, not {device}")
     (H, W), (OH, OW) = params.in_sz, params.out_sz
+    n = 2 * params.support
     corners = torch.empty((OH * OW, 2), dtype=torch.int32, device=device)
-    dis = torch.empty((OH * OW, 4), dtype=torch.float32, device=device)
+    dis = torch.empty((OH * OW, n), dtype=torch.float32, device=device)
+    masks = torch.empty((OH * OW, n), dtype=torch.uint8, device=device)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_warp_geometry(
-            corners.data_ptr(), dis.data_ptr(), _inv_array(params), H, W,
-            OH, OW, *params.pad, stream)
+            corners.data_ptr(), dis.data_ptr(), masks.data_ptr(),
+            _inv_array(params), H, W, OH, OW, *params.pad, params.support,
+            stream)
     _build.check(err, "warp_geometry launch")
-    return WarpOperands(corners=corners, dis=dis, pad=tuple(params.pad))
+    return WarpOperands(corners=corners, dis=dis, masks=masks,
+                        pad=tuple(params.pad))
 
 
 def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                   max_sigma: float = 10.0, norm: int = 255,
+                  linear: bool = False,
                   out_dtype: torch.dtype = torch.float32):
-    """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] → [C, oH,
-    oW]: float32 (NaN where a window's weights all vanish), or with
-    ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the frame with NaN → 0,
-    rounded half to even, clipped to 0..norm and cast, as
-    :func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero``
-    does.  ``warp``: :class:`WarpParams` (the card takes nothing else; the
-    CPU twin makes its host geometry from it), or for CPU tensors a
-    support-2 :class:`~lerf_torch.ops.geometry.WarpGeometry`."""
+    """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] (Gaussian)
+    or [C, H, W, 1] (``linear``) → [C, oH, oW]: float32 (NaN where a
+    window's weights all vanish), or with ``out_dtype=torch.uint8``
+    (``norm`` ≤ 255) the frame with NaN → 0, rounded half to even, clipped
+    to 0..norm and cast, as :func:`~lerf_torch.ops.resample.quantize_device`
+    with ``nan_to_zero`` does.  ``warp``: :class:`WarpParams` (the card
+    takes nothing else; the CPU twin makes its host geometry from it), or
+    for CPU tensors a :class:`~lerf_torch.ops.geometry.WarpGeometry`."""
     if out_dtype not in (torch.float32, torch.uint8):
         raise ValueError(f"steering_warp: out_dtype {out_dtype} is not "
                          "float32 or uint8")
@@ -158,16 +172,22 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
         raise ValueError(f"steering_warp: uint8 output needs norm <= 255, "
                          f"not {norm}")
     C, H, W = feat.shape
+    oc = 1 if linear else 3
     if (feat.dtype != torch.int32 or codes.dtype != torch.int32
-            or codes.shape != (C, H, W, 3) or codes.device != feat.device):
-        raise ValueError("steering_warp: feat int32 [C,H,W] and codes "
-                         "int32 [C,H,W,3] on one device")
+            or codes.shape != (C, H, W, oc) or codes.device != feat.device):
+        raise ValueError(f"steering_warp: feat int32 [C,H,W] and codes "
+                         f"int32 [C,H,W,{oc}] "
+                         f"({'linear' if linear else 'Gaussian'} mode) on "
+                         "one device")
     if tuple(warp.in_sz) != (H, W):
         raise ValueError(f"geometry is for {warp.in_sz}, image is {(H, W)}")
     if feat.device.type == "cpu":
         geom = warp.geometry() if isinstance(warp, WarpParams) else warp
-        out = steering_warp_codes_plain(feat, codes, geom,
-                                        max_sigma=max_sigma, norm=norm)
+        if linear:
+            out = linear_warp_codes_plain(feat, codes, geom, norm=norm)
+        else:
+            out = steering_warp_codes_plain(feat, codes, geom,
+                                            max_sigma=max_sigma, norm=norm)
         return quantize_device(out, norm, nan_to_zero=True) \
             if out_dtype == torch.uint8 else out
     global launches
@@ -184,8 +204,9 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_steering_warp(
             feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
-            _inv_array(warp), C, H, W, OH, OW, *warp.pad, float(max_sigma),
-            float(norm), int(out_dtype == torch.uint8), stream)
+            _inv_array(warp), C, H, W, OH, OW, *warp.pad, warp.support,
+            int(linear), float(max_sigma), float(norm),
+            int(out_dtype == torch.uint8), stream)
     _build.check(err, "steering_warp launch")
     launches += 1
     return out

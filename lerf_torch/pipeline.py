@@ -1,20 +1,26 @@
 """LeRF deploy pipelines: stages → hyper codes → steerable resize or warp.
 
-The port of ``lerf_tpu.pipeline``'s two predictors, SR and static warp:
+The port of ``lerf_tpu.pipeline``'s two predictors, SR (static, bucketed,
+dynamic-scale and batched) and the static warp, in both kernels: the
+steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
+``linear=True``, the amplified-linear kernel (LeRF-L, one code):
 
-* :class:`LutPredictor` (``pipeline.py:41-66,855-1017,1219-1278``), the
-  LUT form: on a CUDA device a frame runs as two K2 launches (stage 1,
-  stage 2) and one K1 launch (``upscale``) or one K5 launch (``warp``),
-  which writes the uint8 frame itself.
-* :class:`NetPredictor` (``pipeline.py:194-398,563-601``), the micro-net
-  (SRNet) form: two K3 launches (or K4 with ``backend="pallas_int8"``),
-  the stage epilogues and one K1 or K5 launch.
+* :class:`LutPredictor` (``pipeline.py:114-191,855-1278``), the LUT form:
+  on a CUDA device a frame runs as two K2 launches (stage 1, stage 2) and
+  one K1 launch (every SR form) or one K5 launch (``warp``), which writes
+  the uint8 frame itself.
+* :class:`NetPredictor` (``pipeline.py:194-601``), the micro-net (SRNet)
+  form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
+  epilogues and one K1 or K5 launch.
 
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
 device copy of each shape's resize geometry, and for a few homographies
 the warp's parameters (on a card) or host geometry (on the CPU) and its
-validity mask.
+validity mask.  The bucketed and dynamic SR forms keep lerf_tpu's
+construction (a bucket frame, stages re-clamped, the serving geometry)
+and its results, bit-equal to ``upscale``; ``upscale_batch`` folds the
+batch into the channel axis, so a batch is one launch of each kernel.
 """
 from __future__ import annotations
 
@@ -27,8 +33,8 @@ import torch
 from .device import resolve_device
 from .lut.io import LUTBank
 from .models import srnet
-from .ops.geometry import ResizeGeometry, WarpGeometry
-from .ops.kernels.resize import ResizeOperands, steering_resize
+from .ops import geometry as geo
+from .ops.kernels import resize as k1
 from .ops.kernels.warp import WarpParams, steering_warp
 from .ops.lut_pipeline import (FlatTables, divide_exact, lut_stage1,
                                lut_stage1_intermediate, lut_stage2)
@@ -57,22 +63,97 @@ def _quantize_host(arr, norm):
     return np.clip(np.round(a), 0, norm).astype(np.uint8)
 
 
+def _rgb_hwc(img_hwc) -> np.ndarray:
+    """An [H,W,C] image, a gray [H,W] one as three channels."""
+    img = np.asarray(img_hwc)
+    return np.stack([img] * 3, axis=-1) if img.ndim == 2 else img
+
+
 def _rgb_chw(img_hwc) -> np.ndarray:
     """An [H,W,C] image (or a gray [H,W] one, as three channels) →
     contiguous [C,H,W]."""
-    img = np.asarray(img_hwc)
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    return np.ascontiguousarray(img.transpose(2, 0, 1))
+    return np.ascontiguousarray(_rgb_hwc(img_hwc).transpose(2, 0, 1))
 
 
-def _lut_input(img_hwc) -> np.ndarray:
-    """The LUT form's int32 [C,H,W] input; the stages index the LUT
-    lattice with the raw 8-bit values, so they must lie in 0..255."""
-    chw = _rgb_chw(img_hwc).astype(np.int32)
-    if chw.size and (chw.min() < 0 or chw.max() > 255):
-        raise ValueError("image values must lie in 0..255")
-    return chw
+def _clamp_valid(t: torch.Tensor, h_ax: int, w_ax: int, clamp_hw):
+    """Re-clamp rows / cols beyond the valid (h, w) region to the last
+    valid index (``lerf_tpu.pipeline._clamp_valid``): on a bucket-padded
+    tensor this reproduces the replicate-padding values the unpadded
+    program's next stage would see.  A torch index op on the tensor's
+    device."""
+    if clamp_hw is None:
+        return t
+    h, w = clamp_hw
+    rows = torch.arange(t.shape[h_ax], device=t.device).clamp_(max=h - 1)
+    cols = torch.arange(t.shape[w_ax], device=t.device).clamp_(max=w - 1)
+    return t.index_select(h_ax, rows).index_select(w_ax, cols)
+
+
+def _zero_beyond(feat: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The feature with rows / cols beyond (h, w) zeroed: the resample
+    constant-pads the image but edge-pads the hyper maps, so on a bucket
+    frame the feature there must be the true frame's zero pad while the
+    codes stay re-clamped."""
+    valid = ((torch.arange(feat.shape[-2], device=feat.device) < h)[:, None]
+             & (torch.arange(feat.shape[-1], device=feat.device) < w)[None])
+    return torch.where(valid, feat, torch.zeros_like(feat))
+
+
+def _bucket_prep(img_hwc, scale_h, scale_w, granularity):
+    """Host prep of ``upscale_bucketed`` (``lerf_tpu.pipeline._bucket_prep``):
+    ``(padded_hwc, (hb, wb), (h, w))``, the image edge-padded to the next
+    ``granularity`` multiple, or ``None`` when the projection grid ``g(o) =
+    o/s - 1/2 + 1/(2s)`` is not translation-invariant for both the real and
+    the bucket shape (``out == scale·in`` must hold exactly; the
+    reference's ``ceil`` output size breaks it otherwise) and the caller
+    takes the per-shape path."""
+    h, w = img_hwc.shape[:2]
+    g = int(granularity)
+    hb, wb = -(-h // g) * g, -(-w // g) * g
+
+    def aligned(n, s):
+        return abs(n * s - round(n * s)) < 1e-9
+
+    if not (aligned(h, scale_h) and aligned(w, scale_w)
+            and aligned(hb, scale_h) and aligned(wb, scale_w)):
+        return None
+    padded = np.pad(img_hwc, ((0, hb - h), (0, wb - w), (0, 0)), mode="edge")
+    return padded, (hb, wb), (h, w)
+
+
+def _dyn_resize_host(img_hwc, scale_h, scale_w, granularity, supp_size):
+    """Host prep of ``upscale_dynamic`` (``lerf_tpu.pipeline.
+    _dyn_resize_host``): ``(operands, buckets, image, out_sz)`` — the
+    serving geometry (:class:`~lerf_torch.ops.geometry.ResizeOperands`),
+    ``((hb, wb), (ohb, owb))`` with ``image`` edge-padded to the in-bucket
+    when ``granularity > 0`` (else ``None`` and the image) — or ``None``
+    outside the dynamic envelope (support ≠ 2, a downscale beyond the 1/32
+    support cap, the scale-1 skip), where the caller takes ``upscale``.
+
+    Downscale (or mixed) requests serve through the antialiased
+    support-bucket operands (``ResizeOperands.create_any``); the bucket
+    frames are upscale-only, so those ignore ``granularity``."""
+    sh, sw = float(scale_h), float(scale_w)
+    if supp_size != 2 or (sh == 1.0 and sw == 1.0):
+        return None
+    in_sz = img_hwc.shape[:2]
+    try:
+        if sh >= 1.0 and sw >= 1.0:
+            ops = geo.ResizeOperands.create(in_sz, scale_factors=[sh, sw])
+        else:
+            ops = geo.ResizeOperands.create_any(in_sz, scale_factors=[sh, sw])
+            granularity = 0
+    except ValueError:
+        return None
+    out_sz = ops.out_sz
+    if granularity > 0:
+        g = int(granularity)
+        hb, wb = -(-in_sz[0] // g) * g, -(-in_sz[1] // g) * g
+        ohb, owb = -(-out_sz[0] // g) * g, -(-out_sz[1] // g) * g
+        padded = np.pad(img_hwc, ((0, hb - in_sz[0]), (0, wb - in_sz[1]),
+                                  (0, 0)), mode="edge")
+        return ops, ((hb, wb), (ohb, owb)), padded, out_sz
+    return ops, None, img_hwc, out_sz
 
 
 def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
@@ -82,19 +163,18 @@ def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
     :data:`WARP_CACHE_SIZE` entries) under the key JAX gives its warp
     programs (``pipeline.py:1221,1272``).  The warp is :class:`WarpParams`
     on a card (the matrix: K5 derives the geometry itself) and the host
-    :class:`WarpGeometry` its plain twin reads on the CPU.  The mask is
-    geometry only, computed on the host as ``nearest_warp_mask_host``."""
-    if support != 2:
-        raise NotImplementedError(
-            f"warp with supp_size={support}: K5 and its twin take support 2 "
-            "(the deploy configuration); other supports are not ported")
+    :class:`~lerf_torch.ops.geometry.WarpGeometry` its plain twin reads on
+    the CPU, both at ``support``.  The mask is geometry only, computed on
+    the host as ``nearest_warp_mask_host``."""
     matrix = np.asarray(matrix, dtype=np.float64)
     key = (tuple(in_sz), matrix.tobytes(), tuple(out_sz))
     if key in cache:
         cache.move_to_end(key)
         return cache[key]
-    warp = (WarpParams.create(in_sz, matrix, out_sz) if device.type == "cuda"
-            else WarpGeometry.create(in_sz, matrix, out_sz, support=support))
+    warp = (WarpParams.create(in_sz, matrix, out_sz, support=support)
+            if device.type == "cuda"
+            else geo.WarpGeometry.create(in_sz, matrix, out_sz,
+                                         support=support))
     mask = nearest_warp_mask_host(tuple(in_sz), matrix, tuple(out_sz),
                                   border=4)
     cache[key] = (warp, mask)
@@ -103,21 +183,225 @@ def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
     return cache[key]
 
 
-def _warp_out(feat, hyper, entry, max_sigma, norm):
-    """K5 on the stage outputs: uint8 [C,oH,oW] (norm ≤ 255), else float32
-    with NaN → 0 for the host to quantize."""
-    warp, _ = entry
-    out = steering_warp(feat, hyper, warp, max_sigma=max_sigma, norm=norm,
-                        out_dtype=_out_dtype(norm))
-    return out if out.dtype == torch.uint8 else torch.nan_to_num(out, nan=0.0)
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to lerf_torch yet "
+                               f"(ROADMAP Queue A item {item})")
 
 
-class LutPredictor:
+class _Predictor:
+    """What both deploy forms share: the resize and warp after the stages,
+    and the SR serving forms.  A form supplies ``_input`` (its device input
+    from [..., C, H, W] uint8 / float pixels), ``_stages`` (→ int32 feat
+    [..., H, W] and hyper codes [..., H, W, oC], ``clamp_hw`` re-clamping
+    beyond a bucket's valid region after every stage) and ``_aux`` (the
+    types ``return_aux`` gives).  The kernel is the steerable Gaussian, or
+    with ``linear`` the amplified-linear one on the first hyper code."""
+
+    def _init_serving(self, *, linear, supp_size, max_sigma, norm, device):
+        self.device = resolve_device(device)
+        self.linear = linear
+        self.supp_size = supp_size
+        self.max_sigma = max_sigma
+        self.norm = norm
+        self._resize_cache: Dict = {}
+        self._warp_cache: OrderedDict = OrderedDict()
+
+    def _skips(self, scale_h: float, scale_w: float) -> bool:
+        """Whether a scale skips the stages (the net form at scale 1)."""
+        return False
+
+    def _codes(self, hyper: torch.Tensor) -> torch.Tensor:
+        """The codes the kernel reads: α, the first code, in the linear
+        mode (lerf_tpu's ``hyper[..., 0]``), else (ρ, σx, σy)."""
+        return hyper[..., :1] if self.linear else hyper
+
+    # -- SR -----------------------------------------------------------------
+
+    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
+        """(geometry, its K1 operands on the device) for one (in_sz,
+        scale), cached."""
+        key = (tuple(in_sz), scale)
+        if key not in self._resize_cache:
+            geom = geo.ResizeGeometry.create(in_sz, scale_factors=list(scale),
+                                             support=self.supp_size)
+            self._resize_cache[key] = (geom, k1.ResizeOperands.create(
+                geom, self.device, linear=self.linear))
+        return self._resize_cache[key]
+
+    def _resize(self, feat, hyper, geom, operands):
+        return k1.steering_resize(feat, self._codes(hyper), geom,
+                                  max_sigma=self.max_sigma, norm=self.norm,
+                                  linear=self.linear, operands=operands,
+                                  out_dtype=_out_dtype(self.norm))
+
+    def _host_frame(self, out: torch.Tensor) -> np.ndarray:
+        """uint8 [..., C, oH, oW] on the device → [..., oH, oW, C] on the
+        host."""
+        u8 = _quantize_host(out.cpu().numpy(), self.norm)
+        return np.moveaxis(u8, -3, -1)
+
+    def run_device(self, x: torch.Tensor, scale: Tuple[float, float]):
+        """The device part of a frame: the input [C, H, W] on
+        ``self.device`` (``_input``) → (uint8 [C, oH, oW], feat int32,
+        hyper codes int32), all on the device."""
+        geom, operands = self._resize_fn(tuple(x.shape[-2:]), scale)
+        feat, hyper = self._stages(x)
+        return self._resize(feat, hyper, geom, operands), feat, hyper
+
+    def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
+                return_aux: bool = False):
+        """uint8/float [H,W,C] → uint8 [outH,outW,C]; with ``return_aux``
+        also feat and hyper in the types ``lerf_tpu`` returns."""
+        sh, sw = float(scale_h), float(scale_w)
+        chw = _rgb_chw(img_hwc)
+        if self._skips(sh, sw):
+            return self._skip(chw).transpose(1, 2, 0)
+        out, feat, hyper = self.run_device(self._input(chw), (sh, sw))
+        out_u8 = self._host_frame(out)
+        if return_aux:
+            return (out_u8,) + self._aux(feat, hyper)
+        return out_u8
+
+    def upscale_bucketed(self, img_hwc: np.ndarray, scale_h: float,
+                         scale_w: float, granularity: int = 64):
+        """SR on a shape bucket (``lerf_tpu``'s ``upscale_bucketed``): the
+        image edge-padded to the next ``granularity`` multiple and the
+        stages re-clamped beyond it after every stage, so the stage codes
+        on the image are the unpadded frame's; where ``out == scale·in``
+        fails for the image or the bucket, :meth:`upscale` itself.
+
+        lerf_tpu then resizes on the bucket's geometry and crops, whose
+        float64 grid can sit an ulp off the image's: harmless for the
+        Gaussian, but the amplified-linear kernel is discontinuous at |d| =
+        1, and at ×3 on 13×17 (bucket 64) lerf_tpu's LeRF-L bucketed frame
+        differs from its own ``upscale`` on a quarter of the pixels.  Here
+        the resize runs on the image's own geometry over the stage codes
+        cropped back to it, bit-equal to :meth:`upscale` in both kernels.
+        PyTorch compiles no program per shape, so the bucket saves nothing;
+        the form serves callers written against it."""
+        img = _rgb_hwc(img_hwc)
+        sh, sw = float(scale_h), float(scale_w)
+        prep = None if self._skips(sh, sw) else \
+            _bucket_prep(img, sh, sw, granularity)
+        if prep is None:
+            return self.upscale(img, sh, sw)
+        padded, _, (h, w) = prep
+        feat, hyper = self._stages(self._input(_rgb_chw(padded)),
+                                   clamp_hw=(h, w))
+        geom, operands = self._resize_fn((h, w), (sh, sw))
+        return self._host_frame(self._resize(feat[..., :h, :w],
+                                             hyper[..., :h, :w, :], geom,
+                                             operands))
+
+    def upscale_dynamic(self, img_hwc: np.ndarray, scale_h: float,
+                        scale_w: float, granularity: int = 0):
+        """Arbitrary-scale SR through the serving geometry (``lerf_tpu``'s
+        ``upscale_dynamic``, synchronous): per axis the left neighbour in a
+        fixed-pad frame and the float64 distances
+        (:class:`~lerf_torch.ops.geometry.ResizeOperands`); with
+        ``granularity > 0`` on a bucket frame, the stages re-clamped as in
+        :meth:`upscale_bucketed`.  Antialiased downscales serve down to
+        scale 1/32; scale 1, support ≠ 2 and smaller scales take
+        :meth:`upscale`.  Bit-equal to :meth:`upscale`: on the CPU the
+        rings resize, on a card K1 on the serving geometry's true support
+        (``kernels.resize.steering_resize_serving``)."""
+        img = _rgb_hwc(img_hwc)
+        prep = _dyn_resize_host(img, scale_h, scale_w, granularity,
+                                self.supp_size)
+        if prep is None:
+            return self.upscale(img, scale_h, scale_w)
+        ops, buckets, image, _ = prep
+        x = self._input(_rgb_chw(image))
+        if buckets is None:
+            feat, hyper = self._stages(x)
+        else:
+            h, w = img.shape[:2]
+            feat, hyper = self._stages(x, clamp_hw=(h, w))
+            feat = _zero_beyond(feat, h, w)
+        out = k1.steering_resize_serving(
+            feat, self._codes(hyper), ops,
+            out_frame=None if buckets is None else buckets[1],
+            max_sigma=self.max_sigma, norm=self.norm, linear=self.linear,
+            out_dtype=_out_dtype(self.norm))
+        return self._host_frame(out)
+
+    def upscale_batch(self, imgs_bhwc: np.ndarray, scale_h: float,
+                      scale_w: float) -> np.ndarray:
+        """uint8 [B,H,W,C] → uint8 [B,outH,outW,C] (``lerf_tpu``'s
+        ``upscale_batch``): the batch folded into the channel axis, so the
+        whole batch is one launch of each kernel (the stages and the resize
+        work on each channel plane alone)."""
+        bchw = np.ascontiguousarray(np.asarray(imgs_bhwc).transpose(0, 3, 1, 2))
+        b, c, h, w = bchw.shape
+        sh, sw = float(scale_h), float(scale_w)
+        if self._skips(sh, sw):
+            return self._skip(bchw).transpose(0, 2, 3, 1)
+        x = self._input(bchw).reshape(b * c, h, w)
+        out, _, _ = self.run_device(x, (sh, sw))
+        return self._host_frame(out.reshape(b, c, *out.shape[-2:]))
+
+    # -- warp ---------------------------------------------------------------
+
+    def run_warp_device(self, x: torch.Tensor, matrix: np.ndarray,
+                        out_sz: Tuple[int, int]):
+        """The device part of a warped frame: the input [C, H, W] on
+        ``self.device`` → (uint8 [C, oH, oW], feat int32, hyper codes
+        int32), all on the device: the stages, then K5 in uint8 mode (NaN
+        windows → 0).  The stage codes are integers, so K5 takes them as
+        the JAX path's u8 rows do."""
+        warp, _ = _warp_entry(self._warp_cache, tuple(x.shape[-2:]), matrix,
+                              tuple(out_sz), self.supp_size, self.device)
+        feat, hyper = self._stages(x)
+        out = steering_warp(feat, self._codes(hyper), warp,
+                            max_sigma=self.max_sigma, norm=self.norm,
+                            linear=self.linear,
+                            out_dtype=_out_dtype(self.norm))
+        if out.dtype != torch.uint8:
+            out = torch.nan_to_num(out, nan=0.0)
+        return out, feat, hyper
+
+    def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
+             out_hw: Tuple[int, int], return_aux: bool = False):
+        """Homographic warp: uint8/float [H,W,C] → (uint8 [oH,oW,C], bool
+        mask [oH,oW]), plus feat and hyper with ``return_aux``.
+
+        Fully out-of-view support windows (NaN) are zeroed before
+        quantization, matching the torch eval path (eval_model.py:261);
+        the mask excludes them from mPSNR.  The warp's parameters (or on
+        the CPU its host geometry) and the mask are cached per (image
+        size, matrix, out size), for the last :data:`WARP_CACHE_SIZE`
+        keys."""
+        chw = _rgb_chw(img_hwc)
+        out_sz = tuple(int(v) for v in out_hw)
+        out, feat, hyper = self.run_warp_device(self._input(chw), matrix,
+                                                out_sz)
+        mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
+                           self.supp_size, self.device)[1].copy()
+        out_u8 = self._host_frame(out)
+        if return_aux:
+            return (out_u8, mask) + self._aux(feat, hyper)
+        return out_u8, mask
+
+    # -- serving forms not ported yet ----------------------------------------
+
+    def upscale_dynamic_async(self, *args, **kwargs):
+        raise _unported("async serving (upscale_dynamic_async)", "11")
+
+    def warp_dynamic(self, *args, **kwargs):
+        raise _unported("dynamic warp serving (warp_dynamic)", "6")
+
+    def warp_batch(self, *args, **kwargs):
+        raise _unported("batched warp serving (warp_batch)", "6")
+
+
+class LutPredictor(_Predictor):
     """Two-stage LUT inference: feature LUTs → hyper LUTs → steerable
     resample, with bit-exact stage arithmetic (eval_lut_sr.py semantics).
 
-    ``device``: ``None`` → ``cuda`` (raises without a card), or ``"cpu"``.
-    The bank's int8 tables live on that device as :class:`FlatTables`.
+    ``linear``: the LeRF-L form, whose bank's stage 2 has one output
+    channel (α); the LeRF-G form's has three.  ``device``: ``None`` →
+    ``cuda`` (raises without a card), or ``"cpu"``.  The bank's int8
+    tables live on that device as :class:`FlatTables`.
     """
 
     @classmethod
@@ -142,10 +426,6 @@ class LutPredictor:
                  supp_size: int = 2, max_sigma: float = 10.0,
                  stages: int = 2, norm: int = 255,
                  table_layout: str = "flat", mesh=None, device=None):
-        if linear:
-            raise NotImplementedError(
-                "LeRF-L (linear=True, amplified_linear_resize) is not ported "
-                "yet (ROADMAP Queue A item 3)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving (mesh=) is not ported yet "
@@ -161,124 +441,69 @@ class LutPredictor:
                 "+ final feature + hyper) — load_lut_bank(stages=...) must "
                 "match (eval_lut_sr.py:747-775 loads one table set per "
                 "stage)")
-        if bank.out_c != 3:
-            raise ValueError("the Gaussian (LeRF-G) form needs out_c == 3")
-        self.device = resolve_device(device)
+        if bank.out_c != (1 if linear else 3):
+            raise ValueError(
+                "the amplified-linear (LeRF-L) form needs out_c == 1"
+                if linear else "the Gaussian (LeRF-G) form needs out_c == 3")
+        self._init_serving(linear=linear, supp_size=supp_size,
+                           max_sigma=max_sigma, norm=norm, device=device)
         self.bank = bank
         self.modes = tuple(modes)
         self.modes2 = tuple(modes2)
-        self.supp_size = supp_size
-        self.max_sigma = max_sigma
         self.stages = stages
-        self.norm = norm
         self._s1 = FlatTables.create(bank.stage1, self.device)
         self._s2 = FlatTables.create(bank.stage2, self.device)
         self._inter = [FlatTables.create(t, self.device) for t in bank.inter]
-        self._resize_cache: Dict = {}
-        self._warp_cache: OrderedDict = OrderedDict()
 
-    # -- stages -------------------------------------------------------------
+    def _input(self, chw: np.ndarray) -> torch.Tensor:
+        """The LUT form's int32 [..., C, H, W] input on the device; the
+        stages index the LUT lattice with the raw 8-bit values, so they
+        must lie in 0..255."""
+        x = np.asarray(chw).astype(np.int32)
+        if x.size and (x.min() < 0 or x.max() > 255):
+            raise ValueError("image values must lie in 0..255")
+        return torch.from_numpy(x).to(self.device)
 
-    def _stages_fn(self, img_i32: torch.Tensor):
-        """img [C,H,W] int32 → (feat int32 [C,H,W], hyper int32 [C,H,W,oC]).
+    def _stages(self, img_i32: torch.Tensor, clamp_hw=None):
+        """img [..., H, W] int32 → (feat int32 [..., H, W], hyper int32
+        [..., H, W, oC]).
 
         Stage loop parity: eval_lut_sr.py:541-577 — each feature stage uses
         its OWN table set; intermediate stages average over modes·4 with a
         +norm//2 bias, the final feature stage over modes with no bias.
+        ``clamp_hw=(h, w)`` re-clamps rows / cols beyond the valid region
+        after every stage (``lerf_tpu``'s ``_stages_fn``): on a
+        bucket-padded input each stage then sees the unpadded frame's
+        replicate padding, and the bucketed forms stay bit-equal.
         """
         interval = self.bank.interval
         feat = img_i32
         for tables in self._inter:
-            feat = lut_stage1_intermediate(feat, tables, self.modes,
-                                           interval=interval, norm=self.norm)
-        feat = lut_stage1(feat, self._s1, self.modes, interval=interval,
-                          norm=self.norm)
-        hyper = lut_stage2(feat, self._s2, self.modes2, interval=interval,
-                           norm=self.norm)
+            feat = _clamp_valid(
+                lut_stage1_intermediate(feat, tables, self.modes,
+                                        interval=interval, norm=self.norm),
+                -2, -1, clamp_hw)
+        feat = _clamp_valid(lut_stage1(feat, self._s1, self.modes,
+                                       interval=interval, norm=self.norm),
+                            -2, -1, clamp_hw)
+        hyper = _clamp_valid(lut_stage2(feat, self._s2, self.modes2,
+                                        interval=interval, norm=self.norm),
+                             -3, -2, clamp_hw)
         return feat, hyper
 
-    # -- SR -----------------------------------------------------------------
-
-    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
-        """(geometry, its device operands) for one (in_sz, scale), cached."""
-        key = (in_sz, scale)
-        if key not in self._resize_cache:
-            geom = ResizeGeometry.create(in_sz, scale_factors=list(scale),
-                                         support=self.supp_size)
-            self._resize_cache[key] = (
-                geom, ResizeOperands.create(geom, self.device))
-        return self._resize_cache[key]
-
-    def run_device(self, chw: torch.Tensor, scale: Tuple[float, float]):
-        """The device part of a frame: int32 [C,H,W] on ``self.device`` →
-        (uint8 [C,oH,oW], feat, hyper), all on the device."""
-        geom, operands = self._resize_fn(tuple(chw.shape[1:]), scale)
-        feat, hyper = self._stages_fn(chw)
-        out = steering_resize(feat, hyper, geom, max_sigma=self.max_sigma,
-                              norm=self.norm, operands=operands,
-                              out_dtype=_out_dtype(self.norm))
-        return out, feat, hyper
-
-    def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
-                return_aux: bool = False):
-        """uint8/float [H,W,C] → uint8 [outH,outW,C] (plus feat/hyper)."""
-        x = torch.from_numpy(_lut_input(img_hwc)).to(self.device)
-        out, feat, hyper = self.run_device(
-            x, (float(scale_h), float(scale_w)))
-        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
-        if return_aux:
-            return out_u8, feat.cpu().numpy(), hyper.cpu().numpy()
-        return out_u8
-
-    # -- warp ---------------------------------------------------------------
-
-    def run_warp_device(self, chw: torch.Tensor, matrix: np.ndarray,
-                        out_sz: Tuple[int, int]):
-        """The device part of a warped frame: int32 [C,H,W] on
-        ``self.device`` → (uint8 [C,oH,oW], feat, hyper), all on the
-        device: the stages, then K5 in uint8 mode (NaN windows → 0)."""
-        entry = _warp_entry(self._warp_cache, tuple(chw.shape[1:]), matrix,
-                            tuple(out_sz), self.supp_size, self.device)
-        feat, hyper = self._stages_fn(chw)
-        return (_warp_out(feat, hyper, entry, self.max_sigma, self.norm),
-                feat, hyper)
-
-    def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
-             out_hw: Tuple[int, int], return_aux: bool = False):
-        """Homographic warp: uint8/float [H,W,C] → (uint8 [oH,oW,C], bool
-        mask [oH,oW]), plus feat and hyper (int32) with ``return_aux``.
-
-        Fully out-of-view support windows (NaN) are zeroed before
-        quantization, matching the torch eval path (eval_model.py:261);
-        the mask excludes them from mPSNR.  The warp's parameters (or on
-        the CPU its host geometry) and the mask are cached per (image
-        size, matrix, out size), for the last :data:`WARP_CACHE_SIZE`
-        keys."""
-        chw = _lut_input(img_hwc)
-        out_sz = tuple(int(v) for v in out_hw)
-        out, feat, hyper = self.run_warp_device(
-            torch.from_numpy(chw).to(self.device), matrix, out_sz)
-        mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
-                           self.supp_size, self.device)[1].copy()
-        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
-        if return_aux:
-            return out_u8, mask, feat.cpu().numpy(), hyper.cpu().numpy()
-        return out_u8, mask
+    def _aux(self, feat, hyper):
+        return feat.cpu().numpy(), hyper.cpu().numpy()
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to lerf_torch yet "
-                               f"(ROADMAP Queue A item {item})")
-
-
-class NetPredictor:
+class NetPredictor(_Predictor):
     """Two-stage *network* inference: feature net → hyper net → resample.
 
-    Mirrors ``lerf_tpu.pipeline.NetPredictor``'s static SR path with the
-    same public API as :class:`LutPredictor`.  ``stage1_fn(x)`` maps
-    [C,H,W] float32 in [0,1] → feature in [0,255] (float);
-    ``stage2_fn(x)`` maps [C,H,W] in [0,1] → int32 hyper codes
-    [C,H,W,oC] in 0..norm (``lerf_tpu``'s hyper is ``codes / norm``).
+    Mirrors ``lerf_tpu.pipeline.NetPredictor`` (SRNet form) with the same
+    public API as :class:`LutPredictor`.  ``stage1_fn(x)`` maps
+    [..., H, W] float32 in [0,1] → feature in [0,255] (float);
+    ``stage2_fn(x)`` maps [..., H, W] in [0,1] → int32 hyper codes
+    [..., H, W, oC] in 0..norm (``lerf_tpu``'s hyper is ``codes / norm``).
+    With ``linear`` the resample reads the first code as α.
 
     ``device``: ``None`` → ``cuda`` (raises without a card), or ``"cpu"``.
     """
@@ -287,20 +512,13 @@ class NetPredictor:
                  two_stage: bool = True, supp_size: int = 2,
                  max_sigma: float = 10.0, norm: int = 255, mesh=None,
                  device=None):
-        if linear:
-            raise _unported("LeRF-L (linear=True, amplified_linear_resize)",
-                            "3")
         if mesh is not None:
             raise _unported("multi-device serving (mesh=)", "12")
-        self.device = resolve_device(device)
+        self._init_serving(linear=linear, supp_size=supp_size,
+                           max_sigma=max_sigma, norm=norm, device=device)
         self.stage1_fn = stage1_fn
         self.stage2_fn = stage2_fn
         self.two_stage = two_stage
-        self.supp_size = supp_size
-        self.max_sigma = max_sigma
-        self.norm = norm
-        self._resize_cache: Dict = {}
-        self._warp_cache: OrderedDict = OrderedDict()
 
     @classmethod
     def from_srnets(cls, params, *, modes=("s", "c", "t"),
@@ -312,9 +530,10 @@ class NetPredictor:
         """LeRF-L/G trainable form (SRNetsSWF2 pixel-MLP ensemble).
 
         ``params``: :func:`lerf_torch.models.srnet.init_lerf_nets` layout
-        (float32 tensors on any device).  ``backend``: "auto" / "pallas"
-        run K3 (the kernel on a card, its plain twin on the CPU); "xla"
-        the plain batched chain; "pallas_int8" (opt-in) K4 on heads
+        (float32 tensors on any device); LeRF-L's stage-2 heads have one
+        output (``out_c=1``).  ``backend``: "auto" / "pallas" run K3 (the
+        kernel on a card, its plain twin on the CPU); "xla" the plain
+        batched chain; "pallas_int8" (opt-in) K4 on heads
         post-training-quantized here, once, against the 17⁴ deploy
         lattice.  The member heads are stacked on the device once, here.
         Inference only."""
@@ -345,114 +564,39 @@ class NetPredictor:
         raise _unported("the IMDN (LeRF-Net) form, NetPredictor.from_imdn",
                         "8")
 
-    # -- stages -------------------------------------------------------------
+    def _skips(self, scale_h: float, scale_w: float) -> bool:
+        """Scale 1 on both axes skips the nets (eval_model.py:153-154)."""
+        return scale_h == 1.0 and scale_w == 1.0
 
-    def _stages(self, img_f: torch.Tensor):
-        """img [C,H,W] float32 in [0,1] → (feat int32 [C,H,W], hyper codes
-        int32 [C,H,W,oC]).  ``two_stage=False`` skips the feature net like
-        the reference (eval_model.py:124-129): feat = round(img·norm), the
-        hyper net sees the image."""
+    def _skip(self, chw: np.ndarray) -> np.ndarray:
+        out = np.round(chw.astype(np.float32) / self.norm * self.norm)
+        return np.clip(out, 0, self.norm).astype(np.uint8)
+
+    def _input(self, chw: np.ndarray) -> torch.Tensor:
+        """float32 [..., C, H, W] in [0,1] on the device."""
+        return torch.from_numpy(np.asarray(chw).astype(np.float32)
+                                / self.norm).to(self.device)
+
+    def _stages(self, img_f: torch.Tensor, clamp_hw=None):
+        """img [..., H, W] float32 in [0,1] → (feat int32 [..., H, W],
+        hyper codes int32 [..., H, W, oC]).  ``two_stage=False`` skips the
+        feature net like the reference (eval_model.py:124-129): feat =
+        round(img·norm), the hyper net sees the image.  ``clamp_hw``
+        re-clamps each stage output beyond a bucket's valid region, as
+        :meth:`LutPredictor._stages` does (the SRNet stages edge-pad like
+        the LUT stages)."""
         if self.two_stage:
-            feat = self.stage1_fn(img_f)
+            feat = _clamp_valid(self.stage1_fn(img_f), -2, -1, clamp_hw)
             hyper_in = divide_exact(feat, self.norm)
         else:
             feat = torch.round(img_f * self.norm)
             hyper_in = img_f
-        return feat.to(torch.int32), self.stage2_fn(hyper_in)
+        hyper = _clamp_valid(self.stage2_fn(hyper_in), -3, -2, clamp_hw)
+        return feat.to(torch.int32), hyper
 
-    # -- SR -----------------------------------------------------------------
-
-    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
-        """(geometry, its device operands) for one (in_sz, scale), cached."""
-        key = (in_sz, scale)
-        if key not in self._resize_cache:
-            geom = ResizeGeometry.create(in_sz, scale_factors=list(scale),
-                                         support=self.supp_size)
-            self._resize_cache[key] = (
-                geom, ResizeOperands.create(geom, self.device))
-        return self._resize_cache[key]
-
-    def run_device(self, img_f: torch.Tensor, scale: Tuple[float, float]):
-        """The device part of a frame: float32 [C,H,W] in [0,1] on
-        ``self.device`` → (uint8 [C,oH,oW], feat int32 [C,H,W], hyper
-        codes int32 [C,H,W,oC]), all on the device."""
-        geom, operands = self._resize_fn(tuple(img_f.shape[1:]), scale)
-        feat, hyper = self._stages(img_f)
-        out = steering_resize(feat, hyper, geom, max_sigma=self.max_sigma,
-                              norm=self.norm, operands=operands,
-                              out_dtype=_out_dtype(self.norm))
-        return out, feat, hyper
-
-    def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
-                return_aux: bool = False):
-        """uint8/float [H,W,C] → uint8 [outH,outW,C]; with ``return_aux``
-        also feat (float32 [C,H,W], 0..255) and hyper (float32 [C,H,W,oC]
-        in [0,1]), the types ``lerf_tpu`` returns.  Scale 1 on both axes
-        skips the nets (eval_model.py:153-154) and returns the image."""
-        chw = _rgb_chw(img_hwc).astype(np.float32) / self.norm
-        if float(scale_h) == 1.0 and float(scale_w) == 1.0:
-            out = np.round(chw * self.norm)
-            return np.clip(out, 0, self.norm).astype(np.uint8) \
-                .transpose(1, 2, 0)
-        out, feat, hyper = self.run_device(
-            torch.from_numpy(chw).to(self.device),
-            (float(scale_h), float(scale_w)))
-        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
-        if return_aux:
-            return (out_u8, feat.cpu().numpy().astype(np.float32),
-                    divide_exact(hyper.to(torch.float32), self.norm)
-                    .cpu().numpy())
-        return out_u8
-
-    # -- warp ---------------------------------------------------------------
-
-    def run_warp_device(self, img_f: torch.Tensor, matrix: np.ndarray,
-                        out_sz: Tuple[int, int]):
-        """The device part of a warped frame: float32 [C,H,W] in [0,1] on
-        ``self.device`` → (uint8 [C,oH,oW], feat int32, hyper codes int32),
-        all on the device.  The stage codes are integers, so K5 takes them
-        as the JAX path's u8 rows do (``hyper_u8 = norm == 255``)."""
-        entry = _warp_entry(self._warp_cache, tuple(img_f.shape[1:]), matrix,
-                            tuple(out_sz), self.supp_size, self.device)
-        feat, hyper = self._stages(img_f)
-        return (_warp_out(feat, hyper, entry, self.max_sigma, self.norm),
-                feat, hyper)
-
-    def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
-             out_hw: Tuple[int, int], return_aux: bool = False):
-        """Homographic warp: uint8/float [H,W,C] → (uint8 [oH,oW,C], bool
-        mask [oH,oW]); with ``return_aux`` also feat (float32, 0..255) and
-        hyper (float32 in [0,1]), as :meth:`upscale`.  NaN windows → 0;
-        geometry cached as :meth:`LutPredictor.warp` caches it."""
-        chw = _rgb_chw(img_hwc).astype(np.float32) / self.norm
-        out_sz = tuple(int(v) for v in out_hw)
-        out, feat, hyper = self.run_warp_device(
-            torch.from_numpy(chw).to(self.device), matrix, out_sz)
-        mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
-                           self.supp_size, self.device)[1].copy()
-        out_u8 = _quantize_host(out.cpu().numpy(), self.norm).transpose(1, 2, 0)
-        if return_aux:
-            return (out_u8, mask, feat.cpu().numpy().astype(np.float32),
-                    divide_exact(hyper.to(torch.float32), self.norm)
-                    .cpu().numpy())
-        return out_u8, mask
-
-    # -- serving forms not ported yet ----------------------------------------
-
-    def upscale_bucketed(self, *args, **kwargs):
-        raise _unported("bucketed net serving (upscale_bucketed)", "6")
-
-    def upscale_dynamic(self, *args, **kwargs):
-        raise _unported("dynamic net serving (upscale_dynamic)", "6")
-
-    def upscale_batch(self, *args, **kwargs):
-        raise _unported("batched net serving (upscale_batch)", "6")
-
-    def upscale_dynamic_async(self, *args, **kwargs):
-        raise _unported("async net serving (upscale_dynamic_async)", "11")
-
-    def warp_dynamic(self, *args, **kwargs):
-        raise _unported("dynamic net warp serving (warp_dynamic)", "6")
-
-    def warp_batch(self, *args, **kwargs):
-        raise _unported("batched net warp serving (warp_batch)", "6")
+    def _aux(self, feat, hyper):
+        """feat float32 (0..255) and hyper float32 in [0,1], the types
+        ``lerf_tpu`` returns."""
+        return (feat.cpu().numpy().astype(np.float32),
+                divide_exact(hyper.to(torch.float32), self.norm)
+                .cpu().numpy())

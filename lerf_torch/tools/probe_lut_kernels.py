@@ -55,25 +55,25 @@ sys.path.insert(0, ROOT)
 # kernel source → {variant: [(old text, new text), ...]}
 VARIANTS = {
     "steering_resize": {
-        "no expf": [("float w = expf(-0.5f * (xn - p.y * xy + yn));",
-                     "float w = -0.5f * (xn - p.y * xy + yn);")],
+        "no expf": [("w = expf(-0.5f * (xn - p.y * xy + yn));",
+                     "w = -0.5f * (xn - p.y * xy + yn);")],
         "no window load": [(
             "win[r * pitch + q] = make_float4(n, 2.0f * rho, sx, sy);",
             "win[r * pitch + q] = make_float4(1.0f, 0.5f, (float)gr,"
             " (float)gc);")],
         "field of view read before the window": [
             ("  // 1. the source window (or its first strip), decoded once\n"
-             "  load_window(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip,"
-             " wc, pitch, H,\n"
-             "              W, norm, max_sigma);\n"
+             "  load_window<kLinear>(win, x, hyp, r_lo, c_lo, 0, whole ? wr :"
+             " strip, wc,\n"
+             "                       pitch, H, W, norm, max_sigma);\n"
              "  __syncthreads();\n\n", ""),
             ("  if (whole && !active) return;\n  int j[kVec];",
              "  int j[kVec];"),
-            ("           antialias, m);\n\n  // 3.",
-             "           antialias, m);\n"
-             "  load_window(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip,"
-             " wc, pitch, H,\n"
-             "              W, norm, max_sigma);\n"
+            ("scale, m);\n\n  // 3.",
+             "scale, m);\n"
+             "  load_window<kLinear>(win, x, hyp, r_lo, c_lo, 0, whole ? wr :"
+             " strip, wc,\n"
+             "                       pitch, H, W, norm, max_sigma);\n"
              "  __syncthreads();\n"
              "  if (whole && !active) return;\n\n  // 3.")],
         "2 outputs a thread": [("constexpr int kVec = 4;",
@@ -139,13 +139,15 @@ VARIANTS = {
         # a window from integer arithmetic (the ×4 zoom without the
         # jitter): what the float64 geometry costs, without reading operands
         "geometry from integers": [(
-            "    px[k] = window_at(w, col, i);",
-            "    {\n"
+            "    px[k] = window_at<KS, kLinear>(w, col, i);",
+            "    if constexpr (KS == 2) {\n"
             "      const int r0 = min(i / 4, w.H - 1), q0 = min(j / 4, w.W - 1);\n"
             "      px[k].r[0] = r0; px[k].r[1] = min(r0 + 1, w.H - 1);\n"
             "      px[k].q[0] = q0; px[k].q[1] = min(q0 + 1, w.W - 1);\n"
             "      px[k].dx[0] = 0.375f; px[k].dx[1] = -0.625f;\n"
             "      px[k].dy[0] = 0.375f; px[k].dy[1] = -0.625f;\n"
+            "    } else {\n"
+            "      px[k] = window_at<KS, kLinear>(w, col, i);\n"
             "    }")],
         "4 rows a thread": [("constexpr int kThreadRows = 8;",
                              "constexpr int kThreadRows = 4;")],
@@ -161,8 +163,8 @@ VARIANTS = {
             ("struct Warp {\n  double m[9];",
              "struct Warp {\n  const int2* corners;\n  const float4* dis;\n"
              "  double m[9];"),
-            ("    px[k] = window_at(w, col, i);",
-             "    {\n"
+            ("    px[k] = window_at<KS, kLinear>(w, col, i);",
+             "    if constexpr (KS == 2) {\n"
              "      const size_t n_ = (size_t)i * w.OW + j;\n"
              "      const int2 c_ = __ldg(w.corners + n_);\n"
              "      const float4 d_ = __ldg(w.dis + n_);\n"
@@ -172,12 +174,13 @@ VARIANTS = {
              "      }\n"
              "      px[k].dx[0] = d_.x; px[k].dx[1] = d_.y;\n"
              "      px[k].dy[0] = d_.z; px[k].dy[1] = d_.w;\n"
+             "    } else {\n"
+             "      px[k] = window_at<KS, kLinear>(w, col, i);\n"
              "    }"),
-            ("float max_sigma, float norm, int out_u8,\n"
-             "                                  void* stream) {",
-             "float max_sigma, float norm, int out_u8,\n"
-             "                                  void* stream, "
-             "const void* corners, const void* dis) {"),
+            ("                                  float norm, int out_u8, "
+             "void* stream) {",
+             "                                  float norm, int out_u8, "
+             "void* stream, const void* corners, const void* dis) {"),
             ("  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;",
              "  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;\n"
              "  w.corners = (const int2*)corners;\n"
@@ -258,9 +261,9 @@ def main() -> int:
 
     def k1_args(out, tile, u8):
         ptrs = (feat, codes, out, ops.rows, ops.cols, ops.dis_x, ops.dis_y)
-        return [*(vp(t.data_ptr()) for t in ptrs),
+        return [*(vp(t.data_ptr()) for t in ptrs), vp(None), vp(None),
                 *map(i32, (3, cs.LR_H, cs.LR_W, oh, ow, geom.support,
-                           int(geom.antialias))),
+                           int(geom.antialias), 0)),
                 f32(geom.min_scale), f32(10.0), f32(255.0),
                 *map(i32, (*tile, u8)), stream]
 
@@ -345,7 +348,8 @@ def main() -> int:
         def k5_args(out, u8, operands=False):
             args = [vp(feat.data_ptr()), vp(codes.data_ptr()),
                     vp(out.data_ptr()), inv,
-                    *map(i32, (3, cs.LR_H, cs.LR_W, woh, wow, *params.pad)),
+                    *map(i32, (3, cs.LR_H, cs.LR_W, woh, wow, *params.pad,
+                               params.support, 0)),
                     f32(10.0), f32(255.0), i32(u8), stream]
             if operands:
                 args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]

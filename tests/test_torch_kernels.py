@@ -18,7 +18,11 @@ same NaN pattern as its twin (the same float32 operations in the same
 order; a window whose four weights all fall below 2^-126 is 0/0 on both),
 and its uint8 mode equals its float mode with NaN → 0, quantized; the
 geometry K5 derives on the card from the matrix is bit-equal to the
-host's (the same float64 operations, one at a time).
+host's (the same float64 operations, one at a time).  The amplified-linear
+(LeRF-L) modes of K1 and K5 hold atol 1e-3 against their twins too (no
+``exp``: bit-equal as built), K5 at any support, its branch masks equal to
+the host's; the SR serving forms on the card are bit-equal to ``upscale``
+on the card.
 """
 import numpy as np
 import pytest
@@ -34,7 +38,8 @@ from lerf_torch.ops.kernels import resize as k1
 from lerf_torch.ops.kernels import srnet_ensemble as k3
 from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
 from lerf_torch.ops.kernels import warp as k5
-from lerf_torch.ops.resample import (quantize_device,
+from lerf_torch.ops.resample import (linear_resize_codes_plain,
+                                     linear_warp_codes_plain, quantize_device,
                                      steering_resize_codes_plain,
                                      steering_warp_codes_plain)
 from lerf_torch.pipeline import LutPredictor, NetPredictor, _quantize_device
@@ -114,14 +119,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def random_bank(seed=0):
+def random_bank(seed=0, out_c=3):
+    """A random bank: LeRF-G's stage 2 gives three codes, LeRF-L's
+    (``out_c=1``) one."""
     rng = np.random.RandomState(seed)
     return LUTBank(
         stage1={m: rng.randint(-127, 128, (L4, 1)).astype(np.int8)
                 for m in MODES},
-        stage2={f"{m}r{r}": rng.randint(-127, 128, (L4, 3)).astype(np.int8)
-                for m in MODES for r in (0, 1)},
-        out_c=3)
+        stage2={f"{m}r{r}": rng.randint(-127, 128, (L4, out_c))
+                .astype(np.int8) for m in MODES for r in (0, 1)},
+        out_c=out_c)
 
 
 def resize_inputs(shape=(3, 45, 77), seed=3):
@@ -822,3 +829,210 @@ def test_net_warp_on_card_launches_its_kernels(backend, cuda_device):
                   - out.astype(int))
     assert out.shape == (160, 224, 3) and mask.shape == (160, 224)
     assert diff.max() <= 1
+
+
+# -- LeRF-L (linear modes), K5 at any support, the SR serving forms ----------
+
+
+def alpha_codes(shape, seed=11):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, tuple(shape) + (1,)).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RESIZE_CASES))
+def test_resize_kernel_linear_mode_matches_plain(case, cuda_device):
+    """K1's amplified-linear mode against its twin (the same float32
+    operations in the same order: atol 1e-3, no exp), its uint8 mode equal
+    to its float mode quantized."""
+    scale, aa = RESIZE_CASES[case]
+    feat, _ = (t.to(cuda_device) for t in resize_inputs())
+    codes = alpha_codes(feat.shape).to(cuda_device)
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=list(scale),
+                                 antialias=aa)
+    before = k1.launches
+    got = k1.steering_resize(feat, codes, geom, linear=True)
+    got_u8 = k1.steering_resize(feat, codes, geom, linear=True,
+                                out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 2
+    want = linear_resize_codes_plain(feat, codes, geom)
+    torch.testing.assert_close(got, want, rtol=0, atol=RESIZE_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+
+
+@pytest.mark.cuda
+def test_kernels_reject_codes_of_the_other_mode(cuda_device):
+    feat, codes = (t.to(cuda_device) for t in resize_inputs())
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=[2, 2])
+    with pytest.raises(ValueError, match="linear"):
+        k1.steering_resize(feat, codes, geom, linear=True)
+    with pytest.raises(ValueError, match="Gaussian"):
+        k1.steering_resize(feat, codes[..., :1].contiguous(), geom)
+    params = k5.WarpParams.create(feat.shape[1:], np.diag([2.0, 2.0, 1.0]),
+                                  (90, 154))
+    with pytest.raises(ValueError, match="linear"):
+        k5.steering_warp(feat, codes, params, linear=True)
+    with pytest.raises(ValueError, match="operands"):
+        k1.steering_resize(feat, codes, geom, operands=k1.ResizeOperands
+                           .create(geom, cuda_device, linear=True))
+
+
+# the supports K5 is checked at beyond 2, each warp case at each
+K5_SUPPORT_CASES = [(case, s) for case in ("3x7x9", "x2.5-wide", "rotation",
+                                           "border", "minify16")
+                    for s in (3, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,support", K5_SUPPORT_CASES,
+                         ids=[f"{c}-s{s}" for c, s in K5_SUPPORT_CASES])
+def test_warp_geometry_on_card_at_support(case, support, cuda_device):
+    matrix, shape, out_sz = WARP_CASES[case]
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz, support=support)
+    got = k5.warp_geometry(params, cuda_device)
+    torch.cuda.synchronize()
+    want = k5.WarpOperands.create(params.geometry(), "cpu")
+    assert got.pad == want.pad
+    assert torch.equal(got.corners.cpu(), want.corners)
+    assert torch.equal(got.dis.cpu(), want.dis)
+    assert torch.equal(got.masks.cpu(), want.masks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case,support",
+                         [(c, 2) for c in sorted(WARP_CASES)]
+                         + K5_SUPPORT_CASES,
+                         ids=[f"{c}-s2" for c in sorted(WARP_CASES)]
+                         + [f"{c}-s{s}" for c, s in K5_SUPPORT_CASES])
+def test_warp_kernel_modes_and_supports_match_plain(case, support, linear,
+                                                    cuda_device):
+    """K5 in both modes and at supports 2, 3, 4 against its twin: atol
+    1e-3, NaN patterns equal, the uint8 mode its float mode quantized."""
+    matrix, shape, out_sz = WARP_CASES[case]
+    feat, codes, _, _ = warp_case(case, cuda_device)
+    if linear:
+        codes = alpha_codes(shape).to(cuda_device)
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz, support=support)
+    geom = params.geometry()
+    before = k5.launches
+    got = k5.steering_warp(feat, codes, params, linear=linear)
+    got_u8 = k5.steering_warp(feat, codes, params, linear=linear,
+                              out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 2
+    twin = linear_warp_codes_plain if linear else steering_warp_codes_plain
+    want = twin(feat, codes, geom)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=WARP_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_folded_batch_equals_per_frame_calls(linear, cuda_device):
+    """A batch folded into the channel axis through K2 and K1 (one launch
+    each) equals the frames' own calls."""
+    bank = random_bank(out_c=1 if linear else 3)
+    s1 = lp.FlatTables.create(bank.stage1, cuda_device)
+    s2 = lp.FlatTables.create(bank.stage2, cuda_device)
+    imgs = torch.from_numpy(np.random.RandomState(12).randint(
+        0, 256, (4, 3, 30, 41)).astype(np.int32)).to(cuda_device)
+    geom = ResizeGeometry.create((30, 41), scale_factors=[2.5, 2.5])
+
+    def frame(x):
+        feat = lp.lut_stage1(x, s1, MODES)
+        return k1.steering_resize(feat, lp.lut_stage2(feat, s2, MODES),
+                                  geom, linear=linear,
+                                  out_dtype=torch.uint8)
+
+    before = (k1.launches, k2.launches)
+    folded = frame(imgs.reshape(12, 30, 41))
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 2)
+    for b in range(4):
+        assert torch.equal(folded[3 * b:3 * b + 3], frame(imgs[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_lut_forms_on_card_match_cpu(linear, cuda_device):
+    """Both LUT forms on the card against the CPU path: SR and the warp
+    (support 2 and 3), stage codes and masks equal, uint8 one step at most
+    (a .5 tie)."""
+    bank = random_bank(out_c=1 if linear else 3)
+    img = np.random.RandomState(13).randint(0, 256, (45, 77, 3)) \
+        .astype(np.uint8)
+    matrix = jitter_matrix(1, (4.0, 4.0))
+    for support in (2, 3):
+        cpu = LutPredictor(bank, linear=linear, supp_size=support,
+                           device="cpu")
+        card = LutPredictor(bank, linear=linear, supp_size=support,
+                            device=cuda_device)
+        calls = [lambda p: p.warp(img, matrix, (180, 308), return_aux=True)]
+        if support == 2:
+            calls.append(lambda p: p.upscale(img, 3.55, 3.55,
+                                             return_aux=True))
+        for call in calls:
+            want, got = call(cpu), call(card)
+            for a, b in zip(want[1:], got[1:]):
+                np.testing.assert_array_equal(b, a)
+            assert np.abs(got[0].astype(int) - want[0].astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_sr_serving_forms_on_card_equal_upscale(linear, cuda_device):
+    """The serving forms on the card: each bit-equal to ``upscale`` on the
+    card, each call two K2 launches and one K1, the batch included."""
+    bank = random_bank(out_c=1 if linear else 3)
+    pred = LutPredictor(bank, linear=linear, device=cuda_device)
+    img = np.random.RandomState(14).randint(0, 256, (45, 77, 3)) \
+        .astype(np.uint8)
+    calls = {"dynamic x2.5": (lambda: pred.upscale_dynamic(img, 2.5, 2.5),
+                              (2.5, 2.5)),
+             "dynamic x3 g64": (lambda: pred.upscale_dynamic(
+                 img, 3.0, 3.0, granularity=64), (3.0, 3.0)),
+             "dynamic x0.5": (lambda: pred.upscale_dynamic(img, 0.5, 0.5),
+                              (0.5, 0.5)),
+             "bucketed x2 g64": (lambda: pred.upscale_bucketed(img, 2, 2, 64),
+                                 (2.0, 2.0))}
+    for name, (call, scale) in calls.items():
+        want = pred.upscale(img, *scale)
+        before = (k1.launches, k2.launches)
+        got = call()
+        assert (k1.launches, k2.launches) == (before[0] + 1,
+                                              before[1] + 2), name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    imgs = np.stack([img, img[::-1].copy(), 255 - img])
+    before = (k1.launches, k2.launches)
+    got = pred.upscale_batch(imgs, 4, 4)
+    assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 2)
+    for b in range(3):
+        np.testing.assert_array_equal(got[b], pred.upscale(imgs[b], 4, 4))
+
+
+def test_probe_variants_apply_to_the_kernel_sources():
+    """``tools/probe_lut_kernels.py`` builds each variant by text
+    substitution into K1's, K2's and K5's sources: every substituted text
+    must be there exactly once."""
+    import importlib.util
+    import os
+
+    from lerf_torch.ops.kernels import _build
+
+    path = os.path.join(os.path.dirname(_build.CSRC), "tools",
+                        "probe_lut_kernels.py")
+    spec = importlib.util.spec_from_file_location("probe_lut_kernels", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    for kernel, variants in probe.VARIANTS.items():
+        with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
+            src = f.read()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs:
+                assert text.count(old) == 1, (kernel, name, old[:60])
+                text = text.replace(old, new)

@@ -132,19 +132,13 @@ def test_net_predictor_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("call", [
-    lambda p: NetPredictor.from_srnets(p, linear=True, device="cpu"),
     lambda p: NetPredictor.from_srnets(p, mesh=object(), device="cpu"),
     lambda p: NetPredictor.from_imdn(None, p),
     lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .upscale_bucketed(image(), 2, 2, granularity=8),
+    .warp_dynamic(image(), np.eye(3), (8, 8)),
     lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .upscale_dynamic(image(), 2, 2),
-    lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .upscale_batch([image()], 2, 2),
-    lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .warp_dynamic(image(), np.eye(3), (8, 8))],
-    ids=["linear", "mesh", "from_imdn", "bucketed", "dynamic", "batch",
-         "warp"])
+    .upscale_dynamic_async(image(), 2, 2)],
+    ids=["mesh", "from_imdn", "warp", "async"])
 def test_unported_net_options_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(lerf_nets_from_arrays(np_params(nf=8, seed=0)))
@@ -230,7 +224,7 @@ def test_eval_model_cli_warp_prints_jax_table(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,match", [
     (["--model", "IMDN2"], "item 8"),
-    (["--bucket", "8"], "item 6"),
+    (["--resultRoot", "results/warp", "--bucket", "8"], "item 6"),
     (["--resultRoot", "results/warp", "--dynamicWarp"], "item 6")],
     ids=["imdn", "bucket", "warp-dynamic"])
 def test_eval_model_cli_unported_exit(flags, match, tmp_path):

@@ -89,11 +89,11 @@ def test_upscale_cli_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--form", "net", "--model", "IMDN2"],
-                                   ["--dynamicSR"],
-                                   ["--bucket", "8"],
                                    ["--matrix", "1,0,0,0,1,0,0,0,1",
-                                    "--outSize", "8x8", "--dynamicWarp"]],
-                         ids=lambda f: f[0].lstrip("-"))
+                                    "--outSize", "8x8", "--dynamicWarp"],
+                                   ["--matrix", "1,0,0,0,1,0,0,0,1",
+                                    "--outSize", "8x8", "--bucket", "8"]],
+                         ids=["form", "matrix", "matrix-bucket"])
 def test_upscale_cli_unported_flags_exit(flags, tmp_path):
     from lerf_torch.cli.upscale import main
 
@@ -155,10 +155,27 @@ def test_default_device_is_cuda_and_never_falls_back():
             port_of(pred)
 
 
-@pytest.mark.parametrize("kwargs", [{"linear": True},
-                                    {"table_layout": "packed8"},
+@pytest.mark.parametrize("kwargs", [{"table_layout": "packed8"},
                                     {"mesh": object()}],
                          ids=lambda k: next(iter(k)))
 def test_unported_predictor_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_of(shared_lut_predictor(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("method", ["upscale_dynamic_async", "warp_dynamic",
+                                    "warp_batch"])
+def test_unported_serving_forms_raise(method):
+    """The async SR form waits for the serving surface (item 11), the warp
+    serving forms for the warp half of item 6."""
+    port = port_of(shared_lut_predictor(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(port, method)(image(), 2, 2)
+
+
+@pytest.mark.parametrize("linear", [False, True])
+def test_bank_output_channels_must_match_the_form(linear):
+    """LeRF-L reads one hyper code a pixel (α), LeRF-G three."""
+    with pytest.raises(ValueError, match="out_c"):
+        port_of(shared_lut_predictor(not linear), device="cpu",
+                linear=linear)

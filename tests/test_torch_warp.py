@@ -292,9 +292,11 @@ def test_warp_wrapper_checks_its_arguments():
         k5.steering_warp(feat, codes, tg, norm=1023, out_dtype=torch.uint8)
     with pytest.raises(ValueError, match="out_dtype"):
         k5.steering_warp(feat, codes, tg, out_dtype=torch.float16)
-    _, t3 = geometries("jitter", support=3)
-    with pytest.raises(ValueError, match="support"):
-        k5.WarpOperands.create(t3, "cpu")
+    # the codes must match the mode: three (Gaussian) or one (linear)
+    with pytest.raises(ValueError, match="linear"):
+        k5.steering_warp(feat, codes, tg, linear=True)
+    with pytest.raises(ValueError, match="Gaussian"):
+        k5.steering_warp(feat, codes[..., :1], tg)
 
 
 @pytest.mark.parametrize("name", ["pad1", "clip"])
@@ -364,9 +366,10 @@ def test_lut_warp_caches_a_few_geometries():
     again = port.warp(img, MATRICES["jitter"][0] * (1 + k), SMALL[1])[1]
     again[:] = False
     assert list(port._warp_cache.values())[-1][1].any()
-    with pytest.raises(NotImplementedError, match="support"):
-        port_of(shared_lut_predictor(), device="cpu", supp_size=3).warp(
-            img, MATRICES["jitter"][0], SMALL[1])
+    # another support caches the geometry at that support
+    s3 = port_of(shared_lut_predictor(), device="cpu", supp_size=3)
+    s3.warp(img, MATRICES["jitter"][0], SMALL[1])
+    assert next(iter(s3._warp_cache.values()))[0].support == 3
 
 
 def net_port():

@@ -37,14 +37,16 @@ def case(name):
 @pytest.mark.parametrize("name", sorted(WARP_CASES))
 def test_warp_operands_plain_equals_host_operands(name):
     matrix, in_sz, out_sz = case(name)
-    corners, dis, pad = tgeo.warp_operands_plain(np.linalg.inv(matrix),
-                                                 in_sz, out_sz)
+    corners, dis, masks, pad = tgeo.warp_operands_plain(
+        np.linalg.inv(matrix), in_sz, out_sz)
     want = k5.WarpOperands.create(
         tgeo.WarpGeometry.create(in_sz, matrix, out_sz), "cpu")
     assert corners.dtype == torch.int32 and dis.dtype == torch.float32
+    assert masks.dtype == torch.uint8
     assert pad == want.pad
     assert torch.equal(corners, want.corners)
     assert torch.equal(dis, want.dis)
+    assert torch.equal(masks, want.masks)
 
 
 @pytest.mark.parametrize("name", sorted(WARP_CASES))
@@ -52,8 +54,8 @@ def test_warp_operands_plain_hold_jax_field_of_view(name):
     """Each corner, clipped as K5 clips it, gives back lerf_tpu's two rows
     and two columns; the distances are lerf_tpu's float64 ones cast once."""
     matrix, in_sz, out_sz = case(name)
-    corners, dis, pad = tgeo.warp_operands_plain(np.linalg.inv(matrix),
-                                                 in_sz, out_sz)
+    corners, dis, _, pad = tgeo.warp_operands_plain(np.linalg.inv(matrix),
+                                                    in_sz, out_sz)
     jg = JaxWarpGeometry.create(in_sz, matrix, out_sz)
     assert pad == (jg.pad_x[0], jg.pad_y[0])
     corners = corners.numpy().reshape(out_sz + (2,))
