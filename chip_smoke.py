@@ -94,11 +94,13 @@ its plain PyTorch twin on the card:
 16. the LUT warp at ``supp_size`` 4 (K2 twice, K5 once), then K5 alone at
    support 4 beside its twin and its bound;
 17. the SR serving forms, LUT form, LeRF-G and LeRF-L:
-   ``upscale_dynamic`` at ×4 and ×2.5 (granularity 0 and 64) and ×0.5,
-   ``upscale_bucketed(..., 64)`` at ×4 (bucket 384×640) and
+   ``upscale_dynamic`` at ×4 and ×2.5 (granularity 0 and 64, which the
+   port ignores: PyTorch needs no shape buckets) and ×0.5,
+   ``upscale_bucketed(..., 64)`` at ×4 (``upscale`` itself) and
    ``upscale_batch`` of 4 frames at ×4, each bit-equal to ``upscale`` on
    the card frame by frame and each call K2 twice and K1 once (the batch
-   too); the batch's ms a frame beside ``upscale``'s;
+   too); the batch's and ``upscale_dynamic``'s ms a call beside
+   ``upscale``'s;
 18. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
@@ -372,11 +374,17 @@ def kernel_device_ms(fn, key, frames=20):
     host's launch overhead (CUDA events around back-to-back calls read the
     host's rate once a call's Python costs more than its kernel).  The
     mean over the launches the profiler recorded: in some windows it drops
-    rows, so a sum over ``frames`` would read low."""
-    rows = [(n, ms / n) for name, n, ms in device_rows(fn, frames)
-            if key in name]
-    launches = sum(n for n, _ in rows)
-    return sum(n * ms for n, ms in rows) / launches if launches else 0.0
+    rows, so a sum over ``frames`` would read low.  Returns the row's
+    fields: ``profiler_ms``, and ``profiler_launches`` (recorded) beside
+    ``frames`` (made) with ``profiler_complete`` false when rows were
+    dropped."""
+    rows = [(n * frames, ms * frames) for name, n, ms
+            in device_rows(fn, frames) if key in name]
+    launches = round(sum(n for n, _ in rows))
+    return {"profiler_ms": (sum(ms for _, ms in rows) / launches
+                            if launches else 0.0),
+            "profiler_launches": launches, "profiler_frames": frames,
+            "profiler_complete": launches >= frames}
 
 
 def device_part_only(fn, allowed, what):
@@ -894,7 +902,7 @@ def lut_warp_phases(dev, bank, frame, x):
                                 out_dtype=torch.uint8)
 
     ms = event_ms(k5_u8, iters=50)
-    profiler_ms = kernel_device_ms(k5_u8, "steering_warp_kernel")
+    prof = kernel_device_ms(k5_u8, "steering_warp_kernel")
     float_ms = event_ms(lambda: k5.steering_warp(feat_d, hyper_d, params),
                         iters=50)
     plain_ms = event_ms(lambda: quantize_device(steering_warp_codes_plain(
@@ -907,7 +915,7 @@ def lut_warp_phases(dev, bank, frame, x):
     nbytes, nops, f64 = k5_work((LR_H, LR_W), WARP_OUT, 3)
     b_ms, b_by, parts = k5_bound(nbytes, nops, f64)
     emit_timed({"kernel": "steering_warp", "out_dtype": "uint8", "ms": ms,
-                "profiler_ms": profiler_ms, "float_mode_ms": float_ms,
+                **prof, "float_mode_ms": float_ms,
                 "launches_per_frame": 1, "plain_ms": plain_ms,
                 "plain_geometry_copy_ms": plain_copy_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bound_parts_ms": parts,
@@ -1220,11 +1228,11 @@ def lerf_l_lut_phases(dev, bank, frame):
                                        linear=True)),
              warp_launches["steering_warp"])):
         ms = event_ms(fn, iters=50)
-        profiler_ms = kernel_device_ms(fn, name + "_kernel")
+        prof = kernel_device_ms(fn, name + "_kernel")
         plain_ms = event_ms(plain, iters=3, warmup=1)
         b_ms, b_by, parts = work()
         row = {"kernel": name, "mode": "linear", "out_dtype": "uint8",
-               "ms": ms, "profiler_ms": profiler_ms,
+               "ms": ms, **prof,
                "launches": launches, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by,
                "share_of_bound": b_ms / ms}
@@ -1320,13 +1328,13 @@ def k5_support4_phase(dev, bank, frame, x, params, geom):
         return k5.steering_warp(feat, hyper, params, out_dtype=torch.uint8)
 
     ms = event_ms(k5_u8, iters=30)
-    profiler_ms = kernel_device_ms(k5_u8, "steering_warp_kernel")
+    prof = kernel_device_ms(k5_u8, "steering_warp_kernel")
     plain_ms = event_ms(lambda: quantize_device(steering_warp_codes_plain(
         feat, hyper, geom), 255, nan_to_zero=True), iters=2, warmup=1)
     b_ms, b_by, parts = k5_bound(*k5_work((LR_H, LR_W), WARP_OUT, 3,
                                           support=4))
     row = {"kernel": "steering_warp", "support": 4, "out_dtype": "uint8",
-           "ms": ms, "profiler_ms": profiler_ms,
+           "ms": ms, **prof,
            "launches": launches["steering_warp"], "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bound_parts_ms": parts,
            "share_of_bound": b_ms / ms}
@@ -1338,10 +1346,9 @@ def serving_phases(dev, banks, frame):
     """Phase 17: the SR serving forms on the card, LUT form, LeRF-G and
     LeRF-L: ``upscale_dynamic`` at x4, x2.5 (granularity 0 and 64) and x0.5
     (antialiased), ``upscale_bucketed(..., 64)`` at x4 on the 360×640 frame
-    (bucket 384×640: out == scale·in holds for both) and ``upscale_batch``
-    of 4 frames at x4 — each bit-equal to ``upscale`` on the card, frame by
-    frame, and each call K2 twice and K1 once, the batch too.  Returns the
-    launch counts of the forms' calls."""
+    and ``upscale_batch`` of 4 frames at x4 — each bit-equal to ``upscale``
+    on the card, frame by frame, and each call K2 twice and K1 once, the
+    batch too.  Returns the launch counts of the forms' calls."""
     from lerf_torch.pipeline import LutPredictor
 
     rng = np.random.RandomState(5)
@@ -1569,15 +1576,15 @@ def main() -> int:
         fn = lp.lut_stage1 if name == "stage1" else lp.lut_stage2
         den, bias = (3 * q, 0) if name == "stage1" else (12 * q, 127)
         ms = event_ms(lambda: fn(inp, tables, MODES), iters=50)
-        profiler_ms = kernel_device_ms(lambda: fn(inp, tables, MODES),
-                                       "lut_stage_kernel")
+        prof = kernel_device_ms(lambda: fn(inp, tables, MODES),
+                                "lut_stage_kernel")
         plain_ms = event_ms(lambda: lp.lut_stage_plain(
             inp, tables, MODES, split_r=split_r, den=den, bias=bias),
             iters=5, warmup=1)
         nbytes, nops = k2_work(3, LR_H, LR_W, oc, len(tables.keys), 12)
         b_ms, b_by = bound(nbytes, nops)
         row = {"kernel": "lut_stage", "stage": name, "ms": ms,
-               "profiler_ms": profiler_ms, "launches_per_frame": 1,
+               **prof, "launches_per_frame": 1,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes, "ops": nops, "share_of_bound": b_ms / ms}
         emit_timed(row)
@@ -1588,7 +1595,7 @@ def main() -> int:
                                   out_dtype=torch.uint8)
 
     k1_ms = event_ms(k1_u8, iters=50)
-    k1_profiler_ms = kernel_device_ms(k1_u8, "steering_resize_kernel")
+    k1_prof = kernel_device_ms(k1_u8, "steering_resize_kernel")
     k1_float_ms = event_ms(lambda: k1.steering_resize(
         feat_d, hyper_d, geom, operands=ops), iters=50)
     k1_plain_ms = event_ms(lambda: _quantize_device(
@@ -1598,7 +1605,7 @@ def main() -> int:
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     emit_timed({"kernel": "steering_resize", "out_dtype": "uint8",
                 "tile": list(ops.tile), "ms": k1_ms,
-                "profiler_ms": k1_profiler_ms, "float_mode_ms": k1_float_ms,
+                **k1_prof, "float_mode_ms": k1_float_ms,
                 "launches_per_frame": 1,
                 "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
                 "bound_by": k1_by, "bytes": k1_bytes, "ops": k1_ops,
@@ -1687,8 +1694,8 @@ def main() -> int:
 
     # the kernels line: K1's and K5's linear modes and K5 at support 4
     # beside their main-path rows
-    keys = ("launches", "ms", "profiler_ms", "plain_ms", "bound_ms",
-            "bound_by", "share_of_bound")
+    keys = ("launches", "ms", "profiler_ms", "profiler_launches",
+            "plain_ms", "bound_ms", "bound_by", "share_of_bound")
     kernels[0]["linear"] = {"max_abs_err": lin["k1_linear"],
                             **{k: lin_rows["steering_resize"][k]
                                for k in keys}}

@@ -149,21 +149,24 @@ struct Window {
   float dx[KS], dy[KS];
   unsigned bits;
 
-  __device__ void set(const Axis& ar, const Axis& ac, int) {
+  __device__ void set(double sy, double sx, const Warp& w) {
     bits = 0u;
+    fill(sy, w.H, w.pad_r, r, dx, 0);
+    fill(sx, w.W, w.pad_c, q, dy, 2 * KS);
+  }
+  // _warp_axis at S = KS straight into registers, each value computed
+  // once (a constant S / 2, no Axis kept).
+  __device__ void fill(double src, int n, int pad, int* f, float* d,
+                       int shift) {
+    const double g = fmin(fmax(src, 0.0), (double)n);
+    const int left = (int)ceil(__dsub_rn(__dsub_rn(g, 0.5 * KS), kEps)) + pad;
+    const double gp = __dadd_rn(g, (double)pad);
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
-      const double d = ar.d(s);
-      r[s] = ar.at(s);
-      dx[s] = __double2float_rn(d);
-      if constexpr (kBits) bits |= branch(d) << (2 * s);
-    }
-#pragma unroll
-    for (int t = 0; t < KS; ++t) {
-      const double d = ac.d(t);
-      q[t] = ac.at(t);
-      dy[t] = __double2float_rn(d);
-      if constexpr (kBits) bits |= branch(d) << (2 * (KS + t));
+      f[s] = min(max(left + s, 0), n - 1);
+      const double d64 = __dsub_rn(gp, (double)f[s]);
+      d[s] = __double2float_rn(d64);
+      if constexpr (kBits) bits |= branch(d64) << (shift + 2 * s);
     }
   }
   __device__ int support() const { return KS; }
@@ -183,10 +186,10 @@ struct Window<0, kBits> {
   Axis ar, ac;
   int S;
 
-  __device__ void set(const Axis& ar_, const Axis& ac_, int S_) {
-    ar = ar_;
-    ac = ac_;
-    S = S_;
+  __device__ void set(double sy, double sx, const Warp& w) {
+    ar = axis(sy, w.H, w.pad_r, w.S);
+    ac = axis(sx, w.W, w.pad_c, w.S);
+    S = w.S;
   }
   __device__ int support() const { return S; }
   __device__ int row(int s) const { return ar.at(s); }
@@ -207,9 +210,8 @@ __device__ __forceinline__ Window<KS, kBits> window_at(const Warp& w,
   const double den = __dadd_rn(col.den, __dmul_rn(w.m[7], y));
   const double sx = __ddiv_rn(__dadd_rn(col.num_x, __dmul_rn(w.m[1], y)), den);
   const double sy = __ddiv_rn(__dadd_rn(col.num_y, __dmul_rn(w.m[4], y)), den);
-  const int S = KS > 0 ? KS : w.S;      // a constant S / 2 where it can be
   Window<KS, kBits> p;
-  p.set(axis(sy, w.H, w.pad_r, S), axis(sx, w.W, w.pad_c, S), S);
+  p.set(sy, sx, w);
   return p;
 }
 
@@ -224,14 +226,16 @@ __device__ __forceinline__ Entry<kLinear> decode(
     const int* img, const int* codes, int c, int sr, int sc, int H, int W,
     float norm, float max_sigma) {
   const size_t e = ((size_t)c * H + max(sr, 0)) * W + max(sc, 0);
-  const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
   if constexpr (kLinear) {
-    return make_float2(v, (float)__ldg(codes + e) / norm * 2.0f - 1.0f);
+    const float a = (float)__ldg(codes + e) / norm * 2.0f - 1.0f;
+    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
+    return make_float2(v, a);
   } else {
     const int* code = codes + e * 3;
     const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
     const float sx = (float)__ldg(code + 1) / norm * max_sigma;
     const float sy = (float)__ldg(code + 2) / norm * max_sigma;
+    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
     return make_float4(v, 2.0f * rho, sx, sy);
   }
 }
@@ -348,19 +352,19 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     for (int c = 0; c < C; ++c) {
       float wn = 0.0f, ws = 0.0f;
+      // each row, distance and branch read where it is used: hoisted out
+      // of the t loop they cost the support-2 path about 2 %
+      // (lerf_torch/tools/probe_lut_kernels.py)
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        const int r = p.row(s);
-        const float dx = p.dxs(s);
-        const unsigned bx = p.bxs(s);
 #pragma unroll
         for (int t = 0; t < S; ++t) {
           const Entry<kLinear> v =
-              shared ? tile[(c * nr + r - r_lo) * nc + p.col(t) - c_lo]
-                     : decode<kLinear>(img, codes, c, r - w.pad_r,
+              shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
+                     : decode<kLinear>(img, codes, c, p.row(s) - w.pad_r,
                                        p.col(t) - w.pad_c, w.H, w.W, norm,
                                        max_sigma);
-          const float wt = weight(v, dx, p.dyt(t), bx, p.byt(t));
+          const float wt = weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));
           wn += wt * v.x;
           ws += wt;
         }

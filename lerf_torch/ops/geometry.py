@@ -263,28 +263,6 @@ class ResizeOperands:
                    idx_x=idx_x, idx_y=idx_y, dis_x=dis_x, dis_y=dis_y,
                    pad=pad, aa_scale=m, wmask_x=wm_x, wmask_y=wm_y)
 
-    def for_bucket(self, in_bucket: Sequence[int], out_bucket: Sequence[int]):
-        """The operands for bucket-shaped frames (``upscale_dynamic`` with
-        ``granularity > 0``): the true geometry, the arrays padded to the
-        out bucket (extra outputs gather plane index 0 at distance 0 and
-        are cropped).  The input needs nothing: the callers zero the
-        feature and re-clamp the codes beyond the valid region, which
-        reproduces the true plane's own ±1 pad rows.  Upscale form only."""
-        if self.aa_scale < 1.0:
-            raise ValueError("bucketed frames are upscale-only")
-        hb, wb = (int(v) for v in in_bucket)
-        ohb, owb = (int(v) for v in out_bucket)
-        if (hb < self.in_sz[0] or wb < self.in_sz[1]
-                or ohb < self.out_sz[0] or owb < self.out_sz[1]):
-            raise ValueError("bucket smaller than the true shapes")
-        padx = (0, ohb - self.out_sz[0])
-        pady = (0, owb - self.out_sz[1])
-        return dataclasses.replace(
-            self,
-            idx_x=np.pad(self.idx_x, padx), idx_y=np.pad(self.idx_y, pady),
-            dis_x=np.pad(self.dis_x, (padx, (0, 0))),
-            dis_y=np.pad(self.dis_y, (pady, (0, 0))))
-
 
 def _warp_grid(matrix: np.ndarray, in_sz, out_sz):
     """Inverse-homography projected grid, float64.

@@ -94,9 +94,8 @@ class ResizeOperands(NamedTuple):
     mode takes ``lin_*`` = float32(``min_scale``·dis) scaled in float64,
     with the branch masks of those float64 values (``mask_*``, bit 0
     negative, bit 1 positive, :func:`~lerf_torch.ops.resample.branch_bits`).
-    ``in_sz`` is the frame K1 reads (a bucket frame may hold the image and
-    its pad rows); ``out_sz``, ``support``, ``antialias`` and
-    ``min_scale`` are the geometry's."""
+    ``in_sz``, ``out_sz``, ``support``, ``antialias`` and ``min_scale``
+    are the geometry's."""
     rows: torch.Tensor     # [OH, S]
     cols: torch.Tensor     # [OW, S]
     dis_x: Optional[torch.Tensor]    # [OH, S] Gaussian mode
@@ -125,19 +124,18 @@ class ResizeOperands(NamedTuple):
 
     @classmethod
     def from_serving(cls, ops: geo.ResizeOperands, device,
-                     linear: bool = False, frame=None):
+                     linear: bool = False):
         """From the serving geometry: its true support only (a support
         bucket's extra slots carry zero weight, and adding zeros changes no
         sum), rows and columns moved from the ±pad frame to unpadded
-        coordinates — the static geometry's own operands.  ``frame``: the
-        (bucket) frame K1 reads, when larger than the image."""
+        coordinates — the static geometry's own operands."""
         s = ops.true_support
         offs = np.arange(s, dtype=np.int64)[None, :]
         return cls._from_axes(
             ops.idx_x.astype(np.int64)[:, None] + offs - ops.pad,
             ops.idx_y.astype(np.int64)[:, None] + offs - ops.pad,
             ops.dis_x[:, :s], ops.dis_y[:, :s],
-            in_sz=tuple(frame or ops.in_sz), out_sz=tuple(ops.out_sz),
+            in_sz=tuple(ops.in_sz), out_sz=tuple(ops.out_sz),
             antialias=ops.aa_scale < 1.0, min_scale=ops.aa_scale,
             linear=linear, device=device)
 
@@ -218,32 +216,31 @@ def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
 
 
 def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
-                            ops: geo.ResizeOperands, *, out_frame=None,
+                            ops: geo.ResizeOperands, *,
                             max_sigma: float = 10.0, norm: int = 255,
                             linear: bool = False,
+                            operands: ResizeOperands = None,
                             out_dtype: torch.dtype = torch.float32):
-    """The resize of ``upscale_dynamic``: the stage outputs of a frame
-    ``[C, H, W]`` — the image, or a bucket holding it, zero feature and
-    re-clamped codes beyond it — resized through the serving geometry
-    ``ops`` → [C, OH, OW] of the true output.  CPU tensors take the plain
-    rings resize (``ops.for_bucket(frame, out_frame)`` on a bucket, as
-    lerf_tpu's program does, then cropped); CUDA tensors K1 on
-    :meth:`ResizeOperands.from_serving`."""
+    """The resize of ``upscale_dynamic``: the stage outputs ``[C, H, W]``
+    of the image resized through the serving geometry ``ops`` → [C, OH,
+    OW].  CPU tensors take the plain rings resize; CUDA tensors K1 on
+    ``operands``, :meth:`ResizeOperands.from_serving` of ``ops`` (a
+    predictor keeps them), made here when not given."""
     _check(feat, codes, norm, linear, out_dtype, "steering_resize_serving")
-    frame = tuple(feat.shape[1:])
-    oh, ow = ops.out_sz
+    if tuple(feat.shape[1:]) != tuple(ops.in_sz):
+        raise ValueError(f"serving geometry is for {tuple(ops.in_sz)}, "
+                         f"image is {tuple(feat.shape[1:])}")
     if feat.device.type == "cpu":
-        o = ops if frame == tuple(ops.in_sz) else \
-            ops.for_bucket(frame, out_frame or ops.out_sz)
         out = resize_codes_rings_plain(
-            feat, codes, resize_rings(o, linear=linear), linear=linear,
-            max_sigma=max_sigma, norm=norm, pad=o.pad)
-        return _finish(out[:, :oh, :ow].contiguous(), norm, linear, out_dtype)
+            feat, codes, resize_rings(ops, linear=linear), linear=linear,
+            max_sigma=max_sigma, norm=norm, pad=ops.pad)
+        return _finish(out, norm, linear, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError("steering_resize_serving: unsupported device "
                          f"{feat.device}")
-    operands = ResizeOperands.from_serving(ops, feat.device, linear=linear,
-                                           frame=frame)
+    if operands is None:
+        operands = ResizeOperands.from_serving(ops, feat.device,
+                                               linear=linear)
     return _launch(feat, codes, operands, max_sigma=max_sigma, norm=norm,
                    linear=linear, out_dtype=out_dtype)
 

@@ -15,12 +15,14 @@ steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
 
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
-device copy of each shape's resize geometry, and for a few homographies
+device copy of each shape's resize geometry and of the last dynamic
+requests' serving geometry, and for a few homographies
 the warp's parameters (on a card) or host geometry (on the CPU) and its
-validity mask.  The bucketed and dynamic SR forms keep lerf_tpu's
-construction (a bucket frame, stages re-clamped, the serving geometry)
-and its results, bit-equal to ``upscale``; ``upscale_batch`` folds the
-batch into the channel axis, so a batch is one launch of each kernel.
+validity mask.  PyTorch compiles nothing per shape, so lerf_tpu's shape
+buckets are not needed: ``upscale_bucketed`` is ``upscale``, and
+``upscale_dynamic`` serves on the image's own frame through the serving
+geometry, bit-equal to ``upscale``; ``upscale_batch`` folds the batch
+into the channel axis, so a batch is one launch of each kernel.
 """
 from __future__ import annotations
 
@@ -47,6 +49,9 @@ from .ops.resample import quantize_device as _quantize_device  # noqa: F401
 # the plain twin (on a card K5 takes the matrix and derives the rest), so
 # only the most recently used few stay.
 WARP_CACHE_SIZE = 4
+# Dynamic-scale requests' serving geometries a predictor keeps (a few KB
+# each): a server sees few distinct (size, scale) pairs at a time.
+SERVING_CACHE_SIZE = 64
 
 
 def _out_dtype(norm: int):
@@ -75,112 +80,59 @@ def _rgb_chw(img_hwc) -> np.ndarray:
     return np.ascontiguousarray(_rgb_hwc(img_hwc).transpose(2, 0, 1))
 
 
-def _clamp_valid(t: torch.Tensor, h_ax: int, w_ax: int, clamp_hw):
-    """Re-clamp rows / cols beyond the valid (h, w) region to the last
-    valid index (``lerf_tpu.pipeline._clamp_valid``): on a bucket-padded
-    tensor this reproduces the replicate-padding values the unpadded
-    program's next stage would see.  A torch index op on the tensor's
-    device."""
-    if clamp_hw is None:
-        return t
-    h, w = clamp_hw
-    rows = torch.arange(t.shape[h_ax], device=t.device).clamp_(max=h - 1)
-    cols = torch.arange(t.shape[w_ax], device=t.device).clamp_(max=w - 1)
-    return t.index_select(h_ax, rows).index_select(w_ax, cols)
-
-
-def _zero_beyond(feat: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """The feature with rows / cols beyond (h, w) zeroed: the resample
-    constant-pads the image but edge-pads the hyper maps, so on a bucket
-    frame the feature there must be the true frame's zero pad while the
-    codes stay re-clamped."""
-    valid = ((torch.arange(feat.shape[-2], device=feat.device) < h)[:, None]
-             & (torch.arange(feat.shape[-1], device=feat.device) < w)[None])
-    return torch.where(valid, feat, torch.zeros_like(feat))
-
-
-def _bucket_prep(img_hwc, scale_h, scale_w, granularity):
-    """Host prep of ``upscale_bucketed`` (``lerf_tpu.pipeline._bucket_prep``):
-    ``(padded_hwc, (hb, wb), (h, w))``, the image edge-padded to the next
-    ``granularity`` multiple, or ``None`` when the projection grid ``g(o) =
-    o/s - 1/2 + 1/(2s)`` is not translation-invariant for both the real and
-    the bucket shape (``out == scale·in`` must hold exactly; the
-    reference's ``ceil`` output size breaks it otherwise) and the caller
-    takes the per-shape path."""
-    h, w = img_hwc.shape[:2]
-    g = int(granularity)
-    hb, wb = -(-h // g) * g, -(-w // g) * g
-
-    def aligned(n, s):
-        return abs(n * s - round(n * s)) < 1e-9
-
-    if not (aligned(h, scale_h) and aligned(w, scale_w)
-            and aligned(hb, scale_h) and aligned(wb, scale_w)):
-        return None
-    padded = np.pad(img_hwc, ((0, hb - h), (0, wb - w), (0, 0)), mode="edge")
-    return padded, (hb, wb), (h, w)
-
-
-def _dyn_resize_host(img_hwc, scale_h, scale_w, granularity, supp_size):
+def _dyn_resize_host(in_sz, scale_h, scale_w, supp_size):
     """Host prep of ``upscale_dynamic`` (``lerf_tpu.pipeline.
-    _dyn_resize_host``): ``(operands, buckets, image, out_sz)`` — the
-    serving geometry (:class:`~lerf_torch.ops.geometry.ResizeOperands`),
-    ``((hb, wb), (ohb, owb))`` with ``image`` edge-padded to the in-bucket
-    when ``granularity > 0`` (else ``None`` and the image) — or ``None``
-    outside the dynamic envelope (support ≠ 2, a downscale beyond the 1/32
-    support cap, the scale-1 skip), where the caller takes ``upscale``.
-
-    Downscale (or mixed) requests serve through the antialiased
-    support-bucket operands (``ResizeOperands.create_any``); the bucket
-    frames are upscale-only, so those ignore ``granularity``."""
+    _dyn_resize_host``): the serving geometry
+    (:class:`~lerf_torch.ops.geometry.ResizeOperands`) of an ``in_sz``
+    image at the scale, or ``None`` outside the dynamic envelope (support ≠ 2, a
+    downscale beyond the 1/32 support cap, the scale-1 skip), where the
+    caller takes ``upscale``.  Downscale (or mixed) requests serve through
+    the antialiased support-bucket operands (``ResizeOperands.create_any``).
+    """
     sh, sw = float(scale_h), float(scale_w)
     if supp_size != 2 or (sh == 1.0 and sw == 1.0):
         return None
-    in_sz = img_hwc.shape[:2]
     try:
         if sh >= 1.0 and sw >= 1.0:
-            ops = geo.ResizeOperands.create(in_sz, scale_factors=[sh, sw])
-        else:
-            ops = geo.ResizeOperands.create_any(in_sz, scale_factors=[sh, sw])
-            granularity = 0
+            return geo.ResizeOperands.create(in_sz, scale_factors=[sh, sw])
+        return geo.ResizeOperands.create_any(in_sz, scale_factors=[sh, sw])
     except ValueError:
         return None
-    out_sz = ops.out_sz
-    if granularity > 0:
-        g = int(granularity)
-        hb, wb = -(-in_sz[0] // g) * g, -(-in_sz[1] // g) * g
-        ohb, owb = -(-out_sz[0] // g) * g, -(-out_sz[1] // g) * g
-        padded = np.pad(img_hwc, ((0, hb - in_sz[0]), (0, wb - in_sz[1]),
-                                  (0, 0)), mode="edge")
-        return ops, ((hb, wb), (ohb, owb)), padded, out_sz
-    return ops, None, img_hwc, out_sz
+
+
+def _lru(cache: OrderedDict, key, make, size: int):
+    """``cache[key]``, made by ``make()`` when missing; at most ``size``
+    entries, the least recently used dropped first."""
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    cache[key] = make()
+    while len(cache) > size:
+        cache.popitem(last=False)
+    return cache[key]
 
 
 def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
                 device):
     """(the warp K5 takes, host validity mask) for one (in_sz, homography,
-    out_sz), kept in ``cache`` (least recently used first, at most
-    :data:`WARP_CACHE_SIZE` entries) under the key JAX gives its warp
-    programs (``pipeline.py:1221,1272``).  The warp is :class:`WarpParams`
-    on a card (the matrix: K5 derives the geometry itself) and the host
+    out_sz), kept in ``cache`` (at most :data:`WARP_CACHE_SIZE` entries)
+    under the key JAX gives its warp programs (``pipeline.py:1221,1272``).
+    The warp is :class:`WarpParams` on a card (the matrix: K5 derives the
+    geometry itself) and the host
     :class:`~lerf_torch.ops.geometry.WarpGeometry` its plain twin reads on
     the CPU, both at ``support``.  The mask is geometry only, computed on
     the host as ``nearest_warp_mask_host``."""
     matrix = np.asarray(matrix, dtype=np.float64)
-    key = (tuple(in_sz), matrix.tobytes(), tuple(out_sz))
-    if key in cache:
-        cache.move_to_end(key)
-        return cache[key]
-    warp = (WarpParams.create(in_sz, matrix, out_sz, support=support)
-            if device.type == "cuda"
-            else geo.WarpGeometry.create(in_sz, matrix, out_sz,
-                                         support=support))
-    mask = nearest_warp_mask_host(tuple(in_sz), matrix, tuple(out_sz),
-                                  border=4)
-    cache[key] = (warp, mask)
-    while len(cache) > WARP_CACHE_SIZE:
-        cache.popitem(last=False)
-    return cache[key]
+
+    def make():
+        warp = (WarpParams.create(in_sz, matrix, out_sz, support=support)
+                if device.type == "cuda"
+                else geo.WarpGeometry.create(in_sz, matrix, out_sz,
+                                             support=support))
+        return warp, nearest_warp_mask_host(tuple(in_sz), matrix,
+                                            tuple(out_sz), border=4)
+    return _lru(cache, (tuple(in_sz), matrix.tobytes(), tuple(out_sz)),
+                make, WARP_CACHE_SIZE)
 
 
 def _unported(what: str, item: str):
@@ -192,8 +144,7 @@ class _Predictor:
     """What both deploy forms share: the resize and warp after the stages,
     and the SR serving forms.  A form supplies ``_input`` (its device input
     from [..., C, H, W] uint8 / float pixels), ``_stages`` (→ int32 feat
-    [..., H, W] and hyper codes [..., H, W, oC], ``clamp_hw`` re-clamping
-    beyond a bucket's valid region after every stage) and ``_aux`` (the
+    [..., H, W] and hyper codes [..., H, W, oC]) and ``_aux`` (the
     types ``return_aux`` gives).  The kernel is the steerable Gaussian, or
     with ``linear`` the amplified-linear one on the first hyper code."""
 
@@ -204,6 +155,7 @@ class _Predictor:
         self.max_sigma = max_sigma
         self.norm = norm
         self._resize_cache: Dict = {}
+        self._serving_cache: OrderedDict = OrderedDict()
         self._warp_cache: OrderedDict = OrderedDict()
 
     def _skips(self, scale_h: float, scale_w: float) -> bool:
@@ -264,66 +216,54 @@ class _Predictor:
 
     def upscale_bucketed(self, img_hwc: np.ndarray, scale_h: float,
                          scale_w: float, granularity: int = 64):
-        """SR on a shape bucket (``lerf_tpu``'s ``upscale_bucketed``): the
-        image edge-padded to the next ``granularity`` multiple and the
-        stages re-clamped beyond it after every stage, so the stage codes
-        on the image are the unpadded frame's; where ``out == scale·in``
-        fails for the image or the bucket, :meth:`upscale` itself.
+        """SR for callers written against ``lerf_tpu``'s shape buckets:
+        :meth:`upscale` itself.  lerf_tpu pads to a ``granularity``
+        multiple so that XLA compiles one program a bucket; PyTorch runs
+        eagerly and compiles nothing per shape, so a bucket would only add
+        stage work on the pad.  Equal to lerf_tpu's ``upscale_bucketed``
+        wherever that equals its own ``upscale`` (everywhere for the
+        Gaussian; its LeRF-L bucket grid can sit an ulp off the image's,
+        where the amplified-linear kernel jumps at |d| = 1)."""
+        return self.upscale(img_hwc, scale_h, scale_w)
 
-        lerf_tpu then resizes on the bucket's geometry and crops, whose
-        float64 grid can sit an ulp off the image's: harmless for the
-        Gaussian, but the amplified-linear kernel is discontinuous at |d| =
-        1, and at ×3 on 13×17 (bucket 64) lerf_tpu's LeRF-L bucketed frame
-        differs from its own ``upscale`` on a quarter of the pixels.  Here
-        the resize runs on the image's own geometry over the stage codes
-        cropped back to it, bit-equal to :meth:`upscale` in both kernels.
-        PyTorch compiles no program per shape, so the bucket saves nothing;
-        the form serves callers written against it."""
-        img = _rgb_hwc(img_hwc)
-        sh, sw = float(scale_h), float(scale_w)
-        prep = None if self._skips(sh, sw) else \
-            _bucket_prep(img, sh, sw, granularity)
-        if prep is None:
-            return self.upscale(img, sh, sw)
-        padded, _, (h, w) = prep
-        feat, hyper = self._stages(self._input(_rgb_chw(padded)),
-                                   clamp_hw=(h, w))
-        geom, operands = self._resize_fn((h, w), (sh, sw))
-        return self._host_frame(self._resize(feat[..., :h, :w],
-                                             hyper[..., :h, :w, :], geom,
-                                             operands))
+    def _serving_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
+        """(serving geometry, its K1 operands on a card, else ``None``) for
+        one (in_sz, scale), or ``None`` outside the dynamic envelope; the
+        last :data:`SERVING_CACHE_SIZE` kept."""
+        def make():
+            ops = _dyn_resize_host(in_sz, *scale, self.supp_size)
+            if ops is None:
+                return None
+            if self.device.type != "cuda":
+                return ops, None
+            return ops, k1.ResizeOperands.from_serving(ops, self.device,
+                                                       linear=self.linear)
+        return _lru(self._serving_cache, (tuple(in_sz), scale), make,
+                    SERVING_CACHE_SIZE)
 
     def upscale_dynamic(self, img_hwc: np.ndarray, scale_h: float,
                         scale_w: float, granularity: int = 0):
         """Arbitrary-scale SR through the serving geometry (``lerf_tpu``'s
         ``upscale_dynamic``, synchronous): per axis the left neighbour in a
         fixed-pad frame and the float64 distances
-        (:class:`~lerf_torch.ops.geometry.ResizeOperands`); with
-        ``granularity > 0`` on a bucket frame, the stages re-clamped as in
-        :meth:`upscale_bucketed`.  Antialiased downscales serve down to
-        scale 1/32; scale 1, support ≠ 2 and smaller scales take
-        :meth:`upscale`.  Bit-equal to :meth:`upscale`: on the CPU the
-        rings resize, on a card K1 on the serving geometry's true support
-        (``kernels.resize.steering_resize_serving``)."""
+        (:class:`~lerf_torch.ops.geometry.ResizeOperands`).  Antialiased
+        downscales serve down to scale 1/32; scale 1, support ≠ 2 and
+        smaller scales take :meth:`upscale`.  ``granularity`` (lerf_tpu's
+        bucket frame, one compiled program a bucket) changes nothing here:
+        PyTorch compiles nothing per shape.  Bit-equal to :meth:`upscale`:
+        on the CPU the rings resize, on a card K1 on the serving geometry's
+        true support (``kernels.resize.steering_resize_serving``)."""
         img = _rgb_hwc(img_hwc)
-        prep = _dyn_resize_host(img, scale_h, scale_w, granularity,
-                                self.supp_size)
-        if prep is None:
+        entry = self._serving_fn(img.shape[:2],
+                                 (float(scale_h), float(scale_w)))
+        if entry is None:
             return self.upscale(img, scale_h, scale_w)
-        ops, buckets, image, _ = prep
-        x = self._input(_rgb_chw(image))
-        if buckets is None:
-            feat, hyper = self._stages(x)
-        else:
-            h, w = img.shape[:2]
-            feat, hyper = self._stages(x, clamp_hw=(h, w))
-            feat = _zero_beyond(feat, h, w)
-        out = k1.steering_resize_serving(
-            feat, self._codes(hyper), ops,
-            out_frame=None if buckets is None else buckets[1],
+        ops, operands = entry
+        feat, hyper = self._stages(self._input(_rgb_chw(img)))
+        return self._host_frame(k1.steering_resize_serving(
+            feat, self._codes(hyper), ops, operands=operands,
             max_sigma=self.max_sigma, norm=self.norm, linear=self.linear,
-            out_dtype=_out_dtype(self.norm))
-        return self._host_frame(out)
+            out_dtype=_out_dtype(self.norm)))
 
     def upscale_batch(self, imgs_bhwc: np.ndarray, scale_h: float,
                       scale_w: float) -> np.ndarray:
@@ -464,31 +404,23 @@ class LutPredictor(_Predictor):
             raise ValueError("image values must lie in 0..255")
         return torch.from_numpy(x).to(self.device)
 
-    def _stages(self, img_i32: torch.Tensor, clamp_hw=None):
+    def _stages(self, img_i32: torch.Tensor):
         """img [..., H, W] int32 → (feat int32 [..., H, W], hyper int32
         [..., H, W, oC]).
 
         Stage loop parity: eval_lut_sr.py:541-577 — each feature stage uses
         its OWN table set; intermediate stages average over modes·4 with a
         +norm//2 bias, the final feature stage over modes with no bias.
-        ``clamp_hw=(h, w)`` re-clamps rows / cols beyond the valid region
-        after every stage (``lerf_tpu``'s ``_stages_fn``): on a
-        bucket-padded input each stage then sees the unpadded frame's
-        replicate padding, and the bucketed forms stay bit-equal.
         """
         interval = self.bank.interval
         feat = img_i32
         for tables in self._inter:
-            feat = _clamp_valid(
-                lut_stage1_intermediate(feat, tables, self.modes,
-                                        interval=interval, norm=self.norm),
-                -2, -1, clamp_hw)
-        feat = _clamp_valid(lut_stage1(feat, self._s1, self.modes,
-                                       interval=interval, norm=self.norm),
-                            -2, -1, clamp_hw)
-        hyper = _clamp_valid(lut_stage2(feat, self._s2, self.modes2,
-                                        interval=interval, norm=self.norm),
-                             -3, -2, clamp_hw)
+            feat = lut_stage1_intermediate(feat, tables, self.modes,
+                                           interval=interval, norm=self.norm)
+        feat = lut_stage1(feat, self._s1, self.modes, interval=interval,
+                          norm=self.norm)
+        hyper = lut_stage2(feat, self._s2, self.modes2, interval=interval,
+                           norm=self.norm)
         return feat, hyper
 
     def _aux(self, feat, hyper):
@@ -577,22 +509,18 @@ class NetPredictor(_Predictor):
         return torch.from_numpy(np.asarray(chw).astype(np.float32)
                                 / self.norm).to(self.device)
 
-    def _stages(self, img_f: torch.Tensor, clamp_hw=None):
+    def _stages(self, img_f: torch.Tensor):
         """img [..., H, W] float32 in [0,1] → (feat int32 [..., H, W],
         hyper codes int32 [..., H, W, oC]).  ``two_stage=False`` skips the
         feature net like the reference (eval_model.py:124-129): feat =
-        round(img·norm), the hyper net sees the image.  ``clamp_hw``
-        re-clamps each stage output beyond a bucket's valid region, as
-        :meth:`LutPredictor._stages` does (the SRNet stages edge-pad like
-        the LUT stages)."""
+        round(img·norm), the hyper net sees the image."""
         if self.two_stage:
-            feat = _clamp_valid(self.stage1_fn(img_f), -2, -1, clamp_hw)
+            feat = self.stage1_fn(img_f)
             hyper_in = divide_exact(feat, self.norm)
         else:
             feat = torch.round(img_f * self.norm)
             hyper_in = img_f
-        hyper = _clamp_valid(self.stage2_fn(hyper_in), -3, -2, clamp_hw)
-        return feat.to(torch.int32), hyper
+        return feat.to(torch.int32), self.stage2_fn(hyper_in)
 
     def _aux(self, feat, hyper):
         """feat float32 (0..255) and hyper float32 in [0,1], the types

@@ -2,7 +2,8 @@
 """What bounds K1, K2 and K5 on the card: time variants of each kernel with
 one part taken out.
 
-    python3 lerf_torch/tools/probe_lut_kernels.py
+    python3 lerf_torch/tools/probe_lut_kernels.py [--k5 OTHER.cu ...]
+                                                  [--rounds N]
 
 Each variant is the kernel's source with one text substitution, built on
 its own with the package's nvcc flags and timed with CUDA events beside
@@ -31,8 +32,16 @@ stages' outputs.
   4 output rows a thread instead of 2; no register cap, or one for 6
   blocks an SM instead of 4; 32-row tiles; the host's per-pixel operands (24 bytes an output, made by
   ``WarpOperands.create``) read instead of the geometry derived in
-  float64; and the first design, ``steering_warp_first.cu`` beside this
-  script (host operands, each neighbour decoded, one output a thread).
+  float64; each source pixel's feature loaded before its codes; and the
+  first design, ``steering_warp_first.cu`` beside this script (host
+  operands, each neighbour decoded, one output a thread).
+* ``--k5 OTHER.cu``: another K5 source (an earlier commit's
+  ``steering_warp.cu``, say; one whose ``lerf_steering_warp`` takes no
+  support and mode is called with the support-2 Gaussian arguments only),
+  timed beside the kernel as built in ``--rounds`` alternating rounds, so
+  the two compare within one process on one card.  ``--sass`` also prints,
+  for K5 as built and each ``--k5`` source, each kernel's registers and its
+  SASS instruction count by opcode (``cuobjdump``).
 
 Only variants that keep the arithmetic compute the right numbers; each
 line says whether its output equals the kernel's.  Prints one JSON line
@@ -40,9 +49,13 @@ per variant and the card line (name, power limit).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import tempfile
 
@@ -157,6 +170,30 @@ VARIANTS = {
                                      "constexpr int kMinBlocks = 6;")],
         "32-row tiles": [("constexpr int kTileH = 16;",
                           "constexpr int kTileH = 32;")],
+        # the support-2 Gaussian path's loop order, fields and load order
+        "row, distance and branch hoisted out of the column loop": [
+            ("#pragma unroll\n      for (int s = 0; s < S; ++s) {\n",
+             "#pragma unroll\n      for (int s = 0; s < S; ++s) {\n"
+             "        const int r = p.row(s);\n        const float dx = p.dxs(s);\n"
+             "        const unsigned bx = p.bxs(s);\n"),
+            ("shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]",
+             "shared ? tile[(c * nr + r - r_lo) * nc + p.col(t) - c_lo]"),
+            ("decode<kLinear>(img, codes, c, p.row(s) - w.pad_r,",
+             "decode<kLinear>(img, codes, c, r - w.pad_r,"),
+            ("weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));",
+             "weight(v, dx, p.dyt(t), bx, p.byt(t));")],
+        "support fixed at 2 (no run-time field)": [
+            ("  int H, W, OH, OW, pad_r, pad_c, S;",
+             "  int H, W, OH, OW, pad_r, pad_c;\n  static constexpr int S = 2;"),
+            ("  w->S = S;\n", "")],
+        "no branch word in the Gaussian window": [
+            ("    bits = 0u;\n    fill(sy", "    if constexpr (kBits) bits = 0u;\n    fill(sy")],
+        "feature loaded before the codes": [
+            ("    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
+             " : 0.0f;\n    return make_float4(", "    return make_float4("),
+            ("    const int* code = codes + e * 3;\n",
+             "    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
+             " : 0.0f;\n    const int* code = codes + e * 3;\n")],
         # the entry takes the host's corners and distances after the
         # stream; each thread reads its windows from them
         "host operands": [
@@ -192,20 +229,23 @@ OTHER_SOURCES = {"steering_warp": {"first design": "steering_warp_first.cu"}}
 K1_TILES = ((16, 64), (8, 64), (16, 32), (8, 32), (32, 32), (4, 64))
 
 
-def build_variants(tmp):
+def build_variants(tmp, k5_sources=()):
     """Every variant's shared library, built in parallel: {(kernel,
-    variant): path}."""
+    variant): path}; ``k5_sources``, other K5 sources, under their
+    paths."""
     from lerf_torch.ops.kernels import _build
 
     jobs = {}
     here = os.path.dirname(os.path.abspath(__file__))
-    for kernel, others in OTHER_SOURCES.items():
-        for name, fname in others.items():
-            stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
-            with open(os.path.join(here, fname)) as f, \
-                    open(stem + ".cu", "w") as g:
-                g.write(f.read())
-            jobs[(kernel, name)] = stem
+    others = [(kernel, name, os.path.join(here, fname))
+              for kernel, named in OTHER_SOURCES.items()
+              for name, fname in named.items()]
+    for kernel, name, path in others + [("steering_warp", p, p)
+                                        for p in k5_sources]:
+        stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
+        with open(path) as f, open(stem + ".cu", "w") as g:
+            g.write(f.read())
+        jobs[(kernel, name)] = stem
     for kernel, variants in VARIANTS.items():
         with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
             src = f.read()
@@ -226,9 +266,44 @@ def build_variants(tmp):
     return {key: stem + ".so" for key, stem in jobs.items()}
 
 
-def main() -> int:
+def sass_rows(lib):
+    """{kernel function: (registers, Counter of SASS opcodes)} of the K5
+    kernels in a built library, by ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    regs = dict(re.findall(
+        r"Function (\S*steering_warp_kernel\S*):\s*REG:(\d+)",
+        subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                       text=True, check=True).stdout))
+    rows, fn = {}, None
+    for line in subprocess.run([tool, "-sass", lib], capture_output=True,
+                               text=True, check=True).stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if "steering_warp_kernel" in head.group(1) \
+                else None
+            if fn:
+                rows[fn] = (int(regs.get(fn, -1)), collections.Counter())
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if fn and op:
+            rows[fn][1][op.group(1)] += 1
+    return rows
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k5", action="append", default=[], metavar="OTHER.cu",
+                    help="another K5 source to time beside the kernel")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="alternating rounds of the --k5 comparison")
+    ap.add_argument("--sass", action="store_true",
+                    help="print K5's registers and SASS opcode counts")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_lut_kernels: needs a CUDA card", file=sys.stderr)
         return 1
@@ -286,7 +361,15 @@ def main() -> int:
               flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp)
+        libs = build_variants(tmp, args.k5)
+        for name in ["as built"] + args.k5 if args.sass else []:
+            for fn, (nreg, opc) in sass_rows(libs[("steering_warp",
+                                                   name)]).items():
+                print(json.dumps({"kernel": "steering_warp", "source": name,
+                                  "function": fn, "registers": nreg,
+                                  "instructions": sum(opc.values()),
+                                  "opcodes": dict(sorted(opc.items()))}),
+                      flush=True)
         fns = {}
         for key, path in libs.items():
             fn = getattr(ctypes.CDLL(path), "lerf_" + key[0])
@@ -377,6 +460,23 @@ def main() -> int:
         ms = timed(fns[("steering_warp", "first design")], first_args(out),
                    "K5 first design")
         emit("steering_warp", "first design", ms, bool(torch.equal(out, want)))
+
+        # other K5 sources against the kernel as built, alternating
+        def other_args(path):
+            with open(path) as f:
+                legacy = "int S, int linear" not in f.read()
+            a = k5_args(out, 1)
+            return a[:11] + a[13:] if legacy else a
+
+        other = {path: other_args(path) for path in args.k5}
+        for rnd in range(args.rounds if other else 0):
+            for path, a in other.items():
+                ms = timed(base, k5_args(want, 1), "K5")
+                emit("steering_warp", "as built", ms, True, round=rnd)
+                out.zero_()
+                ms = timed(fns[("steering_warp", path)], a, f"K5 {path}")
+                emit("steering_warp", path, ms, bool(torch.equal(out, want)),
+                     round=rnd)
     print(card)
     return 0
 

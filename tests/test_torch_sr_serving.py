@@ -81,8 +81,6 @@ def test_serving_operands_equal_jax(scale):
         geom = tgeo.ResizeGeometry.create(in_sz, scale_factors=list(scale))
         np.testing.assert_array_equal(geom.dis_x, got.dis_x)
         np.testing.assert_array_equal(geom.fov_y[:, 0], got.idx_y)
-        assert_fields_equal(want.for_bucket((16, 32), (64, 80)),
-                            got.for_bucket((16, 32), (64, 80)))
 
 
 def test_serving_operands_envelope():
@@ -93,9 +91,6 @@ def test_serving_operands_envelope():
             make.create(IN_SZ, scale_factors=[2.0, 2.0], support=4)
         with pytest.raises(ValueError):      # beyond the 1/32 support cap
             make.create_any((256, 256), scale_factors=[0.01, 0.01])
-        with pytest.raises(ValueError):      # bucket frames are upscale-only
-            make.create_any((40, 56), scale_factors=[0.5, 0.5]).for_bucket(
-                (64, 64), (32, 32))
     deep = tgeo.ResizeOperands.create_any((64, 64), scale_factors=[0.21] * 2)
     assert (deep.support, deep.pad, deep.true_support) == (16, 9, 10)
     assert [tgeo.support_bucket(s, floor=4) for s in (3, 4, 7, 33)] == \
@@ -177,21 +172,22 @@ def test_rings_match_jax_rings():
                     np.testing.assert_array_equal(np.asarray(a), b)
 
 
-def test_serving_resize_wrapper_on_cpu_crops_the_bucket():
-    """K1's serving wrapper on CPU tensors: on a bucket frame the rings of
-    ``for_bucket`` (lerf_tpu's program shape), cropped to the true output;
-    no launch."""
+def test_serving_resize_wrapper_on_cpu_is_the_rings_resize():
+    """K1's serving wrapper on CPU tensors: the plain rings resize of the
+    serving geometry, no launch; a frame other than the geometry's is
+    refused (PyTorch needs no bucket frame)."""
     in_sz, scale = (19, 23), (2.26, 2.26)
     ops = tgeo.ResizeOperands.create(in_sz, scale_factors=list(scale))
-    feat, codes = rings_inputs((32, 32), seed=3)
+    feat, codes = rings_inputs(in_sz, seed=3)
     feat, codes = torch.from_numpy(feat), torch.from_numpy(codes)
     before = k1.launches
-    got = k1.steering_resize_serving(feat, codes, ops, out_frame=(48, 64))
+    got = k1.steering_resize_serving(feat, codes, ops)
     assert k1.launches == before
     assert got.shape == (3,) + tuple(ops.out_sz)
-    rings = trs.resize_rings(ops.for_bucket((32, 32), (48, 64)))
-    full = trs.resize_codes_rings_plain(feat, codes, rings)
-    assert torch.equal(got, full[:, :ops.out_sz[0], :ops.out_sz[1]])
+    assert torch.equal(got, trs.resize_codes_rings_plain(
+        feat, codes, trs.resize_rings(ops)))
+    with pytest.raises(ValueError):
+        k1.steering_resize_serving(feat[:, :16], codes[:, :16], ops)
 
 
 # -- predictors ----------------------------------------------------------------
@@ -297,6 +293,23 @@ def test_upscale_dynamic_falls_back_outside_the_envelope(monkeypatch):
         assert calls == expect
 
 
+def test_upscale_dynamic_keeps_the_last_serving_geometries(monkeypatch):
+    """One serving geometry a (size, scale), made once and kept for the
+    last ``SERVING_CACHE_SIZE`` requests; granularity changes no entry."""
+    monkeypatch.setattr(pipeline, "SERVING_CACHE_SIZE", 2)
+    port = port_of(shared_lut_predictor(), device="cpu")
+    img = image(12, 14, 1)
+    first = port.upscale_dynamic(img, 2.5, 2.5)
+    ops = port._serving_cache[((12, 14), (2.5, 2.5))][0]
+    np.testing.assert_array_equal(
+        port.upscale_dynamic(img, 2.5, 2.5, granularity=64), first)
+    assert port._serving_cache[((12, 14), (2.5, 2.5))][0] is ops
+    for s in (2.0, 3.0):
+        port.upscale_dynamic(img, s, s)
+    assert list(port._serving_cache) == [((12, 14), (2.0, 2.0)),
+                                         ((12, 14), (3.0, 3.0))]
+
+
 # (image size, scale, granularity): aligned upscales whose bucket is larger
 # than the image, a fractional aligned one, and one whose alignment fails
 # (the per-shape fallback)
@@ -309,11 +322,12 @@ BUCKET_CASES = {"x2-21x26-g16": ((21, 26), (2.0, 2.0), 16),
 @pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
 @pytest.mark.parametrize("case", sorted(BUCKET_CASES))
 def test_lut_upscale_bucketed(case, linear):
-    """Bit-equal to the port's ``upscale``; against lerf_tpu's bucketed
+    """Bit-equal to the port's ``upscale`` (the port needs no bucket:
+    ``upscale_bucketed`` is ``upscale``); against lerf_tpu's bucketed
     frame equal but for ties wherever that frame equals lerf_tpu's own
     ``upscale`` — everywhere for the Gaussian, but lerf_tpu resizes
     LeRF-L on the bucket's grid, an ulp off the image's at ×3, where the
-    kernel's jump at |d| = 1 moves whole pixels (``upscale_bucketed``)."""
+    kernel's jump at |d| = 1 moves whole pixels."""
     in_sz, scale, g = BUCKET_CASES[case]
     jax_pred, port = lut_pair(linear)
     img = image(*in_sz, seed=len(case) + 2)
@@ -330,14 +344,6 @@ def test_lut_upscale_bucketed(case, linear):
     if not linear:
         assert same.all()
     count_ties(got[same], want[same], f32[same])
-
-
-def test_bucket_prep_aligns_or_refuses():
-    img = image(19, 22, 0)
-    assert pipeline._bucket_prep(img, 2.5, 2.5, 16) is None
-    padded, bucket, true = pipeline._bucket_prep(image(18, 22, 0), 2.5, 2.5,
-                                                 16)
-    assert (padded.shape[:2], bucket, true) == ((32, 32), (32, 32), (18, 22))
 
 
 @pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
