@@ -5,7 +5,7 @@
 
 Drives the port's two forms on a 360×640 RGB frame, each through its SR
 path at ×4 and its homographic warp, both to 1440×2560, in both kernels,
-LeRF-G and LeRF-L, and the SR serving forms — the LUT form,
+LeRF-G and LeRF-L, and the SR and warp serving forms — the LUT form,
 ``LutPredictor(bank).upscale`` / ``.warp`` with the seed-0 random bank of
 the shipped LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8 tables,
 oC 3), and the micro-net (SRNet) form,
@@ -63,7 +63,8 @@ its plain PyTorch twin on the card:
    2560), return_aux=True)`` on the card vs ``device="cpu"`` on the full
    frame: feat and hyper bit-equal, the mask equal, uint8 equal but for
    .5 ties; K2 launched twice, K5 once, K1 never; the first call of the
-   homography (``first_call_s``: its host mask and parameters); the
+   homography (``first_call_s``: its parameters, and K5 writes the mask,
+   which the predictor keeps: a repeated call runs K5 without it); the
    device part (``run_warp_device``) launches K2 and K5 and nothing else
    (profiler); then the whole call (median of 20), the device part
    (events), a profile, and K5 alone beside its twin and its bound (the
@@ -101,11 +102,32 @@ its plain PyTorch twin on the card:
    the card frame by frame and each call K2 twice and K1 once (the batch
    too); the batch's and ``upscale_dynamic``'s ms a call beside
    ``upscale``'s;
-18. the exact-division findings (K1 bit-equal to its twin or not at each
+18. K5's validity mask on the card for ``warp_matrix(0..3)``, the pad-1
+   matrix and the ×2.5 zoom: alone (``warp_mask``), written in K5's own
+   launch (``mask_out``) at supports 2 and 4, and from the inverse alone
+   (``nearest_warp_mask_on_device``), each ``torch.equal`` to the host's
+   float64 mask; the frame unchanged by asking for the mask;
+19. ``steering_warp_batch`` over 4 frames under ``warp_matrix(0..3)``,
+   Gaussian and linear, uint8 and float32: one launch, each frame
+   bit-equal to its own K5 call and its mask to the host's, each frame
+   against its twin with phase 9's tolerance;
+20. ``warp_dynamic`` and ``warp_device`` (LUT, LeRF-G) for 4 matrices,
+   each bit-equal to ``warp`` on the card (frame and mask) with K2 twice
+   and K5 once a call; the first call on a new homography by ``warp``,
+   ``warp_dynamic`` and ``warp_device`` (``first_call_s``);
+21. ``warp_batch`` of 4 frames (per-frame matrices, and one shared) in the
+   LUT form (LeRF-G, LeRF-L) and the net form on K4: each frame and mask
+   bit-equal to that frame's ``warp``, K2 (or K4) twice and K5 once a
+   call;
+22. the whole calls of ``warp``, ``warp_dynamic``, ``warp_device`` and
+   ``warp_batch`` (a frame) in one run, and K5 alone without the mask,
+   with it and over 4 frames (events in two alternating rounds, the
+   profiler, twins, bounds);
+23. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
-   rows with their ``linear`` mode and K5's ``support4`` beside), the
-   card line and, last, the result line.
+   rows with their ``linear`` mode, and K5's ``support4``, ``mask`` and
+   ``batch4`` beside), the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -174,6 +196,10 @@ K5_F64_OPS_PER_COLUMN = 6
 LIN_OPS_PER_NEIGHBOUR = 10
 LIN_OPS_PER_SOURCE = 3
 K5_F64_BRANCH_OPS = 2
+#  K5's validity mask, per output: per axis the NaN test and ceil((g -
+#  0.5) - eps) (3), the grid and its clip shared with the window (the
+#  index's clip and its two tests are integer work); and one byte written
+K5_F64_MASK_OPS = 8
 # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 F64_OPS_PER_S = 34e12
 K5_ATOL = 1e-3          # float32 ops in one order; exp differs by a few ulp
@@ -693,7 +719,8 @@ def net_form_phases(dev, params, frame, backend):
                       "hyper_share_differing": hyper_share}
 
 
-def k5_work(in_sz, out_sz, c, linear=False, support=2):
+def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
+            frames=1):
     """(bytes, float32 operations, float64 operations) of one K5 call in
     uint8 mode: the int32 feature and codes (3 a pixel, 1 linear) and the
     3×3 float64 inverse read once, the uint8 output written once; the
@@ -703,7 +730,8 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2):
     and two divisions, per axis the clip (2), (g - S/2) - eps (2), ceil and
     + pad, and per distance its subtraction and cast (2, with the linear
     branch tests 4); per output row and column the grid's products and the
-    column's adds."""
+    column's adds.  ``mask``: the validity mask's byte and
+    ``K5_F64_MASK_OPS`` an output; ``frames``: a batch of that many."""
     (h, w), (oh, ow) = in_sz, out_sz
     codes = 1 if linear else 3
     nbytes = c * h * w * 4 * (1 + codes) + 9 * 8 + c * oh * ow
@@ -714,7 +742,10 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2):
     per_distance = 2 + (K5_F64_BRANCH_OPS if linear else 0)
     f64 = (oh * ow * (5 + 2 * (6 + support * per_distance))
            + oh * K5_F64_OPS_PER_ROW + ow * K5_F64_OPS_PER_COLUMN)
-    return nbytes, ops, f64
+    if mask:
+        nbytes += oh * ow
+        f64 += oh * ow * K5_F64_MASK_OPS
+    return nbytes * frames, ops * frames, f64 * frames
 
 
 def k5_bound(nbytes, ops, f64):
@@ -924,7 +955,7 @@ def lut_warp_phases(dev, bank, frame, x):
     return {"name": "steering_warp", "route": "cuda",
             "source": "lerf_torch/csrc/steering_warp.cu",
             "replaces": "lerf_tpu/ops/resample.py:438",
-            "launches": launches["steering_warp"], "ms": ms,
+            "launches": launches["steering_warp"], "ms": ms, **prof,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bound_parts_ms": parts, "share_of_bound": b_ms / ms,
             "library_ms": None}
@@ -1396,6 +1427,286 @@ def serving_phases(dev, banks, frame):
     return counts
 
 
+def mask_cases():
+    """name → (homography, output size) for K5's validity mask: the main
+    path's homography at seeds 0..3 (``warp_mask_phase``'s and the batch's
+    four frames), the pad-1 matrix and the ×2.5 zoom."""
+    cases = {f"warp_matrix({k})": (warp_matrix(k), WARP_OUT)
+             for k in range(4)}
+    cases["pad1"] = WARP_CASES["pad1"]
+    cases["zoom2.5"] = WARP_CASES["zoom2.5"]
+    return cases
+
+
+def warp_mask_phase(dev, rng):
+    """Phase 18: K5's validity mask on the card, alone (``warp_mask``) and
+    written in K5's own launch (``mask_out``) at supports 2 and 4, and from
+    the inverse alone (``nearest_warp_mask_on_device``), each equal to the
+    host's float64 mask; the frame K5 writes beside the mask equal to the
+    one it writes without it.  Returns the host masks by case."""
+    import torch
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import nearest_warp_mask_on_device
+
+    shape = (3, LR_H, LR_W)
+    feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32)).to(dev)
+    codes = torch.from_numpy(
+        rng.randint(0, 256, shape + (3,)).astype(np.int32)).to(dev)
+    hosts = {}
+    for name, (matrix, out_sz) in mask_cases().items():
+        t = time.perf_counter()
+        host = k5.WarpParams.create((LR_H, LR_W), matrix, out_sz).host_mask(4)
+        host_s = time.perf_counter() - t
+        hosts[name] = host
+        want = torch.from_numpy(host)
+        for support in (2, 4):
+            params = k5.WarpParams.create((LR_H, LR_W), matrix, out_sz,
+                                          support=support)
+            alone = k5.warp_mask(params, dev)
+            mask = torch.zeros(out_sz, dtype=torch.bool, device=dev)
+            got = k5.steering_warp(feat, codes, params, mask_out=mask,
+                                   out_dtype=torch.uint8)
+            plain = k5.steering_warp(feat, codes, params,
+                                     out_dtype=torch.uint8)
+            torch.cuda.synchronize()
+            if not (torch.equal(alone.cpu(), want)
+                    and torch.equal(mask.cpu(), want)):
+                raise AssertionError(f"K5 mask {name} S={support}: not equal "
+                                     "to the host mask")
+            if not torch.equal(got, plain):
+                raise AssertionError(f"K5 mask {name} S={support}: the frame "
+                                     "changes when the mask is asked for")
+        inv = torch.tensor(np.linalg.inv(matrix), device=dev)
+        if not torch.equal(nearest_warp_mask_on_device(
+                inv, (LR_H, LR_W), out_sz, border=4).cpu(), want):
+            raise AssertionError(f"nearest_warp_mask_on_device {name}: not "
+                                 "equal to the host mask")
+        emit({"phase": "k5_mask_vs_host", "matrix": name, "out": list(out_sz),
+              "supports": [2, 4], "mask_equal": True,
+              "mask_share": float(host.mean()),
+              "frame_unchanged_by_mask": True, "host_mask_s": host_s})
+    return hosts
+
+
+def warp_batch_kernel_phase(dev, rng, hosts):
+    """Phase 19: ``steering_warp_batch`` over 4 frames under
+    ``warp_matrix(0..3)`` at the stage shapes, Gaussian and linear, uint8
+    and float32: one launch, each frame bit-equal to its own K5 call, each
+    mask to the host's (``hosts``), and each frame against its plain twin
+    with phase 9's tolerance.  Returns the largest error and the frames'
+    host geometries (the twins' input, for phase 22)."""
+    import torch
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (linear_warp_codes_plain,
+                                         quantize_device,
+                                         steering_warp_codes_plain)
+
+    n = 4
+    shape = (n * 3, LR_H, LR_W)
+    feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32)).to(dev)
+    hypers = {lin: torch.from_numpy(rng.randint(
+        0, 256, shape + (1 if lin else 3,)).astype(np.int32)).to(dev)
+        for lin in (False, True)}
+    warps = [k5.WarpParams.create((LR_H, LR_W), warp_matrix(k), WARP_OUT)
+             for k in range(n)]
+    geoms = [w.geometry() for w in warps]
+    worst = 0.0
+    for linear in (False, True):
+        hyper = hypers[linear]
+        twin = linear_warp_codes_plain if linear \
+            else steering_warp_codes_plain
+        wants = [twin(feat[3 * f:3 * f + 3], hyper[3 * f:3 * f + 3],
+                      geoms[f]) for f in range(n)]
+        for out_dtype in (torch.uint8, torch.float32):
+            masks = torch.zeros((n,) + WARP_OUT, dtype=torch.bool, device=dev)
+            what = f"K5 batch linear={linear} {out_dtype}"
+            got, launches = counted_run(
+                lambda: k5.steering_warp_batch(
+                    feat, hyper, warps, linear=linear, out_dtype=out_dtype,
+                    mask_out=masks), {"steering_warp": 1}, what)
+            n_tie = 0
+            for f in range(n):
+                sl = slice(3 * f, 3 * f + 3)
+                one = k5.steering_warp(feat[sl], hyper[sl], warps[f],
+                                       linear=linear, out_dtype=out_dtype)
+                if not torch.equal(torch.nan_to_num(got[sl], nan=-1.0),
+                                   torch.nan_to_num(one, nan=-1.0)):
+                    raise AssertionError(f"{what} frame {f}: not bit-equal "
+                                         "to its own K5 call")
+                if not np.array_equal(masks[f].cpu().numpy(),
+                                      hosts[f"warp_matrix({f})"]):
+                    raise AssertionError(f"{what} frame {f}: mask differs "
+                                         "from the host's")
+                want = wants[f]
+                if out_dtype == torch.float32:
+                    nan = torch.isnan(want)
+                    if not torch.equal(torch.isnan(got[sl]), nan):
+                        raise AssertionError(f"{what} frame {f}: NaN pattern")
+                    err = float((got[sl][~nan] - want[~nan]).abs().max())
+                    if not err <= K5_ATOL:
+                        raise AssertionError(f"{what} frame {f}: max-abs "
+                                             f"{err}")
+                    worst = max(worst, err)
+                else:
+                    n_tie += check_ties(
+                        got[sl].cpu().numpy(),
+                        quantize_device(want, 255,
+                                        nan_to_zero=True).cpu().numpy(),
+                        torch.nan_to_num(want, nan=0.0).cpu().numpy(),
+                        f"{what} frame {f}")
+            emit({"phase": "k5_batch_vs_frames", "frames": n,
+                  "linear": linear, "out_dtype": str(out_dtype),
+                  "launches": launches, "bit_equal_to_single_frames": True,
+                  "masks_equal_to_host": True, "max_abs_err_vs_plain": worst,
+                  "u8_mismatch_at_ties": n_tie})
+    return worst, geoms
+
+
+def warp_serving_phase(dev, bank, frame):
+    """Phase 20: ``warp_dynamic`` and ``warp_device`` (LUT form, LeRF-G)
+    on the card for ``warp_matrix(0..3)``: each bit-equal to ``warp`` on
+    the card (frame and mask), each call K2 twice and K5 once; then the
+    first call on a homography not seen before, by each form.  Returns the
+    launch counts."""
+    from lerf_torch.pipeline import LutPredictor
+
+    pred = LutPredictor(bank)
+    mats = [warp_matrix(k) for k in range(4)]
+    want = [pred.warp(frame, m, WARP_OUT) for m in mats]
+    want_launches = {"lut_stage": 2, "steering_warp": 1}
+    counts = {}
+    for name in ("warp_dynamic", "warp_device"):
+        for k, m in enumerate(mats):
+            got, launches = counted_run(
+                lambda: getattr(pred, name)(frame, m, WARP_OUT),
+                want_launches, f"{name} warp_matrix({k})")
+            if not (np.array_equal(got[0], want[k][0])
+                    and np.array_equal(got[1], want[k][1])):
+                raise AssertionError(f"{name} warp_matrix({k}): not "
+                                     "bit-equal to warp on the card")
+        counts[name] = launches
+    first = {}
+    for seed, name in ((20, "warp"), (21, "warp_dynamic"),
+                       (22, "warp_device")):
+        t = time.perf_counter()
+        getattr(pred, name)(frame, warp_matrix(seed), WARP_OUT)
+        first[name] = time.perf_counter() - t
+    emit({"phase": "warp_serving", "forms": ["warp_dynamic", "warp_device"],
+          "matrices": 4, "bit_equal_to_warp": True, "launches": want_launches,
+          "first_call_s": first})
+    return counts
+
+
+def warp_batch_phase(dev, banks, params, frame):
+    """Phase 21: ``warp_batch`` of 4 frames, per-frame matrices
+    ``warp_matrix(0..3)`` and one shared matrix, in the LUT form (LeRF-G
+    and LeRF-L) and the net form on K4 (``pallas_int8``, nf 64): each
+    frame and mask bit-equal to that frame's ``warp`` on the card, each
+    call K2 (or K4) twice and K5 once.  Returns the 4 frames and
+    matrices."""
+    from lerf_torch.pipeline import LutPredictor, NetPredictor
+
+    rng = np.random.RandomState(6)
+    frames = np.stack([frame] + [rng.randint(0, 256, frame.shape)
+                                 .astype(np.uint8) for _ in range(3)])
+    mats = np.stack([warp_matrix(k) for k in range(4)])
+    forms = (("lerf_g", LutPredictor(banks["lerf_g"]), "lut_stage"),
+             ("lerf_l", LutPredictor(banks["lerf_l"], linear=True),
+              "lut_stage"),
+             ("net_int8", NetPredictor.from_srnets(params,
+                                                   backend="pallas_int8"),
+              "srnet_ensemble_int8"))
+    for form, pred, stage in forms:
+        want_launches = {stage: 2, "steering_warp": 1}
+        for label, ms in (("per-frame", mats), ("shared", mats[0])):
+            (outs, masks), launches = counted_run(
+                lambda: pred.warp_batch(frames, ms, WARP_OUT),
+                want_launches, f"{form} warp_batch {label}")
+            for b in range(len(frames)):
+                out, mask = pred.warp(frames[b], ms[b] if ms.ndim == 3
+                                      else ms, WARP_OUT)
+                if not (np.array_equal(outs[b], out)
+                        and np.array_equal(masks[b], mask)):
+                    raise AssertionError(f"{form} warp_batch {label} frame "
+                                         f"{b}: not bit-equal to warp")
+        emit({"phase": "warp_batch", "form": form, "frames": len(frames),
+              "matrices": ["per-frame", "shared"], "bit_equal_to_warp": True,
+              "launches": launches})
+    return frames, mats
+
+
+def warp_serving_timing(dev, bank, frame, x, frames, mats, geoms):
+    """Phase 22: whole calls (host clock, median) of ``warp``,
+    ``warp_dynamic``, ``warp_device`` and ``warp_batch`` (4 frames, per
+    frame) in one run, LUT LeRF-G, the main matrix; then K5 alone on the
+    stage outputs, without the mask, with it, and batched over 4 frames
+    (``warp_matrix(0..3)``), by events (alternating, two rounds) and by
+    the profiler, beside their twins and bounds.  Returns the kernels
+    line's rows for K5 with the mask and batched."""
+    import torch
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (quantize_device,
+                                         steering_warp_codes_plain)
+    from lerf_torch.pipeline import LutPredictor
+
+    pred = LutPredictor(bank)
+    m = mats[0]
+    mp = WARP_OUT[0] * WARP_OUT[1] / 1e6
+    calls = {"warp": lambda: pred.warp(frame, m, WARP_OUT),
+             "warp_dynamic": lambda: pred.warp_dynamic(frame, m, WARP_OUT),
+             "warp_device": lambda: pred.warp_device(frame, m, WARP_OUT)}
+    row = {"phase": "warp_serving_timing", "frames": 20}
+    for name, call in calls.items():
+        ms = host_call_ms(call, 20, warmup=3)
+        row[f"{name}_ms"], row[f"{name}_mps"] = ms, mp / ms * 1e3
+    batch_ms = host_call_ms(lambda: pred.warp_batch(frames, mats, WARP_OUT),
+                            10) / len(frames)
+    row["warp_batch_ms_per_frame"] = batch_ms
+    row["warp_batch_mps"] = mp / batch_ms * 1e3
+    emit_timed(row)
+
+    feat, hyper = pred._stages(x)
+    n = len(frames)
+    warps = [k5.WarpParams.create((LR_H, LR_W), mm, WARP_OUT) for mm in mats]
+    mask = torch.zeros(WARP_OUT, dtype=torch.bool, device=dev)
+    masks = torch.zeros((n,) + WARP_OUT, dtype=torch.bool, device=dev)
+    feat4, hyper4 = feat.repeat(n, 1, 1), hyper.repeat(n, 1, 1, 1)
+    fns = {"no_mask": lambda: k5.steering_warp(feat, hyper, warps[0],
+                                               out_dtype=torch.uint8),
+           "mask": lambda: k5.steering_warp(feat, hyper, warps[0],
+                                            out_dtype=torch.uint8,
+                                            mask_out=mask),
+           "batch4": lambda: k5.steering_warp_batch(
+               feat4, hyper4, warps, out_dtype=torch.uint8, mask_out=masks)}
+    ms = {name: [] for name in fns}
+    for _ in range(2):
+        for name, fn in fns.items():
+            ms[name].append(event_ms(fn, iters=50))
+    plain = {
+        "mask": event_ms(lambda: (quantize_device(steering_warp_codes_plain(
+            feat, hyper, geoms[0]), 255, nan_to_zero=True),
+            warps[0].host_mask(4)), iters=2, warmup=1),
+        "batch4": event_ms(lambda: [quantize_device(steering_warp_codes_plain(
+            feat, hyper, g), 255, nan_to_zero=True) for g in geoms],
+            iters=2, warmup=1)}
+    rows = {}
+    for name, fn in fns.items():
+        prof = kernel_device_ms(fn, "steering_warp_kernel")
+        frames_n = n if name == "batch4" else 1
+        b_ms, b_by, parts = k5_bound(*k5_work(
+            (LR_H, LR_W), WARP_OUT, 3, mask=name != "no_mask",
+            frames=frames_n))
+        mean = statistics.mean(ms[name])
+        r = {"kernel": "steering_warp", "variant": name, "frames": frames_n,
+             "out_dtype": "uint8", "ms": mean, "ms_rounds": ms[name], **prof,
+             "launches": 1, "plain_ms": plain.get(name), "bound_ms": b_ms,
+             "bound_by": b_by, "bound_parts_ms": parts,
+             "share_of_bound": b_ms / mean}
+        emit_timed(r)
+        rows[name] = r
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1692,6 +2003,23 @@ def main() -> int:
     # -- 17. the SR serving forms on the card --------------------------------
     serving_phases(dev, {"lerf_g": bank, "lerf_l": bank_l}, frame)
 
+    # -- 18. K5's validity mask on the card -----------------------------------
+    hosts = warp_mask_phase(dev, rng)
+
+    # -- 19. K5 over a batch of homographies ---------------------------------
+    batch_err, batch_geoms = warp_batch_kernel_phase(dev, rng, hosts)
+
+    # -- 20. warp_dynamic and warp_device ---------------------------------------
+    warp_serving_phase(dev, bank, frame)
+
+    # -- 21. warp_batch in both forms -------------------------------------------
+    frames4, mats4 = warp_batch_phase(
+        dev, {"lerf_g": bank, "lerf_l": bank_l}, params, frame)
+
+    # -- 22. the warp serving forms' times, K5 with the mask and batched ------
+    k5_rows = warp_serving_timing(dev, bank, frame, x, frames4, mats4,
+                                  batch_geoms)
+
     # the kernels line: K1's and K5's linear modes and K5 at support 4
     # beside their main-path rows
     keys = ("launches", "ms", "profiler_ms", "profiler_launches",
@@ -1704,8 +2032,14 @@ def main() -> int:
                                 for k in keys}}
     kernels[-1]["support4"] = {"max_abs_err": lin["k5_support"],
                                **{k: s4_row[k] for k in keys}}
+    # K5 writing the mask (a homography's first call, every serving call)
+    # and over a batch of 4 beside the main path's repeated call
+    kernels[-1]["mask"] = {"max_abs_err": kernels[-1]["max_abs_err"],
+                           **{k: k5_rows["mask"][k] for k in keys}}
+    kernels[-1]["batch4"] = {"max_abs_err": batch_err,
+                             **{k: k5_rows["batch4"][k] for k in keys}}
 
-    # -- 18. result ----------------------------------------------------------
+    # -- 23. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

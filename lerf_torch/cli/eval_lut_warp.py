@@ -7,9 +7,9 @@ of ``lerf_tpu.cli.eval_lut_warp``, on the CUDA card (or ``--platform cpu``):
         --resultRoot results/warp --lutName LUTft -e models/lerf-g
 
 Use --hrRoot to point at the HR directory root when the warp benchmark
-directory ships only isc/osc.  Prints the same table format.  Static
-``warp`` path only: ``--dynamicWarp`` and ``--bucket`` are not ported yet
-and exit with a message saying so.
+directory ships only isc/osc.  Prints the same table format.
+``--dynamicWarp`` (or ``--bucket g``) serves through ``warp_dynamic``,
+bit-equal to the static ``warp``.
 """
 from __future__ import annotations
 
@@ -26,9 +26,6 @@ DEFAULT_SCALE_PS = ["isc", "osc"]
 
 def main(argv=None, datasets=None, scale_ps=None):
     cfg = parse_config(TestConfig, argv)
-    if cfg.dynamic_warp or cfg.bucket > 0:
-        raise SystemExit("eval_lut_warp: --dynamicWarp / --bucket serving is "
-                         "not ported yet (ROADMAP Queue A item 6)")
     datasets = datasets or cfg.dataset_list() or DEFAULT_DATASETS
     scale_ps = scale_ps or DEFAULT_SCALE_PS
 
@@ -42,7 +39,8 @@ def main(argv=None, datasets=None, scale_ps=None):
             pred, cfg.test_dir, ds, tuple(scale_ps),
             hr_root=cfg.hr_root or None, result_root=cfg.result_root,
             exp_name=exp_name,
-            pre_upsample="PreUpsample" in cfg.test_dir)
+            pre_upsample="PreUpsample" in cfg.test_dir,
+            dynamic=cfg.dynamic_warp, bucket=cfg.bucket)
         print(format_warp_row(ds, all_results[ds], tuple(scale_ps)),
               flush=True)
     return all_results

@@ -76,9 +76,6 @@ def build_predictor(cfg: TestConfig) -> NetPredictor:
 def main(argv=None, datasets=None):
     cfg = parse_config(TestConfig, argv)
     warp = "warp" in cfg.result_root
-    if warp and (cfg.bucket > 0 or cfg.dynamic_warp):
-        raise SystemExit("eval_model: --dynamicWarp / --bucket serving is "
-                         "not ported yet (ROADMAP Queue A item 6)")
     datasets = datasets or cfg.dataset_list() or DEFAULT_DATASETS
     pred = build_predictor(cfg)
     exp_name = cfg.exp_dir.rstrip("/").split("/")[-1]
@@ -91,7 +88,8 @@ def main(argv=None, datasets=None):
                 pred, cfg.test_dir, ds, ("isc", "osc"),
                 hr_root=cfg.hr_root or None, result_root=cfg.result_root,
                 exp_name=exp_name,
-                pre_upsample="PreUpsample" in cfg.test_dir)
+                pre_upsample="PreUpsample" in cfg.test_dir,
+                dynamic=cfg.dynamic_warp, bucket=cfg.bucket)
             print(format_warp_row(ds, results[ds]), flush=True)
         return results
 

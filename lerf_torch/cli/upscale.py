@@ -19,10 +19,11 @@ loaded.  Non-integer and anisotropic scales work (``--scale 2.5``,
 (``--bucket g`` its granularity), ``--bucket g`` alone through
 ``upscale_bucketed`` (bit-equal to the static path), ``--linear`` reads a
 LeRF-L bank or checkpoint and ``--suppSize`` sets the resample's support.
-``--matrix a,b,c,...,i --outSize HxW`` switches to the static homographic
-warp (out-of-view pixels written black).  One image at a time: the warp's
-``--dynamicWarp`` / ``--bucket`` serving forms and several inputs are not
-ported yet and exit with a message saying so.
+``--matrix a,b,c,...,i --outSize HxW`` switches to the homographic warp
+(out-of-view pixels written black), ``--dynamicWarp`` to its serving form
+``warp_dynamic`` (bit-equal; ``--bucket`` does not change the warp, as in
+lerf_tpu).  One image at a time: several inputs are not ported yet and
+exit with a message saying so.
 """
 from __future__ import annotations
 
@@ -77,8 +78,6 @@ def _unported(cfg: UpscaleConfig):
     """The message for a flag whose path the port does not have yet."""
     if cfg.form != "lut" and cfg.model == "IMDN2":
         return "--model IMDN2 (ROADMAP Queue A item 8)"
-    if cfg.dynamic_warp or (cfg.matrix and cfg.bucket > 0):
-        return "--dynamicWarp / --bucket warp serving (ROADMAP Queue A item 6)"
     if (os.path.isdir(cfg.input)
             or any(ch in cfg.input for ch in "*?[")):
         return "several inputs (ROADMAP Queue A item 11)"
@@ -125,7 +124,8 @@ def main(argv=None):
     img = np.array(Image.open(cfg.input).convert("RGB"))
     if cfg.matrix:
         mat, out_hw = _parse_matrix(cfg)
-        out, mask = pred.warp(img, mat, out_hw)
+        warp = pred.warp_dynamic if cfg.dynamic_warp else pred.warp
+        out, mask = warp(img, mat, out_hw)
         out = out * np.asarray(mask, out.dtype)[..., None]
     else:
         sh, sw = _parse_scale(cfg.scale)   # "4", "2.5", or "1.5x2.0"

@@ -65,6 +65,16 @@
 //   evaluated here on the float64 distance before its one cast to float32,
 //   the same double the host's geometry holds, so they are the host masks
 //   of lerf_tpu's _branch_masks bit for bit, with no per-pixel operand.
+// - The validity mask (lerf_tpu/ops/resample.py::nearest_warp_mask_on_device,
+//   and the static warp's in-program nearest_warp_mask), where asked for:
+//   the support-1 axis of _warp_axis on the same float64 grid, reduced to
+//   the one test that can fail (inside()), one byte an output, bit-equal
+//   to the host's float64 mask.  A null mask skips it at run time, a
+//   branch uniform over the launch.
+// - A frames axis (the jax.vmap of lerf_tpu/pipeline.py::_warp_batch_fn):
+//   blockIdx.z is the frame, each with its own inverse and pads from a
+//   small array passed by value; the frames share the sizes, the support
+//   and the mode.  A single frame is a batch of one.
 // Semantics, those of the JAX path's geometry (_warp_axis): a pixel's S
 // rows are clip(left + s, 0, H - 1) in padded coordinates, left = ceil((g -
 // S/2) - eps) + pad_r, clipped to the UNPADDED bounds, and its source row is
@@ -96,12 +106,22 @@ constexpr int kRowsPerThread = kTileH / kThreadRows;
 constexpr int kTileEntries = 2048;          // entries of footprint: 32 KB
 constexpr int kMinBlocks = 4;               // blocks an SM (register cap)
 constexpr double kEps = 1.1920928955078125e-07;   // float32 eps (_EPS)
+constexpr int kMaxFrames = 16;              // frames a batch launch takes
 
 // One homography's geometry, by value: the inverse matrix row-major, the
 // unpadded input and the output sizes, the leading pads, the support.
 struct Warp {
   double m[9];
   int H, W, OH, OW, pad_r, pad_c, S;
+};
+
+// A batch of homographies: frame f's warp, and the validity mask [frames,
+// OH, OW] (uint8 0 / 1) of the white frame's border, or null.  1.7 KB of
+// the 4 KB of kernel parameters.
+struct Frames {
+  Warp f[kMaxFrames];
+  unsigned char* mask;
+  int border;
 };
 
 // The terms of _warp_grid that depend on the output column j only:
@@ -201,18 +221,48 @@ struct Window<0, kBits> {
 };
 
 // _warp_grid at output (i, j): den = (i20 x + i22) + i21 y, src = (...) /
-// den, the row from src_y, the column from src_x.
+// den; x the column coordinate, y the row one (before the clip).
+struct Source {
+  double x, y;
+};
+
+__device__ __forceinline__ Source source_at(const Warp& w, const Column& col,
+                                            int i) {
+  const double y = (double)i;
+  const double den = __dadd_rn(col.den, __dmul_rn(w.m[7], y));
+  return {__ddiv_rn(__dadd_rn(col.num_x, __dmul_rn(w.m[1], y)), den),
+          __ddiv_rn(__dadd_rn(col.num_y, __dmul_rn(w.m[4], y)), den)};
+}
+
+// The window at output (i, j): the row from src_y, the column from src_x.
 template <int KS, bool kBits>
 __device__ __forceinline__ Window<KS, kBits> window_at(const Warp& w,
                                                        const Column& col,
                                                        int i) {
-  const double y = (double)i;
-  const double den = __dadd_rn(col.den, __dmul_rn(w.m[7], y));
-  const double sx = __ddiv_rn(__dadd_rn(col.num_x, __dmul_rn(w.m[1], y)), den);
-  const double sy = __ddiv_rn(__dadd_rn(col.num_y, __dmul_rn(w.m[4], y)), den);
+  const Source src = source_at(w, col, i);
   Window<KS, kBits> p;
-  p.set(sy, sx, w);
+  p.set(src.y, src.x, w);
   return p;
+}
+
+// The validity mask on one axis: the support-1 box warp of the
+// border-zeroed white frame (_mask_from_grid) on g = clip(src, 0, n).
+// There ceil((g - 0.5) - eps) >= 0, so _warp_axis's leading pad is 0, and
+// the distance to the clipped row f = min(ceil((g - 0.5) - eps), n - 1)
+// lies in [-1, 1], where the box is 1: the output is inside where f lands
+// on a white row, [border, n - 1 - border].  A NaN coordinate (0/0 on the
+// horizon) is outside, as the host's NaN compares.
+__device__ __forceinline__ bool inside(double src, int n, int border) {
+  if (isnan(src)) return false;
+  const double g = fmin(fmax(src, 0.0), (double)n);
+  const int f = min((int)ceil(__dsub_rn(__dsub_rn(g, 0.5), kEps)), n - 1);
+  return f >= border && f <= n - 1 - border;
+}
+
+// The mask bit of an output whose grid point is src: both axes inside.
+__device__ __forceinline__ unsigned char valid_at(const Source& src,
+                                                  const Warp& w, int border) {
+  return inside(src.y, w.H, border) && inside(src.x, w.W, border);
 }
 
 // The tile entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
@@ -277,13 +327,15 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
 // At least kMinBlocks blocks an SM: registers capped at 64 (80 uncapped,
 // three blocks an SM), which measured 10 % faster; six blocks (40) slower
 // (lerf_torch/tools/probe_lut_kernels.py).
+// One block's outputs of one frame, and the frame's validity mask [OH, OW]
+// where mask is not null.
 template <int KS, typename OutT, bool kLinear>
-__global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
-    steering_warp_kernel(
+__device__ __forceinline__ void warp_block(
     const int* __restrict__ img,     // [C, H, W] int32 feature (0..norm)
     const int* __restrict__ codes,   // [C, H, W, 3 or 1] int32 hyper codes
     OutT* __restrict__ out,          // [C, OH, OW] float32 or uint8
-    const Warp w, int C, float max_sigma, float norm) {
+    const Warp& w, int C, float max_sigma, float norm,
+    unsigned char* __restrict__ mask, int border) {
   __shared__ Entry<kLinear> tile[kTileEntries];   // [C][rows][cols]
   __shared__ int box[4];                  // row min, max, column min, max
   const int tid = threadIdx.y * kTileW + threadIdx.x;
@@ -299,7 +351,10 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     ok[k] = j < w.OW && i < w.OH;
     if (!ok[k]) continue;
-    px[k] = window_at<KS, kLinear>(w, col, i);
+    const Source src = source_at(w, col, i);   // the window's and the mask's
+    px[k].set(src.y, src.x, w);
+    if (mask != nullptr)
+      mask[(size_t)i * w.OW + j] = valid_at(src, w, border);
     const int S = px[k].support();
     rmin = min(rmin, px[k].row(0));
     rmax = max(rmax, px[k].row(S - 1));
@@ -374,13 +429,35 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
   }
 }
 
+// Frame blockIdx.z of a batch: img [frames, C, H, W], codes [frames, C, H,
+// W, 3 or 1], out [frames, C, OH, OW], the warp from the by-value array
+// (__grid_constant__: indexed in place, never copied).
+template <int KS, typename OutT, bool kLinear>
+__global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
+    steering_warp_kernel(const int* __restrict__ img,
+                         const int* __restrict__ codes,
+                         OutT* __restrict__ out,
+                         const __grid_constant__ Frames fr, int C,
+                         float max_sigma, float norm) {
+  const int f = blockIdx.z;
+  const Warp& w = fr.f[f];
+  const size_t plane = (size_t)w.H * w.W, out_plane = (size_t)w.OH * w.OW;
+  warp_block<KS, OutT, kLinear>(
+      img + f * C * plane, codes + f * C * plane * (kLinear ? 1 : 3),
+      out + f * C * out_plane, w, C, max_sigma, norm,
+      fr.mask == nullptr ? nullptr : fr.mask + f * out_plane, fr.border);
+}
+
 // The per-pixel geometry of the host's WarpOperands from window_at: the
 // window corner (row, col) as geometry.window_corner recovers it from the
 // clipped indices (f_0 where above 0, else f_S-1 - (S - 1)), the 2S
-// distances (dx_0..dx_S-1, dy_0..dy_S-1) and their float64 branch bits.
+// distances (dx_0..dx_S-1, dy_0..dy_S-1) and their float64 branch bits;
+// and the validity mask (valid_at) where valid is not null.  Null
+// corners: the mask alone.
 __global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
     int2* __restrict__ corners, float* __restrict__ dis,
-    unsigned char* __restrict__ masks, const Warp w) {
+    unsigned char* __restrict__ masks, unsigned char* __restrict__ valid,
+    const Warp w, int border) {
   const int j = blockIdx.x * kTileW + threadIdx.x;
   if (j >= w.OW) return;
   const Column col = column_terms(w, j);
@@ -389,8 +466,11 @@ __global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
   for (int k = 0; k < kRowsPerThread; ++k) {
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     if (i >= w.OH) return;
-    const Window<0, true> p = window_at<0, true>(w, col, i);
     const size_t n = (size_t)i * w.OW + j;
+    if (valid != nullptr)
+      valid[n] = valid_at(source_at(w, col, i), w, border);
+    if (corners == nullptr) continue;
+    const Window<0, true> p = window_at<0, true>(w, col, i);
     corners[n] = make_int2(
         p.row(0) == 0 ? p.row(S - 1) - (S - 1) : p.row(0),
         p.col(0) == 0 ? p.col(S - 1) - (S - 1) : p.col(0));
@@ -424,67 +504,88 @@ dim3 grid_of(const Warp& w) {
 }
 
 template <typename OutT, bool kLinear>
-void launch(const int* img, const int* codes, void* out, const Warp& w,
-            int C, float max_sigma, float norm, cudaStream_t s) {
+void launch(const int* img, const int* codes, void* out, const Frames& fr,
+            int frames, int C, float max_sigma, float norm, cudaStream_t s) {
   const dim3 block(kTileW, kThreadRows);
-  if (w.S == 2)
-    steering_warp_kernel<2, OutT, kLinear><<<grid_of(w), block, 0, s>>>(
-        img, codes, (OutT*)out, w, C, max_sigma, norm);
+  dim3 grid = grid_of(fr.f[0]);
+  grid.z = frames;
+  if (fr.f[0].S == 2)
+    steering_warp_kernel<2, OutT, kLinear><<<grid, block, 0, s>>>(
+        img, codes, (OutT*)out, fr, C, max_sigma, norm);
   else
-    steering_warp_kernel<0, OutT, kLinear><<<grid_of(w), block, 0, s>>>(
-        img, codes, (OutT*)out, w, C, max_sigma, norm);
+    steering_warp_kernel<0, OutT, kLinear><<<grid, block, 0, s>>>(
+        img, codes, (OutT*)out, fr, C, max_sigma, norm);
 }
 
 }  // namespace
 
-// inv: the 3x3 inverse homography, row-major float64, in host memory (read
-// before the call returns).  H, W: the unpadded input; pad_r, pad_c: the
-// geometry's leading pads; S: the support.  linear: 0 the steerable Gaussian
-// (codes [C, H, W, 3]), 1 the amplified-linear kernel (codes [C, H, W, 1]).
-// out_u8: 1 writes uint8 clip(rint(nan_to_num(.)), 0, norm) (norm <= 255),
-// 0 float32 with NaN where a window's weights all vanish.
-extern "C" int lerf_steering_warp(const void* img, const void* codes,
-                                  void* out, const double* inv, int C, int H,
-                                  int W, int OH, int OW, int pad_r, int pad_c,
-                                  int S, int linear, float max_sigma,
-                                  float norm, int out_u8, void* stream) {
+// K5 over a batch of frames (1 .. kMaxFrames; a single frame is a batch of
+// one), frame f with its own inverse homography (invs[9 f .. 9 f + 8],
+// row-major float64, host memory, read before the call returns) and the
+// geometry's leading pads (pads[2 f], pads[2 f + 1]: pad_r, pad_c).  img
+// [frames, C, H, W] int32, H and W unpadded; codes [frames, C, H, W, 3]
+// (linear 0: the steerable Gaussian) or [frames, C, H, W, 1] (linear 1:
+// the amplified-linear kernel); out [frames, C, OH, OW]: out_u8 1 writes
+// uint8 clip(rint(nan_to_num(.)), 0, norm) (norm <= 255), 0 float32 with
+// NaN where a window's weights all vanish.  S: the support.  mask [frames,
+// OH, OW] uint8 0 / 1, the validity mask of the white frame's border,
+// written in the same launch, or null for none.
+extern "C" int lerf_steering_warp_batch(
+    const void* img, const void* codes, void* out, void* mask,
+    const double* invs, const int* pads, int frames, int C, int H, int W,
+    int OH, int OW, int S, int linear, float max_sigma, float norm,
+    int out_u8, int border, void* stream) {
+  if (frames < 1 || frames > kMaxFrames || border < 0)
+    return (int)cudaErrorInvalidValue;
   if ((long long)C * OH * OW == 0) return 0;
-  Warp w;
-  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, S, &w);
-  if (err) return err;
   if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
+  Frames fr;
+  memset(&fr, 0, sizeof(fr));
+  for (int f = 0; f < frames; ++f) {
+    int err = make_warp(invs + 9 * f, H, W, OH, OW, pads[2 * f],
+                        pads[2 * f + 1], S, &fr.f[f]);
+    if (err) return err;
+  }
+  fr.mask = (unsigned char*)mask;
+  fr.border = border;
   cudaStream_t s = (cudaStream_t)stream;
   const int* x = (const int*)img;
   const int* c = (const int*)codes;
   if (linear) {
     if (out_u8)
-      launch<unsigned char, true>(x, c, out, w, C, max_sigma, norm, s);
+      launch<unsigned char, true>(x, c, out, fr, frames, C, max_sigma, norm, s);
     else
-      launch<float, true>(x, c, out, w, C, max_sigma, norm, s);
+      launch<float, true>(x, c, out, fr, frames, C, max_sigma, norm, s);
   } else {
     if (out_u8)
-      launch<unsigned char, false>(x, c, out, w, C, max_sigma, norm, s);
+      launch<unsigned char, false>(x, c, out, fr, frames, C, max_sigma, norm,
+                                   s);
     else
-      launch<float, false>(x, c, out, w, C, max_sigma, norm, s);
+      launch<float, false>(x, c, out, fr, frames, C, max_sigma, norm, s);
   }
   return (int)cudaGetLastError();
 }
 
 // The geometry K5 derives, written out: corners [OH * OW] int2, dis
 // [OH * OW, 2S] float32 and masks [OH * OW, 2S] uint8, as WarpOperands lays
-// them out.  For the checks; K5 does not read them.
+// them out, and valid [OH * OW] uint8 0 / 1, the validity mask of the
+// white frame's border.  Either part may be null (corners, dis and masks
+// together).  For the checks and the mask alone; K5 does not read them.
 extern "C" int lerf_warp_geometry(void* corners, void* dis, void* masks,
-                                  const double* inv, int H, int W, int OH,
-                                  int OW, int pad_r, int pad_c, int S,
+                                  void* valid, const double* inv, int H,
+                                  int W, int OH, int OW, int pad_r,
+                                  int pad_c, int S, int border,
                                   void* stream) {
   if ((long long)OH * OW == 0) return 0;
   if ((uintptr_t)corners % sizeof(int2) || (uintptr_t)dis % sizeof(float))
     return (int)cudaErrorMisalignedAddress;
+  if (border < 0) return (int)cudaErrorInvalidValue;
   Warp w;
   int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, S, &w);
   if (err) return err;
   warp_geometry_kernel<<<grid_of(w), dim3(kTileW, kThreadRows), 0,
                          (cudaStream_t)stream>>>(
-      (int2*)corners, (float*)dis, (unsigned char*)masks, w);
+      (int2*)corners, (float*)dis, (unsigned char*)masks,
+      (unsigned char*)valid, w, border);
   return (int)cudaGetLastError();
 }

@@ -84,15 +84,12 @@ def run_warp_benchmark(predictor, root: str, dataset: str,
     """Evaluate homographic warping; returns {scale_p: avg mPSNR}.
 
     ``pre_upsample`` right-multiplies the homography by the ×2 pre-upsample
-    correction (eval_model.py:220-226 / train_model.py:214-220).  The
-    dynamic and bucketed serving forms (``dynamic``, ``bucket`` > 0) are
-    not ported yet and raise.
+    correction (eval_model.py:220-226 / train_model.py:214-220).
+    ``dynamic`` or ``bucket`` > 0 serves through ``warp_dynamic`` with the
+    bucket as its granularity, as lerf_tpu's does (bit-equal to ``warp``).
     """
-    if dynamic or bucket > 0:
-        raise NotImplementedError(
-            "dynamic / bucketed warp serving is not ported (ROADMAP Queue A "
-            "item 6)")
     bench = WarpBenchmark(root, dataset, hr_root=hr_root)
+    dynamic = (dynamic or bucket > 0) and hasattr(predictor, "warp_dynamic")
     post = np.array([[0.5, 0.0, -0.25],
                      [0.0, 0.5, -0.25],
                      [0.0, 0.0, 1.0]], dtype=np.float64)
@@ -107,7 +104,11 @@ def run_warp_benchmark(predictor, root: str, dataset: str,
             lr, hr, matrix, name = bench.sample(i, scale_p)
             if pre_upsample:
                 matrix = matrix @ post
-            out, mask = predictor.warp(lr, matrix, hr.shape[:2])
+            if dynamic:
+                out, mask = predictor.warp_dynamic(lr, matrix, hr.shape[:2],
+                                                   granularity=bucket)
+            else:
+                out, mask = predictor.warp(lr, matrix, hr.shape[:2])
             mask3 = mask[:, :, None]
             vals.append(mpsnr(out.astype(np.float64), hr, mask3))
             if out_dir is not None:

@@ -12,7 +12,8 @@ the warp's is per output pixel, ``[outH, outW, support]``.  K1 receives
 its arrays cast to int32 / float32, exactly as the JAX path casts them.
 K5 derives the warp's on the card from the inverse matrix;
 :func:`warp_pads` and :func:`warp_operands_plain` are that derivation's
-plain twin, the same float64 operations in torch.
+plain twin, the same float64 operations in torch, and
+:func:`warp_mask_plain` that of the validity mask K5 writes.
 """
 from __future__ import annotations
 
@@ -390,6 +391,27 @@ def warp_operands_plain(inv, in_sz, out_sz, support: int = 2):
             dis64.to(torch.float32), neg | (pos << 1), pad)
 
 
+def warp_mask_plain(inv, in_sz, out_sz, border: int = 4):
+    """The validity mask K5 writes, from the inverse homography alone, in
+    torch float64 on the CPU: bool [oH, oW], equal to
+    ``resample.nearest_warp_mask_host`` (the support-1 box warp of the
+    white frame whose ``border`` is zeroed).  On the grid of
+    :func:`_warp_grid`, clipped to ``[0, in]``, ``ceil((g - 0.5) - eps)``
+    is never negative, so the support-1 geometry's leading pads are 0, and
+    the distance to the clipped index ``f = min(ceil((g - 0.5) - eps), in -
+    1)`` lies in [-1, 1], where the box is 1.  So an output is inside where
+    ``f`` lands on a white row and a white column, ``[border, in - 1 -
+    border]``; a NaN coordinate (0/0 on the horizon) is outside."""
+    oh, ow = (int(s) for s in out_sz)
+    ys = torch.arange(oh, dtype=torch.float64)[:, None]
+    xs = torch.arange(ow, dtype=torch.float64)
+    mask = torch.ones((oh, ow), dtype=torch.bool)
+    for grid, n in zip(_warp_grid_at(inv, ys, xs, in_sz), in_sz):
+        f = _warp_left(grid, 1).clamp(max=int(n) - 1)
+        mask &= ~torch.isnan(grid) & (f >= border) & (f <= int(n) - 1 - border)
+    return mask
+
+
 @dataclasses.dataclass(frozen=True)
 class WarpGeometry:
     """Static geometry for one (in_shape, homography, out_shape) config;
@@ -427,3 +449,4 @@ class WarpGeometry:
                    fov_x=fov_x, fov_y=fov_y,
                    lin_idx=np.ascontiguousarray(lin).astype(np.int32),
                    dis_x=dis_x, dis_y=dis_y, pad_x=pad_x, pad_y=pad_y)
+

@@ -104,16 +104,20 @@ def _declare(lib):
         vp]                                  # stream
     lib.lerf_steering_resize.restype = i32
     f64p = ctypes.POINTER(ctypes.c_double)
-    lib.lerf_steering_warp.argtypes = [
-        vp, vp, vp, f64p,                    # img, codes, out, inv (host)
-        i32, i32, i32, i32, i32, i32, i32,   # C, H, W, OH, OW, pad_r, pad_c
-        i32, i32,                            # support, linear
-        f32, f32, i32,                       # max_sigma, norm, u8
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.lerf_steering_warp_batch.argtypes = [
+        vp, vp, vp, vp,                      # img, codes, out, mask
+        f64p, i32p,                          # invs, pads (host)
+        i32, i32, i32, i32, i32, i32, i32,   # frames, C, H, W, OH, OW, S
+        i32, f32, f32, i32, i32,             # linear, max_sigma, norm, u8,
+                                             # border
         vp]                                  # stream
-    lib.lerf_steering_warp.restype = i32
+    lib.lerf_steering_warp_batch.restype = i32
     lib.lerf_warp_geometry.argtypes = [
-        vp, vp, vp, f64p,                    # corners, dis, masks, inv (host)
+        vp, vp, vp, vp, f64p,                # corners, dis, masks, valid,
+                                             # inv (host)
         i32, i32, i32, i32, i32, i32, i32,   # H, W, OH, OW, pad_r, pad_c, S
+        i32,                                 # border
         vp]                                  # stream
     lib.lerf_warp_geometry.restype = i32
     lib.lerf_lut_stage.argtypes = [

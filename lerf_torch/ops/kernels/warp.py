@@ -11,25 +11,36 @@ tensors; it never falls back from the card to the plain version.
 On the card K5 takes the homography itself, as :class:`WarpParams` (the
 float64 inverse matrix, the two leading pads, the support and the sizes),
 and derives each output's window on the card in float64, bit-equal to the
-host geometry, the linear mode's branch masks included.
-:class:`WarpOperands` is that geometry in the host's per-pixel form
+host geometry, the linear mode's branch masks included.  Asked for
+(``mask_out``), it writes the validity mask in the same launch, from the
+same float64 grid, equal to ``nearest_warp_mask_host``.  One kernel and
+one C entry serve a batch of frames, each under its own homography
+(:func:`steering_warp_batch`), and a single frame as a batch of one
+(:func:`steering_warp`).  :class:`WarpOperands` is the geometry in the
+host's per-pixel form
 (:func:`lerf_torch.ops.geometry.warp_operands_plain` computes the same);
-:func:`warp_geometry` writes it from the card's derivation, for the checks.
+:func:`warp_geometry` writes it from the card's derivation, for the checks,
+and :func:`warp_mask` the mask alone.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..geometry import WarpGeometry, warp_pads, window_corner
 from ..resample import (branch_bits, linear_warp_codes_plain,
-                        quantize_device, steering_warp_codes_plain)
+                        nearest_warp_mask_host, quantize_device,
+                        steering_warp_codes_plain)
 from . import _build
 
 launches = 0
+
+# Frames one batch launch takes (kMaxFrames of csrc/steering_warp.cu):
+# their parameters travel by value; a longer batch takes one launch a chunk.
+MAX_FRAMES = 16
 
 # K5's blocks: TILE output rows × columns, and the tile entries (footprint
 # rows × columns × C) a block decodes into shared memory; a block whose
@@ -44,7 +55,8 @@ class WarpParams(NamedTuple):
     inverse ``inv`` (``np.linalg.inv``, as the host geometry makes it), the
     leading pads ``(pad_x[0], pad_y[0])`` of the host geometry
     (:func:`~lerf_torch.ops.geometry.warp_pads`), the sizes and the
-    support."""
+    support.  The validity mask needs no pads of its own: at support 1 the
+    geometry's are always 0."""
     matrix: Tuple[float, ...]   # 9, row-major
     inv: Tuple[float, ...]      # 9, row-major
     pad: Tuple[int, int]
@@ -68,6 +80,13 @@ class WarpParams(NamedTuple):
         return WarpGeometry.create(self.in_sz,
                                    np.asarray(self.matrix).reshape(3, 3),
                                    self.out_sz, support=self.support)
+
+    def host_mask(self, border: int = 4) -> np.ndarray:
+        """The validity mask on the host (the plain twin of K5's), bool
+        [oH, oW]."""
+        return nearest_warp_mask_host(self.in_sz,
+                                      np.asarray(self.matrix).reshape(3, 3),
+                                      self.out_sz, border=border)
 
 
 class WarpOperands(NamedTuple):
@@ -128,35 +147,106 @@ def _inv_array(params: WarpParams):
     return (ctypes.c_double * 9)(*params.inv)
 
 
-def warp_geometry(params: WarpParams, device) -> WarpOperands:
-    """The geometry K5 derives on the card, written out as
-    :class:`WarpOperands` (``lerf_warp_geometry``): for the checks against
-    the host's ``WarpOperands.create``.  Not on the main path."""
+def _geometry_launch(params: WarpParams, device, ptrs, border: int):
+    """``lerf_warp_geometry`` into ``ptrs`` (corners, dis, masks, valid;
+    0 for a part not asked for)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"warp_geometry: the card's geometry needs a CUDA "
                          f"device, not {device}")
     (H, W), (OH, OW) = params.in_sz, params.out_sz
-    n = 2 * params.support
-    corners = torch.empty((OH * OW, 2), dtype=torch.int32, device=device)
-    dis = torch.empty((OH * OW, n), dtype=torch.float32, device=device)
-    masks = torch.empty((OH * OW, n), dtype=torch.uint8, device=device)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_warp_geometry(
-            corners.data_ptr(), dis.data_ptr(), masks.data_ptr(),
-            _inv_array(params), H, W, OH, OW, *params.pad, params.support,
-            stream)
+            *ptrs, _inv_array(params), H, W, OH, OW, *params.pad,
+            params.support, int(border), stream)
     _build.check(err, "warp_geometry launch")
+
+
+def warp_geometry(params: WarpParams, device) -> WarpOperands:
+    """The geometry K5 derives on the card, written out as
+    :class:`WarpOperands` (``lerf_warp_geometry``): for the checks against
+    the host's ``WarpOperands.create``.  Not on the main path."""
+    (OH, OW), n = params.out_sz, 2 * params.support
+    corners = torch.empty((OH * OW, 2), dtype=torch.int32, device=device)
+    dis = torch.empty((OH * OW, n), dtype=torch.float32, device=device)
+    masks = torch.empty((OH * OW, n), dtype=torch.uint8, device=device)
+    _geometry_launch(params, device, (corners.data_ptr(), dis.data_ptr(),
+                                      masks.data_ptr(), 0), border=0)
     return WarpOperands(corners=corners, dis=dis, masks=masks,
                         pad=tuple(params.pad))
+
+
+def warp_mask(params: WarpParams, device, border: int = 4) -> torch.Tensor:
+    """The validity mask K5 writes, alone (``lerf_warp_geometry`` with the
+    geometry left out): bool [oH, oW] on the card, equal to
+    ``nearest_warp_mask_host``.  For the checks; K5 writes the same in its
+    own launch (``mask_out``)."""
+    mask = torch.empty(params.out_sz, dtype=torch.bool, device=device)
+    _geometry_launch(params, device, (0, 0, 0, mask.data_ptr()), border)
+    return mask
+
+
+def _check_args(feat, codes, linear, out_dtype, norm, what):
+    if out_dtype not in (torch.float32, torch.uint8):
+        raise ValueError(f"{what}: out_dtype {out_dtype} is not float32 or "
+                         "uint8")
+    if out_dtype == torch.uint8 and not norm <= 255:
+        raise ValueError(f"{what}: uint8 output needs norm <= 255, not "
+                         f"{norm}")
+    _, H, W = feat.shape
+    oc = 1 if linear else 3
+    if (feat.dtype != torch.int32 or codes.dtype != torch.int32
+            or codes.shape != (feat.shape[0], H, W, oc)
+            or codes.device != feat.device):
+        raise ValueError(f"{what}: feat int32 [C,H,W] and codes int32 "
+                         f"[C,H,W,{oc}] "
+                         f"({'linear' if linear else 'Gaussian'} mode) on "
+                         "one device")
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {feat.device}")
+
+
+def _check_mask(mask_out, shape, device, what):
+    if mask_out is not None and (
+            mask_out.dtype not in (torch.bool, torch.uint8)
+            or tuple(mask_out.shape) != tuple(shape)
+            or mask_out.device != device or not mask_out.is_contiguous()):
+        raise ValueError(f"{what}: mask_out must be a contiguous bool or "
+                         f"uint8 {list(shape)} tensor on {device}")
+
+
+def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
+            border):
+    """One ``lerf_steering_warp_batch`` launch over ``warps`` (at most
+    :data:`MAX_FRAMES`): feat / codes / out hold their frames one after
+    another along the channel axis, ``mask`` [frames, oH, oW] or None."""
+    global launches
+    first = warps[0]
+    (H, W), (OH, OW) = first.in_sz, first.out_sz
+    invs = (ctypes.c_double * (9 * len(warps)))(
+        *(v for w in warps for v in w.inv))
+    pads = (ctypes.c_int * (2 * len(warps)))(
+        *(p for w in warps for p in w.pad))
+    lib = _build.library()
+    with torch.cuda.device(feat.device):    # launch on the tensors' card
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lerf_steering_warp_batch(
+            feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            0 if mask is None else mask.data_ptr(), invs, pads, len(warps),
+            feat.shape[0] // len(warps), H, W, OH, OW, first.support,
+            int(linear), float(max_sigma), float(norm),
+            int(out.dtype == torch.uint8), int(border), stream)
+    _build.check(err, "steering_warp_batch launch")
+    launches += 1
 
 
 def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                   max_sigma: float = 10.0, norm: int = 255,
                   linear: bool = False,
-                  out_dtype: torch.dtype = torch.float32):
+                  out_dtype: torch.dtype = torch.float32,
+                  mask_out: Optional[torch.Tensor] = None, border: int = 4):
     """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] (Gaussian)
     or [C, H, W, 1] (``linear``) → [C, oH, oW]: float32 (NaN where a
     window's weights all vanish), or with ``out_dtype=torch.uint8``
@@ -164,24 +254,22 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
     to 0..norm and cast, as :func:`~lerf_torch.ops.resample.quantize_device`
     with ``nan_to_zero`` does.  ``warp``: :class:`WarpParams` (the card
     takes nothing else; the CPU twin makes its host geometry from it), or
-    for CPU tensors a :class:`~lerf_torch.ops.geometry.WarpGeometry`."""
-    if out_dtype not in (torch.float32, torch.uint8):
-        raise ValueError(f"steering_warp: out_dtype {out_dtype} is not "
-                         "float32 or uint8")
-    if out_dtype == torch.uint8 and not norm <= 255:
-        raise ValueError(f"steering_warp: uint8 output needs norm <= 255, "
-                         f"not {norm}")
+    for CPU tensors a :class:`~lerf_torch.ops.geometry.WarpGeometry`.
+
+    ``mask_out``: a bool (or uint8) [oH, oW] tensor on the same device that
+    receives the validity mask of ``border`` (K5 writes it in the same
+    launch; on the CPU the host mask, ``WarpParams.host_mask``)."""
     C, H, W = feat.shape
-    oc = 1 if linear else 3
-    if (feat.dtype != torch.int32 or codes.dtype != torch.int32
-            or codes.shape != (C, H, W, oc) or codes.device != feat.device):
-        raise ValueError(f"steering_warp: feat int32 [C,H,W] and codes "
-                         f"int32 [C,H,W,{oc}] "
-                         f"({'linear' if linear else 'Gaussian'} mode) on "
-                         "one device")
+    _check_args(feat, codes, linear, out_dtype, norm, "steering_warp")
     if tuple(warp.in_sz) != (H, W):
         raise ValueError(f"geometry is for {warp.in_sz}, image is {(H, W)}")
+    _check_mask(mask_out, warp.out_sz, feat.device, "steering_warp")
+    if mask_out is not None and not isinstance(warp, WarpParams):
+        raise ValueError("steering_warp: the mask needs WarpParams (the "
+                         "matrix), not a host geometry")
     if feat.device.type == "cpu":
+        if mask_out is not None:
+            mask_out.copy_(torch.from_numpy(warp.host_mask(border)))
         geom = warp.geometry() if isinstance(warp, WarpParams) else warp
         if linear:
             out = linear_warp_codes_plain(feat, codes, geom, norm=norm)
@@ -190,23 +278,62 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                                             max_sigma=max_sigma, norm=norm)
         return quantize_device(out, norm, nan_to_zero=True) \
             if out_dtype == torch.uint8 else out
-    global launches
-    if feat.device.type != "cuda":
-        raise ValueError(f"steering_warp: unsupported device {feat.device}")
     if not isinstance(warp, WarpParams):
         raise ValueError("steering_warp: on a card K5 takes WarpParams (the "
                          "matrix), not a host geometry")
-    OH, OW = warp.out_sz
     feat, codes = feat.contiguous(), codes.contiguous()
-    out = torch.empty((C, OH, OW), dtype=out_dtype, device=feat.device)
-    lib = _build.library()
-    with torch.cuda.device(feat.device):    # launch on the tensors' card
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lerf_steering_warp(
-            feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
-            _inv_array(warp), C, H, W, OH, OW, *warp.pad, warp.support,
-            int(linear), float(max_sigma), float(norm),
-            int(out_dtype == torch.uint8), stream)
-    _build.check(err, "steering_warp launch")
-    launches += 1
+    out = torch.empty((C, *warp.out_sz), dtype=out_dtype, device=feat.device)
+    _launch(feat, codes, out, mask_out, [warp], max_sigma=max_sigma,
+            norm=norm, linear=linear, border=border)
+    return out
+
+
+def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
+                        warps: Sequence[WarpParams], *,
+                        max_sigma: float = 10.0, norm: int = 255,
+                        linear: bool = False,
+                        out_dtype: torch.dtype = torch.float32,
+                        mask_out: Optional[torch.Tensor] = None,
+                        border: int = 4):
+    """A batch of B frames, each under its own homography (the port of
+    lerf_tpu's ``jax.vmap`` of its warp over per-frame operands): int32
+    feature [B·C, H, W] and codes [B·C, H, W, 3 or 1], the frames one after
+    another along the channel axis, and one :class:`WarpParams` a frame, all
+    at one input and output size and support → [B·C, oH, oW] as
+    :func:`steering_warp` gives each frame; ``mask_out`` [B, oH, oW]
+    receives the frames' validity masks.  On the card one launch for up to
+    :data:`MAX_FRAMES` frames; on the CPU the plain twin frame by frame."""
+    warps = list(warps)
+    n = len(warps)
+    if n == 0 or feat.shape[0] % n:
+        raise ValueError(f"steering_warp_batch: {feat.shape[0]} channels do "
+                         f"not split into {n} frames")
+    C, H, W = feat.shape[0] // n, feat.shape[1], feat.shape[2]
+    _check_args(feat, codes, linear, out_dtype, norm, "steering_warp_batch")
+    first = warps[0]
+    for w in warps:
+        if not isinstance(w, WarpParams):
+            raise ValueError("steering_warp_batch: one WarpParams a frame")
+        if (tuple(w.in_sz), tuple(w.out_sz), w.support) != (
+                (H, W), tuple(first.out_sz), first.support):
+            raise ValueError("steering_warp_batch: every frame needs the "
+                             f"image size {(H, W)}, one output size and one "
+                             "support")
+    OH, OW = first.out_sz
+    _check_mask(mask_out, (n, OH, OW), feat.device, "steering_warp_batch")
+    if feat.device.type == "cpu":
+        return torch.cat([steering_warp(
+            feat[f * C:(f + 1) * C], codes[f * C:(f + 1) * C], w,
+            max_sigma=max_sigma, norm=norm, linear=linear,
+            out_dtype=out_dtype,
+            mask_out=None if mask_out is None else mask_out[f],
+            border=border) for f, w in enumerate(warps)])
+    feat, codes = feat.contiguous(), codes.contiguous()
+    out = torch.empty((n * C, OH, OW), dtype=out_dtype, device=feat.device)
+    for f0 in range(0, n, MAX_FRAMES):
+        f1 = min(f0 + MAX_FRAMES, n)
+        _launch(feat[f0 * C:f1 * C], codes[f0 * C:f1 * C],
+                out[f0 * C:f1 * C],
+                None if mask_out is None else mask_out[f0:f1], warps[f0:f1],
+                max_sigma=max_sigma, norm=norm, linear=linear, border=border)
     return out

@@ -5,10 +5,11 @@ The port of the resize and static warp of ``lerf_tpu/ops/resample.py``
 ``AmplifiedLinearResize2dNumpy.resize`` and their warps,
 ``resize_right/resize_right2d_numpy.py:162-282,496-635``): the
 steerable-Gaussian (LeRF-G) and amplified-linear (LeRF-L) weights, the
-fixed-kernel resize and warp, the warp's validity mask and the
-dynamic-scale serving ("rings") resize.  Images are ``[..., C, H, W]``
-float tensors; the hyper maps share the image's spatial shape and live on
-*source* pixels (they are gathered per neighbour).
+fixed-kernel resize and warp, the warp's validity mask (on the host, or
+from the inverse alone: K5's on a card) and the dynamic-scale serving
+("rings") resize.  Images are ``[..., C, H, W]`` float tensors; the hyper
+maps share the image's spatial shape and live on *source* pixels (they are
+gathered per neighbour).
 
 The resize gathers the S×S neighbours through the host field of view
 (``ResizeGeometry.fov_x`` / ``fov_y``) one (s, t) support block at a time
@@ -28,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from . import interp_kernels
-from .geometry import ResizeGeometry, WarpGeometry, _warp_axis, _warp_grid
+from .geometry import (ResizeGeometry, WarpGeometry, _warp_axis, _warp_grid,
+                       warp_mask_plain)
 from .lut_pipeline import divide_exact, edge_index, split_gaussian_hyper
 
 
@@ -589,6 +591,33 @@ def nearest_warp_mask_host(in_sz, matrix, out_sz, border: int = 4):
     """Host-numpy :func:`nearest_warp_mask`: [outH, outW] bool."""
     grid_x, grid_y = _warp_grid(matrix, in_sz, out_sz)
     return _mask_from_grid(grid_x, grid_y, in_sz, border)
+
+
+def nearest_warp_mask_on_device(inv, in_sz, out_sz, border: int = 4):
+    """The validity mask from the inverse homography ``inv`` (float64
+    [3, 3], a tensor or an array) alone, where it lies
+    (``lerf_tpu.ops.resample.nearest_warp_mask_on_device``): for a CUDA
+    tensor K5's mask, computed on the card from the float64 grid
+    (``kernels.warp.warp_mask``); otherwise its plain twin
+    (:func:`~lerf_torch.ops.geometry.warp_mask_plain`).  Both equal
+    :func:`nearest_warp_mask_host`: lerf_tpu's in-program mask is float32
+    and does not.  Returns bool [outH, outW] on ``inv``'s device."""
+    in_sz = tuple(int(v) for v in in_sz)
+    out_sz = tuple(int(v) for v in out_sz)
+    device = inv.device if isinstance(inv, torch.Tensor) \
+        else torch.device("cpu")
+    inv64 = np.asarray(inv.cpu() if isinstance(inv, torch.Tensor) else inv,
+                       dtype=np.float64).reshape(3, 3)
+    if device.type == "cuda":
+        from .kernels.warp import WarpParams, warp_mask
+
+        # support 1: the geometry's pads are 0 (warp_mask_plain says why)
+        params = WarpParams(
+            matrix=tuple(map(float, np.linalg.inv(inv64).ravel())),
+            inv=tuple(map(float, inv64.ravel())), pad=(0, 0), in_sz=in_sz,
+            out_sz=out_sz, support=1)
+        return warp_mask(params, device, border)
+    return warp_mask_plain(inv64, in_sz, out_sz, border)
 
 
 # ---------------------------------------------------------------------------

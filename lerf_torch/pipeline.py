@@ -1,14 +1,15 @@
 """LeRF deploy pipelines: stages → hyper codes → steerable resize or warp.
 
 The port of ``lerf_tpu.pipeline``'s two predictors, SR (static, bucketed,
-dynamic-scale and batched) and the static warp, in both kernels: the
+dynamic-scale and batched) and the warp (static, dynamic, device-geometry
+and batched), in both kernels: the
 steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
 ``linear=True``, the amplified-linear kernel (LeRF-L, one code):
 
 * :class:`LutPredictor` (``pipeline.py:114-191,855-1278``), the LUT form:
   on a CUDA device a frame runs as two K2 launches (stage 1, stage 2) and
-  one K1 launch (every SR form) or one K5 launch (``warp``), which writes
-  the uint8 frame itself.
+  one K1 launch (every SR form) or one K5 launch (every warp form), which
+  writes the uint8 frame itself (and the warp's validity mask).
 * :class:`NetPredictor` (``pipeline.py:194-601``), the micro-net (SRNet)
   form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
   epilogues and one K1 or K5 launch.
@@ -16,13 +17,17 @@ steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
 device copy of each shape's resize geometry and of the last dynamic
-requests' serving geometry, and for a few homographies
-the warp's parameters (on a card) or host geometry (on the CPU) and its
-validity mask.  PyTorch compiles nothing per shape, so lerf_tpu's shape
-buckets are not needed: ``upscale_bucketed`` is ``upscale``, and
+requests' serving geometry, and for a few homographies the warp's
+parameters (on a card) or host geometry (on the CPU) and its validity
+mask.  PyTorch compiles nothing per shape, so lerf_tpu's shape buckets
+are not needed: ``upscale_bucketed`` is ``upscale``, and
 ``upscale_dynamic`` serves on the image's own frame through the serving
-geometry, bit-equal to ``upscale``; ``upscale_batch`` folds the batch
-into the channel axis, so a batch is one launch of each kernel.
+geometry, bit-equal to ``upscale``; the batch forms fold the batch into the channel axis, so
+a batch is one launch of each kernel.  The warp serving forms keep
+nothing per matrix: on a card K5 derives each frame's geometry and mask
+from its matrix in float64 (bit-equal to ``warp``, where lerf_tpu's
+float32 device geometry is not); on the CPU its plain twin does, from a
+host geometry made for the call.
 """
 from __future__ import annotations
 
@@ -37,18 +42,20 @@ from .lut.io import LUTBank
 from .models import srnet
 from .ops import geometry as geo
 from .ops.kernels import resize as k1
-from .ops.kernels.warp import WarpParams, steering_warp
+from .ops.kernels.warp import WarpParams, steering_warp, steering_warp_batch
 from .ops.lut_pipeline import (FlatTables, divide_exact, lut_stage1,
                                lut_stage1_intermediate, lut_stage2)
 from .ops.resample import nearest_warp_mask_host
 # the uint8 cast K1 fuses, kept under its old name for callers
 from .ops.resample import quantize_device as _quantize_device  # noqa: F401
 
-# Warps a predictor keeps.  At 1440×2560 outputs an entry holds the 3.7 MB
-# host mask, and on the CPU ~240 MB of float64 / int32 host geometry for
-# the plain twin (on a card K5 takes the matrix and derives the rest), so
-# only the most recently used few stay.
+# Warps a predictor keeps.  An entry holds the validity mask (3.7 MB at
+# 1440×2560 outputs) and on the CPU ~240 MB of float64 / int32 host
+# geometry for the plain twin (on a card K5 takes the matrix and derives
+# the rest), so only the most recently used few stay.
 WARP_CACHE_SIZE = 4
+# The border of the validity mask's white frame (eval_lut_warp.py:197-204)
+MASK_BORDER = 4
 # Dynamic-scale requests' serving geometries a predictor keeps (a few KB
 # each): a server sees few distinct (size, scale) pairs at a time.
 SERVING_CACHE_SIZE = 64
@@ -114,23 +121,26 @@ def _lru(cache: OrderedDict, key, make, size: int):
 
 def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
                 device):
-    """(the warp K5 takes, host validity mask) for one (in_sz, homography,
-    out_sz), kept in ``cache`` (at most :data:`WARP_CACHE_SIZE` entries)
-    under the key JAX gives its warp programs (``pipeline.py:1221,1272``).
-    The warp is :class:`WarpParams` on a card (the matrix: K5 derives the
-    geometry itself) and the host
-    :class:`~lerf_torch.ops.geometry.WarpGeometry` its plain twin reads on
-    the CPU, both at ``support``.  The mask is geometry only, computed on
-    the host as ``nearest_warp_mask_host``."""
+    """[the warp K5 or its twin takes, host validity mask] for one (in_sz,
+    homography, out_sz), kept in ``cache`` (at most
+    :data:`WARP_CACHE_SIZE` entries) under the key JAX gives its warp
+    programs (``pipeline.py:1221,1272``).  On a card: :class:`WarpParams`
+    (the matrix: K5 derives the geometry itself) and ``None`` until the
+    first call, whose K5 launch writes the mask on the card
+    (:meth:`_Predictor.run_warp_device` keeps its host copy here); on the
+    CPU: the host :class:`~lerf_torch.ops.geometry.WarpGeometry` its plain
+    twin reads and the host mask (``nearest_warp_mask_host``), both at
+    ``support``."""
     matrix = np.asarray(matrix, dtype=np.float64)
 
     def make():
-        warp = (WarpParams.create(in_sz, matrix, out_sz, support=support)
-                if device.type == "cuda"
-                else geo.WarpGeometry.create(in_sz, matrix, out_sz,
-                                             support=support))
-        return warp, nearest_warp_mask_host(tuple(in_sz), matrix,
-                                            tuple(out_sz), border=4)
+        if device.type == "cuda":
+            return [WarpParams.create(in_sz, matrix, out_sz,
+                                      support=support), None]
+        return [geo.WarpGeometry.create(in_sz, matrix, out_sz,
+                                        support=support),
+                nearest_warp_mask_host(tuple(in_sz), matrix, tuple(out_sz),
+                                       border=MASK_BORDER)]
     return _lru(cache, (tuple(in_sz), matrix.tobytes(), tuple(out_sz)),
                 make, WARP_CACHE_SIZE)
 
@@ -282,22 +292,38 @@ class _Predictor:
 
     # -- warp ---------------------------------------------------------------
 
+    def _warp_out(self, feat, hyper, warp, mask_out=None):
+        """K5 (or its twin) on the stage outputs, in uint8 where the range
+        allows it, NaN windows → 0; ``mask_out`` receives the mask.
+        ``warp``: one warp, or a list of one :class:`WarpParams` a frame
+        for frames stacked along the channel axis (one launch)."""
+        warp_fn = steering_warp_batch if isinstance(warp, list) \
+            else steering_warp
+        out = warp_fn(feat, self._codes(hyper), warp,
+                      max_sigma=self.max_sigma, norm=self.norm,
+                      linear=self.linear, out_dtype=_out_dtype(self.norm),
+                      mask_out=mask_out, border=MASK_BORDER)
+        return out if out.dtype == torch.uint8 \
+            else torch.nan_to_num(out, nan=0.0)
+
     def run_warp_device(self, x: torch.Tensor, matrix: np.ndarray,
                         out_sz: Tuple[int, int]):
         """The device part of a warped frame: the input [C, H, W] on
         ``self.device`` → (uint8 [C, oH, oW], feat int32, hyper codes
         int32), all on the device: the stages, then K5 in uint8 mode (NaN
-        windows → 0).  The stage codes are integers, so K5 takes them as
-        the JAX path's u8 rows do."""
-        warp, _ = _warp_entry(self._warp_cache, tuple(x.shape[-2:]), matrix,
-                              tuple(out_sz), self.supp_size, self.device)
+        windows → 0).  On a homography's first call on a card K5 also
+        writes the validity mask in the same launch, and its host copy is
+        kept with the warp.  The stage codes are integers, so K5 takes them
+        as the JAX path's u8 rows do."""
+        entry = _warp_entry(self._warp_cache, tuple(x.shape[-2:]), matrix,
+                            tuple(out_sz), self.supp_size, self.device)
         feat, hyper = self._stages(x)
-        out = steering_warp(feat, self._codes(hyper), warp,
-                            max_sigma=self.max_sigma, norm=self.norm,
-                            linear=self.linear,
-                            out_dtype=_out_dtype(self.norm))
-        if out.dtype != torch.uint8:
-            out = torch.nan_to_num(out, nan=0.0)
+        if entry[1] is not None:
+            return self._warp_out(feat, hyper, entry[0]), feat, hyper
+        mask = torch.empty(tuple(out_sz), dtype=torch.bool,
+                           device=self.device)
+        out = self._warp_out(feat, hyper, entry[0], mask)
+        entry[1] = mask.cpu().numpy()
         return out, feat, hyper
 
     def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
@@ -310,7 +336,7 @@ class _Predictor:
         the mask excludes them from mPSNR.  The warp's parameters (or on
         the CPU its host geometry) and the mask are cached per (image
         size, matrix, out size), for the last :data:`WARP_CACHE_SIZE`
-        keys."""
+        keys: a homography seen before runs K5 without the mask."""
         chw = _rgb_chw(img_hwc)
         out_sz = tuple(int(v) for v in out_hw)
         out, feat, hyper = self.run_warp_device(self._input(chw), matrix,
@@ -322,16 +348,91 @@ class _Predictor:
             return (out_u8, mask) + self._aux(feat, hyper)
         return out_u8, mask
 
+    # -- warp serving ---------------------------------------------------------
+
+    def _serve_warps(self, imgs_bhwc: np.ndarray, matrices, out_sz):
+        """The warp serving forms' one path: B frames [B, H, W, C] and one
+        matrix each → (uint8 [B, C, oH, oW] and bool masks [B, oH, oW] on
+        the device, feat, hyper): the stages with the batch folded into the
+        channel axis, then K5 over every frame under its own fresh
+        :class:`WarpParams`, the masks written in the same launch; nothing
+        is cached per matrix.  On a card one launch, with no host geometry
+        and no per-pixel upload; on the CPU the plain twin frame by frame,
+        from the host geometry and mask of each frame's matrix."""
+        b, h, w, c = imgs_bhwc.shape
+        x = self._input(np.ascontiguousarray(imgs_bhwc.transpose(0, 3, 1, 2))
+                        ).reshape(b * c, h, w)
+        feat, hyper = self._stages(x)
+        warps = [WarpParams.create((h, w), m, out_sz, support=self.supp_size)
+                 for m in matrices]
+        masks = torch.empty((b,) + out_sz, dtype=torch.bool,
+                            device=self.device)
+        out = self._warp_out(feat, hyper, warps, masks)
+        return out.reshape(b, c, *out_sz), masks, feat, hyper
+
+    def warp_dynamic(self, img_hwc: np.ndarray, matrix: np.ndarray,
+                     out_hw: Tuple[int, int], return_aux: bool = False,
+                     granularity: int = 0):
+        """Homographic warp as a serving form, any matrix a request
+        (``lerf_tpu``'s ``warp_dynamic``, synchronous): on a card the
+        stages and one K5 launch from a fresh :class:`WarpParams`, the mask
+        written by K5 (no host geometry, nothing kept per matrix); on the
+        CPU K5's plain twin.  ``granularity`` (lerf_tpu's bucket
+        frame, one compiled program a bucket) changes nothing here:
+        PyTorch compiles nothing per shape.  Bit-equal to :meth:`warp`."""
+        out, mask, feat, hyper = self._serve_warps(
+            _rgb_hwc(img_hwc)[None], [np.asarray(matrix, np.float64)],
+            tuple(int(v) for v in out_hw))
+        out_u8 = self._host_frame(out[0])
+        mask = mask[0].cpu().numpy()
+        if return_aux:
+            return (out_u8, mask) + self._aux(feat, hyper)
+        return out_u8, mask
+
+    def warp_device(self, img_hwc: np.ndarray, matrix: np.ndarray,
+                    out_hw: Tuple[int, int], granularity: int = 0):
+        """Device-geometry warp serving (``lerf_tpu``'s ``warp_device``):
+        the per-frame operand is the matrix alone, the geometry and the
+        mask derived on the card.  K5 does that for every form of the
+        port, in float64, so this is :meth:`warp_dynamic`: bit-equal to
+        :meth:`warp` and to lerf_tpu's ``warp``, where lerf_tpu's own
+        float32 device geometry is not.  Returns (uint8 [oH,oW,C], bool
+        mask [oH,oW])."""
+        return self.warp_dynamic(img_hwc, matrix, out_hw,
+                                 granularity=granularity)
+
+    def warp_batch(self, imgs_bhwc: np.ndarray, matrices: np.ndarray,
+                   out_hw: Tuple[int, int], geometry: str = "host"):
+        """Batched warp serving (``lerf_tpu``'s ``warp_batch``): uint8
+        [B,H,W,C] and one homography a frame [B,3,3] (or one shared [3,3])
+        → (uint8 [B,oH,oW,C], bool mask [B,oH,oW]).  On a card one launch
+        of each stage kernel (the batch folded into the channel axis) and
+        one K5 launch for the batch (each frame's own matrix, its mask
+        written in the same launch).  ``geometry`` ("host" or "device",
+        lerf_tpu's choice of where its geometry is made) gives the same
+        call here: K5 derives it on the card in float64.  Each frame
+        bit-equal to its :meth:`warp`."""
+        if geometry not in ("host", "device"):
+            raise ValueError(
+                f"geometry={geometry!r}: must be 'host' or 'device'")
+        imgs = np.asarray(imgs_bhwc)
+        matrices = np.asarray(matrices, dtype=np.float64)
+        if matrices.ndim == 2:
+            matrices = np.broadcast_to(matrices, (imgs.shape[0], 3, 3))
+        out, mask, _, _ = self._serve_warps(imgs, list(matrices),
+                                            tuple(int(v) for v in out_hw))
+        return self._host_frame(out), mask.cpu().numpy()
+
     # -- serving forms not ported yet ----------------------------------------
 
     def upscale_dynamic_async(self, *args, **kwargs):
         raise _unported("async serving (upscale_dynamic_async)", "11")
 
-    def warp_dynamic(self, *args, **kwargs):
-        raise _unported("dynamic warp serving (warp_dynamic)", "6")
+    def warp_dynamic_async(self, *args, **kwargs):
+        raise _unported("async serving (warp_dynamic_async)", "11")
 
-    def warp_batch(self, *args, **kwargs):
-        raise _unported("batched warp serving (warp_batch)", "6")
+    def warp_device_async(self, *args, **kwargs):
+        raise _unported("async serving (warp_device_async)", "11")
 
 
 class LutPredictor(_Predictor):

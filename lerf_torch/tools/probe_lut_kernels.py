@@ -34,10 +34,14 @@ stages' outputs.
   ``WarpOperands.create``) read instead of the geometry derived in
   float64; each source pixel's feature loaded before its codes; and the
   first design, ``steering_warp_first.cu`` beside this script (host
-  operands, each neighbour decoded, one output a thread).
+  operands, each neighbour decoded, one output a thread).  K5 as built is
+  also timed writing the validity mask.
 * ``--k5 OTHER.cu``: another K5 source (an earlier commit's
-  ``steering_warp.cu``, say; one whose ``lerf_steering_warp`` takes no
-  support and mode is called with the support-2 Gaussian arguments only),
+  ``steering_warp.cu``, say: one with the batch entry
+  ``lerf_steering_warp_batch`` is called as the kernel as built, one frame
+  and no mask; one with the earlier single-frame ``lerf_steering_warp``
+  with that entry's arguments, and one whose ``lerf_steering_warp`` takes
+  no support and mode with the support-2 Gaussian arguments only),
   timed beside the kernel as built in ``--rounds`` alternating rounds, so
   the two compare within one process on one card.  ``--sass`` also prints,
   for K5 as built and each ``--k5`` source, each kernel's registers and its
@@ -65,6 +69,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
+# K5's window and mask for one output, which two variants replace
+WINDOW = """\
+    const Source src = source_at(w, col, i);   // the window's and the mask's
+    px[k].set(src.y, src.x, w);
+    if (mask != nullptr)
+      mask[(size_t)i * w.OW + j] = valid_at(src, w, border);"""
 # kernel source → {variant: [(old text, new text), ...]}
 VARIANTS = {
     "steering_resize": {
@@ -151,8 +161,9 @@ VARIANTS = {
             "const bool shared = false;")],
         # a window from integer arithmetic (the ×4 zoom without the
         # jitter): what the float64 geometry costs, without reading operands
+        # (and without the mask, which the probe's calls do not ask for)
         "geometry from integers": [(
-            "    px[k] = window_at<KS, kLinear>(w, col, i);",
+            WINDOW,
             "    if constexpr (KS == 2) {\n"
             "      const int r0 = min(i / 4, w.H - 1), q0 = min(j / 4, w.W - 1);\n"
             "      px[k].r[0] = r0; px[k].r[1] = min(r0 + 1, w.H - 1);\n"
@@ -200,7 +211,7 @@ VARIANTS = {
             ("struct Warp {\n  double m[9];",
              "struct Warp {\n  const int2* corners;\n  const float4* dis;\n"
              "  double m[9];"),
-            ("    px[k] = window_at<KS, kLinear>(w, col, i);",
+            (WINDOW,
              "    if constexpr (KS == 2) {\n"
              "      const size_t n_ = (size_t)i * w.OW + j;\n"
              "      const int2 c_ = __ldg(w.corners + n_);\n"
@@ -214,14 +225,13 @@ VARIANTS = {
              "    } else {\n"
              "      px[k] = window_at<KS, kLinear>(w, col, i);\n"
              "    }"),
-            ("                                  float norm, int out_u8, "
-             "void* stream) {",
-             "                                  float norm, int out_u8, "
-             "void* stream, const void* corners, const void* dis) {"),
-            ("  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;",
-             "  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;\n"
-             "  w.corners = (const int2*)corners;\n"
-             "  w.dis = (const float4*)dis;")],
+            ("    int out_u8, int border, void* stream) {",
+             "    int out_u8, int border, void* stream, const void* corners,\n"
+             "    const void* dis) {"),
+            ("  fr.border = border;\n",
+             "  fr.border = border;\n"
+             "  fr.f[0].corners = (const int2*)corners;\n"
+             "  fr.f[0].dis = (const float4*)dis;\n")],
     },
 }
 # kernel → {variant: source file beside this script}: whole other designs
@@ -372,7 +382,11 @@ def main(argv=None) -> int:
                       flush=True)
         fns = {}
         for key, path in libs.items():
-            fn = getattr(ctypes.CDLL(path), "lerf_" + key[0])
+            lib = ctypes.CDLL(path)
+            # K5's one entry takes a batch; earlier sources and the first
+            # design have a single-frame lerf_steering_warp
+            fn = getattr(lib, "lerf_" + key[0] + "_batch", None) \
+                or getattr(lib, "lerf_" + key[0])
             fn.restype = ctypes.c_int
             fns[key] = fn
 
@@ -426,17 +440,29 @@ def main(argv=None) -> int:
                                       cs.WARP_OUT)
         host = k5.WarpOperands.create(params.geometry(), dev)
         inv = (ctypes.c_double * 9)(*params.inv)
+        pads = (ctypes.c_int * 2)(*params.pad)
         woh, wow = cs.WARP_OUT
+        mask = torch.empty(cs.WARP_OUT, dtype=torch.uint8, device=dev)
 
-        def k5_args(out, u8, operands=False):
+        def k5_args(out, u8, operands=False, with_mask=False):
+            """lerf_steering_warp_batch's arguments, one frame."""
             args = [vp(feat.data_ptr()), vp(codes.data_ptr()),
+                    vp(out.data_ptr()),
+                    vp(mask.data_ptr() if with_mask else None), inv, pads,
+                    *map(i32, (1, 3, cs.LR_H, cs.LR_W, woh, wow,
+                               params.support, 0)),
+                    f32(10.0), f32(255.0), i32(u8), i32(4), stream]
+            if operands:
+                args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]
+            return args
+
+        def single_args(out, u8):
+            """An earlier source's single-frame lerf_steering_warp."""
+            return [vp(feat.data_ptr()), vp(codes.data_ptr()),
                     vp(out.data_ptr()), inv,
                     *map(i32, (3, cs.LR_H, cs.LR_W, woh, wow, *params.pad,
                                params.support, 0)),
                     f32(10.0), f32(255.0), i32(u8), stream]
-            if operands:
-                args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]
-            return args
 
         def first_args(out):
             return [*(vp(t.data_ptr()) for t in (feat, codes, out,
@@ -449,6 +475,9 @@ def main(argv=None) -> int:
         base = fns[("steering_warp", "as built")]
         ms = timed(base, k5_args(want, 1), "K5")
         emit("steering_warp", "as built", ms, True)
+        ms = timed(base, k5_args(out, 1, with_mask=True), "K5 mask")
+        emit("steering_warp", "as built, with the mask", ms,
+             bool(torch.equal(out, want)))
         f32_out = torch.empty(3, woh, wow, device=dev)
         ms = timed(base, k5_args(f32_out, 0), "K5 float")
         emit("steering_warp", "float32 output", ms, bool(torch.equal(
@@ -464,9 +493,11 @@ def main(argv=None) -> int:
         # other K5 sources against the kernel as built, alternating
         def other_args(path):
             with open(path) as f:
-                legacy = "int S, int linear" not in f.read()
-            a = k5_args(out, 1)
-            return a[:11] + a[13:] if legacy else a
+                text = f.read()
+            if "lerf_steering_warp_batch" in text:
+                return k5_args(out, 1)
+            a = single_args(out, 1)
+            return a if "int S, int linear" in text else a[:11] + a[13:]
 
         other = {path: other_args(path) for path in args.k5}
         for rnd in range(args.rounds if other else 0):

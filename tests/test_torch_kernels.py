@@ -22,7 +22,10 @@ host's (the same float64 operations, one at a time).  The amplified-linear
 (LeRF-L) modes of K1 and K5 hold atol 1e-3 against their twins too (no
 ``exp``: bit-equal as built), K5 at any support, its branch masks equal to
 the host's; the SR serving forms on the card are bit-equal to ``upscale``
-on the card.
+on the card.  K5's validity mask (written in its own launch, or alone) is
+equal to the host's float64 mask; its batch of homographies is bit-equal
+to each frame's own call, and the warp serving forms on the card to
+``warp`` on the card.
 """
 import numpy as np
 import pytest
@@ -39,7 +42,9 @@ from lerf_torch.ops.kernels import srnet_ensemble as k3
 from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
 from lerf_torch.ops.kernels import warp as k5
 from lerf_torch.ops.resample import (linear_resize_codes_plain,
-                                     linear_warp_codes_plain, quantize_device,
+                                     linear_warp_codes_plain,
+                                     nearest_warp_mask_on_device,
+                                     quantize_device,
                                      steering_resize_codes_plain,
                                      steering_warp_codes_plain)
 from lerf_torch.pipeline import LutPredictor, NetPredictor, _quantize_device
@@ -1012,6 +1017,174 @@ def test_sr_serving_forms_on_card_equal_upscale(linear, cuda_device):
     assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 2)
     for b in range(3):
         np.testing.assert_array_equal(got[b], pred.upscale(imgs[b], 4, 4))
+
+
+# -- K5's validity mask and its batch of homographies ---------------------
+
+
+def test_warp_mask_on_cpu_is_the_host_mask():
+    """``mask_out`` on CPU tensors: the host mask of the warp's matrix
+    (``WarpParams.host_mask``), the frame the twin's, no launch; a host
+    geometry carries no matrix, so it cannot give the mask."""
+    for case in ("3x7x9", "border", "rotation"):
+        feat, codes, geom, params = warp_case(case, "cpu")
+        mask = torch.zeros(params.out_sz, dtype=torch.bool)
+        before = k5.launches
+        got = k5.steering_warp(feat, codes, params, mask_out=mask)
+        assert k5.launches == before
+        twin = steering_warp_codes_plain(feat, codes, geom)
+        assert torch.equal(torch.nan_to_num(got, nan=-1.0),
+                           torch.nan_to_num(twin, nan=-1.0))
+        assert torch.equal(mask, torch.from_numpy(params.host_mask(4)))
+        assert mask.any() == (case == "rotation")   # 7×9: all border
+        with pytest.raises(ValueError, match="WarpParams"):
+            k5.steering_warp(feat, codes, geom, mask_out=mask)
+
+
+def batch_case(cases, device, linear=False):
+    """The cases' stage outputs one frame after another along the channel
+    axis, at the first case's sizes, under each case's own matrix."""
+    _, shape, out_sz = WARP_CASES[cases[0]]
+    feats, codes, warps = [], [], []
+    for k, case in enumerate(cases):
+        rng = np.random.RandomState(20 + k)
+        feats.append(rng.randint(0, 256, shape).astype(np.int32))
+        codes.append(rng.randint(0, 256, shape + (1 if linear else 3,))
+                     .astype(np.int32))
+        warps.append(k5.WarpParams.create(shape[1:], WARP_CASES[case][0],
+                                          out_sz))
+    return (torch.from_numpy(np.concatenate(feats)).to(device),
+            torch.from_numpy(np.concatenate(codes)).to(device), warps)
+
+
+def test_warp_batch_on_cpu_is_each_frames_twin():
+    feat, codes, warps = batch_case(["3x7x9", "border", "1x1x1"], "cpu")
+    masks = torch.zeros((3,) + warps[0].out_sz, dtype=torch.bool)
+    before = k5.launches
+    got = k5.steering_warp_batch(feat, codes, warps, mask_out=masks,
+                                 out_dtype=torch.uint8)
+    assert k5.launches == before
+    for f, w in enumerate(warps):
+        mask = torch.zeros(w.out_sz, dtype=torch.bool)
+        one = k5.steering_warp(feat[3 * f:3 * f + 3], codes[3 * f:3 * f + 3],
+                               w, mask_out=mask, out_dtype=torch.uint8)
+        assert torch.equal(got[3 * f:3 * f + 3], one)
+        assert torch.equal(masks[f], mask)
+
+
+def test_warp_batch_wrapper_checks_its_arguments():
+    feat, codes, warps = batch_case(["3x7x9", "border"], "cpu")
+    with pytest.raises(ValueError, match="frames"):
+        k5.steering_warp_batch(feat[:5], codes[:5], warps)
+    other = k5.WarpParams.create((7, 9), np.eye(3), (12, 17))
+    with pytest.raises(ValueError, match="one output size"):
+        k5.steering_warp_batch(feat, codes, [warps[0], other])
+    with pytest.raises(ValueError, match="mask_out"):
+        k5.steering_warp_batch(feat, codes, warps,
+                               mask_out=torch.zeros((1, 13, 17),
+                                                    dtype=torch.bool))
+    with pytest.raises(ValueError, match="Gaussian"):
+        k5.steering_warp_batch(feat, codes[..., :1], warps)
+    with pytest.raises(ValueError, match="WarpParams"):
+        k5.steering_warp_batch(feat, codes, [warps[0], warps[1].geometry()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
+def test_warp_mask_on_card_equals_host(case, cuda_device):
+    """K5's validity mask, alone (``warp_mask``) and written in K5's own
+    launch at supports 2 and 4 (``mask_out``), equal to the host's float64
+    mask; the frame unchanged by asking for it."""
+    matrix, shape, out_sz = WARP_CASES[case]
+    feat, codes, _, _ = warp_case(case, cuda_device)
+    host = torch.from_numpy(k5.WarpParams.create(shape[1:], matrix,
+                                                 out_sz).host_mask(4))
+    for support in (2, 4):
+        params = k5.WarpParams.create(shape[1:], matrix, out_sz,
+                                      support=support)
+        assert torch.equal(k5.warp_mask(params, cuda_device).cpu(), host)
+        mask = torch.zeros(out_sz, dtype=torch.bool, device=cuda_device)
+        before = k5.launches
+        got = k5.steering_warp(feat, codes, params, mask_out=mask,
+                               out_dtype=torch.uint8)
+        assert k5.launches == before + 1
+        assert torch.equal(mask.cpu(), host)
+        assert torch.equal(got, k5.steering_warp(feat, codes, params,
+                                                 out_dtype=torch.uint8))
+    inv = torch.tensor(np.linalg.inv(matrix), device=cuda_device)
+    assert torch.equal(nearest_warp_mask_on_device(
+        inv, shape[1:], out_sz, border=4).cpu(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32],
+                         ids=["uint8", "float32"])
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_warp_batch_kernel_equals_per_frame(linear, out_dtype, cuda_device):
+    """One launch for a batch (up to ``MAX_FRAMES``; 18 frames take two):
+    each frame bit-equal to its own K5 call, each mask to the host's."""
+    cases = ["x2.5-wide", "identity", "rotation"]
+    base = ["x2.5-wide"] * 3
+    for names in (cases, base * 6):
+        feat, codes, warps = batch_case(names, cuda_device, linear)
+        # every frame at the first case's sizes, under its own matrix
+        warps = [k5.WarpParams.create(warps[0].in_sz, WARP_CASES[c][0],
+                                      warps[0].out_sz) for c in names]
+        masks = torch.zeros((len(warps),) + warps[0].out_sz,
+                            dtype=torch.bool, device=cuda_device)
+        before = k5.launches
+        got = k5.steering_warp_batch(feat, codes, warps, linear=linear,
+                                     out_dtype=out_dtype, mask_out=masks)
+        torch.cuda.synchronize()
+        assert k5.launches == before + -(-len(warps) // k5.MAX_FRAMES)
+        for f, w in enumerate(warps):
+            sl = slice(3 * f, 3 * f + 3)
+            one = k5.steering_warp(feat[sl], codes[sl], w, linear=linear,
+                                   out_dtype=out_dtype)
+            assert torch.equal(torch.nan_to_num(got[sl]),
+                               torch.nan_to_num(one)), f
+            assert torch.equal(masks[f].cpu(), torch.from_numpy(
+                w.host_mask(4))), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_warp_serving_forms_on_card_equal_warp(linear, cuda_device):
+    """``warp_dynamic``, ``warp_device`` and ``warp_batch`` on the card:
+    each frame and mask bit-equal to ``warp`` on the card, each call two K2
+    launches and one K5 (the batch too), no K1."""
+    bank = random_bank(out_c=1 if linear else 3)
+    pred = LutPredictor(bank, linear=linear, device=cuda_device)
+    imgs = np.stack([np.random.RandomState(15 + b).randint(
+        0, 256, (45, 77, 3)).astype(np.uint8) for b in range(3)])
+    mats = [jitter_matrix(b, (4.0, 4.0)) for b in range(3)]
+    want = [pred.warp(imgs[b], mats[b], (180, 308)) for b in range(3)]
+    for b in range(3):      # a repeated homography: K5 without the mask
+        again = pred.warp(imgs[b], mats[b], (180, 308))
+        for x, y in zip(want[b], again):
+            np.testing.assert_array_equal(y, x)
+    for name, call in (("dynamic", pred.warp_dynamic),
+                       ("device", pred.warp_device)):
+        for b in range(3):
+            before = (k1.launches, k2.launches, k5.launches)
+            got = call(imgs[b], mats[b], (180, 308))
+            assert (k1.launches, k2.launches, k5.launches) == (
+                before[0], before[1] + 2, before[2] + 1), name
+            for x, y in zip(want[b], got):
+                np.testing.assert_array_equal(y, x, err_msg=name)
+    before = (k1.launches, k2.launches, k5.launches)
+    outs, masks = pred.warp_batch(imgs, np.stack(mats), (180, 308))
+    assert (k1.launches, k2.launches, k5.launches) == (
+        before[0], before[1] + 2, before[2] + 1)
+    for b in range(3):
+        np.testing.assert_array_equal(outs[b], want[b][0])
+        np.testing.assert_array_equal(masks[b], want[b][1])
+    outs, masks = pred.warp_batch(imgs, mats[0], (180, 308),
+                                  geometry="device")
+    for b in range(3):
+        w = pred.warp(imgs[b], mats[0], (180, 308))
+        np.testing.assert_array_equal(outs[b], w[0])
+        np.testing.assert_array_equal(masks[b], w[1])
 
 
 def test_probe_variants_apply_to_the_kernel_sources():

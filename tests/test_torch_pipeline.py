@@ -89,17 +89,36 @@ def test_upscale_cli_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--form", "net", "--model", "IMDN2"],
-                                   ["--matrix", "1,0,0,0,1,0,0,0,1",
-                                    "--outSize", "8x8", "--dynamicWarp"],
-                                   ["--matrix", "1,0,0,0,1,0,0,0,1",
-                                    "--outSize", "8x8", "--bucket", "8"]],
+                                   ["--matrix", "2,0.1,1,0,2,-1,0,0,1",
+                                    "--outSize", "24x32", "--dynamicWarp"],
+                                   ["--matrix", "2,0.1,1,0,2,-1,0,0,1",
+                                    "--outSize", "24x32", "--bucket", "8"]],
                          ids=["form", "matrix", "matrix-bucket"])
-def test_upscale_cli_unported_flags_exit(flags, tmp_path):
+def test_upscale_cli_flags_match_jax_or_exit(flags, tmp_path):
+    """``--model IMDN2`` still exits "not ported"; the warp's serving
+    flags, which did too, now warp as lerf_tpu's CLI does
+    (``--dynamicWarp`` through ``warp_dynamic``, ``--bucket`` through
+    ``warp``), the same image."""
+    from lerf_tpu.cli.upscale import main as jax_main
     from lerf_torch.cli.upscale import main
 
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["-e", str(tmp_path), "--input", "in.png", "--output",
-              "out.png", "--platform", "cpu", *flags])
+    if "--model" in flags:
+        with pytest.raises(SystemExit, match="not ported"):
+            main(["-e", str(tmp_path), "--input", "in.png", "--output",
+                  "out.png", "--platform", "cpu", *flags])
+        return
+    b = shared_lut_predictor().bank
+    save_lut_bank(bank_from_arrays(b.stage1, b.stage2, b.inter, b.out_c),
+                  str(tmp_path / "bank"), lut_name="LUTft")
+    Image.fromarray(image(12, 16)).save(tmp_path / "in.png")
+    args = ["-e", str(tmp_path / "bank"), "--input", str(tmp_path / "in.png"),
+            "--platform", "cpu", *flags]
+    got = main(args + ["--output", str(tmp_path / "out.png")])
+    want = jax_main(args + ["--output", str(tmp_path / "jax.png")])
+    np.testing.assert_array_equal(np.array(Image.open(tmp_path / "out.png")),
+                                  got)
+    assert got.shape == (24, 32, 3) and got.any()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_eval_lut_sr_cli_prints_jax_table(tmp_path, capsys):
@@ -163,13 +182,15 @@ def test_unported_predictor_options_raise(kwargs):
         port_of(shared_lut_predictor(), device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("method", ["upscale_dynamic_async", "warp_dynamic",
-                                    "warp_batch"])
+@pytest.mark.parametrize("method", ["upscale_dynamic_async",
+                                    "warp_dynamic_async",
+                                    "warp_device_async"])
 def test_unported_serving_forms_raise(method):
-    """The async SR form waits for the serving surface (item 11), the warp
-    serving forms for the warp half of item 6."""
+    """The async serving forms wait for the serving surface (item 11); the
+    warp serving forms themselves are ported
+    (``tests/test_torch_warp_serving.py``), their async twins are not."""
     port = port_of(shared_lut_predictor(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
         getattr(port, method)(image(), 2, 2)
 
 

@@ -13,6 +13,14 @@ products into FMAs), uint8 frames equal but for .5 rounding ties, and the
 micro-net forms' frames equal but for ties on top of their stage codes
 (within 1 on < 0.5 % of pixels, ``test_torch_net_pipeline.py``), so held
 here at one step on < 1 % of pixels.
+
+The lerf_tpu references run the LUT bank in its flat table layout (the
+port's only one), which lerf_tpu holds bit-equal to its default packed
+layout (``tests/test_packed.py``) and which XLA's CPU backend compiles
+six to seven times faster: each case here compiles programs of its own
+shapes, and those compiles were most of this file's time.  Torch runs on
+one thread here (``one_torch_thread``): under the test workers' load its
+thread pool made the port's small CPU ops 80× slower.
 """
 import os
 
@@ -26,6 +34,7 @@ import jax.numpy as jnp
 from conftest import shared_lut_predictor
 from lerf_tpu.ops import geometry as jgeo
 from lerf_tpu.ops import resample as jrs
+from lerf_tpu.pipeline import LutPredictor as JaxLutPredictor
 from lerf_tpu.pipeline import NetPredictor as JaxNetPredictor
 from test_torch_pipeline import port_of
 from test_torch_srnet import np_params
@@ -49,6 +58,18 @@ SCALES = [(2.0, 2.0), (3.0, 3.0), (1.5, 2.0), (2.5, 2.5), (3.55, 3.55),
 # in a larger support bucket
 AA_SCALES = [(0.5, 0.5), (0.71, 0.71), (0.5, 2.0), (1.5, 0.33),
              (0.21, 0.21)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU twins run many small torch ops; with one intra-op
+    thread a core they stall whenever the test workers share the cores
+    (80× slower under load), so this module runs torch on one thread and
+    gives the count back after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def both_ops(in_sz, scale):
@@ -198,9 +219,33 @@ def image(h, w, seed):
         .astype(np.uint8)
 
 
+_LUT = {}
+
+
+def flat_lut_predictor(linear=False):
+    """lerf_tpu's predictor of the shared bank in the flat table layout,
+    one for the module."""
+    if linear not in _LUT:
+        _LUT[linear] = JaxLutPredictor(shared_lut_predictor(linear).bank,
+                                       linear=linear, table_layout="flat")
+    return _LUT[linear]
+
+
 def lut_pair(linear=False):
-    jax_pred = shared_lut_predictor(linear=linear)
+    jax_pred = flat_lut_predictor(linear)
     return jax_pred, port_of(jax_pred, device="cpu", linear=linear)
+
+
+@pytest.fixture
+def flat_lut_cli(monkeypatch):
+    """lerf_tpu's CLIs build their LUT predictor in the flat layout."""
+    from lerf_tpu import pipeline as jax_pipeline
+
+    make = jax_pipeline.LutPredictor.from_config.__func__
+    monkeypatch.setattr(
+        jax_pipeline.LutPredictor, "from_config",
+        classmethod(lambda cls, cfg, **kw: make(cls, cfg, table_layout="flat",
+                                                **kw)))
 
 
 _NET = {}
@@ -448,7 +493,8 @@ def save_bank(path, linear):
                                    ["--linear"],
                                    ["--linear", "--dynamicSR"]],
                          ids=lambda f: "".join(f).replace("--", "-"))
-def test_eval_lut_sr_cli_serving_prints_jax_table(flags, tmp_path, capsys):
+def test_eval_lut_sr_cli_serving_prints_jax_table(flags, tmp_path, capsys,
+                                                  flat_lut_cli):
     from lerf_tpu.cli.eval_lut_sr import main as jax_main
     from lerf_tpu.cli.make_benchmark import main as make_benchmark
     from lerf_torch.cli.eval_lut_sr import main as torch_main
@@ -475,7 +521,7 @@ def test_eval_lut_sr_cli_serving_prints_jax_table(flags, tmp_path, capsys):
                                    ["--bucket", "16", "--scale", "2"],
                                    ["--linear", "--scale", "3"]],
                          ids=["dynamicSR", "bucket", "linear"])
-def test_upscale_cli_serving_flags_match_jax(flags, tmp_path):
+def test_upscale_cli_serving_flags_match_jax(flags, tmp_path, flat_lut_cli):
     from lerf_tpu.cli.upscale import main as jax_main
     from lerf_torch.cli.upscale import main as torch_main
 

@@ -462,18 +462,58 @@ def test_eval_lut_warp_cli_prints_jax_table(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--dynamicWarp"], ["--bucket", "8"]],
                          ids=lambda f: f[0].lstrip("-"))
-def test_eval_lut_warp_cli_unported_flags_exit(flags, tmp_path):
-    from lerf_torch.cli.eval_lut_warp import main
+def test_eval_lut_warp_cli_serving_flags_print_jax_table(flags, tmp_path,
+                                                        capsys, monkeypatch):
+    """The warp's serving flags, which exited "not ported" before the
+    serving forms were ported: ``--dynamicWarp`` and ``--bucket`` now serve
+    through ``warp_dynamic`` and print lerf_tpu's table (lerf_tpu's LUT
+    predictor in its flat layout, bit-equal to its packed one and quicker
+    to compile)."""
+    from lerf_tpu import pipeline as jax_pipeline
+    from lerf_tpu.cli.eval_lut_warp import main as jax_main
+    from lerf_torch.cli.eval_lut_warp import main as torch_main
 
-    with pytest.raises(SystemExit, match="item 6"):
-        main(["-e", str(tmp_path), "--platform", "cpu", *flags])
+    make = jax_pipeline.LutPredictor.from_config.__func__
+    monkeypatch.setattr(
+        jax_pipeline.LutPredictor, "from_config",
+        classmethod(lambda cls, cfg, **kw: make(cls, cfg, table_layout="flat",
+                                                **kw)))
+    root = warp_tree(tmp_path)
+    save_bank(tmp_path / "bank")
+    capsys.readouterr()
+    args = ["-e", str(tmp_path / "bank"), "--testDir", str(root),
+            "--datasets", "Tiny", "--platform", "cpu", *flags]
+    want = jax_main(args + ["--resultRoot", str(tmp_path / "res_jax")])
+    want_out = capsys.readouterr().out
+    got = torch_main(args + ["--resultRoot", str(tmp_path / "res_torch")])
+    assert capsys.readouterr().out == want_out
+    assert len(want_out.splitlines()) == 2 and got == want
 
 
-def test_run_warp_benchmark_dynamic_raises(tmp_path):
-    from lerf_torch.evaluate import run_warp_benchmark
+def test_run_warp_benchmark_dynamic_serves_through_warp_dynamic(tmp_path, monkeypatch):
+    """``dynamic`` (or ``bucket`` > 0) serves through ``warp_dynamic`` with
+    the bucket as its granularity, neither through ``warp``, as lerf_tpu's
+    does; it no longer raises."""
+    from lerf_torch import evaluate
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_warp_benchmark(None, str(tmp_path), "Tiny", dynamic=True)
+    calls = []
+
+    class Fake:
+        def warp(self, img, matrix, out_hw):
+            calls.append("static")
+            return np.zeros(out_hw + (3,), np.uint8), np.ones(out_hw, bool)
+
+        def warp_dynamic(self, img, matrix, out_hw, granularity=0):
+            calls.append(f"dynamic{granularity}")
+            return np.zeros(out_hw + (3,), np.uint8), np.ones(out_hw, bool)
+
+    root = warp_tree(tmp_path)
+    for kw in ({}, {"dynamic": True}, {"bucket": 8},
+               {"dynamic": True, "bucket": 16}):
+        evaluate.run_warp_benchmark(Fake(), str(root), "Tiny", ("isc",),
+                                    **kw)
+    assert calls == ["static"] * 2 + ["dynamic0"] * 2 + ["dynamic8"] * 2 \
+        + ["dynamic16"] * 2
 
 
 def test_load_matrix_reads_npy_and_pth(tmp_path):

@@ -130,6 +130,10 @@ def test_warp_params_hold_the_inverse_and_pads():
                                   matrix)
     assert params.pad == (1, 1)
     assert (params.in_sz, params.out_sz) == (in_sz, out_sz)
+    # the validity mask needs no pads of its own: the geometry's at
+    # support 1 are 0, even where the support-2 ones are 1
+    mask_geom = tgeo.WarpGeometry.create(in_sz, matrix, out_sz, support=1)
+    assert (mask_geom.pad_x[0], mask_geom.pad_y[0]) == (0, 0)
 
 
 def test_warp_entry_caches_host_geometry_on_cpu_and_params_on_a_card():
@@ -137,14 +141,14 @@ def test_warp_entry_caches_host_geometry_on_cpu_and_params_on_a_card():
     cpu = pipeline._warp_entry(OrderedDict(), in_sz, matrix, out_sz, 2,
                                torch.device("cpu"))
     assert isinstance(cpu[0], tgeo.WarpGeometry)
-    # a card's entry is the matrix and the mask only: no host geometry
+    # a card's entry is the matrix, and no host geometry; its mask comes
+    # from the first call's K5 launch on the card
     card = pipeline._warp_entry(OrderedDict(), in_sz, matrix, out_sz, 2,
                                 torch.device("cuda"))
-    assert isinstance(card[0], k5.WarpParams) and len(card) == 2
+    assert isinstance(card[0], k5.WarpParams) and card[1] is None
     assert card[0] == k5.WarpParams.create(in_sz, matrix, out_sz)
-    for entry in (cpu, card):
-        assert entry[1].dtype == np.bool_ and entry[1].shape == out_sz
-    np.testing.assert_array_equal(cpu[1], card[1])
+    assert cpu[1].dtype == np.bool_ and cpu[1].shape == out_sz
+    np.testing.assert_array_equal(cpu[1], card[0].host_mask(4))
 
 
 def stage_outputs(shape, seed=4):
