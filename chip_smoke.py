@@ -11,8 +11,11 @@ the shipped LeRF-G shapes (modes s,c,t, 2 stages, 17⁴-entry int8 tables,
 oC 3), and the micro-net (SRNet) form,
 ``NetPredictor.from_srnets(params, backend=...).upscale`` / ``.warp`` at
 the reference width nf = 64 with seed-0 numpy weights, for the float (K3)
-and the int8 (K4) backends — and holds each hand-written kernel against
-its plain PyTorch twin on the card:
+and the int8 (K4) backends — and the IMDN (LeRF-Net) form,
+``NetPredictor.from_imdn(IMDN2(nf=12))`` with weights from a
+``torch.Generator`` seeded 0, whose float feature and hyper maps K1 and K5
+take in their float mode, and the network → LUT transfer; and holds each
+hand-written kernel against its plain PyTorch twin on the card:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the kernel build
    with each kernel's registers, stack, spills and static shared memory
@@ -123,11 +126,38 @@ its plain PyTorch twin on the card:
    ``warp_batch`` (a frame) in one run, and K5 alone without the mask,
    with it and over 4 frames (events in two alternating rounds, the
    profiler, twins, bounds);
-23. the exact-division findings (K1 bit-equal to its twin or not at each
+23. K1's and K5's float modes (float32 feature in [0, 254] and hyper
+   maps in [0, 1]) against their twins, lerf_tpu's float ops
+   (``steering_gaussian_resize`` / ``amplified_linear_resize``,
+   ``steering_gaussian_warp`` / ``amplified_linear_warp`` with
+   ``u8_inputs=False``): K1 at the phase 2 scales, K5 at the phase 9
+   matrices with the mask (``torch.equal`` to the host's), at support 4
+   and over a batch of 4 frames (each bit-equal to its own call), both
+   kernels; the NaN pattern equal, finite values within 1e-3, uint8 the
+   float mode quantized and off the twin only at .5 ties;
+24. the IMDN form at full width (nf 12, 5 modules a tower), backends
+   "base" and "s2d": ``upscale`` ×4 (one K1 launch, no other kernel of
+   the port) and ``warp`` under ``warp_matrix()`` (one K5 launch), a
+   96×160 crop against the CPU path (feature within 1e-3, hyper maps
+   within 1e-5, frames within one level on ≤ 0.1 %, the SR frame the twin
+   resize of the card's own stages but for .5 ties, the mask equal); the
+   whole calls, the device parts, the towers' device time (the profiler's
+   cuDNN rows, and with the elementwise rows) beside their bound; then K1
+   and K5 alone, float mode on the towers' outputs beside int32 mode on
+   the LUT stages', alternating;
+25. the IMDN serving forms (``upscale_dynamic``, ``upscale_batch`` of 4,
+   ``warp_dynamic``, ``warp_device``, ``warp_batch`` of 4), each bit-equal
+   to ``upscale`` / ``warp`` on the card frame by frame with one K1 or K5
+   launch a call, and their times;
+26. ``transfer_to_lut`` of the nf 64 SRNet params on the card against the
+   CPU's (≤ 1 LSB, ≥ 99.9 % equal), its seconds, and ``LutPredictor`` on
+   that bank upscaling on the card (K2 twice, K1 once);
+27. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
-   rows with their ``linear`` mode, and K5's ``support4``, ``mask`` and
-   ``batch4`` beside), the card line and, last, the result line.
+   rows with their ``linear`` and ``float`` modes, and K5's ``support4``,
+   ``mask`` and ``batch4`` beside), the card line and, last, the result
+   line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -204,6 +234,22 @@ K5_F64_MASK_OPS = 8
 F64_OPS_PER_S = 34e12
 K5_ATOL = 1e-3          # float32 ops in one order; exp differs by a few ulp
 WARP_OUT = (int(LR_H * SCALE), int(LR_W * SCALE))
+#  the float modes (float32 feature and hyper maps, the IMDN form's): the
+#  decode a source pixel, 2 rho - 1, sx * max, sy * max and 2 rho (5;
+#  linear 2: a * 2 - 1), no divisions
+K1_FLOAT_OPS_PER_SOURCE = 5
+LIN_FLOAT_OPS_PER_SOURCE = 2
+IMDN_NF = 12              # the reference LeRF-Net's width (5 modules a tower)
+# the IMDN crop, card (cuDNN) against the CPU: the towers' float32 sums in
+# another order (cuDNN's implicit GEMM), a few ulp of a value; the feature
+# spans 0..254, the hyper maps 0..1 (the CPU tests' tolerances against
+# lerf_tpu); a frame may round the other way at a .5 edge by one level
+IMDN_FEAT_ATOL = 1e-3
+IMDN_HYPER_ATOL = 1e-5
+IMDN_U8_SHARE = 0.001
+# the transfer, card against CPU: a head's float32 chain summed in another
+# order flips round(clip(out) * 127) at a .5 edge, by 1 LSB
+TRANSFER_EQUAL_SHARE = 0.999
 
 
 def warp_matrix(seed=0):
@@ -459,19 +505,22 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(geom, c, linear=False):
+def k1_work(geom, c, linear=False, floats=False):
     """(bytes, operations) of one K1 call in uint8 mode: the int32 feature
-    and codes (3 a pixel, 1 in the linear mode) read once, the uint8
-    output written once, the device geometry (rows, distances and, linear,
-    masks) read once; the decode once a source pixel, the weights and sums
-    once an output and neighbour, the epilogue once an output."""
+    and codes (3 a pixel, 1 in the linear mode; ``floats``: float32
+    feature and maps, as many bytes) read once, the uint8 output written
+    once, the device geometry (rows, distances and, linear, masks) read
+    once; the decode once a source pixel, the weights and sums once an
+    output and neighbour, the epilogue once an output."""
     (h, w), (oh, ow), s = geom.in_sz, geom.out_sz, geom.support
     codes = 1 if linear else 3
     nbytes = (c * h * w * 4 * (1 + codes) + c * oh * ow
               + (oh + ow) * s * (9 if linear else 8))
     per = (LIN_OPS_PER_NEIGHBOUR if linear else K1_OPS_PER_NEIGHBOUR) \
         + (1 if geom.antialias else 0)
-    src = LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE
+    src = ((LIN_FLOAT_OPS_PER_SOURCE if linear else K1_FLOAT_OPS_PER_SOURCE)
+           if floats else
+           (LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE))
     ops = (c * h * w * src
            + c * oh * ow * (s * s * per + K1_OPS_PER_OUTPUT_U8))
     return nbytes, ops
@@ -720,7 +769,7 @@ def net_form_phases(dev, params, frame, backend):
 
 
 def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
-            frames=1):
+            frames=1, floats=False):
     """(bytes, float32 operations, float64 operations) of one K5 call in
     uint8 mode: the int32 feature and codes (3 a pixel, 1 linear) and the
     3×3 float64 inverse read once, the uint8 output written once; the
@@ -731,12 +780,16 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
     + pad, and per distance its subtraction and cast (2, with the linear
     branch tests 4); per output row and column the grid's products and the
     column's adds.  ``mask``: the validity mask's byte and
-    ``K5_F64_MASK_OPS`` an output; ``frames``: a batch of that many."""
+    ``K5_F64_MASK_OPS`` an output; ``frames``: a batch of that many;
+    ``floats``: float32 feature and maps (as many bytes, the float decode
+    of ``k1_work``)."""
     (h, w), (oh, ow) = in_sz, out_sz
     codes = 1 if linear else 3
     nbytes = c * h * w * 4 * (1 + codes) + 9 * 8 + c * oh * ow
     per = LIN_OPS_PER_NEIGHBOUR if linear else K5_OPS_PER_NEIGHBOUR
-    src = LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE
+    src = ((LIN_FLOAT_OPS_PER_SOURCE if linear else K1_FLOAT_OPS_PER_SOURCE)
+           if floats else
+           (LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE))
     ops = (c * h * w * src + c * oh * ow
            * (support * support * per + K5_OPS_PER_OUTPUT_U8))
     per_distance = 2 + (K5_F64_BRANCH_OPS if linear else 0)
@@ -1707,6 +1760,491 @@ def warp_serving_timing(dev, bank, frame, x, frames, mats, geoms):
     return rows
 
 
+def float_inputs(rng, shape, oc, dev):
+    """A float feature in [0, 254] and hyper maps in [0, 1] on ``dev``, as
+    the IMDN towers give them."""
+    import torch
+    return (torch.from_numpy((rng.rand(*shape) * 254).astype(np.float32))
+            .to(dev),
+            torch.from_numpy(rng.rand(*shape, oc).astype(np.float32)).to(dev))
+
+
+def float_twin_resize(feat, hyper, geom, linear):
+    """K1's float-mode twin: lerf_tpu's float resize ops."""
+    from lerf_torch.ops.resample import (amplified_linear_resize,
+                                         steering_gaussian_resize)
+    if linear:
+        return amplified_linear_resize(feat, hyper[..., 0], geom)
+    return steering_gaussian_resize(feat, hyper[..., 0], hyper[..., 1],
+                                    hyper[..., 2], geom)
+
+
+def float_twin_warp(feat, hyper, geom, linear):
+    """K5's float-mode twin: lerf_tpu's float-row warps."""
+    from lerf_torch.ops.resample import (amplified_linear_warp,
+                                         steering_gaussian_warp)
+    if linear:
+        return amplified_linear_warp(feat, hyper[..., 0], geom)
+    return steering_gaussian_warp(feat, hyper[..., 0], hyper[..., 1],
+                                  hyper[..., 2], geom)
+
+
+def held_to_twin(got, got_u8, want, atol, what, nan_to_zero=True):
+    """``got`` against its twin ``want``: the NaN pattern equal, finite
+    values within ``atol``, the uint8 mode the float mode quantized and
+    uint8 mismatches with the twin only at .5 ties.  Returns (max-abs
+    error, NaN count, uint8 mismatches)."""
+    import torch
+    from lerf_torch.ops.resample import quantize_device
+
+    nan = torch.isnan(want)
+    n_nan = int(nan.sum())
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{what}: NaN pattern "
+                             f"{int(torch.isnan(got).sum())} against {n_nan}")
+    err = float((got[~nan] - want[~nan]).abs().max()) \
+        if n_nan < want.numel() else 0.0
+    if not err <= atol:
+        raise AssertionError(f"{what}: max-abs {err} > {atol}")
+    if got_u8.dtype != torch.uint8 or not torch.equal(
+            got_u8, quantize_device(got, 255, nan_to_zero=nan_to_zero)):
+        raise AssertionError(f"{what}: the uint8 mode differs from the "
+                             "float mode quantized")
+    n_tie = check_ties(
+        got_u8.cpu().numpy(),
+        quantize_device(want, 255, nan_to_zero=True).cpu().numpy(),
+        torch.nan_to_num(want, nan=0.0).cpu().numpy(), what)
+    return err, n_nan, n_tie
+
+
+def float_kernel_phases(dev, rng):
+    """Phase 23: K1's and K5's float modes (float32 feature and hyper maps
+    in [0, 1], the IMDN form's inputs) against their twins, lerf_tpu's
+    float ops, on the card at the stage shapes: K1 at the phase 2 scales
+    in both kernels; K5 at the phase 9 matrices with the validity mask
+    (``torch.equal`` to the host's) in both kernels, at support 4 on the
+    main matrix, and over a batch of 4 frames under ``warp_matrix(0..3)``
+    (each frame bit-equal to its own call and within the tolerance of its
+    twin).  Returns the largest errors."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+
+    shape = (3, LR_H, LR_W)
+    out = {"k1_float": 0.0, "k5_float": 0.0}
+    inputs = {lin: float_inputs(rng, shape, 1 if lin else 3, dev)
+              for lin in (False, True)}
+    for linear in (False, True):
+        feat, hyper = inputs[linear]
+        for scale in (4.0, 2.5, 3.55, 0.5):
+            geom = ResizeGeometry.create((LR_H, LR_W),
+                                         scale_factors=[scale] * 2)
+            got = k1.steering_resize(feat, hyper, geom, linear=linear)
+            got_u8 = k1.steering_resize(feat, hyper, geom, linear=linear,
+                                        out_dtype=torch.uint8)
+            want = float_twin_resize(feat, hyper, geom, linear)
+            torch.cuda.synchronize()
+            err, n_nan, n_tie = held_to_twin(
+                got, got_u8, want, K1_ATOL,
+                f"K1 float linear={linear} x{scale}", nan_to_zero=linear)
+            out["k1_float"] = max(out["k1_float"], err)
+            emit({"phase": "k1_float_vs_plain", "scale": scale,
+                  "linear": linear, "out": list(geom.out_sz),
+                  "antialias": geom.antialias, "support": geom.support,
+                  "max_abs_err": err, "bit_equal": err == 0.0,
+                  "nan_windows": n_nan, "u8_equal_to_quantized_float": True,
+                  "u8_mismatch": n_tie})
+    cases = [(name, 2) for name in WARP_CASES] + [("main", 4)]
+    for linear in (False, True):
+        feat, hyper = inputs[linear]
+        for name, support in cases:
+            matrix, out_sz = WARP_CASES[name]
+            params = k5.WarpParams.create((LR_H, LR_W), matrix, out_sz,
+                                          support=support)
+            mask = torch.empty(out_sz, dtype=torch.bool, device=dev)
+            got = k5.steering_warp(feat, hyper, params, linear=linear,
+                                   mask_out=mask)
+            got_u8 = k5.steering_warp(feat, hyper, params, linear=linear,
+                                      out_dtype=torch.uint8)
+            want = float_twin_warp(feat, hyper, params.geometry(), linear)
+            torch.cuda.synchronize()
+            what = f"K5 float {name} S={support} linear={linear}"
+            err, n_nan, n_tie = held_to_twin(got, got_u8, want, K5_ATOL,
+                                             what)
+            if not np.array_equal(mask.cpu().numpy(), params.host_mask()):
+                raise AssertionError(f"{what}: the mask differs from the "
+                                     "host's")
+            out["k5_float"] = max(out["k5_float"], err)
+            emit({"phase": "k5_float_vs_plain", "matrix": name,
+                  "support": support, "linear": linear, "out": list(out_sz),
+                  "mask_equal": True, "max_abs_err": err,
+                  "bit_equal": err == 0.0, "nan_windows": n_nan,
+                  "u8_equal_to_quantized_float": True, "u8_mismatch": n_tie})
+        warps = [k5.WarpParams.create((LR_H, LR_W), warp_matrix(s), WARP_OUT)
+                 for s in range(4)]
+        feats = torch.cat([feat, feat.flip(-1), feat.flip(-2), feat * 0.5])
+        hypers = torch.cat([hyper, hyper.flip(-2), hyper.flip(-3),
+                            1 - hyper])
+        masks = torch.empty((4,) + WARP_OUT, dtype=torch.bool, device=dev)
+        (got,), launches = counted_run(lambda: (k5.steering_warp_batch(
+            feats, hypers, warps, linear=linear, out_dtype=torch.uint8,
+            mask_out=masks),), {"steering_warp": 1}, "K5 float batch of 4")
+        worst = 0.0
+        for f, w in enumerate(warps):
+            sl = slice(3 * f, 3 * f + 3)
+            one = k5.steering_warp(feats[sl], hypers[sl], w, linear=linear)
+            if not torch.equal(got[sl], quantize_u8(one)):
+                raise AssertionError(f"K5 float batch frame {f}: not "
+                                     "bit-equal to its own call")
+            if not np.array_equal(masks[f].cpu().numpy(), w.host_mask()):
+                raise AssertionError(f"K5 float batch frame {f}: the mask "
+                                     "differs from the host's")
+            want = float_twin_warp(feats[sl], hypers[sl], w.geometry(),
+                                   linear)
+            err, _, _ = held_to_twin(
+                one, got[sl], want, K5_ATOL,
+                f"K5 float batch frame {f} linear={linear}")
+            worst = max(worst, err)
+        out["k5_float"] = max(out["k5_float"], worst)
+        emit({"phase": "k5_float_batch", "frames": 4, "linear": linear,
+              "launches": launches, "bit_equal_to_frames": True,
+              "masks_equal": True, "max_abs_err": worst})
+    return out
+
+
+def quantize_u8(x):
+    from lerf_torch.ops.resample import quantize_device
+    return quantize_device(x, 255, nan_to_zero=True)
+
+
+def imdn_model():
+    """IMDN2 at the reference's width (nf 12, 5 modules a tower), its
+    weights drawn from a ``torch.Generator`` seeded 0."""
+    import torch
+    from lerf_torch.models.imdn import IMDN2, init_imdn
+    return init_imdn(IMDN2(nf=IMDN_NF), torch.Generator().manual_seed(0))
+
+
+def imdn_tower_work(model, h, w):
+    """(bytes, multiply-adds, unfused bytes) of both IMDN towers on one
+    [3, h, w] frame: the float32 image read once and the feature and
+    hyper maps written once; a multiply-add per weight of every conv at
+    every pixel (upscale 1, stride 1); and the activations every unfused
+    conv reads and writes (its input and output, float32), which is what
+    a conv-at-a-time execution moves at the least."""
+    import torch
+    px = h * w
+    macs = unfused = 0
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            macs += m.weight.numel() * px
+            unfused += (m.in_channels + m.out_channels) * px * 4
+    nbytes = (3 + 3 + 3 * model.out_c) * px * 4
+    return nbytes, macs, unfused
+
+
+def imdn_phases(dev, frame, feat_lut, hyper_lut):
+    """Phase 24: the IMDN (LeRF-Net) form at full width, ``IMDN2(nf=12)``,
+    for the "base" and "s2d" backends: ``upscale`` 360×640 → ×4 and
+    ``warp`` → 1440×2560 under ``warp_matrix()`` with the launch counts
+    (SR one K1, warp one K5, no other kernel of the port); a 96×160 crop
+    against the CPU path (feature within ``IMDN_FEAT_ATOL``, hyper within
+    ``IMDN_HYPER_ATOL``, the frames within one level on at most
+    ``IMDN_U8_SHARE``, the SR frame the twin resize of the card's own
+    stages but for .5 ties, the warp's mask equal); the whole calls, the
+    device parts, the towers' device time (the profiler's cuDNN and
+    elementwise rows) beside their bound, and K1 / K5.  Then K1's and K5's
+    float modes on the towers' own outputs beside their int32 modes on the
+    LUT stages' (the main path's uint8 mode, alternating rounds, and the
+    profiler).  Returns the float modes' kernel rows and the launches."""
+    import torch
+    from lerf_torch.models.imdn_s2d import resolve_backend
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import quantize_device
+    from lerf_torch.pipeline import NetPredictor
+
+    model = imdn_model()
+    matrix = WARP_CASES["main"][0]
+    oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                         .astype(np.float32) / 255).to(dev)
+    crop = np.ascontiguousarray(frame[:CROP_H, :CROP_W])
+    crop_out = (int(CROP_H * SCALE), int(CROP_W * SCALE))
+    nbytes, macs, unfused = imdn_tower_work(model, LR_H, LR_W)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / NON_TENSOR_OPS_PER_S * 1e3
+    t_unfused = unfused / HBM_BYTES_PER_S * 1e3
+    tower_bound = max(t_bytes, t_ops)
+    tower_by = "bytes" if t_bytes >= t_ops else "operations"
+    result = {"launches": {}, "tower_ms": {}}
+    for backend in ("base", "s2d"):
+        pred = NetPredictor.from_imdn(model, backend=backend)
+        if pred.device.type != "cuda":
+            raise AssertionError(f"default device is {pred.device}")
+        (out, feat, hyper), sr_launches = counted_run(
+            lambda: pred.upscale(frame, SCALE, SCALE, return_aux=True),
+            {"steering_resize": 1}, f"IMDN upscale ({backend})")
+        if (out.shape != (oh, ow, 3) or out.dtype != np.uint8
+                or feat.shape != (3, LR_H, LR_W) or feat.dtype != np.float32
+                or hyper.shape != (3, LR_H, LR_W, 3)
+                or not (np.isfinite(feat).all() and np.isfinite(hyper).all())
+                or feat.min() < 0 or feat.max() > 254
+                or hyper.min() < 0 or hyper.max() > 1):
+            raise AssertionError(f"IMDN upscale ({backend}): output "
+                                 f"{out.shape}, feat {feat.shape}, hyper "
+                                 f"{hyper.shape} out of shape or range")
+        (wout, wmask), warp_launches = counted_run(
+            lambda: pred.warp(frame, matrix, WARP_OUT),
+            {"steering_warp": 1}, f"IMDN warp ({backend})")
+        if (wout.shape != WARP_OUT + (3,) or wout.dtype != np.uint8
+                or wmask.shape != WARP_OUT or not wmask.any()):
+            raise AssertionError(f"IMDN warp ({backend}): output "
+                                 f"{wout.shape}, mask {wmask.shape}")
+        result["launches"][backend] = {"upscale": sr_launches,
+                                       "warp": warp_launches}
+
+        got = pred.upscale(crop, SCALE, SCALE, return_aux=True)
+        got_w = pred.warp(crop, matrix, crop_out)
+        t_cpu = time.perf_counter()
+        cpu = NetPredictor.from_imdn(model, backend=backend, device="cpu")
+        ref = cpu.upscale(crop, SCALE, SCALE, return_aux=True)
+        ref_w = cpu.warp(crop, matrix, crop_out)
+        cpu_s = time.perf_counter() - t_cpu
+        feat_err = float(np.abs(got[1] - ref[1]).max())
+        hyper_err = float(np.abs(got[2] - ref[2]).max())
+        if not (feat_err <= IMDN_FEAT_ATOL and hyper_err <= IMDN_HYPER_ATOL):
+            raise AssertionError(f"IMDN crop ({backend}): feat {feat_err}, "
+                                 f"hyper {hyper_err} against "
+                                 f"{IMDN_FEAT_ATOL}, {IMDN_HYPER_ATOL}")
+        shares = {}
+        for what, a, b in (("upscale", got[0], ref[0]),
+                           ("warp", got_w[0], ref_w[0])):
+            d = np.abs(a.astype(int) - b.astype(int))
+            shares[what] = float((d > 0).mean())
+            if d.max() > 1 or shares[what] > IMDN_U8_SHARE:
+                raise AssertionError(f"IMDN crop {what} ({backend}): max "
+                                     f"{d.max()}, share {shares[what]}")
+        if not np.array_equal(got_w[1], ref_w[1]):
+            raise AssertionError(f"IMDN crop warp ({backend}): the mask "
+                                 "differs from the CPU's")
+        geom = ResizeGeometry.create((CROP_H, CROP_W),
+                                     scale_factors=[SCALE] * 2)
+        f32 = float_twin_resize(torch.from_numpy(got[1]),
+                                torch.from_numpy(got[2]), geom, False)
+        n_tie = check_ties(
+            got[0], quantize_device(f32, 255).numpy().transpose(1, 2, 0),
+            f32.numpy().transpose(1, 2, 0), f"IMDN crop ({backend})")
+        emit({"phase": "imdn_end_to_end", "backend": backend,
+              "resolved": resolve_backend(backend), "nf": IMDN_NF,
+              "in": [LR_H, LR_W], "out": [oh, ow], "warp_out": list(WARP_OUT),
+              "launches": result["launches"][backend],
+              "crop": [CROP_H, CROP_W], "feat_max_abs_err": feat_err,
+              "hyper_max_abs_err": hyper_err,
+              "tolerance": [IMDN_FEAT_ATOL, IMDN_HYPER_ATOL, 1,
+                            IMDN_U8_SHARE],
+              "u8_share_differing": shares, "warp_mask_equal": True,
+              "u8_mismatch_with_twin_at_ties": n_tie,
+              "cpu_reference_s": cpu_s})
+
+        mp = oh * ow / 1e6
+        upscale_ms = host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE),
+                                  10)
+        device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)),
+                             frames=10, warmup=2)
+        warp_ms = host_call_ms(lambda: pred.warp(frame, matrix, WARP_OUT), 10)
+        warp_device_ms = frame_ms(
+            lambda: pred.run_warp_device(x, matrix, WARP_OUT), frames=10,
+            warmup=2)
+        rows = device_rows(lambda: pred.run_device(x, (SCALE, SCALE)))
+        port = [r for r in rows if "steering_resize_kernel" in r[0]]
+        copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
+        towers = [r for r in rows if r not in port and r not in copies]
+        tower_ms = sum(ms for _, _, ms in towers)
+        conv_ms = sum(ms for name, _, ms in towers
+                      if "xmma" in name or "conv" in name or "gemm" in name)
+        result["tower_ms"][backend] = tower_ms
+        emit_timed({"phase": "imdn_timing", "backend": backend,
+                    "frames": 10, "upscale_ms": upscale_ms,
+                    "upscale_mps": mp / upscale_ms * 1e3,
+                    "device_ms": device_ms,
+                    "device_mps": mp / device_ms * 1e3, "warp_ms": warp_ms,
+                    "warp_device_ms": warp_device_ms,
+                    "towers_profiler_ms": tower_ms,
+                    "towers_conv_profiler_ms": conv_ms,
+                    "towers_launches": sum(n for _, n, _ in towers),
+                    "k1_profiler_ms": sum(ms for _, _, ms in port),
+                    "towers_bound_ms": tower_bound,
+                    "towers_bound_by": tower_by,
+                    "towers_bound_parts_ms": {
+                        "bytes": t_bytes, "f32_operations": t_ops,
+                        "unfused_activation_bytes": t_unfused},
+                    "towers_share_of_bound": tower_bound / tower_ms
+                    if tower_ms else None,
+                    "towers_macs": macs, "towers_bytes": nbytes,
+                    "towers_unfused_bytes": unfused,
+                    "device_rows": [[k[:60], n, ms] for k, n, ms in
+                                    sorted(rows, key=lambda r: -r[2])[:12]]})
+        emit_timed(profile_frames(lambda: pred.upscale(frame, SCALE, SCALE),
+                                  frames=5, form="imdn", backend=backend))
+    faster = min(result["tower_ms"], key=result["tower_ms"].get)
+    emit({"phase": "imdn_backends", "towers_profiler_ms": result["tower_ms"],
+          "faster": faster, "auto": resolve_backend("auto")})
+
+    # K1 and K5 alone, float mode on the towers' outputs, int32 mode on the
+    # LUT stages', the main path's uint8 mode, alternating rounds
+    pred = NetPredictor.from_imdn(model)
+    feat_f, hyper_f = pred._stages(x)
+    hyper_f = hyper_f.contiguous()
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    ops = k1.ResizeOperands.create(geom, dev)
+    params = k5.WarpParams.create((LR_H, LR_W), matrix, WARP_OUT)
+    u8 = torch.uint8
+    fns = {
+        ("steering_resize", "int32"): lambda: k1.steering_resize(
+            feat_lut, hyper_lut, geom, operands=ops, out_dtype=u8),
+        ("steering_resize", "float"): lambda: k1.steering_resize(
+            feat_f, hyper_f, geom, operands=ops, out_dtype=u8),
+        ("steering_warp", "int32"): lambda: k5.steering_warp(
+            feat_lut, hyper_lut, params, out_dtype=u8),
+        ("steering_warp", "float"): lambda: k5.steering_warp(
+            feat_f, hyper_f, params, out_dtype=u8)}
+    ms = {key: [] for key in fns}
+    for _ in range(3):
+        for key, fn in fns.items():
+            ms[key].append(event_ms(fn, iters=50))
+    warp_geom = params.geometry()
+    plain = {"steering_resize": lambda: quantize_device(
+                 float_twin_resize(feat_f, hyper_f, geom, False), 255),
+             "steering_warp": lambda: quantize_u8(
+                 float_twin_warp(feat_f, hyper_f, warp_geom, False))}
+    rows = {}
+    for (kernel, mode), fn in fns.items():
+        prof = kernel_device_ms(fn, kernel + "_kernel")
+        if kernel == "steering_resize":
+            b_ms, b_by = bound(*k1_work(geom, 3, floats=mode == "float"))
+        else:
+            b_ms, b_by, _ = k5_bound(*k5_work((LR_H, LR_W), WARP_OUT, 3,
+                                              floats=mode == "float"))
+        mean = statistics.mean(ms[kernel, mode])
+        r = {"kernel": kernel, "inputs": mode, "out_dtype": "uint8",
+             "ms": mean, "ms_rounds": ms[kernel, mode], **prof,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "share_of_bound": b_ms / mean}
+        if mode == "float":
+            r["plain_ms"] = event_ms(plain[kernel], iters=3, warmup=1)
+        emit_timed(r)
+        rows[kernel, mode] = r
+    return rows, result["launches"]
+
+
+def imdn_serving_phase(dev, frame):
+    """Phase 25: the IMDN form's serving forms on the card (base backend):
+    ``upscale_dynamic`` (×2.5), ``upscale_batch`` of 4 at ×4,
+    ``warp_dynamic``, ``warp_device`` and ``warp_batch`` of 4 under
+    ``warp_matrix(0..3)``, each bit-equal to ``upscale`` / ``warp`` on the
+    card frame by frame (the batch runs the towers frame by frame, then one
+    launch of K1 or K5), each call one K1 or K5 launch; their ms a call
+    beside ``upscale``'s and ``warp``'s."""
+    from lerf_torch.pipeline import NetPredictor
+
+    pred = NetPredictor.from_imdn(imdn_model())
+    rng = np.random.RandomState(7)
+    frames = np.stack([frame] + [rng.randint(0, 256, frame.shape)
+                                 .astype(np.uint8) for _ in range(3)])
+    mats = np.stack([warp_matrix(k) for k in range(4)])
+    sr = {"steering_resize": 1}
+    wp = {"steering_warp": 1}
+    want = [pred.upscale(f, SCALE, SCALE) for f in frames]
+    got, _ = counted_run(lambda: pred.upscale_batch(frames, SCALE, SCALE),
+                         sr, "IMDN upscale_batch")
+    if not all(np.array_equal(got[b], want[b]) for b in range(4)):
+        raise AssertionError("IMDN upscale_batch: not bit-equal per frame")
+    got, _ = counted_run(lambda: pred.upscale_dynamic(frame, 2.5, 2.5), sr,
+                         "IMDN upscale_dynamic")
+    if not np.array_equal(got, pred.upscale(frame, 2.5, 2.5)):
+        raise AssertionError("IMDN upscale_dynamic: not bit-equal")
+    want = [pred.warp(f, m, WARP_OUT) for f, m in zip(frames, mats)]
+    (outs, masks), _ = counted_run(
+        lambda: pred.warp_batch(frames, mats, WARP_OUT), wp,
+        "IMDN warp_batch")
+    for b in range(4):
+        if not (np.array_equal(outs[b], want[b][0])
+                and np.array_equal(masks[b], want[b][1])):
+            raise AssertionError(f"IMDN warp_batch frame {b}: not "
+                                 "bit-equal to warp")
+    for name in ("warp_dynamic", "warp_device"):
+        (out, mask), _ = counted_run(
+            lambda: getattr(pred, name)(frames[1], mats[1], WARP_OUT), wp,
+            f"IMDN {name}")
+        if not (np.array_equal(out, want[1][0])
+                and np.array_equal(mask, want[1][1])):
+            raise AssertionError(f"IMDN {name}: not bit-equal to warp")
+    m = mats[0]
+    times = {
+        "upscale_ms": host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE),
+                                   10),
+        "upscale_dynamic_x2.5_ms": host_call_ms(
+            lambda: pred.upscale_dynamic(frame, 2.5, 2.5), 10),
+        "upscale_batch_ms_per_frame": host_call_ms(
+            lambda: pred.upscale_batch(frames, SCALE, SCALE), 5) / 4,
+        "warp_ms": host_call_ms(lambda: pred.warp(frame, m, WARP_OUT), 10),
+        "warp_dynamic_ms": host_call_ms(
+            lambda: pred.warp_dynamic(frame, m, WARP_OUT), 10),
+        "warp_device_ms": host_call_ms(
+            lambda: pred.warp_device(frame, m, WARP_OUT), 10),
+        "warp_batch_ms_per_frame": host_call_ms(
+            lambda: pred.warp_batch(frames, mats, WARP_OUT), 5) / 4}
+    emit_timed({"phase": "imdn_serving", "frames": 4,
+                "bit_equal_to_frames": ["upscale_batch", "upscale_dynamic",
+                                        "warp_batch", "warp_dynamic",
+                                        "warp_device"],
+                "launches_per_call": {"sr": sr, "warp": wp}, **times})
+
+
+def transfer_phase(dev, params, frame):
+    """Phase 26: ``transfer_to_lut`` of the nf 64 SRNet params on the card
+    (the default device) against the CPU's: int8 tables equal but for 1-LSB
+    rounding ties (at least ``TRANSFER_EQUAL_SHARE`` equal), with the
+    seconds of each (the card's first and second call); then
+    ``LutPredictor`` on the card's bank upscales the frame on the card (K2
+    twice, K1 once)."""
+    from lerf_torch.lut.transfer import transfer_to_lut
+    from lerf_torch.pipeline import LutPredictor
+
+    card_s = []
+    for _ in range(2):
+        t = time.perf_counter()
+        bank = transfer_to_lut(params)
+        card_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    want = transfer_to_lut(params, device="cpu")
+    cpu_s = time.perf_counter() - t
+    n = same = worst = 0
+    for a, b in ((want.stage1, bank.stage1), (want.stage2, bank.stage2)):
+        for k in a:
+            if a[k].shape != b[k].shape or b[k].dtype != np.int8:
+                raise AssertionError(f"transfer {k}: {b[k].shape} "
+                                     f"{b[k].dtype}")
+            d = np.abs(a[k].astype(int) - b[k].astype(int))
+            worst = max(worst, int(d.max()))
+            n, same = n + d.size, same + int((d == 0).sum())
+    if worst > 1 or same / n < TRANSFER_EQUAL_SHARE:
+        raise AssertionError(f"transfer: card vs CPU max {worst} LSB, "
+                             f"{same / n} equal")
+    out, launches = counted_run(
+        lambda: LutPredictor(bank).upscale(frame, SCALE, SCALE),
+        {"lut_stage": 2, "steering_resize": 1}, "LUT form on the card's bank")
+    if out.shape != (int(LR_H * SCALE), int(LR_W * SCALE), 3):
+        raise AssertionError(f"LUT form on the card's bank: {out.shape}")
+    emit_timed({"phase": "transfer", "nf": NF, "entries": L4,
+                "table_columns": n // L4, "max_lsb": worst,
+                "share_equal": same / n, "card_s": card_s, "cpu_s": cpu_s,
+                "served_launches": launches})
+
+
 def main() -> int:
     import torch
 
@@ -2039,7 +2577,35 @@ def main() -> int:
     kernels[-1]["batch4"] = {"max_abs_err": batch_err,
                              **{k: k5_rows["batch4"][k] for k in keys}}
 
-    # -- 23. result ----------------------------------------------------------
+    # -- 23. K1's and K5's float modes against their twins ------------------
+    float_err = float_kernel_phases(dev, rng)
+
+    # -- 24. the IMDN form at full width, both backends ----------------------
+    float_rows, imdn_launches = imdn_phases(dev, frame, feat_d, hyper_d)
+
+    # -- 25. the IMDN serving forms ------------------------------------------
+    imdn_serving_phase(dev, frame)
+
+    # -- 26. the transfer on the card, and its bank served --------------------
+    transfer_phase(dev, params, frame)
+
+    # the kernels line: K1's and K5's float modes (the IMDN path's, launched
+    # on every IMDN call) beside their main-path rows
+    float_keys = ("ms", "profiler_ms", "profiler_launches", "plain_ms",
+                  "bound_ms", "bound_by", "share_of_bound")
+    auto = imdn_launches["base"]
+    kernels[0]["float"] = {
+        "max_abs_err": float_err["k1_float"],
+        "launches": auto["upscale"]["steering_resize"],
+        "int32_ms_same_call": float_rows["steering_resize", "int32"]["ms"],
+        **{k: float_rows["steering_resize", "float"][k] for k in float_keys}}
+    kernels[-1]["float"] = {
+        "max_abs_err": float_err["k5_float"],
+        "launches": auto["warp"]["steering_warp"],
+        "int32_ms_same_call": float_rows["steering_warp", "int32"]["ms"],
+        **{k: float_rows["steering_warp", "float"][k] for k in float_keys}}
+
+    # -- 27. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

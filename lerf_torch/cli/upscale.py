@@ -6,6 +6,9 @@
     # micro-net form (K3 on the card; --backend pallas_int8 runs K4)
     python -m lerf_torch.cli.upscale -e models/lerf-g --form net \
         --twoStage --outC 3 --input in.png --output out.png --scale 2.5
+    # IMDN (LeRF-Net) form: the towers, then K1 in its float mode
+    python -m lerf_torch.cli.upscale -e models/lerf-net --form net \
+        --model IMDN2 --inC 3 --twoStage --input in.png --output out.png
     # homographic warp with the same hyper maps (K5 on the card)
     python -m lerf_torch.cli.upscale -e models/lerf-g --input in.png \
         --output out.png --matrix 4,0,0,0,4,0,0,0,1 --outSize 1440x2560
@@ -76,8 +79,6 @@ CHECKPOINT_ERRORS = (OSError, EOFError, pickle.UnpicklingError, ImportError,
 
 def _unported(cfg: UpscaleConfig):
     """The message for a flag whose path the port does not have yet."""
-    if cfg.form != "lut" and cfg.model == "IMDN2":
-        return "--model IMDN2 (ROADMAP Queue A item 8)"
     if (os.path.isdir(cfg.input)
             or any(ch in cfg.input for ch in "*?[")):
         return "several inputs (ROADMAP Queue A item 11)"
@@ -89,7 +90,8 @@ def build_predictor(cfg: UpscaleConfig):
     when a checkpoint exists, and a checkpoint that is missing or cannot be
     read falls back to the LUT bank; only the host-side read is guarded, so
     a kernel build, launch or device error is never caught."""
-    from .eval_model import load_params, predictor_from_params
+    from .eval_model import (imdn_predictor, load_imdn, load_params,
+                             predictor_from_params)
 
     auto = cfg.form == "auto"
     if auto:
@@ -98,15 +100,17 @@ def build_predictor(cfg: UpscaleConfig):
                         cfg.exp_dir, f"Model_{cfg.load_iter:06d}.pth")))
         cfg.form = "net" if has_ckpt else "lut"
     if cfg.form == "net":
+        imdn = cfg.model == "IMDN2"
         try:
-            params = load_params(cfg)
+            loaded = load_imdn(cfg) if imdn else load_params(cfg)
         except CHECKPOINT_ERRORS as e:
             if not auto:
                 raise
             print(f"upscale: net form unavailable ({e!r}); "
                   f"falling back to the LUT bank", flush=True)
         else:
-            return predictor_from_params(cfg, params)
+            return (imdn_predictor(cfg, *loaded) if imdn
+                    else predictor_from_params(cfg, loaded))
     return LutPredictor.from_config(cfg)
 
 

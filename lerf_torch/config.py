@@ -55,7 +55,8 @@ class TestConfig(BaseConfig):
     datasets: str = "Set5"       # comma list of benchmark sets
     scales: str = "2,3,4"        # comma list; 'HxW' pairs allowed
     # micro-net (SRNet) backend: auto / pallas = K3 (kernel on the card,
-    # plain twin on the CPU), pallas_int8 = K4, xla = plain batched chain
+    # plain twin on the CPU), pallas_int8 = K4, xla = plain batched chain;
+    # IMDN2: base / s2d (anything else: auto)
     backend: str = "auto"
     bucket: int = 0              # SR bucket granularity (warp: not ported)
     dynamic_warp: bool = False   # dynamic warp serving (not ported yet)

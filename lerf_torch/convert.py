@@ -1,10 +1,12 @@
-"""Carry a LUT bank or micro-net weights across from ``lerf_tpu`` to the
-port.
+"""Carry a LUT bank, micro-net or IMDN weights across from ``lerf_tpu`` to
+the port.
 
 Both packages hold a bank as host numpy int8 tables with the same keys,
 and micro-net params as the same nested dict of ``w [in, out]`` / ``b
-[out]`` float32 leaves; these build the port's objects from plain numpy
-arrays without importing either package's classes into the other.
+[out]`` float32 leaves; lerf_tpu's IMDN2 is a flax variables tree (HWIO
+kernels), the port's an ``nn.Module`` state dict (OIHW).  These build the
+port's objects from plain numpy arrays without importing either package's
+classes into the other.
 """
 from __future__ import annotations
 
@@ -69,3 +71,31 @@ def lerf_nets_from_arrays(params: Dict, device="cpu") -> Dict:
                 k: torch.from_numpy(np.asarray(v, np.float32).copy())
                 .to(device) for k, v in head.items()}
     return out
+
+
+def imdn_tower_state(prefix: str, tower: Dict) -> Dict[str, torch.Tensor]:
+    """One IMDN_RTC tower in lerf_tpu's flax layout (``fea``,
+    ``imd{i}.c1..c5``, ``lr``, ``up``, each {kernel [kh, kw, in, out],
+    bias}) → the port's state-dict entries under ``prefix``."""
+    n = sum(1 for k in tower if k.startswith("imd"))
+    names = {"fea": "model.0", "lr": f"model.1.sub.{n}", "up": "model.2"}
+    convs = [(names[k], tower[k]) for k in ("fea", "lr", "up")]
+    convs += [(f"model.1.sub.{i}.{c}", tower[f"imd{i}"][c])
+              for i in range(n) for c in ("c1", "c2", "c3", "c4", "c5")]
+    out = {}
+    for name, p in convs:
+        w = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)
+        out[f"{prefix}.{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(w))
+        out[f"{prefix}.{name}.bias"] = torch.from_numpy(
+            np.asarray(p["bias"], np.float32).copy())
+    return out
+
+
+def imdn_from_arrays(variables: Dict) -> Dict[str, torch.Tensor]:
+    """lerf_tpu's IMDN2 variables ``{"params": {"stage1", "stage2"}}`` as
+    numpy arrays (e.g. ``jax.tree.map(np.asarray, variables)``) → the
+    port's ``IMDN2`` state dict (float32 CPU tensors, kernels OIHW)."""
+    params = variables["params"]
+    return {**imdn_tower_state("stage1", params["stage1"]),
+            **imdn_tower_state("stage2", params["stage2"])}

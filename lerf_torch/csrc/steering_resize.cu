@@ -15,6 +15,13 @@
 // the distances arrive as float32(min_scale * dis), scaled in float64 on the
 // host, and an antialiased weight is min_scale * w after the product, as
 // lerf_tpu does; the window entry is float2 {feature, alpha}.
+// Both modes take the stage outputs in either of two forms: int32 feature
+// and int32 codes (the LUT and SRNet forms; a code decodes as code / norm),
+// or float32 feature and float32 hyper maps in [0, 1] (the IMDN form, the
+// Pallas kernel's own inputs), decoded as h * 2 - 1 and h * max_sigma, the
+// float operations of lerf_tpu's steering_gaussian_resize.  The input type
+// is a template parameter: the window fill alone differs, and the int32
+// instantiations are the code they were before the float one was added.
 //
 // What bounds it on the H100: operations.  At 360x640 -> x4 it reads 11 MB of
 // int32 feature and codes and writes 11 MB of uint8 (0.0066 ms at 3.35 TB/s);
@@ -173,11 +180,18 @@ __device__ __forceinline__ void store_vec(T* p, const T* o) {
   *reinterpret_cast<Vec*>(p) = w;
 }
 
+// A stored hyper value in [0, 1]: an int32 code divided by norm, a float32
+// map value as it is.
+__device__ __forceinline__ float unit(int code, float norm) {
+  return (float)code / norm;
+}
+__device__ __forceinline__ float unit(float h, float) { return h; }
+
 // Window rows [k0, k0 + nrows) of the block's source window, decoded into
 // shared memory as {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
-template <bool kLinear>
+template <bool kLinear, typename InT>
 __device__ __forceinline__ void load_window(
-    Entry<kLinear>* win, const int* x, const int* hyp, int r_lo, int c_lo,
+    Entry<kLinear>* win, const InT* x, const InT* hyp, int r_lo, int c_lo,
     int k0, int nrows, int wc, int pitch, int H, int W, float norm,
     float max_sigma) {
   const int nthreads = blockDim.x * blockDim.y;
@@ -191,14 +205,14 @@ __device__ __forceinline__ void load_window(
     const float n = (gr >= 0 && gr < H && gc >= 0 && gc < W)
                         ? (float)__ldg(x + (size_t)gr * W + gc) : 0.0f;
     if constexpr (kLinear) {
-      const int* code = hyp + (size_t)rc * W + cc;
+      const InT* code = hyp + (size_t)rc * W + cc;
       win[r * pitch + q] =
-          make_float2(n, (float)__ldg(code) / norm * 2.0f - 1.0f);
+          make_float2(n, unit(__ldg(code), norm) * 2.0f - 1.0f);
     } else {
-      const int* code = hyp + ((size_t)rc * W + cc) * 3;
-      const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
-      const float sx = (float)__ldg(code + 1) / norm * max_sigma;
-      const float sy = (float)__ldg(code + 2) / norm * max_sigma;
+      const InT* code = hyp + ((size_t)rc * W + cc) * 3;
+      const float rho = unit(__ldg(code), norm) * 2.0f - 1.0f;
+      const float sx = unit(__ldg(code + 1), norm) * max_sigma;
+      const float sy = unit(__ldg(code + 2), norm) * max_sigma;
       win[r * pitch + q] = make_float4(n, 2.0f * rho, sx, sy);
     }
   }
@@ -248,10 +262,12 @@ __device__ __forceinline__ void accumulate(
 // geo: rows [OH, S] / cols [OW, S] (source indices, may fall outside the
 // image), the mode's distances and masks.  hyper_c: codes a pixel (3, or 1
 // in the linear mode).  scale: the Gaussian antialias's m * distance.
-template <int KS, typename OutT, bool kLinear>
+// InT: int (feature 0..norm, codes) or float (feature, hyper maps in
+// [0, 1]).
+template <int KS, typename OutT, bool kLinear, typename InT>
 __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
-    const int* __restrict__ img,      // [C, H, W] int32 feature (0..norm)
-    const int* __restrict__ codes,    // [C, H, W, hyper_c] int32 codes
+    const InT* __restrict__ img,      // [C, H, W] feature
+    const InT* __restrict__ codes,    // [C, H, W, hyper_c] codes or maps
     OutT* __restrict__ out,           // [C, OH, OW] float32 or uint8
     const Geo geo, int H, int W, int OH, int OW, int S_rt, int tile_h,
     int tile_w, int strip, int pitch, int vec_ok, int antialias, int scale,
@@ -267,16 +283,16 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   const int r_lo = geo.rows[i0 * S], c_lo = geo.cols[j0 * S];
   const int wr = geo.rows[i_end * S + S - 1] - r_lo + 1;
   const int wc = geo.cols[j_end * S + S - 1] - c_lo + 1;
-  const int* x = img + (size_t)c * H * W;
-  const int* hyp = codes + (size_t)c * H * W * hyper_c;
+  const InT* x = img + (size_t)c * H * W;
+  const InT* hyp = codes + (size_t)c * H * W * hyper_c;
   // the whole window fits in shared memory: always for S 2 and 4 (a
   // one-output window of 4 x 4 fits, so the host's tile holds its whole
   // window), else unless the window is walked in strips of rows (S >= 121)
   const bool whole = KS > 0 || wr <= strip;
 
   // 1. the source window (or its first strip), decoded once
-  load_window<kLinear>(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip, wc,
-                       pitch, H, W, norm, max_sigma);
+  load_window<kLinear, InT>(win, x, hyp, r_lo, c_lo, 0, whole ? wr : strip,
+                            wc, pitch, H, W, norm, max_sigma);
   __syncthreads();
 
   // 2. kVec outputs of one row a thread (reading the field of view before
@@ -306,8 +322,9 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
       k0 += strip;
       if (k0 >= wr) break;
       __syncthreads();
-      load_window<kLinear>(win, x, hyp, r_lo, c_lo, k0, min(strip, wr - k0),
-                           wc, pitch, H, W, norm, max_sigma);
+      load_window<kLinear, InT>(win, x, hyp, r_lo, c_lo, k0,
+                                min(strip, wr - k0), wc, pitch, H, W, norm,
+                                max_sigma);
       __syncthreads();
     }
     if (!active) return;
@@ -338,9 +355,9 @@ struct Launch {
   float m, max_sigma, norm;
 };
 
-template <int KS, typename OutT, bool kLinear>
+template <int KS, typename OutT, bool kLinear, typename InT>
 cudaError_t launch(const Launch& a, cudaStream_t stream) {
-  auto kernel = steering_resize_kernel<KS, OutT, kLinear>;
+  auto kernel = steering_resize_kernel<KS, OutT, kLinear, InT>;
   if (a.smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
@@ -351,28 +368,35 @@ cudaError_t launch(const Launch& a, cudaStream_t stream) {
   const dim3 block((a.tile_w + kVec - 1) / kVec, a.tile_h);
   const int vec_ok = a.OW % kVec == 0 && a.tile_w % kVec == 0;
   kernel<<<grid, block, a.smem, stream>>>(
-      (const int*)a.img, (const int*)a.codes, (OutT*)a.out, a.geo, a.H, a.W,
+      (const InT*)a.img, (const InT*)a.codes, (OutT*)a.out, a.geo, a.H, a.W,
       a.OH, a.OW, a.S, a.tile_h, a.tile_w, a.strip, a.pitch, vec_ok,
       a.antialias, a.scale, a.m, a.max_sigma, a.norm);
   return cudaGetLastError();
 }
 
-template <typename OutT, bool kLinear>
+template <typename OutT, bool kLinear, typename InT>
 cudaError_t dispatch(const Launch& a, cudaStream_t stream) {
   switch (a.S) {
     case 2:
-      return launch<2, OutT, kLinear>(a, stream);
+      return launch<2, OutT, kLinear, InT>(a, stream);
     case 4:
-      return launch<4, OutT, kLinear>(a, stream);
+      return launch<4, OutT, kLinear, InT>(a, stream);
     default:
-      return launch<0, OutT, kLinear>(a, stream);
+      return launch<0, OutT, kLinear, InT>(a, stream);
   }
 }
 
+template <bool kLinear, typename InT>
+cudaError_t dispatch_out(const Launch& a, int out_u8, cudaStream_t stream) {
+  return out_u8 ? dispatch<unsigned char, kLinear, InT>(a, stream)
+                : dispatch<float, kLinear, InT>(a, stream);
+}
+
 template <bool kLinear>
-cudaError_t dispatch_mode(const Launch& a, int out_u8, cudaStream_t stream) {
-  return out_u8 ? dispatch<unsigned char, kLinear>(a, stream)
-                : dispatch<float, kLinear>(a, stream);
+cudaError_t dispatch_mode(const Launch& a, int out_u8, int float_in,
+                          cudaStream_t stream) {
+  return float_in ? dispatch_out<kLinear, float>(a, out_u8, stream)
+                  : dispatch_out<kLinear, int>(a, out_u8, stream);
 }
 
 }  // namespace
@@ -385,14 +409,18 @@ cudaError_t dispatch_mode(const Launch& a, int out_u8, cudaStream_t stream) {
 // dis_* the float32 distances, scaled by min_scale here when antialias), 1
 // the amplified-linear kernel (codes [C, H, W, 1], dis_* float32(min_scale
 // * dis), mask_* their float64 branch bits [O, S] uint8).  out_u8: 1 writes
-// uint8 clip(rint(.), 0, norm) (norm <= 255), 0 float32.
+// uint8 clip(rint(.), 0, norm) (norm <= 255), 0 float32.  float_in: 0 img
+// int32 feature and codes int32 codes (code / norm), 1 img float32 feature
+// and codes float32 hyper maps in [0, 1]; the last argument, after the
+// stream, so that a caller written for the entry without it still calls the
+// int32 kernels.
 extern "C" int lerf_steering_resize(
     const void* img, const void* codes, void* out, const void* rows,
     const void* cols, const void* dis_x, const void* dis_y,
     const void* mask_x, const void* mask_y, int C, int H, int W, int OH,
     int OW, int S, int antialias, int linear, float min_scale,
     float max_sigma, float norm, int tile_h, int tile_w,
-    int win_rows, int win_cols, int out_u8, void* stream) {
+    int win_rows, int win_cols, int out_u8, void* stream, int float_in) {
   if ((long long)C * OH * OW == 0) return 0;
   if (S < 1 || tile_h < 1 || tile_w < 1 || win_rows < 1 || win_cols < 1 ||
       C > 65535 || (OH + tile_h - 1) / tile_h > 65535 ||
@@ -411,6 +439,6 @@ extern "C" int lerf_steering_resize(
                  (int)smem, antialias, antialias && !linear, min_scale,
                  max_sigma, norm};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(linear ? dispatch_mode<true>(a, out_u8, s)
-                      : dispatch_mode<false>(a, out_u8, s));
+  return (int)(linear ? dispatch_mode<true>(a, out_u8, float_in, s)
+                      : dispatch_mode<false>(a, out_u8, float_in, s));
 }

@@ -71,6 +71,12 @@
 //   the one test that can fail (inside()), one byte an output, bit-equal
 //   to the host's float64 mask.  A null mask skips it at run time, a
 //   branch uniform over the launch.
+// - Float inputs (the IMDN form: lerf_tpu's float-row warp,
+//   steering_gaussian_warp(u8_inputs=False)): float32 feature and float32
+//   hyper maps in [0, 1], decoded as h * 2 - 1 and h * max_sigma where the
+//   int32 path divides its code by norm first.  The input type is a
+//   template parameter of the tile fill and the direct path's decode alone;
+//   the int32 instantiations are the code they were before.
 // - A frames axis (the jax.vmap of lerf_tpu/pipeline.py::_warp_batch_fn):
 //   blockIdx.z is the frame, each with its own inverse and pads from a
 //   small array passed by value; the frames share the sizes, the support
@@ -269,22 +275,29 @@ __device__ __forceinline__ unsigned char valid_at(const Source& src,
 template <bool kLinear>
 using Entry = typename std::conditional<kLinear, float2, float4>::type;
 
+// A stored hyper value in [0, 1]: an int32 code divided by norm, a float32
+// map value as it is.
+__device__ __forceinline__ float unit(int code, float norm) {
+  return (float)code / norm;
+}
+__device__ __forceinline__ float unit(float h, float) { return h; }
+
 // Source pixel (sr, sc) of channel c (negative: a pad row / column)
 // decoded.
-template <bool kLinear>
+template <bool kLinear, typename InT>
 __device__ __forceinline__ Entry<kLinear> decode(
-    const int* img, const int* codes, int c, int sr, int sc, int H, int W,
+    const InT* img, const InT* codes, int c, int sr, int sc, int H, int W,
     float norm, float max_sigma) {
   const size_t e = ((size_t)c * H + max(sr, 0)) * W + max(sc, 0);
   if constexpr (kLinear) {
-    const float a = (float)__ldg(codes + e) / norm * 2.0f - 1.0f;
+    const float a = unit(__ldg(codes + e), norm) * 2.0f - 1.0f;
     const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
     return make_float2(v, a);
   } else {
-    const int* code = codes + e * 3;
-    const float rho = (float)__ldg(code) / norm * 2.0f - 1.0f;
-    const float sx = (float)__ldg(code + 1) / norm * max_sigma;
-    const float sy = (float)__ldg(code + 2) / norm * max_sigma;
+    const InT* code = codes + e * 3;
+    const float rho = unit(__ldg(code), norm) * 2.0f - 1.0f;
+    const float sx = unit(__ldg(code + 1), norm) * max_sigma;
+    const float sy = unit(__ldg(code + 2), norm) * max_sigma;
     const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
     return make_float4(v, 2.0f * rho, sx, sy);
   }
@@ -328,11 +341,12 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
 // three blocks an SM), which measured 10 % faster; six blocks (40) slower
 // (lerf_torch/tools/probe_lut_kernels.py).
 // One block's outputs of one frame, and the frame's validity mask [OH, OW]
-// where mask is not null.
-template <int KS, typename OutT, bool kLinear>
+// where mask is not null.  InT: int (feature 0..norm, codes) or float
+// (feature, hyper maps in [0, 1]).
+template <int KS, typename OutT, bool kLinear, typename InT>
 __device__ __forceinline__ void warp_block(
-    const int* __restrict__ img,     // [C, H, W] int32 feature (0..norm)
-    const int* __restrict__ codes,   // [C, H, W, 3 or 1] int32 hyper codes
+    const InT* __restrict__ img,     // [C, H, W] feature
+    const InT* __restrict__ codes,   // [C, H, W, 3 or 1] codes or maps
     OutT* __restrict__ out,          // [C, OH, OW] float32 or uint8
     const Warp& w, int C, float max_sigma, float norm,
     unsigned char* __restrict__ mask, int border) {
@@ -391,7 +405,7 @@ __device__ __forceinline__ void warp_block(
       const int c = e / plane;
       const int rc = e - c * plane;
       const int r = rc / nc;
-      tile[e] = decode<kLinear>(img, codes, c, r_lo + r - w.pad_r,
+      tile[e] = decode<kLinear, InT>(img, codes, c, r_lo + r - w.pad_r,
                                 c_lo + (rc - r * nc) - w.pad_c, w.H, w.W,
                                 norm, max_sigma);
     }
@@ -416,9 +430,10 @@ __device__ __forceinline__ void warp_block(
         for (int t = 0; t < S; ++t) {
           const Entry<kLinear> v =
               shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
-                     : decode<kLinear>(img, codes, c, p.row(s) - w.pad_r,
-                                       p.col(t) - w.pad_c, w.H, w.W, norm,
-                                       max_sigma);
+                     : decode<kLinear, InT>(img, codes, c,
+                                            p.row(s) - w.pad_r,
+                                            p.col(t) - w.pad_c, w.H, w.W,
+                                            norm, max_sigma);
           const float wt = weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));
           wn += wt * v.x;
           ws += wt;
@@ -432,17 +447,17 @@ __device__ __forceinline__ void warp_block(
 // Frame blockIdx.z of a batch: img [frames, C, H, W], codes [frames, C, H,
 // W, 3 or 1], out [frames, C, OH, OW], the warp from the by-value array
 // (__grid_constant__: indexed in place, never copied).
-template <int KS, typename OutT, bool kLinear>
+template <int KS, typename OutT, bool kLinear, typename InT>
 __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
-    steering_warp_kernel(const int* __restrict__ img,
-                         const int* __restrict__ codes,
+    steering_warp_kernel(const InT* __restrict__ img,
+                         const InT* __restrict__ codes,
                          OutT* __restrict__ out,
                          const __grid_constant__ Frames fr, int C,
                          float max_sigma, float norm) {
   const int f = blockIdx.z;
   const Warp& w = fr.f[f];
   const size_t plane = (size_t)w.H * w.W, out_plane = (size_t)w.OH * w.OW;
-  warp_block<KS, OutT, kLinear>(
+  warp_block<KS, OutT, kLinear, InT>(
       img + f * C * plane, codes + f * C * plane * (kLinear ? 1 : 3),
       out + f * C * out_plane, w, C, max_sigma, norm,
       fr.mask == nullptr ? nullptr : fr.mask + f * out_plane, fr.border);
@@ -503,18 +518,44 @@ dim3 grid_of(const Warp& w) {
   return dim3((w.OW + kTileW - 1) / kTileW, (w.OH + kTileH - 1) / kTileH);
 }
 
-template <typename OutT, bool kLinear>
-void launch(const int* img, const int* codes, void* out, const Frames& fr,
+template <typename OutT, bool kLinear, typename InT>
+void launch(const void* img, const void* codes, void* out, const Frames& fr,
             int frames, int C, float max_sigma, float norm, cudaStream_t s) {
   const dim3 block(kTileW, kThreadRows);
   dim3 grid = grid_of(fr.f[0]);
   grid.z = frames;
   if (fr.f[0].S == 2)
-    steering_warp_kernel<2, OutT, kLinear><<<grid, block, 0, s>>>(
-        img, codes, (OutT*)out, fr, C, max_sigma, norm);
+    steering_warp_kernel<2, OutT, kLinear, InT><<<grid, block, 0, s>>>(
+        (const InT*)img, (const InT*)codes, (OutT*)out, fr, C, max_sigma,
+        norm);
   else
-    steering_warp_kernel<0, OutT, kLinear><<<grid, block, 0, s>>>(
-        img, codes, (OutT*)out, fr, C, max_sigma, norm);
+    steering_warp_kernel<0, OutT, kLinear, InT><<<grid, block, 0, s>>>(
+        (const InT*)img, (const InT*)codes, (OutT*)out, fr, C, max_sigma,
+        norm);
+}
+
+template <bool kLinear, typename InT>
+void launch_out(const void* img, const void* codes, void* out,
+                const Frames& fr, int frames, int C, float max_sigma,
+                float norm, int out_u8, cudaStream_t s) {
+  if (out_u8)
+    launch<unsigned char, kLinear, InT>(img, codes, out, fr, frames, C,
+                                        max_sigma, norm, s);
+  else
+    launch<float, kLinear, InT>(img, codes, out, fr, frames, C, max_sigma,
+                                norm, s);
+}
+
+template <bool kLinear>
+void launch_in(const void* img, const void* codes, void* out,
+               const Frames& fr, int frames, int C, float max_sigma,
+               float norm, int out_u8, int float_in, cudaStream_t s) {
+  if (float_in)
+    launch_out<kLinear, float>(img, codes, out, fr, frames, C, max_sigma,
+                               norm, out_u8, s);
+  else
+    launch_out<kLinear, int>(img, codes, out, fr, frames, C, max_sigma, norm,
+                             out_u8, s);
 }
 
 }  // namespace
@@ -523,18 +564,22 @@ void launch(const int* img, const int* codes, void* out, const Frames& fr,
 // one), frame f with its own inverse homography (invs[9 f .. 9 f + 8],
 // row-major float64, host memory, read before the call returns) and the
 // geometry's leading pads (pads[2 f], pads[2 f + 1]: pad_r, pad_c).  img
-// [frames, C, H, W] int32, H and W unpadded; codes [frames, C, H, W, 3]
-// (linear 0: the steerable Gaussian) or [frames, C, H, W, 1] (linear 1:
-// the amplified-linear kernel); out [frames, C, OH, OW]: out_u8 1 writes
+// [frames, C, H, W] (int32, or float32 with float_in), H and W unpadded;
+// codes [frames, C, H, W, 3] (linear 0: the steerable Gaussian) or [frames,
+// C, H, W, 1] (linear 1: the amplified-linear kernel); out [frames, C, OH, OW]: out_u8 1 writes
 // uint8 clip(rint(nan_to_num(.)), 0, norm) (norm <= 255), 0 float32 with
 // NaN where a window's weights all vanish.  S: the support.  mask [frames,
 // OH, OW] uint8 0 / 1, the validity mask of the white frame's border,
-// written in the same launch, or null for none.
+// written in the same launch, or null for none.  float_in: 0 img int32
+// feature and codes int32 codes (code / norm), 1 img float32 feature and
+// codes float32 hyper maps in [0, 1]; the last argument, after the stream,
+// so that a caller written for the entry without it still calls the int32
+// kernels.
 extern "C" int lerf_steering_warp_batch(
     const void* img, const void* codes, void* out, void* mask,
     const double* invs, const int* pads, int frames, int C, int H, int W,
     int OH, int OW, int S, int linear, float max_sigma, float norm,
-    int out_u8, int border, void* stream) {
+    int out_u8, int border, void* stream, int float_in) {
   if (frames < 1 || frames > kMaxFrames || border < 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)C * OH * OW == 0) return 0;
@@ -549,20 +594,12 @@ extern "C" int lerf_steering_warp_batch(
   fr.mask = (unsigned char*)mask;
   fr.border = border;
   cudaStream_t s = (cudaStream_t)stream;
-  const int* x = (const int*)img;
-  const int* c = (const int*)codes;
-  if (linear) {
-    if (out_u8)
-      launch<unsigned char, true>(x, c, out, fr, frames, C, max_sigma, norm, s);
-    else
-      launch<float, true>(x, c, out, fr, frames, C, max_sigma, norm, s);
-  } else {
-    if (out_u8)
-      launch<unsigned char, false>(x, c, out, fr, frames, C, max_sigma, norm,
-                                   s);
-    else
-      launch<float, false>(x, c, out, fr, frames, C, max_sigma, norm, s);
-  }
+  if (linear)
+    launch_in<true>(img, codes, out, fr, frames, C, max_sigma, norm, out_u8,
+                    float_in, s);
+  else
+    launch_in<false>(img, codes, out, fr, frames, C, max_sigma, norm, out_u8,
+                     float_in, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """Reference-checkpoint conversion: torch state_dicts → the port's params.
 
-The port of ``lerf_tpu/models/convert.py:16-63,98-115``.  The reference
+The port of ``lerf_tpu/models/convert.py:16-115``.  The reference
 ships whole pickled ``SRNetsSWF2`` modules (``models/lerf-{l,g}/
 Model_050000.pth``, saved with ``torch.save(module)`` — train_model.py:
 56-65); only their state_dict tensors are read.  Unpickling a whole module
@@ -63,6 +63,16 @@ def _load_torch_pickle(path: str):
     file, so load only checkpoints you trust."""
     module = torch.load(path, map_location="cpu", weights_only=False)
     return module.state_dict() if hasattr(module, "state_dict") else module
+
+
+def imdn_from_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference IMDN2 checkpoint (a pickled module or a plain state
+    dict) → the port's ``IMDN2`` state dict: the port keeps the
+    reference's parameter names (``stage{1,2}.model.0``,
+    ``.model.1.sub.{i}.c1..c5``, ``.model.1.sub.{n}``, ``.model.2``), so
+    only the two towers' tensors are taken, as float32."""
+    return {k: _to_f32(v) for k, v in _load_torch_pickle(path).items()
+            if k.split(".")[0] in ("stage1", "stage2")}
 
 
 def load_reference_checkpoint(path: str, **kw) -> Dict:

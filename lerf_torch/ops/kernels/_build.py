@@ -101,7 +101,7 @@ def _declare(lib):
         i32, i32, f32, f32, f32,             # antialias, linear, min_scale,
                                              # max_sigma, norm
         i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
-        vp]                                  # stream
+        vp, i32]                             # stream, float_in
     lib.lerf_steering_resize.restype = i32
     f64p = ctypes.POINTER(ctypes.c_double)
     i32p = ctypes.POINTER(ctypes.c_int)
@@ -111,7 +111,7 @@ def _declare(lib):
         i32, i32, i32, i32, i32, i32, i32,   # frames, C, H, W, OH, OW, S
         i32, f32, f32, i32, i32,             # linear, max_sigma, norm, u8,
                                              # border
-        vp]                                  # stream
+        vp, i32]                             # stream, float_in
     lib.lerf_steering_warp_batch.restype = i32
     lib.lerf_warp_geometry.argtypes = [
         vp, vp, vp, vp, f64p,                # corners, dis, masks, valid,

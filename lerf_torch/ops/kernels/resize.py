@@ -12,7 +12,13 @@ rings resize.  ``launches`` counts kernel launches.
 
 The mode follows the hyper codes: the steerable Gaussian (LeRF-G) takes
 three codes a pixel (ρ, σx, σy), the amplified-linear kernel (LeRF-L,
-``linear=True``) one (α).
+``linear=True``) one (α).  The stage outputs come in one of two types:
+int32 feature and int32 codes (the LUT and SRNet forms, decoded as
+``code / norm``), or float32 feature and float32 hyper maps in [0, 1] (the
+IMDN form); the float type's twins are lerf_tpu's float ops,
+:func:`~lerf_torch.ops.resample.steering_gaussian_resize` /
+:func:`~lerf_torch.ops.resample.amplified_linear_resize` and their rings
+forms.
 """
 from __future__ import annotations
 
@@ -22,9 +28,13 @@ import numpy as np
 import torch
 
 from .. import geometry as geo
-from ..resample import (branch_bits, linear_resize_codes_plain,
-                        quantize_device, resize_codes_rings_plain,
-                        resize_rings, steering_resize_codes_plain)
+from ..resample import (amplified_linear_resize,
+                        amplified_linear_resize_rings, branch_bits,
+                        linear_resize_codes_plain, quantize_device,
+                        resize_codes_rings_plain, resize_rings,
+                        steering_gaussian_resize,
+                        steering_gaussian_resize_rings,
+                        steering_resize_codes_plain)
 from . import _build
 
 launches = 0
@@ -173,11 +183,40 @@ def _check(feat, codes, norm, linear, out_dtype, what):
                          f"{norm}")
     C, H, W = feat.shape
     oc = 1 if linear else 3
-    if (feat.dtype != torch.int32 or codes.dtype != torch.int32
+    if (feat.dtype not in (torch.int32, torch.float32)
+            or codes.dtype != feat.dtype
             or codes.shape != (C, H, W, oc) or codes.device != feat.device):
-        raise ValueError(f"{what}: feat int32 [C,H,W] and codes int32 "
-                         f"[C,H,W,{oc}] ({'linear' if linear else 'Gaussian'}"
-                         " mode) on one device")
+        raise ValueError(f"{what}: feat [C,H,W] and codes [C,H,W,{oc}] "
+                         f"({'linear' if linear else 'Gaussian'} mode) of one "
+                         "type, int32 (codes 0..norm) or float32 (hyper maps "
+                         "in [0, 1]), on one device")
+
+
+def _plain(feat, codes, geom, *, max_sigma, norm, linear):
+    """The twin of K1 on the static geometry, for either input type."""
+    if feat.dtype == torch.int32:
+        return (linear_resize_codes_plain(feat, codes, geom, norm=norm)
+                if linear else steering_resize_codes_plain(
+                    feat, codes, geom, max_sigma=max_sigma, norm=norm))
+    if linear:
+        return amplified_linear_resize(feat, codes[..., 0], geom)
+    return steering_gaussian_resize(feat, codes[..., 0], codes[..., 1],
+                                    codes[..., 2], geom, max_sigma=max_sigma)
+
+
+def _plain_serving(feat, codes, ops, *, max_sigma, norm, linear):
+    """The twin of K1 on the serving geometry (the rings resize)."""
+    rings = resize_rings(ops, linear=linear)
+    if feat.dtype == torch.int32:
+        return resize_codes_rings_plain(feat, codes, rings, linear=linear,
+                                        max_sigma=max_sigma, norm=norm,
+                                        pad=ops.pad)
+    if linear:
+        return amplified_linear_resize_rings(feat, codes[..., 0], rings,
+                                             pad=ops.pad)
+    return steering_gaussian_resize_rings(
+        feat, codes[..., 0], codes[..., 1], codes[..., 2], rings,
+        max_sigma=max_sigma, pad=ops.pad)
 
 
 def _finish(out, norm, linear, out_dtype):
@@ -193,8 +232,9 @@ def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
                     linear: bool = False,
                     operands: ResizeOperands = None,
                     out_dtype: torch.dtype = torch.float32):
-    """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] (Gaussian)
-    or [C, H, W, 1] (``linear``) → [C, OH, OW]: float32, or with
+    """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
+    W, 1] (``linear``), both int32 (codes 0..norm) or both float32 (hyper
+    maps in [0, 1]) → [C, OH, OW]: float32, or with
     ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the frame rounded half to
     even, clipped to 0..norm and cast, as
     :func:`~lerf_torch.ops.resample.quantize_device` does.  ``geom``: the
@@ -203,9 +243,8 @@ def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
     ``geom`` when not given."""
     _check(feat, codes, norm, linear, out_dtype, "steering_resize")
     if feat.device.type == "cpu":
-        out = (linear_resize_codes_plain(feat, codes, geom, norm=norm)
-               if linear else steering_resize_codes_plain(
-                   feat, codes, geom, max_sigma=max_sigma, norm=norm))
+        out = _plain(feat, codes, geom, max_sigma=max_sigma, norm=norm,
+                     linear=linear)
         return _finish(out, norm, linear, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError(f"steering_resize: unsupported device {feat.device}")
@@ -222,8 +261,8 @@ def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
                             operands: ResizeOperands = None,
                             out_dtype: torch.dtype = torch.float32):
     """The resize of ``upscale_dynamic``: the stage outputs ``[C, H, W]``
-    of the image resized through the serving geometry ``ops`` → [C, OH,
-    OW].  CPU tensors take the plain rings resize; CUDA tensors K1 on
+    of the image (either type, as :func:`steering_resize` takes them)
+    resized through the serving geometry ``ops`` → [C, OH, OW].  CPU tensors take the plain rings resize; CUDA tensors K1 on
     ``operands``, :meth:`ResizeOperands.from_serving` of ``ops`` (a
     predictor keeps them), made here when not given."""
     _check(feat, codes, norm, linear, out_dtype, "steering_resize_serving")
@@ -231,9 +270,8 @@ def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"serving geometry is for {tuple(ops.in_sz)}, "
                          f"image is {tuple(feat.shape[1:])}")
     if feat.device.type == "cpu":
-        out = resize_codes_rings_plain(
-            feat, codes, resize_rings(ops, linear=linear), linear=linear,
-            max_sigma=max_sigma, norm=norm, pad=ops.pad)
+        out = _plain_serving(feat, codes, ops, max_sigma=max_sigma,
+                             norm=norm, linear=linear)
         return _finish(out, norm, linear, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError("steering_resize_serving: unsupported device "
@@ -273,7 +311,8 @@ def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
             C, H, W, OH, OW, operands.support, int(operands.antialias),
             int(linear), float(operands.min_scale), float(max_sigma),
             float(norm), *operands.tile,
-            int(out_dtype == torch.uint8), stream)
+            int(out_dtype == torch.uint8), stream,
+            int(feat.dtype == torch.float32))
     _build.check(err, "steering_resize launch")
     launches += 1
     return out

@@ -21,6 +21,14 @@ host's per-pixel form
 (:func:`lerf_torch.ops.geometry.warp_operands_plain` computes the same);
 :func:`warp_geometry` writes it from the card's derivation, for the checks,
 and :func:`warp_mask` the mask alone.
+
+The stage outputs come in one of two types, as K1 takes them: int32
+feature and int32 codes (the LUT and SRNet forms, decoded as ``code /
+norm`` after the gather) or float32 feature and float32 hyper maps in
+[0, 1] (the IMDN form), whose twins are lerf_tpu's float-row warps,
+:func:`~lerf_torch.ops.resample.steering_gaussian_warp` and
+:func:`~lerf_torch.ops.resample.amplified_linear_warp` with
+``u8_inputs=False``.
 """
 from __future__ import annotations
 
@@ -31,8 +39,9 @@ import numpy as np
 import torch
 
 from ..geometry import WarpGeometry, warp_pads, window_corner
-from ..resample import (branch_bits, linear_warp_codes_plain,
-                        nearest_warp_mask_host, quantize_device,
+from ..resample import (amplified_linear_warp, branch_bits,
+                        linear_warp_codes_plain, nearest_warp_mask_host,
+                        quantize_device, steering_gaussian_warp,
                         steering_warp_codes_plain)
 from . import _build
 
@@ -197,15 +206,29 @@ def _check_args(feat, codes, linear, out_dtype, norm, what):
                          f"{norm}")
     _, H, W = feat.shape
     oc = 1 if linear else 3
-    if (feat.dtype != torch.int32 or codes.dtype != torch.int32
+    if (feat.dtype not in (torch.int32, torch.float32)
+            or codes.dtype != feat.dtype
             or codes.shape != (feat.shape[0], H, W, oc)
             or codes.device != feat.device):
-        raise ValueError(f"{what}: feat int32 [C,H,W] and codes int32 "
-                         f"[C,H,W,{oc}] "
-                         f"({'linear' if linear else 'Gaussian'} mode) on "
-                         "one device")
+        raise ValueError(f"{what}: feat [C,H,W] and codes [C,H,W,{oc}] "
+                         f"({'linear' if linear else 'Gaussian'} mode) of one "
+                         "type, int32 (codes 0..norm) or float32 (hyper maps "
+                         "in [0, 1]), on one device")
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {feat.device}")
+
+
+def _plain(feat, codes, geom, *, max_sigma, norm, linear):
+    """The twin of K5 on a host geometry, for either input type."""
+    if feat.dtype == torch.int32:
+        if linear:
+            return linear_warp_codes_plain(feat, codes, geom, norm=norm)
+        return steering_warp_codes_plain(feat, codes, geom,
+                                         max_sigma=max_sigma, norm=norm)
+    if linear:
+        return amplified_linear_warp(feat, codes[..., 0], geom)
+    return steering_gaussian_warp(feat, codes[..., 0], codes[..., 1],
+                                  codes[..., 2], geom, max_sigma=max_sigma)
 
 
 def _check_mask(mask_out, shape, device, what):
@@ -237,7 +260,8 @@ def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
             0 if mask is None else mask.data_ptr(), invs, pads, len(warps),
             feat.shape[0] // len(warps), H, W, OH, OW, first.support,
             int(linear), float(max_sigma), float(norm),
-            int(out.dtype == torch.uint8), int(border), stream)
+            int(out.dtype == torch.uint8), int(border), stream,
+            int(feat.dtype == torch.float32))
     _build.check(err, "steering_warp_batch launch")
     launches += 1
 
@@ -247,8 +271,9 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                   linear: bool = False,
                   out_dtype: torch.dtype = torch.float32,
                   mask_out: Optional[torch.Tensor] = None, border: int = 4):
-    """int32 feature [C, H, W] + int32 hyper codes [C, H, W, 3] (Gaussian)
-    or [C, H, W, 1] (``linear``) → [C, oH, oW]: float32 (NaN where a
+    """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
+    W, 1] (``linear``), both int32 (codes 0..norm) or both float32 (hyper
+    maps in [0, 1]) → [C, oH, oW]: float32 (NaN where a
     window's weights all vanish), or with ``out_dtype=torch.uint8``
     (``norm`` ≤ 255) the frame with NaN → 0, rounded half to even, clipped
     to 0..norm and cast, as :func:`~lerf_torch.ops.resample.quantize_device`
@@ -271,11 +296,8 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
         if mask_out is not None:
             mask_out.copy_(torch.from_numpy(warp.host_mask(border)))
         geom = warp.geometry() if isinstance(warp, WarpParams) else warp
-        if linear:
-            out = linear_warp_codes_plain(feat, codes, geom, norm=norm)
-        else:
-            out = steering_warp_codes_plain(feat, codes, geom,
-                                            max_sigma=max_sigma, norm=norm)
+        out = _plain(feat, codes, geom, max_sigma=max_sigma, norm=norm,
+                     linear=linear)
         return quantize_device(out, norm, nan_to_zero=True) \
             if out_dtype == torch.uint8 else out
     if not isinstance(warp, WarpParams):
@@ -299,7 +321,8 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
     lerf_tpu's ``jax.vmap`` of its warp over per-frame operands): int32
     feature [B·C, H, W] and codes [B·C, H, W, 3 or 1], the frames one after
     another along the channel axis, and one :class:`WarpParams` a frame, all
-    at one input and output size and support → [B·C, oH, oW] as
+    at one input and output size and support (or float32 feature and hyper
+    maps, as :func:`steering_warp` takes them) → [B·C, oH, oW] as
     :func:`steering_warp` gives each frame; ``mask_out`` [B, oH, oW]
     receives the frames' validity masks.  On the card one launch for up to
     :data:`MAX_FRAMES` frames; on the CPU the plain twin frame by frame."""

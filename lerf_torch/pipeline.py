@@ -12,7 +12,10 @@ steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
   writes the uint8 frame itself (and the warp's validity mask).
 * :class:`NetPredictor` (``pipeline.py:194-601``), the micro-net (SRNet)
   form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
-  epilogues and one K1 or K5 launch.
+  epilogues and one K1 or K5 launch; and with
+  :meth:`NetPredictor.from_imdn` the IMDN (LeRF-Net) form: its two conv
+  towers (cuDNN, full float32), whose float feature and hyper maps K1 or
+  K5 take in their float mode, one launch.
 
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
@@ -22,8 +25,9 @@ parameters (on a card) or host geometry (on the CPU) and its validity
 mask.  PyTorch compiles nothing per shape, so lerf_tpu's shape buckets
 are not needed: ``upscale_bucketed`` is ``upscale``, and
 ``upscale_dynamic`` serves on the image's own frame through the serving
-geometry, bit-equal to ``upscale``; the batch forms fold the batch into the channel axis, so
-a batch is one launch of each kernel.  The warp serving forms keep
+geometry, bit-equal to ``upscale``; the batch forms run the stages on
+the batch ``[B, C, H, W]`` and fold it into the channel axis after them,
+so a batch is one launch of each kernel.  The warp serving forms keep
 nothing per matrix: on a card K5 derives each frame's geometry and mask
 from its matrix in float64 (bit-equal to ``warp``, where lerf_tpu's
 float32 device geometry is not); on the CPU its plain twin does, from a
@@ -31,6 +35,7 @@ host geometry made for the call.
 """
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 from typing import Dict, Tuple
 
@@ -151,12 +156,14 @@ def _unported(what: str, item: str):
 
 
 class _Predictor:
-    """What both deploy forms share: the resize and warp after the stages,
-    and the SR serving forms.  A form supplies ``_input`` (its device input
-    from [..., C, H, W] uint8 / float pixels), ``_stages`` (→ int32 feat
-    [..., H, W] and hyper codes [..., H, W, oC]) and ``_aux`` (the
-    types ``return_aux`` gives).  The kernel is the steerable Gaussian, or
-    with ``linear`` the amplified-linear one on the first hyper code."""
+    """What the deploy forms share: the resize and warp after the stages,
+    and the serving forms.  A form supplies ``_input`` (its device input
+    from [..., C, H, W] uint8 / float pixels), ``_stages`` (→ feat [..., H,
+    W] and hyper [..., H, W, oC]: int32 codes in the LUT and SRNet forms,
+    float32 maps in [0, 1] in the IMDN form; K1 and K5 take either) and
+    ``_aux`` (the types ``return_aux`` gives).  The kernel is the steerable
+    Gaussian, or with ``linear`` the amplified-linear one on the first
+    hyper channel."""
 
     def _init_serving(self, *, linear, supp_size, max_sigma, norm, device):
         self.device = resolve_device(device)
@@ -173,9 +180,21 @@ class _Predictor:
         return False
 
     def _codes(self, hyper: torch.Tensor) -> torch.Tensor:
-        """The codes the kernel reads: α, the first code, in the linear
-        mode (lerf_tpu's ``hyper[..., 0]``), else (ρ, σx, σy)."""
+        """The codes (or maps) the kernel reads: α, the first, in the
+        linear mode (lerf_tpu's ``hyper[..., 0]``), else (ρ, σx, σy)."""
         return hyper[..., :1] if self.linear else hyper
+
+    @staticmethod
+    def _fold(feat: torch.Tensor, hyper: torch.Tensor):
+        """Stage outputs of a batch, feat [B, C, H, W] and hyper [B, C, H,
+        W, oC], with the batch folded into the channel axis ([B·C, H, W],
+        the frames one after another), as K1 and K5 take them; a single
+        frame's unchanged.  Folding after the stages keeps each frame's
+        channels together for a stage that mixes them (the IMDN towers'
+        convs)."""
+        h, w = feat.shape[-2:]
+        return (feat.reshape(-1, h, w),
+                hyper.reshape(-1, h, w, hyper.shape[-1]))
 
     # -- SR -----------------------------------------------------------------
 
@@ -203,12 +222,13 @@ class _Predictor:
         return np.moveaxis(u8, -3, -1)
 
     def run_device(self, x: torch.Tensor, scale: Tuple[float, float]):
-        """The device part of a frame: the input [C, H, W] on
-        ``self.device`` (``_input``) → (uint8 [C, oH, oW], feat int32,
-        hyper codes int32), all on the device."""
+        """The device part of a frame: the input [C, H, W] (or a batch [B,
+        C, H, W]) on ``self.device`` (``_input``) → (uint8 [C, oH, oW], or
+        [B·C, oH, oW] for a batch, feat, hyper), all on the device."""
         geom, operands = self._resize_fn(tuple(x.shape[-2:]), scale)
         feat, hyper = self._stages(x)
-        return self._resize(feat, hyper, geom, operands), feat, hyper
+        return (self._resize(*self._fold(feat, hyper), geom, operands),
+                feat, hyper)
 
     def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
                 return_aux: bool = False):
@@ -278,16 +298,15 @@ class _Predictor:
     def upscale_batch(self, imgs_bhwc: np.ndarray, scale_h: float,
                       scale_w: float) -> np.ndarray:
         """uint8 [B,H,W,C] → uint8 [B,outH,outW,C] (``lerf_tpu``'s
-        ``upscale_batch``): the batch folded into the channel axis, so the
-        whole batch is one launch of each kernel (the stages and the resize
-        work on each channel plane alone)."""
+        ``upscale_batch``): the stages on the batch [B, C, H, W], their
+        outputs folded into the channel axis for the resize, so the whole
+        batch is one launch of each kernel."""
         bchw = np.ascontiguousarray(np.asarray(imgs_bhwc).transpose(0, 3, 1, 2))
-        b, c, h, w = bchw.shape
+        b, c = bchw.shape[:2]
         sh, sw = float(scale_h), float(scale_w)
         if self._skips(sh, sw):
             return self._skip(bchw).transpose(0, 2, 3, 1)
-        x = self._input(bchw).reshape(b * c, h, w)
-        out, _, _ = self.run_device(x, (sh, sw))
+        out, _, _ = self.run_device(self._input(bchw), (sh, sw))
         return self._host_frame(out.reshape(b, c, *out.shape[-2:]))
 
     # -- warp ---------------------------------------------------------------
@@ -309,12 +328,12 @@ class _Predictor:
     def run_warp_device(self, x: torch.Tensor, matrix: np.ndarray,
                         out_sz: Tuple[int, int]):
         """The device part of a warped frame: the input [C, H, W] on
-        ``self.device`` → (uint8 [C, oH, oW], feat int32, hyper codes
-        int32), all on the device: the stages, then K5 in uint8 mode (NaN
-        windows → 0).  On a homography's first call on a card K5 also
-        writes the validity mask in the same launch, and its host copy is
-        kept with the warp.  The stage codes are integers, so K5 takes them
-        as the JAX path's u8 rows do."""
+        ``self.device`` → (uint8 [C, oH, oW], feat, hyper), all on the
+        device: the stages, then K5 in uint8 mode (NaN windows → 0).  On a
+        homography's first call on a card K5 also writes the validity mask
+        in the same launch, and its host copy is kept with the warp.
+        Integer stage codes K5 takes as the JAX path's u8 rows do, float
+        maps as its float rows."""
         entry = _warp_entry(self._warp_cache, tuple(x.shape[-2:]), matrix,
                             tuple(out_sz), self.supp_size, self.device)
         feat, hyper = self._stages(x)
@@ -353,21 +372,21 @@ class _Predictor:
     def _serve_warps(self, imgs_bhwc: np.ndarray, matrices, out_sz):
         """The warp serving forms' one path: B frames [B, H, W, C] and one
         matrix each → (uint8 [B, C, oH, oW] and bool masks [B, oH, oW] on
-        the device, feat, hyper): the stages with the batch folded into the
-        channel axis, then K5 over every frame under its own fresh
+        the device, feat, hyper): the stages on the batch [B, C, H, W], their
+        outputs folded into the channel axis, then K5 over every frame under
+        its own fresh
         :class:`WarpParams`, the masks written in the same launch; nothing
         is cached per matrix.  On a card one launch, with no host geometry
         and no per-pixel upload; on the CPU the plain twin frame by frame,
         from the host geometry and mask of each frame's matrix."""
         b, h, w, c = imgs_bhwc.shape
-        x = self._input(np.ascontiguousarray(imgs_bhwc.transpose(0, 3, 1, 2))
-                        ).reshape(b * c, h, w)
-        feat, hyper = self._stages(x)
+        feat, hyper = self._stages(self._input(
+            np.ascontiguousarray(imgs_bhwc.transpose(0, 3, 1, 2))))
         warps = [WarpParams.create((h, w), m, out_sz, support=self.supp_size)
                  for m in matrices]
         masks = torch.empty((b,) + out_sz, dtype=torch.bool,
                             device=self.device)
-        out = self._warp_out(feat, hyper, warps, masks)
+        out = self._warp_out(*self._fold(feat, hyper), warps, masks)
         return out.reshape(b, c, *out_sz), masks, feat, hyper
 
     def warp_dynamic(self, img_hwc: np.ndarray, matrix: np.ndarray,
@@ -386,7 +405,7 @@ class _Predictor:
         out_u8 = self._host_frame(out[0])
         mask = mask[0].cpu().numpy()
         if return_aux:
-            return (out_u8, mask) + self._aux(feat, hyper)
+            return (out_u8, mask) + self._aux(feat[0], hyper[0])
         return out_u8, mask
 
     def warp_device(self, img_hwc: np.ndarray, matrix: np.ndarray,
@@ -531,12 +550,15 @@ class LutPredictor(_Predictor):
 class NetPredictor(_Predictor):
     """Two-stage *network* inference: feature net → hyper net → resample.
 
-    Mirrors ``lerf_tpu.pipeline.NetPredictor`` (SRNet form) with the same
-    public API as :class:`LutPredictor`.  ``stage1_fn(x)`` maps
+    Mirrors ``lerf_tpu.pipeline.NetPredictor`` (the SRNet form,
+    :meth:`from_srnets`, and the IMDN form, :meth:`from_imdn`) with the
+    same public API as :class:`LutPredictor`.  ``stage1_fn(x)`` maps
     [..., H, W] float32 in [0,1] → feature in [0,255] (float);
     ``stage2_fn(x)`` maps [..., H, W] in [0,1] → int32 hyper codes
-    [..., H, W, oC] in 0..norm (``lerf_tpu``'s hyper is ``codes / norm``).
-    With ``linear`` the resample reads the first code as α.
+    [..., H, W, oC] in 0..norm (``lerf_tpu``'s hyper is ``codes / norm``),
+    or float32 hyper maps in [0, 1] (the IMDN form, lerf_tpu's
+    ``hyper_u8=False``), and then the feature stays float (not rounded).
+    With ``linear`` the resample reads the first hyper channel as α.
 
     ``device``: ``None`` → ``cuda`` (raises without a card), or ``"cpu"``.
     """
@@ -593,9 +615,42 @@ class NetPredictor(_Predictor):
                    mesh=mesh, device=dev)
 
     @classmethod
-    def from_imdn(cls, *args, **kwargs):
-        raise _unported("the IMDN (LeRF-Net) form, NetPredictor.from_imdn",
-                        "8")
+    def from_imdn(cls, model, variables=None, *, out_c: int = 3,
+                  linear: bool = False, two_stage: bool = True,
+                  supp_size: int = 2, max_sigma: float = 10.0,
+                  norm: int = 255, backend: str = "auto", s2d_block: int = 2,
+                  mesh=None, device=None):
+        """LeRF-Net / LeRF-Net++ (the port's :class:`~lerf_torch.models.
+        imdn.IMDN2`, inC 3; ``lerf_tpu/pipeline.py:280-315``).
+
+        ``variables``: ``None`` (the model's own weights) or a state dict
+        of its layout (:func:`lerf_torch.convert.imdn_from_arrays` of
+        lerf_tpu's variables, :func:`lerf_torch.models.convert.
+        imdn_from_torch_checkpoint` of a reference checkpoint), loaded into
+        a copy; the caller's model is left as it is.  ``two_stage=False``
+        skips the feature tower as the reference does (feat =
+        round(img·norm), the hyper net sees the image).  The stages give
+        float feature and hyper maps in [0, 1] (stage 2's ``[ρ·C, σx·C,
+        σy·C]`` channels to the trailing axis), which K1 and K5 take in
+        their float mode.  ``backend``: "base", "s2d" (the space-to-depth
+        re-embedding at ``s2d_block``) or "auto"
+        (:func:`lerf_torch.models.imdn_s2d.resolve_backend`).  Every conv
+        runs under the scoped full-float32 cuDNN flags
+        (:func:`~lerf_torch.models.imdn_s2d.cudnn_fp32`).  Inference
+        only."""
+        from .models.imdn_s2d import make_chw_stage_fns
+
+        if mesh is not None:
+            raise _unported("multi-device serving (mesh=)", "12")
+        dev = resolve_device(device)
+        model = copy.deepcopy(model)
+        if variables is not None:
+            model.load_state_dict(variables)
+        s1, s2 = make_chw_stage_fns(model, backend=backend, block=s2d_block,
+                                    norm=norm, out_c=out_c, device=dev)
+        return cls(s1, s2, linear=linear, two_stage=two_stage,
+                   supp_size=supp_size, max_sigma=max_sigma, norm=norm,
+                   device=dev)
 
     def _skips(self, scale_h: float, scale_w: float) -> bool:
         """Scale 1 on both axes skips the nets (eval_model.py:153-154)."""
@@ -611,9 +666,10 @@ class NetPredictor(_Predictor):
                                 / self.norm).to(self.device)
 
     def _stages(self, img_f: torch.Tensor):
-        """img [..., H, W] float32 in [0,1] → (feat int32 [..., H, W],
-        hyper codes int32 [..., H, W, oC]).  ``two_stage=False`` skips the
-        feature net like the reference (eval_model.py:124-129): feat =
+        """img [..., H, W] float32 in [0,1] → (feat [..., H, W], hyper
+        [..., H, W, oC]): int32 feature and codes, or float32 feature and
+        maps where ``stage2_fn`` gives float maps.  ``two_stage=False`` skips the feature
+        net like the reference (eval_model.py:124-129): feat =
         round(img·norm), the hyper net sees the image."""
         if self.two_stage:
             feat = self.stage1_fn(img_f)
@@ -621,11 +677,16 @@ class NetPredictor(_Predictor):
         else:
             feat = torch.round(img_f * self.norm)
             hyper_in = img_f
-        return feat.to(torch.int32), self.stage2_fn(hyper_in)
+        hyper = self.stage2_fn(hyper_in)
+        if torch.is_floating_point(hyper):
+            return feat, hyper
+        return feat.to(torch.int32), hyper
 
     def _aux(self, feat, hyper):
         """feat float32 (0..255) and hyper float32 in [0,1], the types
         ``lerf_tpu`` returns."""
+        if torch.is_floating_point(hyper):
+            return feat.cpu().numpy(), hyper.cpu().numpy()
         return (feat.cpu().numpy().astype(np.float32),
                 divide_exact(hyper.to(torch.float32), self.norm)
                 .cpu().numpy())

@@ -86,17 +86,17 @@ VARIANTS = {
             " (float)gc);")],
         "field of view read before the window": [
             ("  // 1. the source window (or its first strip), decoded once\n"
-             "  load_window<kLinear>(win, x, hyp, r_lo, c_lo, 0, whole ? wr :"
-             " strip, wc,\n"
-             "                       pitch, H, W, norm, max_sigma);\n"
+             "  load_window<kLinear, InT>(win, x, hyp, r_lo, c_lo, 0, whole ?"
+             " wr : strip,\n"
+             "                            wc, pitch, H, W, norm, max_sigma);\n"
              "  __syncthreads();\n\n", ""),
             ("  if (whole && !active) return;\n  int j[kVec];",
              "  int j[kVec];"),
             ("scale, m);\n\n  // 3.",
              "scale, m);\n"
-             "  load_window<kLinear>(win, x, hyp, r_lo, c_lo, 0, whole ? wr :"
-             " strip, wc,\n"
-             "                       pitch, H, W, norm, max_sigma);\n"
+             "  load_window<kLinear, InT>(win, x, hyp, r_lo, c_lo, 0, whole ?"
+             " wr : strip,\n"
+             "                            wc, pitch, H, W, norm, max_sigma);\n"
              "  __syncthreads();\n"
              "  if (whole && !active) return;\n\n  // 3.")],
         "2 outputs a thread": [("constexpr int kVec = 4;",
@@ -189,8 +189,9 @@ VARIANTS = {
              "        const unsigned bx = p.bxs(s);\n"),
             ("shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]",
              "shared ? tile[(c * nr + r - r_lo) * nc + p.col(t) - c_lo]"),
-            ("decode<kLinear>(img, codes, c, p.row(s) - w.pad_r,",
-             "decode<kLinear>(img, codes, c, r - w.pad_r,"),
+            ("decode<kLinear, InT>(img, codes, c,\n"
+             "                                            p.row(s) - w.pad_r,",
+             "decode<kLinear, InT>(img, codes, c, r - w.pad_r,"),
             ("weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));",
              "weight(v, dx, p.dyt(t), bx, p.byt(t));")],
         "support fixed at 2 (no run-time field)": [
@@ -202,11 +203,11 @@ VARIANTS = {
         "feature loaded before the codes": [
             ("    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
              " : 0.0f;\n    return make_float4(", "    return make_float4("),
-            ("    const int* code = codes + e * 3;\n",
+            ("    const InT* code = codes + e * 3;\n",
              "    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
-             " : 0.0f;\n    const int* code = codes + e * 3;\n")],
+             " : 0.0f;\n    const InT* code = codes + e * 3;\n")],
         # the entry takes the host's corners and distances after the
-        # stream; each thread reads its windows from them
+        # stream and float_in; each thread reads its windows from them
         "host operands": [
             ("struct Warp {\n  double m[9];",
              "struct Warp {\n  const int2* corners;\n  const float4* dis;\n"
@@ -225,9 +226,9 @@ VARIANTS = {
              "    } else {\n"
              "      px[k] = window_at<KS, kLinear>(w, col, i);\n"
              "    }"),
-            ("    int out_u8, int border, void* stream) {",
-             "    int out_u8, int border, void* stream, const void* corners,\n"
-             "    const void* dis) {"),
+            ("    int out_u8, int border, void* stream, int float_in) {",
+             "    int out_u8, int border, void* stream, int float_in,\n"
+             "    const void* corners, const void* dis) {"),
             ("  fr.border = border;\n",
              "  fr.border = border;\n"
              "  fr.f[0].corners = (const int2*)corners;\n"
@@ -350,7 +351,7 @@ def main(argv=None) -> int:
                 *map(i32, (3, cs.LR_H, cs.LR_W, oh, ow, geom.support,
                            int(geom.antialias), 0)),
                 f32(geom.min_scale), f32(10.0), f32(255.0),
-                *map(i32, (*tile, u8)), stream]
+                *map(i32, (*tile, u8)), stream, i32(0)]
 
     members = {stage: lp.member_descriptors(cs.MODES, split_r, t.keys)
                for stage, (t, split_r, _, _) in stages.items()}
@@ -451,7 +452,7 @@ def main(argv=None) -> int:
                     vp(mask.data_ptr() if with_mask else None), inv, pads,
                     *map(i32, (1, 3, cs.LR_H, cs.LR_W, woh, wow,
                                params.support, 0)),
-                    f32(10.0), f32(255.0), i32(u8), i32(4), stream]
+                    f32(10.0), f32(255.0), i32(u8), i32(4), stream, i32(0)]
             if operands:
                 args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]
             return args

@@ -25,7 +25,14 @@ the host's; the SR serving forms on the card are bit-equal to ``upscale``
 on the card.  K5's validity mask (written in its own launch, or alone) is
 equal to the host's float64 mask; its batch of homographies is bit-equal
 to each frame's own call, and the warp serving forms on the card to
-``warp`` on the card.
+``warp`` on the card.  The float modes of K1 and K5 (float32 feature and
+hyper maps in [0, 1], the IMDN form's) hold the same tolerances against
+lerf_tpu's float ops (``steering_gaussian_resize``, ``steering_gaussian_
+warp(u8_inputs=False)`` and their linear and rings forms), with the same
+NaN pattern; the IMDN form on the card holds its feature within 1e-3 and
+its hyper maps within 1e-5 of the CPU's (cuDNN sums the towers in another
+order) and its frames within one level on ≤ 0.1 % of pixels, and its
+serving forms are bit-equal to its ``upscale`` / ``warp`` frame by frame.
 """
 import numpy as np
 import pytest
@@ -35,16 +42,23 @@ from lerf_torch.convert import lerf_nets_from_arrays
 from lerf_torch.lut.io import LUTBank
 from lerf_torch.models import srnet
 from lerf_torch.ops import lut_pipeline as lp
-from lerf_torch.ops.geometry import ResizeGeometry, WarpGeometry
+from lerf_torch.ops.geometry import (ResizeGeometry, ResizeOperands,
+                                     WarpGeometry)
 from lerf_torch.ops.kernels import lut_stage as k2
 from lerf_torch.ops.kernels import resize as k1
 from lerf_torch.ops.kernels import srnet_ensemble as k3
 from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
 from lerf_torch.ops.kernels import warp as k5
-from lerf_torch.ops.resample import (linear_resize_codes_plain,
+from lerf_torch.ops.resample import (amplified_linear_resize,
+                                     amplified_linear_resize_rings,
+                                     amplified_linear_warp,
+                                     linear_resize_codes_plain,
                                      linear_warp_codes_plain,
                                      nearest_warp_mask_on_device,
-                                     quantize_device,
+                                     quantize_device, resize_rings,
+                                     steering_gaussian_resize,
+                                     steering_gaussian_resize_rings,
+                                     steering_gaussian_warp,
                                      steering_resize_codes_plain,
                                      steering_warp_codes_plain)
 from lerf_torch.pipeline import LutPredictor, NetPredictor, _quantize_device
@@ -1209,3 +1223,249 @@ def test_probe_variants_apply_to_the_kernel_sources():
             for old, new in subs:
                 assert text.count(old) == 1, (kernel, name, old[:60])
                 text = text.replace(old, new)
+
+
+# -- the float modes: float32 feature and hyper maps in [0, 1] (the IMDN
+# form), against lerf_tpu's float ops as twins ------------------------------
+
+def float_inputs(shape=(3, 45, 77), seed=12, oc=3):
+    """A float feature in [0, 254] and hyper maps in [0, 1], as the IMDN
+    towers give them."""
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy((rng.rand(*shape) * 254).astype(np.float32)),
+            torch.from_numpy(rng.rand(*shape, oc).astype(np.float32)))
+
+
+def float_resize_twin(feat, hyper, geom, linear):
+    if linear:
+        return amplified_linear_resize(feat, hyper[..., 0], geom)
+    return steering_gaussian_resize(feat, hyper[..., 0], hyper[..., 1],
+                                    hyper[..., 2], geom)
+
+
+def float_warp_twin(feat, hyper, geom, linear):
+    if linear:
+        return amplified_linear_warp(feat, hyper[..., 0], geom)
+    return steering_gaussian_warp(feat, hyper[..., 0], hyper[..., 1],
+                                  hyper[..., 2], geom)
+
+
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_resize_float_mode_takes_float_twins_on_cpu(linear):
+    feat, hyper = float_inputs(oc=1 if linear else 3)
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=[2.5, 2.5])
+    got = k1.steering_resize(feat, hyper, geom, linear=linear)
+    assert torch.equal(got, float_resize_twin(feat, hyper, geom, linear))
+    ops = ResizeOperands.create(feat.shape[1:], scale_factors=[2.5, 2.5])
+    got = k1.steering_resize_serving(feat, hyper, ops, linear=linear,
+                                     out_dtype=torch.uint8)
+    rings = resize_rings(ops, linear=linear)
+    want = (amplified_linear_resize_rings(feat, hyper[..., 0], rings,
+                                          pad=ops.pad) if linear
+            else steering_gaussian_resize_rings(
+                feat, hyper[..., 0], hyper[..., 1], hyper[..., 2], rings,
+                pad=ops.pad))
+    assert torch.equal(got, quantize_device(want, 255, nan_to_zero=linear))
+
+
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_warp_float_mode_takes_float_twins_on_cpu(linear):
+    matrix, shape, out_sz = WARP_CASES["border"]
+    feat, hyper = float_inputs(shape, oc=1 if linear else 3)
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz)
+    got = k5.steering_warp(feat, hyper, params, linear=linear)
+    want = float_warp_twin(feat, hyper, params.geometry(), linear)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    feats = torch.cat([feat, feat.flip(-1)])
+    hypers = torch.cat([hyper, hyper.flip(-2)])
+    warps = [params, k5.WarpParams.create(shape[1:], jitter_matrix(
+        1, (1.9, 1.9)), out_sz)]
+    got = k5.steering_warp_batch(feats, hypers, warps, linear=linear,
+                                 out_dtype=torch.uint8)
+    for f, w in enumerate(warps):
+        want = float_warp_twin(feats[3 * f:3 * f + 3],
+                               hypers[3 * f:3 * f + 3], w.geometry(), linear)
+        assert torch.equal(got[3 * f:3 * f + 3],
+                           quantize_device(want, 255, nan_to_zero=True))
+
+
+def test_kernels_reject_mixed_input_types():
+    """Both inputs int32 (codes) or both float32 (maps): an int feature
+    with float maps, or the other way round, raises."""
+    feat, codes = resize_inputs()
+    ffeat, fhyper = float_inputs()
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=[2, 2])
+    ops = ResizeOperands.create(feat.shape[1:], scale_factors=[2.0, 2.0])
+    params = k5.WarpParams.create(feat.shape[1:], np.diag([2.0, 2.0, 1.0]),
+                                  (90, 154))
+    for f, h in ((feat, fhyper), (ffeat, codes),
+                 (ffeat.double(), fhyper.double())):
+        with pytest.raises(ValueError, match="one type"):
+            k1.steering_resize(f, h, geom)
+        with pytest.raises(ValueError, match="one type"):
+            k1.steering_resize_serving(f, h, ops)
+        with pytest.raises(ValueError, match="one type"):
+            k5.steering_warp(f, h, params)
+        with pytest.raises(ValueError, match="one type"):
+            k5.steering_warp_batch(f, h, [params])
+
+
+# the K1 float-mode cases: RESIZE_CASES's, and the chip's main scales
+FLOAT_RESIZE_CASES = sorted(RESIZE_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", FLOAT_RESIZE_CASES)
+def test_resize_kernel_float_mode_matches_twin(case, linear, cuda_device):
+    scale, aa = RESIZE_CASES[case]
+    feat, hyper = (t.to(cuda_device)
+                   for t in float_inputs(oc=1 if linear else 3))
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=list(scale),
+                                 antialias=aa)
+    before = k1.launches
+    got = k1.steering_resize(feat, hyper, geom, linear=linear)
+    got_u8 = k1.steering_resize(feat, hyper, geom, linear=linear,
+                                out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 2
+    want = float_resize_twin(feat, hyper, geom, linear)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=RESIZE_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=linear))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_resize_serving_float_mode_equals_static_on_card(linear,
+                                                         cuda_device):
+    feat, hyper = (t.to(cuda_device)
+                   for t in float_inputs(oc=1 if linear else 3))
+    for scale in (2.5, 4.0):
+        geom = ResizeGeometry.create(feat.shape[1:], scale_factors=[scale] * 2)
+        ops = ResizeOperands.create(feat.shape[1:], scale_factors=[scale] * 2)
+        got = k1.steering_resize_serving(feat, hyper, ops, linear=linear)
+        want = k1.steering_resize(feat, hyper, geom, linear=linear)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case,support",
+                         [(c, 2) for c in sorted(WARP_CASES)]
+                         + [("rotation", 4), ("x2.5-wide", 4)],
+                         ids=lambda v: str(v))
+def test_warp_kernel_float_mode_matches_twin(case, support, linear,
+                                             cuda_device):
+    matrix, shape, out_sz = WARP_CASES[case]
+    feat, hyper = (t.to(cuda_device)
+                   for t in float_inputs(shape, oc=1 if linear else 3))
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz, support=support)
+    mask = torch.empty(out_sz, dtype=torch.bool, device=cuda_device)
+    before = k5.launches
+    got = k5.steering_warp(feat, hyper, params, linear=linear, mask_out=mask)
+    got_u8 = k5.steering_warp(feat, hyper, params, linear=linear,
+                              out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 2
+    want = float_warp_twin(feat, hyper, params.geometry(), linear)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=WARP_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+    assert np.array_equal(mask.cpu().numpy(), params.host_mask())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_warp_batch_float_mode_equals_per_frame(linear, cuda_device):
+    shape, out_sz = (3, 45, 77), (112, 192)
+    feats, hypers = (t.to(cuda_device) for t in float_inputs(
+        (12,) + shape[1:], oc=1 if linear else 3))
+    warps = [k5.WarpParams.create(shape[1:], jitter_matrix(s, (2.5, 2.5)),
+                                  out_sz) for s in range(4)]
+    masks = torch.empty((4,) + out_sz, dtype=torch.bool, device=cuda_device)
+    before = k5.launches
+    got = k5.steering_warp_batch(feats, hypers, warps, linear=linear,
+                                 out_dtype=torch.uint8, mask_out=masks)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    for f, w in enumerate(warps):
+        one = k5.steering_warp(feats[3 * f:3 * f + 3],
+                               hypers[3 * f:3 * f + 3], w, linear=linear,
+                               out_dtype=torch.uint8)
+        assert torch.equal(got[3 * f:3 * f + 3], one)
+        assert np.array_equal(masks[f].cpu().numpy(), w.host_mask())
+
+
+def imdn_model(nf=12, seed=0):
+    from lerf_torch.models.imdn import IMDN2, init_imdn
+    return init_imdn(IMDN2(nf=nf), torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["base", "s2d"])
+def test_imdn_on_card_matches_cpu(backend, cuda_device):
+    """The IMDN form on the card against the CPU: the towers' float32
+    sums run in another order (cuDNN), so the feature within 1e-3, the
+    hyper maps within 1e-5 and the frames within one level on ≤ 0.1 %;
+    one K1 (SR) or K5 (warp) launch and no other kernel of the port."""
+    model = imdn_model()
+    img = np.random.RandomState(13).randint(0, 256, (45, 77, 3)) \
+        .astype(np.uint8)
+    cpu = NetPredictor.from_imdn(model, backend=backend, device="cpu")
+    card = NetPredictor.from_imdn(model, backend=backend, device=cuda_device)
+    counts = [m.launches for m in (k1, k2, k3, k4, k5)]
+    got = card.upscale(img, 4, 4, return_aux=True)
+    assert [m.launches for m in (k1, k2, k3, k4, k5)] == \
+        [counts[0] + 1] + counts[1:]
+    want = cpu.upscale(img, 4, 4, return_aux=True)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-5)
+    d = np.abs(got[0].astype(int) - want[0].astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.001
+    matrix = jitter_matrix(0, (2.0, 2.0))
+    counts = [m.launches for m in (k1, k2, k3, k4, k5)]
+    out, mask = card.warp(img, matrix, (90, 154))
+    assert [m.launches for m in (k1, k2, k3, k4, k5)] == \
+        counts[:4] + [counts[4] + 1]
+    want_out, want_mask = cpu.warp(img, matrix, (90, 154))
+    np.testing.assert_array_equal(mask, want_mask)
+    d = np.abs(out.astype(int) - want_out.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.001
+
+
+@pytest.mark.cuda
+def test_imdn_serving_forms_on_card_equal_frames(cuda_device):
+    pred = NetPredictor.from_imdn(imdn_model(), device=cuda_device)
+    imgs = np.random.RandomState(14).randint(0, 256, (4, 40, 56, 3)) \
+        .astype(np.uint8)
+    want = [pred.upscale(f, 2.5, 2.5) for f in imgs]
+    np.testing.assert_array_equal(pred.upscale_batch(imgs, 2.5, 2.5),
+                                  np.stack(want))
+    np.testing.assert_array_equal(pred.upscale_dynamic(imgs[1], 2.5, 2.5),
+                                  want[1])
+    mats = [jitter_matrix(s, (2.0, 2.0)) for s in range(4)]
+    want = [pred.warp(f, m, (80, 112)) for f, m in zip(imgs, mats)]
+    out, mask = pred.warp_batch(imgs, np.stack(mats), (80, 112))
+    np.testing.assert_array_equal(out, np.stack([w[0] for w in want]))
+    np.testing.assert_array_equal(mask, np.stack([w[1] for w in want]))
+    for form in (pred.warp_dynamic, pred.warp_device):
+        o, m = form(imgs[2], mats[2], (80, 112))
+        np.testing.assert_array_equal(o, want[2][0])
+        np.testing.assert_array_equal(m, want[2][1])
+
+
+@pytest.mark.cuda
+def test_imdn_restores_the_cudnn_flags_on_card(cuda_device):
+    flags = (torch.backends.cudnn.enabled, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32)
+    pred = NetPredictor.from_imdn(imdn_model(), device=cuda_device)
+    pred.upscale(np.zeros((16, 20, 3), np.uint8), 2, 2)
+    assert (torch.backends.cudnn.enabled, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32) == flags

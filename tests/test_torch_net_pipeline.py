@@ -25,6 +25,7 @@ from lerf_tpu.pipeline import NetPredictor as JaxNetPredictor
 from test_torch_srnet import assert_close_levels, np_params, torch_state_dict
 
 from lerf_torch.convert import lerf_nets_from_arrays
+from lerf_torch.models.imdn import IMDN2
 from lerf_torch.ops.geometry import ResizeGeometry
 from lerf_torch.ops.kernels.resize import steering_resize
 from lerf_torch.pipeline import NetPredictor, _quantize_device
@@ -133,7 +134,8 @@ def test_net_predictor_default_device_is_cuda_and_never_falls_back():
 
 @pytest.mark.parametrize("call", [
     lambda p: NetPredictor.from_srnets(p, mesh=object(), device="cpu"),
-    lambda p: NetPredictor.from_imdn(None, p),
+    lambda p: NetPredictor.from_imdn(IMDN2(nf=8), mesh=object(),
+                                     device="cpu"),
     lambda p: NetPredictor.from_srnets(p, device="cpu")
     .warp_dynamic_async(image(), np.eye(3), (8, 8)),
     lambda p: NetPredictor.from_srnets(p, device="cpu")
@@ -223,22 +225,25 @@ def test_eval_model_cli_warp_prints_jax_table(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "IMDN2"], "item 8"),
+    (["--model", "IMDN2", "--inC", "3"], None),
     (["--bucket", "8"], None),
     (["--dynamicWarp"], None)],
     ids=["imdn", "bucket", "warp-dynamic"])
 def test_eval_model_cli_flags_match_jax_or_exit(flags, match, tmp_path,
                                                 capsys):
-    """``--model IMDN2`` still exits "not ported" (item 8).  The warp
-    benchmark's serving flags, which exited too, now serve through
-    ``warp_dynamic`` and print lerf_tpu's table on a synthetic
-    WarpBenchmark tree (mPSNR within 0.01 dB: the stage codes of the two
-    packages differ by a level on < 0.5 % of pixels)."""
+    """Flags that exited "not ported" now print lerf_tpu's warp table on a
+    synthetic WarpBenchmark tree: ``--model IMDN2`` (the IMDN form, on a
+    reference-named IMDN2 state dict), and the warp's serving flags
+    through ``warp_dynamic`` (mPSNR within 0.01 dB: the SRNet codes of the
+    two packages differ by a level on < 0.5 % of pixels, the IMDN frames
+    by one at a .5 edge on ≤ 0.1 %)."""
     from lerf_tpu.cli.eval_model import main as jax_main
     from lerf_torch.cli.eval_model import main
+    from test_torch_imdn import imdn_experiment
     from test_torch_warp import warp_tree
 
-    exp = net_experiment(tmp_path)
+    exp = (imdn_experiment(tmp_path) if "IMDN2" in flags
+           else net_experiment(tmp_path))
     if match is not None:
         with pytest.raises(SystemExit, match=match):
             main(["-e", str(exp), "--platform", "cpu", *flags])

@@ -88,24 +88,38 @@ def test_upscale_cli_matches_jax(tmp_path):
     np.testing.assert_array_equal(out, jax_pred.upscale(img, 2.5, 2.5))
 
 
-@pytest.mark.parametrize("flags", [["--form", "net", "--model", "IMDN2"],
+@pytest.mark.parametrize("flags", [["--form", "net", "--model", "IMDN2",
+                                    "--inC", "3", "--nf", "8", "--twoStage",
+                                    "--scale", "2.5"],
                                    ["--matrix", "2,0.1,1,0,2,-1,0,0,1",
                                     "--outSize", "24x32", "--dynamicWarp"],
                                    ["--matrix", "2,0.1,1,0,2,-1,0,0,1",
                                     "--outSize", "24x32", "--bucket", "8"]],
                          ids=["form", "matrix", "matrix-bucket"])
 def test_upscale_cli_flags_match_jax_or_exit(flags, tmp_path):
-    """``--model IMDN2`` still exits "not ported"; the warp's serving
-    flags, which did too, now warp as lerf_tpu's CLI does
+    """Flags that exited "not ported" now run as lerf_tpu's CLI does:
+    ``--form net --model IMDN2`` upscales through the IMDN form on a
+    reference-named IMDN2 state dict (the same image but for a rounding at
+    a .5 edge on ≤ 0.1 % of values), and the warp's serving flags warp
     (``--dynamicWarp`` through ``warp_dynamic``, ``--bucket`` through
     ``warp``), the same image."""
     from lerf_tpu.cli.upscale import main as jax_main
     from lerf_torch.cli.upscale import main
 
     if "--model" in flags:
-        with pytest.raises(SystemExit, match="not ported"):
-            main(["-e", str(tmp_path), "--input", "in.png", "--output",
-                  "out.png", "--platform", "cpu", *flags])
+        from test_torch_imdn import imdn_experiment
+
+        exp = imdn_experiment(tmp_path)
+        Image.fromarray(image(12, 16)).save(tmp_path / "in.png")
+        args = ["-e", str(exp), "--input", str(tmp_path / "in.png"),
+                "--platform", "cpu", *flags]
+        got = main(args + ["--output", str(tmp_path / "out.png")])
+        want = jax_main(args + ["--output", str(tmp_path / "jax.png")])
+        np.testing.assert_array_equal(
+            np.array(Image.open(tmp_path / "out.png")), got)
+        assert got.shape == want.shape == (30, 40, 3)
+        d = np.abs(got.astype(int) - want.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() <= 0.001
         return
     b = shared_lut_predictor().bank
     save_lut_bank(bank_from_arrays(b.stage1, b.stage2, b.inter, b.out_c),
@@ -156,6 +170,8 @@ def test_port_imports_no_jax():
             "import lerf_torch.models.convert\n"
             "import lerf_torch.ops.kernels.srnet_ensemble\n"
             "import lerf_torch.ops.kernels.srnet_ensemble_int8\n"
+            "import lerf_torch.models.imdn, lerf_torch.models.imdn_s2d\n"
+            "import lerf_torch.lut.transfer, lerf_torch.cli.transfer\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'lerf_tpu'))\n"
             "assert not bad, bad\n")
