@@ -14,8 +14,11 @@ the reference width nf = 64 with seed-0 numpy weights, for the float (K3)
 and the int8 (K4) backends — and the IMDN (LeRF-Net) form,
 ``NetPredictor.from_imdn(IMDN2(nf=12))`` with weights from a
 ``torch.Generator`` seeded 0, whose float feature and hyper maps K1 and K5
-take in their float mode, and the network → LUT transfer; and holds each
-hand-written kernel against its plain PyTorch twin on the card:
+take in their float mode, and the network → LUT transfer; then trains:
+the reference's LeRF-G run at full width through the port's trainer (K1
+forward, K6 backward), its validation, checkpoint and resume, LUT
+fine-tuning and IMDN2; and holds each hand-written kernel against its
+plain PyTorch twin on the card:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the kernel build
    with each kernel's registers, stack, spills and static shared memory
@@ -152,12 +155,36 @@ hand-written kernel against its plain PyTorch twin on the card:
 26. ``transfer_to_lut`` of the nf 64 SRNet params on the card against the
    CPU's (≤ 1 LSB, ≥ 99.9 % equal), its seconds, and ``LutPredictor`` on
    that bank upscaling on the card (K2 twice, K1 once);
-27. the exact-division findings (K1 bit-equal to its twin or not at each
+27. K6 (the training resize's backward) against its twin on the card at
+   the LeRF training shape (16 planes of 48×48 → ×4, support 2), at
+   support 4 and ×2.5, both modes: each gradient within 1e-4 of its
+   largest value, a second launch bit-equal, the twin against autograd of
+   the plain op; K6's time (events, the profiler's two passes), bound and
+   twin beside K1's float-mode float32-out forward;
+28. the trainer at full width, the reference's LeRF-G run (SRNetsSWF2, nf
+   64, modes sct, 2 stages, --twoStage, oC 3, ×4, crop 48, batch 16, lr0
+   1e-3) for 50 steps on a synthetic DIV2K layout, through
+   ``lerf_torch.train.loop.train`` with the host sampler and with
+   ``--device_data`` (K1 and K6 once a step; validation on a synthetic
+   Set5 at the last step through ``NetPredictor.from_srnets``: K3 twice
+   and K1 once an image and scale); then its step: one step on the card
+   against the CPU's from the same params and batch (loss, gradient norm,
+   params after Adam), ms a step (events; the host clock with the
+   sampler's pinned batches), the profiler's split and busy share, peak
+   memory, the bound, and from the profiler's rows K1 + K6 and no gather;
+29. the run resumed from its step-25 checkpoint: the final params bit-equal
+   to the uninterrupted run's;
+30. the trained params transferred on the card, ``--lutft`` for 10 steps at
+   17⁴ tables (K1 + K6 a step, validation by ``LutPredictor``: K2 + K1),
+   and ``LUTft_*.npy`` served by ``LutPredictor`` (K2 twice, K1 once);
+31. IMDN2 (nf 12) trained 5 steps, and its step with TF32 allowed outside
+   it: no TF32 kernel in the forward or the backward;
+32. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
    rows with their ``linear`` and ``float`` modes, and K5's ``support4``,
-   ``mask`` and ``batch4`` beside), the card line and, last, the result
-   line.
+   ``mask`` and ``batch4`` beside; K6's with its ``linear`` mode), the
+   card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -250,6 +277,38 @@ IMDN_U8_SHARE = 0.001
 # the transfer, card against CPU: a head's float32 chain summed in another
 # order flips round(clip(out) * 127) at a .5 edge, by 1 LSB
 TRANSFER_EQUAL_SHARE = 0.999
+# the trainer: the reference's LeRF-G run (scripts.sh:2-6): SRNetsSWF2,
+# nf 64, modes sct, 2 stages, --twoStage, oC 3, x4, crop 48, batch 16, lr0
+# 1e-3; depth cut to TRAIN_STEPS steps
+TRAIN_CROP, TRAIN_BATCH, TRAIN_STEPS = 48, 16, 50
+TRAIN_SAVE = 25                # a checkpoint there, resumed in phase 29
+VAL_IMAGES = 5                 # the synthetic Set5: x2 / x3 / x4 each
+# K6 against its twin: K6 sums each gradient term in a fixed order, the
+# twin scatters with index_add (float atomics on the card): float32 sums
+# of up to ~64 terms a pixel, relative to each gradient's largest value
+GRAD_RTOL = 1e-4
+# the training step on the card against the CPU's: the dense products sum
+# in another order, so the loss and the gradient norm within 1e-4
+# relative, and each leaf's gradient within TRAIN_RTOL of that leaf's
+# largest value (Adam's first step moves a parameter by about lr0 sign(g),
+# so the params alone would only hold the signs); after Adam the params
+# within 1e-5 everywhere (the H100 gave 8.2e-7 at most: the step of a
+# gradient near Adam's eps is the most sensitive to its last bits)
+TRAIN_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+# K6's operations, what the gradient needs with each weight counted once
+# (K6's pass 2 works each weight out again; that recompute is the design's
+# cost, not the function's): per output and neighbour the weight and the
+# sums W_o, out_o (K1's 14), the feature term (2), the coefficient P f - Q
+# (2) and the three hyper terms (4 + 6 + 6): 34; linear the weight and sums
+# (10), per axis dlin, the lin >= 0 test and the product with the other
+# axis's clip (3 + 3) and their sum (1), the feature term (2), P f - Q (2)
+# and the alpha term (2): 23; per output P, out, Q (3); per source pixel
+# the decode and the chain rule (8)
+K6_OPS_PER_NEIGHBOUR = 34
+K6_LIN_OPS_PER_NEIGHBOUR = 23
+K6_OPS_PER_OUTPUT = 3
+K6_OPS_PER_SOURCE = 8
 
 
 def warp_matrix(seed=0):
@@ -815,11 +874,13 @@ def kernel_modules():
     """Every kernel wrapper module by its kernel's name."""
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import resize_bwd as k6
     from lerf_torch.ops.kernels import srnet_ensemble as k3
     from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
     from lerf_torch.ops.kernels import warp as k5
     return {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
-            "srnet_ensemble_int8": k4, "steering_warp": k5}
+            "srnet_ensemble_int8": k4, "steering_warp": k5,
+            "steering_resize_bwd": k6}
 
 
 def counted_run(call, want, what):
@@ -2245,6 +2306,519 @@ def transfer_phase(dev, params, frame):
                 "served_launches": launches})
 
 
+# -- training (phases 27-31) -------------------------------------------------
+
+def k6_work(c, h, w, oh, ow, s, linear):
+    """(bytes, operations) of one K6 call: ∂L/∂out, the float32 feature
+    and hyper maps read once, their two gradients written once, the
+    geometry read once (P and Q, the kernel's scratch, are its own cost);
+    the operations once an output and neighbour, an output and a source
+    pixel."""
+    hc = 1 if linear else 3
+    nbytes = 4 * (c * oh * ow + 2 * c * h * w * (1 + hc)) + (oh + ow) * s * 8
+    per = K6_LIN_OPS_PER_NEIGHBOUR if linear else K6_OPS_PER_NEIGHBOUR
+    ops = c * oh * ow * (s * s * per + K6_OPS_PER_OUTPUT) \
+        + c * h * w * K6_OPS_PER_SOURCE
+    return nbytes, ops
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def k6_phase(dev):
+    """Phase 27: K6 against its twin on the card at the LeRF training shape
+    (16 planes of 48×48 → ×4, support 2), at support 4 and at ×2.5, both
+    modes: each gradient within GRAD_RTOL of its largest value, a second
+    launch bit-equal (no atomics), and the twin against autograd of the
+    plain op on the card; then K6's time at the training shape (events,
+    the profiler's two passes), its bound, the twin's time and K1's
+    float-mode float32-out forward beside it.  Returns the kernels line's
+    row."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import resize_bwd as k6
+    from lerf_torch.ops.resample import (amplified_linear_resize,
+                                         steering_gaussian_resize,
+                                         steering_resize_grad_plain)
+
+    rng = np.random.RandomState(7)
+    c, h = TRAIN_BATCH, TRAIN_CROP
+    worst = {False: 0.0, True: 0.0}
+    inputs = {}
+    for name, scale, support in (("train", 4.0, 2), ("x4-s4", 4.0, 4),
+                                 ("x2.5", 2.5, 2)):
+        for linear in (False, True):
+            geom = ResizeGeometry.create((h, h), scale_factors=[scale] * 2,
+                                         support=support, antialias=False)
+            oc = 1 if linear else 3
+            feat = torch.from_numpy((rng.rand(c, h, h) * 255)
+                                    .astype(np.float32)).to(dev)
+            hyper = torch.from_numpy(rng.rand(c, h, h, oc)
+                                     .astype(np.float32)).to(dev)
+            g = torch.from_numpy(rng.randn(c, *geom.out_sz)
+                                 .astype(np.float32)).to(dev)
+            ops = k6.GradOperands.create(geom, dev, linear=linear)
+            got = k6.steering_resize_grad(feat, hyper, g, geom,
+                                          linear=linear, operands=ops)
+            again = k6.steering_resize_grad(feat, hyper, g, geom,
+                                            linear=linear, operands=ops)
+            twin = steering_resize_grad_plain(feat, hyper, g, geom,
+                                              linear=linear)
+            f = feat.clone().requires_grad_()
+            hy = hyper.clone().requires_grad_()
+            out = (amplified_linear_resize(f, hy[..., 0], geom) if linear
+                   else steering_gaussian_resize(f, hy[..., 0], hy[..., 1],
+                                                 hy[..., 2], geom))
+            out.backward(g)
+            torch.cuda.synchronize()
+            errs = {"feature": rel_err(got[0], twin[0]),
+                    "hyper": rel_err(got[1], twin[1]),
+                    "twin_vs_autograd_feature": rel_err(twin[0], f.grad),
+                    "twin_vs_autograd_hyper": rel_err(twin[1], hy.grad)}
+            if max(errs.values()) > GRAD_RTOL:
+                raise AssertionError(f"K6 {name} linear={linear}: {errs} > "
+                                     f"{GRAD_RTOL}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K6 {name}: a second launch differs")
+            if name == "train":
+                inputs[linear] = (geom, ops, feat, hyper, g)
+                worst[linear] = max(float((a - b).abs().max())
+                                    for a, b in zip(got, twin))
+            emit({"phase": "k6_vs_plain", "case": name, "linear": linear,
+                  "planes": c, "in": [h, h], "out": list(geom.out_sz),
+                  "support": support, "rel_err": errs,
+                  "max_abs_err": max(float((a - b).abs().max())
+                                     for a, b in zip(got, twin)),
+                  "deterministic": True})
+
+    rows = {}
+    for linear in (False, True):
+        geom, ops, feat, hyper, g = inputs[linear]
+
+        def kernel():
+            return k6.steering_resize_grad(feat, hyper, g, geom,
+                                           linear=linear, operands=ops)
+
+        ms = event_ms(kernel, iters=50)
+        passes = [(n, calls, dms) for n, calls, dms in device_rows(kernel, 20)
+                  if "resize_bwd" in n]
+        plain_ms = event_ms(lambda: steering_resize_grad_plain(
+            feat, hyper, g, geom, linear=linear), iters=5, warmup=1)
+        k1_ms = event_ms(lambda: k1.steering_resize(
+            feat, hyper, geom, operands=ops.fwd, linear=linear), iters=50)
+        nbytes, nops = k6_work(c, h, h, *geom.out_sz, geom.support, linear)
+        b_ms, b_by = bound(nbytes, nops)
+        rows[linear] = {
+            "kernel": "steering_resize_bwd", "linear": linear, "ms": ms,
+            "profiler_ms": sum(dms for _, _, dms in passes),
+            "profiler_passes": [[n[:50], calls, dms] for n, calls, dms
+                                in passes],
+            "plain_ms": plain_ms, "k1_float32_out_ms": k1_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "ops": nops, "share_of_bound": b_ms / ms,
+            "max_abs_err": worst[linear]}
+        emit_timed(rows[linear])
+    return rows
+
+
+def write_div2k(root, n=16, size=480, seed=0, scale=4):
+    """A synthetic DIV2K layout: ``n`` seeded uint8 HR images of size² and
+    their ×``scale`` decimations (HR/{f}.png, LR/X4/{f}x4.png)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "HR"))
+    os.makedirs(os.path.join(root, "LR", f"X{scale}"))
+    for i in range(n):
+        f = f"{i + 1:04d}"
+        hr = rng.randint(0, 256, (size, size, 3), dtype=np.uint8)
+        Image.fromarray(hr).save(os.path.join(root, "HR", f"{f}.png"))
+        Image.fromarray(hr[::scale, ::scale]).save(
+            os.path.join(root, "LR", f"X{scale}", f"{f}x{scale}.png"))
+
+
+def write_set5(root, n=VAL_IMAGES, size=96, seed=1):
+    """A synthetic Set5-layout SR benchmark: HR/{i}.png and its ×2, ×3, ×4
+    decimations under LR_bicubic/rrLR_X{s}.00_{s}.00."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    hr_dir = os.path.join(root, "Set5", "HR")
+    os.makedirs(hr_dir)
+    for i in range(n):
+        hr = rng.randint(0, 256, (size, size, 3), dtype=np.uint8)
+        Image.fromarray(hr).save(os.path.join(hr_dir, f"{i}.png"))
+        for s in (2, 3, 4):
+            d = os.path.join(root, "Set5", "LR_bicubic",
+                             f"rrLR_X{s}.00_{s}.00")
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(hr[::s, ::s]).save(os.path.join(d, f"{i}.png"))
+
+
+def train_argv(root, exp, *flags):
+    """``python -m lerf_torch.cli.train``'s arguments for the reference's
+    LeRF-G run (scripts.sh:2-6: ``-e <exp> --twoStage --outC 3``; nf 64,
+    modes sct, 2 stages, ×4, crop 48, batch 16 and lr0 1e-3 are the
+    defaults, spelled out) on the synthetic data under ``root``, cut to
+    TRAIN_STEPS steps, with no auto-reseed (so a run's launch counts are
+    known); ``flags`` after them."""
+    return ["-e", os.path.join(root, exp), "--twoStage", "--outC", "3",
+            "--trainDir", os.path.join(root, "div2k"),
+            "--valDir", os.path.join(root, "rr"),
+            "--valWDir", os.path.join(root, "none"),
+            "--cropSize", str(TRAIN_CROP), "--batchSize", str(TRAIN_BATCH),
+            "--nf", str(NF), "--lr0", "1e-3", "--totalIter", str(TRAIN_STEPS),
+            "--displayStep", "10", "--saveStep", str(TRAIN_SAVE),
+            "--valStep", str(TRAIN_STEPS), "--auto_reseed", "0", *flags]
+
+
+def train_cli(argv):
+    """Run ``python -m lerf_torch.cli.train`` in this process."""
+    from lerf_torch.cli.train import main
+    return main(argv)
+
+
+def config_of(argv):
+    from lerf_torch.config import TrainConfig, parse_config
+    return parse_config(TrainConfig, argv)
+
+
+def read_scalars(exp_dir):
+    out = {}
+    with open(os.path.join(exp_dir, "scalars.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r["tag"], []).append((r["step"], r["value"]))
+    return out
+
+
+def params_diff(a, b):
+    """Largest |a − b| over two params trees' leaves."""
+    from lerf_torch.train.train_step import param_leaves
+
+    pa, pb = param_leaves(a), param_leaves(b)
+    return max(float((pa[k].detach().cpu() - pb[k].detach().cpu()).abs()
+                     .max()) for k in pa)
+
+
+def trainer_phase(dev, root):
+    """Phase 28: ``train`` (the loop a user's ``python -m
+    lerf_torch.cli.train`` runs) at full width on the card, TRAIN_STEPS
+    steps from the host sampler and its pinned copies, validated on the
+    synthetic Set5 at the last step (``NetPredictor.from_srnets``: K3 and
+    K1); then the same run with ``--device_data``.  Returns the config, the
+    final params and the main run's launch counts."""
+    from lerf_torch.train.checkpoint import CheckpointManager
+
+    n_val = 3 * VAL_IMAGES
+    want = {"steering_resize": TRAIN_STEPS + n_val,
+            "steering_resize_bwd": TRAIN_STEPS,
+            "srnet_ensemble": 2 * n_val}
+    runs = {}
+    for name, flags in (("host", ()), ("device_data", ("--device_data",))):
+        argv = train_argv(root, f"lerf-g-{name}", *flags)
+        cfg = config_of(argv)
+        t = time.perf_counter()
+        final, launches = counted_run(lambda: train_cli(argv), want,
+                                      f"trainer ({name})")
+        wall_s = time.perf_counter() - t
+        sc = read_scalars(cfg.exp_dir)
+        loss = [v for _, v in sc["loss_Pixel"]]
+        gnorm = [v for _, v in sc["grad_norm"]]
+        val = {k: v[-1][1] for k, v in sc.items() if "Set5" in k}
+        if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]
+                and len(val) == 6 and all(np.isfinite(list(val.values())))):
+            raise AssertionError(f"trainer ({name}): loss {loss}, "
+                                 f"validation {val}")
+        steps = CheckpointManager(cfg.exp_dir).all_steps()
+        if steps != [TRAIN_SAVE, TRAIN_STEPS]:
+            raise AssertionError(f"trainer ({name}): checkpoints {steps}")
+        emit_timed({"phase": "trainer", "data": name, "steps": TRAIN_STEPS,
+                    "launches": launches, "wall_s": wall_s,
+                    "loss_every_10": loss, "grad_norm_every_10": gnorm,
+                    "validation": val, "checkpoints": steps})
+        runs[name] = (cfg, final, launches)
+    return runs["host"]
+
+
+def step_work(hp, nf=NF):
+    """(bytes, float32 operations) of one training step: the dense chains
+    forward (every member at every pixel of both stages) and backward
+    (twice the forward: the gradients of the inputs and of the weights),
+    2 operations a multiply-add; bytes the batch, the labels and the
+    params with Adam's two moments read and written once."""
+    px = hp.crop_size ** 2 * TRAIN_BATCH
+    members = 4 * len(hp.modes)
+    macs = 3 * px * members * (chain_macs(1, nf) + chain_macs(3, nf))
+    n_params = members // 4 * (chain_macs(1, nf) + 2 * chain_macs(3, nf))
+    nbytes = 4 * (px + px * int(hp.scale) ** 2) + n_params * 4 * 3 * 2
+    return nbytes, 2 * macs
+
+
+def kernel_rows(rows):
+    """``device_rows`` without the profiler's user annotations (a
+    ``record_function`` range such as ``Optimizer.step#Adam.step`` shows
+    as a device row spanning the kernels it holds)."""
+    return [r for r in rows if "#" not in r[0]
+            and not r[0].startswith("ProfilerStep")]
+
+
+def step_rows(rows):
+    """The step's device time by kind of kernel."""
+    kinds = {"K1 (steering_resize)": ("steering_resize_kernel",),
+             "K6 (steering_resize_bwd)": ("resize_bwd",),
+             "products and convolutions (cuBLAS, cuDNN)": (
+                 "gemm", "xmma", "cutlass", "conv"),
+             "Adam (multi-tensor)": ("multi_tensor",),
+             "copies": ("Memcpy", "Memset", "CatArray", "copy")}
+    out = {}
+    for name, _, ms in rows:
+        kind = next((k for k, keys in kinds.items()
+                     if any(key in name for key in keys)), "elementwise and "
+                                                           "reductions")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
+
+
+def step_phase(dev, cfg):
+    """Phase 28, the step: one step on the card against the CPU's from the
+    same params and batch (loss, gradient norm, each leaf's gradient,
+    params after Adam); the
+    card's ms a step by events over TRAIN_STEPS steps on one batch and by
+    the host clock with the sampler's batches, the profiler's split, the
+    busy share, peak memory and the step's bound; and from the profiler's
+    rows that the resize ran K1 + K6 and no gather (no ``index`` kernel:
+    the plain resize would gather)."""
+    import torch
+    from lerf_torch.data.div2k import DIV2K, Provider
+    from lerf_torch.train import loop
+    from lerf_torch.train import train_step as ts
+    from lerf_torch.train.checkpoint import host_params
+    from lerf_torch.train.train_step import param_leaves
+
+    hp = loop.hparams_from_config(cfg)
+    geom = ts.train_geometry(hp)
+    init = loop.srnets_adapter(cfg, hp, "cpu").init_params
+    dataset = DIV2K(cfg.train_dir, cfg.scale_value, cfg.crop_size,
+                    in_c=cfg.in_c, seed=3)
+    im, lb = (torch.from_numpy(a) for a in dataset.batch(TRAIN_BATCH))
+
+    results = []
+    for where in ("cpu", dev):
+        params = {sk: {n: {k: v.to(where) for k, v in head.items()}
+                       for n, head in heads.items()}
+                  for sk, heads in init(torch.Generator().manual_seed(0))
+                  .items()}
+        state = ts.TrainState.create(params, hp)
+        step = ts.make_train_step(geom, hp, device=where)
+        t = time.perf_counter()
+        state, m = step(state, im.to(where), lb.to(where))
+        # the step leaves this step's gradients on the leaves (Adam reads
+        # them and leaves them as they are)
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in param_leaves(state.params).items()}
+        results.append(({k: float(v) for k, v in m.items()}, grads,
+                        host_params(state.params), time.perf_counter() - t))
+    (m_cpu, g_cpu, p_cpu, cpu_s), (m_card, g_card, p_card, _) = results
+    worst = params_diff(p_card, p_cpu)
+    # a leaf the loss does not reach has a zero gradient on both sides
+    grad_err = {k: rel_err(g_card[k], g) if g.abs().max() > 0
+                else float(g_card[k].abs().max()) for k, g in g_cpu.items()}
+    leaf, grad_worst = max(grad_err.items(), key=lambda kv: kv[1])
+    emit({"phase": "train_step_vs_cpu", "card": m_card, "cpu": m_cpu,
+          "grad_leaves": len(grad_err), "grad_worst_leaf": leaf,
+          "grad_worst_rel_err": grad_worst, "params_max_abs": worst,
+          "tolerance": {"loss_grad_norm_rel": TRAIN_RTOL,
+                        "grad_rel_leaf_max": TRAIN_RTOL,
+                        "params_abs": TRAIN_PARAM_ATOL},
+          "cpu_step_s": cpu_s})
+    for k in ("loss", "grad_norm"):
+        if abs(m_card[k] - m_cpu[k]) > TRAIN_RTOL * abs(m_cpu[k]):
+            raise AssertionError(f"step card vs CPU {k}: {m_card[k]} vs "
+                                 f"{m_cpu[k]}")
+    if grad_worst > TRAIN_RTOL:
+        raise AssertionError(f"step card vs CPU gradient of {leaf}: "
+                             f"{grad_worst} of its largest value")
+    if worst > TRAIN_PARAM_ATOL:
+        raise AssertionError(f"step card vs CPU params: max {worst}")
+
+    params = init(torch.Generator().manual_seed(0))
+    state = ts.TrainState.create({sk: {n: {k: v.to(dev) for k, v in h.items()}
+                                       for n, h in hs.items()}
+                                  for sk, hs in params.items()}, hp)
+    step = ts.make_train_step(geom, hp, device=dev)
+    im_d, lb_d = im.to(dev), lb.to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = event_ms(lambda: step(state, im_d, lb_d), iters=TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    provider = Provider(dataset, TRAIN_BATCH,
+                        pin_memory=torch.device(dev).type == "cuda")
+    try:
+        def fed_step():
+            a, b = provider.next()
+            step(state, loop.to_device(a, dev), loop.to_device(b, dev))
+
+        for _ in range(3):
+            fed_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            fed_step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3 / 20
+    finally:
+        provider.close()
+    rows = kernel_rows(device_rows(lambda: step(state, im_d, lb_d),
+                                   frames=5))
+    names = [n for n, _, _ in rows]
+    device_ms = sum(r[2] for r in rows)
+    k1_rows = [r for r in rows if "steering_resize_kernel" in r[0]]
+    k6_rows = [r for r in rows if "resize_bwd" in r[0]]
+    gathers = [n for n in names if "index" in n.lower()]
+    if not k1_rows or len(k6_rows) != 2 or gathers:
+        raise AssertionError(f"train step rows: K1 {k1_rows}, K6 {k6_rows}, "
+                             f"gathers {gathers}")
+    nbytes, nops = step_work(hp)
+    b_ms, b_by = bound(nbytes, nops)
+    emit_timed({"phase": "train_step", "batch": TRAIN_BATCH,
+                "crop": TRAIN_CROP, "nf": NF, "ms": ms,
+                "host_fed_ms": host_ms, "steps_per_s": 1e3 / ms,
+                "peak_memory_gb": peak / 1e9, "bound_ms": b_ms,
+                "bound_by": b_by, "share_of_bound": b_ms / ms,
+                "device_ms": device_ms, "busy_share": device_ms / ms,
+                "device_ms_by_kind": step_rows(rows),
+                "k1_profiler_ms": sum(r[2] for r in k1_rows),
+                "k6_profiler_ms": sum(r[2] for r in k6_rows),
+                "top": [[n[:60], calls, dms] for n, calls, dms in sorted(
+                    rows, key=lambda r: -r[2])[:10]]})
+
+
+def resume_phase(dev, cfg, final):
+    """Phase 29: the run of phase 28 resumed from its step-TRAIN_SAVE
+    checkpoint to TRAIN_STEPS: the same params, Adam state, scheduler and
+    sampler state, so the same final params as the uninterrupted run (the
+    SRNet step's gradients are deterministic on the card: K6 has no
+    atomics, the stages' edge pad sums its copies without them).  The
+    validation at the last step runs again (K3 + K1)."""
+    n_val = 3 * VAL_IMAGES
+    argv = train_argv(os.path.dirname(cfg.exp_dir),
+                      os.path.basename(cfg.exp_dir),
+                      "--startIter", str(TRAIN_SAVE))
+    resumed, launches = counted_run(
+        lambda: train_cli(argv),
+        {"steering_resize": TRAIN_STEPS - TRAIN_SAVE + n_val,
+         "steering_resize_bwd": TRAIN_STEPS - TRAIN_SAVE,
+         "srnet_ensemble": 2 * n_val}, "trainer resumed")
+    worst = params_diff(resumed, final)
+    emit({"phase": "resume", "from_step": TRAIN_SAVE, "to": TRAIN_STEPS,
+          "launches": launches, "params_max_abs_vs_uninterrupted": worst,
+          "bit_equal": worst == 0.0})
+    if worst != 0.0:
+        raise AssertionError(f"resumed run differs from the uninterrupted "
+                             f"one by {worst}")
+
+
+def lutft_phase(dev, cfg, final, frame):
+    """Phase 30: the trained params transferred to a bank on the card
+    (``LUT_*.npy``), ``--lutft`` for a few steps at 17⁴ tables (K1 + K6 a
+    step; validation serves the requantized tables by ``LutPredictor``: K2
+    twice and K1 a call), then ``LUTft_*.npy`` served on the frame by
+    ``LutPredictor.from_config`` (K2 twice, K1 once)."""
+    import torch
+    from lerf_torch import config
+    from lerf_torch.lut.io import load_lut_bank, save_lut_bank
+    from lerf_torch.lut.transfer import transfer_to_lut
+    from lerf_torch.pipeline import LutPredictor
+
+    steps, n_val = 10, 3 * VAL_IMAGES
+    bank = transfer_to_lut(final, device=dev)
+    save_lut_bank(bank, cfg.exp_dir, lut_name="LUT", keep_trailing_dims=False)
+    argv = train_argv(os.path.dirname(cfg.exp_dir),
+                      os.path.basename(cfg.exp_dir), "--lutft", "--lr0",
+                      "1e-4", "--totalIter", str(steps), "--valStep",
+                      str(steps))
+    t = time.perf_counter()
+    _, launches = counted_run(
+        lambda: train_cli(argv),
+        {"steering_resize": steps + n_val, "steering_resize_bwd": steps,
+         "lut_stage": 2 * n_val}, "LUT fine-tuning")
+    ft_s = time.perf_counter() - t
+    ft = load_lut_bank(cfg.exp_dir, lut_name="LUTft", out_c=3)
+    if ft.stage2["sr0"].dtype != np.int8 or ft.stage2["sr0"].shape != (L4, 3):
+        raise AssertionError(f"LUTft: {ft.stage2['sr0'].shape}")
+    pred = LutPredictor.from_config(config.parse_config(
+        config.TestConfig, ["-e", cfg.exp_dir, "--lutName", "LUTft",
+                            "--platform", torch.device(dev).type]))
+    out, served = counted_run(lambda: pred.upscale(frame, SCALE, SCALE),
+                              {"lut_stage": 2, "steering_resize": 1},
+                              "LUTft served")
+    if out.shape != (int(frame.shape[0] * SCALE),
+                     int(frame.shape[1] * SCALE), 3):
+        raise AssertionError(f"LUTft served: {out.shape}")
+    emit_timed({"phase": "lutft", "steps": steps, "launches": launches,
+                "wall_s": ft_s, "validation": {
+                    k: v[-1][1] for k, v in read_scalars(cfg.exp_dir).items()
+                    if "Set5" in k},
+                "served_launches": served})
+
+
+def imdn_train_phase(dev, root):
+    """Phase 31: IMDN2 (nf 12) trains a few steps through ``train`` (K1 +
+    K6 a step), then its step alone: ms by events, and from the
+    profiler's rows no TF32 kernel (cuDNN's or cuBLAS's) in the forward or
+    the backward, with TF32 allowed by the caller outside the step."""
+    import torch
+    from lerf_torch.train import loop
+    from lerf_torch.train import train_step as ts
+
+    steps = 5
+    argv = train_argv(root, "lerf-net", "--model", "IMDN2", "--inC", "3",
+                      "--nf", str(IMDN_NF), "--totalIter", str(steps),
+                      "--valStep", "1000", "--saveStep", str(steps))
+    cfg = config_of(argv)
+    _, launches = counted_run(lambda: train_cli(argv),
+                              {"steering_resize": steps,
+                               "steering_resize_bwd": steps}, "IMDN2 train")
+    hp = loop.hparams_from_config(cfg)
+    adapter = loop.imdn_adapter(cfg, hp, dev)
+    state = ts.TrainState.create(
+        adapter.init_params(torch.Generator().manual_seed(0)), hp)
+    step = ts.make_train_step(ts.train_geometry(hp), hp,
+                              stage1_fn=adapter.stage1_fn,
+                              stage2_fn=adapter.stage2_fn, device=dev)
+    rng = np.random.RandomState(2)
+    im = torch.from_numpy(rng.rand(TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP)
+                          .astype(np.float32)).to(dev)
+    lb = torch.from_numpy(rng.rand(TRAIN_BATCH, 3, 4 * TRAIN_CROP,
+                                   4 * TRAIN_CROP).astype(np.float32)).to(dev)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ms = event_ms(lambda: step(state, im, lb), iters=10)
+        rows = kernel_rows(device_rows(lambda: step(state, im, lb),
+                                       frames=3))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    tf32 = [n for n, _, _ in rows if "tf32" in n.lower() or "1688" in n]
+    convs = sorted({n[:70] for n, _, _ in rows
+                    if any(k in n.lower() for k in ("conv", "implicit",
+                                                    "wgrad", "dgrad"))})
+    if tf32 or not convs:
+        raise AssertionError(f"IMDN2 step: TF32 kernels {tf32}, convs "
+                             f"{convs}")
+    device_ms = sum(r[2] for r in rows)
+    emit_timed({"phase": "imdn_train", "nf": IMDN_NF, "steps": steps,
+                "launches": launches, "step_ms": ms, "device_ms": device_ms,
+                "busy_share": device_ms / ms, "tf32_kernels": tf32,
+                "conv_kernels": convs,
+                "device_ms_by_kind": step_rows(rows)})
+
+
 def main() -> int:
     import torch
 
@@ -2605,7 +3179,35 @@ def main() -> int:
         "int32_ms_same_call": float_rows["steering_warp", "int32"]["ms"],
         **{k: float_rows["steering_warp", "float"][k] for k in float_keys}}
 
-    # -- 27. result ----------------------------------------------------------
+    # -- 27. K6 against its twin, its time -----------------------------------
+    k6_rows = k6_phase(dev)
+
+    # -- 28-31. training: the trainer, its step, resume, LUT fine-tuning,
+    # IMDN2 -------------------------------------------------------------------
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="lerf_train_") as root:
+        write_div2k(os.path.join(root, "div2k"))
+        write_set5(os.path.join(root, "rr"))
+        train_cfg, final, train_launches = trainer_phase(dev, root)
+        step_phase(dev, train_cfg)
+        resume_phase(dev, train_cfg, final)
+        lutft_phase(dev, train_cfg, final, frame)
+        imdn_train_phase(dev, root)
+    g_row = k6_rows[False]
+    kernels.append({
+        "name": "steering_resize_bwd", "route": "cuda",
+        "source": "lerf_torch/csrc/steering_resize_bwd.cu",
+        "replaces": "lerf_tpu/train/train_step.py:163",
+        "launches": train_launches["steering_resize_bwd"],
+        "max_abs_err": g_row["max_abs_err"], "ms": g_row["ms"],
+        "profiler_ms": g_row["profiler_ms"], "plain_ms": g_row["plain_ms"],
+        "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],
+        "share_of_bound": g_row["share_of_bound"], "library_ms": None,
+        "linear": {k: k6_rows[True][k] for k in (
+            "max_abs_err", "ms", "profiler_ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound")}})
+
+    # -- 32. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

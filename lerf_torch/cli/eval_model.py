@@ -25,9 +25,12 @@ state dict of its layout) loads as it is; with no checkpoint the model is
 initialised from a ``torch.Generator`` seeded 0
 (:func:`lerf_torch.models.imdn.init_imdn`).  lerf_tpu initialises from
 flax's ``PRNGKey(0)``, which cannot be reproduced without JAX, so the two
-packages' uncheckpointed models differ.  Orbax ``ckpt/`` checkpoints
-(lerf_tpu's own training) are not ported yet and exit with a message
-saying so.
+packages' uncheckpointed models differ.  As lerf_tpu's, both forms first
+read the trainer's checkpoint of step ``loadIter``
+(``{expDir}/ckpt/{loadIter}``, written by ``lerf_torch.cli.train``) and
+fall through to the above when there is none (an empty ``ckpt/``); an
+orbax step directory (lerf_tpu's trainer's) exits with a message naming
+its writer.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from ..evaluate import (format_sr_header, format_sr_row, format_warp_header,
                         format_warp_row, run_sr_benchmark,
                         run_warp_benchmark)
 from ..pipeline import NetPredictor
-from .transfer import load_params
+from .transfer import load_params, trained_params
 
 DEFAULT_DATASETS = ["Set5"]
 DEFAULT_SCALES = [[2, 2], [3, 3], [4, 4]]
@@ -47,22 +50,21 @@ DEFAULT_SCALES = [[2, 2], [3, 3], [4, 4]]
 
 def load_imdn(cfg: TestConfig):
     """The IMDN2 (LeRF-Net) model of ``cfg.exp_dir`` on the host
-    (``lerf_tpu/cli/eval_model.py:27-56``): (the seed-0 model, its
-    reference checkpoint's state dict or ``None`` when there is none).
-    Raises :class:`NotImplementedError` for an orbax ``ckpt/``
-    directory."""
+    (``lerf_tpu/cli/eval_model.py:27-56``): (the seed-0 model, the state
+    dict of the trainer's checkpoint of step ``load_iter``, else of the
+    reference checkpoint, else ``None``).  Raises
+    :class:`~lerf_torch.train.checkpoint.OrbaxCheckpointError` for
+    lerf_tpu's orbax step directory."""
     import torch
 
     from ..models.convert import imdn_from_torch_checkpoint
     from ..models.imdn import IMDN2, init_imdn
 
-    ckpt_dir = os.path.join(cfg.exp_dir, "ckpt")
-    if os.path.isdir(ckpt_dir):
-        raise NotImplementedError(
-            f"orbax checkpoint {ckpt_dir}: not ported yet (ROADMAP Queue A "
-            "item 10)")
     model = init_imdn(IMDN2(in_c=cfg.in_c, out_c=cfg.out_c, nf=cfg.nf,
                             norm=cfg.norm), torch.Generator().manual_seed(0))
+    variables = trained_params(cfg)
+    if variables is not None:
+        return model, variables
     pth = os.path.join(cfg.exp_dir, f"Model_{cfg.load_iter:06d}.pth")
     return model, (imdn_from_torch_checkpoint(pth) if os.path.exists(pth)
                    else None)
@@ -88,10 +90,12 @@ def predictor_from_params(cfg: TestConfig, params) -> NetPredictor:
 
 
 def build_predictor(cfg: TestConfig) -> NetPredictor:
+    from ..train.checkpoint import OrbaxCheckpointError
+
     imdn = cfg.model == "IMDN2"
     try:
         loaded = load_imdn(cfg) if imdn else load_params(cfg)
-    except NotImplementedError as e:
+    except OrbaxCheckpointError as e:
         raise SystemExit(f"eval_model: {e}")
     return (imdn_predictor(cfg, *loaded) if imdn
             else predictor_from_params(cfg, loaded))

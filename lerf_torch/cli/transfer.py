@@ -8,8 +8,11 @@ The port of ``lerf_tpu.cli.transfer``: loads the reference checkpoint
 17⁴ lattice and writes reference-format int8 ``LUT_*.npy`` files beside
 it, printing each file's name and shape as lerf_tpu's command does.  The
 bank it writes serves through ``LutPredictor.from_config`` (``--lutName
-LUT``).  An orbax ``ckpt/`` directory (lerf_tpu's own training
-checkpoints) is not ported yet and exits with a message saying so.
+LUT``).  As lerf_tpu's, it reads the trainer's checkpoint of step
+``loadIter`` first (``{expDir}/ckpt/{loadIter}``, written by
+``lerf_torch.cli.train``); with none there (an empty ``ckpt/``) it falls
+through to the reference pickle.  An orbax step directory (lerf_tpu's
+trainer's) exits with a message naming its writer.
 """
 from __future__ import annotations
 
@@ -21,18 +24,32 @@ from ..lut.io import save_lut_bank
 from ..lut.transfer import transfer_to_lut
 
 
+def trained_params(cfg: TestConfig):
+    """The params of the trainer's checkpoint of step ``cfg.load_iter``
+    (``{exp_dir}/ckpt/{load_iter}``), or ``None`` when there is none.
+    Raises :class:`~lerf_torch.train.checkpoint.OrbaxCheckpointError` for
+    lerf_tpu's orbax step directory."""
+    from ..train.checkpoint import CheckpointManager
+
+    if not os.path.isdir(os.path.join(cfg.exp_dir, "ckpt")):
+        return None
+    mgr = CheckpointManager(cfg.exp_dir)
+    if cfg.load_iter not in mgr.all_steps():
+        return None
+    return mgr.restore(cfg.load_iter)["params"]
+
+
 def load_params(cfg: TestConfig):
-    """The SRNet params of ``cfg.exp_dir``: a reference torch pickle
-    ``Model_{load_iter:06d}.pth``.  Raises :class:`NotImplementedError` for
-    an orbax ``ckpt/`` directory (which ``lerf_tpu`` would read first) and
-    :class:`FileNotFoundError` when there is no checkpoint."""
+    """The SRNet params of ``cfg.exp_dir``: the trainer's checkpoint of
+    step ``load_iter`` (:func:`trained_params`), else a reference torch
+    pickle ``Model_{load_iter:06d}.pth``.  Raises
+    :class:`FileNotFoundError` when there is neither."""
     from ..models.convert import load_reference_checkpoint
 
+    params = trained_params(cfg)
+    if params is not None:
+        return params
     ckpt_dir = os.path.join(cfg.exp_dir, "ckpt")
-    if os.path.isdir(ckpt_dir):
-        raise NotImplementedError(
-            f"orbax checkpoint {ckpt_dir}: not ported yet (ROADMAP Queue A "
-            "item 10)")
     pth = os.path.join(cfg.exp_dir, f"Model_{cfg.load_iter:06d}.pth")
     if not os.path.exists(pth):
         raise FileNotFoundError(f"no checkpoint at {ckpt_dir} or {pth}")
@@ -42,10 +59,12 @@ def load_params(cfg: TestConfig):
 
 
 def main(argv=None):
+    from ..train.checkpoint import OrbaxCheckpointError
+
     cfg = parse_config(TestConfig, argv)
     try:
         params = load_params(cfg)
-    except NotImplementedError as e:
+    except OrbaxCheckpointError as e:
         raise SystemExit(f"transfer: {e}")
     bank = transfer_to_lut(
         params, modes=tuple(cfg.modes), modes2=tuple(cfg.modes2),

@@ -99,3 +99,44 @@ def imdn_from_arrays(variables: Dict) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     return {**imdn_tower_state("stage1", params["stage1"]),
             **imdn_tower_state("stage2", params["stage2"])}
+
+
+def train_state_from_arrays(params, mu, nu, count: int, hp, *, model=None,
+                            device="cpu"):
+    """lerf_tpu's training state as numpy (``params``; optax Adam's
+    first and second moments ``mu`` / ``nu`` in the params' layout and
+    its ``count``) → the port's
+    :class:`~lerf_torch.train.train_step.TrainState` on ``device``, with
+    ``torch.optim.Adam``'s state and the scheduler at step ``count``, so
+    that a step taken after k steps can be compared.  Micro-net or LUT
+    fine-tuning params are nested dicts of arrays; with ``model`` (the
+    port's ``IMDN2``) they are lerf_tpu's flax IMDN2 ``params`` tree,
+    carried by :func:`imdn_from_arrays` (the moments too) into ``model``,
+    moved to ``device``."""
+    from .train.train_step import TrainState, cosine_lr, param_leaves
+
+    def tensors(tree):
+        if model is not None:
+            return imdn_from_arrays({"params": tree})
+        return {k: tensors(v) if isinstance(v, dict) else
+                torch.from_numpy(np.asarray(v, np.float32).copy()).to(device)
+                for k, v in tree.items()}
+
+    if model is not None:
+        model.load_state_dict(tensors(params))
+        target = model.to(device)
+    else:
+        target = tensors(params)
+    state = TrainState.create(target, hp)
+    leaves = param_leaves(target)
+    mus, nus = param_leaves(tensors(mu)), param_leaves(tensors(nu))
+    for name, p in leaves.items():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mus[name].to(device).clone(),
+            "exp_avg_sq": nus[name].to(device).clone()}
+    # a scheduler that has stepped ``count`` times: lr0 · cosine_lr(count)
+    state.scheduler = torch.optim.lr_scheduler.LambdaLR(
+        state.optimizer, cosine_lr(hp), last_epoch=count - 1)
+    state.step = count
+    return state

@@ -40,6 +40,15 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``torch.clamp``'s values, and lerf_tpu's gradient,
+    which is halved where ``x`` equals a bound (``torch.clamp`` passes it
+    whole).  The stages' rounded values land on their bounds often (a
+    feature of exactly 0, a code of 255), so the training gradients follow
+    it."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 # ---------------------------------------------------------------------------
 # pixel-MLP (SRUnit equivalent)
 # ---------------------------------------------------------------------------
@@ -203,8 +212,8 @@ def stage1_from_heads(stage_heads, x: torch.Tensor, *, modes, norm: int,
             avg, bias, div = float(len(modes)), 0.0, 1.0
         else:
             avg, bias, div = float(len(modes) * 4), float(half), float(norm)
-        x = divide_exact(torch.clamp(round_ste(divide_exact(pred, avg))
-                                     + bias, 0, norm), div)
+        x = divide_exact(clip(round_ste(divide_exact(pred, avg)) + bias,
+                              0, norm), div)
     return x
 
 
@@ -216,7 +225,7 @@ def stage2_levels(heads, x: torch.Tensor, *, modes2, norm: int,
     pred = _ensemble_pred(heads, x, stage_members(modes2), half,
                           backend=backend)
     avg = float(len(modes2) * 4)
-    return torch.clamp(round_ste(divide_exact(pred, avg) + half), 0, norm)
+    return clip(round_ste(divide_exact(pred, avg) + half), 0, norm)
 
 
 def predict_stage1(params: Dict, x: torch.Tensor, *,

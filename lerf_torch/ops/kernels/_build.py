@@ -103,6 +103,17 @@ def _declare(lib):
         i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
         vp, i32]                             # stream, float_in
     lib.lerf_steering_resize.restype = i32
+    lib.lerf_steering_resize_bwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp,          # img, hyp, grad, p, q, g_img,
+                                             # g_hyp
+        vp, vp, vp, vp, vp, vp,              # rows, cols, dx, dy, mask_x, _y
+        vp, vp, i32, i32, i32, i32,          # inv_rows, inv_cols, r_min, n_r,
+                                             # c_min, n_c
+        i32, i32, i32, i32, i32, i32,        # C, H, W, OH, OW, S
+        i32, i32, f32, f32,                  # antialias, linear, min_scale,
+                                             # max_sigma
+        vp]                                  # stream
+    lib.lerf_steering_resize_bwd.restype = i32
     f64p = ctypes.POINTER(ctypes.c_double)
     i32p = ctypes.POINTER(ctypes.c_int)
     lib.lerf_steering_warp_batch.argtypes = [

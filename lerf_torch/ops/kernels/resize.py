@@ -19,6 +19,12 @@ IMDN form); the float type's twins are lerf_tpu's float ops,
 :func:`~lerf_torch.ops.resample.steering_gaussian_resize` /
 :func:`~lerf_torch.ops.resample.amplified_linear_resize` and their rings
 forms.
+
+``steering_resize_train`` is the training step's resize, differentiable in
+the feature and the hyper maps: on a card a ``torch.autograd.Function``
+whose forward is K1's float mode (float32 out) and whose backward is K6
+(:mod:`lerf_torch.ops.kernels.resize_bwd`); on the CPU the plain float op,
+whose autograd is the CPU path.
 """
 from __future__ import annotations
 
@@ -316,3 +322,52 @@ def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
     _build.check(err, "steering_resize launch")
     launches += 1
     return out
+
+
+class _TrainResize(torch.autograd.Function):
+    """K1's float mode forward, K6 backward."""
+
+    @staticmethod
+    def forward(ctx, feat, hyper, operands, max_sigma, linear):
+        ctx.save_for_backward(feat, hyper)
+        ctx.operands, ctx.max_sigma, ctx.linear = operands, max_sigma, linear
+        return _launch(feat, hyper, operands.fwd, max_sigma=max_sigma,
+                       norm=255, linear=linear, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from . import resize_bwd
+
+        feat, hyper = ctx.saved_tensors
+        g_feat, g_hyper = resize_bwd.steering_resize_grad(
+            feat, hyper, grad_out, max_sigma=ctx.max_sigma,
+            linear=ctx.linear, operands=ctx.operands)
+        return g_feat, g_hyper, None, None, None
+
+
+def steering_resize_train(feat: torch.Tensor, hyper: torch.Tensor,
+                          geom: Optional[geo.ResizeGeometry] = None, *,
+                          max_sigma: float = 10.0, linear: bool = False,
+                          operands=None):
+    """The training forward's resize: float32 feature [C, H, W] and hyper
+    maps [C, H, W, 3] (ρ, σx, σy) or [C, H, W, 1] (α, ``linear``) in [0, 1]
+    → float32 [C, OH, OW], differentiable in both.  On the CPU the plain
+    op (:func:`~lerf_torch.ops.resample.steering_gaussian_resize` /
+    :func:`~lerf_torch.ops.resample.amplified_linear_resize`) and its
+    autograd; on a card K1 forward and K6 backward, on ``operands``
+    (:class:`~lerf_torch.ops.kernels.resize_bwd.GradOperands` of ``geom``,
+    made here when not given)."""
+    _check(feat, hyper, 255, linear, torch.float32, "steering_resize_train")
+    if feat.dtype != torch.float32:
+        raise ValueError("steering_resize_train: float32 feature and maps")
+    if feat.device.type == "cpu":
+        return _plain(feat, hyper, geom, max_sigma=max_sigma, norm=255,
+                      linear=linear)
+    if feat.device.type != "cuda":
+        raise ValueError("steering_resize_train: unsupported device "
+                         f"{feat.device}")
+    if operands is None:
+        from .resize_bwd import GradOperands
+        operands = GradOperands.create(geom, feat.device, linear=linear)
+    return _TrainResize.apply(feat, hyper, operands, float(max_sigma),
+                              bool(linear))

@@ -64,10 +64,19 @@ def edge_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
 
 
 def _pad_all_sides(img: torch.Tensor, pad: int = MAX_PAD):
-    h, w = img.shape[-2], img.shape[-1]
-    rows = edge_index(h, pad, pad, img.device)
-    cols = edge_index(w, pad, pad, img.device)
-    return img.index_select(-2, rows).index_select(-1, cols)
+    """Edge-pad the trailing two dims by ``pad`` on every side, the border
+    rows and columns repeated by ``expand`` + ``cat``: the values of an
+    ``edge_index`` gather, and a backward that sums the copies without
+    atomics, so a training step's gradients come out the same on every
+    run on a card."""
+    def axis(x, dim):
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = pad
+        return torch.cat([x.narrow(dim, 0, 1).expand(shape), x,
+                          x.narrow(dim, n - 1, 1).expand(shape)], dim)
+
+    return axis(axis(img, -2), -1)
 
 
 def _sample4(xpad: torch.Tensor, h: int, w: int, mode: str, r: int,
@@ -167,21 +176,32 @@ def stack_ensemble_inputs(img: torch.Tensor, modes: Sequence[str],
     """The batched-ensemble operands: per-role neighbour stacks
     [M, ..., H, W], the stacked LUT [K·L⁴, oC] and per-member flat table
     offsets — so the whole mode×rotation ensemble is ONE simplex call."""
+    k, l4, oc = tables.table.shape
+    lut_offset, a, b, c, d = ensemble_roles(img, modes, split_r,
+                                            tables.keys, l4)
+    return tables.table.reshape(k * l4, oc), lut_offset, a, b, c, d
+
+
+def ensemble_roles(img: torch.Tensor, modes: Sequence[str], split_r: bool,
+                   keys: Sequence[str], l4: int):
+    """Each ensemble member's 4 neighbours of every pixel as per-role
+    stacks [M, ..., H, W] from the edge-padded image, and each member's
+    offset into the tables of ``keys`` stacked in that order (its table's
+    index · ``l4``), int32 [M, 1, ...]."""
     h, w = img.shape[-2], img.shape[-1]
     xpad = _pad_all_sides(img)
     members = ensemble_members(modes, split_r)
-    k, l4, oc = tables.table.shape
     roles = [[], [], [], []]
     offs = []
     for mode, r, key in members:
         for role, sm in zip(roles, _sample4(xpad, h, w, mode, r)):
             role.append(sm)
-        offs.append(tables.keys.index(key) * l4)
+        offs.append(list(keys).index(key) * l4)
     a, b, c, d = (torch.stack(role, dim=0) for role in roles)
     lut_offset = torch.tensor(offs, dtype=torch.int32,
                               device=img.device).reshape(
         (len(members),) + (1,) * img.ndim)
-    return tables.table.reshape(k * l4, oc), lut_offset, a, b, c, d
+    return lut_offset, a, b, c, d
 
 
 def lut_ensemble(img: torch.Tensor, tables: FlatTables,

@@ -18,7 +18,9 @@ and sums s-major, t-minor — the order of the JAX path's
 gathers through ``WarpGeometry.lin_idx`` in the same order, as the JAX
 row-packed path and the K5 kernel do.  Works on any device; the K1 and K5
 wrappers (:mod:`lerf_torch.ops.kernels.resize`, ``.warp``) use them for
-CPU tensors.
+CPU tensors.  :func:`steering_resize_grad_plain`, the resize's gradient
+written out, is the twin of K6 (``kernels.resize_bwd``), the training
+backward.
 """
 from __future__ import annotations
 
@@ -219,6 +221,142 @@ def linear_resize_codes_plain(feat: torch.Tensor, codes: torch.Tensor,
     ``max_alpha`` 1.  The plain twin of K1's linear mode."""
     alpha = divide_exact(codes[..., 0].to(torch.float32), norm)
     return amplified_linear_resize(feat.to(torch.float32), alpha, geom)
+
+
+def pad2d_adjoint(g: torch.Tensor, pad_x, pad_y, in_hw,
+                  mode: str = "constant"):
+    """The adjoint of :func:`pad2d`: the gradient of a padded plane ``g``
+    carried back to the plane of size ``in_hw`` it was padded from.  A
+    constant pad sends nothing back from the pad; an edge pad adds each
+    padded position into the border pixel it copies; a crop (negative pad)
+    gets zeros."""
+    (t, b), (l, r) = pad_x, pad_y
+    H, W = in_hw
+    ct, cb, cl, cr = max(-t, 0), max(-b, 0), max(-l, 0), max(-r, 0)
+    h, w = H - ct - cb, W - cl - cr
+    t, b, l, r = max(t, 0), max(b, 0), max(l, 0), max(r, 0)
+    if mode in ("edge", "replicate"):
+        rows = edge_index(h, t, b, g.device)
+        cols = edge_index(w, l, r, g.device)
+        g = g.new_zeros(g.shape[:-1] + (w,)).index_add_(-1, cols, g)
+        g = g.new_zeros(g.shape[:-2] + (h, w)).index_add_(-2, rows, g)
+    else:
+        g = g[..., t:t + h, l:l + w]
+    return F.pad(g, (cl, cr, ct, cb)) if ct or cb or cl or cr else g
+
+
+def _gaussian_weight_grads(rho, sx, sy, dx, dy, m: Optional[float]):
+    """The Gaussian weight of one support block and its partials in the
+    decoded (ρ, σx, σy): with a = σx·dx, b = σy·dy, ∂w/∂ρ = w·a·b, ∂w/∂σx =
+    w·dx·(ρb − a), ∂w/∂σy = w·dy·(ρa − b).  ``m``: the antialias scale
+    (distances and weight times m), else None."""
+    if m is not None:
+        dx, dy = m * dx, m * dy
+    w = steering_gaussian_weight(rho, sx, sy, dx, dy)
+    if m is not None:
+        w = m * w
+    a, b = sx * dx, sy * dy
+    return w, (w * a * b, w * dx * (rho * b - a), w * dy * (rho * a - b))
+
+
+def _linear_weight_grads(alpha, dx, dy, masks_x, masks_y, m: Optional[float]):
+    """The amplified-linear weight of one block and its partial in the
+    decoded α: ``max(lin_x, 0)·max(lin_y, 0)`` with ∂lin/∂α = x on the
+    negative branch, −x on the positive one; ``torch.clamp``'s convention,
+    the gradient passing at lin = 0 (``jnp.clip`` would halve it there)."""
+    def lin(x, masks):
+        neg, pos = masks
+        return (alpha * x + 1) * neg + (1 - alpha * x) * pos, x * neg - x * pos
+
+    lx, gx = lin(dx, masks_x)
+    ly, gy = lin(dy, masks_y)
+    cx, cy = torch.clamp(lx, min=0), torch.clamp(ly, min=0)
+    w = cx * cy
+    dw = gx * (lx >= 0) * cy + cx * gy * (ly >= 0)
+    if m is not None:
+        w, dw = m * w, m * dw
+    return w, (dw,)
+
+
+def steering_resize_grad_plain(feat, hyper, grad_out, geom: ResizeGeometry, *,
+                               max_sigma: float = 10.0, linear: bool = False):
+    """The gradient of :func:`steering_gaussian_resize` (or, ``linear``,
+    :func:`amplified_linear_resize`) written out: the twin K6 is held to.
+
+    ``feat`` [..., C, H, W] float, ``hyper`` [..., C, H, W, 3] (ρ, σx, σy)
+    or [..., C, H, W, 1] (α), maps in [0, 1]; ``grad_out`` ∂L/∂out
+    [..., C, OH, OW].  Returns (∂L/∂feat, ∂L/∂hyper) in those shapes.
+
+    With out_o = Σ_k w_ok f_k / W_o, W_o = Σ_k w_ok, a first pass gives
+    P_o = g_o / W_o and Q_o = P_o·out_o; then ∂L/∂f_k = Σ_o P_o w_ok and
+    ∂L/∂θ_k = Σ_o (P_o f_k − Q_o)·∂w_ok/∂θ_k, scattered back through the
+    field of view block by block and through the pads' adjoints (the image
+    pads with zeros: a padded position sends no feature gradient; the hyper
+    maps pad with edge copies: a padded position's hyper gradient goes to
+    its border pixel), then through the decode (×2 for ρ and α, ×max_sigma
+    for σ)."""
+    dev, dt = feat.device, feat.dtype
+    in_hw = tuple(feat.shape[-2:])
+    fov_x = torch.from_numpy(geom.fov_x.astype(np.int64)).to(dev)
+    fov_y = torch.from_numpy(geom.fov_y.astype(np.int64)).to(dev)
+    m = float(np.float32(geom.min_scale)) if geom.antialias else None
+    fp = pad2d(feat, geom.pad_x, geom.pad_y)
+    if linear:
+        planes = [decode_linear_hyper(hyper[..., 0])]
+        m64 = geom.min_scale if geom.antialias else 1.0
+        dx64, dy64 = m64 * geom.dis_x, m64 * geom.dis_y
+        dis = (torch.from_numpy(dx64).to(dev, dt),
+               torch.from_numpy(dy64).to(dev, dt))
+        (nx, px), (ny, py) = _masks_on(dx64, dev), _masks_on(dy64, dev)
+
+        def weight(s, t, hp):
+            return _linear_weight_grads(
+                hp[0], dis[0][:, s, None], dis[1][None, :, t],
+                (nx[:, s, None], px[:, s, None]),
+                (ny[None, :, t], py[None, :, t]), m)
+        chain = (2.0,)
+    else:
+        planes = list(decode_gaussian_hyper(hyper[..., 0], hyper[..., 1],
+                                            hyper[..., 2], max_sigma))
+        dis = (torch.from_numpy(geom.dis_x).to(dev, dt),
+               torch.from_numpy(geom.dis_y).to(dev, dt))
+
+        def weight(s, t, hp):
+            return _gaussian_weight_grads(*hp, dis[0][:, s, None],
+                                          dis[1][None, :, t], m)
+        chain = (2.0, float(max_sigma), float(max_sigma))
+    hps = [pad2d(h, geom.pad_x, geom.pad_y, "edge") for h in planes]
+    blocks = [(s, t) for s in range(geom.support)
+              for t in range(geom.support)]
+
+    def at(a, s, t):
+        return a.index_select(-2, fov_x[:, s]).index_select(-1, fov_y[:, t])
+
+    def scatter(acc, v, s, t):
+        rows = v.new_zeros(v.shape[:-1] + (acc.shape[-1],)) \
+            .index_add_(-1, fov_y[:, t], v)
+        acc.index_add_(-2, fov_x[:, s], rows)
+
+    wn = ws = 0
+    for s, t in blocks:
+        w, _ = weight(s, t, [at(h, s, t) for h in hps])
+        wn = wn + w * at(fp, s, t)
+        ws = ws + w
+    p = grad_out / ws
+    q = p * (wn / ws)
+    g_fp = torch.zeros_like(fp)
+    g_hps = [torch.zeros_like(h) for h in hps]
+    for s, t in blocks:
+        w, dws = weight(s, t, [at(h, s, t) for h in hps])
+        scatter(g_fp, p * w, s, t)
+        coef = p * at(fp, s, t) - q
+        for g_h, dw in zip(g_hps, dws):
+            scatter(g_h, coef * dw, s, t)
+    g_feat = pad2d_adjoint(g_fp, geom.pad_x, geom.pad_y, in_hw)
+    g_hyper = torch.stack(
+        [c * pad2d_adjoint(g, geom.pad_x, geom.pad_y, in_hw, "edge")
+         for c, g in zip(chain, g_hps)], -1)
+    return g_feat, g_hyper
 
 
 def fixed_kernel_resize(img, geom: ResizeGeometry, kernel: str = "cubic", *,

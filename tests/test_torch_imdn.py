@@ -394,9 +394,16 @@ def test_eval_model_cli_imdn_prints_jax_table(tmp_path, capsys):
 
 def test_eval_model_cli_imdn_without_checkpoint_and_orbax(tmp_path):
     """No checkpoint: the seed-0 model (``torch.Generator``), the same on
-    every call; an orbax ``ckpt/`` exits "item 10"."""
+    every call; an empty ``ckpt/`` falls through to it, as in lerf_tpu;
+    the port trainer's checkpoint of ``--loadIter`` is read; an orbax step
+    directory exits with a message naming its writer."""
+    import shutil
+
     from lerf_torch.cli.eval_model import build_predictor
     from lerf_torch.config import TestConfig, parse_config
+    from lerf_torch.models.imdn import init_imdn
+    from lerf_torch.train.checkpoint import CheckpointManager, host_params
+    from test_torch_train_loop import orbax_step
 
     cfg = parse_config(TestConfig, ["-e", str(tmp_path), "--model", "IMDN2",
                                     "--inC", "3", "--nf", "8",
@@ -407,5 +414,21 @@ def test_eval_model_cli_imdn_without_checkpoint_and_orbax(tmp_path):
     np.testing.assert_array_equal(a[1], b[1])
     np.testing.assert_array_equal(a[0], b[0])
     os.makedirs(tmp_path / "ckpt")
-    with pytest.raises(SystemExit, match="item 10"):
+    c = build_predictor(cfg).upscale(img, 2, 2, return_aux=True)
+    np.testing.assert_array_equal(c[1], a[1])
+    trained = init_imdn(IMDN2(in_c=3, out_c=3, nf=8),
+                        torch.Generator().manual_seed(5))
+    CheckpointManager(str(tmp_path)).save(
+        cfg.load_iter, {"params": host_params(trained)})
+    got = build_predictor(cfg).upscale(img, 2, 2, return_aux=True)
+    want = NetPredictor.from_imdn(trained, two_stage=False,
+                                  device="cpu").upscale(img, 2, 2,
+                                                        return_aux=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[2], a[2])          # another hyper net
+    shutil.rmtree(tmp_path / "ckpt")
+    orbax_step(tmp_path, cfg.load_iter)
+    with pytest.raises(SystemExit, match="orbax checkpoint written by "
+                                         "lerf_tpu"):
         build_predictor(cfg)

@@ -33,7 +33,14 @@ NaN pattern; the IMDN form on the card holds its feature within 1e-3 and
 its hyper maps within 1e-5 of the CPU's (cuDNN sums the towers in another
 order) and its frames within one level on ≤ 0.1 % of pixels, and its
 serving forms are bit-equal to its ``upscale`` / ``warp`` frame by frame.
+K6 (the training resize's backward) sums each gradient term in a fixed
+order, its twin with ``index_add`` (atomics on the card): within 1e-4 of
+each gradient's largest value, and a rerun gives the same bits; the
+training step on the card holds the CPU's within the tolerances its test
+states.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1469,3 +1476,231 @@ def test_imdn_restores_the_cudnn_flags_on_card(cuda_device):
     assert (torch.backends.cudnn.enabled, torch.backends.cudnn.benchmark,
             torch.backends.cudnn.deterministic,
             torch.backends.cudnn.allow_tf32) == flags
+
+
+# -- K6: the steerable resize's backward (training) -------------------------
+
+# name → (LR size, scale, support, antialias): the LeRF training geometry
+# (48² → ×4, support 2), support 4, a non-integer scale and an antialiased
+# downscale
+GRAD_CASES = {"x4-s2": ((24, 20), 4.0, 2, False),
+              "x4-s4": ((24, 20), 4.0, 4, False),
+              "x2.5-s2": ((17, 23), 2.5, 2, False),
+              "x0.5-aa": ((32, 36), 0.5, None, True)}
+# K6 sums each gradient term in a fixed order; its twin scatters with
+# index_add (atomics on the card) in another: float32 sums of up to ~64
+# terms a pixel, compared relative to each gradient's largest value
+GRAD_RTOL = 1e-4
+
+
+def grad_inputs(case, linear, device, channels=3, seed=0):
+    size, scale, support, aa = GRAD_CASES[case]
+    kw = {"support": support} if support else {}
+    geom = ResizeGeometry.create(size, scale_factors=[scale] * 2,
+                                 antialias=aa, **kw)
+    rng = np.random.RandomState(seed)
+    oc = 1 if linear else 3
+    feat = torch.from_numpy((rng.rand(channels, *size) * 255)
+                            .astype(np.float32)).to(device)
+    hyper = torch.from_numpy(rng.rand(channels, *size, oc)
+                             .astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.randn(channels, *geom.out_sz)
+                         .astype(np.float32)).to(device)
+    return geom, feat, hyper, g
+
+
+def assert_grads_close(got, want, what):
+    for name, a, b in zip(("feature", "hyper"), got, want):
+        assert a.shape == b.shape, (what, name)
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= GRAD_RTOL, (what, name, err)
+
+
+def test_resize_grad_twin_runs_on_cpu():
+    """On CPU tensors K6's wrapper is its twin and launches nothing."""
+    from lerf_torch.ops.kernels import resize_bwd
+    from lerf_torch.ops.resample import steering_resize_grad_plain
+
+    geom, feat, hyper, g = grad_inputs("x2.5-s2", False, "cpu")
+    before = resize_bwd.launches
+    got = resize_bwd.steering_resize_grad(feat, hyper, g, geom)
+    want = steering_resize_grad_plain(feat, hyper, g, geom)
+    assert resize_bwd.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_resize_grad_kernel_matches_twin(case, linear, cuda_device):
+    """K6 against its twin on the card, and deterministic: a second call
+    gives the same bits."""
+    from lerf_torch.ops.kernels import resize_bwd
+    from lerf_torch.ops.resample import steering_resize_grad_plain
+
+    geom, feat, hyper, g = grad_inputs(case, linear, cuda_device)
+    before = resize_bwd.launches
+    got = resize_bwd.steering_resize_grad(feat, hyper, g, geom, linear=linear)
+    again = resize_bwd.steering_resize_grad(feat, hyper, g, geom,
+                                            linear=linear)
+    torch.cuda.synchronize()
+    assert resize_bwd.launches == before + 2
+    want = steering_resize_grad_plain(feat, hyper, g, geom, linear=linear)
+    assert_grads_close(got, want, case)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", ["x4-s2", "x2.5-s2", "x4-s4"])
+def test_resize_train_on_card_matches_cpu_autograd(case, linear,
+                                                   cuda_device):
+    """The training resize on the card (K1 forward, K6 backward) against
+    the CPU path (the plain op and its autograd): the output within 1e-3
+    on 0..255, the gradients within GRAD_RTOL; one K1 and one K6 launch."""
+    from lerf_torch.ops.kernels import resize_bwd
+
+    geom, feat, hyper, g = grad_inputs(case, linear, "cpu", channels=4)
+    outs, grads = [], []
+    for dev in ("cpu", cuda_device):
+        f = feat.clone().to(dev).requires_grad_()
+        h = hyper.clone().to(dev).requires_grad_()
+        counts = (k1.launches, resize_bwd.launches)
+        out = k1.steering_resize_train(f, h, geom, linear=linear)
+        out.backward(g.to(dev))
+        if dev != "cpu":
+            assert (k1.launches, resize_bwd.launches) == \
+                (counts[0] + 1, counts[1] + 1)
+        outs.append(out.detach().cpu())
+        grads.append((f.grad.cpu(), h.grad.cpu()))
+    assert float((outs[0] - outs[1]).abs().max()) <= RESIZE_ATOL
+    assert_grads_close(grads[1], grads[0], case)
+
+
+# -- the trainer on the card ------------------------------------------------
+
+def train_setup(linear=False, seed=0, crop=12, nf=8, batch=2):
+    """Seeded SRNet params (numpy) and a batch for a training step at a
+    small size: ×4, support 2."""
+    from lerf_torch.train import train_step as ts
+
+    hp = ts.TrainHParams(scale=4.0, crop_size=crop, linear=linear,
+                         total_iter=100, weight_decay=1e-4)
+    params = srnet.init_lerf_nets(torch.Generator().manual_seed(seed),
+                                  nf=nf, out_c=1 if linear else 3)
+    rng = np.random.RandomState(seed)
+    im = rng.rand(batch, 1, crop, crop).astype(np.float32)
+    lb = rng.rand(batch, 1, 4 * crop, 4 * crop).astype(np.float32)
+    return hp, params, im, lb
+
+
+def copy_params(params, device):
+    return {sk: {n: {k: v.clone().to(device) for k, v in h.items()}
+                 for n, h in heads.items()} for sk, heads in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["lerf_g", "lerf_l"])
+def test_train_step_on_card_matches_cpu(linear, cuda_device):
+    """Two steps on the card (K1 forward, K6 backward, full-float32 dense
+    chains) against the CPU's from the same params and batch: the loss and
+    gradient norm within 1e-4 relative, the first step's gradient of each
+    leaf within 1e-4 of that leaf's largest value (Adam's first step moves
+    a parameter by about lr0·sign(g), so the params alone hold little more
+    than the signs), the params after Adam within 1e-5 (the dense products
+    sum in another order on the card, and the stages' gathers' backward
+    adds with atomics); one K1 and one K6 launch a step."""
+    from lerf_torch.ops.kernels import resize_bwd
+    from lerf_torch.train import train_step as ts
+
+    hp, params, im, lb = train_setup(linear)
+    geom = ts.train_geometry(hp)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        state = ts.TrainState.create(copy_params(params, dev), hp)
+        step = ts.make_train_step(geom, hp, device=dev)
+        metrics, grads = [], []
+        for _ in range(2):
+            counts = (k1.launches, resize_bwd.launches)
+            state, m = step(state, torch.from_numpy(im).to(dev),
+                            torch.from_numpy(lb).to(dev))
+            if dev != "cpu":
+                assert (k1.launches, resize_bwd.launches) == \
+                    (counts[0] + 1, counts[1] + 1)
+            metrics.append({k: float(v) for k, v in m.items()})
+            grads.append({k: p.grad.detach().cpu().clone() for k, p in
+                          ts.param_leaves(state.params).items()})
+        runs[str(dev)] = (metrics, grads[0], ts.param_leaves(state.params))
+    (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = \
+        runs["cpu"], runs[str(cuda_device)]
+    for a, b in zip(m_card, m_cpu):
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (k, a[k], b[k])
+    for name, g in g_cpu.items():
+        d = float((g_card[name] - g).abs().max())
+        assert d <= 1e-4 * float(g.abs().max()), (name, d)
+    for name, p in p_cpu.items():
+        d = float((p_card[name].detach().cpu() - p.detach()).abs().max())
+        assert d <= 1e-5, (name, d)
+
+
+@pytest.mark.cuda
+def test_imdn_train_step_runs_no_tf32_on_card(cuda_device):
+    """IMDN2's training step with TF32 allowed by the caller: no TF32
+    kernel in the forward or the backward (the step's scope covers
+    ``loss.backward()``), and the caller's flags back after it."""
+    from lerf_torch.models.imdn import IMDN2, init_imdn
+    from lerf_torch.train import loop
+    from lerf_torch.train import train_step as ts
+
+    hp = ts.TrainHParams(scale=4.0, crop_size=16, total_iter=10)
+    model = init_imdn(IMDN2(in_c=3, out_c=3, nf=8),
+                      torch.Generator().manual_seed(0)).to(cuda_device)
+    s1, s2 = loop.imdn_stage_fns(3, 3)
+    state = ts.TrainState.create(model, hp)
+    step = ts.make_train_step(ts.train_geometry(hp), hp, stage1_fn=s1,
+                              stage2_fn=s2, device=cuda_device)
+    rng = np.random.RandomState(1)
+    im = torch.from_numpy(rng.rand(2, 3, 16, 16).astype(np.float32)) \
+        .to(cuda_device)
+    lb = torch.from_numpy(rng.rand(2, 3, 64, 64).astype(np.float32)) \
+        .to(cuda_device)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        step(state, im, lb)                 # warm up
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, m = step(state, im, lb)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == (True, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    assert math.isfinite(float(m["loss"]))
+    assert any("steering_resize_kernel" in n for n in names)
+    assert any("resize_bwd" in n for n in names)
+    tf32 = [n for n in names if "tf32" in n.lower() or "1688" in n]
+    assert not tf32, tf32
+
+
+@pytest.mark.cuda
+def test_device_dataset_samples_on_card(cuda_device):
+    from lerf_torch.data.device_data import DeviceDataset
+
+    rng = np.random.RandomState(0)
+    lrs = [rng.randint(0, 256, (16, 20, 3), dtype=np.uint8)
+           for _ in range(3)]
+    hrs = [lr.repeat(4, 0).repeat(4, 1) for lr in lrs]
+    ds = DeviceDataset(lrs, hrs, scale=4, crop_size=8, in_c=1,
+                       device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    im, lb = ds.sample_batch(gen, 16)
+    assert im.device.type == "cuda" and im.shape == (16, 1, 8, 8)
+    assert torch.equal(lb[..., ::4, ::4], im)

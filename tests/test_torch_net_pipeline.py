@@ -264,12 +264,39 @@ def test_eval_model_cli_flags_match_jax_or_exit(flags, match, tmp_path,
 
 
 def test_eval_model_cli_orbax_checkpoint_exits(tmp_path):
-    from lerf_torch.cli.eval_model import main
+    """``ckpt/`` read as lerf_tpu reads it: an empty one falls through to
+    ``Model_*.pth``; the port trainer's checkpoint of ``--loadIter`` is
+    read first; an orbax step directory (lerf_tpu's trainer's) exits with
+    a message naming its writer."""
+    import shutil
+
+    from lerf_torch.cli.eval_model import build_predictor, main
+    from lerf_torch.config import TestConfig, parse_config
+    from lerf_torch.train.checkpoint import CheckpointManager
+    from test_torch_train_loop import orbax_step
 
     exp = net_experiment(tmp_path)
     os.makedirs(exp / "ckpt")
-    with pytest.raises(SystemExit, match="item 10"):
-        main(["-e", str(exp), "--platform", "cpu"])
+    args = ["-e", str(exp), "--twoStage", "--platform", "cpu"]
+    cfg = parse_config(TestConfig, args)
+    img = image()
+
+    def upscale_with(seed):
+        return NetPredictor.from_srnets(
+            lerf_nets_from_arrays(np_params(nf=8, seed=seed)),
+            device="cpu").upscale(img, 2, 2)
+
+    np.testing.assert_array_equal(build_predictor(cfg).upscale(img, 2, 2),
+                                  upscale_with(0))
+    CheckpointManager(str(exp)).save(50000, {"params": lerf_nets_from_arrays(
+        np_params(nf=8, seed=1))})
+    np.testing.assert_array_equal(build_predictor(cfg).upscale(img, 2, 2),
+                                  upscale_with(1))
+    shutil.rmtree(exp / "ckpt")
+    orbax_step(exp, 50000)
+    with pytest.raises(SystemExit, match="orbax checkpoint written by "
+                                         "lerf_tpu"):
+        main(args)
 
 
 def upscale_args(tmp_path, exp, *flags):

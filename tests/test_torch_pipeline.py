@@ -172,8 +172,14 @@ def test_port_imports_no_jax():
             "import lerf_torch.ops.kernels.srnet_ensemble_int8\n"
             "import lerf_torch.models.imdn, lerf_torch.models.imdn_s2d\n"
             "import lerf_torch.lut.transfer, lerf_torch.cli.transfer\n"
+            "import lerf_torch.cli.train, lerf_torch.train.loop\n"
+            "import lerf_torch.train.train_step, lerf_torch.train.lutft\n"
+            "import lerf_torch.train.checkpoint, lerf_torch.convert\n"
+            "import lerf_torch.data.div2k, lerf_torch.data.device_data\n"
+            "import lerf_torch.ops.kernels.resize_bwd\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lerf_tpu'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'lerf_tpu',\n"
+            "                                    'optax', 'orbax', 'flax'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

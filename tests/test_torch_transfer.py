@@ -132,8 +132,28 @@ def test_transfer_cli_writes_jax_files_and_lines(tmp_path, capsys):
 
 
 def test_transfer_cli_orbax_checkpoint_exits(tmp_path):
+    """``ckpt/`` read as lerf_tpu reads it: an empty one falls through (no
+    ``Model_*.pth`` either: ``FileNotFoundError``); the port trainer's
+    checkpoint of ``--loadIter`` is transferred; an orbax step directory
+    exits with a message naming its writer."""
     from lerf_torch.cli.transfer import main
+    from lerf_torch.train.checkpoint import CheckpointManager
+    from test_torch_train_loop import orbax_step
 
-    os.makedirs(tmp_path / "ckpt")
-    with pytest.raises(SystemExit, match="item 10"):
-        main(["-e", str(tmp_path), "--platform", "cpu"])
+    exp = tmp_path / "exp"
+    os.makedirs(exp / "ckpt")
+    args = ["-e", str(exp), "--loadIter", "7", "--outC", "3",
+            "--platform", "cpu"]
+    with pytest.raises(FileNotFoundError):
+        main(args)
+    params = lerf_nets_from_arrays(np_params(nf=NF, seed=2))
+    CheckpointManager(str(exp)).save(7, {"params": params})
+    got = main(args)
+    want = transfer.transfer_to_lut(params, out_c=3, device="cpu")
+    for k in want.stage2:
+        np.testing.assert_array_equal(got.stage2[k], want.stage2[k])
+    assert os.path.exists(exp / "LUT_s2_sr0.npy")
+    orbax_step(tmp_path / "orbax", 7)
+    with pytest.raises(SystemExit, match="orbax checkpoint written by "
+                                         "lerf_tpu"):
+        main(["-e", str(tmp_path / "orbax"), *args[2:]])
