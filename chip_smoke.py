@@ -157,10 +157,13 @@ plain PyTorch twin on the card:
    that bank upscaling on the card (K2 twice, K1 once);
 27. K6 (the training resize's backward) against its twin on the card at
    the LeRF training shape (16 planes of 48×48 → ×4, support 2), at
-   support 4 and ×2.5, both modes: each gradient within 1e-4 of its
-   largest value, a second launch bit-equal, the twin against autograd of
-   the plain op; K6's time (events, the profiler's two passes), bound and
-   twin beside K1's float-mode float32-out forward;
+   support 4, ×2.5 and the frame (3 × 360×640 → ×4), both modes: each
+   gradient within 1e-4 of its largest value, a second launch bit-equal,
+   the twin against autograd of the plain op; then K6 and its first
+   design (``lerf_torch/tools/steering_resize_bwd_first.cu``, built beside
+   the library) in alternating rounds at the training shape and the
+   frame, by events and by the profiler, with the bound and share; the
+   twin and K1's float-mode float32-out forward beside;
 28. the trainer at full width, the reference's LeRF-G run (SRNetsSWF2, nf
    64, modes sct, 2 stages, --twoStage, oC 3, ×4, crop 48, batch 16, lr0
    1e-3) for 50 steps on a synthetic DIV2K layout, through
@@ -297,18 +300,29 @@ GRAD_RTOL = 1e-4
 TRAIN_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 # K6's operations, what the gradient needs with each weight counted once
-# (K6's pass 2 works each weight out again; that recompute is the design's
-# cost, not the function's): per output and neighbour the weight and the
-# sums W_o, out_o (K1's 14), the feature term (2), the coefficient P f - Q
-# (2) and the three hyper terms (4 + 6 + 6): 34; linear the weight and sums
-# (10), per axis dlin, the lin >= 0 test and the product with the other
-# axis's clip (3 + 3) and their sum (1), the feature term (2), P f - Q (2)
-# and the alpha term (2): 23; per output P, out, Q (3); per source pixel
+# (K6's phase B works each weight out again, and its phase A the halo's
+# outputs: that recompute is the design's cost, not the function's): per
+# output and neighbour the weight and the sums W_o, out_o (K1's 14), the
+# feature term (2), the coefficient P f - Q (2) and the three hyper terms
+# (4 + 6 + 6): 34; linear the weight and sums (10), per axis dlin, the
+# lin >= 0 test and the product with the other axis's clip (3 + 3) and
+# their sum (1), the feature term (2), P f - Q (2) and the alpha term (2):
+# 23; per output P, out, Q (3); per source pixel
 # the decode and the chain rule (8)
 K6_OPS_PER_NEIGHBOUR = 34
 K6_LIN_OPS_PER_NEIGHBOUR = 23
 K6_OPS_PER_OUTPUT = 3
 K6_OPS_PER_SOURCE = 8
+# phase 27's cases: (name, planes, LR size, scale, support); K6 and its
+# first design (kept for timing, outside the library) are timed in
+# K6_ROUNDS alternating rounds at the training shape and the frame
+K6_CASES = (("train", TRAIN_BATCH, (TRAIN_CROP, TRAIN_CROP), 4.0, 2),
+            ("x4-s4", TRAIN_BATCH, (TRAIN_CROP, TRAIN_CROP), 4.0, 4),
+            ("x2.5", TRAIN_BATCH, (TRAIN_CROP, TRAIN_CROP), 2.5, 2),
+            ("frame", 3, (LR_H, LR_W), SCALE, 2))
+K6_TIMED = ("train", "frame")
+K6_ROUNDS = 4
+K6_FIRST = "lerf_torch/tools/steering_resize_bwd_first.cu"
 
 
 def warp_matrix(seed=0):
@@ -2311,7 +2325,7 @@ def transfer_phase(dev, params, frame):
 def k6_work(c, h, w, oh, ow, s, linear):
     """(bytes, operations) of one K6 call: ∂L/∂out, the float32 feature
     and hyper maps read once, their two gradients written once, the
-    geometry read once (P and Q, the kernel's scratch, are its own cost);
+    geometry read once (P and Q are the design's, not the function's);
     the operations once an output and neighbour, an output and a source
     pixel."""
     hc = 1 if linear else 3
@@ -2326,17 +2340,110 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-def k6_phase(dev):
-    """Phase 27: K6 against its twin on the card at the LeRF training shape
-    (16 planes of 48×48 → ×4, support 2), at support 4 and at ×2.5, both
-    modes: each gradient within GRAD_RTOL of its largest value, a second
-    launch bit-equal (no atomics), and the twin against autograd of the
-    plain op on the card; then K6's time at the training shape (events,
-    the profiler's two passes), its bound, the twin's time and K1's
-    float-mode float32-out forward beside it.  Returns the kernels line's
-    row."""
+def start_k6_first_build():
+    """nvcc of K6's first design (``K6_FIRST``, two passes, outside the
+    library) into ``build/``, started beside the library's build so the two
+    compile together: (process, library path)."""
+    from lerf_torch.ops.kernels import _build
+
+    out_dir = os.path.join(_build.BUILD_ROOT, "k6_first")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"libk6_first_{os.getpid()}.so")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), K6_FIRST)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                             src, "-o", lib], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def k6_first_design(build):
+    """The first design's call, ``fn(feat, hyper, g, ops, linear)`` →
+    (∂L/∂feat, ∂L/∂hyper), once its build (``start_k6_first_build``) is
+    done: its own C entry, with P / Q scratch and the per-axis inverse
+    lists of ``ops`` (a ``resize_bwd.GradOperands``), made at its first
+    call."""
+    import ctypes
+
+    import torch
+    from lerf_torch.ops.kernels import _build
+    from lerf_torch.ops.kernels.resize_bwd import inverse_fov
+
+    proc, path = build
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"K6 first design: nvcc failed:\n{log}")
+    entry = ctypes.CDLL(path).lerf_steering_resize_bwd
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entry.argtypes = [vp] * 15 + [i32] * 12 + [f32, f32, vp]
+    entry.restype = i32
+    inverse = {}
+
+    def call(feat, hyper, g, ops, linear, max_sigma=10.0):
+        f = ops.fwd
+        if id(ops) not in inverse:
+            lists = [inverse_fov(t.cpu().numpy()) for t in (f.rows, f.cols)]
+            inverse[id(ops)] = (ops, [(torch.from_numpy(a).to(feat.device),
+                                       v) for a, v in lists])
+        (inv_r, r_min), (inv_c, c_min) = inverse[id(ops)][1]
+        scratch = [torch.empty_like(g) for _ in range(2)]
+        grads = torch.empty_like(feat), torch.empty_like(hyper)
+        dis = (f.lin_x, f.lin_y) if linear else (f.dis_x, f.dis_y)
+        masks = ((f.mask_x.data_ptr(), f.mask_y.data_ptr()) if linear
+                 else (None, None))
+        err = entry(feat.data_ptr(), hyper.data_ptr(), g.data_ptr(),
+                    *(t.data_ptr() for t in (*scratch, *grads, f.rows,
+                                             f.cols, *dis)),
+                    *masks, inv_r.data_ptr(), inv_c.data_ptr(), r_min,
+                    inv_r.shape[0], c_min, inv_c.shape[0], feat.shape[0],
+                    *f.in_sz, *f.out_sz, f.support, int(f.antialias),
+                    int(linear), float(f.min_scale), float(max_sigma),
+                    torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "K6 first design")
+        return grads
+
+    return call
+
+
+def k6_profiler_ms(fn, frames=20):
+    """torch.profiler's K6 time a call: each ``resize_bwd`` kernel's mean
+    time a recorded launch, summed over the kernels of a call (the first
+    design's two passes, the kernel's one launch; the profiler drops rows
+    in some windows, so a total over the calls made would read low), with
+    the launches it recorded a call."""
+    rows = [(n, ms) for name, n, ms in device_rows(fn, frames)
+            if "resize_bwd" in name]
+    return sum(ms / n for n, ms in rows), sum(n for n, _ in rows)
+
+
+def k6_inputs(dev, rng, planes, size, scale, support, linear):
     import torch
     from lerf_torch.ops.geometry import ResizeGeometry
+
+    geom = ResizeGeometry.create(size, scale_factors=[scale] * 2,
+                                 support=support, antialias=False)
+    oc = 1 if linear else 3
+    feat = torch.from_numpy((rng.rand(planes, *size) * 255)
+                            .astype(np.float32)).to(dev)
+    hyper = torch.from_numpy(rng.rand(planes, *size, oc)
+                             .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(planes, *geom.out_sz)
+                         .astype(np.float32)).to(dev)
+    return geom, feat, hyper, g
+
+
+def k6_phase(dev, first):
+    """Phase 27: K6 against its twin on the card at the LeRF training shape
+    (16 planes of 48×48 → ×4, support 2), at support 4, at ×2.5 and at the
+    frame (3 planes of 360×640 → ×4), both modes: each gradient within
+    GRAD_RTOL of its largest value, a second launch bit-equal (no atomics),
+    and the twin against autograd of the plain op on the card; the first
+    design (``first``, ``k6_first_design``) against the twin at the
+    training shape and the frame.  Then at both shapes and in both modes
+    the kernel and its first design in K6_ROUNDS alternating rounds, each
+    by events and by the profiler, with the bound and the share; the
+    twin's time and K1's float-mode float32-out forward beside.  Returns
+    the kernels line's rows (the training shape's)."""
+    import torch
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import resize_bwd as k6
     from lerf_torch.ops.resample import (amplified_linear_resize,
@@ -2344,21 +2451,12 @@ def k6_phase(dev):
                                          steering_resize_grad_plain)
 
     rng = np.random.RandomState(7)
-    c, h = TRAIN_BATCH, TRAIN_CROP
     worst = {False: 0.0, True: 0.0}
     inputs = {}
-    for name, scale, support in (("train", 4.0, 2), ("x4-s4", 4.0, 4),
-                                 ("x2.5", 2.5, 2)):
+    for name, planes, size, scale, support in K6_CASES:
         for linear in (False, True):
-            geom = ResizeGeometry.create((h, h), scale_factors=[scale] * 2,
-                                         support=support, antialias=False)
-            oc = 1 if linear else 3
-            feat = torch.from_numpy((rng.rand(c, h, h) * 255)
-                                    .astype(np.float32)).to(dev)
-            hyper = torch.from_numpy(rng.rand(c, h, h, oc)
-                                     .astype(np.float32)).to(dev)
-            g = torch.from_numpy(rng.randn(c, *geom.out_sz)
-                                 .astype(np.float32)).to(dev)
+            geom, feat, hyper, g = k6_inputs(dev, rng, planes, size, scale,
+                                             support, linear)
             ops = k6.GradOperands.create(geom, dev, linear=linear)
             got = k6.steering_resize_grad(feat, hyper, g, geom,
                                           linear=linear, operands=ops)
@@ -2377,49 +2475,80 @@ def k6_phase(dev):
                     "hyper": rel_err(got[1], twin[1]),
                     "twin_vs_autograd_feature": rel_err(twin[0], f.grad),
                     "twin_vs_autograd_hyper": rel_err(twin[1], hy.grad)}
+            if name in K6_TIMED:
+                old = first(feat, hyper, g, ops, linear)
+                errs["first_design_feature"] = rel_err(old[0], twin[0])
+                errs["first_design_hyper"] = rel_err(old[1], twin[1])
+                inputs[name, linear] = (geom, ops, feat, hyper, g)
             if max(errs.values()) > GRAD_RTOL:
                 raise AssertionError(f"K6 {name} linear={linear}: {errs} > "
                                      f"{GRAD_RTOL}")
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"K6 {name}: a second launch differs")
+            err = max(float((a - b).abs().max()) for a, b in zip(got, twin))
             if name == "train":
-                inputs[linear] = (geom, ops, feat, hyper, g)
-                worst[linear] = max(float((a - b).abs().max())
-                                    for a, b in zip(got, twin))
+                worst[linear] = err
+            plan, _ = ops.launch_plan(planes)
             emit({"phase": "k6_vs_plain", "case": name, "linear": linear,
-                  "planes": c, "in": [h, h], "out": list(geom.out_sz),
-                  "support": support, "rel_err": errs,
-                  "max_abs_err": max(float((a - b).abs().max())
-                                     for a, b in zip(got, twin)),
+                  "planes": planes, "in": list(size),
+                  "out": list(geom.out_sz), "support": support,
+                  "tile": list(plan.tile), "lanes": plan.group,
+                  "threads": plan.threads,
+                  "blocks": planes * plan.n_ty * plan.n_tx,
+                  "smem": plan.smem, "rel_err": errs, "max_abs_err": err,
                   "deterministic": True})
 
     rows = {}
-    for linear in (False, True):
-        geom, ops, feat, hyper, g = inputs[linear]
-
-        def kernel():
-            return k6.steering_resize_grad(feat, hyper, g, geom,
-                                           linear=linear, operands=ops)
-
-        ms = event_ms(kernel, iters=50)
-        passes = [(n, calls, dms) for n, calls, dms in device_rows(kernel, 20)
-                  if "resize_bwd" in n]
-        plain_ms = event_ms(lambda: steering_resize_grad_plain(
-            feat, hyper, g, geom, linear=linear), iters=5, warmup=1)
-        k1_ms = event_ms(lambda: k1.steering_resize(
-            feat, hyper, geom, operands=ops.fwd, linear=linear), iters=50)
-        nbytes, nops = k6_work(c, h, h, *geom.out_sz, geom.support, linear)
-        b_ms, b_by = bound(nbytes, nops)
-        rows[linear] = {
-            "kernel": "steering_resize_bwd", "linear": linear, "ms": ms,
-            "profiler_ms": sum(dms for _, _, dms in passes),
-            "profiler_passes": [[n[:50], calls, dms] for n, calls, dms
-                                in passes],
-            "plain_ms": plain_ms, "k1_float32_out_ms": k1_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "ops": nops, "share_of_bound": b_ms / ms,
-            "max_abs_err": worst[linear]}
-        emit_timed(rows[linear])
+    for name in K6_TIMED:
+        for linear in (False, True):
+            geom, ops, feat, hyper, g = inputs[name, linear]
+            c, h, w = feat.shape
+            calls = {
+                "kernel": lambda: k6.steering_resize_grad(
+                    feat, hyper, g, geom, linear=linear, operands=ops),
+                "first_design": lambda: first(feat, hyper, g, ops, linear)}
+            rounds = {k: [] for k in calls}
+            for rnd in range(K6_ROUNDS):
+                for which in (calls if rnd % 2 == 0 else reversed(calls)):
+                    ms = event_ms(calls[which], iters=50)
+                    prof_ms, prof_n = k6_profiler_ms(calls[which])
+                    rounds[which].append((ms, prof_ms, prof_n))
+            nbytes, nops = k6_work(c, h, w, *geom.out_sz, geom.support,
+                                   linear)
+            b_ms, b_by = bound(nbytes, nops)
+            timed = {}
+            for which, got in rounds.items():
+                ms = statistics.median(r[0] for r in got)
+                prof = statistics.median(r[1] for r in got)
+                timed[which] = {
+                    "ms": ms, "profiler_ms": prof,
+                    "rounds_ms": [r[0] for r in got],
+                    "rounds_profiler_ms": [r[1] for r in got],
+                    "profiler_launches_a_call": [r[2] for r in got],
+                    "share_of_bound": b_ms / ms,
+                    "profiler_share_of_bound": (b_ms / prof if prof
+                                                else None)}
+            row = {"kernel": "steering_resize_bwd", "case": name,
+                   "linear": linear, "planes": c, "in": [h, w],
+                   "out": list(geom.out_sz), **timed["kernel"],
+                   "first_design": timed["first_design"],
+                   "speedup_events": (timed["first_design"]["ms"]
+                                      / timed["kernel"]["ms"]),
+                   "speedup_profiler": (
+                       timed["first_design"]["profiler_ms"]
+                       / timed["kernel"]["profiler_ms"]
+                       if timed["kernel"]["profiler_ms"] else None),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "ops": nops}
+            if name == "train":
+                row["plain_ms"] = event_ms(lambda: steering_resize_grad_plain(
+                    feat, hyper, g, geom, linear=linear), iters=5, warmup=1)
+                row["k1_float32_out_ms"] = event_ms(lambda: k1.steering_resize(
+                    feat, hyper, geom, operands=ops.fwd, linear=linear),
+                    iters=50)
+                row["max_abs_err"] = worst[linear]
+                rows[linear] = row
+            emit_timed(row)
     return rows
 
 
@@ -2677,7 +2806,7 @@ def step_phase(dev, cfg):
     k1_rows = [r for r in rows if "steering_resize_kernel" in r[0]]
     k6_rows = [r for r in rows if "resize_bwd" in r[0]]
     gathers = [n for n in names if "index" in n.lower()]
-    if not k1_rows or len(k6_rows) != 2 or gathers:
+    if not k1_rows or len(k6_rows) != 1 or gathers:
         raise AssertionError(f"train step rows: K1 {k1_rows}, K6 {k6_rows}, "
                              f"gathers {gathers}")
     nbytes, nops = step_work(hp)
@@ -2846,8 +2975,15 @@ def main() -> int:
     # -- 1. card, torch, build ---------------------------------------------
     print(card, flush=True)
     t0 = time.perf_counter()
-    _, log = _build.build()
-    _build.library()
+    k6_first_build = start_k6_first_build()
+    try:
+        _, log = _build.build()
+        _build.library()
+    except BaseException:
+        k6_first_build[0].kill()
+        k6_first_build[0].wait()
+        raise
+    k6_first = k6_first_design(k6_first_build)
     emit({"phase": "build", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0})
@@ -3180,7 +3316,7 @@ def main() -> int:
         **{k: float_rows["steering_warp", "float"][k] for k in float_keys}}
 
     # -- 27. K6 against its twin, its time -----------------------------------
-    k6_rows = k6_phase(dev)
+    k6_rows = k6_phase(dev, k6_first)
 
     # -- 28-31. training: the trainer, its step, resume, LUT fine-tuning,
     # IMDN2 -------------------------------------------------------------------

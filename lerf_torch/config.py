@@ -167,8 +167,11 @@ class TestConfig(BaseConfig):
     # plain twin on the CPU), pallas_int8 = K4, xla = plain batched chain;
     # IMDN2: base / s2d (anything else: auto)
     backend: str = "auto"
-    bucket: int = 0              # SR bucket granularity (warp: not ported)
-    dynamic_warp: bool = False   # dynamic warp serving (not ported yet)
+    bucket: int = 0              # >0: upscale_bucketed (= upscale, the port
+                                 # keeps no shape buckets), or with dynamic_sr
+                                 # its granularity; the warp eval serves
+                                 # through warp_dynamic
+    dynamic_warp: bool = False   # warp eval through warp_dynamic
     dynamic_sr: bool = False     # dynamic SR serving (upscale_dynamic)
 
     def dataset_list(self):

@@ -104,14 +104,8 @@ def _declare(lib):
         vp, i32]                             # stream, float_in
     lib.lerf_steering_resize.restype = i32
     lib.lerf_steering_resize_bwd.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp,          # img, hyp, grad, p, q, g_img,
-                                             # g_hyp
-        vp, vp, vp, vp, vp, vp,              # rows, cols, dx, dy, mask_x, _y
-        vp, vp, i32, i32, i32, i32,          # inv_rows, inv_cols, r_min, n_r,
-                                             # c_min, n_c
-        i32, i32, i32, i32, i32, i32,        # C, H, W, OH, OW, S
-        i32, i32, f32, f32,                  # antialias, linear, min_scale,
-                                             # max_sigma
+        vp, vp, vp, vp, vp,                  # img, hyp, grad, g_img, g_hyp
+        i32, f32, vp,                        # C, max_sigma, plan (host)
         vp]                                  # stream
     lib.lerf_steering_resize_bwd.restype = i32
     f64p = ctypes.POINTER(ctypes.c_double)

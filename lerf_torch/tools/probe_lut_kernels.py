@@ -3,7 +3,7 @@
 one part taken out.
 
     python3 lerf_torch/tools/probe_lut_kernels.py [--k5 OTHER.cu ...]
-                                                  [--rounds N]
+                                                  [--rounds N] [--k6]
 
 Each variant is the kernel's source with one text substitution, built on
 its own with the package's nvcc flags and timed with CUDA events beside
@@ -46,6 +46,17 @@ stages' outputs.
   the two compare within one process on one card.  ``--sass`` also prints,
   for K5 as built and each ``--k5`` source, each kernel's registers and its
   SASS instruction count by opcode (``cuobjdump``).
+
+* ``--k6``: K6 alone (nothing of the above), on chip_smoke's phase-27
+  inputs at the training shape (16 planes of 48² → ×4, support 2) and the
+  frame (3 × 360×640 → ×4), both modes: the kernel as built on the tile
+  it picks and with one part taken out (``K6_VARIANTS``: no ``expf``, no
+  phase A, no phase B, staging alone, nothing but the launch and the
+  geometry, a 256-thread register budget), forced onto each of the four
+  largest planned tiles at 128, 256 and 512 threads a block, and its
+  first design (``steering_resize_bwd_first.cu`` beside this script, which
+  sums in another order), in ``--rounds`` alternating rounds, each by
+  events and by the profiler.
 
 Only variants that keep the arithmetic compute the right numbers; each
 line says whether its output equals the kernel's.  Prints one JSON line
@@ -235,32 +246,62 @@ VARIANTS = {
              "  fr.f[0].dis = (const float4*)dis;\n")],
     },
 }
+# K6 with one part taken out, timed by ``--k6`` on the tile it picks
+_K6_NO_A = ("      float wn = 0.0f, ws = 0.0f;\n"
+            "      for (int s = 0; s < S; ++s) {",
+            "      pq[i * stride + j] = make_float2(1.0f, 0.5f);\n"
+            "      if (S > 0) {\n        j += dj;\n        i += di;\n"
+            "        if (j >= nj) {\n          j -= nj;\n          ++i;\n"
+            "        }\n        continue;\n      }\n"
+            "      float wn = 0.0f, ws = 0.0f;\n"
+            "      for (int s = 0; s < S; ++s) {")
+_K6_NO_B = ("    if (valid && r_lo <= r_hi && q_lo <= q_hi) {",
+            "    if (valid && r_lo <= r_hi && q_lo <= q_hi && S < 0) {")
+K6_VARIANTS = {
+    "no expf": [("  const float w = expf(-0.5f * (xn - h.x * xy + yn));",
+                 "  const float w = -0.5f * (xn - h.x * xy + yn);")],
+    "staging and phase A only": [_K6_NO_B],
+    "staging and phase B only": [_K6_NO_A],
+    "staging only": [_K6_NO_A, _K6_NO_B],
+    "empty": [
+        ("  for (int base = 0; base < npix; base += groups) {",
+         "  for (int base = 0; base < npix && S < 0; base += groups) {"),
+        ("    for (int o = tid; o < ni * nj; o += nt) {\n      float wn",
+         "    for (int o = tid; o < ni * nj && S < 0; o += nt) {\n"
+         "      float wn"),
+        ("  for (int k = tid; k < br.w_n * nwc; k += nt) {",
+         "  for (int k = tid; k < br.w_n * nwc && S < 0; k += nt) {")],
+    "launch bounds 256": [("constexpr int kMaxThreads = 512;",
+                           "constexpr int kMaxThreads = 256;")],
+}
 # kernel → {variant: source file beside this script}: whole other designs
 OTHER_SOURCES = {"steering_warp": {"first design": "steering_warp_first.cu"}}
 K1_TILES = ((16, 64), (8, 64), (16, 32), (8, 32), (32, 32), (4, 64))
 
 
-def build_variants(tmp, k5_sources=()):
+def build_variants(tmp, k5_sources=(), variants=None):
     """Every variant's shared library, built in parallel: {(kernel,
     variant): path}; ``k5_sources``, other K5 sources, under their
-    paths."""
+    paths; ``variants``: {kernel: {variant: substitutions}} instead of
+    ``VARIANTS`` and the other designs."""
     from lerf_torch.ops.kernels import _build
 
     jobs = {}
     here = os.path.dirname(os.path.abspath(__file__))
-    others = [(kernel, name, os.path.join(here, fname))
-              for kernel, named in OTHER_SOURCES.items()
-              for name, fname in named.items()]
+    others = [] if variants else [
+        (kernel, name, os.path.join(here, fname))
+        for kernel, named in OTHER_SOURCES.items()
+        for name, fname in named.items()]
     for kernel, name, path in others + [("steering_warp", p, p)
                                         for p in k5_sources]:
         stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
         with open(path) as f, open(stem + ".cu", "w") as g:
             g.write(f.read())
         jobs[(kernel, name)] = stem
-    for kernel, variants in VARIANTS.items():
+    for kernel, named in (variants or VARIANTS).items():
         with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
             src = f.read()
-        for name, subs in {"as built": [], **variants}.items():
+        for name, subs in {"as built": [], **named}.items():
             text = src
             for old, new in subs:
                 if text.count(old) != 1:
@@ -302,6 +343,91 @@ def sass_rows(lib):
     return rows
 
 
+def k6_variant(fn, feat, hyper, g, args, max_sigma=10.0):
+    """One launch of a K6 variant's library on the wrapper's arguments."""
+    import torch
+
+    grads = (torch.full_like(feat, float("nan")),
+             torch.full_like(hyper, float("nan")))
+    err = fn(feat.data_ptr(), hyper.data_ptr(), g.data_ptr(),
+             grads[0].data_ptr(), grads[1].data_ptr(), feat.shape[0],
+             max_sigma, ctypes.addressof(args),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K6 variant: CUDA error {err}")
+    return grads
+
+
+def probe_k6(rounds: int) -> int:
+    """The ``--k6`` section (the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from lerf_torch.ops.kernels import _build
+    from lerf_torch.ops.kernels import resize_bwd as k6
+
+    cs.CARD = card = cs.card_line()
+    dev = torch.device("cuda")
+    first_build = cs.start_k6_first_build()
+    _build.library()
+    first = cs.k6_first_design(first_build)
+    variants = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for (_, name), path in build_variants(
+                tmp, variants={"steering_resize_bwd": K6_VARIANTS}).items():
+            fn = ctypes.CDLL(path).lerf_steering_resize_bwd
+            fn.argtypes = _build.library().lerf_steering_resize_bwd.argtypes
+            fn.restype = ctypes.c_int
+            variants[name] = fn
+    rng = np.random.RandomState(7)
+    for name, planes, size, scale, support in cs.K6_CASES:
+        if name not in cs.K6_TIMED:
+            continue
+        for linear in (False, True):
+            geom, feat, hyper, g = cs.k6_inputs(dev, rng, planes, size,
+                                                scale, support, linear)
+            ops = k6.GradOperands.create(geom, dev, linear=linear)
+            picked, args = ops.launch_plan(planes)
+            want = k6.steering_resize_grad(feat, hyper, g, geom,
+                                           linear=linear, operands=ops)
+            calls = {"first design": lambda: first(feat, hyper, g, ops,
+                                                   linear)}
+            for vname, fn in variants.items():
+                calls[vname] = (lambda fn=fn, args=args: k6_variant(
+                    fn, feat, hyper, g, args))
+            for plan in ops.plans[:4]:
+                for threads in (128, 256, 512):
+                    forced = k6.GradOperands.create(
+                        geom, dev, linear=linear, tiles=(plan.tile,),
+                        threads=threads)
+                    calls[plan.tile, threads] = (
+                        lambda o=forced: k6.steering_resize_grad(
+                            feat, hyper, g, geom, linear=linear,
+                            operands=o))
+            nbytes, nops = cs.k6_work(planes, *size, *geom.out_sz,
+                                      geom.support, linear)
+            b_ms, _ = cs.bound(nbytes, nops)
+            for rnd in range(rounds):
+                order = list(calls) if rnd % 2 == 0 else list(calls)[::-1]
+                for key in order:
+                    out = calls[key]()
+                    equal = all(torch.equal(a, b) for a, b in zip(out, want))
+                    ms = cs.event_ms(calls[key], iters=50)
+                    prof_ms, prof_n = cs.k6_profiler_ms(calls[key])
+                    tile = (key if isinstance(key, str)
+                            else {"tile": list(key[0]), "threads": key[1]})
+                    print(json.dumps({
+                        "kernel": "steering_resize_bwd", "case": name,
+                        "linear": linear, "round": rnd, "variant": tile,
+                        "picked": key == (picked.tile, picked.threads),
+                        "ms": ms, "profiler_ms": prof_ms,
+                        "profiler_launches_a_call": prof_n,
+                        "bound_ms": b_ms, "share_of_bound": b_ms / ms,
+                        "equals_kernel": equal, "card": card}), flush=True)
+    print(card)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -314,11 +440,15 @@ def main(argv=None) -> int:
                     help="alternating rounds of the --k5 comparison")
     ap.add_argument("--sass", action="store_true",
                     help="print K5's registers and SASS opcode counts")
+    ap.add_argument("--k6", action="store_true",
+                    help="time K6's tiles and its first design only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_lut_kernels: needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    if args.k6:
+        return probe_k6(args.rounds)
     from lerf_torch.ops import lut_pipeline as lp
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.ops.kernels import resize as k1

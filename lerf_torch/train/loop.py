@@ -48,21 +48,32 @@ def setup_logger(exp_dir: str, name: str = "train") -> logging.Logger:
 
 
 class ScalarWriter:
-    """Scalar log, one JSON line a point (``scalars.jsonl``), with the
-    reference's SummaryWriter tags (loss_Pixel, PSNR_X{s}/{ds},
-    SSIM_X{s}/{ds}, mPSNR_{isc,osc}/{ds}; train_model.py:173-176,
-    310-312,453-454)."""
+    """Scalar log, one JSON line a point (``scalars.jsonl``), and TensorBoard
+    event files when ``torch.utils.tensorboard`` imports (the
+    ``tensorboard`` package), both with the reference's SummaryWriter tags
+    (loss_Pixel, PSNR_X{s}/{ds}, SSIM_X{s}/{ds}, mPSNR_{isc,osc}/{ds};
+    train_model.py:173-176,310-312,453-454), as lerf_tpu's writer does."""
 
     def __init__(self, exp_dir: str):
         self._f = open(os.path.join(exp_dir, "scalars.jsonl"), "a")
+        self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self._tb = SummaryWriter(exp_dir)
 
     def add_scalar(self, tag: str, value: float, step: int):
         self._f.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), int(step))
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def hparams_from_config(cfg: TrainConfig) -> TrainHParams:

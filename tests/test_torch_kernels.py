@@ -1480,21 +1480,27 @@ def test_imdn_restores_the_cudnn_flags_on_card(cuda_device):
 
 # -- K6: the steerable resize's backward (training) -------------------------
 
-# name → (LR size, scale, support, antialias): the LeRF training geometry
-# (48² → ×4, support 2), support 4, a non-integer scale and an antialiased
-# downscale
-GRAD_CASES = {"x4-s2": ((24, 20), 4.0, 2, False),
-              "x4-s4": ((24, 20), 4.0, 4, False),
-              "x2.5-s2": ((17, 23), 2.5, 2, False),
-              "x0.5-aa": ((32, 36), 0.5, None, True)}
+# name → (LR size, scale, support, antialias, planes): the LeRF training
+# geometry (48² → ×4, support 2), support 4, a non-integer scale, an
+# antialiased downscale, ×3 and ×8 (K6's shared memory above 48 KB), a
+# plane count and size no tile divides, and the frame (360×640 → ×4)
+GRAD_CASES = {"x4-s2": ((24, 20), 4.0, 2, False, 3),
+              "x4-s4": ((24, 20), 4.0, 4, False, 3),
+              "x2.5-s2": ((17, 23), 2.5, 2, False, 3),
+              "x0.5-aa": ((32, 36), 0.5, None, True, 3),
+              "x3-s2": ((26, 30), 3.0, 2, False, 3),
+              "x8-s2": ((20, 36), 8.0, 2, False, 3),
+              "x4-odd": ((13, 37), 4.0, 2, False, 7),
+              "frame": ((360, 640), 4.0, 2, False, 3)}
 # K6 sums each gradient term in a fixed order; its twin scatters with
 # index_add (atomics on the card) in another: float32 sums of up to ~64
 # terms a pixel, compared relative to each gradient's largest value
 GRAD_RTOL = 1e-4
 
 
-def grad_inputs(case, linear, device, channels=3, seed=0):
-    size, scale, support, aa = GRAD_CASES[case]
+def grad_inputs(case, linear, device, channels=None, seed=0):
+    size, scale, support, aa, planes = GRAD_CASES[case]
+    channels = channels or planes
     kw = {"support": support} if support else {}
     geom = ResizeGeometry.create(size, scale_factors=[scale] * 2,
                                  antialias=aa, **kw)
@@ -1550,6 +1556,34 @@ def test_resize_grad_kernel_matches_twin(case, linear, cuda_device):
     assert_grads_close(got, want, case)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", ["x8-s2", "x4-odd", "x0.5-aa"])
+def test_resize_grad_same_bits_on_every_tile(case, linear, cuda_device):
+    """K6 forced onto each planned tile, at 256 and 512 threads a block
+    (x8's 8 × 32 tile takes more than 48 KB of shared memory): the same
+    bits as on the tile it picks.  Each output's sums and each pixel's
+    lanes run in an order no tile changes."""
+    from lerf_torch.ops.kernels import resize_bwd
+
+    geom, feat, hyper, g = grad_inputs(case, linear, cuda_device)
+    want = resize_bwd.steering_resize_grad(feat, hyper, g, geom,
+                                           linear=linear)
+    tiles = [p.tile for p in resize_bwd.GradOperands.create(
+        geom, cuda_device, linear=linear).plans]
+    assert tiles
+    for tile in tiles:
+        for threads in (256, 512):
+            ops = resize_bwd.GradOperands.create(
+                geom, cuda_device, linear=linear, tiles=(tile,),
+                threads=threads)
+            got = resize_bwd.steering_resize_grad(
+                feat, hyper, g, geom, linear=linear, operands=ops)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (case, tile, threads)
 
 
 @pytest.mark.cuda
