@@ -17,8 +17,10 @@ and the int8 (K4) backends — and the IMDN (LeRF-Net) form,
 take in their float mode, and the network → LUT transfer; then trains:
 the reference's LeRF-G run at full width through the port's trainer (K1
 forward, K6 backward), its validation, checkpoint and resume, LUT
-fine-tuning and IMDN2; and holds each hand-written kernel against its
-plain PyTorch twin on the card:
+fine-tuning and IMDN2; then serves: the async forms through pinned
+staging on the predictor's side stream, the streaming engine, the HTTP
+daemon, the several-input CLI and the N-D resize; and holds each
+hand-written kernel against its plain PyTorch twin on the card:
 
 1. the card (``nvidia-smi`` name and power limit), torch, the kernel build
    with each kernel's registers, stack, spills and static shared memory
@@ -182,7 +184,43 @@ plain PyTorch twin on the card:
    and ``LUTft_*.npy`` served by ``LutPredictor`` (K2 twice, K1 once);
 31. IMDN2 (nf 12) trained 5 steps, and its step with TF32 allowed outside
    it: no TF32 kernel in the forward or the backward;
-32. the exact-division findings (K1 bit-equal to its twin or not at each
+32. the async forms (``upscale_dynamic_async``, ``warp_dynamic_async``,
+   ``warp_device_async``) of the LUT form (LeRF-G, LeRF-L), the net form
+   on K4 and the IMDN form at 360×640 → ×4 and ``warp_matrix(0..3)`` →
+   1440×2560: each future's frame and mask bit-equal to the synchronous
+   form, to ``upscale`` / ``warp`` and to the host-staged path (the forms
+   before the pinned staging: host layout and cast, pageable copies), the
+   stage kernels and one K1 or K5 a request (counts at 0 before each), the
+   dispatch's host ms and the whole request's;
+33. pinned-buffer reuse: 8 distinct frames dispatched before any
+   ``result()``, SR and warp, each bit-equal to its synchronous call; the
+   serving cache cut to 2 and 8 new scales dispatched (entries evicted
+   while requests are in flight), each checked again;
+34. ``stream_upscale`` and ``stream_warp`` over 32 frames at depths 1, 2
+   and 4 against the sequential loop, in alternating rounds: every result
+   bit-equal, ms a frame, the device ms a frame (profiler) and the busy
+   share;
+35. the pinned memory kept results hold: ``upscale`` results kept until
+   the caching host allocator's pool has grown by 8 blocks, then dropped,
+   then as many calls more: the pool's blocks and bytes after each, the
+   bytes a kept result added (its block), and the pool neither growing
+   nor shrinking on the second leg;
+36. the HTTP daemon on 127.0.0.1:0 in a thread (LUT form, full frame):
+   upscale npy, warp npz and masked npy, both batch routes and
+   ``--geometry device``, each equal to the in-process predictor, the
+   launches of one request each; one client × 8 requests, then 4
+   concurrent clients × 8 requests on frames of their own (a fresh
+   daemon), each client a process of its own (``chip_smoke.py
+   --http-client``) whose responses are held to the in-process
+   predictor's by SHA-256; /healthz's p50 / p99 of each request part
+   (decode, dispatch, total, encode) for each; a net-form (K4) request;
+37. ``cli.upscale`` on a directory of 4 PNGs (360×640) with
+   ``--dynamicSR`` and with ``--matrix … --dynamicWarp``: each output
+   equal to the one-file call's;
+38. ``ops.resize`` and ``cli.make_benchmark``'s ``downscale`` on a
+   1440×2560 frame, the card against the CPU (float32 within 1e-3, uint8
+   but for .5 ties);
+39. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
    rows with their ``linear`` and ``float`` modes, and K5's ``support4``,
@@ -2948,6 +2986,553 @@ def imdn_train_phase(dev, root):
                 "device_ms_by_kind": step_rows(rows)})
 
 
+# -- the serving surface: async forms, streams, daemon, CLI, resize ----------
+
+SERVE_FRAMES = 32             # phase 34's stream
+SERVE_DEPTHS = (1, 2, 4)
+SERVE_ROUNDS = 2
+HTTP_CLIENTS, HTTP_REQUESTS = 4, 8
+PINNED_GROWTH = 8             # phase 35: blocks kept results add to the pool
+PINNED_MOST = 512             # ... keeping at most this many results
+CLI_FILES = 4
+# resize on the card against the CPU: the same float32 products of the
+# same host float64 taps, summed in the same order on both devices; values
+# in 0..255
+RESIZE_ATOL = 1e-3
+
+
+def host_staged_frame(pred, frame, scale=None, matrix=None):
+    """A frame as the forms made it before the pinned staging: the host's
+    layout and cast (``_input``: an int32 or float32 frame, 4 B a pixel,
+    copied up from pageable memory), the device part on the current
+    stream, the uint8 frame copied down into pageable memory."""
+    x = pred._input(np.ascontiguousarray(frame.transpose(2, 0, 1)))
+    if matrix is None:
+        out = pred.run_device(x, scale)[0]
+    else:
+        out = pred.run_warp_device(x, matrix, WARP_OUT)[0]
+    return np.moveaxis(out.cpu().numpy(), -3, -1)
+
+
+def timed_future(call, n=10, warmup=2):
+    """Median host ms of a request's dispatch (the async call) and of the
+    whole request (dispatch and ``result()``)."""
+    dispatch, whole = [], []
+    for i in range(warmup + n):
+        t0 = time.perf_counter()
+        fut = call()
+        t1 = time.perf_counter()
+        fut.result()
+        t2 = time.perf_counter()
+        if i >= warmup:
+            dispatch.append((t1 - t0) * 1e3)
+            whole.append((t2 - t0) * 1e3)
+    return statistics.median(dispatch), statistics.median(whole)
+
+
+def serving_forms(banks, params):
+    """Phase 32's forms on the card: name → (predictor, the launches of a
+    frame's stages): the LUT form (LeRF-G, LeRF-L), the net form on K4 and
+    the IMDN form ("base")."""
+    from lerf_torch.pipeline import LutPredictor, NetPredictor
+    return {
+        "lut_g": (LutPredictor(banks["lerf_g"]), {"lut_stage": 2}),
+        "lut_l": (LutPredictor(banks["lerf_l"], linear=True),
+                  {"lut_stage": 2}),
+        "net_k4": (NetPredictor.from_srnets(params, backend="pallas_int8"),
+                   {"srnet_ensemble_int8": 2}),
+        "imdn": (NetPredictor.from_imdn(imdn_model(), backend="base"), {}),
+    }
+
+
+def async_phase(forms, frame):
+    """Phase 32: each form's async requests at 360×640 → ×4 and under
+    ``warp_matrix(0..3)`` → 1440×2560: the future's frame (and mask) equal
+    to the synchronous form's, to ``upscale`` / ``warp`` and to the
+    host-staged path (the forms before the staging); the stage kernels and
+    one K1 or K5 a request; the dispatch's host time and the whole
+    request's."""
+    mats = [warp_matrix(s) for s in range(4)]
+    counts = {}
+    for name, (pred, stages) in forms.items():
+        sr_want = {**stages, "steering_resize": 1}
+        warp_want = {**stages, "steering_warp": 1}
+        wants = {"upscale_dynamic": pred.upscale_dynamic(frame, SCALE, SCALE),
+                 "upscale": pred.upscale(frame, SCALE, SCALE),
+                 "host-staged": host_staged_frame(pred, frame,
+                                                  (SCALE, SCALE))}
+        fut, counts[name, "sr"] = counted_run(
+            lambda: pred.upscale_dynamic_async(frame, SCALE, SCALE), sr_want,
+            f"{name} upscale_dynamic_async")
+        got = fut.result()
+        for what, want in wants.items():
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name} upscale_dynamic_async: not "
+                                     f"bit-equal to {what}")
+        for k, m in enumerate(mats):
+            want = pred.warp(frame, m, WARP_OUT)
+            staged = host_staged_frame(pred, frame, matrix=m)
+            for method in ("warp_dynamic_async", "warp_device_async"):
+                fut, counts[name, method] = counted_run(
+                    lambda: getattr(pred, method)(frame, m, WARP_OUT),
+                    warp_want, f"{name} {method} {k}")
+                out, mask = fut.result()
+                if not (np.array_equal(out, want[0])
+                        and np.array_equal(mask, want[1])
+                        and np.array_equal(out, staged)):
+                    raise AssertionError(f"{name} {method} matrix {k}: not "
+                                         "bit-equal to warp / the "
+                                         "host-staged path")
+        sr = timed_future(lambda: pred.upscale_dynamic_async(frame, SCALE,
+                                                             SCALE))
+        wp = timed_future(lambda: pred.warp_dynamic_async(frame, mats[0],
+                                                          WARP_OUT))
+        emit_timed({"phase": "async", "form": name,
+                    "bit_equal": ["upscale_dynamic", "upscale",
+                                  "host-staged", "warp_dynamic", "warp",
+                                  "warp_device"],
+                    "launches_sr": counts[name, "sr"],
+                    "launches_warp": counts[name, "warp_dynamic_async"],
+                    "sr_dispatch_ms": sr[0], "sr_whole_ms": sr[1],
+                    "warp_dispatch_ms": wp[0], "warp_whole_ms": wp[1]})
+    return counts
+
+
+def pinned_reuse_phase(pred, rng):
+    """Phase 33: 8 distinct frames dispatched before any ``result()``, then
+    each checked (SR and warp); then the serving cache cut to 2 entries and
+    8 requests at 8 new scales dispatched, evicting while the earlier are
+    in flight, each checked again."""
+    import torch
+
+    from lerf_torch import pipeline
+
+    frames = [rng.randint(0, 256, (LR_H, LR_W, 3)).astype(np.uint8)
+              for _ in range(8)]
+    want = [pred.upscale(f, SCALE, SCALE) for f in frames]
+    futs = [pred.upscale_dynamic_async(f, SCALE, SCALE) for f in frames]
+    got = [f.result() for f in futs]
+    pinned = all(isinstance(g.base, torch.Tensor) and g.base.is_pinned()
+                 for g in got)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"in flight: SR frame {i} differs")
+    mats = [warp_matrix(i) for i in range(8)]
+    want = [pred.warp(f, m, WARP_OUT) for f, m in zip(frames, mats)]
+    futs = [pred.warp_dynamic_async(f, m, WARP_OUT)
+            for f, m in zip(frames, mats)]
+    for i, (f, w) in enumerate(zip(futs, want)):
+        out, mask = f.result()
+        if not (np.array_equal(out, w[0]) and np.array_equal(mask, w[1])):
+            raise AssertionError(f"in flight: warp frame {i} differs")
+    scales = [2.0 + 0.25 * i for i in range(8)]
+    want = [pred.upscale(f, s, s) for f, s in zip(frames, scales)]
+    size = pipeline.SERVING_CACHE_SIZE
+    pipeline.SERVING_CACHE_SIZE = 2
+    try:
+        futs = [pred.upscale_dynamic_async(f, s, s)
+                for f, s in zip(frames, scales)]
+        kept = len(pred._serving_cache)
+        for i, (f, w) in enumerate(zip(futs, want)):
+            if not np.array_equal(f.result(), w):
+                raise AssertionError(f"after eviction: frame {i} differs")
+    finally:
+        pipeline.SERVING_CACHE_SIZE = size
+    if kept != 2:
+        raise AssertionError(f"the serving cache kept {kept} entries, not 2")
+    emit({"phase": "pinned_reuse", "in_flight": len(frames),
+          "sr_and_warp_bit_equal": True, "evicted_in_flight": len(scales),
+          "cache_entries": kept, "results_view_pinned_tensors": pinned})
+
+
+def stream_phase(pred, rng):
+    """Phase 34: ``stream_upscale`` and ``stream_warp`` over SERVE_FRAMES
+    frames at each depth against the sequential loop, in alternating
+    rounds: each result bit-equal to the sequential one; ms a frame, the
+    device ms a frame (torch.profiler over the sequential loop: kernels
+    and copies, the same work at every depth) and the busy share (device
+    over wall)."""
+    from lerf_torch.serve import stream_upscale, stream_warp
+
+    frames = [rng.randint(0, 256, (LR_H, LR_W, 3)).astype(np.uint8)
+              for _ in range(SERVE_FRAMES)]
+    mats = [warp_matrix(i) for i in range(SERVE_FRAMES)]
+    sr_reqs = [(f, SCALE, SCALE) for f in frames]
+    warp_reqs = list(zip(frames, mats))
+    runs = {("upscale", 0): lambda: [pred.upscale_dynamic(*r)
+                                     for r in sr_reqs],
+            ("warp", 0): lambda: [pred.warp_dynamic(f, m, WARP_OUT)
+                                  for f, m in warp_reqs]}
+    for d in SERVE_DEPTHS:
+        runs["upscale", d] = lambda d=d: list(stream_upscale(
+            pred, sr_reqs, depth=d))
+        runs["warp", d] = lambda d=d: list(stream_warp(
+            pred, warp_reqs, WARP_OUT, depth=d))
+    ref = {kind: runs[kind, 0]() for kind in ("upscale", "warp")}
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    for run in runs.values():   # the pinned blocks a run's results hold
+        run()
+    order = (0,) + SERVE_DEPTHS
+    times = {key: [] for key in runs}
+    for r in range(SERVE_ROUNDS):
+        for kind in ("upscale", "warp"):
+            for d in (order if r % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                outs = runs[kind, d]()
+                times[kind, d].append((time.perf_counter() - t0) * 1e3
+                                      / SERVE_FRAMES)
+                if len(outs) != SERVE_FRAMES or not all(
+                        same(a, b) for a, b in zip(outs, ref[kind])):
+                    raise AssertionError(f"stream {kind} depth {d}: not "
+                                         "bit-equal to the sequential loop")
+                del outs
+    # the device's work a frame is the same at every depth: profiled once
+    profs = {kind: profile_frames(runs[kind, 0], frames=1)
+             for kind in ("upscale", "warp")}
+    rows = {}
+    for (kind, d), ts in times.items():
+        prof = profs[kind]
+        device = prof["device_busy_ms"] / SERVE_FRAMES
+        ms = statistics.median(ts)
+        rows[kind, d] = ms
+        emit_timed({"phase": "stream", "form": kind,
+                    "depth": d or "sequential", "frames": SERVE_FRAMES,
+                    "ms_per_frame_rounds": ts, "ms_per_frame": ms,
+                    "device_ms_per_frame": device,
+                    "busy_share": device / ms,
+                    "device_ms_by_name": [
+                        [k, v / SERVE_FRAMES]
+                        for k, v in prof["device_ms_by_name"][:6]]})
+    return rows
+
+
+def pinned_stats():
+    """The caching host allocator's current counts, from
+    ``torch.cuda.host_memory_stats``: the pinned blocks it owns (cached or
+    in use) and their bytes, and the blocks in use."""
+    import torch
+    stats = torch.cuda.host_memory_stats()
+    keys = ("allocated_bytes.current", "allocations.current",
+            "active_requests.current")
+    if not all(k in stats for k in keys):
+        raise AssertionError(f"host_memory_stats lacks {keys}: {sorted(stats)}")
+    return {k.split(".")[0]: stats[k] for k in keys}
+
+
+def pinned_retention_phase(pred, frame):
+    """Phase 35: the pinned memory that kept results hold.  ``upscale``
+    results (360×640 → ×4, 11 MB each) kept, one after another, until the
+    caching host allocator has added PINNED_GROWTH blocks to its pool (its
+    free blocks, left by earlier phases, taken first; at most PINNED_MOST
+    results), then dropped, then as many calls again, each result dropped
+    before the next: the pool's blocks and bytes after each leg, and the
+    bytes of a block a kept result added.  A kept result holds its block;
+    a dropped one returns it to the pool, which later requests reuse (the
+    second leg must not grow the pool) and which is not given back to the
+    system (nor may it shrink)."""
+    before = pinned_stats()
+    kept = []
+    while (pinned_stats()["allocations"] - before["allocations"]
+           < PINNED_GROWTH and len(kept) < PINNED_MOST):
+        kept.append(pred.upscale(frame ^ np.uint8(len(kept) % 255 + 1),
+                                 SCALE, SCALE))
+    held = pinned_stats()
+    n, result_bytes = len(kept), kept[0].nbytes
+    del kept
+    for i in range(n):
+        pred.upscale(frame ^ np.uint8(i % 255 + 1), SCALE, SCALE)
+    again = pinned_stats()
+    added = held["allocations"] - before["allocations"]
+    if added < PINNED_GROWTH:
+        raise AssertionError(f"{n} kept results added {added} pinned blocks,"
+                             f" not {PINNED_GROWTH}: {before} → {held}")
+    if again["allocated_bytes"] != held["allocated_bytes"]:
+        raise AssertionError("the pinned pool changed on calls whose results"
+                             f" were dropped: {held} → {again}")
+    emit({"phase": "pinned_retention", "result_bytes": result_bytes,
+          "kept": n, "before": before, "kept_results": held,
+          "after_as_many_dropped_calls": again, "blocks_added": added,
+          "bytes_a_block_added":
+          (held["allocated_bytes"] - before["allocated_bytes"]) / added})
+
+
+def _http(url, body=None, ctype="application/x-npy"):
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 method="POST" if body else "GET",
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.read(), dict(resp.headers)
+
+
+def _npy(arr):
+    import io
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _load(data):
+    import io
+    return np.load(io.BytesIO(data), allow_pickle=False)
+
+
+def client_frames(client):
+    """The frames phase 36's client ``client`` sends, its own."""
+    rng = np.random.RandomState(1000 + client)
+    return [rng.randint(0, 256, (LR_H, LR_W, 3)).astype(np.uint8)
+            for _ in range(HTTP_REQUESTS)]
+
+
+def digest(arr):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def http_client(url, client, start_at):
+    """``chip_smoke.py --http-client URL CLIENT START_AT``: one of phase
+    36's client processes (numpy and the standard library, no torch).
+    From the wall-clock time START_AT it sends its frames to
+    ``/v1/upscale?scale=4`` one after another and prints, as one JSON
+    line, each response's shape, SHA-256 and ms, and its start and end."""
+    time.sleep(max(0.0, start_at - time.time()))
+    t_start, rows = time.time(), []
+    for f in client_frames(client):
+        t0 = time.perf_counter()
+        out = _load(_http(url + "/v1/upscale?scale=4", _npy(f))[0])
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "shape": list(out.shape), "sha256": digest(out)})
+    print(json.dumps({"client": client, "start": t_start,
+                      "end": time.time(), "requests": rows}), flush=True)
+    return 0
+
+
+def run_clients(base, clients):
+    """``clients`` client processes against the daemon at ``base``, started
+    together.  → (each client's JSON line, the wall s from the common
+    start to the last response)."""
+    start_at = time.time() + 3.0      # past the processes' start-up
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--http-client", base,
+         str(c), repr(start_at)], stdout=subprocess.PIPE, text=True)
+        for c in range(clients)]
+    rows = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"daemon client exit {p.returncode}")
+            rows.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rows, max(r["end"] for r in rows) - start_at
+
+
+def daemon_phase(pred, net_pred, frame):
+    """Phase 36: the HTTP daemon on 127.0.0.1:0 in a thread, LUT form, on
+    the full frame: the upscale (npy), warp (npz), batch and ``--geometry
+    device`` routes, each response equal to the in-process predictor and
+    each request the form's launches; one client, then (on a fresh
+    daemon) HTTP_CLIENTS concurrent clients, of HTTP_REQUESTS requests
+    each, each client a process of its own on frames of its own; /healthz's
+    percentiles of each request part for each; one request to a net-form
+    (K4) daemon."""
+    import threading
+
+    from lerf_torch.serve import make_server
+
+    servers = []
+
+    def start(p, **kwargs):
+        server = make_server(p, port=0, **kwargs)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers.append(server)
+        return f"http://127.0.0.1:{server.server_address[1]}"
+
+    m = warp_matrix()
+    mq = ",".join(repr(float(v)) for v in m.ravel())
+    size = f"{WARP_OUT[0]}x{WARP_OUT[1]}"
+    try:
+        base = start(pred)
+        (data, head), launches = counted_run(
+            lambda: _http(base + "/v1/upscale?scale=4", _npy(frame)),
+            {"lut_stage": 2, "steering_resize": 1}, "daemon upscale")
+        if head["Content-Type"] != "application/x-npy" or not np.array_equal(
+                _load(data), pred.upscale_dynamic(frame, SCALE, SCALE)):
+            raise AssertionError("daemon upscale: not the in-process frame")
+        (data, _), wl = counted_run(
+            lambda: _http(f"{base}/v1/warp?matrix={mq}&outSize={size}"
+                          "&format=npz", _npy(frame)),
+            {"lut_stage": 2, "steering_warp": 1}, "daemon warp")
+        pack, want = _load(data), pred.warp_dynamic(frame, m, WARP_OUT)
+        if not (np.array_equal(pack["out"], want[0])
+                and np.array_equal(pack["mask"], want[1])):
+            raise AssertionError("daemon warp: not the in-process frame")
+        data, head = _http(f"{base}/v1/warp?matrix={mq}&outSize={size}",
+                           _npy(frame))
+        if not np.array_equal(_load(data),
+                              want[0] * want[1][..., None].astype(np.uint8)):
+            raise AssertionError("daemon warp (npy): not the masked frame")
+        coverage = float(head["X-Lerf-Mask-Coverage"])
+        imgs = np.stack([frame, 255 - frame])
+        data, _ = _http(base + "/v1/upscale_batch?scale=4", _npy(imgs))
+        if not np.array_equal(_load(data),
+                              pred.upscale_batch(imgs, SCALE, SCALE)):
+            raise AssertionError("daemon upscale_batch differs")
+        import io
+        buf = io.BytesIO()
+        mats = np.stack([m, warp_matrix(1)])
+        np.savez(buf, imgs=imgs, matrices=mats)
+        data, _ = _http(f"{base}/v1/warp_batch?outSize={size}",
+                        buf.getvalue(), "application/x-npz")
+        pack, want = _load(data), pred.warp_batch(imgs, mats, WARP_OUT)
+        if not (np.array_equal(pack["out"], want[0])
+                and np.array_equal(pack["mask"], want[1])):
+            raise AssertionError("daemon warp_batch differs")
+        # one client, then concurrent clients on a fresh daemon, each in a
+        # process of its own (as remote clients are: their encoding and
+        # decoding off the daemon's interpreter) and on frames of its own
+        want = {c: [digest(pred.upscale_dynamic(f, SCALE, SCALE))
+                    for f in client_frames(c)] for c in range(HTTP_CLIENTS)}
+        legs = {}
+        for leg, clients in (("single", 1), ("concurrent", HTTP_CLIENTS)):
+            url = start(pred)
+            rows, wall_s = run_clients(url, clients)
+            for r in rows:
+                if [q["sha256"] for q in r["requests"]] != want[r["client"]]:
+                    raise AssertionError(f"{leg} client {r['client']}: not "
+                                         "its own frames")
+            health = json.loads(_http(url + "/healthz")[0])
+            ms = [q["ms"] for r in rows for q in r["requests"]]
+            legs[leg] = {"clients": clients, "wall_s": wall_s,
+                         "ms_per_request": wall_s * 1e3 / len(ms),
+                         "client_ms_p50": statistics.median(ms),
+                         "client_ms_max": max(ms), "served": health["served"],
+                         **{k: health[k] for k in ("decode", "dispatch",
+                                                   "total", "encode")}}
+        dev_base = start(pred, geometry="device")
+        pack = _load(_http(f"{dev_base}/v1/warp?matrix={mq}&outSize={size}"
+                           "&format=npz", _npy(frame))[0])
+        want = pred.warp_device(frame, m, WARP_OUT)
+        if not (np.array_equal(pack["out"], want[0])
+                and np.array_equal(pack["mask"], want[1])):
+            raise AssertionError("daemon --geometry device differs")
+        net_base = start(net_pred)
+        (data, _), nl = counted_run(
+            lambda: _http(net_base + "/v1/upscale?scale=4", _npy(frame)),
+            {"srnet_ensemble_int8": 2, "steering_resize": 1},
+            "net daemon upscale")
+        if not np.array_equal(_load(data),
+                              net_pred.upscale_dynamic(frame, SCALE, SCALE)):
+            raise AssertionError("net daemon upscale differs")
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+    emit_timed({"phase": "daemon", "routes_equal_in_process": [
+        "upscale npy", "warp npz", "warp npy masked", "upscale_batch",
+        "warp_batch", "warp --geometry device", "net K4 upscale"],
+        "launches_upscale": launches, "launches_warp": wl,
+        "launches_net": nl, "mask_coverage": coverage,
+        "requests_each": HTTP_REQUESTS, **legs})
+
+
+def cli_phase(bank, rng):
+    """Phase 37: ``cli.upscale`` on a directory of CLI_FILES 360×640 PNGs,
+    with ``--dynamicSR`` and with ``--matrix … --dynamicWarp``: each output
+    equal to the one-file call's."""
+    import tempfile
+
+    from PIL import Image
+
+    from lerf_torch.cli import upscale as up
+    from lerf_torch.lut.io import save_lut_bank
+
+    mq = ",".join(repr(float(v)) for v in warp_matrix().ravel())
+    modes = {"dynamicSR": ["--scale", "4", "--dynamicSR"],
+             "dynamicWarp": ["--matrix", mq, "--outSize",
+                             f"{WARP_OUT[0]}x{WARP_OUT[1]}",
+                             "--dynamicWarp"]}
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="lerf_cli_") as root:
+        exp = os.path.join(root, "exp")
+        save_lut_bank(bank, exp, lut_name="LUTft")
+        src = os.path.join(root, "frames")
+        os.makedirs(src)
+        names = [f"f{i}.png" for i in range(CLI_FILES)]
+        for name in names:
+            Image.fromarray(rng.randint(0, 256, (LR_H, LR_W, 3))
+                            .astype(np.uint8)).save(os.path.join(src, name))
+        for mode, flags in modes.items():
+            dst = os.path.join(root, mode)
+            t0 = time.perf_counter()
+            up.main(["-e", exp, "--input", src, "--output", dst] + flags)
+            secs[mode] = time.perf_counter() - t0
+            for name in names:
+                one = up.main(["-e", exp, "--input", os.path.join(src, name),
+                               "--output", os.path.join(root, "one.png")]
+                              + flags)
+                got = np.array(Image.open(os.path.join(dst, name))
+                               .convert("RGB"))
+                if not np.array_equal(got, one):
+                    raise AssertionError(f"cli {mode} {name}: not the "
+                                         "one-file call's output")
+    emit_timed({"phase": "cli_several_inputs", "files": CLI_FILES,
+                "modes_equal_one_file_calls": sorted(modes),
+                "directory_s": secs})
+
+
+def resize_phase(dev, rng):
+    """Phase 38: ``ops.resize`` (antialiased cubic and lanczos3 downscales,
+    by_convs, an N-D spec) and ``make_benchmark.downscale`` (×4, ×2.5) on a
+    1440×2560 HR frame, on the card against the CPU: float32 within
+    RESIZE_ATOL, uint8 equal but for .5 ties."""
+    import torch
+
+    from lerf_torch.cli.make_benchmark import downscale, modcrop_rational
+    from lerf_torch.ops import resize
+
+    hr = rng.randint(0, 256, WARP_OUT + (3,)).astype(np.uint8)
+    x = torch.from_numpy(np.ascontiguousarray(hr.transpose(2, 0, 1),
+                                              np.float32))
+    cases = {"cubic x1/4": {"scale_factors": [0.25, 0.25]},
+             "cubic x1/2.5": {"scale_factors": [0.4, 0.4]},
+             "lanczos3 x1/3": {"scale_factors": [1 / 3, 1 / 3],
+                               "interp_method": "lanczos3"},
+             "cubic by_convs x1/2": {"scale_factors": 0.5, "by_convs": True},
+             "linear N-D": {"scale_factors": [1.0, 0.5, 0.75],
+                            "interp_method": "linear"}}
+    rows = {}
+    for name, kwargs in cases.items():
+        want = resize(x, **kwargs)
+        got = resize(x.to(dev), **kwargs)
+        torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max())
+        if got.shape != want.shape or not err <= RESIZE_ATOL:
+            raise AssertionError(f"resize {name}: card vs CPU max-abs {err}")
+        rows[name] = err
+    ties = {}
+    for s in (4.0, 2.5):
+        got = downscale(hr, s, s, device=dev)
+        crop = modcrop_rational(hr, s, s)
+        f32 = resize(torch.from_numpy(np.ascontiguousarray(
+            crop.transpose(2, 0, 1), np.float32)),
+            scale_factors=[1 / s, 1 / s]).numpy().transpose(1, 2, 0)
+        want = downscale(hr, s, s, device="cpu")
+        ties[str(s)] = check_ties(got, want, f32, f"make_benchmark x{s}")
+    emit({"phase": "resize_on_card", "hr": list(WARP_OUT),
+          "max_abs_err": rows, "atol": RESIZE_ATOL,
+          "make_benchmark_u8_mismatch_at_ties": ties})
+
+
 def main() -> int:
     import torch
 
@@ -3329,6 +3914,20 @@ def main() -> int:
         resume_phase(dev, train_cfg, final)
         lutft_phase(dev, train_cfg, final, frame)
         imdn_train_phase(dev, root)
+    # -- 32-38. the serving surface: async forms, pinned reuse, streams,
+    # the pinned memory results hold, the daemon, several-input CLI, resize
+    forms = serving_forms({"lerf_g": bank, "lerf_l": bank_l}, params)
+    async_phase(forms, frame)
+    srng = np.random.RandomState(12)
+    lut_pred = forms["lut_g"][0]
+    pinned_reuse_phase(lut_pred, srng)
+    stream_phase(lut_pred, srng)
+    pinned_retention_phase(lut_pred, frame)
+    daemon_phase(lut_pred, forms["net_k4"][0], frame)
+    cli_phase(bank, srng)
+    resize_phase(dev, srng)
+    del forms, lut_pred
+
     g_row = k6_rows[False]
     kernels.append({
         "name": "steering_resize_bwd", "route": "cuda",
@@ -3343,7 +3942,7 @@ def main() -> int:
             "max_abs_err", "ms", "profiler_ms", "plain_ms", "bound_ms",
             "bound_by", "share_of_bound")}})
 
-    # -- 32. result ----------------------------------------------------------
+    # -- 39. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,
@@ -3359,4 +3958,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--http-client"]:
+        sys.exit(http_client(sys.argv[2], int(sys.argv[3]),
+                             float(sys.argv[4])))
     sys.exit(main())

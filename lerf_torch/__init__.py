@@ -8,7 +8,9 @@ stage, resize and warp ops (``ops``), the deploy predictors
 (``pipeline``: the LUT form, the micro-net form and the IMDN form, each in
 LeRF-G and LeRF-L, with SR and its bucketed, dynamic-scale and batched
 serving forms, and the homographic warp and its dynamic, device and
-batched serving forms), the SR and warp evaluation harnesses, training
+batched serving forms, each with its async form), the serving runtime
+(``serve``: the streaming engine and the HTTP daemon), the SR and warp
+evaluation harnesses, the ResizeRight-style ``ops.resize``, training
 (``train``, ``data``: the SRNet ensemble, IMDN2 and LUT fine-tuning, with
 TensorBoard event files beside ``scalars.jsonl``) and the CLIs.  On a CUDA
 device the hot loops run in hand-written kernels (``csrc/``): K1 the
@@ -16,8 +18,7 @@ steerable resize (Gaussian or amplified-linear), K2 a LUT stage, K3 a
 float micro-net ensemble stage, K4 its int8 form, K5 the steerable warp
 (either kernel, any support, a batch of homographies) and K6 the training
 resize's backward; on the CPU they run their plain PyTorch twins.  Not
-ported yet: the async serving forms and multi-device (ROADMAP Queue A
-items 11 and 12).
+ported yet: multi-device (ROADMAP Queue A item 12).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, ``--platform cpu``); asking for ``cuda`` without a

@@ -25,8 +25,13 @@ LeRF-L bank or checkpoint and ``--suppSize`` sets the resample's support.
 ``--matrix a,b,c,...,i --outSize HxW`` switches to the homographic warp
 (out-of-view pixels written black), ``--dynamicWarp`` to its serving form
 ``warp_dynamic`` (bit-equal; ``--bucket`` does not change the warp, as in
-lerf_tpu).  One image at a time: several inputs are not ported yet and
-exit with a message saying so.
+lerf_tpu).
+
+``--input`` also takes a directory or a glob; with several inputs
+``--output`` names a directory and, under ``--dynamicSR`` /
+``--dynamicWarp``, the frames run through the pipelined streaming engine
+(:mod:`lerf_torch.serve`): frame k+1's decode and staging overlap frame
+k's device work.  Each output equals the one-image call's.
 """
 from __future__ import annotations
 
@@ -48,6 +53,22 @@ class UpscaleConfig(TestConfig):
     form: str = "lut"            # lut | net | auto
     matrix: str = ""             # 9 comma floats → homography warp mode
     out_size: str = ""           # HxW for warp mode
+
+
+def _expand_inputs(path):
+    import glob
+
+    if os.path.isdir(path):
+        exts = (".png", ".jpg", ".jpeg", ".bmp")
+        files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                       if f.lower().endswith(exts))
+    elif any(ch in path for ch in "*?["):
+        files = sorted(glob.glob(path))
+    else:
+        files = [path]
+    if not files:
+        raise SystemExit(f"no inputs match {path}")
+    return files
 
 
 def _parse_scale(s):
@@ -75,14 +96,6 @@ def _parse_matrix(cfg):
 # package is not importable, missing state-dict keys, an orbax directory
 CHECKPOINT_ERRORS = (OSError, EOFError, pickle.UnpicklingError, ImportError,
                      KeyError, RuntimeError, ValueError, NotImplementedError)
-
-
-def _unported(cfg: UpscaleConfig):
-    """The message for a flag whose path the port does not have yet."""
-    if (os.path.isdir(cfg.input)
-            or any(ch in cfg.input for ch in "*?[")):
-        return "several inputs (ROADMAP Queue A item 11)"
-    return None
 
 
 def build_predictor(cfg: UpscaleConfig):
@@ -114,18 +127,52 @@ def build_predictor(cfg: UpscaleConfig):
     return LutPredictor.from_config(cfg)
 
 
+def _run_stream(cfg, pred, files):
+    """Several inputs: decode and staging pipelined against the device
+    work through :mod:`lerf_torch.serve` (in order, each output equal to
+    the one-image call's)."""
+    from PIL import Image
+
+    from ..serve import stream_upscale, stream_warp
+
+    if os.path.splitext(cfg.output)[1]:
+        raise SystemExit("--output must be a directory for several inputs")
+    os.makedirs(cfg.output, exist_ok=True)
+
+    def load(f):
+        return np.array(Image.open(f).convert("RGB"))
+
+    if cfg.matrix:
+        mat, out_hw = _parse_matrix(cfg)
+        results = stream_warp(pred, ((load(f), mat) for f in files), out_hw,
+                              granularity=cfg.bucket)
+        results = (o * np.asarray(m, o.dtype)[..., None]
+                   for o, m in results)
+    else:
+        sh, sw = _parse_scale(cfg.scale)
+        results = stream_upscale(pred, ((load(f), sh, sw) for f in files),
+                                 granularity=cfg.bucket)
+    for f, out in zip(files, results):
+        dst = os.path.join(cfg.output, os.path.basename(f))
+        Image.fromarray(out).save(dst)
+        print(f"{f} -> {dst} {out.shape[1]}x{out.shape[0]}", flush=True)
+
+
 def main(argv=None):
     from PIL import Image
 
     cfg = parse_config(UpscaleConfig, argv)
     if not cfg.input or not cfg.output:
         raise SystemExit("--input and --output are required")
-    missing = _unported(cfg)
-    if missing:
-        raise SystemExit(f"upscale: {missing} is not ported to lerf_torch "
-                         "yet; use lerf_tpu.cli.upscale")
     pred = build_predictor(cfg)
-    img = np.array(Image.open(cfg.input).convert("RGB"))
+    files = _expand_inputs(cfg.input)
+    if len(files) > 1:
+        if not (cfg.dynamic_sr or (cfg.matrix and cfg.dynamic_warp)):
+            raise SystemExit(
+                "several inputs need the recompile-free serving forms: "
+                "add --dynamicSR (or --dynamicWarp for --matrix mode)")
+        return _run_stream(cfg, pred, files)
+    img = np.array(Image.open(files[0]).convert("RGB"))
     if cfg.matrix:
         mat, out_hw = _parse_matrix(cfg)
         warp = pred.warp_dynamic if cfg.dynamic_warp else pred.warp

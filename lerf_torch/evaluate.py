@@ -134,6 +134,16 @@ def format_sr_row(ds: str, res: Dict, scales) -> str:
     return "\t".join(row)
 
 
+def format_sr_table(dataset_results: Dict[str, Dict], scales) -> str:
+    """Reference-format report table (eval_lut_sr.py:793-811).  Long runs
+    should print the header and each dataset's row as they come instead
+    (:func:`format_sr_header` / :func:`format_sr_row`)."""
+    lines = [format_sr_header(scales)]
+    for ds, res in dataset_results.items():
+        lines.append(format_sr_row(ds, res, scales))
+    return "\n".join(lines)
+
+
 def format_warp_header(scale_ps=("isc", "osc")) -> str:
     head = ["Scale".ljust(15, " ")]
     for p in scale_ps:

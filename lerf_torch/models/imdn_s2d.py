@@ -207,6 +207,23 @@ def apply_tower_s2d(p2: Dict, x: torch.Tensor, *, block: int, nf: int = 12,
     return depth_to_space(up, b)[:, :, :H, :W]
 
 
+def predict_imdn2_s2d(p2: Dict, x: torch.Tensor, stage: int, *, block: int,
+                      nf: int = 12, norm: int = 255) -> torch.Tensor:
+    """IMDN2.predict (model.py:526-537) on s2d-converted params ``p2``
+    (:func:`convert_imdn2`, lerf_tpu's flax layout): ``x`` NHWC in [0, 1]
+    on any device → stage 1's feature in [0, 2·(norm//2)] or stage 2's
+    hyper maps in [0, 1], NHWC, under :func:`cudnn_fp32`
+    (``lerf_tpu.models.imdn_s2d.predict_imdn2_s2d``)."""
+    tower = _torch_tower(p2["params"][f"stage{stage}"], x.device)
+    with torch.no_grad(), cudnn_fp32():
+        y = apply_tower_s2d(tower, x.permute(0, 3, 1, 2), block=block,
+                            nf=nf).permute(0, 2, 3, 1)
+    half = norm // 2
+    if stage == 2:
+        return torch.clamp(y, -1, 1) / 2 + 0.5
+    return torch.clamp(y, -1, 1) * half + half
+
+
 def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",
                        block: int = 2, norm: int = 255, out_c: int = 3,
                        device=None):

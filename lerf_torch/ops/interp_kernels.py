@@ -1,5 +1,6 @@
 """Fixed interpolation kernels: the five 1-D kernels of the reference
-(``resize_right/interp_methods.py:35-95``), each with its support size.
+(``resize_right/interp_methods.py:35-95``), each with its support size,
+and their separable 2-D products.
 
 A copy of ``lerf_tpu/ops/interp_kernels.py`` (whose module imports
 ``jax.numpy``): the torch functions for device tensors and the numpy
@@ -59,6 +60,31 @@ def box(x):
     return one * ((-1 <= x) & (x < 0)) + one * ((0 <= x) & (x <= 1))
 
 
+@_support(4)
+def cubic2d(x, y):
+    return cubic(x) * cubic(y)
+
+
+@_support(2)
+def linear2d(x, y):
+    return linear(x) * linear(y)
+
+
+@_support(1)
+def box2d(x, y):
+    return box(x) * box(y)
+
+
+@_support(4)
+def lanczos2d(x, y):
+    return lanczos2(x) * lanczos2(y)
+
+
+@_support(6)
+def lanczos3d(x, y):
+    return lanczos3(x) * lanczos3(y)
+
+
 def np_cubic(x):
     absx = np.abs(x)
     absx2 = absx ** 2
@@ -102,3 +128,19 @@ KERNELS_1D = {
     "lanczos2": lanczos2,
     "lanczos3": lanczos3,
 }
+
+KERNELS_2D = {
+    "cubic": cubic2d,
+    "linear": linear2d,
+    "box": box2d,
+    "lanczos2": lanczos2d,
+    "lanczos3": lanczos3d,
+}
+
+
+def get_kernel2d(name: str):
+    try:
+        return KERNELS_2D[name]
+    except KeyError:
+        raise ValueError(f"unknown interpolation kernel {name!r}; "
+                         f"available: {sorted(KERNELS_2D)}") from None

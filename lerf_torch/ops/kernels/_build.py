@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", ARCH, "--fmad=false", "-Xptxas=-v",
               "-Xcompiler", "-fPIC"]
 
 _lib = None
+_lib_lock = threading.Lock()    # one build and load, whichever thread asks first
 
 
 def _nvcc() -> str:
@@ -151,9 +153,11 @@ def library():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()[0])
-        _declare(lib)
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                lib = ctypes.CDLL(build()[0])
+                _declare(lib)
+                _lib = lib
     return _lib
 
 

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from . import interp_kernels
 from .geometry import (ResizeGeometry, WarpGeometry, _warp_axis, _warp_grid,
-                       warp_mask_plain)
+                       resolve_scale_and_out_sz, warp_mask_plain)
 from .lut_pipeline import divide_exact, edge_index, split_gaussian_hyper
 
 
@@ -910,3 +910,267 @@ def resize_codes_rings_plain(feat: torch.Tensor, codes: torch.Tensor,
     rho, sx, sy = split_gaussian_hyper(codes, norm)
     return steering_gaussian_resize_rings(featf, rho, sx, sy, rings,
                                           max_sigma=max_sigma, pad=pad)
+
+
+# ---------------------------------------------------------------------------
+# the ResizeRight-style resize API (benchmark data preparation)
+# ---------------------------------------------------------------------------
+
+_KERNEL_SUPPORT = {"cubic": 4, "linear": 2, "box": 1, "lanczos2": 4,
+                   "lanczos3": 6}
+
+
+def _axis_phase_weights(in_sz: int, out_sz: int, frac, kernel: str,
+                        antialias: bool):
+    """Host float64 taps of each phase for an exact-rational scale p/q
+    (the reference's by_convs weights, resize_right.py:130-155,210-218):
+    only the first p outputs are evaluated; phase k's filter applies at
+    input offset ``left[k] + m·q`` for output ``m·p + k``.  Returns (p, q,
+    lefts [p], weights [p, T] float64)."""
+    import math
+
+    p, q = frac.numerator, frac.denominator
+    sf = float(frac)
+    kern1d = interp_kernels.NP_KERNELS_1D[kernel]
+    support = float(_KERNEL_SUPPORT[kernel])
+    scale_w = 1.0
+    if antialias and sf < 1.0:
+        support = support / sf
+        scale_w = sf
+    eps = np.finfo(np.float32).eps
+    grid = (np.arange(p, dtype=np.float64) / sf
+            + (in_sz - 1) / 2 - (out_sz - 1) / (2 * sf))
+    left = np.ceil(grid - support / 2 - eps).astype(np.int64)
+    taps = np.arange(math.ceil(support - eps), dtype=np.float64)
+    w = kern1d(scale_w * (grid[:, None] - (left[:, None] + taps[None, :])))
+    if scale_w != 1.0:
+        w = scale_w * w
+    s = w.sum(1, keepdims=True)
+    s[s == 0] = 1.0
+    return p, q, left, w / s
+
+
+def _axis_resize_by_convs(x: torch.Tensor, out_sz: int, frac, kernel: str,
+                          antialias: bool, pad_mode: str, axis: int):
+    """One axis of the by_convs path: p phases, each T strided slices
+    summed with its float32 taps, then the phases interleaved (lerf_tpu's
+    form of the reference's strided correlations,
+    resize_right.py:255-281)."""
+    in_sz = x.shape[axis]
+    p, q, left, w64 = _axis_phase_weights(in_sz, out_sz, frac, kernel,
+                                          antialias)
+    t_taps = w64.shape[1]
+    pad0 = int(max(0, -left.min()))
+    # every phase's tap slices span (n_max-1)*q whatever the count of its
+    # outputs that survive the final trim, so the pad covers n_max
+    n_max = (out_sz - 1) // p + 1
+    need = int(left.max()) + pad0 + (n_max - 1) * q + t_taps
+    pad1 = int(max(0, need - (in_sz + pad0)))
+    pad_cfg = ((pad0, pad1), (0, 0)) if axis in (-2, x.ndim - 2) \
+        else ((0, 0), (pad0, pad1))
+    xp = pad2d(x, pad_cfg[0], pad_cfg[1], pad_mode)
+
+    pos = axis if axis >= 0 else x.ndim + axis
+    phases = []
+    for k in range(p):
+        start = int(left[k]) + pad0
+        acc = None
+        for t in range(t_taps):
+            idx = [slice(None)] * x.ndim
+            idx[pos] = slice(start + t, start + t + (n_max - 1) * q + 1, q)
+            # the tap in x's type, as lerf_tpu multiplies it
+            term = float(np.asarray(w64[k, t], np.float32)) * xp[tuple(idx)]
+            acc = term if acc is None else acc + term
+        phases.append(acc)
+    stacked = torch.stack(phases, dim=pos + 1)      # [.., n_max, p, ..]
+    shape = list(stacked.shape)
+    shape[pos:pos + 2] = [n_max * p]
+    out = stacked.reshape(shape)
+    idx = [slice(None)] * x.ndim
+    idx[pos] = slice(0, out_sz)
+    return out[tuple(idx)]
+
+
+def _pad1d_last(x: torch.Tensor, pad0: int, pad1: int, pad_mode: str):
+    """Pad (or crop, for negative pads) the LAST axis."""
+    if pad0 < 0:
+        x = x[..., -pad0:]
+        pad0 = 0
+    if pad1 < 0:
+        x = x[..., :x.shape[-1] + pad1]
+        pad1 = 0
+    if pad0 == 0 and pad1 == 0:
+        return x
+    if pad_mode in ("edge", "replicate"):
+        return x.index_select(-1, edge_index(x.shape[-1], pad0, pad1,
+                                             x.device))
+    if pad_mode != "constant":
+        raise KeyError(pad_mode)
+    return F.pad(x, (pad0, pad1))
+
+
+def _axis_resize_generic(x: torch.Tensor, out_n: int, sf: float, kernel: str,
+                         antialiasing: bool, pad_mode: str, axis: int):
+    """1-D separable resize along ``axis``, the vendored resize_right's
+    per-dim step (resize_right.py:76-127): per-dim antialias scale (not
+    the 2-D path's min-scale), per-dim weight normalization
+    (resize_right.py:208-218), float64 host weights."""
+    from .geometry import _resize_axis
+
+    in_n = x.shape[axis]
+    base = _KERNEL_SUPPORT[kernel]
+    m = float(sf) if (antialiasing and sf < 1.0) else 1.0
+    support = int(np.ceil(base / m))
+    fov, dis, (pad0, pad1) = _resize_axis(in_n, out_n, sf, support)
+    kern1d = interp_kernels.NP_KERNELS_1D[kernel]
+    w = kern1d(m * dis)                       # [out, S] float64
+    w = w / w.sum(-1, keepdims=True)          # per-dim normalize
+    x = torch.movedim(x, axis, -1)
+    xp = _pad1d_last(x, pad0, pad1, pad_mode)
+    g = xp[..., torch.from_numpy(fov.astype(np.int64)).to(x.device)]
+    wt = torch.from_numpy(w.astype(np.float32)).to(x.device, x.dtype)
+    out = torch.sum(g * wt, dim=-1)           # [..., out]
+    return torch.movedim(out, -1, axis)
+
+
+def _resolve_nd_spec(in_shape, scale_factors, out_shape):
+    """Full-length (per-dim) scale and out lists from partial specs, the
+    trailing-dims convention (the vendored reference's torch convention,
+    resize_right.py:292-318: arrays are [..., C, H, W]-style, so defaulting
+    the leading dims would resize channels)."""
+    from math import ceil as _ceil
+
+    nd = len(in_shape)
+    if scale_factors is None and out_shape is None:
+        raise ValueError("need scale_factors and/or out_shape")
+    if out_shape is not None:
+        if len(out_shape) > nd:
+            raise ValueError(
+                f"out_shape has {len(out_shape)} entries for a "
+                f"{nd}-d array (the vendored resize_right errors here too)")
+        out_shape = list(in_shape[:nd - len(out_shape)]) \
+            + [int(v) for v in out_shape]
+        if scale_factors is None:
+            scale_factors = [o / i for o, i in zip(out_shape, in_shape)]
+    if scale_factors is not None:
+        if not isinstance(scale_factors, (list, tuple)):
+            scale_factors = [scale_factors, scale_factors]
+        if len(scale_factors) > nd:
+            raise ValueError(
+                f"scale_factors has {len(scale_factors)} entries for a "
+                f"{nd}-d array")
+        scale_factors = [1.0] * (nd - len(scale_factors)) \
+            + [float(s) for s in scale_factors]
+        if out_shape is None:
+            out_shape = [_ceil(s * i)
+                         for s, i in zip(scale_factors, in_shape)]
+    return scale_factors, out_shape
+
+
+def _snapped(sf: float, max_numerator: int):
+    """The scale snapped to an exact fraction p/q as the reference does
+    (``Fraction(1/sf).limit_denominator(max_numerator)`` inverted,
+    resize_right.py:327-342)."""
+    from fractions import Fraction
+
+    frac = Fraction(1.0 / sf).limit_denominator(max_numerator)
+    return Fraction(frac.denominator, frac.numerator)
+
+
+def resize(img: torch.Tensor, scale_factors=None, out_shape=None, *,
+           interp_method: str = "cubic", antialiasing: bool = True,
+           pad_mode: str = "constant", by_convs: bool = False,
+           max_numerator: int = 10, scale_tolerance=None):
+    """ResizeRight-style resize (``lerf_tpu.ops.resample.resize``; the
+    vendored ``resize_right.py:36-127`` of the reference, used there to
+    prepare benchmark LR data), on a float tensor of any device.
+
+    img: [..., H, W] with a spatial spec (≤ 2 entries) takes the 2-D
+    path: a :class:`ResizeGeometry` with the kernel's support and
+    antialiased downscaling through :func:`fixed_kernel_resize`.  A spec
+    LONGER than 2 entries resizes any dims like the vendored N-D original
+    (trailing-dims convention): each scaled dim on its own, in ascending
+    order of scale, with per-dim antialiasing and weight normalization.
+
+    ``by_convs=True`` mirrors the reference's strided-conv path for
+    rational scales (resize_right.py:221-281): scales snapped to exact
+    fractions p/q, each axis resized on its own (ascending by scale) by p
+    strided phases; a dim whose scale is not within ``scale_tolerance`` of
+    a fraction takes the generic path, as in the reference.
+    """
+    spec_len = max(
+        len(scale_factors) if isinstance(scale_factors, (list, tuple)) else 1,
+        len(out_shape) if out_shape is not None else 1)
+    if spec_len > 2:
+        return _resize_nd(img, scale_factors, out_shape,
+                          interp_method=interp_method,
+                          antialiasing=antialiasing, pad_mode=pad_mode,
+                          by_convs=by_convs, max_numerator=max_numerator,
+                          scale_tolerance=scale_tolerance)
+
+    support = _KERNEL_SUPPORT[interp_method]
+    in_hw = tuple(img.shape[-2:])
+    scale_factors, out_shape = resolve_scale_and_out_sz(
+        in_hw, scale_factors, out_shape)
+
+    if not by_convs:
+        geom = ResizeGeometry.create(
+            in_hw, scale_factors=list(scale_factors),
+            out_sz=tuple(out_shape), support=support, antialias=antialiasing)
+        return fixed_kernel_resize(img, geom, interp_method,
+                                   pad_mode=pad_mode)
+
+    tol = np.finfo(np.float32).eps if scale_tolerance is None \
+        else scale_tolerance
+    out = img
+    # dims sorted ascending by scale, scale-1 dims skipped
+    # (resize_right.py:60-64)
+    for d in sorted((0, 1), key=lambda d: scale_factors[d]):
+        sf = scale_factors[d]
+        if sf == 1.0 and out_shape[d] == out.shape[-2 + d]:
+            continue
+        frac = _snapped(sf, max_numerator)
+        if abs(float(frac) - sf) < tol:
+            out = _axis_resize_by_convs(out, out_shape[d], frac,
+                                        interp_method, antialiasing,
+                                        pad_mode, -2 + d)
+        else:
+            # this dim on the generic path, like the reference's mixed
+            # by_convs
+            sz = list(out.shape[-2:])
+            sz[d] = out_shape[d]
+            geom = ResizeGeometry.create(
+                tuple(out.shape[-2:]),
+                scale_factors=[sf if i == d else 1.0 for i in (0, 1)],
+                out_sz=tuple(sz), support=support, antialias=antialiasing)
+            out = fixed_kernel_resize(out, geom, interp_method,
+                                      pad_mode=pad_mode)
+    return out
+
+
+def _resize_nd(img: torch.Tensor, scale_factors, out_shape, *,
+               interp_method: str, antialiasing: bool, pad_mode: str,
+               by_convs: bool, max_numerator: int, scale_tolerance):
+    """The N-D resize, the vendored ``resize_right.py:36-127`` dim loop:
+    full-length specs, scaled dims in ascending order of scale, each on
+    its own (strided phases where ``by_convs`` snaps its scale to an exact
+    fraction, else the separable 1-D gather)."""
+    scale_factors, out_shape = _resolve_nd_spec(tuple(img.shape),
+                                                scale_factors, out_shape)
+    tol = np.finfo(np.float32).eps if scale_tolerance is None \
+        else scale_tolerance
+    out = img
+    for d in sorted(range(img.ndim), key=lambda d: scale_factors[d]):
+        sf = scale_factors[d]
+        if sf == 1.0 and out_shape[d] == out.shape[d]:
+            continue
+        frac = _snapped(sf, max_numerator) if by_convs else None
+        if frac is not None and abs(float(frac) - sf) < tol:
+            moved = _axis_resize_by_convs(torch.movedim(out, d, -1),
+                                          out_shape[d], frac, interp_method,
+                                          antialiasing, pad_mode, -1)
+            out = torch.movedim(moved, -1, d)
+        else:
+            out = _axis_resize_generic(out, out_shape[d], sf, interp_method,
+                                       antialiasing, pad_mode, d)
+    return out

@@ -36,6 +36,7 @@ host geometry made for the call.
 from __future__ import annotations
 
 import copy
+import threading
 from collections import OrderedDict
 from typing import Dict, Tuple
 
@@ -155,15 +156,71 @@ def _unported(what: str, item: str):
                                f"(ROADMAP Queue A item {item})")
 
 
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (on the card) into a pinned host tensor of PyTorch's caching
+    host allocator, without blocking, on the current stream; the allocator
+    keeps the block from reuse until the copy is done and the tensor is
+    freed."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+class ServingFuture:
+    """An in-flight request (``lerf_tpu.pipeline.ServingFuture``): its host
+    work done and its device work dispatched, its device→host copy not yet
+    awaited.  ``result()`` waits for the copy (on a card the request's CUDA
+    event; an error of the device work surfaces there), finishes the host
+    part and is idempotent.  On the CPU a request computes at dispatch and
+    its future is :meth:`resolved`.
+
+    Serving loops hold a bounded queue of these (:mod:`lerf_torch.serve`),
+    so that the host work of frame k+1 overlaps the device work and copies
+    of frame k."""
+    __slots__ = ("_finish", "_value")
+
+    def __init__(self, finish):
+        self._finish = finish
+
+    @classmethod
+    def resolved(cls, value):
+        """A future that already holds its value."""
+        fut = cls(None)
+        fut._value = value
+        return fut
+
+    def result(self):
+        if self._finish is not None:
+            self._value = self._finish()
+            self._finish = None
+        return self._value
+
+
 class _Predictor:
     """What the deploy forms share: the resize and warp after the stages,
     and the serving forms.  A form supplies ``_input`` (its device input
-    from [..., C, H, W] uint8 / float pixels), ``_stages`` (→ feat [..., H,
-    W] and hyper [..., H, W, oC]: int32 codes in the LUT and SRNet forms,
-    float32 maps in [0, 1] in the IMDN form; K1 and K5 take either) and
-    ``_aux`` (the types ``return_aux`` gives).  The kernel is the steerable
-    Gaussian, or with ``linear`` the amplified-linear one on the first
-    hyper channel."""
+    from [..., C, H, W] uint8 / float pixels on the host), ``_cast`` (the
+    same from a uint8 [..., C, H, W] view on the card), ``_stages`` (→ feat
+    [..., H, W] and hyper [..., H, W, oC]: int32 codes in the LUT and SRNet
+    forms, float32 maps in [0, 1] in the IMDN form; K1 and K5 take either)
+    and ``_aux`` (the types ``return_aux`` gives).  The kernel is the
+    steerable Gaussian, or with ``linear`` the amplified-linear one on the
+    first hyper channel.
+
+    Every request form (SR and warp, static, dynamic, device and batched,
+    and the ``*_async`` forms, whose synchronous forms are ``async(...)
+    .result()``) goes through :meth:`_request`: on a card its device work
+    runs on the predictor's side stream, its frame is staged up through
+    pinned memory as uint8 and comes back through pinned memory.
+
+    So on a card every result (frame, mask, aux) is a numpy view of a
+    pinned tensor of PyTorch's caching host allocator.  Its block returns
+    to the allocator's pool when the last view of it is freed, and later
+    requests reuse it; the pool never gives blocks back to the system.  A
+    caller that keeps N results keeps N results' pinned blocks (each
+    rounded up by the allocator), and the pool stays at its largest for
+    the life of the process; ``.copy()`` a result that is kept for long
+    to hold it in pageable memory instead."""
 
     def _init_serving(self, *, linear, supp_size, max_sigma, norm, device):
         self.device = resolve_device(device)
@@ -174,6 +231,11 @@ class _Predictor:
         self._resize_cache: Dict = {}
         self._serving_cache: OrderedDict = OrderedDict()
         self._warp_cache: OrderedDict = OrderedDict()
+        # a request's device work runs on the side stream; one request
+        # dispatches at a time, from any thread
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._lock = threading.RLock()
 
     def _skips(self, scale_h: float, scale_w: float) -> bool:
         """Whether a scale skips the stages (the net form at scale 1)."""
@@ -196,6 +258,75 @@ class _Predictor:
         return (feat.reshape(-1, h, w),
                 hyper.reshape(-1, h, w, hyper.shape[-1]))
 
+    # -- requests: staging, the side stream, the future ----------------------
+
+    def _upload(self, imgs) -> torch.Tensor:
+        """Host image(s) [..., H, W, C] → the form's input [..., C, H, W] on
+        the device.  On a card a uint8 frame is copied into a pinned tensor
+        of PyTorch's caching host allocator (which keeps the block from
+        reuse until the copy out of it is done) and up without blocking, on
+        the current stream (a request's side stream); the layout change
+        and the form's cast (:meth:`_cast`) run on the card.  The CPU, and
+        any other type, take the form's host :meth:`_input`."""
+        img = np.asarray(imgs)
+        if self._stream is None or img.dtype != np.uint8:
+            return self._input(np.ascontiguousarray(np.moveaxis(img, -1, -3)))
+        pinned = torch.empty(img.shape, dtype=torch.uint8, pin_memory=True)
+        np.copyto(pinned.numpy(), img)
+        return self._cast(pinned.to(self.device, non_blocking=True)
+                          .movedim(-1, -3))
+
+    def _request(self, dispatch, then=None) -> ServingFuture:
+        """One request.  ``dispatch()`` enqueues its device work and returns
+        (frame [..., C, oH, oW], extras: device tensors or host arrays to
+        return beside it); the value is the uint8 frame [..., oH, oW, C], or
+        (frame, *extras) as host arrays, and ``then(value)`` runs on it
+        once.  Dispatch holds the predictor's lock.
+
+        On a card it all runs on the predictor's side stream, which first
+        waits for the caller's current stream (where the tables and the
+        static operands may have been made); the frame is laid out [...,
+        oH, oW, C] on the card, and it and the extras are copied into
+        pinned tensors without blocking; an event marks the end.
+        ``result()`` waits for the event and returns the pinned tensors'
+        ``.numpy()`` views, which keep the tensors (and so their blocks)
+        alive.  Every serving-cache entry is made and read on this stream,
+        so an entry evicted while a kernel still reads it returns its
+        blocks to this stream's pool, where only work queued after that
+        kernel can take them.  On the CPU it computes now and the future
+        is resolved."""
+        with self._lock:
+            if self._stream is None:
+                frame, extras = dispatch()
+                return ServingFuture.resolved(self._value(
+                    frame.movedim(-3, -1).numpy(),
+                    [e.numpy() if isinstance(e, torch.Tensor) else e
+                     for e in extras], then))
+            caller = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_stream(caller)
+                frame, extras = dispatch()
+                host = [_pinned_copy(frame.movedim(-3, -1))] + [
+                    _pinned_copy(e) if isinstance(e, torch.Tensor) else e
+                    for e in extras]
+                done = torch.cuda.Event()
+                done.record()
+
+        def finish():
+            done.synchronize()
+            return self._value(host[0].numpy(), [
+                e.numpy() if isinstance(e, torch.Tensor) else e
+                for e in host[1:]], then)
+
+        return ServingFuture(finish)
+
+    def _value(self, frame: np.ndarray, extras, then):
+        value = (_quantize_host(frame, self.norm), *extras)
+        value = value if extras else value[0]
+        if then is not None:
+            then(value)
+        return value
+
     # -- SR -----------------------------------------------------------------
 
     def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
@@ -215,16 +346,11 @@ class _Predictor:
                                   linear=self.linear, operands=operands,
                                   out_dtype=_out_dtype(self.norm))
 
-    def _host_frame(self, out: torch.Tensor) -> np.ndarray:
-        """uint8 [..., C, oH, oW] on the device → [..., oH, oW, C] on the
-        host."""
-        u8 = _quantize_host(out.cpu().numpy(), self.norm)
-        return np.moveaxis(u8, -3, -1)
-
     def run_device(self, x: torch.Tensor, scale: Tuple[float, float]):
         """The device part of a frame: the input [C, H, W] (or a batch [B,
         C, H, W]) on ``self.device`` (``_input``) → (uint8 [C, oH, oW], or
-        [B·C, oH, oW] for a batch, feat, hyper), all on the device."""
+        [B·C, oH, oW] for a batch, feat, hyper), all on the device, on the
+        current stream."""
         geom, operands = self._resize_fn(tuple(x.shape[-2:]), scale)
         feat, hyper = self._stages(x)
         return (self._resize(*self._fold(feat, hyper), geom, operands),
@@ -233,16 +359,18 @@ class _Predictor:
     def upscale(self, img_hwc: np.ndarray, scale_h: float, scale_w: float,
                 return_aux: bool = False):
         """uint8/float [H,W,C] → uint8 [outH,outW,C]; with ``return_aux``
-        also feat and hyper in the types ``lerf_tpu`` returns."""
+        also feat and hyper in the types ``lerf_tpu`` returns.
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
         sh, sw = float(scale_h), float(scale_w)
-        chw = _rgb_chw(img_hwc)
+        img = _rgb_hwc(img_hwc)
         if self._skips(sh, sw):
-            return self._skip(chw).transpose(1, 2, 0)
-        out, feat, hyper = self.run_device(self._input(chw), (sh, sw))
-        out_u8 = self._host_frame(out)
-        if return_aux:
-            return (out_u8,) + self._aux(feat, hyper)
-        return out_u8
+            return self._skip(_rgb_chw(img)).transpose(1, 2, 0)
+
+        def dispatch():
+            out, feat, hyper = self.run_device(self._upload(img), (sh, sw))
+            return out, self._aux(feat, hyper) if return_aux else ()
+
+        return self._request(dispatch).result()
 
     def upscale_bucketed(self, img_hwc: np.ndarray, scale_h: float,
                          scale_w: float, granularity: int = 64):
@@ -259,55 +387,82 @@ class _Predictor:
     def _serving_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
         """(serving geometry, its K1 operands on a card, else ``None``) for
         one (in_sz, scale), or ``None`` outside the dynamic envelope; the
-        last :data:`SERVING_CACHE_SIZE` kept."""
+        last :data:`SERVING_CACHE_SIZE` kept.  The operands are made on
+        the side stream, where the requests read them (see
+        :meth:`_request`)."""
         def make():
             ops = _dyn_resize_host(in_sz, *scale, self.supp_size)
             if ops is None:
                 return None
-            if self.device.type != "cuda":
+            if self._stream is None:
                 return ops, None
-            return ops, k1.ResizeOperands.from_serving(ops, self.device,
-                                                       linear=self.linear)
+            with torch.cuda.stream(self._stream):
+                return ops, k1.ResizeOperands.from_serving(
+                    ops, self.device, linear=self.linear)
         return _lru(self._serving_cache, (tuple(in_sz), scale), make,
                     SERVING_CACHE_SIZE)
+
+    def upscale_dynamic_async(self, img_hwc: np.ndarray, scale_h: float,
+                              scale_w: float,
+                              granularity: int = 0) -> ServingFuture:
+        """Non-blocking :meth:`upscale_dynamic` (``lerf_tpu``'s
+        ``upscale_dynamic_async``): the frame staged and the stages and K1
+        enqueued now; ``result()`` waits for the copy down.  A request
+        outside the dynamic envelope resolves now through :meth:`upscale`,
+        as lerf_tpu's does."""
+        img = _rgb_hwc(img_hwc)
+        scale = (float(scale_h), float(scale_w))
+        with self._lock:
+            entry = self._serving_fn(img.shape[:2], scale)
+        if entry is None:
+            return ServingFuture.resolved(self.upscale(img, *scale))
+        ops, operands = entry
+
+        def dispatch():
+            feat, hyper = self._stages(self._upload(img))
+            return k1.steering_resize_serving(
+                feat, self._codes(hyper), ops, operands=operands,
+                max_sigma=self.max_sigma, norm=self.norm, linear=self.linear,
+                out_dtype=_out_dtype(self.norm)), ()
+
+        return self._request(dispatch)
 
     def upscale_dynamic(self, img_hwc: np.ndarray, scale_h: float,
                         scale_w: float, granularity: int = 0):
         """Arbitrary-scale SR through the serving geometry (``lerf_tpu``'s
-        ``upscale_dynamic``, synchronous): per axis the left neighbour in a
+        ``upscale_dynamic``): per axis the left neighbour in a
         fixed-pad frame and the float64 distances
         (:class:`~lerf_torch.ops.geometry.ResizeOperands`).  Antialiased
         downscales serve down to scale 1/32; scale 1, support ≠ 2 and
-        smaller scales take :meth:`upscale`.  ``granularity`` (lerf_tpu's
-        bucket frame, one compiled program a bucket) changes nothing here:
-        PyTorch compiles nothing per shape.  Bit-equal to :meth:`upscale`:
-        on the CPU the rings resize, on a card K1 on the serving geometry's
-        true support (``kernels.resize.steering_resize_serving``)."""
-        img = _rgb_hwc(img_hwc)
-        entry = self._serving_fn(img.shape[:2],
-                                 (float(scale_h), float(scale_w)))
-        if entry is None:
-            return self.upscale(img, scale_h, scale_w)
-        ops, operands = entry
-        feat, hyper = self._stages(self._input(_rgb_chw(img)))
-        return self._host_frame(k1.steering_resize_serving(
-            feat, self._codes(hyper), ops, operands=operands,
-            max_sigma=self.max_sigma, norm=self.norm, linear=self.linear,
-            out_dtype=_out_dtype(self.norm)))
+        smaller scales take :meth:`upscale`.  ``granularity``
+        (lerf_tpu's bucket frame, one compiled program a bucket) changes
+        nothing here: PyTorch compiles nothing per shape.  Bit-equal to
+        :meth:`upscale`: on the CPU the rings resize, on a card K1 on the
+        serving geometry's true support
+        (``kernels.resize.steering_resize_serving``).
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
+        return self.upscale_dynamic_async(img_hwc, scale_h, scale_w,
+                                          granularity).result()
 
     def upscale_batch(self, imgs_bhwc: np.ndarray, scale_h: float,
                       scale_w: float) -> np.ndarray:
         """uint8 [B,H,W,C] → uint8 [B,outH,outW,C] (``lerf_tpu``'s
         ``upscale_batch``): the stages on the batch [B, C, H, W], their
         outputs folded into the channel axis for the resize, so the whole
-        batch is one launch of each kernel."""
-        bchw = np.ascontiguousarray(np.asarray(imgs_bhwc).transpose(0, 3, 1, 2))
-        b, c = bchw.shape[:2]
+        batch is one launch of each kernel.
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
+        imgs = np.asarray(imgs_bhwc)
+        b, c = imgs.shape[0], imgs.shape[-1]
         sh, sw = float(scale_h), float(scale_w)
         if self._skips(sh, sw):
-            return self._skip(bchw).transpose(0, 2, 3, 1)
-        out, _, _ = self.run_device(self._input(bchw), (sh, sw))
-        return self._host_frame(out.reshape(b, c, *out.shape[-2:]))
+            return self._skip(np.ascontiguousarray(
+                imgs.transpose(0, 3, 1, 2))).transpose(0, 2, 3, 1)
+
+        def dispatch():
+            out, _, _ = self.run_device(self._upload(imgs), (sh, sw))
+            return out.reshape(b, c, *out.shape[-2:]), ()
+
+        return self._request(dispatch).result()
 
     # -- warp ---------------------------------------------------------------
 
@@ -325,24 +480,35 @@ class _Predictor:
         return out if out.dtype == torch.uint8 \
             else torch.nan_to_num(out, nan=0.0)
 
-    def run_warp_device(self, x: torch.Tensor, matrix: np.ndarray,
-                        out_sz: Tuple[int, int]):
-        """The device part of a warped frame: the input [C, H, W] on
-        ``self.device`` → (uint8 [C, oH, oW], feat, hyper), all on the
-        device: the stages, then K5 in uint8 mode (NaN windows → 0).  On a
-        homography's first call on a card K5 also writes the validity mask
-        in the same launch, and its host copy is kept with the warp.
-        Integer stage codes K5 takes as the JAX path's u8 rows do, float
-        maps as its float rows."""
+    def _warp_static(self, x: torch.Tensor, matrix, out_sz):
+        """The stages and K5 of a warp kept per (in_sz, matrix, out_sz) →
+        (out, the mask K5 wrote on the card or ``None``, the cache entry,
+        feat, hyper): on the key's first call on a card K5 writes the mask
+        in the same launch, and the caller keeps its host copy in the
+        entry; afterwards (and on the CPU) the entry holds it."""
         entry = _warp_entry(self._warp_cache, tuple(x.shape[-2:]), matrix,
                             tuple(out_sz), self.supp_size, self.device)
         feat, hyper = self._stages(x)
         if entry[1] is not None:
-            return self._warp_out(feat, hyper, entry[0]), feat, hyper
+            return self._warp_out(feat, hyper, entry[0]), None, entry, \
+                feat, hyper
         mask = torch.empty(tuple(out_sz), dtype=torch.bool,
                            device=self.device)
-        out = self._warp_out(feat, hyper, entry[0], mask)
-        entry[1] = mask.cpu().numpy()
+        return self._warp_out(feat, hyper, entry[0], mask), mask, entry, \
+            feat, hyper
+
+    def run_warp_device(self, x: torch.Tensor, matrix: np.ndarray,
+                        out_sz: Tuple[int, int]):
+        """The device part of a warped frame: the input [C, H, W] on
+        ``self.device`` → (uint8 [C, oH, oW], feat, hyper), all on the
+        device, on the current stream: the stages, then K5 in uint8 mode
+        (NaN windows → 0).  On a homography's first call on a card K5 also
+        writes the validity mask in the same launch, and its host copy is
+        kept with the warp.  Integer stage codes K5 takes as the JAX
+        path's u8 rows do, float maps as its float rows."""
+        out, mask, entry, feat, hyper = self._warp_static(x, matrix, out_sz)
+        if mask is not None:
+            entry[1] = mask.cpu().numpy()
         return out, feat, hyper
 
     def warp(self, img_hwc: np.ndarray, matrix: np.ndarray,
@@ -355,17 +521,27 @@ class _Predictor:
         the mask excludes them from mPSNR.  The warp's parameters (or on
         the CPU its host geometry) and the mask are cached per (image
         size, matrix, out size), for the last :data:`WARP_CACHE_SIZE`
-        keys: a homography seen before runs K5 without the mask."""
-        chw = _rgb_chw(img_hwc)
+        keys: a homography seen before runs K5 without the mask.
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
+        img = _rgb_hwc(img_hwc)
         out_sz = tuple(int(v) for v in out_hw)
-        out, feat, hyper = self.run_warp_device(self._input(chw), matrix,
-                                                out_sz)
-        mask = _warp_entry(self._warp_cache, chw.shape[1:], matrix, out_sz,
-                           self.supp_size, self.device)[1].copy()
-        out_u8 = self._host_frame(out)
-        if return_aux:
-            return (out_u8, mask) + self._aux(feat, hyper)
-        return out_u8, mask
+        first = []
+
+        def dispatch():
+            out, mask, entry, feat, hyper = self._warp_static(
+                self._upload(img), matrix, out_sz)
+            if mask is None:
+                mask = entry[1].copy()
+            else:
+                first.append(entry)
+            return out, (mask,) + (self._aux(feat, hyper) if return_aux
+                                   else ())
+
+        def then(value):
+            for entry in first:          # keep the mask K5 wrote
+                entry[1] = value[1].copy()
+
+        return self._request(dispatch, then).result()
 
     # -- warp serving ---------------------------------------------------------
 
@@ -380,8 +556,7 @@ class _Predictor:
         and no per-pixel upload; on the CPU the plain twin frame by frame,
         from the host geometry and mask of each frame's matrix."""
         b, h, w, c = imgs_bhwc.shape
-        feat, hyper = self._stages(self._input(
-            np.ascontiguousarray(imgs_bhwc.transpose(0, 3, 1, 2))))
+        feat, hyper = self._stages(self._upload(imgs_bhwc))
         warps = [WarpParams.create((h, w), m, out_sz, support=self.supp_size)
                  for m in matrices]
         masks = torch.empty((b,) + out_sz, dtype=torch.bool,
@@ -389,24 +564,43 @@ class _Predictor:
         out = self._warp_out(*self._fold(feat, hyper), warps, masks)
         return out.reshape(b, c, *out_sz), masks, feat, hyper
 
+    def warp_dynamic_async(self, img_hwc: np.ndarray, matrix: np.ndarray,
+                           out_hw: Tuple[int, int], return_aux: bool = False,
+                           granularity: int = 0) -> ServingFuture:
+        """Non-blocking :meth:`warp_dynamic` (``lerf_tpu``'s
+        ``warp_dynamic_async``): the frame staged and the stages and K5
+        enqueued now; ``result()`` waits for the copies down."""
+        img = _rgb_hwc(img_hwc)[None]
+        matrix = np.asarray(matrix, np.float64)
+        out_sz = tuple(int(v) for v in out_hw)
+
+        def dispatch():
+            out, mask, feat, hyper = self._serve_warps(img, [matrix], out_sz)
+            return out[0], (mask[0],) + (self._aux(feat[0], hyper[0])
+                                         if return_aux else ())
+
+        return self._request(dispatch)
+
     def warp_dynamic(self, img_hwc: np.ndarray, matrix: np.ndarray,
                      out_hw: Tuple[int, int], return_aux: bool = False,
                      granularity: int = 0):
         """Homographic warp as a serving form, any matrix a request
-        (``lerf_tpu``'s ``warp_dynamic``, synchronous): on a card the
-        stages and one K5 launch from a fresh :class:`WarpParams`, the mask
-        written by K5 (no host geometry, nothing kept per matrix); on the
-        CPU K5's plain twin.  ``granularity`` (lerf_tpu's bucket
-        frame, one compiled program a bucket) changes nothing here:
-        PyTorch compiles nothing per shape.  Bit-equal to :meth:`warp`."""
-        out, mask, feat, hyper = self._serve_warps(
-            _rgb_hwc(img_hwc)[None], [np.asarray(matrix, np.float64)],
-            tuple(int(v) for v in out_hw))
-        out_u8 = self._host_frame(out[0])
-        mask = mask[0].cpu().numpy()
-        if return_aux:
-            return (out_u8, mask) + self._aux(feat[0], hyper[0])
-        return out_u8, mask
+        (``lerf_tpu``'s ``warp_dynamic``): on a card the stages and one K5
+        launch from a fresh :class:`WarpParams`, the mask written by K5 (no
+        host geometry, nothing kept per matrix); on the CPU K5's plain
+        twin.  ``granularity`` (lerf_tpu's bucket frame, one compiled
+        program a bucket) changes nothing here: PyTorch compiles nothing
+        per shape.  Bit-equal to :meth:`warp`.
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
+        return self.warp_dynamic_async(img_hwc, matrix, out_hw, return_aux,
+                                       granularity).result()
+
+    def warp_device_async(self, img_hwc: np.ndarray, matrix: np.ndarray,
+                          out_hw: Tuple[int, int],
+                          granularity: int = 0) -> ServingFuture:
+        """Non-blocking :meth:`warp_device`: :meth:`warp_dynamic_async`."""
+        return self.warp_dynamic_async(img_hwc, matrix, out_hw,
+                                       granularity=granularity)
 
     def warp_device(self, img_hwc: np.ndarray, matrix: np.ndarray,
                     out_hw: Tuple[int, int], granularity: int = 0):
@@ -416,9 +610,10 @@ class _Predictor:
         port, in float64, so this is :meth:`warp_dynamic`: bit-equal to
         :meth:`warp` and to lerf_tpu's ``warp``, where lerf_tpu's own
         float32 device geometry is not.  Returns (uint8 [oH,oW,C], bool
-        mask [oH,oW])."""
-        return self.warp_dynamic(img_hwc, matrix, out_hw,
-                                 granularity=granularity)
+        mask [oH,oW]).
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
+        return self.warp_device_async(img_hwc, matrix, out_hw,
+                                      granularity).result()
 
     def warp_batch(self, imgs_bhwc: np.ndarray, matrices: np.ndarray,
                    out_hw: Tuple[int, int], geometry: str = "host"):
@@ -430,7 +625,8 @@ class _Predictor:
         written in the same launch).  ``geometry`` ("host" or "device",
         lerf_tpu's choice of where its geometry is made) gives the same
         call here: K5 derives it on the card in float64.  Each frame
-        bit-equal to its :meth:`warp`."""
+        bit-equal to its :meth:`warp`.
+        On a card the result views pinned memory (see :class:`_Predictor`)."""
         if geometry not in ("host", "device"):
             raise ValueError(
                 f"geometry={geometry!r}: must be 'host' or 'device'")
@@ -438,20 +634,13 @@ class _Predictor:
         matrices = np.asarray(matrices, dtype=np.float64)
         if matrices.ndim == 2:
             matrices = np.broadcast_to(matrices, (imgs.shape[0], 3, 3))
-        out, mask, _, _ = self._serve_warps(imgs, list(matrices),
-                                            tuple(int(v) for v in out_hw))
-        return self._host_frame(out), mask.cpu().numpy()
+        out_sz = tuple(int(v) for v in out_hw)
 
-    # -- serving forms not ported yet ----------------------------------------
+        def dispatch():
+            out, mask, _, _ = self._serve_warps(imgs, list(matrices), out_sz)
+            return out, (mask,)
 
-    def upscale_dynamic_async(self, *args, **kwargs):
-        raise _unported("async serving (upscale_dynamic_async)", "11")
-
-    def warp_dynamic_async(self, *args, **kwargs):
-        raise _unported("async serving (warp_dynamic_async)", "11")
-
-    def warp_device_async(self, *args, **kwargs):
-        raise _unported("async serving (warp_device_async)", "11")
+        return self._request(dispatch).result()
 
 
 class LutPredictor(_Predictor):
@@ -524,6 +713,12 @@ class LutPredictor(_Predictor):
             raise ValueError("image values must lie in 0..255")
         return torch.from_numpy(x).to(self.device)
 
+    @staticmethod
+    def _cast(u8: torch.Tensor) -> torch.Tensor:
+        """uint8 [..., C, H, W] (any strides, on the card) → the int32
+        input, contiguous; uint8 values lie in 0..255."""
+        return u8.to(torch.int32, memory_format=torch.contiguous_format)
+
     def _stages(self, img_i32: torch.Tensor):
         """img [..., H, W] int32 → (feat int32 [..., H, W], hyper int32
         [..., H, W, oC]).
@@ -544,7 +739,7 @@ class LutPredictor(_Predictor):
         return feat, hyper
 
     def _aux(self, feat, hyper):
-        return feat.cpu().numpy(), hyper.cpu().numpy()
+        return feat, hyper
 
 
 class NetPredictor(_Predictor):
@@ -665,6 +860,14 @@ class NetPredictor(_Predictor):
         return torch.from_numpy(np.asarray(chw).astype(np.float32)
                                 / self.norm).to(self.device)
 
+    def _cast(self, u8: torch.Tensor) -> torch.Tensor:
+        """uint8 [..., C, H, W] (any strides, on the card) → float32 in
+        [0, 1], contiguous: the IEEE division numpy does on the host
+        (:func:`~lerf_torch.ops.lut_pipeline.divide_exact`)."""
+        return divide_exact(u8.to(torch.float32,
+                                  memory_format=torch.contiguous_format),
+                            self.norm)
+
     def _stages(self, img_f: torch.Tensor):
         """img [..., H, W] float32 in [0,1] → (feat [..., H, W], hyper
         [..., H, W, oC]): int32 feature and codes, or float32 feature and
@@ -686,7 +889,6 @@ class NetPredictor(_Predictor):
         """feat float32 (0..255) and hyper float32 in [0,1], the types
         ``lerf_tpu`` returns."""
         if torch.is_floating_point(hyper):
-            return feat.cpu().numpy(), hyper.cpu().numpy()
-        return (feat.cpu().numpy().astype(np.float32),
-                divide_exact(hyper.to(torch.float32), self.norm)
-                .cpu().numpy())
+            return feat, hyper
+        return (feat.to(torch.float32),
+                divide_exact(hyper.to(torch.float32), self.norm))

@@ -37,7 +37,10 @@ K6 (the training resize's backward) sums each gradient term in a fixed
 order, its twin with ``index_add`` (atomics on the card): within 1e-4 of
 each gradient's largest value, and a rerun gives the same bits; the
 training step on the card holds the CPU's within the tolerances its test
-states.
+states.  The async serving forms (uint8 staged through pinned memory,
+cast on the card, on the predictor's side stream) are bit-equal to the
+host-staged path and to their synchronous forms, with requests in
+flight, with cache entries evicted under them and from two threads.
 """
 import math
 
@@ -1738,3 +1741,139 @@ def test_device_dataset_samples_on_card(cuda_device):
     im, lb = ds.sample_batch(gen, 16)
     assert im.device.type == "cuda" and im.shape == (16, 1, 8, 8)
     assert torch.equal(lb[..., ::4, ::4], im)
+
+
+# -- the async forms: pinned staging on the predictor's side stream --------
+
+
+def serving_predictor(form, device):
+    if form in ("lut", "lut_linear"):
+        linear = form == "lut_linear"
+        return LutPredictor(random_bank(out_c=1 if linear else 3),
+                            linear=linear, device=device)
+    if form == "net_k4":
+        return NetPredictor.from_srnets(net_params(nf=8), device=device,
+                                        backend="pallas_int8")
+    return NetPredictor.from_imdn(imdn_model(), device=device)
+
+
+def host_staged(pred, img, scale=None, matrix=None, out_sz=None):
+    """A frame as the forms made it before they staged through pinned
+    memory: the host's layout and cast (``_input``), the device part on
+    the current stream, a pageable copy down."""
+    x = pred._input(np.ascontiguousarray(img.transpose(2, 0, 1)))
+    if matrix is None:
+        out = pred.run_device(x, scale)[0]
+    else:
+        out = pred.run_warp_device(x, matrix, out_sz)[0]
+    return out.cpu().numpy().transpose(1, 2, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["lut", "lut_linear", "net_k4", "imdn"])
+def test_async_forms_on_card_equal_host_staged_path(form, cuda_device):
+    """Each async form's result (uint8 staged up, cast and laid out on the
+    card, fetched through pinned memory on the side stream) is bit-equal
+    to the host-staged path on the current stream and to its synchronous
+    form; one K1 or K5 launch a call."""
+    pred = serving_predictor(form, cuda_device)
+    rng = np.random.RandomState(16)
+    img = rng.randint(0, 256, (45, 77, 3)).astype(np.uint8)
+    mat = jitter_matrix(4, (4.0, 4.0))
+    want = host_staged(pred, img, (4.0, 4.0))
+    before = (k1.launches, k5.launches)
+    got = pred.upscale_dynamic_async(img, 4.0, 4.0).result()
+    assert (k1.launches, k5.launches) == (before[0] + 1, before[1])
+    assert got.flags.c_contiguous and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pred.upscale(img, 4.0, 4.0), want)
+    want_w = host_staged(pred, img, matrix=mat, out_sz=(180, 308))
+    for name in ("warp_dynamic_async", "warp_device_async"):
+        before = (k1.launches, k5.launches)
+        out, mask = getattr(pred, name)(img, mat, (180, 308)).result()
+        assert (k1.launches, k5.launches) == (before[0], before[1] + 1)
+        np.testing.assert_array_equal(out, want_w, err_msg=name)
+        np.testing.assert_array_equal(mask, pred.warp(img, mat,
+                                                      (180, 308))[1])
+
+
+@pytest.mark.cuda
+def test_async_requests_in_flight_with_cache_eviction(cuda_device,
+                                                      monkeypatch):
+    """8 distinct frames dispatched before any ``result()``, each checked
+    after; then the serving cache (cut to 2) evicted while requests are in
+    flight: every result still equals its own synchronous call."""
+    from lerf_torch import pipeline
+
+    pred = serving_predictor("lut", cuda_device)
+    rng = np.random.RandomState(17)
+    imgs = [rng.randint(0, 256, (45, 77, 3)).astype(np.uint8)
+            for _ in range(8)]
+    want = [pred.upscale(f, 2.5, 2.5) for f in imgs]
+    futs = [pred.upscale_dynamic_async(f, 2.5, 2.5) for f in imgs]
+    for f, w in zip(futs, want):
+        np.testing.assert_array_equal(f.result(), w)
+    monkeypatch.setattr(pipeline, "SERVING_CACHE_SIZE", 2)
+    scales = [2.0 + 0.25 * i for i in range(8)]
+    want = [pred.upscale(f, s, s) for f, s in zip(imgs, scales)]
+    futs = [pred.upscale_dynamic_async(f, s, s)
+            for f, s in zip(imgs, scales)]
+    assert len(pred._serving_cache) == 2
+    for f, w in zip(futs, want):
+        np.testing.assert_array_equal(f.result(), w)
+
+
+@pytest.mark.cuda
+def test_two_threads_dispatch_through_the_side_stream(cuda_device):
+    """Two threads sending requests to one predictor at once: each gets
+    its own frames, equal to the synchronous calls."""
+    import threading
+
+    pred = serving_predictor("lut", cuda_device)
+    rng = np.random.RandomState(18)
+    imgs = [rng.randint(0, 256, (45, 77, 3)).astype(np.uint8)
+            for _ in range(8)]
+    mat = jitter_matrix(5, (4.0, 4.0))
+    want_sr = [pred.upscale(f, 4, 4) for f in imgs]
+    want_w = [pred.warp(f, mat, (180, 308)) for f in imgs]
+    got, errors = {}, []
+
+    def worker(k):
+        try:
+            for i in range(k, len(imgs), 2):
+                got["sr", i] = pred.upscale_dynamic_async(imgs[i], 4, 4)
+                got["w", i] = pred.warp_dynamic_async(imgs[i], mat,
+                                                      (180, 308))
+            for key in [key for key in got if key[1] % 2 == k]:
+                got[key] = got[key].result()
+        except Exception as e:      # surfaces in the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in range(len(imgs)):
+        np.testing.assert_array_equal(got["sr", i], want_sr[i])
+        for x, y in zip(want_w[i], got["w", i]):
+            np.testing.assert_array_equal(y, x)
+
+
+@pytest.mark.cuda
+def test_on_card_cast_equals_host_cast(cuda_device):
+    """The net and IMDN forms' input on the card (uint8 → float32 / 255,
+    IEEE division) and the LUT form's (uint8 → int32) equal the host's
+    casts bit for bit, for every uint8 value in either layout."""
+    values = np.arange(256, dtype=np.uint8)
+    img = np.stack([values.reshape(16, 16)] * 3, -1)       # HWC
+    for pred in (serving_predictor("net_k4", cuda_device),
+                 serving_predictor("lut", cuda_device)):
+        chw = np.ascontiguousarray(img.transpose(2, 0, 1))
+        want = pred._input(chw).cpu()
+        u8 = torch.from_numpy(img).to(cuda_device).movedim(-1, -3)
+        got = pred._cast(u8)
+        assert got.is_contiguous() and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(pred._upload(img).cpu(), want)

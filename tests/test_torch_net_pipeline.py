@@ -132,18 +132,35 @@ def test_net_predictor_default_device_is_cuda_and_never_falls_back():
             NetPredictor.from_srnets(params)
 
 
-@pytest.mark.parametrize("call", [
-    lambda p: NetPredictor.from_srnets(p, mesh=object(), device="cpu"),
-    lambda p: NetPredictor.from_imdn(IMDN2(nf=8), mesh=object(),
-                                     device="cpu"),
-    lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .warp_dynamic_async(image(), np.eye(3), (8, 8)),
-    lambda p: NetPredictor.from_srnets(p, device="cpu")
-    .upscale_dynamic_async(image(), 2, 2)],
-    ids=["mesh", "from_imdn", "warp_async", "async"])
-def test_unported_net_options_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(lerf_nets_from_arrays(np_params(nf=8, seed=0)))
+@pytest.mark.parametrize("case", ["mesh", "from_imdn", "warp_async",
+                                  "async"])
+def test_unported_net_options_raise(case):
+    """``mesh=`` (ROADMAP Queue A item 12) raises; the async serving forms
+    are ported now (the ``warp_async`` and ``async`` cases held their "not
+    ported" exit): on the CPU each future, resolved at dispatch, holds
+    exactly its synchronous form's value."""
+    params = lerf_nets_from_arrays(np_params(nf=8, seed=0))
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            NetPredictor.from_srnets(params, mesh=object(), device="cpu")
+        return
+    if case == "from_imdn":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            NetPredictor.from_imdn(IMDN2(nf=8), mesh=object(), device="cpu")
+        return
+    port = NetPredictor.from_srnets(params, device="cpu")
+    img = image()
+    if case == "async":
+        got = port.upscale_dynamic_async(img, 2, 2).result()
+        want = (port.upscale_dynamic(img, 2, 2),)
+        got = (got,)
+    else:
+        got = port.warp_dynamic_async(img, np.eye(3), (8, 8)).result()
+        want = port.warp_dynamic(img, np.eye(3), (8, 8))
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(b, a)
 
 
 def test_unknown_backend_raises():
