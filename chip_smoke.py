@@ -220,12 +220,49 @@ hand-written kernel against its plain PyTorch twin on the card:
 38. ``ops.resize`` and ``cli.make_benchmark``'s ``downscale`` on a
    1440×2560 frame, the card against the CPU (float32 within 1e-3, uint8
    but for .5 ties);
-39. the exact-division findings (K1 bit-equal to its twin or not at each
+39. K5 on 4 windows of output rows (``rows=``) for ``warp_matrix(0..3)``,
+   supports 2 and 4, Gaussian and linear, int32 and float inputs, with the
+   mask: each window ``torch.equal`` to the same rows of the whole launch
+   and its mask to the host's rows; ``warp_matrix(0)``'s windows against
+   their plain twin (the host geometry's rows) within phase 9's tolerance;
+40. K1 on ``ResizeOperands.rows_window`` at phase 2's scales, int32 and
+   float: each window ``torch.equal`` to the whole launch's rows and
+   within phase 2's tolerance of its twin (the geometry's rows);
+41. the multi-device slice on the one card, meshes ``[cuda:0] × 2`` and
+   ``× 4`` (a stream a shard): ``sharded_lut_sr_pipeline``,
+   ``sharded_lut_warp_pipeline`` (frame and mask),
+   ``sharded_dynamic_sr_pipeline``, ``sharded_dynamic_warp_pipeline`` and
+   ``sharded_devgeo_warp_pipeline`` at 360×640 → ×4 (LeRF-G bank of
+   phase 4), each bit-equal to its single-device form (``upscale``,
+   ``warp``, ``upscale_dynamic``, ``warp_dynamic``, ``warp_device``) with
+   2 K2 and one K1 or K5 launch a shard and ONE all-gather (``transfers``
+   1 + n(n-1)); SR at 1080×1920 → ×2 (a 2160×3840 output) bit-equal to
+   ``upscale``; the whole calls and their device parts at 1, 2 and 4
+   shards beside the predictor's (on one card the cost of sharding, not a
+   scale-out);
+42. the sharded net form: K4 ``sharded_net_sr_pipeline`` on the frame and
+   K3 on the 96×160 crop, codes within the net gates of the single-device
+   predictor's, K3 or K4 twice and K1 once a shard;
+43. the sharded IMDN form (nf 12), base and s2d, band (44-row halos) and
+   exchange (the input row-sharded, ONE ``exchange_halos``: 2 neighbour
+   transfers across each interior boundary, no all-gather) forms, feature
+   within 1e-3 and hyper maps within 1e-5 of the single-device towers; the
+   SR pipeline's frame within one level on ≤ 0.1 %;
+44. ``upscale_batch`` of 4 frames on mesh predictors (LUT, net on K4)
+   over 2 and 4 shards: each frame bit-equal to ``upscale``, 2 K2 (K4) and
+   one K1 a shard, no collective;
+45. (with the training phases, on their synthetic DIV2K) data-parallel
+   training: 5 LeRF-G steps (batch 16, crop 48, nf 64) on ``[cuda:0] ×
+   2`` against the single-device step from the same state and batches,
+   each step's loss within 1e-5 relative and every parameter within 1e-5
+   of the params' largest magnitude, one K1 and one K6 launch a shard a
+   step;
+46. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
-   rows with their ``linear`` and ``float`` modes, and K5's ``support4``,
-   ``mask`` and ``batch4`` beside; K6's with its ``linear`` mode), the
-   card line and, last, the result line.
+   rows with their ``linear`` and ``float`` modes, K1's and K5's
+   ``window``, and K5's ``support4``, ``mask`` and ``batch4`` beside; K6's
+   with its ``linear`` mode), the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -524,11 +561,12 @@ def profile_frames(call, frames=10, **label):
             "device_ms_by_name": [[k[:60], ms] for k, ms in rows[:10]]}
 
 
-def device_rows(fn, frames=5, attempts=3):
+def device_rows(fn, frames=5, attempts=6):
     """torch.profiler's device activities of ``frames`` calls of ``fn``:
     [(name, calls a frame, device ms a frame)].  In some windows the
-    profiler records no device activity at all; such a window is profiled
-    again, up to ``attempts`` times."""
+    profiler records no device activity at all (three such windows in a
+    row have been seen on the H100); such a window is profiled again, up
+    to ``attempts`` times, after a short pause."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -548,6 +586,7 @@ def device_rows(fn, frames=5, attempts=3):
                 and e.self_device_time_total > 0]
         if rows:
             return rows
+        time.sleep(0.2)
     return rows
 
 
@@ -3533,6 +3572,531 @@ def resize_phase(dev, rng):
           "make_benchmark_u8_mismatch_at_ties": ties})
 
 
+# -- phases 39-45: the multi-device slice on one card ---------------------
+
+MESH_SHARDS = (2, 4)          # meshes [cuda:0] x 2 and x 4
+BIG_H, BIG_W = 1080, 1920     # the frame size sharding is for: x2 -> 4K
+DP_STEPS = 5                  # data-parallel steps held to one device's
+DP_RTOL = 1e-5                # loss and every parameter, relative
+MESH_TIMED = 10               # calls a timing takes (median)
+
+
+def one_card_mesh(n):
+    from lerf_torch.parallel import make_mesh
+    return make_mesh(devices=["cuda:0"] * n)
+
+
+def window_rows(n_rows, n=4):
+    from lerf_torch.parallel import row_ranges
+    return row_ranges(n_rows, n)
+
+
+def k5_window_phase(dev, rng):
+    """Phase 39: K5 on 4 windows of output rows for ``warp_matrix(0..3)``
+    at supports 2 and 4, Gaussian and linear, int32 and float inputs, the
+    mask written in the same launch: each window ``torch.equal`` to the
+    same rows of the whole launch (frame and mask) and the mask to the
+    host's rows; for ``warp_matrix(0)`` each window also against its plain
+    twin (the host geometry's rows) within phase 9's tolerance (the host
+    geometry of every matrix would take the phase half a minute).
+    Returns the largest error."""
+    import torch
+    from lerf_torch.ops.geometry import WarpGeometry
+    from lerf_torch.ops.kernels import warp as k5
+
+    shape = (3, LR_H, LR_W)
+    ins = {"int32": (
+        torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.randint(0, 256, shape + (3,)).astype(np.int32))
+        .to(dev))}
+    ins["float"] = (ins["int32"][0].float(),
+                    ins["int32"][1].float() / 255.0)
+    worst, rows_out = 0.0, []
+    t0 = time.perf_counter()
+    for seed in range(4):
+        matrix = warp_matrix(seed)
+        host_mask = None
+        for support in (2, 4):
+            params = k5.WarpParams.create((LR_H, LR_W), matrix, WARP_OUT,
+                                          support=support)
+            geom = (WarpGeometry.create((LR_H, LR_W), matrix, WARP_OUT,
+                                        support=support) if seed == 0
+                    else None)
+            if host_mask is None:
+                host_mask = torch.from_numpy(params.host_mask())
+            for linear in (False, True):
+                for kind, (feat, codes) in ins.items():
+                    codes = codes[..., :1] if linear else codes
+                    mask = torch.empty(WARP_OUT, dtype=torch.bool, device=dev)
+                    whole = k5.steering_warp(feat, codes, params,
+                                             linear=linear, mask_out=mask)
+                    for r0, r1 in window_rows(WARP_OUT[0]):
+                        m = torch.empty((r1 - r0, WARP_OUT[1]),
+                                        dtype=torch.bool, device=dev)
+                        got = k5.steering_warp(feat, codes, params,
+                                               linear=linear, mask_out=m,
+                                               rows=(r0, r1))
+                        torch.cuda.synchronize()
+                        what = (f"K5 window {seed} S{support} "
+                                f"{'linear' if linear else 'gauss'} {kind} "
+                                f"[{r0}, {r1})")
+                        if not (torch.equal(got, whole[:, r0:r1])
+                                and torch.equal(m, mask[r0:r1])):
+                            raise AssertionError(f"{what}: not bit-equal to "
+                                                 "the whole launch's rows")
+                        if not torch.equal(m.cpu(), host_mask[r0:r1]):
+                            raise AssertionError(f"{what}: mask differs from "
+                                                 "the host's")
+                        if geom is None:
+                            continue
+                        want = k5._plain(feat, codes, geom.rows(r0, r1),
+                                         max_sigma=10.0, norm=255,
+                                         linear=linear)
+                        nan = torch.isnan(want)
+                        if not torch.equal(torch.isnan(got), nan):
+                            raise AssertionError(f"{what}: NaN pattern")
+                        err = (float((got[~nan] - want[~nan]).abs().max())
+                               if bool((~nan).any()) else 0.0)
+                        if not err <= K5_ATOL:
+                            raise AssertionError(f"{what}: max-abs {err}")
+                        worst = max(worst, err)
+                    rows_out.append([seed, support, linear, kind])
+    emit({"phase": "k5_window", "windows": 4, "cases": len(rows_out),
+          "bit_equal_to_whole": True, "mask_equal": True,
+          "max_abs_err_vs_twin": worst, "tolerance": K5_ATOL,
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
+def k1_window_phase(dev, rng):
+    """Phase 40: K1 on 4 windows of :meth:`ResizeOperands.rows_window` at
+    phase 2's scales, int32 codes and float maps: each window
+    ``torch.equal`` to the same rows of the whole launch and to its plain
+    twin (the geometry's rows) within phase 2's tolerance.  Returns the
+    largest error."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+
+    shape = (3, LR_H, LR_W)
+    feat = torch.from_numpy(rng.randint(0, 256, shape).astype(np.int32)).to(dev)
+    codes = torch.from_numpy(
+        rng.randint(0, 256, shape + (3,)).astype(np.int32)).to(dev)
+    ins = {"int32": (feat, codes), "float": (feat.float(),
+                                             codes.float() / 255.0)}
+    worst = 0.0
+    for scale in (4.0, 2.5, 3.55, 0.5):
+        geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[scale] * 2)
+        ops = k1.ResizeOperands.create(geom, dev)
+        for kind, (f, c) in ins.items():
+            whole = k1.steering_resize(f, c, geom, operands=ops)
+            tiles = []
+            for r0, r1 in window_rows(geom.out_sz[0]):
+                win = ops.rows_window(r0, r1)
+                got = k1.steering_resize(f, c, geom.rows(r0, r1),
+                                         operands=win)
+                want = k1._plain(f, c, geom.rows(r0, r1), max_sigma=10.0,
+                                 norm=255, linear=False)
+                torch.cuda.synchronize()
+                what = f"K1 window x{scale} {kind} [{r0}, {r1})"
+                if not torch.equal(got, whole[:, r0:r1]):
+                    raise AssertionError(f"{what}: not bit-equal to the "
+                                         "whole launch's rows")
+                err = float((got - want).abs().max())
+                if not err <= K1_ATOL:
+                    raise AssertionError(f"{what}: max-abs {err}")
+                worst = max(worst, err)
+                tiles.append(list(win.tile))
+        emit({"phase": "k1_window", "scale": scale, "windows": 4,
+              "tiles": tiles, "whole_tile": list(ops.tile),
+              "bit_equal_to_whole": True, "max_abs_err_vs_twin": worst})
+    return worst
+
+
+def mesh_counted(call, want, what, n_gathers=1, n_exchanges=0):
+    """:func:`counted_run` with the mesh's collectives at 0 before the
+    call: raise unless they are ``n_gathers`` all-gathers and
+    ``n_exchanges`` halo exchanges.  Returns (result, launches, transfers,
+    collectives)."""
+    from lerf_torch.parallel import mesh as pm
+    pm.transfers = 0
+    pm.collectives.clear()
+    result, launches = counted_run(call, want, what)
+    got = dict(pm.collectives)
+    expect = {k: v for k, v in (("all_gather_rows", n_gathers),
+                                ("exchange_halos", n_exchanges)) if v}
+    if got != expect:
+        raise AssertionError(f"{what}: collectives {got}, want {expect}")
+    return result, launches, pm.transfers, got
+
+
+def sharded_lut_phase(dev, bank, frame):
+    """Phase 41: the sharded LUT pipelines at full width (360x640 RGB x4,
+    the LeRF-G deploy bank) on [cuda:0] x 2 and x 4: SR, warp (frame and
+    mask), dynamic SR and warp and the device-geometry warp, each
+    bit-equal to its single-device form on the card, with 2 K2 and one K1
+    or K5 launch a shard and ONE all-gather a call; then SR at 1080x1920
+    -> x2 (a 2160x3840 output), bit-equal to ``upscale``; and the times of
+    the SR and warp calls at 1, 2 and 4 shards (on one card these measure
+    what sharding costs; no scale-out is claimed).  Returns the timing
+    rows."""
+    import torch
+    from lerf_torch.ops import geometry as geo
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels.warp import WarpParams
+    from lerf_torch.ops.resample import quantize_device
+    from lerf_torch.parallel import (sharded_devgeo_warp_pipeline,
+                                     sharded_dynamic_sr_pipeline,
+                                     sharded_dynamic_warp_pipeline,
+                                     sharded_lut_sr_pipeline,
+                                     sharded_lut_warp_pipeline)
+    from lerf_torch.pipeline import LutPredictor
+
+    pred = LutPredictor(bank, device=dev)
+    t1, t2 = pred._s1, pred._s2
+    x = torch.from_numpy(np.ascontiguousarray(
+        frame.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    matrix = warp_matrix()
+    warp = WarpParams.create((LR_H, LR_W), matrix, WARP_OUT)
+    ops25 = geo.ResizeOperands.create((LR_H, LR_W), scale_factors=[2.5, 2.5])
+    want_sr = pred.upscale(frame, SCALE, SCALE)
+    want_warp, want_mask = pred.warp(frame, matrix, WARP_OUT)
+    want_dsr = pred.upscale_dynamic(frame, 2.5, 2.5)
+    want_dwarp, want_dmask = pred.warp_dynamic(frame, matrix, WARP_OUT)
+    want_dev, _ = pred.warp_device(frame, matrix, WARP_OUT)
+    u8 = torch.uint8
+
+    def hwc(shards):
+        return shards.to_host().transpose(1, 2, 0)
+
+    def flat_u8(shards, out_sz):
+        return quantize_device(shards.cat(), 255, nan_to_zero=True) \
+            .reshape(3, *out_sz).cpu().numpy().transpose(1, 2, 0)
+
+    for n in MESH_SHARDS:
+        mesh = one_card_mesh(n)
+        k1n = {"lut_stage": 2 * n, "steering_resize": n}
+        k5n = {"lut_stage": 2 * n, "steering_warp": n}
+        cases = [
+            ("sr", lambda: hwc(sharded_lut_sr_pipeline(
+                x, t1, t2, MODES, geom, mesh, out_dtype=u8)), k1n, want_sr),
+            ("warp", lambda: [hwc(s) if i == 0 else s.to_host()
+                              for i, s in enumerate(sharded_lut_warp_pipeline(
+                                  x, t1, t2, MODES, warp, mesh,
+                                  out_dtype=u8, mask=True))],
+             k5n, [want_warp, want_mask]),
+            ("dynamic_sr", lambda: hwc(sharded_dynamic_sr_pipeline(
+                x, t1, t2, MODES, ops25, mesh, out_dtype=u8)), k1n,
+             want_dsr),
+            ("dynamic_warp", lambda: flat_u8(sharded_dynamic_warp_pipeline(
+                x, t1, t2, MODES, warp, mesh), WARP_OUT), k5n, want_dwarp),
+            ("devgeo_warp", lambda: flat_u8(sharded_devgeo_warp_pipeline(
+                x, t1, t2, MODES, np.linalg.inv(matrix), WARP_OUT, mesh),
+                WARP_OUT), k5n, want_dev),
+        ]
+        for name, call, launches, want in cases:
+            got, counts, transfers, coll = mesh_counted(
+                call, launches, f"sharded LUT {name} x{n}")
+            wants = want if isinstance(want, list) else [want]
+            gots = got if isinstance(got, list) else [got]
+            for g, w in zip(gots, wants):
+                if g.shape != w.shape or not np.array_equal(g, w):
+                    raise AssertionError(
+                        f"sharded LUT {name} x{n}: not bit-equal to the "
+                        f"single-device form ({int((g != w).sum())} of "
+                        f"{w.size} differ)")
+            if transfers != 1 + n * (n - 1):
+                raise AssertionError(f"sharded LUT {name} x{n}: transfers "
+                                     f"{transfers}")
+            emit({"phase": "sharded_lut", "form": name, "shards": n,
+                  "bit_equal": True, "launches": counts,
+                  "launches_per_shard": {k: v / n for k, v in counts.items()
+                                         if v},
+                  "transfers": transfers, "collectives": coll})
+    # the frame size sharding is for: 1080x1920 -> x2, a 2160x3840 output
+    big = np.random.RandomState(5).randint(0, 256, (BIG_H, BIG_W, 3)) \
+        .astype(np.uint8)
+    xb = torch.from_numpy(np.ascontiguousarray(
+        big.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+    geom2 = ResizeGeometry.create((BIG_H, BIG_W), scale_factors=[2.0, 2.0])
+    want_big = pred.upscale(big, 2.0, 2.0)
+    for n in MESH_SHARDS:
+        mesh = one_card_mesh(n)
+        got, counts, transfers, _ = mesh_counted(
+            lambda: hwc(sharded_lut_sr_pipeline(xb, t1, t2, MODES, geom2,
+                                                mesh, out_dtype=u8)),
+            {"lut_stage": 2 * n, "steering_resize": n},
+            f"sharded LUT sr 4K x{n}")
+        if not np.array_equal(got, want_big):
+            raise AssertionError(f"sharded LUT sr 4K x{n}: not bit-equal to "
+                                 "upscale")
+        emit({"phase": "sharded_lut", "form": "sr_4k", "shards": n,
+              "in": [BIG_H, BIG_W], "out": list(want_big.shape[:2]),
+              "bit_equal": True, "launches": counts,
+              "transfers": transfers})
+
+    # times: the whole call (to a host array) and its device part
+    rows = []
+    for label, size, xin, g in (("sr", (LR_H, LR_W), x, geom),
+                                ("sr_4k", (BIG_H, BIG_W), xb, geom2),
+                                ("warp", (LR_H, LR_W), x, warp)):
+        for n in (1,) + MESH_SHARDS:
+            mesh = one_card_mesh(n)
+            if label == "warp":
+                def part(mesh=mesh):
+                    return sharded_lut_warp_pipeline(
+                        xin, t1, t2, MODES, warp, mesh, out_dtype=u8)
+            else:
+                def part(mesh=mesh, xin=xin, g=g):
+                    return sharded_lut_sr_pipeline(
+                        xin, t1, t2, MODES, g, mesh, out_dtype=u8)
+            call_ms = host_call_ms(lambda: part().to_host(), MESH_TIMED)
+            dev_ms = frame_ms(part, frames=MESH_TIMED)
+            row = {"phase": "sharded_lut_timing", "form": label,
+                   "shards": n, "in": list(size), "call_ms": call_ms,
+                   "device_ms": dev_ms,
+                   "note": "one card: the cost of sharding, not scale-out"}
+            emit_timed(row)
+            rows.append(row)
+    # the unsharded predictor's whole calls beside them
+    for label, call in (("sr", lambda: pred.upscale(frame, SCALE, SCALE)),
+                        ("sr_4k", lambda: pred.upscale(big, 2.0, 2.0)),
+                        ("warp", lambda: pred.warp(frame, matrix, WARP_OUT))):
+        emit_timed({"phase": "sharded_lut_timing", "form": label,
+                    "predictor_call_ms": host_call_ms(call, MESH_TIMED)})
+    return rows
+
+
+def sharded_net_phase(dev, params, frame):
+    """Phase 42: the sharded net form on [cuda:0] x 2 and x 4: K4
+    ``sharded_net_sr_pipeline`` on the full frame and the K3 form on a
+    96x160 crop, each against the single-device predictor on the card:
+    feature and hyper codes within the net gates (1 level on < 0.5 %), the
+    frame equal where the stages are; K3 or K4 twice and K1 once a shard,
+    one all-gather a call."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.parallel import sharded_net_sr_pipeline, srnet_stages_sharded
+    from lerf_torch.pipeline import NetPredictor
+
+    for backend, img, kern in (("pallas_int8", frame, "srnet_ensemble_int8"),
+                               ("auto", frame[:CROP_H, :CROP_W],
+                                "srnet_ensemble")):
+        pred = NetPredictor.from_srnets(params, backend=backend, device=dev)
+        h, w = img.shape[:2]
+        want, feat_w, hyper_w = pred.upscale(img, SCALE, SCALE,
+                                             return_aux=True)
+        x = torch.from_numpy(np.ascontiguousarray(
+            img.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+        geom = ResizeGeometry.create((h, w), scale_factors=[SCALE] * 2)
+        for n in MESH_SHARDS:
+            mesh = one_card_mesh(n)
+            feat, hyper = srnet_stages_sharded(x, params, mesh,
+                                               backend=backend)
+            fd = level_diff(feat.cat().cpu(), torch.from_numpy(feat_w),
+                            NET_STAGE_TOL, f"sharded net {backend} feat")
+            hd = level_diff(torch.round(hyper.cat().cpu() * 255),
+                            torch.round(torch.from_numpy(hyper_w) * 255),
+                            NET_STAGE_TOL, f"sharded net {backend} hyper")
+            got, counts, transfers, _ = mesh_counted(
+                lambda: sharded_net_sr_pipeline(
+                    x, params, geom, mesh, backend=backend,
+                    out_dtype=torch.uint8).to_host().transpose(1, 2, 0),
+                {kern: 2 * n, "steering_resize": n},
+                f"sharded net {backend} x{n}")
+            n_diff = int((got != want).sum())
+            if fd[0] == 0 and hd[0] == 0 and n_diff:
+                raise AssertionError(f"sharded net {backend} x{n}: stages "
+                                     "equal, frames differ")
+            emit({"phase": "sharded_net", "backend": backend, "shards": n,
+                  "in": [h, w], "feat_level_diff": fd, "hyper_level_diff": hd,
+                  "frame_mismatch": n_diff, "launches": counts,
+                  "transfers": transfers})
+
+
+def sharded_imdn_phase(dev, frame):
+    """Phase 43: the IMDN form (nf 12), backends base and s2d, on [cuda:0]
+    x 2 and x 4: the band form (replicated input, 44-row halos) and the
+    exchange form (the input row-sharded, ONE halo exchange: 2 neighbour
+    transfers across each interior boundary, no all-gather) against the
+    single-device towers, feature within 1e-3 and hyper maps within 1e-5;
+    the SR pipeline's frame within one level on <= 0.1 %."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.models.imdn_s2d import tower_halo_rows
+    from lerf_torch.parallel import (RowShards, imdn_stages_sharded,
+                                     imdn_stages_sharded_exchange, row_ranges,
+                                     sharded_imdn_sr_pipeline)
+    from lerf_torch.pipeline import NetPredictor
+
+    model = imdn_model()
+    x = torch.from_numpy(np.ascontiguousarray(
+        frame.transpose(2, 0, 1)).astype(np.float32)).to(dev)
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    for backend in ("base", "s2d"):
+        pred = NetPredictor.from_imdn(model, backend=backend, device=dev)
+        want, feat_w, hyper_w = pred.upscale(frame, SCALE, SCALE,
+                                             return_aux=True)
+        feat_w, hyper_w = torch.from_numpy(feat_w), torch.from_numpy(hyper_w)
+        for n in MESH_SHARDS:
+            mesh = one_card_mesh(n)
+            for form in ("band", "exchange"):
+                if form == "band":
+                    call = (lambda: imdn_stages_sharded(
+                        x, model, mesh, backend=backend))
+                    gathers, exchanges = 0, 0
+                else:
+                    ranges = row_ranges(LR_H, n)
+                    slabs = RowShards([x[:, r0:r1] for r0, r1 in ranges],
+                                      ranges, LR_H)
+                    call = (lambda: imdn_stages_sharded_exchange(
+                        slabs, model, mesh, backend=backend))
+                    gathers, exchanges = 0, 1
+                (feat, hyper), counts, transfers, coll = mesh_counted(
+                    call, {}, f"sharded IMDN {backend} {form} x{n}",
+                    n_gathers=gathers, n_exchanges=exchanges)
+                fe = float((feat.cat().cpu() - feat_w).abs().max())
+                he = float((hyper.cat().cpu() - hyper_w).abs().max())
+                if not (fe <= IMDN_FEAT_ATOL and he <= IMDN_HYPER_ATOL):
+                    raise AssertionError(
+                        f"sharded IMDN {backend} {form} x{n}: feat {fe}, "
+                        f"hyper {he}")
+                if form == "exchange" and transfers != 1 + 2 * (n - 1):
+                    raise AssertionError(f"sharded IMDN exchange x{n}: "
+                                         f"transfers {transfers}")
+                emit({"phase": "sharded_imdn", "backend": backend,
+                      "form": form, "shards": n,
+                      "halo_rows": 2 * tower_halo_rows(),
+                      "feat_max_abs": fe, "hyper_max_abs": he,
+                      "transfers": transfers, "collectives": coll})
+            got, counts, transfers, _ = mesh_counted(
+                lambda: sharded_imdn_sr_pipeline(
+                    x, model, geom, mesh, backend=backend,
+                    out_dtype=torch.uint8).to_host().transpose(1, 2, 0),
+                {"steering_resize": n}, f"sharded IMDN SR {backend} x{n}")
+            d = np.abs(got.astype(int) - want.astype(int))
+            share = float((d > 0).mean())
+            if d.max() > 1 or share > IMDN_U8_SHARE:
+                raise AssertionError(f"sharded IMDN SR {backend} x{n}: max "
+                                     f"{d.max()}, share {share}")
+            emit({"phase": "sharded_imdn_sr", "backend": backend,
+                  "shards": n, "frame_max_level": int(d.max()),
+                  "frame_share": share, "launches": counts,
+                  "transfers": transfers})
+
+
+def mesh_batch_phase(dev, bank, params, frame):
+    """Phase 44: ``upscale_batch`` of 4 frames on mesh predictors over
+    [cuda:0] x 2 and x 4, the LUT form and the net form on K4: each frame
+    bit-equal to ``upscale``, 2 K2 (K4) and 1 K1 launches a shard, no
+    collective."""
+    from lerf_torch.parallel import mesh as pm
+    from lerf_torch.pipeline import LutPredictor, NetPredictor
+
+    frames = np.stack([frame, frame[::-1], frame[:, ::-1],
+                       frame[::-1, ::-1]])
+    for form, stage in (("lut", "lut_stage"), ("net_k4",
+                                               "srnet_ensemble_int8")):
+        for n in MESH_SHARDS:
+            mesh = one_card_mesh(n)
+            pred = (LutPredictor(bank, mesh=mesh) if form == "lut" else
+                    NetPredictor.from_srnets(params, backend="pallas_int8",
+                                             mesh=mesh))
+            pm.collectives.clear()
+            got, counts = counted_run(
+                lambda: pred.upscale_batch(frames, SCALE, SCALE),
+                {stage: 2 * n, "steering_resize": n},
+                f"mesh upscale_batch {form} x{n}")
+            if pm.collectives:
+                raise AssertionError(f"mesh upscale_batch {form}: "
+                                     f"collectives {dict(pm.collectives)}")
+            for b in range(len(frames)):
+                if not np.array_equal(got[b], pred.upscale(frames[b], SCALE,
+                                                           SCALE)):
+                    raise AssertionError(f"mesh upscale_batch {form} x{n}: "
+                                         f"frame {b} differs from upscale")
+            ms = host_call_ms(lambda: pred.upscale_batch(frames, SCALE,
+                                                         SCALE), 5)
+            emit_timed({"phase": "mesh_upscale_batch", "form": form,
+                        "shards": n, "frames": len(frames),
+                        "bit_equal_per_frame": True, "launches": counts,
+                        "call_ms": ms})
+
+
+def dp_train_phase(dev, cfg):
+    """Phase 45: data-parallel training, 5 LeRF-G steps (batch 16, crop
+    48, nf 64) on [cuda:0] x 2 against the single-device step from the
+    same state and batches: each step's loss within 1e-5 relative and
+    every parameter within 1e-5 of the params' largest magnitude after the
+    steps (the reduction's order differs; the largest errors printed,
+    each leaf's against its own largest value beside), one K1 and one K6
+    launch a shard a step.  Returns the launches."""
+    import torch
+    from lerf_torch.data.div2k import DIV2K
+    from lerf_torch.train import loop
+    from lerf_torch.train import train_step as ts
+    from lerf_torch.train.train_step import param_leaves
+
+    hp = loop.hparams_from_config(cfg)
+    geom = ts.train_geometry(hp)
+    init = loop.srnets_adapter(cfg, hp, dev).init_params
+    dataset = DIV2K(cfg.train_dir, cfg.scale_value, cfg.crop_size,
+                    in_c=cfg.in_c, seed=4)
+    batches = [tuple(torch.from_numpy(a).to(dev)
+                     for a in dataset.batch(TRAIN_BATCH))
+               for _ in range(DP_STEPS)]
+    n = 2
+    runs = {}
+    for name, mesh in (("one", None), ("dp", one_card_mesh(n))):
+        state = ts.TrainState.create(init(torch.Generator().manual_seed(0)),
+                                     hp)
+        step = ts.make_train_step(geom, hp, device=dev, mesh=mesh)
+        losses = []
+        want = {} if mesh is None else {"steering_resize": n * DP_STEPS,
+                                        "steering_resize_bwd": n * DP_STEPS}
+        if mesh is None:
+            want = {"steering_resize": DP_STEPS,
+                    "steering_resize_bwd": DP_STEPS}
+
+        def run():
+            nonlocal state
+            for im, lb in batches:
+                state, m = step(state, im, lb)
+                losses.append(float(m["loss"]))
+            return state
+
+        _, counts = counted_run(run, want, f"train step {name}")
+        runs[name] = (losses, {k: p.detach().cpu() for k, p in
+                               param_leaves(state.params).items()}, counts)
+        ms = frame_ms(lambda: step(state, *batches[0]), frames=5, warmup=1)
+        emit_timed({"phase": "dp_train_step_ms", "form": name,
+                    "shards": 1 if mesh is None else n, "step_ms": ms})
+    (l1, p1, _), (l2, p2, counts) = runs["one"], runs["dp"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    scale = max(float(p.abs().max()) for p in p1.values())
+    diffs = {k: float((p2[k] - p1[k]).abs().max()) for k in p1}
+    param_err = max(diffs.values()) / scale
+    # each leaf against its own largest value, for the record: a leaf of
+    # small values (a bias Adam has moved ~lr a step from 0) reads the
+    # step's sign-like updates of near-zero gradients, not the sums' order
+    leaf, leaf_err = max(((k, diffs[k] / max(float(p1[k].abs().max()),
+                                               1e-30)) for k in p1),
+                         key=lambda kv: kv[1])
+    if not (loss_err <= DP_RTOL and param_err <= DP_RTOL):
+        raise AssertionError(f"data-parallel step: loss {loss_err}, params "
+                             f"{param_err} relative > {DP_RTOL}")
+    emit({"phase": "dp_train", "shards": n, "steps": DP_STEPS,
+          "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "nf": NF,
+          "loss_rel_err": loss_err, "param_rel_err": param_err,
+          "param_max_abs_err": max(diffs.values()), "param_scale": scale,
+          "worst_leaf_own_rel": [leaf, leaf_err],
+          "tolerance": DP_RTOL, "launches": counts,
+          "launches_per_shard_step": {k: v / (n * DP_STEPS)
+                                      for k, v in counts.items() if v}})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3914,6 +4478,8 @@ def main() -> int:
         resume_phase(dev, train_cfg, final)
         lutft_phase(dev, train_cfg, final, frame)
         imdn_train_phase(dev, root)
+        # -- 45. data-parallel training on [cuda:0] x 2 -------------------
+        dp_train_phase(dev, train_cfg)
     # -- 32-38. the serving surface: async forms, pinned reuse, streams,
     # the pinned memory results hold, the daemon, several-input CLI, resize
     forms = serving_forms({"lerf_g": bank, "lerf_l": bank_l}, params)
@@ -3927,6 +4493,20 @@ def main() -> int:
     cli_phase(bank, srng)
     resize_phase(dev, srng)
     del forms, lut_pred
+
+    # -- 39-44. the multi-device slice on one card: K5's and K1's row
+    # windows, the sharded LUT, net and IMDN forms, mesh predictors --------
+    mrng = np.random.RandomState(13)
+    k5_window_err = k5_window_phase(dev, mrng)
+    k1_window_err = k1_window_phase(dev, mrng)
+    sharded_lut_phase(dev, bank, frame)
+    sharded_net_phase(dev, params, frame)
+    sharded_imdn_phase(dev, frame)
+    mesh_batch_phase(dev, bank, params, frame)
+    kernels[0]["window"] = {"max_abs_err": k1_window_err,
+                            "bit_equal_to_whole": True}
+    kernels[-1]["window"] = {"max_abs_err": k5_window_err,
+                             "bit_equal_to_whole": True}
 
     g_row = k6_rows[False]
     kernels.append({
@@ -3942,7 +4522,7 @@ def main() -> int:
             "max_abs_err", "ms", "profiler_ms", "plain_ms", "bound_ms",
             "bound_by", "share_of_bound")}})
 
-    # -- 39. result ----------------------------------------------------------
+    # -- 46. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

@@ -17,8 +17,10 @@ device the hot loops run in hand-written kernels (``csrc/``): K1 the
 steerable resize (Gaussian or amplified-linear), K2 a LUT stage, K3 a
 float micro-net ensemble stage, K4 its int8 form, K5 the steerable warp
 (either kernel, any support, a batch of homographies) and K6 the training
-resize's backward; on the CPU they run their plain PyTorch twins.  Not
-ported yet: multi-device (ROADMAP Queue A item 12).
+resize's backward; on the CPU they run their plain PyTorch twins.  The
+multi-device layer (``parallel``: a mesh of devices, a device possibly
+repeated, one stream a shard) runs the deploy paths row-sharded, the
+predictors' batches and the trainer's steps data-parallel.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, ``--platform cpu``); asking for ``cuda`` without a

@@ -127,7 +127,7 @@ class TrainConfig(BaseConfig):
     weight_decay: float = 0.0
     worker_num: int = 8          # accepted, unused: one sampler thread
     # lerf_tpu's additions
-    data_axis: int = -1          # -1 or 1: one device (more: item 12)
+    data_axis: int = -1          # -1: every visible card; n: the first n
     seed: int = 0
     keep_checkpoints: int = 5
     profile_steps: int = 0       # >0: torch.profiler trace of that many steps
@@ -144,14 +144,26 @@ class TrainConfig(BaseConfig):
             self.batch_size = 4
             self.nf = 16
 
-    def check_devices(self):
-        """The port trains on one device: ``data_axis`` -1 (lerf_tpu's "all
-        local devices") or 1.  Data parallelism over several cards is
-        ROADMAP Queue A item 12."""
-        if self.data_axis not in (-1, 1):
-            raise NotImplementedError(
-                f"data_axis={self.data_axis}: training on more than one "
-                "device is not ported yet (ROADMAP Queue A item 12)")
+    def train_devices(self):
+        """The devices the trainer's data-parallel mesh spans, as lerf_tpu's
+        ``data_axis``: -1 every visible card, ``n`` the first ``n`` (more
+        than are visible raises, as lerf_tpu's ``make_mesh`` does); under
+        ``--platform cpu`` ``n`` means ``["cpu"] * n`` (-1: one).  One
+        device trains without a mesh."""
+        import torch
+
+        from .device import resolve_device
+
+        if self.data_axis == 0 or self.data_axis < -1:
+            raise ValueError(f"data_axis={self.data_axis}: -1 or a count")
+        if resolve_device(self.device).type == "cpu":
+            return ["cpu"] * max(self.data_axis, 1)
+        visible = torch.cuda.device_count()
+        n = visible if self.data_axis == -1 else self.data_axis
+        if n > visible:
+            raise ValueError(f"data_axis={n}: need {n} devices, have "
+                             f"{visible}")
+        return [f"cuda:{i}" for i in range(n)]
 
 
 @dataclasses.dataclass

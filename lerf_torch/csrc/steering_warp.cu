@@ -81,6 +81,18 @@
 //   blockIdx.z is the frame, each with its own inverse and pads from a
 //   small array passed by value; the frames share the sizes, the support
 //   and the mode.  A single frame is a batch of one.
+// - A window of output rows (lerf_tpu/parallel/spatial.py's row-sharded
+//   warps, whose shards each take a slab of output rows): a launch
+//   computes rows [row0, row0 + rows) of the whole output and writes them
+//   as its rows 0 .. rows - 1; each window, weight and mask bit is derived
+//   for the global row row0 + i with the same float64 steps, so a window
+//   is bit-equal to the same rows of the whole launch.  The grid covers
+//   the window's rows (Warp::OH is the window's height; the whole
+//   output's bounds the window on the host).  A first version kept the
+//   window's height in a field of its own beside the whole output's: 3 %
+//   slower on the main path; this one is within 0.3 % of the kernel
+//   without the window (NVIDIA H100 80GB HBM3, 700.00 W;
+//   lerf_torch/tools/probe_lut_kernels.py, PERF.md).
 // Semantics, those of the JAX path's geometry (_warp_axis): a pixel's S
 // rows are clip(left + s, 0, H - 1) in padded coordinates, left = ceil((g -
 // S/2) - eps) + pad_r, clipped to the UNPADDED bounds, and its source row is
@@ -115,10 +127,13 @@ constexpr double kEps = 1.1920928955078125e-07;   // float32 eps (_EPS)
 constexpr int kMaxFrames = 16;              // frames a batch launch takes
 
 // One homography's geometry, by value: the inverse matrix row-major, the
-// unpadded input and the output sizes, the leading pads, the support.
+// unpadded input and the output sizes, the leading pads, the support; and
+// the first output row a launch computes, row0: its OH rows are the whole
+// output's rows [row0, row0 + OH), written as its rows 0 .. OH - 1.
 struct Warp {
   double m[9];
   int H, W, OH, OW, pad_r, pad_c, S;
+  int row0;
 };
 
 // A batch of homographies: frame f's warp, and the validity mask [frames,
@@ -365,7 +380,7 @@ __device__ __forceinline__ void warp_block(
     const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
     ok[k] = j < w.OW && i < w.OH;
     if (!ok[k]) continue;
-    const Source src = source_at(w, col, i);   // the window's and the mask's
+    const Source src = source_at(w, col, w.row0 + i);   // window and mask
     px[k].set(src.y, src.x, w);
     if (mask != nullptr)
       mask[(size_t)i * w.OW + j] = valid_at(src, w, border);
@@ -445,8 +460,8 @@ __device__ __forceinline__ void warp_block(
 }
 
 // Frame blockIdx.z of a batch: img [frames, C, H, W], codes [frames, C, H,
-// W, 3 or 1], out [frames, C, OH, OW], the warp from the by-value array
-// (__grid_constant__: indexed in place, never copied).
+// W, 3 or 1], out [frames, C, rows, OW] (the window's rows), the warp from
+// the by-value array (__grid_constant__: indexed in place, never copied).
 template <int KS, typename OutT, bool kLinear, typename InT>
 __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
     steering_warp_kernel(const InT* __restrict__ img,
@@ -467,8 +482,9 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
 // window corner (row, col) as geometry.window_corner recovers it from the
 // clipped indices (f_0 where above 0, else f_S-1 - (S - 1)), the 2S
 // distances (dx_0..dx_S-1, dy_0..dy_S-1) and their float64 branch bits;
-// and the validity mask (valid_at) where valid is not null.  Null
-// corners: the mask alone.
+// and the validity mask (valid_at) where valid is not null, for output
+// rows [row0, row0 + rows), written as rows 0 .. rows - 1.  Null corners:
+// the mask alone.
 __global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
     int2* __restrict__ corners, float* __restrict__ dis,
     unsigned char* __restrict__ masks, unsigned char* __restrict__ valid,
@@ -483,9 +499,9 @@ __global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
     if (i >= w.OH) return;
     const size_t n = (size_t)i * w.OW + j;
     if (valid != nullptr)
-      valid[n] = valid_at(source_at(w, col, i), w, border);
+      valid[n] = valid_at(source_at(w, col, w.row0 + i), w, border);
     if (corners == nullptr) continue;
-    const Window<0, true> p = window_at<0, true>(w, col, i);
+    const Window<0, true> p = window_at<0, true>(w, col, w.row0 + i);
     corners[n] = make_int2(
         p.row(0) == 0 ? p.row(S - 1) - (S - 1) : p.row(0),
         p.col(0) == 0 ? p.col(S - 1) - (S - 1) : p.col(0));
@@ -499,18 +515,20 @@ __global__ void __launch_bounds__(kTileW * kThreadRows) warp_geometry_kernel(
 }
 
 int make_warp(const double* inv, int H, int W, int OH, int OW, int pad_r,
-              int pad_c, int S, Warp* w) {
-  if (H < 1 || W < 1 || pad_r < 0 || pad_c < 0 || S < 1 ||
-      (OH + kTileH - 1) / kTileH > 65535)
+              int pad_c, int S, int row0, int rows, Warp* w) {
+  if (H < 1 || W < 1 || pad_r < 0 || pad_c < 0 || S < 1 || row0 < 0 ||
+      rows < 0 || (long long)row0 + rows > OH ||
+      (rows + kTileH - 1) / kTileH > 65535)
     return (int)cudaErrorInvalidValue;
   memcpy(w->m, inv, sizeof(w->m));
   w->H = H;
   w->W = W;
-  w->OH = OH;
+  w->OH = rows;             // the window's: the geometry needs no OH
   w->OW = OW;
   w->pad_r = pad_r;
   w->pad_c = pad_c;
   w->S = S;
+  w->row0 = row0;
   return 0;
 }
 
@@ -574,21 +592,26 @@ void launch_in(const void* img, const void* codes, void* out,
 // feature and codes int32 codes (code / norm), 1 img float32 feature and
 // codes float32 hyper maps in [0, 1]; the last argument, after the stream,
 // so that a caller written for the entry without it still calls the int32
-// kernels.
+// kernels.  row0, rows: the window of output rows [row0, row0 + rows) of
+// the OH x OW output this launch computes (0, OH: all of it); out and mask
+// hold the window alone ([frames, C, rows, OW], [frames, rows, OW]), each
+// row bit-equal to the same row of the whole launch: the geometry and the
+// mask are derived for the global row.
 extern "C" int lerf_steering_warp_batch(
     const void* img, const void* codes, void* out, void* mask,
     const double* invs, const int* pads, int frames, int C, int H, int W,
     int OH, int OW, int S, int linear, float max_sigma, float norm,
-    int out_u8, int border, void* stream, int float_in) {
+    int out_u8, int border, void* stream, int float_in, int row0,
+    int rows) {
   if (frames < 1 || frames > kMaxFrames || border < 0)
     return (int)cudaErrorInvalidValue;
-  if ((long long)C * OH * OW == 0) return 0;
+  if ((long long)C * rows * OW == 0) return 0;
   if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
   Frames fr;
   memset(&fr, 0, sizeof(fr));
   for (int f = 0; f < frames; ++f) {
     int err = make_warp(invs + 9 * f, H, W, OH, OW, pads[2 * f],
-                        pads[2 * f + 1], S, &fr.f[f]);
+                        pads[2 * f + 1], S, row0, rows, &fr.f[f]);
     if (err) return err;
   }
   fr.mask = (unsigned char*)mask;
@@ -606,19 +629,21 @@ extern "C" int lerf_steering_warp_batch(
 // The geometry K5 derives, written out: corners [OH * OW] int2, dis
 // [OH * OW, 2S] float32 and masks [OH * OW, 2S] uint8, as WarpOperands lays
 // them out, and valid [OH * OW] uint8 0 / 1, the validity mask of the
-// white frame's border.  Either part may be null (corners, dis and masks
-// together).  For the checks and the mask alone; K5 does not read them.
+// white frame's border; with row0, rows the window [row0, row0 + rows) of
+// the output alone ([rows * OW] each).  Either part may be null (corners,
+// dis and masks together).  For the checks and the mask alone; K5 does
+// not read them.
 extern "C" int lerf_warp_geometry(void* corners, void* dis, void* masks,
                                   void* valid, const double* inv, int H,
                                   int W, int OH, int OW, int pad_r,
                                   int pad_c, int S, int border,
-                                  void* stream) {
-  if ((long long)OH * OW == 0) return 0;
+                                  void* stream, int row0, int rows) {
+  if ((long long)rows * OW == 0) return 0;
   if ((uintptr_t)corners % sizeof(int2) || (uintptr_t)dis % sizeof(float))
     return (int)cudaErrorMisalignedAddress;
   if (border < 0) return (int)cudaErrorInvalidValue;
   Warp w;
-  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, S, &w);
+  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, S, row0, rows, &w);
   if (err) return err;
   warp_geometry_kernel<<<grid_of(w), dim3(kTileW, kThreadRows), 0,
                          (cudaStream_t)stream>>>(

@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.lut_pipeline import divide_exact
 
 
@@ -54,11 +55,12 @@ class DeviceDataset:
     Images of different sizes are padded to the largest (each image's
     valid crop range is kept); for DIV2K-scale sets pass ``tile=``
     (:func:`tile_images`) so the stacks are dense.  ``hbm_bytes`` is the
-    stacks' size on the device.
+    stacks' size on the device.  ``device``: ``None`` → ``cuda`` (raises
+    without a card), or ``"cpu"``.
     """
 
     def __init__(self, lr_images, hr_images, scale: int, crop_size: int,
-                 in_c: int = 1, tile: int = 0, device="cpu"):
+                 in_c: int = 1, tile: int = 0, device=None):
         if tile:
             if tile < crop_size:
                 raise ValueError(f"tile {tile} < crop_size {crop_size}")
@@ -66,6 +68,7 @@ class DeviceDataset:
                                                int(scale), tile)
         if len(lr_images) != len(hr_images):
             raise ValueError("as many HR images as LR images")
+        device = resolve_device(device)
         self.scale = int(scale)
         self.crop = crop_size
         self.in_c = in_c

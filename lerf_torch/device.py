@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
+
+
+def concrete_device(device=None) -> torch.device:
+    """:func:`resolve_device`, a card named by its index (``cuda`` →
+    ``cuda:<current>``), as a tensor on it reports its ``device``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -17,9 +17,11 @@ Sizes that are not a multiple of b are zero-padded up to one, and the pad
 region is zeroed again after every conv (the phase mask), so that no conv
 reads anything but the zeros SAME padding would give.
 
-Not ported: lerf_tpu's bucket masking (``valid_hw``; the port has no shape
-buckets) and its row-sharded execution (``tower_halo_rows``, the 3-tuple
-``valid_hw``; ROADMAP Queue A item 12).
+Not ported: lerf_tpu's bucket masking (``valid_hw``, the port has no
+shape buckets) and its 3-tuple row mask: the port's row-sharded towers
+(:func:`lerf_torch.parallel.spatial.imdn_stages_sharded`) run on bands
+that end at the image edges, where the convs' own zero padding is the
+whole image's, so they need only the halo, :func:`tower_halo_rows`.
 
 On the card every conv runs in full float32 under a scoped
 ``torch.backends.cudnn.flags(..., allow_tf32=False)`` (:func:`cudnn_fp32`),
@@ -222,6 +224,23 @@ def predict_imdn2_s2d(p2: Dict, x: torch.Tensor, stage: int, *, block: int,
     if stage == 2:
         return torch.clamp(y, -1, 1) / 2 + 0.5
     return torch.clamp(y, -1, 1) * half + half
+
+
+#: Chained spatial (3x3) convs per IMDN_RTC tower (upscale=1): ``fea`` +
+#: 5 modules x (c1..c4) + ``up`` (c5 and lr are 1x1) — the tower's
+#: receptive-field radius in rows / cols, and so the depth to which
+#: band-edge garbage spreads when a tower runs on a row slab
+#: (``lerf_tpu/models/imdn_s2d.py:266``).
+TOWER_SPATIAL_CONVS = 22
+
+
+def tower_halo_rows() -> int:
+    """Image rows of band-edge halo ONE tower run needs for its interior
+    output rows to be exact — for either backend and any s2d block: the
+    s2d re-embedding keeps the image-space 3×3 receptive field (the
+    inflated kernel's extra taps are zero), so a corrupted input row
+    spreads ±22 image rows (``lerf_tpu/models/imdn_s2d.py:269-276``)."""
+    return TOWER_SPATIAL_CONVS
 
 
 def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",

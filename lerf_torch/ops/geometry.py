@@ -27,6 +27,11 @@ import torch
 _EPS = float(np.finfo(np.float32).eps)
 
 
+def _check_rows(r0: int, r1: int, n: int):
+    if not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"rows [{r0}, {r1}) outside the output's {n}")
+
+
 def resolve_scale_and_out_sz(in_sz, scale_factors=None, out_sz=None):
     """Resolve (scale_h, scale_w), (outH, outW) from either spec.
 
@@ -108,6 +113,16 @@ class ResizeGeometry:
                    base_support=base_support, antialias=aa,
                    min_scale=min_scale, fov_x=fov_x, fov_y=fov_y,
                    dis_x=dis_x, dis_y=dis_y, pad_x=pad_x, pad_y=pad_y)
+
+    def rows(self, r0: int, r1: int) -> "ResizeGeometry":
+        """Output rows ``[r0, r1)`` alone: the same geometry with its
+        row axis sliced (the pads stay the whole image's, which the field
+        of view indexes), the window a shard of a row-sharded resize
+        computes."""
+        _check_rows(r0, r1, self.out_sz[0])
+        return dataclasses.replace(
+            self, out_sz=(r1 - r0, self.out_sz[1]), fov_x=self.fov_x[r0:r1],
+            dis_x=self.dis_x[r0:r1])
 
 
 def _resize_serving_axis(in_sz: int, out_sz: int, scale: float,
@@ -211,6 +226,15 @@ class ResizeOperands:
     aa_scale: float = 1.0          # min(scale) when antialiasing, else 1
     wmask_x: np.ndarray = None     # [outH, S] float32 0/1 — AA only
     wmask_y: np.ndarray = None     # [outW, S]
+
+    def rows(self, r0: int, r1: int) -> "ResizeOperands":
+        """Output rows ``[r0, r1)`` alone (see :meth:`ResizeGeometry.rows`):
+        the row axis's neighbours, distances and weight masks sliced."""
+        _check_rows(r0, r1, self.out_sz[0])
+        return dataclasses.replace(
+            self, out_sz=(r1 - r0, self.out_sz[1]), idx_x=self.idx_x[r0:r1],
+            dis_x=self.dis_x[r0:r1],
+            wmask_x=None if self.wmask_x is None else self.wmask_x[r0:r1])
 
     @property
     def true_support(self) -> int:
@@ -449,4 +473,15 @@ class WarpGeometry:
                    fov_x=fov_x, fov_y=fov_y,
                    lin_idx=np.ascontiguousarray(lin).astype(np.int32),
                    dis_x=dis_x, dis_y=dis_y, pad_x=pad_x, pad_y=pad_y)
+
+    def rows(self, r0: int, r1: int) -> "WarpGeometry":
+        """Output rows ``[r0, r1)`` alone (see :meth:`ResizeGeometry.rows`):
+        the per-pixel arrays' row axis sliced, the pads the whole
+        output's."""
+        _check_rows(r0, r1, self.out_sz[0])
+        return dataclasses.replace(
+            self, out_sz=(r1 - r0, self.out_sz[1]),
+            fov_x=self.fov_x[r0:r1], fov_y=self.fov_y[r0:r1],
+            lin_idx=np.ascontiguousarray(self.lin_idx[:, :, r0:r1]),
+            dis_x=self.dis_x[r0:r1], dis_y=self.dis_y[r0:r1])
 

@@ -118,14 +118,14 @@ def _declare(lib):
         i32, i32, i32, i32, i32, i32, i32,   # frames, C, H, W, OH, OW, S
         i32, f32, f32, i32, i32,             # linear, max_sigma, norm, u8,
                                              # border
-        vp, i32]                             # stream, float_in
+        vp, i32, i32, i32]                   # stream, float_in, row0, rows
     lib.lerf_steering_warp_batch.restype = i32
     lib.lerf_warp_geometry.argtypes = [
         vp, vp, vp, vp, f64p,                # corners, dis, masks, valid,
                                              # inv (host)
         i32, i32, i32, i32, i32, i32, i32,   # H, W, OH, OW, pad_r, pad_c, S
         i32,                                 # border
-        vp]                                  # stream
+        vp, i32, i32]                        # stream, row0, rows
     lib.lerf_warp_geometry.restype = i32
     lib.lerf_lut_stage.argtypes = [
         vp, vp, vp, vp,                      # img, tables, out, members (host)

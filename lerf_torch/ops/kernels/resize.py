@@ -179,6 +179,31 @@ class ResizeOperands(NamedTuple):
                    support=int(rows.shape[1]), antialias=bool(antialias),
                    min_scale=float(min_scale), linear=bool(linear))
 
+    def rows_window(self, r0: int, r1: int) -> "ResizeOperands":
+        """Output rows ``[r0, r1)`` alone: the row axis's operands sliced
+        (views, nothing copied), ``out_sz`` the window's and the tile
+        picked again for it (from the rows and columns read back once: a
+        sharded path makes its windows once a geometry).  K1 indexes its
+        operands by output row, so
+        the window's launch computes those rows of the whole resize, each
+        bit-equal to the whole launch's; the plain twin of a window is the
+        plain resize on the geometry's rows (``ResizeGeometry.rows``, or
+        the serving geometry's ``ResizeOperands.rows``)."""
+        if not 0 <= r0 < r1 <= self.out_sz[0]:
+            raise ValueError(f"rows [{r0}, {r1}): not a window of the "
+                             f"output's {self.out_sz[0]}")
+
+        def cut(t):
+            return None if t is None else t[r0:r1]
+
+        tile = None if self.tile is None else pick_tile(
+            self.rows[r0:r1].cpu().numpy(), self.cols.cpu().numpy(),
+            LINEAR_WINDOW_BYTES if self.linear else WINDOW_BYTES)
+        return self._replace(
+            rows=cut(self.rows), dis_x=cut(self.dis_x), lin_x=cut(self.lin_x),
+            mask_x=cut(self.mask_x), tile=tile,
+            out_sz=(r1 - r0, self.out_sz[1]))
+
 
 def _check(feat, codes, norm, linear, out_dtype, what):
     if out_dtype not in (torch.float32, torch.uint8):

@@ -16,7 +16,11 @@ host geometry, the linear mode's branch masks included.  Asked for
 same float64 grid, equal to ``nearest_warp_mask_host``.  One kernel and
 one C entry serve a batch of frames, each under its own homography
 (:func:`steering_warp_batch`), and a single frame as a batch of one
-(:func:`steering_warp`).  :class:`WarpOperands` is the geometry in the
+(:func:`steering_warp`).  Both take a window of output rows, ``rows=(r0,
+r1)``: the launch computes those rows of the whole output alone, each
+bit-equal to the same row of the whole launch (a shard's slab of a
+row-sharded warp, :mod:`lerf_torch.parallel.spatial`); the plain twin runs
+the host geometry's rows ``[r0, r1)``.  :class:`WarpOperands` is the geometry in the
 host's per-pixel form
 (:func:`lerf_torch.ops.geometry.warp_operands_plain` computes the same);
 :func:`warp_geometry` writes it from the card's derivation, for the checks,
@@ -81,6 +85,19 @@ class WarpParams(NamedTuple):
         inv = np.linalg.inv(matrix)
         (px, _), (py, _) = warp_pads(inv, in_sz, out_sz, support)
         return cls(matrix=tuple(map(float, matrix.ravel())),
+                   inv=tuple(map(float, inv.ravel())), pad=(px, py),
+                   in_sz=in_sz, out_sz=out_sz, support=int(support))
+
+    @classmethod
+    def from_inverse(cls, in_sz, inv, out_sz, support: int = 2):
+        """From the float64 inverse homography itself (the device-geometry
+        forms' operand): K5 reads ``inv`` as given; ``matrix`` is its
+        inverse, for the host geometry and mask of the plain twin."""
+        in_sz = tuple(int(s) for s in in_sz)
+        out_sz = tuple(int(s) for s in out_sz)
+        inv = np.asarray(inv, dtype=np.float64).reshape(3, 3)
+        (px, _), (py, _) = warp_pads(inv, in_sz, out_sz, support)
+        return cls(matrix=tuple(map(float, np.linalg.inv(inv).ravel())),
                    inv=tuple(map(float, inv.ravel())), pad=(px, py),
                    in_sz=in_sz, out_sz=out_sz, support=int(support))
 
@@ -156,9 +173,18 @@ def _inv_array(params: WarpParams):
     return (ctypes.c_double * 9)(*params.inv)
 
 
+def _window(rows, out_sz) -> Tuple[int, int]:
+    """``rows`` (``None``: the whole output) checked against ``out_sz``."""
+    r0, r1 = (0, int(out_sz[0])) if rows is None else map(int, rows)
+    if not 0 <= r0 <= r1 <= out_sz[0]:
+        raise ValueError(f"rows [{r0}, {r1}) outside the output's "
+                         f"{out_sz[0]}")
+    return r0, r1
+
+
 def _geometry_launch(params: WarpParams, device, ptrs, border: int):
     """``lerf_warp_geometry`` into ``ptrs`` (corners, dis, masks, valid;
-    0 for a part not asked for)."""
+    0 for a part not asked for), for the whole output."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"warp_geometry: the card's geometry needs a CUDA "
@@ -169,7 +195,7 @@ def _geometry_launch(params: WarpParams, device, ptrs, border: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lerf_warp_geometry(
             *ptrs, _inv_array(params), H, W, OH, OW, *params.pad,
-            params.support, int(border), stream)
+            params.support, int(border), stream, 0, OH)
     _build.check(err, "warp_geometry launch")
 
 
@@ -219,7 +245,8 @@ def _check_args(feat, codes, linear, out_dtype, norm, what):
 
 
 def _plain(feat, codes, geom, *, max_sigma, norm, linear):
-    """The twin of K5 on a host geometry, for either input type."""
+    """The twin of K5 on a host geometry (or its rows), for either input
+    type."""
     if feat.dtype == torch.int32:
         if linear:
             return linear_warp_codes_plain(feat, codes, geom, norm=norm)
@@ -241,13 +268,15 @@ def _check_mask(mask_out, shape, device, what):
 
 
 def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
-            border):
+            border, rows):
     """One ``lerf_steering_warp_batch`` launch over ``warps`` (at most
-    :data:`MAX_FRAMES`): feat / codes / out hold their frames one after
-    another along the channel axis, ``mask`` [frames, oH, oW] or None."""
+    :data:`MAX_FRAMES`) for output rows ``rows`` = (r0, r1): feat / codes /
+    out hold their frames one after another along the channel axis, out
+    [frames·C, r1 - r0, oW], ``mask`` [frames, r1 - r0, oW] or None."""
     global launches
     first = warps[0]
     (H, W), (OH, OW) = first.in_sz, first.out_sz
+    r0, r1 = rows
     invs = (ctypes.c_double * (9 * len(warps)))(
         *(v for w in warps for v in w.inv))
     pads = (ctypes.c_int * (2 * len(warps)))(
@@ -261,7 +290,7 @@ def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
             feat.shape[0] // len(warps), H, W, OH, OW, first.support,
             int(linear), float(max_sigma), float(norm),
             int(out.dtype == torch.uint8), int(border), stream,
-            int(feat.dtype == torch.float32))
+            int(feat.dtype == torch.float32), r0, r1 - r0)
     _build.check(err, "steering_warp_batch launch")
     launches += 1
 
@@ -270,7 +299,8 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                   max_sigma: float = 10.0, norm: int = 255,
                   linear: bool = False,
                   out_dtype: torch.dtype = torch.float32,
-                  mask_out: Optional[torch.Tensor] = None, border: int = 4):
+                  mask_out: Optional[torch.Tensor] = None, border: int = 4,
+                  rows: Optional[Tuple[int, int]] = None):
     """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
     W, 1] (``linear``), both int32 (codes 0..norm) or both float32 (hyper
     maps in [0, 1]) → [C, oH, oW]: float32 (NaN where a
@@ -283,19 +313,28 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
 
     ``mask_out``: a bool (or uint8) [oH, oW] tensor on the same device that
     receives the validity mask of ``border`` (K5 writes it in the same
-    launch; on the CPU the host mask, ``WarpParams.host_mask``)."""
+    launch; on the CPU the host mask, ``WarpParams.host_mask``).
+
+    ``rows``: ``(r0, r1)``, output rows ``[r0, r1)`` of ``warp``'s output
+    alone → [C, r1 - r0, oW] (and ``mask_out`` [r1 - r0, oW]), each row
+    bit-equal to the same row of the whole call's on the card; ``None``:
+    the whole output."""
     C, H, W = feat.shape
     _check_args(feat, codes, linear, out_dtype, norm, "steering_warp")
     if tuple(warp.in_sz) != (H, W):
         raise ValueError(f"geometry is for {warp.in_sz}, image is {(H, W)}")
-    _check_mask(mask_out, warp.out_sz, feat.device, "steering_warp")
+    r0, r1 = _window(rows, warp.out_sz)
+    out_sz = (r1 - r0, warp.out_sz[1])
+    _check_mask(mask_out, out_sz, feat.device, "steering_warp")
     if mask_out is not None and not isinstance(warp, WarpParams):
         raise ValueError("steering_warp: the mask needs WarpParams (the "
                          "matrix), not a host geometry")
     if feat.device.type == "cpu":
         if mask_out is not None:
-            mask_out.copy_(torch.from_numpy(warp.host_mask(border)))
+            mask_out.copy_(torch.from_numpy(warp.host_mask(border)[r0:r1]))
         geom = warp.geometry() if isinstance(warp, WarpParams) else warp
+        if rows is not None:
+            geom = geom.rows(r0, r1)
         out = _plain(feat, codes, geom, max_sigma=max_sigma, norm=norm,
                      linear=linear)
         return quantize_device(out, norm, nan_to_zero=True) \
@@ -304,9 +343,9 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
         raise ValueError("steering_warp: on a card K5 takes WarpParams (the "
                          "matrix), not a host geometry")
     feat, codes = feat.contiguous(), codes.contiguous()
-    out = torch.empty((C, *warp.out_sz), dtype=out_dtype, device=feat.device)
+    out = torch.empty((C, *out_sz), dtype=out_dtype, device=feat.device)
     _launch(feat, codes, out, mask_out, [warp], max_sigma=max_sigma,
-            norm=norm, linear=linear, border=border)
+            norm=norm, linear=linear, border=border, rows=(r0, r1))
     return out
 
 
@@ -316,7 +355,8 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
                         linear: bool = False,
                         out_dtype: torch.dtype = torch.float32,
                         mask_out: Optional[torch.Tensor] = None,
-                        border: int = 4):
+                        border: int = 4,
+                        rows: Optional[Tuple[int, int]] = None):
     """A batch of B frames, each under its own homography (the port of
     lerf_tpu's ``jax.vmap`` of its warp over per-frame operands): int32
     feature [B·C, H, W] and codes [B·C, H, W, 3 or 1], the frames one after
@@ -325,7 +365,9 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
     maps, as :func:`steering_warp` takes them) → [B·C, oH, oW] as
     :func:`steering_warp` gives each frame; ``mask_out`` [B, oH, oW]
     receives the frames' validity masks.  On the card one launch for up to
-    :data:`MAX_FRAMES` frames; on the CPU the plain twin frame by frame."""
+    :data:`MAX_FRAMES` frames; on the CPU the plain twin frame by frame.
+    ``rows``: a window of output rows, as :func:`steering_warp` takes it
+    (out [B·C, r1 - r0, oW], ``mask_out`` [B, r1 - r0, oW])."""
     warps = list(warps)
     n = len(warps)
     if n == 0 or feat.shape[0] % n:
@@ -342,7 +384,8 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
             raise ValueError("steering_warp_batch: every frame needs the "
                              f"image size {(H, W)}, one output size and one "
                              "support")
-    OH, OW = first.out_sz
+    r0, r1 = _window(rows, first.out_sz)
+    OH, OW = r1 - r0, first.out_sz[1]
     _check_mask(mask_out, (n, OH, OW), feat.device, "steering_warp_batch")
     if feat.device.type == "cpu":
         return torch.cat([steering_warp(
@@ -350,7 +393,7 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
             max_sigma=max_sigma, norm=norm, linear=linear,
             out_dtype=out_dtype,
             mask_out=None if mask_out is None else mask_out[f],
-            border=border) for f, w in enumerate(warps)])
+            border=border, rows=rows) for f, w in enumerate(warps)])
     feat, codes = feat.contiguous(), codes.contiguous()
     out = torch.empty((n * C, OH, OW), dtype=out_dtype, device=feat.device)
     for f0 in range(0, n, MAX_FRAMES):
@@ -358,5 +401,6 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
         _launch(feat[f0 * C:f1 * C], codes[f0 * C:f1 * C],
                 out[f0 * C:f1 * C],
                 None if mask_out is None else mask_out[f0:f1], warps[f0:f1],
-                max_sigma=max_sigma, norm=norm, linear=linear, border=border)
+                max_sigma=max_sigma, norm=norm, linear=linear, border=border,
+                rows=(r0, r1))
     return out

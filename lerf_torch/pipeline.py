@@ -17,6 +17,13 @@ steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
   towers (cuDNN, full float32), whose float feature and hyper maps K1 or
   K5 take in their float mode, one launch.
 
+With ``mesh=`` (a :class:`~lerf_torch.parallel.Mesh`) a predictor scales
+out over the mesh's shards as lerf_tpu's does: its tables or params are
+replicated once per distinct device, ``upscale_batch`` splits the batch
+across the shards, each running its frames through its own stages and K1
+on its device and stream (no collective), and every other form runs on
+the mesh's first device.
+
 On the CPU the same calls run the kernels' plain twins.  PyTorch runs
 eagerly, so there is no per-shape program cache: a predictor keeps one
 device copy of each shape's resize geometry and of the last dynamic
@@ -43,7 +50,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import concrete_device, resolve_device
 from .lut.io import LUTBank
 from .models import srnet
 from .ops import geometry as geo
@@ -151,11 +158,6 @@ def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
                 make, WARP_CACHE_SIZE)
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to lerf_torch yet "
-                               f"(ROADMAP Queue A item {item})")
-
-
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     """``t`` (on the card) into a pinned host tensor of PyTorch's caching
     host allocator, without blocking, on the current stream; the allocator
@@ -222,8 +224,17 @@ class _Predictor:
     the life of the process; ``.copy()`` a result that is kept for long
     to hold it in pageable memory instead."""
 
-    def _init_serving(self, *, linear, supp_size, max_sigma, norm, device):
-        self.device = resolve_device(device)
+    def _init_serving(self, *, linear, supp_size, max_sigma, norm, device,
+                      mesh=None):
+        if mesh is not None:
+            _check_mesh(mesh)
+            if device is not None and resolve_device(device) not in (
+                    mesh.devices[0], torch.device(mesh.devices[0].type)):
+                raise ValueError(f"device={device} but the mesh's first "
+                                 f"device is {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.mesh = mesh
+        self.device = concrete_device(device)
         self.linear = linear
         self.supp_size = supp_size
         self.max_sigma = max_sigma
@@ -329,15 +340,17 @@ class _Predictor:
 
     # -- SR -----------------------------------------------------------------
 
-    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float]):
-        """(geometry, its K1 operands on the device) for one (in_sz,
-        scale), cached."""
-        key = (tuple(in_sz), scale)
+    def _resize_fn(self, in_sz: Tuple[int, int], scale: Tuple[float, float],
+                   device=None):
+        """(geometry, its K1 operands on ``device``, default the
+        predictor's) for one (in_sz, scale), cached."""
+        device = self.device if device is None else device
+        key = (tuple(in_sz), scale, device)
         if key not in self._resize_cache:
             geom = geo.ResizeGeometry.create(in_sz, scale_factors=list(scale),
                                              support=self.supp_size)
             self._resize_cache[key] = (geom, k1.ResizeOperands.create(
-                geom, self.device, linear=self.linear))
+                geom, device, linear=self.linear))
         return self._resize_cache[key]
 
     def _resize(self, feat, hyper, geom, operands):
@@ -348,10 +361,11 @@ class _Predictor:
 
     def run_device(self, x: torch.Tensor, scale: Tuple[float, float]):
         """The device part of a frame: the input [C, H, W] (or a batch [B,
-        C, H, W]) on ``self.device`` (``_input``) → (uint8 [C, oH, oW], or
-        [B·C, oH, oW] for a batch, feat, hyper), all on the device, on the
-        current stream."""
-        geom, operands = self._resize_fn(tuple(x.shape[-2:]), scale)
+        C, H, W]) on ``self.device`` (``_input``; with a mesh, on any of its
+        devices) → (uint8 [C, oH, oW], or [B·C, oH, oW] for a batch, feat,
+        hyper), all on the input's device, on the current stream."""
+        geom, operands = self._resize_fn(tuple(x.shape[-2:]), scale,
+                                         x.device)
         feat, hyper = self._stages(x)
         return (self._resize(*self._fold(feat, hyper), geom, operands),
                 feat, hyper)
@@ -449,7 +463,8 @@ class _Predictor:
         """uint8 [B,H,W,C] → uint8 [B,outH,outW,C] (``lerf_tpu``'s
         ``upscale_batch``): the stages on the batch [B, C, H, W], their
         outputs folded into the channel axis for the resize, so the whole
-        batch is one launch of each kernel.
+        batch is one launch of each kernel.  With a mesh the batch splits
+        across its shards (:meth:`_upscale_batch_sharded`).
         On a card the result views pinned memory (see :class:`_Predictor`)."""
         imgs = np.asarray(imgs_bhwc)
         b, c = imgs.shape[0], imgs.shape[-1]
@@ -457,12 +472,53 @@ class _Predictor:
         if self._skips(sh, sw):
             return self._skip(np.ascontiguousarray(
                 imgs.transpose(0, 3, 1, 2))).transpose(0, 2, 3, 1)
+        if self.mesh is not None:
+            with self._lock:
+                return self._upscale_batch_sharded(imgs, (sh, sw))
 
         def dispatch():
             out, _, _ = self.run_device(self._upload(imgs), (sh, sw))
             return out.reshape(b, c, *out.shape[-2:]), ()
 
         return self._request(dispatch).result()
+
+    def _upscale_batch_sharded(self, imgs: np.ndarray, scale):
+        """``upscale_batch`` over the mesh, lerf_tpu's data-parallel
+        scale-out: the batch split evenly across the shards
+        (:func:`~lerf_torch.parallel.shard_batch`, which raises when it does
+        not divide; a uint8 batch through one pinned staging tensor), each
+        shard's frames through its own stages and K1 (:meth:`run_device`)
+        on its device and stream, each copied down into its rows of one
+        pinned host batch.  No collective."""
+        from .parallel import shard_batch
+
+        mesh, cuda = self.mesh, self.device.type == "cuda"
+        b, c = imgs.shape[0], imgs.shape[-1]
+        if imgs.dtype == np.uint8:
+            staged = torch.empty(imgs.shape, dtype=torch.uint8,
+                                 pin_memory=cuda)
+            np.copyto(staged.numpy(), imgs)
+        else:
+            staged = self._input(np.ascontiguousarray(
+                np.moveaxis(imgs, -1, -3)))
+        chunks = shard_batch(staged, mesh)
+        geom, _ = self._resize_fn(imgs.shape[1:3], scale)
+        host = torch.empty((b,) + tuple(geom.out_sz) + (c,),
+                           dtype=_out_dtype(self.norm), pin_memory=cuda)
+        step = b // mesh.size
+
+        def run(i, x):
+            if x.dtype == torch.uint8:
+                x = self._cast(x.movedim(-1, -3))
+            out, _, _ = self.run_device(x, scale)
+            out = out.reshape(x.shape[0], c, *out.shape[-2:]).movedim(-3, -1)
+            host[i * step:(i + 1) * step].copy_(out, non_blocking=cuda)
+
+        mesh.map(run, chunks)
+        if cuda:
+            for dev in mesh.distinct:
+                torch.cuda.current_stream(dev).synchronize()
+        return _quantize_host(host.numpy(), self.norm)
 
     # -- warp ---------------------------------------------------------------
 
@@ -650,7 +706,8 @@ class LutPredictor(_Predictor):
     ``linear``: the LeRF-L form, whose bank's stage 2 has one output
     channel (α); the LeRF-G form's has three.  ``device``: ``None`` →
     ``cuda`` (raises without a card), or ``"cpu"``.  The bank's int8
-    tables live on that device as :class:`FlatTables`.
+    tables live on that device as :class:`FlatTables`; with ``mesh``, on
+    each of the mesh's distinct devices (see the module doc).
     """
 
     @classmethod
@@ -675,10 +732,6 @@ class LutPredictor(_Predictor):
                  supp_size: int = 2, max_sigma: float = 10.0,
                  stages: int = 2, norm: int = 255,
                  table_layout: str = "flat", mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh=) is not ported yet "
-                "(ROADMAP Queue A item 12)")
         if table_layout != "flat":
             raise NotImplementedError(
                 f"table_layout={table_layout!r}: the port has the flat "
@@ -695,14 +748,20 @@ class LutPredictor(_Predictor):
                 "the amplified-linear (LeRF-L) form needs out_c == 1"
                 if linear else "the Gaussian (LeRF-G) form needs out_c == 3")
         self._init_serving(linear=linear, supp_size=supp_size,
-                           max_sigma=max_sigma, norm=norm, device=device)
+                           max_sigma=max_sigma, norm=norm, device=device,
+                           mesh=mesh)
         self.bank = bank
         self.modes = tuple(modes)
         self.modes2 = tuple(modes2)
         self.stages = stages
-        self._s1 = FlatTables.create(bank.stage1, self.device)
-        self._s2 = FlatTables.create(bank.stage2, self.device)
-        self._inter = [FlatTables.create(t, self.device) for t in bank.inter]
+        # (intermediate, stage 1, stage 2) tables on each device
+        self._tables = {
+            dev: ([FlatTables.create(t, dev) for t in bank.inter],
+                  FlatTables.create(bank.stage1, dev),
+                  FlatTables.create(bank.stage2, dev))
+            for dev in (mesh.distinct if mesh is not None
+                        else (self.device,))}
+        self._inter, self._s1, self._s2 = self._tables[self.device]
 
     def _input(self, chw: np.ndarray) -> torch.Tensor:
         """The LUT form's int32 [..., C, H, W] input on the device; the
@@ -728,18 +787,36 @@ class LutPredictor(_Predictor):
         +norm//2 bias, the final feature stage over modes with no bias.
         """
         interval = self.bank.interval
+        inter, s1, s2 = self._tables[img_i32.device]
         feat = img_i32
-        for tables in self._inter:
+        for tables in inter:
             feat = lut_stage1_intermediate(feat, tables, self.modes,
                                            interval=interval, norm=self.norm)
-        feat = lut_stage1(feat, self._s1, self.modes, interval=interval,
+        feat = lut_stage1(feat, s1, self.modes, interval=interval,
                           norm=self.norm)
-        hyper = lut_stage2(feat, self._s2, self.modes2, interval=interval,
+        hyper = lut_stage2(feat, s2, self.modes2, interval=interval,
                            norm=self.norm)
         return feat, hyper
 
     def _aux(self, feat, hyper):
         return feat, hyper
+
+
+def _check_mesh(mesh):
+    from .parallel import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: a lerf_torch.parallel.Mesh "
+                        "(make_mesh)")
+
+
+def _devices(mesh, device):
+    """The devices a form's weights go to: the mesh's distinct devices
+    (its first is the predictor's), or the one ``device``."""
+    if mesh is None:
+        return (concrete_device(device),)
+    _check_mesh(mesh)
+    return mesh.distinct
 
 
 class NetPredictor(_Predictor):
@@ -756,16 +833,18 @@ class NetPredictor(_Predictor):
     With ``linear`` the resample reads the first hyper channel as α.
 
     ``device``: ``None`` → ``cuda`` (raises without a card), or ``"cpu"``.
+    With ``mesh``, the stage functions must run on each of its devices
+    (:meth:`from_srnets` and :meth:`from_imdn` make theirs so: one copy of
+    the weights a distinct device, picked by the input's device).
     """
 
     def __init__(self, stage1_fn, stage2_fn, *, linear: bool = False,
                  two_stage: bool = True, supp_size: int = 2,
                  max_sigma: float = 10.0, norm: int = 255, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise _unported("multi-device serving (mesh=)", "12")
         self._init_serving(linear=linear, supp_size=supp_size,
-                           max_sigma=max_sigma, norm=norm, device=device)
+                           max_sigma=max_sigma, norm=norm, device=device,
+                           mesh=mesh)
         self.stage1_fn = stage1_fn
         self.stage2_fn = stage2_fn
         self.two_stage = two_stage
@@ -788,26 +867,28 @@ class NetPredictor(_Predictor):
         lattice.  The member heads are stacked on the device once, here.
         Inference only."""
         backend = srnet.resolve_backend(backend)
-        dev = resolve_device(device)
+        devs = _devices(mesh, device)
         if backend == "pallas_int8":
             params = srnet.quantize_lerf_params(params)
-        heads1 = [srnet.prepare_heads(srnet.stage1_heads(params, s, modes),
-                                      backend, dev)
-                  for s in range(stages - 1)]
-        heads2 = srnet.prepare_heads(srnet.stage2_heads(params, modes2),
-                                     backend, dev)
+        heads = {dev: ([srnet.prepare_heads(
+            srnet.stage1_heads(params, s, modes), backend, dev)
+            for s in range(stages - 1)],
+            srnet.prepare_heads(srnet.stage2_heads(params, modes2), backend,
+                                dev)) for dev in devs}
 
         def s1(x):
-            return srnet.stage1_from_heads(heads1, x, modes=modes, norm=norm,
+            return srnet.stage1_from_heads(heads[x.device][0], x,
+                                           modes=modes, norm=norm,
                                            backend=backend)
 
         def s2(x):
-            return srnet.stage2_levels(heads2, x, modes2=modes2, norm=norm,
+            return srnet.stage2_levels(heads[x.device][1], x, modes2=modes2,
+                                       norm=norm,
                                        backend=backend).to(torch.int32)
 
         return cls(s1, s2, linear=linear, two_stage=two_stage,
                    supp_size=supp_size, max_sigma=max_sigma, norm=norm,
-                   mesh=mesh, device=dev)
+                   mesh=mesh, device=devs[0])
 
     @classmethod
     def from_imdn(cls, model, variables=None, *, out_c: int = 3,
@@ -835,17 +916,18 @@ class NetPredictor(_Predictor):
         only."""
         from .models.imdn_s2d import make_chw_stage_fns
 
-        if mesh is not None:
-            raise _unported("multi-device serving (mesh=)", "12")
-        dev = resolve_device(device)
+        devs = _devices(mesh, device)
         model = copy.deepcopy(model)
         if variables is not None:
             model.load_state_dict(variables)
-        s1, s2 = make_chw_stage_fns(model, backend=backend, block=s2d_block,
-                                    norm=norm, out_c=out_c, device=dev)
-        return cls(s1, s2, linear=linear, two_stage=two_stage,
-                   supp_size=supp_size, max_sigma=max_sigma, norm=norm,
-                   device=dev)
+        fns = {dev: make_chw_stage_fns(model, backend=backend,
+                                       block=s2d_block, norm=norm,
+                                       out_c=out_c, device=dev)
+               for dev in devs}
+        return cls(lambda x: fns[x.device][0](x),
+                   lambda x: fns[x.device][1](x), linear=linear,
+                   two_stage=two_stage, supp_size=supp_size,
+                   max_sigma=max_sigma, norm=norm, mesh=mesh, device=devs[0])
 
     def _skips(self, scale_h: float, scale_w: float) -> bool:
         """Scale 1 on both axes skips the nets (eval_model.py:153-154)."""

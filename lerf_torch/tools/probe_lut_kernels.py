@@ -29,6 +29,7 @@ stages' outputs.
   every block (each neighbour decoded from global memory, no shared-memory
   tile); each window from integer arithmetic instead of the float64
   geometry (the ×4 zoom without its jitter: what the geometry costs);
+  the row window's add taken out;
   4 output rows a thread instead of 2; no register cap, or one for 6
   blocks an SM instead of 4; 32-row tiles; the host's per-pixel operands (24 bytes an output, made by
   ``WarpOperands.create``) read instead of the geometry derived in
@@ -82,7 +83,7 @@ sys.path.insert(0, ROOT)
 
 # K5's window and mask for one output, which two variants replace
 WINDOW = """\
-    const Source src = source_at(w, col, i);   // the window's and the mask's
+    const Source src = source_at(w, col, w.row0 + i);   // window and mask
     px[k].set(src.y, src.x, w);
     if (mask != nullptr)
       mask[(size_t)i * w.OW + j] = valid_at(src, w, border);"""
@@ -176,13 +177,14 @@ VARIANTS = {
         "geometry from integers": [(
             WINDOW,
             "    if constexpr (KS == 2) {\n"
-            "      const int r0 = min(i / 4, w.H - 1), q0 = min(j / 4, w.W - 1);\n"
+            "      const int r0 = min((w.row0 + i) / 4, w.H - 1),"
+            " q0 = min(j / 4, w.W - 1);\n"
             "      px[k].r[0] = r0; px[k].r[1] = min(r0 + 1, w.H - 1);\n"
             "      px[k].q[0] = q0; px[k].q[1] = min(q0 + 1, w.W - 1);\n"
             "      px[k].dx[0] = 0.375f; px[k].dx[1] = -0.625f;\n"
             "      px[k].dy[0] = 0.375f; px[k].dy[1] = -0.625f;\n"
             "    } else {\n"
-            "      px[k] = window_at<KS, kLinear>(w, col, i);\n"
+            "      px[k] = window_at<KS, kLinear>(w, col, w.row0 + i);\n"
             "    }")],
         "4 rows a thread": [("constexpr int kThreadRows = 8;",
                              "constexpr int kThreadRows = 4;")],
@@ -217,6 +219,10 @@ VARIANTS = {
             ("    const InT* code = codes + e * 3;\n",
              "    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
              " : 0.0f;\n    const InT* code = codes + e * 3;\n")],
+        # the row window's add taken out (the global row is the local
+        # one): what the window costs the whole launch
+        "no row window": [
+            ("source_at(w, col, w.row0 + i);", "source_at(w, col, i);")],
         # the entry takes the host's corners and distances after the
         # stream and float_in; each thread reads its windows from them
         "host operands": [
@@ -225,7 +231,7 @@ VARIANTS = {
              "  double m[9];"),
             (WINDOW,
              "    if constexpr (KS == 2) {\n"
-             "      const size_t n_ = (size_t)i * w.OW + j;\n"
+             "      const size_t n_ = (size_t)(w.row0 + i) * w.OW + j;\n"
              "      const int2 c_ = __ldg(w.corners + n_);\n"
              "      const float4 d_ = __ldg(w.dis + n_);\n"
              "      for (int s = 0; s < 2; ++s) {\n"
@@ -235,11 +241,12 @@ VARIANTS = {
              "      px[k].dx[0] = d_.x; px[k].dx[1] = d_.y;\n"
              "      px[k].dy[0] = d_.z; px[k].dy[1] = d_.w;\n"
              "    } else {\n"
-             "      px[k] = window_at<KS, kLinear>(w, col, i);\n"
+             "      px[k] = window_at<KS, kLinear>(w, col, w.row0 + i);\n"
              "    }"),
-            ("    int out_u8, int border, void* stream, int float_in) {",
-             "    int out_u8, int border, void* stream, int float_in,\n"
-             "    const void* corners, const void* dis) {"),
+            ("    int out_u8, int border, void* stream, int float_in, int row0,\n"
+             "    int rows) {",
+             "    int out_u8, int border, void* stream, int float_in, int row0,\n"
+             "    int rows, const void* corners, const void* dis) {"),
             ("  fr.border = border;\n",
              "  fr.border = border;\n"
              "  fr.f[0].corners = (const int2*)corners;\n"
@@ -582,7 +589,8 @@ def main(argv=None) -> int:
                     vp(mask.data_ptr() if with_mask else None), inv, pads,
                     *map(i32, (1, 3, cs.LR_H, cs.LR_W, woh, wow,
                                params.support, 0)),
-                    f32(10.0), f32(255.0), i32(u8), i32(4), stream, i32(0)]
+                    f32(10.0), f32(255.0), i32(u8), i32(4), stream, i32(0),
+                    i32(0), i32(woh)]
             if operands:
                 args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]
             return args

@@ -1,8 +1,11 @@
 """The LeRF training loop (network form and LUT fine-tuning).
 
 The port of ``lerf_tpu/train/loop.py`` (reference:
-``resample/train_model.py:318-500``) on one device: the step of
-:mod:`lerf_torch.train.train_step`; on the host the data sampler thread
+``resample/train_model.py:318-500``): the step of
+:mod:`lerf_torch.train.train_step`, on one device or, with ``data_axis``
+beyond one device, data-parallel over a mesh of them (the batch split
+across the shards, the state on the first device, where checkpoints read
+it); on the host the data sampler thread
 (or the dataset on the device), logging (``train.log`` and
 ``scalars.jsonl``), checkpoints, Set5 SR / warp validation through the
 port's predictors, the final LUT export of ``--lutft`` runs, the
@@ -261,11 +264,18 @@ def train(cfg: TrainConfig, adapter: Optional[ModelAdapter] = None) -> Any:
     """Run the training job on ``cfg.device``; returns the final params
     on the host (a nested dict of tensors, or IMDN2's state dict)."""
     cfg.apply_debug()
-    cfg.check_devices()
+    devices = cfg.train_devices()
+    mesh = None
+    if len(devices) > 1:
+        from ..parallel import make_mesh
+        mesh = make_mesh(devices=devices)
+        if cfg.batch_size % mesh.size:
+            raise ValueError(f"batch {cfg.batch_size} % devices "
+                             f"{mesh.size} != 0")
     cfg.resolve_exp_dir()
     cfg.save()
     cfg.snapshot_code()
-    dev = resolve_device(cfg.device)
+    dev = resolve_device(devices[0])
     logger = setup_logger(cfg.exp_dir, "lutft" if cfg.lutft else "train")
     writer = ScalarWriter(cfg.exp_dir)
     hp = hparams_from_config(cfg)
@@ -278,7 +288,8 @@ def train(cfg: TrainConfig, adapter: Optional[ModelAdapter] = None) -> Any:
             adapter = srnets_adapter(cfg, hp, dev)
     logger.info(f"device: {dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})"
-                   if dev.type == "cuda" else ""))
+                   if dev.type == "cuda" else "")
+                + (f", mesh: {mesh.size} × {dev.type}" if mesh else ""))
 
     state = TrainState.create(
         adapter.init_params(torch.Generator().manual_seed(cfg.seed)), hp)
@@ -299,7 +310,8 @@ def train(cfg: TrainConfig, adapter: Optional[ModelAdapter] = None) -> Any:
 
     step_fn = make_train_step(train_geometry(hp), hp,
                               stage1_fn=adapter.stage1_fn,
-                              stage2_fn=adapter.stage2_fn, device=dev)
+                              stage2_fn=adapter.stage2_fn, device=dev,
+                              mesh=mesh)
     device_ds = provider = None
     if cfg.device_data:
         from ..data.device_data import DeviceDataset

@@ -16,6 +16,13 @@ whole step, forward and ``loss.backward()``, runs in full float32
 (:func:`full_float32`): autograd runs the backward products and
 convolutions outside any forward-only scope, where cuDNN's default on
 Hopper is TF32.
+
+With a mesh (:func:`make_train_step`'s ``mesh=``, lerf_tpu's data-parallel
+step) each shard computes the loss of its slice of the batch on its device
+and stream, one K1 forward and one K6 backward a shard; the gradients are
+reduced onto the first device in shard order, so that the step is the
+gradient of the whole batch's mean loss, Adam steps once there, and the
+parameters go back to each distinct device.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..models import srnet
 from ..models.imdn_s2d import cudnn_fp32
 from ..ops.geometry import ResizeGeometry
@@ -207,19 +215,29 @@ def global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
 
 
+def _grad_operands(geom, hp, dev):
+    """K1 / K6's operands of ``geom`` on a card, ``None`` on the CPU."""
+    if dev.type != "cuda":
+        return None
+    from ..ops.kernels.resize_bwd import GradOperands
+    return GradOperands.create(geom, dev, linear=hp.linear)
+
+
 def make_train_step(geom: ResizeGeometry, hp: TrainHParams, *,
-                    stage1_fn=None, stage2_fn=None, device="cpu"):
+                    stage1_fn=None, stage2_fn=None, device=None, mesh=None):
     """The step ``(state, im, lb) → (state, {"loss", "grad_norm"})``: the
     loss and its gradients in full float32, Adam, the scheduler; the
     state's params and optimizer are updated in place.  The metrics stay
     0-d tensors on the device (no synchronisation).  On a card the
-    geometry's K1 / K6 operands are made here, once."""
-    dev = torch.device(device)
-    operands = None
-    if dev.type == "cuda":
-        from ..ops.kernels.resize_bwd import GradOperands
-        operands = GradOperands.create(geom, dev, linear=hp.linear)
-    loss_fn = make_loss_fn(geom, hp, stage1_fn, stage2_fn, operands)
+    geometry's K1 / K6 operands are made here, once.  ``device``: ``None``
+    → ``cuda`` (raises without a card), or ``"cpu"``.  ``mesh``: the
+    data-parallel step over its shards (:func:`_sharded_step`); the
+    state's params then live on the mesh's first device."""
+    if mesh is not None:
+        return _sharded_step(geom, hp, stage1_fn, stage2_fn, mesh)
+    dev = resolve_device(device)
+    loss_fn = make_loss_fn(geom, hp, stage1_fn, stage2_fn,
+                           _grad_operands(geom, hp, dev))
 
     def step(state: TrainState, im: torch.Tensor, lb: torch.Tensor):
         leaves = list(param_leaves(state.params).values())
@@ -237,5 +255,91 @@ def make_train_step(geom: ResizeGeometry, hp: TrainHParams, *,
         state.scheduler.step()
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def _replica(params, device):
+    """A copy of ``params`` (a nested dict of tensors or a module) on
+    another device, its leaves trainable."""
+    from ..parallel.mesh import tree_to
+
+    if isinstance(params, torch.nn.Module):
+        import copy
+        rep = copy.deepcopy(params).to(device)
+    else:
+        rep = tree_to(params, device)
+    for p in param_leaves(rep).values():
+        p.detach_().requires_grad_(True)
+    return rep
+
+
+def _sharded_step(geom, hp, stage1_fn, stage2_fn, mesh):
+    """lerf_tpu's data-parallel step (``make_train_step(mesh=...)``, whose
+    ``jax.value_and_grad`` of the replicated params over the batch-sharded
+    inputs XLA all-reduces): the batch split evenly across the shards
+    (:func:`~lerf_torch.parallel.shard_batch`, which raises when it does
+    not divide); each shard the loss of its slice and its gradients
+    (``torch.autograd.grad``: shards on one device do not add into one
+    ``.grad``) in full float32 on its device and stream, with that
+    device's copy of the params; the losses and gradients summed onto the
+    first device in shard order and divided by the shard count (the mean
+    of equal slices' means: the whole batch's mean loss and its
+    gradient); Adam steps once there.  Each step starts by copying the
+    params into every other distinct device's copy."""
+    from ..parallel import shard_batch
+
+    dev0 = mesh.devices[0]
+    loss_fns = {d: make_loss_fn(geom, hp, stage1_fn, stage2_fn,
+                                _grad_operands(geom, hp, d))
+                for d in mesh.distinct}
+    held = {"params": None, "reps": None}
+
+    def replicas(params):
+        if held["params"] is not params:
+            held["params"] = params
+            held["reps"] = {d: params if d == dev0 else _replica(params, d)
+                            for d in mesh.distinct}
+        reps = held["reps"]
+        src = param_leaves(params)
+        with torch.no_grad():
+            for d, rep in reps.items():
+                if rep is not params:
+                    for name, p in param_leaves(rep).items():
+                        p.copy_(src[name])
+        return reps
+
+    def step(state: TrainState, im: torch.Tensor, lb: torch.Tensor):
+        reps = replicas(state.params)
+        leaves = list(param_leaves(state.params).values())
+        chunks = shard_batch((im, lb), mesh)
+
+        def shard(i, batch):
+            p = reps[mesh.devices[i]]
+            own = list(param_leaves(p).values())
+            with full_float32():
+                loss = loss_fns[mesh.devices[i]](p, *batch)
+                grads = torch.autograd.grad(loss, own, allow_unused=True)
+            # a parameter the loss does not reach gets a zero gradient,
+            # as in optax
+            return loss.detach(), [torch.zeros_like(q) if g is None else g
+                                   for q, g in zip(own, grads)]
+
+        outs = mesh.map(shard, chunks)
+        n = mesh.size
+        loss = outs[0][0].to(dev0)
+        grads = [g.to(dev0) for g in outs[0][1]]
+        for l_i, g_i in outs[1:]:
+            loss = loss + l_i.to(dev0)
+            grads = [g + gi.to(dev0) for g, gi in zip(grads, g_i)]
+        loss = divide_exact(loss, n)
+        state.optimizer.zero_grad(set_to_none=True)
+        for p, g in zip(leaves, grads):
+            p.grad = divide_exact(g, n)
+        gnorm = global_norm([p.grad for p in leaves])
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
 
     return step

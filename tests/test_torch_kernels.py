@@ -1877,3 +1877,105 @@ def test_on_card_cast_equals_host_cast(cuda_device):
         assert got.is_contiguous() and got.dtype == want.dtype
         assert torch.equal(got.cpu(), want)
         assert torch.equal(pred._upload(img).cpu(), want)
+
+
+# -- windows of output rows (the row-sharded paths' shards) ----------------
+
+WINDOWS = ((0, 90), (0, 23), (23, 45), (45, 68), (68, 90), (7, 33), (89, 90))
+
+
+def test_warp_rows_on_cpu_are_the_whole_calls_rows():
+    """The plain twin of a K5 window is the host geometry's rows: on the
+    CPU a window equals the same rows of the whole call, mask included."""
+    from lerf_torch.ops.kernels.warp import WarpParams, steering_warp
+
+    feat, codes = resize_inputs((3, 30, 41))
+    params = WarpParams.create((30, 41), jitter_matrix(1, (3.0, 3.0)),
+                               (90, 123))
+    mask = torch.empty((90, 123), dtype=torch.bool)
+    whole = steering_warp(feat, codes, params, mask_out=mask)
+    for r0, r1 in WINDOWS:
+        m = torch.empty((r1 - r0, 123), dtype=torch.bool)
+        got = steering_warp(feat, codes, params, mask_out=m, rows=(r0, r1))
+        assert torch.equal(got.isnan(), whole[:, r0:r1].isnan())
+        assert torch.equal(torch.nan_to_num(got),
+                           torch.nan_to_num(whole[:, r0:r1]))
+        assert torch.equal(m, mask[r0:r1])
+    with pytest.raises(ValueError, match="rows"):
+        steering_warp(feat, codes, params, rows=(50, 91))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("support", [2, 4])
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("floats", [False, True], ids=["int32", "float"])
+def test_warp_window_bit_equal_to_whole_launch(floats, linear, support,
+                                               cuda_device):
+    """K5 on a window of output rows: each window (and its mask) is
+    ``torch.equal`` to the same rows of the whole launch."""
+    from lerf_torch.ops.kernels.warp import WarpParams, steering_warp
+
+    feat, codes = (t.to(cuda_device) for t in resize_inputs((3, 30, 41)))
+    if floats:
+        feat, codes = feat.float(), codes.float() / 255.0
+    codes = codes[..., :1] if linear else codes
+    params = WarpParams.create((30, 41), jitter_matrix(1, (3.0, 3.0)),
+                               (90, 123), support=support)
+    mask = torch.empty((90, 123), dtype=torch.bool, device=cuda_device)
+    whole = steering_warp(feat, codes, params, linear=linear, mask_out=mask)
+    for r0, r1 in WINDOWS:
+        m = torch.empty((r1 - r0, 123), dtype=torch.bool, device=cuda_device)
+        got = steering_warp(feat, codes, params, linear=linear, mask_out=m,
+                            rows=(r0, r1))
+        assert torch.equal(got.isnan(), whole[:, r0:r1].isnan())
+        assert torch.equal(torch.nan_to_num(got),
+                           torch.nan_to_num(whole[:, r0:r1]))
+        assert torch.equal(m, mask[r0:r1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [4.0, 2.5, 3.55, 0.5])
+def test_resize_window_bit_equal_to_whole_launch(scale, cuda_device):
+    """K1 on ``ResizeOperands.rows_window``: each window ``torch.equal`` to
+    the same rows of the whole launch, int32 codes and float maps."""
+    feat, codes = (t.to(cuda_device) for t in resize_inputs())
+    geom = ResizeGeometry.create((45, 77), scale_factors=[scale] * 2)
+    ops = k1.ResizeOperands.create(geom, cuda_device)
+    oh = geom.out_sz[0]
+    for f, c in ((feat, codes), (feat.float(), codes.float() / 255.0)):
+        whole = k1.steering_resize(f, c, geom, operands=ops)
+        for r0, r1 in ((0, oh), (0, oh // 3), (oh // 3, oh), (1, 2)):
+            got = k1.steering_resize(f, c, geom.rows(r0, r1),
+                                     operands=ops.rows_window(r0, r1))
+            assert torch.equal(got, whole[:, r0:r1])
+
+
+@pytest.mark.cuda
+def test_sharded_lut_on_one_card_bit_equal_to_predictor(cuda_device):
+    """``sharded_lut_sr_pipeline`` and ``sharded_lut_warp_pipeline`` on
+    ``[cuda:0] * 2`` bit-equal to ``LutPredictor.upscale`` / ``.warp`` on
+    the card (the uint8 frame, and the mask)."""
+    from lerf_torch.ops.kernels.warp import WarpParams
+    from lerf_torch.parallel import (make_mesh, sharded_lut_sr_pipeline,
+                                     sharded_lut_warp_pipeline)
+    from lerf_torch.pipeline import LutPredictor
+
+    pred = LutPredictor(random_bank(), device=cuda_device)
+    frame = np.random.RandomState(4).randint(0, 256, (30, 44, 3)) \
+        .astype(np.uint8)
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                         .astype(np.int32)).to(cuda_device)
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    geom = ResizeGeometry.create((30, 44), scale_factors=[4.0, 4.0])
+    got = sharded_lut_sr_pipeline(x, pred._s1, pred._s2, MODES, geom, mesh,
+                                  out_dtype=torch.uint8)
+    np.testing.assert_array_equal(got.to_host().transpose(1, 2, 0),
+                                  pred.upscale(frame, 4.0, 4.0))
+    matrix = jitter_matrix(2, (3.0, 3.0))
+    frame_w, mask = sharded_lut_warp_pipeline(
+        x, pred._s1, pred._s2, MODES, WarpParams.create((30, 44), matrix,
+                                                        (90, 132)),
+        mesh, out_dtype=torch.uint8, mask=True)
+    want, want_mask = pred.warp(frame, matrix, (90, 132))
+    np.testing.assert_array_equal(frame_w.to_host().transpose(1, 2, 0), want)
+    np.testing.assert_array_equal(mask.to_host(), want_mask)

@@ -135,18 +135,27 @@ def test_net_predictor_default_device_is_cuda_and_never_falls_back():
 @pytest.mark.parametrize("case", ["mesh", "from_imdn", "warp_async",
                                   "async"])
 def test_unported_net_options_raise(case):
-    """``mesh=`` (ROADMAP Queue A item 12) raises; the async serving forms
-    are ported now (the ``warp_async`` and ``async`` cases held their "not
-    ported" exit): on the CPU each future, resolved at dispatch, holds
-    exactly its synchronous form's value."""
+    """``mesh=`` and the async serving forms are ported now (each case
+    held a "not ported" exit): an object that is no mesh raises
+    ``TypeError``; over ``["cpu"] * 2`` each frame of ``upscale_batch``
+    (SRNet and IMDN forms) equals its ``upscale``; on the CPU each future,
+    resolved at dispatch, holds exactly its synchronous form's value."""
+    from lerf_torch.parallel import make_mesh
+
     params = lerf_nets_from_arrays(np_params(nf=8, seed=0))
-    if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NetPredictor.from_srnets(params, mesh=object(), device="cpu")
-        return
-    if case == "from_imdn":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NetPredictor.from_imdn(IMDN2(nf=8), mesh=object(), device="cpu")
+    if case in ("mesh", "from_imdn"):
+        def make(**kw):
+            if case == "mesh":
+                return NetPredictor.from_srnets(params, **kw)
+            return NetPredictor.from_imdn(IMDN2(nf=8), **kw)
+
+        with pytest.raises(TypeError, match="Mesh"):
+            make(mesh=object(), device="cpu")
+        pred = make(mesh=make_mesh(devices=["cpu"] * 2))
+        imgs = np.stack([image()] * 2 + [image()[::-1]] * 2)
+        got = pred.upscale_batch(imgs, 2, 2)
+        for b in range(4):
+            np.testing.assert_array_equal(got[b], pred.upscale(imgs[b], 2, 2))
         return
     port = NetPredictor.from_srnets(params, device="cpu")
     img = image()

@@ -180,6 +180,8 @@ def test_port_imports_no_jax():
             "import lerf_torch.serve, lerf_torch.serve.engine\n"
             "import lerf_torch.serve.httpd, lerf_torch.cli.serve\n"
             "import lerf_torch.cli.make_benchmark, lerf_torch.ops.resample\n"
+            "import lerf_torch.parallel, lerf_torch.parallel.mesh\n"
+            "import lerf_torch.parallel.spatial\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'lerf_tpu',\n"
             "                                    'optax', 'orbax', 'flax'))\n"
@@ -203,8 +205,24 @@ def test_default_device_is_cuda_and_never_falls_back():
                                     {"mesh": object()}],
                          ids=lambda k: next(iter(k)))
 def test_unported_predictor_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``table_layout="packed8"`` is still not ported; ``mesh=`` is now
+    (this test held its "not ported" exit and keeps its name): an object
+    that is no mesh raises ``TypeError``, and over ``["cpu"] * 2`` each
+    frame of ``upscale_batch`` equals its ``upscale``."""
+    if "mesh" not in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_of(shared_lut_predictor(), device="cpu", **kwargs)
+        return
+    from lerf_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         port_of(shared_lut_predictor(), device="cpu", **kwargs)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    pred = port_of(shared_lut_predictor(), mesh=mesh)
+    imgs = np.stack([image(seed=s) for s in range(4)])
+    got = pred.upscale_batch(imgs, 2, 2)
+    for b in range(4):
+        np.testing.assert_array_equal(got[b], pred.upscale(imgs[b], 2, 2))
 
 
 @pytest.mark.parametrize("method", ["upscale_dynamic_async",

@@ -243,7 +243,7 @@ def test_adam_steps_match_lerf_tpu(weight_decay, reference):
     im, lb = (torch.from_numpy(a) for a in batch())
     state = ts.TrainState.create(lerf_nets_from_arrays(
         jax_params("lerf_g")), hp)
-    step = ts.make_train_step(ts.train_geometry(hp), hp)
+    step = ts.make_train_step(ts.train_geometry(hp), hp, device="cpu")
     for k, want in enumerate(reference["adam", weight_decay]):
         state, metrics = step(state, im, lb)
         assert state.step == k + 1
@@ -267,7 +267,7 @@ def test_train_state_from_arrays_continues_lerf_tpu(reference):
     jhp, _ = hparams("lerf_g", wd)
     assert abs(state.optimizer.param_groups[0]["lr"]
                - float(jts.cosine_lr(jhp)(jnp.asarray(1)))) < 1e-10
-    step = ts.make_train_step(ts.train_geometry(hp), hp)
+    step = ts.make_train_step(ts.train_geometry(hp), hp, device="cpu")
     im, lb = (torch.from_numpy(a) for a in batch())
     for want in steps[1:]:
         state, _ = step(state, im, lb)

@@ -110,7 +110,8 @@ def nearest_pairs(n=3, seed=0):
 
 def test_sample_shapes_and_alignment():
     lrs, hrs = nearest_pairs()
-    ds = DeviceDataset(lrs, hrs, scale=4, crop_size=8, in_c=1)
+    ds = DeviceDataset(lrs, hrs, scale=4, crop_size=8, in_c=1,
+                       device="cpu")
     im, lb = ds.sample_batch(torch.Generator().manual_seed(0), 32)
     assert im.shape == (32, 1, 8, 8) and lb.shape == (32, 1, 32, 32)
     assert im.dtype == torch.float32
@@ -122,7 +123,8 @@ def test_sample_shapes_and_alignment():
     # constant image per index, a crop's pixels name its image
     lrs2 = [np.full((12, 12, 3), v, np.uint8) for v in (10, 100, 200)]
     hrs2 = [np.full((48, 48, 3), v, np.uint8) for v in (10, 100, 200)]
-    ds2 = DeviceDataset(lrs2, hrs2, scale=4, crop_size=8, in_c=1)
+    ds2 = DeviceDataset(lrs2, hrs2, scale=4, crop_size=8, in_c=1,
+                        device="cpu")
     im2, lb2 = ds2.sample_batch(torch.Generator().manual_seed(1), 16)
     vals = np.unique(np.round(im2.numpy() * 255))
     assert set(vals.tolist()) <= {10.0, 100.0, 200.0}
@@ -133,7 +135,8 @@ def test_sample_shapes_and_alignment():
 
 def test_rgb_mode_and_generator_determinism():
     lrs, hrs = nearest_pairs(seed=2)
-    ds = DeviceDataset(lrs, hrs, scale=4, crop_size=8, in_c=3)
+    ds = DeviceDataset(lrs, hrs, scale=4, crop_size=8, in_c=3,
+                       device="cpu")
     a = ds.sample_batch(torch.Generator().manual_seed(2), 4)
     b = ds.sample_batch(torch.Generator().manual_seed(2), 4)
     assert a[0].shape == (4, 3, 8, 8) and a[1].shape == (4, 3, 32, 32)
@@ -146,7 +149,7 @@ def test_augmentation_covers_the_eight_symmetries_and_channels():
     flips / rotations, each drawn; with inC 1 every channel is drawn."""
     img = np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3)
     ds = DeviceDataset([img], [img.repeat(4, 0).repeat(4, 1)], scale=4,
-                       crop_size=8, in_c=3)
+                       crop_size=8, in_c=3, device="cpu")
     im, _ = ds.sample_batch(torch.Generator().manual_seed(3), 256)
     base = torch.from_numpy(img).permute(2, 0, 1).float() / 255
     views = [torch.rot90(v, k, dims=(1, 2)) for v in (base, base.flip(2))
@@ -156,7 +159,7 @@ def test_augmentation_covers_the_eight_symmetries_and_channels():
     chans = [np.full((8, 8, 3), 0, np.uint8)]
     chans[0][..., 1], chans[0][..., 2] = 1, 2
     ds1 = DeviceDataset(chans, [chans[0].repeat(4, 0).repeat(4, 1)],
-                        scale=4, crop_size=8, in_c=1)
+                        scale=4, crop_size=8, in_c=1, device="cpu")
     im1, _ = ds1.sample_batch(torch.Generator().manual_seed(4), 64)
     assert set(np.round(im1[:, 0, 0, 0].numpy() * 255).tolist()) == \
         {0.0, 1.0, 2.0}
@@ -174,10 +177,12 @@ def test_tiled_dataset_dense_and_valid():
     assert all(t.shape == (16, 16, 3) for t in tl)
     assert all(t.shape == (32, 32, 3) for t in th)
     assert len(tl) == 2 * 3 + 2 * 2 + 3 * 3
-    ds = DeviceDataset(lrs, hrs, scale=2, crop_size=8, in_c=3, tile=16)
+    ds = DeviceDataset(lrs, hrs, scale=2, crop_size=8, in_c=3, tile=16,
+                       device="cpu")
     n = len(tl)
     assert ds.hbm_bytes == n * 16 * 16 * 3 + n * 32 * 32 * 3
-    padded = DeviceDataset(lrs, hrs, scale=2, crop_size=8, in_c=3)
+    padded = DeviceDataset(lrs, hrs, scale=2, crop_size=8, in_c=3,
+                           device="cpu")
     assert padded.hbm_bytes == 3 * (48 * 48 * 3) * 5
     im, lb = ds.sample_batch(torch.Generator().manual_seed(0), 16)
     assert im.shape == (16, 3, 8, 8) and lb.shape == (16, 3, 16, 16)
@@ -210,12 +215,13 @@ def test_tile_smaller_than_crop_rejected():
     lrs = [np.zeros((32, 32, 3), np.uint8)]
     hrs = [np.zeros((64, 64, 3), np.uint8)]
     with pytest.raises(ValueError, match="tile"):
-        DeviceDataset(lrs, hrs, scale=2, crop_size=24, in_c=3, tile=16)
+        DeviceDataset(lrs, hrs, scale=2, crop_size=24, in_c=3, tile=16,
+                      device="cpu")
 
 
 def test_from_div2k_keeps_the_sampler_images(div2k):
     ds = DIV2K(str(div2k), 4, crop_size=6, in_c=1)
-    dev = DeviceDataset.from_div2k(ds)
+    dev = DeviceDataset.from_div2k(ds, device="cpu")
     assert dev.lr.shape[0] == 3 and dev.crop == 6 and dev.in_c == 1
     assert torch.equal(dev.lr[0, :12, :16],
                        torch.from_numpy(ds.lr_ims["0001"]))
