@@ -257,12 +257,42 @@ hand-written kernel against its plain PyTorch twin on the card:
    each step's loss within 1e-5 relative and every parameter within 1e-5
    of the params' largest magnitude, one K1 and one K6 launch a shard a
    step;
-46. the exact-division findings (K1 bit-equal to its twin or not at each
+46. K3's bf16 instance (lerf_tpu's compute type for bf16 heads: bf16
+   samples and activations, float32 sums, biases and head) against its
+   twin at the stage shapes, 3×360×640 with oC 1 and oC 3, nf 64: the
+   share of differing sums and the largest difference (within
+   ``K3_BF16_TOL``), ptxas registers and spills of its instances, its
+   time by events and by the profiler, its twin's, its bound (one bf16
+   tensor-core pass) and share;
+47. the bf16 net form: ``NetPredictor.from_srnets`` on the seed-0 nf 64
+   params rounded to bf16, ``upscale`` ×4 and ``warp`` to 1440×2560 (K3's
+   bf16 instance twice and K1 or K5 once, the counts read from the
+   wrappers), a 96×160 crop against the CPU path (phase 7's tolerances),
+   the whole calls, the device parts and the device part's bound;
+48. nf 128: K3 float32 (64-pixel tiles), K3 bf16 and K4 each against its
+   twin on a 3×96×160 crop (oC 1 and 3; phase 6's tolerances, bf16's its
+   own), each instance's time at the stage shapes beside its twin's and
+   its bound, and the launches of ``from_srnets`` at nf 128 on the crop
+   (two of the stage kernel a call);
+49. the LUT table layouts (``"flat"``, ``"packed8"``, ``"packed32"``,
+   ``"cells"``): K2's row mode on each, stage 1 and stage 2 bit-equal to
+   flat K2 and to the twin; ``LutPredictor(table_layout=...)`` SR and warp
+   bit-equal to the flat predictor on the card, K2 twice and K1 or K5 once
+   a call; on bench.py's uniform random frame and on a smooth frame (a
+   seeded uniform field box-blurred and stretched to 0..255: neighbouring
+   pixels share lattice cells, as in photographs), each layout's K2 times
+   (events, the profiler, and a CUDA graph's replays, which the choice
+   reads), whole ``upscale`` calls and device parts, the
+   bound from the table rows that frame touches, and the layout the
+   numbers favour;
+50. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
    rows with their ``linear`` and ``float`` modes, K1's and K5's
    ``window``, and K5's ``support4``, ``mask`` and ``batch4`` beside; K6's
-   with its ``linear`` mode), the card line and, last, the result line.
+   with its ``linear`` mode; then one row for each instance this slice
+   added: K3 bf16, K3 / K3 bf16 / K4 at nf 128 and K2's row mode on each
+   layout), the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -287,6 +317,9 @@ K1_ATOL = 1e-3        # float32 ops in one order; exp differs by a few ulp
 TIE_TOL = 1e-3        # a uint8 mismatch needs a value this close to k + .5
 # (max level difference, share of pixels that may differ)
 K3_TOL = (2, 0.005)   # the same float32 products summed in another order
+# K3 bf16 against its twin: lerf_tpu's float-kernel bound; an activation on
+# a bf16 rounding edge rounds either way under another float32 sum order
+K3_BF16_TOL = (2, 0.005)
 K4_TOL = (1, 0.001)   # int8 arithmetic bit-equal; tanhf may differ by ulps
 NET_STAGE_TOL = (1, 0.005)   # feat / hyper codes, card vs CPU
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; float32 outside the
@@ -296,6 +329,10 @@ HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
 TENSOR_TF32_OPS_PER_S = 495e12
 TENSOR_INT8_OPS_PER_S = 1979e12
+TENSOR_BF16_OPS_PER_S = 989e12
+WIDE_NF = 128          # phase 48: the widest nf the kernels take
+LAYOUTS = ("flat", "packed8", "packed32", "cells")
+SMOOTH_BOX = 15        # phase 49's smooth frame: 3 box passes of this width
 # K3 keeps float32 on the tensor cores as three TF32 products a multiply-add
 TF32_PRODUCTS_PER_F32 = 3
 # operations counted per unit of work for the bound:
@@ -518,6 +555,25 @@ def event_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=50):
+    """Device ms of one call of ``fn``, captured once in a CUDA graph and
+    replayed back to back between two events: no host launch cost between
+    the launches, so a kernel shorter than its wrapper's Python reads its
+    own time (events around the wrapper read the host's rate, and the
+    profiler drops rows in some windows)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return event_ms(graph.replay, iters)
+
+
 def frame_ms(fn, frames=25, warmup=3):
     """Median device ms of one call, each call timed by its own events."""
     import torch
@@ -685,18 +741,18 @@ def k2_work(c, h, w, oc, n_tables, n_members):
     return nbytes, c * h * w * n_members * oc * K2_OPS_PER_MEMBER_CHANNEL
 
 
-def net_params(seed=0, out_c=3):
-    """Micro-net params at the reference width, from numpy: Kaiming-normal
-    weights and small non-zero biases, on the CPU; stage 2 with ``out_c``
-    outputs (1 for LeRF-L)."""
+def net_params(seed=0, out_c=3, nf=NF):
+    """Micro-net params at the reference width (or ``nf``), from numpy:
+    Kaiming-normal weights and small non-zero biases, on the CPU; stage 2
+    with ``out_c`` outputs (1 for LeRF-L)."""
     from lerf_torch.convert import lerf_nets_from_arrays
 
     rng = np.random.RandomState(seed)
 
     def head(oc):
-        fans = [4] + [k * NF for k in range(1, 5)] + [5 * NF]
+        fans = [4] + [k * nf for k in range(1, 5)] + [5 * nf]
         p = {}
-        for k, (fan_in, out) in enumerate(zip(fans, [NF] * 5 + [oc]), 1):
+        for k, (fan_in, out) in enumerate(zip(fans, [nf] * 5 + [oc]), 1):
             p[f"w{k}"] = (rng.randn(fan_in, out) * np.sqrt(2.0 / fan_in)) \
                 .astype(np.float32)
             p[f"b{k}"] = (rng.randn(out) * 0.1).astype(np.float32)
@@ -712,25 +768,36 @@ def chain_macs(oc, nf=NF):
     return 4 * nf + nf * (nf + 2 * nf + 3 * nf + 4 * nf) + 5 * nf * oc
 
 
-def k3_work(n, oc, n_members):
+def k3_work(n, oc, n_members, nf=NF, weight_bytes=4):
     """(bytes, multiply-adds) of one K3 call over ``n`` pixels: the float32
-    image and the stacked member weights read once, the float32 [n, oC]
-    sums written once."""
-    weights = n_members * (chain_macs(oc) + 5 * NF + oc) * 4
+    image and the stacked member weights (``weight_bytes`` a weight: 2 for
+    bf16; float32 biases) read once, the float32 [n, oC] sums written
+    once."""
+    weights = n_members * (chain_macs(oc, nf) * weight_bytes
+                           + (5 * nf + oc) * 4)
     nbytes = n * 4 + weights + n * oc * 4
-    return nbytes, chain_macs(oc) * n_members * n
+    return nbytes, chain_macs(oc, nf) * n_members * n
 
 
-def k4_work(n, oc, n_members):
+def k3_bf16_bound(nbytes, macs):
+    """K3 bf16's bound: the larger of bytes and one bf16 tensor-core pass,
+    with its name and both times."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bf16_operations": 2 * macs / TENSOR_BF16_OPS_PER_S * 1e3}
+    by = max(parts, key=parts.get)
+    return parts[by], ("bytes" if by == "bytes" else "operations"), parts
+
+
+def k4_work(n, oc, n_members, nf=NF):
     """(bytes, int8 operations, float32 operations) of one K4 call: int32
     codes, int8 weights and float32 scales / biases read once, the float32
     sums written once."""
-    layer_outs = 5 * NF + oc
-    weights = n_members * (chain_macs(oc) + 2 * 4 * layer_outs)
+    layer_outs = 5 * nf + oc
+    weights = n_members * (chain_macs(oc, nf) + 2 * 4 * layer_outs)
     nbytes = n * 4 + weights + n * oc * 4
-    f32 = n * n_members * (5 * NF * K4_F32_OPS_PER_HIDDEN
+    f32 = n * n_members * (5 * nf * K4_F32_OPS_PER_HIDDEN
                            + oc * K4_F32_OPS_PER_HEAD)
-    return nbytes, 2 * chain_macs(oc) * n_members * n, f32
+    return nbytes, 2 * chain_macs(oc, nf) * n_members * n, f32
 
 
 def k4_bound(nbytes, int8_ops, f32_ops):
@@ -833,11 +900,13 @@ def net_kernel_phases(dev, params, qparams, rng):
     return out
 
 
-def net_form_phases(dev, params, frame, backend):
+def net_form_phases(dev, params, frame, backend, label=None):
     """Phases 7 and 8 for one backend: the main path on the card with the
     launch counts, the crop against the CPU path, then timing.  Returns
-    the main path's launch counts and the crop's differing shares of feat
-    and hyper codes."""
+    the main path's launch counts, the crop's differing shares of feat
+    and hyper codes, and the device ms.  ``label`` names the run in the
+    rows (the backend by default)."""
+    label = label or backend
     import torch
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.ops.kernels import lut_stage as k2
@@ -863,7 +932,7 @@ def net_form_phases(dev, params, frame, backend):
     want = {name: 0 for name in mods}
     want.update({"steering_resize": 1, stage_kernel: 2})
     if launches != want:
-        raise AssertionError(f"net form ({backend}) launches {launches}, "
+        raise AssertionError(f"net form ({label}) launches {launches}, "
                              f"want {want}")
     oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
     if (out.shape != (oh, ow, 3) or out.dtype != np.uint8
@@ -872,7 +941,7 @@ def net_form_phases(dev, params, frame, backend):
             or not (np.isfinite(feat).all() and np.isfinite(hyper).all())
             or feat.min() < 0 or feat.max() > 255
             or hyper.min() < 0 or hyper.max() > 1):
-        raise AssertionError(f"net form ({backend}): output {out.shape} "
+        raise AssertionError(f"net form ({label}): output {out.shape} "
                              f"{out.dtype}, feat {feat.shape}, hyper "
                              f"{hyper.shape} out of shape or range")
 
@@ -884,18 +953,18 @@ def net_form_phases(dev, params, frame, backend):
     cpu_s = time.perf_counter() - t_cpu
     feat_err, feat_share = level_diff(
         torch.from_numpy(got[1]), torch.from_numpy(ref[1]), NET_STAGE_TOL,
-        f"net form ({backend}) feat")
+        f"net form ({label}) feat")
     codes = np.round(got[2] * 255).astype(np.int32)
     hyper_err, hyper_share = level_diff(
         torch.from_numpy(codes), torch.from_numpy(np.round(ref[2] * 255)),
-        NET_STAGE_TOL, f"net form ({backend}) hyper codes")
+        NET_STAGE_TOL, f"net form ({label}) hyper codes")
     geom = ResizeGeometry.create((CROP_H, CROP_W), scale_factors=[SCALE] * 2)
     f32 = steering_resize_codes_plain(
         torch.from_numpy(got[1].astype(np.int32)), torch.from_numpy(codes), geom)
     n_tie = check_ties(
         got[0], _quantize_device(f32, 255).numpy().transpose(1, 2, 0),
-        f32.numpy().transpose(1, 2, 0), f"net form ({backend}) crop")
-    emit({"phase": "net_end_to_end", "backend": backend, "nf": NF,
+        f32.numpy().transpose(1, 2, 0), f"net form ({label}) crop")
+    emit({"phase": "net_end_to_end", "backend": label, "nf": NF,
           "in": [LR_H, LR_W], "out": [oh, ow], "scale": SCALE,
           "launches": launches, "crop": [CROP_H, CROP_W],
           "feat_max_diff": feat_err, "feat_share_differing": feat_share,
@@ -909,13 +978,13 @@ def net_form_phases(dev, params, frame, backend):
                       .astype(np.float32) / 255).to(dev)
     device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)),
                          frames=10, warmup=2)
-    emit_timed({"phase": "net_timing", "backend": backend, "frames": 10,
+    emit_timed({"phase": "net_timing", "backend": label, "frames": 10,
           "upscale_ms": upscale_ms, "upscale_mps": mp / upscale_ms * 1e3,
           "device_ms": device_ms, "device_mps": mp / device_ms * 1e3})
     emit_timed(profile_frames(lambda: pred.upscale(frame, SCALE, SCALE),
-                              frames=5, form="net", backend=backend))
+                              frames=5, form="net", backend=label))
     return launches, {"feat_share_differing": feat_share,
-                      "hyper_share_differing": hyper_share}
+                      "hyper_share_differing": hyper_share}, device_ms
 
 
 def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
@@ -1166,9 +1235,11 @@ def lut_warp_phases(dev, bank, frame, x):
             "library_ms": None}
 
 
-def net_warp_phases(dev, params, frame, backend):
+def net_warp_phases(dev, params, frame, backend, label=None):
     """Phase 11 for one backend: the net form's warp on the card with the
-    launch counts, a crop against the CPU path, then timing."""
+    launch counts, a crop against the CPU path, then timing.  Returns the
+    launch counts and the device ms."""
+    label = label or backend
     import torch
     from lerf_torch.ops.geometry import WarpGeometry
     from lerf_torch.ops.resample import (quantize_device,
@@ -1182,13 +1253,13 @@ def net_warp_phases(dev, params, frame, backend):
                     else "srnet_ensemble")
     (out, mask, feat, hyper), launches = counted_run(
         lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
-        {stage_kernel: 2, "steering_warp": 1}, f"net warp ({backend})")
+        {stage_kernel: 2, "steering_warp": 1}, f"net warp ({label})")
     if (out.shape != WARP_OUT + (3,) or out.dtype != np.uint8
             or mask.shape != WARP_OUT or feat.shape != (3, LR_H, LR_W)
             or hyper.shape != (3, LR_H, LR_W, 3)
             or feat.min() < 0 or feat.max() > 255
             or hyper.min() < 0 or hyper.max() > 1):
-        raise AssertionError(f"net warp ({backend}): output {out.shape}, "
+        raise AssertionError(f"net warp ({label}): output {out.shape}, "
                              f"feat {feat.shape}, hyper {hyper.shape} out "
                              "of shape or range")
 
@@ -1200,14 +1271,14 @@ def net_warp_phases(dev, params, frame, backend):
     ref = cpu.warp(crop, matrix, crop_out, return_aux=True)
     cpu_s = time.perf_counter() - t_cpu
     if not np.array_equal(got[1], ref[1]):
-        raise AssertionError(f"net warp ({backend}): the crop's mask differs")
+        raise AssertionError(f"net warp ({label}): the crop's mask differs")
     feat_err, feat_share = level_diff(
         torch.from_numpy(got[2]), torch.from_numpy(ref[2]), NET_STAGE_TOL,
-        f"net warp ({backend}) feat")
+        f"net warp ({label}) feat")
     codes = np.round(got[3] * 255).astype(np.int32)
     hyper_err, hyper_share = level_diff(
         torch.from_numpy(codes), torch.from_numpy(np.round(ref[3] * 255)),
-        NET_STAGE_TOL, f"net warp ({backend}) hyper codes")
+        NET_STAGE_TOL, f"net warp ({label}) hyper codes")
     geom = WarpGeometry.create((CROP_H, CROP_W), matrix, crop_out)
     f32 = steering_warp_codes_plain(
         torch.from_numpy(got[2].astype(np.int32)), torch.from_numpy(codes),
@@ -1216,8 +1287,8 @@ def net_warp_phases(dev, params, frame, backend):
         got[0],
         quantize_device(f32, 255, nan_to_zero=True).numpy().transpose(1, 2, 0),
         torch.nan_to_num(f32, nan=0.0).numpy().transpose(1, 2, 0),
-        f"net warp ({backend}) crop")
-    emit({"phase": "net_warp_end_to_end", "backend": backend, "nf": NF,
+        f"net warp ({label}) crop")
+    emit({"phase": "net_warp_end_to_end", "backend": label, "nf": NF,
           "in": [LR_H, LR_W], "out": list(WARP_OUT), "launches": launches,
           "crop": [CROP_H, CROP_W], "crop_out": list(crop_out),
           "mask_equal": True, "feat_max_diff": feat_err,
@@ -1232,13 +1303,13 @@ def net_warp_phases(dev, params, frame, backend):
                       .astype(np.float32) / 255).to(dev)
     device_ms = frame_ms(lambda: pred.run_warp_device(x, matrix, WARP_OUT),
                          frames=10, warmup=2)
-    emit_timed({"phase": "net_warp_timing", "backend": backend,
+    emit_timed({"phase": "net_warp_timing", "backend": label,
                 "frames": 10, "warp_ms": warp_ms,
                 "warp_mps": mp / warp_ms * 1e3, "device_ms": device_ms,
                 "device_mps": mp / device_ms * 1e3})
     emit_timed(profile_frames(lambda: pred.warp(frame, matrix, WARP_OUT),
-                              frames=5, form="net_warp", backend=backend))
-    return launches
+                              frames=5, form="net_warp", backend=label))
+    return launches, device_ms
 
 
 def linear_kernel_phases(dev, rng):
@@ -4097,6 +4168,373 @@ def dp_train_phase(dev, cfg):
     return counts
 
 
+def bf16_of(params):
+    """The params' leaves rounded to bf16 (to nearest even): the heads
+    whose compute type lerf_tpu's K3 takes as bf16."""
+    import torch
+    return {sk: {name: {k: v.to(torch.bfloat16) for k, v in head.items()}
+                 for name, head in heads.items()}
+            for sk, heads in params.items()}
+
+
+def k3_bf16_phase(dev, params, rng, log):
+    """Phase 46: K3's bf16 instance against its twin at the stage shapes,
+    its ptxas rows, its time beside its twin's and its bound.  Returns the
+    summary for the kernels line."""
+    import torch
+    from lerf_torch.models import srnet
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+
+    for row in ptxas_rows(log):
+        if "bf16" in row["function"]:
+            emit(row)
+    members = srnet.stage_members(MODES)
+    codes = torch.from_numpy(rng.randint(0, 256, (3, LR_H, LR_W))
+                             .astype(np.int32)).to(dev)
+    x = codes.to(torch.float32) / 255.0
+    out = {"err": 0.0, "share": 0.0, "ms": 0.0, "profiler_ms": 0.0,
+           "plain_ms": 0.0, "bytes": 0, "macs": 0, "bound_ms": 0.0}
+    for stage, oc in (("stage1", 1), ("stage2", 3)):
+        heads = (srnet.stage1_heads(params, 0, MODES) if oc == 1
+                 else srnet.stage2_heads(params, MODES))
+        sh = k3.StackedHeads.create(heads, dev)
+        if sh.dtype != torch.bfloat16:
+            raise AssertionError("bf16 heads stacked as " + str(sh.dtype))
+
+        def kern():
+            return k3.ensemble_sum(x, sh, members, half=127)
+
+        def plain():
+            return k3.ensemble_sum_plain(x, sh, members, half=127)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, share = level_diff(got, want, K3_BF16_TOL, f"K3 bf16 {stage}")
+        del got, want
+        ms = event_ms(kern, iters=10)
+        prof = kernel_device_ms(kern, "srnet_ensemble_bf16", frames=5)
+        plain_ms = event_ms(plain, iters=2, warmup=1)
+        nbytes, macs = k3_work(codes.numel(), oc, len(members),
+                               weight_bytes=2)
+        b_ms, b_by, parts = k3_bf16_bound(nbytes, macs)
+        emit_timed({"phase": "k3_bf16", "stage": stage,
+                    "shape": [3, LR_H, LR_W], "oc": oc, "nf": NF,
+                    "max_abs_err": err, "share_differing": share,
+                    "tolerance": list(K3_BF16_TOL), "ms": ms, **prof,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_parts_ms": parts, "share_of_bound": b_ms / ms})
+        out["err"] = max(out["err"], err)
+        out["share"] = max(out["share"], share)
+        out["ms"] += ms
+        out["profiler_ms"] = (out["profiler_ms"] + prof["profiler_ms"]
+                              if out["profiler_ms"] is not None
+                              and prof["profiler_complete"] else None)
+        out["plain_ms"] += plain_ms
+        out["bytes"] += nbytes
+        out["macs"] += macs
+    out["bound_ms"], out["bound_by"], _ = k3_bf16_bound(out["bytes"],
+                                                        out["macs"])
+    return out
+
+
+def bf16_net_phase(dev, params, frame, k3_row, k1_bound_ms, k5_bound_ms):
+    """Phase 47: the bf16 net form, SR and warp, through phases 7, 8 and
+    11 (the crop against the CPU's bf16 twin), and the device parts beside
+    their bounds (the two bf16 stages' and K1's or K5's).  Returns the SR
+    path's launch counts."""
+    launches, crop, sr_ms = net_form_phases(dev, params, frame, "auto",
+                                            label="bf16")
+    _, warp_ms = net_warp_phases(dev, params, frame, "auto", label="bf16")
+    for form, ms, b in (("upscale", sr_ms, k1_bound_ms),
+                        ("warp", warp_ms, k5_bound_ms)):
+        bound_ms = k3_row["bound_ms"] + b
+        emit_timed({"phase": "bf16_net_bound", "form": form,
+                    "device_ms": ms, "bound_ms": bound_ms,
+                    "share_of_bound": bound_ms / ms, **crop})
+    return launches
+
+
+def wide_nf_phase(dev, rng):
+    """Phase 48: K3 float32, K3 bf16 and K4 at nf 128 against their twins
+    on a crop, their times at the stage shapes, and the launches of the nf
+    128 net form on the crop.  Returns a kernels-line row per instance."""
+    import torch
+    from lerf_torch.models import srnet
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+    from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
+    from lerf_torch.pipeline import NetPredictor
+
+    params = net_params(seed=2, nf=WIDE_NF)
+    kinds = {"srnet_ensemble_nf128": ("auto", params),
+             "srnet_ensemble_bf16_nf128": ("auto", bf16_of(params)),
+             "srnet_ensemble_int8_nf128": ("pallas_int8", params)}
+    qparams = srnet.quantize_lerf_params(params)
+    members = srnet.stage_members(MODES)
+    codes = torch.from_numpy(rng.randint(0, 256, (3, LR_H, LR_W))
+                             .astype(np.int32)).to(dev)
+    x = codes.to(torch.float32) / 255.0
+    crop = (slice(None), slice(0, CROP_H), slice(0, CROP_W))
+    rows = {}
+    frame = np.ascontiguousarray(
+        rng.randint(0, 256, (CROP_H, CROP_W, 3)).astype(np.uint8))
+    for name, (backend, p) in kinds.items():
+        mod = k4 if backend == "pallas_int8" else k3
+        pred = NetPredictor.from_srnets(p, backend=backend)
+        mod.launches = 0
+        pred.upscale(frame, SCALE, SCALE)
+        torch.cuda.synchronize()
+        row = {"launches": mod.launches, "err": 0.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0}
+        if row["launches"] != 2:
+            raise AssertionError(f"{name}: {row['launches']} launches on "
+                                 "the nf 128 crop, want 2")
+        parts = []
+        for stage, oc in (("stage1", 1), ("stage2", 3)):
+            if backend == "pallas_int8":
+                heads = k4.QuantHeads.create(
+                    srnet.stage1_heads(qparams, 0, MODES) if oc == 1
+                    else srnet.stage2_heads(qparams, MODES), dev)
+                full, tol = codes, K4_TOL
+
+                def kern(inp, heads=heads):
+                    return k4.ensemble_sum_int8(inp, heads, members,
+                                                half=127)
+
+                def plain(inp, heads=heads):
+                    return k4.ensemble_sum_int8_plain(inp, heads, members,
+                                                      half=127)
+            else:
+                heads = k3.StackedHeads.create(
+                    srnet.stage1_heads(p, 0, MODES) if oc == 1
+                    else srnet.stage2_heads(p, MODES), dev)
+                full = x
+                tol = K3_BF16_TOL if "bf16" in name else K3_TOL
+
+                def kern(inp, heads=heads):
+                    return k3.ensemble_sum(inp, heads, members, half=127)
+
+                def plain(inp, heads=heads):
+                    return k3.ensemble_sum_plain(inp, heads, members,
+                                                 half=127)
+            part = full[crop].contiguous()
+            got, want = kern(part), plain(part)
+            torch.cuda.synchronize()
+            err, share = level_diff(got, want, tol, f"{name} {stage}")
+            ms = event_ms(lambda: kern(full), iters=3, warmup=1)
+            plain_ms = event_ms(lambda: plain(full), iters=1, warmup=1)
+            n = full.numel()
+            if backend == "pallas_int8":
+                b_ms, b_by, _ = k4_bound(*k4_work(n, oc, 12, nf=WIDE_NF))
+            elif "bf16" in name:
+                b_ms, b_by, _ = k3_bf16_bound(*k3_work(
+                    n, oc, 12, nf=WIDE_NF, weight_bytes=2))
+            else:
+                b_ms, b_by, _ = k3_bound(*k3_work(n, oc, 12, nf=WIDE_NF))
+            emit_timed({"phase": "nf128", "kernel": name, "stage": stage,
+                        "nf": WIDE_NF, "oc": oc, "crop": [3, CROP_H, CROP_W],
+                        "max_abs_err": err, "share_differing": share,
+                        "tolerance": list(tol), "ms": ms,
+                        "shape": [3, LR_H, LR_W], "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "share_of_bound": b_ms / ms,
+                        "tile_pixels": (k3.tile_pixels(WIDE_NF)
+                                        if name == "srnet_ensemble_nf128"
+                                        else 128)})
+            row["err"] = max(row["err"], err)
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += b_ms
+            parts.append(b_by)
+        row["bound_by"] = "operations" if "operations" in parts else "bytes"
+        rows[name] = row
+    return rows
+
+
+def smooth_frame(seed=3):
+    """A photo-like uint8 frame: a seeded uniform field, box-blurred three
+    times over ``SMOOTH_BOX`` pixels on each axis and stretched to 0..255,
+    so neighbouring pixels fall in the same lattice cells."""
+    f = np.random.RandomState(seed).rand(LR_H, LR_W, 3)
+    for _ in range(3):
+        for axis in (0, 1):
+            pad = [(0, 0)] * 3
+            pad[axis] = (SMOOTH_BOX // 2, SMOOTH_BOX // 2)
+            c = np.cumsum(np.pad(f, pad, mode="edge"), axis=axis)
+            c = np.concatenate([np.zeros_like(c.take([0], axis=axis)), c],
+                               axis=axis)
+            n = f.shape[axis]
+            f = (c.take(range(SMOOTH_BOX, SMOOTH_BOX + n), axis=axis)
+                 - c.take(range(n), axis=axis)) / SMOOTH_BOX
+    f = (f - f.min()) / (f.max() - f.min())
+    return np.round(f * 255).astype(np.uint8)
+
+
+def rows_touched(x, tables, modes, split_r):
+    """Bytes of the table rows one stage reads on ``x`` (int32 [C, H, W]):
+    per packed group its anchor cells, per cell-table key its members'
+    cells, each distinct row once — what this frame needs of the layout."""
+    import torch
+    from lerf_torch.ops import lut_pipeline as lp
+
+    xpad = lp._pad_all_sides(x)
+    h, w = x.shape[-2:]
+    q, B = 16, 16
+
+    def cell_of(planes):
+        iv = [p // q for p in planes]
+        return ((iv[0] * B + iv[1]) * B + iv[2]) * B + iv[3]
+
+    total = 0
+    if isinstance(tables, lp.PackedTables):
+        for mode in modes:
+            for g in tables.groups[mode]:
+                cells = []
+                for delta, perm in zip(g.deltas, g.perms):
+                    planes = [None] * 4
+                    for k, (ci, cj) in enumerate(g.canon):
+                        r0, c0 = lp.MAX_PAD + delta[0] + ci, \
+                            lp.MAX_PAD + delta[1] + cj
+                        planes[k] = xpad[..., r0:r0 + h, c0:c0 + w]
+                    cells.append(cell_of(planes).reshape(-1))
+                n = torch.unique(torch.cat(cells)).numel()
+                total += n * g.table.shape[1] * g.table.element_size()
+        return total
+    oc = tables.table.shape[-1]
+    by_key = {}
+    for mode, r, key in lp.ensemble_members(modes, split_r):
+        planes = lp._sample4(xpad, h, w, mode, r)
+        by_key.setdefault(key, []).append(cell_of(planes).reshape(-1))
+    for cells in by_key.values():
+        total += torch.unique(torch.cat(cells)).numel() * 16 * oc * 4
+    return total
+
+
+def lut_layout_phase(dev, bank, frame):
+    """Phase 49: K2's row mode on each table layout against flat K2 and
+    the twin, the layouts' predictors against the flat one, then each
+    layout's times on the random and the smooth frame.  Returns a
+    kernels-line row per row-mode layout."""
+    import torch
+    from lerf_torch.ops import lut_pipeline as lp
+    from lerf_torch.ops.kernels import lut_stage as k2
+    from lerf_torch.pipeline import LutPredictor
+
+    frames = {"random": frame, "smooth": smooth_frame()}
+    xs = {name: torch.from_numpy(np.ascontiguousarray(
+        f.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+        for name, f in frames.items()}
+    flat = LutPredictor(bank)
+    matrix = WARP_CASES["main"][0]
+    want = {name: (flat.upscale(f, SCALE, SCALE, return_aux=True),
+                   flat.warp(f, matrix, WARP_OUT, return_aux=True))
+            for name, f in frames.items()}
+    x = xs["random"]
+    f1 = lp.FlatTables.create(bank.stage1, dev)
+    f2 = lp.FlatTables.create(bank.stage2, dev)
+    feat = lp.lut_stage1(x, f1, MODES)
+    hyper = lp.lut_stage2(feat, f2, MODES)
+    rows, times = {}, {}
+    for layout in LAYOUTS:
+        t1 = lp.stage_tables(bank.stage1, layout, MODES, split_r=False,
+                             device=dev)
+        t2 = lp.stage_tables(bank.stage2, layout, MODES, split_r=True,
+                             device=dev)
+        if layout != "flat":
+            g1, g2 = lp.lut_stage1(x, t1, MODES), lp.lut_stage2(feat, t2,
+                                                                 MODES)
+            p1 = lp.lut_stage_plain(x, t1, MODES, split_r=False, den=48,
+                                    bias=0)[..., 0]
+            p2 = lp.lut_stage_plain(feat, t2, MODES, split_r=True, den=192,
+                                    bias=127)
+            torch.cuda.synchronize()
+            if not (torch.equal(g1, feat) and torch.equal(g2, hyper)
+                    and torch.equal(p1, feat) and torch.equal(p2, hyper)):
+                raise AssertionError(f"K2 rows ({layout}): not bit-equal to "
+                                     "flat K2 and the twin")
+            del g1, g2, p1, p2
+        pred = LutPredictor(bank, table_layout=layout)
+        for name, f in frames.items():
+            got_sr, sr_counts = counted_run(
+                lambda: pred.upscale(f, SCALE, SCALE, return_aux=True),
+                {"lut_stage": 2, "steering_resize": 1},
+                f"LutPredictor({layout}) upscale")
+            got_w, _ = counted_run(
+                lambda: pred.warp(f, matrix, WARP_OUT, return_aux=True),
+                {"lut_stage": 2, "steering_warp": 1},
+                f"LutPredictor({layout}) warp")
+            for a, b in zip(want[name][0] + want[name][1], got_sr + got_w):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"LutPredictor({layout}) on the "
+                                         f"{name} frame differs from flat")
+        for name, xf in xs.items():
+            ff = lp.lut_stage1(xf, t1, MODES)
+            kernel = "lut_stage_kernel" if layout == "flat" \
+                else "lut_rows_kernel"
+            ms1 = event_ms(lambda: lp.lut_stage1(xf, t1, MODES), iters=50)
+            ms2 = event_ms(lambda: lp.lut_stage2(ff, t2, MODES), iters=50)
+            g_ms = (graph_ms(lambda: lp.lut_stage1(xf, t1, MODES))
+                    + graph_ms(lambda: lp.lut_stage2(ff, t2, MODES)))
+            pr1 = kernel_device_ms(lambda: lp.lut_stage1(xf, t1, MODES),
+                                   kernel, frames=10)
+            pr2 = kernel_device_ms(lambda: lp.lut_stage2(ff, t2, MODES),
+                                   kernel, frames=10)
+            plain_ms = event_ms(lambda: lp.lut_stage_plain(
+                xf, t1, MODES, split_r=False, den=48, bias=0), iters=1,
+                warmup=1) + event_ms(lambda: lp.lut_stage_plain(
+                    ff, t2, MODES, split_r=True, den=192, bias=127),
+                    iters=1, warmup=1)
+            if layout == "flat":
+                nbytes = (k2_work(3, LR_H, LR_W, 1, 3, 12)[0]
+                          + k2_work(3, LR_H, LR_W, 3, 6, 12)[0])
+            else:
+                nbytes = (rows_touched(xf, t1, MODES, False)
+                          + rows_touched(ff, t2, MODES, True)
+                          + 3 * LR_H * LR_W * 4 * (1 + 1 + 1 + 3))
+            nops = (k2_work(3, LR_H, LR_W, 1, 3, 12)[1]
+                    + k2_work(3, LR_H, LR_W, 3, 6, 12)[1])
+            b_ms, b_by = bound(nbytes, nops)
+            up_ms = host_call_ms(lambda: pred.upscale(frames[name], SCALE,
+                                                      SCALE), 5)
+            dev_ms = frame_ms(lambda: pred.run_device(
+                xf, (SCALE, SCALE)), frames=5, warmup=2)
+            complete = pr1["profiler_complete"] and pr2["profiler_complete"]
+            row = {"phase": "lut_layout", "layout": layout, "frame": name,
+                   "k2_ms": ms1 + ms2, "k2_stage_ms": [ms1, ms2],
+                   "k2_graph_ms": g_ms,
+                   "profiler_ms": (pr1["profiler_ms"] + pr2["profiler_ms"]
+                                   if complete else None),
+                   "profiler_launches": [pr1["profiler_launches"],
+                                         pr2["profiler_launches"]],
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes, "share_of_bound": b_ms / (ms1 + ms2),
+                   "upscale_ms": up_ms, "device_ms": dev_ms,
+                   "launches": sr_counts}
+            emit_timed(row)
+            times[layout, name] = row
+        if layout != "flat":
+            r = times[layout, "random"]
+            rows[layout] = {"launches": r["launches"]["lut_stage"],
+                            "ms": r["k2_ms"], "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"],
+                            "profiler_ms": r["profiler_ms"],
+                            "graph_ms": r["k2_graph_ms"],
+                            "smooth_graph_ms":
+                                times[layout, "smooth"]["k2_graph_ms"]}
+    # every layout timed the same way in this call, by graph replays (the
+    # profiler drops rows in some windows, and events around the wrapper
+    # read the host's rate at these kernel times)
+    faster = {name: min(LAYOUTS,
+                        key=lambda lay: times[lay, name]["k2_graph_ms"])
+              for name in frames}
+    emit_timed({"phase": "lut_layout_choice", "by": "graph replays",
+                "fastest_k2": faster,
+                "packed8_faster_on_both": all(
+                    v == "packed8" for v in faster.values()),
+                "default": "flat"})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4508,6 +4946,20 @@ def main() -> int:
     kernels[-1]["window"] = {"max_abs_err": k5_window_err,
                              "bit_equal_to_whole": True}
 
+    # -- 46-49. K3 in bf16, nf 128, the LUT table layouts ------------------
+    t46 = time.perf_counter()
+    k3b = k3_bf16_phase(dev, bf16_of(params), rng, log)
+    bf16_launches = bf16_net_phase(dev, bf16_of(params), frame, k3b,
+                                   kernels[0]["bound_ms"],
+                                   kernels[4]["bound_ms"])
+    t48 = time.perf_counter()
+    wide = wide_nf_phase(dev, np.random.RandomState(14))
+    t49 = time.perf_counter()
+    layout_rows = lut_layout_phase(dev, bank, frame)
+    emit({"phase": "phase_seconds", "k3_bf16_and_net_form": t48 - t46,
+          "nf128": t49 - t48, "lut_layouts": time.perf_counter() - t49,
+          "script_so_far": time.perf_counter() - t0})
+
     g_row = k6_rows[False]
     kernels.append({
         "name": "steering_resize_bwd", "route": "cuda",
@@ -4522,7 +4974,45 @@ def main() -> int:
             "max_abs_err", "ms", "profiler_ms", "plain_ms", "bound_ms",
             "bound_by", "share_of_bound")}})
 
-    # -- 46. result ----------------------------------------------------------
+    kernels.append({
+        "name": "srnet_ensemble_bf16", "route": "cuda",
+        "source": "lerf_torch/csrc/srnet_ensemble.cu",
+        "replaces": "lerf_tpu/ops/pallas/srnet_kernel.py:78",
+        "launches": bf16_launches["srnet_ensemble"],
+        "max_abs_err": k3b["err"], "share_differing": k3b["share"],
+        "ms": k3b["ms"], "profiler_ms": k3b["profiler_ms"],
+        "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
+        "bound_by": k3b["bound_by"],
+        "share_of_bound": k3b["bound_ms"] / k3b["ms"], "library_ms": None})
+    for name, row in wide.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("lerf_torch/csrc/srnet_ensemble_int8.cu"
+                       if "int8" in name else
+                       "lerf_torch/csrc/srnet_ensemble.cu"),
+            "replaces": ("lerf_tpu/ops/pallas/srnet_kernel_int8.py:175"
+                         if "int8" in name else
+                         "lerf_tpu/ops/pallas/srnet_kernel.py:78"),
+            "launches": row["launches"], "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "share_of_bound": row["bound_ms"] / row["ms"],
+            "library_ms": None})
+    for layout, row in layout_rows.items():
+        kernels.append({
+            "name": f"lut_stage_rows_{layout}", "route": "cuda",
+            "source": "lerf_torch/csrc/lut_stage.cu",
+            "replaces": "lerf_tpu/ops/lut_pipeline.py:255",
+            "launches": row["launches"], "max_abs_err": 0,
+            "ms": row["ms"], "profiler_ms": row["profiler_ms"],
+            "graph_ms": row["graph_ms"],
+            "smooth_frame_graph_ms": row["smooth_graph_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "share_of_bound": row["bound_ms"] / row["ms"],
+            "library_ms": None})
+
+    # -- 50. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

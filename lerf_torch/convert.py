@@ -3,10 +3,10 @@ the port.
 
 Both packages hold a bank as host numpy int8 tables with the same keys,
 and micro-net params as the same nested dict of ``w [in, out]`` / ``b
-[out]`` float32 leaves; lerf_tpu's IMDN2 is a flax variables tree (HWIO
-kernels), the port's an ``nn.Module`` state dict (OIHW).  These build the
-port's objects from plain numpy arrays without importing either package's
-classes into the other.
+[out]`` float32 (or bfloat16) leaves; lerf_tpu's IMDN2 is a flax variables
+tree (HWIO kernels), the port's an ``nn.Module`` state dict (OIHW).
+These build the port's objects from plain numpy arrays without importing
+either package's classes into the other.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .lut.io import LUTBank
+from .ops.kernels.srnet_ensemble import as_tensor
 
 
 def bank_from_arrays(stage1: Dict[str, np.ndarray],
@@ -45,8 +46,10 @@ def lerf_nets_from_arrays(params: Dict, device="cpu") -> Dict:
     """Port micro-net params from the JAX pytree as numpy arrays, e.g.
     ``lerf_nets_from_arrays(jax.tree.map(np.asarray, p))``.
 
-    Returns ``{"s1": {...}, "s2": {...}}`` of float32 tensors on
-    ``device``.  Raises unless every head has ``w1..w6`` / ``b1..b6`` of
+    Returns ``{"s1": {...}, "s2": {...}}`` of tensors on ``device``:
+    bfloat16 leaves stay bfloat16 (K3 then computes in bf16, as lerf_tpu's
+    kernel does for bf16 heads), any other float type becomes float32.
+    Raises unless every head has ``w1..w6`` / ``b1..b6`` of
     one SRUnit's shapes: ``w1 [4, nf]``, ``wk [(k-1)·nf, nf]``, ``w6
     [5·nf, oC]``, ``bk [nf]``, ``b6 [oC]``."""
     if set(params) != {"s1", "s2"}:
@@ -67,10 +70,20 @@ def lerf_nets_from_arrays(params: Dict, device="cpu") -> Dict:
                 if np.shape(head[k]) != shape:
                     raise ValueError(f"{sk}/{name}/{k}: shape "
                                      f"{np.shape(head[k])}, want {shape}")
-            out[sk][name] = {
-                k: torch.from_numpy(np.asarray(v, np.float32).copy())
-                .to(device) for k, v in head.items()}
+            out[sk][name] = {k: head_tensor(v).to(device)
+                             for k, v in head.items()}
     return out
+
+
+def head_tensor(v) -> torch.Tensor:
+    """One micro-net leaf as a CPU tensor in its own compute type: a
+    bfloat16 array (what ``np.asarray`` gives for a JAX bf16 array) stays
+    bfloat16, taken bit for bit through a ``uint16`` view; anything else
+    becomes float32."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return as_tensor(a)
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
 
 
 def imdn_tower_state(prefix: str, tower: Dict) -> Dict[str, torch.Tensor]:

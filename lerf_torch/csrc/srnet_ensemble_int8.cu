@@ -25,7 +25,8 @@
 //   to a multiple of 8 with zero weights (exact); layer 1's 4 inputs take
 //   one k-step.
 // - A block of 8 warps owns 128 pixels and walks the members in order; two
-//   blocks share an SM. The tile's int8 activations [128][5.nf] (42 KB at
+//   blocks share an SM up to nf 64, one above (nf up to 128: 83 KB of
+//   activations). The tile's int8 activations [128][5.nf] (42 KB at
 //   nf = 64, rows padded so the fragment loads are free of bank conflicts)
 //   stay in shared memory. In the hidden layers warp w computes pixels
 //   32.(w % 4) .. +31 (two m-tiles) against half the n-tiles; the
@@ -52,7 +53,7 @@
 namespace {
 
 constexpr int kMaxMembers = 20;          // 5 modes x 4 rotations
-constexpr int kMaxNf = 64;
+constexpr int kMaxNf = 128;
 constexpr int kTile = 128;               // pixels per block; 2 blocks an SM
 constexpr int kWarps = kTile / 16;       // the head gives each warp an m-tile
 constexpr int kThreads = 32 * kWarps;
@@ -163,9 +164,12 @@ constexpr int kMagicBits = 0x4B400000;
 // rate: an int32 |acc| < 2^22 is exactly magic + acc - magic, and for v in
 // [0, 127] the low byte of v + magic is rint(v) (clipping first and
 // rounding after gives the same integer). A hidden layer's |acc| <= 127 *
-// 127 * 4 * 64 < 2^22 at nf <= 64.
+// 127 * 4 * 64 < 2^22 at nf <= 64; above (WIDE), up to 127 * 127 * 4 * 128
+// < 2^23, acc converts with an I2F, exact below 2^24.
+template <bool WIDE>
 __device__ __forceinline__ unsigned requant(int acc, float c, float b) {
-  const float a = __fsub_rn(__int_as_float(kMagicBits + acc), kMagic);
+  const float a = WIDE ? (float)acc
+                       : __fsub_rn(__int_as_float(kMagicBits + acc), kMagic);
   const float v = __fadd_rn(__fmul_rn(a, c), b);
   return __float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.0f), 127.0f), kMagic));
 }
@@ -181,7 +185,8 @@ __host__ __device__ __forceinline__ int act_words(int nfp) {
 
 // NTW: hidden n-tiles per warp, padded_nf(nf) / 16
 template <int OC, int NTW>
-__global__ void __launch_bounds__(kThreads, 2) srnet_ensemble_int8_kernel(
+__global__ void __launch_bounds__(kThreads, NTW <= 4 ? 2 : 1)
+    srnet_ensemble_int8_kernel(
     const int* __restrict__ codes,       // [C, H, W] int32, 0..255
     float* __restrict__ out,             // [C, H, W, OC] float32
     const Members mem, const QWeights wt, int C, int H, int W, int nf,
@@ -334,8 +339,10 @@ __global__ void __launch_bounds__(kThreads, 2) srnet_ensemble_int8_kernel(
             for (int h = 0; h < 2; ++h) {
               const int r = prow + 16 * mt + g + 8 * h;
               const unsigned v = __byte_perm(
-                  requant(acc[mt][jn][2 * h], cf[jn][0], bf[jn][0]),
-                  requant(acc[mt][jn][2 * h + 1], cf[jn][1], bf[jn][1]),
+                  requant<(NTW > 4)>(acc[mt][jn][2 * h], cf[jn][0],
+                                     bf[jn][0]),
+                  requant<(NTW > 4)>(acc[mt][jn][2 * h + 1], cf[jn][1],
+                                     bf[jn][1]),
                   0x0040);
               *reinterpret_cast<unsigned short*>(
                   bytes + r * wstride * 4 + l * nfp + col) = (unsigned short)v;
@@ -397,6 +404,14 @@ int launch_nf(const int* codes, float* out, const Members& mem,
       return launch<OC, 3>(codes, out, mem, wt, C, H, W, nf, half, stream);
     case 4:
       return launch<OC, 4>(codes, out, mem, wt, C, H, W, nf, half, stream);
+    case 5:
+      return launch<OC, 5>(codes, out, mem, wt, C, H, W, nf, half, stream);
+    case 6:
+      return launch<OC, 6>(codes, out, mem, wt, C, H, W, nf, half, stream);
+    case 7:
+      return launch<OC, 7>(codes, out, mem, wt, C, H, W, nf, half, stream);
+    case 8:
+      return launch<OC, 8>(codes, out, mem, wt, C, H, W, nf, half, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -63,6 +64,27 @@ def _load_torch_pickle(path: str):
     file, so load only checkpoints you trust."""
     module = torch.load(path, map_location="cpu", weights_only=False)
     return module.state_dict() if hasattr(module, "state_dict") else module
+
+
+def imdn_rtc_from_torch(prefix: str, sd: Dict, num_modules: int = 5) -> Dict:
+    """One IMDN_RTC tower of a reference state dict (model.py:507-523) →
+    lerf_tpu's flax layout, the inverse of
+    :func:`lerf_torch.convert.imdn_tower_state`: ``{prefix}.model.0`` →
+    ``fea``, ``.model.1.sub.{i}.c1..c5`` → ``imd{i}``, ``.model.1.sub.{n}``
+    → ``lr``, ``.model.2`` → ``up``, each ``{"kernel": [kh, kw, in, out],
+    "bias"}`` as float32 numpy arrays (lerf_tpu's
+    ``imdn_rtc_from_torch``)."""
+    def conv(name):
+        w = _to_f32(sd[f"{prefix}.{name}.weight"]).numpy()
+        return {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                "bias": _to_f32(sd[f"{prefix}.{name}.bias"]).numpy()}
+
+    out = {"fea": conv("model.0"), "lr": conv(f"model.1.sub.{num_modules}"),
+           "up": conv("model.2")}
+    for i in range(num_modules):
+        out[f"imd{i}"] = {c: conv(f"model.1.sub.{i}.{c}")
+                          for c in ("c1", "c2", "c3", "c4", "c5")}
+    return out
 
 
 def imdn_from_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -12,9 +12,12 @@ head; images are ``[..., H, W]`` floats in [0, 1].
 
 Backends of the ensemble sum (:func:`resolve_backend`): ``"pallas"`` (and
 ``"auto"``) is K3 (:mod:`lerf_torch.ops.kernels.srnet_ensemble`) — the
-kernel for a CUDA tensor, its plain twin for a CPU tensor;
-``"pallas_int8"`` is K4 on heads from :func:`quantize_lerf_params`;
-``"xla"`` is the plain batched PyTorch chain, differentiable through
+kernel for a CUDA tensor, its plain twin for a CPU tensor — in the heads'
+own compute type (float32, or bfloat16 for bf16 heads, as lerf_tpu's
+Pallas kernel); ``"pallas_int8"`` is K4 on heads from
+:func:`quantize_lerf_params` (quantized from the heads' values);
+``"xla"`` is the plain batched PyTorch chain in float32 (on the values of
+bf16 heads, as JAX promotes them), differentiable through
 :func:`round_ste` (it holds every member's activations at once, so keep
 its images small).
 """
@@ -87,8 +90,11 @@ def srunit_on_image(params: Dict, img: torch.Tensor, mode: str, rot: int):
 
 
 def _stack_heads(heads):
-    """List of SRUnit param dicts → one dict of [M, in, out] stacked mats."""
-    return {k: torch.stack([h[k] for h in heads]) for k in heads[0]}
+    """List of SRUnit param dicts → one dict of [M, in, out] stacked mats,
+    in float32: bf16 heads' values run the chain in float32, as JAX
+    promotes a float32 × bf16 product."""
+    return {k: torch.stack([torch.as_tensor(h[k]) for h in heads])
+            .to(torch.float32) for k in heads[0]}
 
 
 def apply_srunit_batched(stacked: Dict, x4: torch.Tensor) -> torch.Tensor:
@@ -153,8 +159,8 @@ def quantize_lerf_params(params: Dict, *, interval: int = 4) -> Dict:
     calib = lattice_inputs(interval)
 
     def host(head):
-        return {k: torch.as_tensor(v).detach().cpu().numpy()
-                for k, v in head.items()}
+        return {k: torch.as_tensor(v).detach().cpu().to(torch.float32)
+                .numpy() for k, v in head.items()}
 
     return {sk: {name: k4.quantize_srunit_head(host(head), calib)
                  for name, head in params[sk].items()}
@@ -179,7 +185,8 @@ def stage2_heads(params: Dict, modes2: Sequence[str]):
 def prepare_heads(heads, backend: str, device):
     """Member-aligned heads in the form the backend's sum takes, on
     ``device``, made once so a predictor does not redo it every frame:
-    stacked for K3 / K4, float32 dicts for the ``"xla"`` chain."""
+    stacked for K3 / K4 (K3 in the heads' compute type), float32 dicts
+    for the ``"xla"`` chain."""
     if backend == "pallas":
         return k3.StackedHeads.create(heads, device)
     if backend == "pallas_int8":

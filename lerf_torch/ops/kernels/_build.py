@@ -133,11 +133,18 @@ def _declare(lib):
         i32, i32, i32, i32,                  # interval, den, bias, norm
         vp]                                  # stream
     lib.lerf_lut_stage.restype = i32
+    lib.lerf_lut_stage_rows.argtypes = [
+        vp, vp, vp, vp,                      # img, row pointers (host), out,
+                                             # members (host)
+        i32, i32, i32, i32, i32, i32,        # M, C, H, W, oC, elem bytes
+        i32, i32, i32, i32,                  # interval, den, bias, norm
+        vp]                                  # stream
+    lib.lerf_lut_stage_rows.restype = i32
     lib.lerf_srnet_ensemble.argtypes = [
         vp, vp,                              # img, out
         *[vp] * 12,                          # w1..w6, b1..b6
         vp, i32, i32, i32, i32, i32, i32,    # members (host), M, C, H, W, nf, oC
-        f32, vp]                             # half, stream
+        f32, i32, vp]                        # half, bf16, stream
     lib.lerf_srnet_ensemble.restype = i32
     lib.lerf_srnet_ensemble_int8.argtypes = [
         vp, vp,                              # codes, out

@@ -27,6 +27,7 @@ import torch
 
 from ..lut_pipeline import MAX_PAD, _pad_all_sides, _sample4, member_offsets
 from . import _build
+from .resize import BLOCK_SMEM_MAX
 from .srnet_ensemble import LAYERS, MAX_MEMBERS, MAX_NF, padded_layer
 
 _SEGS = (1, 1, 2, 3, 4, 5)   # input segments per layer (of 64 features each;
@@ -229,11 +230,27 @@ def ensemble_sum_int8_plain(codes: torch.Tensor, heads: QuantHeads, members,
     return acc.T.reshape(codes.shape + (heads.oc,))
 
 
+def smem_bytes(nf: int) -> int:
+    """Dynamic shared memory of one K4 block at ``nf``, as the kernel lays
+    it out: 4 weight buffers of 16 KB, the int8 activation tile of 128
+    pixels (rows of ``act_words`` words) and the samples."""
+    words = -(-5 * padded_nf(nf) // 32) * 8
+    words += (4 - words) % 8
+    return (4 * 4096 + 128 * words + 128) * 4
+
+
 def _check_heads(heads: QuantHeads, n_members: int, device):
     nf, oc = heads.nf, heads.oc
     if not 0 < nf <= MAX_NF or oc not in (1, 3):
         raise ValueError(f"srnet_ensemble_int8: nf {nf} must be "
-                         f"1..{MAX_NF} and oC {oc} 1 or 3")
+                         f"1..{MAX_NF} (K4 is built for nf up to {MAX_NF}, "
+                         f"as K3, whose tile at nf {MAX_NF} fills the "
+                         f"{BLOCK_SMEM_MAX} bytes of shared memory a block "
+                         f"may use) and oC {oc} 1 or 3")
+    if smem_bytes(nf) > BLOCK_SMEM_MAX:
+        raise ValueError(f"srnet_ensemble_int8: nf {nf} needs "
+                         f"{smem_bytes(nf)} bytes of shared memory a block, "
+                         f"over the {BLOCK_SMEM_MAX} allowed")
     nt = padded_nf(nf) // 8
     ksteps = [1] + [-(-k * nt // 4) for k in range(1, 6)]
     outs = [nf] * 5 + [oc]

@@ -15,7 +15,11 @@ functions are the arithmetic of the K2 kernel's plain twin
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# pixels a segment of the cell-row gather and blend (simplex4d_cells)
+CELL_GATHER_CHUNK = 1 << 22
 
 
 def _ranks(fa, fb, fc, fd):
@@ -98,6 +102,54 @@ def simplex_weights16(fa, fb, fc, fd, q: int, bit_of=(8, 4, 2, 1)):
     bits = torch.arange(16, dtype=torch.int32, device=fa.device)
     return sum(w[..., None] * (m[..., None] == bits).to(torch.int32)
                for w, m in zip(ws, masks))
+
+
+def build_cell_table(lut, interval: int = 4) -> np.ndarray:
+    """Host-side: flat LUT ``[L⁴, oC]`` → cell-major table ``[(L-1)⁴, 16,
+    oC]`` of the same type: ``cells[cell, bits]`` holds the corner with
+    raise-bitmask ``bits`` (bit 3 = a, bit 2 = b, bit 1 = c, bit 0 = d) of
+    cell ``((ia·B + ib)·B + ic)·B + id``, B = L - 1, so one lookup's 5
+    simplex corners lie in one row (lerf_tpu's ``build_cell_table``)."""
+    L = (1 << (8 - interval)) + 1
+    B = L - 1
+    lut = np.asarray(lut).reshape(L, L, L, L, -1)
+    cells = np.empty((B, B, B, B, 16, lut.shape[-1]), lut.dtype)
+    for bits in range(16):
+        ba, bb, bc, bd = (bits >> 3) & 1, (bits >> 2) & 1, \
+            (bits >> 1) & 1, bits & 1
+        cells[..., bits, :] = lut[ba:B + ba, bb:B + bb, bc:B + bc,
+                                  bd:B + bd]
+    return cells.reshape(B ** 4, 16, lut.shape[-1])
+
+
+def simplex4d_cells(cells: torch.Tensor, a, b, c, d, interval: int = 4,
+                    cell_offset=None):
+    """Cell-major 4D-simplex interpolation, the same values as
+    :func:`simplex4d`.
+
+    ``cells``: int ``[K·(L-1)⁴, 16, oC]`` from :func:`build_cell_table`
+    (K tables stacked, selected by ``cell_offset`` = k·(L-1)⁴).  One row
+    gather fetches a lookup's 16 corners; the 5 simplex corners are
+    weighed in with :func:`simplex_weights16`.  The gather and blend run
+    in segments of ``CELL_GATHER_CHUNK`` lookups, so one segment's
+    ``[n, 16, oC]`` rows are live at a time.  Returns int32 ``a.shape +
+    (oC,)``, q × the interpolated value.
+    """
+    q = 1 << interval
+    B = 1 << (8 - interval)
+    cell = (((a // q) * B + b // q) * B + c // q) * B + d // q
+    if cell_offset is not None:
+        cell = cell + cell_offset
+    w16 = simplex_weights16(a % q, b % q, c % q, d % q, q)
+    cell_f, w_f = cell.reshape(-1), w16.reshape(-1, 16)
+    parts = []
+    for lo in range(0, cell_f.shape[0], CELL_GATHER_CHUNK):
+        rows = cells.index_select(0, cell_f[lo:lo + CELL_GATHER_CHUNK]) \
+            .to(torch.int32)
+        parts.append(torch.sum(w_f[lo:lo + CELL_GATHER_CHUNK, :, None] * rows,
+                               dim=1, dtype=torch.int32))
+    out = torch.cat(parts) if parts else w_f.new_zeros(0, cells.shape[-1])
+    return out.reshape(cell.shape + (cells.shape[-1],))
 
 
 def round_half_even_div(num: torch.Tensor, den: int):

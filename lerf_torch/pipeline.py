@@ -56,8 +56,9 @@ from .models import srnet
 from .ops import geometry as geo
 from .ops.kernels import resize as k1
 from .ops.kernels.warp import WarpParams, steering_warp, steering_warp_batch
-from .ops.lut_pipeline import (FlatTables, divide_exact, lut_stage1,
-                               lut_stage1_intermediate, lut_stage2)
+from .ops.lut_pipeline import (TABLE_LAYOUTS, divide_exact, lut_stage1,
+                               lut_stage1_intermediate, lut_stage2,
+                               stage_tables)
 from .ops.resample import nearest_warp_mask_host
 # the uint8 cast K1 fuses, kept under its old name for callers
 from .ops.resample import quantize_device as _quantize_device  # noqa: F401
@@ -705,9 +706,13 @@ class LutPredictor(_Predictor):
 
     ``linear``: the LeRF-L form, whose bank's stage 2 has one output
     channel (α); the LeRF-G form's has three.  ``device``: ``None`` →
-    ``cuda`` (raises without a card), or ``"cpu"``.  The bank's int8
-    tables live on that device as :class:`FlatTables`; with ``mesh``, on
-    each of the mesh's distinct devices (see the module doc).
+    ``cuda`` (raises without a card), or ``"cpu"``.  The bank's tables
+    live on that device in ``table_layout`` (lerf_tpu's four: ``"flat"``,
+    the port's default, :class:`FlatTables`; ``"packed8"`` /
+    ``"packed32"``, rotation-group rows of int8 / int32; ``"cells"``, int32
+    cell rows; see :mod:`lerf_torch.ops.lut_pipeline`), every layout
+    bit-equal; with ``mesh``, on each of the mesh's distinct devices (see
+    the module doc).
     """
 
     @classmethod
@@ -732,10 +737,8 @@ class LutPredictor(_Predictor):
                  supp_size: int = 2, max_sigma: float = 10.0,
                  stages: int = 2, norm: int = 255,
                  table_layout: str = "flat", mesh=None, device=None):
-        if table_layout != "flat":
-            raise NotImplementedError(
-                f"table_layout={table_layout!r}: the port has the flat "
-                "layout only; packed/cells are ROADMAP Queue A item 2")
+        if table_layout not in TABLE_LAYOUTS:
+            raise ValueError(f"unknown table_layout {table_layout!r}")
         if stages != bank.stages:
             raise ValueError(
                 f"stages={stages} but the LUT bank holds {bank.stages} "
@@ -754,11 +757,17 @@ class LutPredictor(_Predictor):
         self.modes = tuple(modes)
         self.modes2 = tuple(modes2)
         self.stages = stages
+        self.table_layout = table_layout
+
+        def tables(luts, modes, split_r, dev):
+            return stage_tables(luts, table_layout, modes, split_r=split_r,
+                                interval=bank.interval, device=dev)
+
         # (intermediate, stage 1, stage 2) tables on each device
         self._tables = {
-            dev: ([FlatTables.create(t, dev) for t in bank.inter],
-                  FlatTables.create(bank.stage1, dev),
-                  FlatTables.create(bank.stage2, dev))
+            dev: ([tables(t, self.modes, False, dev) for t in bank.inter],
+                  tables(bank.stage1, self.modes, False, dev),
+                  tables(bank.stage2, self.modes2, True, dev))
             for dev in (mesh.distinct if mesh is not None
                         else (self.device,))}
         self._inter, self._s1, self._s2 = self._tables[self.device]
@@ -859,10 +868,12 @@ class NetPredictor(_Predictor):
         """LeRF-L/G trainable form (SRNetsSWF2 pixel-MLP ensemble).
 
         ``params``: :func:`lerf_torch.models.srnet.init_lerf_nets` layout
-        (float32 tensors on any device); LeRF-L's stage-2 heads have one
-        output (``out_c=1``).  ``backend``: "auto" / "pallas" run K3 (the
-        kernel on a card, its plain twin on the CPU); "xla" the plain
-        batched chain; "pallas_int8" (opt-in) K4 on heads
+        (float32 or bfloat16 tensors on any device); LeRF-L's stage-2
+        heads have one output (``out_c=1``).  ``backend``: "auto" /
+        "pallas" run K3 (the kernel on a card, its plain twin on the CPU)
+        in the heads' compute type: bf16 heads run K3's bf16 instance, as
+        lerf_tpu's kernel computes in bf16 for them; "xla" the plain
+        batched chain in float32; "pallas_int8" (opt-in) K4 on heads
         post-training-quantized here, once, against the 17⁴ deploy
         lattice.  The member heads are stacked on the device once, here.
         Inference only."""

@@ -2,7 +2,7 @@
 """What bounds K3 and K4 on the card: time variants of each kernel with one
 part taken out.
 
-    python3 lerf_torch/tools/probe_srnet_kernels.py
+    python3 lerf_torch/tools/probe_srnet_kernels.py [--against DIR --rounds N]
 
 Each variant is the kernel's source with one text substitution (no tensor
 core products; K3 with one TF32 product instead of three, no activation
@@ -11,8 +11,11 @@ chip; K4 with no requantization arithmetic; either with no wait for the
 weight copies or no weight copies), built on its own with the package's
 nvcc flags and timed with CUDA events on one 3×360×640 stage (nf 64, 12
 members, oC 1), beside the kernel as built. Only the unchanged kernel
-computes the right numbers; the others are timings. Prints one JSON line
-per variant and the card line (name, power limit).
+computes the right numbers; the others are timings. With ``--against
+DIR`` it times another revision's two sources (DIR/srnet_ensemble.cu,
+DIR/srnet_ensemble_int8.cu, e.g. the parent commit's) beside these, in
+alternating rounds, instead. Prints one JSON line per timing and the card
+line (name, power limit).
 """
 from __future__ import annotations
 
@@ -52,11 +55,12 @@ VARIANTS = {
             'asm volatile("bar.sync %0, 64;\\n" ::"r"(group + 1) : "memory");',
             "")],
         "B read as 8 bytes a lane and split on chip": [(
-            "for (int j = 0; j < NTW; ++j) b[s][j] = wf[32 * (s * nt + j)];",
-            "for (int j = 0; j < NTW; ++j) {\n"
+            "for (int j = 0; j < NJ; ++j) "
+            "b[s][j] = wf[32 * (s * nt + J0 + j)];",
+            "for (int j = 0; j < NJ; ++j) {\n"
             "  const int ln = threadIdx.x & 31;\n"
             "  const float2 w2 = reinterpret_cast<const float2*>(wf - ln)"
-            "[64 * (s * nt + j) + ln];\n"
+            "[64 * (s * nt + J0 + j) + ln];\n"
             "  const uint32_t h0 = (__float_as_uint(w2.x) + 0x1000u)"
             " & 0xffffe000u;\n"
             "  const uint32_t h1 = (__float_as_uint(w2.y) + 0x1000u)"
@@ -73,8 +77,9 @@ VARIANTS = {
             '"r"(b.y));',
             "c[0] += a[0] ^ a[3] ^ b.x; c[1] += b.y;")],
         "no requantization": [(
-            "  const float a = __fsub_rn(__int_as_float(kMagicBits + acc), "
-            "kMagic);",
+            "  const float a = WIDE ? (float)acc\n"
+            "                       : __fsub_rn(__int_as_float(kMagicBits + "
+            "acc), kMagic);",
             "  return (unsigned)acc & 0x7fu;\n  const float a = 0.0f;")],
         "no wait for weights": [(
             'asm volatile("cp.async.wait_group %0;\\n" ::"n"(kStages - 2) '
@@ -84,22 +89,34 @@ VARIANTS = {
 }
 
 
-def build_variants(tmp):
+def build_variants(tmp, against=None):
     """Every variant's shared library, built in parallel: {(kernel,
-    variant): path}."""
+    variant): path}; with ``against`` (a directory holding another
+    revision's ``srnet_ensemble.cu`` and ``srnet_ensemble_int8.cu``, e.g.
+    the parent commit's ``lerf_torch/csrc`` unpacked under the gitignored
+    ``_archive/``) that revision's kernels too, as the variant
+    ``"against"``."""
     from lerf_torch.ops.kernels import _build
 
     jobs = {}
     for kernel, variants in VARIANTS.items():
         with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
             src = f.read()
-        for name, subs in {"as built": [], **variants}.items():
-            text = src
-            for old, new in subs:
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{kernel} / {name}: substitution "
-                                       f"not found once: {old[:60]!r}")
-                text = text.replace(old, new)
+        named = {"as built": [], **variants}
+        if against:
+            named = {"as built": [], "against": None}
+        for name, subs in named.items():
+            if subs is None:
+                with open(os.path.join(against, kernel + ".cu")) as f:
+                    text = f.read()
+            else:
+                text = src
+                for old, new in subs:
+                    if text.count(old) != 1:
+                        raise RuntimeError(
+                            f"{kernel} / {name}: substitution not found "
+                            f"once: {old[:60]!r}")
+                    text = text.replace(old, new)
             stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
             with open(stem + ".cu", "w") as f:
                 f.write(text)
@@ -111,8 +128,18 @@ def build_variants(tmp):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--against", help="a directory with another "
+                    "revision's srnet_ensemble{,_int8}.cu: time its kernels "
+                    "beside these, alternating, instead of the variants")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="alternating rounds (as built, other, other, as "
+                    "built) with --against")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_srnet_kernels: needs a CUDA card", file=sys.stderr)
         return 1
@@ -136,17 +163,20 @@ def main() -> int:
         0, 256, (3, cs.LR_H, cs.LR_W)).astype(np.int32)).to(dev)
     img = codes.to(torch.float32) / 255.0
     out = torch.empty(3, cs.LR_H, cs.LR_W, 1, device=dev)
-    args = {"srnet_ensemble": (img, [*sh.frags, *sh.b]),
-            "srnet_ensemble_int8": (codes, [*qh.frags, *qh.c, *qh.b])}
+    args_of = {"srnet_ensemble": (img, [*sh.frags, *sh.b]),
+               "srnet_ensemble_int8": (codes, [*qh.frags, *qh.c, *qh.b])}
     want = {"srnet_ensemble": k3.ensemble_sum(img, sh, members, half=127),
             "srnet_ensemble_int8": k4.ensemble_sum_int8(codes, qh, members,
                                                         half=127)}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp)
+        libs = build_variants(tmp, args.against)
+        runs = {}
         for (kernel, name), path in libs.items():
             fn = getattr(ctypes.CDLL(path), "lerf_" + kernel)
             fn.restype = ctypes.c_int
-            x, ops = args[kernel]
+            x, ops = args_of[kernel]
+            with open(path[:-3] + ".cu") as f:
+                typed = "int bf16, void* stream" in f.read()
             cargs = [ctypes.c_void_p(x.data_ptr()),
                      ctypes.c_void_p(out.data_ptr()),
                      *(ctypes.c_void_p(t.data_ptr()) for t in ops),
@@ -154,14 +184,21 @@ def main() -> int:
                      *map(ctypes.c_int, (len(members), 3, cs.LR_H, cs.LR_W,
                                          cs.NF, 1)),
                      ctypes.c_float(127.0),
+                     *([ctypes.c_int(0)] if typed else []),
                      ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
 
-            def run():
+            def run(fn=fn, cargs=cargs, kernel=kernel, name=name):
                 err = fn(*cargs)
                 if err:
                     raise RuntimeError(f"{kernel} / {name}: CUDA error {err}")
 
-            ms = cs.event_ms(run, iters=5, warmup=1)
+            runs[kernel, name] = run
+        order = [(k, n) for k, n in runs]
+        if args.against:
+            order = [(k, n) for _ in range(args.rounds) for k in VARIANTS
+                     for n in ("as built", "against", "against", "as built")]
+        for kernel, name in order:
+            ms = cs.event_ms(runs[kernel, name], iters=5, warmup=1)
             print(json.dumps({"kernel": kernel, "variant": name, "ms": ms,
                               "equals_kernel": bool(torch.equal(
                                   out, want[kernel])), "card": card}),

@@ -30,7 +30,8 @@ from lerf_tpu.pipeline import NetPredictor as JaxNetPredictor
 from lerf_torch.convert import (imdn_from_arrays, imdn_tower_state,
                                 lerf_nets_from_arrays)
 from lerf_torch.models import imdn_s2d
-from lerf_torch.models.convert import imdn_from_torch_checkpoint
+from lerf_torch.models.convert import (imdn_from_torch_checkpoint,
+                                       imdn_rtc_from_torch)
 from lerf_torch.models.imdn import IMDN2, IMDN_RTC, depth_to_space
 from lerf_torch.pipeline import LutPredictor, NetPredictor
 
@@ -226,6 +227,25 @@ def test_reference_layout_state_dict_round_trips():
     back = {"params": {s: jconvert.imdn_rtc_from_torch(s, state)
                        for s in ("stage1", "stage2")}}
     jax.tree.map(np.testing.assert_array_equal, back, variables)
+
+
+def test_imdn_rtc_from_torch_matches_jax():
+    """The reference reader of one tower: the port's gives lerf_tpu's flax
+    layout, array for array, from the same state dict (the random-init
+    variables carried across), and inverts ``imdn_tower_state``."""
+    variables = jax.tree.map(np.asarray, jax_variables())
+    state = imdn_from_arrays(variables)
+    for tower in ("stage1", "stage2"):
+        want = jconvert.imdn_rtc_from_torch(tower, state)
+        got = imdn_rtc_from_torch(tower, state)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert g.dtype == np.float32 and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+        jax.tree.map(np.testing.assert_array_equal, got,
+                     variables["params"][tower])
+        assert set(imdn_tower_state(tower, got)) == {
+            k for k in state if k.startswith(tower + ".")}
 
 
 def test_saved_state_dict_loads_through_the_checkpoint_reader(tmp_path):

@@ -11,7 +11,12 @@ plain twin do the same float32 operations in the same order; their ``exp``
 implementations may differ by a few ulp).  K3 sums the same float32
 products in another order, which can move a member's ``round(tanh·127)`` at
 a .5 edge (its 3xTF32 products carry ~2⁻²² relative error, float32's
-own): sums within 2 on < 0.5 % of pixels.  K4's hidden int8
+own): sums within 2 on < 0.5 % of pixels; its bf16 instance (bf16 heads)
+holds its bf16 twin within the same bound (an activation on a bf16
+rounding edge may round either way under another float32 summation
+order); both types and K4 also at nf 96 and 128.  K2's row mode
+(lerf_tpu's packed8, packed32 and cells layouts) is bit-equal to flat K2
+and to its twin.  K4's hidden int8
 arithmetic is bit-equal to its twin by construction and only ``tanhf`` may
 differ by an ulp: sums within 1 on < 0.1 %.  K5 holds atol 1e-3 with the
 same NaN pattern as its twin (the same float32 operations in the same
@@ -95,7 +100,10 @@ NET_CASES = {"nf8-oc1": (8, 1, (3, 45, 77), 12),
              "nf64-oc3": (64, 3, (3, 45, 77), 12),
              "nf8-oc3-m5": (8, 3, (2, 30, 41), 5),
              "nf12-oc1-m20": (12, 1, (2, 30, 41), 20),
-             "nf64-oc3-m20-ragged": (64, 3, (1, 13, 23), 20)}
+             "nf64-oc3-m20-ragged": (64, 3, (1, 13, 23), 20),
+             "nf96-oc3": (96, 3, (3, 45, 77), 12),
+             "nf128-oc1": (128, 1, (3, 45, 77), 12),
+             "nf128-oc3-m20-ragged": (128, 3, (1, 13, 23), 20)}
 WARP_ATOL = 1e-3
 
 
@@ -546,6 +554,51 @@ def test_srnet_ensemble_int8_kernel_matches_plain(case, cuda_device):
     want = k4.ensemble_sum_int8_plain(codes, heads, members, half=127)
     assert got.shape == want.shape == shape + (oc,)
     assert_levels_close(want, got, 1, 0.001)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(NET_CASES))
+def test_srnet_ensemble_bf16_kernel_matches_plain(case, cuda_device):
+    """bf16 heads run K3's bf16 instance (one launch) and hold its twin
+    within K3's bound (an activation on a bf16 rounding edge may round
+    either way under another float32 summation order)."""
+    nf, oc, shape, n_members = NET_CASES[case]
+    heads, members = member_case(nf, oc, n_members)
+    heads = k3.StackedHeads.create(
+        [{k: torch.from_numpy(v).to(torch.bfloat16) for k, v in h.items()}
+         for h in heads], cuda_device)
+    assert heads.dtype == torch.bfloat16
+    img = torch.from_numpy(np.random.RandomState(5).rand(*shape)
+                           .astype(np.float32)).to(cuda_device)
+    before = k3.launches
+    got = k3.ensemble_sum(img, heads, members, half=127)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    want = k3.ensemble_sum_plain(img, heads, members, half=127)
+    assert got.shape == want.shape == shape + (oc,)
+    assert_levels_close(want, got, 2, 0.005)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed8", "packed32", "cells"])
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_lut_rows_kernel_matches_flat(stage, layout, cuda_device):
+    """K2's row mode on lerf_tpu's other layouts: bit-equal to flat K2
+    and to the twin on the same layout."""
+    fn, split_r, _, which = STAGES[stage]
+    luts = getattr(random_bank(), which)
+    flat = lp.FlatTables.create(luts, cuda_device)
+    tables = lp.stage_tables(luts, layout, MODES, split_r=split_r,
+                             device=cuda_device)
+    img = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (3, 45, 77)).astype(np.int32)).to(cuda_device)
+    before = k2.launches
+    got = fn(img, tables, MODES)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    torch.testing.assert_close(got, fn(img, flat, MODES), rtol=0, atol=0)
+    torch.testing.assert_close(got, stage_plain(stage, img, tables),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda

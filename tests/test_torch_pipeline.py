@@ -205,13 +205,18 @@ def test_default_device_is_cuda_and_never_falls_back():
                                     {"mesh": object()}],
                          ids=lambda k: next(iter(k)))
 def test_unported_predictor_options_raise(kwargs):
-    """``table_layout="packed8"`` is still not ported; ``mesh=`` is now
-    (this test held its "not ported" exit and keeps its name): an object
-    that is no mesh raises ``TypeError``, and over ``["cpu"] * 2`` each
-    frame of ``upscale_batch`` equals its ``upscale``."""
+    """Both options are ported now (this test held their "not ported"
+    exits and keeps its name).  ``table_layout``: an unknown layout raises
+    ``ValueError`` as lerf_tpu's does, and ``"packed8"`` constructs (its
+    results: tests/test_torch_packed.py).  ``mesh=``: an object that is no
+    mesh raises ``TypeError``, and over ``["cpu"] * 2`` each frame of
+    ``upscale_batch`` equals its ``upscale``."""
     if "mesh" not in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_of(shared_lut_predictor(), device="cpu", **kwargs)
+        with pytest.raises(ValueError, match="unknown table_layout"):
+            port_of(shared_lut_predictor(), device="cpu",
+                    table_layout="packed16")
+        pred = port_of(shared_lut_predictor(), device="cpu", **kwargs)
+        assert pred.table_layout == "packed8"
         return
     from lerf_torch.parallel import make_mesh
 
