@@ -257,23 +257,28 @@ hand-written kernel against its plain PyTorch twin on the card:
    each step's loss within 1e-5 relative and every parameter within 1e-5
    of the params' largest magnitude, one K1 and one K6 launch a shard a
    step;
-46. K3's bf16 instance (lerf_tpu's compute type for bf16 heads: bf16
-   samples and activations, float32 sums, biases and head) against its
-   twin at the stage shapes, 3×360×640 with oC 1 and oC 3, nf 64: the
-   share of differing sums and the largest difference (within
-   ``K3_BF16_TOL``), ptxas registers and spills of its instances, its
-   time by events and by the profiler, its twin's, its bound (one bf16
-   tensor-core pass) and share;
+46. K3's bf16 kernel (lerf_tpu's compute type for bf16 heads: bf16
+   samples and activations, float32 sums, biases and head; ``wgmma`` on
+   shared-memory tiles, the weights by bulk copies) against its twin at the stage shapes, 3×360×640 with
+   oC 1 and oC 3, nf 64: the share of differing sums and the largest
+   difference (within ``K3_BF16_TOL``), its first design's beside
+   (``lerf_torch/tools/srnet_ensemble_bf16_first.cu``, built beside the
+   library), ptxas registers and spills of both designs' instances, the
+   kernel and its first design in alternating rounds by events and by the
+   profiler, the twin's time, the bound (one bf16 tensor-core pass) and
+   share, and the weight bytes a frame each design implies it reads from
+   L2 (worked out from its tiles, not measured);
 47. the bf16 net form: ``NetPredictor.from_srnets`` on the seed-0 nf 64
    params rounded to bf16, ``upscale`` ×4 and ``warp`` to 1440×2560 (K3's
-   bf16 instance twice and K1 or K5 once, the counts read from the
+   bf16 kernel twice and K1 or K5 once, the counts read from the
    wrappers), a 96×160 crop against the CPU path (phase 7's tolerances),
    the whole calls, the device parts and the device part's bound;
 48. nf 128: K3 float32 (64-pixel tiles), K3 bf16 and K4 each against its
    twin on a 3×96×160 crop (oC 1 and 3; phase 6's tolerances, bf16's its
    own), each instance's time at the stage shapes beside its twin's and
-   its bound, and the launches of ``from_srnets`` at nf 128 on the crop
-   (two of the stage kernel a call);
+   its bound, K3 bf16 as phase 46 has it (its first design, alternating
+   rounds, the implied L2 weight bytes), and the launches of ``from_srnets`` at nf
+   128 on the crop (two of the stage kernel a call);
 49. the LUT table layouts (``"flat"``, ``"packed8"``, ``"packed32"``,
    ``"cells"``): K2's row mode on each, stage 1 and stage 2 bit-equal to
    flat K2 and to the twin; ``LutPredictor(table_layout=...)`` SR and warp
@@ -435,6 +440,10 @@ K6_CASES = (("train", TRAIN_BATCH, (TRAIN_CROP, TRAIN_CROP), 4.0, 2),
 K6_TIMED = ("train", "frame")
 K6_ROUNDS = 4
 K6_FIRST = "lerf_torch/tools/steering_resize_bwd_first.cu"
+# K3 bf16's first design (mma.sync on K3's float32 block), timed beside the
+# kernel in K3_BF16_ROUNDS alternating rounds (phases 46 and 48)
+K3_BF16_FIRST = "lerf_torch/tools/srnet_ensemble_bf16_first.cu"
+K3_BF16_ROUNDS = 2
 
 
 def warp_matrix(seed=0):
@@ -909,31 +918,16 @@ def net_form_phases(dev, params, frame, backend, label=None):
     label = label or backend
     import torch
     from lerf_torch.ops.geometry import ResizeGeometry
-    from lerf_torch.ops.kernels import lut_stage as k2
-    from lerf_torch.ops.kernels import resize as k1
-    from lerf_torch.ops.kernels import srnet_ensemble as k3
-    from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
-    from lerf_torch.ops.kernels import warp as k5
     from lerf_torch.ops.resample import steering_resize_codes_plain
     from lerf_torch.pipeline import NetPredictor, _quantize_device
 
     pred = NetPredictor.from_srnets(params, backend=backend)
     if pred.device.type != "cuda":
         raise AssertionError(f"default device is {pred.device}")
-    mods = {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
-            "srnet_ensemble_int8": k4, "steering_warp": k5}
-    for mod in mods.values():
-        mod.launches = 0
-    out, feat, hyper = pred.upscale(frame, SCALE, SCALE, return_aux=True)
-    torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in mods.items()}
-    stage_kernel = ("srnet_ensemble_int8" if backend == "pallas_int8"
-                    else "srnet_ensemble")
-    want = {name: 0 for name in mods}
-    want.update({"steering_resize": 1, stage_kernel: 2})
-    if launches != want:
-        raise AssertionError(f"net form ({label}) launches {launches}, "
-                             f"want {want}")
+    (out, feat, hyper), launches = counted_run(
+        lambda: pred.upscale(frame, SCALE, SCALE, return_aux=True),
+        {"steering_resize": 1, **net_stage_launches(params, backend)},
+        f"net form ({label})")
     oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
     if (out.shape != (oh, ow, 3) or out.dtype != np.uint8
             or feat.shape != (3, LR_H, LR_W)
@@ -1030,8 +1024,38 @@ def k5_bound(nbytes, ops, f64):
     return parts[by], ("bytes" if by == "bytes" else "operations"), parts
 
 
+def net_stage_launches(params, backend):
+    """The launches of a net form's two SR stages: K4's for
+    ``pallas_int8``, else K3's, and for bf16 heads its bf16 kernel's."""
+    import torch
+    if backend == "pallas_int8":
+        return {"srnet_ensemble_int8": 2}
+    head = next(iter(next(iter(params.values())).values()))
+    if head["w1"].dtype == torch.bfloat16:
+        return {"srnet_ensemble": 2, "srnet_ensemble_bf16": 2}
+    return {"srnet_ensemble": 2}
+
+
+class _Bf16Count:
+    """K3's bf16 kernel's count (``bf16_launches`` of K3's module) as a
+    module's ``launches``."""
+
+    def __init__(self, k3):
+        self.k3 = k3
+
+    @property
+    def launches(self):
+        return self.k3.bf16_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.k3.bf16_launches = n
+
+
 def kernel_modules():
-    """Every kernel wrapper module by its kernel's name."""
+    """Every kernel wrapper module by its kernel's name (``srnet_ensemble``
+    counts K3's launches of either type, ``srnet_ensemble_bf16`` those of
+    its bf16 kernel)."""
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import resize_bwd as k6
@@ -1040,7 +1064,8 @@ def kernel_modules():
     from lerf_torch.ops.kernels import warp as k5
     return {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
             "srnet_ensemble_int8": k4, "steering_warp": k5,
-            "steering_resize_bwd": k6}
+            "steering_resize_bwd": k6,
+            "srnet_ensemble_bf16": _Bf16Count(k3)}
 
 
 def counted_run(call, want, what):
@@ -1054,7 +1079,7 @@ def counted_run(call, want, what):
     result = call()
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in mods.items()}
-    expect = {name: want.get(name, 0) for name in mods}
+    expect = {name: want.get(name, 0) for name in launches}
     if launches != expect:
         raise AssertionError(f"{what}: launches {launches}, want {expect}")
     return result, launches
@@ -1249,11 +1274,10 @@ def net_warp_phases(dev, params, frame, backend, label=None):
     matrix = WARP_CASES["main"][0]
     pred = NetPredictor.from_srnets(params, backend=backend)
     pred.warp(frame, matrix, WARP_OUT)        # the key's geometry, built once
-    stage_kernel = ("srnet_ensemble_int8" if backend == "pallas_int8"
-                    else "srnet_ensemble")
     (out, mask, feat, hyper), launches = counted_run(
         lambda: pred.warp(frame, matrix, WARP_OUT, return_aux=True),
-        {stage_kernel: 2, "steering_warp": 1}, f"net warp ({label})")
+        {"steering_warp": 1, **net_stage_launches(params, backend)},
+        f"net warp ({label})")
     if (out.shape != WARP_OUT + (3,) or out.dtype != np.uint8
             or mask.shape != WARP_OUT or feat.shape != (3, LR_H, LR_W)
             or hyper.shape != (3, LR_H, LR_W, 3)
@@ -2488,20 +2512,136 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-def start_k6_first_build():
-    """nvcc of K6's first design (``K6_FIRST``, two passes, outside the
-    library) into ``build/``, started beside the library's build so the two
-    compile together: (process, library path)."""
+def start_first_build(source, name):
+    """nvcc of a kernel's first design (``source``, relative to the repo,
+    outside the library) into ``build/<name>/``, started beside the
+    library's build so they compile together: (process, library path)."""
     from lerf_torch.ops.kernels import _build
 
-    out_dir = os.path.join(_build.BUILD_ROOT, "k6_first")
+    out_dir = os.path.join(_build.BUILD_ROOT, name)
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"libk6_first_{os.getpid()}.so")
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), K6_FIRST)
+    lib = os.path.join(out_dir, f"lib{name}_{os.getpid()}.so")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), source)
     proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                              src, "-o", lib], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, lib
+
+
+def start_k6_first_build():
+    """K6's first design (``K6_FIRST``, two passes)."""
+    return start_first_build(K6_FIRST, "k6_first")
+
+
+def bf16_frags(w, layer, nf):
+    """Stacked ``[M, in, out]`` bfloat16 weights of ``layer`` → the B
+    fragments K3 bf16's first design (``K3_BF16_FIRST``) reads for its
+    ``mma.sync.m16n8k16``, bfloat16 ``[M, k-steps, n-tiles, 32, 4]``: lane
+    ``4g + q`` of (k-step s, n-tile t) holds inputs ``16s + 2q``, ``16s +
+    2q + 1``, ``16s + 2q + 8`` and ``16s + 2q + 9`` of output ``8t + g``;
+    zero padding as ``srnet_ensemble.padded_layer``, to ``padded_nf``
+    features."""
+    from lerf_torch.ops.kernels import srnet_ensemble as k3
+
+    dense = k3.padded_layer(w, layer, nf, k3.padded_nf(nf), 16)
+    m, kp, np_ = dense.shape
+    return dense.reshape(m, kp // 16, 2, 4, 2, np_ // 8, 8) \
+        .permute(0, 1, 5, 6, 3, 2, 4).reshape(m, kp // 16, np_ // 8, 32, 4) \
+        .contiguous()
+
+
+def k3_bf16_first_design(build):
+    """K3 bf16's first design, ``fn(img, heads, members, half)`` → the
+    float32 sums, once its build (``start_first_build(K3_BF16_FIRST,
+    ...)``) is done; each ``StackedHeads``' B fragments (``bf16_frags``)
+    made at its first call.  ``fn.log`` is nvcc's output (ptxas rows)."""
+    import ctypes
+
+    import torch
+    from lerf_torch.ops.kernels import _build
+    from lerf_torch.ops.lut_pipeline import member_offsets
+
+    proc, path = build
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"K3 bf16 first design: nvcc failed:\n{log}")
+    entry = ctypes.CDLL(path).lerf_srnet_ensemble_bf16_first
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    entry.argtypes = [vp] * 15 + [i32] * 6 + [ctypes.c_float, vp]
+    entry.restype = i32
+    frags = {}
+
+    def call(img, sh, members, half):
+        if id(sh) not in frags:
+            frags[id(sh)] = (sh, [bf16_frags(w, k, sh.nf)
+                                  for k, w in enumerate(sh.w)])
+        out = torch.empty(img.shape + (sh.oc,), dtype=torch.float32,
+                          device=img.device)
+        h, w = img.shape[-2:]
+        offsets = member_offsets(members)
+        err = entry(img.data_ptr(), out.data_ptr(),
+                    *(t.data_ptr() for t in frags[id(sh)][1]),
+                    *(t.data_ptr() for t in sh.b), offsets.ctypes.data,
+                    len(members), img.numel() // (h * w), h, w, sh.nf,
+                    sh.oc, float(half),
+                    torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "K3 bf16 first design")
+        return out
+
+    call.log = log
+    return call
+
+
+def k3_bf16_l2_bytes(n, sh, tile):
+    """The weight bytes the design implies one K3 bf16 launch over ``n``
+    pixels reads from L2, if every block (``tile`` pixels) reads each
+    member's weights from L2 once (the first design's fragments hold the
+    same padded bytes).  Worked out, not measured: no counter of the card's
+    L2 is read."""
+    return -(-n // tile) * sum(f.numel() * 2 for f in sh.frags)
+
+
+def bf16_against_first(kern, first, frames=5):
+    """K3 bf16 as built against its first design on the same call:
+    ``K3_BF16_ROUNDS`` rounds of (kernel, first, first, kernel) by events
+    and by CUDA-graph replays (no host launch between launches), then by
+    the profiler, both designs in each window (windows with a row of each,
+    up to 8 tried): medians, each one's rounds, and the profiler's mean ms
+    a recorded launch."""
+    fns = {"kernel": kern, "first": first}
+    keys = {"kernel": "srnet_bf16_wgmma", "first": "srnet_ensemble_bf16_k"}
+    ms = {"kernel": [], "first": []}
+    graph = {"kernel": [], "first": []}
+    for _ in range(K3_BF16_ROUNDS):
+        for which in ("kernel", "first", "first", "kernel"):
+            ms[which].append(event_ms(fns[which], iters=5, warmup=1))
+            graph[which].append(graph_ms(fns[which], iters=5))
+    prof = {"kernel": [], "first": []}
+    windows = 0
+    for _ in range(8):
+        windows += 1
+        rows = device_rows(lambda: [f() for f in (kern, first, first, kern)],
+                           frames=frames)
+        got = {}
+        for which, key in keys.items():
+            mine = [(n, t) for name, n, t in rows if key in name]
+            n = sum(r[0] for r in mine)
+            if n:
+                got[which] = sum(r[1] for r in mine) / n
+        if len(got) == 2:
+            for which, t in got.items():
+                prof[which].append(t)
+            if len(prof["kernel"]) >= K3_BF16_ROUNDS:
+                break
+    med = statistics.median
+    return {"ms_rounds": ms["kernel"], "first_ms_rounds": ms["first"],
+            "ms": med(ms["kernel"]), "first_ms": med(ms["first"]),
+            "graph_ms": med(graph["kernel"]),
+            "first_graph_ms": med(graph["first"]),
+            "profiler_ms": med(prof["kernel"]) if prof["kernel"] else None,
+            "first_profiler_ms": (med(prof["first"]) if prof["first"]
+                                  else None),
+            "profiler_windows": [len(prof["kernel"]), windows]}
 
 
 def k6_first_design(build):
@@ -4177,15 +4317,18 @@ def bf16_of(params):
             for sk, heads in params.items()}
 
 
-def k3_bf16_phase(dev, params, rng, log):
-    """Phase 46: K3's bf16 instance against its twin at the stage shapes,
-    its ptxas rows, its time beside its twin's and its bound.  Returns the
-    summary for the kernels line."""
+def k3_bf16_phase(dev, params, rng, log, first):
+    """Phase 46: K3's bf16 instance against its twin at the stage shapes
+    (its first design's share beside), ptxas rows of both designs' every
+    instance, the kernel and its first design in alternating rounds by
+    events and by the profiler, the twin's time, the bound and share, and
+    the weight bytes a frame each design implies it reads from L2
+    (``k3_bf16_l2_bytes``).  Returns the summary for the kernels line."""
     import torch
     from lerf_torch.models import srnet
     from lerf_torch.ops.kernels import srnet_ensemble as k3
 
-    for row in ptxas_rows(log):
+    for row in ptxas_rows(log) + ptxas_rows(first.log):
         if "bf16" in row["function"]:
             emit(row)
     members = srnet.stage_members(MODES)
@@ -4193,7 +4336,10 @@ def k3_bf16_phase(dev, params, rng, log):
                              .astype(np.int32)).to(dev)
     x = codes.to(torch.float32) / 255.0
     out = {"err": 0.0, "share": 0.0, "ms": 0.0, "profiler_ms": 0.0,
-           "plain_ms": 0.0, "bytes": 0, "macs": 0, "bound_ms": 0.0}
+           "first_ms": 0.0, "first_profiler_ms": 0.0, "graph_ms": 0.0,
+           "first_graph_ms": 0.0, "plain_ms": 0.0,
+           "bytes": 0, "macs": 0, "bound_ms": 0.0,
+           "implied_l2_weight_bytes": 0, "first_implied_l2_weight_bytes": 0}
     for stage, oc in (("stage1", 1), ("stage2", 3)):
         heads = (srnet.stage1_heads(params, 0, MODES) if oc == 1
                  else srnet.stage2_heads(params, MODES))
@@ -4204,36 +4350,62 @@ def k3_bf16_phase(dev, params, rng, log):
         def kern():
             return k3.ensemble_sum(x, sh, members, half=127)
 
+        def first_fn():
+            return first(x, sh, members, 127)
+
         def plain():
             return k3.ensemble_sum_plain(x, sh, members, half=127)
 
-        got, want = kern(), plain()
+        got, want, old = kern(), plain(), first_fn()
         torch.cuda.synchronize()
         err, share = level_diff(got, want, K3_BF16_TOL, f"K3 bf16 {stage}")
-        del got, want
-        ms = event_ms(kern, iters=10)
-        prof = kernel_device_ms(kern, "srnet_ensemble_bf16", frames=5)
+        first_err, first_share = level_diff(old, want, K3_BF16_TOL,
+                                            f"K3 bf16 first design {stage}")
+        del got, want, old
+        timing = bf16_against_first(kern, first_fn)
         plain_ms = event_ms(plain, iters=2, warmup=1)
         nbytes, macs = k3_work(codes.numel(), oc, len(members),
                                weight_bytes=2)
         b_ms, b_by, parts = k3_bf16_bound(nbytes, macs)
+        l2 = k3_bf16_l2_bytes(codes.numel(), sh,
+                              k3.tile_pixels(NF, torch.bfloat16))
+        l2_first = k3_bf16_l2_bytes(codes.numel(), sh, 128)
         emit_timed({"phase": "k3_bf16", "stage": stage,
                     "shape": [3, LR_H, LR_W], "oc": oc, "nf": NF,
                     "max_abs_err": err, "share_differing": share,
-                    "tolerance": list(K3_BF16_TOL), "ms": ms, **prof,
+                    "first_max_abs_err": first_err,
+                    "first_share_differing": first_share,
+                    "tolerance": list(K3_BF16_TOL), **timing,
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "bound_parts_ms": parts, "share_of_bound": b_ms / ms})
+                    "bound_parts_ms": parts,
+                    "share_of_bound": b_ms / timing["ms"],
+                    "first_share_of_bound": b_ms / timing["first_ms"],
+                    "tile_pixels": k3.tile_pixels(NF, torch.bfloat16),
+                    "implied_l2_weight_bytes": l2,
+                    "first_implied_l2_weight_bytes": l2_first})
         out["err"] = max(out["err"], err)
         out["share"] = max(out["share"], share)
-        out["ms"] += ms
-        out["profiler_ms"] = (out["profiler_ms"] + prof["profiler_ms"]
-                              if out["profiler_ms"] is not None
-                              and prof["profiler_complete"] else None)
+        for k in ("ms", "first_ms", "graph_ms", "first_graph_ms",
+                  "profiler_ms", "first_profiler_ms"):
+            out[k] = (out[k] + timing[k] if out[k] is not None
+                      and timing[k] is not None else None)
         out["plain_ms"] += plain_ms
         out["bytes"] += nbytes
         out["macs"] += macs
+        out["implied_l2_weight_bytes"] += l2
+        out["first_implied_l2_weight_bytes"] += l2_first
     out["bound_ms"], out["bound_by"], _ = k3_bf16_bound(out["bytes"],
                                                         out["macs"])
+    emit_timed({"phase": "k3_bf16_frame", "nf": NF, "ms": out["ms"],
+                "profiler_ms": out["profiler_ms"],
+                "graph_ms": out["graph_ms"], "first_ms": out["first_ms"],
+                "first_profiler_ms": out["first_profiler_ms"],
+                "first_graph_ms": out["first_graph_ms"],
+                "bound_ms": out["bound_ms"],
+                "share_of_bound": out["bound_ms"] / out["ms"],
+                "implied_l2_weight_bytes": out["implied_l2_weight_bytes"],
+                "first_implied_l2_weight_bytes":
+                    out["first_implied_l2_weight_bytes"]})
     return out
 
 
@@ -4254,10 +4426,13 @@ def bf16_net_phase(dev, params, frame, k3_row, k1_bound_ms, k5_bound_ms):
     return launches
 
 
-def wide_nf_phase(dev, rng):
+def wide_nf_phase(dev, rng, first):
     """Phase 48: K3 float32, K3 bf16 and K4 at nf 128 against their twins
     on a crop, their times at the stage shapes, and the launches of the nf
-    128 net form on the crop.  Returns a kernels-line row per instance."""
+    128 net form on the crop; K3 bf16 as phase 46 has it (its first design
+    on the crop against the twin, the two in alternating rounds by events
+    and the profiler, the implied L2 weight bytes).  Returns a kernels-line
+    row per instance."""
     import torch
     from lerf_torch.models import srnet
     from lerf_torch.ops.kernels import srnet_ensemble as k3
@@ -4278,16 +4453,13 @@ def wide_nf_phase(dev, rng):
     frame = np.ascontiguousarray(
         rng.randint(0, 256, (CROP_H, CROP_W, 3)).astype(np.uint8))
     for name, (backend, p) in kinds.items():
-        mod = k4 if backend == "pallas_int8" else k3
         pred = NetPredictor.from_srnets(p, backend=backend)
-        mod.launches = 0
-        pred.upscale(frame, SCALE, SCALE)
-        torch.cuda.synchronize()
-        row = {"launches": mod.launches, "err": 0.0, "ms": 0.0,
-               "plain_ms": 0.0, "bound_ms": 0.0}
-        if row["launches"] != 2:
-            raise AssertionError(f"{name}: {row['launches']} launches on "
-                                 "the nf 128 crop, want 2")
+        _, launches = counted_run(
+            lambda: pred.upscale(frame, SCALE, SCALE),
+            {"steering_resize": 1, **net_stage_launches(p, backend)},
+            f"{name} on the nf 128 crop")
+        row = {"launches": launches[name.replace("_nf128", "")],
+               "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         parts = []
         for stage, oc in (("stage1", 1), ("stage2", 3)):
             if backend == "pallas_int8":
@@ -4320,7 +4492,25 @@ def wide_nf_phase(dev, rng):
             got, want = kern(part), plain(part)
             torch.cuda.synchronize()
             err, share = level_diff(got, want, tol, f"{name} {stage}")
-            ms = event_ms(lambda: kern(full), iters=3, warmup=1)
+            extra = {}
+            if "bf16" in name:
+                old = first(part, heads, members, 127)
+                torch.cuda.synchronize()
+                f_err, f_share = level_diff(old, want, tol,
+                                            f"{name} first design {stage}")
+                extra = bf16_against_first(
+                    lambda: kern(full),
+                    lambda: first(full, heads, members, 127), frames=3)
+                extra.update(
+                    first_max_abs_err=f_err, first_share_differing=f_share,
+                    implied_l2_weight_bytes=k3_bf16_l2_bytes(
+                        full.numel(), heads,
+                        k3.tile_pixels(WIDE_NF, torch.bfloat16)),
+                    first_implied_l2_weight_bytes=k3_bf16_l2_bytes(
+                        full.numel(), heads, 128))
+                ms = extra["ms"]
+            else:
+                ms = event_ms(lambda: kern(full), iters=3, warmup=1)
             plain_ms = event_ms(lambda: plain(full), iters=1, warmup=1)
             n = full.numel()
             if backend == "pallas_int8":
@@ -4337,10 +4527,19 @@ def wide_nf_phase(dev, rng):
                         "shape": [3, LR_H, LR_W], "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "share_of_bound": b_ms / ms,
-                        "tile_pixels": (k3.tile_pixels(WIDE_NF)
-                                        if name == "srnet_ensemble_nf128"
-                                        else 128)})
+                        "tile_pixels": (
+                            k3.tile_pixels(WIDE_NF, torch.bfloat16)
+                            if "bf16" in name else
+                            k3.tile_pixels(WIDE_NF)
+                            if name == "srnet_ensemble_nf128" else 128),
+                        **extra})
             row["err"] = max(row["err"], err)
+            for k in ("first_ms", "profiler_ms", "first_profiler_ms",
+                      "graph_ms", "first_graph_ms"):
+                if k in extra:
+                    row[k] = (row.get(k, 0) + extra[k]
+                              if row.get(k, 0) is not None
+                              and extra[k] is not None else None)
             row["ms"] += ms
             row["plain_ms"] += plain_ms
             row["bound_ms"] += b_ms
@@ -4562,15 +4761,18 @@ def main() -> int:
     # -- 1. card, torch, build ---------------------------------------------
     print(card, flush=True)
     t0 = time.perf_counter()
-    k6_first_build = start_k6_first_build()
+    first_builds = [start_k6_first_build(),
+                    start_first_build(K3_BF16_FIRST, "k3_bf16_first")]
     try:
         _, log = _build.build()
         _build.library()
     except BaseException:
-        k6_first_build[0].kill()
-        k6_first_build[0].wait()
+        for proc, _ in first_builds:
+            proc.kill()
+            proc.wait()
         raise
-    k6_first = k6_first_design(k6_first_build)
+    k6_first = k6_first_design(first_builds[0])
+    k3_bf16_first = k3_bf16_first_design(first_builds[1])
     emit({"phase": "build", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0})
@@ -4948,12 +5150,12 @@ def main() -> int:
 
     # -- 46-49. K3 in bf16, nf 128, the LUT table layouts ------------------
     t46 = time.perf_counter()
-    k3b = k3_bf16_phase(dev, bf16_of(params), rng, log)
+    k3b = k3_bf16_phase(dev, bf16_of(params), rng, log, k3_bf16_first)
     bf16_launches = bf16_net_phase(dev, bf16_of(params), frame, k3b,
                                    kernels[0]["bound_ms"],
                                    kernels[4]["bound_ms"])
     t48 = time.perf_counter()
-    wide = wide_nf_phase(dev, np.random.RandomState(14))
+    wide = wide_nf_phase(dev, np.random.RandomState(14), k3_bf16_first)
     t49 = time.perf_counter()
     layout_rows = lut_layout_phase(dev, bank, frame)
     emit({"phase": "phase_seconds", "k3_bf16_and_net_form": t48 - t46,
@@ -4976,11 +5178,15 @@ def main() -> int:
 
     kernels.append({
         "name": "srnet_ensemble_bf16", "route": "cuda",
-        "source": "lerf_torch/csrc/srnet_ensemble.cu",
+        "source": "lerf_torch/csrc/srnet_ensemble_bf16.cu",
         "replaces": "lerf_tpu/ops/pallas/srnet_kernel.py:78",
-        "launches": bf16_launches["srnet_ensemble"],
+        "launches": bf16_launches["srnet_ensemble_bf16"],
         "max_abs_err": k3b["err"], "share_differing": k3b["share"],
         "ms": k3b["ms"], "profiler_ms": k3b["profiler_ms"],
+        "graph_ms": k3b["graph_ms"],
+        "first_design_ms": k3b["first_ms"],
+        "first_design_profiler_ms": k3b["first_profiler_ms"],
+        "first_design_graph_ms": k3b["first_graph_ms"],
         "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
         "bound_by": k3b["bound_by"],
         "share_of_bound": k3b["bound_ms"] / k3b["ms"], "library_ms": None})
@@ -4989,6 +5195,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": ("lerf_torch/csrc/srnet_ensemble_int8.cu"
                        if "int8" in name else
+                       "lerf_torch/csrc/srnet_ensemble_bf16.cu"
+                       if "bf16" in name else
                        "lerf_torch/csrc/srnet_ensemble.cu"),
             "replaces": ("lerf_tpu/ops/pallas/srnet_kernel_int8.py:175"
                          if "int8" in name else
@@ -4997,7 +5205,11 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "share_of_bound": row["bound_ms"] / row["ms"],
-            "library_ms": None})
+            "library_ms": None,
+            **{k.replace("first_", "first_design_"): row[k]
+               for k in ("profiler_ms", "graph_ms", "first_ms",
+                         "first_profiler_ms", "first_graph_ms")
+               if k in row}})
     for layout, row in layout_rows.items():
         kernels.append({
             "name": f"lut_stage_rows_{layout}", "route": "cuda",

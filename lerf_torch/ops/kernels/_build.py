@@ -11,7 +11,7 @@ No ``--use_fast_math`` and no FMA contraction: the decode division, the
 ``expf``, K3's accumulating adds and K4's requantization stay IEEE
 single-precision operations, each rounded on its own, as in the plain
 PyTorch twins.  The products of K3 and K4 run on the tensor cores
-(``mma.sync``), which the flag does not touch.
+(``mma.sync``, ``wgmma``), which the flag does not touch.
 """
 from __future__ import annotations
 
@@ -140,12 +140,14 @@ def _declare(lib):
         i32, i32, i32, i32,                  # interval, den, bias, norm
         vp]                                  # stream
     lib.lerf_lut_stage_rows.restype = i32
-    lib.lerf_srnet_ensemble.argtypes = [
-        vp, vp,                              # img, out
-        *[vp] * 12,                          # w1..w6, b1..b6
-        vp, i32, i32, i32, i32, i32, i32,    # members (host), M, C, H, W, nf, oC
-        f32, i32, vp]                        # half, bf16, stream
-    lib.lerf_srnet_ensemble.restype = i32
+    for entry in (lib.lerf_srnet_ensemble, lib.lerf_srnet_ensemble_bf16):
+        entry.argtypes = [
+            vp, vp,                          # img, out
+            *[vp] * 12,                      # w1..w6, b1..b6
+            vp, i32, i32, i32, i32, i32, i32,  # members (host), M, C, H, W,
+                                             # nf, oC
+            f32, vp]                         # half, stream
+        entry.restype = i32
     lib.lerf_srnet_ensemble_int8.argtypes = [
         vp, vp,                              # codes, out
         *[vp] * 18,                          # w1..w6, c1..c6, b1..b6

@@ -9,17 +9,20 @@ then ``W6·[h1..h5] + b6``.
 
 The compute type is the heads' own, as in lerf_tpu (``dt =
 heads[0]["w1"].dtype``): float32 heads keep float32 on the tensor cores
-as three TF32 products a multiply-add (3xTF32), bfloat16 heads run one
-bf16 product with float32 sums, the inputs and every activation rounded
-to bf16 where lerf_tpu's kernel casts them, biases, tanh and the head in
-float32.  :class:`StackedHeads` carries the weights in the kernel's
-fragment order (:func:`tf32_frags` split into TF32 ``hi`` and ``lo``, or
-:func:`bf16_frags`); nf is at most ``MAX_NF``.
+as three TF32 products a multiply-add (3xTF32, ``csrc/srnet_ensemble.cu``),
+bfloat16 heads run one bf16 product with float32 sums, the inputs and every
+activation rounded to bf16 where lerf_tpu's kernel casts them, biases, tanh
+and the head in float32 (``csrc/srnet_ensemble_bf16.cu``: ``wgmma`` on
+shared-memory tiles, the weights brought in by bulk copies).
+:class:`StackedHeads` carries the weights as each kernel reads them (:func:`tf32_frags`: B fragments split into TF32 ``hi``
+and ``lo``; :func:`bf16_images`: the swizzled shared-memory images); nf is
+at most ``MAX_NF``.
 
 ``ensemble_sum`` runs the plain twin (:func:`ensemble_sum_plain`) for a CPU
-tensor and launches ``csrc/srnet_ensemble.cu`` for a CUDA tensor; it never
-falls back from the card to the plain version, nor from a bf16 head to the
-float32 kernel.  ``launches`` counts kernel launches.
+tensor and launches the kernel of the heads' type for a CUDA tensor; it
+never falls back from the card to the plain version, nor from a bf16 head
+to the float32 kernel.  ``launches`` counts kernel launches of either type,
+``bf16_launches`` those of the bf16 kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ MAX_NF = 128                        # the kernels' activation tiles (kMaxNf)
 COMPUTE_TYPES = (torch.float32, torch.bfloat16)
 
 launches = 0
+bf16_launches = 0
 
 
 def srunit_chain(x4: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -70,9 +74,10 @@ class StackedHeads(NamedTuple):
     ``w[k]`` ``[M, in, out]`` in the compute type (the params' own ``[in,
     out]`` layout, stacked), ``b[k]`` float32 ``[M, out]`` (of the bf16
     values for bf16 heads, as lerf_tpu's ``stack_heads_transposed``),
-    k = layer 1..6, and ``frags[k]``, the same weights in the kernel's
-    B-fragment order: split for 3xTF32 (:func:`tf32_frags`) for float32,
-    :func:`bf16_frags` for bfloat16."""
+    k = layer 1..6, and ``frags[k]``, the same weights as the kernel of
+    their type reads them: B fragments split for 3xTF32 (:func:`tf32_frags`)
+    for float32, shared-memory images (:func:`bf16_images`) for
+    bfloat16."""
     w: Tuple[torch.Tensor, ...]
     b: Tuple[torch.Tensor, ...]
     frags: Tuple[torch.Tensor, ...]
@@ -91,7 +96,7 @@ class StackedHeads(NamedTuple):
                 .to(device=device).contiguous()
 
         w = tuple(stack(f"w{k}", dt) for k in LAYERS)
-        frags = bf16_frags if dt == torch.bfloat16 else tf32_frags
+        frags = bf16_images if dt == torch.bfloat16 else tf32_frags
         return cls(w=w, b=tuple(stack(f"b{k}", torch.float32)
                                 for k in LAYERS),
                    frags=tuple(frags(x, layer, w[0].shape[2])
@@ -124,21 +129,80 @@ def _row_stride(n: int, mod: int) -> int:
 
 
 def smem_bytes(nf: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of one K3 block at ``nf``, as the kernel lays
-    it out: 3 weight buffers of 16 KB, the activation tile, the samples
-    and 6 barriers.  float32 tiles 128 pixels up to nf 64 and 64 above
-    (``tile_pixels``), bf16 128 pixels at any nf."""
-    nfp = padded_nf(nf)
+    """Dynamic shared memory of one K3 block at ``nf``, as the kernel of
+    that type lays it out: float32, 3 weight buffers of 16 KB, the
+    activation tile (rows padded to 8 mod 32 floats), the samples and 6
+    barriers; bf16, 1 KB to align the swizzle atoms, the activation tile
+    (``tile_pixels`` rows of 5 segments of nf padded to 16, bf16), the
+    samples (32 bytes a row), and ``ring_slots`` slots of 16 KB with two
+    barriers each."""
+    nfp, tile = padded_nf(nf), tile_pixels(nf, dtype)
     if dtype == torch.bfloat16:
-        return 3 * 16384 + 128 * (_row_stride(5 * nfp, 64) + 8) * 2 + 48
-    tile = tile_pixels(nf, dtype)
+        slots = ring_slots(nf)
+        return (1024 + tile * 5 * nfp * 2 + tile * 32
+                + slots * (16384 + 16))
     return (3 * 4096 + tile * (_row_stride(5 * nfp, 32) + 8)) * 4 + 48
 
 
 def tile_pixels(nf: int, dtype=torch.float32) -> int:
-    """Pixels of one K3 block: 128, or 64 for float32 above nf 64 (a
-    float32 tile of 128 pixels at nf 128 would need 332 KB)."""
-    return 64 if dtype == torch.float32 and padded_nf(nf) > 64 else 128
+    """Pixels of one K3 block.  float32: 128, or 64 above nf 64 (128
+    pixels at nf 128 would need 332 KB); bf16: 256 up to nf 64, 128 above
+    (256 rows of 5 segments of nf 128 would need 320 KB)."""
+    if dtype == torch.bfloat16:
+        return 256 if padded_nf(nf) <= 64 else 128
+    return 64 if padded_nf(nf) > 64 else 128
+
+
+def ring_slots(nf: int) -> int:
+    """The bf16 kernel's weight ring: as many 16 KB slots (at most 8) as
+    the opt-in leaves beside the tile, the samples, 1 KB to align and 8
+    slots' barriers."""
+    nfp, tile = padded_nf(nf), tile_pixels(nf, torch.bfloat16)
+    free = BLOCK_SMEM_MAX - 1024 - tile * 5 * nfp * 2 - tile * 32 - 16 * 8
+    return min(8, free // 16384)
+
+
+def block_width(nf: int, layer: int = 1) -> int:
+    """The bf16 kernel's k-block width in features (16 bf16 = one k-step):
+    16 for layer 1's padded samples, otherwise 64 where padded nf is a
+    multiple of 64 (128-byte swizzle), 32 where it is one of 32 (64-byte),
+    else 16 (32-byte): each layer's segment is whole blocks."""
+    nfp = padded_nf(nf)
+    if layer == 0:
+        return 16
+    return 64 if nfp % 64 == 0 else 32 if nfp % 32 == 0 else 16
+
+
+def swizzle(blocks: torch.Tensor) -> torch.Tensor:
+    """``[..., rows, wb]`` K-major blocks (rows a multiple of 8, wb bf16
+    features a row) → the same bytes as the ``wgmma`` swizzle of that width
+    stores them (the 128-, 64- or 32-byte mode for wb 64, 32, 16): in row
+    r, the 16-byte chunk c lands at chunk c ^ ((r · 2 wb) >> 7 & (wb / 8 −
+    1)), the XOR of address bits 4.. with bits 7.. of a block laid out at
+    an atom-aligned address.  The map is its own inverse."""
+    rows, wb = blocks.shape[-2:]
+    r = torch.arange(rows)
+    sw = ((r * 2 * wb) >> 7) & (wb // 8 - 1)
+    idx = torch.arange(wb // 8)[None, :] ^ sw[:, None]          # [rows, c]
+    chunks = blocks.reshape(blocks.shape[:-1] + (wb // 8, 8))
+    idx = idx.to(blocks.device)[..., None].expand(chunks.shape)
+    return torch.gather(chunks, -2, idx).reshape(blocks.shape)
+
+
+def bf16_images(w: torch.Tensor, layer: int, nf: int) -> torch.Tensor:
+    """Stacked ``[M, in, out]`` bfloat16 weights of ``layer`` → the shared
+    memory images the bf16 kernel's ``wgmma`` reads as B, bfloat16 ``[M,
+    k-blocks, rows, wb]``: B K-major (a row an output: :func:`padded_nf`
+    rows for hidden layers, 8 for the head; a column an input, zero
+    padding as :func:`padded_layer`), cut into k-blocks of
+    :func:`block_width` inputs, each block :func:`swizzle`-d.  A ring slot
+    takes whole blocks, copied as they are."""
+    wb = block_width(nf, layer)
+    dense = padded_layer(w, layer, nf, padded_nf(nf), 16)
+    m, kp, np_ = dense.shape
+    blocks = dense.transpose(1, 2).reshape(m, np_, kp // wb, wb) \
+        .permute(0, 2, 1, 3)
+    return swizzle(blocks).contiguous()
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -190,20 +254,6 @@ def tf32_frags(w: torch.Tensor, layer: int, nf: int) -> torch.Tensor:
         .permute(0, 1, 4, 5, 2, 3).reshape(m, kp // 8, np_ // 8, 32, 2)
     hi, lo = tf32_split(pairs)
     return torch.cat([hi, lo], -1).contiguous()
-
-
-def bf16_frags(w: torch.Tensor, layer: int, nf: int) -> torch.Tensor:
-    """Stacked ``[M, in, out]`` bfloat16 weights of ``layer`` → the B
-    fragments K3's ``mma.sync.m16n8k16`` reads, bfloat16 ``[M, k-steps,
-    n-tiles, 32, 4]``: lane ``4g + q`` of (k-step s, n-tile t) holds
-    inputs ``16s + 2q``, ``16s + 2q + 1``, ``16s + 2q + 8`` and ``16s +
-    2q + 9`` of output ``8t + g`` (the fragment's two registers); zero
-    padding as :func:`padded_layer`, to :func:`padded_nf` features."""
-    dense = padded_layer(w, layer, nf, padded_nf(nf), 16)
-    m, kp, np_ = dense.shape
-    return dense.reshape(m, kp // 16, 2, 4, 2, np_ // 8, 8) \
-        .permute(0, 1, 5, 6, 3, 2, 4).reshape(m, kp // 16, np_ // 8, 32, 4) \
-        .contiguous()
 
 
 def sample_x4(img: torch.Tensor, members) -> torch.Tensor:
@@ -266,20 +316,26 @@ def _check_heads(heads: StackedHeads, n_members: int, device):
         raise ValueError(
             f"srnet_ensemble: nf {nf} must be 1..{MAX_NF} (at nf {MAX_NF} "
             f"a block's activation tile and weight ring take "
-            f"{smem_bytes(MAX_NF, torch.bfloat16)} of the "
+            f"{smem_bytes(MAX_NF)} (float32, {tile_pixels(MAX_NF)} "
+            f"pixels) or {smem_bytes(MAX_NF, torch.bfloat16)} (bf16, "
+            f"{tile_pixels(MAX_NF, torch.bfloat16)} pixels) of the "
             f"{BLOCK_SMEM_MAX} bytes of shared memory a block may use) "
             f"and oC {oc} 1 or 3")
     if smem_bytes(nf, dt) > BLOCK_SMEM_MAX:
         raise ValueError(f"srnet_ensemble: nf {nf} needs "
                          f"{smem_bytes(nf, dt)} bytes of shared memory a "
                          f"block, over the {BLOCK_SMEM_MAX} allowed")
-    nt = padded_nf(nf) // 8
-    k = 16 if dt == torch.bfloat16 else 8    # inputs a k-step
-    ks = [1] + [-(-j * padded_nf(nf) // k) for j in range(1, 6)]
-    want_f = [(ks[j], nt if j < 5 else 1) for j in range(6)]
-    for f, b, (kss, nts), out in zip(heads.frags, heads.b, want_f,
-                                     [nf] * 5 + [oc]):
-        if (f.shape != (n_members, kss, nts, 32, 4)
+    nfp = padded_nf(nf)
+    if dt == torch.bfloat16:                 # [M, k-blocks, rows, wb]
+        wbs = [block_width(nf, j) for j in range(6)]
+        want_f = [(n_members, 1 if j == 0 else j * nfp // wbs[j],
+                   nfp if j < 5 else 8, wbs[j]) for j in range(6)]
+    else:                                    # [M, k-steps, n-tiles, 32, 4]
+        want_f = [(n_members, 1 if j == 0 else j * nfp // 8,
+                   nfp // 8 if j < 5 else 1, 32, 4) for j in range(6)]
+    for f, b, shape, out in zip(heads.frags, heads.b, want_f,
+                                [nf] * 5 + [oc]):
+        if (f.shape != shape
                 or b.shape != (n_members, out)
                 or dt not in COMPUTE_TYPES
                 or f.dtype != dt or b.dtype != torch.float32
@@ -297,7 +353,7 @@ def ensemble_sum(img: torch.Tensor, heads: StackedHeads, members, *,
     with the stacked ``heads``."""
     if img.device.type == "cpu":
         return ensemble_sum_plain(img, heads, members, half=half)
-    global launches
+    global launches, bf16_launches
     if img.device.type != "cuda":
         raise ValueError(f"srnet_ensemble: unsupported device {img.device}")
     if img.dtype != torch.float32 or img.dim() < 2:
@@ -313,16 +369,19 @@ def ensemble_sum(img: torch.Tensor, heads: StackedHeads, members, *,
                       device=x.device)
     offsets = member_offsets(members)
     lib = _build.library()
+    bf16 = heads.dtype == torch.bfloat16
+    entry = lib.lerf_srnet_ensemble_bf16 if bf16 else lib.lerf_srnet_ensemble
     with torch.cuda.device(x.device):       # launch on the tensors' card
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lerf_srnet_ensemble(
-            x.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in heads.frags),
-            *(t.data_ptr() for t in heads.b),
-            offsets.ctypes.data, len(members), c, h, w, heads.nf, heads.oc,
-            float(half), int(heads.dtype == torch.bfloat16), stream)
-    _build.check(err, "srnet_ensemble launch")
+        err = entry(x.data_ptr(), out.data_ptr(),
+                    *(t.data_ptr() for t in heads.frags),
+                    *(t.data_ptr() for t in heads.b),
+                    offsets.ctypes.data, len(members), c, h, w, heads.nf,
+                    heads.oc, float(half), stream)
+    _build.check(err, "srnet_ensemble_bf16 launch" if bf16
+                 else "srnet_ensemble launch")
     launches += 1
+    bf16_launches += bf16
     return out
 
 

@@ -11,10 +11,12 @@ plain twin do the same float32 operations in the same order; their ``exp``
 implementations may differ by a few ulp).  K3 sums the same float32
 products in another order, which can move a member's ``round(tanh·127)`` at
 a .5 edge (its 3xTF32 products carry ~2⁻²² relative error, float32's
-own): sums within 2 on < 0.5 % of pixels; its bf16 instance (bf16 heads)
-holds its bf16 twin within the same bound (an activation on a bf16
-rounding edge may round either way under another float32 summation
-order); both types and K4 also at nf 96 and 128.  K2's row mode
+own): sums within 2 on < 0.5 % of pixels; its bf16 kernel (bf16 heads,
+``wgmma``) holds its bf16 twin within the same bound (an activation on a
+bf16 rounding edge may round either way under another float32 summation
+order), gives the same bits on a second launch, and takes a last tile
+that is part empty and 1-3 pixels; both types and K4 also
+at nf 96 and 128.  K2's row mode
 (lerf_tpu's packed8, packed32 and cells layouts) is bit-equal to flat K2
 and to its twin.  K4's hidden int8
 arithmetic is bit-equal to its twin by construction and only ``tanhf`` may
@@ -92,8 +94,8 @@ STAGES = {"stage1": (lp.lut_stage1, False, 0, "stage1"),
           "stage2": (lp.lut_stage2, True, 127, "stage2")}
 NET_MEMBERS = srnet.stage_members(MODES)
 # name → (nf, oC, image shape, members): the micro-net ensembles K3 / K4
-# are checked at; both tile 128 pixels, so 3×45×77 and 1×13×23 end in a
-# ragged tile; nf 8 and 12 pad K4's fan-ins to 32 and both kernels'
+# are checked at; they tile 64-256 pixels, so 3×45×77 and 1×13×23 end in
+# a ragged tile; nf 8 and 12 pad K4's fan-ins to 32 and the kernels'
 # features to 16; 20 members is MAX_MEMBERS
 NET_CASES = {"nf8-oc1": (8, 1, (3, 45, 77), 12),
              "nf64-oc1": (64, 1, (3, 45, 77), 12),
@@ -559,24 +561,51 @@ def test_srnet_ensemble_int8_kernel_matches_plain(case, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(NET_CASES))
 def test_srnet_ensemble_bf16_kernel_matches_plain(case, cuda_device):
-    """bf16 heads run K3's bf16 instance (one launch) and hold its twin
-    within K3's bound (an activation on a bf16 rounding edge may round
-    either way under another float32 summation order)."""
+    """bf16 heads run K3's bf16 kernel (one launch of its entry,
+    ``lerf_srnet_ensemble_bf16``) and hold its twin within K3's bound (an
+    activation on a bf16 rounding edge may round either way under another
+    float32 summation order); a second launch gives the same bits."""
     nf, oc, shape, n_members = NET_CASES[case]
+    bf16_case(nf, oc, shape, n_members, cuda_device)
+
+
+def bf16_case(nf, oc, shape, n_members, device):
     heads, members = member_case(nf, oc, n_members)
     heads = k3.StackedHeads.create(
         [{k: torch.from_numpy(v).to(torch.bfloat16) for k, v in h.items()}
-         for h in heads], cuda_device)
+         for h in heads], device)
     assert heads.dtype == torch.bfloat16
     img = torch.from_numpy(np.random.RandomState(5).rand(*shape)
-                           .astype(np.float32)).to(cuda_device)
-    before = k3.launches
+                           .astype(np.float32)).to(device)
+    before = (k3.launches, k3.bf16_launches)
     got = k3.ensemble_sum(img, heads, members, half=127)
     torch.cuda.synchronize()
-    assert k3.launches == before + 1
+    assert (k3.launches, k3.bf16_launches) == (before[0] + 1, before[1] + 1)
     want = k3.ensemble_sum_plain(img, heads, members, half=127)
     assert got.shape == want.shape == shape + (oc,)
     assert_levels_close(want, got, 2, 0.005)
+    assert torch.equal(got, k3.ensemble_sum(img, heads, members, half=127))
+
+
+# name → (nf, oC, image shape, members): K3 bf16 at the edges of its grid.
+# It tiles 256 pixels up to nf 64 and 128 above: 760 and 380 pixels make 3
+# tiles, the last part empty (in each swizzle: nf 64 and 128 the 128-byte,
+# nf 32 the 64-byte, nf 48 the 32-byte); then 1-3 pixels.
+BF16_EDGE_CASES = {"nf64-oc3-odd-tiles": (64, 3, (1, 20, 38), 12),
+                   "nf128-oc1-odd-tiles": (128, 1, (1, 10, 38), 12),
+                   "nf32-oc1-odd-tiles": (32, 1, (2, 10, 38), 7),
+                   "nf48-oc1-odd-tiles": (48, 1, (1, 20, 38), 12),
+                   "nf8-oc1-1px": (8, 1, (1, 1, 1), 12),
+                   "nf64-oc3-2px-m5": (64, 3, (1, 1, 2), 5),
+                   "nf96-oc3-3px-m20": (96, 3, (3, 1, 1), 20)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BF16_EDGE_CASES))
+def test_srnet_ensemble_bf16_kernel_grid_edges(case, cuda_device):
+    """A last tile that is part empty, and 1-3 pixels: the same checks as
+    every NET_CASES entry."""
+    bf16_case(*BF16_EDGE_CASES[case], cuda_device)
 
 
 @pytest.mark.cuda

@@ -243,31 +243,51 @@ def test_nf_above_128_raises_naming_the_limit():
         assert k4.smem_bytes(nf) <= BLOCK_SMEM_MAX
     assert k3.tile_pixels(64) == 128 and k3.tile_pixels(128) == 64
     assert k3.tile_pixels(128, torch.bfloat16) == 128
+    assert k3.tile_pixels(64, torch.bfloat16) == 256
 
 
-def unpack_bf16_frags(frags, layer, nf, fan_in, out):
-    """Invert :func:`k3.bf16_frags`: ``[M, in, out]`` and the padding."""
-    m, ks, nts = frags.shape[:3]
-    dense = frags.reshape(m, ks, nts, 8, 4, 2, 2) \
-        .permute(0, 1, 5, 4, 6, 2, 3).reshape(m, ks * 16, nts * 8)
+def unswizzle_image(image, layer, nf, fan_in, out):
+    """Invert :func:`k3.bf16_images` by the byte address the ``wgmma``
+    swizzle gives each element of a K-major block (rows of ``2 wb`` bytes,
+    at an atom-aligned address: bits 4.. XOR bits 7..): ``[M, in, out]``
+    and the padding."""
+    m, nkb, rows, wb = image.shape
+    row_bytes = 2 * wb
+    n, k = np.meshgrid(np.arange(rows), np.arange(wb), indexing="ij")
+    logical = n * row_bytes + 2 * k
+    phys = logical ^ (((logical >> 7) & (row_bytes // 16 - 1)) << 4)
+    flat = image.view(torch.int16).numpy().reshape(m, nkb, rows * wb)
+    dense = flat[:, :, phys // 2].transpose(0, 1, 3, 2) \
+        .reshape(m, nkb * wb, rows)                       # [M, Kp, Np]
     nfp = -(-nf // 16) * 16
-    rows = (list(range(fan_in)) if layer == 0 else
-            [s * nfp + j for s in range(layer) for j in range(nf)])
-    keep = torch.zeros(dense.shape[1:], dtype=torch.bool)
-    keep[torch.tensor(rows)[:, None], torch.arange(out)] = True
-    return dense[:, rows][..., :out], dense[:, ~keep]
+    keep_rows = (list(range(fan_in)) if layer == 0 else
+                 [s * nfp + j for s in range(layer) for j in range(nf)])
+    keep = np.zeros(dense.shape[1:], dtype=bool)
+    keep[np.array(keep_rows)[:, None], np.arange(out)] = True
+    dense = torch.from_numpy(np.ascontiguousarray(dense)) \
+        .view(torch.bfloat16)
+    return dense[:, keep_rows][..., :out], dense[:, torch.from_numpy(~keep)]
 
 
-@pytest.mark.parametrize("nf,oc", [(8, 1), (12, 3), (64, 3), (128, 1)])
+@pytest.mark.parametrize("nf,oc", [(8, 1), (12, 3), (64, 3), (128, 1),
+                                   (16, 3), (48, 1), (96, 3)])
 def test_bf16_fragments_round_trip_to_the_params(nf, oc):
+    """The bf16 kernel's weight images (:func:`k3.bf16_images`): unswizzled
+    by the hardware's address map they give back every weight, and the
+    padding (segments, head columns, layer 1's k-step) is zero."""
     heads = to_bf16([np_head(np.random.RandomState(s), nf, oc)
                      for s in range(3)])
     sh = k3.StackedHeads.create(heads)
     assert sh.dtype == torch.bfloat16
     for b in sh.b:
         assert b.dtype == torch.float32
+    nfp = -(-nf // 16) * 16
     for layer, (w, f) in enumerate(zip(sh.w, sh.frags)):
-        assert f.dtype == torch.bfloat16 and f.shape[-2:] == (32, 4)
-        got, pad = unpack_bf16_frags(f, layer, nf, *w.shape[1:])
+        wb = 16 if layer == 0 else next(v for v in (64, 32, 16)
+                                        if nfp % v == 0)
+        assert f.dtype == torch.bfloat16
+        assert f.shape == (3, 1 if layer == 0 else layer * nfp // wb,
+                           nfp if layer < 5 else 8, wb)
+        got, pad = unswizzle_image(f, layer, nf, *w.shape[1:])
         assert torch.equal(got, w)
         assert not bool(pad.float().abs().sum())
