@@ -280,14 +280,19 @@ hand-written kernel against its plain PyTorch twin on the card:
    rounds, the implied L2 weight bytes), and the launches of ``from_srnets`` at nf
    128 on the crop (two of the stage kernel a call);
 49. the LUT table layouts (``"flat"``, ``"packed8"``, ``"packed32"``,
-   ``"cells"``): K2's row mode on each, stage 1 and stage 2 bit-equal to
-   flat K2 and to the twin; ``LutPredictor(table_layout=...)`` SR and warp
+   ``"cells"``): K2's row mode on each (the int32 layouts' stage-2 slots
+   copied into shared memory by warps), stage 1 and stage 2 on both frames
+   below bit-equal to flat K2, to the twin and to its first design
+   (``K2_ROWS_FIRST``, built beside the library);
+   ``LutPredictor(table_layout=...)`` SR and warp
    bit-equal to the flat predictor on the card, K2 twice and K1 or K5 once
    a call; on bench.py's uniform random frame and on a smooth frame (a
    seeded uniform field box-blurred and stretched to 0..255: neighbouring
    pixels share lattice cells, as in photographs), each layout's K2 times
    (events, the profiler, and a CUDA graph's replays, which the choice
-   reads), whole ``upscale`` calls and device parts, the
+   reads; the first design's graph replays in alternating rounds and, on
+   the random frame, its profiler time beside), whole ``upscale`` calls
+   and device parts, the
    bound from the table rows that frame touches, and the layout the
    numbers favour;
 50. the exact-division findings (K1 bit-equal to its twin or not at each
@@ -297,7 +302,8 @@ hand-written kernel against its plain PyTorch twin on the card:
    ``window``, and K5's ``support4``, ``mask`` and ``batch4`` beside; K6's
    with its ``linear`` mode; then one row for each instance this slice
    added: K3 bf16, K3 / K3 bf16 / K4 at nf 128 and K2's row mode on each
-   layout), the card line and, last, the result line.
+   layout, its first design's times beside), the card line and, last,
+   the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -444,6 +450,11 @@ K6_FIRST = "lerf_torch/tools/steering_resize_bwd_first.cu"
 # kernel in K3_BF16_ROUNDS alternating rounds (phases 46 and 48)
 K3_BF16_FIRST = "lerf_torch/tools/srnet_ensemble_bf16_first.cu"
 K3_BF16_ROUNDS = 2
+# K2 rows' first design (each member's slot read from global memory),
+# timed beside the kernel by CUDA-graph replays in K2_ROWS_ROUNDS
+# alternating rounds (phase 49)
+K2_ROWS_FIRST = "lerf_torch/tools/lut_rows_first.cu"
+K2_ROWS_ROUNDS = 2
 
 
 def warp_matrix(seed=0):
@@ -2592,6 +2603,47 @@ def k3_bf16_first_design(build):
     return call
 
 
+def k2_rows_first_call(entry):
+    """``fn(img, tables, modes, split_r, den, bias)`` → int32 [..., H, W,
+    oC] through ``entry``, a library's ``lerf_lut_stage_rows_first`` (K2
+    rows' first design, or a probe's variant of it), on the row mode's
+    descriptors (``lut_stage.row_members``; the first design ignores
+    whether a member's slots are copied)."""
+    import torch
+    from lerf_torch.ops.kernels import _build
+    from lerf_torch.ops.kernels import lut_stage as k2
+
+    entry.argtypes = _build.library().lerf_lut_stage_rows.argtypes
+    entry.restype = _build.library().lerf_lut_stage_rows.restype
+
+    def call(img, tables, modes, split_r, den, bias):
+        plan = k2.row_members(tables, modes, split_r, img.device)
+        out = torch.empty(img.shape + (plan.oc,), dtype=torch.int32,
+                          device=img.device)
+        _build.check(entry(*k2.rows_args(
+            img, out, plan, interval=4, den=den, bias=bias, norm=255,
+            stream=torch.cuda.current_stream().cuda_stream)),
+            "K2 rows first design")
+        return out
+
+    return call
+
+
+def k2_rows_first_design(build):
+    """K2 rows' first design (``K2_ROWS_FIRST``) as ``k2_rows_first_call``
+    gives it, once its build (``start_first_build(K2_ROWS_FIRST, ...)``)
+    is done.  ``fn.log`` is nvcc's output."""
+    import ctypes
+
+    proc, path = build
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"K2 rows first design: nvcc failed:\n{log}")
+    call = k2_rows_first_call(ctypes.CDLL(path).lerf_lut_stage_rows_first)
+    call.log = log
+    return call
+
+
 def k3_bf16_l2_bytes(n, sh, tile):
     """The weight bytes the design implies one K3 bf16 launch over ``n``
     pixels reads from L2, if every block (``tile`` pixels) reads each
@@ -4608,11 +4660,13 @@ def rows_touched(x, tables, modes, split_r):
     return total
 
 
-def lut_layout_phase(dev, bank, frame):
-    """Phase 49: K2's row mode on each table layout against flat K2 and
-    the twin, the layouts' predictors against the flat one, then each
-    layout's times on the random and the smooth frame.  Returns a
-    kernels-line row per row-mode layout."""
+def lut_layout_phase(dev, bank, frame, first):
+    """Phase 49: K2's row mode on each table layout against flat K2, the
+    twin and its first design (``first``: ``k2_rows_first_design``), the
+    layouts' predictors against the flat one, then each layout's times on
+    the random and the smooth frame, the row mode's beside its first
+    design's by CUDA-graph replays in ``K2_ROWS_ROUNDS`` alternating
+    rounds.  Returns a kernels-line row per row-mode layout."""
     import torch
     from lerf_torch.ops import lut_pipeline as lp
     from lerf_torch.ops.kernels import lut_stage as k2
@@ -4627,30 +4681,40 @@ def lut_layout_phase(dev, bank, frame):
     want = {name: (flat.upscale(f, SCALE, SCALE, return_aux=True),
                    flat.warp(f, matrix, WARP_OUT, return_aux=True))
             for name, f in frames.items()}
-    x = xs["random"]
     f1 = lp.FlatTables.create(bank.stage1, dev)
     f2 = lp.FlatTables.create(bank.stage2, dev)
-    feat = lp.lut_stage1(x, f1, MODES)
-    hyper = lp.lut_stage2(feat, f2, MODES)
+    flat_out = {}              # frame: flat K2's stage 1 and stage 2
+    for name, x in xs.items():
+        feat = lp.lut_stage1(x, f1, MODES)
+        flat_out[name] = (feat, lp.lut_stage2(feat, f2, MODES))
     rows, times = {}, {}
     for layout in LAYOUTS:
         t1 = lp.stage_tables(bank.stage1, layout, MODES, split_r=False,
                              device=dev)
         t2 = lp.stage_tables(bank.stage2, layout, MODES, split_r=True,
                              device=dev)
-        if layout != "flat":
-            g1, g2 = lp.lut_stage1(x, t1, MODES), lp.lut_stage2(feat, t2,
-                                                                 MODES)
-            p1 = lp.lut_stage_plain(x, t1, MODES, split_r=False, den=48,
-                                    bias=0)[..., 0]
-            p2 = lp.lut_stage_plain(feat, t2, MODES, split_r=True, den=192,
-                                    bias=127)
+        # both stages on both frames (stage 2 on flat stage 1's output):
+        # the smooth frame's warps read their slots directly, the random
+        # frame's copy them
+        for name, x in xs.items() if layout != "flat" else ():
+            feat, hyper = flat_out[name]
+            got = {"the kernel": (lp.lut_stage1(x, t1, MODES),
+                                  lp.lut_stage2(feat, t2, MODES)),
+                   "the twin": (
+                       lp.lut_stage_plain(x, t1, MODES, split_r=False, den=48,
+                                          bias=0)[..., 0],
+                       lp.lut_stage_plain(feat, t2, MODES, split_r=True,
+                                          den=192, bias=127)),
+                   "the first design": (
+                       first(x, t1, MODES, False, 48, 0)[..., 0],
+                       first(feat, t2, MODES, True, 192, 127))}
             torch.cuda.synchronize()
-            if not (torch.equal(g1, feat) and torch.equal(g2, hyper)
-                    and torch.equal(p1, feat) and torch.equal(p2, hyper)):
-                raise AssertionError(f"K2 rows ({layout}): not bit-equal to "
-                                     "flat K2 and the twin")
-            del g1, g2, p1, p2
+            for what, (g1, g2) in got.items():
+                if not (torch.equal(g1, feat) and torch.equal(g2, hyper)):
+                    raise AssertionError(
+                        f"K2 rows ({layout}, {name} frame): {what} is not "
+                        "bit-equal to flat K2")
+            del got
         pred = LutPredictor(bank, table_layout=layout)
         for name, f in frames.items():
             got_sr, sr_counts = counted_run(
@@ -4671,12 +4735,36 @@ def lut_layout_phase(dev, bank, frame):
                 else "lut_rows_kernel"
             ms1 = event_ms(lambda: lp.lut_stage1(xf, t1, MODES), iters=50)
             ms2 = event_ms(lambda: lp.lut_stage2(ff, t2, MODES), iters=50)
-            g_ms = (graph_ms(lambda: lp.lut_stage1(xf, t1, MODES))
-                    + graph_ms(lambda: lp.lut_stage2(ff, t2, MODES)))
-            pr1 = kernel_device_ms(lambda: lp.lut_stage1(xf, t1, MODES),
-                                   kernel, frames=10)
-            pr2 = kernel_device_ms(lambda: lp.lut_stage2(ff, t2, MODES),
-                                   kernel, frames=10)
+            designs = {"kernel": (lambda: lp.lut_stage1(xf, t1, MODES),
+                                  lambda: lp.lut_stage2(ff, t2, MODES))}
+            if layout != "flat":
+                designs["first"] = (
+                    lambda: first(xf, t1, MODES, False, 48, 0),
+                    lambda: first(ff, t2, MODES, True, 192, 127))
+            graph = {d: [] for d in designs}
+            for rnd in range(K2_ROWS_ROUNDS):
+                for d in (list(designs) if rnd % 2 == 0
+                          else list(designs)[::-1]):
+                    graph[d].append(sum(graph_ms(f) for f in designs[d]))
+            g_ms = statistics.mean(graph["kernel"])
+            pr1 = kernel_device_ms(designs["kernel"][0], kernel, frames=10)
+            pr2 = kernel_device_ms(designs["kernel"][1], kernel, frames=10)
+            first_row = {}
+            if layout != "flat":
+                first_row = {
+                    "first_graph_ms": statistics.mean(graph["first"]),
+                    "first_graph_rounds": graph["first"]}
+            if layout != "flat" and name == "random":
+                # the profiler's window on the random frame only: the graph
+                # replays hold the comparison on both
+                fp = [kernel_device_ms(f, kernel, frames=10)
+                      for f in designs["first"]]
+                first_row.update({
+                    "first_profiler_ms": (
+                        fp[0]["profiler_ms"] + fp[1]["profiler_ms"]
+                        if all(r["profiler_complete"] for r in fp) else None),
+                    "first_profiler_launches": [r["profiler_launches"]
+                                                for r in fp]})
             plain_ms = event_ms(lambda: lp.lut_stage_plain(
                 xf, t1, MODES, split_r=False, den=48, bias=0), iters=1,
                 warmup=1) + event_ms(lambda: lp.lut_stage_plain(
@@ -4699,7 +4787,8 @@ def lut_layout_phase(dev, bank, frame):
             complete = pr1["profiler_complete"] and pr2["profiler_complete"]
             row = {"phase": "lut_layout", "layout": layout, "frame": name,
                    "k2_ms": ms1 + ms2, "k2_stage_ms": [ms1, ms2],
-                   "k2_graph_ms": g_ms,
+                   "k2_graph_ms": g_ms, "k2_graph_rounds": graph["kernel"],
+                   **first_row,
                    "profiler_ms": (pr1["profiler_ms"] + pr2["profiler_ms"]
                                    if complete else None),
                    "profiler_launches": [pr1["profiler_launches"],
@@ -4719,7 +4808,11 @@ def lut_layout_phase(dev, bank, frame):
                             "profiler_ms": r["profiler_ms"],
                             "graph_ms": r["k2_graph_ms"],
                             "smooth_graph_ms":
-                                times[layout, "smooth"]["k2_graph_ms"]}
+                                times[layout, "smooth"]["k2_graph_ms"],
+                            "first_graph_ms": r["first_graph_ms"],
+                            "first_profiler_ms": r["first_profiler_ms"],
+                            "first_smooth_graph_ms":
+                                times[layout, "smooth"]["first_graph_ms"]}
     # every layout timed the same way in this call, by graph replays (the
     # profiler drops rows in some windows, and events around the wrapper
     # read the host's rate at these kernel times)
@@ -4762,7 +4855,8 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     first_builds = [start_k6_first_build(),
-                    start_first_build(K3_BF16_FIRST, "k3_bf16_first")]
+                    start_first_build(K3_BF16_FIRST, "k3_bf16_first"),
+                    start_first_build(K2_ROWS_FIRST, "k2_rows_first")]
     try:
         _, log = _build.build()
         _build.library()
@@ -4773,6 +4867,7 @@ def main() -> int:
         raise
     k6_first = k6_first_design(first_builds[0])
     k3_bf16_first = k3_bf16_first_design(first_builds[1])
+    k2_rows_first = k2_rows_first_design(first_builds[2])
     emit({"phase": "build", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0})
@@ -5157,7 +5252,7 @@ def main() -> int:
     t48 = time.perf_counter()
     wide = wide_nf_phase(dev, np.random.RandomState(14), k3_bf16_first)
     t49 = time.perf_counter()
-    layout_rows = lut_layout_phase(dev, bank, frame)
+    layout_rows = lut_layout_phase(dev, bank, frame, k2_rows_first)
     emit({"phase": "phase_seconds", "k3_bf16_and_net_form": t48 - t46,
           "nf128": t49 - t48, "lut_layouts": time.perf_counter() - t49,
           "script_so_far": time.perf_counter() - t0})
@@ -5219,6 +5314,10 @@ def main() -> int:
             "ms": row["ms"], "profiler_ms": row["profiler_ms"],
             "graph_ms": row["graph_ms"],
             "smooth_frame_graph_ms": row["smooth_graph_ms"],
+            "first_design_graph_ms": row["first_graph_ms"],
+            "first_design_profiler_ms": row["first_profiler_ms"],
+            "first_design_smooth_frame_graph_ms":
+                row["first_smooth_graph_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "share_of_bound": row["bound_ms"] / row["ms"],

@@ -5,11 +5,14 @@
 launches ``csrc/lut_stage.cu`` for a CUDA tensor: its flat mode for
 :class:`~lerf_torch.ops.lut_pipeline.FlatTables`, its row mode for the
 packed and cell layouts (:func:`row_members`), which reads lerf_tpu's
-rows as they are.  It never falls back from the card to the plain version,
-nor from a layout to another.  ``launches`` counts kernel launches.
+rows as they are, the int32 layouts' stage-2 slots copied into shared
+memory by warps.  It never falls back from the card to the plain
+version, nor from a layout to another.  ``launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -24,20 +27,46 @@ from . import _build
 launches = 0
 
 
-def row_members(tables, modes: Sequence[str], split_r: bool, device):
-    """The row mode's member table for ``tables`` (:class:`PackedTables`
-    or :class:`CellTables`) on ``device``, cached on the tables: int32
-    ``[M, 16]`` — per member its 4 rotated (row, col) offsets in role
-    order, ``perm`` (role k's canonical position: its cell weight
-    (L-1)^(3-perm_k) and corner bit 3-perm_k), the row's bytes, the
-    elements between channels and between corners, 0 — with uint64 ``[M]``
-    device pointers to each member's slot of cell 0, the value's bytes and
-    oC.  Packed members run mode by mode, group by group (lerf_tpu's
-    order); cell members as the flat tables'."""
+# Which members have their slots copied into shared memory by warps, a
+# static choice by slot size from the probe (``tools/probe_lut_kernels.py
+# --rows``; PERF.md): members whose slots (16 x oC values) hold at least
+# SLOT_MIN_BYTES (the int32 layouts' stage-2 slots, 192 bytes); the others
+# keep the first design's loop, each slot read from global memory.
+SLOT_MIN_BYTES = 192
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """K2 row mode's descriptors for one stage's tables on one device, in
+    lerf_tpu's order (mode by mode, group by group; cell tables as the
+    flat tables').
+
+    ``members`` int32 ``[M, 16]``: per member its 4 rotated (row, col)
+    offsets in role order, ``perm`` (role k's canonical position: its cell
+    weight (L-1)^(3-perm_k) and corner bit 3-perm_k), the row's bytes, the
+    elements between channels and between corners, and 1 if its slots are
+    copied by warps (else 0); ``slots`` uint64 ``[M]``: each member's slot
+    of row 0 on the device; ``esize`` the bytes a value, ``oc``."""
+    members: np.ndarray
+    slots: np.ndarray
+    esize: int
+    oc: int
+
+
+def row_members(tables, modes: Sequence[str], split_r: bool,
+                device) -> RowPlan:
+    """The row mode's :class:`RowPlan` for ``tables`` (:class:`PackedTables`
+    or :class:`CellTables`) on ``device``, cached on the tables."""
     key = (tuple(modes), bool(split_r), str(device))
     if key in tables._rows:
         return tables._rows[key]
     rows, ptrs = [], []
+
+    def member(offs, perm, row_bytes, slot_bytes, cs, bs, ptr):
+        rows.append([*offs, *perm, row_bytes, cs, bs,
+                     int(slot_bytes >= SLOT_MIN_BYTES)])
+        ptrs.append(ptr)
+
     if isinstance(tables, PackedTables):
         for mode in modes:
             for g in tables.groups[mode]:
@@ -46,23 +75,37 @@ def row_members(tables, modes: Sequence[str], split_r: bool, device):
                 for gi, (delta, perm) in enumerate(zip(g.deltas, g.perms)):
                     offs = [delta[j] + g.canon[perm[k]][j]
                             for k in range(4) for j in range(2)]
-                    rows.append(offs + list(perm)
-                                + [t.shape[1] * esize, 16, 1, 0])
-                    ptrs.append(t.data_ptr() + gi * g.oc * 16 * esize)
+                    member(offs, perm, t.shape[1] * esize,
+                           g.oc * 16 * esize, 16, 1,
+                           t.data_ptr() + gi * g.oc * 16 * esize)
         oc = tables.groups[modes[0]][0].oc
     else:
         t = _checked(tables.table, device)
-        k, n_cells, _, oc = t.shape
+        _, n_cells, _, oc = t.shape
+        esize = 4
         for mode, r, name in ensemble_members(modes, split_r):
             offs = [v for off in MODE_OFFSETS[mode]
                     for v in rotate_offset(off, r)]
-            rows.append(offs + [0, 1, 2, 3] + [16 * oc * 4, 1, oc, 0])
-            ptrs.append(t.data_ptr()
-                        + tables.keys.index(name) * n_cells * 16 * oc * 4)
-        esize = 4
-    out = (np.asarray(rows, np.int32), np.asarray(ptrs, np.uint64), esize, oc)
+            member(offs, (0, 1, 2, 3), 16 * oc * esize, 16 * oc * esize, 1,
+                   oc, t.data_ptr()
+                   + tables.keys.index(name) * n_cells * 16 * oc * esize)
+    out = RowPlan(members=np.asarray(rows, np.int32),
+                  slots=np.asarray(ptrs, np.uint64), esize=esize, oc=oc)
+    out.members.flags.writeable = False
+    out.slots.flags.writeable = False
     tables._rows[key] = out
     return out
+
+
+def rows_args(x: torch.Tensor, out: torch.Tensor, plan: RowPlan, *,
+              interval: int, den: int, bias: int, norm: int, stream):
+    """``lerf_lut_stage_rows``'s arguments for ``x`` (int32 [..., H, W],
+    contiguous) into ``out``."""
+    h, w = x.shape[-2], x.shape[-1]
+    return (x.data_ptr(), plan.slots.ctypes.data, out.data_ptr(),
+            plan.members.ctypes.data, len(plan.members),
+            x.numel() // max(h * w, 1), h, w, plan.oc, plan.esize, interval,
+            den, bias, norm, stream)
 
 
 def _checked(table: torch.Tensor, device) -> torch.Tensor:
@@ -109,8 +152,8 @@ def lut_stage(img: torch.Tensor, tables, modes: Sequence[str], *,
         if tables.interval != interval:
             raise ValueError(f"lut_stage: tables built for interval "
                              f"{tables.interval}, not {interval}")
-        members, ptrs, esize, oc = row_members(tables, modes, split_r,
-                                               img.device)
+        plan = row_members(tables, modes, split_r, img.device)
+        oc = plan.oc
     else:
         raise ValueError(f"lut_stage: unknown tables {type(tables).__name__}")
     out = torch.empty(x.shape + (oc,), dtype=torch.int32, device=x.device)
@@ -123,10 +166,9 @@ def lut_stage(img: torch.Tensor, tables, modes: Sequence[str], *,
                 members.ctypes.data, len(members), c, h, w, oc, l4,
                 interval, den, bias, norm, stream)
         else:
-            err = lib.lerf_lut_stage_rows(
-                x.data_ptr(), ptrs.ctypes.data, out.data_ptr(),
-                members.ctypes.data, len(members), c, h, w, oc, esize,
-                interval, den, bias, norm, stream)
+            err = lib.lerf_lut_stage_rows(*rows_args(
+                x, out, plan, interval=interval, den=den, bias=bias,
+                norm=norm, stream=stream))
     _build.check(err, "lut_stage launch")
     launches += 1
     return out

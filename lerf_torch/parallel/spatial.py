@@ -561,6 +561,16 @@ def _imdn_band(fns, band, *, norm, two_stage):
     return feat, s2(hyper_in)
 
 
+def _check_imdn_dtype(dtype):
+    """The sharded IMDN towers run in float32 only; a bf16 compute type
+    waits for the IMDN form's bf16 towers (ROADMAP A1).  Raise rather than
+    widen the result silently."""
+    if dtype is not None and dtype != torch.float32:
+        raise NotImplementedError(
+            f"sharded IMDN towers run in float32; dtype={dtype} waits for "
+            "the IMDN form's bf16 compute type (ROADMAP A1)")
+
+
 def imdn_stages_sharded(img, variables, mesh: Mesh, *, backend: str = "base",
                         block: int = 2, nf: int = 12, norm: int = 255,
                         out_c: int = 3, two_stage: bool = True,
@@ -576,6 +586,7 @@ def imdn_stages_sharded(img, variables, mesh: Mesh, *, backend: str = "base",
     C, H, W, out_c]) float32 :class:`RowShards`, within the IMDN form's
     gates of the unsharded towers (cuDNN may sum another shape in another
     order)."""
+    _check_imdn_dtype(dtype)
     backend = imdn_backend(backend)
     fns = _imdn_fns(variables, mesh, backend=backend, block=block, nf=nf,
                     norm=norm, out_c=out_c, in_c=img.shape[-3])
@@ -602,6 +613,7 @@ def imdn_stages_sharded_exchange(img_sharded, variables, mesh: Mesh, *,
     need not be equal.  ``true_h``: rows from there on lie beyond the
     image (zero padding for the towers; their outputs are zeros).
     Returns (feat, hyper) :class:`RowShards` on the input's rows."""
+    _check_imdn_dtype(dtype)
     if isinstance(img_sharded, RowShards):
         slabs, ranges = list(img_sharded.slabs), list(img_sharded.ranges)
     else:

@@ -4,6 +4,7 @@ one part taken out.
 
     python3 lerf_torch/tools/probe_lut_kernels.py [--k5 OTHER.cu ...]
                                                   [--rounds N] [--k6]
+                                                  [--rows [--k2 OTHER.cu]]
 
 Each variant is the kernel's source with one text substitution, built on
 its own with the package's nvcc flags and timed with CUDA events beside
@@ -59,6 +60,29 @@ stages' outputs.
   sums in another order), in ``--rounds`` alternating rounds, each by
   events and by the profiler.
 
+* ``--rows``: K2's row mode alone (nothing of the above), on chip_smoke's
+  phase-49 data: the packed8, packed32 and cells layouts of the bench
+  bank, stage 1 on the seed-0 random frame and on the smooth frame, stage
+  2 on flat stage 1's output of each, timed by CUDA-graph replays
+  (``chip_smoke.graph_ms``, both stages summed) in ``--rounds``
+  alternating rounds, each call's output held to the kernel's.  Two
+  designs: the kernel as built (``csrc/lut_stage.cu``), under each plan of
+  ``ROW_PLANS`` (every member's slots copied by warps, every member on
+  the first design's loop, and the plan ``row_members`` ships; int8 rows
+  copy no slots), and the first design (``lut_rows_first.cu`` beside this
+  script).  Each with one part taken out (``ROWS_VARIANTS``): no row
+  reads (the corner index stands in for each table value, as in flat K2's
+  "no table gathers"), no sort, no pixel tile (the blend's samples from
+  global memory); the kernel also without its slot copies, with copies to
+  L2 only (``cp.async.cg``), with other run thresholds for copying, with
+  one or two pixels a thread, with the slot-copying instance held to 64
+  registers (four blocks an SM).  Prints each variant library's
+  row-kernel registers and
+  loads by kind (``cuobjdump``).  ``--k2 OTHER.cu``: another flat K2
+  source (the parent commit's ``lut_stage.cu``, say) timed beside flat K2
+  as built in the same rounds, by events (phase 5's measure) and by graph
+  replays, on both frames.
+
 Only variants that keep the arithmetic compute the right numbers; each
 line says whether its output equals the kernel's.  Prints one JSON line
 per variant and the card line (name, power limit).
@@ -67,6 +91,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -281,24 +306,146 @@ K6_VARIANTS = {
     "launch bounds 256": [("constexpr int kMaxThreads = 512;",
                            "constexpr int kMaxThreads = 256;")],
 }
+# K2's row mode with one part taken out (``--rows``): the kernel as built
+# (csrc/lut_stage.cu) and the first design (lut_rows_first.cu beside this
+# script).
+_ROW_VALUE = """__device__ __forceinline__ int row_value(const int* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  return *p;
+}"""
+_ROW_CHUNK = """__device__ __forceinline__ uint4 row_chunk(const uint4* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  return *p;
+}"""
+# the corner index stands in for each table value, as flat K2's "no table
+# gathers" has it
+_NO_ROW_READS = [
+    (_ROW_VALUE, "__device__ __forceinline__ int row_value(const int* p) {\n"
+     "  return (int)(((uintptr_t)p >> 2) & 127);\n}"),
+    (_ROW_CHUNK, "__device__ __forceinline__ uint4 row_chunk(const uint4* p) {\n"
+     "  const unsigned a = (unsigned)(uintptr_t)p;\n"
+     "  return make_uint4(a, a >> 3, a << 2, a ^ 7);\n}")]
+_NO_SORT = [("  order(key[0], key[1]);\n  order(key[2], key[3]);\n"
+             "  order(key[0], key[2]);\n  order(key[1], key[3]);\n"
+             "  order(key[1], key[2]);\n  int vt[4];", "  int vt[4];")]
+# the blend's samples read from the image through the tile address they
+# would have come from (the tile itself still loaded)
+_PROBE_SAMPLE = (
+    "__shared__ const int* probe_img;\n"
+    "__shared__ int probe_h, probe_w, probe_i0, probe_j0;\n"
+    "__device__ __forceinline__ int probe_sample(const unsigned char* tp,"
+    " int so) {\n"
+    "  extern __shared__ __align__(16) unsigned char smem[];\n"
+    "  const int e = (int)(tp - smem) + so;\n"
+    "  const int r = e / kRowPitch, q = e - r * kRowPitch;\n"
+    "  const int gr = min(max(probe_i0 - kHalo + r, 0), probe_h - 1);\n"
+    "  const int gc = min(max(probe_j0 - kHalo + q, 0), probe_w - 1);\n"
+    "  return __ldg(probe_img + (size_t)gr * probe_w + gc);\n}\n\n"
+    "// A member's samples at one pixel:")
+_PROBE_SET = ("  probe_img = img + (size_t)c * H * W;\n"
+              "  probe_h = H;\n  probe_w = W;\n"
+              "  probe_i0 = i0;\n  probe_j0 = j0;\n")
+
+
+def _no_pixel_tile(load):
+    return [("// A member's samples at one pixel:", _PROBE_SAMPLE),
+            ("    const int v = tp[soff[k]];",
+             "    const int v = probe_sample(tp, soff[k]);"),
+            (load, load + _PROBE_SET)]
+
+
+ROWS_VARIANTS = {
+    "lut_stage": {
+        "no row reads": _NO_ROW_READS,
+        "no slot copies": [("              cp_async16(sb + r * S::kSlotPitch"
+                            " + 16 * k,",
+                            "              if (k < 0) cp_async16(sb + r *"
+                            " S::kSlotPitch + 16 * k,")],
+        "no sort": _NO_SORT,
+        "no pixel tile": _no_pixel_tile(
+            "  load_row_tile<S::kH>(tile, img + (size_t)c * H * W, H, W, i0,"
+            " j0);\n"),
+        "slots copied to L2 only (.cg)": [("cp.async.ca.shared.global",
+                                           "cp.async.cg.shared.global")],
+        "slots: always copied": [(
+            "  static constexpr int kDirectRuns = 16;",
+            "  static constexpr int kDirectRuns = -1;")],
+        "slots: never copied": [(
+            "  static constexpr int kDirectRuns = 16;",
+            "  static constexpr int kDirectRuns = 32;")],
+        "slots: copied above 8 runs": [(
+            "  static constexpr int kDirectRuns = 16;",
+            "  static constexpr int kDirectRuns = 8;")],
+        "slots: copied above 24 runs": [(
+            "  static constexpr int kDirectRuns = 16;",
+            "  static constexpr int kDirectRuns = 24;")],
+        "two pixels a thread": [(
+            "  static constexpr int kPx = ELEM == 1 ? 2 : 1;",
+            "  static constexpr int kPx = 2;")],
+        "one pixel a thread": [(
+            "  static constexpr int kPx = ELEM == 1 ? 2 : 1;",
+            "  static constexpr int kPx = 1;")],
+        "slot instance at four blocks an SM": [(
+            "__global__ void __launch_bounds__(kRowThreads) lut_rows_kernel(",
+            "__global__ void __launch_bounds__(kRowThreads, SLOTS ? 4 : 1)"
+            " lut_rows_kernel(")],
+    },
+    "lut_rows_first": {
+        "no row reads": [
+            ("const uint4 r = __ldg(reinterpret_cast<const uint4*>(row) + ch);",
+             "const uint4 r = make_uint4(cell, cell >> 3, cell << 2, ch);"),
+            ("          acc[p][ch] += wt[0] * __ldg(vals + ch * cs) +\n"
+             "                        wt[4] * __ldg(vals + ch * cs + 15 * bs);",
+             "          acc[p][ch] += wt[0] * (cell & 127) +\n"
+             "                        wt[4] * ((cell + cs) & 127);"),
+            ("acc[p][ch] += wt[k] * __ldg(vals + ch * cs + cn[k] * bs);",
+             "acc[p][ch] += wt[k] * ((cell + cn[k] * bs) & 127);")],
+        "no sort": [("      order(key[0], key[1]);\n"
+                     "      order(key[2], key[3]);\n"
+                     "      order(key[0], key[2]);\n"
+                     "      order(key[1], key[3]);\n"
+                     "      order(key[1], key[2]);\n", "")],
+        "no pixel tile": [
+            ("  load_tile(tile, img + (size_t)c * H * W, H, W, i0, j0);\n", ""),
+            ("      for (int r = 0; r < 4; ++r) v[r] = tp[mem.soff[m][r]];",
+             "      for (int r = 0; r < 4; ++r) {\n"
+             "        const int so = mem.soff[m][r] + kHalo * kPitch + kHalo;\n"
+             "        const int orow = so / kPitch - kHalo;\n"
+             "        const int ocol = so % kPitch - kHalo;\n"
+             "        v[r] = __ldg(img + (size_t)c * H * W + (size_t)min(max(i0"
+             " + (int)threadIdx.y + p * kThreadRows + orow, 0), H - 1) * W"
+             " + min(max(j + ocol, 0), W - 1));\n      }")],
+    },
+}
+ROW_LAYOUTS = ("packed8", "packed32", "cells")
+# which members the kernel copies the slots of: every member, none (the
+# first design's loop), or as ``row_members`` ships the plan
+ROW_PLANS = {"slots by warps": 1, "first design's loop": 0,
+             "the shipped plan": None}
+# the kernel-as-built variants' plans (default: the shipped one)
+ROW_VARIANT_PLANS = {
+    "two pixels a thread": ("the shipped plan", "slots by warps"),
+    "slots: copied above 24 runs": ("the shipped plan", "slots by warps")}
 # kernel → {variant: source file beside this script}: whole other designs
 OTHER_SOURCES = {"steering_warp": {"first design": "steering_warp_first.cu"}}
 K1_TILES = ((16, 64), (8, 64), (16, 32), (8, 32), (32, 32), (4, 64))
 
 
-def build_variants(tmp, k5_sources=(), variants=None):
+def build_variants(tmp, k5_sources=(), variants=None, others=()):
     """Every variant's shared library, built in parallel: {(kernel,
     variant): path}; ``k5_sources``, other K5 sources, under their
-    paths; ``variants``: {kernel: {variant: substitutions}} instead of
-    ``VARIANTS`` and the other designs."""
+    paths; ``variants``: {kernel: {variant: substitutions}} (a kernel's
+    source in ``csrc/`` or, a first design, beside this script) instead of
+    ``VARIANTS`` and the other designs; ``others``: (kernel, name, path)
+    of more whole sources."""
     from lerf_torch.ops.kernels import _build
 
     jobs = {}
     here = os.path.dirname(os.path.abspath(__file__))
-    others = [] if variants else [
+    others = list(others) + ([] if variants else [
         (kernel, name, os.path.join(here, fname))
         for kernel, named in OTHER_SOURCES.items()
-        for name, fname in named.items()]
+        for name, fname in named.items()])
     for kernel, name, path in others + [("steering_warp", p, p)
                                         for p in k5_sources]:
         stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
@@ -306,7 +453,10 @@ def build_variants(tmp, k5_sources=(), variants=None):
             g.write(f.read())
         jobs[(kernel, name)] = stem
     for kernel, named in (variants or VARIANTS).items():
-        with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
+        path = os.path.join(_build.CSRC, kernel + ".cu")
+        if not os.path.exists(path):                 # a first design
+            path = os.path.join(here, kernel + ".cu")
+        with open(path) as f:
             src = f.read()
         for name, subs in {"as built": [], **named}.items():
             text = src
@@ -325,12 +475,13 @@ def build_variants(tmp, k5_sources=(), variants=None):
     return {key: stem + ".so" for key, stem in jobs.items()}
 
 
-def sass_rows(lib):
-    """{kernel function: (registers, Counter of SASS opcodes)} of the K5
-    kernels in a built library, by ``cuobjdump``."""
+def sass_rows(lib, kernel="steering_warp_kernel"):
+    """{kernel function: (registers, Counter of SASS opcodes)} of the
+    ``kernel`` instances (default K5's) in a built library, by
+    ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     regs = dict(re.findall(
-        r"Function (\S*steering_warp_kernel\S*):\s*REG:(\d+)",
+        rf"Function (\S*{kernel}\S*):\s*REG:(\d+)",
         subprocess.run([tool, "-res-usage", lib], capture_output=True,
                        text=True, check=True).stdout))
     rows, fn = {}, None
@@ -338,8 +489,7 @@ def sass_rows(lib):
                                text=True, check=True).stdout.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
-            fn = head.group(1) if "steering_warp_kernel" in head.group(1) \
-                else None
+            fn = head.group(1) if kernel in head.group(1) else None
             if fn:
                 rows[fn] = (int(regs.get(fn, -1)), collections.Counter())
             continue
@@ -435,6 +585,168 @@ def probe_k6(rounds: int) -> int:
     return 0
 
 
+def probe_rows(rounds: int, k2_sources=()) -> int:
+    """The ``--rows`` section (the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from lerf_torch.ops import lut_pipeline as lp
+    from lerf_torch.ops.kernels import _build
+    from lerf_torch.ops.kernels import lut_stage as k2
+
+    cs.CARD = card = cs.card_line()
+    dev = torch.device("cuda")
+    lib = _build.library()
+    bank = cs.bench_bank()
+    frames = {"random": np.random.RandomState(0).randint(
+        0, 256, (cs.LR_H, cs.LR_W, 3)).astype(np.uint8),
+        "smooth": cs.smooth_frame()}
+    flat = (lp.FlatTables.create(bank.stage1, dev),
+            lp.FlatTables.create(bank.stage2, dev))
+    inputs = {}
+    for name, f in frames.items():
+        x = torch.from_numpy(np.ascontiguousarray(
+            f.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+        inputs[name] = (x, lp.lut_stage1(x, flat[0], cs.MODES))
+    stages = ((False, 48, 0), (True, 192, 127))   # split_r, den, bias
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_variants(tmp, variants=ROWS_VARIANTS, others=[
+            ("lut_stage", path, path) for path in k2_sources])
+        dlls = {key: ctypes.CDLL(path) for key, path in libs.items()}
+        # each row-kernel instance's registers and its loads by kind
+        # (LDL: local memory, spills; LDC: the parameter bank; LD: generic)
+        for (kernel, name), path in libs.items():
+            for fn, (nreg, opc) in sass_rows(path, "lut_rows_kernel").items():
+                inst = re.search(r"lut_rows_kernelILi(\d)ELi(\d)ELi(\d+)E",
+                                 fn)
+                print(json.dumps({
+                    "sass": kernel, "variant": name,
+                    "instance": inst.groups() if inst else fn,
+                    "registers": nreg, **{op: opc.get(op, 0) for op in (
+                        "LDL", "STL", "LDC", "LD", "LDG", "LDS", "LDGSTS",
+                        "SHFL")},
+                    "instructions": sum(opc.values())}), flush=True)
+
+    def row_call(entry, tables, how):
+        """A call of the kernel (or a variant) on (stage, x) through
+        ``entry``, its members' slots copied as ``ROW_PLANS[how]`` says."""
+        entry.argtypes = lib.lerf_lut_stage_rows.argtypes
+        entry.restype = ctypes.c_int
+
+        def run(stage, x):
+            split_r, den, bias = stages[stage]
+            plan = k2.row_members(tables[stage], cs.MODES, split_r,
+                                  x.device)
+            if ROW_PLANS[how] is not None:
+                members = plan.members.copy()
+                members[:, 15] = ROW_PLANS[how]
+                plan = dataclasses.replace(plan, members=members)
+            out = torch.empty(x.shape + (plan.oc,), dtype=torch.int32,
+                              device=dev)
+            _build.check(entry(*k2.rows_args(
+                x, out, plan, interval=4, den=den, bias=bias, norm=255,
+                stream=torch.cuda.current_stream().cuda_stream)),
+                "K2 rows variant")
+            return out
+        return run
+
+    def first(entry, tables):
+        call = cs.k2_rows_first_call(entry)
+
+        def run(stage, x):
+            split_r, den, bias = stages[stage]
+            return call(x, tables[stage], cs.MODES, split_r, den, bias)
+        return run
+
+    def flat_call(entry):
+        entry.argtypes = lib.lerf_lut_stage.argtypes
+        entry.restype = ctypes.c_int
+
+        def run(stage, x):
+            split_r, den, bias = stages[stage]
+            t = flat[stage]
+            oc = t.table.shape[-1]
+            words = t.padded if oc == 3 else t.cells
+            members = lp.member_descriptors(cs.MODES, split_r, t.keys)
+            out = torch.empty(x.shape + (oc,), dtype=torch.int32, device=dev)
+            _build.check(entry(
+                x.data_ptr(), words.data_ptr(), out.data_ptr(),
+                members.ctypes.data, len(members), 3, cs.LR_H, cs.LR_W, oc,
+                cs.L4, 4, den, bias, 255,
+                torch.cuda.current_stream().cuda_stream), "K2 flat")
+            return out
+        return run
+
+    def emit(row):
+        print(json.dumps({**row, "card": card}), flush=True)
+
+    def time_calls(calls, want, label):
+        """``calls`` {name: run(stage, x)} on each frame, in alternating
+        rounds: each call's graph ms a stage and whether it equals
+        ``want``; flat calls also by events."""
+        for frame, (x, feat) in inputs.items():
+            ins = (x, feat)
+            ref = [want(stage, ins[stage]) for stage in (0, 1)]
+            equal = {name: all(torch.equal(run(stage, ins[stage]), ref[stage])
+                               for stage in (0, 1))
+                     for name, run in calls.items()}
+            for rnd in range(rounds):
+                names = list(calls) if rnd % 2 == 0 else list(calls)[::-1]
+                for name in names:
+                    run = calls[name]
+                    ms = [cs.graph_ms(lambda s=stage: run(s, ins[s]))
+                          for stage in (0, 1)]
+                    row = {**label, "frame": frame, "round": rnd,
+                           "variant": name, "graph_ms": sum(ms),
+                           "stage_graph_ms": ms, "equals_kernel": equal[name]}
+                    if label.get("kernel") == "lut_stage_kernel":
+                        row["events_ms"] = [cs.event_ms(
+                            lambda s=stage: run(s, ins[s]), iters=50)
+                            for stage in (0, 1)]
+                    emit(row)
+
+    for layout in ROW_LAYOUTS:
+        tables = [lp.stage_tables(bank.stage1, layout, cs.MODES,
+                                  split_r=False, device=dev),
+                  lp.stage_tables(bank.stage2, layout, cs.MODES,
+                                  split_r=True, device=dev)]
+        # int8 rows copy no slots (the kernel refuses the plan)
+        hows = [how for how in ROW_PLANS
+                if not (layout == "packed8" and how == "slots by warps")]
+        calls = {f"as built, {how}": row_call(lib.lerf_lut_stage_rows,
+                                              tables, how) for how in hows}
+        calls["first design"] = first(
+            dlls[("lut_rows_first", "as built")].lerf_lut_stage_rows_first,
+            tables)
+        for (kernel, name), dll in dlls.items():
+            if name == "as built":
+                continue
+            if kernel == "lut_stage" and name in ROWS_VARIANTS["lut_stage"]:
+                for how in ROW_VARIANT_PLANS.get(name, ("the shipped plan",)):
+                    if how not in hows:
+                        continue
+                    calls[f"{name}, {how}"] = row_call(
+                        dll.lerf_lut_stage_rows, tables, how)
+            elif kernel == "lut_rows_first":
+                calls[f"first design, {name}"] = first(
+                    dll.lerf_lut_stage_rows_first, tables)
+
+        def want(stage, x, tables=tables):
+            split_r, den, bias = stages[stage]
+            return k2.lut_stage(x, tables[stage], cs.MODES, split_r=split_r,
+                                den=den, bias=bias)
+        time_calls(calls, want, {"kernel": "lut_rows_kernel",
+                                 "layout": layout})
+    if k2_sources:
+        calls = {"as built": flat_call(lib.lerf_lut_stage)}
+        for path in k2_sources:
+            calls[path] = flat_call(dlls[("lut_stage", path)].lerf_lut_stage)
+        time_calls(calls, calls["as built"], {"kernel": "lut_stage_kernel",
+                                              "layout": "flat"})
+    print(card)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -449,6 +761,12 @@ def main(argv=None) -> int:
                     help="print K5's registers and SASS opcode counts")
     ap.add_argument("--k6", action="store_true",
                     help="time K6's tiles and its first design only")
+    ap.add_argument("--rows", action="store_true",
+                    help="time K2's row mode, its variants and its first "
+                    "design only")
+    ap.add_argument("--k2", action="append", default=[], metavar="OTHER.cu",
+                    help="with --rows: another flat K2 source to time "
+                    "beside the kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_lut_kernels: needs a CUDA card", file=sys.stderr)
@@ -456,6 +774,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     if args.k6:
         return probe_k6(args.rounds)
+    if args.rows:
+        return probe_rows(args.rounds, args.k2)
     from lerf_torch.ops import lut_pipeline as lp
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.ops.kernels import resize as k1

@@ -608,10 +608,17 @@ def test_srnet_ensemble_bf16_kernel_grid_edges(case, cuda_device):
     bf16_case(*BF16_EDGE_CASES[case], cuda_device)
 
 
+# frames for K2's row mode: ragged against its 16 × 32 tile, one pixel,
+# one row band, and narrower than one tile
+ROWS_SHAPES = [(3, 45, 77), (1, 1, 1), (3, 3, 200), (2, 17, 33), (1, 40, 20)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ROWS_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("layout", ["packed8", "packed32", "cells"])
 @pytest.mark.parametrize("stage", sorted(STAGES))
-def test_lut_rows_kernel_matches_flat(stage, layout, cuda_device):
+def test_lut_rows_kernel_matches_flat(stage, layout, shape, cuda_device):
     """K2's row mode on lerf_tpu's other layouts: bit-equal to flat K2
     and to the twin on the same layout."""
     fn, split_r, _, which = STAGES[stage]
@@ -620,13 +627,128 @@ def test_lut_rows_kernel_matches_flat(stage, layout, cuda_device):
     tables = lp.stage_tables(luts, layout, MODES, split_r=split_r,
                              device=cuda_device)
     img = torch.from_numpy(np.random.RandomState(1).randint(
-        0, 256, (3, 45, 77)).astype(np.int32)).to(cuda_device)
+        0, 256, shape).astype(np.int32)).to(cuda_device)
     before = k2.launches
     got = fn(img, tables, MODES)
     torch.cuda.synchronize()
     assert k2.launches == before + 1
     torch.testing.assert_close(got, fn(img, flat, MODES), rtol=0, atol=0)
     torch.testing.assert_close(got, stage_plain(stage, img, tables),
+                               rtol=0, atol=0)
+
+
+def structured_frame(kind):
+    """int32 [3, 360, 640] frames on which K2 rows' warps read their slots
+    in place: chip_smoke's smooth frame (a box-blurred seeded field),
+    constant 4 x 8 blocks, and the smooth frame with a random 100 x 200
+    patch and a random row band, whose warps both copy and read in
+    place."""
+    cs = load_tool("chip_smoke")
+    smooth = np.ascontiguousarray(
+        cs.smooth_frame().transpose(2, 0, 1).astype(np.int32))
+    rng = np.random.RandomState(9)
+    if kind == "smooth":
+        return smooth
+    if kind == "runs":
+        return rng.randint(0, 256, (3, 90, 80)).repeat(4, 1).repeat(
+            8, 2).astype(np.int32)
+    out = smooth.copy()
+    out[:, 100:200, 150:350] = rng.randint(0, 256, (3, 100, 200))
+    out[:, 300:305] = rng.randint(0, 256, (3, 5, 640))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["smooth", "runs", "mixed"])
+@pytest.mark.parametrize("layout", ["packed8", "packed32", "cells"])
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_lut_rows_kernel_on_structured_frames(stage, layout, kind,
+                                              cuda_device):
+    """K2's row mode where a warp's pixels share cells (its copied slots
+    read in place, or a frame that mixes such warps with copying ones):
+    bit-equal to flat K2 and to the twin on the same layout."""
+    fn, split_r, _, which = STAGES[stage]
+    luts = getattr(random_bank(), which)
+    flat = lp.FlatTables.create(luts, cuda_device)
+    tables = lp.stage_tables(luts, layout, MODES, split_r=split_r,
+                             device=cuda_device)
+    img = torch.from_numpy(structured_frame(kind)).to(cuda_device)
+    got = fn(img, tables, MODES)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fn(img, flat, MODES))
+    assert torch.equal(got, stage_plain(stage, img, tables))
+
+
+def load_tool(name):
+    """A script of the repo (``chip_smoke.py`` at its root, or one under
+    ``lerf_torch/tools/``) as a module."""
+    import importlib.util
+    import os
+
+    from lerf_torch.ops.kernels import _build
+
+    pkg = os.path.dirname(_build.CSRC)
+    path = (os.path.join(os.path.dirname(pkg), name + ".py")
+            if name == "chip_smoke"
+            else os.path.join(pkg, "tools", name + ".py"))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def rows_first_design():
+    """K2 rows' first design (``tools/lut_rows_first.cu``), built on its
+    own as chip_smoke builds it: ``fn(img, tables, modes, split_r, den,
+    bias)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    cs = load_tool("chip_smoke")
+    return cs.k2_rows_first_design(
+        cs.start_first_build(cs.K2_ROWS_FIRST, "k2_rows_first"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed8", "packed32", "cells"])
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_lut_rows_kernel_equals_first_design(stage, layout,
+                                             rows_first_design, cuda_device):
+    """The kernel and its first design give the same bits, at
+    chip_smoke's frame size and on a ragged one."""
+    fn, split_r, bias, which = STAGES[stage]
+    den = len(MODES) * (1 if stage == "stage1" else 4) * 16
+    tables = lp.stage_tables(getattr(random_bank(), which), layout, MODES,
+                             split_r=split_r, device=cuda_device)
+    for shape in [(3, 360, 640), (2, 17, 33)]:
+        img = torch.from_numpy(np.random.RandomState(4).randint(
+            0, 256, shape).astype(np.int32)).to(cuda_device)
+        got = fn(img, tables, MODES)
+        first = rows_first_design(img, tables, MODES, split_r, den, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(got, first if split_r else first[..., 0])
+
+
+@pytest.mark.cuda
+def test_lut_rows_kernel_launch_refused_raises(cuda_device):
+    """A frame taller than CUDA's 65535 row tiles (the slot-copying
+    instance's 8-row tiles): the launch is refused and the wrapper raises,
+    launching nothing and running no other design; the next launch is not
+    disturbed."""
+    tables = lp.stage_tables(random_bank().stage2, "cells", MODES,
+                             split_r=True, device=cuda_device)
+    tall = torch.zeros((1, 8 * 65536, 1), dtype=torch.int32,
+                       device=cuda_device)
+    before = k2.launches
+    with pytest.raises(RuntimeError, match="lut_stage launch"):
+        lp.lut_stage2(tall, tables, MODES)
+    assert k2.launches == before
+    img = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (3, 20, 40)).astype(np.int32)).to(cuda_device)
+    got = lp.lut_stage2(img, tables, MODES)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    torch.testing.assert_close(got, stage_plain("stage2", img, tables),
                                rtol=0, atol=0)
 
 
@@ -1297,18 +1419,37 @@ def test_probe_variants_apply_to_the_kernel_sources():
     """``tools/probe_lut_kernels.py`` builds each variant by text
     substitution into K1's, K2's and K5's sources: every substituted text
     must be there exactly once."""
-    import importlib.util
     import os
 
     from lerf_torch.ops.kernels import _build
 
-    path = os.path.join(os.path.dirname(_build.CSRC), "tools",
-                        "probe_lut_kernels.py")
-    spec = importlib.util.spec_from_file_location("probe_lut_kernels", path)
-    probe = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(probe)
+    probe = load_tool("probe_lut_kernels")
     for kernel, variants in probe.VARIANTS.items():
         with open(os.path.join(_build.CSRC, kernel + ".cu")) as f:
+            src = f.read()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs:
+                assert text.count(old) == 1, (kernel, name, old[:60])
+                text = text.replace(old, new)
+
+
+def test_probe_row_variants_apply_to_the_row_sources():
+    """``probe_lut_kernels.py --rows`` builds its variants by text
+    substitution into K2's source (its row mode) and into its first
+    design beside the script: every substituted text must be there
+    exactly once."""
+    import os
+
+    from lerf_torch.ops.kernels import _build
+
+    probe = load_tool("probe_lut_kernels")
+    tools = os.path.join(os.path.dirname(_build.CSRC), "tools")
+    for kernel, variants in probe.ROWS_VARIANTS.items():
+        path = os.path.join(_build.CSRC, kernel + ".cu")
+        if not os.path.exists(path):
+            path = os.path.join(tools, kernel + ".cu")
+        with open(path) as f:
             src = f.read()
         for name, subs in variants.items():
             text = src

@@ -2,9 +2,10 @@
 rotation groups, packed rows and cell rows array-equal, the packed and
 cell ensembles bit-equal at intervals 3, 4 and 5, banded stages bit-equal
 to unbanded, ``LutPredictor(table_layout=...)`` SR and warp bit-equal to
-lerf_tpu's predictor with the same layout, and K2's row-mode member table
-(what the kernel reads on the card) evaluated here the way the kernel
-reads it, bit-equal to the plain stage.  All int32: every comparison is
+lerf_tpu's predictor with the same layout, and K2's row-mode plan (what
+the kernel reads on the card) evaluated here the way the kernel reads it,
+each member's slot in place or copied whole by its warp, bit-equal to the
+plain stage and to lerf_tpu's ensemble.  All int32: every comparison is
 exact.  Torch runs on one thread (``one_torch_thread``)."""
 import numpy as np
 import pytest
@@ -190,73 +191,220 @@ def test_banded_rows_splits_into_bands():
     assert torch.equal(out[..., 0], img)
 
 
-def emulate_rows(img, tables, modes, split_r, interval):
-    """K2's row mode as the kernel reads it, in numpy: each member's
-    descriptor row and slot pointer from ``row_members`` (offsets clamped
-    to the image, cell index from the roles' MSBs weighed by (L-1)^(3 -
-    perm), the descending sort of (fraction, role) keys, corners by
-    role-permuted bits, the values at slot + cell·row bytes + (channel ·
-    cstride + corner · bstride) · value bytes).  Returns the member sum,
-    int64 [C, H, W, oC]."""
-    members, ptrs, esize, oc = k2.row_members(tables, modes, split_r,
-                                              torch.device("cpu"))
+def member_blend(v, perm, q):
+    """A member's corners (bits raised in rank order, by role-permuted
+    bits) and weights from its 4 role-order samples, as the kernel's
+    sorting network orders the (fraction, role, corner bit) keys."""
+    keys = np.stack([((v[k] & (q - 1)) << 6) | (k << 4)
+                     | (1 << (3 - perm[k])) for k in range(4)], -1)
+    keys = -np.sort(-keys, axis=-1)              # rank 0 = largest
+    vt = keys >> 6
+    corners = np.concatenate(
+        [np.zeros_like(vt[..., :1]), np.cumsum(keys & 15, -1)], -1)
+    wts = np.concatenate([q - vt[..., :1], vt[..., :-1] - vt[..., 1:],
+                          vt[..., -1:]], -1)
+    return corners, wts
+
+
+def emulate_rows(img, tables, modes, split_r, interval, slotted=None):
+    """K2's row mode as the kernel reads it, in numpy, on the plan
+    ``row_members`` ships (or with every member's slots copied,
+    ``slotted`` 1, or none, 0): each member's offsets clamped to the image,
+    its cell from the roles' MSBs weighed by (L-1)^(3 - perm), the
+    descending sort of (fraction, role) keys, corners by role-permuted
+    bits, the values at slot + cell·row bytes + (channel · cstride +
+    corner · bstride) · value bytes.  A copied member's warp (32 columns of
+    a tile row, lanes past the frame's edge on edge-clamped samples)
+    copies its slots' 16 × oC values alone and reads them there when its
+    pixels lie on more than 16 runs of cells, else reads them in place.
+    Returns the member sum, int64 [C, H, W, oC], and the (member, warp)
+    reads that copied and that read a copied member's slots in place."""
+    plan = k2.row_members(tables, modes, split_r, torch.device("cpu"))
+    members = plan.members.copy()
+    if slotted is not None:
+        members[:, 15] = slotted
     if isinstance(tables, tlp.PackedTables):
         stores = [g.table for m in modes for g in tables.groups[m]]
     else:
         stores = [tables.table]
     c, h, w = img.shape
-    q, cells = 1 << interval, 1 << (8 - interval)
-    ii, jj = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    acc = np.zeros((c, h, w, oc), np.int64)
-    for d, ptr in zip(members, ptrs):
+    wp = -(-w // 32) * 32
+    q, cells, oc = 1 << interval, 1 << (8 - interval), plan.oc
+    ii, jj = np.meshgrid(np.arange(h), np.arange(wp), indexing="ij")
+    acc = np.zeros((c, h, wp, oc), np.int64)
+    n_copied = n_direct = 0
+    for d, ptr in zip(members, plan.slots):
         store = next(t for t in stores
                      if t.data_ptr() <= int(ptr) < t.data_ptr()
                      + t.numel() * t.element_size())
         flat = store.numpy().reshape(-1)
-        base = (int(ptr) - store.data_ptr()) // esize
+        base = (int(ptr) - store.data_ptr()) // plan.esize
         v = [img[:, np.clip(ii + d[2 * k], 0, h - 1),
                  np.clip(jj + d[2 * k + 1], 0, w - 1)] for k in range(4)]
         perm = d[8:12]
         cell = sum((v[k] >> interval) * cells ** (3 - perm[k])
                    for k in range(4))
-        keys = np.stack([((v[k] & (q - 1)) << 6) | (k << 4)
-                         | (1 << (3 - perm[k])) for k in range(4)], -1)
-        keys = -np.sort(-keys, axis=-1)              # rank 0 = largest
-        vt = keys >> 6
-        corners = np.concatenate(
-            [np.zeros_like(vt[..., :1]), np.cumsum(keys & 15, -1)], -1)
-        wts = np.concatenate([q - vt[..., :1], vt[..., :-1] - vt[..., 1:],
-                              vt[..., -1:]], -1)
-        rstride, cs, bs = d[12] // esize, d[13], d[14]
+        corners, wts = member_blend(v, perm, q)
+        rows = base + cell[..., None] * (d[12] // plan.esize)
+        cs, bs = d[13], d[14]
+        if d[15]:
+            runs = 1 + (np.diff(cell.reshape(c, h, wp // 32, 32), axis=-1)
+                        != 0).sum(-1)
+            n_copied += int((runs > 16).sum())
+            n_direct += int((runs <= 16).sum())
+            copy = np.repeat(runs > 16, 32, axis=-1)[..., None]
+            slots = flat[rows + np.arange(16 * oc)]   # a slot copied whole
         for ch in range(oc):
-            idx = base + cell[..., None] * rstride + ch * cs + corners * bs
-            acc[..., ch] += (wts * flat[idx]).sum(-1)
-    return acc
+            idx = ch * cs + corners * bs
+            vals = flat[rows + idx]
+            if d[15]:
+                assert idx.max() < 16 * oc
+                vals = np.where(copy, np.take_along_axis(slots, idx, -1),
+                                vals)
+            acc[..., ch] += (wts * vals).sum(-1)
+    return acc[:, :, :w], n_copied, n_direct
+
+
+def slotted_cases(layout):
+    """The copy plans the kernel takes on a layout: as shipped, none, and
+    (int32 rows) every member's slots copied."""
+    return (None, 0) if layout == "packed8" else (None, 0, 1)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("stage", ["stage1", "stage2"])
 def test_row_members_read_as_the_kernel_reads_them(stage, layout):
-    """The member table K2's row mode gets, read the kernel's way, sums to
-    the plain ensemble; every member's offsets are its rotated offsets."""
+    """The plan K2's row mode gets, read the kernel's way, sums to the
+    plain ensemble, with its members' slots copied as shipped (the int32
+    layouts' stage-2 slots), none or all; every member's offsets are its
+    rotated offsets."""
     _, _, split_r, oc = STAGES[stage]
     luts = rand_luts(MODES, oc, split_r, seed=5)
     tables = tlp.stage_tables(luts, layout, MODES, split_r=split_r)
-    members, ptrs, esize, got_oc = k2.row_members(
-        tables, MODES, split_r, torch.device("cpu"))
-    assert got_oc == oc and esize == (1 if layout == "packed8" else 4)
-    assert members.shape == (12, 16) and ptrs.shape == (12,)
+    plan = k2.row_members(tables, MODES, split_r, torch.device("cpu"))
+    assert plan.oc == oc and plan.esize == (1 if layout == "packed8" else 4)
+    assert plan.members.shape == (12, 16) and plan.slots.shape == (12,)
+    assert list(plan.members[:, 15]) == [
+        int(layout != "packed8" and stage == "stage2")] * 12
     want_offs = sorted(tuple(v for off in tlp.MODE_OFFSETS[m]
                              for v in tlp.rotate_offset(off, r))
                        for m in MODES for r in range(4))
-    assert sorted(tuple(d[:8]) for d in members) == want_offs
+    assert sorted(tuple(d[:8]) for d in plan.members) == want_offs
     assert k2.row_members(tables, MODES, split_r,
-                          torch.device("cpu"))[0] is members   # cached
+                          torch.device("cpu")) is plan          # cached
     img = image((2, 11, 14), seed=7)
     want = tlp.lut_ensemble(torch.from_numpy(img), tables, MODES,
                             split_r=split_r)
-    np.testing.assert_array_equal(emulate_rows(img, tables, MODES, split_r, 4),
-                                  want.numpy())
+    for slotted in slotted_cases(layout):
+        np.testing.assert_array_equal(
+            emulate_rows(img, tables, MODES, split_r, 4, slotted)[0],
+            want.numpy())
+
+
+def smooth(shape, seed):
+    """A seeded uniform field box-blurred (15 pixels) and stretched to
+    0..255: neighbouring pixels share lattice cells, as in photographs."""
+    c, h, w = shape
+    a = np.random.RandomState(seed).randint(0, 256, (c, h + 14, w + 14))
+    s = np.pad(a, ((0, 0), (1, 0), (1, 0))).cumsum(1).cumsum(2)
+    b = s[:, 15:, 15:] - s[:, :-15, 15:] - s[:, 15:, :-15] + s[:, :-15, :-15]
+    b = b - b.min()
+    return (b * 255 // max(b.max(), 1)).astype(np.int32)
+
+
+def ragged_frame(kind, shape, seed):
+    if kind == "random":
+        return image(shape, seed)
+    if kind == "smooth":
+        return smooth(shape, seed)
+    if kind == "runs":          # constant 4 × 8 blocks
+        c, h, w = shape
+        blocks = image((c, -(-h // 4), -(-w // 8)), seed)
+        return np.ascontiguousarray(
+            blocks.repeat(4, 1).repeat(8, 2)[:, :h, :w])
+    out = smooth(shape, seed)   # "mixed": a smooth warp, random warps
+    out[..., 32:] = image(shape, seed)[..., 32:]
+    return out
+
+
+# (frame kind, shape): frames that are not multiples of the kernel's
+# 8 × 32 and 16 × 32 tiles (a frame narrower than one tile, one row, a
+# ragged last warp) with border anchors (delta −3) on every side; random
+# frames, whose warps copy their slots, smooth and run-structured ones,
+# whose warps read in place, and a frame that mixes both
+RAGGED_CASES = {"random-21x45": ("random", (2, 21, 45)),
+                "random-5x9": ("random", (1, 5, 9)),
+                "random-1x40": ("random", (1, 1, 40)),
+                "smooth-21x45": ("smooth", (2, 21, 45)),
+                "runs-11x14": ("runs", (2, 11, 14)),
+                "mixed-9x70": ("mixed", (1, 9, 70))}
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("stage", ["stage1", "stage2"])
+def test_rows_read_on_ragged_frames(stage, layout, case):
+    """The row mode's read, then the stage epilogue, on ragged random,
+    smooth and mixed frames: bit-equal to the plain stage on the layout,
+    whether the members' slots are copied as shipped, none or all; on the
+    mixed frame the copied members' warps both copy and read in place."""
+    _, _, split_r, oc = STAGES[stage]
+    kind, shape = RAGGED_CASES[case]
+    luts = rand_luts(MODES, oc, split_r, seed=11)
+    tables = tlp.stage_tables(luts, layout, MODES, split_r=split_r)
+    img = ragged_frame(kind, shape, seed=13)
+    den, bias = (48, 0) if stage == "stage1" else (192, 127)
+    want = tlp.lut_stage_plain(torch.from_numpy(img), tables, MODES,
+                               split_r=split_r, den=den, bias=bias)
+    acc, n_copied, n_direct = emulate_rows(img, tables, MODES, split_r, 4)
+    got = tlp.stage_epilogue(torch.from_numpy(acc).to(torch.int32), den,
+                             bias, 255)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for slotted in slotted_cases(layout)[1:]:
+        again, copied, direct = emulate_rows(img, tables, MODES, split_r, 4,
+                                             slotted)
+        np.testing.assert_array_equal(again, acc)
+        if slotted and kind == "mixed":
+            assert copied > 0 and direct > 0
+        if slotted and kind == "random" and shape[-1] >= 32:
+            assert copied > 0       # a warp on 32 of the frame's pixels
+    if kind == "mixed" and n_copied + n_direct:
+        assert n_copied > 0 and n_direct > 0
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_rows_read_on_lerf_tpu_tables(layout):
+    """The row mode's read on lerf_tpu's own tables
+    (``build_packed_tables``, ``build_cell_table``): bit-equal to
+    lerf_tpu's ensemble on them, with the slots copied as shipped, none or
+    all, at a frame with border anchors on every side."""
+    split_r, oc = (False, 1) if layout == "packed32" else (True, 3)
+    luts = rand_luts(MODES, oc, split_r, seed=17)
+    img = image((1, 7, 10), seed=19)
+    if layout == "cells":
+        cells = {k: np.asarray(jsx.build_cell_table(
+            jnp.asarray(v.astype(np.int32)), 4)) for k, v in luts.items()}
+        keys = tuple(sorted(cells))
+        tables = tlp.CellTables(keys=keys, table=torch.from_numpy(
+            np.stack([cells[k] for k in keys])).contiguous())
+        want = jlp.lut_ensemble(jnp.asarray(img), {k: jnp.asarray(v) for
+                                                   k, v in cells.items()},
+                                MODES, split_r=split_r)
+    else:
+        dt = np.int8 if layout == "packed8" else np.int32
+        jp = jlp.build_packed_tables(
+            as_jax({k: v.astype(dt) for k, v in luts.items()}, dt), MODES,
+            split_r=split_r)
+        tables = tlp.PackedTables(groups={
+            m: tuple(tlp.PackedGroup(
+                table=torch.from_numpy(np.array(w["table"])),
+                oc=w["oc"], rots=w["rots"], canon=w["canon"],
+                deltas=w["deltas"], perms=w["perms"])
+                for w in jp.groups[m]) for m in MODES})
+        want = jlp.lut_ensemble_packed(jnp.asarray(img), jp, MODES)
+    for slotted in slotted_cases(layout):
+        got = emulate_rows(img, tables, MODES, split_r, 4, slotted)[0]
+        np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def jax_bank():
