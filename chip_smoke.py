@@ -14,7 +14,8 @@ the reference width nf = 64 with seed-0 numpy weights, for the float (K3)
 and the int8 (K4) backends — and the IMDN (LeRF-Net) form,
 ``NetPredictor.from_imdn(IMDN2(nf=12))`` with weights from a
 ``torch.Generator`` seeded 0, whose float feature and hyper maps K1 and K5
-take in their float mode, and the network → LUT transfer; then trains:
+take in their float mode (and in bf16, ``IMDN2(dtype=torch.bfloat16)``,
+their bf16 instances), and the network → LUT transfer; then trains:
 the reference's LeRF-G run at full width through the port's trainer (K1
 forward, K6 backward), its validation, checkpoint and resume, LUT
 fine-tuning and IMDN2; then serves: the async forms through pinned
@@ -295,15 +296,30 @@ hand-written kernel against its plain PyTorch twin on the card:
    and device parts, the
    bound from the table rows that frame touches, and the layout the
    numbers favour;
-50. the exact-division findings (K1 bit-equal to its twin or not at each
+50. the IMDN form's bf16 compute type (``IMDN2(nf=12,
+   dtype=torch.bfloat16)``, phase 24's weights): K1's and K5's bf16
+   instances (lerf_tpu's resize and warp run in bf16, every operation
+   rounded to bf16) against their twins on the card, K1 at phase 2's
+   scales and K5 at phase 9's matrices with the mask, at support 4 and
+   over 4 frames (each bit-equal to its own call), both weights, within
+   ``K_BF16_ULPS``; then ``NetPredictor.from_imdn`` on the bf16 model,
+   backends base and s2d, ``upscale`` ×4 and ``warp`` under
+   ``warp_matrix()``, each call exactly one K1 (K5) launch and that one
+   the bf16 instance (the maps reach it as bf16), a 96×160 crop against
+   the CPU path (``IMDN_BF16_*_TOL``, the mask equal, the SR frame within
+   a level of the twin resize of the card's own bf16 stages), the whole
+   calls, the device parts, the towers' profiler time in bf16 beside
+   float32's in the same call, and K1 / K5 bf16 alone beside their twins
+   and bounds;
+51. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
    rows with their ``linear`` and ``float`` modes, K1's and K5's
    ``window``, and K5's ``support4``, ``mask`` and ``batch4`` beside; K6's
    with its ``linear`` mode; then one row for each instance this slice
    added: K3 bf16, K3 / K3 bf16 / K4 at nf 128 and K2's row mode on each
-   layout, its first design's times beside), the card line and, last,
-   the result line.
+   layout, its first design's times beside, and K1's and K5's bf16
+   instances), the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -455,6 +471,22 @@ K3_BF16_ROUNDS = 2
 # alternating rounds (phase 49)
 K2_ROWS_FIRST = "lerf_torch/tools/lut_rows_first.cu"
 K2_ROWS_ROUNDS = 2
+# phase 50, the IMDN form's bf16 compute type.  K1's and K5's bf16
+# instances against their twins (the port's plain ops on bf16 tensors, on
+# the card): the Gaussian's bf16 quotient within K_BF16_ULPS bf16 ulps
+# (CUDA's expf may round a weight to the other bf16 neighbour near a tie;
+# at supports other than 2 the warp twin's torch.sum may add its float32
+# terms in another order), the linear mode's float32 quotient within
+# K1_ATOL / K5_ATOL (its bf16 steps are a x and lin(a, x) alone)
+K_BF16_ULPS = 2
+# the bf16 IMDN crop, card (cuDNN's bf16 convs) against the CPU: the
+# CPU tests' gates, lerf_tpu's own bf16 "base" against its bf16 "s2d"
+# (tests/test_torch_imdn_bf16.py): (max abs, share differing) of the
+# feature and the hyper maps, and (max levels, share differing) of the
+# uint8 frames, Gaussian and linear
+IMDN_BF16_FEAT_TOL = (2.0, 0.08)
+IMDN_BF16_HYPER_TOL = (3 / 256, 0.38)
+IMDN_BF16_U8_TOL = (33, 0.59)
 
 
 def warp_matrix(seed=0):
@@ -731,16 +763,17 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(geom, c, linear=False, floats=False):
+def k1_work(geom, c, linear=False, floats=False, value_bytes=4):
     """(bytes, operations) of one K1 call in uint8 mode: the int32 feature
     and codes (3 a pixel, 1 in the linear mode; ``floats``: float32
-    feature and maps, as many bytes) read once, the uint8 output written
-    once, the device geometry (rows, distances and, linear, masks) read
-    once; the decode once a source pixel, the weights and sums once an
-    output and neighbour, the epilogue once an output."""
+    feature and maps, as many bytes; ``value_bytes`` 2: bf16 ones) read
+    once, the uint8 output written once, the device geometry (rows,
+    distances and, linear, masks) read once; the decode once a source
+    pixel, the weights and sums once an output and neighbour, the epilogue
+    once an output."""
     (h, w), (oh, ow), s = geom.in_sz, geom.out_sz, geom.support
     codes = 1 if linear else 3
-    nbytes = (c * h * w * 4 * (1 + codes) + c * oh * ow
+    nbytes = (c * h * w * value_bytes * (1 + codes) + c * oh * ow
               + (oh + ow) * s * (9 if linear else 8))
     per = (LIN_OPS_PER_NEIGHBOUR if linear else K1_OPS_PER_NEIGHBOUR) \
         + (1 if geom.antialias else 0)
@@ -993,7 +1026,7 @@ def net_form_phases(dev, params, frame, backend, label=None):
 
 
 def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
-            frames=1, floats=False):
+            frames=1, floats=False, value_bytes=4):
     """(bytes, float32 operations, float64 operations) of one K5 call in
     uint8 mode: the int32 feature and codes (3 a pixel, 1 linear) and the
     3×3 float64 inverse read once, the uint8 output written once; the
@@ -1006,10 +1039,10 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
     column's adds.  ``mask``: the validity mask's byte and
     ``K5_F64_MASK_OPS`` an output; ``frames``: a batch of that many;
     ``floats``: float32 feature and maps (as many bytes, the float decode
-    of ``k1_work``)."""
+    of ``k1_work``; ``value_bytes`` 2: bf16 ones)."""
     (h, w), (oh, ow) = in_sz, out_sz
     codes = 1 if linear else 3
-    nbytes = c * h * w * 4 * (1 + codes) + 9 * 8 + c * oh * ow
+    nbytes = c * h * w * value_bytes * (1 + codes) + 9 * 8 + c * oh * ow
     per = LIN_OPS_PER_NEIGHBOUR if linear else K5_OPS_PER_NEIGHBOUR
     src = ((LIN_FLOAT_OPS_PER_SOURCE if linear else K1_FLOAT_OPS_PER_SOURCE)
            if floats else
@@ -1048,8 +1081,8 @@ def net_stage_launches(params, backend):
 
 
 class _Bf16Count:
-    """K3's bf16 kernel's count (``bf16_launches`` of K3's module) as a
-    module's ``launches``."""
+    """A bf16 instance's count (``bf16_launches`` of K3's, K1's or K5's
+    module) as a module's ``launches``."""
 
     def __init__(self, k3):
         self.k3 = k3
@@ -1066,7 +1099,7 @@ class _Bf16Count:
 def kernel_modules():
     """Every kernel wrapper module by its kernel's name (``srnet_ensemble``
     counts K3's launches of either type, ``srnet_ensemble_bf16`` those of
-    its bf16 kernel)."""
+    its bf16 kernel; so K1's and K5's bf16 instances)."""
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import resize_bwd as k6
@@ -1076,7 +1109,9 @@ def kernel_modules():
     return {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
             "srnet_ensemble_int8": k4, "steering_warp": k5,
             "steering_resize_bwd": k6,
-            "srnet_ensemble_bf16": _Bf16Count(k3)}
+            "srnet_ensemble_bf16": _Bf16Count(k3),
+            "steering_resize_bf16": _Bf16Count(k1),
+            "steering_warp_bf16": _Bf16Count(k5)}
 
 
 def counted_run(call, want, what):
@@ -4827,6 +4862,398 @@ def lut_layout_phase(dev, bank, frame, first):
     return rows
 
 
+# -- phase 50: the IMDN form's bf16 compute type -----------------------------
+
+def bf16_bits(t):
+    """A bf16-valued tensor's bit patterns as int32 (nonnegative values:
+    their order is the values')."""
+    import torch
+    return t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+
+
+def held_bf16(got, got_u8, want, linear, atol, what, nan_to_zero=True):
+    """A bf16 instance's float32 output ``got`` against its twin's ``want``
+    (both on the card): the NaN pattern equal; the Gaussian's bf16 quotient
+    within ``K_BF16_ULPS`` bf16 ulps, the linear mode's float32 one within
+    ``atol``; the uint8 mode the float mode quantized.  Returns (max-abs
+    error, max bf16 ulps (Gaussian; else None), values that differ, NaN
+    count)."""
+    import torch
+    from lerf_torch.ops.resample import quantize_device
+
+    want = want.to(torch.float32)
+    nan = torch.isnan(want)
+    n_nan = int(nan.sum())
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{what}: NaN pattern "
+                             f"{int(torch.isnan(got).sum())} against {n_nan}")
+    g, w = got[~nan], want[~nan]
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    n_diff = int((g != w).sum())
+    ulps = None
+    if not linear:
+        if not torch.equal(g, g.to(torch.bfloat16).to(torch.float32)):
+            raise AssertionError(f"{what}: the quotient is not a bf16 value")
+        ulps = int((bf16_bits(g) - bf16_bits(w)).abs().max()) \
+            if g.numel() else 0
+        if ulps > K_BF16_ULPS:
+            raise AssertionError(f"{what}: {ulps} bf16 ulps > "
+                                 f"{K_BF16_ULPS}")
+    elif not err <= atol:
+        raise AssertionError(f"{what}: max-abs {err} > {atol}")
+    if got_u8.dtype != torch.uint8 or not torch.equal(
+            got_u8, quantize_device(got, 255, nan_to_zero=nan_to_zero)):
+        raise AssertionError(f"{what}: the uint8 mode differs from the "
+                             "float mode quantized")
+    return err, ulps, n_diff, n_nan
+
+
+def bf16_kernel_phase(dev, rng):
+    """Phase 50, the kernels: K1's and K5's bf16 instances (bf16 feature in
+    [0, 254] and bf16 hyper maps in [0, 1], the bf16 towers' outputs)
+    against their twins on the card, the port's plain resize and warp on
+    the same bf16 tensors: K1 at phase 2's scales, K5 at phase 9's
+    matrices with the mask (``torch.equal`` to the host's), at support 4
+    on the main matrix and over 4 frames under ``warp_matrix(0..3)`` (each
+    frame bit-equal to its own call, and held to its twin), both weights.
+    Returns the worst errors {kernel: (max-abs, max bf16 ulps)}."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+
+    bf = torch.bfloat16
+    shape = (3, LR_H, LR_W)
+    inputs = {lin: tuple(t.to(bf) for t in
+                         float_inputs(rng, shape, 1 if lin else 3, dev))
+              for lin in (False, True)}
+    worst = {"steering_resize_bf16": [0.0, 0],
+             "steering_warp_bf16": [0.0, 0]}
+
+    def note(kernel, err, ulps):
+        worst[kernel][0] = max(worst[kernel][0], err)
+        worst[kernel][1] = max(worst[kernel][1], ulps or 0)
+
+    for linear in (False, True):
+        feat, hyper = inputs[linear]
+        for scale in (4.0, 2.5, 3.55, 0.5):
+            geom = ResizeGeometry.create((LR_H, LR_W),
+                                         scale_factors=[scale] * 2)
+            (got, got_u8), launches = counted_run(lambda: (
+                k1.steering_resize(feat, hyper, geom, linear=linear),
+                k1.steering_resize(feat, hyper, geom, linear=linear,
+                                   out_dtype=torch.uint8)),
+                {"steering_resize": 2, "steering_resize_bf16": 2},
+                f"K1 bf16 x{scale}")
+            want = float_twin_resize(feat, hyper, geom, linear)
+            torch.cuda.synchronize()
+            err, ulps, n_diff, n_nan = held_bf16(
+                got, got_u8, want, linear, K1_ATOL,
+                f"K1 bf16 linear={linear} x{scale}", nan_to_zero=linear)
+            note("steering_resize_bf16", err, ulps)
+            emit({"phase": "k1_bf16_vs_plain", "scale": scale,
+                  "linear": linear, "out": list(geom.out_sz),
+                  "antialias": geom.antialias, "support": geom.support,
+                  "max_abs_err": err, "max_bf16_ulps": ulps,
+                  "values_differing": n_diff, "bit_equal": n_diff == 0,
+                  "nan_windows": n_nan, "twin_dtype": str(want.dtype),
+                  "u8_equal_to_quantized_float": True})
+    # each matrix's host geometry and mask made once, for both weights
+    # (the batch's first matrix is the main one)
+    warps = [k5.WarpParams.create((LR_H, LR_W), warp_matrix(s), WARP_OUT)
+             for s in range(4)]
+    hosts = [(w.geometry(), w.host_mask()) for w in warps]
+    for name, support in [(name, 2) for name in WARP_CASES] + [("main", 4)]:
+        matrix, out_sz = WARP_CASES[name]
+        params = k5.WarpParams.create((LR_H, LR_W), matrix, out_sz,
+                                      support=support)
+        geom, host_mask = (hosts[0] if params == warps[0] else
+                           (params.geometry(), params.host_mask()))
+        for linear in (False, True):
+            feat, hyper = inputs[linear]
+            mask = torch.empty(out_sz, dtype=torch.bool, device=dev)
+            got = k5.steering_warp(feat, hyper, params, linear=linear,
+                                   mask_out=mask)
+            got_u8 = k5.steering_warp(feat, hyper, params, linear=linear,
+                                      out_dtype=torch.uint8)
+            want = float_twin_warp(feat, hyper, geom, linear)
+            torch.cuda.synchronize()
+            what = f"K5 bf16 {name} S={support} linear={linear}"
+            err, ulps, n_diff, n_nan = held_bf16(got, got_u8, want, linear,
+                                                 K5_ATOL, what)
+            if not np.array_equal(mask.cpu().numpy(), host_mask):
+                raise AssertionError(f"{what}: the mask differs from the "
+                                     "host's")
+            note("steering_warp_bf16", err, ulps)
+            emit({"phase": "k5_bf16_vs_plain", "matrix": name,
+                  "support": support, "linear": linear, "out": list(out_sz),
+                  "mask_equal": True, "max_abs_err": err,
+                  "max_bf16_ulps": ulps, "values_differing": n_diff,
+                  "bit_equal": n_diff == 0, "nan_windows": n_nan,
+                  "u8_equal_to_quantized_float": True})
+    for linear in (False, True):
+        feat, hyper = inputs[linear]
+        feats = torch.cat([feat, feat.flip(-1), feat.flip(-2), feat * 0.5])
+        hypers = torch.cat([hyper, hyper.flip(-2), hyper.flip(-3),
+                            1 - hyper])
+        masks = torch.empty((4,) + WARP_OUT, dtype=torch.bool, device=dev)
+        (got,), launches = counted_run(lambda: (k5.steering_warp_batch(
+            feats, hypers, warps, linear=linear, out_dtype=torch.uint8,
+            mask_out=masks),), {"steering_warp": 1, "steering_warp_bf16": 1},
+            "K5 bf16 batch of 4")
+        for f, w in enumerate(warps):
+            sl = slice(3 * f, 3 * f + 3)
+            one = k5.steering_warp(feats[sl], hypers[sl], w, linear=linear)
+            if not torch.equal(got[sl], quantize_u8(one)):
+                raise AssertionError(f"K5 bf16 batch frame {f}: not "
+                                     "bit-equal to its own call")
+            if not np.array_equal(masks[f].cpu().numpy(), hosts[f][1]):
+                raise AssertionError(f"K5 bf16 batch frame {f}: the mask "
+                                     "differs from the host's")
+            want = float_twin_warp(feats[sl], hypers[sl], hosts[f][0],
+                                   linear)
+            err, ulps, _, _ = held_bf16(
+                one, got[sl], want, linear, K5_ATOL,
+                f"K5 bf16 batch frame {f} linear={linear}")
+            note("steering_warp_bf16", err, ulps)
+        emit({"phase": "k5_bf16_batch", "frames": 4, "linear": linear,
+              "launches": launches, "bit_equal_to_frames": True,
+              "masks_equal": True})
+    # a float32 feature with bf16 maps (the one-stage bf16 form): the maps
+    # decoded in bf16, the rest float32, within the float modes' gates
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    warp_geom = hosts[0][0]
+    feat = inputs[False][0].to(torch.float32).round()
+    for linear in (False, True):
+        hyper = inputs[linear][1]
+        for kernel, got, want, atol in (
+                ("K1", k1.steering_resize(feat, hyper, geom, linear=linear),
+                 float_twin_resize(feat, hyper, geom, linear), K1_ATOL),
+                ("K5", k5.steering_warp(feat, hyper, warps[0],
+                                        linear=linear),
+                 float_twin_warp(feat, hyper, warp_geom, linear), K5_ATOL)):
+            torch.cuda.synchronize()
+            nan = torch.isnan(want)
+            if want.dtype != torch.float32 or not torch.equal(
+                    torch.isnan(got), nan):
+                raise AssertionError(f"{kernel} float32 feature, bf16 maps "
+                                     f"linear={linear}: type or NaNs")
+            err = float((got[~nan] - want[~nan]).abs().max())
+            if not err <= atol:
+                raise AssertionError(f"{kernel} float32 feature, bf16 maps "
+                                     f"linear={linear}: {err} > {atol}")
+            emit({"phase": "bf16_maps_float_feature", "kernel": kernel,
+                  "linear": linear, "max_abs_err": err})
+    return worst
+
+
+def imdn_bf16_model():
+    """Phase 24's IMDN2 (the seed-0 ``torch.Generator`` weights) computing
+    in bf16."""
+    import torch
+    from lerf_torch.models.imdn import IMDN2
+    model = IMDN2(nf=IMDN_NF, dtype=torch.bfloat16)
+    model.load_state_dict(imdn_model().state_dict())
+    return model
+
+
+def gate(d, tol, what):
+    """``d`` (absolute differences, numpy) within ``tol`` = (max, share
+    differing); returns (max, share)."""
+    top, share = float(d.max()), float((d > 0).mean())
+    if top > tol[0] or share > tol[1]:
+        raise AssertionError(f"{what}: max {top}, share {share} against "
+                             f"{tol}")
+    return top, share
+
+
+def towers_ms(pred, x):
+    """The towers' profiler device ms a frame of ``pred.run_device(x)``
+    (every device row but K1's and copies), their cuDNN convolutions'
+    alone, and the towers' launches."""
+    rows = device_rows(lambda: pred.run_device(x, (SCALE, SCALE)))
+    towers = [r for r in rows if "steering_resize_kernel" not in r[0]
+              and not r[0].startswith(("Memcpy", "Memset"))]
+    conv = sum(ms for name, _, ms in towers
+               if "xmma" in name or "conv" in name or "gemm" in name)
+    return (sum(ms for _, _, ms in towers), conv,
+            sum(n for _, n, _ in towers))
+
+
+def imdn_bf16_phases(dev, frame):
+    """Phase 50, the form: ``NetPredictor.from_imdn`` on the bf16 model,
+    backends base and s2d, ``upscale`` ×4 and ``warp`` under
+    ``warp_matrix()``: one K1 (K5) launch a call, the bf16 instance; a
+    96×160 crop against the CPU path (the ``IMDN_BF16_*_TOL`` gates, the
+    mask equal, the SR frame within a level of the twin resize of the
+    card's own bf16 stages); the whole calls, the device parts and the
+    towers' profiler time in bf16 beside the float32 towers' in the same
+    call.  Then K1 and K5 bf16 alone on the towers' outputs (events,
+    profiler, twin, bound).  Returns ({kernel: row}, launches of base)."""
+    import torch
+    from lerf_torch.models.imdn_s2d import resolve_backend
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import quantize_device
+    from lerf_torch.pipeline import NetPredictor
+
+    model, model32 = imdn_bf16_model(), imdn_model()
+    matrix = WARP_CASES["main"][0]
+    oh, ow = int(LR_H * SCALE), int(LR_W * SCALE)
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                         .astype(np.float32) / 255).to(dev)
+    crop = np.ascontiguousarray(frame[:CROP_H, :CROP_W])
+    crop_out = (int(CROP_H * SCALE), int(CROP_W * SCALE))
+    # the bf16 towers' bound: the float32 image read and the bf16 feature
+    # and hyper maps written once; a multiply-add a weight and pixel on
+    # the tensor cores at bf16's peak
+    _, macs, _ = imdn_tower_work(model32, LR_H, LR_W)
+    t_bytes = (3 * 4 + (3 + 3 * model.out_c) * 2) * LR_H * LR_W \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / TENSOR_BF16_OPS_PER_S * 1e3
+    tower_bound = max(t_bytes, t_ops)
+    sr_want = {"steering_resize": 1, "steering_resize_bf16": 1}
+    warp_want = {"steering_warp": 1, "steering_warp_bf16": 1}
+    launches = {}
+    for backend in ("base", "s2d"):
+        pred = NetPredictor.from_imdn(model, backend=backend)
+        (out, feat, hyper), sr = counted_run(
+            lambda: pred.upscale(frame, SCALE, SCALE, return_aux=True),
+            sr_want, f"IMDN bf16 upscale ({backend})")
+        if (out.shape != (oh, ow, 3) or out.dtype != np.uint8
+                or feat.dtype != torch.bfloat16
+                or hyper.dtype != torch.bfloat16
+                or tuple(feat.shape) != (3, LR_H, LR_W)
+                or tuple(hyper.shape) != (3, LR_H, LR_W, 3)
+                or not (bool(torch.isfinite(feat).all())
+                        and bool(torch.isfinite(hyper).all()))
+                or float(feat.min()) < 0 or float(feat.max()) > 254
+                or float(hyper.min()) < 0 or float(hyper.max()) > 1):
+            raise AssertionError(f"IMDN bf16 upscale ({backend}): output "
+                                 f"{out.shape}, feat {feat.dtype} "
+                                 f"{tuple(feat.shape)}, hyper {hyper.dtype} "
+                                 "out of type, shape or range")
+        (wout, wmask), wl = counted_run(
+            lambda: pred.warp(frame, matrix, WARP_OUT), warp_want,
+            f"IMDN bf16 warp ({backend})")
+        if (wout.shape != WARP_OUT + (3,) or wout.dtype != np.uint8
+                or wmask.shape != WARP_OUT or not wmask.any()):
+            raise AssertionError(f"IMDN bf16 warp ({backend}): output "
+                                 f"{wout.shape}, mask {wmask.shape}")
+        launches[backend] = {"upscale": sr, "warp": wl}
+
+        got = pred.upscale(crop, SCALE, SCALE, return_aux=True)
+        got_w = pred.warp(crop, matrix, crop_out)
+        t_cpu = time.perf_counter()
+        cpu = NetPredictor.from_imdn(model, backend=backend, device="cpu")
+        ref = cpu.upscale(crop, SCALE, SCALE, return_aux=True)
+        ref_w = cpu.warp(crop, matrix, crop_out)
+        cpu_s = time.perf_counter() - t_cpu
+        what = f"IMDN bf16 crop ({backend})"
+        fe = gate(np.abs(got[1].float().numpy() - ref[1].float().numpy()),
+                  IMDN_BF16_FEAT_TOL, what + " feat")
+        he = gate(np.abs(got[2].float().numpy() - ref[2].float().numpy()),
+                  IMDN_BF16_HYPER_TOL, what + " hyper")
+        ue = gate(np.abs(got[0].astype(int) - ref[0].astype(int)),
+                  IMDN_BF16_U8_TOL, what + " upscale")
+        we = gate(np.abs(got_w[0].astype(int) - ref_w[0].astype(int)),
+                  IMDN_BF16_U8_TOL, what + " warp")
+        if not np.array_equal(got_w[1], ref_w[1]):
+            raise AssertionError(f"{what}: the warp's mask differs")
+        geom = ResizeGeometry.create((CROP_H, CROP_W),
+                                     scale_factors=[SCALE] * 2)
+        twin = quantize_device(float_twin_resize(got[1], got[2], geom,
+                                                 False), 255)
+        d = np.abs(got[0].astype(int)
+                   - twin.numpy().transpose(1, 2, 0).astype(int))
+        if d.max() > 1:
+            raise AssertionError(f"{what}: the SR frame {d.max()} levels "
+                                 "off the twin resize of its own stages")
+        emit({"phase": "imdn_bf16_end_to_end", "backend": backend,
+              "resolved": resolve_backend(backend), "nf": IMDN_NF,
+              "dtype": "bfloat16", "in": [LR_H, LR_W], "out": [oh, ow],
+              "warp_out": list(WARP_OUT), "launches": launches[backend],
+              "aux_dtype": str(feat.dtype), "crop": [CROP_H, CROP_W],
+              "feat_max_share": fe, "hyper_max_share": he,
+              "upscale_u8_max_share": ue, "warp_u8_max_share": we,
+              "tolerance": {"feat": IMDN_BF16_FEAT_TOL,
+                            "hyper": IMDN_BF16_HYPER_TOL,
+                            "u8": IMDN_BF16_U8_TOL},
+              "warp_mask_equal": True,
+              "sr_u8_pixels_off_own_twin": int((d > 0).sum()),
+              "cpu_reference_s": cpu_s})
+
+        pred32 = NetPredictor.from_imdn(model32, backend=backend)
+        mp = oh * ow / 1e6
+        upscale_ms = host_call_ms(lambda: pred.upscale(frame, SCALE, SCALE),
+                                  10)
+        device_ms = frame_ms(lambda: pred.run_device(x, (SCALE, SCALE)),
+                             frames=10, warmup=2)
+        warp_ms = host_call_ms(lambda: pred.warp(frame, matrix, WARP_OUT), 10)
+        warp_device_ms = frame_ms(
+            lambda: pred.run_warp_device(x, matrix, WARP_OUT), frames=10,
+            warmup=2)
+        device32_ms = frame_ms(lambda: pred32.run_device(x, (SCALE, SCALE)),
+                               frames=10, warmup=2)
+        t16, c16, n16 = towers_ms(pred, x)
+        t32, c32, n32 = towers_ms(pred32, x)
+        emit_timed({"phase": "imdn_bf16_timing", "backend": backend,
+                    "frames": 10, "upscale_ms": upscale_ms,
+                    "upscale_mps": mp / upscale_ms * 1e3,
+                    "device_ms": device_ms, "warp_ms": warp_ms,
+                    "warp_device_ms": warp_device_ms,
+                    "float32_device_ms_same_call": device32_ms,
+                    "towers_profiler_ms": {"bf16": t16, "float32": t32},
+                    "towers_conv_profiler_ms": {"bf16": c16,
+                                                "float32": c32},
+                    "towers_launches": {"bf16": n16, "float32": n32},
+                    "towers_bf16_bound_ms": tower_bound,
+                    "towers_bf16_bound_by": ("bytes" if t_bytes >= t_ops
+                                             else "operations"),
+                    "towers_bf16_share_of_bound": tower_bound / t16
+                    if t16 else None})
+        if backend == "base":
+            emit_timed(profile_frames(
+                lambda: pred.upscale(frame, SCALE, SCALE), frames=5,
+                form="imdn_bf16", backend=backend))
+
+    # K1 and K5 bf16 alone on the bf16 towers' outputs, uint8 mode
+    pred = NetPredictor.from_imdn(model)
+    feat, hyper = pred._stages(x)
+    hyper = hyper.contiguous()
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    ops = k1.ResizeOperands.create(geom, dev)
+    params = k5.WarpParams.create((LR_H, LR_W), matrix, WARP_OUT)
+    warp_geom = params.geometry()
+    u8 = torch.uint8
+    fns = {"steering_resize_bf16": (
+               lambda: k1.steering_resize(feat, hyper, geom, operands=ops,
+                                          out_dtype=u8),
+               lambda: quantize_device(float_twin_resize(feat, hyper, geom,
+                                                         False), 255),
+               "steering_resize_kernel",
+               bound(*k1_work(geom, 3, floats=True, value_bytes=2))),
+           "steering_warp_bf16": (
+               lambda: k5.steering_warp(feat, hyper, params, out_dtype=u8),
+               lambda: quantize_u8(float_twin_warp(feat, hyper, warp_geom,
+                                                   False)),
+               "steering_warp_kernel",
+               k5_bound(*k5_work((LR_H, LR_W), WARP_OUT, 3, floats=True,
+                                 value_bytes=2))[:2])}
+    rows = {}
+    for name, (fn, plain, key, (b_ms, b_by)) in fns.items():
+        ms = event_ms(fn, iters=50)
+        r = {"kernel": name, "inputs": "bf16", "out_dtype": "uint8",
+             "ms": ms, **kernel_device_ms(fn, key),
+             "plain_ms": event_ms(plain, iters=3, warmup=1),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "share_of_bound": b_ms / ms}
+        emit_timed(r)
+        rows[name] = r
+    return rows, launches["base"]
+
+
 def main() -> int:
     import torch
 
@@ -5323,7 +5750,33 @@ def main() -> int:
             "share_of_bound": row["bound_ms"] / row["ms"],
             "library_ms": None})
 
-    # -- 50. result ----------------------------------------------------------
+    # -- 50. the IMDN form's bf16 compute type: K1 and K5 bf16 ---------------
+    t50 = time.perf_counter()
+    bf16_err = bf16_kernel_phase(dev, np.random.RandomState(15))
+    t50b = time.perf_counter()
+    bf16_rows, bf16_form_launches = imdn_bf16_phases(dev, frame)
+    emit({"phase": "phase_seconds", "bf16_kernels": t50b - t50,
+          "bf16_imdn_form": time.perf_counter() - t50b,
+          "script_so_far": time.perf_counter() - t0})
+    for name, src, rep in (
+            ("steering_resize_bf16", "lerf_torch/csrc/steering_resize.cu",
+             "lerf_tpu/ops/pallas/resize_kernel.py:118"),
+            ("steering_warp_bf16", "lerf_torch/csrc/steering_warp.cu",
+             "lerf_tpu/ops/resample.py:563")):
+        row = bf16_rows[name]
+        form = "upscale" if "resize" in name else "warp"
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": bf16_form_launches[form][name],
+            "max_abs_err": bf16_err[name][0],
+            "max_bf16_ulps": bf16_err[name][1], "ms": row["ms"],
+            "profiler_ms": row["profiler_ms"],
+            "profiler_launches": row["profiler_launches"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "share_of_bound": row["share_of_bound"], "library_ms": None})
+
+    # -- 51. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

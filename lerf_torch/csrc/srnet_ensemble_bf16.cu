@@ -191,7 +191,9 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // wait for the completion of the barrier's phase of this parity; trap
-// after kWaitLimitNs (a lost arrive fails the launch, the card goes on)
+// after kWaitLimitNs: a lost arrive ends in __trap(), a sticky error that
+// ends the process's CUDA context (every later call in it fails), not a
+// hang
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   unsigned long long start = 0;
   for (unsigned spins = 1;; ++spins) {

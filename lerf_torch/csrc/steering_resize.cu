@@ -22,6 +22,32 @@
 // float operations of lerf_tpu's steering_gaussian_resize.  The input type
 // is a template parameter: the window fill alone differs, and the int32
 // instantiations are the code they were before the float one was added.
+// A third type, bf16 feature and bf16 hyper maps (the IMDN form's bf16
+// compute type, lerf_tpu's IMDN2(dtype=bfloat16)), runs lerf_tpu's resize
+// in img.dtype = bf16, whose plain twin is lerf_torch/ops/resample.py::
+// steering_gaussian_resize / amplified_linear_resize on bf16 tensors: every
+// operation in float, then rounded to bf16 (__float2bfloat16_rn), in the
+// twin's order.  The decode (h * 2 - 1, h * max_sigma, max_sigma rounded to
+// bf16 first), the distances (float64 -> float32 -> bf16, as PyTorch casts
+// them), min_scale rounded to bf16 (lerf_tpu's jnp.asarray(min_scale,
+// bf16)) and its products, each step of the weight and its expf, the
+// s-major, t-minor sums of w n and w, and wn / ws: each rounded to bf16;
+// the uint8 epilogue rounds that bf16 quotient half to even.  In the linear
+// mode lerf_tpu's float32 branch masks promote the weight to float32: the
+// product a x and lin(a, x) round to bf16, the rest (the clip, the product
+// of the two axes, min_scale times it, the sums, the quotient) is float32.
+// No bf16 intrinsic arithmetic (__hadd, __hmul, __hfma), whose rounding
+// differs from float-then-round for some adds.  The window holds bf16
+// entries {feature, 2 rho, sx, sy} (8 bytes) or {feature, alpha} (4), half
+// the float ones, from maps of half the bytes.  A fourth pair, a float32
+// feature with bf16 maps (the bf16 form without its feature tower,
+// two_stage=False, whose feature is round(img * norm) in float32), decodes
+// the maps in bf16 as above and runs the rest in float32, as lerf_tpu's
+// promotion of the bf16 decoded maps against float32 distances does: the
+// float instance with the bf16 decode (template parameter HypT).  The bf16
+// instance is the float one with every step's round trip through bf16 (two
+// conversions an operation): 0.197 ms at x4 against the float instance's
+// 0.075 on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 50, probe).
 //
 // What bounds it on the H100: operations.  At 360x640 -> x4 it reads 11 MB of
 // int32 feature and codes and writes 11 MB of uint8 (0.0066 ms at 3.35 TB/s);
@@ -63,6 +89,7 @@
 // the order of the plain PyTorch twin.
 #include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,6 +98,29 @@ constexpr int kVec = 4;                  // adjacent outputs a thread
 constexpr int kMaxThreads = 256;         // a block; the host's tiles fit
 constexpr int kMaxSmem = 232448;         // the H100's opt-in block limit
 constexpr int kDefaultSmem = 48 * 1024;  // above this only after opting in
+
+using bf16 = __nv_bfloat16;
+
+template <typename InT>
+constexpr bool kIsBf16 = std::is_same<InT, bf16>::value;
+
+// v rounded to bf16, as a float: one bf16 operation is float, then this
+__device__ __forceinline__ float bfr(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A thread's distance: the Gaussian antialias scales it by m (scale); the
+// bf16 instance rounds the float32 distance to bf16 first and the product
+// after (m is bf16 there).
+template <bool kBf>
+__device__ __forceinline__ float dist(float d, int scale, float m) {
+  if constexpr (kBf) {
+    d = bfr(d);
+    return scale ? bfr(m * d) : d;
+  } else {
+    return scale ? m * d : d;
+  }
+}
 
 // The geometry's device arrays: rows / cols [O, S], the mode's distances,
 // and in the linear mode the branch bits (bit 0 negative, bit 1 positive).
@@ -86,7 +136,8 @@ struct Geo {
 // A thread's field of view, local to the block's source window.  KS > 0:
 // the support is known at compile time and the values sit in registers.
 // scale: the Gaussian mode's antialias, which scales the distances by m.
-template <int KS, bool kLinear>
+// kBf: the bf16 instance's distances (dist).
+template <int KS, bool kLinear, bool kBf>
 struct Fov {
   static constexpr int KM = kLinear ? KS : 1;   // masks: the linear mode's
   int lr[KS];
@@ -101,7 +152,7 @@ struct Fov {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       lr[s] = g.rows[i * KS + s] - r_lo;
-      dx[s] = scale ? m * g.dis_x[i * KS + s] : g.dis_x[i * KS + s];
+      dx[s] = dist<kBf>(g.dis_x[i * KS + s], scale, m);
       if (kLinear) mx[s % KM] = g.mask_x[i * KS + s];
     }
 #pragma unroll
@@ -109,7 +160,7 @@ struct Fov {
 #pragma unroll
       for (int t = 0; t < KS; ++t) {
         lc[v][t] = g.cols[j[v] * KS + t] - c_lo;
-        dy[v][t] = scale ? m * g.dis_y[j[v] * KS + t] : g.dis_y[j[v] * KS + t];
+        dy[v][t] = dist<kBf>(g.dis_y[j[v] * KS + t], scale, m);
         if (kLinear) my[v][t % KM] = g.mask_y[j[v] * KS + t];
       }
     }
@@ -123,8 +174,8 @@ struct Fov {
 };
 
 // Any other support: read each value where it is used.
-template <bool kLinear>
-struct Fov<0, kLinear> {
+template <bool kLinear, bool kBf>
+struct Fov<0, kLinear, kBf> {
   Geo g;
   int i, j[kVec], r_lo, c_lo, S, scale;
   float m;
@@ -137,23 +188,32 @@ struct Fov<0, kLinear> {
   }
   __device__ int row(int s) const { return g.rows[i * S + s] - r_lo; }
   __device__ float dxs(int s) const {
-    return scale ? m * g.dis_x[i * S + s] : g.dis_x[i * S + s];
+    return dist<kBf>(g.dis_x[i * S + s], scale, m);
   }
   __device__ unsigned mxs(int s) const { return g.mask_x[i * S + s]; }
   __device__ int col(int v, int t) const {
     return g.cols[j[v] * S + t] - c_lo;
   }
   __device__ float dyt(int v, int t) const {
-    return scale ? m * g.dis_y[j[v] * S + t] : g.dis_y[j[v] * S + t];
+    return dist<kBf>(g.dis_y[j[v] * S + t], scale, m);
   }
   __device__ unsigned myt(int v, int t) const {
     return g.mask_y[j[v] * S + t];
   }
 };
 
-// The window entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
-template <bool kLinear>
-using Entry = typename std::conditional<kLinear, float2, float4>::type;
+// The window entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha};
+// float32, or for bf16 inputs bf16.
+struct __align__(8) Bf4 {
+  bf16 x, y, z, w;
+};
+struct __align__(4) Bf2 {
+  bf16 x, y;
+};
+template <bool kLinear, typename InT>
+using Entry = typename std::conditional<
+    kIsBf16<InT>, typename std::conditional<kLinear, Bf2, Bf4>::type,
+    typename std::conditional<kLinear, float2, float4>::type>::type;
 
 // One branch of the amplified-linear kernel: a x + 1 (bit 0), 1 - a x (bit
 // 1), else 0, as lerf_tpu's (a x + 1) neg + (1 - a x) pos gives it.
@@ -186,12 +246,60 @@ __device__ __forceinline__ float unit(int code, float norm) {
   return (float)code / norm;
 }
 __device__ __forceinline__ float unit(float h, float) { return h; }
+__device__ __forceinline__ float unit(bf16 h, float) {
+  return __bfloat162float(h);
+}
+
+// The bf16 instance's neighbour: the weight in the twin's bf16 steps and
+// the sums.  Gaussian: every step, each sum and the weight rounded to bf16;
+// linear: a x and lin(a, x) rounded, the rest float32 (lerf_tpu's float32
+// branch masks promote the weight).  dx, dy, m: already bf16.
+__device__ __forceinline__ void add_bf16(Bf4 p, float dx, float dy,
+                                         unsigned, unsigned, int antialias,
+                                         float m, float& wn, float& ws) {
+  const float n = __bfloat162float(p.x), two_rho = __bfloat162float(p.y);
+  const float sx = __bfloat162float(p.z), sy = __bfloat162float(p.w);
+  const float a = bfr(sx * dx);
+  const float b = bfr(sy * dy);
+  const float xn = bfr(a * a);
+  const float yn = bfr(b * b);
+  const float xy = bfr(bfr(a * sy) * dy);
+  float w = bfr(expf(bfr(-0.5f * bfr(bfr(xn - bfr(two_rho * xy)) + yn))));
+  if (antialias) w = bfr(m * w);
+  wn = bfr(wn + bfr(w * n));
+  ws = bfr(ws + w);
+}
+
+__device__ __forceinline__ float lin_bf16(float a, float x, unsigned mask) {
+  const float ax = bfr(a * x);
+  return (mask & 1u) ? bfr(ax + 1.0f) : ((mask & 2u) ? bfr(1.0f - ax) : 0.0f);
+}
+
+__device__ __forceinline__ void add_bf16(Bf2 p, float dx, float dy,
+                                         unsigned mx, unsigned my,
+                                         int antialias, float m, float& wn,
+                                         float& ws) {
+  const float n = __bfloat162float(p.x), alpha = __bfloat162float(p.y);
+  float w = fmaxf(lin_bf16(alpha, dx, mx), 0.0f) *
+            fmaxf(lin_bf16(alpha, dy, my), 0.0f);
+  if (antialias) w = m * w;
+  wn += w * n;
+  ws += w;
+}
+
+// The quotient the epilogue finishes: the bf16 Gaussian's rounded to bf16.
+template <bool kLinear, typename InT>
+__device__ __forceinline__ float quotient(float wn, float ws) {
+  if constexpr (kIsBf16<InT> && !kLinear) return bfr(wn / ws);
+  return wn / ws;
+}
 
 // Window rows [k0, k0 + nrows) of the block's source window, decoded into
 // shared memory as {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
-template <bool kLinear, typename InT>
+// HypT: the maps' type, bf16 maps decoded in bf16.
+template <bool kLinear, typename InT, typename HypT>
 __device__ __forceinline__ void load_window(
-    Entry<kLinear>* win, const InT* x, const InT* hyp, int r_lo, int c_lo,
+    Entry<kLinear, InT>* win, const InT* x, const HypT* hyp, int r_lo, int c_lo,
     int k0, int nrows, int wc, int pitch, int H, int W, float norm,
     float max_sigma) {
   const int nthreads = blockDim.x * blockDim.y;
@@ -204,7 +312,29 @@ __device__ __forceinline__ void load_window(
     const int cc = min(max(gc, 0), W - 1);
     const float n = (gr >= 0 && gr < H && gc >= 0 && gc < W)
                         ? (float)__ldg(x + (size_t)gr * W + gc) : 0.0f;
-    if constexpr (kLinear) {
+    if constexpr (kIsBf16<HypT>) {            // the twin's bf16 decode
+      const HypT* code = hyp + ((size_t)rc * W + cc) * (kLinear ? 1 : 3);
+      const float rho = bfr(bfr(unit(__ldg(code), norm) * 2.0f) - 1.0f);
+      const float ms = bfr(max_sigma);
+      float sx = 0.0f, sy = 0.0f;
+      if constexpr (!kLinear) {
+        sx = bfr(unit(__ldg(code + 1), norm) * ms);
+        sy = bfr(unit(__ldg(code + 2), norm) * ms);
+      }
+      if constexpr (!kIsBf16<InT>) {          // float32 feature: float32
+        if constexpr (kLinear)
+          win[r * pitch + q] = {n, rho};
+        else
+          win[r * pitch + q] = {n, 2.0f * rho, sx, sy};
+      } else if constexpr (kLinear) {
+        win[r * pitch + q] = {__float2bfloat16_rn(n),
+                              __float2bfloat16_rn(rho)};
+      } else {
+        win[r * pitch + q] = {
+            __float2bfloat16_rn(n), __float2bfloat16_rn(2.0f * rho),
+            __float2bfloat16_rn(sx), __float2bfloat16_rn(sy)};
+      }
+    } else if constexpr (kLinear) {
       const InT* code = hyp + (size_t)rc * W + cc;
       win[r * pitch + q] =
           make_float2(n, unit(__ldg(code), norm) * 2.0f - 1.0f);
@@ -221,39 +351,45 @@ __device__ __forceinline__ void load_window(
 // The weighted sums over the neighbours whose source row lies in window
 // rows [k0, k0 + nrows), s-major, t-minor.  kStrip false: all of them (the
 // whole window is in shared memory).
-template <bool kStrip, int KS, bool kLinear>
+template <bool kStrip, int KS, bool kLinear, typename InT>
 __device__ __forceinline__ void accumulate(
-    const Entry<kLinear>* win, const Fov<KS, kLinear>& fov, int S_rt,
-    int pitch, int k0, int nrows, int antialias, float m, float* wn,
-    float* ws) {
+    const Entry<kLinear, InT>* win,
+    const Fov<KS, kLinear, kIsBf16<InT>>& fov, int S_rt, int pitch, int k0,
+    int nrows, int antialias, float m, float* wn, float* ws) {
   const int S = KS > 0 ? KS : S_rt;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int r = fov.row(s) - k0;
     if (kStrip && (r < 0 || r >= nrows)) continue;
-    const Entry<kLinear>* wrow = win + r * pitch;
+    const Entry<kLinear, InT>* wrow = win + r * pitch;
     const float dx = fov.dxs(s);
 #pragma unroll
     for (int t = 0; t < S; ++t) {
 #pragma unroll
       for (int v = 0; v < kVec; ++v) {
-        const Entry<kLinear> p = wrow[fov.col(v, t)];
-        const float dy = fov.dyt(v, t);
-        float w;
-        if constexpr (kLinear) {              // {n, alpha}
-          w = fmaxf(lin(p.y, dx, fov.mxs(s)), 0.0f) *
-              fmaxf(lin(p.y, dy, fov.myt(v, t)), 0.0f);
-        } else {                              // {n, 2 rho, sx, sy}
-          const float a = p.z * dx;
-          const float b = p.w * dy;
-          const float xn = a * a;
-          const float yn = b * b;
-          const float xy = a * p.w * dy;
-          w = expf(-0.5f * (xn - p.y * xy + yn));
+        const Entry<kLinear, InT> p = wrow[fov.col(v, t)];
+        if constexpr (kIsBf16<InT>) {
+          // the masks exist in the linear mode alone
+          add_bf16(p, dx, fov.dyt(v, t), kLinear ? fov.mxs(s) : 0u,
+                   kLinear ? fov.myt(v, t) : 0u, antialias, m, wn[v], ws[v]);
+        } else {
+          const float dy = fov.dyt(v, t);
+          float w;
+          if constexpr (kLinear) {              // {n, alpha}
+            w = fmaxf(lin(p.y, dx, fov.mxs(s)), 0.0f) *
+                fmaxf(lin(p.y, dy, fov.myt(v, t)), 0.0f);
+          } else {                              // {n, 2 rho, sx, sy}
+            const float a = p.z * dx;
+            const float b = p.w * dy;
+            const float xn = a * a;
+            const float yn = b * b;
+            const float xy = a * p.w * dy;
+            w = expf(-0.5f * (xn - p.y * xy + yn));
+          }
+          if (antialias) w = m * w;
+          wn[v] += w * p.x;
+          ws[v] += w;
         }
-        if (antialias) w = m * w;
-        wn[v] += w * p.x;
-        ws[v] += w;
       }
     }
   }
@@ -262,18 +398,21 @@ __device__ __forceinline__ void accumulate(
 // geo: rows [OH, S] / cols [OW, S] (source indices, may fall outside the
 // image), the mode's distances and masks.  hyper_c: codes a pixel (3, or 1
 // in the linear mode).  scale: the Gaussian antialias's m * distance.
-// InT: int (feature 0..norm, codes) or float (feature, hyper maps in
-// [0, 1]).
-template <int KS, typename OutT, bool kLinear, typename InT>
+// InT: int (feature 0..norm, codes), float (feature, hyper maps in
+// [0, 1]) or bf16 (the same in bf16); HypT the maps' type, bf16 beside a
+// float feature.
+template <int KS, typename OutT, bool kLinear, typename InT,
+          typename HypT = InT>
 __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
     const InT* __restrict__ img,      // [C, H, W] feature
-    const InT* __restrict__ codes,    // [C, H, W, hyper_c] codes or maps
+    const HypT* __restrict__ codes,   // [C, H, W, hyper_c] codes or maps
     OutT* __restrict__ out,           // [C, OH, OW] float32 or uint8
     const Geo geo, int H, int W, int OH, int OW, int S_rt, int tile_h,
     int tile_w, int strip, int pitch, int vec_ok, int antialias, int scale,
     float m, float max_sigma, float norm) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Entry<kLinear>* win = reinterpret_cast<Entry<kLinear>*>(smem);
+  Entry<kLinear, InT>* win = reinterpret_cast<Entry<kLinear, InT>*>(smem);
+  if constexpr (kIsBf16<InT>) m = bfr(m);   // lerf_tpu's bf16 min_scale
   const int S = KS > 0 ? KS : S_rt;
   const int hyper_c = kLinear ? 1 : 3;
   const int c = blockIdx.z;
@@ -284,7 +423,7 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   const int wr = geo.rows[i_end * S + S - 1] - r_lo + 1;
   const int wc = geo.cols[j_end * S + S - 1] - c_lo + 1;
   const InT* x = img + (size_t)c * H * W;
-  const InT* hyp = codes + (size_t)c * H * W * hyper_c;
+  const HypT* hyp = codes + (size_t)c * H * W * hyper_c;
   // the whole window fits in shared memory: always for S 2 and 4 (a
   // one-output window of 4 x 4 fits, so the host's tile holds its whole
   // window), else unless the window is walked in strips of rows (S >= 121)
@@ -305,7 +444,7 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   int j[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) j[v] = min(jb + v, j_end);
-  Fov<KS, kLinear> fov;
+  Fov<KS, kLinear, kIsBf16<InT>> fov;
   fov.load(geo, min(i, i_end), j, r_lo, c_lo, S, scale, m);
 
   // 3. the weighted sums, s-major, t-minor (the strips run in row order,
@@ -314,11 +453,13 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
 #pragma unroll
   for (int v = 0; v < kVec; ++v) wn[v] = ws[v] = 0.0f;
   if (whole) {
-    accumulate<false>(win, fov, S, pitch, 0, wr, antialias, m, wn, ws);
+    accumulate<false, KS, kLinear, InT>(win, fov, S, pitch, 0, wr,
+                                        antialias, m, wn, ws);
   } else {
     for (int k0 = 0;;) {
-      accumulate<true>(win, fov, S, pitch, k0, min(strip, wr - k0),
-                       antialias, m, wn, ws);
+      accumulate<true, KS, kLinear, InT>(win, fov, S, pitch, k0,
+                                         min(strip, wr - k0), antialias, m,
+                                         wn, ws);
       k0 += strip;
       if (k0 >= wr) break;
       __syncthreads();
@@ -333,7 +474,8 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   // 4. epilogue
   OutT o[kVec];
 #pragma unroll
-  for (int v = 0; v < kVec; ++v) o[v] = finish(wn[v] / ws[v], norm, out);
+  for (int v = 0; v < kVec; ++v)
+    o[v] = finish(quotient<kLinear, InT>(wn[v], ws[v]), norm, out);
   OutT* dst = out + ((size_t)c * OH + i) * OW + jb;
   if (vec_ok && jb + kVec - 1 <= j_end) {
     store_vec(dst, o);
@@ -355,9 +497,10 @@ struct Launch {
   float m, max_sigma, norm;
 };
 
-template <int KS, typename OutT, bool kLinear, typename InT>
+template <int KS, typename OutT, bool kLinear, typename InT,
+          typename HypT = InT>
 cudaError_t launch(const Launch& a, cudaStream_t stream) {
-  auto kernel = steering_resize_kernel<KS, OutT, kLinear, InT>;
+  auto kernel = steering_resize_kernel<KS, OutT, kLinear, InT, HypT>;
   if (a.smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
@@ -368,35 +511,43 @@ cudaError_t launch(const Launch& a, cudaStream_t stream) {
   const dim3 block((a.tile_w + kVec - 1) / kVec, a.tile_h);
   const int vec_ok = a.OW % kVec == 0 && a.tile_w % kVec == 0;
   kernel<<<grid, block, a.smem, stream>>>(
-      (const InT*)a.img, (const InT*)a.codes, (OutT*)a.out, a.geo, a.H, a.W,
+      (const InT*)a.img, (const HypT*)a.codes, (OutT*)a.out, a.geo, a.H, a.W,
       a.OH, a.OW, a.S, a.tile_h, a.tile_w, a.strip, a.pitch, vec_ok,
       a.antialias, a.scale, a.m, a.max_sigma, a.norm);
   return cudaGetLastError();
 }
 
-template <typename OutT, bool kLinear, typename InT>
+template <typename OutT, bool kLinear, typename InT, typename HypT = InT>
 cudaError_t dispatch(const Launch& a, cudaStream_t stream) {
   switch (a.S) {
     case 2:
-      return launch<2, OutT, kLinear, InT>(a, stream);
+      return launch<2, OutT, kLinear, InT, HypT>(a, stream);
     case 4:
-      return launch<4, OutT, kLinear, InT>(a, stream);
+      return launch<4, OutT, kLinear, InT, HypT>(a, stream);
     default:
-      return launch<0, OutT, kLinear, InT>(a, stream);
+      return launch<0, OutT, kLinear, InT, HypT>(a, stream);
   }
 }
 
-template <bool kLinear, typename InT>
+template <bool kLinear, typename InT, typename HypT = InT>
 cudaError_t dispatch_out(const Launch& a, int out_u8, cudaStream_t stream) {
-  return out_u8 ? dispatch<unsigned char, kLinear, InT>(a, stream)
-                : dispatch<float, kLinear, InT>(a, stream);
+  return out_u8 ? dispatch<unsigned char, kLinear, InT, HypT>(a, stream)
+                : dispatch<float, kLinear, InT, HypT>(a, stream);
 }
 
 template <bool kLinear>
-cudaError_t dispatch_mode(const Launch& a, int out_u8, int float_in,
+cudaError_t dispatch_mode(const Launch& a, int out_u8, int in_type,
                           cudaStream_t stream) {
-  return float_in ? dispatch_out<kLinear, float>(a, out_u8, stream)
-                  : dispatch_out<kLinear, int>(a, out_u8, stream);
+  switch (in_type) {
+    case 1:
+      return dispatch_out<kLinear, float>(a, out_u8, stream);
+    case 2:
+      return dispatch_out<kLinear, bf16>(a, out_u8, stream);
+    case 3:
+      return dispatch_out<kLinear, float, bf16>(a, out_u8, stream);
+    default:
+      return dispatch_out<kLinear, int>(a, out_u8, stream);
+  }
 }
 
 }  // namespace
@@ -409,27 +560,31 @@ cudaError_t dispatch_mode(const Launch& a, int out_u8, int float_in,
 // dis_* the float32 distances, scaled by min_scale here when antialias), 1
 // the amplified-linear kernel (codes [C, H, W, 1], dis_* float32(min_scale
 // * dis), mask_* their float64 branch bits [O, S] uint8).  out_u8: 1 writes
-// uint8 clip(rint(.), 0, norm) (norm <= 255), 0 float32.  float_in: 0 img
-// int32 feature and codes int32 codes (code / norm), 1 img float32 feature
-// and codes float32 hyper maps in [0, 1]; the last argument, after the
-// stream, so that a caller written for the entry without it still calls the
-// int32 kernels.
+// uint8 clip(rint(.), 0, norm) (norm <= 255), 0 float32 (for bf16 inputs
+// the bf16 quotient, widened).  in_type: 0 img int32 feature and codes
+// int32 codes (code / norm), 1 img float32 feature and codes float32 hyper
+// maps in [0, 1], 2 the same in bf16, 3 img float32 and codes bf16 maps;
+// the last argument, after the stream, so that a caller written for the
+// entry without it still calls the int32 kernels.
 extern "C" int lerf_steering_resize(
     const void* img, const void* codes, void* out, const void* rows,
     const void* cols, const void* dis_x, const void* dis_y,
     const void* mask_x, const void* mask_y, int C, int H, int W, int OH,
     int OW, int S, int antialias, int linear, float min_scale,
     float max_sigma, float norm, int tile_h, int tile_w,
-    int win_rows, int win_cols, int out_u8, void* stream, int float_in) {
+    int win_rows, int win_cols, int out_u8, void* stream, int in_type) {
   if ((long long)C * OH * OW == 0) return 0;
   if (S < 1 || tile_h < 1 || tile_w < 1 || win_rows < 1 || win_cols < 1 ||
       C > 65535 || (OH + tile_h - 1) / tile_h > 65535 ||
       ((tile_w + kVec - 1) / kVec) * tile_h > kMaxThreads ||
       (out_u8 && !(norm <= 255.0f)) ||
-      (linear && (mask_x == nullptr || mask_y == nullptr)))
+      (linear && (mask_x == nullptr || mask_y == nullptr)) || in_type < 0 ||
+      in_type > 3)
     return (int)cudaErrorInvalidValue;
-  const long long smem = (long long)win_rows * win_cols *
-                         (linear ? sizeof(float2) : sizeof(float4));
+  const long long entry = in_type == 2
+                              ? (linear ? sizeof(Bf2) : sizeof(Bf4))
+                              : (linear ? sizeof(float2) : sizeof(float4));
+  const long long smem = (long long)win_rows * win_cols * entry;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   const Launch a{img, codes, out,
                  {(const int*)rows, (const int*)cols, (const float*)dis_x,
@@ -439,6 +594,6 @@ extern "C" int lerf_steering_resize(
                  (int)smem, antialias, antialias && !linear, min_scale,
                  max_sigma, norm};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(linear ? dispatch_mode<true>(a, out_u8, float_in, s)
-                      : dispatch_mode<false>(a, out_u8, float_in, s));
+  return (int)(linear ? dispatch_mode<true>(a, out_u8, in_type, s)
+                      : dispatch_mode<false>(a, out_u8, in_type, s));
 }

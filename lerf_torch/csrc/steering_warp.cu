@@ -77,6 +77,28 @@
 //   int32 path divides its code by norm first.  The input type is a
 //   template parameter of the tile fill and the direct path's decode alone;
 //   the int32 instantiations are the code they were before.
+// - bf16 inputs (the IMDN form's bf16 compute type, lerf_tpu's
+//   IMDN2(dtype=bfloat16)): bf16 feature and hyper maps, lerf_tpu's warp run
+//   in img.dtype = bf16 (_warp_dis_flat(geom, img.dtype)), whose plain twin
+//   is the port's steering_gaussian_warp / amplified_linear_warp on bf16
+//   tensors.  The geometry stays float64, one IEEE step at a time; only the
+//   final distance is cast, float64 -> float32 -> bf16, as PyTorch casts the
+//   host's float64 distances.  Every operation in float, then rounded to bf16
+//   (__float2bfloat16_rn), in the twin's order: the decode (max_sigma rounded
+//   to bf16 first), each step of the Gaussian weight and its expf, the flush
+//   below FLT_MIN; at support 2 (the twin's four-block path) each add of the
+//   sums and the quotient rounded to bf16; at any other support (its
+//   torch.sum of bf16 products, accumulated in float32) each product
+//   rounded, the two sums rounded once, then the quotient.  The linear mode's
+//   float32 branch masks promote its weight to float32: a x and lin(a, x)
+//   round to bf16, the rest is float32.  No bf16 intrinsic arithmetic.  The
+//   tile holds bf16 entries, half the float ones.  A float32 feature with
+//   bf16 maps (the bf16 form without its feature tower, two_stage=False)
+//   decodes the maps in bf16 and runs the rest in float32, as lerf_tpu's
+//   promotion against its float32 distances does (template parameter
+//   HypT).  Every bf16 step is a float operation and two conversions:
+//   0.220 ms under the main homography against the float instance's 0.108
+//   on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 50, probe).
 // - A frames axis (the jax.vmap of lerf_tpu/pipeline.py::_warp_batch_fn):
 //   blockIdx.z is the frame, each with its own inverse and pads from a
 //   small array passed by value; the frames share the sizes, the support
@@ -113,9 +135,20 @@
 #include <cstring>
 #include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename InT>
+constexpr bool kIsBf16 = std::is_same<InT, bf16>::value;
+
+// v rounded to bf16, as a float: one bf16 operation is float, then this
+__device__ __forceinline__ float bfr(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int kTileH = 16;                  // outputs a block: rows
 constexpr int kTileW = 32;                  // and columns (one warp a row)
@@ -286,9 +319,18 @@ __device__ __forceinline__ unsigned char valid_at(const Source& src,
   return inside(src.y, w.H, border) && inside(src.x, w.W, border);
 }
 
-// The tile entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha}.
-template <bool kLinear>
-using Entry = typename std::conditional<kLinear, float2, float4>::type;
+// The tile entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha};
+// float32, or for bf16 inputs bf16.
+struct __align__(8) Bf4 {
+  bf16 x, y, z, w;
+};
+struct __align__(4) Bf2 {
+  bf16 x, y;
+};
+template <bool kLinear, typename InT>
+using Entry = typename std::conditional<
+    kIsBf16<InT>, typename std::conditional<kLinear, Bf2, Bf4>::type,
+    typename std::conditional<kLinear, float2, float4>::type>::type;
 
 // A stored hyper value in [0, 1]: an int32 code divided by norm, a float32
 // map value as it is.
@@ -296,15 +338,42 @@ __device__ __forceinline__ float unit(int code, float norm) {
   return (float)code / norm;
 }
 __device__ __forceinline__ float unit(float h, float) { return h; }
+__device__ __forceinline__ float unit(bf16 h, float) {
+  return __bfloat162float(h);
+}
 
 // Source pixel (sr, sc) of channel c (negative: a pad row / column)
-// decoded.
-template <bool kLinear, typename InT>
-__device__ __forceinline__ Entry<kLinear> decode(
-    const InT* img, const InT* codes, int c, int sr, int sc, int H, int W,
+// decoded; HypT: the maps' type, bf16 maps decoded in bf16.
+template <bool kLinear, typename InT, typename HypT>
+__device__ __forceinline__ Entry<kLinear, InT> decode(
+    const InT* img, const HypT* codes, int c, int sr, int sc, int H, int W,
     float norm, float max_sigma) {
   const size_t e = ((size_t)c * H + max(sr, 0)) * W + max(sc, 0);
-  if constexpr (kLinear) {
+  if constexpr (kIsBf16<HypT>) {              // the twin's bf16 decode
+    const HypT* h = codes + e * (kLinear ? 1 : 3);
+    const float rho = bfr(bfr(unit(__ldg(h), norm) * 2.0f) - 1.0f);
+    const float ms = bfr(max_sigma);
+    float sx = 0.0f, sy = 0.0f;
+    if constexpr (!kLinear) {
+      sx = bfr(unit(__ldg(h + 1), norm) * ms);
+      sy = bfr(unit(__ldg(h + 2), norm) * ms);
+    }
+    if constexpr (!kIsBf16<InT>) {            // float32 feature: float32
+      const float x = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
+      if constexpr (kLinear)
+        return make_float2(x, rho);
+      else
+        return make_float4(x, 2.0f * rho, sx, sy);
+    } else {
+      const bf16 n = (sr >= 0 && sc >= 0) ? __ldg(img + e)
+                                          : __float2bfloat16_rn(0.0f);
+      if constexpr (kLinear)
+        return {n, __float2bfloat16_rn(rho)};
+      else
+        return {n, __float2bfloat16_rn(2.0f * rho), __float2bfloat16_rn(sx),
+                __float2bfloat16_rn(sy)};
+    }
+  } else if constexpr (kLinear) {
     const float a = unit(__ldg(codes + e), norm) * 2.0f - 1.0f;
     const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
     return make_float2(v, a);
@@ -343,6 +412,65 @@ __device__ __forceinline__ float weight(float2 p, float dx, float dy,
   return fmaxf(lin(p.y, dx, bx), 0.0f) * fmaxf(lin(p.y, dy, by), 0.0f);
 }
 
+// The bf16 instance's weights, from the float32 distances rounded to bf16:
+// the Gaussian's every step rounded to bf16, then flushed below FLT_MIN;
+// the linear's a x and lin(a, x) rounded, the clip and product float32.
+__device__ __forceinline__ float weight(Bf4 p, float dx, float dy,
+                                        unsigned, unsigned) {
+  dx = bfr(dx);
+  dy = bfr(dy);
+  const float two_rho = __bfloat162float(p.y);
+  const float sx = __bfloat162float(p.z), sy = __bfloat162float(p.w);
+  const float a = bfr(sx * dx);
+  const float b = bfr(sy * dy);
+  const float xn = bfr(a * a);
+  const float yn = bfr(b * b);
+  const float xy = bfr(bfr(a * sy) * dy);
+  const float w =
+      bfr(expf(bfr(-0.5f * bfr(bfr(xn - bfr(two_rho * xy)) + yn))));
+  return w < FLT_MIN ? 0.0f : w;
+}
+
+__device__ __forceinline__ float lin_bf16(float a, float x, unsigned mask) {
+  const float ax = bfr(a * x);
+  return (mask & 1u) ? bfr(ax + 1.0f) : ((mask & 2u) ? bfr(1.0f - ax) : 0.0f);
+}
+
+__device__ __forceinline__ float weight(Bf2 p, float dx, float dy,
+                                        unsigned bx, unsigned by) {
+  const float a = __bfloat162float(p.y);
+  return fmaxf(lin_bf16(a, bfr(dx), bx), 0.0f) *
+         fmaxf(lin_bf16(a, bfr(dy), by), 0.0f);
+}
+
+// One neighbour into the bf16 instance's sums (n its feature).  Gaussian:
+// at support 2 each add rounded to bf16, at any other the product rounded
+// and the sums float32 (rounded once, in quotient); linear: float32.
+template <bool kLinear>
+__device__ __forceinline__ void add_bf16(float wt, bf16 n, int S, float& wn,
+                                         float& ws) {
+  const float x = __bfloat162float(n);
+  if constexpr (kLinear) {
+    wn += wt * x;
+    ws += wt;
+  } else if (S == 2) {
+    wn = bfr(wn + bfr(wt * x));
+    ws = bfr(ws + wt);
+  } else {
+    wn += bfr(wt * x);
+    ws += wt;
+  }
+}
+
+// The quotient the epilogue finishes: the bf16 Gaussian's rounded to bf16
+// (its float32 sums at supports other than 2 rounded first).
+template <bool kLinear, typename InT>
+__device__ __forceinline__ float quotient(float wn, float ws, int S) {
+  if constexpr (kIsBf16<InT> && !kLinear)
+    return S == 2 ? bfr(wn / ws) : bfr(bfr(wn) / bfr(ws));
+  return wn / ws;
+}
+
 __device__ __forceinline__ float finish(float v, float, float*) { return v; }
 
 // nan_to_num(nan=0), then clip(rint(.), 0, norm): +inf clips to norm
@@ -356,16 +484,17 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
 // three blocks an SM), which measured 10 % faster; six blocks (40) slower
 // (lerf_torch/tools/probe_lut_kernels.py).
 // One block's outputs of one frame, and the frame's validity mask [OH, OW]
-// where mask is not null.  InT: int (feature 0..norm, codes) or float
-// (feature, hyper maps in [0, 1]).
-template <int KS, typename OutT, bool kLinear, typename InT>
+// where mask is not null.  InT: int (feature 0..norm, codes), float
+// (feature, hyper maps in [0, 1]) or bf16 (the same in bf16); HypT the
+// maps' type, bf16 beside a float feature.
+template <int KS, typename OutT, bool kLinear, typename InT, typename HypT>
 __device__ __forceinline__ void warp_block(
     const InT* __restrict__ img,     // [C, H, W] feature
-    const InT* __restrict__ codes,   // [C, H, W, 3 or 1] codes or maps
+    const HypT* __restrict__ codes,  // [C, H, W, 3 or 1] codes or maps
     OutT* __restrict__ out,          // [C, OH, OW] float32 or uint8
     const Warp& w, int C, float max_sigma, float norm,
     unsigned char* __restrict__ mask, int border) {
-  __shared__ Entry<kLinear> tile[kTileEntries];   // [C][rows][cols]
+  __shared__ Entry<kLinear, InT> tile[kTileEntries];   // [C][rows][cols]
   __shared__ int box[4];                  // row min, max, column min, max
   const int tid = threadIdx.y * kTileW + threadIdx.x;
   const int j = blockIdx.x * kTileW + threadIdx.x;
@@ -443,18 +572,23 @@ __device__ __forceinline__ void warp_block(
       for (int s = 0; s < S; ++s) {
 #pragma unroll
         for (int t = 0; t < S; ++t) {
-          const Entry<kLinear> v =
+          const Entry<kLinear, InT> v =
               shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
                      : decode<kLinear, InT>(img, codes, c,
                                             p.row(s) - w.pad_r,
                                             p.col(t) - w.pad_c, w.H, w.W,
                                             norm, max_sigma);
           const float wt = weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));
-          wn += wt * v.x;
-          ws += wt;
+          if constexpr (kIsBf16<InT>) {
+            add_bf16<kLinear>(wt, v.x, S, wn, ws);
+          } else {
+            wn += wt * v.x;
+            ws += wt;
+          }
         }
       }
-      out[((size_t)c * w.OH + i) * w.OW + j] = finish(wn / ws, norm, out);
+      out[((size_t)c * w.OH + i) * w.OW + j] =
+          finish(quotient<kLinear, InT>(wn, ws, S), norm, out);
     }
   }
 }
@@ -462,17 +596,18 @@ __device__ __forceinline__ void warp_block(
 // Frame blockIdx.z of a batch: img [frames, C, H, W], codes [frames, C, H,
 // W, 3 or 1], out [frames, C, rows, OW] (the window's rows), the warp from
 // the by-value array (__grid_constant__: indexed in place, never copied).
-template <int KS, typename OutT, bool kLinear, typename InT>
+template <int KS, typename OutT, bool kLinear, typename InT,
+          typename HypT = InT>
 __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
     steering_warp_kernel(const InT* __restrict__ img,
-                         const InT* __restrict__ codes,
+                         const HypT* __restrict__ codes,
                          OutT* __restrict__ out,
                          const __grid_constant__ Frames fr, int C,
                          float max_sigma, float norm) {
   const int f = blockIdx.z;
   const Warp& w = fr.f[f];
   const size_t plane = (size_t)w.H * w.W, out_plane = (size_t)w.OH * w.OW;
-  warp_block<KS, OutT, kLinear, InT>(
+  warp_block<KS, OutT, kLinear, InT, HypT>(
       img + f * C * plane, codes + f * C * plane * (kLinear ? 1 : 3),
       out + f * C * out_plane, w, C, max_sigma, norm,
       fr.mask == nullptr ? nullptr : fr.mask + f * out_plane, fr.border);
@@ -536,41 +671,47 @@ dim3 grid_of(const Warp& w) {
   return dim3((w.OW + kTileW - 1) / kTileW, (w.OH + kTileH - 1) / kTileH);
 }
 
-template <typename OutT, bool kLinear, typename InT>
+template <typename OutT, bool kLinear, typename InT, typename HypT = InT>
 void launch(const void* img, const void* codes, void* out, const Frames& fr,
             int frames, int C, float max_sigma, float norm, cudaStream_t s) {
   const dim3 block(kTileW, kThreadRows);
   dim3 grid = grid_of(fr.f[0]);
   grid.z = frames;
   if (fr.f[0].S == 2)
-    steering_warp_kernel<2, OutT, kLinear, InT><<<grid, block, 0, s>>>(
-        (const InT*)img, (const InT*)codes, (OutT*)out, fr, C, max_sigma,
+    steering_warp_kernel<2, OutT, kLinear, InT, HypT><<<grid, block, 0, s>>>(
+        (const InT*)img, (const HypT*)codes, (OutT*)out, fr, C, max_sigma,
         norm);
   else
-    steering_warp_kernel<0, OutT, kLinear, InT><<<grid, block, 0, s>>>(
-        (const InT*)img, (const InT*)codes, (OutT*)out, fr, C, max_sigma,
+    steering_warp_kernel<0, OutT, kLinear, InT, HypT><<<grid, block, 0, s>>>(
+        (const InT*)img, (const HypT*)codes, (OutT*)out, fr, C, max_sigma,
         norm);
 }
 
-template <bool kLinear, typename InT>
+template <bool kLinear, typename InT, typename HypT = InT>
 void launch_out(const void* img, const void* codes, void* out,
                 const Frames& fr, int frames, int C, float max_sigma,
                 float norm, int out_u8, cudaStream_t s) {
   if (out_u8)
-    launch<unsigned char, kLinear, InT>(img, codes, out, fr, frames, C,
-                                        max_sigma, norm, s);
+    launch<unsigned char, kLinear, InT, HypT>(img, codes, out, fr, frames, C,
+                                              max_sigma, norm, s);
   else
-    launch<float, kLinear, InT>(img, codes, out, fr, frames, C, max_sigma,
-                                norm, s);
+    launch<float, kLinear, InT, HypT>(img, codes, out, fr, frames, C,
+                                      max_sigma, norm, s);
 }
 
 template <bool kLinear>
 void launch_in(const void* img, const void* codes, void* out,
                const Frames& fr, int frames, int C, float max_sigma,
-               float norm, int out_u8, int float_in, cudaStream_t s) {
-  if (float_in)
+               float norm, int out_u8, int in_type, cudaStream_t s) {
+  if (in_type == 1)
     launch_out<kLinear, float>(img, codes, out, fr, frames, C, max_sigma,
                                norm, out_u8, s);
+  else if (in_type == 2)
+    launch_out<kLinear, bf16>(img, codes, out, fr, frames, C, max_sigma,
+                              norm, out_u8, s);
+  else if (in_type == 3)
+    launch_out<kLinear, float, bf16>(img, codes, out, fr, frames, C,
+                                     max_sigma, norm, out_u8, s);
   else
     launch_out<kLinear, int>(img, codes, out, fr, frames, C, max_sigma, norm,
                              out_u8, s);
@@ -582,17 +723,18 @@ void launch_in(const void* img, const void* codes, void* out,
 // one), frame f with its own inverse homography (invs[9 f .. 9 f + 8],
 // row-major float64, host memory, read before the call returns) and the
 // geometry's leading pads (pads[2 f], pads[2 f + 1]: pad_r, pad_c).  img
-// [frames, C, H, W] (int32, or float32 with float_in), H and W unpadded;
+// [frames, C, H, W] (int32, float32 or bf16: in_type), H and W unpadded;
 // codes [frames, C, H, W, 3] (linear 0: the steerable Gaussian) or [frames,
 // C, H, W, 1] (linear 1: the amplified-linear kernel); out [frames, C, OH, OW]: out_u8 1 writes
 // uint8 clip(rint(nan_to_num(.)), 0, norm) (norm <= 255), 0 float32 with
-// NaN where a window's weights all vanish.  S: the support.  mask [frames,
-// OH, OW] uint8 0 / 1, the validity mask of the white frame's border,
-// written in the same launch, or null for none.  float_in: 0 img int32
-// feature and codes int32 codes (code / norm), 1 img float32 feature and
-// codes float32 hyper maps in [0, 1]; the last argument, after the stream,
-// so that a caller written for the entry without it still calls the int32
-// kernels.  row0, rows: the window of output rows [row0, row0 + rows) of
+// NaN where a window's weights all vanish (for bf16 inputs the bf16
+// quotient, widened).  S: the support.  mask [frames, OH, OW] uint8 0 / 1,
+// the validity mask of the white frame's border, written in the same
+// launch, or null for none.  in_type: 0 img int32 feature and codes int32
+// codes (code / norm), 1 img float32 feature and codes float32 hyper maps
+// in [0, 1], 2 the same in bf16, 3 img float32 and codes bf16 maps; after
+// the stream, so that a caller written for the entry without it still calls
+// the int32 kernels.  row0, rows: the window of output rows [row0, row0 + rows) of
 // the OH x OW output this launch computes (0, OH: all of it); out and mask
 // hold the window alone ([frames, C, rows, OW], [frames, rows, OW]), each
 // row bit-equal to the same row of the whole launch: the geometry and the
@@ -601,9 +743,10 @@ extern "C" int lerf_steering_warp_batch(
     const void* img, const void* codes, void* out, void* mask,
     const double* invs, const int* pads, int frames, int C, int H, int W,
     int OH, int OW, int S, int linear, float max_sigma, float norm,
-    int out_u8, int border, void* stream, int float_in, int row0,
+    int out_u8, int border, void* stream, int in_type, int row0,
     int rows) {
-  if (frames < 1 || frames > kMaxFrames || border < 0)
+  if (frames < 1 || frames > kMaxFrames || border < 0 || in_type < 0 ||
+      in_type > 3)
     return (int)cudaErrorInvalidValue;
   if ((long long)C * rows * OW == 0) return 0;
   if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
@@ -619,10 +762,10 @@ extern "C" int lerf_steering_warp_batch(
   cudaStream_t s = (cudaStream_t)stream;
   if (linear)
     launch_in<true>(img, codes, out, fr, frames, C, max_sigma, norm, out_u8,
-                    float_in, s);
+                    in_type, s);
   else
     launch_in<false>(img, codes, out, fr, frames, C, max_sigma, norm, out_u8,
-                     float_in, s);
+                     in_type, s);
   return (int)cudaGetLastError();
 }
 

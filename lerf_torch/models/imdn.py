@@ -7,6 +7,15 @@ feature (stage 1) and hyper (stage 2) predictor.  Both towers run at the
 input's resolution.  3×3 convolutions with SAME zero padding,
 ``leaky_relu(0.05)``, the distillation split ``dc = int(nf · 0.25)``.
 
+``dtype`` is lerf_tpu's compute type (``lerf_tpu/models/imdn.py:29,58,87``):
+the parameters stay float32, as flax keeps them, and with bf16 each conv
+casts its input, kernel and bias to bf16 and adds the bias after the
+convolution in bf16, as flax's ``nn.Conv`` does (``promote_dtype``, then
+``y += bias``); the leaky ReLU, splits, concats, residual adds and
+``predict``'s clip and scale then run in bf16.  On the CPU
+``IMDN2(dtype=torch.bfloat16).predict`` is the plain version of the bf16
+towers the form serves (:mod:`lerf_torch.models.imdn_s2d`).
+
 Parameter names follow the reference checkpoint's layout
 (``stage{1,2}.model.0``, ``.model.1.sub.{i}.c1..c5``,
 ``.model.1.sub.{n}``, ``.model.2``), so a reference state dict loads
@@ -20,28 +29,55 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resample import in_type
+
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.05)
+    """``leaky_relu(x, 0.05)`` with the slope in ``x``'s type, as lerf_tpu's
+    ``0.05 * x`` takes it (PyTorch would multiply a bf16 ``x`` by the
+    float32 slope)."""
+    return F.leaky_relu(x, negative_slope=in_type(0.05, x.dtype))
 
 
-def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=k // 2)
+class Conv(nn.Conv2d):
+    """A SAME, stride-1 conv computing in ``dtype``: float32 is
+    ``nn.Conv2d`` itself; another type casts the input, kernel and bias to
+    it and adds the bias after the convolution, as flax's ``nn.Conv``
+    does.  The parameters stay float32."""
+
+    def __init__(self, cin: int, cout: int, k: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, k, padding=k // 2)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, padding=self.padding)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+def _conv(cin: int, cout: int, k: int,
+          dtype: torch.dtype = torch.float32) -> nn.Conv2d:
+    return Conv(cin, cout, k, dtype)
 
 
 class IMDModuleSpeed(nn.Module):
     """IMDModule_speed (model.py:480-503): three distillation steps and a
     1×1 fuse with a residual."""
 
-    def __init__(self, channels: int, distillation_rate: float = 0.25):
+    def __init__(self, channels: int, distillation_rate: float = 0.25,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dc = int(channels * distillation_rate)
         rc = channels - self.dc
-        self.c1 = _conv(channels, channels, 3)
-        self.c2 = _conv(rc, channels, 3)
-        self.c3 = _conv(rc, channels, 3)
-        self.c4 = _conv(rc, self.dc, 3)
-        self.c5 = _conv(4 * self.dc, channels, 1)
+        self.c1 = _conv(channels, channels, 3, dtype)
+        self.c2 = _conv(rc, channels, 3, dtype)
+        self.c3 = _conv(rc, channels, 3, dtype)
+        self.c4 = _conv(rc, self.dc, 3, dtype)
+        self.c5 = _conv(4 * self.dc, channels, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dc = self.dc
@@ -81,15 +117,17 @@ class IMDN_RTC(nn.Module):
     space.  NCHW."""
 
     def __init__(self, in_nc: int = 3, nf: int = 12, num_modules: int = 5,
-                 out_nc: int = 3, upscale: int = 2):
+                 out_nc: int = 3, upscale: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nf, self.num_modules = nf, num_modules
-        self.out_nc, self.upscale = out_nc, upscale
+        self.out_nc, self.upscale, self.dtype = out_nc, upscale, dtype
         self.model = nn.Sequential(
-            _conv(in_nc, nf, 3),
-            _Shortcut(*[IMDModuleSpeed(nf) for _ in range(num_modules)],
-                      _conv(nf, nf, 1)),
-            _conv(nf, out_nc * upscale ** 2, 3))
+            _conv(in_nc, nf, 3, dtype),
+            _Shortcut(*[IMDModuleSpeed(nf, dtype=dtype)
+                        for _ in range(num_modules)],
+                      _conv(nf, nf, 1, dtype)),
+            _conv(nf, out_nc * upscale ** 2, 3, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = self.model(x)
@@ -101,21 +139,25 @@ class IMDN_RTC(nn.Module):
 class IMDN2(nn.Module):
     """LeRF-Net / LeRF-Net++ (model.py:526-537): the stage-1 feature tower
     (output scaled to [0, 2·(norm//2)]) and the stage-2 hyper tower (output
-    in [0, 1]), both at upscale 1."""
+    in [0, 1]), both at upscale 1, computing in ``dtype`` (float32 or
+    bf16, lerf_tpu's ``IMDN2.dtype``)."""
 
     def __init__(self, in_c: int = 3, out_c: int = 3, nf: int = 12,
-                 norm: int = 255, num_modules: int = 5):
+                 norm: int = 255, num_modules: int = 5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_c, self.out_c, self.nf, self.norm = in_c, out_c, nf, norm
-        self.stage1 = IMDN_RTC(in_c, nf, num_modules, in_c, upscale=1)
+        self.dtype = dtype
+        self.stage1 = IMDN_RTC(in_c, nf, num_modules, in_c, upscale=1,
+                               dtype=dtype)
         self.stage2 = IMDN_RTC(in_c, nf, num_modules, in_c * out_c,
-                               upscale=1)
+                               upscale=1, dtype=dtype)
 
     def predict(self, x: torch.Tensor, stage: int = 1):
         """x: NCHW in [0, 1].  Stage 1 → feature in [0, 2·half] (half =
         norm // 2 = 127 at norm 255, so the feature peaks at 254, as the
         reference's does); stage 2 → hyper in [0, 1]; stage 0 → both
-        towers' raw outputs."""
+        towers' raw outputs, all in the model's ``dtype``."""
         half = self.norm // 2
         if stage == 0:
             return self.stage1(x), self.stage2(x)

@@ -26,6 +26,15 @@ whole image's, so they need only the halo, :func:`tower_halo_rows`.
 On the card every conv runs in full float32 under a scoped
 ``torch.backends.cudnn.flags(..., allow_tf32=False)`` (:func:`cudnn_fp32`),
 restored on exit: cuDNN's default on Hopper is TF32.
+
+``dtype`` bf16 is lerf_tpu's bf16 compute type (its ``_conv``,
+``imdn_s2d.py:148-164``): each conv casts its input and the kernel and
+bias to bf16 (the towers' weights are cast once, when they are built),
+convolves with no bias and adds the bias after, in bf16; the phase mask
+is bf16, and every elementwise step runs in bf16.  On the card the bf16
+convs are cuDNN's on bf16 operands, in the same deterministic scope.
+lerf_tpu's towers are XLA convolutions, not Pallas kernels, so a library
+convolution is their counterpart, as for float32.
 """
 from __future__ import annotations
 
@@ -127,13 +136,15 @@ def tower_arrays(tower: IMDN_RTC) -> Dict:
     return out
 
 
-def _torch_tower(p: Dict, device) -> Dict:
-    """Flax-layout numpy params → {name: (weight OIHW, bias)} tensors."""
+def _torch_tower(p: Dict, device, dtype=torch.float32) -> Dict:
+    """Flax-layout numpy params → {name: (weight OIHW, bias)} tensors,
+    float32 values cast to ``dtype``."""
     def conv(q):
         return (torch.from_numpy(np.ascontiguousarray(
                     np.asarray(q["kernel"], np.float32).transpose(3, 2, 0, 1)))
-                .to(device),
-                torch.from_numpy(np.asarray(q["bias"], np.float32)).to(device))
+                .to(device).to(dtype),
+                torch.from_numpy(np.asarray(q["bias"], np.float32))
+                .to(device).to(dtype))
 
     return {name: ({k: conv(v) for k, v in q.items()}
                    if name.startswith("imd") else conv(q))
@@ -159,12 +170,18 @@ def depth_to_space(x: torch.Tensor, b: int) -> torch.Tensor:
 
 # -- the s2d-space forward ----------------------------------------------------
 
-def _conv(x, p, mask, b):
-    """SAME conv + bias; ``mask`` (if any) the [b², H2, W2] phase-validity
-    mask, applied after the conv so the zero-padded rows and columns of a
-    size that is not a multiple of b stay zero."""
+def _conv(x, p, mask, dtype, b):
+    """SAME conv + bias in ``dtype``; ``mask`` (if any) the [b², H2, W2]
+    phase-validity mask, applied after the conv so the zero-padded rows
+    and columns of a size that is not a multiple of b stay zero.  float32
+    adds the bias in the convolution; another type after it, in that
+    type, as lerf_tpu's ``y + bias.astype(dtype)``."""
     w, bias = p
-    y = F.conv2d(x, w, bias, padding=w.shape[-1] // 2)
+    if dtype == torch.float32:
+        y = F.conv2d(x, w, bias, padding=w.shape[-1] // 2)
+    else:
+        y = F.conv2d(x.to(dtype), w.to(dtype), None,
+                     padding=w.shape[-1] // 2) + bias.to(dtype)[:, None, None]
     if mask is not None:
         B, Cbb, H2, W2 = y.shape
         bb = b * b
@@ -172,54 +189,55 @@ def _conv(x, p, mask, b):
     return y
 
 
-def _imd_module(x, p, dc2, mask, b):
+def _imd_module(x, p, dc2, mask, dtype, b):
     """IMDModuleSpeed (model.py:480-503) in s2d space; dc2 = dc·b²."""
-    c1 = lrelu(_conv(x, p["c1"], mask, b))
-    c2 = lrelu(_conv(c1[:, dc2:], p["c2"], mask, b))
-    c3 = lrelu(_conv(c2[:, dc2:], p["c3"], mask, b))
-    c4 = _conv(c3[:, dc2:], p["c4"], mask, b)
+    c1 = lrelu(_conv(x, p["c1"], mask, dtype, b))
+    c2 = lrelu(_conv(c1[:, dc2:], p["c2"], mask, dtype, b))
+    c3 = lrelu(_conv(c2[:, dc2:], p["c3"], mask, dtype, b))
+    c4 = _conv(c3[:, dc2:], p["c4"], mask, dtype, b)
     out = torch.cat([c1[:, :dc2], c2[:, :dc2], c3[:, :dc2], c4], dim=1)
-    return _conv(out, p["c5"], mask, b) + x
+    return _conv(out, p["c5"], mask, dtype, b) + x
 
 
 def apply_tower_s2d(p2: Dict, x: torch.Tensor, *, block: int, nf: int = 12,
-                    num_modules: int = 5,
-                    distillation_rate: float = 0.25) -> torch.Tensor:
+                    num_modules: int = 5, distillation_rate: float = 0.25,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """IMDN_RTC forward (upscale 1) on s2d-``block`` params ``p2``
-    (:func:`_torch_tower` of :func:`convert_tower`): ``x`` NCHW, any H, W
-    (zero pad and a per-conv phase mask where not a multiple of the block)
-    → [B, out_nc, H, W]."""
+    (:func:`_torch_tower` of :func:`convert_tower`) in ``dtype``: ``x``
+    NCHW, any H, W (zero pad and a per-conv phase mask where not a
+    multiple of the block) → [B, out_nc, H, W] of ``dtype``."""
     b = block
     B, C, H, W = x.shape
     Hp, Wp = -(-H // b) * b, -(-W // b) * b
     mask = None
     if (Hp, Wp) != (H, W):
         x = F.pad(x, (0, Wp - W, 0, Hp - H))
-        m = torch.zeros((1, 1, Hp, Wp), dtype=x.dtype, device=x.device)
+        m = torch.zeros((1, 1, Hp, Wp), dtype=dtype, device=x.device)
         m[..., :H, :W] = 1.0
         mask = space_to_depth(m, b)[0]              # [b², H2, W2]
     x2 = space_to_depth(x, b)
     dc2 = int(nf * distillation_rate) * b * b
-    h = _conv(x2, p2["fea"], mask, b)
+    h = _conv(x2, p2["fea"], mask, dtype, b)
     r = h
     for i in range(num_modules):
-        r = _imd_module(r, p2[f"imd{i}"], dc2, mask, b)
-    h = h + _conv(r, p2["lr"], mask, b)
-    up = _conv(h, p2["up"], None, b)        # cropped below: no mask needed
+        r = _imd_module(r, p2[f"imd{i}"], dc2, mask, dtype, b)
+    h = h + _conv(r, p2["lr"], mask, dtype, b)
+    up = _conv(h, p2["up"], None, dtype, b)   # cropped below: no mask needed
     return depth_to_space(up, b)[:, :, :H, :W]
 
 
 def predict_imdn2_s2d(p2: Dict, x: torch.Tensor, stage: int, *, block: int,
-                      nf: int = 12, norm: int = 255) -> torch.Tensor:
+                      nf: int = 12, norm: int = 255,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """IMDN2.predict (model.py:526-537) on s2d-converted params ``p2``
-    (:func:`convert_imdn2`, lerf_tpu's flax layout): ``x`` NHWC in [0, 1]
-    on any device → stage 1's feature in [0, 2·(norm//2)] or stage 2's
-    hyper maps in [0, 1], NHWC, under :func:`cudnn_fp32`
+    (:func:`convert_imdn2`, lerf_tpu's flax layout) in ``dtype``: ``x``
+    NHWC in [0, 1] on any device → stage 1's feature in [0, 2·(norm//2)]
+    or stage 2's hyper maps in [0, 1], NHWC, under :func:`cudnn_fp32`
     (``lerf_tpu.models.imdn_s2d.predict_imdn2_s2d``)."""
-    tower = _torch_tower(p2["params"][f"stage{stage}"], x.device)
+    tower = _torch_tower(p2["params"][f"stage{stage}"], x.device, dtype)
     with torch.no_grad(), cudnn_fp32():
         y = apply_tower_s2d(tower, x.permute(0, 3, 1, 2), block=block,
-                            nf=nf).permute(0, 2, 3, 1)
+                            nf=nf, dtype=dtype).permute(0, 2, 3, 1)
     half = norm // 2
     if stage == 2:
         return torch.clamp(y, -1, 1) / 2 + 0.5
@@ -245,7 +263,7 @@ def tower_halo_rows() -> int:
 
 def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",
                        block: int = 2, norm: int = 255, out_c: int = 3,
-                       device=None):
+                       device=None, dtype=None):
     """The channel-first IMDN2 stage functions of
     ``NetPredictor.from_imdn``: ``(s1, s2)`` with
 
@@ -256,17 +274,21 @@ def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",
       c``) moved to the trailing axis.
 
     ``model``'s weights are read once here (on ``device``), re-embedded
-    for ``block`` by "s2d" (block 1, the identity, for "base").  Both run
-    under :func:`cudnn_fp32`, a batch frame by frame."""
+    for ``block`` by "s2d" (block 1, the identity, for "base") and cast to
+    the compute type ``dtype`` (``None``: the model's, ``model.dtype``),
+    which the outputs keep.  Both run under :func:`cudnn_fp32`, a batch
+    frame by frame."""
     b = block if resolve_backend(backend) == "s2d" else 1
+    dtype = model.dtype if dtype is None else dtype
     half = norm // 2
     towers = {s: _torch_tower(convert_tower(tower_arrays(getattr(model, s)),
-                                            b), device)
+                                            b), device, dtype)
               for s in ("stage1", "stage2")}
 
     def tower(stage, x):
         return apply_tower_s2d(towers[stage], x, block=b, nf=model.nf,
-                               num_modules=model.stage1.num_modules)
+                               num_modules=model.stage1.num_modules,
+                               dtype=dtype)
 
     def run(stage, x):
         # frame by frame: cuDNN may pick another algorithm (another order

@@ -103,7 +103,7 @@ def _declare(lib):
         i32, i32, f32, f32, f32,             # antialias, linear, min_scale,
                                              # max_sigma, norm
         i32, i32, i32, i32, i32,             # tile h, w, window rows, cols, u8
-        vp, i32]                             # stream, float_in
+        vp, i32]                             # stream, in_type
     lib.lerf_steering_resize.restype = i32
     lib.lerf_steering_resize_bwd.argtypes = [
         vp, vp, vp, vp, vp,                  # img, hyp, grad, g_img, g_hyp
@@ -118,7 +118,7 @@ def _declare(lib):
         i32, i32, i32, i32, i32, i32, i32,   # frames, C, H, W, OH, OW, S
         i32, f32, f32, i32, i32,             # linear, max_sigma, norm, u8,
                                              # border
-        vp, i32, i32, i32]                   # stream, float_in, row0, rows
+        vp, i32, i32, i32]                   # stream, in_type, row0, rows
     lib.lerf_steering_warp_batch.restype = i32
     lib.lerf_warp_geometry.argtypes = [
         vp, vp, vp, vp, f64p,                # corners, dis, masks, valid,

@@ -8,17 +8,25 @@ tensors and launches ``csrc/steering_resize.cu`` for CUDA tensors; it never
 falls back from the card to the plain version.  ``steering_resize_serving``
 is the same kernel on the dynamic-scale serving geometry
 (:class:`lerf_torch.ops.geometry.ResizeOperands`), whose plain form is the
-rings resize.  ``launches`` counts kernel launches.
+rings resize.  ``launches`` counts kernel launches of any instance,
+``bf16_launches`` those of the instances that take bf16 maps.
 
 The mode follows the hyper codes: the steerable Gaussian (LeRF-G) takes
 three codes a pixel (ρ, σx, σy), the amplified-linear kernel (LeRF-L,
-``linear=True``) one (α).  The stage outputs come in one of two types:
-int32 feature and int32 codes (the LUT and SRNet forms, decoded as
-``code / norm``), or float32 feature and float32 hyper maps in [0, 1] (the
-IMDN form); the float type's twins are lerf_tpu's float ops,
+``linear=True``) one (α).  The stage outputs come in one of four pairs of
+types (:data:`IN_TYPES`): int32 feature and int32 codes (the LUT and SRNet
+forms, decoded as ``code / norm``), float32 or bf16 feature and hyper maps
+in [0, 1] (the IMDN form, in its towers' compute type), or a float32
+feature with bf16 maps (the bf16 IMDN form without its feature tower).
+The float types' twins are lerf_tpu's float ops,
 :func:`~lerf_torch.ops.resample.steering_gaussian_resize` /
 :func:`~lerf_torch.ops.resample.amplified_linear_resize` and their rings
-forms.
+forms, run on the inputs as they are (bf16: each operation rounded to
+bf16, as lerf_tpu runs its resize in ``img.dtype``; bf16 maps beside a
+float32 feature: decoded in bf16, the rest promoted to float32).  A
+float32 output of bf16 inputs is the twin's result widened (the
+Gaussian's bf16 quotient; the linear mode's weights are float32
+already).
 
 ``steering_resize_train`` is the training step's resize, differentiable in
 the feature and the hyper maps: on a card a ``torch.autograd.Function``
@@ -44,6 +52,7 @@ from ..resample import (amplified_linear_resize,
 from . import _build
 
 launches = 0
+bf16_launches = 0
 
 # Output tiles (rows, columns) a block may take, a thread taking 4 adjacent
 # columns of one row.  The host picks one per geometry so the tile's source
@@ -53,6 +62,7 @@ TILES = ((16, 32), (8, 32), (4, 32), (4, 16), (2, 16), (2, 8), (1, 8),
          (1, 4), (1, 1))
 WINDOW_BYTES = 16                  # float4 {feature, 2 rho, sx, sy}
 LINEAR_WINDOW_BYTES = 8            # float2 {feature, alpha}
+# (bf16 inputs take half of each: a tile picked for the float entries fits)
 BLOCK_SMEM_MAX = 232448            # H100: the opt-in limit of one block
 SM_SMEM = 233472                   # H100: shared memory of one SM
 SM_THREADS = 2048
@@ -205,6 +215,16 @@ class ResizeOperands(NamedTuple):
             out_sz=(r1 - r0, self.out_sz[1]))
 
 
+# The (feature, hyper) types K1 and K5 take, by the code their C entries
+# take (in_type)
+IN_TYPES = {(torch.int32, torch.int32): 0,
+            (torch.float32, torch.float32): 1,
+            (torch.bfloat16, torch.bfloat16): 2,
+            (torch.float32, torch.bfloat16): 3}
+TYPES_TAKEN = ("int32 (codes 0..norm), float32 or bf16 (hyper maps in "
+               "[0, 1]), or a float32 feature with bf16 maps")
+
+
 def _check(feat, codes, norm, linear, out_dtype, what):
     if out_dtype not in (torch.float32, torch.uint8):
         raise ValueError(f"{what}: out_dtype {out_dtype} is not float32 or "
@@ -214,13 +234,11 @@ def _check(feat, codes, norm, linear, out_dtype, what):
                          f"{norm}")
     C, H, W = feat.shape
     oc = 1 if linear else 3
-    if (feat.dtype not in (torch.int32, torch.float32)
-            or codes.dtype != feat.dtype
+    if ((feat.dtype, codes.dtype) not in IN_TYPES
             or codes.shape != (C, H, W, oc) or codes.device != feat.device):
         raise ValueError(f"{what}: feat [C,H,W] and codes [C,H,W,{oc}] "
                          f"({'linear' if linear else 'Gaussian'} mode) of one "
-                         "type, int32 (codes 0..norm) or float32 (hyper maps "
-                         "in [0, 1]), on one device")
+                         f"type, {TYPES_TAKEN}, on one device")
 
 
 def _plain(feat, codes, geom, *, max_sigma, norm, linear):
@@ -252,9 +270,10 @@ def _plain_serving(feat, codes, ops, *, max_sigma, norm, linear):
 
 def _finish(out, norm, linear, out_dtype):
     """The plain form of K1's epilogue: the linear mode maps a 0/0 window
-    (NaN) to 0 before the cast, as the kernel does."""
+    (NaN) to 0 before the cast, as the kernel does; a bf16 result widens
+    to float32."""
     return quantize_device(out, norm, nan_to_zero=linear) \
-        if out_dtype == torch.uint8 else out
+        if out_dtype == torch.uint8 else out.to(torch.float32)
 
 
 def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
@@ -264,8 +283,9 @@ def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
                     operands: ResizeOperands = None,
                     out_dtype: torch.dtype = torch.float32):
     """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
-    W, 1] (``linear``), both int32 (codes 0..norm) or both float32 (hyper
-    maps in [0, 1]) → [C, OH, OW]: float32, or with
+    W, 1] (``linear``), both int32 (codes 0..norm), both float32 or both
+    bf16 (hyper maps in [0, 1]), or a float32 feature with bf16 maps
+    (:data:`IN_TYPES`) → [C, OH, OW]: float32, or with
     ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the frame rounded half to
     even, clipped to 0..norm and cast, as
     :func:`~lerf_torch.ops.resample.quantize_device` does.  ``geom``: the
@@ -316,7 +336,7 @@ def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
 
 def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
             linear, out_dtype):
-    global launches
+    global launches, bf16_launches
     C, H, W = feat.shape
     if operands.in_sz != (H, W):
         raise ValueError(f"geometry is for {operands.in_sz}, image is "
@@ -343,9 +363,10 @@ def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
             int(linear), float(operands.min_scale), float(max_sigma),
             float(norm), *operands.tile,
             int(out_dtype == torch.uint8), stream,
-            int(feat.dtype == torch.float32))
+            IN_TYPES[feat.dtype, codes.dtype])
     _build.check(err, "steering_resize launch")
     launches += 1
+    bf16_launches += int(codes.dtype == torch.bfloat16)
     return out
 
 
@@ -383,7 +404,7 @@ def steering_resize_train(feat: torch.Tensor, hyper: torch.Tensor,
     (:class:`~lerf_torch.ops.kernels.resize_bwd.GradOperands` of ``geom``,
     made here when not given)."""
     _check(feat, hyper, 255, linear, torch.float32, "steering_resize_train")
-    if feat.dtype != torch.float32:
+    if feat.dtype != torch.float32 or hyper.dtype != torch.float32:
         raise ValueError("steering_resize_train: float32 feature and maps")
     if feat.device.type == "cpu":
         return _plain(feat, hyper, geom, max_sigma=max_sigma, norm=255,

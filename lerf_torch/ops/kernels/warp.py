@@ -6,7 +6,8 @@ amplified-linear mode :func:`~lerf_torch.ops.resample.linear_warp_codes_plain`,
 then :func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero``
 for uint8) for CPU tensors and launches ``csrc/steering_warp.cu`` for CUDA
 tensors; it never falls back from the card to the plain version.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches of any instance, ``bf16_launches``
+those of the instances that take bf16 maps.
 
 On the card K5 takes the homography itself, as :class:`WarpParams` (the
 float64 inverse matrix, the two leading pads, the support and the sizes),
@@ -26,13 +27,17 @@ host's per-pixel form
 :func:`warp_geometry` writes it from the card's derivation, for the checks,
 and :func:`warp_mask` the mask alone.
 
-The stage outputs come in one of two types, as K1 takes them: int32
-feature and int32 codes (the LUT and SRNet forms, decoded as ``code /
-norm`` after the gather) or float32 feature and float32 hyper maps in
-[0, 1] (the IMDN form), whose twins are lerf_tpu's float-row warps,
+The stage outputs come in the pairs of types K1 takes
+(:data:`~lerf_torch.ops.kernels.resize.IN_TYPES`): int32 feature and
+int32 codes (the LUT and SRNet forms, decoded as ``code / norm`` after the
+gather), float32 or bf16 feature and hyper maps in [0, 1] (the IMDN
+form, in its towers' compute type), or a float32 feature with bf16 maps;
+the float types' twins are lerf_tpu's float-row warps,
 :func:`~lerf_torch.ops.resample.steering_gaussian_warp` and
 :func:`~lerf_torch.ops.resample.amplified_linear_warp` with
-``u8_inputs=False``.
+``u8_inputs=False``, run on the inputs as they are (bf16: each operation
+rounded to bf16; the geometry stays float64 and only the distances are
+cast).  A float32 output of bf16 inputs is the twin's result widened.
 """
 from __future__ import annotations
 
@@ -48,8 +53,10 @@ from ..resample import (amplified_linear_warp, branch_bits,
                         quantize_device, steering_gaussian_warp,
                         steering_warp_codes_plain)
 from . import _build
+from .resize import IN_TYPES, TYPES_TAKEN
 
 launches = 0
+bf16_launches = 0
 
 # Frames one batch launch takes (kMaxFrames of csrc/steering_warp.cu):
 # their parameters travel by value; a longer batch takes one launch a chunk.
@@ -232,14 +239,12 @@ def _check_args(feat, codes, linear, out_dtype, norm, what):
                          f"{norm}")
     _, H, W = feat.shape
     oc = 1 if linear else 3
-    if (feat.dtype not in (torch.int32, torch.float32)
-            or codes.dtype != feat.dtype
+    if ((feat.dtype, codes.dtype) not in IN_TYPES
             or codes.shape != (feat.shape[0], H, W, oc)
             or codes.device != feat.device):
         raise ValueError(f"{what}: feat [C,H,W] and codes [C,H,W,{oc}] "
                          f"({'linear' if linear else 'Gaussian'} mode) of one "
-                         "type, int32 (codes 0..norm) or float32 (hyper maps "
-                         "in [0, 1]), on one device")
+                         f"type, {TYPES_TAKEN}, on one device")
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {feat.device}")
 
@@ -273,7 +278,7 @@ def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
     :data:`MAX_FRAMES`) for output rows ``rows`` = (r0, r1): feat / codes /
     out hold their frames one after another along the channel axis, out
     [frames·C, r1 - r0, oW], ``mask`` [frames, r1 - r0, oW] or None."""
-    global launches
+    global launches, bf16_launches
     first = warps[0]
     (H, W), (OH, OW) = first.in_sz, first.out_sz
     r0, r1 = rows
@@ -290,9 +295,10 @@ def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
             feat.shape[0] // len(warps), H, W, OH, OW, first.support,
             int(linear), float(max_sigma), float(norm),
             int(out.dtype == torch.uint8), int(border), stream,
-            int(feat.dtype == torch.float32), r0, r1 - r0)
+            IN_TYPES[feat.dtype, codes.dtype], r0, r1 - r0)
     _build.check(err, "steering_warp_batch launch")
     launches += 1
+    bf16_launches += int(codes.dtype == torch.bfloat16)
 
 
 def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
@@ -302,8 +308,9 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                   mask_out: Optional[torch.Tensor] = None, border: int = 4,
                   rows: Optional[Tuple[int, int]] = None):
     """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
-    W, 1] (``linear``), both int32 (codes 0..norm) or both float32 (hyper
-    maps in [0, 1]) → [C, oH, oW]: float32 (NaN where a
+    W, 1] (``linear``), both int32 (codes 0..norm), both float32 or both
+    bf16 (hyper maps in [0, 1]), or a float32 feature with bf16 maps
+    → [C, oH, oW]: float32 (NaN where a
     window's weights all vanish), or with ``out_dtype=torch.uint8``
     (``norm`` ≤ 255) the frame with NaN → 0, rounded half to even, clipped
     to 0..norm and cast, as :func:`~lerf_torch.ops.resample.quantize_device`
@@ -338,7 +345,7 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
         out = _plain(feat, codes, geom, max_sigma=max_sigma, norm=norm,
                      linear=linear)
         return quantize_device(out, norm, nan_to_zero=True) \
-            if out_dtype == torch.uint8 else out
+            if out_dtype == torch.uint8 else out.to(torch.float32)
     if not isinstance(warp, WarpParams):
         raise ValueError("steering_warp: on a card K5 takes WarpParams (the "
                          "matrix), not a host geometry")

@@ -55,6 +55,14 @@ def pad2d(x: torch.Tensor, pad_x, pad_y, mode: str = "constant"):
     return F.pad(x, (l, r, t, b))
 
 
+def in_type(v: float, dt) -> float:
+    """``v`` rounded to the weights' type ``dt`` (through float32, as
+    ``lerf_tpu``'s ``jnp.asarray(v, dtype)`` rounds it), as a Python
+    number: PyTorch multiplies a bf16 tensor by a Python number without
+    rounding the number to bf16 first, lerf_tpu by its bf16 value."""
+    return float(torch.tensor(float(v), dtype=torch.float64).to(dt))
+
+
 def steering_gaussian_weight(rho, sigma_x, sigma_y, dx, dy):
     """exp(-1/2 ((σx dx)² - 2ρ(σx dx)(σy dy) + (σy dy)²)).
 
@@ -69,8 +77,9 @@ def steering_gaussian_weight(rho, sigma_x, sigma_y, dx, dy):
 
 def decode_gaussian_hyper(rho, sigma_x, sigma_y, max_sigma: float):
     """Map network outputs in [0,1] to ρ∈[-1,1], σ∈[0,max_sigma]
-    (resize_right2d_numpy.py:168-170)."""
-    return rho * 2.0 - 1.0, sigma_x * max_sigma, sigma_y * max_sigma
+    (resize_right2d_numpy.py:168-170), ``max_sigma`` in the maps' type."""
+    ms = in_type(max_sigma, sigma_x.dtype)
+    return rho * 2.0 - 1.0, sigma_x * ms, sigma_y * ms
 
 
 def decode_linear_hyper(alpha, max_alpha: float = 1.0):
@@ -135,7 +144,7 @@ def steering_gaussian_resize(img, rho, sigma_x, sigma_y,
     # float64 host distances cast to the image dtype, as the JAX path does
     dis_x = torch.from_numpy(geom.dis_x).to(dev, dt)
     dis_y = torch.from_numpy(geom.dis_y).to(dev, dt)
-    m = float(np.float32(geom.min_scale))
+    m = in_type(geom.min_scale, dt)
 
     def weight(s, t, at):
         dx = dis_x[:, s, None]
@@ -201,7 +210,7 @@ def amplified_linear_resize(img, alpha, geom: ResizeGeometry, *,
     dx = torch.from_numpy(dx64).to(dev, dt)
     dy = torch.from_numpy(dy64).to(dev, dt)
     (nx, px), (ny, py) = _masks_on(dx64, dev), _masks_on(dy64, dev)
-    m = float(np.float32(geom.min_scale))
+    m = in_type(geom.min_scale, dt)
 
     def weight(s, t, at):
         w = amplified_linear_weight(
@@ -854,7 +863,7 @@ def steering_gaussian_resize_rings(img, rho, sigma_x, sigma_y,
     dx = torch.from_numpy(rings.dis_x).to(dev, dt)
     dy = torch.from_numpy(rings.dis_y).to(dev, dt)
     if rings.aa is not None:
-        m = float(rings.aa)
+        m = in_type(rings.aa, dt)
         wx = torch.from_numpy(rings.wmask_x).to(dev, dt)
         wy = torch.from_numpy(rings.wmask_y).to(dev, dt)
 
@@ -890,7 +899,7 @@ def amplified_linear_resize_rings(img, alpha, rings: ResizeRings, *,
         w = amplified_linear_weight(
             at(ap), dx[:, s, None], dy[None, :, t],
             (nx[:, s, None], px[:, s, None]), (ny[None, :, t], py[None, :, t]))
-        return w if rings.aa is None else float(rings.aa) * w
+        return w if rings.aa is None else in_type(rings.aa, dt) * w
 
     return _rings_sums(_frame(img, pad, pad_mode), rings, weight)
 

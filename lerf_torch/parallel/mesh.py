@@ -274,7 +274,8 @@ class RowShards:
     def to_host(self) -> np.ndarray:
         """Each slab copied down into its rows of one numpy array (on a
         card through one pinned host tensor, the copies without blocking,
-        then one wait)."""
+        then one wait); bf16 slabs (numpy has no bf16) into that host
+        tensor itself."""
         cuda = self.slabs[0].device.type == "cuda"
         host = torch.empty(self.shape, dtype=self.dtype, pin_memory=cuda)
         for slab, (r0, r1) in zip(self.slabs, self.ranges):
@@ -282,7 +283,7 @@ class RowShards:
         if cuda:
             for dev in dict.fromkeys(s.device for s in self.slabs):
                 torch.cuda.current_stream(dev).synchronize()
-        return host.numpy()
+        return host if self.dtype == torch.bfloat16 else host.numpy()
 
     def cat(self, device=None) -> torch.Tensor:
         """The whole output on ``device`` (default: the first shard's)."""

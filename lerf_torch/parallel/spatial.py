@@ -280,15 +280,19 @@ def _replicate_once(mesh: Mesh, feat: RowShards, hyper: RowShards,
                     norm: Optional[int]):
     """The stage slabs to every shard with ONE all-gather: per shard feat
     and the three hyper planes cast to float32 (int32 codes divided by
-    ``norm``, exactly; float maps as they are) and stacked, gathered, and
-    split once per distinct device into (feat [C, H, W], hyper [C, H, W,
-    3]) — what K1 and K5 take in their float mode."""
+    ``norm``, exactly; float maps as they are; bf16 planes, the bf16 IMDN
+    towers', stay bf16; bf16 maps beside a float32 feature travel as
+    float32 and are cast back, exactly) and stacked, gathered, and split
+    once per distinct device into (feat [C, H, W], hyper [C, H, W, 3]) —
+    what K1 and K5 take in their float32 or bf16 instances."""
+    dt = torch.bfloat16 if feat.dtype == torch.bfloat16 else torch.float32
+    maps_dt = torch.bfloat16 if hyper.dtype == torch.bfloat16 else dt
+
     def stack(f, y):
-        y = y.to(torch.float32)
+        y = y.to(dt)
         if norm is not None:
             y = divide_exact(y, norm)
-        return torch.stack([f.to(torch.float32), y[..., 0], y[..., 1],
-                            y[..., 2]])
+        return torch.stack([f.to(dt), y[..., 0], y[..., 1], y[..., 2]])
 
     stacks = mesh.map(lambda i, f, y: stack(f, y), feat.slabs, hyper.slabs)
 
@@ -296,7 +300,7 @@ def _replicate_once(mesh: Mesh, feat: RowShards, hyper: RowShards,
         h, w = whole.shape[-2:]
         return (whole[0].reshape(-1, h, w).contiguous(),
                 torch.stack([whole[1], whole[2], whole[3]], -1)
-                .reshape(-1, h, w, 3))
+                .reshape(-1, h, w, 3).to(maps_dt))
 
     return all_gather_rows(stacks, mesh, axis=-2, then=split)
 
@@ -534,16 +538,16 @@ def _imdn_model(variables, nf: int, out_c: int, in_c: int):
 
 
 def _imdn_fns(variables, mesh: Mesh, *, backend, block, nf, norm, out_c,
-              in_c):
-    """{device: (s1, s2)}: the form's stage functions on each distinct
-    device (``make_chw_stage_fns``), cached."""
+              in_c, dtype):
+    """{device: (s1, s2)}: the form's stage functions in ``dtype`` on each
+    distinct device (``make_chw_stage_fns``), cached."""
     from ..models.imdn_s2d import make_chw_stage_fns
 
     model = _imdn_model(variables, nf, out_c, in_c)
-    return {d: _cached(model, ("fns", backend, block, norm, out_c, d),
+    return {d: _cached(model, ("fns", backend, block, norm, out_c, dtype, d),
                        lambda d=d: make_chw_stage_fns(
                            model, backend=backend, block=block, norm=norm,
-                           out_c=out_c, device=d))
+                           out_c=out_c, device=d, dtype=dtype))
             for d in mesh.distinct}
 
 
@@ -561,21 +565,19 @@ def _imdn_band(fns, band, *, norm, two_stage):
     return feat, s2(hyper_in)
 
 
-def _check_imdn_dtype(dtype):
-    """The sharded IMDN towers run in float32 only; a bf16 compute type
-    waits for the IMDN form's bf16 towers (ROADMAP A1).  Raise rather than
-    widen the result silently."""
-    if dtype is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            f"sharded IMDN towers run in float32; dtype={dtype} waits for "
-            "the IMDN form's bf16 compute type (ROADMAP A1)")
+def _imdn_dtype(dtype):
+    """The towers' compute type: ``None`` is float32, as lerf_tpu's
+    sharded stages take it (``parallel/spatial.py:604-605``), whatever the
+    model's own."""
+    return torch.float32 if dtype is None else dtype
 
 
 def imdn_stages_sharded(img, variables, mesh: Mesh, *, backend: str = "base",
                         block: int = 2, nf: int = 12, norm: int = 255,
                         out_c: int = 3, two_stage: bool = True,
                         dtype=None, axis: str = DATA_AXIS):
-    """Input-row-sharded IMDN2 towers (cuDNN, full float32): ``img``
+    """Input-row-sharded IMDN2 towers (cuDNN, in ``dtype``: ``None`` or
+    float32 full float32, or bf16, lerf_tpu's bf16 compute type): ``img``
     [..., C, H, W] (0..255) replicated, each shard runs the towers on its
     band of rows plus ``stages × tower_halo_rows()`` rows each side (44
     two-stage: band-edge garbage reaches 22 rows a tower), clipped at the
@@ -583,13 +585,13 @@ def imdn_stages_sharded(img, variables, mesh: Mesh, *, backend: str = "base",
     for "s2d" the band starts on a block row.  ``variables``: the port's
     :class:`~lerf_torch.models.imdn.IMDN2` (or a state dict of its layout,
     loaded into IMDN2(nf=nf)).  Returns (feat [..., C, H, W], hyper [...,
-    C, H, W, out_c]) float32 :class:`RowShards`, within the IMDN form's
-    gates of the unsharded towers (cuDNN may sum another shape in another
-    order)."""
-    _check_imdn_dtype(dtype)
+    C, H, W, out_c]) :class:`RowShards` of ``dtype``, within the IMDN
+    form's gates of the unsharded towers (cuDNN may sum another shape in
+    another order)."""
     backend = imdn_backend(backend)
     fns = _imdn_fns(variables, mesh, backend=backend, block=block, nf=nf,
-                    norm=norm, out_c=out_c, in_c=img.shape[-3])
+                    norm=norm, out_c=out_c, in_c=img.shape[-3],
+                    dtype=_imdn_dtype(dtype))
     halo = (2 if two_stage else 1) * tower_halo_rows()
     align = block if backend == "s2d" else 1
     return _stages_rows(img, mesh, halo, lambda i, band: _imdn_band(
@@ -612,8 +614,9 @@ def imdn_stages_sharded_exchange(img_sharded, variables, mesh: Mesh, *,
     halo (``stages × tower_halo_rows()`` rows), or it raises; the slabs
     need not be equal.  ``true_h``: rows from there on lie beyond the
     image (zero padding for the towers; their outputs are zeros).
-    Returns (feat, hyper) :class:`RowShards` on the input's rows."""
-    _check_imdn_dtype(dtype)
+    ``dtype`` as :func:`imdn_stages_sharded` takes it.  Returns (feat,
+    hyper) :class:`RowShards` on the input's rows."""
+    dtype = _imdn_dtype(dtype)
     if isinstance(img_sharded, RowShards):
         slabs, ranges = list(img_sharded.slabs), list(img_sharded.ranges)
     else:
@@ -626,7 +629,8 @@ def imdn_stages_sharded_exchange(img_sharded, variables, mesh: Mesh, *,
     th = h if true_h is None else int(true_h)
     backend = imdn_backend(backend)
     fns = _imdn_fns(variables, mesh, backend=backend, block=block, nf=nf,
-                    norm=norm, out_c=out_c, in_c=slabs[0].shape[-3])
+                    norm=norm, out_c=out_c, in_c=slabs[0].shape[-3],
+                    dtype=dtype)
     halo = (2 if two_stage else 1) * tower_halo_rows()
     halos = exchange_halos(slabs, halo, mesh)
 
@@ -638,9 +642,10 @@ def imdn_stages_sharded_exchange(img_sharded, variables, mesh: Mesh, *,
         lo = r0 - (0 if above is None else halo)
         keep = max(min(th - lo, band.shape[-2]), 0)   # rows inside the image
         if keep == 0:
-            feat = torch.zeros(band.shape, dtype=torch.float32,
-                               device=band.device)
-            hyper = torch.zeros(band.shape + (out_c,), dtype=torch.float32,
+            # the one-stage feature is round(img * norm): float32
+            feat = torch.zeros(band.shape, device=band.device,
+                               dtype=dtype if two_stage else torch.float32)
+            hyper = torch.zeros(band.shape + (out_c,), dtype=dtype,
                                 device=band.device)
         else:
             feat, hyper = _imdn_band(fns[mesh.devices[i]],
@@ -663,13 +668,15 @@ def sharded_imdn_sr_pipeline(img, variables, geom: geo.ResizeGeometry,
                              block: int = 2, nf: int = 12, norm: int = 255,
                              out_c: int = 3, two_stage: bool = True,
                              max_sigma: float = 10.0, axis: str = DATA_AXIS,
-                             out_dtype=torch.float32):
-    """Multi-device IMDN (LeRF-Net) SR: row-sharded towers → one all-gather
-    of the stacked float planes → each shard K1 (float mode) on its window.
-    Returns :class:`RowShards` of [C, oH, oW]."""
+                             out_dtype=torch.float32, dtype=None):
+    """Multi-device IMDN (LeRF-Net) SR: row-sharded towers in ``dtype``
+    (:func:`imdn_stages_sharded`) → one all-gather of the stacked float32
+    (or bf16) planes → each shard K1 (its float32 or bf16 instance) on its
+    window.  Returns :class:`RowShards` of [C, oH, oW]."""
     feat, hyper = imdn_stages_sharded(img, variables, mesh, backend=backend,
                                       block=block, nf=nf, norm=norm,
-                                      out_c=out_c, two_stage=two_stage)
+                                      out_c=out_c, two_stage=two_stage,
+                                      dtype=dtype)
     sources = _replicate_once(mesh, feat, hyper, None)
     return _resize_rows(sources, geom, mesh, max_sigma=max_sigma, norm=norm,
                         out_dtype=out_dtype)
@@ -681,14 +688,16 @@ def sharded_imdn_warp_pipeline(img, variables, geom: WarpParams,
                                out_c: int = 3, two_stage: bool = True,
                                max_sigma: float = 10.0,
                                axis: str = DATA_AXIS,
-                               out_dtype=torch.float32, mask: bool = False):
-    """Multi-device IMDN homographic warp: row-sharded towers → one
-    all-gather → each shard K5 (float mode) on its window of ``geom``'s
-    output rows.  Returns :class:`RowShards` of [C, oH, oW] (and the
-    mask's with ``mask``)."""
+                               out_dtype=torch.float32, mask: bool = False,
+                               dtype=None):
+    """Multi-device IMDN homographic warp: row-sharded towers in ``dtype``
+    → one all-gather → each shard K5 (its float32 or bf16 instance) on its
+    window of ``geom``'s output rows.  Returns :class:`RowShards` of [C,
+    oH, oW] (and the mask's with ``mask``)."""
     feat, hyper = imdn_stages_sharded(img, variables, mesh, backend=backend,
                                       block=block, nf=nf, norm=norm,
-                                      out_c=out_c, two_stage=two_stage)
+                                      out_c=out_c, two_stage=two_stage,
+                                      dtype=dtype)
     sources = _replicate_once(mesh, feat, hyper, None)
     return _warp_rows(sources, geom, mesh, max_sigma=max_sigma, norm=norm,
                       out_dtype=out_dtype, mask=mask)

@@ -14,8 +14,9 @@ steerable Gaussian (LeRF-G, three hyper codes a pixel) and, with
   form: two K3 launches (or K4 with ``backend="pallas_int8"``), the stage
   epilogues and one K1 or K5 launch; and with
   :meth:`NetPredictor.from_imdn` the IMDN (LeRF-Net) form: its two conv
-  towers (cuDNN, full float32), whose float feature and hyper maps K1 or
-  K5 take in their float mode, one launch.
+  towers (cuDNN, in the model's compute type: full float32, or bf16),
+  whose float32 or bf16 feature and hyper maps K1 or K5 take in their
+  float32 or bf16 instance, one launch.
 
 With ``mesh=`` (a :class:`~lerf_torch.parallel.Mesh`) a predictor scales
 out over the mesh's shards as lerf_tpu's does: its tables or params are
@@ -157,6 +158,14 @@ def _warp_entry(cache: OrderedDict, in_sz, matrix, out_sz, support: int,
                                        border=MASK_BORDER)]
     return _lru(cache, (tuple(in_sz), matrix.tobytes(), tuple(out_sz)),
                 make, WARP_CACHE_SIZE)
+
+
+def _host(e):
+    """A request's extra on the host: a tensor as its numpy view, but a
+    bf16 one (numpy has no bf16) as the host tensor itself."""
+    if not isinstance(e, torch.Tensor) or e.dtype == torch.bfloat16:
+        return e
+    return e.numpy()
 
 
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -311,9 +320,8 @@ class _Predictor:
             if self._stream is None:
                 frame, extras = dispatch()
                 return ServingFuture.resolved(self._value(
-                    frame.movedim(-3, -1).numpy(),
-                    [e.numpy() if isinstance(e, torch.Tensor) else e
-                     for e in extras], then))
+                    frame.movedim(-3, -1).numpy(), [_host(e) for e in extras],
+                    then))
             caller = torch.cuda.current_stream(self.device)
             with torch.cuda.stream(self._stream):
                 self._stream.wait_stream(caller)
@@ -326,9 +334,8 @@ class _Predictor:
 
         def finish():
             done.synchronize()
-            return self._value(host[0].numpy(), [
-                e.numpy() if isinstance(e, torch.Tensor) else e
-                for e in host[1:]], then)
+            return self._value(host[0].numpy(), [_host(e) for e in host[1:]],
+                               then)
 
         return ServingFuture(finish)
 
@@ -918,8 +925,12 @@ class NetPredictor(_Predictor):
         skips the feature tower as the reference does (feat =
         round(img·norm), the hyper net sees the image).  The stages give
         float feature and hyper maps in [0, 1] (stage 2's ``[ρ·C, σx·C,
-        σy·C]`` channels to the trailing axis), which K1 and K5 take in
-        their float mode.  ``backend``: "base", "s2d" (the space-to-depth
+        σy·C]`` channels to the trailing axis) in the model's compute type
+        (``model.dtype``, as lerf_tpu passes ``dtype=model.dtype``):
+        float32, which K1 and K5 take in their float mode, or bf16, which
+        they take as bf16 in their bf16 instance (the feature divided by
+        ``norm`` in bf16 for stage 2, nothing widened; ``return_aux``
+        gives bf16 tensors).  ``backend``: "base", "s2d" (the space-to-depth
         re-embedding at ``s2d_block``) or "auto"
         (:func:`lerf_torch.models.imdn_s2d.resolve_backend`).  Every conv
         runs under the scoped full-float32 cuDNN flags
@@ -979,8 +990,8 @@ class NetPredictor(_Predictor):
         return feat.to(torch.int32), hyper
 
     def _aux(self, feat, hyper):
-        """feat float32 (0..255) and hyper float32 in [0,1], the types
-        ``lerf_tpu`` returns."""
+        """feat (0..255) and hyper in [0,1], float32, or for bf16 towers
+        bf16: the types ``lerf_tpu`` returns."""
         if torch.is_floating_point(hyper):
             return feat, hyper
         return (feat.to(torch.float32),

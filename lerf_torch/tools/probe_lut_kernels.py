@@ -3,6 +3,7 @@
 one part taken out.
 
     python3 lerf_torch/tools/probe_lut_kernels.py [--k5 OTHER.cu ...]
+                                                  [--k1 OTHER.cu ...]
                                                   [--rounds N] [--k6]
                                                   [--rows [--k2 OTHER.cu]]
 
@@ -45,7 +46,13 @@ stages' outputs.
   with that entry's arguments, and one whose ``lerf_steering_warp`` takes
   no support and mode with the support-2 Gaussian arguments only),
   timed beside the kernel as built in ``--rounds`` alternating rounds, so
-  the two compare within one process on one card.  ``--sass`` also prints,
+  the two compare within one process on one card: its int32 instance on
+  the LUT stages' codes and, where its batch entry takes them, its float32
+  instance on the same values as float maps (``code / 255``); each
+  round's output held to the kernel's.  ``--k1 OTHER.cu``: another K1
+  source (an earlier commit's ``steering_resize.cu``) timed the same way
+  beside K1 as built, its int32 and float32 instances at ×4 (uint8
+  output), outputs held equal.  ``--sass`` also prints,
   for K5 as built and each ``--k5`` source, each kernel's registers and its
   SASS instruction count by opcode (``cuobjdump``).
 
@@ -249,7 +256,7 @@ VARIANTS = {
         "no row window": [
             ("source_at(w, col, w.row0 + i);", "source_at(w, col, i);")],
         # the entry takes the host's corners and distances after the
-        # stream and float_in; each thread reads its windows from them
+        # stream and in_type; each thread reads its windows from them
         "host operands": [
             ("struct Warp {\n  double m[9];",
              "struct Warp {\n  const int2* corners;\n  const float4* dis;\n"
@@ -268,9 +275,9 @@ VARIANTS = {
              "    } else {\n"
              "      px[k] = window_at<KS, kLinear>(w, col, w.row0 + i);\n"
              "    }"),
-            ("    int out_u8, int border, void* stream, int float_in, int row0,\n"
+            ("    int out_u8, int border, void* stream, int in_type, int row0,\n"
              "    int rows) {",
-             "    int out_u8, int border, void* stream, int float_in, int row0,\n"
+             "    int out_u8, int border, void* stream, int in_type, int row0,\n"
              "    int rows, const void* corners, const void* dis) {"),
             ("  fr.border = border;\n",
              "  fr.border = border;\n"
@@ -431,10 +438,12 @@ OTHER_SOURCES = {"steering_warp": {"first design": "steering_warp_first.cu"}}
 K1_TILES = ((16, 64), (8, 64), (16, 32), (8, 32), (32, 32), (4, 64))
 
 
-def build_variants(tmp, k5_sources=(), variants=None, others=()):
+def build_variants(tmp, k5_sources=(), variants=None, others=(),
+                   k1_sources=()):
     """Every variant's shared library, built in parallel: {(kernel,
-    variant): path}; ``k5_sources``, other K5 sources, under their
-    paths; ``variants``: {kernel: {variant: substitutions}} (a kernel's
+    variant): path}; ``k5_sources`` / ``k1_sources``, other K5 / K1
+    sources, under their paths; ``variants``: {kernel: {variant:
+    substitutions}} (a kernel's
     source in ``csrc/`` or, a first design, beside this script) instead of
     ``VARIANTS`` and the other designs; ``others``: (kernel, name, path)
     of more whole sources."""
@@ -446,8 +455,9 @@ def build_variants(tmp, k5_sources=(), variants=None, others=()):
         (kernel, name, os.path.join(here, fname))
         for kernel, named in OTHER_SOURCES.items()
         for name, fname in named.items()])
-    for kernel, name, path in others + [("steering_warp", p, p)
-                                        for p in k5_sources]:
+    for kernel, name, path in others + [
+            ("steering_warp", p, p) for p in k5_sources] + [
+            ("steering_resize", p, p) for p in k1_sources]:
         stem = os.path.join(tmp, f"{kernel}_{len(jobs)}")
         with open(path) as f, open(stem + ".cu", "w") as g:
             g.write(f.read())
@@ -755,8 +765,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k5", action="append", default=[], metavar="OTHER.cu",
                     help="another K5 source to time beside the kernel")
+    ap.add_argument("--k1", action="append", default=[], metavar="OTHER.cu",
+                    help="another K1 source to time beside the kernel")
     ap.add_argument("--rounds", type=int, default=5,
-                    help="alternating rounds of the --k5 comparison")
+                    help="alternating rounds of the --k5 / --k1 comparison")
     ap.add_argument("--sass", action="store_true",
                     help="print K5's registers and SASS opcode counts")
     ap.add_argument("--k6", action="store_true",
@@ -802,13 +814,19 @@ def main(argv=None) -> int:
     ops = k1.ResizeOperands.create(geom, dev)
     oh, ow = geom.out_sz
 
-    def k1_args(out, tile, u8):
-        ptrs = (feat, codes, out, ops.rows, ops.cols, ops.dis_x, ops.dis_y)
+    # the same values as the float32 instances take them: the feature as
+    # float32, the maps code / 255
+    ffeat = feat.to(torch.float32)
+    fcodes = lp.divide_exact(codes.to(torch.float32), 255)
+
+    def k1_args(out, tile, u8, floats=False):
+        f, c = (ffeat, fcodes) if floats else (feat, codes)
+        ptrs = (f, c, out, ops.rows, ops.cols, ops.dis_x, ops.dis_y)
         return [*(vp(t.data_ptr()) for t in ptrs), vp(None), vp(None),
                 *map(i32, (3, cs.LR_H, cs.LR_W, oh, ow, geom.support,
                            int(geom.antialias), 0)),
                 f32(geom.min_scale), f32(10.0), f32(255.0),
-                *map(i32, (*tile, u8)), stream, i32(0)]
+                *map(i32, (*tile, u8)), stream, i32(int(floats))]
 
     members = {stage: lp.member_descriptors(cs.MODES, split_r, t.keys)
                for stage, (t, split_r, _, _) in stages.items()}
@@ -829,7 +847,7 @@ def main(argv=None) -> int:
               flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp, args.k5)
+        libs = build_variants(tmp, args.k5, k1_sources=args.k1)
         for name in ["as built"] + args.k5 if args.sass else []:
             for fn, (nreg, opc) in sass_rows(libs[("steering_warp",
                                                    name)]).items():
@@ -902,15 +920,16 @@ def main(argv=None) -> int:
         woh, wow = cs.WARP_OUT
         mask = torch.empty(cs.WARP_OUT, dtype=torch.uint8, device=dev)
 
-        def k5_args(out, u8, operands=False, with_mask=False):
+        def k5_args(out, u8, operands=False, with_mask=False, floats=False):
             """lerf_steering_warp_batch's arguments, one frame."""
-            args = [vp(feat.data_ptr()), vp(codes.data_ptr()),
+            f, c = (ffeat, fcodes) if floats else (feat, codes)
+            args = [vp(f.data_ptr()), vp(c.data_ptr()),
                     vp(out.data_ptr()),
                     vp(mask.data_ptr() if with_mask else None), inv, pads,
                     *map(i32, (1, 3, cs.LR_H, cs.LR_W, woh, wow,
                                params.support, 0)),
-                    f32(10.0), f32(255.0), i32(u8), i32(4), stream, i32(0),
-                    i32(0), i32(woh)]
+                    f32(10.0), f32(255.0), i32(u8), i32(4), stream,
+                    i32(int(floats)), i32(0), i32(woh)]
             if operands:
                 args += [vp(host.corners.data_ptr()), vp(host.dis.data_ptr())]
             return args
@@ -949,24 +968,55 @@ def main(argv=None) -> int:
                    "K5 first design")
         emit("steering_warp", "first design", ms, bool(torch.equal(out, want)))
 
-        # other K5 sources against the kernel as built, alternating
-        def other_args(path):
+        # other K5 sources against the kernel as built, alternating: the
+        # int32 instance and, where the other's batch entry takes it, the
+        # float32 one on the same values
+        def other_args(path, floats):
             with open(path) as f:
                 text = f.read()
             if "lerf_steering_warp_batch" in text:
-                return k5_args(out, 1)
+                return k5_args(out, 1, floats=floats)
+            if floats:
+                return None
             a = single_args(out, 1)
             return a if "int S, int linear" in text else a[:11] + a[13:]
 
-        other = {path: other_args(path) for path in args.k5}
+        want_f = torch.empty_like(want)
+        other = {(path, floats): other_args(path, floats)
+                 for path in args.k5 for floats in (False, True)}
+        other = {k: a for k, a in other.items() if a is not None}
         for rnd in range(args.rounds if other else 0):
-            for path, a in other.items():
-                ms = timed(base, k5_args(want, 1), "K5")
-                emit("steering_warp", "as built", ms, True, round=rnd)
+            for (path, floats), a in other.items():
+                ref = want_f if floats else want
+                inputs = "float32" if floats else "int32"
+                ms = timed(base, k5_args(ref, 1, floats=floats), "K5")
+                emit("steering_warp", "as built", ms, True, round=rnd,
+                     inputs=inputs)
                 out.zero_()
                 ms = timed(fns[("steering_warp", path)], a, f"K5 {path}")
-                emit("steering_warp", path, ms, bool(torch.equal(out, want)),
-                     round=rnd)
+                emit("steering_warp", path, ms, bool(torch.equal(out, ref)),
+                     round=rnd, inputs=inputs)
+
+        # other K1 sources against the kernel as built, alternating: the
+        # int32 and float32 instances at x4, uint8 output
+        base1 = fns[("steering_resize", "as built")]
+        want1 = {fl: torch.empty(3, oh, ow, dtype=torch.uint8, device=dev)
+                 for fl in (False, True)}
+        for rnd in range(args.rounds if args.k1 else 0):
+            for path in args.k1:
+                for floats in (False, True):
+                    inputs = "float32" if floats else "int32"
+                    ms = timed(base1, k1_args(want1[floats], ops.tile, 1,
+                                              floats), "K1")
+                    emit("steering_resize", "as built", ms, True, round=rnd,
+                         inputs=inputs)
+                    u8.zero_()
+                    ms = timed(fns[("steering_resize", path)],
+                               k1_args(u8, ops.tile, 1, floats),
+                               f"K1 {path}")
+                    emit("steering_resize", path, ms,
+                         bool(torch.equal(u8, want1[floats])), round=rnd,
+                         inputs=inputs)
     print(card)
     return 0
 

@@ -2,7 +2,8 @@
 towers' compute type: ``lerf_torch.ops`` / ``lerf_torch.lut`` export every
 name of ``lerf_tpu.ops`` / ``lerf_tpu.lut`` but those the port leaves out
 on purpose (``lerf_torch.ops.LEFT_OUT``), each the port's own object; the
-sharded IMDN functions refuse a compute type they would widen to float32.
+sharded IMDN functions run lerf_tpu's bf16 compute type, float32 when
+``dtype`` is ``None``.
 """
 import numpy as np
 import pytest
@@ -50,15 +51,54 @@ def imdn_case():
 @pytest.mark.parametrize("fn", ["imdn_stages_sharded",
                                 "imdn_stages_sharded_exchange"])
 def test_sharded_imdn_refuses_bf16(imdn_case, fn):
+    """The sharded towers no longer refuse bf16 (they raised until the
+    IMDN form had lerf_tpu's bf16 compute type; the test keeps its name):
+    ``dtype=None`` and float32 give the same float32 planes, bf16 gives
+    bf16 hyper maps within the bf16 towers' gate of the single-device bf16
+    towers (``tests/test_torch_imdn_bf16.py``)."""
+    from lerf_torch.models.imdn_s2d import make_chw_stage_fns
+    from test_torch_imdn_bf16 import HYPER_BF16_TOL, within
+
     model, img, mesh = imdn_case
     # one-stage towers: each exchange slab holds the 22-row halo
     arg = img if fn == "imdn_stages_sharded" else [img[:, :22], img[:, 22:]]
     call = getattr(tp, fn)
-    with pytest.raises(NotImplementedError, match="A1"):
-        call(arg, model, mesh, dtype=torch.bfloat16, two_stage=False)
     outs = [call(arg, model, mesh, dtype=dt, two_stage=False)
             for dt in (None, torch.float32)]
     for (feat, hyper) in outs:
         assert feat.to_host().dtype == np.float32
         assert hyper.to_host().shape == (3, 44, 5, 3)
     np.testing.assert_array_equal(outs[0][1].to_host(), outs[1][1].to_host())
+    feat, hyper = call(arg, model, mesh, dtype=torch.bfloat16,
+                       two_stage=False)
+    got = hyper.to_host()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (3, 44, 5, 3)
+    _, s2 = make_chw_stage_fns(model, backend="base", device="cpu",
+                               dtype=torch.bfloat16)
+    want = s2(img / 255)
+    within(got.float().numpy(), want.float().numpy(), HYPER_BF16_TOL,
+           f"{fn} bf16 hyper")
+    np.testing.assert_array_equal(feat.to_host(), torch.round(img).numpy())
+
+
+def test_console_scripts_name_the_port_clis():
+    """``pyproject.toml`` gives every ``lerf-*`` console script a
+    ``lerf-torch-*`` counterpart whose module imports and has a callable
+    ``main``."""
+    import importlib
+    import os
+    import tomllib
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if k.startswith("lerf-torch-")}
+    ref = {k: v for k, v in scripts.items() if k not in port}
+    assert len(port) == 8
+    assert {k.replace("lerf-torch-", "lerf-") for k in port} == set(ref)
+    for name, target in port.items():
+        module, func = target.split(":")
+        assert module.startswith("lerf_torch.cli.") and func == "main"
+        assert ref[name.replace("lerf-torch-", "lerf-")] == \
+            target.replace("lerf_torch.", "lerf_tpu.")
+        assert callable(getattr(importlib.import_module(module), func))

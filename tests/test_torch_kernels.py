@@ -40,6 +40,12 @@ NaN pattern; the IMDN form on the card holds its feature within 1e-3 and
 its hyper maps within 1e-5 of the CPU's (cuDNN sums the towers in another
 order) and its frames within one level on ≤ 0.1 % of pixels, and its
 serving forms are bit-equal to its ``upscale`` / ``warp`` frame by frame.
+K1's and K5's bf16 instances (the bf16 IMDN form's) hold their twins, the
+plain ops on the same bf16 tensors on the card, within ``BF16_ULPS`` bf16
+ulps (the linear modes, float32 after their bf16 steps, within 1e-3), and
+a float32 feature with bf16 maps within 1e-3; the bf16 form launches the
+bf16 instance once a call and its serving forms are bit-equal to its
+frames.
 K6 (the training resize's backward) sums each gradient term in a fixed
 order, its twin with ``index_add`` (atomics on the card): within 1e-4 of
 each gradient's largest value, and a rerun gives the same bits; the
@@ -1704,6 +1710,161 @@ def test_imdn_restores_the_cudnn_flags_on_card(cuda_device):
             torch.backends.cudnn.allow_tf32) == flags
 
 
+# -- the bf16 instances of K1 and K5 (the bf16 IMDN form) -------------------
+
+# K1's and K5's bf16 instances against their twins (the plain ops on the
+# same bf16 tensors, on the card): the Gaussian's bf16 quotient within
+# BF16_ULPS bf16 ulps (CUDA's expf may round a weight to the other bf16
+# neighbour near a tie; at supports other than 2 the warp twin's torch.sum
+# adds its float32 terms in another order); the linear mode's float32
+# quotient within RESIZE_ATOL / WARP_ATOL
+BF16_ULPS = 2
+
+
+def bf16_inputs(shape=(3, 45, 77), seed=15, oc=3):
+    feat, hyper = float_inputs(shape, seed, oc)
+    return feat.to(torch.bfloat16), hyper.to(torch.bfloat16)
+
+
+def assert_bf16_close(got, want, linear, atol):
+    """A bf16 instance's float32 output against its twin's."""
+    want = want.to(torch.float32)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    got, want = torch.nan_to_num(got), torch.nan_to_num(want)
+    if linear:
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        return
+    assert torch.equal(got, got.to(torch.bfloat16).to(torch.float32))
+
+    def bits(t):
+        return t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    assert int((bits(got) - bits(want)).abs().max()) <= BF16_ULPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", FLOAT_RESIZE_CASES)
+def test_resize_kernel_bf16_matches_twin(case, linear, cuda_device):
+    scale, aa = RESIZE_CASES[case]
+    feat, hyper = (t.to(cuda_device)
+                   for t in bf16_inputs(oc=1 if linear else 3))
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=list(scale),
+                                 antialias=aa)
+    before = (k1.launches, k1.bf16_launches)
+    got = k1.steering_resize(feat, hyper, geom, linear=linear)
+    got_u8 = k1.steering_resize(feat, hyper, geom, linear=linear,
+                                out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.bf16_launches) == (before[0] + 2, before[1] + 2)
+    assert_bf16_close(got, float_resize_twin(feat, hyper, geom, linear),
+                      linear, RESIZE_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=linear))
+    ops = ResizeOperands.create(feat.shape[1:], scale_factors=list(scale)) \
+        if min(scale) >= 1 else None
+    if ops is not None:
+        serving = k1.steering_resize_serving(feat, hyper, ops, linear=linear)
+        assert torch.equal(torch.nan_to_num(serving), torch.nan_to_num(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case,support",
+                         [(c, 2) for c in sorted(WARP_CASES)]
+                         + [("rotation", 4), ("x2.5-wide", 4)],
+                         ids=lambda v: str(v))
+def test_warp_kernel_bf16_matches_twin(case, support, linear, cuda_device):
+    matrix, shape, out_sz = WARP_CASES[case]
+    feat, hyper = (t.to(cuda_device)
+                   for t in bf16_inputs(shape, oc=1 if linear else 3))
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz, support=support)
+    mask = torch.empty(out_sz, dtype=torch.bool, device=cuda_device)
+    before = k5.bf16_launches
+    got = k5.steering_warp(feat, hyper, params, linear=linear, mask_out=mask)
+    got_u8 = k5.steering_warp(feat, hyper, params, linear=linear,
+                              out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert k5.bf16_launches == before + 2
+    assert_bf16_close(got, float_warp_twin(feat, hyper, params.geometry(),
+                                           linear), linear, WARP_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+    assert np.array_equal(mask.cpu().numpy(), params.host_mask())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_warp_batch_bf16_equals_per_frame(linear, cuda_device):
+    shape, out_sz = (3, 45, 77), (112, 192)
+    feats, hypers = (t.to(cuda_device) for t in bf16_inputs(
+        (12,) + shape[1:], oc=1 if linear else 3))
+    warps = [k5.WarpParams.create(shape[1:], jitter_matrix(s, (2.5, 2.5)),
+                                  out_sz) for s in range(4)]
+    got = k5.steering_warp_batch(feats, hypers, warps, linear=linear,
+                                 out_dtype=torch.uint8)
+    for f, w in enumerate(warps):
+        one = k5.steering_warp(feats[3 * f:3 * f + 3],
+                               hypers[3 * f:3 * f + 3], w, linear=linear,
+                               out_dtype=torch.uint8)
+        assert torch.equal(got[3 * f:3 * f + 3], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_mixed_types_match_twin_on_card(linear, cuda_device):
+    """A float32 feature with bf16 maps (the one-stage bf16 form): the
+    maps decoded in bf16, the rest float32, within the float tolerances."""
+    feat, _ = float_inputs(oc=1)
+    _, hyper = bf16_inputs(oc=1 if linear else 3)
+    feat, hyper = feat.to(cuda_device), hyper.to(cuda_device)
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=[2.5, 2.5])
+    got = k1.steering_resize(feat, hyper, geom, linear=linear)
+    want = float_resize_twin(feat, hyper, geom, linear)
+    assert want.dtype == torch.float32
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=RESIZE_ATOL)
+    params = k5.WarpParams.create(feat.shape[1:], jitter_matrix(
+        0, (2.0, 2.0)), (90, 154))
+    got = k5.steering_warp(feat, hyper, params, linear=linear)
+    want = float_warp_twin(feat, hyper, params.geometry(), linear)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               rtol=0, atol=WARP_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["base", "s2d"])
+def test_imdn_bf16_on_card(backend, cuda_device):
+    """The bf16 IMDN form on the card: one K1 (K5) launch a call, the
+    instance that takes bf16 maps; the serving forms bit-equal to
+    ``upscale`` / ``warp``."""
+    from lerf_torch.models.imdn import IMDN2
+
+    model = IMDN2(nf=12, dtype=torch.bfloat16)
+    model.load_state_dict(imdn_model().state_dict())
+    pred = NetPredictor.from_imdn(model, backend=backend,
+                                  device=cuda_device)
+    imgs = np.random.RandomState(16).randint(0, 256, (4, 40, 56, 3)) \
+        .astype(np.uint8)
+    before = (k1.launches, k1.bf16_launches)
+    want, feat, hyper = pred.upscale(imgs[0], 2.5, 2.5, return_aux=True)
+    assert (k1.launches, k1.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert feat.dtype == torch.bfloat16 and hyper.dtype == torch.bfloat16
+    want = [pred.upscale(f, 2.5, 2.5) for f in imgs]
+    np.testing.assert_array_equal(pred.upscale_batch(imgs, 2.5, 2.5),
+                                  np.stack(want))
+    np.testing.assert_array_equal(pred.upscale_dynamic(imgs[1], 2.5, 2.5),
+                                  want[1])
+    mats = [jitter_matrix(s, (2.0, 2.0)) for s in range(4)]
+    before = k5.bf16_launches
+    want = [pred.warp(f, m, (80, 112)) for f, m in zip(imgs, mats)]
+    assert k5.bf16_launches == before + 4
+    out, mask = pred.warp_batch(imgs, np.stack(mats), (80, 112))
+    np.testing.assert_array_equal(out, np.stack([w[0] for w in want]))
+    for form in (pred.warp_dynamic, pred.warp_device):
+        o, m = form(imgs[2], mats[2], (80, 112))
+        np.testing.assert_array_equal(o, want[2][0])
+        np.testing.assert_array_equal(m, want[2][1])
+
+
 # -- K6: the steerable resize's backward (training) -------------------------
 
 # name → (LR size, scale, support, antialias, planes): the LeRF training
@@ -2202,3 +2363,48 @@ def test_sharded_lut_on_one_card_bit_equal_to_predictor(cuda_device):
     want, want_mask = pred.warp(frame, matrix, (90, 132))
     np.testing.assert_array_equal(frame_w.to_host().transpose(1, 2, 0), want)
     np.testing.assert_array_equal(mask.to_host(), want_mask)
+
+
+@pytest.mark.cuda
+def test_sharded_imdn_bf16_on_one_card(cuda_device):
+    """The bf16 IMDN form sharded on ``[cuda:0] * 2``: bf16 planes through
+    the all-gather, K1 / K5 bf16 on each shard's window (one launch a
+    shard), each window bit-equal to the whole launch on the gathered
+    planes; the frame within the bf16 form's gate of ``upscale`` (cuDNN
+    may pick another algorithm for a band's shape)."""
+    from lerf_torch.models.imdn import IMDN2
+    from lerf_torch.ops.kernels.warp import WarpParams
+    from lerf_torch.parallel import (imdn_stages_sharded, make_mesh,
+                                     sharded_imdn_sr_pipeline,
+                                     sharded_imdn_warp_pipeline)
+
+    model = IMDN2(nf=12, dtype=torch.bfloat16)
+    model.load_state_dict(imdn_model().state_dict())
+    frame = np.random.RandomState(5).randint(0, 256, (96, 40, 3)) \
+        .astype(np.uint8)
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                         .astype(np.float32)).to(cuda_device)
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    geom = ResizeGeometry.create((96, 40), scale_factors=[2.5, 2.5])
+    feat, hyper = imdn_stages_sharded(x, model, mesh, dtype=torch.bfloat16)
+    assert feat.dtype == torch.bfloat16 and hyper.dtype == torch.bfloat16
+    before = k1.bf16_launches
+    got = sharded_imdn_sr_pipeline(x, model, geom, mesh, dtype=torch.bfloat16,
+                                   out_dtype=torch.uint8)
+    assert k1.bf16_launches == before + 2
+    whole = k1.steering_resize(feat.cat(), hyper.cat(), geom,
+                               out_dtype=torch.uint8)
+    assert torch.equal(got.cat(), whole)
+    pred = NetPredictor.from_imdn(model, device=cuda_device)
+    d = np.abs(got.to_host().transpose(1, 2, 0).astype(int)
+               - pred.upscale(frame, 2.5, 2.5).astype(int))
+    assert d.max() <= 33 and (d > 0).mean() <= 0.59
+    warp = WarpParams.create((96, 40), jitter_matrix(1, (2.0, 2.0)),
+                             (192, 80))
+    got, mask = sharded_imdn_warp_pipeline(x, model, warp, mesh,
+                                           dtype=torch.bfloat16,
+                                           out_dtype=torch.uint8, mask=True)
+    whole = k5.steering_warp(feat.cat(), hyper.cat(), warp,
+                             out_dtype=torch.uint8)
+    assert torch.equal(got.cat(), whole)
+    np.testing.assert_array_equal(mask.to_host(), warp.host_mask())
