@@ -297,7 +297,11 @@ hand-written kernel against its plain PyTorch twin on the card:
    bound from the table rows that frame touches, and the layout the
    numbers favour;
 50. the IMDN form's bf16 compute type (``IMDN2(nf=12,
-   dtype=torch.bfloat16)``, phase 24's weights): K1's and K5's bf16
+   dtype=torch.bfloat16)``, phase 24's weights): first the native bf16
+   steps K1's and K5's bf16 instances run, each against the twin's
+   float-then-round over all 2^32 operand pairs (``BF16_STEPS``, one
+   summary line of mismatches a step; any in a step the kernels use
+   fails the phase); K1's and K5's bf16
    instances (lerf_tpu's resize and warp run in bf16, every operation
    rounded to bf16) against their twins on the card, K1 at phase 2's
    scales and K5 at phase 9's matrices with the mask, at support 4 and
@@ -319,7 +323,9 @@ hand-written kernel against its plain PyTorch twin on the card:
    with its ``linear`` mode; then one row for each instance this slice
    added: K3 bf16, K3 / K3 bf16 / K4 at nf 128 and K2's row mode on each
    layout, its first design's times beside, and K1's and K5's bf16
-   instances), the card line and, last, the result line.
+   instances, with the PR that redesigned them and where their earlier
+   design's times stand: the probe, not this script, times that design),
+   the card line and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -408,6 +414,20 @@ WARP_OUT = (int(LR_H * SCALE), int(LR_W * SCALE))
 #  linear 2: a * 2 - 1), no divisions
 K1_FLOAT_OPS_PER_SOURCE = 5
 LIN_FLOAT_OPS_PER_SOURCE = 2
+#  the bf16 instances (bf16 feature and maps): which of those operations
+#  are bf16 (each a step of the twin's rounded to bf16, which the kernels
+#  run as native bf16 pair instructions): the Gaussian's per neighbour all
+#  but the exp (13; at K5's supports other than 2 the two sums are float32:
+#  11), the antialias's product m w, the decode and the quotient; the
+#  linear mode's per axis a x and its +-1 (4); the rest float32
+K1_BF16_OPS_PER_NEIGHBOUR = 13
+K5_BF16_OPS_PER_NEIGHBOUR_GENERIC = 11
+LIN_BF16_OPS_PER_NEIGHBOUR = 4
+# H100 SXM5 bf16 outside the tensor cores: 133.8 T/s, twice float32's
+# (NVIDIA H100 Tensor Core GPU Architecture whitepaper, table "NVIDIA H100
+# compared to A100", Peak BF16 non-Tensor); bf16x2 instructions issue on
+# the same FMA pipes as float32's, so a bound adds the two times
+BF16_NON_TENSOR_OPS_PER_S = 133.8e12
 IMDN_NF = 12              # the reference LeRF-Net's width (5 modules a tower)
 # the IMDN crop, card (cuDNN) against the CPU: the towers' float32 sums in
 # another order (cuDNN's implicit GEMM), a few ulp of a value; the feature
@@ -479,11 +499,30 @@ K2_ROWS_ROUNDS = 2
 # terms in another order), the linear mode's float32 quotient within
 # K1_ATOL / K5_ATOL (its bf16 steps are a x and lin(a, x) alone)
 K_BF16_ULPS = 2
+# the exhaustive check of the native bf16 steps (built outside the
+# library, beside it): each step against the twin's float-then-round over
+# all 2^32 operand pairs, in the source's order; K1's and K5's bf16
+# instances run the pair forms, both lanes (a pair add is HFMA2 a x 1 + b
+# and a pair product HFMA2 a x b + (-0) where ptxas picks those), and need
+# 0 mismatches there
+BF16_STEPS = "lerf_torch/tools/bf16_steps_exhaustive.cu"
+BF16_STEP_NAMES = ("hadd_rn", "hsub_rn", "hmul_rn", "hadd2_rn.lo",
+                   "hadd2_rn.hi", "hsub2_rn.lo", "hsub2_rn.hi",
+                   "hmul2_rn.lo", "hmul2_rn.hi", "hfma2(a,1,b).lo",
+                   "hfma2(a,1,b).hi", "hfma2(a,b,-0).lo", "hfma2(a,b,-0).hi")
+BF16_KERNEL_STEPS = BF16_STEP_NAMES[3:]
 # the bf16 IMDN crop, card (cuDNN's bf16 convs) against the CPU: the
 # CPU tests' gates, lerf_tpu's own bf16 "base" against its bf16 "s2d"
 # (tests/test_torch_imdn_bf16.py): (max abs, share differing) of the
 # feature and the hyper maps, and (max levels, share differing) of the
 # uint8 frames, Gaussian and linear
+# the design of K1's and K5's bf16 instances before their redesign, which
+# the kernels line names beside each row; this script does not time it:
+# the probe does, against the kernel (its times in PERF.md section 6)
+BF16_PARENT = ("the earlier design, each bf16 step a float operation "
+               "rounded to bf16; timed by lerf_torch/tools/"
+               "probe_lut_kernels.py {} against that source, PERF.md "
+               "section 6")
 IMDN_BF16_FEAT_TOL = (2.0, 0.08)
 IMDN_BF16_HYPER_TOL = (3 / 256, 0.38)
 IMDN_BF16_U8_TOL = (33, 0.59)
@@ -757,20 +796,23 @@ def k3_bound(nbytes, macs):
     return ops, "operations", parts
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, bf16_ops=0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
+    t_ops = (ops / NON_TENSOR_OPS_PER_S
+             + bf16_ops / BF16_NON_TENSOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def k1_work(geom, c, linear=False, floats=False, value_bytes=4):
-    """(bytes, operations) of one K1 call in uint8 mode: the int32 feature
-    and codes (3 a pixel, 1 in the linear mode; ``floats``: float32
-    feature and maps, as many bytes; ``value_bytes`` 2: bf16 ones) read
-    once, the uint8 output written once, the device geometry (rows,
-    distances and, linear, masks) read once; the decode once a source
-    pixel, the weights and sums once an output and neighbour, the epilogue
-    once an output."""
+    """(bytes, float32 operations, bf16 operations) of one K1 call in uint8
+    mode: the int32 feature and codes (3 a pixel, 1 in the linear mode;
+    ``floats``: float32 feature and maps, as many bytes; ``value_bytes`` 2:
+    bf16 ones, the bf16 instance) read once, the uint8 output written
+    once, the device geometry (rows, distances and, linear, masks) read
+    once; the decode once a source pixel, the weights and sums once an
+    output and neighbour, the epilogue once an output.  The bf16
+    operations are those of the bf16 instance (``K1_BF16_OPS_PER_NEIGHBOUR``
+    ...), else 0."""
     (h, w), (oh, ow), s = geom.in_sz, geom.out_sz, geom.support
     codes = 1 if linear else 3
     nbytes = (c * h * w * value_bytes * (1 + codes) + c * oh * ow
@@ -782,7 +824,12 @@ def k1_work(geom, c, linear=False, floats=False, value_bytes=4):
            (LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE))
     ops = (c * h * w * src
            + c * oh * ow * (s * s * per + K1_OPS_PER_OUTPUT_U8))
-    return nbytes, ops
+    if value_bytes != 2:
+        return nbytes, ops, 0
+    per16 = LIN_BF16_OPS_PER_NEIGHBOUR if linear else \
+        K1_BF16_OPS_PER_NEIGHBOUR + (1 if geom.antialias else 0)
+    bf16 = c * h * w * src + c * oh * ow * (s * s * per16 + (not linear))
+    return nbytes, ops - bf16, bf16
 
 
 def k2_work(c, h, w, oc, n_tables, n_members):
@@ -1027,19 +1074,21 @@ def net_form_phases(dev, params, frame, backend, label=None):
 
 def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
             frames=1, floats=False, value_bytes=4):
-    """(bytes, float32 operations, float64 operations) of one K5 call in
-    uint8 mode: the int32 feature and codes (3 a pixel, 1 linear) and the
-    3×3 float64 inverse read once, the uint8 output written once; the
-    decode once a source pixel, the weights and sums once an output,
-    channel and neighbour (support²), the epilogue once an output and
-    channel; the geometry once an output: the grid's three row-term adds
-    and two divisions, per axis the clip (2), (g - S/2) - eps (2), ceil and
-    + pad, and per distance its subtraction and cast (2, with the linear
-    branch tests 4); per output row and column the grid's products and the
-    column's adds.  ``mask``: the validity mask's byte and
+    """(bytes, float32 operations, float64 operations, bf16 operations) of one
+    K5 call in uint8 mode: the int32 feature and codes (3 a pixel, 1
+    linear) and the 3×3 float64 inverse read once, the uint8 output written
+    once; the decode once a source pixel, the weights and sums once an
+    output, channel and neighbour (support²), the epilogue once an output
+    and channel; the geometry once an output: the grid's three row-term
+    adds and two divisions, per axis the clip (2), (g - S/2) - eps (2),
+    ceil and + pad, and per distance its subtraction and cast (2, with the
+    linear branch tests 4); per output row and column the grid's products
+    and the column's adds.  ``mask``: the validity mask's byte and
     ``K5_F64_MASK_OPS`` an output; ``frames``: a batch of that many;
     ``floats``: float32 feature and maps (as many bytes, the float decode
-    of ``k1_work``; ``value_bytes`` 2: bf16 ones)."""
+    of ``k1_work``; ``value_bytes`` 2: bf16 ones, the bf16 instance, its
+    bf16 operations split off as ``k1_work`` does, the sums float32 at
+    supports other than 2; else 0 of them)."""
     (h, w), (oh, ow) = in_sz, out_sz
     codes = 1 if linear else 3
     nbytes = c * h * w * value_bytes * (1 + codes) + 9 * 8 + c * oh * ow
@@ -1055,17 +1104,32 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
     if mask:
         nbytes += oh * ow
         f64 += oh * ow * K5_F64_MASK_OPS
-    return nbytes * frames, ops * frames, f64 * frames
+    bf16 = 0
+    if value_bytes == 2:
+        per16 = (LIN_BF16_OPS_PER_NEIGHBOUR if linear else
+                 K1_BF16_OPS_PER_NEIGHBOUR if support == 2 else
+                 K5_BF16_OPS_PER_NEIGHBOUR_GENERIC)
+        bf16 = c * h * w * src + c * oh * ow * (support * support * per16
+                                                + (not linear))
+    return (nbytes * frames, (ops - bf16) * frames, f64 * frames,
+            bf16 * frames)
 
 
-def k5_bound(nbytes, ops, f64):
-    """The largest of bytes, float32 and float64 operations, with its name
-    and all three times."""
+def k5_bound(nbytes, ops, f64, bf16_ops=0):
+    """The largest of bytes, float32 and bf16 operations (one time: they
+    share the FMA pipes) and float64 operations, with its name and all
+    the times."""
     parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "f32_operations": ops / NON_TENSOR_OPS_PER_S * 1e3,
              "f64_operations": f64 / F64_OPS_PER_S * 1e3}
-    by = max(parts, key=parts.get)
-    return parts[by], ("bytes" if by == "bytes" else "operations"), parts
+    if bf16_ops:
+        parts["bf16_operations"] = bf16_ops / BF16_NON_TENSOR_OPS_PER_S * 1e3
+    times = {"bytes": parts["bytes"],
+             "f64_operations": parts["f64_operations"],
+             "operations": parts["f32_operations"]
+             + parts.get("bf16_operations", 0.0)}
+    by = max(times, key=times.get)
+    return times[by], ("bytes" if by == "bytes" else "operations"), parts
 
 
 def net_stage_launches(params, backend):
@@ -1288,7 +1352,7 @@ def lut_warp_phases(dev, bank, frame, x):
         torch.from_numpy(geom.lin_idx.reshape(2, 2, -1).astype(np.int64))
         .to(dev), _warp_dis_flat(geom, torch.float32, dev)),
         iters=5, warmup=1)
-    nbytes, nops, f64 = k5_work((LR_H, LR_W), WARP_OUT, 3)
+    nbytes, nops, f64, _ = k5_work((LR_H, LR_W), WARP_OUT, 3)
     b_ms, b_by, parts = k5_bound(nbytes, nops, f64)
     emit_timed({"kernel": "steering_warp", "out_dtype": "uint8", "ms": ms,
                 **prof, "float_mode_ms": float_ms,
@@ -4908,6 +4972,42 @@ def held_bf16(got, got_u8, want, linear, atol, what, nan_to_zero=True):
     return err, ulps, n_diff, n_nan
 
 
+def bf16_steps_check(build):
+    """The exhaustive check of the native bf16 steps, once its build
+    (``start_first_build(BF16_STEPS, ...)``) is done: {step: {"mismatches":
+    n, "first": [[a, b, got, want] bit patterns as hex, ...]}} over
+    ``BF16_STEP_NAMES``, and the seconds the check took on the card."""
+    import ctypes
+
+    import torch
+
+    proc, path = build
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"bf16 steps check: nvcc failed:\n{log}")
+    fn = ctypes.CDLL(path).lerf_bf16_steps_exhaustive
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    n = len(BF16_STEP_NAMES)
+    dev = torch.device("cuda")
+    counts = torch.zeros(n, dtype=torch.int64, device=dev)
+    firsts = torch.zeros(n, 8, 4, dtype=torch.int32, device=dev)
+    nfirst = torch.zeros(n, dtype=torch.int32, device=dev)
+    t = time.perf_counter()
+    err = fn(counts.data_ptr(), firsts.data_ptr(), nfirst.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    if err:
+        raise RuntimeError(f"bf16 steps check: CUDA error {err}")
+    counts, firsts, nfirst = (t.cpu().tolist()
+                              for t in (counts, firsts, nfirst))
+    return {name: {"mismatches": counts[s],
+                   "first": [[f"{v:04x}" for v in row]
+                             for row in firsts[s][:min(nfirst[s], 8)]]}
+            for s, name in enumerate(BF16_STEP_NAMES)}, seconds
+
+
 def bf16_kernel_phase(dev, rng):
     """Phase 50, the kernels: K1's and K5's bf16 instances (bf16 feature in
     [0, 254] and bf16 hyper maps in [0, 1], the bf16 towers' outputs)
@@ -5283,7 +5383,8 @@ def main() -> int:
     t0 = time.perf_counter()
     first_builds = [start_k6_first_build(),
                     start_first_build(K3_BF16_FIRST, "k3_bf16_first"),
-                    start_first_build(K2_ROWS_FIRST, "k2_rows_first")]
+                    start_first_build(K2_ROWS_FIRST, "k2_rows_first"),
+                    start_first_build(BF16_STEPS, "bf16_steps")]
     try:
         _, log = _build.build()
         _build.library()
@@ -5471,7 +5572,7 @@ def main() -> int:
     k1_plain_ms = event_ms(lambda: _quantize_device(
         steering_resize_codes_plain(feat_d, hyper_d, geom), 255),
         iters=5, warmup=1)
-    k1_bytes, k1_ops = k1_work(geom, 3)
+    k1_bytes, k1_ops, _ = k1_work(geom, 3)
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     emit_timed({"kernel": "steering_resize", "out_dtype": "uint8",
                 "tile": list(ops.tile), "ms": k1_ms,
@@ -5752,17 +5853,27 @@ def main() -> int:
 
     # -- 50. the IMDN form's bf16 compute type: K1 and K5 bf16 ---------------
     t50 = time.perf_counter()
+    steps, steps_s = bf16_steps_check(first_builds[3])
+    emit({"phase": "bf16_steps_exhaustive", "pairs_a_step": 2 ** 32,
+          "mismatches": {k: v["mismatches"] for k, v in steps.items()},
+          "first": {k: v["first"] for k, v in steps.items() if v["first"]},
+          "kernel_steps": list(BF16_KERNEL_STEPS), "seconds": steps_s})
+    bad = [k for k in BF16_KERNEL_STEPS if steps[k]["mismatches"]]
+    if bad:
+        raise AssertionError(f"bf16 steps the kernels run mismatch the "
+                             f"twin's: {bad}")
     bf16_err = bf16_kernel_phase(dev, np.random.RandomState(15))
     t50b = time.perf_counter()
     bf16_rows, bf16_form_launches = imdn_bf16_phases(dev, frame)
     emit({"phase": "phase_seconds", "bf16_kernels": t50b - t50,
           "bf16_imdn_form": time.perf_counter() - t50b,
           "script_so_far": time.perf_counter() - t0})
-    for name, src, rep in (
+    for name, src, rep, parent in (
             ("steering_resize_bf16", "lerf_torch/csrc/steering_resize.cu",
-             "lerf_tpu/ops/pallas/resize_kernel.py:118"),
+             "lerf_tpu/ops/pallas/resize_kernel.py:118",
+             BF16_PARENT.format("--k1")),
             ("steering_warp_bf16", "lerf_torch/csrc/steering_warp.cu",
-             "lerf_tpu/ops/resample.py:563")):
+             "lerf_tpu/ops/resample.py:563", BF16_PARENT.format("--k5"))):
         row = bf16_rows[name]
         form = "upscale" if "resize" in name else "warp"
         kernels.append({
@@ -5774,7 +5885,8 @@ def main() -> int:
             "profiler_launches": row["profiler_launches"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "share_of_bound": row["share_of_bound"], "library_ms": None})
+            "share_of_bound": row["share_of_bound"], "library_ms": None,
+            "redesigned": 18, "parent": parent})
 
     # -- 51. result ----------------------------------------------------------
     emit({"phase": "exact_division",

@@ -36,18 +36,34 @@
 // mode lerf_tpu's float32 branch masks promote the weight to float32: the
 // product a x and lin(a, x) round to bf16, the rest (the clip, the product
 // of the two axes, min_scale times it, the sums, the quotient) is float32.
-// No bf16 intrinsic arithmetic (__hadd, __hmul, __hfma), whose rounding
-// differs from float-then-round for some adds.  The window holds bf16
-// entries {feature, 2 rho, sx, sy} (8 bytes) or {feature, alpha} (4), half
-// the float ones, from maps of half the bytes.  A fourth pair, a float32
-// feature with bf16 maps (the bf16 form without its feature tower,
-// two_stage=False, whose feature is round(img * norm) in float32), decodes
-// the maps in bf16 as above and runs the rest in float32, as lerf_tpu's
-// promotion of the bf16 decoded maps against float32 distances does: the
-// float instance with the bf16 decode (template parameter HypT).  The bf16
-// instance is the float one with every step's round trip through bf16 (two
-// conversions an operation): 0.197 ms at x4 against the float instance's
-// 0.075 on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 50, probe).
+// The window holds bf16 entries {feature, 2 rho, sx, sy} (8 bytes) or
+// {feature, alpha} (4), half the float ones, from maps of half the bytes.
+// A fourth pair, a float32 feature with bf16 maps (the bf16 form without
+// its feature tower, two_stage=False, whose feature is round(img * norm) in
+// float32), decodes the maps in bf16 as above and runs the rest in
+// float32, as lerf_tpu's promotion of the bf16 decoded maps against
+// float32 distances does: the float instance with the bf16 decode
+// (template parameter HypT).
+//
+// The bf16 instance runs each of those bf16 steps as one native bf16
+// instruction on a pair of values (__hmul2_rn, __hadd2_rn, __hsub2_rn:
+// mul / add / sub.rn.bf16x2, one rounding to nearest even, no contraction).
+// Every operand is a bf16 value, and float32's 24 bits hold more than
+// twice bf16's 8 plus 2, so the twin's float operation rounded to bf16 is
+// the correctly rounded bf16 result, which the native instruction gives:
+// lerf_torch/tools/bf16_steps_exhaustive.cu checks each step the kernel
+// uses against float-then-round over all 2^32 operand pairs on the card,
+// both lanes, signed zeros and subnormals included, with 0 mismatches
+// (also the HFMA2 forms a x 1 + b and a x b + (-0) in which ptxas emits
+// some of these adds and products).  No other fused form: __hfma rounds
+// a x b + c once where the twin rounds twice.  The Gaussian pairs a
+// thread's outputs 2k and 2k + 1 (add_pair): the window entries of the two
+// neighbours transposed into (n, n'), (2 rho, 2 rho'), (sx, sx'), (sy, sy')
+// (four byte permutes), then the twelve steps as ten pair operations and
+// expf in float32 with one pair rounding; the distances rounded to bf16
+// once a thread (FovBf).  The linear mode takes (a dx, a dy) as one pair
+// product and each branch's value as one pair add.  Its times: PERF.md
+// section 6 (lerf_torch/tools/probe_lut_kernels.py --k1).
 //
 // What bounds it on the H100: operations.  At 360x640 -> x4 it reads 11 MB of
 // int32 feature and codes and writes 11 MB of uint8 (0.0066 ms at 3.35 TB/s);
@@ -95,11 +111,13 @@
 namespace {
 
 constexpr int kVec = 4;                  // adjacent outputs a thread
+static_assert(kVec % 2 == 0, "the bf16 instance pairs adjacent outputs");
 constexpr int kMaxThreads = 256;         // a block; the host's tiles fit
 constexpr int kMaxSmem = 232448;         // the H100's opt-in block limit
 constexpr int kDefaultSmem = 48 * 1024;  // above this only after opting in
 
 using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
 
 template <typename InT>
 constexpr bool kIsBf16 = std::is_same<InT, bf16>::value;
@@ -109,17 +127,16 @@ __device__ __forceinline__ float bfr(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// A thread's distance: the Gaussian antialias scales it by m (scale); the
-// bf16 instance rounds the float32 distance to bf16 first and the product
-// after (m is bf16 there).
-template <bool kBf>
+// A thread's distance: the Gaussian antialias scales it by m (scale).
 __device__ __forceinline__ float dist(float d, int scale, float m) {
-  if constexpr (kBf) {
-    d = bfr(d);
-    return scale ? bfr(m * d) : d;
-  } else {
-    return scale ? m * d : d;
-  }
+  return scale ? m * d : d;
+}
+
+// The bf16 instance's: the float32 distance rounded to bf16, and the
+// Gaussian antialias's product with m (bf16 there) rounded once more.
+__device__ __forceinline__ bf16 dist_bf16(float d, int scale, float m) {
+  const float b = bfr(d);
+  return __float2bfloat16_rn(scale ? m * b : b);
 }
 
 // The geometry's device arrays: rows / cols [O, S], the mode's distances,
@@ -136,8 +153,7 @@ struct Geo {
 // A thread's field of view, local to the block's source window.  KS > 0:
 // the support is known at compile time and the values sit in registers.
 // scale: the Gaussian mode's antialias, which scales the distances by m.
-// kBf: the bf16 instance's distances (dist).
-template <int KS, bool kLinear, bool kBf>
+template <int KS, bool kLinear>
 struct Fov {
   static constexpr int KM = kLinear ? KS : 1;   // masks: the linear mode's
   int lr[KS];
@@ -152,7 +168,7 @@ struct Fov {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       lr[s] = g.rows[i * KS + s] - r_lo;
-      dx[s] = dist<kBf>(g.dis_x[i * KS + s], scale, m);
+      dx[s] = dist(g.dis_x[i * KS + s], scale, m);
       if (kLinear) mx[s % KM] = g.mask_x[i * KS + s];
     }
 #pragma unroll
@@ -160,7 +176,7 @@ struct Fov {
 #pragma unroll
       for (int t = 0; t < KS; ++t) {
         lc[v][t] = g.cols[j[v] * KS + t] - c_lo;
-        dy[v][t] = dist<kBf>(g.dis_y[j[v] * KS + t], scale, m);
+        dy[v][t] = dist(g.dis_y[j[v] * KS + t], scale, m);
         if (kLinear) my[v][t % KM] = g.mask_y[j[v] * KS + t];
       }
     }
@@ -174,8 +190,8 @@ struct Fov {
 };
 
 // Any other support: read each value where it is used.
-template <bool kLinear, bool kBf>
-struct Fov<0, kLinear, kBf> {
+template <bool kLinear>
+struct Fov<0, kLinear> {
   Geo g;
   int i, j[kVec], r_lo, c_lo, S, scale;
   float m;
@@ -188,19 +204,104 @@ struct Fov<0, kLinear, kBf> {
   }
   __device__ int row(int s) const { return g.rows[i * S + s] - r_lo; }
   __device__ float dxs(int s) const {
-    return dist<kBf>(g.dis_x[i * S + s], scale, m);
+    return dist(g.dis_x[i * S + s], scale, m);
   }
   __device__ unsigned mxs(int s) const { return g.mask_x[i * S + s]; }
   __device__ int col(int v, int t) const {
     return g.cols[j[v] * S + t] - c_lo;
   }
   __device__ float dyt(int v, int t) const {
-    return dist<kBf>(g.dis_y[j[v] * S + t], scale, m);
+    return dist(g.dis_y[j[v] * S + t], scale, m);
   }
   __device__ unsigned myt(int v, int t) const {
     return g.mask_y[j[v] * S + t];
   }
 };
+
+// The bf16 instance's field of view: the distances rounded to bf16 once a
+// thread (dist_bf16) and held as the pairs the neighbour loop takes: dxp(s)
+// = (dx_s, dx_s), dyp(k, t) = (dy of output 2k, dy of output 2k + 1) at t.
+// KS > 0 in registers; any other support read where used, as Fov.
+template <int KS, bool kLinear>
+struct FovBf {
+  static constexpr int KM = kLinear ? KS : 1;
+  int lr[KS];
+  bf162 dx[KS];
+  unsigned char mx[KM];
+  int lc[kVec][KS];
+  bf162 dy[kVec / 2][KS];
+  unsigned char my[kVec][KM];
+
+  __device__ void load(const Geo& g, int i, const int* j, int r_lo, int c_lo,
+                       int, int scale, float m) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      lr[s] = g.rows[i * KS + s] - r_lo;
+      dx[s] = __bfloat162bfloat162(dist_bf16(g.dis_x[i * KS + s], scale, m));
+      if (kLinear) mx[s % KM] = g.mask_x[i * KS + s];
+    }
+#pragma unroll
+    for (int t = 0; t < KS; ++t) {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        lc[v][t] = g.cols[j[v] * KS + t] - c_lo;
+        if (kLinear) my[v][t % KM] = g.mask_y[j[v] * KS + t];
+      }
+#pragma unroll
+      for (int k = 0; k < kVec / 2; ++k)
+        dy[k][t] = __halves2bfloat162(
+            dist_bf16(g.dis_y[j[2 * k] * KS + t], scale, m),
+            dist_bf16(g.dis_y[j[2 * k + 1] * KS + t], scale, m));
+    }
+  }
+  __device__ int row(int s) const { return lr[s]; }
+  __device__ bf162 dxp(int s) const { return dx[s]; }
+  __device__ unsigned mxs(int s) const { return mx[s % KM]; }
+  __device__ int col(int v, int t) const { return lc[v][t]; }
+  __device__ bf162 dyp(int k, int t) const { return dy[k][t]; }
+  __device__ bf16 dyv(int v, int t) const {
+    return (v & 1) ? __high2bfloat16(dy[v / 2][t])
+                   : __low2bfloat16(dy[v / 2][t]);
+  }
+  __device__ unsigned myt(int v, int t) const { return my[v][t % KM]; }
+};
+
+template <bool kLinear>
+struct FovBf<0, kLinear> {
+  Geo g;
+  int i, j[kVec], r_lo, c_lo, S, scale;
+  float m;
+
+  __device__ void load(const Geo& g_, int i_, const int* j_, int r_lo_,
+                       int c_lo_, int S_, int scale_, float m_) {
+    g = g_;
+    i = i_; r_lo = r_lo_; c_lo = c_lo_; S = S_; scale = scale_; m = m_;
+    for (int v = 0; v < kVec; ++v) j[v] = j_[v];
+  }
+  __device__ int row(int s) const { return g.rows[i * S + s] - r_lo; }
+  __device__ bf162 dxp(int s) const {
+    return __bfloat162bfloat162(dist_bf16(g.dis_x[i * S + s], scale, m));
+  }
+  __device__ unsigned mxs(int s) const { return g.mask_x[i * S + s]; }
+  __device__ int col(int v, int t) const {
+    return g.cols[j[v] * S + t] - c_lo;
+  }
+  __device__ bf162 dyp(int k, int t) const {
+    return __halves2bfloat162(
+        dist_bf16(g.dis_y[j[2 * k] * S + t], scale, m),
+        dist_bf16(g.dis_y[j[2 * k + 1] * S + t], scale, m));
+  }
+  __device__ bf16 dyv(int v, int t) const {
+    return dist_bf16(g.dis_y[j[v] * S + t], scale, m);
+  }
+  __device__ unsigned myt(int v, int t) const {
+    return g.mask_y[j[v] * S + t];
+  }
+};
+
+template <int KS, bool kLinear, typename InT>
+using FovOf = typename std::conditional<kIsBf16<InT>, FovBf<KS, kLinear>,
+                                        Fov<KS, kLinear>>::type;
 
 // The window entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha};
 // float32, or for bf16 inputs bf16.
@@ -250,40 +351,58 @@ __device__ __forceinline__ float unit(bf16 h, float) {
   return __bfloat162float(h);
 }
 
-// The bf16 instance's neighbour: the weight in the twin's bf16 steps and
-// the sums.  Gaussian: every step, each sum and the weight rounded to bf16;
-// linear: a x and lin(a, x) rounded, the rest float32 (lerf_tpu's float32
-// branch masks promote the weight).  dx, dy, m: already bf16.
-__device__ __forceinline__ void add_bf16(Bf4 p, float dx, float dy,
-                                         unsigned, unsigned, int antialias,
-                                         float m, float& wn, float& ws) {
-  const float n = __bfloat162float(p.x), two_rho = __bfloat162float(p.y);
-  const float sx = __bfloat162float(p.z), sy = __bfloat162float(p.w);
-  const float a = bfr(sx * dx);
-  const float b = bfr(sy * dy);
-  const float xn = bfr(a * a);
-  const float yn = bfr(b * b);
-  const float xy = bfr(bfr(a * sy) * dy);
-  float w = bfr(expf(bfr(-0.5f * bfr(bfr(xn - bfr(two_rho * xy)) + yn))));
-  if (antialias) w = bfr(m * w);
-  wn = bfr(wn + bfr(w * n));
-  ws = bfr(ws + w);
+// The bf16 instance's Gaussian neighbours of outputs 2k and 2k + 1 (the
+// lanes of each pair), entries p0 and p1, their distances dx = (dx, dx) and
+// dy: the twin's twelve bf16 steps in its order, each a native bf16 pair
+// operation (one rounding to nearest even, as the twin's float operation
+// then rounding gives it: lerf_torch/tools/bf16_steps_exhaustive.cu), expf
+// in float32 and one rounding; then the weight into the sums, one rounded
+// add each.  The window entries are transposed into pairs of a field:
+// (n0, n1), (2 rho0, 2 rho1), (sx0, sx1), (sy0, sy1).
+__device__ __forceinline__ void add_pair(Bf4 p0, Bf4 p1, bf162 dx, bf162 dy,
+                                         int antialias, bf162 m, bf162& wn,
+                                         bf162& ws) {
+  const bf162 lo0 = __halves2bfloat162(p0.x, p0.y);
+  const bf162 hi0 = __halves2bfloat162(p0.z, p0.w);
+  const bf162 lo1 = __halves2bfloat162(p1.x, p1.y);
+  const bf162 hi1 = __halves2bfloat162(p1.z, p1.w);
+  const bf162 n = __lows2bfloat162(lo0, lo1);
+  const bf162 two_rho = __highs2bfloat162(lo0, lo1);
+  const bf162 sx = __lows2bfloat162(hi0, hi1);
+  const bf162 sy = __highs2bfloat162(hi0, hi1);
+  const bf162 a = __hmul2_rn(sx, dx);
+  const bf162 b = __hmul2_rn(sy, dy);
+  const bf162 xn = __hmul2_rn(a, a);
+  const bf162 yn = __hmul2_rn(b, b);
+  const bf162 xy = __hmul2_rn(__hmul2_rn(a, sy), dy);
+  const bf162 e = __hmul2_rn(
+      __float2bfloat162_rn(-0.5f),
+      __hadd2_rn(__hsub2_rn(xn, __hmul2_rn(two_rho, xy)), yn));
+  bf162 w = __floats2bfloat162_rn(expf(__low2float(e)),
+                                  expf(__high2float(e)));
+  if (antialias) w = __hmul2_rn(m, w);
+  wn = __hadd2_rn(wn, __hmul2_rn(w, n));
+  ws = __hadd2_rn(ws, w);
 }
 
-__device__ __forceinline__ float lin_bf16(float a, float x, unsigned mask) {
-  const float ax = bfr(a * x);
-  return (mask & 1u) ? bfr(ax + 1.0f) : ((mask & 2u) ? bfr(1.0f - ax) : 0.0f);
-}
-
-__device__ __forceinline__ void add_bf16(Bf2 p, float dx, float dy,
-                                         unsigned mx, unsigned my,
-                                         int antialias, float m, float& wn,
-                                         float& ws) {
-  const float n = __bfloat162float(p.x), alpha = __bfloat162float(p.y);
-  float w = fmaxf(lin_bf16(alpha, dx, mx), 0.0f) *
-            fmaxf(lin_bf16(alpha, dy, my), 0.0f);
+// The bf16 linear neighbour: (a dx, a dy) one pair product, each branch's
+// value a x + 1 (bit 0) and 1 - a x (bit 1) one pair add, picked per axis
+// on its branch bits; the rest float32 (lerf_tpu's float32 branch masks
+// promote the weight).  dxy: the output's (dx, dy), bf16.
+__device__ __forceinline__ void add_bf16(Bf2 p, bf162 dxy, unsigned mx,
+                                         unsigned my, int antialias, float m,
+                                         float& wn, float& ws) {
+  const bf162 one = __float2bfloat162_rn(1.0f);
+  const bf162 ax = __hmul2_rn(__bfloat162bfloat162(p.y), dxy);
+  const bf162 neg = __hadd2_rn(ax, one);
+  const bf162 pos = __hsub2_rn(one, ax);
+  const float lx = (mx & 1u) ? __low2float(neg)
+                             : ((mx & 2u) ? __low2float(pos) : 0.0f);
+  const float ly = (my & 1u) ? __high2float(neg)
+                             : ((my & 2u) ? __high2float(pos) : 0.0f);
+  float w = fmaxf(lx, 0.0f) * fmaxf(ly, 0.0f);
   if (antialias) w = m * w;
-  wn += w * n;
+  wn += w * __bfloat162float(p.x);
   ws += w;
 }
 
@@ -348,31 +467,82 @@ __device__ __forceinline__ void load_window(
   }
 }
 
+// The bf16 instance's sums over the neighbours whose source row lies in
+// window rows [k0, k0 + nrows), s-major, t-minor, into wn / ws (floats
+// holding bf16 values in the Gaussian mode, so the pairs' pack and unpack
+// are exact).  Gaussian: outputs 2k and 2k + 1 a pair (add_pair), each sum
+// a bf16 pair; linear: an output at a time, (dx, dy) a pair, the sums
+// float32.
+template <bool kStrip, int KS, bool kLinear>
+__device__ __forceinline__ void accumulate_bf16(
+    const Entry<kLinear, bf16>* win, const FovBf<KS, kLinear>& fov,
+    int S_rt, int pitch, int k0, int nrows, int antialias, float m,
+    float* wn, float* ws) {
+  const int S = KS > 0 ? KS : S_rt;
+  const bf162 m2 = __float2bfloat162_rn(m);
+  bf162 wn2[kVec / 2], ws2[kVec / 2];
+#pragma unroll
+  for (int k = 0; k < kVec / 2; ++k) {
+    wn2[k] = __floats2bfloat162_rn(wn[2 * k], wn[2 * k + 1]);
+    ws2[k] = __floats2bfloat162_rn(ws[2 * k], ws[2 * k + 1]);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int r = fov.row(s) - k0;
+    if (kStrip && (r < 0 || r >= nrows)) continue;
+    const Entry<kLinear, bf16>* wrow = win + r * pitch;
+    const bf162 dx = fov.dxp(s);
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      if constexpr (kLinear) {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v)
+          add_bf16(wrow[fov.col(v, t)],
+                   __halves2bfloat162(__low2bfloat16(dx), fov.dyv(v, t)),
+                   fov.mxs(s), fov.myt(v, t), antialias, m, wn[v], ws[v]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec / 2; ++k)
+          add_pair(wrow[fov.col(2 * k, t)], wrow[fov.col(2 * k + 1, t)], dx,
+                   fov.dyp(k, t), antialias, m2, wn2[k], ws2[k]);
+      }
+    }
+  }
+  if constexpr (!kLinear) {
+#pragma unroll
+    for (int k = 0; k < kVec / 2; ++k) {
+      wn[2 * k] = __low2float(wn2[k]);
+      wn[2 * k + 1] = __high2float(wn2[k]);
+      ws[2 * k] = __low2float(ws2[k]);
+      ws[2 * k + 1] = __high2float(ws2[k]);
+    }
+  }
+}
+
 // The weighted sums over the neighbours whose source row lies in window
 // rows [k0, k0 + nrows), s-major, t-minor.  kStrip false: all of them (the
 // whole window is in shared memory).
 template <bool kStrip, int KS, bool kLinear, typename InT>
 __device__ __forceinline__ void accumulate(
-    const Entry<kLinear, InT>* win,
-    const Fov<KS, kLinear, kIsBf16<InT>>& fov, int S_rt, int pitch, int k0,
-    int nrows, int antialias, float m, float* wn, float* ws) {
-  const int S = KS > 0 ? KS : S_rt;
+    const Entry<kLinear, InT>* win, const FovOf<KS, kLinear, InT>& fov,
+    int S_rt, int pitch, int k0, int nrows, int antialias, float m,
+    float* wn, float* ws) {
+  if constexpr (kIsBf16<InT>) {
+    accumulate_bf16<kStrip, KS, kLinear>(win, fov, S_rt, pitch, k0, nrows,
+                                         antialias, m, wn, ws);
+  } else {
+    const int S = KS > 0 ? KS : S_rt;
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int r = fov.row(s) - k0;
-    if (kStrip && (r < 0 || r >= nrows)) continue;
-    const Entry<kLinear, InT>* wrow = win + r * pitch;
-    const float dx = fov.dxs(s);
+    for (int s = 0; s < S; ++s) {
+      const int r = fov.row(s) - k0;
+      if (kStrip && (r < 0 || r >= nrows)) continue;
+      const Entry<kLinear, InT>* wrow = win + r * pitch;
+      const float dx = fov.dxs(s);
 #pragma unroll
-    for (int t = 0; t < S; ++t) {
+      for (int t = 0; t < S; ++t) {
 #pragma unroll
-      for (int v = 0; v < kVec; ++v) {
-        const Entry<kLinear, InT> p = wrow[fov.col(v, t)];
-        if constexpr (kIsBf16<InT>) {
-          // the masks exist in the linear mode alone
-          add_bf16(p, dx, fov.dyt(v, t), kLinear ? fov.mxs(s) : 0u,
-                   kLinear ? fov.myt(v, t) : 0u, antialias, m, wn[v], ws[v]);
-        } else {
+        for (int v = 0; v < kVec; ++v) {
+          const Entry<kLinear, InT> p = wrow[fov.col(v, t)];
           const float dy = fov.dyt(v, t);
           float w;
           if constexpr (kLinear) {              // {n, alpha}
@@ -444,7 +614,7 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   int j[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) j[v] = min(jb + v, j_end);
-  Fov<KS, kLinear, kIsBf16<InT>> fov;
+  FovOf<KS, kLinear, InT> fov;
   fov.load(geo, min(i, i_end), j, r_lo, c_lo, S, scale, m);
 
   // 3. the weighted sums, s-major, t-minor (the strips run in row order,

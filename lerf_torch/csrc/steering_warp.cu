@@ -83,22 +83,35 @@
 //   is the port's steering_gaussian_warp / amplified_linear_warp on bf16
 //   tensors.  The geometry stays float64, one IEEE step at a time; only the
 //   final distance is cast, float64 -> float32 -> bf16, as PyTorch casts the
-//   host's float64 distances.  Every operation in float, then rounded to bf16
-//   (__float2bfloat16_rn), in the twin's order: the decode (max_sigma rounded
-//   to bf16 first), each step of the Gaussian weight and its expf, the flush
-//   below FLT_MIN; at support 2 (the twin's four-block path) each add of the
-//   sums and the quotient rounded to bf16; at any other support (its
-//   torch.sum of bf16 products, accumulated in float32) each product
-//   rounded, the two sums rounded once, then the quotient.  The linear mode's
-//   float32 branch masks promote its weight to float32: a x and lin(a, x)
-//   round to bf16, the rest is float32.  No bf16 intrinsic arithmetic.  The
+//   host's float64 distances.  Every operation of the twin rounds to bf16,
+//   in the twin's order: the decode (max_sigma rounded to bf16 first), each
+//   step of the Gaussian weight and its expf, the flush below FLT_MIN; at
+//   support 2 (the twin's four-block path) each add of the sums and the
+//   quotient; at any other support (its torch.sum of bf16 products,
+//   accumulated in float32) each product, the two sums once, then the
+//   quotient.  The linear mode's float32 branch masks promote its weight
+//   to float32: a x and lin(a, x) round to bf16, the rest is float32.  The
 //   tile holds bf16 entries, half the float ones.  A float32 feature with
 //   bf16 maps (the bf16 form without its feature tower, two_stage=False)
 //   decodes the maps in bf16 and runs the rest in float32, as lerf_tpu's
 //   promotion against its float32 distances does (template parameter
-//   HypT).  Every bf16 step is a float operation and two conversions:
-//   0.220 ms under the main homography against the float instance's 0.108
-//   on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 50, probe).
+//   HypT).
+//   Each bf16 step runs as one native bf16 instruction on a pair of values
+//   (__hmul2_rn, __hadd2_rn, __hsub2_rn), which gives the twin's float
+//   operation rounded to bf16 bit for bit: every operand is a bf16 value
+//   and float32's 24 bits exceed twice bf16's 8 plus 2, so float-then-round
+//   is the correctly rounded bf16 result.  0 mismatches over all 2^32
+//   operand pairs a step on the card, both lanes
+//   (lerf_torch/tools/bf16_steps_exhaustive.cu; also the HFMA2 forms a x 1
+//   + b and a x b + (-0) in which ptxas emits some of them).  No other
+//   fused form: __hfma rounds a x b + c once where the twin rounds twice.
+//   The pair is the thread's two rows (sums_bf16): the tile entries of the
+//   two neighbours transposed into (n, n'), (2 rho, 2 rho'), ...
+//   (weight_pair), the distances rounded to bf16 once a thread at support
+//   2 (at others once where each is derived); the flush tests the float32
+//   exp against 2^-126 - 2^-134, the midpoint that rounds up to FLT_MIN,
+//   before its one rounding.  Its times: PERF.md section 6
+//   (lerf_torch/tools/probe_lut_kernels.py --k5).
 // - A frames axis (the jax.vmap of lerf_tpu/pipeline.py::_warp_batch_fn):
 //   blockIdx.z is the frame, each with its own inverse and pads from a
 //   small array passed by value; the frames share the sizes, the support
@@ -141,6 +154,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
 
 template <typename InT>
 constexpr bool kIsBf16 = std::is_same<InT, bf16>::value;
@@ -412,54 +426,56 @@ __device__ __forceinline__ float weight(float2 p, float dx, float dy,
   return fmaxf(lin(p.y, dx, bx), 0.0f) * fmaxf(lin(p.y, dy, by), 0.0f);
 }
 
-// The bf16 instance's weights, from the float32 distances rounded to bf16:
-// the Gaussian's every step rounded to bf16, then flushed below FLT_MIN;
-// the linear's a x and lin(a, x) rounded, the clip and product float32.
-__device__ __forceinline__ float weight(Bf4 p, float dx, float dy,
-                                        unsigned, unsigned) {
-  dx = bfr(dx);
-  dy = bfr(dy);
-  const float two_rho = __bfloat162float(p.y);
-  const float sx = __bfloat162float(p.z), sy = __bfloat162float(p.w);
-  const float a = bfr(sx * dx);
-  const float b = bfr(sy * dy);
-  const float xn = bfr(a * a);
-  const float yn = bfr(b * b);
-  const float xy = bfr(bfr(a * sy) * dy);
-  const float w =
-      bfr(expf(bfr(-0.5f * bfr(bfr(xn - bfr(two_rho * xy)) + yn))));
-  return w < FLT_MIN ? 0.0f : w;
+// The bf16 instance's Gaussian weights of the thread's two rows (the lanes
+// of each pair), entries p0 and p1, distances dx = (dx_0, dx_1) and dy:
+// the twin's bf16 steps in its order, each a native bf16 pair operation
+// (one rounding to nearest even, as the twin's float operation then
+// rounding gives it: lerf_torch/tools/bf16_steps_exhaustive.cu), expf in
+// float32 and one rounding, flushed below FLT_MIN.  The flush is on the
+// float32 exp, before its rounding: the bf16 value is below FLT_MIN exactly
+// where the float32 one is below kKeep = 2^-126 - 2^-134, the midpoint
+// that rounds (to even) up to FLT_MIN.  n: the features (n_0, n_1).
+constexpr float kKeep = 0x1.fep-127f;
+
+__device__ __forceinline__ bf162 weight_pair(Bf4 p0, Bf4 p1, bf162 dx,
+                                             bf162 dy, bf162& n) {
+  const bf162 lo0 = __halves2bfloat162(p0.x, p0.y);
+  const bf162 hi0 = __halves2bfloat162(p0.z, p0.w);
+  const bf162 lo1 = __halves2bfloat162(p1.x, p1.y);
+  const bf162 hi1 = __halves2bfloat162(p1.z, p1.w);
+  n = __lows2bfloat162(lo0, lo1);
+  const bf162 two_rho = __highs2bfloat162(lo0, lo1);
+  const bf162 sx = __lows2bfloat162(hi0, hi1);
+  const bf162 sy = __highs2bfloat162(hi0, hi1);
+  const bf162 a = __hmul2_rn(sx, dx);
+  const bf162 b = __hmul2_rn(sy, dy);
+  const bf162 xn = __hmul2_rn(a, a);
+  const bf162 yn = __hmul2_rn(b, b);
+  const bf162 xy = __hmul2_rn(__hmul2_rn(a, sy), dy);
+  const bf162 e = __hmul2_rn(
+      __float2bfloat162_rn(-0.5f),
+      __hadd2_rn(__hsub2_rn(xn, __hmul2_rn(two_rho, xy)), yn));
+  const float w0 = expf(__low2float(e)), w1 = expf(__high2float(e));
+  return __floats2bfloat162_rn(w0 < kKeep ? 0.0f : w0,
+                               w1 < kKeep ? 0.0f : w1);
 }
 
-__device__ __forceinline__ float lin_bf16(float a, float x, unsigned mask) {
-  const float ax = bfr(a * x);
-  return (mask & 1u) ? bfr(ax + 1.0f) : ((mask & 2u) ? bfr(1.0f - ax) : 0.0f);
-}
-
-__device__ __forceinline__ float weight(Bf2 p, float dx, float dy,
-                                        unsigned bx, unsigned by) {
-  const float a = __bfloat162float(p.y);
-  return fmaxf(lin_bf16(a, bfr(dx), bx), 0.0f) *
-         fmaxf(lin_bf16(a, bfr(dy), by), 0.0f);
-}
-
-// One neighbour into the bf16 instance's sums (n its feature).  Gaussian:
-// at support 2 each add rounded to bf16, at any other the product rounded
-// and the sums float32 (rounded once, in quotient); linear: float32.
-template <bool kLinear>
-__device__ __forceinline__ void add_bf16(float wt, bf16 n, int S, float& wn,
-                                         float& ws) {
-  const float x = __bfloat162float(n);
-  if constexpr (kLinear) {
-    wn += wt * x;
-    ws += wt;
-  } else if (S == 2) {
-    wn = bfr(wn + bfr(wt * x));
-    ws = bfr(ws + wt);
-  } else {
-    wn += bfr(wt * x);
-    ws += wt;
-  }
+// The bf16 linear weight of one output: (a dx, a dy) one pair product,
+// each branch's value a x + 1 (bit 0) and 1 - a x (bit 1) one pair add,
+// picked per axis on its branch bits; the clip and the product float32
+// (lerf_tpu's float32 branch masks promote the weight).  dxy: the
+// output's (dx, dy), bf16.
+__device__ __forceinline__ float weight_bf16(Bf2 p, bf162 dxy, unsigned bx,
+                                             unsigned by) {
+  const bf162 one = __float2bfloat162_rn(1.0f);
+  const bf162 ax = __hmul2_rn(__bfloat162bfloat162(p.y), dxy);
+  const bf162 neg = __hadd2_rn(ax, one);
+  const bf162 pos = __hsub2_rn(one, ax);
+  const float lx = (bx & 1u) ? __low2float(neg)
+                             : ((bx & 2u) ? __low2float(pos) : 0.0f);
+  const float ly = (by & 1u) ? __high2float(neg)
+                             : ((by & 2u) ? __high2float(pos) : 0.0f);
+  return fmaxf(lx, 0.0f) * fmaxf(ly, 0.0f);
 }
 
 // The quotient the epilogue finishes: the bf16 Gaussian's rounded to bf16
@@ -478,6 +494,106 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
                                                 unsigned char*) {
   if (isnan(v)) v = 0.0f;
   return (unsigned char)fminf(fmaxf(rintf(v), 0.0f), norm);
+}
+
+// The bf16 instance's sums and epilogue: rows 2q and 2q + 1 of the thread
+// are the lanes of each pair (past the output's bottom edge the second
+// lane repeats the first and is not written), their distances rounded to
+// bf16 once (at a compile-time support; at any other, once where each is
+// derived).  Gaussian: weight_pair; at support 2 (the twin's four-block
+// path) each sum a rounded bf16 pair add; at any other (its torch.sum of
+// bf16 products, accumulated in float32) each product a rounded pair
+// product and the sums float32, per lane.  Linear: weight_bf16 an output
+// at a time, float32 sums.
+template <int KS, typename OutT, bool kLinear>
+__device__ __forceinline__ void sums_bf16(
+    Window<KS, kLinear>* px, const bool* ok,
+    const Entry<kLinear, bf16>* tile, bool shared, int r_lo, int c_lo,
+    int nr, int nc, const bf16* __restrict__ img,
+    const bf16* __restrict__ codes, OutT* __restrict__ out, const Warp& w,
+    int C, float max_sigma, float norm) {
+  static_assert(kRowsPerThread % 2 == 0, "pairs of a thread's rows");
+  const int j = blockIdx.x * kTileW + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kRowsPerThread; q += 2) {
+    if (!ok[q]) return;
+    if (!ok[q + 1]) px[q + 1] = px[q];
+    const Window<KS, kLinear>& p0 = px[q];
+    const Window<KS, kLinear>& p1 = px[q + 1];
+    const int S = p0.support();
+    const int i = blockIdx.y * kTileH + threadIdx.y + q * kThreadRows;
+    auto dxp = [&](int s) {
+      return __floats2bfloat162_rn(p0.dxs(s), p1.dxs(s));
+    };
+    auto dyp = [&](int t) {
+      return __floats2bfloat162_rn(p0.dyt(t), p1.dyt(t));
+    };
+    bf162 dx2[KS > 0 ? KS : 1], dy2[KS > 0 ? KS : 1];
+    if constexpr (KS > 0) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        dx2[s] = dxp(s);
+        dy2[s] = dyp(s);
+      }
+    }
+    auto entry = [&](const Window<KS, kLinear>& p, int c, int s, int t) {
+      return shared
+                 ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
+                 : decode<kLinear, bf16>(img, codes, c, p.row(s) - w.pad_r,
+                                         p.col(t) - w.pad_c, w.H, w.W, norm,
+                                         max_sigma);
+    };
+    for (int c = 0; c < C; ++c) {
+      float wn[2] = {0.0f, 0.0f}, ws[2] = {0.0f, 0.0f};
+      bf162 wn2 = __float2bfloat162_rn(0.0f), ws2 = wn2;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        bf162 dx;
+        if constexpr (KS > 0) dx = dx2[s]; else dx = dxp(s);
+#pragma unroll
+        for (int t = 0; t < S; ++t) {
+          bf162 dy;
+          if constexpr (KS > 0) dy = dy2[t]; else dy = dyp(t);
+          const Entry<kLinear, bf16> v0 = entry(p0, c, s, t);
+          const Entry<kLinear, bf16> v1 = entry(p1, c, s, t);
+          if constexpr (kLinear) {
+            const float w0 = weight_bf16(v0, __lows2bfloat162(dx, dy),
+                                         p0.bxs(s), p0.byt(t));
+            const float w1 = weight_bf16(v1, __highs2bfloat162(dx, dy),
+                                         p1.bxs(s), p1.byt(t));
+            wn[0] += w0 * __bfloat162float(v0.x);
+            wn[1] += w1 * __bfloat162float(v1.x);
+            ws[0] += w0;
+            ws[1] += w1;
+          } else {
+            bf162 n;
+            const bf162 wt = weight_pair(v0, v1, dx, dy, n);
+            if (S == 2) {
+              wn2 = __hadd2_rn(wn2, __hmul2_rn(wt, n));
+              ws2 = __hadd2_rn(ws2, wt);
+            } else {
+              const bf162 wx = __hmul2_rn(wt, n);
+              wn[0] += __low2float(wx);
+              wn[1] += __high2float(wx);
+              ws[0] += __low2float(wt);
+              ws[1] += __high2float(wt);
+            }
+          }
+        }
+      }
+      if (!kLinear && S == 2) {
+        wn[0] = __low2float(wn2);
+        wn[1] = __high2float(wn2);
+        ws[0] = __low2float(ws2);
+        ws[1] = __high2float(ws2);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (ok[q + k])
+          out[((size_t)c * w.OH + i + k * kThreadRows) * w.OW + j] =
+              finish(quotient<kLinear, bf16>(wn[k], ws[k], S), norm, out);
+    }
+  }
 }
 
 // At least kMinBlocks blocks an SM: registers capped at 64 (80 uncapped,
@@ -557,38 +673,40 @@ __device__ __forceinline__ void warp_block(
   }
 
   // 4. the weighted sums, s-major, t-minor, and the epilogue
+  if constexpr (kIsBf16<InT>) {
+    sums_bf16<KS, OutT, kLinear>(px, ok, tile, shared, r_lo, c_lo, nr, nc,
+                                 img, codes, out, w, C, max_sigma, norm);
+  } else {
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    if (!ok[k]) continue;
-    const Window<KS, kLinear>& p = px[k];
-    const int S = p.support();
-    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
-    for (int c = 0; c < C; ++c) {
-      float wn = 0.0f, ws = 0.0f;
-      // each row, distance and branch read where it is used: hoisted out
-      // of the t loop they cost the support-2 path about 2 %
-      // (lerf_torch/tools/probe_lut_kernels.py)
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      if (!ok[k]) continue;
+      const Window<KS, kLinear>& p = px[k];
+      const int S = p.support();
+      const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+      for (int c = 0; c < C; ++c) {
+        float wn = 0.0f, ws = 0.0f;
+        // each row, distance and branch read where it is used: hoisted out
+        // of the t loop they cost the support-2 path about 2 %
+        // (lerf_torch/tools/probe_lut_kernels.py)
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
+        for (int s = 0; s < S; ++s) {
 #pragma unroll
-        for (int t = 0; t < S; ++t) {
-          const Entry<kLinear, InT> v =
-              shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
-                     : decode<kLinear, InT>(img, codes, c,
-                                            p.row(s) - w.pad_r,
-                                            p.col(t) - w.pad_c, w.H, w.W,
-                                            norm, max_sigma);
-          const float wt = weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));
-          if constexpr (kIsBf16<InT>) {
-            add_bf16<kLinear>(wt, v.x, S, wn, ws);
-          } else {
+          for (int t = 0; t < S; ++t) {
+            const Entry<kLinear, InT> v =
+                shared
+                    ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
+                    : decode<kLinear, InT>(img, codes, c, p.row(s) - w.pad_r,
+                                           p.col(t) - w.pad_c, w.H, w.W,
+                                           norm, max_sigma);
+            const float wt =
+                weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));
             wn += wt * v.x;
             ws += wt;
           }
         }
+        out[((size_t)c * w.OH + i) * w.OW + j] =
+            finish(quotient<kLinear, InT>(wn, ws, S), norm, out);
       }
-      out[((size_t)c * w.OH + i) * w.OW + j] =
-          finish(quotient<kLinear, InT>(wn, ws, S), norm, out);
     }
   }
 }

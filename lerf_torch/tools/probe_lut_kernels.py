@@ -4,7 +4,8 @@ one part taken out.
 
     python3 lerf_torch/tools/probe_lut_kernels.py [--k5 OTHER.cu ...]
                                                   [--k1 OTHER.cu ...]
-                                                  [--rounds N] [--k6]
+                                                  [--rounds N] [--sass]
+                                                  [--k6]
                                                   [--rows [--k2 OTHER.cu]]
 
 Each variant is the kernel's source with one text substitution, built on
@@ -52,9 +53,22 @@ stages' outputs.
   round's output held to the kernel's.  ``--k1 OTHER.cu``: another K1
   source (an earlier commit's ``steering_resize.cu``) timed the same way
   beside K1 as built, its int32 and float32 instances at ×4 (uint8
-  output), outputs held equal.  ``--sass`` also prints,
-  for K5 as built and each ``--k5`` source, each kernel's registers and its
-  SASS instruction count by opcode (``cuobjdump``).
+  output), outputs held equal.  Then the bf16 instances against the first
+  ``--k1`` / ``--k5`` source's (``probe_bf16``): every case of
+  ``bf16_cases`` (chip_smoke phase 50's and the card tests' bf16 cases:
+  both weights, K1 at every scale, K5 under every matrix with the mask,
+  supports 2 and 4, a batch of 4, the float-feature / bf16-map pair; the
+  wrappers launching the other source's C entry, ``other_library``) held
+  bit-equal once; then, in ``--rounds`` alternating rounds on the bf16
+  IMDN form's own stage outputs, K1 at ×4 and K5 under the main
+  homography at supports 2 and 4, both weights, and the pair, uint8
+  output, each by events, CUDA-graph replays and the profiler, outputs
+  held bit-equal every round (exit 1 if any case differs).  ``--sass``
+  also prints, for K5 and K1 as built and each ``--k5`` / ``--k1`` source,
+  each kernel's registers and its SASS instruction count by opcode
+  (``cuobjdump``), and each instance beside the other source's
+  (``compare_sass``: registers, whether the opcode counts are the same,
+  and a bf16 instance's HFMA2 instructions).
 
 * ``--k6``: K6 alone (nothing of the above), on chip_smoke's phase-27
   inputs at the training shape (16 planes of 48² → ×4, support 2) and the
@@ -97,6 +111,7 @@ per variant and the card line (name, power limit).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -228,14 +243,16 @@ VARIANTS = {
                           "constexpr int kTileH = 32;")],
         # the support-2 Gaussian path's loop order, fields and load order
         "row, distance and branch hoisted out of the column loop": [
-            ("#pragma unroll\n      for (int s = 0; s < S; ++s) {\n",
-             "#pragma unroll\n      for (int s = 0; s < S; ++s) {\n"
-             "        const int r = p.row(s);\n        const float dx = p.dxs(s);\n"
-             "        const unsigned bx = p.bxs(s);\n"),
-            ("shared ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]",
-             "shared ? tile[(c * nr + r - r_lo) * nc + p.col(t) - c_lo]"),
-            ("decode<kLinear, InT>(img, codes, c,\n"
-             "                                            p.row(s) - w.pad_r,",
+            ("#pragma unroll\n        for (int s = 0; s < S; ++s) {\n",
+             "#pragma unroll\n        for (int s = 0; s < S; ++s) {\n"
+             "          const int r = p.row(s);\n"
+             "          const float dx = p.dxs(s);\n"
+             "          const unsigned bx = p.bxs(s);\n"),
+            ("                    ? tile[(c * nr + p.row(s) - r_lo) * nc"
+             " + p.col(t) - c_lo]",
+             "                    ? tile[(c * nr + r - r_lo) * nc"
+             " + p.col(t) - c_lo]"),
+            ("decode<kLinear, InT>(img, codes, c, p.row(s) - w.pad_r,",
              "decode<kLinear, InT>(img, codes, c, r - w.pad_r,"),
             ("weight(v, p.dxs(s), p.dyt(t), p.bxs(s), p.byt(t));",
              "weight(v, dx, p.dyt(t), bx, p.byt(t));")],
@@ -510,6 +527,56 @@ def sass_rows(lib, kernel="steering_warp_kernel"):
     return rows
 
 
+def sass_lines(lib, kernel, opcode):
+    """{kernel function: [its SASS instructions whose opcode starts with
+    ``opcode``, register numbers replaced by R]}, by ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    rows, fn = {}, None
+    for line in subprocess.run([tool, "-sass", lib], capture_output=True,
+                               text=True, check=True).stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if kernel in head.group(1) else None
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if fn and op and re.match(r"(@!?U?P\w+\s+)?" + opcode,
+                                  op.group(1)):
+            rows.setdefault(fn, []).append(
+                re.sub(r"\bR\d+\b", "R", op.group(1)))
+    return rows
+
+
+def plain_name(fn):
+    """A kernel function's mangled name without its source file's anonymous
+    namespace (which names the file), so two sources' instances compare."""
+    return re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "",
+                  fn)
+
+
+def compare_sass(libs, kernel, key, other, emit):
+    """Registers and SASS opcode counts of every ``key`` instance of
+    ``kernel`` as built beside another source's (``other``, its path), and
+    each bf16 instance's HFMA2 instructions (a bf16 multiply is an HFMA2
+    with the addend -RZ)."""
+    mine = {plain_name(f): r for f, r in sass_rows(
+        libs[(kernel, "as built")], key).items()}
+    theirs = {plain_name(f): r for f, r in sass_rows(
+        libs[(kernel, other)], key).items()}
+    hfma = {plain_name(f): sorted(set(v)) for f, v in sass_lines(
+        libs[(kernel, "as built")], key, "HFMA2").items()}
+    for fn in sorted(set(mine) | set(theirs)):
+        a, b = mine.get(fn), theirs.get(fn)
+        emit({"kernel": kernel, "function": fn, "bf16": "nv_bfloat16" in fn,
+              "registers": [a and a[0], b and b[0]],
+              "instructions": [a and sum(a[1].values()),
+                               b and sum(b[1].values())],
+              "same_opcode_counts": bool(a and b and a[1] == b[1]),
+              **({"opcodes": dict(sorted(a[1].items())),
+                  "other_opcodes": dict(sorted(b[1].items())),
+                  "hfma2": hfma.get(fn, [])}
+                 if a and b and "nv_bfloat16" in fn else {})})
+
+
 def k6_variant(fn, feat, hyper, g, args, max_sigma=10.0):
     """One launch of a K6 variant's library on the wrapper's arguments."""
     import torch
@@ -757,6 +824,233 @@ def probe_rows(rounds: int, k2_sources=()) -> int:
     return 0
 
 
+def same_bits(a, b) -> bool:
+    """Two outputs bit for bit (float32 ones by their bit patterns)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+@contextlib.contextmanager
+def other_library(k1_path=None, k5_path=None):
+    """The wrappers (``kernels.resize``, ``kernels.warp``) launching K1's
+    and / or K5's C entry from another source's library (built alone by
+    ``build_variants``), everything else from the package's."""
+    from lerf_torch.ops.kernels import _build
+
+    real = _build.library()
+
+    class Lib:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    lib = Lib()
+    for path, entry in ((k1_path, "lerf_steering_resize"),
+                        (k5_path, "lerf_steering_warp_batch")):
+        if path is not None:
+            fn = getattr(ctypes.CDLL(path), entry)
+            fn.argtypes = getattr(real, entry).argtypes
+            fn.restype = ctypes.c_int
+            setattr(lib, entry, fn)
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = real
+
+
+def bf16_cases(dev):
+    """The bf16 cases that K1's and K5's bf16 instances are held to (the
+    wrappers' calls, each returning its outputs): chip_smoke phase 50's
+    (K1 at ×4, ×2.5, ×3.55 and ×0.5, K5 under its four matrices with the
+    mask and under the main one at support 4, a batch of 4 frames with
+    masks, both weights; a float32 feature with bf16 maps) and the card
+    tests' (tests/test_torch_kernels.py: every ``RESIZE_CASES`` and
+    ``WARP_CASES`` entry, supports 2 and 4, the batch), float32 and uint8
+    outputs.  {name: call}."""
+    import importlib.util
+
+    import torch
+
+    import chip_smoke as cs
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(ROOT, "tests", "test_torch_kernels.py"))
+    ct = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ct)
+    bf, u8 = torch.bfloat16, torch.uint8
+    cases = {}
+
+    def resize(name, feat, hyper, geom, linear):
+        cases[name] = lambda: [
+            k1.steering_resize(feat, hyper, geom, linear=linear),
+            k1.steering_resize(feat, hyper, geom, linear=linear,
+                               out_dtype=u8)]
+
+    def warp(name, feat, hyper, params, linear):
+        def run():
+            mask = torch.empty(params.out_sz, dtype=torch.bool, device=dev)
+            return [k5.steering_warp(feat, hyper, params, linear=linear,
+                                     mask_out=mask),
+                    k5.steering_warp(feat, hyper, params, linear=linear,
+                                     out_dtype=u8), mask]
+        cases[name] = run
+
+    def batch(name, feats, hypers, warps, linear):
+        def run():
+            masks = torch.empty((len(warps),) + warps[0].out_sz,
+                                dtype=torch.bool, device=dev)
+            return [k5.steering_warp_batch(feats, hypers, warps,
+                                           linear=linear, out_dtype=u8,
+                                           mask_out=masks), masks]
+        cases[name] = run
+
+    rng = np.random.RandomState(15)
+    shape = (3, cs.LR_H, cs.LR_W)
+    big = {lin: tuple(t.to(bf) for t in cs.float_inputs(
+        rng, shape, 1 if lin else 3, dev)) for lin in (False, True)}
+    warps = [k5.WarpParams.create(shape[1:], cs.warp_matrix(s), cs.WARP_OUT)
+             for s in range(4)]
+    for lin in (False, True):
+        mode = "linear" if lin else "gauss"
+        feat, hyper = big[lin]
+        for scale in (4.0, 2.5, 3.55, 0.5):
+            resize(f"phase50 K1 {mode} x{scale}", feat, hyper,
+                   ResizeGeometry.create(shape[1:], scale_factors=[scale] * 2),
+                   lin)
+        for name, (matrix, out_sz) in cs.WARP_CASES.items():
+            warp(f"phase50 K5 {mode} {name} S=2", feat, hyper,
+                 k5.WarpParams.create(shape[1:], matrix, out_sz), lin)
+        main, out_sz = cs.WARP_CASES["main"]
+        warp(f"phase50 K5 {mode} main S=4", feat, hyper,
+             k5.WarpParams.create(shape[1:], main, out_sz, support=4), lin)
+        batch(f"phase50 K5 {mode} batch of 4",
+              torch.cat([feat, feat.flip(-1), feat.flip(-2), feat * 0.5]),
+              torch.cat([hyper, hyper.flip(-2), hyper.flip(-3), 1 - hyper]),
+              warps, lin)
+        mixed = feat.to(torch.float32).round()
+        resize(f"phase50 K1 {mode} float32 feature", mixed, hyper,
+               ResizeGeometry.create(shape[1:], scale_factors=[cs.SCALE] * 2),
+               lin)
+        warp(f"phase50 K5 {mode} float32 feature", mixed, hyper, warps[0],
+             lin)
+        oc = 1 if lin else 3
+        feat, hyper = (t.to(dev) for t in ct.bf16_inputs(oc=oc))
+        for name, (scale, aa) in ct.RESIZE_CASES.items():
+            resize(f"card K1 {mode} {name}", feat, hyper,
+                   ResizeGeometry.create(feat.shape[1:],
+                                         scale_factors=list(scale),
+                                         antialias=aa), lin)
+        for name, support in [(c, 2) for c in ct.WARP_CASES] + [
+                ("rotation", 4), ("x2.5-wide", 4)]:
+            matrix, wshape, out_sz = ct.WARP_CASES[name]
+            f, h = (t.to(dev) for t in ct.bf16_inputs(wshape, oc=oc))
+            warp(f"card K5 {mode} {name} S={support}", f, h,
+                 k5.WarpParams.create(wshape[1:], matrix, out_sz,
+                                      support=support), lin)
+        f, h = (t.to(dev) for t in ct.bf16_inputs((12, 45, 77), oc=oc))
+        batch(f"card K5 {mode} batch of 4", f, h,
+              [k5.WarpParams.create((45, 77), ct.jitter_matrix(
+                  s, (2.5, 2.5)), (112, 192)) for s in range(4)], lin)
+    return cases
+
+
+def probe_bf16(k1_other, k5_other, rounds, emit):
+    """K1's and K5's bf16 instances (and the float32-feature / bf16-map
+    pair) as built against another source's, in ``rounds`` alternating
+    rounds on the bf16 IMDN form's own stage outputs (chip_smoke phase
+    50's: the seed-0 model's bf16 towers on the seed-0 frame): K1 at ×4,
+    K5 under the main homography at supports 2 and 4, both weights, uint8
+    output, each by events, CUDA-graph replays and the profiler, the
+    outputs held equal every round.  First every case of ``bf16_cases``
+    run through both, outputs ``torch.equal`` (NaN where NaN).  Returns
+    the cases that differ."""
+    import torch
+
+    import chip_smoke as cs
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.pipeline import NetPredictor
+
+    dev = torch.device("cuda")
+    k1_path, k5_path = k1_other, k5_other
+    differ = []
+    for name, call in bf16_cases(dev).items():
+        want = call()
+        with other_library(k1_path, k5_path):
+            got = call()
+        equal = all(same_bits(a, b) for a, b in zip(want, got))
+        emit({"bf16_case": name, "equals_other": equal})
+        if not equal:
+            differ.append(name)
+
+    frame = np.random.RandomState(0).randint(0, 256, (cs.LR_H, cs.LR_W, 3))
+    x = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))
+                         .astype(np.float32) / 255).to(dev)
+    feat, hyper = NetPredictor.from_imdn(cs.imdn_bf16_model())._stages(x)
+    hyper = hyper.contiguous()
+    lin_hyper = hyper[..., :1].contiguous()
+    geom = ResizeGeometry.create((cs.LR_H, cs.LR_W),
+                                 scale_factors=[cs.SCALE] * 2)
+    ops = {lin: k1.ResizeOperands.create(geom, dev, linear=lin)
+           for lin in (False, True)}
+    u8 = torch.uint8
+    timed = {
+        "K1 bf16 gauss x4": ("steering_resize_kernel", lambda: k1.steering_resize(
+            feat, hyper, geom, operands=ops[False], out_dtype=u8)),
+        "K1 bf16 linear x4": ("steering_resize_kernel", lambda: k1.steering_resize(
+            feat, lin_hyper, geom, operands=ops[True], linear=True,
+            out_dtype=u8)),
+        "K1 float32 feature, bf16 maps, gauss x4": (
+            "steering_resize_kernel", lambda: k1.steering_resize(
+                feat.float(), hyper, geom, operands=ops[False],
+                out_dtype=u8))}
+    for support in (2, 4):
+        params = k5.WarpParams.create((cs.LR_H, cs.LR_W),
+                                      cs.WARP_CASES["main"][0], cs.WARP_OUT,
+                                      support=support)
+        for lin in (False, True):
+            mode = "linear" if lin else "gauss"
+            h = lin_hyper if lin else hyper
+            timed[f"K5 bf16 {mode} main S={support}"] = (
+                "steering_warp_kernel",
+                lambda h=h, p=params, lin=lin: k5.steering_warp(
+                    feat, h, p, linear=lin, out_dtype=u8))
+        if support == 2:
+            timed["K5 float32 feature, bf16 maps, gauss main S=2"] = (
+                "steering_warp_kernel", lambda p=params: k5.steering_warp(
+                    feat.float(), hyper, p, out_dtype=u8))
+    for rnd in range(rounds):
+        for name, (key, fn) in timed.items():
+            for source in ("as built", "other"):
+                lib = (other_library(k1_path, k5_path) if source == "other"
+                       else contextlib.nullcontext())
+                kernel = k1_path if "K1" in name else k5_path
+                if source == "other" and kernel is None:
+                    continue
+                with lib:
+                    out = fn()
+                    row = {"kernel": name, "source": source if
+                           source == "as built" else kernel, "round": rnd,
+                           "ms": cs.event_ms(fn, iters=50),
+                           "graph_ms": cs.graph_ms(fn),
+                           **cs.kernel_device_ms(fn, key)}
+                if source == "as built":
+                    want = out
+                else:
+                    row["equals_kernel"] = same_bits(out, want)
+                    if not row["equals_kernel"]:
+                        differ.append(f"{name} round {rnd}")
+                emit(row)
+    return differ
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -848,14 +1142,21 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(tmp, args.k5, k1_sources=args.k1)
-        for name in ["as built"] + args.k5 if args.sass else []:
-            for fn, (nreg, opc) in sass_rows(libs[("steering_warp",
-                                                   name)]).items():
-                print(json.dumps({"kernel": "steering_warp", "source": name,
-                                  "function": fn, "registers": nreg,
-                                  "instructions": sum(opc.values()),
-                                  "opcodes": dict(sorted(opc.items()))}),
-                      flush=True)
+        for kernel, key, others in (
+                ("steering_warp", "steering_warp_kernel", args.k5),
+                ("steering_resize", "steering_resize_kernel", args.k1)):
+            for name in ["as built"] + others if args.sass else []:
+                for fn, (nreg, opc) in sass_rows(libs[(kernel, name)],
+                                                 key).items():
+                    print(json.dumps({"kernel": kernel, "source": name,
+                                      "function": fn, "registers": nreg,
+                                      "instructions": sum(opc.values()),
+                                      "opcodes": dict(sorted(opc.items()))}),
+                          flush=True)
+                if args.sass and name != "as built":
+                    compare_sass(libs, kernel, key, name,
+                                 lambda row: print(json.dumps(row),
+                                                   flush=True))
         fns = {}
         for key, path in libs.items():
             lib = ctypes.CDLL(path)
@@ -1017,7 +1318,20 @@ def main(argv=None) -> int:
                     emit("steering_resize", path, ms,
                          bool(torch.equal(u8, want1[floats])), round=rnd,
                          inputs=inputs)
+
+        # the bf16 instances against the other sources' (the first of each)
+        differ = []
+        if args.k1 or args.k5:
+            differ = probe_bf16(
+                libs[("steering_resize", args.k1[0])] if args.k1 else None,
+                libs[("steering_warp", args.k5[0])] if args.k5 else None,
+                args.rounds, lambda row: print(json.dumps(
+                    {**row, "card": card}), flush=True))
     print(card)
+    if differ:
+        print(f"bf16 outputs differ from the other source's: {differ}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -45,7 +45,9 @@ plain ops on the same bf16 tensors on the card, within ``BF16_ULPS`` bf16
 ulps (the linear modes, float32 after their bf16 steps, within 1e-3), and
 a float32 feature with bf16 maps within 1e-3; the bf16 form launches the
 bf16 instance once a call and its serving forms are bit-equal to its
-frames.
+frames.  Each native bf16 step those instances run gives the twin's
+float32 operation rounded to bf16 over all 2^32 operand pairs
+(``lerf_torch/tools/bf16_steps_exhaustive.cu``).
 K6 (the training resize's backward) sums each gradient term in a fixed
 order, its twin with ``index_add`` (atomics on the card): within 1e-4 of
 each gradient's largest value, and a rerun gives the same bits; the
@@ -1739,6 +1741,21 @@ def assert_bf16_close(got, want, linear, atol):
     def bits(t):
         return t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
     assert int((bits(got) - bits(want)).abs().max()) <= BF16_ULPS
+
+
+@pytest.mark.cuda
+def test_native_bf16_steps_are_the_twins_steps(cuda_device):
+    """Each native bf16 step K1's and K5's bf16 instances run (the pair
+    add, subtract and product, both lanes, and the HFMA2 forms ptxas emits
+    for them) gives the twin's float32 operation rounded to bf16, bit for
+    bit, over all 2^32 operand pairs (``tools/bf16_steps_exhaustive.cu``,
+    built on its own as chip_smoke builds it)."""
+    cs = load_tool("chip_smoke")
+    steps, _ = cs.bf16_steps_check(cs.start_first_build(cs.BF16_STEPS,
+                                                        "bf16_steps"))
+    assert list(steps) == list(cs.BF16_STEP_NAMES)
+    assert {k: steps[k] for k in cs.BF16_KERNEL_STEPS
+            if steps[k]["mismatches"]} == {}
 
 
 @pytest.mark.cuda
