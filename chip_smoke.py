@@ -315,7 +315,23 @@ hand-written kernel against its plain PyTorch twin on the card:
    calls, the device parts, the towers' profiler time in bf16 beside
    float32's in the same call, and K1 / K5 bf16 alone beside their twins
    and bounds;
-51. the exact-division findings (K1 bit-equal to its twin or not at each
+51. K5's rings instance (the warp's geometry as data) at full width: the
+   host rings of ``warp_matrix()`` from ``warp_serving_host_fused`` (the
+   C library at 1 thread and at ``native_threads()`` bit-equal to numpy,
+   each timed) and ``warp_rings_on_device`` (the rings geometry kernel,
+   equal to the host's and to its twin on the card); the LeRF-G LUT
+   stages warped through each, the rings made inside the counted run
+   (2 K2 + 1 rings launch, + 1 geometry launch for the card's rings),
+   equal to K5's matrix instance; the rings instance ``torch.equal`` to
+   the matrix instance in uint8 (LUT, both modes) and in float32 (the
+   IMDN form's float32 and bf16 maps, both modes, bf16 maps under float32
+   and under bf16 rings); a radial distortion and its row-shuffled form
+   (``WarpOperands.from_grid``: every block tiled, most on the direct
+   path) ``torch.equal`` to its twin; the rings instance's time by
+   CUDA-graph replays beside the matrix instance in alternating rounds,
+   the geometry kernel's by graph replays, the upload of the pinned
+   rings, their bounds (bytes: 20 of rings an output read, or written);
+52. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
    rows with their ``linear`` and ``float`` modes, K1's and K5's
@@ -324,8 +340,9 @@ hand-written kernel against its plain PyTorch twin on the card:
    added: K3 bf16, K3 / K3 bf16 / K4 at nf 128 and K2's row mode on each
    layout, its first design's times beside, and K1's and K5's bf16
    instances, with the PR that redesigned them and where their earlier
-   design's times stand: the probe, not this script, times that design),
-   the card line and, last, the result line.
+   design's times stand: the probe, not this script, times that design;
+   K5's rings instance and the rings geometry kernel), the card line
+   and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
 result.  Imports neither JAX nor lerf_tpu.
@@ -1145,25 +1162,28 @@ def net_stage_launches(params, backend):
 
 
 class _Bf16Count:
-    """A bf16 instance's count (``bf16_launches`` of K3's, K1's or K5's
-    module) as a module's ``launches``."""
+    """An instance's own count (``bf16_launches`` of K3's, K1's or K5's
+    module, or ``attr``: K5's ``rings_launches``) as a module's
+    ``launches``."""
 
-    def __init__(self, k3):
-        self.k3 = k3
+    def __init__(self, k3, attr="bf16_launches"):
+        self.k3, self.attr = k3, attr
 
     @property
     def launches(self):
-        return self.k3.bf16_launches
+        return getattr(self.k3, self.attr)
 
     @launches.setter
     def launches(self, n):
-        self.k3.bf16_launches = n
+        setattr(self.k3, self.attr, n)
 
 
 def kernel_modules():
     """Every kernel wrapper module by its kernel's name (``srnet_ensemble``
     counts K3's launches of either type, ``srnet_ensemble_bf16`` those of
-    its bf16 kernel; so K1's and K5's bf16 instances)."""
+    its bf16 kernel; so K1's and K5's bf16 instances, and
+    ``steering_warp_rings`` K5's rings instance; ``warp_rings_geometry``
+    is the kernel that writes a homography's rings on the card)."""
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import resize_bwd as k6
@@ -1175,7 +1195,9 @@ def kernel_modules():
             "steering_resize_bwd": k6,
             "srnet_ensemble_bf16": _Bf16Count(k3),
             "steering_resize_bf16": _Bf16Count(k1),
-            "steering_warp_bf16": _Bf16Count(k5)}
+            "steering_warp_bf16": _Bf16Count(k5),
+            "steering_warp_rings": _Bf16Count(k5, "rings_launches"),
+            "warp_rings_geometry": _Bf16Count(k5, "rings_geometry_launches")}
 
 
 def counted_run(call, want, what):
@@ -5354,6 +5376,344 @@ def imdn_bf16_phases(dev, frame):
     return rows, launches["base"]
 
 
+# -- 51. the warp's geometry as data: K5's rings instance --------------------
+
+RINGS_ROUNDS = 4            # alternating graph-replay rounds, rings / matrix
+RINGS_NUMPY_CALLS = 2       # the numpy host precompute is slow: 2 calls
+RINGS_NATIVE_CALLS = 5
+
+
+def distortion_grid(in_sz, out_sz, shuffled=False):
+    """A smooth barrel distortion of the ×(out / in) zoom, [oH, oW] row and
+    column coordinates clipped to [0, in] (``WarpOperands.from_grid``'s
+    input: a map no homography gives); ``shuffled``: its output rows in a
+    seeded random order, so that many blocks' footprints exceed the tile
+    (the direct path)."""
+    (h, w), (oh, ow) = in_sz, out_sz
+    ys, xs = np.meshgrid(np.arange(oh, dtype=np.float64),
+                         np.arange(ow, dtype=np.float64), indexing="ij")
+    u, v = (ys - (oh - 1) / 2) / oh, (xs - (ow - 1) / 2) / ow
+    k = 1.0 + 0.35 * (u * u + v * v)
+    gx = ((oh - 1) / 2 + (ys - (oh - 1) / 2) * k) * h / oh
+    gy = ((ow - 1) / 2 + (xs - (ow - 1) / 2) * k) * w / ow
+    gx, gy = gx.clip(0, h), gy.clip(0, w)
+    if shuffled:
+        order = np.random.RandomState(4).permutation(oh)
+        gx, gy = gx[order], gy[order]
+    return gx, gy
+
+
+def rings_work(in_sz, out_sz, c, linear=False, value_bytes=4, floats=False):
+    """(bytes, float32 operations, bf16 operations) of one rings-instance
+    call in uint8 mode: ``k5_work``'s feature, codes and output bytes and
+    its float32 (and bf16) operations, no float64 geometry, and per output
+    the rings' int32 corner and four float32 distances (20 bytes; the
+    linear mode's branch byte one more), the ring maps once."""
+    (h, w), (oh, ow) = in_sz, out_sz
+    nbytes, ops, _, bf16 = k5_work(in_sz, out_sz, c, linear=linear,
+                                   value_bytes=value_bytes, floats=floats)
+    nbytes += oh * ow * (20 + int(linear)) + (h + w + 8) * 4 - 9 * 8
+    return nbytes, ops, bf16
+
+
+def rings_geometry_work(in_sz, out_sz):
+    """(bytes, float64 operations) of one rings-geometry launch: the 3×3
+    float64 inverse read once, per output the int32 corner and four
+    float32 distances written (20 bytes; the ring maps are the host's),
+    and ``k5_work``'s float64 geometry at support 2 (the corner's ring
+    positions are integer adds)."""
+    (oh, ow) = out_sz
+    _, _, f64, _ = k5_work(in_sz, out_sz, 1)
+    return 9 * 8 + oh * ow * 20, f64
+
+
+def same_bits(a, b):
+    import torch
+    return torch.equal(torch.nan_to_num(a.float(), nan=-1.0),
+                       torch.nan_to_num(b.float(), nan=-1.0))
+
+
+def rings_phase(dev, banks, frame):
+    """Phase 51: K5's rings instance at full width, the LeRF-G bench bank's
+    LUT stages on the 360×640 frame warped to 1440×2560 at
+    ``warp_matrix()``: the rings from ``warp_serving_host_fused`` (the C
+    library; held to numpy's) and ``warp_rings_on_device`` (the rings
+    geometry kernel, held to the host's and to its twin on the card); the
+    two main paths counted, each making its rings inside the run (the
+    host's, or the card's: 1 geometry launch), then
+    ``steering_gaussian_warp_rings``; the rings instance ``torch.equal``
+    to the matrix instance in uint8 (the LUT form, both modes) and in
+    float32 (the IMDN form's float32 and bf16 maps, both modes; bf16 maps
+    under float32 rings against the float32-feature instance on the
+    feature widened, under bf16 rings against the bf16 instance); on a
+    radial distortion and its row-shuffled form (``WarpOperands.from_grid``)
+    ``torch.equal`` to its twin; its time and the geometry kernel's by
+    CUDA-graph replays (the rings instance beside the matrix instance in
+    alternating rounds); the host precompute and the upload.  Returns the
+    kernels line's two rows."""
+    import torch
+    from lerf_torch.native import native_threads
+    from lerf_torch.ops.geometry import (WarpOperands,
+                                         warp_rings_operands_plain)
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.lut_pipeline import divide_exact
+    from lerf_torch.ops.resample import (steering_gaussian_warp_rings,
+                                         warp_rings, warp_rings_on_device,
+                                         warp_serving_host_fused)
+    from lerf_torch.pipeline import LutPredictor, NetPredictor
+
+    t0 = time.perf_counter()
+    in_sz, matrix = (LR_H, LR_W), WARP_CASES["main"][0]
+    n_out = WARP_OUT[0] * WARP_OUT[1]
+
+    # the host precompute: numpy, the C library at 1 thread and at
+    # native_threads(), bit-equal
+    def fused(native, linear=False):
+        return warp_serving_host_fused(in_sz, matrix, WARP_OUT,
+                                       linear=linear, native=native)
+
+    def flat(r):
+        return [np.asarray(a) for a in r[:5]] + [
+            np.asarray(m) for ms in (r.masks_x, r.masks_y) if ms for m in ms]
+
+    host_ms = {}
+    want_rings, want_mask = fused(False, linear=True)
+    host_ms["numpy"] = host_call_ms(lambda: fused(False), RINGS_NUMPY_CALLS,
+                                    warmup=0)
+    threads = native_threads()
+    saved = os.environ.get("LERF_NATIVE_THREADS")
+    try:
+        for t in (1, threads):
+            os.environ["LERF_NATIVE_THREADS"] = str(t)
+            rings_l, mask = fused(True, linear=True)
+            if not (np.array_equal(mask, want_mask) and all(
+                    np.array_equal(a, b) for a, b in
+                    zip(flat(rings_l), flat(want_rings)))):
+                raise AssertionError(f"rings: the C library at {t} threads "
+                                     "differs from numpy")
+            host_ms[f"native_{t}_threads"] = host_call_ms(
+                lambda: fused(True), RINGS_NATIVE_CALLS, warmup=1)
+    finally:
+        if saved is None:
+            os.environ.pop("LERF_NATIVE_THREADS", None)
+        else:
+            os.environ["LERF_NATIVE_THREADS"] = saved
+    rings, _ = fused(True)
+    k5.upload_rings(rings, dev)                     # warm the pinned pool
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        dev_rings = k5.upload_rings(rings, dev)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t) * 1e3 / 5
+    upload_bytes = sum(np.asarray(a).nbytes for a in rings[:5])
+
+    # the rings on the card from the inverse, equal to the host's and to
+    # the plain twin run on the card
+    inv64 = np.linalg.inv(matrix)
+    inv = torch.from_numpy(inv64).to(dev)
+    dev_made = warp_rings_on_device(inv, in_sz, WARP_OUT)
+    twin_made = warp_rings_operands_plain(inv64, in_sz, WARP_OUT, dev)
+    torch.cuda.synchronize()
+    host_rings = warp_rings(WarpOperands.create(in_sz, matrix, WARP_OUT))
+    if not all(torch.equal(a.cpu(), torch.from_numpy(np.asarray(b)))
+               and torch.equal(a, c) for a, b, c in
+               zip(dev_made[:5], host_rings[:5], twin_made)):
+        raise AssertionError("warp_rings_on_device differs from the host's "
+                             "rings or from its twin on the card")
+    if not all(np.array_equal(a, b) for a, b in zip(rings[:5],
+                                                    host_rings[:5])):
+        raise AssertionError("warp_serving_host_fused's rings differ from "
+                             "warp_rings(WarpOperands.create(...))")
+    geo_call_ms = event_ms(
+        lambda: warp_rings_on_device(inv, in_sz, WARP_OUT), iters=20)
+    geo_params = k5.WarpParams.from_inverse(in_sz, inv64, WARP_OUT)
+    geo_out = (torch.empty(n_out, dtype=torch.int32, device=dev),
+               torch.empty((n_out, 2), dtype=torch.float32, device=dev),
+               torch.empty((n_out, 2), dtype=torch.float32, device=dev))
+    geo_ms = statistics.median(
+        graph_ms(lambda: k5.launch_rings_geometry(geo_params, *geo_out))
+        for _ in range(RINGS_ROUNDS))
+    geo_plain_ms = event_ms(lambda: warp_rings_operands_plain(
+        inv64, in_sz, WARP_OUT, dev), iters=5, warmup=1)
+    geo_bytes, geo_f64 = rings_geometry_work(in_sz, WARP_OUT)
+    geo_b_ms, geo_b_by, geo_parts = k5_bound(geo_bytes, 0, geo_f64)
+
+    # the main paths, counted: the LUT stages, then the rings a frame (the
+    # host's fused precompute and upload, or the card's geometry kernel,
+    # as lerf_tpu's warp_dynamic and warp_device make them), then the
+    # rings warp
+    pred = LutPredictor(banks["lerf_g"])
+    x = torch.from_numpy(np.ascontiguousarray(
+        frame.transpose(2, 0, 1)).astype(np.int32)).to(dev)
+
+    def main_path(make_rings):
+        feat, hyper = pred._stages(x)
+        return steering_gaussian_warp_rings(
+            feat, hyper[..., 0], hyper[..., 1], hyper[..., 2], make_rings(),
+            out_sz=WARP_OUT, u8_inputs=True)
+
+    outs, counts = {}, {}
+    want_counts = {"lut_stage": 2, "steering_warp": 1,
+                   "steering_warp_rings": 1}
+    for name, make, extra in (
+            ("host_rings", lambda: fused(True)[0], {}),
+            ("device_rings",
+             lambda: warp_rings_on_device(inv, in_sz, WARP_OUT),
+             {"warp_rings_geometry": 1})):
+        outs[name], counts[name] = counted_run(
+            lambda make=make: main_path(make), {**want_counts, **extra},
+            f"rings warp ({name})")
+    launches = counts["device_rings"]
+    feat_d, hyper_d = pred._stages(x)
+    params = k5.WarpParams.create(in_sz, matrix, WARP_OUT)
+    want = k5.steering_warp(feat_d, hyper_d, params)
+    if not (same_bits(outs["host_rings"], want)
+            and same_bits(outs["device_rings"], want)):
+        raise AssertionError("rings warp: the main path differs from K5's "
+                             "matrix instance")
+
+    # the rings instance against the matrix instance, uint8 (LUT, both
+    # modes) and float32 (IMDN float32 and bf16 maps, both modes)
+    pred_l = LutPredictor(banks["lerf_l"], linear=True)
+    feat_l, hyper_l = pred_l._stages(x)
+    rings_lin, _ = fused(True, linear=True)
+    rings16 = {False: warp_serving_host_fused(in_sz, matrix, WARP_OUT,
+                                              dtype=torch.bfloat16)[0],
+               True: warp_serving_host_fused(in_sz, matrix, WARP_OUT,
+                                             linear=True,
+                                             dtype=torch.bfloat16)[0]}
+    xf = divide_exact(x.to(torch.float32), 255)
+    imdn = {"float32": NetPredictor.from_imdn(imdn_model(), device=dev),
+            "bf16": NetPredictor.from_imdn(imdn_bf16_model(), device=dev)}
+    # (name, linear, feature, maps, output type, bf16 rings, the matrix
+    # instance's feature): bf16 maps under float32 rings are weighted in
+    # float32 (lerf_tpu's promotion), the matrix instance's float32
+    # feature with bf16 maps on the feature widened; under bf16 rings its
+    # bf16 instance
+    cases = [("lut", False, feat_d, hyper_d, torch.uint8, False, feat_d),
+             ("lut", True, feat_l, hyper_l, torch.uint8, False, feat_l)]
+    for dt, p in imdn.items():
+        f, h = p._stages(xf)
+        for linear in (False, True):
+            hh = h[..., :1].contiguous() if linear else h
+            if dt == "float32":
+                cases.append((f"imdn_{dt}", linear, f, hh, torch.float32,
+                              False, f))
+            else:
+                cases += [(f"imdn_{dt}", linear, f, hh, torch.float32,
+                           False, f.float()),
+                          (f"imdn_{dt}", linear, f, hh, torch.float32,
+                           True, f)]
+    checked = []
+    for name, linear, f, h, out_dt, bf16_rings, mf in cases:
+        r = rings16[linear] if bf16_rings else (rings_lin if linear
+                                                else rings)
+        got = k5.steering_warp_rings(f, h, r, out_sz=WARP_OUT,
+                                     linear=linear, out_dtype=out_dt)
+        want = k5.steering_warp(mf, h, params, linear=linear,
+                                out_dtype=out_dt)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            mode = "linear" if linear else "gauss"
+            raise AssertionError(f"rings {name} {mode} (rings "
+                                 f"{'bf16' if bf16_rings else 'float32'}): "
+                                 "not torch.equal to K5's matrix instance")
+        checked.append([name, "linear" if linear else "gauss",
+                        str(f.dtype).replace("torch.", ""),
+                        str(h.dtype).replace("torch.", ""),
+                        "bfloat16" if bf16_rings else "float32",
+                        str(mf.dtype).replace("torch.", ""),
+                        str(out_dt).replace("torch.", "")])
+
+    # two maps no homography gives: the kernel against its twin
+    grids = {}
+    for gname in ("radial", "shuffled"):
+        gx, gy = distortion_grid(in_sz, WARP_OUT, gname == "shuffled")
+        ops = WarpOperands.from_grid(gx, gy, in_sz, WARP_OUT)
+        for linear in (False, True):
+            r = warp_rings(ops, linear=linear)
+            h = hyper_l if linear else hyper_d
+            f = feat_l if linear else feat_d
+            got = k5.steering_warp_rings(f, h, r, out_sz=WARP_OUT,
+                                         linear=linear)
+            twin = k5.steering_warp_rings_plain(f, h, r, linear=linear)
+            torch.cuda.synchronize()
+            if not same_bits(got, twin.reshape(got.shape)):
+                raise AssertionError(f"rings {gname}: not torch.equal to "
+                                     "the twin")
+        grids[gname] = float((k5.rings_footprint_entries(
+            r, in_sz, WARP_OUT, 3) > k5.TILE_ENTRIES).mean())
+    if not (grids["radial"] == 0.0 and grids["shuffled"] > 0.0):
+        raise AssertionError(f"rings grids: direct-path shares {grids}; "
+                             "the radial grid must tile, the shuffled one "
+                             "must take the direct path")
+
+    # times: graph replays, rings / matrix alternating, uint8 LUT form
+    def rings_u8():
+        return k5.steering_warp_rings(feat_d, hyper_d, dev_rings,
+                                      out_sz=WARP_OUT, out_dtype=torch.uint8)
+
+    def matrix_u8():
+        return k5.steering_warp(feat_d, hyper_d, params,
+                                out_dtype=torch.uint8)
+
+    rounds = {"rings": [], "matrix": []}
+    for _ in range(RINGS_ROUNDS):
+        rounds["rings"].append(graph_ms(rings_u8))
+        rounds["matrix"].append(graph_ms(matrix_u8))
+    ms = statistics.median(rounds["rings"])
+    ev_ms = event_ms(rings_u8, iters=50)
+    prof = kernel_device_ms(rings_u8, "steering_warp_rings_kernel")
+    plain_ms = event_ms(lambda: k5.steering_warp_rings_plain(
+        feat_d, hyper_d, dev_rings), iters=3, warmup=1)
+    nbytes, nops, _ = rings_work(in_sz, WARP_OUT, 3)
+    b_ms, b_by, parts = k5_bound(nbytes, nops, 0)
+    seconds = time.perf_counter() - t0
+    emit_timed({"phase": "rings", "in": list(in_sz), "out": list(WARP_OUT),
+                "launches": launches, "bit_equal_to_matrix_instance": checked,
+                "device_rings_equal_to_host": True,
+                "native_equal_to_numpy": True,
+                "grids_direct_block_share": grids,
+                "grids_equal_to_twin": True,
+                "host_precompute_ms": host_ms, "native_threads": threads,
+                "upload_ms": upload_ms, "upload_bytes": upload_bytes,
+                "upload_bytes_per_output": upload_bytes / n_out,
+                "device_rings_call_ms": geo_call_ms,
+                "graph_ms_rounds": rounds, "seconds": seconds})
+    row = {"kernel": "steering_warp_rings", "out_dtype": "uint8", "ms": ms,
+           "events_ms": ev_ms, **prof,
+           "matrix_instance_graph_ms": statistics.median(rounds["matrix"]),
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_parts_ms": parts, "bytes": nbytes, "ops": nops,
+           "share_of_bound": b_ms / ms}
+    emit_timed(row)
+    geo_row = {"kernel": "warp_rings_geometry", "ms": geo_ms,
+               "timed_by": "CUDA-graph replays of the launch alone",
+               "call_events_ms": geo_call_ms, "plain_ms": geo_plain_ms,
+               "plain_on": "the card (torch float64)",
+               "bound_ms": geo_b_ms, "bound_by": geo_b_by,
+               "bound_parts_ms": geo_parts, "bytes": geo_bytes,
+               "f64_ops": geo_f64, "share_of_bound": geo_b_ms / geo_ms}
+    emit_timed(geo_row)
+    return [{"name": "steering_warp_rings", "route": "cuda",
+             "source": "lerf_torch/csrc/steering_warp.cu",
+             "replaces": "lerf_tpu/ops/resample.py:786",
+             "launches": launches["steering_warp_rings"], "max_abs_err": 0.0,
+             "ms": ms, "timed_by": "CUDA-graph replays", "events_ms": ev_ms,
+             "matrix_instance_graph_ms": row["matrix_instance_graph_ms"],
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "share_of_bound": b_ms / ms, "library_ms": None},
+            {"name": "warp_rings_geometry", "route": "cuda",
+             "source": "lerf_torch/csrc/steering_warp.cu",
+             "replaces": "lerf_tpu/ops/resample.py:1082",
+             "launches": launches["warp_rings_geometry"], "max_abs_err": 0.0,
+             "ms": geo_ms, "timed_by": geo_row["timed_by"],
+             "plain_ms": geo_plain_ms, "bound_ms": geo_b_ms,
+             "bound_by": geo_b_by, "share_of_bound": geo_b_ms / geo_ms,
+             "library_ms": None}]
+
+
 def main() -> int:
     import torch
 
@@ -5888,7 +6248,10 @@ def main() -> int:
             "share_of_bound": row["share_of_bound"], "library_ms": None,
             "redesigned": 18, "parent": parent})
 
-    # -- 51. result ----------------------------------------------------------
+    # -- 51. the warp's geometry as data: K5's rings instance ---------------
+    kernels += rings_phase(dev, {"lerf_g": bank, "lerf_l": bank_l}, frame)
+
+    # -- 52. result ----------------------------------------------------------
     emit({"phase": "exact_division",
           "k1_bit_equal_to_twin": {str(k): v for k, v in k1_bit_equal.items()},
           "k1_max_abs_err": k1_err,

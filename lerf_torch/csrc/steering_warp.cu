@@ -128,6 +128,26 @@
 //   slower on the main path; this one is within 0.3 % of the kernel
 //   without the window (NVIDIA H100 80GB HBM3, 700.00 W;
 //   lerf_torch/tools/probe_lut_kernels.py, PERF.md).
+// - The warp's geometry as data (lerf_tpu/ops/resample.py::
+//   steering_gaussian_warp_rings / amplified_linear_warp_rings, on the TPU
+//   an XLA row gather from a corner-indexed packed operand and the weighted
+//   sums): the rings instance (steering_warp_rings_kernel, C entry
+//   lerf_steering_warp_rings) takes lerf_torch/ops/resample.py::WarpRings
+//   in place of the matrix.  Its step 1 loads each output's window: rows
+//   ring_x[corner / (W + 3) + s], columns ring_y[corner % (W + 3) + t] of
+//   the +-1-padded planes (0 and H + 1 the pad rows: fetch's kEdges), the
+//   float32 distances and, linear, the host's float64 branch masks packed
+//   in one byte; steps 2-4 are the matrix instances' (warp_block's, written
+//   out again for support 2): the footprint reduced from the loaded
+//   windows, the tile where it fits, the direct path where it does not,
+//   the same sums and epilogue.  Support 2, every input pair; the rings'
+//   type sets the weights' as lerf_tpu's promotion does, so bf16 inputs
+//   under float32 rings take the float32 steps on their bf16 entries
+//   widened (in_type 4), and only bf16 rings the bf16 steps.  The matrix
+//   instances' SASS is the parent source's (the probe's --k5 --sass).
+//   warp_rings_geometry_kernel (lerf_warp_rings_geometry) writes a
+//   homography's rings from the same float64 derivation, equal to the
+//   host's.
 // Semantics, those of the JAX path's geometry (_warp_axis): a pixel's S
 // rows are clip(left + s, 0, H - 1) in padded coordinates, left = ceil((g -
 // S/2) - eps) + pad_r, clipped to the UNPADDED bounds, and its source row is
@@ -401,6 +421,29 @@ __device__ __forceinline__ Entry<kLinear, InT> decode(
   }
 }
 
+// decode, or with kEdges (the rings instance's windows) also the pad row /
+// column past the far edge, sr / sc = H / W: feature 0 and the codes of the
+// last row / column, as the +-1-padded planes hold them.
+template <bool kLinear, typename InT, bool kEdges, typename HypT>
+__device__ __forceinline__ Entry<kLinear, InT> fetch(
+    const InT* img, const HypT* codes, int c, int sr, int sc, int H, int W,
+    float norm, float max_sigma) {
+  if constexpr (kEdges) {
+    Entry<kLinear, InT> v = decode<kLinear, InT>(
+        img, codes, c, min(sr, H - 1), min(sc, W - 1), H, W, norm, max_sigma);
+    if (sr >= H || sc >= W) {
+      if constexpr (kIsBf16<InT>)
+        v.x = __float2bfloat16_rn(0.0f);
+      else
+        v.x = 0.0f;
+    }
+    return v;
+  } else {
+    return decode<kLinear, InT>(img, codes, c, sr, sc, H, W, norm,
+                                max_sigma);
+  }
+}
+
 // One branch of the amplified-linear kernel: a x + 1 (bit 0), 1 - a x (bit
 // 1), else 0, as lerf_tpu's (a x + 1) neg + (1 - a x) pos gives it.
 __device__ __forceinline__ float lin(float a, float x, unsigned mask) {
@@ -505,7 +548,7 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
 // bf16 products, accumulated in float32) each product a rounded pair
 // product and the sums float32, per lane.  Linear: weight_bf16 an output
 // at a time, float32 sums.
-template <int KS, typename OutT, bool kLinear>
+template <int KS, typename OutT, bool kLinear, bool kEdges = false>
 __device__ __forceinline__ void sums_bf16(
     Window<KS, kLinear>* px, const bool* ok,
     const Entry<kLinear, bf16>* tile, bool shared, int r_lo, int c_lo,
@@ -539,9 +582,9 @@ __device__ __forceinline__ void sums_bf16(
     auto entry = [&](const Window<KS, kLinear>& p, int c, int s, int t) {
       return shared
                  ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
-                 : decode<kLinear, bf16>(img, codes, c, p.row(s) - w.pad_r,
-                                         p.col(t) - w.pad_c, w.H, w.W, norm,
-                                         max_sigma);
+                 : fetch<kLinear, bf16, kEdges>(
+                       img, codes, c, p.row(s) - w.pad_r, p.col(t) - w.pad_c,
+                       w.H, w.W, norm, max_sigma);
     };
     for (int c = 0; c < C; ++c) {
       float wn[2] = {0.0f, 0.0f}, ws[2] = {0.0f, 0.0f};
@@ -602,7 +645,9 @@ __device__ __forceinline__ void sums_bf16(
 // One block's outputs of one frame, and the frame's validity mask [OH, OW]
 // where mask is not null.  InT: int (feature 0..norm, codes), float
 // (feature, hyper maps in [0, 1]) or bf16 (the same in bf16); HypT the
-// maps' type, bf16 beside a float feature.
+// maps' type, bf16 beside a float feature.  Steps 2-4 are written out
+// again in steering_warp_rings_kernel (lines 889-957): a fix to one is
+// a fix to both.
 template <int KS, typename OutT, bool kLinear, typename InT, typename HypT>
 __device__ __forceinline__ void warp_block(
     const InT* __restrict__ img,     // [C, H, W] feature
@@ -731,6 +776,212 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
       fr.mask == nullptr ? nullptr : fr.mask + f * out_plane, fr.border);
 }
 
+// The rings instance's geometry (lerf_torch/ops/resample.py::WarpRings on
+// the card): output n's neighbour (s, t) is row ring_x[corner[n] / (W + 3) +
+// s] and column ring_y[corner[n] % (W + 3) + t] of the +-1-padded planes
+// (row r is source row r - 1, so 0 and H + 1 are the pad rows), its
+// distances dis_x[n] = (dx_0, dx_1) and dis_y[n] (float32, cast once from
+// the host's float64), and in the linear mode its branch bits[n], laid out
+// as Window's (two bits a row from bit 0, a column from bit 4).  w: the
+// sizes, both pads 1 (row r of the planes is padded row r), support 2.
+struct Rings {
+  Warp w;
+  const int* ring_x;          // [H + 4]
+  const int* ring_y;          // [W + 4]
+  const int* corner;          // [OH * OW]
+  const float2* dis_x;        // [OH * OW]
+  const float2* dis_y;
+  const unsigned char* bits;  // [OH * OW], linear only
+};
+
+// Step 1 of the rings instance for output n: its window read from memory
+// where the matrix instances derive it.  A corner or ring value outside the
+// planes clamps into them (the plain twin clamps the same); the rings the
+// host or the card makes are inside.
+template <bool kBits>
+__device__ __forceinline__ void load_window(Window<2, kBits>& p,
+                                            const Rings& g, size_t n) {
+  const int stride = g.w.W + 3;
+  const int c = min(max(__ldg(g.corner + n), 0), (g.w.H + 3) * stride - 1);
+  const int cx = c / stride;
+  const int cy = c - cx * stride;
+  const float2 dx = __ldg(g.dis_x + n);
+  const float2 dy = __ldg(g.dis_y + n);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    p.r[s] = min(max(__ldg(g.ring_x + cx + s), 0), g.w.H + 1);
+    p.q[s] = min(max(__ldg(g.ring_y + cy + s), 0), g.w.W + 1);
+  }
+  p.dx[0] = dx.x;
+  p.dx[1] = dx.y;
+  p.dy[0] = dy.x;
+  p.dy[1] = dy.y;
+  p.bits = kBits ? (unsigned)__ldg(g.bits + n) : 0u;
+}
+
+// The rings instance's entry of source pixel (sr, sc) of the +-1-padded
+// planes' row sr + 1, column sc + 1: fetch's, with the pad past the far
+// edge; with kWide (a bf16 feature and bf16 maps under float32 rings) the
+// bf16 entry widened to float32, exactly, since its feature and decoded
+// values are bf16 numbers: the entry the float32-feature, bf16-map decode
+// gives (lerf_tpu promotes bf16 maps against float32 distances).
+template <bool kLinear, typename InT, bool kWide>
+using RingEntry =
+    Entry<kLinear, typename std::conditional<kWide, float, InT>::type>;
+
+template <bool kLinear, typename InT, bool kWide, typename HypT>
+__device__ __forceinline__ RingEntry<kLinear, InT, kWide> ring_entry(
+    const InT* img, const HypT* codes, int c, int sr, int sc, int H, int W,
+    float norm, float max_sigma) {
+  const Entry<kLinear, InT> v = fetch<kLinear, InT, true>(
+      img, codes, c, sr, sc, H, W, norm, max_sigma);
+  if constexpr (!kWide) {
+    return v;
+  } else if constexpr (kLinear) {
+    return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
+  } else {
+    return make_float4(__bfloat162float(v.x), __bfloat162float(v.y),
+                       __bfloat162float(v.z), __bfloat162float(v.w));
+  }
+}
+
+// K5's rings instance: step 1 loads each output's window (load_window);
+// steps 2-4 are warp_block's, at support 2, on the windows as they come:
+// the footprint reduced from the loaded rows and columns (in any order),
+// the tile where it fits, the direct path where it does not, the same sums
+// and epilogue.  They are warp_block's steps 2-4 (lines 684-757) written
+// out again, to be kept in step with them, not a function the two share: sharing one changed the
+// SASS of 30 of the 32 matrix instances (by up to 8 instructions, 2
+// registers), which stay as they were.  kWide: bf16 inputs under float32
+// rings, the float32 steps on widened entries (ring_entry).  out [C, OH,
+// OW].
+template <typename OutT, bool kLinear, typename InT, typename HypT = InT,
+          bool kWide = false>
+__global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
+    steering_warp_rings_kernel(const InT* __restrict__ img,
+                               const HypT* __restrict__ codes,
+                               OutT* __restrict__ out,
+                               const __grid_constant__ Rings g, int C,
+                               float max_sigma, float norm) {
+  using CompT = typename std::conditional<kWide, float, InT>::type;
+  __shared__ RingEntry<kLinear, InT, kWide> tile[kTileEntries];  // [C][r][c]
+  __shared__ int box[4];                  // row min, max, column min, max
+  const Warp& w = g.w;
+  const int tid = threadIdx.y * kTileW + threadIdx.x;
+  const int j = blockIdx.x * kTileW + threadIdx.x;
+
+  // 1. this thread's windows, read from memory
+  Window<2, kLinear> px[kRowsPerThread];
+  bool ok[kRowsPerThread];
+  int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+    ok[k] = j < w.OW && i < w.OH;
+    if (!ok[k]) continue;
+    load_window(px[k], g, (size_t)i * w.OW + j);
+    rmin = min(rmin, min(px[k].r[0], px[k].r[1]));
+    rmax = max(rmax, max(px[k].r[0], px[k].r[1]));
+    cmin = min(cmin, min(px[k].q[0], px[k].q[1]));
+    cmax = max(cmax, max(px[k].q[0], px[k].q[1]));
+  }
+
+  // 2. the block's footprint in the planes' rows and columns
+  if (tid == 0) {
+    box[0] = box[2] = INT_MAX;
+    box[1] = box[3] = INT_MIN;
+  }
+  __syncthreads();
+  rmin = __reduce_min_sync(0xffffffffu, rmin);
+  rmax = __reduce_max_sync(0xffffffffu, rmax);
+  cmin = __reduce_min_sync(0xffffffffu, cmin);
+  cmax = __reduce_max_sync(0xffffffffu, cmax);
+  if ((tid & 31) == 0) {
+    atomicMin(box, rmin);
+    atomicMax(box + 1, rmax);
+    atomicMin(box + 2, cmin);
+    atomicMax(box + 3, cmax);
+  }
+  __syncthreads();
+  const int r_lo = box[0], c_lo = box[2];
+  const int nr = box[1] - r_lo + 1, nc = box[3] - c_lo + 1;
+  const bool shared = (long long)C * nr * nc <= kTileEntries;  // block-uniform
+
+  // 3. the footprint decoded once into shared memory, where it fits (row r
+  // of the planes is source row r - 1)
+  if (shared) {
+    const int plane = nr * nc;
+    for (int e = tid; e < plane * C; e += kTileW * kThreadRows) {
+      const int c = e / plane;
+      const int rc = e - c * plane;
+      const int r = rc / nc;
+      tile[e] = ring_entry<kLinear, InT, kWide>(
+          img, codes, c, r_lo + r - 1, c_lo + (rc - r * nc) - 1, w.H, w.W,
+          norm, max_sigma);
+    }
+    __syncthreads();
+  }
+
+  // 4. the weighted sums, s-major, t-minor, and the epilogue
+  if constexpr (kIsBf16<CompT>) {
+    sums_bf16<2, OutT, kLinear, true>(px, ok, tile, shared, r_lo, c_lo, nr,
+                                      nc, img, codes, out, w, C, max_sigma,
+                                      norm);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      if (!ok[k]) continue;
+      const Window<2, kLinear>& p = px[k];
+      const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+      for (int c = 0; c < C; ++c) {
+        float wn = 0.0f, ws = 0.0f;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const RingEntry<kLinear, InT, kWide> v =
+                shared ? tile[(c * nr + p.r[s] - r_lo) * nc + p.q[t] - c_lo]
+                       : ring_entry<kLinear, InT, kWide>(
+                             img, codes, c, p.r[s] - 1, p.q[t] - 1, w.H, w.W,
+                             norm, max_sigma);
+            const float wt = weight(v, p.dx[s], p.dy[t], p.bxs(s), p.byt(t));
+            wn += wt * v.x;
+            ws += wt;
+          }
+        }
+        out[((size_t)c * w.OH + i) * w.OW + j] =
+            finish(quotient<kLinear, CompT>(wn, ws, 2), norm, out);
+      }
+    }
+  }
+}
+
+// The rings of one homography from the derivation the matrix instances
+// make (window_at), at support 2: per output the ring position of its
+// first neighbour on each axis, left + 1 with left the UNCLIPPED window
+// start ceil((g - 1) - eps) + pad, as corner = (left_r + 1) (W + 3) +
+// (left_c + 1), and its float32 distances; equal to the host's
+// warp_rings(WarpOperands.create(...)) (lerf_torch/ops/geometry.py::
+// _serving_axis).
+__global__ void __launch_bounds__(kTileW * kThreadRows)
+    warp_rings_geometry_kernel(int* __restrict__ corner,
+                               float2* __restrict__ dis_x,
+                               float2* __restrict__ dis_y, const Warp w) {
+  const int j = blockIdx.x * kTileW + threadIdx.x;
+  if (j >= w.OW) return;
+  const Column col = column_terms(w, j);
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
+    if (i >= w.OH) return;
+    const size_t n = (size_t)i * w.OW + j;
+    const Window<0, false> p = window_at<0, false>(w, col, i);
+    corner[n] = (p.ar.left + 1) * (w.W + 3) + (p.ac.left + 1);
+    dis_x[n] = make_float2(p.dxs(0), p.dxs(1));
+    dis_y[n] = make_float2(p.dyt(0), p.dyt(1));
+  }
+}
+
 // The per-pixel geometry of the host's WarpOperands from window_at: the
 // window corner (row, col) as geometry.window_corner recovers it from the
 // clipped indices (f_0 where above 0, else f_S-1 - (S - 1)), the 2S
@@ -835,6 +1086,51 @@ void launch_in(const void* img, const void* codes, void* out,
                              out_u8, s);
 }
 
+template <typename OutT, bool kLinear, typename InT, typename HypT,
+          bool kWide>
+void launch_rings(const void* img, const void* codes, void* out,
+                  const Rings& g, int C, float max_sigma, float norm,
+                  cudaStream_t s) {
+  steering_warp_rings_kernel<OutT, kLinear, InT, HypT, kWide>
+      <<<grid_of(g.w), dim3(kTileW, kThreadRows), 0, s>>>(
+          (const InT*)img, (const HypT*)codes, (OutT*)out, g, C, max_sigma,
+          norm);
+}
+
+template <bool kLinear, typename InT, typename HypT = InT,
+          bool kWide = false>
+void rings_out(const void* img, const void* codes, void* out, const Rings& g,
+               int C, float max_sigma, float norm, int out_u8,
+               cudaStream_t s) {
+  if (out_u8)
+    launch_rings<unsigned char, kLinear, InT, HypT, kWide>(
+        img, codes, out, g, C, max_sigma, norm, s);
+  else
+    launch_rings<float, kLinear, InT, HypT, kWide>(img, codes, out, g, C,
+                                                   max_sigma, norm, s);
+}
+
+template <bool kLinear>
+void rings_in(const void* img, const void* codes, void* out, const Rings& g,
+              int C, float max_sigma, float norm, int out_u8, int in_type,
+              cudaStream_t s) {
+  if (in_type == 1)
+    rings_out<kLinear, float>(img, codes, out, g, C, max_sigma, norm, out_u8,
+                              s);
+  else if (in_type == 2)
+    rings_out<kLinear, bf16>(img, codes, out, g, C, max_sigma, norm, out_u8,
+                             s);
+  else if (in_type == 3)
+    rings_out<kLinear, float, bf16>(img, codes, out, g, C, max_sigma, norm,
+                                    out_u8, s);
+  else if (in_type == 4)
+    rings_out<kLinear, bf16, bf16, true>(img, codes, out, g, C, max_sigma,
+                                         norm, out_u8, s);
+  else
+    rings_out<kLinear, int>(img, codes, out, g, C, max_sigma, norm, out_u8,
+                            s);
+}
+
 }  // namespace
 
 // K5 over a batch of frames (1 .. kMaxFrames; a single frame is a batch of
@@ -910,5 +1206,73 @@ extern "C" int lerf_warp_geometry(void* corners, void* dis, void* masks,
                          (cudaStream_t)stream>>>(
       (int2*)corners, (float*)dis, (unsigned char*)masks,
       (unsigned char*)valid, w, border);
+  return (int)cudaGetLastError();
+}
+
+// K5's rings instance (lerf_torch/ops/kernels/warp.py::steering_warp_rings):
+// the warp of one frame through rings (struct Rings says how), all device
+// pointers: ring_x [ring_x_len] and ring_y [ring_y_len] int32, which must be
+// H + 4 and W + 4 long; corner [OH * OW] int32; dis_x, dis_y [OH * OW, 2]
+// float32 (8-byte aligned); bits [OH * OW] uint8, given in the linear mode
+// (linear 1) and null in the Gaussian one.  img, codes, out, the mode, the
+// types and the epilogue as lerf_steering_warp_batch takes them, and
+// in_type 4: a bf16 feature and bf16 maps under float32 rings (decoded in
+// bf16, weighted, summed and divided in float32); support 2.
+extern "C" int lerf_steering_warp_rings(
+    const void* img, const void* codes, void* out, const void* ring_x,
+    int ring_x_len, const void* ring_y, int ring_y_len, const void* corner,
+    const void* dis_x, const void* dis_y, const void* bits, int C, int H,
+    int W, int OH, int OW, int linear, float max_sigma, float norm,
+    int out_u8, void* stream, int in_type) {
+  if (H < 1 || W < 1 || C < 0 || OH < 0 || OW < 0 ||
+      ring_x_len != H + 4 || ring_y_len != W + 4 || in_type < 0 ||
+      in_type > 4 || (linear != 0) != (bits != nullptr) ||
+      (long long)(H + 3) * (W + 3) > INT_MAX ||
+      (OH + kTileH - 1) / kTileH > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)C * OH * OW == 0) return 0;
+  if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)dis_x % sizeof(float2) || (uintptr_t)dis_y % sizeof(float2))
+    return (int)cudaErrorMisalignedAddress;
+  Rings g;
+  memset(&g, 0, sizeof(g));
+  static const double kNoMatrix[9] = {};   // the rings instance reads none
+  const int err = make_warp(kNoMatrix, H, W, OH, OW, 1, 1, 2, 0, OH, &g.w);
+  if (err) return err;
+  g.ring_x = (const int*)ring_x;
+  g.ring_y = (const int*)ring_y;
+  g.corner = (const int*)corner;
+  g.dis_x = (const float2*)dis_x;
+  g.dis_y = (const float2*)dis_y;
+  g.bits = (const unsigned char*)bits;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (linear)
+    rings_in<true>(img, codes, out, g, C, max_sigma, norm, out_u8, in_type,
+                   s);
+  else
+    rings_in<false>(img, codes, out, g, C, max_sigma, norm, out_u8, in_type,
+                    s);
+  return (int)cudaGetLastError();
+}
+
+// The rings of one homography (warp_rings_geometry_kernel) from its float64
+// inverse (host memory) and the support-2 geometry's leading pads: corner
+// [OH * OW] int32, dis_x and dis_y [OH * OW, 2] float32 (8-byte aligned).
+// The ring maps themselves are the host's (H + 4 and W + 4 values from the
+// pads alone).
+extern "C" int lerf_warp_rings_geometry(void* corner, void* dis_x,
+                                        void* dis_y, const double* inv,
+                                        int H, int W, int OH, int OW,
+                                        int pad_r, int pad_c, void* stream) {
+  if ((long long)OH * OW == 0) return 0;
+  if ((uintptr_t)dis_x % sizeof(float2) || (uintptr_t)dis_y % sizeof(float2))
+    return (int)cudaErrorMisalignedAddress;
+  if ((long long)(H + 3) * (W + 3) > INT_MAX) return (int)cudaErrorInvalidValue;
+  Warp w;
+  int err = make_warp(inv, H, W, OH, OW, pad_r, pad_c, 2, 0, OH, &w);
+  if (err) return err;
+  warp_rings_geometry_kernel<<<grid_of(w), dim3(kTileW, kThreadRows), 0,
+                               (cudaStream_t)stream>>>(
+      (int*)corner, (float2*)dis_x, (float2*)dis_y, w);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,10 @@ class LUTBank:
     def stages(self) -> int:
         return len(self.inter) + 2
 
+    @property
+    def lattice_size(self) -> int:
+        return (1 << (8 - self.interval)) + 1
+
     def as_int32(self):
         """Final feature stage + hyper stage tables widened to int32."""
         s1 = {k: v.astype(np.int32) for k, v in self.stage1.items()}

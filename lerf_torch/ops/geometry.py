@@ -14,6 +14,10 @@ K5 derives the warp's on the card from the inverse matrix;
 :func:`warp_pads` and :func:`warp_operands_plain` are that derivation's
 plain twin, the same float64 operations in torch, and
 :func:`warp_mask_plain` that of the validity mask K5 writes.
+:class:`WarpOperands` is the warp's geometry as data (lerf_tpu's
+dynamic-homography serving operands: ring maps, a corner and distances
+per output, from a homography or any projection grid), which the rings
+warps and K5's rings instance take.
 """
 from __future__ import annotations
 
@@ -485,3 +489,131 @@ class WarpGeometry:
             lin_idx=np.ascontiguousarray(self.lin_idx[:, :, r0:r1]),
             dis_x=self.dis_x[r0:r1], dis_y=self.dis_y[r0:r1])
 
+
+
+def _serving_axis(grid: np.ndarray, in_sz: int, support: int):
+    """Per-axis operands for dynamic-homography serving
+    (``lerf_tpu.ops.geometry._serving_axis``).
+
+    Runs the exact ``_warp_axis`` math (same left/pad/clip/distance lines),
+    then re-expresses the clipped gather over a FIXED ±1 pad: the reference
+    gathers ``padded[clip(j, 0, in-1)]`` at ring position ``j`` of a plane
+    padded by the matrix-dependent ``pad0`` (≤1 at support 2, since the
+    projected grid is pre-clipped to ``[0, in]``); over a plane padded by
+    exactly one row/col on each side the same value sits at index
+    ``clip(j, 0, in-1) - pad0 + 1`` — for BOTH pad modes, because index 0
+    is the zero row (constant pad / image) or the replicated first row
+    (edge pad / hyper maps), exactly what ``pad0``-padding exposes.
+
+    Returns ``(corner, ring, dis)``: the per-output-pixel corner ring
+    position ``[oh, ow]``, the ring map ``[in+4]`` into the ±1-padded
+    plane, and the float64 distances ``[oh, ow, S]`` (identical values to
+    ``WarpGeometry.dis_*``).
+    """
+    # ``left`` stays float64: ceil output is integral, and the per-neighbor
+    # offset/pad/clip arithmetic on small integers is exact in float64, so
+    # the distances match the int64-materialized form bit-for-bit while
+    # skipping the [oh, ow, S] int64 intermediates (host serving cost).
+    left = np.ceil(grid - support / 2.0 - _EPS)
+    pad0 = int(max(-int(left.flat[0]), 0))
+    shifted = grid + pad0
+    dis = np.empty(grid.shape + (support,), np.float64)
+    tmp = np.empty_like(grid)
+    for j in range(support):
+        np.add(left, j + pad0, out=tmp)
+        np.clip(tmp, 0, in_sz - 1, out=tmp)
+        np.subtract(shifted, tmp, out=dis[..., j])
+    corner = (left + (pad0 + 1)).astype(np.int64)  # ring pos of neighbor 0
+    return corner, ring_map(in_sz, pad0), dis
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpOperands:
+    """The warp's geometry as data, for dynamic-homography serving
+    (``lerf_tpu.ops.geometry.WarpOperands``): every matrix-dependent array
+    has a shape fixed by ``(in_sz, out_sz)`` alone, from the host float64
+    precompute of :class:`WarpGeometry` (the same lines; bit-equal
+    distances).  A ring maps the ±1-padded planes' rows (columns): output
+    n's neighbour (s, t) is row ``ring_x[corner[n] // (inW+3) + s]``,
+    column ``ring_y[corner[n] % (inW+3) + t]`` there.  The rings warps
+    (``ops.resample.warp_rings``, ``steering_gaussian_warp_rings``) and, on
+    a card, K5's rings instance take them.
+
+    Not ``ops.kernels.warp.WarpOperands``, K5's per-pixel check form of a
+    :class:`WarpGeometry` (window corners in the geometry's padded
+    coordinates, distances and branch bits, written by the card for the
+    checks).  Support 2 only, as lerf_tpu's."""
+    in_sz: tuple
+    out_sz: tuple
+    support: int         # always 2 — the deploy configuration
+    ring_x: np.ndarray   # [inH+4] int32 row map into the ±1-padded planes
+    ring_y: np.ndarray   # [inW+4] int32 col map
+    corner: np.ndarray   # [N] int32 flat corner index, N = outH·outW
+    dis_x: np.ndarray    # [N, S] float64 neighbor distances
+    dis_y: np.ndarray    # [N, S] float64
+
+    @classmethod
+    def create(cls, in_sz: Sequence[int], matrix, out_sz: Sequence[int],
+               support: int = 2):
+        in_sz = tuple(int(s) for s in in_sz)
+        out_sz = tuple(int(s) for s in out_sz)
+        grid_x, grid_y = _warp_grid(matrix, in_sz, out_sz)
+        return cls.from_grid(grid_x, grid_y, in_sz, out_sz, support)
+
+    @classmethod
+    def from_grid(cls, grid_x, grid_y, in_sz, out_sz, support: int = 2):
+        """Build from a precomputed projection grid (``[oH, oW]`` row and
+        column coordinates, any map, not only a homography's): the grid is
+        the dominant host cost at large outputs, so serving callers compute
+        it once and share it with the validity mask
+        (``ops.resample.warp_serving_host``)."""
+        if support != 2:
+            raise ValueError("dynamic warp serving is support-2 only")
+        cx, ring_x, dis_x = _serving_axis(grid_x, in_sz[0], support)
+        cy, ring_y, dis_y = _serving_axis(grid_y, in_sz[1], support)
+        n = out_sz[0] * out_sz[1]
+        # packed-operand spatial shape is (inH+3, inW+3) — ring length - 1
+        corner = cx.astype(np.int64) * (in_sz[1] + 3) + cy
+        return cls(in_sz=tuple(in_sz), out_sz=tuple(out_sz), support=support,
+                   ring_x=ring_x, ring_y=ring_y,
+                   corner=corner.reshape(n).astype(np.int32),
+                   dis_x=dis_x.reshape(n, support),
+                   dis_y=dis_y.reshape(n, support))
+
+
+def ring_map(in_n: int, pad0: int) -> np.ndarray:
+    """:func:`_serving_axis`' ring map of an axis of ``in_n`` pixels whose
+    support-2 leading pad is ``pad0``: [in_n + 4] int32 rows (columns) of
+    the ±1-padded planes."""
+    q = np.arange(in_n + 4, dtype=np.int64)
+    return (np.clip(q - 1, 0, in_n - 1) - pad0 + 1).astype(np.int32)
+
+
+def warp_rings_operands_plain(inv, in_sz, out_sz, device="cpu"):
+    """The rings of the homography whose float64 inverse is ``inv``, from
+    the inverse alone, in torch float64 on ``device``: ``(ring_x, ring_y,
+    corner, dis_x, dis_y)`` laid out as :class:`WarpOperands` lays them
+    out, the distances cast to float32 once (``ops.resample.warp_rings``),
+    equal to ``WarpOperands.create``'s.  The plain twin of K5's
+    ``lerf_warp_rings_geometry``.  Each step is :func:`_serving_axis`' on
+    the grid of :func:`_warp_grid`: per axis ``left = ceil((g - 1) -
+    eps)``, the leading pad ``pad0`` (:func:`warp_pads`), the corner's
+    ring position ``left + pad0 + 1`` and the distances ``(g + pad0) -
+    clip(left + pad0 + s, 0, in - 1)``."""
+    oh, ow = (int(s) for s in out_sz)
+    device = torch.device(device)
+    ys = torch.arange(oh, dtype=torch.float64, device=device)[:, None]
+    xs = torch.arange(ow, dtype=torch.float64, device=device)
+    pads = [p0 for p0, _ in warp_pads(inv, in_sz, out_sz)]
+    rings, pos, dis = [], [], []
+    for grid, n, p0 in zip(_warp_grid_at(inv, ys, xs, in_sz), in_sz, pads):
+        n = int(n)
+        left = _warp_left(grid, 2) + p0
+        rings.append(torch.from_numpy(ring_map(n, p0)).to(device))
+        pos.append(left + 1)
+        dis.append(torch.stack([(grid + p0) - (left + s).clamp(0, n - 1)
+                                for s in (0, 1)], -1)
+                   .reshape(-1, 2).to(torch.float32))
+    corner = (pos[0] * (int(in_sz[1]) + 3) + pos[1]).reshape(-1) \
+        .to(torch.int32)
+    return rings[0], rings[1], corner, dis[0], dis[1]

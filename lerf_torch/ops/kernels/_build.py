@@ -127,6 +127,19 @@ def _declare(lib):
         i32,                                 # border
         vp, i32, i32]                        # stream, row0, rows
     lib.lerf_warp_geometry.restype = i32
+    lib.lerf_steering_warp_rings.argtypes = [
+        vp, vp, vp,                          # img, codes, out
+        vp, i32, vp, i32,                    # ring_x, its length, ring_y, its
+        vp, vp, vp, vp,                      # corner, dis_x, dis_y, bits
+        i32, i32, i32, i32, i32,             # C, H, W, OH, OW
+        i32, f32, f32, i32,                  # linear, max_sigma, norm, u8
+        vp, i32]                             # stream, in_type
+    lib.lerf_steering_warp_rings.restype = i32
+    lib.lerf_warp_rings_geometry.argtypes = [
+        vp, vp, vp, f64p,                    # corner, dis_x, dis_y, inv (host)
+        i32, i32, i32, i32, i32, i32,        # H, W, OH, OW, pad_r, pad_c
+        vp]                                  # stream
+    lib.lerf_warp_rings_geometry.restype = i32
     lib.lerf_lut_stage.argtypes = [
         vp, vp, vp, vp,                      # img, tables, out, members (host)
         i32, i32, i32, i32, i32, i32,        # M, C, H, W, oC, L4

@@ -7,7 +7,9 @@ then :func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero``
 for uint8) for CPU tensors and launches ``csrc/steering_warp.cu`` for CUDA
 tensors; it never falls back from the card to the plain version.
 ``launches`` counts kernel launches of any instance, ``bf16_launches``
-those of the instances that take bf16 maps.
+those of the instances that take bf16 maps, ``rings_launches`` those of
+the rings instance; ``rings_geometry_launches`` counts the rings
+geometry kernel's (:func:`launch_rings_geometry`).
 
 On the card K5 takes the homography itself, as :class:`WarpParams` (the
 float64 inverse matrix, the two leading pads, the support and the sizes),
@@ -38,6 +40,16 @@ the float types' twins are lerf_tpu's float-row warps,
 ``u8_inputs=False``, run on the inputs as they are (bf16: each operation
 rounded to bf16; the geometry stays float64 and only the distances are
 cast).  A float32 output of bf16 inputs is the twin's result widened.
+
+The warp's geometry as data (:func:`steering_warp_rings`): K5's rings
+instance takes a :class:`~lerf_torch.ops.resample.WarpRings` (each
+output's corner and distances, the ring maps, and in the linear mode the
+host's float64 branch masks) in place of the matrix, read from memory
+where the matrix instances derive them; the rest of the kernel is
+theirs.  The rings' distance type sets the weights' type, as lerf_tpu's
+promotion does (:func:`rings_in_type`).  Its plain twin is
+:func:`steering_warp_rings_plain`; :func:`warp_rings_geometry` makes a
+homography's rings on the card from K5's float64 derivation.
 """
 from __future__ import annotations
 
@@ -47,16 +59,20 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..geometry import WarpGeometry, warp_pads, window_corner
-from ..resample import (amplified_linear_warp, branch_bits,
-                        linear_warp_codes_plain, nearest_warp_mask_host,
-                        quantize_device, steering_gaussian_warp,
-                        steering_warp_codes_plain)
+from ..geometry import WarpGeometry, ring_map, warp_pads, window_corner
+from ..resample import (WarpRings, amplified_linear_warp, branch_bits,
+                        gauss_rings_planes, linear_rings_planes,
+                        linear_warp_codes_plain,
+                        nearest_warp_mask_host, pad2d, quantize_device,
+                        rings_dtype, steering_gaussian_warp,
+                        steering_warp_codes_plain, warp_rings_plain)
 from . import _build
 from .resize import IN_TYPES, TYPES_TAKEN
 
 launches = 0
 bf16_launches = 0
+rings_launches = 0
+rings_geometry_launches = 0
 
 # Frames one batch launch takes (kMaxFrames of csrc/steering_warp.cu):
 # their parameters travel by value; a longer batch takes one launch a chunk.
@@ -174,6 +190,30 @@ def footprint_entries(operands: WarpOperands, in_sz, out_sz,
     hi = hi.reshape(by, th, bx, tw, 2).max(axis=(1, 3))
     span = hi - lo + 1
     return span[..., 0] * span[..., 1] * channels
+
+
+def rings_footprint_entries(rings, in_sz, out_sz,
+                            channels: int) -> np.ndarray:
+    """:func:`footprint_entries` of K5's rings instance: [blocks_y,
+    blocks_x] tile entries each block's footprint needs under ``rings``
+    (the rows × columns of the ±1-padded planes its outputs' windows read,
+    × ``channels``)."""
+    oh, ow = out_sz
+    corner = np.asarray(rings.corner).astype(np.int64).reshape(oh, ow)
+    cx, cy = np.divmod(corner, int(in_sz[1]) + 3)
+    th, tw = TILE
+    by, bx = -(-oh // th), -(-ow // tw)
+    spans = []
+    for ring, at in ((np.asarray(rings.ring_x), cx),
+                     (np.asarray(rings.ring_y), cy)):
+        v = np.stack([ring[at], ring[at + 1]])
+        # ragged blocks: the cells past the output stay neutral
+        lo = np.full((by * th, bx * tw), np.iinfo(np.int64).max)
+        hi = np.full((by * th, bx * tw), np.iinfo(np.int64).min)
+        lo[:oh, :ow], hi[:oh, :ow] = v.min(0), v.max(0)
+        spans.append(hi.reshape(by, th, bx, tw).max(axis=(1, 3))
+                     - lo.reshape(by, th, bx, tw).min(axis=(1, 3)) + 1)
+    return spans[0] * spans[1] * channels
 
 
 def _inv_array(params: WarpParams):
@@ -411,3 +451,260 @@ def steering_warp_batch(feat: torch.Tensor, codes: torch.Tensor,
                 max_sigma=max_sigma, norm=norm, linear=linear, border=border,
                 rows=(r0, r1))
     return out
+
+
+# -- the warp's geometry as data: K5's rings instance -----------------------
+
+
+class DeviceRings(NamedTuple):
+    """A :class:`~lerf_torch.ops.resample.WarpRings` on the card, as the
+    rings instance reads it: the ring maps, the corner and the distances
+    as float32 (bf16 ones widened exactly), their own type in ``dtype``,
+    and in the linear mode each output's branch bits packed in one byte
+    (bits 2s, 2s + 1 the row distance s's negative and positive branch,
+    bits 4 + 2t, 5 + 2t the column distance t's)."""
+    ring_x: torch.Tensor            # [H+4] int32
+    ring_y: torch.Tensor            # [W+4] int32
+    corner: torch.Tensor            # [N] int32
+    dis_x: torch.Tensor             # [N, 2] float32
+    dis_y: torch.Tensor             # [N, 2] float32
+    bits: Optional[torch.Tensor]    # [N] uint8, linear only
+    dtype: torch.dtype = torch.float32   # the rings' distance type
+
+
+def _host(a) -> np.ndarray:
+    """A leaf as a numpy array on the host (a tensor's float copy)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a)
+
+
+def _branch_byte(masks_x, masks_y) -> np.ndarray:
+    """The (neg, pos) [N, 2] masks of both axes packed on the host as
+    :class:`DeviceRings` lays its bits out: uint8 [N]."""
+    def pair(neg, pos):
+        return ((_host(neg) != 0).astype(np.uint8)
+                | ((_host(pos) != 0).astype(np.uint8) << 1))
+
+    bx, by = pair(*masks_x), pair(*masks_y)
+    return np.ascontiguousarray(
+        (bx[:, 0] | (bx[:, 1] << 2) | (by[:, 0] << 4) | (by[:, 1] << 6))
+        .astype(np.uint8))
+
+
+def upload_rings(rings, device, *, linear: bool = False) -> DeviceRings:
+    """``rings`` on the card ``device``, once: each host leaf (numpy or a
+    CPU tensor) through pinned memory, copied without blocking on the
+    device's current stream; a leaf already on the card is used as it is
+    (cast where its type differs).  ``linear``: the branch masks packed
+    on the host into one byte an output (:func:`_branch_byte`; masks on
+    the card come to the host for it), then uploaded as the rest."""
+    if isinstance(rings, DeviceRings):
+        return rings
+    device = torch.device(device)
+    dtype = rings_dtype(rings)
+
+    def up(a, dt):
+        t = torch.as_tensor(a)
+        if t.device.type == "cuda":
+            return t.to(device, dt).contiguous()
+        t = t.to(dt).contiguous().pin_memory()
+        with torch.cuda.device(device):
+            return t.to(device, non_blocking=True)
+
+    bits = None
+    if linear:
+        if rings.masks_x is None:
+            raise ValueError("the linear warp needs rings built with "
+                             "linear=True (their branch masks)")
+        bits = up(_branch_byte(rings.masks_x, rings.masks_y), torch.uint8)
+    return DeviceRings(up(rings.ring_x, torch.int32),
+                       up(rings.ring_y, torch.int32),
+                       up(rings.corner, torch.int32),
+                       up(rings.dis_x, torch.float32),
+                       up(rings.dis_y, torch.float32), bits, dtype)
+
+
+# The rings instance's type code for a bf16 feature and bf16 maps under
+# float32 rings (lerf_torch/csrc/steering_warp.cu::lerf_steering_warp_rings):
+# the maps decoded in bf16, then the weights, the sums and the output in
+# float32, as lerf_tpu promotes bf16 maps against float32 distances.
+RINGS_BF16_WIDE = 4
+
+
+def rings_in_type(feat: torch.Tensor, codes: torch.Tensor,
+                  dtype: torch.dtype, what: str = "steering_warp_rings"):
+    """The rings instance's ``in_type`` for the input pair and the rings'
+    distance type ``dtype``: the pair's :data:`IN_TYPES` code, or
+    :data:`RINGS_BF16_WIDE` for bf16 maps under float32 rings.  Under
+    bf16 rings int32 codes and float32 maps take their float32 instances
+    (the distances widen exactly at their first product, as in
+    lerf_tpu); bf16 rings with a float32 feature and bf16 maps (bf16
+    weights times a float32 feature) have no instance and raise."""
+    pair = IN_TYPES[feat.dtype, codes.dtype]
+    if dtype == torch.float32:
+        return RINGS_BF16_WIDE if pair == IN_TYPES[torch.bfloat16,
+                                                   torch.bfloat16] else pair
+    if pair == IN_TYPES[torch.float32, torch.bfloat16]:
+        raise ValueError(f"{what}: bf16 rings with a float32 feature and "
+                         "bf16 maps: no instance takes them; give float32 "
+                         "rings")
+    return pair
+
+
+def _check_rings(rings, H, W, out_sz, linear, what) -> Tuple[int, int]:
+    """The rings' shapes against the image and ``out_sz``; returns the
+    output's (rows, columns): ``out_sz``, or (1, N) for the flat form."""
+    n = len(rings.corner)
+    if (tuple(rings.ring_x.shape) != (H + 4,)
+            or tuple(rings.ring_y.shape) != (W + 4,)):
+        raise ValueError(f"{what}: ring_x / ring_y of {tuple(rings.ring_x.shape)}"
+                         f" / {tuple(rings.ring_y.shape)} entries, the "
+                         f"{H}x{W} image needs ({H + 4},) / ({W + 4},)")
+    if (tuple(rings.dis_x.shape) != (n, 2)
+            or tuple(rings.dis_y.shape) != (n, 2)):
+        raise ValueError(f"{what}: support-2 distances [N, 2] for N = {n} "
+                         "corners")
+    rings_dtype(rings)
+    if linear and isinstance(rings, DeviceRings):
+        if rings.bits is None:
+            raise ValueError(f"{what}: linear DeviceRings need their bits")
+    elif linear and rings.masks_x is None:
+        raise ValueError(f"{what}: the linear warp needs rings built with "
+                         "linear=True (their branch masks)")
+    if out_sz is None:
+        return 1, n
+    oh, ow = (int(v) for v in out_sz)
+    if oh * ow != n:
+        raise ValueError(f"{what}: out_sz {oh}x{ow} for {n} corners")
+    return oh, ow
+
+
+def steering_warp_rings_plain(feat: torch.Tensor, codes: torch.Tensor,
+                              rings: WarpRings, *, max_sigma: float = 10.0,
+                              norm: int = 255, linear: bool = False):
+    """The twin of K5's rings instance, on any device: the feature
+    constant-padded and the codes or maps edge-padded by one, gathered
+    through ``rings`` (:func:`~lerf_torch.ops.resample.warp_rings_plain`);
+    int32 codes decoded ``code / norm`` after the gather, float maps
+    decoded before it.  Returns float [C, N]."""
+    if feat.dtype == torch.int32:
+        planes = [pad2d(feat, (1, 1), (1, 1))] + [
+            pad2d(codes[..., k], (1, 1), (1, 1), "edge")
+            for k in range(codes.shape[-1])]
+        return warp_rings_plain(planes, rings, linear=linear,
+                                max_sigma=max_sigma, u8_inputs=True,
+                                norm=norm)
+    if linear:
+        planes = linear_rings_planes(feat, codes[..., 0], max_alpha=1.0,
+                                     u8_inputs=False)
+    else:
+        planes = gauss_rings_planes(feat, codes[..., 0], codes[..., 1],
+                                    codes[..., 2], max_sigma=max_sigma,
+                                    u8_inputs=False)
+    return warp_rings_plain(planes, rings, linear=linear,
+                            max_sigma=max_sigma)
+
+
+def steering_warp_rings(feat: torch.Tensor, codes: torch.Tensor, rings, *,
+                        out_sz=None, max_sigma: float = 10.0,
+                        norm: int = 255, linear: bool = False,
+                        out_dtype: torch.dtype = torch.float32):
+    """K5's rings instance: the warp of feature [C, H, W] and codes [C, H,
+    W, 3] (Gaussian) or [C, H, W, 1] (``linear``), in the pairs of types
+    :func:`steering_warp` takes, through ``rings`` (a
+    :class:`~lerf_torch.ops.resample.WarpRings` of the H×W image, support 2;
+    ``linear`` needs its branch masks) → [C, N] (``out_sz`` None) or [C,
+    oH, oW]: float32, or uint8 with ``out_dtype=torch.uint8`` as
+    :func:`steering_warp` writes it.  The rings' type sets the weights'
+    (:func:`rings_in_type`): bf16 maps under float32 rings are decoded in
+    bf16 and weighted, summed and divided in float32; under bf16 rings
+    they take the bf16 instance.  On CPU tensors the plain twin
+    (:func:`steering_warp_rings_plain`); on CUDA tensors one launch, the
+    rings' host leaves uploaded first (:func:`upload_rings`), never the
+    twin.  For the card's layout give ``out_sz``: without it the outputs
+    are one row, each block 32 of them."""
+    global launches, bf16_launches, rings_launches
+    C, H, W = feat.shape
+    _check_args(feat, codes, linear, out_dtype, norm, "steering_warp_rings")
+    oh, ow = _check_rings(rings, H, W, out_sz, linear, "steering_warp_rings")
+    shape = (C, oh * ow) if out_sz is None else (C, oh, ow)
+    in_type = rings_in_type(feat, codes, rings_dtype(rings))
+    if feat.device.type == "cpu":
+        if isinstance(rings, DeviceRings):
+            raise ValueError("steering_warp_rings: DeviceRings on the CPU")
+        out = steering_warp_rings_plain(feat, codes, rings,
+                                        max_sigma=max_sigma, norm=norm,
+                                        linear=linear).reshape(shape)
+        return quantize_device(out, norm, nan_to_zero=True) \
+            if out_dtype == torch.uint8 else out.to(torch.float32)
+    dr = upload_rings(rings, feat.device, linear=linear)
+    feat, codes = feat.contiguous(), codes.contiguous()
+    out = torch.empty(shape, dtype=out_dtype, device=feat.device)
+    lib = _build.library()
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lerf_steering_warp_rings(
+            feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            dr.ring_x.data_ptr(), dr.ring_x.numel(), dr.ring_y.data_ptr(),
+            dr.ring_y.numel(), dr.corner.data_ptr(), dr.dis_x.data_ptr(),
+            dr.dis_y.data_ptr(), 0 if dr.bits is None else dr.bits.data_ptr(),
+            C, H, W, oh, ow, int(linear), float(max_sigma), float(norm),
+            int(out_dtype == torch.uint8), stream, in_type)
+    _build.check(err, "steering_warp_rings launch")
+    launches += 1
+    rings_launches += 1
+    bf16_launches += int(codes.dtype == torch.bfloat16)
+    return out
+
+
+def launch_rings_geometry(params: WarpParams, corner: torch.Tensor,
+                          dis_x: torch.Tensor, dis_y: torch.Tensor) -> None:
+    """One launch of K5's rings geometry (``lerf_warp_rings_geometry``) on
+    the current stream of the card the outputs lie on: each output's
+    corner (int32 [N]) and float32 distances ([N, 2] each) of the
+    homography ``params`` holds, written into the tensors given.  Counts
+    ``rings_geometry_launches``."""
+    global rings_geometry_launches
+    (H, W), (OH, OW) = params.in_sz, params.out_sz
+    n = OH * OW
+    if (params.support != 2 or corner.shape != (n,)
+            or dis_x.shape != (n, 2) or dis_y.shape != (n, 2)
+            or corner.dtype != torch.int32
+            or dis_x.dtype != torch.float32 or dis_y.dtype != torch.float32
+            or corner.device.type != "cuda"):
+        raise ValueError("launch_rings_geometry: support 2, int32 corner "
+                         f"[{n}] and float32 distances [{n}, 2] on a card")
+    lib = _build.library()
+    with torch.cuda.device(corner.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lerf_warp_rings_geometry(
+            corner.data_ptr(), dis_x.data_ptr(), dis_y.data_ptr(),
+            _inv_array(params), H, W, OH, OW, *params.pad, stream)
+    _build.check(err, "warp_rings_geometry launch")
+    rings_geometry_launches += 1
+
+
+def warp_rings_geometry(inv, in_sz, out_sz, device) -> WarpRings:
+    """The rings of the homography whose float64 inverse is ``inv``, made
+    on the card ``device`` from K5's float64 derivation: the corner and
+    distances per output by one launch (:func:`launch_rings_geometry`),
+    the ring maps from the support-2 geometry's leading pads on the host
+    (H + 4 and W + 4 values, copied up); a
+    :class:`~lerf_torch.ops.resample.WarpRings` of CUDA tensors equal to
+    the host's ``warp_rings(WarpOperands.create(...))``.  Its plain twin
+    is :func:`~lerf_torch.ops.geometry.warp_rings_operands_plain`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"warp_rings_geometry: needs a CUDA device, not "
+                         f"{device}")
+    params = WarpParams.from_inverse(in_sz, inv, out_sz)
+    (H, W), (OH, OW) = params.in_sz, params.out_sz
+    n = OH * OW
+    corner = torch.empty(n, dtype=torch.int32, device=device)
+    dis_x = torch.empty((n, 2), dtype=torch.float32, device=device)
+    dis_y = torch.empty((n, 2), dtype=torch.float32, device=device)
+    launch_rings_geometry(params, corner, dis_x, dis_y)
+    ring_x, ring_y = (torch.from_numpy(ring_map(n_in, p0)).to(device)
+                      for n_in, p0 in zip((H, W), params.pad))
+    return WarpRings(ring_x, ring_y, corner, dis_x, dis_y)

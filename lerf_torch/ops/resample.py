@@ -6,8 +6,10 @@ The port of the resize and static warp of ``lerf_tpu/ops/resample.py``
 ``resize_right/resize_right2d_numpy.py:162-282,496-635``): the
 steerable-Gaussian (LeRF-G) and amplified-linear (LeRF-L) weights, the
 fixed-kernel resize and warp, the warp's validity mask (on the host, or
-from the inverse alone: K5's on a card) and the dynamic-scale serving
-("rings") resize.  Images are ``[..., C, H, W]`` float tensors; the hyper
+from the inverse alone: K5's on a card), the dynamic-scale serving
+("rings") resize and the dynamic-homography rings warp (the warp's
+geometry as data: :class:`WarpRings`, their host precompute in numpy or
+in C, :mod:`lerf_torch.native`, and K5's rings instance on a card).  Images are ``[..., C, H, W]`` float tensors; the hyper
 maps share the image's spatial shape and live on *source* pixels (they are
 gathered per neighbour).
 
@@ -31,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from . import interp_kernels
-from .geometry import (ResizeGeometry, WarpGeometry, _warp_axis, _warp_grid,
-                       resolve_scale_and_out_sz, warp_mask_plain)
+from .geometry import (ResizeGeometry, WarpGeometry, WarpOperands,
+                       _warp_axis, _warp_grid,
+                       resolve_scale_and_out_sz, ring_map, warp_mask_plain,
+                       warp_rings_operands_plain)
 from .lut_pipeline import divide_exact, edge_index, split_gaussian_hyper
 
 
@@ -765,6 +769,484 @@ def nearest_warp_mask_on_device(inv, in_sz, out_sz, border: int = 4):
             out_sz=out_sz, support=1)
         return warp_mask(params, device, border)
     return warp_mask_plain(inv64, in_sz, out_sz, border)
+
+
+# ---------------------------------------------------------------------------
+# dynamic-homography serving: the warp geometry as data ("rings")
+# ---------------------------------------------------------------------------
+
+# lerf_tpu's cap on the rational period of a resize's field of view, for
+# its periodic-slab gather (``lerf_tpu/ops/resample.py:119``); K1 reads any
+# field of view from its shared-memory window, so nothing here takes it
+MAX_FOV_PERIOD = 32
+
+
+class WarpRings(NamedTuple):
+    """The warp's geometry as data (``lerf_tpu.ops.resample.WarpRings``):
+    :class:`~lerf_torch.ops.geometry.WarpOperands`' rings, corner and
+    distances (cast once to the weights' type), plus the linear kernel's
+    host float64 branch masks.  Every shape is fixed by ``(in_sz,
+    out_sz)``, so one warp serves every homography or grid at a shape
+    pair.  Leaves are numpy arrays (the host's) or tensors
+    (:func:`warp_rings_on_device`'s)."""
+    ring_x: object               # [inH+4] int32
+    ring_y: object               # [inW+4] int32
+    corner: object               # [N] int32, N = outH·outW
+    dis_x: object                # [N, S] weight dtype
+    dis_y: object                # [N, S]
+    masks_x: Optional[tuple] = None   # (neg [N,S], pos [N,S]) — linear only
+    masks_y: Optional[tuple] = None
+
+
+def warp_rings(operands: WarpOperands, *, linear: bool = False,
+               dtype=np.float32) -> WarpRings:
+    """``WarpOperands`` → :class:`WarpRings` with numpy leaves
+    (``lerf_tpu.ops.resample.warp_rings``): the distances cast once to
+    ``dtype`` as the static path casts them, and the amplified-linear
+    branch masks, which must be evaluated in float64
+    (:func:`_branch_masks`), taken from the float64 distances.  numpy has
+    no bf16: ``dtype=torch.bfloat16`` gives the distances as bf16 tensors
+    (rounded through float32, as lerf_tpu's ``astype(bfloat16)`` and the
+    matrix warp's cast round them)."""
+    mx = _branch_masks(operands.dis_x) if linear else None
+    my = _branch_masks(operands.dis_y) if linear else None
+    if isinstance(dtype, torch.dtype):
+        dis = [torch.from_numpy(d).to(dtype)
+               for d in (operands.dis_x, operands.dis_y)]
+    else:
+        dis = [d.astype(dtype) for d in (operands.dis_x, operands.dis_y)]
+    return WarpRings(operands.ring_x, operands.ring_y, operands.corner,
+                     *dis, mx, my)
+
+
+def rings_dtype(rings) -> torch.dtype:
+    """The type of the rings' distances, float32 or bf16: the rings warps
+    compute their weights in it, as lerf_tpu's promote the maps against
+    it (bf16 maps under float32 rings: float32 weights, sums and output)."""
+    dt = getattr(rings, "dtype", None)       # DeviceRings keep theirs
+    if dt is None:
+        dt = torch.as_tensor(rings.dis_x[:0]).dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rings' distances of {dt}: float32 or bf16 only")
+    return dt
+
+
+def _leaf(a, device, dtype=None) -> torch.Tensor:
+    """A rings leaf (numpy or tensor) as a tensor on ``device``."""
+    return torch.as_tensor(a).to(device, dtype)
+
+
+def pack_rings_operand(planes, rings: WarpRings) -> torch.Tensor:
+    """Corner-indexed packed operand of the ring gather
+    (``lerf_tpu.ops.resample.pack_rings_operand``): ``planes`` are the
+    fixed ±1-padded ``[C, H+2, W+2]`` planes; the ring maps re-index them
+    so that row m of the result holds all (s, t, plane, channel) values an
+    output whose corner is m needs.  Returns ``[M, k]``, M = (inH+3)·(inW+3),
+    k = 4·n_planes·C.  A ring value outside the planes clamps into them,
+    as K5's rings instance clamps it."""
+    h2, w2 = planes[0].shape[-2:]
+    dev = planes[0].device
+    rx = _leaf(rings.ring_x, dev, torch.int64).clamp(0, h2 - 1)
+    ry = _leaf(rings.ring_y, dev, torch.int64).clamp(0, w2 - 1)
+    remapped = [p.index_select(-2, rx).index_select(-1, ry) for p in planes]
+    rh, rw = rx.shape[0], ry.shape[0]
+    blocks = [p[..., s:s + rh - 1, t:t + rw - 1]
+              for s in (0, 1) for t in (0, 1) for p in remapped]
+    packed = torch.cat(blocks, 0)                     # [k, rh-1, rw-1]
+    return packed.permute(1, 2, 0).reshape(-1, packed.shape[0])
+
+
+def split_rings_rows(rows, n_planes: int, channels: int):
+    """Gathered ``[N, k]`` rows → list over (s, t) of lists over planes of
+    ``[N, C]`` views (``lerf_tpu.ops.resample.split_rings_rows``)."""
+    out = []
+    for b in range(4):                                # (s, t) blocks
+        vals = []
+        for v in range(n_planes):
+            lane0 = (b * n_planes + v) * channels
+            vals.append(rows[:, lane0:lane0 + channels])
+        out.append(vals)
+    return out
+
+
+def _rowpack_warp_gather_rings(planes, rings: WarpRings):
+    """The ring gather: the packed operand's row at each output's corner
+    (clamped into the operand, as K5's rings instance clamps it), split
+    into (s, t) blocks of planes."""
+    packed = pack_rings_operand(planes, rings)
+    corner = _leaf(rings.corner, packed.device, torch.int64) \
+        .clamp(0, packed.shape[0] - 1)
+    rows = packed.index_select(0, corner)             # [N, k]
+    return split_rings_rows(rows, len(planes), planes[0].shape[0])
+
+
+def gauss_rings_planes(img, rho, sigma_x, sigma_y, *, max_sigma: float,
+                       u8_inputs: bool, pad_mode: str = "constant"):
+    """The 4 fixed ±1-padded gather planes of the steering ring warp
+    (image: ``pad_mode``; hyper maps: edge;
+    ``lerf_tpu.ops.resample.gauss_rings_planes``): uint8 codes with
+    ``u8_inputs``, else the decoded maps."""
+    if u8_inputs:
+        img_u8 = img if not torch.is_floating_point(img) else torch.round(img)
+        return [pad2d(img_u8.to(torch.uint8), (1, 1), (1, 1), pad_mode)] + [
+            pad2d(_encode_u8(p), (1, 1), (1, 1), "edge")
+            for p in (rho, sigma_x, sigma_y)]
+    r, sx, sy = decode_gaussian_hyper(rho, sigma_x, sigma_y, max_sigma)
+    return [pad2d(img, (1, 1), (1, 1), pad_mode)] + [
+        pad2d(p, (1, 1), (1, 1), "edge") for p in (r, sx, sy)]
+
+
+def _rings_dis(rings: WarpRings, device):
+    """The rings' distances on ``device`` in their own type
+    (:func:`rings_dtype`): the weights follow it, as in lerf_tpu, where a
+    bf16 map times float32 distances is a float32 product."""
+    rings_dtype(rings)
+    return _leaf(rings.dis_x, device), _leaf(rings.dis_y, device)
+
+
+def gauss_rings_accumulate(gathered, dis_x, dis_y, *, max_sigma: float,
+                           u8_inputs: bool, norm: int = 255):
+    """Σ w·x / Σ w over the four (s, t) blocks of a rings gather
+    (``lerf_tpu.ops.resample.gauss_rings_accumulate``; ``dis_*``: [N, S]
+    tensors in the weights' type).  With ``u8_inputs`` the gathered codes
+    decode as ``code / norm`` (IEEE division); weights flush below 2^-126
+    (:func:`flush_subnormal`), as the matrix warp's.  Returns [N, C]."""
+    wn = ws = None
+    for b, (s, t) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        x, r_, sx_, sy_ = gathered[b]
+        if u8_inputs:
+            x = x.to(torch.float32)
+            r_, sx_, sy_ = decode_gaussian_hyper(
+                *(divide_exact(p.to(torch.float32), norm)
+                  for p in (r_, sx_, sy_)), max_sigma)
+        w = flush_subnormal(steering_gaussian_weight(
+            r_, sx_, sy_, dis_x[:, s:s + 1], dis_y[:, t:t + 1]))
+        wn = w * x if wn is None else wn + w * x
+        ws = w if ws is None else ws + w
+    return wn / ws
+
+
+def _linear_rings_accumulate(gathered, rings: WarpRings, dx, dy, *,
+                             max_alpha: float, u8_inputs: bool,
+                             norm: int = 255):
+    """The amplified-linear counterpart of :func:`gauss_rings_accumulate`,
+    on the rings' float64 branch masks.  Returns [N, C]."""
+    dev = dx.device
+    mx = [_leaf(m, dev, torch.float32) for m in rings.masks_x]
+    my = [_leaf(m, dev, torch.float32) for m in rings.masks_y]
+    wn = ws = None
+    for b, (s, t) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        x, a_ = gathered[b]
+        if u8_inputs:
+            x = x.to(torch.float32)
+            a_ = decode_linear_hyper(divide_exact(a_.to(torch.float32), norm),
+                                     max_alpha)
+        w = amplified_linear_weight(
+            a_, dx[:, s:s + 1], dy[:, t:t + 1],
+            (mx[0][:, s:s + 1], mx[1][:, s:s + 1]),
+            (my[0][:, t:t + 1], my[1][:, t:t + 1]))
+        wn = w * x if wn is None else wn + w * x
+        ws = w if ws is None else ws + w
+    return wn / ws
+
+
+def warp_rings_plain(planes, rings: WarpRings, *, linear: bool,
+                     max_sigma: float = 10.0, max_alpha: float = 1.0,
+                     u8_inputs: bool = False, norm: int = 255):
+    """The rings warp on ±1-padded ``planes`` (feature and decoded maps, or
+    with ``u8_inputs`` integer codes decoded ``code / norm`` after the
+    gather) on any device: the twin of K5's rings instance.  The weights,
+    sums and output take the type lerf_tpu's promotion gives: float32
+    for codes or under float32 rings (a bf16 feature widening exactly into
+    the float32 products), bf16 for bf16 maps under bf16 rings.  Returns
+    float [C, N]."""
+    if linear and rings.masks_x is None:
+        raise ValueError("the linear warp needs rings built with "
+                         "linear=True (their branch masks)")
+    gathered = _rowpack_warp_gather_rings(planes, rings)
+    dx, dy = _rings_dis(rings, planes[0].device)
+    if linear:
+        out = _linear_rings_accumulate(gathered, rings, dx, dy,
+                                       max_alpha=max_alpha,
+                                       u8_inputs=u8_inputs, norm=norm)
+    else:
+        out = gauss_rings_accumulate(gathered, dx, dy, max_sigma=max_sigma,
+                                     u8_inputs=u8_inputs, norm=norm)
+    return out.T
+
+
+def rings_out_dtype(img, maps, rings, *, linear: bool,
+                    u8_inputs: bool) -> torch.dtype:
+    """The type of the rings warps' output, lerf_tpu's promotion of its
+    operands: float32 for codes (``u8_inputs``) and in the linear mode
+    (its float32 branch masks), else the feature's, the maps' and the
+    rings' types promoted (bf16 only when all three are)."""
+    if u8_inputs or linear:
+        return torch.float32
+    out = rings_dtype(rings)
+    for t in [img] + list(maps):
+        out = torch.promote_types(out, t.dtype)
+    return out
+
+
+def _rings_on_card(img, maps, rings, out_sz, *, linear, max_sigma,
+                   pad_mode, u8_inputs, max_alpha=1.0):
+    """The rings warp on CUDA tensors: K5's rings instance
+    (``kernels.warp.steering_warp_rings``), never the plain form.  Integer
+    inputs go in as int32 codes (the LUT and SRNet forms'), float ones as
+    the maps in [0, 1]; the result in the plain form's type
+    (:func:`rings_out_dtype`)."""
+    from .kernels.warp import steering_warp_rings
+
+    if pad_mode != "constant":
+        raise ValueError(f"pad_mode={pad_mode!r}: K5 pads the feature with "
+                         "zeros ('constant') only")
+    if max_alpha != 1.0:
+        raise ValueError(f"max_alpha={max_alpha}: K5 decodes alpha with "
+                         "max_alpha 1 only")
+    if u8_inputs:
+        feat = (torch.round(img) if torch.is_floating_point(img) else img) \
+            .to(torch.int32)
+        codes = torch.stack([_encode_u8(m).to(torch.int32) for m in maps],
+                            -1)
+    else:
+        feat, codes = img, torch.stack(list(maps), -1)
+    out = steering_warp_rings(feat, codes, rings, out_sz=out_sz,
+                              max_sigma=max_sigma, norm=255, linear=linear)
+    return out.to(rings_out_dtype(img, maps, rings, linear=linear,
+                                  u8_inputs=u8_inputs))
+
+
+def steering_gaussian_warp_rings(img, rho, sigma_x, sigma_y,
+                                 rings: WarpRings, *, out_sz=None,
+                                 max_sigma: float = 10.0,
+                                 pad_mode: str = "constant",
+                                 u8_inputs: bool = False):
+    """Dynamic-homography steering warp
+    (``lerf_tpu.ops.resample.steering_gaussian_warp_rings``): bit-equal to
+    :func:`steering_gaussian_warp` ([C, H, W], support 2) of the same
+    homography, with the geometry taken from ``rings`` (host:
+    ``WarpOperands.create`` + :func:`warp_rings`, or
+    :func:`warp_serving_host_fused`; or :func:`warp_rings_on_device`) —
+    also the rings of any other map (``WarpOperands.from_grid``).
+
+    ``out_sz=None`` returns the flat ``[C, N]`` output.  The rings' type
+    sets the weights' (:func:`rings_dtype`): float32 rings warp bf16 maps
+    into a float32 output, as lerf_tpu's do; bf16 rings
+    (``warp_rings(..., dtype=torch.bfloat16)``) keep bf16 maps in bf16.
+    On CPU tensors the plain form (:func:`warp_rings_plain`); on CUDA
+    tensors K5's rings instance, which takes ``pad_mode`` "constant"
+    only."""
+    if img.device.type == "cuda":
+        return _rings_on_card(img, (rho, sigma_x, sigma_y), rings, out_sz,
+                              linear=False, max_sigma=max_sigma,
+                              pad_mode=pad_mode, u8_inputs=u8_inputs)
+    planes = gauss_rings_planes(img, rho, sigma_x, sigma_y,
+                                max_sigma=max_sigma, u8_inputs=u8_inputs,
+                                pad_mode=pad_mode)
+    out = warp_rings_plain(planes, rings, linear=False, max_sigma=max_sigma,
+                           u8_inputs=u8_inputs)
+    return out if out_sz is None else out.reshape(img.shape[0], *out_sz)
+
+
+def linear_rings_planes(img, alpha, *, max_alpha: float, u8_inputs: bool,
+                        pad_mode: str = "constant"):
+    """The 2 fixed ±1-padded gather planes of the amplified-linear ring
+    warp (image: ``pad_mode``; α map: edge), as :func:`gauss_rings_planes`
+    makes the steering warp's."""
+    if u8_inputs:
+        img_u8 = img if not torch.is_floating_point(img) else torch.round(img)
+        return [pad2d(img_u8.to(torch.uint8), (1, 1), (1, 1), pad_mode),
+                pad2d(_encode_u8(alpha), (1, 1), (1, 1), "edge")]
+    return [pad2d(img, (1, 1), (1, 1), pad_mode),
+            pad2d(decode_linear_hyper(alpha, max_alpha), (1, 1), (1, 1),
+                  "edge")]
+
+
+def amplified_linear_warp_rings(img, alpha, rings: WarpRings, *,
+                                out_sz=None, max_alpha: float = 1.0,
+                                pad_mode: str = "constant",
+                                u8_inputs: bool = False):
+    """Dynamic-homography amplified-linear warp
+    (``lerf_tpu.ops.resample.amplified_linear_warp_rings``), the rings
+    counterpart of :func:`amplified_linear_warp`: ``rings`` built with
+    ``linear=True`` so the float64 branch masks ride along; ``out_sz=None``
+    → flat [C, N].  CUDA tensors run K5's rings instance (``max_alpha`` 1,
+    ``pad_mode`` "constant")."""
+    if img.device.type == "cuda":
+        return _rings_on_card(img, (alpha,), rings, out_sz, linear=True,
+                              max_sigma=10.0, pad_mode=pad_mode,
+                              u8_inputs=u8_inputs, max_alpha=max_alpha)
+    planes = linear_rings_planes(img, alpha, max_alpha=max_alpha,
+                                  u8_inputs=u8_inputs, pad_mode=pad_mode)
+    out = warp_rings_plain(planes, rings, linear=True, max_alpha=max_alpha,
+                           u8_inputs=u8_inputs)
+    return out if out_sz is None else out.reshape(img.shape[0], *out_sz)
+
+
+def warp_rings_on_device(inv, in_sz, out_sz, *, in_frame=None) -> WarpRings:
+    """The rings of the homography whose float64 inverse is ``inv`` (a
+    [3, 3] array or tensor), made where ``inv`` lies
+    (``lerf_tpu.ops.resample.warp_rings_on_device``; Gaussian: no branch
+    masks).  For a CUDA tensor on the card, from the float64 derivation
+    K5's instances make (``kernels.warp.warp_rings_geometry``); otherwise
+    its plain twin on the CPU
+    (:func:`~lerf_torch.ops.geometry.warp_rings_operands_plain`), the
+    same operations.  Both equal the host's
+    ``warp_rings(WarpOperands.create(in_sz, matrix, out_sz))`` when ``inv``
+    is ``np.linalg.inv(matrix)``; lerf_tpu's are float32 and do not.
+    Returns a :class:`WarpRings` of tensors on ``inv``'s device.
+
+    ``in_frame`` (lerf_tpu: rings in a shape bucket's frame) is refused:
+    the port keeps no shape buckets, since nothing in PyTorch compiles per
+    shape."""
+    if in_frame is not None:
+        raise ValueError("in_frame: the port keeps no shape buckets "
+                         "(nothing in PyTorch compiles per shape)")
+    in_sz = tuple(int(v) for v in in_sz)
+    out_sz = tuple(int(v) for v in out_sz)
+    device = inv.device if isinstance(inv, torch.Tensor) \
+        else torch.device("cpu")
+    inv64 = np.asarray(inv.cpu() if isinstance(inv, torch.Tensor) else inv,
+                       dtype=np.float64).reshape(3, 3)
+    if device.type == "cuda":
+        from .kernels.warp import warp_rings_geometry
+
+        return warp_rings_geometry(inv64, in_sz, out_sz, device)
+    return WarpRings(*warp_rings_operands_plain(inv64, in_sz, out_sz))
+
+
+def warp_serving_host(in_sz, matrix, out_sz, *, border: int = 4):
+    """The host precompute of dynamic-warp serving
+    (``lerf_tpu.ops.resample.warp_serving_host``): ``(WarpOperands,
+    validity mask)`` sharing ONE float64 projection grid."""
+    in_sz = tuple(int(v) for v in in_sz)
+    out_sz = tuple(int(v) for v in out_sz)
+    grid_x, grid_y = _warp_grid(matrix, in_sz, out_sz)
+    ops = WarpOperands.from_grid(grid_x, grid_y, in_sz, out_sz)
+    mask = _mask_from_grid(grid_x, grid_y, in_sz, border)
+    return ops, mask
+
+
+def warp_serving_host_fused(in_sz, matrix, out_sz, *, border: int = 4,
+                            linear: bool = False, dtype=np.float32,
+                            block_rows: int = 64, native: bool = True):
+    """``(WarpRings, validity mask)`` of one homography in one sweep
+    (``lerf_tpu.ops.resample.warp_serving_host_fused``), bit-equal to
+    ``warp_rings(WarpOperands.create(...))`` and
+    :func:`nearest_warp_mask_host`.
+
+    ``native=True`` with float32 distances: the C library
+    (:mod:`lerf_torch.native`, built at first use; it raises if it cannot
+    be built), on :func:`~lerf_torch.native.native_threads` threads.
+    Otherwise numpy, ``block_rows`` output rows at a time, every
+    intermediate cache-resident and only the outputs streamed to memory
+    (the int32 corner, the float32 distances, the mask); the mask's gather
+    replaced by arithmetic (``box(d)·neigh == 255`` ⇔ both box factors
+    are 1 AND the clipped support-1 index lands in the white region),
+    exact on the {0, 255} lattice.  Every float64 expression is
+    ``_warp_grid`` / ``_serving_axis`` / ``_mask_from_grid``'s term for
+    term, and the single cast to ``dtype`` is :func:`warp_rings`'
+    (``torch.bfloat16``: float32 rounded to bf16 tensors).  Support 2
+    only."""
+    if dtype is torch.bfloat16:   # numpy has no bf16: rounded through f32
+        rings, mask = warp_serving_host_fused(
+            in_sz, matrix, out_sz, border=border, linear=linear,
+            block_rows=block_rows, native=native)
+        return rings._replace(**{k: torch.from_numpy(getattr(rings, k))
+                                 .to(dtype) for k in ("dis_x", "dis_y")}), \
+            mask
+    in_h, in_w = (int(v) for v in in_sz)
+    oh, ow = (int(v) for v in out_sz)
+    inv = np.linalg.inv(np.asarray(matrix, dtype=np.float64))
+    eps = float(np.finfo(np.float32).eps)
+    xs = np.arange(ow, dtype=np.float64)
+
+    def scalar_grid(y, x):
+        den = (inv[2, 0] * x + inv[2, 2]) + inv[2, 1] * y
+        sx = ((inv[0, 0] * x + inv[0, 2]) + inv[0, 1] * y) / den
+        sy = ((inv[1, 0] * x + inv[1, 2]) + inv[1, 1] * y) / den
+        return min(max(sy, 0.0), float(in_h)), min(max(sx, 0.0), float(in_w))
+
+    # pads are set by the FIRST output pixel alone (the reference's
+    # ``pad0 = max(-fov[0,0,0], 0)`` quirk, resize_right2d_numpy.py:365)
+    g00x, g00y = scalar_grid(0.0, 0.0)
+    pad0 = (int(max(-int(np.ceil(g00x - 1.0 - eps)), 0)),
+            int(max(-int(np.ceil(g00y - 1.0 - eps)), 0)))
+    pad0m = (int(max(-int(np.ceil(g00x - 0.5 - eps)), 0)),
+             int(max(-int(np.ceil(g00y - 0.5 - eps)), 0)))
+
+    if native and dtype == np.float32:
+        from ..native import get_warp_lib, native_threads
+
+        lib = get_warp_lib()
+        n = oh * ow
+        corner = np.empty(n, np.int32)
+        dis_x = np.empty((n, 2), np.float32)
+        dis_y = np.empty((n, 2), np.float32)
+        mask_u8 = np.empty(n, np.uint8)
+        mk = [np.empty((n, 2), np.float32)
+              for _ in range(4)] if linear else [None] * 4
+        ptr = [m.ctypes.data if m is not None else None for m in mk]
+        lib.warp_operands_fused(
+            np.ascontiguousarray(inv), in_h, in_w, oh, ow,
+            pad0[0], pad0[1], pad0m[0], pad0m[1], border, int(linear),
+            native_threads(), corner, dis_x, dis_y, mask_u8,
+            ptr[0], ptr[1], ptr[2], ptr[3])
+        rings = WarpRings(
+            ring_map(in_h, pad0[0]), ring_map(in_w, pad0[1]), corner,
+            dis_x, dis_y,
+            (mk[0], mk[1]) if linear else None,
+            (mk[2], mk[3]) if linear else None)
+        return rings, mask_u8.astype(bool).reshape(oh, ow)
+
+    corner = np.empty((oh, ow), np.int32)
+    dis = [np.empty((oh, ow, 2), dtype) for _ in range(2)]
+    mask = np.empty((oh, ow), bool)
+    msk = [[np.empty((oh, ow, 2), dtype) for _ in range(2)]
+           for _ in range(2)] if linear else None
+
+    for r0 in range(0, oh, block_rows):
+        r1 = min(r0 + block_rows, oh)
+        sl = slice(r0, r1)
+        ysb = np.arange(r0, r1, dtype=np.float64)[:, None]
+        den = (inv[2, 0] * xs + inv[2, 2]) + inv[2, 1] * ysb
+        sx = ((inv[0, 0] * xs + inv[0, 2]) + inv[0, 1] * ysb) / den
+        sy = ((inv[1, 0] * xs + inv[1, 2]) + inv[1, 1] * ysb) / den
+        cxy = []
+        okb = None
+        for ax, (g, in_n) in enumerate(((sy.clip(0, in_h), in_h),
+                                        (sx.clip(0, in_w), in_w))):
+            left = np.ceil(g - 1.0 - eps)
+            shifted = g + pad0[ax]
+            for j in (0, 1):
+                t = np.clip(left + (j + pad0[ax]), 0, in_n - 1)
+                d = shifted - t
+                dis[ax][sl, :, j] = d
+                if linear:
+                    neg, pos = _branch_masks(d, dtype)
+                    msk[ax][0][sl, :, j] = neg
+                    msk[ax][1][sl, :, j] = pos
+            cxy.append(left + (pad0[ax] + 1))
+            # support-1 mask axis: box(dm) == 1 AND the clipped index lands
+            # on a white (inside-border) source row
+            lm = np.ceil(g - 0.5 - eps)
+            fm = np.clip(lm + pad0m[ax], 0, in_n - 1)
+            dm = (g + pad0m[ax]) - fm
+            ok = ((-1.0 <= dm) & (dm <= 1.0)
+                  & (fm >= pad0m[ax] + border)
+                  & (fm <= pad0m[ax] + in_n - 1 - border))
+            okb = ok if okb is None else (okb & ok)
+        corner[sl] = (cxy[0] * (in_w + 3) + cxy[1]).astype(np.int32)
+        mask[sl] = okb
+
+    n = oh * ow
+    rings = WarpRings(
+        ring_map(in_h, pad0[0]), ring_map(in_w, pad0[1]), corner.reshape(n),
+        dis[0].reshape(n, 2), dis[1].reshape(n, 2),
+        tuple(m.reshape(n, 2) for m in msk[0]) if linear else None,
+        tuple(m.reshape(n, 2) for m in msk[1]) if linear else None)
+    return rings, mask
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,9 @@ from ..models.imdn_s2d import resolve_backend as imdn_backend
 from ..models.imdn_s2d import tower_halo_rows
 from ..ops import geometry as geo
 from ..ops.kernels import resize as k1
-from ..ops.kernels.warp import WarpParams, steering_warp
+from ..ops.kernels.warp import (WarpParams, steering_warp,
+                                steering_warp_rings)
+from ..ops.resample import WarpRings
 from ..ops.lut_pipeline import (MAX_PAD, divide_exact, lut_stage1,
                                 lut_stage2)
 from .mesh import (DATA_AXIS, Mesh, RowShards, all_gather_rows,
@@ -349,18 +351,24 @@ def sharded_lut_warp_pipeline(img, tables1, tables2, modes,
 
 
 def steering_gaussian_warp_rings_sharded(img, rho, sigma_x, sigma_y,
-                                         rings: WarpParams, mesh: Mesh, *,
+                                         rings, mesh: Mesh, *,
                                          max_sigma: float = 10.0,
                                          u8_inputs: bool = True,
                                          axis: str = DATA_AXIS,
-                                         pad_mode: str = "constant"):
-    """Multi-device dynamic-homography warp (lerf_tpu's takes its rings;
-    the port's serving warp takes the matrix, :class:`WarpParams`, from
-    which K5 derives each output's window on the card): each shard K5 on
-    its window of output rows.  ``u8_inputs``: the feature rounded and the
+                                         pad_mode: str = "constant",
+                                         out_sz=None):
+    """Multi-device dynamic-homography warp: ``rings`` a
+    :class:`~lerf_torch.ops.resample.WarpRings`, as lerf_tpu's takes (or
+    :class:`WarpParams`, the matrix, from which K5 derives each window on
+    the card).  The source is replicated; each shard warps its window of
+    the outputs through its slice of the rings' corners and distances
+    (``out_sz`` (oH, oW) given: output rows ``[r0, r1)``, entries ``r0·oW
+    … r1·oW``; else the N entries split evenly), K5's rings instance on a
+    card, its twin on the CPU.  ``u8_inputs``: the feature rounded and the
     hyper maps encoded as codes ``round(h·255)``, decoded ``code / 255``
     (lerf_tpu's u8 row gather); otherwise K5's float mode.  Returns
-    :class:`RowShards` of the flat [C, N]."""
+    :class:`RowShards` of the flat [C, N], bit-equal to
+    ``steering_gaussian_warp_rings`` unsharded."""
     _check_pad(pad_mode)
     if u8_inputs:
         h, w = img.shape[-2:]
@@ -372,8 +380,30 @@ def steering_gaussian_warp_rings_sharded(img, rho, sigma_x, sigma_y,
                              codes.reshape(-1, h, w, 3)), mesh)
     else:
         sources, _ = _float_sources(img, rho, sigma_x, sigma_y, mesh)
-    return _warp_rows(sources, rings, mesh, max_sigma=max_sigma, norm=255,
-                      flat=True)
+    if isinstance(rings, WarpParams):
+        return _warp_rows(sources, rings, mesh, max_sigma=max_sigma,
+                          norm=255, flat=True)
+    n = len(rings.corner)
+    if out_sz is None:
+        ranges, ow = row_ranges(n, mesh.size), 1
+    else:
+        ranges, ow = row_ranges(int(out_sz[0]), mesh.size), int(out_sz[1])
+        if int(out_sz[0]) * ow != n:
+            raise ValueError(f"out_sz {tuple(out_sz)} for {n} corners")
+
+    def run(i, src):
+        feat, codes = src
+        a, b = (r * ow for r in ranges[i])
+        part = WarpRings(rings.ring_x, rings.ring_y, rings.corner[a:b],
+                         rings.dis_x[a:b], rings.dis_y[a:b])
+        shape = None if out_sz is None else (ranges[i][1] - ranges[i][0],
+                                             ow)
+        out = steering_warp_rings(feat, codes, part, out_sz=shape,
+                                  max_sigma=max_sigma, norm=255)
+        return out.reshape(out.shape[0], -1)
+
+    return RowShards(mesh.map(run, sources),
+                     [(r0 * ow, r1 * ow) for r0, r1 in ranges], n, axis=-1)
 
 
 def sharded_dynamic_warp_pipeline(img, tables1, tables2, modes,

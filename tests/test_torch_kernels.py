@@ -68,13 +68,13 @@ from lerf_torch.lut.io import LUTBank
 from lerf_torch.models import srnet
 from lerf_torch.ops import lut_pipeline as lp
 from lerf_torch.ops.geometry import (ResizeGeometry, ResizeOperands,
-                                     WarpGeometry)
+                                     WarpGeometry, WarpOperands)
 from lerf_torch.ops.kernels import lut_stage as k2
 from lerf_torch.ops.kernels import resize as k1
 from lerf_torch.ops.kernels import srnet_ensemble as k3
 from lerf_torch.ops.kernels import srnet_ensemble_int8 as k4
 from lerf_torch.ops.kernels import warp as k5
-from lerf_torch.ops.resample import (amplified_linear_resize,
+from lerf_torch.ops.resample import (WarpRings, amplified_linear_resize,
                                      amplified_linear_resize_rings,
                                      amplified_linear_warp,
                                      linear_resize_codes_plain,
@@ -84,8 +84,11 @@ from lerf_torch.ops.resample import (amplified_linear_resize,
                                      steering_gaussian_resize,
                                      steering_gaussian_resize_rings,
                                      steering_gaussian_warp,
+                                     steering_gaussian_warp_rings,
                                      steering_resize_codes_plain,
-                                     steering_warp_codes_plain)
+                                     steering_warp_codes_plain, warp_rings,
+                                     warp_rings_on_device,
+                                     warp_serving_host_fused)
 from lerf_torch.pipeline import LutPredictor, NetPredictor, _quantize_device
 
 MODES = ("s", "c", "t")
@@ -2425,3 +2428,250 @@ def test_sharded_imdn_bf16_on_one_card(cuda_device):
                              out_dtype=torch.uint8)
     assert torch.equal(got.cat(), whole)
     np.testing.assert_array_equal(mask.to_host(), warp.host_mask())
+
+
+# -- K5's rings instance: the warp's geometry as data ---------------------------
+
+RINGS_SHAPE, RINGS_OUT = (3, 45, 77), (112, 192)
+
+
+def distortion_grid(in_sz, out_sz, shuffled=False):
+    """A smooth barrel distortion of the ×(out / in) zoom as [oH, oW] row
+    and column coordinates clipped to [0, in] (``WarpOperands.from_grid``'s
+    input, no homography); ``shuffled``: its output rows in a seeded random
+    order, so that a block's windows lie far apart (the direct path)."""
+    (h, w), (oh, ow) = in_sz, out_sz
+    ys, xs = np.meshgrid(np.arange(oh, dtype=np.float64),
+                         np.arange(ow, dtype=np.float64), indexing="ij")
+    u, v = (ys - (oh - 1) / 2) / oh, (xs - (ow - 1) / 2) / ow
+    k = 1.0 + 0.35 * (u * u + v * v)
+    gx = ((oh - 1) / 2 + (ys - (oh - 1) / 2) * k) * h / oh
+    gy = ((ow - 1) / 2 + (xs - (ow - 1) / 2) * k) * w / ow
+    gx, gy = gx.clip(0, h), gy.clip(0, w)
+    if shuffled:
+        order = np.random.RandomState(4).permutation(oh)
+        gx, gy = gx[order], gy[order]
+    return gx, gy
+
+
+def rings_inputs(pair, linear, device, shape=RINGS_SHAPE, seed=12):
+    """Stage outputs of one ``k1.IN_TYPES`` pair: int32 feature and codes,
+    or a feature and maps in [0, 1] (code / 255) of the pair's types."""
+    rng = np.random.RandomState(seed)
+    feat = rng.randint(0, 256, shape).astype(np.int32)
+    codes = rng.randint(0, 256, shape + (1 if linear else 3,)).astype(np.int32)
+    f, c = torch.from_numpy(feat), torch.from_numpy(codes)
+    if pair != "int32":
+        ft, ct = {"float32": (torch.float32, torch.float32),
+                  "bf16": (torch.bfloat16, torch.bfloat16),
+                  "mixed": (torch.float32, torch.bfloat16)}[pair]
+        f, c = (f.float() / 255).to(ft), (c.float() / 255).to(ct)
+    return f.to(device), c.to(device)
+
+
+def same(a, b):
+    return torch.equal(torch.nan_to_num(a.float(), nan=-1.0),
+                       torch.nan_to_num(b.float(), nan=-1.0))
+
+
+def grid_rings(shuffled, linear, shape=RINGS_SHAPE, out_sz=RINGS_OUT,
+               dtype=np.float32):
+    gx, gy = distortion_grid(shape[1:], out_sz, shuffled)
+    return warp_rings(WarpOperands.from_grid(gx, gy, shape[1:], out_sz),
+                      linear=linear, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rings_t", ["float32", "bf16"])
+@pytest.mark.parametrize("grid", ["smooth", "shuffled"])
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("pair", ["int32", "float32", "bf16", "mixed"])
+def test_warp_rings_kernel_equals_twin(pair, linear, grid, rings_t,
+                                       cuda_device):
+    """Every input pair, both modes, under float32 and bf16 rings, on a
+    smooth grid (every block on the tile) and a shuffled one (about half
+    the blocks' footprints exceed the tile: the direct path):
+    ``torch.equal`` to the twin on the card, float32 and uint8 (bf16 maps
+    under float32 rings: the widened instance).  bf16 rings with a float32
+    feature and bf16 maps have no instance and raise."""
+    rings = grid_rings(grid == "shuffled", linear,
+                       dtype=torch.bfloat16 if rings_t == "bf16"
+                       else np.float32)
+    feat, codes = rings_inputs(pair, linear, cuda_device)
+    if pair == "mixed" and rings_t == "bf16":
+        with pytest.raises(ValueError, match="bf16 rings with a float32"):
+            k5.steering_warp_rings(feat, codes, rings, out_sz=RINGS_OUT,
+                                   linear=linear)
+        return
+    before = (k5.launches, k5.rings_launches, k5.bf16_launches)
+    got = k5.steering_warp_rings(feat, codes, rings, out_sz=RINGS_OUT,
+                                 linear=linear)
+    got_u8 = k5.steering_warp_rings(feat, codes, rings, out_sz=RINGS_OUT,
+                                    linear=linear, out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    bf16 = int(codes.dtype == torch.bfloat16)
+    assert (k5.launches, k5.rings_launches, k5.bf16_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * bf16)
+    want = k5.steering_warp_rings_plain(feat, codes, rings, linear=linear)
+    assert got.dtype == torch.float32 and got.shape == (3,) + RINGS_OUT
+    assert same(got, want.reshape(got.shape))
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+    direct = k5.rings_footprint_entries(
+        rings, RINGS_SHAPE[1:], RINGS_OUT, RINGS_SHAPE[0]) > k5.TILE_ENTRIES
+    # the shuffled grid's launch mixes both paths
+    assert (0.3 < direct.mean() < 0.7) if grid == "shuffled" \
+        else not direct.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", ["3x7x9", "border", "rotation", "minify16",
+                                  "pad1"])
+def test_warp_rings_kernel_equals_matrix_instance(case, linear, cuda_device):
+    """Under a homography the rings instance, on the host's rings, is K5's
+    matrix instance bit for bit."""
+    matrix, shape, out_sz = WARP_CASES[case]
+    feat, codes, _, params = warp_case(case, cuda_device)
+    codes = codes[..., :1].contiguous() if linear else codes
+    rings, _ = warp_serving_host_fused(shape[1:], matrix, out_sz,
+                                       linear=linear, native=False)
+    got = k5.steering_warp_rings(feat, codes, rings, out_sz=out_sz,
+                                 linear=linear, out_dtype=torch.uint8)
+    want = k5.steering_warp(feat, codes, params, linear=linear,
+                            out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["int32", "bf16", "bf16_rings"])
+def test_warp_rings_kernel_reads_both_pad_rows(pair, cuda_device):
+    """Ring values 0 and H + 1 (W + 1): the pad past each edge, as the
+    twin reads it, through the tile and the direct path (bf16 maps under
+    float32 rings, the widened instance, and under bf16 rings)."""
+    _, h, w = shape = (3, 7, 9)
+    feat, codes = rings_inputs(pair.split("_")[0], False, cuda_device,
+                               shape)
+    rng = np.random.RandomState(3)
+    n = 40 * 24
+    for ring_x, ring_y in (
+            (np.r_[0, 0, np.arange(1, h + 1), h + 1, h + 1],
+             np.r_[0, 0, np.arange(1, w + 1), w + 1, w + 1]),
+            (rng.randint(0, h + 2, h + 4), rng.randint(0, w + 2, w + 4))):
+        rings = WarpRings(ring_x.astype(np.int32), ring_y.astype(np.int32),
+                          rng.randint(0, (h + 3) * (w + 3), n)
+                          .astype(np.int32),
+                          rng.uniform(-1.5, 1.5, (n, 2)).astype(np.float32),
+                          rng.uniform(-1.5, 1.5, (n, 2)).astype(np.float32))
+        if pair == "bf16_rings":
+            rings = rings._replace(
+                dis_x=torch.from_numpy(rings.dis_x).bfloat16(),
+                dis_y=torch.from_numpy(rings.dis_y).bfloat16())
+        got = k5.steering_warp_rings(feat, codes, rings, out_sz=(40, 24))
+        want = k5.steering_warp_rings_plain(feat, codes, rings)
+        torch.cuda.synchronize()
+        assert same(got, want.reshape(got.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["3x7x9", "border", "rotation", "main",
+                                  "pad1", "minify16"])
+def test_warp_rings_on_device_equals_host_rings(case, cuda_device):
+    """One launch of the rings geometry kernel, counted; its rings equal
+    to the host's and to its plain twin run on the card."""
+    from lerf_torch.ops.geometry import warp_rings_operands_plain
+
+    matrix, shape, out_sz = WARP_CASES[case]
+    inv = torch.from_numpy(np.linalg.inv(matrix)).to(cuda_device)
+    before = k5.rings_geometry_launches
+    got = warp_rings_on_device(inv, shape[1:], out_sz)
+    torch.cuda.synchronize()
+    assert k5.rings_geometry_launches == before + 1
+    want = warp_rings(WarpOperands.create(shape[1:], matrix, out_sz))
+    twin = warp_rings_operands_plain(np.linalg.inv(matrix), shape[1:],
+                                     out_sz, cuda_device)
+    for name, a, b, c in zip(want._fields[:5], got[:5], want[:5], twin):
+        assert a.device.type == "cuda" and c.device.type == "cuda", name
+        assert torch.equal(a.cpu(), torch.from_numpy(b)), name
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+def test_warp_rings_bf16_maps_follow_the_rings_type(linear, cuda_device):
+    """The rings warps on bf16 maps, as lerf_tpu promotes them: under
+    float32 rings a float32 output, K5's matrix instance on the feature
+    widened to float32 beside the bf16 maps; under bf16 rings its bf16
+    instance, a bf16 output (the linear mode's float32, as its float32
+    branch masks promote it)."""
+    from lerf_torch.ops.resample import amplified_linear_warp_rings
+
+    matrix, shape, out_sz = WARP_CASES["rotation"]
+    feat, codes = rings_inputs("bf16", linear, cuda_device, shape)
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz)
+    maps = [codes[..., k] for k in range(codes.shape[-1])]
+    for dtype, want_feat in ((np.float32, feat.float()),
+                             (torch.bfloat16, feat)):
+        rings, _ = warp_serving_host_fused(shape[1:], matrix, out_sz,
+                                           linear=linear, dtype=dtype)
+        warp = (amplified_linear_warp_rings if linear
+                else steering_gaussian_warp_rings)
+        got = warp(feat, *maps, rings, out_sz=out_sz)
+        want = k5.steering_warp(want_feat, codes, params, linear=linear)
+        torch.cuda.synchronize()
+        # the linear mode's float32 branch masks promote its output
+        assert got.dtype == (torch.bfloat16 if dtype is torch.bfloat16
+                             and not linear else torch.float32)
+        assert same(got, want)
+
+
+@pytest.mark.cuda
+def test_warp_rings_kernel_rejects_wrong_rings(cuda_device):
+    from lerf_torch.ops.kernels import _build
+
+    rings = grid_rings(False, False, (3, 7, 9), (13, 17))
+    feat, codes = rings_inputs("int32", False, cuda_device, (3, 7, 9))
+    short = rings._replace(ring_y=rings.ring_y[:-1])
+    with pytest.raises(ValueError, match="ring_x"):
+        k5.steering_warp_rings(feat, codes, short, out_sz=(13, 17))
+    dev = k5.upload_rings(rings, cuda_device)
+    with pytest.raises(ValueError, match="ring_x"):
+        k5.steering_warp_rings(feat, codes, dev._replace(
+            ring_x=dev.ring_x[:-1]), out_sz=(13, 17))
+    with pytest.raises(ValueError, match="linear DeviceRings"):
+        k5.steering_warp_rings(feat, codes[..., :1].contiguous(), dev,
+                               out_sz=(13, 17), linear=True)
+    out = torch.empty((3, 13, 17), device=cuda_device)
+    args = [feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            dev.ring_x.data_ptr(), 7 + 4, dev.ring_y.data_ptr(), 9 + 4,
+            dev.corner.data_ptr(), dev.dis_x.data_ptr(), dev.dis_y.data_ptr(),
+            0, 3, 7, 9, 13, 17, 0, 10.0, 255.0, 0,
+            torch.cuda.current_stream().cuda_stream, 0]
+    lib = _build.library()
+    assert lib.lerf_steering_warp_rings(*args) == 0
+    for k, bad in ((4, 7 + 3), (6, 9 + 5)):
+        wrong = list(args)
+        wrong[k] = bad
+        assert lib.lerf_steering_warp_rings(*wrong) != 0
+
+
+@pytest.mark.cuda
+def test_warp_rings_sharded_on_one_card(cuda_device):
+    """The sharded rings warp on ``[cuda:0] × 2``, each shard its window of
+    corners and distances, bit-equal to the rings warp unsharded."""
+    from lerf_torch.parallel import make_mesh
+    from lerf_torch.parallel.spatial import (
+        steering_gaussian_warp_rings_sharded)
+
+    rings = grid_rings(False, False)
+    feat, codes = rings_inputs("int32", False, cuda_device)
+    img = feat.float()
+    maps = [codes[..., k].float() / 255 for k in range(3)]
+    want = steering_gaussian_warp_rings(img, *maps, rings, u8_inputs=True)
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    for out_sz in (None, RINGS_OUT):
+        before = k5.rings_launches
+        got = steering_gaussian_warp_rings_sharded(img, *maps, rings, mesh,
+                                                   out_sz=out_sz)
+        assert k5.rings_launches == before + 2
+        assert same(got.cat(), want)
