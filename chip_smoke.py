@@ -327,10 +327,16 @@ hand-written kernel against its plain PyTorch twin on the card:
    IMDN form's float32 and bf16 maps, both modes, bf16 maps under float32
    and under bf16 rings); a radial distortion and its row-shuffled form
    (``WarpOperands.from_grid``: every block tiled, most on the direct
-   path) ``torch.equal`` to its twin; the rings instance's time by
-   CUDA-graph replays beside the matrix instance in alternating rounds,
-   the geometry kernel's by graph replays, the upload of the pinned
-   rings, their bounds (bytes: 20 of rings an output read, or written);
+   path) ``torch.equal`` to its twin; the rings instance's persistent
+   grid and ptxas's registers (a line of their own); its time by
+   CUDA-graph replays beside its first design (``RINGS_FIRST``, built
+   beside the library) and the matrix instance in
+   alternating rounds on the main frame, and beside its first design on
+   both grids (each round's outputs ``torch.equal``), the geometry
+   kernel's by graph replays, the upload of the pinned rings, their
+   bounds (bytes: 20 of rings an output read, or written; the rings
+   instance's also in the linear mode, on float32 maps and in its bf16
+   instance);
 52. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
@@ -351,6 +357,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -508,6 +516,10 @@ K3_BF16_ROUNDS = 2
 # alternating rounds (phase 49)
 K2_ROWS_FIRST = "lerf_torch/tools/lut_rows_first.cu"
 K2_ROWS_ROUNDS = 2
+# K5 rings' first design (the matrix instances' block with its windows
+# loaded), timed beside the kernel by CUDA-graph replays in
+# RINGS_ROUNDS alternating rounds (phase 51)
+RINGS_FIRST = "lerf_torch/tools/steering_warp_rings_first.cu"
 # phase 50, the IMDN form's bf16 compute type.  K1's and K5's bf16
 # instances against their twins (the port's plain ops on bf16 tensors, on
 # the card): the Gaussian's bf16 quotient within K_BF16_ULPS bf16 ulps
@@ -5433,7 +5445,48 @@ def same_bits(a, b):
                        torch.nan_to_num(b.float(), nan=-1.0))
 
 
-def rings_phase(dev, banks, frame):
+def rings_first_design(build):
+    """K5 rings' first design (``RINGS_FIRST``) once its build is done:
+    ``fn(feat, codes, rings, out_sz, linear, out_dtype)`` → its output, the
+    wrapper's launch through the first design's ``lerf_steering_warp_rings``
+    (the same arguments; uncounted).  ``fn.log`` is nvcc's output."""
+    import ctypes
+
+    import torch
+    from lerf_torch.ops.kernels import _build
+    from lerf_torch.ops.kernels import warp as k5
+
+    proc, path = build
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"K5 rings first design: nvcc failed:\n{log}")
+    entry = ctypes.CDLL(path).lerf_steering_warp_rings
+    entry.argtypes = _build.library().lerf_steering_warp_rings.argtypes
+    entry.restype = ctypes.c_int
+
+    def call(feat, codes, rings, out_sz, linear=False,
+             out_dtype=torch.uint8):
+        C, H, W = feat.shape
+        oh, ow = out_sz
+        out = torch.empty((C, oh, ow), dtype=out_dtype, device=feat.device)
+        _build.check(entry(
+            feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            rings.ring_x.data_ptr(), rings.ring_x.numel(),
+            rings.ring_y.data_ptr(), rings.ring_y.numel(),
+            rings.corner.data_ptr(), rings.dis_x.data_ptr(),
+            rings.dis_y.data_ptr(),
+            0 if rings.bits is None else rings.bits.data_ptr(), C, H, W, oh,
+            ow, int(linear), 10.0, 255.0, int(out_dtype == torch.uint8),
+            torch.cuda.current_stream().cuda_stream,
+            k5.rings_in_type(feat, codes, rings.dtype)),
+            "K5 rings first design")
+        return out
+
+    call.log = log
+    return call
+
+
+def rings_phase(dev, banks, frame, first, log):
     """Phase 51: K5's rings instance at full width, the LeRF-G bench bank's
     LUT stages on the 360×640 frame warped to 1440×2560 at
     ``warp_matrix()``: the rings from ``warp_serving_host_fused`` (the C
@@ -5448,8 +5501,11 @@ def rings_phase(dev, banks, frame):
     feature widened, under bf16 rings against the bf16 instance); on a
     radial distortion and its row-shuffled form (``WarpOperands.from_grid``)
     ``torch.equal`` to its twin; its time and the geometry kernel's by
-    CUDA-graph replays (the rings instance beside the matrix instance in
-    alternating rounds); the host precompute and the upload.  Returns the
+    CUDA-graph replays (the rings instance beside its first design,
+    ``first`` from ``rings_first_design``, and the matrix instance in
+    alternating rounds on the main frame, beside its first design on both
+    grids); its persistent grid and ptxas's registers (from the library's
+    build ``log``); the host precompute and the upload.  Returns the
     kernels line's two rows."""
     import torch
     from lerf_torch.native import native_threads
@@ -5649,26 +5705,86 @@ def rings_phase(dev, banks, frame):
                              "the radial grid must tile, the shuffled one "
                              "must take the direct path")
 
-    # times: graph replays, rings / matrix alternating, uint8 LUT form
-    def rings_u8():
-        return k5.steering_warp_rings(feat_d, hyper_d, dev_rings,
-                                      out_sz=WARP_OUT, out_dtype=torch.uint8)
+    # the persistent grid and ptxas's registers of the rings instances
+    # (from this build's log, else from the library as built)
+    regs = {r["function"]: r.get("registers") for r in ptxas_rows(log)
+            if "steering_warp_rings_kernel" in r["function"]}
+    if not regs:
+        from lerf_torch.ops.kernels import _build
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        usage = subprocess.run([tool, "-res-usage", _build.build()[0]],
+                               capture_output=True, text=True).stdout
+        regs = dict((f, int(n)) for f, n in re.findall(
+            r"Function (\S*steering_warp_rings_kernel\S*):\s*REG:(\d+)",
+            usage))
+    first_regs = [r.get("registers") for r in ptxas_rows(first.log)
+                  if "steering_warp_rings_kernel" in r["function"]]
+    grid = k5.rings_grid(WARP_OUT, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit({"phase": "rings_build", "persistent_grid": grid, "sms": sms,
+          "blocks_per_sm": grid / sms,
+          "tiles": -(-WARP_OUT[0] // 16) * -(-WARP_OUT[1] // 32),
+          "registers": regs,
+          "first_design_registers": sorted(set(first_regs)),
+          "registers_from": "ptxas" if log else "cuobjdump"})
+
+    # times: graph replays, uint8 LUT form, rings / first design / matrix
+    # alternating on the main frame, rings / first design on both grids
+    def rings_u8(r=dev_rings, linear=False):
+        h = hyper_l if linear else hyper_d
+        f = feat_l if linear else feat_d
+        return k5.steering_warp_rings(f, h, r, out_sz=WARP_OUT,
+                                      linear=linear, out_dtype=torch.uint8)
+
+    def first_u8(r=dev_rings, linear=False):
+        h = hyper_l if linear else hyper_d
+        f = feat_l if linear else feat_d
+        return first(f, h, r, WARP_OUT, linear)
 
     def matrix_u8():
         return k5.steering_warp(feat_d, hyper_d, params,
                                 out_dtype=torch.uint8)
 
-    rounds = {"rings": [], "matrix": []}
+    timed = {"main": (dev_rings, False)}
+    for gname in ("radial", "shuffled"):
+        gx, gy = distortion_grid(in_sz, WARP_OUT, gname == "shuffled")
+        timed[gname] = (k5.upload_rings(warp_rings(WarpOperands.from_grid(
+            gx, gy, in_sz, WARP_OUT)), dev), False)
+    timed["main_linear"] = (k5.upload_rings(rings_lin, dev, linear=True),
+                            True)
+    rounds = {"rings": [], "first_design": [], "matrix": []}
+    grid_rounds = {g: {"rings": [], "first_design": []} for g in timed
+                   if g != "main"}
     for _ in range(RINGS_ROUNDS):
-        rounds["rings"].append(graph_ms(rings_u8))
-        rounds["matrix"].append(graph_ms(matrix_u8))
+        for g, (r, linear) in timed.items():
+            new_fn = (lambda r=r, linear=linear: rings_u8(r, linear))
+            old_fn = (lambda r=r, linear=linear: first_u8(r, linear))
+            if not torch.equal(new_fn(), old_fn()):
+                raise AssertionError(f"rings {g}: the first design's "
+                                     "output differs from the kernel's")
+            into = rounds if g == "main" else grid_rounds[g]
+            into["rings"].append(graph_ms(new_fn))
+            into["first_design"].append(graph_ms(old_fn))
+            if g == "main":
+                rounds["matrix"].append(graph_ms(matrix_u8))
     ms = statistics.median(rounds["rings"])
+    first_ms = statistics.median(rounds["first_design"])
     ev_ms = event_ms(rings_u8, iters=50)
     prof = kernel_device_ms(rings_u8, "steering_warp_rings_kernel")
     plain_ms = event_ms(lambda: k5.steering_warp_rings_plain(
         feat_d, hyper_d, dev_rings), iters=3, warmup=1)
     nbytes, nops, _ = rings_work(in_sz, WARP_OUT, 3)
     b_ms, b_by, parts = k5_bound(nbytes, nops, 0)
+    # the other instances' bounds: linear, float32 maps, the bf16 instance
+    other_bounds = {}
+    for name, kw in (("linear_u8", {"linear": True}),
+                     ("float32_maps", {"floats": True}),
+                     ("bf16_rings", {"floats": True, "value_bytes": 2})):
+        nb, no, n16 = rings_work(in_sz, WARP_OUT, 3, **kw)
+        bm, bb, _ = k5_bound(nb, no, 0, n16)
+        other_bounds[name] = {"bound_ms": bm, "bound_by": bb, "bytes": nb}
+    grid_ms = {g: {k: statistics.median(v) for k, v in t.items()}
+               for g, t in grid_rounds.items()}
     seconds = time.perf_counter() - t0
     emit_timed({"phase": "rings", "in": list(in_sz), "out": list(WARP_OUT),
                 "launches": launches, "bit_equal_to_matrix_instance": checked,
@@ -5680,13 +5796,20 @@ def rings_phase(dev, banks, frame):
                 "upload_ms": upload_ms, "upload_bytes": upload_bytes,
                 "upload_bytes_per_output": upload_bytes / n_out,
                 "device_rings_call_ms": geo_call_ms,
-                "graph_ms_rounds": rounds, "seconds": seconds})
+                "graph_ms_rounds": rounds, "grid_graph_ms_rounds": grid_rounds,
+                "grid_graph_ms": grid_ms,
+                "grid_share_of_bound": {g: b_ms / t["rings"]
+                                        for g, t in grid_ms.items()},
+                "first_design_equal_every_round": True,
+                "other_bounds": other_bounds, "seconds": seconds})
     row = {"kernel": "steering_warp_rings", "out_dtype": "uint8", "ms": ms,
            "events_ms": ev_ms, **prof,
+           "first_design_ms": first_ms,
            "matrix_instance_graph_ms": statistics.median(rounds["matrix"]),
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "bound_parts_ms": parts, "bytes": nbytes, "ops": nops,
-           "share_of_bound": b_ms / ms}
+           "share_of_bound": b_ms / ms,
+           "first_design_share_of_bound": b_ms / first_ms}
     emit_timed(row)
     geo_row = {"kernel": "warp_rings_geometry", "ms": geo_ms,
                "timed_by": "CUDA-graph replays of the launch alone",
@@ -5701,6 +5824,7 @@ def rings_phase(dev, banks, frame):
              "replaces": "lerf_tpu/ops/resample.py:786",
              "launches": launches["steering_warp_rings"], "max_abs_err": 0.0,
              "ms": ms, "timed_by": "CUDA-graph replays", "events_ms": ev_ms,
+             "first_design_ms": first_ms, "first_design": RINGS_FIRST,
              "matrix_instance_graph_ms": row["matrix_instance_graph_ms"],
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
              "share_of_bound": b_ms / ms, "library_ms": None},
@@ -5744,7 +5868,8 @@ def main() -> int:
     first_builds = [start_k6_first_build(),
                     start_first_build(K3_BF16_FIRST, "k3_bf16_first"),
                     start_first_build(K2_ROWS_FIRST, "k2_rows_first"),
-                    start_first_build(BF16_STEPS, "bf16_steps")]
+                    start_first_build(BF16_STEPS, "bf16_steps"),
+                    start_first_build(RINGS_FIRST, "k5_rings_first")]
     try:
         _, log = _build.build()
         _build.library()
@@ -5756,6 +5881,7 @@ def main() -> int:
     k6_first = k6_first_design(first_builds[0])
     k3_bf16_first = k3_bf16_first_design(first_builds[1])
     k2_rows_first = k2_rows_first_design(first_builds[2])
+    rings_first = rings_first_design(first_builds[4])
     emit({"phase": "build", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0})
@@ -6249,7 +6375,8 @@ def main() -> int:
             "redesigned": 18, "parent": parent})
 
     # -- 51. the warp's geometry as data: K5's rings instance ---------------
-    kernels += rings_phase(dev, {"lerf_g": bank, "lerf_l": bank_l}, frame)
+    kernels += rings_phase(dev, {"lerf_g": bank, "lerf_l": bank_l}, frame,
+                           rings_first, log)
 
     # -- 52. result ----------------------------------------------------------
     emit({"phase": "exact_division",

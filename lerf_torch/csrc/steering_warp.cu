@@ -133,18 +133,38 @@
 //   an XLA row gather from a corner-indexed packed operand and the weighted
 //   sums): the rings instance (steering_warp_rings_kernel, C entry
 //   lerf_steering_warp_rings) takes lerf_torch/ops/resample.py::WarpRings
-//   in place of the matrix.  Its step 1 loads each output's window: rows
-//   ring_x[corner / (W + 3) + s], columns ring_y[corner % (W + 3) + t] of
-//   the +-1-padded planes (0 and H + 1 the pad rows: fetch's kEdges), the
-//   float32 distances and, linear, the host's float64 branch masks packed
-//   in one byte; steps 2-4 are the matrix instances' (warp_block's, written
-//   out again for support 2): the footprint reduced from the loaded
-//   windows, the tile where it fits, the direct path where it does not,
-//   the same sums and epilogue.  Support 2, every input pair; the rings'
-//   type sets the weights' as lerf_tpu's promotion does, so bf16 inputs
-//   under float32 rings take the float32 steps on their bf16 entries
-//   widened (in_type 4), and only bf16 rings the bf16 steps.  The matrix
-//   instances' SASS is the parent source's (the probe's --k5 --sass).
+//   in place of the matrix: each output's window is rows ring_x[corner /
+//   (W + 3) + s], columns ring_y[corner % (W + 3) + t] of the +-1-padded
+//   planes (0 and H + 1 the pad rows: fetch's kEdges), its float32
+//   distances and, linear, the host's float64 branch masks packed in one
+//   byte.  Its bound is bytes, 20 of rings an output (74 MB at 1440 x
+//   2560: 0.029 ms at 3.35 TB/s), above its float32 work; what holds it
+//   is latency.  Its first design (lerf_torch/tools/steering_warp_rings_
+//   first.cu, the matrix instances' block with the windows loaded) waits
+//   on three global round trips and three barriers a block, one after the
+//   other, at four blocks an SM.  This design (the section "the rings
+//   instance" below): persistent blocks walk the tiles; each thread
+//   copies its own outputs' rings two tiles ahead (cp.async) and adds its
+//   outputs of the next tile to that tile's footprint, so one barrier a
+//   tile completes a footprint and a second the decoded tile; a tile too
+//   wide for the tile takes the direct path, each neighbour from global
+//   memory; the sums are the matrix instances' functions.  On an H100
+//   80GB HBM3 at 700 W it measured 1.5-3 % faster than the first design
+//   on the LUT form's codes under a homography and a radial grid, 19 %
+//   slower on a grid whose tiles all take the direct path.  A
+//   producer warp that streams each tile's rings and source box into
+//   shared memory ahead of 8 consumer warps, on mbarriers
+//   (lerf_torch/tools/steering_warp_rings_producer.cu), measured slower
+//   than both: the one producer warp serialises the loads it was to hide
+//   (PERF.md section 6, lerf_torch/tools/probe_lut_kernels.py --rings).
+//   corner / (W + 3) is a multiply by a reciprocal, exact for every corner
+//   (divider).
+//   Support 2, every input pair; the rings' type sets the
+//   weights' as lerf_tpu's promotion does, so bf16 inputs under float32
+//   rings take the float32 steps on their bf16 entries widened (in_type
+//   4), and only bf16 rings the bf16 steps.  The matrix instances' SASS is
+//   the parent source's (the probe's --k5 --sass).  Times: PERF.md
+//   section 6 (lerf_torch/tools/probe_lut_kernels.py --rings).
 //   warp_rings_geometry_kernel (lerf_warp_rings_geometry) writes a
 //   homography's rings from the same float64 derivation, equal to the
 //   host's.
@@ -162,6 +182,7 @@
 // in the twin; expf may differ from PyTorch's exp by a few ulp.  A
 // projection 0/0 (output on the horizon line through the origin) is NaN on
 // the host and clips to 0 here.
+#include <atomic>
 #include <cfloat>
 #include <climits>
 #include <cstdint>
@@ -548,15 +569,15 @@ __device__ __forceinline__ unsigned char finish(float v, float norm,
 // bf16 products, accumulated in float32) each product a rounded pair
 // product and the sums float32, per lane.  Linear: weight_bf16 an output
 // at a time, float32 sums.
+// The thread's first row is output row i0, its column j.
 template <int KS, typename OutT, bool kLinear, bool kEdges = false>
-__device__ __forceinline__ void sums_bf16(
+__device__ __forceinline__ void sums_bf16_at(
     Window<KS, kLinear>* px, const bool* ok,
     const Entry<kLinear, bf16>* tile, bool shared, int r_lo, int c_lo,
     int nr, int nc, const bf16* __restrict__ img,
     const bf16* __restrict__ codes, OutT* __restrict__ out, const Warp& w,
-    int C, float max_sigma, float norm) {
+    int C, float max_sigma, float norm, unsigned i0, int j) {
   static_assert(kRowsPerThread % 2 == 0, "pairs of a thread's rows");
-  const int j = blockIdx.x * kTileW + threadIdx.x;
 #pragma unroll
   for (int q = 0; q < kRowsPerThread; q += 2) {
     if (!ok[q]) return;
@@ -564,7 +585,7 @@ __device__ __forceinline__ void sums_bf16(
     const Window<KS, kLinear>& p0 = px[q];
     const Window<KS, kLinear>& p1 = px[q + 1];
     const int S = p0.support();
-    const int i = blockIdx.y * kTileH + threadIdx.y + q * kThreadRows;
+    const int i = i0 + q * kThreadRows;
     auto dxp = [&](int s) {
       return __floats2bfloat162_rn(p0.dxs(s), p1.dxs(s));
     };
@@ -639,15 +660,32 @@ __device__ __forceinline__ void sums_bf16(
   }
 }
 
+// sums_bf16_at for the block's own tile (blockIdx.x, blockIdx.y).
+template <int KS, typename OutT, bool kLinear, bool kEdges = false>
+__device__ __forceinline__ void sums_bf16(
+    Window<KS, kLinear>* px, const bool* ok,
+    const Entry<kLinear, bf16>* tile, bool shared, int r_lo, int c_lo,
+    int nr, int nc, const bf16* __restrict__ img,
+    const bf16* __restrict__ codes, OutT* __restrict__ out, const Warp& w,
+    int C, float max_sigma, float norm) {
+  sums_bf16_at<KS, OutT, kLinear, kEdges>(
+      px, ok, tile, shared, r_lo, c_lo, nr, nc, img, codes, out, w, C,
+      max_sigma, norm, blockIdx.y * kTileH + threadIdx.y,
+      blockIdx.x * kTileW + threadIdx.x);
+}
+
 // At least kMinBlocks blocks an SM: registers capped at 64 (80 uncapped,
 // three blocks an SM), which measured 10 % faster; six blocks (40) slower
 // (lerf_torch/tools/probe_lut_kernels.py).
 // One block's outputs of one frame, and the frame's validity mask [OH, OW]
 // where mask is not null.  InT: int (feature 0..norm, codes), float
 // (feature, hyper maps in [0, 1]) or bf16 (the same in bf16); HypT the
-// maps' type, bf16 beside a float feature.  Steps 2-4 are written out
-// again in steering_warp_rings_kernel (lines 889-957): a fix to one is
-// a fix to both.
+// maps' type, bf16 beside a float feature.  The rings instance
+// (steering_warp_rings_kernel) shares the functions of steps 3 and 4
+// (decode through fetch, weight, weight_pair, weight_bf16, quotient,
+// finish, sums_bf16_at) and the tile's layout, not the steps themselves:
+// it reads its windows from its own copies of the rings, completes each
+// footprint with one barrier and walks many tiles a block.
 template <int KS, typename OutT, bool kLinear, typename InT, typename HypT>
 __device__ __forceinline__ void warp_block(
     const InT* __restrict__ img,     // [C, H, W] feature
@@ -784,6 +822,15 @@ __global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
 // the host's float64), and in the linear mode its branch bits[n], laid out
 // as Window's (two bits a row from bit 0, a column from bit 4).  w: the
 // sizes, both pads 1 (row r of the planes is padded row r), support 2.
+// corner / (W + 3) is umulhi(corner, magic) >> shift (Divider).
+struct Divider {
+  unsigned magic;
+  int shift;
+  __device__ int operator()(int n) const {
+    return (int)(__umulhi((unsigned)n, magic) >> shift);
+  }
+};
+
 struct Rings {
   Warp w;
   const int* ring_x;          // [H + 4]
@@ -792,31 +839,21 @@ struct Rings {
   const float2* dis_x;        // [OH * OW]
   const float2* dis_y;
   const unsigned char* bits;  // [OH * OW], linear only
+  Divider stride;             // by W + 3
 };
 
-// Step 1 of the rings instance for output n: its window read from memory
-// where the matrix instances derive it.  A corner or ring value outside the
-// planes clamps into them (the plain twin clamps the same); the rings the
-// host or the card makes are inside.
-template <bool kBits>
-__device__ __forceinline__ void load_window(Window<2, kBits>& p,
-                                            const Rings& g, size_t n) {
-  const int stride = g.w.W + 3;
-  const int c = min(max(__ldg(g.corner + n), 0), (g.w.H + 3) * stride - 1);
-  const int cx = c / stride;
-  const int cy = c - cx * stride;
-  const float2 dx = __ldg(g.dis_x + n);
-  const float2 dy = __ldg(g.dis_y + n);
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    p.r[s] = min(max(__ldg(g.ring_x + cx + s), 0), g.w.H + 1);
-    p.q[s] = min(max(__ldg(g.ring_y + cy + s), 0), g.w.W + 1);
-  }
-  p.dx[0] = dx.x;
-  p.dx[1] = dx.y;
-  p.dy[0] = dy.x;
-  p.dy[1] = dy.y;
-  p.bits = kBits ? (unsigned)__ldg(g.bits + n) : 0u;
+// floor(n / d) for 0 <= n < 2^31 and 4 <= d < 2^31, exact: with l =
+// ceil(log2 d), magic = ceil(2^(31 + l) / d) < 2^32 and magic d - 2^(31 +
+// l) < d <= 2^l, so floor(n magic / 2^(31 + l)) = floor(n / d) for every n
+// below 2^31 (Granlund and Montgomery 1994, theorem 4.2); the high word of
+// n magic is that product over 2^32, shifted right by l - 1 more.  The
+// corner is clamped into [0, (H + 3)(W + 3)), below 2^31 by the entry's
+// check.
+Divider divider(int d) {
+  int l = 0;
+  while ((1ll << l) < d) ++l;
+  const unsigned long long p = 1ull << (31 + l);
+  return {(unsigned)((p + (unsigned long long)d - 1) / d), l - 1};
 }
 
 // The rings instance's entry of source pixel (sr, sc) of the +-1-padded
@@ -845,114 +882,451 @@ __device__ __forceinline__ RingEntry<kLinear, InT, kWide> ring_entry(
   }
 }
 
-// K5's rings instance: step 1 loads each output's window (load_window);
-// steps 2-4 are warp_block's, at support 2, on the windows as they come:
-// the footprint reduced from the loaded rows and columns (in any order),
-// the tile where it fits, the direct path where it does not, the same sums
-// and epilogue.  They are warp_block's steps 2-4 (lines 684-757) written
-// out again, to be kept in step with them, not a function the two share: sharing one changed the
-// SASS of 30 of the 32 matrix instances (by up to 8 instructions, 2
-// registers), which stay as they were.  kWide: bf16 inputs under float32
-// rings, the float32 steps on widened entries (ring_entry).  out [C, OH,
-// OW].
-template <typename OutT, bool kLinear, typename InT, typename HypT = InT,
-          bool kWide = false>
-__global__ void __launch_bounds__(kTileW * kThreadRows, kMinBlocks)
-    steering_warp_rings_kernel(const InT* __restrict__ img,
-                               const HypT* __restrict__ codes,
-                               OutT* __restrict__ out,
-                               const __grid_constant__ Rings g, int C,
-                               float max_sigma, float norm) {
-  using CompT = typename std::conditional<kWide, float, InT>::type;
-  __shared__ RingEntry<kLinear, InT, kWide> tile[kTileEntries];  // [C][r][c]
-  __shared__ int box[4];                  // row min, max, column min, max
-  const Warp& w = g.w;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int j = blockIdx.x * kTileW + threadIdx.x;
+// -- the rings instance: a persistent, pipelined block -----------------------
+//
+// kRingsBlocks blocks an SM, each walking the frame's 16 x 32 output tiles
+// in a static stride (tile t = blockIdx.x + k gridDim.x); thread (x, y)
+// owns the outputs of tile rows y and y + 8, column x, as warp_block's.
+// While the block sums tile k, each thread's copies of its own outputs'
+// rings of tile k + 2 (corner, distances, the linear mode's branch word)
+// are in flight into one of two stages, by cp.async: asynchronous, no
+// register holds them, and the thread's own data, so no barrier orders
+// them.  At the start of tile k each thread waits for its own copies,
+// reads its windows of tile k and adds its outputs' windows of tile k + 1
+// to that tile's footprint (warp reductions, four shared atomics a warp;
+// with monotone ring maps from the extreme ring positions alone); one
+// barrier completes the footprint and frees the tile; the block decodes
+// tile k's footprint into the tile from global memory (warp_block's
+// step 3; the source, 11 MB at 3 x 360 x 640, fits in L2) and, after a
+// second barrier, sums (the sums, s-major, t-minor, weight, weight_pair,
+// weight_bf16, quotient and finish are warp_block's functions).  A tile
+// whose footprint exceeds kTileEntries takes the direct path: each
+// neighbour from global memory (ring_entry).  Unlike the producer-warp
+// design (lerf_torch/tools/steering_warp_rings_producer.cu) no warp copies
+// for the others and no mbarrier tracks the copies: each thread waits for
+// its own (cp.async.wait_all), and the source box is read after the
+// footprint's barrier, from L2, not staged ahead: staging it cost more
+// than it hid.
+constexpr int kRingsThreads = kTileW * kThreadRows;   // 256
+// blocks an SM: __launch_bounds__ holds a thread to 80 registers so that
+// they fit, and 3 x 57,408 bytes of shared memory fit an SM's 228 KB
+constexpr int kRingsBlocks = 3;
+constexpr int kSlots = kTileH * kTileW;               // a stage's outputs
+constexpr int kMapInts = 1024;        // ring maps held in shared memory
+constexpr int kHeadBytes = 64;        // three footprints in the making
 
-  // 1. this thread's windows, read from memory
-  Window<2, kLinear> px[kRowsPerThread];
+// A stage: per output of the tile its corner, dis_x, dis_y and, linear,
+// the 4-byte word that holds its branch byte.
+__host__ __device__ constexpr int stage_bytes(bool linear) {
+  return kSlots * (4 + 2 * 8 + (linear ? 4 : 0));
+}
+
+// Dynamic shared memory of an instance whose tile entry takes entry_bytes:
+// the footprints, two stages, the tile and, where they fit, the ring maps
+// (map_ints: H + W + 8, or 0).  At most 57,408 bytes.
+__host__ __device__ constexpr int rings_smem(int entry_bytes, bool linear,
+                                             int map_ints) {
+  return kHeadBytes + 2 * stage_bytes(linear) + kTileEntries * entry_bytes +
+         4 * map_ints;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's cp.async copies landed
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// floor(n / d) for 0 <= n < 2^22 and 1 <= d < 2^24 from rcp = 1.0f / d:
+// (n + 0.5) / d lies at least 0.5 / d from every integer, and the two
+// roundings err by at most (n + 0.5) / d 2^-23 < 0.5 / d.
+__device__ __forceinline__ int small_div(int n, float rcp) {
+  return (int)(((float)n + 0.5f) * rcp);
+}
+
+// The branch byte bits[n] into *to, at its place in the 4-byte word that
+// holds it: the word copied asynchronously where it lies inside bits[0 ..
+// total), else (at either end of the array) the byte loaded alone.  The
+// word starts at most 3 bytes before bits + n, so 3 <= n and n + 4 <=
+// total keep it inside whatever the array's alignment.
+__device__ __forceinline__ void copy_bits(unsigned* to,
+                                          const unsigned char* bits,
+                                          size_t n, size_t total) {
+  const uintptr_t at = (uintptr_t)(bits + n), word = at & ~(uintptr_t)3;
+  if (n >= 3 && n + 4 <= total)
+    copy_async<4>(to, (const void*)word);
+  else
+    *to = (unsigned)bits[n] << (8 * (at & 3));
+}
+
+// The window of the output whose corner is c: its ring rows and columns of
+// the planes, clamped into them (the plain twin clamps the same; the rings
+// the host or the card makes are inside).
+template <bool kBits>
+__device__ __forceinline__ void ring_window(Window<2, kBits>& p, int c,
+                                            const int* rx, const int* ry,
+                                            const Rings& g) {
+  const int stride = g.w.W + 3;
+  c = min(max(c, 0), (g.w.H + 3) * stride - 1);
+  const int cx = g.stride(c);
+  const int cy = c - cx * stride;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    p.r[s] = min(max(rx[cx + s], 0), g.w.H + 1);
+    p.q[s] = min(max(ry[cy + s], 0), g.w.W + 1);
+  }
+}
+
+// A stage's arrays.
+template <bool kLinear>
+struct Stage {
+  int* corner;
+  float2* dis_x;
+  float2* dis_y;
+  unsigned* bits;       // linear only
+  __device__ explicit Stage(char* p)
+      : corner((int*)p),
+        dis_x((float2*)(p + 4 * kSlots)),
+        dis_y((float2*)(p + 12 * kSlots)),
+        bits((unsigned*)(p + 20 * kSlots)) {}
+};
+
+// This thread's outputs of tile (ty, tx): output q is tile row
+// threadIdx.y + 8 q, its slot in a stage and its index n in the frame.
+struct Outputs {
+  int i0, j, slot0;
   bool ok[kRowsPerThread];
+  __device__ Outputs(const Warp& w, int ty, int tx) {
+    i0 = ty * kTileH + threadIdx.y;
+    j = tx * kTileW + threadIdx.x;
+    slot0 = threadIdx.y * kTileW + threadIdx.x;
+#pragma unroll
+    for (int q = 0; q < kRowsPerThread; ++q)
+      ok[q] = j < w.OW && i0 + q * kThreadRows < w.OH;
+  }
+  __device__ int slot(int q) const { return slot0 + q * kThreadRows * kTileW; }
+  __device__ size_t n(int q, const Warp& w) const {
+    return (size_t)(i0 + q * kThreadRows) * w.OW + j;
+  }
+};
+
+// This thread's copies of its outputs' rings into a stage.
+template <bool kLinear>
+__device__ __forceinline__ void copy_rings(const Rings& g, const Outputs& o,
+                                           Stage<kLinear> st) {
+#pragma unroll
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    if (!o.ok[q]) continue;
+    const size_t n = o.n(q, g.w);
+    const int k = o.slot(q);
+    copy_async<4>(st.corner + k, g.corner + n);
+    copy_async<8>(st.dis_x + k, g.dis_x + n);
+    copy_async<8>(st.dis_y + k, g.dis_y + n);
+    if constexpr (kLinear)
+      copy_bits(st.bits + k, g.bits, n, (size_t)g.w.OH * g.w.OW);
+  }
+}
+
+// This thread's windows from a stage.
+template <bool kLinear>
+__device__ __forceinline__ void read_windows(const Rings& g, const Outputs& o,
+                                             Stage<kLinear> st, const int* rx,
+                                             const int* ry,
+                                             Window<2, kLinear>* px) {
+#pragma unroll
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    if (!o.ok[q]) continue;
+    const int k = o.slot(q);
+    ring_window(px[q], st.corner[k], rx, ry, g);
+    const float2 dx = st.dis_x[k], dy = st.dis_y[k];
+    px[q].dx[0] = dx.x;
+    px[q].dx[1] = dx.y;
+    px[q].dy[0] = dy.x;
+    px[q].dy[1] = dy.y;
+    px[q].bits = 0u;
+    if constexpr (kLinear)
+      px[q].bits =
+          (st.bits[k] >> (8 * ((uintptr_t)(g.bits + o.n(q, g.w)) & 3))) &
+          0xffu;
+  }
+}
+
+// This thread's outputs' windows added to a footprint (row min, max,
+// column min, max in shared memory): a warp's reduced, then four atomics.
+// With monotone ring maps the windows' extremes are the rings at the
+// extreme corners' ring positions, so only those are looked up.
+template <bool kLinear>
+__device__ __forceinline__ void add_footprint(const Rings& g,
+                                              const Outputs& o,
+                                              Stage<kLinear> st,
+                                              const int* rx, const int* ry,
+                                              bool monotone, int* box) {
+  const Warp& w = g.w;
+  const int stride = w.W + 3;
   int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
-    ok[k] = j < w.OW && i < w.OH;
-    if (!ok[k]) continue;
-    load_window(px[k], g, (size_t)i * w.OW + j);
-    rmin = min(rmin, min(px[k].r[0], px[k].r[1]));
-    rmax = max(rmax, max(px[k].r[0], px[k].r[1]));
-    cmin = min(cmin, min(px[k].q[0], px[k].q[1]));
-    cmax = max(cmax, max(px[k].q[0], px[k].q[1]));
+  for (int q = 0; q < kRowsPerThread; ++q) {
+    if (!o.ok[q]) continue;
+    if (monotone) {
+      const int c =
+          min(max(st.corner[o.slot(q)], 0), (w.H + 3) * stride - 1);
+      const int cx = g.stride(c), cy = c - cx * stride;
+      rmin = min(rmin, cx);
+      rmax = max(rmax, cx + 1);
+      cmin = min(cmin, cy);
+      cmax = max(cmax, cy + 1);
+    } else {
+      Window<2, false> p;
+      ring_window(p, st.corner[o.slot(q)], rx, ry, g);
+      rmin = min(rmin, min(p.r[0], p.r[1]));
+      rmax = max(rmax, max(p.r[0], p.r[1]));
+      cmin = min(cmin, min(p.q[0], p.q[1]));
+      cmax = max(cmax, max(p.q[0], p.q[1]));
+    }
   }
-
-  // 2. the block's footprint in the planes' rows and columns
-  if (tid == 0) {
-    box[0] = box[2] = INT_MAX;
-    box[1] = box[3] = INT_MIN;
-  }
-  __syncthreads();
   rmin = __reduce_min_sync(0xffffffffu, rmin);
   rmax = __reduce_max_sync(0xffffffffu, rmax);
   cmin = __reduce_min_sync(0xffffffffu, cmin);
   cmax = __reduce_max_sync(0xffffffffu, cmax);
-  if ((tid & 31) == 0) {
+  if (threadIdx.x == 0 && rmin != INT_MAX) {     // the warp has outputs
+    if (monotone) {           // ring positions to rows and columns
+      rmin = min(max(rx[rmin], 0), w.H + 1);
+      rmax = min(max(rx[rmax], 0), w.H + 1);
+      cmin = min(max(ry[cmin], 0), w.W + 1);
+      cmax = min(max(ry[cmax], 0), w.W + 1);
+    }
     atomicMin(box, rmin);
     atomicMax(box + 1, rmax);
     atomicMin(box + 2, cmin);
     atomicMax(box + 3, cmax);
   }
-  __syncthreads();
-  const int r_lo = box[0], c_lo = box[2];
-  const int nr = box[1] - r_lo + 1, nc = box[3] - c_lo + 1;
-  const bool shared = (long long)C * nr * nc <= kTileEntries;  // block-uniform
+}
 
-  // 3. the footprint decoded once into shared memory, where it fits (row r
-  // of the planes is source row r - 1)
-  if (shared) {
-    const int plane = nr * nc;
-    for (int e = tid; e < plane * C; e += kTileW * kThreadRows) {
-      const int c = e / plane;
-      const int rc = e - c * plane;
-      const int r = rc / nc;
-      tile[e] = ring_entry<kLinear, InT, kWide>(
-          img, codes, c, r_lo + r - 1, c_lo + (rc - r * nc) - 1, w.H, w.W,
-          norm, max_sigma);
-    }
-    __syncthreads();
+__device__ __forceinline__ void reset_footprint(int* box) {
+  box[0] = box[2] = INT_MAX;
+  box[1] = box[3] = INT_MIN;
+}
+
+// The tile's footprint: rows r_lo .. r_lo + nr - 1 and columns c_lo ..
+// c_lo + nc - 1 of the padded planes; whether it fits the tile.
+struct Box {
+  int shared, r_lo, c_lo, nr, nc;
+};
+
+__device__ __forceinline__ Box box_of(const int* fp, int C) {
+  Box b;
+  b.r_lo = fp[0];
+  b.c_lo = fp[2];
+  b.nr = fp[1] - fp[0] + 1;
+  b.nc = fp[3] - fp[2] + 1;
+  b.shared = (long long)C * b.nr * b.nc <= kTileEntries;
+  return b;
+}
+
+// The block's decode of box b into the tile (entry e: channel c, plane
+// row r_lo + r, column c_lo + q), from global memory (ring_entry).
+template <bool kLinear, typename InT, bool kWide, typename HypT>
+__device__ __forceinline__ void decode_tile(
+    const InT* img, const HypT* codes, const Box& b, const Warp& w, int C,
+    RingEntry<kLinear, InT, kWide>* tile, float norm, float max_sigma,
+    int tid) {
+  const int plane = b.nr * b.nc;
+  const float rcp_plane = 1.0f / (float)plane, rcp_nc = 1.0f / (float)b.nc;
+  for (int e = tid; e < C * plane; e += kRingsThreads) {
+    const int c = small_div(e, rcp_plane);
+    const int rc = e - c * plane;
+    const int r = small_div(rc, rcp_nc);
+    tile[e] = ring_entry<kLinear, InT, kWide>(
+        img, codes, c, b.r_lo + r - 1, b.c_lo + (rc - r * b.nc) - 1, w.H,
+        w.W, norm, max_sigma);
   }
+}
 
-  // 4. the weighted sums, s-major, t-minor, and the epilogue
-  if constexpr (kIsBf16<CompT>) {
-    sums_bf16<2, OutT, kLinear, true>(px, ok, tile, shared, r_lo, c_lo, nr,
-                                      nc, img, codes, out, w, C, max_sigma,
-                                      norm);
-  } else {
+// The float32 sums of the thread's two outputs, rows i0 and i0 + 8 of
+// column j (warp_block's step 4 at support 2, its functions), each
+// output's in warp_block's order.  On the tile's path kSumRows outputs a
+// channel at a time, so that their neighbours are in flight together, each
+// neighbour's place in a plane of the tile found once; on the direct path
+// each neighbour from global memory, one output at a time.
+constexpr int kSumRows = 2;
+
+template <typename OutT, bool kLinear, typename InT, typename HypT,
+          bool kWide>
+__device__ __forceinline__ void sums_f32(
+    const Window<2, kLinear>* px, const bool* ok,
+    const RingEntry<kLinear, InT, kWide>* tile, const Box& b,
+    const InT* __restrict__ img, const HypT* __restrict__ codes,
+    OutT* __restrict__ out, const Warp& w, int C, float max_sigma,
+    float norm, int i0, int j) {
+  using CompT = typename std::conditional<kWide, float, InT>::type;
+  using E = RingEntry<kLinear, InT, kWide>;
+  static_assert(kRowsPerThread == 2, "a thread's two rows");
+  // past the bottom edge the second row repeats the first, not written
+  // (selected, not indexed at run time: the windows stay in registers)
+  const Window<2, kLinear> pw[2] = {px[0], ok[1] ? px[1] : px[0]};
+  // the weighted sums and the epilogue of channel c of row k
+  auto channel = [&](int c, int k, const E* v) {
+    const Window<2, kLinear>& p = pw[k];
+    float wn = 0.0f, ws = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      if (!ok[k]) continue;
-      const Window<2, kLinear>& p = px[k];
-      const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
-      for (int c = 0; c < C; ++c) {
-        float wn = 0.0f, ws = 0.0f;
+    for (int s = 0; s < 2; ++s) {
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            const RingEntry<kLinear, InT, kWide> v =
-                shared ? tile[(c * nr + p.r[s] - r_lo) * nc + p.q[t] - c_lo]
-                       : ring_entry<kLinear, InT, kWide>(
-                             img, codes, c, p.r[s] - 1, p.q[t] - 1, w.H, w.W,
-                             norm, max_sigma);
-            const float wt = weight(v, p.dx[s], p.dy[t], p.bxs(s), p.byt(t));
-            wn += wt * v.x;
-            ws += wt;
-          }
-        }
-        out[((size_t)c * w.OH + i) * w.OW + j] =
-            finish(quotient<kLinear, CompT>(wn, ws, 2), norm, out);
+      for (int t = 0; t < 2; ++t) {
+        const E& e = v[2 * s + t];
+        const float wt = weight(e, p.dx[s], p.dy[t], p.bxs(s), p.byt(t));
+        wn += wt * e.x;
+        ws += wt;
       }
     }
+    if (ok[k])
+      out[((size_t)c * w.OH + i0 + k * kThreadRows) * w.OW + j] =
+          finish(quotient<kLinear, CompT>(wn, ws, 2), norm, out);
+  };
+  if (b.shared) {
+    if (!ok[0]) return;
+    const int plane = b.nr * b.nc;
+#pragma unroll
+    for (int k0 = 0; k0 < kRowsPerThread; k0 += kSumRows) {
+      if (!ok[k0]) return;
+      int at[kSumRows][4];    // each neighbour's place in a plane of the tile
+#pragma unroll
+      for (int k = 0; k < kSumRows; ++k)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          at[k][n] = (pw[k0 + k].r[n / 2] - b.r_lo) * b.nc +
+                     pw[k0 + k].q[n % 2] - b.c_lo;
+      for (int c = 0; c < C; ++c) {
+        E v[kSumRows][4];
+#pragma unroll
+        for (int k = 0; k < kSumRows; ++k)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) v[k][n] = tile[c * plane + at[k][n]];
+#pragma unroll
+        for (int k = 0; k < kSumRows; ++k) channel(c, k0 + k, v[k]);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    if (!ok[k]) return;
+    const Window<2, kLinear>& p = pw[k];
+    for (int c = 0; c < C; ++c) {
+      E v[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        v[n] = ring_entry<kLinear, InT, kWide>(img, codes, c, p.r[n / 2] - 1,
+                                               p.q[n % 2] - 1, w.H, w.W,
+                                               norm, max_sigma);
+      channel(c, k, v);
+    }
+  }
+}
+
+// K5's rings instance (the design above).  kWide: bf16 inputs under float32
+// rings, the float32 steps on widened entries.  out [C, OH, OW]; map_ints:
+// H + W + 8 where the ring maps are held in shared memory, else 0.
+template <typename OutT, bool kLinear, typename InT, typename HypT = InT,
+          bool kWide = false>
+__global__ void __launch_bounds__(kRingsThreads, kRingsBlocks)
+    steering_warp_rings_kernel(const InT* __restrict__ img,
+                               const HypT* __restrict__ codes,
+                               OutT* __restrict__ out,
+                               const __grid_constant__ Rings g, int C,
+                               float max_sigma, float norm, int map_ints) {
+  using E = RingEntry<kLinear, InT, kWide>;
+  extern __shared__ __align__(16) char smem[];
+  int(*fp)[4] = reinterpret_cast<int(*)[4]>(smem);   // 3 footprints
+  char* stages = smem + kHeadBytes;
+  E* tile = (E*)(stages + 2 * stage_bytes(kLinear));
+  int* maps = (int*)(tile + kTileEntries);
+  const Warp& w = g.w;
+  const int tid = threadIdx.y * kTileW + threadIdx.x;
+  auto stage = [&](int k) {
+    return Stage<kLinear>(stages + (k % 2) * stage_bytes(kLinear));
+  };
+
+  const int ntx = (w.OW + kTileW - 1) / kTileW;
+  const int tiles = ntx * ((w.OH + kTileH - 1) / kTileH);
+  const int n = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                (int)gridDim.x;
+  if (n <= 0) return;
+  const float rcp_ntx = 1.0f / (float)ntx;
+  auto outputs = [&](int k) {
+    const int t = blockIdx.x + k * gridDim.x;
+    const int ty = tiles < (1 << 22) ? small_div(t, rcp_ntx) : t / ntx;
+    return Outputs(w, ty, t - ty * ntx);
+  };
+
+  // the ring maps, whether they are monotone, and the footprints
+  const int* rx = g.ring_x;
+  const int* ry = g.ring_y;
+  bool up = true;
+  for (int k = tid; k < w.H + 3; k += kRingsThreads)
+    up = up && rx[k] <= rx[k + 1];
+  for (int k = tid; k < w.W + 3; k += kRingsThreads)
+    up = up && ry[k] <= ry[k + 1];
+  if (map_ints > 0) {
+    for (int k = tid; k < w.H + 4; k += kRingsThreads) maps[k] = rx[k];
+    for (int k = tid; k < w.W + 4; k += kRingsThreads)
+      maps[w.H + 4 + k] = ry[k];
+    rx = maps;
+    ry = maps + w.H + 4;
+  }
+  if (tid < 3) reset_footprint(fp[tid]);
+  const bool monotone = __syncthreads_and(up);
+
+  // tile 0's rings and footprint, tile 1's rings
+  copy_rings(g, outputs(0), stage(0));
+  if (n > 1) copy_rings(g, outputs(1), stage(1));
+  copies_commit();
+  copies_wait();
+  add_footprint(g, outputs(0), stage(0), rx, ry, monotone, fp[0]);
+  __syncthreads();
+  Box b = box_of(fp[0], C);
+
+  for (int k = 0; k < n; ++k) {
+    const Outputs o = outputs(k);
+    copies_wait();                  // tile k + 1's rings
+    Window<2, kLinear> px[kRowsPerThread];
+    read_windows(g, o, stage(k), rx, ry, px);
+    if (k + 1 < n)
+      add_footprint(g, outputs(k + 1), stage(k + 1), rx, ry, monotone,
+                    fp[(k + 1) % 3]);
+    __syncthreads();                // the footprint, the tile is free
+    if (tid == 0) reset_footprint(fp[(k + 2) % 3]);
+    const Box next = box_of(fp[(k + 1) % 3], C);
+    if (k + 2 < n) copy_rings(g, outputs(k + 2), stage(k));
+    copies_commit();
+    if (b.shared)
+      decode_tile<kLinear, InT, kWide, HypT>(img, codes, b, w, C, tile, norm,
+                                             max_sigma, tid);
+    __syncthreads();                // the tile is whole
+    if constexpr (kIsBf16<typename std::conditional<kWide, float,
+                                                    InT>::type>) {
+      sums_bf16_at<2, OutT, kLinear, true>(
+          px, o.ok, tile, b.shared, b.r_lo, b.c_lo, b.nr, b.nc, img, codes,
+          out, w, C, max_sigma, norm, (unsigned)o.i0, o.j);
+    } else {
+      sums_f32<OutT, kLinear, InT, HypT, kWide>(px, o.ok, tile, b, img,
+                                                codes, out, w, C, max_sigma,
+                                                norm, o.i0, o.j);
+    }
+    b = next;
   }
 }
 
@@ -1086,49 +1460,76 @@ void launch_in(const void* img, const void* codes, void* out,
                              out_u8, s);
 }
 
+// One rings launch on stream s: min(tiles, SMs x kRingsBlocks) persistent
+// blocks, the SM count asked once a device, the instance's shared-memory
+// limit raised once a device.  Returns a CUDA error code.
 template <typename OutT, bool kLinear, typename InT, typename HypT,
           bool kWide>
-void launch_rings(const void* img, const void* codes, void* out,
-                  const Rings& g, int C, float max_sigma, float norm,
-                  cudaStream_t s) {
-  steering_warp_rings_kernel<OutT, kLinear, InT, HypT, kWide>
-      <<<grid_of(g.w), dim3(kTileW, kThreadRows), 0, s>>>(
-          (const InT*)img, (const HypT*)codes, (OutT*)out, g, C, max_sigma,
-          norm);
+int launch_rings(const void* img, const void* codes, void* out,
+                 const Rings& g, int C, float max_sigma, float norm,
+                 cudaStream_t s) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> sms_of[kMaxDevices];   // 0: not yet asked
+  const auto kernel = steering_warp_rings_kernel<OutT, kLinear, InT, HypT,
+                                                 kWide>;
+  const int entry = (int)sizeof(RingEntry<kLinear, InT, kWide>);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             rings_smem(entry, kLinear, kMapInts))) ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)))
+      return (int)err;
+    sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  const Warp& w = g.w;
+  const long long tiles = (long long)((w.OW + kTileW - 1) / kTileW) *
+                          ((w.OH + kTileH - 1) / kTileH);
+  const long long blocks = (long long)sms * kRingsBlocks;
+  const int grid = (int)(tiles < blocks ? tiles : blocks);
+  const int maps = w.H + w.W + 8 <= kMapInts ? w.H + w.W + 8 : 0;
+  kernel<<<grid, dim3(kTileW, kThreadRows), rings_smem(entry, kLinear, maps),
+           s>>>(
+      (const InT*)img, (const HypT*)codes, (OutT*)out, g, C, max_sigma, norm,
+      maps);
+  return (int)cudaGetLastError();
 }
 
 template <bool kLinear, typename InT, typename HypT = InT,
           bool kWide = false>
-void rings_out(const void* img, const void* codes, void* out, const Rings& g,
-               int C, float max_sigma, float norm, int out_u8,
-               cudaStream_t s) {
+int rings_out(const void* img, const void* codes, void* out, const Rings& g,
+              int C, float max_sigma, float norm, int out_u8,
+              cudaStream_t s) {
   if (out_u8)
-    launch_rings<unsigned char, kLinear, InT, HypT, kWide>(
+    return launch_rings<unsigned char, kLinear, InT, HypT, kWide>(
         img, codes, out, g, C, max_sigma, norm, s);
-  else
-    launch_rings<float, kLinear, InT, HypT, kWide>(img, codes, out, g, C,
-                                                   max_sigma, norm, s);
+  return launch_rings<float, kLinear, InT, HypT, kWide>(
+      img, codes, out, g, C, max_sigma, norm, s);
 }
 
 template <bool kLinear>
-void rings_in(const void* img, const void* codes, void* out, const Rings& g,
-              int C, float max_sigma, float norm, int out_u8, int in_type,
-              cudaStream_t s) {
+int rings_in(const void* img, const void* codes, void* out, const Rings& g,
+             int C, float max_sigma, float norm, int out_u8, int in_type,
+             cudaStream_t s) {
   if (in_type == 1)
-    rings_out<kLinear, float>(img, codes, out, g, C, max_sigma, norm, out_u8,
-                              s);
-  else if (in_type == 2)
-    rings_out<kLinear, bf16>(img, codes, out, g, C, max_sigma, norm, out_u8,
-                             s);
-  else if (in_type == 3)
-    rings_out<kLinear, float, bf16>(img, codes, out, g, C, max_sigma, norm,
+    return rings_out<kLinear, float>(img, codes, out, g, C, max_sigma, norm,
+                                     out_u8, s);
+  if (in_type == 2)
+    return rings_out<kLinear, bf16>(img, codes, out, g, C, max_sigma, norm,
                                     out_u8, s);
-  else if (in_type == 4)
-    rings_out<kLinear, bf16, bf16, true>(img, codes, out, g, C, max_sigma,
-                                         norm, out_u8, s);
-  else
-    rings_out<kLinear, int>(img, codes, out, g, C, max_sigma, norm, out_u8,
-                            s);
+  if (in_type == 3)
+    return rings_out<kLinear, float, bf16>(img, codes, out, g, C, max_sigma,
+                                           norm, out_u8, s);
+  if (in_type == 4)
+    return rings_out<kLinear, bf16, bf16, true>(img, codes, out, g, C,
+                                                max_sigma, norm, out_u8, s);
+  return rings_out<kLinear, int>(img, codes, out, g, C, max_sigma, norm,
+                                 out_u8, s);
 }
 
 }  // namespace
@@ -1232,7 +1633,8 @@ extern "C" int lerf_steering_warp_rings(
     return (int)cudaErrorInvalidValue;
   if ((long long)C * OH * OW == 0) return 0;
   if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)dis_x % sizeof(float2) || (uintptr_t)dis_y % sizeof(float2))
+  if ((uintptr_t)dis_x % sizeof(float2) || (uintptr_t)dis_y % sizeof(float2) ||
+      (uintptr_t)corner % sizeof(int))
     return (int)cudaErrorMisalignedAddress;
   Rings g;
   memset(&g, 0, sizeof(g));
@@ -1245,14 +1647,13 @@ extern "C" int lerf_steering_warp_rings(
   g.dis_x = (const float2*)dis_x;
   g.dis_y = (const float2*)dis_y;
   g.bits = (const unsigned char*)bits;
+  g.stride = divider(W + 3);
   cudaStream_t s = (cudaStream_t)stream;
   if (linear)
-    rings_in<true>(img, codes, out, g, C, max_sigma, norm, out_u8, in_type,
-                   s);
-  else
-    rings_in<false>(img, codes, out, g, C, max_sigma, norm, out_u8, in_type,
-                    s);
-  return (int)cudaGetLastError();
+    return rings_in<true>(img, codes, out, g, C, max_sigma, norm, out_u8,
+                          in_type, s);
+  return rings_in<false>(img, codes, out, g, C, max_sigma, norm, out_u8,
+                         in_type, s);
 }
 
 // The rings of one homography (warp_rings_geometry_kernel) from its float64

@@ -45,9 +45,12 @@ The warp's geometry as data (:func:`steering_warp_rings`): K5's rings
 instance takes a :class:`~lerf_torch.ops.resample.WarpRings` (each
 output's corner and distances, the ring maps, and in the linear mode the
 host's float64 branch masks) in place of the matrix, read from memory
-where the matrix instances derive them; the rest of the kernel is
-theirs.  The rings' distance type sets the weights' type, as lerf_tpu's
-promotion does (:func:`rings_in_type`).  Its plain twin is
+where the matrix instances derive them.  It is a persistent kernel
+(:func:`rings_grid` blocks, the SM count asked once a device): each
+thread copies its outputs' rings into shared memory two tiles ahead
+while the block sums the tile before, with the matrix instances' decode,
+weights and epilogue.  The rings' distance type sets the weights' type,
+as lerf_tpu's promotion does (:func:`rings_in_type`).  Its plain twin is
 :func:`steering_warp_rings_plain`; :func:`warp_rings_geometry` makes a
 homography's rings on the card from K5's float64 derivation.
 """
@@ -84,6 +87,8 @@ MAX_FRAMES = 16
 # kTileH, kTileW and kTileEntries of csrc/steering_warp.cu.
 TILE = (16, 32)
 TILE_ENTRIES = 2048
+# The rings instance's persistent blocks an SM (kRingsBlocks there).
+RINGS_BLOCKS_PER_SM = 3
 
 
 class WarpParams(NamedTuple):
@@ -194,10 +199,11 @@ def footprint_entries(operands: WarpOperands, in_sz, out_sz,
 
 def rings_footprint_entries(rings, in_sz, out_sz,
                             channels: int) -> np.ndarray:
-    """:func:`footprint_entries` of K5's rings instance: [blocks_y,
-    blocks_x] tile entries each block's footprint needs under ``rings``
-    (the rows × columns of the ±1-padded planes its outputs' windows read,
-    × ``channels``)."""
+    """:func:`footprint_entries` of K5's rings instance: [tiles_y,
+    tiles_x] tile entries each 16×32 output tile's footprint needs under
+    ``rings`` (the rows × columns of the ±1-padded planes its outputs'
+    windows read, × ``channels``); a tile above :data:`TILE_ENTRIES` takes
+    the direct path."""
     oh, ow = out_sz
     corner = np.asarray(rings.corner).astype(np.int64).reshape(oh, ow)
     cx, cy = np.divmod(corner, int(in_sz[1]) + 3)
@@ -656,6 +662,17 @@ def steering_warp_rings(feat: torch.Tensor, codes: torch.Tensor, rings, *,
     rings_launches += 1
     bf16_launches += int(codes.dtype == torch.bfloat16)
     return out
+
+
+def rings_grid(out_sz, device=None) -> int:
+    """The blocks K5's rings instance launches for an ``out_sz`` output on
+    the card ``device`` (default: the current one): its persistent grid,
+    min(16×32 tiles, SMs × :data:`RINGS_BLOCKS_PER_SM`)."""
+    oh, ow = out_sz
+    tiles = -(-int(oh) // TILE[0]) * -(-int(ow) // TILE[1])
+    sms = torch.cuda.get_device_properties(
+        device or torch.cuda.current_device()).multi_processor_count
+    return min(tiles, sms * RINGS_BLOCKS_PER_SM)
 
 
 def launch_rings_geometry(params: WarpParams, corner: torch.Tensor,

@@ -7,6 +7,7 @@ one part taken out.
                                                   [--rounds N] [--sass]
                                                   [--k6]
                                                   [--rows [--k2 OTHER.cu]]
+                                                  [--rings [--k5 OTHER.cu]]
 
 Each variant is the kernel's source with one text substitution, built on
 its own with the package's nvcc flags and timed with CUDA events beside
@@ -103,6 +104,37 @@ stages' outputs.
   source (the parent commit's ``lut_stage.cu``, say) timed beside flat K2
   as built in the same rounds, by events (phase 5's measure) and by graph
   replays, on both frames.
+
+* ``--rings``: K5's rings instance alone (nothing of the above), on the
+  LUT form's main-path stage outputs (the frame and bank above; the
+  linear mode on the first code plane) through the rings of
+  ``warp_matrix()`` (the host's fused precompute), of chip_smoke's radial
+  distortion grid and of its row-shuffled form (most tiles on the direct
+  path), both modes, uint8 and float32 output: the kernel as built
+  (``csrc/steering_warp.cu``), its first design
+  (``steering_warp_rings_first.cu`` beside this script, C entry of the
+  same name), the producer-warp design (``steering_warp_rings_producer.cu``
+  beside this script: a producer warp streams each tile's rings and source
+  box into shared memory on mbarriers for 8 consumer warps) and each
+  ``--k5`` source holding ``lerf_steering_warp_rings``
+  (the wrapper pointed at the other library, ``other_library``), by
+  CUDA-graph replays in ``--rounds`` alternating rounds, every output held
+  bit-equal to the kernel's every round (exit 1 if any differs).  Each
+  round also times, on the main grid, the variants of
+  ``RINGS_VARIANTS``: the first design with its windows from the
+  output's position (no rings read), with a box from the block's position
+  (no footprint reduction: no atomics, no barriers between its steps),
+  without ``expf``, at 2 or 6 blocks an SM instead of 4; the kernel as
+  built without ``expf``, with the direct path in every tile, at two
+  blocks an SM instead of three, with one output's neighbours in flight
+  at a time instead of both, at four blocks an SM (64 registers) with
+  both or one, with each footprint from every output's window instead of
+  the ring positions' range, without its sums or its decode (what the
+  rest costs); the producer-warp design with bulk copies
+  (``cp.async.bulk``) in place of its lanes' 16-byte ``cp.async``.  Prints
+  each rings instance's registers and SASS instruction count; with
+  ``--sass`` also each ``--k5`` source's matrix instances beside the
+  kernel's (``compare_sass``).
 
 Only variants that keep the arithmetic compute the right numbers; each
 line says whether its output equals the kernel's.  Prints one JSON line
@@ -439,6 +471,102 @@ ROWS_VARIANTS = {
              "        v[r] = __ldg(img + (size_t)c * H * W + (size_t)min(max(i0"
              " + (int)threadIdx.y + p * kThreadRows + orow, 0), H - 1) * W"
              " + min(max(j + ocol, 0), W - 1));\n      }")],
+    },
+}
+# K5's rings instance with one part taken out (``--rings``): its first
+# design (steering_warp_rings_first.cu beside this script) and the kernel
+# as built (csrc/steering_warp.cu)
+_FIRST_BOX = ("""  if (tid == 0) {
+    box[0] = box[2] = INT_MAX;
+    box[1] = box[3] = INT_MIN;
+  }
+  __syncthreads();
+  rmin = __reduce_min_sync(0xffffffffu, rmin);
+  rmax = __reduce_max_sync(0xffffffffu, rmax);
+  cmin = __reduce_min_sync(0xffffffffu, cmin);
+  cmax = __reduce_max_sync(0xffffffffu, cmax);
+  if ((tid & 31) == 0) {
+    atomicMin(box, rmin);
+    atomicMax(box + 1, rmax);
+    atomicMin(box + 2, cmin);
+    atomicMax(box + 3, cmax);
+  }
+  __syncthreads();
+  const int r_lo = box[0], c_lo = box[2];
+  const int nr = box[1] - r_lo + 1, nc = box[3] - c_lo + 1;
+  const bool shared = (long long)C * nr * nc <= kTileEntries;  // block-uniform
+""", """  // a 6 x 10 box from the block's position (the x4 zoom's size)
+  const int r_lo = max(min((int)blockIdx.y * 4, w.H - 4), 0);
+  const int c_lo = max(min((int)blockIdx.x * 8, w.W - 8), 0);
+  const int nr = 6, nc = 10;
+  const bool shared = true;
+""")
+RINGS_VARIANTS = {
+    "steering_warp_rings_first": {
+        # each window from the output's position (the x4 zoom), no rings read
+        "constant windows": [(
+            "    load_window(px[k], g, (size_t)i * w.OW + j);",
+            "    px[k].r[0] = min(i / 4 + 1, w.H + 1);\n"
+            "    px[k].r[1] = min(i / 4 + 2, w.H + 1);\n"
+            "    px[k].q[0] = min(j / 4 + 1, w.W + 1);\n"
+            "    px[k].q[1] = min(j / 4 + 2, w.W + 1);\n"
+            "    px[k].dx[0] = 0.375f; px[k].dx[1] = -0.625f;\n"
+            "    px[k].dy[0] = 0.375f; px[k].dy[1] = -0.625f;\n"
+            "    px[k].bits = kLinear ? 0xaau : 0u;")],
+        # no reduction: a box from the block's position, the tile's index
+        # clamped into it (the values are wrong, the work the same)
+        "no footprint reduction": [
+            _FIRST_BOX,
+            ("                shared ? tile[(c * nr + p.r[s] - r_lo) * nc"
+             " + p.q[t] - c_lo]",
+             "                shared ? tile[min(max((c * nr + p.r[s] - r_lo)"
+             " * nc + p.q[t] - c_lo, 0), kTileEntries - 1)]")],
+        "no expf": [("const float w = expf(-0.5f * (xn - p.y * xy + yn));",
+                     "const float w = -0.5f * (xn - p.y * xy + yn);")],
+        "at least 2 blocks an SM": [("constexpr int kMinBlocks = 4;",
+                                     "constexpr int kMinBlocks = 2;")],
+        "at least 6 blocks an SM": [("constexpr int kMinBlocks = 4;",
+                                     "constexpr int kMinBlocks = 6;")],
+    },
+    "steering_warp": {
+        "no expf": [("const float w = expf(-0.5f * (xn - p.y * xy + yn));",
+                     "const float w = -0.5f * (xn - p.y * xy + yn);")],
+        "direct path in every tile": [(
+            "  b.shared = (long long)C * b.nr * b.nc <= kTileEntries;",
+            "  b.shared = C < 0;")],
+        "two blocks an SM": [("constexpr int kRingsBlocks = 3;",
+                              "constexpr int kRingsBlocks = 2;")],
+        "one output's neighbours in flight at a time": [(
+            "constexpr int kSumRows = 2;", "constexpr int kSumRows = 1;")],
+        "four blocks an SM": [
+            ("constexpr int kRingsBlocks = 3;",
+             "constexpr int kRingsBlocks = 4;"),
+            ("constexpr int kMapInts = 1024;",
+             "constexpr int kMapInts = 1008;")],
+        "four blocks an SM, one output's neighbours at a time": [
+            ("constexpr int kRingsBlocks = 3;",
+             "constexpr int kRingsBlocks = 4;"),
+            ("constexpr int kMapInts = 1024;",
+             "constexpr int kMapInts = 1008;"),
+            ("constexpr int kSumRows = 2;", "constexpr int kSumRows = 1;")],
+        "no footprint from the ring positions": [(
+            "  const bool monotone = __syncthreads_and(up);",
+            "  const bool monotone = __syncthreads_and(up) && C < 0;")],
+        # what the rest costs without the sums or the decode
+        "no sums": [(
+            "      sums_f32<OutT, kLinear, InT, HypT, kWide>(px, o.ok, tile,"
+            " b, img,",
+            "      if (C < 0) sums_f32<OutT, kLinear, InT, HypT, kWide>(px,"
+            " o.ok, tile, b, img,")],
+        "no decode": [(
+            "      decode_tile<kLinear, InT, kWide, HypT>(img, codes, b, w, C,"
+            " tile, norm,",
+            "      if (C < 0) decode_tile<kLinear, InT, kWide, HypT>(img,"
+            " codes, b, w, C, tile, norm,")],
+    },
+    "steering_warp_rings_producer": {
+        "bulk copies (cp.async.bulk)": [(
+            "constexpr bool kBulk = false;", "constexpr bool kBulk = true;")],
     },
 }
 ROW_LAYOUTS = ("packed8", "packed32", "cells")
@@ -836,7 +964,8 @@ def same_bits(a, b) -> bool:
 @contextlib.contextmanager
 def other_library(k1_path=None, k5_path=None):
     """The wrappers (``kernels.resize``, ``kernels.warp``) launching K1's
-    and / or K5's C entry from another source's library (built alone by
+    and / or K5's C entries (K5's batch entry and its rings entry, those
+    the other library holds) from another source's library (built alone by
     ``build_variants``), everything else from the package's."""
     from lerf_torch.ops.kernels import _build
 
@@ -848,8 +977,10 @@ def other_library(k1_path=None, k5_path=None):
 
     lib = Lib()
     for path, entry in ((k1_path, "lerf_steering_resize"),
-                        (k5_path, "lerf_steering_warp_batch")):
-        if path is not None:
+                        (k5_path, "lerf_steering_warp_batch"),
+                        (k5_path, "lerf_steering_warp_rings")):
+        # a K5 source may hold either entry (a first design the rings one)
+        if path is not None and hasattr(ctypes.CDLL(path), entry):
             fn = getattr(ctypes.CDLL(path), entry)
             fn.argtypes = getattr(real, entry).argtypes
             fn.restype = ctypes.c_int
@@ -1051,6 +1182,139 @@ def probe_bf16(k1_other, k5_other, rounds, emit):
     return differ
 
 
+RINGS_FIRST = "steering_warp_rings_first.cu"
+# the producer-warp design (mbarriers, rings and source box streamed ahead)
+RINGS_PRODUCER = "steering_warp_rings_producer.cu"
+
+
+def rings_cases(dev):
+    """``--rings``' data: the LUT form's main-path stage outputs (the
+    probe's seed-0 frame and bench bank; the linear mode on the first code
+    plane) and the rings of ``warp_matrix()`` (the host's fused
+    precompute), of chip_smoke's radial distortion grid and of its
+    row-shuffled form, uploaded.  {(grid, linear): (feat, codes,
+    DeviceRings)}."""
+    import torch
+
+    import chip_smoke as cs
+    from lerf_torch.ops import lut_pipeline as lp
+    from lerf_torch.ops.geometry import WarpOperands
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import warp_rings, warp_serving_host_fused
+
+    in_sz = (cs.LR_H, cs.LR_W)
+    img = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (3,) + in_sz).astype(np.int32)).to(dev)
+    bank = cs.bench_bank()
+    feat = lp.lut_stage1(img, lp.FlatTables.create(bank.stage1, dev),
+                         cs.MODES)
+    codes = lp.lut_stage2(feat, lp.FlatTables.create(bank.stage2, dev),
+                          cs.MODES)
+    cases = {}
+    for linear in (False, True):
+        c = codes[..., :1].contiguous() if linear else codes
+        main, _ = warp_serving_host_fused(in_sz, cs.warp_matrix(),
+                                          cs.WARP_OUT, linear=linear)
+        grids = {"main": main}
+        for name in ("radial", "shuffled"):
+            gx, gy = cs.distortion_grid(in_sz, cs.WARP_OUT,
+                                        name == "shuffled")
+            grids[name] = warp_rings(WarpOperands.from_grid(
+                gx, gy, in_sz, cs.WARP_OUT), linear=linear)
+        for name, r in grids.items():
+            cases[(name, linear)] = (feat, c, k5.upload_rings(
+                r, dev, linear=linear))
+    torch.cuda.synchronize()
+    return cases
+
+
+def probe_rings(rounds: int, k5_sources=(), sass=False) -> int:
+    """The ``--rings`` section (the module docstring).  Returns 1 if any
+    source's output differs from the kernel's."""
+    import torch
+
+    import chip_smoke as cs
+    from lerf_torch.ops.kernels import warp as k5
+
+    cs.CARD = card = cs.card_line()
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cases = rings_cases(dev)
+    differ = []
+
+    def emit(row):
+        print(json.dumps({**row, "card": card}), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_variants(tmp, variants=RINGS_VARIANTS, others=[
+            ("steering_warp", "first design", os.path.join(here,
+                                                           RINGS_FIRST)),
+            ("steering_warp", "producer warp", os.path.join(
+                here, RINGS_PRODUCER))] + [
+            ("steering_warp", p, p) for p in k5_sources])
+        for (kernel, name), path in libs.items():
+            for fn, (nreg, opc) in sass_rows(
+                    path, "steering_warp_rings_kernel").items():
+                emit({"sass": kernel, "variant": name, "function": fn,
+                      "registers": nreg,
+                      "instructions": sum(opc.values())})
+        if sass:
+            for p in k5_sources:
+                compare_sass(libs, "steering_warp", "steering_warp_kernel",
+                             p, emit)
+
+        def call(grid, linear, out_dtype):
+            feat, codes, rings = cases[(grid, linear)]
+            return lambda: k5.steering_warp_rings(
+                feat, codes, rings, out_sz=cs.WARP_OUT, linear=linear,
+                out_dtype=out_dtype)
+
+        # the kernel against its first design and the other sources,
+        # alternating, every case held bit-equal every round
+        others = ["first design", "producer warp"] + list(k5_sources)
+        for rnd in range(rounds):
+            for (grid, linear) in cases:
+                for out_dtype in (torch.uint8, torch.float32):
+                    fn = call(grid, linear, out_dtype)
+                    want = fn()
+                    row = {"grid": grid,
+                           "mode": "linear" if linear else "gauss",
+                           "out": str(out_dtype).replace("torch.", ""),
+                           "round": rnd}
+                    emit({**row, "source": "as built",
+                          "graph_ms": cs.graph_ms(fn)})
+                    for other in others:
+                        with other_library(None, libs[("steering_warp",
+                                                       other)]):
+                            got = fn()
+                            ms = cs.graph_ms(fn)
+                        equal = same_bits(got, want)
+                        emit({**row, "source": other, "graph_ms": ms,
+                              "equals_kernel": equal})
+                        if not equal:
+                            differ.append(f"{other} {row}")
+            # each variant once a round, the main grid, uint8
+            for kernel, named in RINGS_VARIANTS.items():
+                for name in named:
+                    for linear in (False, True):
+                        fn = call("main", linear, torch.uint8)
+                        want = fn()
+                        with other_library(None, libs[(kernel, name)]):
+                            got = fn()
+                            ms = cs.graph_ms(fn)
+                        emit({"kernel": kernel, "variant": name,
+                              "grid": "main",
+                              "mode": "linear" if linear else "gauss",
+                              "out": "uint8", "round": rnd, "graph_ms": ms,
+                              "equals_kernel": same_bits(got, want)})
+    print(card)
+    if differ:
+        print(f"rings outputs differ from the kernel's: {differ}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1073,6 +1337,10 @@ def main(argv=None) -> int:
     ap.add_argument("--k2", action="append", default=[], metavar="OTHER.cu",
                     help="with --rows: another flat K2 source to time "
                     "beside the kernel")
+    ap.add_argument("--rings", action="store_true",
+                    help="time K5's rings instance, its variants and its "
+                    "first design only (and each --k5 source's rings "
+                    "entry)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_lut_kernels: needs a CUDA card", file=sys.stderr)
@@ -1082,6 +1350,8 @@ def main(argv=None) -> int:
         return probe_k6(args.rounds)
     if args.rows:
         return probe_rows(args.rounds, args.k2)
+    if args.rings:
+        return probe_rings(args.rounds, args.k5, args.sass)
     from lerf_torch.ops import lut_pipeline as lp
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.ops.kernels import resize as k1

@@ -1469,6 +1469,31 @@ def test_probe_row_variants_apply_to_the_row_sources():
                 text = text.replace(old, new)
 
 
+def test_probe_rings_variants_apply_to_the_rings_sources():
+    """``probe_lut_kernels.py --rings`` builds its variants by text
+    substitution into K5's source (its rings instance) and into the rings
+    instance's first design beside the script: every substituted text
+    must be there exactly once."""
+    import os
+
+    from lerf_torch.ops.kernels import _build
+
+    probe = load_tool("probe_lut_kernels")
+    tools = os.path.join(os.path.dirname(_build.CSRC), "tools")
+    assert os.path.exists(os.path.join(tools, probe.RINGS_FIRST))
+    for kernel, variants in probe.RINGS_VARIANTS.items():
+        path = os.path.join(_build.CSRC, kernel + ".cu")
+        if not os.path.exists(path):
+            path = os.path.join(tools, kernel + ".cu")
+        with open(path) as f:
+            src = f.read()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs:
+                assert text.count(old) == 1, (kernel, name, old[:60])
+                text = text.replace(old, new)
+
+
 # -- the float modes: float32 feature and hyper maps in [0, 1] (the IMDN
 # form), against lerf_tpu's float ops as twins ------------------------------
 
@@ -2622,6 +2647,145 @@ def test_warp_rings_bf16_maps_follow_the_rings_type(linear, cuda_device):
         # the linear mode's float32 branch masks promote its output
         assert got.dtype == (torch.bfloat16 if dtype is torch.bfloat16
                              and not linear else torch.float32)
+        assert same(got, want)
+
+
+# (feature / maps pair, rings type) of each in_type of the rings entry:
+# int32, float32, bf16 under bf16 rings, a float32 feature with bf16 maps,
+# bf16 under float32 rings (the widened instance)
+RINGS_IN_TYPES = {"int32": ("int32", np.float32),
+                  "float32": ("float32", np.float32),
+                  "bf16": ("bf16", torch.bfloat16),
+                  "mixed": ("mixed", np.float32),
+                  "bf16_wide": ("bf16", np.float32)}
+
+
+def persistent_blocks(device):
+    """The rings instance's persistent blocks on the card (its grid for an
+    output of more tiles than it holds)."""
+    return k5.rings_grid((16 * 4096, 32), device)
+
+
+def pad_rings(linear, dtype, out_sz=(48, 64)):
+    """Rings whose windows read both pad rows and columns: ring maps with
+    0 and H + 1 (W + 1) at both ends, and per 16 x 32 tile the corners at
+    the top-left pads, at the bottom-right ones, or both (by tile); random
+    distances, and in the linear mode their branch masks."""
+    _, h, w = RINGS_SHAPE
+    rng = np.random.RandomState(5)
+    n = out_sz[0] * out_sz[1]
+    ii, jj = np.meshgrid(np.arange(out_sz[0]), np.arange(out_sz[1]),
+                         indexing="ij")
+    kind = ((ii // 16 + jj // 32) % 3).ravel()
+    kind = np.where(kind == 2, rng.randint(0, 2, n), kind)
+    cx = np.where(kind == 0, rng.randint(0, 2, n),
+                  rng.randint(h + 1, h + 3, n))
+    cy = np.where(kind == 0, rng.randint(0, 2, n),
+                  rng.randint(w + 1, w + 3, n))
+    dis = [rng.uniform(-1.5, 1.5, (n, 2)) for _ in range(2)]
+    rings = WarpRings(
+        np.r_[0, 0, np.arange(1, h + 1), h + 1, h + 1].astype(np.int32),
+        np.r_[0, 0, np.arange(1, w + 1), w + 1, w + 1].astype(np.int32),
+        (cx * (w + 3) + cy).astype(np.int32),
+        *[d.astype(np.float32) for d in dis])
+    if linear:
+        def masks(d):
+            return (((-1 <= d) & (d < 0)).astype(np.float32),
+                    ((0 <= d) & (d <= 1)).astype(np.float32))
+        rings = rings._replace(masks_x=masks(dis[0]), masks_y=masks(dis[1]))
+    if dtype is torch.bfloat16:
+        rings = rings._replace(
+            dis_x=torch.from_numpy(rings.dis_x).bfloat16(),
+            dis_y=torch.from_numpy(rings.dis_y).bfloat16())
+    return rings, out_sz
+
+
+def edge_rings(case, linear, dtype, blocks):
+    """The rings and output size of one of the persistent kernel's edge
+    cases (``test_warp_rings_pipeline_edges``); ``blocks``: its grid."""
+    if case == "pads":
+        return pad_rings(linear, dtype)
+    _, h, w = RINGS_SHAPE
+    out_sz = {"unaligned_rows": (32, 61), "ragged_tiles": (37, 70),
+              "one_tile": (16, 32), "grid_plus_one": (16, 32 * (blocks + 1)),
+              "alternating": (64, 32 * blocks)}[case]
+    # the x4 zoom of the image's top-left part for the small frames, the
+    # whole image for the wide ones
+    small = case in ("unaligned_rows", "ragged_tiles", "one_tile")
+    gx, gy = distortion_grid((out_sz[0] / 4, out_sz[1] / 4) if small
+                             else (h, w), out_sz)
+    if case == "alternating":
+        # block b walks tiles (0, b), (1, b), (2, b), (3, b): the odd tile
+        # rows' outputs read the whole image (the direct path)
+        rng = np.random.RandomState(6)
+        wide = np.zeros(out_sz, bool)
+        wide[16:32] = wide[48:64] = True
+        gx, gy = gx.copy(), gy.copy()
+        gx[wide] = rng.uniform(0, h, wide.sum())
+        gy[wide] = rng.uniform(0, w, wide.sum())
+    return warp_rings(WarpOperands.from_grid(gx, gy, (h, w), out_sz),
+                      linear=linear, dtype=dtype), out_sz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_type", sorted(RINGS_IN_TYPES))
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", ["unaligned_rows", "ragged_tiles",
+                                  "one_tile", "grid_plus_one",
+                                  "alternating", "pads"])
+def test_warp_rings_pipeline_edges(case, linear, in_type, cuda_device):
+    """The persistent rings kernel's edges, ``torch.equal`` to the twin on
+    the card, float32 and uint8, for every in_type and both modes: an odd
+    OW (rows whose rings start off a 16-byte boundary), ragged tiles (OH %
+    16, OW % 32), a frame of one tile, one tile more than the persistent
+    grid, tiles that alternate between the shared and the direct path in
+    each block's walk, and windows on both pad rows and columns, through
+    the shared and the direct path."""
+    pair, dtype = RINGS_IN_TYPES[in_type]
+    feat, codes = rings_inputs(pair, linear, cuda_device)
+    blocks = persistent_blocks(cuda_device)
+    rings, out_sz = edge_rings(case, linear, dtype, blocks)
+    got = k5.steering_warp_rings(feat, codes, rings, out_sz=out_sz,
+                                 linear=linear)
+    got_u8 = k5.steering_warp_rings(feat, codes, rings, out_sz=out_sz,
+                                    linear=linear, out_dtype=torch.uint8)
+    want = k5.steering_warp_rings_plain(feat, codes, rings, linear=linear)
+    torch.cuda.synchronize()
+    assert same(got, want.reshape(got.shape))
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+    tiles = (-(-out_sz[0] // 16)) * (-(-out_sz[1] // 32))
+    if case == "grid_plus_one":
+        assert tiles == blocks + 1
+    direct = k5.rings_footprint_entries(
+        rings, RINGS_SHAPE[1:], out_sz, RINGS_SHAPE[0]) > k5.TILE_ENTRIES
+    if case == "alternating":
+        assert not direct[0::2].any() and direct[1::2].all()
+    elif case != "pads":
+        assert not direct.any()
+    else:
+        assert direct.any() and not direct.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_warp_rings_bits_view(offset, cuda_device):
+    """The linear mode's branch bits as a view ``offset`` bytes into a
+    larger buffer (as a shard's slab of them is): the words at either end
+    of the array reach outside it, so the kernel loads those bytes alone;
+    ``torch.equal`` to the same rings with their own bits tensor."""
+    feat, codes = rings_inputs("int32", True, cuda_device)
+    rings, out_sz = edge_rings("ragged_tiles", True, np.float32, 1)
+    dr = k5.upload_rings(rings, cuda_device, linear=True)
+    n = dr.bits.numel()
+    buf = torch.full((n + 8,), 0xff, dtype=torch.uint8, device=cuda_device)
+    buf[offset:offset + n] = dr.bits
+    view = dr._replace(bits=buf[offset:offset + n])
+    for out_dtype in (torch.float32, torch.uint8):
+        want = k5.steering_warp_rings(feat, codes, dr, out_sz=out_sz,
+                                      linear=True, out_dtype=out_dtype)
+        got = k5.steering_warp_rings(feat, codes, view, out_sz=out_sz,
+                                     linear=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
         assert same(got, want)
 
 

@@ -2,7 +2,10 @@
 
 Same numpy-seeded inputs through both packages, 12×16 → 40×52 under three
 homographies and two maps given as grids (``WarpOperands.from_grid``: a
-smooth radial distortion, and the same with its output rows shuffled).
+smooth radial distortion, and the same with its output rows shuffled), and
+12×16 → 37×61 (an odd width and a height off the card's 16-row tiles:
+K5's rings instance's ragged tiles and unaligned rows) under one
+homography and the radial grid.
 Held bit-equal: ``WarpOperands``, ``warp_rings`` (both modes), the
 validity mask, ``warp_serving_host`` and ``warp_serving_host_fused``
 (numpy, and the C library at 1, 2 and 7 threads), the packed operand and
@@ -44,7 +47,19 @@ MATRICES = {
     "rotate": np.array([[2.9, -0.8, 6.0], [0.8, 2.9, -4.0], [0.0, 0.0, 1.0]]),
 }
 GRIDS = ("radial", "shuffled")
-CASES = sorted(MATRICES) + list(GRIDS)
+# an odd width and a height off the 16-row tiles, at a case's map
+RAGGED_OUT = (37, 61)
+RAGGED = {"jitter_ragged": "jitter", "radial_ragged": "radial"}
+CASES = sorted(MATRICES) + list(GRIDS) + sorted(RAGGED)
+
+
+def base_of(case):
+    """The map a case warps by (a matrix's name or a grid's)."""
+    return RAGGED.get(case, case)
+
+
+def out_of(case):
+    return RAGGED_OUT if case in RAGGED else OUT_SZ
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,21 +73,22 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def radial_grid(shuffled=False):
+def radial_grid(shuffled=False, out_sz=OUT_SZ):
     """The card tests' barrel distortion at this file's sizes, and its
     row-shuffled form."""
-    return distortion_grid(IN_SZ, OUT_SZ, shuffled)
+    return distortion_grid(IN_SZ, out_sz, shuffled)
 
 
 def operands(case):
     """(lerf_tpu's, the port's) WarpOperands of a case."""
-    if case in MATRICES:
-        m = MATRICES[case]
-        return (jgeo.WarpOperands.create(IN_SZ, m, OUT_SZ),
-                tgeo.WarpOperands.create(IN_SZ, m, OUT_SZ))
-    gx, gy = radial_grid(case == "shuffled")
-    return (jgeo.WarpOperands.from_grid(gx, gy, IN_SZ, OUT_SZ),
-            tgeo.WarpOperands.from_grid(gx, gy, IN_SZ, OUT_SZ))
+    base, out_sz = base_of(case), out_of(case)
+    if base in MATRICES:
+        m = MATRICES[base]
+        return (jgeo.WarpOperands.create(IN_SZ, m, out_sz),
+                tgeo.WarpOperands.create(IN_SZ, m, out_sz))
+    gx, gy = radial_grid(base == "shuffled", out_sz)
+    return (jgeo.WarpOperands.from_grid(gx, gy, IN_SZ, out_sz),
+            tgeo.WarpOperands.from_grid(gx, gy, IN_SZ, out_sz))
 
 
 def stage_inputs(seed=0, c=3):
@@ -178,10 +194,11 @@ def test_rings_dtype_takes_float32_and_bf16_only():
 
 @pytest.mark.parametrize("case", CASES)
 def test_mask_from_grid_bit_equal(case):
-    if case in MATRICES:
-        gx, gy = tgeo._warp_grid(MATRICES[case], IN_SZ, OUT_SZ)
+    base, out_sz = base_of(case), out_of(case)
+    if base in MATRICES:
+        gx, gy = tgeo._warp_grid(MATRICES[base], IN_SZ, out_sz)
     else:
-        gx, gy = radial_grid(case == "shuffled")
+        gx, gy = radial_grid(base == "shuffled", out_sz)
     np.testing.assert_array_equal(trs._mask_from_grid(gx, gy, IN_SZ),
                                   jrs._mask_from_grid(gx, gy, IN_SZ))
 
@@ -372,8 +389,9 @@ def test_rings_warp_matches_lerf_tpu(case, linear, u8):
     rings = trs.warp_rings(t_ops, linear=linear)
     got = rings_warp(trs, warp_args(feat, codes, u8, linear, "torch", bf16),
                      rings, u8, linear).numpy()
+    out_sz = out_of(case)
     assert got.dtype == np.float32 and got.shape == want.shape == (
-        3, OUT_SZ[0] * OUT_SZ[1])
+        3, out_sz[0] * out_sz[1])
     if linear:      # no exponential: the same float32 operations
         assert_close_with_nans(got, want, atol=ATOL)
     else:
@@ -430,7 +448,7 @@ def test_rings_wrapper_takes_plain_twin_on_cpu(case, linear):
     feat, codes = stage_inputs(seed=6)
     codes = codes[..., :1] if linear else codes
     ft, ct = torch.from_numpy(feat), torch.from_numpy(codes)
-    got = k5.steering_warp_rings(ft, ct, rings, out_sz=OUT_SZ,
+    got = k5.steering_warp_rings(ft, ct, rings, out_sz=out_of(case),
                                  linear=linear)
     twin = k5.steering_warp_rings_plain(ft, ct, rings, linear=linear)
     assert torch.equal(torch.nan_to_num(got, nan=-1.0),
