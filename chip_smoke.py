@@ -252,6 +252,12 @@ hand-written kernel against its plain PyTorch twin on the card:
 44. ``upscale_batch`` of 4 frames on mesh predictors (LUT, net on K4)
    over 2 and 4 shards: each frame bit-equal to ``upscale``, 2 K2 (K4) and
    one K1 a shard, no collective;
+44b. the four sharded float ops (``steering_gaussian_resize_sharded``,
+   ``_warp_sharded``, ``_resize_rings_sharded``, ``_warp_rings_sharded``
+   with ``u8_inputs=False``) on ``[cuda:0] × 2`` at 360×640 → ×4 for
+   float32, bf16 and the two pairs of one of each: each call counted (one
+   launch a shard of its pair's instance), its output in lerf_tpu's type
+   and bit-equal to the unsharded launch;
 45. (with the training phases, on their synthetic DIV2K) data-parallel
    training: 5 LeRF-G steps (batch 16, crop 48, nf 64) on ``[cuda:0] ×
    2`` against the single-device step from the same state and batches,
@@ -337,6 +343,15 @@ hand-written kernel against its plain PyTorch twin on the card:
    bounds (bytes: 20 of rings an output read, or written; the rings
    instance's also in the linear mode, on float32 maps and in its bf16
    instance);
+51b. the pairs of one float32 and one bf16 input lerf_tpu computes, on
+   the 360×640 frame, ``torch.equal`` to their twins on the card, float32
+   and uint8, both modes: K1 on a bf16 feature beside float32 maps at ×4,
+   ×2.5 and ×0.5, K5's matrix instance on it at ``warp_matrix()`` (the
+   mask equal to the host's), the rings instance on it under float32 and
+   bf16 rings and on a float32 feature beside bf16 maps under bf16 rings;
+   each new instance's time by CUDA-graph replays beside the float32
+   instance's in alternating rounds, its twin's and its bound (a bf16
+   input 2 bytes a value);
 52. the exact-division findings (K1 bit-equal to its twin or not at each
    phase 2 scale, in both modes; the net crop's feat / hyper-code
    difference shares under K3 and K4), the kernels line (K1's and K5's
@@ -347,7 +362,9 @@ hand-written kernel against its plain PyTorch twin on the card:
    layout, its first design's times beside, and K1's and K5's bf16
    instances, with the PR that redesigned them and where their earlier
    design's times stand: the probe, not this script, times that design;
-   K5's rings instance and the rings geometry kernel), the card line
+   K5's rings instance and the rings geometry kernel; the new pairs'
+   instances of phase 51b, their launches those of phase 44b), the card
+   line
    and, last, the result line.
 
 Any failure exits non-zero; without a CUDA card it exits 1 and prints no
@@ -832,11 +849,14 @@ def bound(nbytes, ops, bf16_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(geom, c, linear=False, floats=False, value_bytes=4):
+def k1_work(geom, c, linear=False, floats=False, value_bytes=4,
+            feat_bytes=None):
     """(bytes, float32 operations, bf16 operations) of one K1 call in uint8
     mode: the int32 feature and codes (3 a pixel, 1 in the linear mode;
     ``floats``: float32 feature and maps, as many bytes; ``value_bytes`` 2:
-    bf16 ones, the bf16 instance) read once, the uint8 output written
+    bf16 ones, the bf16 instance; ``feat_bytes``: the feature's bytes
+    where they differ from the maps', a pair of one float32 and one bf16
+    input, whose steps are float32) read once, the uint8 output written
     once, the device geometry (rows, distances and, linear, masks) read
     once; the decode once a source pixel, the weights and sums once an
     output and neighbour, the epilogue once an output.  The bf16
@@ -844,7 +864,8 @@ def k1_work(geom, c, linear=False, floats=False, value_bytes=4):
     ...), else 0."""
     (h, w), (oh, ow), s = geom.in_sz, geom.out_sz, geom.support
     codes = 1 if linear else 3
-    nbytes = (c * h * w * value_bytes * (1 + codes) + c * oh * ow
+    fb = value_bytes if feat_bytes is None else feat_bytes
+    nbytes = (c * h * w * (fb + value_bytes * codes) + c * oh * ow
               + (oh + ow) * s * (9 if linear else 8))
     per = (LIN_OPS_PER_NEIGHBOUR if linear else K1_OPS_PER_NEIGHBOUR) \
         + (1 if geom.antialias else 0)
@@ -853,7 +874,7 @@ def k1_work(geom, c, linear=False, floats=False, value_bytes=4):
            (LIN_OPS_PER_SOURCE if linear else K1_OPS_PER_SOURCE))
     ops = (c * h * w * src
            + c * oh * ow * (s * s * per + K1_OPS_PER_OUTPUT_U8))
-    if value_bytes != 2:
+    if value_bytes != 2 or fb != 2:
         return nbytes, ops, 0
     per16 = LIN_BF16_OPS_PER_NEIGHBOUR if linear else \
         K1_BF16_OPS_PER_NEIGHBOUR + (1 if geom.antialias else 0)
@@ -1102,7 +1123,7 @@ def net_form_phases(dev, params, frame, backend, label=None):
 
 
 def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
-            frames=1, floats=False, value_bytes=4):
+            frames=1, floats=False, value_bytes=4, feat_bytes=None):
     """(bytes, float32 operations, float64 operations, bf16 operations) of one
     K5 call in uint8 mode: the int32 feature and codes (3 a pixel, 1
     linear) and the 3×3 float64 inverse read once, the uint8 output written
@@ -1117,10 +1138,12 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
     ``floats``: float32 feature and maps (as many bytes, the float decode
     of ``k1_work``; ``value_bytes`` 2: bf16 ones, the bf16 instance, its
     bf16 operations split off as ``k1_work`` does, the sums float32 at
-    supports other than 2; else 0 of them)."""
+    supports other than 2; else 0 of them; ``feat_bytes`` as ``k1_work``
+    takes it)."""
     (h, w), (oh, ow) = in_sz, out_sz
     codes = 1 if linear else 3
-    nbytes = c * h * w * value_bytes * (1 + codes) + 9 * 8 + c * oh * ow
+    fb = value_bytes if feat_bytes is None else feat_bytes
+    nbytes = c * h * w * (fb + value_bytes * codes) + 9 * 8 + c * oh * ow
     per = LIN_OPS_PER_NEIGHBOUR if linear else K5_OPS_PER_NEIGHBOUR
     src = ((LIN_FLOAT_OPS_PER_SOURCE if linear else K1_FLOAT_OPS_PER_SOURCE)
            if floats else
@@ -1134,7 +1157,7 @@ def k5_work(in_sz, out_sz, c, linear=False, support=2, mask=False,
         nbytes += oh * ow
         f64 += oh * ow * K5_F64_MASK_OPS
     bf16 = 0
-    if value_bytes == 2:
+    if value_bytes == 2 and fb == 2:
         per16 = (LIN_BF16_OPS_PER_NEIGHBOUR if linear else
                  K1_BF16_OPS_PER_NEIGHBOUR if support == 2 else
                  K5_BF16_OPS_PER_NEIGHBOUR_GENERIC)
@@ -1195,7 +1218,9 @@ def kernel_modules():
     counts K3's launches of either type, ``srnet_ensemble_bf16`` those of
     its bf16 kernel; so K1's and K5's bf16 instances, and
     ``steering_warp_rings`` K5's rings instance; ``warp_rings_geometry``
-    is the kernel that writes a homography's rings on the card)."""
+    is the kernel that writes a homography's rings on the card;
+    ``*_bf16_feature`` K1's and K5's instances that take a bf16 feature
+    beside float32 maps, K5's matrix and rings instances both)."""
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import resize_bwd as k6
@@ -1209,7 +1234,11 @@ def kernel_modules():
             "steering_resize_bf16": _Bf16Count(k1),
             "steering_warp_bf16": _Bf16Count(k5),
             "steering_warp_rings": _Bf16Count(k5, "rings_launches"),
-            "warp_rings_geometry": _Bf16Count(k5, "rings_geometry_launches")}
+            "warp_rings_geometry": _Bf16Count(k5, "rings_geometry_launches"),
+            "steering_resize_bf16_feature": _Bf16Count(
+                k1, "bf16_feature_launches"),
+            "steering_warp_bf16_feature": _Bf16Count(
+                k5, "bf16_feature_launches")}
 
 
 def counted_run(call, want, what):
@@ -5415,7 +5444,8 @@ def distortion_grid(in_sz, out_sz, shuffled=False):
     return gx, gy
 
 
-def rings_work(in_sz, out_sz, c, linear=False, value_bytes=4, floats=False):
+def rings_work(in_sz, out_sz, c, linear=False, value_bytes=4, floats=False,
+               feat_bytes=None):
     """(bytes, float32 operations, bf16 operations) of one rings-instance
     call in uint8 mode: ``k5_work``'s feature, codes and output bytes and
     its float32 (and bf16) operations, no float64 geometry, and per output
@@ -5423,7 +5453,8 @@ def rings_work(in_sz, out_sz, c, linear=False, value_bytes=4, floats=False):
     linear mode's branch byte one more), the ring maps once."""
     (h, w), (oh, ow) = in_sz, out_sz
     nbytes, ops, _, bf16 = k5_work(in_sz, out_sz, c, linear=linear,
-                                   value_bytes=value_bytes, floats=floats)
+                                   value_bytes=value_bytes, floats=floats,
+                                   feat_bytes=feat_bytes)
     nbytes += oh * ow * (20 + int(linear)) + (h + w + 8) * 4 - 9 * 8
     return nbytes, ops, bf16
 
@@ -5836,6 +5867,309 @@ def rings_phase(dev, banks, frame, first, log):
              "plain_ms": geo_plain_ms, "bound_ms": geo_b_ms,
              "bound_by": geo_b_by, "share_of_bound": geo_b_ms / geo_ms,
              "library_ms": None}]
+
+
+# -- 51 and 44: the pairs of one float32 and one bf16 input ------------------
+
+# the sharded float ops' pairs (feature type, maps type), by name
+FLOAT_PAIRS = {"float32": ("float32", "float32"), "bf16": ("bf16", "bf16"),
+               "f32_feat_bf16_maps": ("float32", "bf16"),
+               "bf16_feat_f32_maps": ("bf16", "float32")}
+MIXED_ROUNDS = 3             # graph-replay rounds, new and float32 alternating
+
+
+def pair_types(name):
+    import torch
+    return tuple({"float32": torch.float32, "bf16": torch.bfloat16}[t]
+                 for t in FLOAT_PAIRS[name])
+
+
+def mixed_counts(kernel, ft, mt, n, rings=False):
+    """The launches a call of ``n`` launches of ``kernel`` (K1 or K5) on the
+    pair (``ft``, ``mt``) counts, by :func:`kernel_modules` name."""
+    import torch
+    bf = torch.bfloat16
+    want = {kernel: n}
+    if mt == bf:
+        want[kernel + "_bf16"] = n
+    if ft == bf and mt != bf:
+        want[kernel + "_bf16_feature"] = n
+    if rings:
+        want["steering_warp_rings"] = n
+    return want
+
+
+def sharded_float_phase(dev, rng):
+    """Phase 44b: the four sharded float ops (``steering_gaussian_resize_
+    sharded`` x4, ``steering_gaussian_warp_sharded`` at ``warp_matrix()``,
+    ``steering_gaussian_resize_rings_sharded`` at x4 and ``steering_
+    gaussian_warp_rings_sharded(u8_inputs=False)`` through the main
+    matrix's host rings, bf16 where the maps are) on [cuda:0] x 2 at the
+    360x640 frame, for float32, bf16 and the two pairs of one of each: the
+    sources keep their types, each shard launches its pair's instance
+    (counted, every count at 0 before the call), the output takes
+    lerf_tpu's type and is bit-equal to the same kernel's unsharded
+    launch.  Returns {(op, pair): launches}."""
+    import torch
+    from lerf_torch.ops import geometry as geo
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import warp_serving_host_fused
+    from lerf_torch.parallel import spatial as sp
+
+    t0 = time.perf_counter()
+    shape = (3, LR_H, LR_W)
+    feat32, hyper32 = float_inputs(rng, shape, 3, dev)
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    ops = geo.ResizeOperands.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    params = k5.WarpParams.create((LR_H, LR_W), warp_matrix(), WARP_OUT)
+    rings = {dt: warp_serving_host_fused((LR_H, LR_W), warp_matrix(),
+                                         WARP_OUT, dtype=dt)[0]
+             for dt in (np.float32, torch.bfloat16)}
+    mesh = one_card_mesh(2)
+    counts = {}
+    for pair in FLOAT_PAIRS:
+        ft, mt = pair_types(pair)
+        feat, hyper = feat32.to(ft), hyper32.to(mt)
+        maps = [hyper[..., k] for k in range(3)]
+        out_t = torch.bfloat16 if ft == mt == torch.bfloat16 \
+            else torch.float32
+        r = rings[torch.bfloat16 if mt == torch.bfloat16 else np.float32]
+        cases = (
+            ("resize", lambda: sp.steering_gaussian_resize_sharded(
+                feat, *maps, geom, mesh),
+             lambda: k1.steering_resize(feat, hyper, geom),
+             mixed_counts("steering_resize", ft, mt, 2)),
+            ("resize_rings", lambda: sp.steering_gaussian_resize_rings_sharded(
+                feat, *maps, ops, mesh),
+             lambda: k1.steering_resize_serving(feat, hyper, ops),
+             mixed_counts("steering_resize", ft, mt, 2)),
+            ("warp", lambda: sp.steering_gaussian_warp_sharded(
+                feat, *maps, params, mesh),
+             lambda: k5.steering_warp(feat, hyper, params),
+             mixed_counts("steering_warp", ft, mt, 2)),
+            ("warp_rings", lambda: sp.steering_gaussian_warp_rings_sharded(
+                feat, *maps, r, mesh, u8_inputs=False, out_sz=WARP_OUT),
+             lambda: k5.steering_warp_rings(feat, hyper, r),
+             mixed_counts("steering_warp", ft, mt, 2, rings=True)))
+        for op, call, alone, want in cases:
+            got, launches, _, _ = mesh_counted(
+                call, want, f"sharded {op} {pair}", n_gathers=0)
+            whole = alone()
+            torch.cuda.synchronize()
+            if got.dtype != out_t:
+                raise AssertionError(f"sharded {op} {pair}: {got.dtype}, "
+                                     f"lerf_tpu's type is {out_t}")
+            if not same_bits(got.cat(), whole.reshape(got.shape)):
+                raise AssertionError(f"sharded {op} {pair}: not bit-equal "
+                                     "to the unsharded launch")
+            counts[op, pair] = launches
+            emit({"phase": "sharded_float", "op": op, "pair": pair,
+                  "shards": 2, "out_dtype": str(out_t).replace("torch.", ""),
+                  "rings": (str(rings_dtype_of(r)) if op == "warp_rings"
+                            else None),
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "bit_equal_to_unsharded": True})
+    emit({"phase": "phase_seconds", "sharded_float": time.perf_counter() - t0})
+    return counts
+
+
+def rings_dtype_of(rings):
+    from lerf_torch.ops.resample import rings_dtype
+    return str(rings_dtype(rings)).replace("torch.", "")
+
+
+def mixed_pair_phase(dev, rng, counts):
+    """Phase 51b: the pairs of one float32 and one bf16 input that lerf_tpu
+    computes, at the 360x640 frame against their twins on the card,
+    ``torch.equal``, float32 and uint8, both modes: K1 on a bf16 feature
+    beside float32 maps (in_type 5) at x4, x2.5 and the antialiased x0.5;
+    K5's matrix instance on it at ``warp_matrix()`` (with the mask); K5's
+    rings instance on it under float32 and bf16 rings, and on a float32
+    feature beside bf16 maps under bf16 rings (in_type 3 on the bf16
+    distances widened), through the main matrix's host rings.  Their times
+    by CUDA-graph replays (uint8, the Gaussian), alternating with the
+    float32 instance's (in_type 1) in each round; plain by events; the
+    bounds count a bf16 feature (maps) as 2 bytes.  ``counts``: the
+    sharded phase's launches (the main path of these instances).  Returns
+    the kernels line's rows."""
+    import torch
+    from lerf_torch.ops.geometry import ResizeGeometry
+    from lerf_torch.ops.kernels import resize as k1
+    from lerf_torch.ops.kernels import warp as k5
+    from lerf_torch.ops.resample import (quantize_device,
+                                         warp_serving_host_fused)
+
+    t0 = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    shape = (3, LR_H, LR_W)
+    base = {lin: float_inputs(rng, shape, 1 if lin else 3, dev)
+            for lin in (False, True)}
+    checked = []
+
+    def hold(got, got_u8, want, what, nan_to_zero=True):
+        torch.cuda.synchronize()
+        if want.dtype != f32 or not same_bits(got, want):
+            raise AssertionError(f"{what}: not torch.equal to the twin")
+        if not torch.equal(got_u8, quantize_device(want, 255,
+                                                   nan_to_zero=nan_to_zero)):
+            raise AssertionError(f"{what}: the uint8 mode differs from the "
+                                 "twin quantized")
+        checked.append(what)
+
+    # K1 and K5's matrix instance on a bf16 feature beside float32 maps
+    warp = k5.WarpParams.create((LR_H, LR_W), warp_matrix(), WARP_OUT)
+    warp_geom, host_mask = warp.geometry(), warp.host_mask()
+    for linear in (False, True):
+        feat, hyper = base[linear][0].to(bf), base[linear][1]
+        for scale in (SCALE, 2.5, 0.5):
+            geom = ResizeGeometry.create((LR_H, LR_W),
+                                         scale_factors=[scale] * 2)
+            got = k1.steering_resize(feat, hyper, geom, linear=linear)
+            got_u8 = k1.steering_resize(feat, hyper, geom, linear=linear,
+                                        out_dtype=torch.uint8)
+            hold(got, got_u8, float_twin_resize(feat, hyper, geom, linear),
+                 f"K1 bf16 feature x{scale} linear={linear}",
+                 nan_to_zero=linear)
+        mask = torch.empty(WARP_OUT, dtype=torch.bool, device=dev)
+        got = k5.steering_warp(feat, hyper, warp, linear=linear,
+                               mask_out=mask)
+        got_u8 = k5.steering_warp(feat, hyper, warp, linear=linear,
+                                  out_dtype=torch.uint8)
+        hold(got, got_u8, float_twin_warp(feat, hyper, warp_geom, linear),
+             f"K5 bf16 feature main linear={linear}")
+        if not np.array_equal(mask.cpu().numpy(), host_mask):
+            raise AssertionError("K5 bf16 feature: the mask differs from "
+                                 "the host's")
+
+    # K5's rings instance: a bf16 feature beside float32 maps under either
+    # rings type, a float32 feature beside bf16 maps under bf16 rings
+    host = {(dt, lin): warp_serving_host_fused(
+                (LR_H, LR_W), warp_matrix(), WARP_OUT, linear=lin,
+                dtype=dt)[0]
+            for dt in (np.float32, bf) for lin in (False, True)}
+    rings = {key: k5.upload_rings(r, dev, linear=key[1])
+             for key, r in host.items()}
+    ring_cases = (("bf16_feat_f32_maps", np.float32),
+                  ("bf16_feat_f32_maps", bf), ("f32_feat_bf16_maps", bf))
+    for linear in (False, True):
+        for pair, dt in ring_cases:
+            ft, mt = pair_types(pair)
+            feat, hyper = base[linear][0].to(ft), base[linear][1].to(mt)
+            r = rings[dt, linear]
+            got = k5.steering_warp_rings(feat, hyper, r, out_sz=WARP_OUT,
+                                         linear=linear)
+            got_u8 = k5.steering_warp_rings(feat, hyper, r, out_sz=WARP_OUT,
+                                            linear=linear,
+                                            out_dtype=torch.uint8)
+            twin = k5.steering_warp_rings_plain(feat, hyper,
+                                                host[dt, linear],
+                                                linear=linear)
+            hold(got, got_u8, twin.reshape(got.shape),
+                 f"K5 rings {pair} rings={rings_dtype_of(r)} "
+                 f"linear={linear}")
+
+    # times: graph replays, uint8 Gaussian, the new instance and the
+    # float32 one alternating
+    feat, hyper = base[False]
+    geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
+    k1_ops = k1.ResizeOperands.create(geom, dev)
+    u8 = torch.uint8
+
+    def k1_call(f, h):
+        return lambda: k1.steering_resize(f, h, geom, operands=k1_ops,
+                                          out_dtype=u8)
+
+    def k5_call(f, h):
+        return lambda: k5.steering_warp(f, h, warp, out_dtype=u8)
+
+    def rings_call(f, h, dt):
+        return lambda: k5.steering_warp_rings(
+            f, h, rings[dt, False], out_sz=WARP_OUT, out_dtype=u8)
+
+    fb, hb = feat.to(bf), hyper.to(bf)
+    # name → (new call, float32 call, its twin, (bytes, f32 ops, bf16 ops),
+    # source, replaces, launches on the main path)
+    k1_w = k1_work(geom, 3, floats=True, feat_bytes=2)
+    k5_w = k5_work((LR_H, LR_W), WARP_OUT, 3, floats=True, feat_bytes=2)
+    rows = {
+        "steering_resize_bf16_feature": (
+            k1_call(fb, hyper), k1_call(feat, hyper),
+            lambda: quantize_device(float_twin_resize(fb, hyper, geom,
+                                                      False), 255),
+            (k1_w[0], k1_w[1], 0, k1_w[2]),
+            "lerf_torch/csrc/steering_resize.cu",
+            "lerf_tpu/ops/pallas/resize_kernel.py:118",
+            counts["resize", "bf16_feat_f32_maps"][
+                "steering_resize_bf16_feature"]),
+        "steering_warp_bf16_feature": (
+            k5_call(fb, hyper), k5_call(feat, hyper),
+            lambda: quantize_device(float_twin_warp(fb, hyper, warp_geom,
+                                                    False), 255,
+                                    nan_to_zero=True),
+            k5_w, "lerf_torch/csrc/steering_warp.cu",
+            "lerf_tpu/ops/resample.py:563",
+            counts["warp", "bf16_feat_f32_maps"][
+                "steering_warp_bf16_feature"]),
+        "steering_warp_rings_bf16_feature": (
+            rings_call(fb, hyper, np.float32),
+            rings_call(feat, hyper, np.float32),
+            lambda: k5.steering_warp_rings_plain(fb, hyper,
+                                                 host[np.float32, False]),
+            rings_work((LR_H, LR_W), WARP_OUT, 3, floats=True,
+                       feat_bytes=2) + (None,),
+            "lerf_torch/csrc/steering_warp.cu",
+            "lerf_tpu/ops/resample.py:786",
+            counts["warp_rings", "bf16_feat_f32_maps"][
+                "steering_warp_rings"]),
+        "steering_warp_rings_f32_feat_bf16_rings": (
+            rings_call(feat, hb, bf), rings_call(feat, hyper, np.float32),
+            lambda: k5.steering_warp_rings_plain(feat, hb, host[bf, False]),
+            rings_work((LR_H, LR_W), WARP_OUT, 3, floats=True,
+                       value_bytes=2, feat_bytes=4) + (None,),
+            "lerf_torch/csrc/steering_warp.cu",
+            "lerf_tpu/ops/resample.py:786",
+            counts["warp_rings", "f32_feat_bf16_maps"][
+                "steering_warp_rings"]),
+    }
+    rounds = {name: {"new": [], "float32": []} for name in rows}
+    for _ in range(MIXED_ROUNDS):
+        for name, (new, old, *_) in rows.items():
+            rounds[name]["new"].append(graph_ms(new))
+            rounds[name]["float32"].append(graph_ms(old))
+    out = []
+    for name, (new, old, twin, work, src, rep, launches) in rows.items():
+        ms = statistics.median(rounds[name]["new"])
+        f32_ms = statistics.median(rounds[name]["float32"])
+        plain_ms = event_ms(twin, iters=3, warmup=1)
+        if "rings" in name:
+            nbytes, nops, n16, _ = work
+            b_ms, b_by, parts = k5_bound(nbytes, nops, 0, n16)
+        elif "warp" in name:
+            nbytes, nops, f64, n16 = work
+            b_ms, b_by, parts = k5_bound(nbytes, nops, f64, n16)
+        else:
+            nbytes, nops, _, n16 = work
+            b_ms, b_by = bound(nbytes, nops, n16)
+            parts = None
+        row = {"kernel": name, "out_dtype": "uint8", "ms": ms,
+               "timed_by": "CUDA-graph replays", "graph_ms_rounds":
+               rounds[name], "float32_instance_ms": f32_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_parts_ms": parts, "bytes": nbytes,
+               "share_of_bound": b_ms / ms, "launches": launches}
+        emit_timed(row)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches,
+                    "max_abs_err": 0.0, "ms": ms,
+                    "timed_by": "CUDA-graph replays",
+                    "float32_instance_ms": f32_ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "share_of_bound": b_ms / ms, "library_ms": None})
+    emit({"phase": "mixed_pairs", "bit_equal_to_twin": checked,
+          "seconds": time.perf_counter() - t0})
+    return out
 
 
 def main() -> int:
@@ -6252,6 +6586,8 @@ def main() -> int:
     sharded_net_phase(dev, params, frame)
     sharded_imdn_phase(dev, frame)
     mesh_batch_phase(dev, bank, params, frame)
+    # -- 44b. the sharded float ops on every pair of float types --------
+    float_pair_counts = sharded_float_phase(dev, np.random.RandomState(16))
     kernels[0]["window"] = {"max_abs_err": k1_window_err,
                             "bit_equal_to_whole": True}
     kernels[-1]["window"] = {"max_abs_err": k5_window_err,
@@ -6377,6 +6713,9 @@ def main() -> int:
     # -- 51. the warp's geometry as data: K5's rings instance ---------------
     kernels += rings_phase(dev, {"lerf_g": bank, "lerf_l": bank_l}, frame,
                            rings_first, log)
+    # -- 51b. the pairs of one float32 and one bf16 input ---------------------
+    kernels += mixed_pair_phase(dev, np.random.RandomState(17),
+                                float_pair_counts)
 
     # -- 52. result ----------------------------------------------------------
     emit({"phase": "exact_division",

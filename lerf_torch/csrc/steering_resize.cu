@@ -43,7 +43,14 @@
 // float32), decodes the maps in bf16 as above and runs the rest in
 // float32, as lerf_tpu's promotion of the bf16 decoded maps against
 // float32 distances does: the float instance with the bf16 decode
-// (template parameter HypT).
+// (template parameter HypT).  A fifth, a bf16 feature with float32 maps,
+// is lerf_tpu's resize with img.dtype = bf16 and float32 maps: the maps
+// decoded in float32, the distances and min_scale in bf16 (float64 ->
+// float32 -> bf16, and the antialias's product m d rounded to bf16, as the
+// bf16 instance takes them), the rest float32 (the bf16 distances widen at
+// their first product with a float32 map); the feature is read as bf16 and
+// widened in registers.  Its window holds float entries, as the float32
+// instance's.
 //
 // The bf16 instance runs each of those bf16 steps as one native bf16
 // instruction on a pair of values (__hmul2_rn, __hadd2_rn, __hsub2_rn:
@@ -122,6 +129,13 @@ using bf162 = __nv_bfloat162;
 template <typename InT>
 constexpr bool kIsBf16 = std::is_same<InT, bf16>::value;
 
+// The type of the window's entries and of the steps: bf16 where the
+// feature and the maps both are, else float32 (a bf16 feature or bf16 maps
+// beside float32 ones widen exactly into float32 entries).
+template <typename InT, typename HypT>
+using StepT = typename std::conditional<kIsBf16<InT> && kIsBf16<HypT>, bf16,
+                                        float>::type;
+
 // v rounded to bf16, as a float: one bf16 operation is float, then this
 __device__ __forceinline__ float bfr(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -139,6 +153,14 @@ __device__ __forceinline__ bf16 dist_bf16(float d, int scale, float m) {
   return __float2bfloat16_rn(scale ? m * b : b);
 }
 
+// A float instance's distance: in bf16 (kBfDis: a bf16 feature beside
+// float32 maps, whose distances lerf_tpu casts to img.dtype), widened.
+template <bool kBfDis>
+__device__ __forceinline__ float dist_in(float d, int scale, float m) {
+  if constexpr (kBfDis) return __bfloat162float(dist_bf16(d, scale, m));
+  return dist(d, scale, m);
+}
+
 // The geometry's device arrays: rows / cols [O, S], the mode's distances,
 // and in the linear mode the branch bits (bit 0 negative, bit 1 positive).
 struct Geo {
@@ -152,8 +174,9 @@ struct Geo {
 
 // A thread's field of view, local to the block's source window.  KS > 0:
 // the support is known at compile time and the values sit in registers.
-// scale: the Gaussian mode's antialias, which scales the distances by m.
-template <int KS, bool kLinear>
+// scale: the Gaussian mode's antialias, which scales the distances by m;
+// kBfDis: the distances in bf16 (dist_in).
+template <int KS, bool kLinear, bool kBfDis = false>
 struct Fov {
   static constexpr int KM = kLinear ? KS : 1;   // masks: the linear mode's
   int lr[KS];
@@ -168,7 +191,7 @@ struct Fov {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       lr[s] = g.rows[i * KS + s] - r_lo;
-      dx[s] = dist(g.dis_x[i * KS + s], scale, m);
+      dx[s] = dist_in<kBfDis>(g.dis_x[i * KS + s], scale, m);
       if (kLinear) mx[s % KM] = g.mask_x[i * KS + s];
     }
 #pragma unroll
@@ -176,7 +199,7 @@ struct Fov {
 #pragma unroll
       for (int t = 0; t < KS; ++t) {
         lc[v][t] = g.cols[j[v] * KS + t] - c_lo;
-        dy[v][t] = dist(g.dis_y[j[v] * KS + t], scale, m);
+        dy[v][t] = dist_in<kBfDis>(g.dis_y[j[v] * KS + t], scale, m);
         if (kLinear) my[v][t % KM] = g.mask_y[j[v] * KS + t];
       }
     }
@@ -190,8 +213,8 @@ struct Fov {
 };
 
 // Any other support: read each value where it is used.
-template <bool kLinear>
-struct Fov<0, kLinear> {
+template <bool kLinear, bool kBfDis>
+struct Fov<0, kLinear, kBfDis> {
   Geo g;
   int i, j[kVec], r_lo, c_lo, S, scale;
   float m;
@@ -204,14 +227,14 @@ struct Fov<0, kLinear> {
   }
   __device__ int row(int s) const { return g.rows[i * S + s] - r_lo; }
   __device__ float dxs(int s) const {
-    return dist(g.dis_x[i * S + s], scale, m);
+    return dist_in<kBfDis>(g.dis_x[i * S + s], scale, m);
   }
   __device__ unsigned mxs(int s) const { return g.mask_x[i * S + s]; }
   __device__ int col(int v, int t) const {
     return g.cols[j[v] * S + t] - c_lo;
   }
   __device__ float dyt(int v, int t) const {
-    return dist(g.dis_y[j[v] * S + t], scale, m);
+    return dist_in<kBfDis>(g.dis_y[j[v] * S + t], scale, m);
   }
   __device__ unsigned myt(int v, int t) const {
     return g.mask_y[j[v] * S + t];
@@ -299,12 +322,15 @@ struct FovBf<0, kLinear> {
   }
 };
 
-template <int KS, bool kLinear, typename InT>
-using FovOf = typename std::conditional<kIsBf16<InT>, FovBf<KS, kLinear>,
-                                        Fov<KS, kLinear>>::type;
+// The field of view of an instance: the bf16 instance's pairs, else
+// float distances, in bf16 for a bf16 feature beside float32 maps.
+template <int KS, bool kLinear, typename InT, typename HypT>
+using FovOf = typename std::conditional<
+    kIsBf16<InT> && kIsBf16<HypT>, FovBf<KS, kLinear>,
+    Fov<KS, kLinear, kIsBf16<InT>>>::type;
 
 // The window entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha};
-// float32, or for bf16 inputs bf16.
+// float32, or for bf16 inputs bf16 (Entry<kLinear, StepT<InT, HypT>>).
 struct __align__(8) Bf4 {
   bf16 x, y, z, w;
 };
@@ -418,9 +444,9 @@ __device__ __forceinline__ float quotient(float wn, float ws) {
 // HypT: the maps' type, bf16 maps decoded in bf16.
 template <bool kLinear, typename InT, typename HypT>
 __device__ __forceinline__ void load_window(
-    Entry<kLinear, InT>* win, const InT* x, const HypT* hyp, int r_lo, int c_lo,
-    int k0, int nrows, int wc, int pitch, int H, int W, float norm,
-    float max_sigma) {
+    Entry<kLinear, StepT<InT, HypT>>* win, const InT* x, const HypT* hyp,
+    int r_lo, int c_lo, int k0, int nrows, int wc, int pitch, int H, int W,
+    float norm, float max_sigma) {
   const int nthreads = blockDim.x * blockDim.y;
   for (int e = threadIdx.y * blockDim.x + threadIdx.x; e < nrows * wc;
        e += nthreads) {
@@ -454,11 +480,11 @@ __device__ __forceinline__ void load_window(
             __float2bfloat16_rn(sx), __float2bfloat16_rn(sy)};
       }
     } else if constexpr (kLinear) {
-      const InT* code = hyp + (size_t)rc * W + cc;
+      const HypT* code = hyp + (size_t)rc * W + cc;
       win[r * pitch + q] =
           make_float2(n, unit(__ldg(code), norm) * 2.0f - 1.0f);
     } else {
-      const InT* code = hyp + ((size_t)rc * W + cc) * 3;
+      const HypT* code = hyp + ((size_t)rc * W + cc) * 3;
       const float rho = unit(__ldg(code), norm) * 2.0f - 1.0f;
       const float sx = unit(__ldg(code + 1), norm) * max_sigma;
       const float sy = unit(__ldg(code + 2), norm) * max_sigma;
@@ -522,12 +548,13 @@ __device__ __forceinline__ void accumulate_bf16(
 // The weighted sums over the neighbours whose source row lies in window
 // rows [k0, k0 + nrows), s-major, t-minor.  kStrip false: all of them (the
 // whole window is in shared memory).
-template <bool kStrip, int KS, bool kLinear, typename InT>
+template <bool kStrip, int KS, bool kLinear, typename InT, typename HypT>
 __device__ __forceinline__ void accumulate(
-    const Entry<kLinear, InT>* win, const FovOf<KS, kLinear, InT>& fov,
-    int S_rt, int pitch, int k0, int nrows, int antialias, float m,
-    float* wn, float* ws) {
-  if constexpr (kIsBf16<InT>) {
+    const Entry<kLinear, StepT<InT, HypT>>* win,
+    const FovOf<KS, kLinear, InT, HypT>& fov, int S_rt, int pitch, int k0,
+    int nrows, int antialias, float m, float* wn, float* ws) {
+  using E = Entry<kLinear, StepT<InT, HypT>>;
+  if constexpr (kIsBf16<StepT<InT, HypT>>) {
     accumulate_bf16<kStrip, KS, kLinear>(win, fov, S_rt, pitch, k0, nrows,
                                          antialias, m, wn, ws);
   } else {
@@ -536,13 +563,13 @@ __device__ __forceinline__ void accumulate(
     for (int s = 0; s < S; ++s) {
       const int r = fov.row(s) - k0;
       if (kStrip && (r < 0 || r >= nrows)) continue;
-      const Entry<kLinear, InT>* wrow = win + r * pitch;
+      const E* wrow = win + r * pitch;
       const float dx = fov.dxs(s);
 #pragma unroll
       for (int t = 0; t < S; ++t) {
 #pragma unroll
         for (int v = 0; v < kVec; ++v) {
-          const Entry<kLinear, InT> p = wrow[fov.col(v, t)];
+          const E p = wrow[fov.col(v, t)];
           const float dy = fov.dyt(v, t);
           float w;
           if constexpr (kLinear) {              // {n, alpha}
@@ -570,7 +597,7 @@ __device__ __forceinline__ void accumulate(
 // in the linear mode).  scale: the Gaussian antialias's m * distance.
 // InT: int (feature 0..norm, codes), float (feature, hyper maps in
 // [0, 1]) or bf16 (the same in bf16); HypT the maps' type, bf16 beside a
-// float feature.
+// float feature or float beside a bf16 one.
 template <int KS, typename OutT, bool kLinear, typename InT,
           typename HypT = InT>
 __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
@@ -581,7 +608,8 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
     int tile_w, int strip, int pitch, int vec_ok, int antialias, int scale,
     float m, float max_sigma, float norm) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Entry<kLinear, InT>* win = reinterpret_cast<Entry<kLinear, InT>*>(smem);
+  using E = Entry<kLinear, StepT<InT, HypT>>;
+  E* win = reinterpret_cast<E*>(smem);
   if constexpr (kIsBf16<InT>) m = bfr(m);   // lerf_tpu's bf16 min_scale
   const int S = KS > 0 ? KS : S_rt;
   const int hyper_c = kLinear ? 1 : 3;
@@ -614,7 +642,7 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   int j[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) j[v] = min(jb + v, j_end);
-  FovOf<KS, kLinear, InT> fov;
+  FovOf<KS, kLinear, InT, HypT> fov;
   fov.load(geo, min(i, i_end), j, r_lo, c_lo, S, scale, m);
 
   // 3. the weighted sums, s-major, t-minor (the strips run in row order,
@@ -623,13 +651,13 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
 #pragma unroll
   for (int v = 0; v < kVec; ++v) wn[v] = ws[v] = 0.0f;
   if (whole) {
-    accumulate<false, KS, kLinear, InT>(win, fov, S, pitch, 0, wr,
-                                        antialias, m, wn, ws);
+    accumulate<false, KS, kLinear, InT, HypT>(win, fov, S, pitch, 0, wr,
+                                              antialias, m, wn, ws);
   } else {
     for (int k0 = 0;;) {
-      accumulate<true, KS, kLinear, InT>(win, fov, S, pitch, k0,
-                                         min(strip, wr - k0), antialias, m,
-                                         wn, ws);
+      accumulate<true, KS, kLinear, InT, HypT>(win, fov, S, pitch, k0,
+                                               min(strip, wr - k0), antialias,
+                                               m, wn, ws);
       k0 += strip;
       if (k0 >= wr) break;
       __syncthreads();
@@ -645,7 +673,8 @@ __global__ void __launch_bounds__(kMaxThreads) steering_resize_kernel(
   OutT o[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v)
-    o[v] = finish(quotient<kLinear, InT>(wn[v], ws[v]), norm, out);
+    o[v] = finish(quotient<kLinear, StepT<InT, HypT>>(wn[v], ws[v]), norm,
+                  out);
   OutT* dst = out + ((size_t)c * OH + i) * OW + jb;
   if (vec_ok && jb + kVec - 1 <= j_end) {
     store_vec(dst, o);
@@ -715,6 +744,8 @@ cudaError_t dispatch_mode(const Launch& a, int out_u8, int in_type,
       return dispatch_out<kLinear, bf16>(a, out_u8, stream);
     case 3:
       return dispatch_out<kLinear, float, bf16>(a, out_u8, stream);
+    case 5:
+      return dispatch_out<kLinear, bf16, float>(a, out_u8, stream);
     default:
       return dispatch_out<kLinear, int>(a, out_u8, stream);
   }
@@ -733,9 +764,10 @@ cudaError_t dispatch_mode(const Launch& a, int out_u8, int in_type,
 // uint8 clip(rint(.), 0, norm) (norm <= 255), 0 float32 (for bf16 inputs
 // the bf16 quotient, widened).  in_type: 0 img int32 feature and codes
 // int32 codes (code / norm), 1 img float32 feature and codes float32 hyper
-// maps in [0, 1], 2 the same in bf16, 3 img float32 and codes bf16 maps;
-// the last argument, after the stream, so that a caller written for the
-// entry without it still calls the int32 kernels.
+// maps in [0, 1], 2 the same in bf16, 3 img float32 and codes bf16 maps,
+// 5 img bf16 and codes float32 maps (4 is the rings warp's alone); the
+// last argument, after the stream, so that a caller written for the entry
+// without it still calls the int32 kernels.
 extern "C" int lerf_steering_resize(
     const void* img, const void* codes, void* out, const void* rows,
     const void* cols, const void* dis_x, const void* dis_y,
@@ -749,7 +781,7 @@ extern "C" int lerf_steering_resize(
       ((tile_w + kVec - 1) / kVec) * tile_h > kMaxThreads ||
       (out_u8 && !(norm <= 255.0f)) ||
       (linear && (mask_x == nullptr || mask_y == nullptr)) || in_type < 0 ||
-      in_type > 3)
+      in_type > 5 || in_type == 4)
     return (int)cudaErrorInvalidValue;
   const long long entry = in_type == 2
                               ? (linear ? sizeof(Bf2) : sizeof(Bf4))

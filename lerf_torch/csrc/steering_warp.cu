@@ -95,7 +95,12 @@
 //   bf16 maps (the bf16 form without its feature tower, two_stage=False)
 //   decodes the maps in bf16 and runs the rest in float32, as lerf_tpu's
 //   promotion against its float32 distances does (template parameter
-//   HypT).
+//   HypT).  A bf16 feature with float32 maps is lerf_tpu's warp with
+//   img.dtype = bf16 beside float32 maps: the distances cast float64 ->
+//   float32 -> bf16 (its _warp_dis_flat(geom, img.dtype)), the maps decoded
+//   in float32, the weights, the flush, the sums and the quotient float32;
+//   the feature read as bf16 and widened in registers, into float entries
+//   (Window's kBfDis, template parameters InT = bf16, HypT = float).
 //   Each bf16 step runs as one native bf16 instruction on a pair of values
 //   (__hmul2_rn, __hadd2_rn, __hsub2_rn), which gives the twin's float
 //   operation rounded to bf16 bit for bit: every operand is a bf16 value
@@ -200,6 +205,13 @@ using bf162 = __nv_bfloat162;
 template <typename InT>
 constexpr bool kIsBf16 = std::is_same<InT, bf16>::value;
 
+// The type of the tile's entries and of the steps: bf16 where the feature
+// and the maps both are, else float32 (a bf16 feature or bf16 maps beside
+// float32 ones widen exactly into float32 entries).
+template <typename InT, typename HypT>
+using CompT = typename std::conditional<kIsBf16<InT> && kIsBf16<HypT>, bf16,
+                                        float>::type;
+
 // v rounded to bf16, as a float: one bf16 operation is float, then this
 __device__ __forceinline__ float bfr(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -268,11 +280,20 @@ __device__ __forceinline__ unsigned branch(double d) {
   return (-1.0 <= d && d < 0.0) ? 1u : ((0.0 <= d && d <= 1.0) ? 2u : 0u);
 }
 
+// A distance cast once from its float64 value: to float32, and with
+// kBfDis (a bf16 feature beside float32 maps) on to bf16, widened back.
+template <bool kBfDis>
+__device__ __forceinline__ float cast_dis(double d) {
+  if constexpr (kBfDis) return bfr(__double2float_rn(d));
+  return __double2float_rn(d);
+}
+
 // One output's window.  KS > 0: the support known at compile time, its
 // S rows, columns and float32 distances in registers, and where kBits (the
 // linear mode) the 2S branches two bits each in one word (rows from bit 0,
-// columns from bit 2 KS): the Gaussian mode evaluates no branch.
-template <int KS, bool kBits>
+// columns from bit 2 KS): the Gaussian mode evaluates no branch.  kBfDis:
+// the distances in bf16 (cast_dis); the branches are the float64 ones.
+template <int KS, bool kBits, bool kBfDis = false>
 struct Window {
   int r[KS], q[KS];
   float dx[KS], dy[KS];
@@ -294,7 +315,7 @@ struct Window {
     for (int s = 0; s < KS; ++s) {
       f[s] = min(max(left + s, 0), n - 1);
       const double d64 = __dsub_rn(gp, (double)f[s]);
-      d[s] = __double2float_rn(d64);
+      d[s] = cast_dis<kBfDis>(d64);
       if constexpr (kBits) bits |= branch(d64) << (shift + 2 * s);
     }
   }
@@ -310,8 +331,8 @@ struct Window {
 };
 
 // Any other support: the two axes, each value derived where it is used.
-template <bool kBits>
-struct Window<0, kBits> {
+template <bool kBits, bool kBfDis>
+struct Window<0, kBits, kBfDis> {
   Axis ar, ac;
   int S;
 
@@ -323,8 +344,8 @@ struct Window<0, kBits> {
   __device__ int support() const { return S; }
   __device__ int row(int s) const { return ar.at(s); }
   __device__ int col(int t) const { return ac.at(t); }
-  __device__ float dxs(int s) const { return __double2float_rn(ar.d(s)); }
-  __device__ float dyt(int t) const { return __double2float_rn(ac.d(t)); }
+  __device__ float dxs(int s) const { return cast_dis<kBfDis>(ar.d(s)); }
+  __device__ float dyt(int t) const { return cast_dis<kBfDis>(ac.d(t)); }
   __device__ unsigned bxs(int s) const { return branch(ar.d(s)); }
   __device__ unsigned byt(int t) const { return branch(ac.d(t)); }
 };
@@ -344,12 +365,11 @@ __device__ __forceinline__ Source source_at(const Warp& w, const Column& col,
 }
 
 // The window at output (i, j): the row from src_y, the column from src_x.
-template <int KS, bool kBits>
-__device__ __forceinline__ Window<KS, kBits> window_at(const Warp& w,
-                                                       const Column& col,
-                                                       int i) {
+template <int KS, bool kBits, bool kBfDis = false>
+__device__ __forceinline__ Window<KS, kBits, kBfDis> window_at(
+    const Warp& w, const Column& col, int i) {
   const Source src = source_at(w, col, i);
-  Window<KS, kBits> p;
+  Window<KS, kBits, kBfDis> p;
   p.set(src.y, src.x, w);
   return p;
 }
@@ -375,7 +395,7 @@ __device__ __forceinline__ unsigned char valid_at(const Source& src,
 }
 
 // The tile entry: {feature, 2 rho, sx, sy} or, linear, {feature, alpha};
-// float32, or for bf16 inputs bf16.
+// float32, or for bf16 inputs bf16 (Entry<kLinear, CompT<InT, HypT>>).
 struct __align__(8) Bf4 {
   bf16 x, y, z, w;
 };
@@ -400,7 +420,7 @@ __device__ __forceinline__ float unit(bf16 h, float) {
 // Source pixel (sr, sc) of channel c (negative: a pad row / column)
 // decoded; HypT: the maps' type, bf16 maps decoded in bf16.
 template <bool kLinear, typename InT, typename HypT>
-__device__ __forceinline__ Entry<kLinear, InT> decode(
+__device__ __forceinline__ Entry<kLinear, CompT<InT, HypT>> decode(
     const InT* img, const HypT* codes, int c, int sr, int sc, int H, int W,
     float norm, float max_sigma) {
   const size_t e = ((size_t)c * H + max(sr, 0)) * W + max(sc, 0);
@@ -433,7 +453,7 @@ __device__ __forceinline__ Entry<kLinear, InT> decode(
     const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e) : 0.0f;
     return make_float2(v, a);
   } else {
-    const InT* code = codes + e * 3;
+    const HypT* code = codes + e * 3;
     const float rho = unit(__ldg(code), norm) * 2.0f - 1.0f;
     const float sx = unit(__ldg(code + 1), norm) * max_sigma;
     const float sy = unit(__ldg(code + 2), norm) * max_sigma;
@@ -446,14 +466,14 @@ __device__ __forceinline__ Entry<kLinear, InT> decode(
 // column past the far edge, sr / sc = H / W: feature 0 and the codes of the
 // last row / column, as the +-1-padded planes hold them.
 template <bool kLinear, typename InT, bool kEdges, typename HypT>
-__device__ __forceinline__ Entry<kLinear, InT> fetch(
+__device__ __forceinline__ Entry<kLinear, CompT<InT, HypT>> fetch(
     const InT* img, const HypT* codes, int c, int sr, int sc, int H, int W,
     float norm, float max_sigma) {
   if constexpr (kEdges) {
-    Entry<kLinear, InT> v = decode<kLinear, InT>(
+    Entry<kLinear, CompT<InT, HypT>> v = decode<kLinear, InT>(
         img, codes, c, min(sr, H - 1), min(sc, W - 1), H, W, norm, max_sigma);
     if (sr >= H || sc >= W) {
-      if constexpr (kIsBf16<InT>)
+      if constexpr (kIsBf16<CompT<InT, HypT>>)
         v.x = __float2bfloat16_rn(0.0f);
       else
         v.x = 0.0f;
@@ -680,7 +700,8 @@ __device__ __forceinline__ void sums_bf16(
 // One block's outputs of one frame, and the frame's validity mask [OH, OW]
 // where mask is not null.  InT: int (feature 0..norm, codes), float
 // (feature, hyper maps in [0, 1]) or bf16 (the same in bf16); HypT the
-// maps' type, bf16 beside a float feature.  The rings instance
+// maps' type, bf16 beside a float feature or float beside a bf16 one (its
+// distances in bf16: Window's kBfDis).  The rings instance
 // (steering_warp_rings_kernel) shares the functions of steps 3 and 4
 // (decode through fetch, weight, weight_pair, weight_bf16, quotient,
 // finish, sums_bf16_at) and the tile's layout, not the steps themselves:
@@ -693,14 +714,16 @@ __device__ __forceinline__ void warp_block(
     OutT* __restrict__ out,          // [C, OH, OW] float32 or uint8
     const Warp& w, int C, float max_sigma, float norm,
     unsigned char* __restrict__ mask, int border) {
-  __shared__ Entry<kLinear, InT> tile[kTileEntries];   // [C][rows][cols]
+  using E = Entry<kLinear, CompT<InT, HypT>>;
+  constexpr bool kBfDis = kIsBf16<InT> && !kIsBf16<HypT>;
+  __shared__ E tile[kTileEntries];        // [C][rows][cols]
   __shared__ int box[4];                  // row min, max, column min, max
   const int tid = threadIdx.y * kTileW + threadIdx.x;
   const int j = blockIdx.x * kTileW + threadIdx.x;
 
   // 1. this thread's windows, from the matrix in float64
   const Column col = column_terms(w, min(j, w.OW - 1));
-  Window<KS, kLinear> px[kRowsPerThread];
+  Window<KS, kLinear, kBfDis> px[kRowsPerThread];
   bool ok[kRowsPerThread];
   int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
 #pragma unroll
@@ -756,14 +779,14 @@ __device__ __forceinline__ void warp_block(
   }
 
   // 4. the weighted sums, s-major, t-minor, and the epilogue
-  if constexpr (kIsBf16<InT>) {
+  if constexpr (kIsBf16<CompT<InT, HypT>>) {
     sums_bf16<KS, OutT, kLinear>(px, ok, tile, shared, r_lo, c_lo, nr, nc,
                                  img, codes, out, w, C, max_sigma, norm);
   } else {
 #pragma unroll
     for (int k = 0; k < kRowsPerThread; ++k) {
       if (!ok[k]) continue;
-      const Window<KS, kLinear>& p = px[k];
+      const Window<KS, kLinear, kBfDis>& p = px[k];
       const int S = p.support();
       const int i = blockIdx.y * kTileH + threadIdx.y + k * kThreadRows;
       for (int c = 0; c < C; ++c) {
@@ -775,7 +798,7 @@ __device__ __forceinline__ void warp_block(
         for (int s = 0; s < S; ++s) {
 #pragma unroll
           for (int t = 0; t < S; ++t) {
-            const Entry<kLinear, InT> v =
+            const E v =
                 shared
                     ? tile[(c * nr + p.row(s) - r_lo) * nc + p.col(t) - c_lo]
                     : decode<kLinear, InT>(img, codes, c, p.row(s) - w.pad_r,
@@ -788,7 +811,8 @@ __device__ __forceinline__ void warp_block(
           }
         }
         out[((size_t)c * w.OH + i) * w.OW + j] =
-            finish(quotient<kLinear, InT>(wn, ws, S), norm, out);
+            finish(quotient<kLinear, CompT<InT, HypT>>(wn, ws, S), norm,
+                   out);
       }
     }
   }
@@ -861,16 +885,20 @@ Divider divider(int d) {
 // edge; with kWide (a bf16 feature and bf16 maps under float32 rings) the
 // bf16 entry widened to float32, exactly, since its feature and decoded
 // values are bf16 numbers: the entry the float32-feature, bf16-map decode
-// gives (lerf_tpu promotes bf16 maps against float32 distances).
-template <bool kLinear, typename InT, bool kWide>
-using RingEntry =
-    Entry<kLinear, typename std::conditional<kWide, float, InT>::type>;
+// gives (lerf_tpu promotes bf16 maps against float32 distances).  The
+// rings' distances are their own, in every instance: no cast to the
+// feature's type (lerf_tpu's rings carry theirs).
+template <bool kLinear, typename InT, typename HypT, bool kWide>
+using RingT = typename std::conditional<kWide, float, CompT<InT, HypT>>::type;
+
+template <bool kLinear, typename InT, typename HypT, bool kWide>
+using RingEntry = Entry<kLinear, RingT<kLinear, InT, HypT, kWide>>;
 
 template <bool kLinear, typename InT, bool kWide, typename HypT>
-__device__ __forceinline__ RingEntry<kLinear, InT, kWide> ring_entry(
+__device__ __forceinline__ RingEntry<kLinear, InT, HypT, kWide> ring_entry(
     const InT* img, const HypT* codes, int c, int sr, int sc, int H, int W,
     float norm, float max_sigma) {
-  const Entry<kLinear, InT> v = fetch<kLinear, InT, true>(
+  const Entry<kLinear, CompT<InT, HypT>> v = fetch<kLinear, InT, true>(
       img, codes, c, sr, sc, H, W, norm, max_sigma);
   if constexpr (!kWide) {
     return v;
@@ -1142,7 +1170,7 @@ __device__ __forceinline__ Box box_of(const int* fp, int C) {
 template <bool kLinear, typename InT, bool kWide, typename HypT>
 __device__ __forceinline__ void decode_tile(
     const InT* img, const HypT* codes, const Box& b, const Warp& w, int C,
-    RingEntry<kLinear, InT, kWide>* tile, float norm, float max_sigma,
+    RingEntry<kLinear, InT, HypT, kWide>* tile, float norm, float max_sigma,
     int tid) {
   const int plane = b.nr * b.nc;
   const float rcp_plane = 1.0f / (float)plane, rcp_nc = 1.0f / (float)b.nc;
@@ -1168,12 +1196,11 @@ template <typename OutT, bool kLinear, typename InT, typename HypT,
           bool kWide>
 __device__ __forceinline__ void sums_f32(
     const Window<2, kLinear>* px, const bool* ok,
-    const RingEntry<kLinear, InT, kWide>* tile, const Box& b,
+    const RingEntry<kLinear, InT, HypT, kWide>* tile, const Box& b,
     const InT* __restrict__ img, const HypT* __restrict__ codes,
     OutT* __restrict__ out, const Warp& w, int C, float max_sigma,
     float norm, int i0, int j) {
-  using CompT = typename std::conditional<kWide, float, InT>::type;
-  using E = RingEntry<kLinear, InT, kWide>;
+  using E = RingEntry<kLinear, InT, HypT, kWide>;
   static_assert(kRowsPerThread == 2, "a thread's two rows");
   // past the bottom edge the second row repeats the first, not written
   // (selected, not indexed at run time: the windows stay in registers)
@@ -1194,7 +1221,9 @@ __device__ __forceinline__ void sums_f32(
     }
     if (ok[k])
       out[((size_t)c * w.OH + i0 + k * kThreadRows) * w.OW + j] =
-          finish(quotient<kLinear, CompT>(wn, ws, 2), norm, out);
+          finish(quotient<kLinear, RingT<kLinear, InT, HypT, kWide>>(
+                     wn, ws, 2),
+                 norm, out);
   };
   if (b.shared) {
     if (!ok[0]) return;
@@ -1238,8 +1267,10 @@ __device__ __forceinline__ void sums_f32(
 }
 
 // K5's rings instance (the design above).  kWide: bf16 inputs under float32
-// rings, the float32 steps on widened entries.  out [C, OH, OW]; map_ints:
-// H + W + 8 where the ring maps are held in shared memory, else 0.
+// rings, the float32 steps on widened entries; a bf16 feature beside
+// float32 maps takes float entries under either rings type.  out [C, OH,
+// OW]; map_ints: H + W + 8 where the ring maps are held in shared memory,
+// else 0.
 template <typename OutT, bool kLinear, typename InT, typename HypT = InT,
           bool kWide = false>
 __global__ void __launch_bounds__(kRingsThreads, kRingsBlocks)
@@ -1248,7 +1279,7 @@ __global__ void __launch_bounds__(kRingsThreads, kRingsBlocks)
                                OutT* __restrict__ out,
                                const __grid_constant__ Rings g, int C,
                                float max_sigma, float norm, int map_ints) {
-  using E = RingEntry<kLinear, InT, kWide>;
+  using E = RingEntry<kLinear, InT, HypT, kWide>;
   extern __shared__ __align__(16) char smem[];
   int(*fp)[4] = reinterpret_cast<int(*)[4]>(smem);   // 3 footprints
   char* stages = smem + kHeadBytes;
@@ -1316,8 +1347,7 @@ __global__ void __launch_bounds__(kRingsThreads, kRingsBlocks)
       decode_tile<kLinear, InT, kWide, HypT>(img, codes, b, w, C, tile, norm,
                                              max_sigma, tid);
     __syncthreads();                // the tile is whole
-    if constexpr (kIsBf16<typename std::conditional<kWide, float,
-                                                    InT>::type>) {
+    if constexpr (kIsBf16<RingT<kLinear, InT, HypT, kWide>>) {
       sums_bf16_at<2, OutT, kLinear, true>(
           px, o.ok, tile, b.shared, b.r_lo, b.c_lo, b.nr, b.nc, img, codes,
           out, w, C, max_sigma, norm, (unsigned)o.i0, o.j);
@@ -1455,6 +1485,9 @@ void launch_in(const void* img, const void* codes, void* out,
   else if (in_type == 3)
     launch_out<kLinear, float, bf16>(img, codes, out, fr, frames, C,
                                      max_sigma, norm, out_u8, s);
+  else if (in_type == 5)
+    launch_out<kLinear, bf16, float>(img, codes, out, fr, frames, C,
+                                     max_sigma, norm, out_u8, s);
   else
     launch_out<kLinear, int>(img, codes, out, fr, frames, C, max_sigma, norm,
                              out_u8, s);
@@ -1472,7 +1505,7 @@ int launch_rings(const void* img, const void* codes, void* out,
   static std::atomic<int> sms_of[kMaxDevices];   // 0: not yet asked
   const auto kernel = steering_warp_rings_kernel<OutT, kLinear, InT, HypT,
                                                  kWide>;
-  const int entry = (int)sizeof(RingEntry<kLinear, InT, kWide>);
+  const int entry = (int)sizeof(RingEntry<kLinear, InT, HypT, kWide>);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -1528,6 +1561,9 @@ int rings_in(const void* img, const void* codes, void* out, const Rings& g,
   if (in_type == 4)
     return rings_out<kLinear, bf16, bf16, true>(img, codes, out, g, C,
                                                 max_sigma, norm, out_u8, s);
+  if (in_type == 5)
+    return rings_out<kLinear, bf16, float>(img, codes, out, g, C, max_sigma,
+                                           norm, out_u8, s);
   return rings_out<kLinear, int>(img, codes, out, g, C, max_sigma, norm,
                                  out_u8, s);
 }
@@ -1547,8 +1583,9 @@ int rings_in(const void* img, const void* codes, void* out, const Rings& g,
 // the validity mask of the white frame's border, written in the same
 // launch, or null for none.  in_type: 0 img int32 feature and codes int32
 // codes (code / norm), 1 img float32 feature and codes float32 hyper maps
-// in [0, 1], 2 the same in bf16, 3 img float32 and codes bf16 maps; after
-// the stream, so that a caller written for the entry without it still calls
+// in [0, 1], 2 the same in bf16, 3 img float32 and codes bf16 maps, 5 img
+// bf16 and codes float32 maps (4 is the rings instance's alone); after the
+// stream, so that a caller written for the entry without it still calls
 // the int32 kernels.  row0, rows: the window of output rows [row0, row0 + rows) of
 // the OH x OW output this launch computes (0, OH: all of it); out and mask
 // hold the window alone ([frames, C, rows, OW], [frames, rows, OW]), each
@@ -1561,7 +1598,7 @@ extern "C" int lerf_steering_warp_batch(
     int out_u8, int border, void* stream, int in_type, int row0,
     int rows) {
   if (frames < 1 || frames > kMaxFrames || border < 0 || in_type < 0 ||
-      in_type > 3)
+      in_type > 5 || in_type == 4)
     return (int)cudaErrorInvalidValue;
   if ((long long)C * rows * OW == 0) return 0;
   if (out_u8 && !(norm <= 255.0f)) return (int)cudaErrorInvalidValue;
@@ -1618,7 +1655,9 @@ extern "C" int lerf_warp_geometry(void* corners, void* dis, void* masks,
 // (linear 1) and null in the Gaussian one.  img, codes, out, the mode, the
 // types and the epilogue as lerf_steering_warp_batch takes them, and
 // in_type 4: a bf16 feature and bf16 maps under float32 rings (decoded in
-// bf16, weighted, summed and divided in float32); support 2.
+// bf16, weighted, summed and divided in float32); in_type 5 (a bf16
+// feature, float32 maps) and 3 under rings of either type, their distances
+// float32 (bf16 ones widened exactly); support 2.
 extern "C" int lerf_steering_warp_rings(
     const void* img, const void* codes, void* out, const void* ring_x,
     int ring_x_len, const void* ring_y, int ring_y_len, const void* corner,
@@ -1627,7 +1666,7 @@ extern "C" int lerf_steering_warp_rings(
     int out_u8, void* stream, int in_type) {
   if (H < 1 || W < 1 || C < 0 || OH < 0 || OW < 0 ||
       ring_x_len != H + 4 || ring_y_len != W + 4 || in_type < 0 ||
-      in_type > 4 || (linear != 0) != (bits != nullptr) ||
+      in_type > 5 || (linear != 0) != (bits != nullptr) ||
       (long long)(H + 3) * (W + 3) > INT_MAX ||
       (OH + kTileH - 1) / kTileH > 65535)
     return (int)cudaErrorInvalidValue;
@@ -1655,6 +1694,11 @@ extern "C" int lerf_steering_warp_rings(
   return rings_in<false>(img, codes, out, g, C, max_sigma, norm, out_u8,
                          in_type, s);
 }
+
+// The rings instance's persistent blocks an SM (kRingsBlocks): the grid of
+// a launch is min(tiles, SMs x this), which kernels/warp.py::rings_grid
+// reads here rather than restating it.
+extern "C" int lerf_rings_blocks_per_sm() { return kRingsBlocks; }
 
 // The rings of one homography (warp_rings_geometry_kernel) from its float64
 // inverse (host memory) and the support-2 geometry's leading pads: corner

@@ -140,6 +140,8 @@ def _declare(lib):
         i32, i32, i32, i32, i32, i32,        # H, W, OH, OW, pad_r, pad_c
         vp]                                  # stream
     lib.lerf_warp_rings_geometry.restype = i32
+    lib.lerf_rings_blocks_per_sm.argtypes = []
+    lib.lerf_rings_blocks_per_sm.restype = i32
     lib.lerf_lut_stage.argtypes = [
         vp, vp, vp, vp,                      # img, tables, out, members (host)
         i32, i32, i32, i32, i32, i32,        # M, C, H, W, oC, L4

@@ -9,24 +9,27 @@ falls back from the card to the plain version.  ``steering_resize_serving``
 is the same kernel on the dynamic-scale serving geometry
 (:class:`lerf_torch.ops.geometry.ResizeOperands`), whose plain form is the
 rings resize.  ``launches`` counts kernel launches of any instance,
-``bf16_launches`` those of the instances that take bf16 maps.
+``bf16_launches`` those of the instances that take bf16 maps,
+``bf16_feature_launches`` those of the instance that takes a bf16 feature
+beside float32 maps.
 
 The mode follows the hyper codes: the steerable Gaussian (LeRF-G) takes
 three codes a pixel (ρ, σx, σy), the amplified-linear kernel (LeRF-L,
-``linear=True``) one (α).  The stage outputs come in one of four pairs of
+``linear=True``) one (α).  The stage outputs come in one of five pairs of
 types (:data:`IN_TYPES`): int32 feature and int32 codes (the LUT and SRNet
 forms, decoded as ``code / norm``), float32 or bf16 feature and hyper maps
-in [0, 1] (the IMDN form, in its towers' compute type), or a float32
-feature with bf16 maps (the bf16 IMDN form without its feature tower).
-The float types' twins are lerf_tpu's float ops,
-:func:`~lerf_torch.ops.resample.steering_gaussian_resize` /
+in [0, 1] (the IMDN form, in its towers' compute type), a float32 feature
+with bf16 maps (the bf16 IMDN form without its feature tower), or a bf16
+feature with float32 maps.  The float types' twins are lerf_tpu's float
+ops, :func:`~lerf_torch.ops.resample.steering_gaussian_resize` /
 :func:`~lerf_torch.ops.resample.amplified_linear_resize` and their rings
 forms, run on the inputs as they are (bf16: each operation rounded to
 bf16, as lerf_tpu runs its resize in ``img.dtype``; bf16 maps beside a
-float32 feature: decoded in bf16, the rest promoted to float32).  A
-float32 output of bf16 inputs is the twin's result widened (the
-Gaussian's bf16 quotient; the linear mode's weights are float32
-already).
+float32 feature: decoded in bf16, the rest promoted to float32; a bf16
+feature beside float32 maps: the distances and ``min_scale`` in bf16, the
+feature widened, the rest float32).  A float32 output of bf16 inputs is
+the twin's result widened (the Gaussian's bf16 quotient; the linear
+mode's weights are float32 already).
 
 ``steering_resize_train`` is the training step's resize, differentiable in
 the feature and the hyper maps: on a card a ``torch.autograd.Function``
@@ -53,6 +56,7 @@ from . import _build
 
 launches = 0
 bf16_launches = 0
+bf16_feature_launches = 0
 
 # Output tiles (rows, columns) a block may take, a thread taking 4 adjacent
 # columns of one row.  The host picks one per geometry so the tile's source
@@ -216,13 +220,16 @@ class ResizeOperands(NamedTuple):
 
 
 # The (feature, hyper) types K1 and K5 take, by the code their C entries
-# take (in_type)
+# take (in_type; 4 is the rings instance's own, bf16 maps under float32
+# rings: kernels/warp.py::rings_in_type)
 IN_TYPES = {(torch.int32, torch.int32): 0,
             (torch.float32, torch.float32): 1,
             (torch.bfloat16, torch.bfloat16): 2,
-            (torch.float32, torch.bfloat16): 3}
+            (torch.float32, torch.bfloat16): 3,
+            (torch.bfloat16, torch.float32): 5}
 TYPES_TAKEN = ("int32 (codes 0..norm), float32 or bf16 (hyper maps in "
-               "[0, 1]), or a float32 feature with bf16 maps")
+               "[0, 1]), or one float32 and the other bf16")
+BF16_FEATURE = IN_TYPES[torch.bfloat16, torch.float32]
 
 
 def _check(feat, codes, norm, linear, out_dtype, what):
@@ -284,7 +291,7 @@ def steering_resize(feat: torch.Tensor, codes: torch.Tensor,
                     out_dtype: torch.dtype = torch.float32):
     """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
     W, 1] (``linear``), both int32 (codes 0..norm), both float32 or both
-    bf16 (hyper maps in [0, 1]), or a float32 feature with bf16 maps
+    bf16 (hyper maps in [0, 1]), or one float32 and the other bf16
     (:data:`IN_TYPES`) → [C, OH, OW]: float32, or with
     ``out_dtype=torch.uint8`` (``norm`` ≤ 255) the frame rounded half to
     even, clipped to 0..norm and cast, as
@@ -336,7 +343,7 @@ def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
 
 def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
             linear, out_dtype):
-    global launches, bf16_launches
+    global launches, bf16_launches, bf16_feature_launches
     C, H, W = feat.shape
     if operands.in_sz != (H, W):
         raise ValueError(f"geometry is for {operands.in_sz}, image is "
@@ -367,6 +374,8 @@ def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
     _build.check(err, "steering_resize launch")
     launches += 1
     bf16_launches += int(codes.dtype == torch.bfloat16)
+    bf16_feature_launches += int(
+        IN_TYPES[feat.dtype, codes.dtype] == BF16_FEATURE)
     return out
 
 

@@ -7,9 +7,11 @@ then :func:`~lerf_torch.ops.resample.quantize_device` with ``nan_to_zero``
 for uint8) for CPU tensors and launches ``csrc/steering_warp.cu`` for CUDA
 tensors; it never falls back from the card to the plain version.
 ``launches`` counts kernel launches of any instance, ``bf16_launches``
-those of the instances that take bf16 maps, ``rings_launches`` those of
-the rings instance; ``rings_geometry_launches`` counts the rings
-geometry kernel's (:func:`launch_rings_geometry`).
+those of the instances that take bf16 maps, ``bf16_feature_launches``
+those of the instances that take a bf16 feature beside float32 maps,
+``rings_launches`` those of the rings instance;
+``rings_geometry_launches`` counts the rings geometry kernel's
+(:func:`launch_rings_geometry`).
 
 On the card K5 takes the homography itself, as :class:`WarpParams` (the
 float64 inverse matrix, the two leading pads, the support and the sizes),
@@ -33,13 +35,14 @@ The stage outputs come in the pairs of types K1 takes
 (:data:`~lerf_torch.ops.kernels.resize.IN_TYPES`): int32 feature and
 int32 codes (the LUT and SRNet forms, decoded as ``code / norm`` after the
 gather), float32 or bf16 feature and hyper maps in [0, 1] (the IMDN
-form, in its towers' compute type), or a float32 feature with bf16 maps;
+form, in its towers' compute type), or one float32 and the other bf16;
 the float types' twins are lerf_tpu's float-row warps,
 :func:`~lerf_torch.ops.resample.steering_gaussian_warp` and
 :func:`~lerf_torch.ops.resample.amplified_linear_warp` with
 ``u8_inputs=False``, run on the inputs as they are (bf16: each operation
 rounded to bf16; the geometry stays float64 and only the distances are
-cast).  A float32 output of bf16 inputs is the twin's result widened.
+cast, to bf16 wherever the feature is bf16).  A float32 output of bf16
+inputs is the twin's result widened.
 
 The warp's geometry as data (:func:`steering_warp_rings`): K5's rings
 instance takes a :class:`~lerf_torch.ops.resample.WarpRings` (each
@@ -50,7 +53,8 @@ where the matrix instances derive them.  It is a persistent kernel
 thread copies its outputs' rings into shared memory two tiles ahead
 while the block sums the tile before, with the matrix instances' decode,
 weights and epilogue.  The rings' distance type sets the weights' type,
-as lerf_tpu's promotion does (:func:`rings_in_type`).  Its plain twin is
+as lerf_tpu's promotion does (:func:`rings_in_type`): every input pair
+under either rings type.  Its plain twin is
 :func:`steering_warp_rings_plain`; :func:`warp_rings_geometry` makes a
 homography's rings on the card from K5's float64 derivation.
 """
@@ -70,10 +74,11 @@ from ..resample import (WarpRings, amplified_linear_warp, branch_bits,
                         rings_dtype, steering_gaussian_warp,
                         steering_warp_codes_plain, warp_rings_plain)
 from . import _build
-from .resize import IN_TYPES, TYPES_TAKEN
+from .resize import BF16_FEATURE, IN_TYPES, TYPES_TAKEN
 
 launches = 0
 bf16_launches = 0
+bf16_feature_launches = 0
 rings_launches = 0
 rings_geometry_launches = 0
 
@@ -87,8 +92,6 @@ MAX_FRAMES = 16
 # kTileH, kTileW and kTileEntries of csrc/steering_warp.cu.
 TILE = (16, 32)
 TILE_ENTRIES = 2048
-# The rings instance's persistent blocks an SM (kRingsBlocks there).
-RINGS_BLOCKS_PER_SM = 3
 
 
 class WarpParams(NamedTuple):
@@ -324,7 +327,7 @@ def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
     :data:`MAX_FRAMES`) for output rows ``rows`` = (r0, r1): feat / codes /
     out hold their frames one after another along the channel axis, out
     [frames·C, r1 - r0, oW], ``mask`` [frames, r1 - r0, oW] or None."""
-    global launches, bf16_launches
+    global launches, bf16_launches, bf16_feature_launches
     first = warps[0]
     (H, W), (OH, OW) = first.in_sz, first.out_sz
     r0, r1 = rows
@@ -343,8 +346,17 @@ def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
             int(out.dtype == torch.uint8), int(border), stream,
             IN_TYPES[feat.dtype, codes.dtype], r0, r1 - r0)
     _build.check(err, "steering_warp_batch launch")
+    _count(feat, codes)
+
+
+def _count(feat, codes, rings: bool = False):
+    """One launch of K5 on this pair of types into the counts."""
+    global launches, bf16_launches, bf16_feature_launches, rings_launches
     launches += 1
+    rings_launches += int(rings)
     bf16_launches += int(codes.dtype == torch.bfloat16)
+    bf16_feature_launches += int(
+        IN_TYPES[feat.dtype, codes.dtype] == BF16_FEATURE)
 
 
 def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
@@ -355,7 +367,7 @@ def steering_warp(feat: torch.Tensor, codes: torch.Tensor, warp, *,
                   rows: Optional[Tuple[int, int]] = None):
     """Feature [C, H, W] + hyper codes [C, H, W, 3] (Gaussian) or [C, H,
     W, 1] (``linear``), both int32 (codes 0..norm), both float32 or both
-    bf16 (hyper maps in [0, 1]), or a float32 feature with bf16 maps
+    bf16 (hyper maps in [0, 1]), or one float32 and the other bf16
     → [C, oH, oW]: float32 (NaN where a
     window's weights all vanish), or with ``out_dtype=torch.uint8``
     (``norm`` ≤ 255) the frame with NaN → 0, rounded half to even, clipped
@@ -539,22 +551,20 @@ RINGS_BF16_WIDE = 4
 
 
 def rings_in_type(feat: torch.Tensor, codes: torch.Tensor,
-                  dtype: torch.dtype, what: str = "steering_warp_rings"):
+                  dtype: torch.dtype):
     """The rings instance's ``in_type`` for the input pair and the rings'
     distance type ``dtype``: the pair's :data:`IN_TYPES` code, or
-    :data:`RINGS_BF16_WIDE` for bf16 maps under float32 rings.  Under
-    bf16 rings int32 codes and float32 maps take their float32 instances
-    (the distances widen exactly at their first product, as in
-    lerf_tpu); bf16 rings with a float32 feature and bf16 maps (bf16
-    weights times a float32 feature) have no instance and raise."""
+    :data:`RINGS_BF16_WIDE` for bf16 maps beside a bf16 feature under
+    float32 rings.  The weights take the type lerf_tpu's promotion gives
+    them: bf16 only where the feature, the maps and the rings all are;
+    under bf16 rings every other pair takes its float32 instance (the
+    distances widen exactly at their first product with a float32 value,
+    as in lerf_tpu, whose packed operand is float32 wherever one plane
+    is)."""
     pair = IN_TYPES[feat.dtype, codes.dtype]
-    if dtype == torch.float32:
-        return RINGS_BF16_WIDE if pair == IN_TYPES[torch.bfloat16,
-                                                   torch.bfloat16] else pair
-    if pair == IN_TYPES[torch.float32, torch.bfloat16]:
-        raise ValueError(f"{what}: bf16 rings with a float32 feature and "
-                         "bf16 maps: no instance takes them; give float32 "
-                         "rings")
+    if dtype == torch.float32 and pair == IN_TYPES[torch.bfloat16,
+                                                   torch.bfloat16]:
+        return RINGS_BF16_WIDE
     return pair
 
 
@@ -624,13 +634,13 @@ def steering_warp_rings(feat: torch.Tensor, codes: torch.Tensor, rings, *,
     oH, oW]: float32, or uint8 with ``out_dtype=torch.uint8`` as
     :func:`steering_warp` writes it.  The rings' type sets the weights'
     (:func:`rings_in_type`): bf16 maps under float32 rings are decoded in
-    bf16 and weighted, summed and divided in float32; under bf16 rings
-    they take the bf16 instance.  On CPU tensors the plain twin
-    (:func:`steering_warp_rings_plain`); on CUDA tensors one launch, the
-    rings' host leaves uploaded first (:func:`upload_rings`), never the
-    twin.  For the card's layout give ``out_sz``: without it the outputs
-    are one row, each block 32 of them."""
-    global launches, bf16_launches, rings_launches
+    bf16 and weighted, summed and divided in float32; beside a bf16
+    feature under bf16 rings they take the bf16 instance; every other pair
+    is weighted in float32 under either rings type.  On CPU tensors the
+    plain twin (:func:`steering_warp_rings_plain`); on CUDA tensors one
+    launch, the rings' host leaves uploaded first (:func:`upload_rings`),
+    never the twin.  For the card's layout give ``out_sz``: without it the
+    outputs are one row, each block 32 of them."""
     C, H, W = feat.shape
     _check_args(feat, codes, linear, out_dtype, norm, "steering_warp_rings")
     oh, ow = _check_rings(rings, H, W, out_sz, linear, "steering_warp_rings")
@@ -658,21 +668,26 @@ def steering_warp_rings(feat: torch.Tensor, codes: torch.Tensor, rings, *,
             C, H, W, oh, ow, int(linear), float(max_sigma), float(norm),
             int(out_dtype == torch.uint8), stream, in_type)
     _build.check(err, "steering_warp_rings launch")
-    launches += 1
-    rings_launches += 1
-    bf16_launches += int(codes.dtype == torch.bfloat16)
+    _count(feat, codes, rings=True)
     return out
+
+
+def rings_blocks_per_sm() -> int:
+    """The rings instance's persistent blocks an SM, as the kernel
+    library was built with them (``kRingsBlocks`` of
+    ``csrc/steering_warp.cu``, read through its C entry)."""
+    return int(_build.library().lerf_rings_blocks_per_sm())
 
 
 def rings_grid(out_sz, device=None) -> int:
     """The blocks K5's rings instance launches for an ``out_sz`` output on
     the card ``device`` (default: the current one): its persistent grid,
-    min(16×32 tiles, SMs × :data:`RINGS_BLOCKS_PER_SM`)."""
+    min(16×32 tiles, SMs × :func:`rings_blocks_per_sm`)."""
     oh, ow = out_sz
     tiles = -(-int(oh) // TILE[0]) * -(-int(ow) // TILE[1])
     sms = torch.cuda.get_device_properties(
         device or torch.cuda.current_device()).multi_processor_count
-    return min(tiles, sms * RINGS_BLOCKS_PER_SM)
+    return min(tiles, sms * rings_blocks_per_sm())
 
 
 def launch_rings_geometry(params: WarpParams, corner: torch.Tensor,

@@ -53,7 +53,7 @@ from ..ops import geometry as geo
 from ..ops.kernels import resize as k1
 from ..ops.kernels.warp import (WarpParams, steering_warp,
                                 steering_warp_rings)
-from ..ops.resample import WarpRings
+from ..ops.resample import WarpRings, rings_out_dtype
 from ..ops.lut_pipeline import (MAX_PAD, divide_exact, lut_stage1,
                                 lut_stage2)
 from .mesh import (DATA_AXIS, Mesh, RowShards, all_gather_rows,
@@ -112,12 +112,14 @@ def _k1_windows(geom, mesh: Mesh, linear: bool):
 
 def _resize_rows(sources, geom, mesh: Mesh, *, max_sigma: float,
                  norm: int = 255, linear: bool = False,
-                 out_dtype=torch.float32, lead=None) -> RowShards:
+                 out_dtype=torch.float32, lead=None,
+                 result=None) -> RowShards:
     """K1 (float mode, or int32 codes) on each shard's window of the
     output rows of ``geom`` (a static :class:`ResizeGeometry` or the
     serving geometry), from ``sources[i]`` = (feat [C, H, W], hyper [C, H,
     W, oC]) on shard i's device; the slabs [C, rows, oW], or shaped
-    ``lead + (rows, oW)``."""
+    ``lead + (rows, oW)``; ``result``: the slabs' type, where it is not
+    K1's ``out_dtype`` (bf16: K1's float32 output holds bf16 values)."""
     oh, ow = geom.out_sz
     ranges = row_ranges(oh, mesh.size)
     windows = _k1_windows(geom, mesh, linear)
@@ -142,6 +144,8 @@ def _resize_rows(sources, geom, mesh: Mesh, *, max_sigma: float,
                     feat, codes, geom.rows(r0, r1), operands=ops,
                     max_sigma=max_sigma, norm=norm, linear=linear,
                     out_dtype=out_dtype)
+        if result is not None:
+            out = out.to(result)
         return out if lead is None else out.reshape(
             tuple(lead) + tuple(out.shape[-2:]))
 
@@ -151,10 +155,11 @@ def _resize_rows(sources, geom, mesh: Mesh, *, max_sigma: float,
 def _warp_rows(sources, warp: WarpParams, mesh: Mesh, *, max_sigma: float,
                norm: int = 255, linear: bool = False,
                out_dtype=torch.float32, lead=None, mask: bool = False,
-               flat: bool = False, border: int = 4):
+               flat: bool = False, border: int = 4, result=None):
     """K5 on each shard's window of ``warp``'s output rows (see
-    :func:`_resize_rows`); with ``mask`` also the validity mask's rows,
-    written in the same launch; ``flat``: lerf_tpu's [C, N] layout."""
+    :func:`_resize_rows`, ``result`` too); with ``mask`` also the validity
+    mask's rows, written in the same launch; ``flat``: lerf_tpu's [C, N]
+    layout."""
     oh, ow = warp.out_sz
     ranges = row_ranges(oh, mesh.size)
 
@@ -166,6 +171,8 @@ def _warp_rows(sources, warp: WarpParams, mesh: Mesh, *, max_sigma: float,
         out = steering_warp(feat, codes, warp, max_sigma=max_sigma,
                             norm=norm, linear=linear, out_dtype=out_dtype,
                             mask_out=m, border=border, rows=(r0, r1))
+        if result is not None:
+            out = out.to(result)
         if flat:
             out = out.reshape(out.shape[0], -1)
         elif lead is not None:
@@ -184,16 +191,28 @@ def _warp_rows(sources, warp: WarpParams, mesh: Mesh, *, max_sigma: float,
     return frame, RowShards([m for _, m in outs], ranges, oh, axis=-2)
 
 
+def _float_type(*ts) -> torch.dtype:
+    """bf16 where every tensor of ``ts`` is bf16, else float32."""
+    return torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ts) \
+        else torch.float32
+
+
 def _float_sources(img, rho, sigma_x, sigma_y, mesh: Mesh):
-    """(feat [C', H, W], hyper [C', H, W, 3]) float32 of a leading-dims
-    source, replicated once per distinct device, and the leading dims."""
+    """(feat [C', H, W], hyper [C', H, W, 3]) of a leading-dims source in
+    the types given, as lerf_tpu's ops keep them (a bf16 feature or bf16
+    maps stay bf16, anything else becomes float32), replicated once per
+    distinct device; the leading dims; and lerf_tpu's result type, bf16
+    where the feature and the maps both are, else float32.  K1 and K5 take
+    each pair under its own code (``k1.IN_TYPES``), reading the bf16
+    values as they are."""
     h, w = img.shape[-2:]
     lead = tuple(img.shape[:-2])
-    feat = img.to(torch.float32).reshape(-1, h, w)
-    hyper = torch.stack([torch.as_tensor(p).to(img.device, torch.float32)
-                         for p in (rho, sigma_x, sigma_y)], -1)
-    return replicate((feat.contiguous(), hyper.reshape(-1, h, w, 3)),
-                     mesh), lead
+    maps = [torch.as_tensor(p).to(img.device)
+            for p in (rho, sigma_x, sigma_y)]
+    feat = img.to(_float_type(img)).reshape(-1, h, w)
+    hyper = torch.stack([m.to(_float_type(*maps)) for m in maps], -1)
+    return (replicate((feat.contiguous(), hyper.reshape(-1, h, w, 3)), mesh),
+            lead, _float_type(feat, hyper))
 
 
 def _check_pad(pad_mode: str):
@@ -208,12 +227,15 @@ def steering_gaussian_resize_sharded(img, rho, sigma_x, sigma_y,
                                      axis: str = DATA_AXIS,
                                      pad_mode: str = "constant"):
     """Row-sharded steerable resize: ``img`` [..., C, H, W] float and the
-    hyper maps in [0, 1] replicated; each shard runs K1 (its float mode; on
-    the CPU its plain twin) on its window of ``geom``'s output rows.
-    Returns :class:`RowShards` of [..., oH, oW] float32."""
+    hyper maps in [0, 1] replicated; each shard runs K1 (its instance for
+    the pair of types: float32, bf16 or one of each; on the CPU its plain
+    twin) on its window of ``geom``'s output rows.  Returns
+    :class:`RowShards` of [..., oH, oW], bf16 for a bf16 feature and bf16
+    maps, else float32 (lerf_tpu's promotion)."""
     _check_pad(pad_mode)
-    sources, lead = _float_sources(img, rho, sigma_x, sigma_y, mesh)
-    return _resize_rows(sources, geom, mesh, max_sigma=max_sigma, lead=lead)
+    sources, lead, result = _float_sources(img, rho, sigma_x, sigma_y, mesh)
+    return _resize_rows(sources, geom, mesh, max_sigma=max_sigma, lead=lead,
+                        result=result)
 
 
 def steering_gaussian_warp_sharded(img, rho, sigma_x, sigma_y,
@@ -222,12 +244,14 @@ def steering_gaussian_warp_sharded(img, rho, sigma_x, sigma_y,
                                    axis: str = DATA_AXIS,
                                    pad_mode: str = "constant"):
     """Output-row-sharded homographic warp: the source replicated, each
-    shard K5 (float mode) on its window of the output rows of ``geom``
-    (:class:`WarpParams`, the matrix).  Returns :class:`RowShards` of
-    [..., oH, oW] float32 (NaN where a window's weights all vanish)."""
+    shard K5 (its instance for the pair of types) on its window of the
+    output rows of ``geom`` (:class:`WarpParams`, the matrix).  Returns
+    :class:`RowShards` of [..., oH, oW] (NaN where a window's weights all
+    vanish), bf16 for a bf16 feature and bf16 maps, else float32."""
     _check_pad(pad_mode)
-    sources, lead = _float_sources(img, rho, sigma_x, sigma_y, mesh)
-    return _warp_rows(sources, geom, mesh, max_sigma=max_sigma, lead=lead)
+    sources, lead, result = _float_sources(img, rho, sigma_x, sigma_y, mesh)
+    return _warp_rows(sources, geom, mesh, max_sigma=max_sigma, lead=lead,
+                      result=result)
 
 
 # ---------------------------------------------------------------------------
@@ -366,9 +390,11 @@ def steering_gaussian_warp_rings_sharded(img, rho, sigma_x, sigma_y,
     … r1·oW``; else the N entries split evenly), K5's rings instance on a
     card, its twin on the CPU.  ``u8_inputs``: the feature rounded and the
     hyper maps encoded as codes ``round(h·255)``, decoded ``code / 255``
-    (lerf_tpu's u8 row gather); otherwise K5's float mode.  Returns
-    :class:`RowShards` of the flat [C, N], bit-equal to
-    ``steering_gaussian_warp_rings`` unsharded."""
+    (lerf_tpu's u8 row gather); otherwise K5's instance for the pair of
+    types.  Returns :class:`RowShards` of the flat [C, N], bit-equal to
+    ``steering_gaussian_warp_rings`` unsharded, in its type (float32; bf16
+    where the feature, the maps and the rings' distances all are, under
+    the matrix where the feature and the maps are)."""
     _check_pad(pad_mode)
     if u8_inputs:
         h, w = img.shape[-2:]
@@ -378,11 +404,16 @@ def steering_gaussian_warp_rings_sharded(img, rho, sigma_x, sigma_y,
             for p in (rho, sigma_x, sigma_y)], -1)
         sources = replicate((feat.reshape(-1, h, w).contiguous(),
                              codes.reshape(-1, h, w, 3)), mesh)
+        result = None
     else:
-        sources, _ = _float_sources(img, rho, sigma_x, sigma_y, mesh)
+        sources, _, result = _float_sources(img, rho, sigma_x, sigma_y, mesh)
     if isinstance(rings, WarpParams):
         return _warp_rows(sources, rings, mesh, max_sigma=max_sigma,
-                          norm=255, flat=True)
+                          norm=255, flat=True, result=result)
+    if result is not None:
+        feat, codes = sources[0]
+        result = rings_out_dtype(feat, [codes], rings, linear=False,
+                                 u8_inputs=False)
     n = len(rings.corner)
     if out_sz is None:
         ranges, ow = row_ranges(n, mesh.size), 1
@@ -400,6 +431,8 @@ def steering_gaussian_warp_rings_sharded(img, rho, sigma_x, sigma_y,
                                              ow)
         out = steering_warp_rings(feat, codes, part, out_sz=shape,
                                   max_sigma=max_sigma, norm=255)
+        if result is not None:
+            out = out.to(result)
         return out.reshape(out.shape[0], -1)
 
     return RowShards(mesh.map(run, sources),
@@ -450,11 +483,13 @@ def steering_gaussian_resize_rings_sharded(img, rho, sigma_x, sigma_y,
     port's the serving geometry they are made from,
     :class:`~lerf_torch.ops.geometry.ResizeOperands`): each shard K1 on its
     window of :meth:`~lerf_torch.ops.kernels.resize.ResizeOperands.
-    from_serving` (the plain rings resize on the CPU).  Returns
-    :class:`RowShards` of [C, oH, oW] float32."""
+    from_serving` (the plain rings resize on the CPU), its instance for the
+    pair of types.  Returns :class:`RowShards` of [C, oH, oW], bf16 for a
+    bf16 feature and bf16 maps, else float32."""
     _check_pad(pad_mode)
-    sources, lead = _float_sources(img, rho, sigma_x, sigma_y, mesh)
-    return _resize_rows(sources, rings, mesh, max_sigma=max_sigma, lead=lead)
+    sources, lead, result = _float_sources(img, rho, sigma_x, sigma_y, mesh)
+    return _resize_rows(sources, rings, mesh, max_sigma=max_sigma, lead=lead,
+                        result=result)
 
 
 def sharded_dynamic_sr_pipeline(img, tables1, tables2, modes,

@@ -263,16 +263,12 @@ VARIANTS = {
             "      px[k].dx[0] = 0.375f; px[k].dx[1] = -0.625f;\n"
             "      px[k].dy[0] = 0.375f; px[k].dy[1] = -0.625f;\n"
             "    } else {\n"
-            "      px[k] = window_at<KS, kLinear>(w, col, w.row0 + i);\n"
+            "      px[k] = window_at<KS, kLinear, kBfDis>(w, col, w.row0 + i);\n"
             "    }")],
-        "4 rows a thread": [("constexpr int kThreadRows = 8;",
-                             "constexpr int kThreadRows = 4;")],
         "no register cap": [("constexpr int kMinBlocks = 4;",
                              "constexpr int kMinBlocks = 1;")],
         "at least 6 blocks an SM": [("constexpr int kMinBlocks = 4;",
                                      "constexpr int kMinBlocks = 6;")],
-        "32-row tiles": [("constexpr int kTileH = 16;",
-                          "constexpr int kTileH = 32;")],
         # the support-2 Gaussian path's loop order, fields and load order
         "row, distance and branch hoisted out of the column loop": [
             ("#pragma unroll\n        for (int s = 0; s < S; ++s) {\n",
@@ -297,9 +293,9 @@ VARIANTS = {
         "feature loaded before the codes": [
             ("    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
              " : 0.0f;\n    return make_float4(", "    return make_float4("),
-            ("    const InT* code = codes + e * 3;\n",
+            ("    const HypT* code = codes + e * 3;\n",
              "    const float v = (sr >= 0 && sc >= 0) ? (float)__ldg(img + e)"
-             " : 0.0f;\n    const InT* code = codes + e * 3;\n")],
+             " : 0.0f;\n    const HypT* code = codes + e * 3;\n")],
         # the row window's add taken out (the global row is the local
         # one): what the window costs the whole launch
         "no row window": [
@@ -322,7 +318,7 @@ VARIANTS = {
              "      px[k].dx[0] = d_.x; px[k].dx[1] = d_.y;\n"
              "      px[k].dy[0] = d_.z; px[k].dy[1] = d_.w;\n"
              "    } else {\n"
-             "      px[k] = window_at<KS, kLinear>(w, col, w.row0 + i);\n"
+             "      px[k] = window_at<KS, kLinear, kBfDis>(w, col, w.row0 + i);\n"
              "    }"),
             ("    int out_u8, int border, void* stream, int in_type, int row0,\n"
              "    int rows) {",

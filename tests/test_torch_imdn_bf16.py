@@ -560,14 +560,52 @@ def test_k5_bf16_wrapper_takes_the_bf16_twins_on_cpu(linear):
 
 
 def test_kernels_refuse_bf16_feature_with_float32_maps():
-    """The pairs of types K1 and K5 take: a bf16 feature beside float32
-    maps (or int32 codes) is none of them."""
+    """A bf16 feature beside float32 maps, both modes: K1's and K5's
+    wrappers (their plain twins on the CPU) return lerf_tpu's float32
+    result, the distances and ``min_scale`` in bf16 (``img.dtype``), the
+    maps decoded and the rest computed in float32, within ``MIXED_ATOL``
+    (float32 ``exp``) and with its NaN pattern: the resize at ×2.5 and at
+    the antialiased ×0.4 (``min_scale`` no bf16 value), the warp at
+    supports 2 and 4.  A bf16 feature beside int32 codes is still no pair
+    of types they take."""
     feat, hyper = bf16_inputs(3)
+    hyper = hyper.float()
+    for linear in (False, True):
+        h = hyper[..., :1].contiguous() if linear else hyper
+        maps = [h[..., k] for k in range(h.shape[-1])]
+        pairs = []
+        for scale in (2.5, 0.4):
+            geom = tgeo.ResizeGeometry.create(feat.shape[1:],
+                                              scale_factors=[scale] * 2)
+            jg = jgeo.ResizeGeometry.create(feat.shape[1:],
+                                            scale_factors=[scale] * 2)
+            want = (jres.amplified_linear_resize(j(feat), j(maps[0]), jg)
+                    if linear else jres.steering_gaussian_resize(
+                        j(feat), *map(j, maps), jg))
+            pairs.append((k1.steering_resize(feat, h, geom, linear=linear),
+                          want))
+        for support in (2, 4):
+            params = k5.WarpParams.create(feat.shape[1:], MATRICES["rotate"],
+                                          WARP_OUT, support=support)
+            jw = jgeo.WarpGeometry.create(feat.shape[1:], MATRICES["rotate"],
+                                          WARP_OUT, support=support)
+            want = (jres.amplified_linear_warp(j(feat), j(maps[0]), jw)
+                    if linear else jres.steering_gaussian_warp(
+                        j(feat), *map(j, maps), jw))
+            pairs.append((k5.steering_warp(feat, h, params, linear=linear),
+                          want))
+        for got, want in pairs:
+            assert got.dtype == torch.float32 and want.dtype == jnp.float32
+            got, want = to_np(got), to_np(want)
+            assert np.array_equal(np.isnan(got), np.isnan(want))
+            np.testing.assert_allclose(np.nan_to_num(got),
+                                       np.nan_to_num(want), rtol=0,
+                                       atol=MIXED_ATOL)
     geom = tgeo.ResizeGeometry.create(feat.shape[1:], scale_factors=[2, 2])
     params = k5.WarpParams.create(feat.shape[1:], MATRICES["rotate"],
                                   WARP_OUT)
-    for h in (hyper.float(), hyper.to(torch.int32)):
-        with pytest.raises(ValueError, match="one type"):
-            k1.steering_resize(feat, h, geom)
-        with pytest.raises(ValueError, match="one type"):
-            k5.steering_warp(feat, h, params)
+    codes = hyper.to(torch.int32)
+    with pytest.raises(ValueError, match="one type"):
+        k1.steering_resize(feat, codes, geom)
+    with pytest.raises(ValueError, match="one type"):
+        k5.steering_warp(feat, codes, params)

@@ -1875,6 +1875,81 @@ def test_mixed_types_match_twin_on_card(linear, cuda_device):
                                rtol=0, atol=WARP_ATOL)
 
 
+def bf16_feature_inputs(shape=(3, 45, 77), seed=16, oc=3):
+    """A bf16 feature in [0, 254] beside float32 hyper maps in [0, 1]."""
+    feat, hyper = float_inputs(shape, seed, oc)
+    return feat.to(torch.bfloat16), hyper
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case", FLOAT_RESIZE_CASES)
+def test_resize_kernel_bf16_feature_equals_twin(case, linear, cuda_device):
+    """A bf16 feature beside float32 maps (in_type 5): K1 reads the bf16
+    feature and widens it, the distances and ``min_scale`` in bf16, the
+    rest float32: ``torch.equal`` to the twin (the plain float op on the
+    same tensors on the card), float32 and uint8, counted in
+    ``bf16_feature_launches``; the serving form equal to the static one."""
+    scale, aa = RESIZE_CASES[case]
+    feat, hyper = (t.to(cuda_device)
+                   for t in bf16_feature_inputs(oc=1 if linear else 3))
+    geom = ResizeGeometry.create(feat.shape[1:], scale_factors=list(scale),
+                                 antialias=aa)
+    before = (k1.launches, k1.bf16_launches, k1.bf16_feature_launches)
+    got = k1.steering_resize(feat, hyper, geom, linear=linear)
+    got_u8 = k1.steering_resize(feat, hyper, geom, linear=linear,
+                                out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.bf16_launches, k1.bf16_feature_launches) == (
+        before[0] + 2, before[1], before[2] + 2)
+    want = float_resize_twin(feat, hyper, geom, linear)
+    assert want.dtype == torch.float32 and same(got, want)
+    assert torch.equal(got_u8, quantize_device(want, 255,
+                                               nan_to_zero=linear))
+    if min(scale) >= 1:
+        ops = ResizeOperands.create(feat.shape[1:], scale_factors=list(scale))
+        serving = k1.steering_resize_serving(feat, hyper, ops, linear=linear)
+        assert same(serving, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("case,support",
+                         [(c, 2) for c in sorted(WARP_CASES)]
+                         + [("rotation", 4), ("x2.5-wide", 4)],
+                         ids=lambda v: str(v))
+def test_warp_kernel_bf16_feature_equals_twin(case, support, linear,
+                                              cuda_device):
+    """K5's matrix instance on a bf16 feature beside float32 maps (in_type
+    5): the distances cast float64 -> float32 -> bf16, the rest float32;
+    ``torch.equal`` to the twin at support 2 (at 4 the twin's ``torch.sum``
+    adds in another order: within ``WARP_ATOL``), with its NaN pattern; the
+    uint8 mode the float one quantized; the mask the host's."""
+    matrix, shape, out_sz = WARP_CASES[case]
+    feat, hyper = (t.to(cuda_device) for t in bf16_feature_inputs(
+        shape, oc=1 if linear else 3))
+    params = k5.WarpParams.create(shape[1:], matrix, out_sz, support=support)
+    mask = torch.empty(out_sz, dtype=torch.bool, device=cuda_device)
+    before = (k5.launches, k5.bf16_feature_launches)
+    got = k5.steering_warp(feat, hyper, params, linear=linear, mask_out=mask)
+    got_u8 = k5.steering_warp(feat, hyper, params, linear=linear,
+                              out_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.bf16_feature_launches) == (before[0] + 2,
+                                                       before[1] + 2)
+    want = float_warp_twin(feat, hyper, params.geometry(), linear)
+    assert want.dtype == torch.float32
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if support == 2:
+        assert same(got, want)
+    else:
+        torch.testing.assert_close(torch.nan_to_num(got),
+                                   torch.nan_to_num(want), rtol=0,
+                                   atol=WARP_ATOL)
+    assert torch.equal(got_u8, quantize_device(got, 255, nan_to_zero=True))
+    assert np.array_equal(mask.cpu().numpy(), params.host_mask())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["base", "s2d"])
 def test_imdn_bf16_on_card(backend, cuda_device):
@@ -2489,7 +2564,8 @@ def rings_inputs(pair, linear, device, shape=RINGS_SHAPE, seed=12):
     if pair != "int32":
         ft, ct = {"float32": (torch.float32, torch.float32),
                   "bf16": (torch.bfloat16, torch.bfloat16),
-                  "mixed": (torch.float32, torch.bfloat16)}[pair]
+                  "mixed": (torch.float32, torch.bfloat16),
+                  "bf16_feat": (torch.bfloat16, torch.float32)}[pair]
         f, c = (f.float() / 255).to(ft), (c.float() / 255).to(ct)
     return f.to(device), c.to(device)
 
@@ -2510,33 +2586,34 @@ def grid_rings(shuffled, linear, shape=RINGS_SHAPE, out_sz=RINGS_OUT,
 @pytest.mark.parametrize("rings_t", ["float32", "bf16"])
 @pytest.mark.parametrize("grid", ["smooth", "shuffled"])
 @pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
-@pytest.mark.parametrize("pair", ["int32", "float32", "bf16", "mixed"])
+@pytest.mark.parametrize("pair", ["int32", "float32", "bf16", "mixed",
+                                  "bf16_feat"])
 def test_warp_rings_kernel_equals_twin(pair, linear, grid, rings_t,
                                        cuda_device):
     """Every input pair, both modes, under float32 and bf16 rings, on a
     smooth grid (every block on the tile) and a shuffled one (about half
     the blocks' footprints exceed the tile: the direct path):
     ``torch.equal`` to the twin on the card, float32 and uint8 (bf16 maps
-    under float32 rings: the widened instance).  bf16 rings with a float32
-    feature and bf16 maps have no instance and raise."""
+    under float32 rings: the widened instance; a float32 feature with bf16
+    maps and a bf16 feature with float32 maps take float32 weights on the
+    rings' own distances under either rings type)."""
     rings = grid_rings(grid == "shuffled", linear,
                        dtype=torch.bfloat16 if rings_t == "bf16"
                        else np.float32)
     feat, codes = rings_inputs(pair, linear, cuda_device)
-    if pair == "mixed" and rings_t == "bf16":
-        with pytest.raises(ValueError, match="bf16 rings with a float32"):
-            k5.steering_warp_rings(feat, codes, rings, out_sz=RINGS_OUT,
-                                   linear=linear)
-        return
-    before = (k5.launches, k5.rings_launches, k5.bf16_launches)
+    before = (k5.launches, k5.rings_launches, k5.bf16_launches,
+              k5.bf16_feature_launches)
     got = k5.steering_warp_rings(feat, codes, rings, out_sz=RINGS_OUT,
                                  linear=linear)
     got_u8 = k5.steering_warp_rings(feat, codes, rings, out_sz=RINGS_OUT,
                                     linear=linear, out_dtype=torch.uint8)
     torch.cuda.synchronize()
     bf16 = int(codes.dtype == torch.bfloat16)
-    assert (k5.launches, k5.rings_launches, k5.bf16_launches) == (
-        before[0] + 2, before[1] + 2, before[2] + 2 * bf16)
+    bf16_feat = int(pair == "bf16_feat")
+    assert (k5.launches, k5.rings_launches, k5.bf16_launches,
+            k5.bf16_feature_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * bf16,
+        before[3] + 2 * bf16_feat)
     want = k5.steering_warp_rings_plain(feat, codes, rings, linear=linear)
     assert got.dtype == torch.float32 and got.shape == (3,) + RINGS_OUT
     assert same(got, want.reshape(got.shape))
@@ -2651,13 +2728,17 @@ def test_warp_rings_bf16_maps_follow_the_rings_type(linear, cuda_device):
 
 
 # (feature / maps pair, rings type) of each in_type of the rings entry:
-# int32, float32, bf16 under bf16 rings, a float32 feature with bf16 maps,
-# bf16 under float32 rings (the widened instance)
+# int32, float32, bf16 under bf16 rings, a float32 feature with bf16 maps
+# (under either rings type), bf16 under float32 rings (the widened
+# instance), a bf16 feature with float32 maps (under either rings type)
 RINGS_IN_TYPES = {"int32": ("int32", np.float32),
                   "float32": ("float32", np.float32),
                   "bf16": ("bf16", torch.bfloat16),
                   "mixed": ("mixed", np.float32),
-                  "bf16_wide": ("bf16", np.float32)}
+                  "mixed_bf16_rings": ("mixed", torch.bfloat16),
+                  "bf16_wide": ("bf16", np.float32),
+                  "bf16_feat": ("bf16_feat", np.float32),
+                  "bf16_feat_bf16_rings": ("bf16_feat", torch.bfloat16)}
 
 
 def persistent_blocks(device):
@@ -2839,3 +2920,94 @@ def test_warp_rings_sharded_on_one_card(cuda_device):
                                                    out_sz=out_sz)
         assert k5.rings_launches == before + 2
         assert same(got.cat(), want)
+
+
+@pytest.mark.cuda
+def test_rings_grid_reads_the_kernels_block_count(cuda_device, monkeypatch):
+    """The rings instance's persistent blocks an SM come from the library
+    (``lerf_rings_blocks_per_sm``, which returns ``kRingsBlocks``): the
+    value the source sets, the grid of a frame larger than it, and a
+    library reporting another count changes the grid (nothing in Python
+    restates it)."""
+    import os
+    import re
+
+    from lerf_torch.ops.kernels import _build
+
+    with open(os.path.join(_build.CSRC, "steering_warp.cu")) as f:
+        blocks = int(re.search(r"constexpr int kRingsBlocks = (\d+);",
+                               f.read()).group(1))
+    assert k5.rings_blocks_per_sm() == blocks
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert persistent_blocks(cuda_device) == sms * blocks
+    assert k5.rings_grid((16, 32 * 3), cuda_device) == 3
+    monkeypatch.setattr(_build.library(), "lerf_rings_blocks_per_sm",
+                        lambda: blocks + 2)
+    assert persistent_blocks(cuda_device) == sms * (blocks + 2)
+
+
+# the float pairs of the sharded float ops: (feature, maps) types
+SHARDED_FLOAT_PAIRS = {"float32": (torch.float32, torch.float32),
+                       "bf16": (torch.bfloat16, torch.bfloat16),
+                       "mixed": (torch.float32, torch.bfloat16),
+                       "bf16_feat": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", sorted(SHARDED_FLOAT_PAIRS))
+@pytest.mark.parametrize("op", ["resize", "warp", "resize_rings",
+                                "warp_rings"])
+def test_sharded_float_ops_on_one_card(op, pair, cuda_device):
+    """The four sharded float ops on ``[cuda:0] × 2`` for every float pair:
+    the sources keep their types, each shard launches its pair's instance
+    (one launch a shard), and the output, in lerf_tpu's type (bf16 where
+    the feature and the maps are, and the rings warp's rings too), is
+    bit-equal to the same kernel's unsharded launch."""
+    from lerf_torch.ops.geometry import ResizeOperands as ServingOperands
+    from lerf_torch.parallel import make_mesh
+    from lerf_torch.parallel import spatial as sp
+
+    ft, mt = SHARDED_FLOAT_PAIRS[pair]
+    feat, hyper = float_inputs()
+    feat, hyper = feat.to(cuda_device, ft), hyper.to(cuda_device, mt)
+    maps = [hyper[..., k] for k in range(3)]
+    hw = feat.shape[1:]
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    out_t = torch.bfloat16 if ft == mt == torch.bfloat16 else torch.float32
+    mod = k5 if "warp" in op else k1
+    if op == "resize":
+        geom = ResizeGeometry.create(hw, scale_factors=[2.5, 2.5])
+        want = k1.steering_resize(feat, hyper, geom)
+
+        def call():
+            return sp.steering_gaussian_resize_sharded(feat, *maps, geom,
+                                                       mesh)
+    elif op == "resize_rings":
+        ops = ServingOperands.create(hw, scale_factors=[1.93, 2.0])
+        want = k1.steering_resize_serving(feat, hyper, ops)
+
+        def call():
+            return sp.steering_gaussian_resize_rings_sharded(feat, *maps,
+                                                             ops, mesh)
+    elif op == "warp":
+        params = k5.WarpParams.create(hw, jitter_matrix(0, (2.5, 2.5)),
+                                      (112, 192))
+        want = k5.steering_warp(feat, hyper, params)
+
+        def call():
+            return sp.steering_gaussian_warp_sharded(feat, *maps, params,
+                                                     mesh)
+    else:
+        rings = grid_rings(False, False, dtype=torch.bfloat16
+                           if mt == torch.bfloat16 else np.float32)
+        want = k5.steering_warp_rings(feat, hyper, rings)
+
+        def call():
+            return sp.steering_gaussian_warp_rings_sharded(
+                feat, *maps, rings, mesh, u8_inputs=False, out_sz=RINGS_OUT)
+    before = mod.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert mod.launches == before + 2
+    assert got.dtype == out_t
+    assert same(got.cat(), want.reshape(got.shape))

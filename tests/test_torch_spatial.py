@@ -31,6 +31,7 @@ from lerf_tpu.parallel import spatial as jsp
 
 import lerf_torch.parallel as tp
 from lerf_torch.ops import geometry as geo
+from lerf_torch.ops import resample as trs
 from lerf_torch.ops.kernels.warp import WarpParams
 from lerf_torch.ops.lut_pipeline import FlatTables
 from lerf_torch.parallel import mesh as pm
@@ -192,6 +193,133 @@ def test_warp_rings_sharded_matches_lerf_tpu(u8, n):
         assert got.shape == want.shape == (3, out[0] * out[1])
         np.testing.assert_allclose(np.nan_to_num(got.to_host()),
                                    np.nan_to_num(want), **RINGS_WARP_TOL)
+
+
+# -- the float ops on every pair of float types -----------------------------
+
+# (feature, maps) types of the float pairs: lerf_tpu's sharded ops keep
+# them (bf16 maps decoded in bf16, the distances in the feature's type)
+FLOAT_PAIRS = {"bf16": (torch.bfloat16, torch.bfloat16),
+               "f32_feat_bf16_maps": (torch.float32, torch.bfloat16),
+               "bf16_feat_f32_maps": (torch.bfloat16, torch.float32)}
+# bf16 outputs against lerf_tpu's sharded op, in bf16 ulps: its sharded
+# warp sums the four neighbours with jnp.sum where its single-device warp
+# adds them in turn, each add rounded to bf16 (3 ulps on 28.2 % of these
+# outputs, lerf_tpu against itself); its other sharded ops are its
+# single-device ones
+SHARDED_BF16_ULPS = {"resize": 1, "warp": 3, "resize_rings": 1,
+                     "warp_rings": 1}
+
+
+def jnp_of(t):
+    return jnp.asarray(t.float().numpy(),
+                       jnp.bfloat16 if t.dtype == torch.bfloat16
+                       else jnp.float32)
+
+
+def float_op_case(op, ft, mt):
+    """(lerf_tpu's sharded call, its single-device call, the port's
+    sharded call, its single-device call) of one float op, each taking
+    (img, rho, sigma_x, sigma_y) (lerf_tpu's sharded one on ``jax_mesh(4)``,
+    the port's a mesh); the rings warp's rings bf16 where the maps are."""
+    hw = (14, 18)
+    if op == "resize":
+        jg = JaxResizeGeometry.create(hw, scale_factors=[2.35, 2.0],
+                                      support=2)
+        tg = geo.ResizeGeometry.create(hw, scale_factors=[2.35, 2.0])
+        return (lambda *a: jsp.steering_gaussian_resize_sharded(
+                    *a, jg, jax_mesh(4)),
+                lambda *a: jrs.steering_gaussian_resize(*a, jg),
+                lambda *a, mesh: tp.steering_gaussian_resize_sharded(
+                    *a, tg, mesh),
+                lambda *a: trs.steering_gaussian_resize(*a, tg))
+    if op == "warp":
+        out = (27, 30)
+        jg = JaxWarpGeometry.create(hw, ZOOM, out, support=2)
+        warp = WarpParams.create(hw, ZOOM, out)
+        return (lambda *a: jsp.steering_gaussian_warp_sharded(
+                    *a, jg, jax_mesh(4)),
+                lambda *a: jrs.steering_gaussian_warp(*a, jg),
+                lambda *a, mesh: tp.steering_gaussian_warp_sharded(
+                    *a, warp, mesh),
+                lambda *a: trs.steering_gaussian_warp(*a, warp.geometry()))
+    if op == "resize_rings":
+        jr = jax.tree.map(jnp.asarray, jrs.resize_rings(
+            JaxResizeOperands.create(hw, scale_factors=[1.93, 2.0])))
+        ops = geo.ResizeOperands.create(hw, scale_factors=[1.93, 2.0])
+        return (lambda *a: jsp.steering_gaussian_resize_rings_sharded(
+                    *a, jr, jax_mesh(4)),
+                lambda *a: jrs.steering_gaussian_resize_rings(*a, jr),
+                lambda *a, mesh: tp.steering_gaussian_resize_rings_sharded(
+                    *a, ops, mesh),
+                lambda *a: trs.steering_gaussian_resize_rings(
+                    *a, trs.resize_rings(ops)))
+    out = (31, 27)
+    bf16 = mt == torch.bfloat16
+    jr = jax.tree.map(jnp.asarray, jrs.warp_rings(
+        JaxWarpOperands.create(hw, PERSPECTIVE, out),
+        dtype=jnp.bfloat16 if bf16 else np.float32))
+    rings = trs.warp_rings(geo.WarpOperands.create(hw, PERSPECTIVE, out),
+                           dtype=torch.bfloat16 if bf16 else np.float32)
+    return (lambda *a: jsp.steering_gaussian_warp_rings_sharded(
+                *a, jr, jax_mesh(4), u8_inputs=False),
+            lambda *a: jrs.steering_gaussian_warp_rings(*a, jr),
+            lambda *a, mesh: tp.steering_gaussian_warp_rings_sharded(
+                *a, rings, mesh, u8_inputs=False),
+            lambda *a: trs.steering_gaussian_warp_rings(*a, rings))
+
+
+@pytest.mark.parametrize("pair", sorted(FLOAT_PAIRS))
+@pytest.mark.parametrize("op", ["resize", "warp", "resize_rings",
+                                "warp_rings"])
+def test_sharded_float_ops_keep_the_types(op, pair):
+    """The four sharded float ops on a bf16 feature and bf16 maps, and on
+    one float32 and the other bf16: the sources keep their types (no
+    float32 copy), the output takes lerf_tpu's type (bf16 where the
+    feature and the maps are, and for the rings warp its rings too; else
+    float32), bit-equal to the port's single-device op on meshes of 3 and
+    8 CPU shards.  Against lerf_tpu's sharded op (jitted on 4 devices): a
+    float32 output within this file's tolerances (on 20-35 % of these
+    outputs the float32 ``exp`` differs), a bf16 one with its NaN pattern,
+    bit-equal to lerf_tpu's single-device op and within
+    ``SHARDED_BF16_ULPS`` of its sharded op (the warp: 3 ulps on 28.2 %,
+    its sharded warp's own distance from its single-device warp; the
+    others 0 ulps here)."""
+    ft, mt = FLOAT_PAIRS[pair]
+    img, hyper = float_inputs(3, 3, 14, 18)
+    ti = torch.from_numpy(img).to(ft)
+    tm = [torch.from_numpy(h).to(mt) for h in hyper]
+    j_sharded, j_single, t_sharded, t_single = float_op_case(op, ft, mt)
+    jargs = [jnp_of(t) for t in [ti] + tm]
+    want = jax_once(("float_types", op, pair), lambda: jax.jit(j_sharded)(
+        *jargs).astype(jnp.float32))
+    single = t_single(ti, *tm)
+    out_t = torch.bfloat16 if ft == mt == torch.bfloat16 else torch.float32
+    assert single.dtype == out_t
+    for n in (3, 8):
+        got = t_sharded(ti, *tm, mesh=tp.make_mesh(devices=["cpu"] * n))
+        assert got.dtype == out_t
+        assert torch.equal(torch.nan_to_num(got.cat(), nan=-1.0),
+                           torch.nan_to_num(single.reshape(got.shape),
+                                            nan=-1.0))
+    got = got.cat().float().numpy()
+    if out_t == torch.float32:
+        if op in ("warp", "warp_rings"):
+            tol = RINGS_WARP_TOL if op == "warp_rings" else RESIZE_TOL
+            assert_warp_close(got, want, tol)
+        else:
+            np.testing.assert_allclose(got, want, **RESIZE_TOL)
+        return
+    alone = np.asarray(j_single(*jargs).astype(jnp.float32))
+    assert_warp_close(got, alone.reshape(got.shape), dict(rtol=0, atol=0))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+
+    def bits(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).bfloat16() \
+            .view(torch.int16).to(torch.int32)
+    ulps = (bits(got[ok]) - bits(want[ok])).abs()
+    assert int(ulps.max()) <= SHARDED_BF16_ULPS[op], int(ulps.max())
 
 
 # -- the LUT stages and pipelines -------------------------------------------

@@ -401,6 +401,59 @@ def test_rings_warp_matches_lerf_tpu(case, linear, u8):
         assert np.isnan(want).any()      # the case holds NaN windows
 
 
+# the pairs of one float32 and one bf16 input: (feature, maps) types
+MIXED_PAIRS = {"f32_feat_bf16_maps": (torch.float32, torch.bfloat16),
+               "bf16_feat_f32_maps": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("rings_t", ["float32", "bf16"])
+@pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
+@pytest.mark.parametrize("pair", sorted(MIXED_PAIRS))
+def test_rings_warp_mixed_pairs_match_lerf_tpu(pair, linear, rings_t):
+    """A float32 feature with bf16 maps and a bf16 feature with float32
+    maps, under float32 and bf16 rings, both modes: lerf_tpu's packed
+    operand is float32 wherever one plane is, so its weights, sums and
+    output are float32 on the rings' own distances.  The port's rings
+    warp (``ops.resample``), K5's rings wrapper and the sharded rings warp
+    on a CPU mesh of 3 (Gaussian: lerf_tpu's sharded form takes that mode
+    alone) return float32, the latter two bit-equal to the first, all
+    within ``test_rings_warp_matches_lerf_tpu``'s tolerance of lerf_tpu's
+    rings warp."""
+    ft, mt = MIXED_PAIRS[pair]
+    j_ops, t_ops = operands("jitter")
+    feat, codes = stage_inputs(seed=4)
+    args = warp_args(feat, codes, False, linear, "torch")
+    args = [args[0].to(ft)] + [a.to(mt) for a in args[1:]]
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    jargs = [jnp.asarray(a.float().numpy(), jdt[a.dtype]) for a in args]
+    bf16 = rings_t == "bf16"
+    want = np.asarray(rings_warp(
+        jrs, jargs, jax.tree.map(jnp.asarray, jrs.warp_rings(
+            j_ops, linear=linear, dtype=jnp.bfloat16 if bf16 else np.float32)),
+        False, linear))
+    rings = trs.warp_rings(t_ops, linear=linear,
+                           dtype=torch.bfloat16 if bf16 else np.float32)
+    got = rings_warp(trs, args, rings, False, linear)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    codes_t = torch.stack(args[1:], -1)
+    kern = k5.steering_warp_rings(args[0], codes_t, rings, linear=linear)
+    assert torch.equal(torch.nan_to_num(kern, nan=-1.0),
+                       torch.nan_to_num(got, nan=-1.0))
+    if not linear:
+        sharded = tp.steering_gaussian_warp_rings_sharded(
+            *args, rings, tp.make_mesh(devices=["cpu"] * 3), u8_inputs=False,
+            out_sz=OUT_SZ)
+        assert sharded.dtype == torch.float32
+        assert torch.equal(torch.nan_to_num(sharded.cat(), nan=-1.0),
+                           torch.nan_to_num(got, nan=-1.0))
+    got = got.numpy()
+    if linear:
+        assert_close_with_nans(got, want, atol=ATOL)
+    else:
+        assert_rings_warp_matches(got, want, trs.warp_rings(t_ops), feat,
+                                  codes)
+
+
 @pytest.mark.parametrize("dtype", ["u8", "float32", "bf16", "bf16_maps"])
 @pytest.mark.parametrize("linear", [False, True], ids=["gauss", "linear"])
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -469,30 +522,47 @@ def test_rings_wrapper_takes_plain_twin_on_cpu(case, linear):
 
 
 def test_rings_wrapper_float_types_on_cpu():
-    """Float32 and bf16 maps, and a float32 feature with bf16 maps: the
-    twin is the float rings warp, equal to K5's matrix twin; bf16 maps
-    under float32 rings to the matrix twin of the feature widened
-    (float32 weights), under bf16 rings to its bf16 twin."""
+    """Every float pair under either rings type: the twin is the float
+    rings warp, equal to K5's matrix twin where their distances agree.
+    bf16 maps beside a bf16 feature under float32 rings: the matrix twin
+    of the feature widened (float32 weights), under bf16 rings its bf16
+    twin; a bf16 feature beside float32 maps: under float32 rings the
+    matrix twin of the feature widened, under bf16 rings the matrix twin
+    itself (its distances in the feature's bf16); a float32 feature beside
+    bf16 maps under bf16 rings: float32 weights on the bf16 distances
+    widened, the same warp through float32 rings of those values.  A bf16
+    feature beside int32 codes is no pair the wrapper takes."""
     _, t_ops = operands("jitter")
     rings = trs.warp_rings(t_ops)
     rings16 = trs.warp_rings(t_ops, dtype=torch.bfloat16)
+    widened = rings16._replace(dis_x=rings16.dis_x.float().numpy(),
+                               dis_y=rings16.dis_y.float().numpy())
     params = k5.WarpParams.create(IN_SZ, MATRICES["jitter"], OUT_SZ)
     feat, codes = stage_inputs(seed=7)
     f32 = torch.from_numpy(feat).float() / 255
     h32 = torch.from_numpy(codes).float() / 255
     f16, h16 = f32.bfloat16(), h32.bfloat16()
-    # (feature, maps, rings, the matrix twin's feature and maps)
-    for ft, ht, r, want_args in ((f32, h32, rings, (f32, h32)),
-                                 (f32, h16, rings, (f32, h16)),
-                                 (f16, h16, rings, (f16.float(), h16)),
-                                 (f16, h16, rings16, (f16, h16))):
+
+    def matrix(*args):
+        return k5.steering_warp(*args, params)
+
+    # (feature, maps, rings, what the wrapper's output must equal)
+    for ft, ht, r, want in (
+            (f32, h32, rings, matrix(f32, h32)),
+            (f32, h16, rings, matrix(f32, h16)),
+            (f16, h16, rings, matrix(f16.float(), h16)),
+            (f16, h16, rings16, matrix(f16, h16)),
+            (f16, h32, rings, matrix(f16.float(), h32)),
+            (f16, h32, rings16, matrix(f16, h32)),
+            (f32, h16, rings16, k5.steering_warp_rings(
+                f32, h16, widened, out_sz=OUT_SZ))):
         got = k5.steering_warp_rings(ft, ht, r, out_sz=OUT_SZ)
-        want = k5.steering_warp(*want_args, params)
         assert got.dtype == torch.float32
         assert torch.equal(torch.nan_to_num(got, nan=-1.0),
                            torch.nan_to_num(want, nan=-1.0))
-    with pytest.raises(ValueError, match="bf16 rings with a float32"):
-        k5.steering_warp_rings(f32, h16, rings16, out_sz=OUT_SZ)
+    with pytest.raises(ValueError, match="one type"):
+        k5.steering_warp_rings(f16, torch.from_numpy(codes), rings,
+                               out_sz=OUT_SZ)
 
 
 def test_rings_wrapper_rejects_wrong_rings():
