@@ -52,6 +52,7 @@ from ..resample import (amplified_linear_resize,
                         steering_gaussian_resize,
                         steering_gaussian_resize_rings,
                         steering_resize_codes_plain)
+from ...utils.spans import spanned
 from . import _build
 
 launches = 0
@@ -341,6 +342,7 @@ def steering_resize_serving(feat: torch.Tensor, codes: torch.Tensor,
                    linear=linear, out_dtype=out_dtype)
 
 
+@spanned("lerf.resample")
 def _launch(feat, codes, operands: ResizeOperands, *, max_sigma, norm,
             linear, out_dtype):
     global launches, bf16_launches, bf16_feature_launches

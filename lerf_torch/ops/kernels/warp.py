@@ -73,6 +73,7 @@ from ..resample import (WarpRings, amplified_linear_warp, branch_bits,
                         nearest_warp_mask_host, pad2d, quantize_device,
                         rings_dtype, steering_gaussian_warp,
                         steering_warp_codes_plain, warp_rings_plain)
+from ...utils.spans import span, spanned
 from . import _build
 from .resize import BF16_FEATURE, IN_TYPES, TYPES_TAKEN
 
@@ -321,6 +322,7 @@ def _check_mask(mask_out, shape, device, what):
                          f"uint8 {list(shape)} tensor on {device}")
 
 
+@spanned("lerf.resample")
 def _launch(feat, codes, out, mask, warps, *, max_sigma, norm, linear,
             border, rows):
     """One ``lerf_steering_warp_batch`` launch over ``warps`` (at most
@@ -654,21 +656,23 @@ def steering_warp_rings(feat: torch.Tensor, codes: torch.Tensor, rings, *,
                                         linear=linear).reshape(shape)
         return quantize_device(out, norm, nan_to_zero=True) \
             if out_dtype == torch.uint8 else out.to(torch.float32)
-    dr = upload_rings(rings, feat.device, linear=linear)
-    feat, codes = feat.contiguous(), codes.contiguous()
-    out = torch.empty(shape, dtype=out_dtype, device=feat.device)
-    lib = _build.library()
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lerf_steering_warp_rings(
-            feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
-            dr.ring_x.data_ptr(), dr.ring_x.numel(), dr.ring_y.data_ptr(),
-            dr.ring_y.numel(), dr.corner.data_ptr(), dr.dis_x.data_ptr(),
-            dr.dis_y.data_ptr(), 0 if dr.bits is None else dr.bits.data_ptr(),
-            C, H, W, oh, ow, int(linear), float(max_sigma), float(norm),
-            int(out_dtype == torch.uint8), stream, in_type)
-    _build.check(err, "steering_warp_rings launch")
-    _count(feat, codes, rings=True)
+    with span("lerf.resample"):
+        dr = upload_rings(rings, feat.device, linear=linear)
+        feat, codes = feat.contiguous(), codes.contiguous()
+        out = torch.empty(shape, dtype=out_dtype, device=feat.device)
+        lib = _build.library()
+        with torch.cuda.device(feat.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.lerf_steering_warp_rings(
+                feat.data_ptr(), codes.data_ptr(), out.data_ptr(),
+                dr.ring_x.data_ptr(), dr.ring_x.numel(), dr.ring_y.data_ptr(),
+                dr.ring_y.numel(), dr.corner.data_ptr(), dr.dis_x.data_ptr(),
+                dr.dis_y.data_ptr(),
+                0 if dr.bits is None else dr.bits.data_ptr(), C, H, W, oh,
+                ow, int(linear), float(max_sigma), float(norm),
+                int(out_dtype == torch.uint8), stream, in_type)
+        _build.check(err, "steering_warp_rings launch")
+        _count(feat, codes, rings=True)
     return out
 
 

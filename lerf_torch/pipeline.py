@@ -43,6 +43,7 @@ host geometry made for the call.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 from collections import OrderedDict
@@ -63,6 +64,7 @@ from .ops.lut_pipeline import (TABLE_LAYOUTS, divide_exact, lut_stage1,
 from .ops.resample import nearest_warp_mask_host
 # the uint8 cast K1 fuses, kept under its old name for callers
 from .ops.resample import quantize_device as _quantize_device  # noqa: F401
+from .utils.spans import span, spanned
 
 # Warps a predictor keeps.  An entry holds the validity mask (3.7 MB at
 # 1440×2560 outputs) and on the CPU ~240 MB of float64 / int32 host
@@ -184,7 +186,7 @@ class ServingFuture:
     awaited.  ``result()`` waits for the copy (on a card the request's CUDA
     event; an error of the device work surfaces there), finishes the host
     part and is idempotent.  On the CPU a request computes at dispatch and
-    its future is :meth:`resolved`.
+    ``result()`` only finishes the host part.
 
     Serving loops hold a bounded queue of these (:mod:`lerf_torch.serve`),
     so that the host work of frame k+1 overlaps the device work and copies
@@ -281,6 +283,17 @@ class _Predictor:
 
     # -- requests: staging, the side stream, the future ----------------------
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """The predictor's lock, the wait for it a span of its own."""
+        with span("lerf.lock"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
+    @spanned("lerf.upload")
     def _upload(self, imgs) -> torch.Tensor:
         """Host image(s) [..., H, W, C] → the form's input [..., C, H, W] on
         the device.  On a card a uint8 frame is copied into a pinned tensor
@@ -314,28 +327,33 @@ class _Predictor:
         alive.  Every serving-cache entry is made and read on this stream,
         so an entry evicted while a kernel still reads it returns its
         blocks to this stream's pool, where only work queued after that
-        kernel can take them.  On the CPU it computes now and the future
-        is resolved."""
-        with self._lock:
+        kernel can take them.  On the CPU it computes now, and ``result()``
+        finishes the value.  The request and its parts are spans
+        (:mod:`lerf_torch.utils.spans`): ``lerf.request`` here,
+        ``lerf.result`` in the ``result()`` call that finishes it."""
+        with span("lerf.request"), self._locked():
             if self._stream is None:
                 frame, extras = dispatch()
-                return ServingFuture.resolved(self._value(
-                    frame.movedim(-3, -1).numpy(), [_host(e) for e in extras],
-                    then))
-            caller = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._stream):
-                self._stream.wait_stream(caller)
-                frame, extras = dispatch()
-                host = [_pinned_copy(frame.movedim(-3, -1))] + [
-                    _pinned_copy(e) if isinstance(e, torch.Tensor) else e
-                    for e in extras]
-                done = torch.cuda.Event()
-                done.record()
+                host, done = [frame.movedim(-3, -1)] + list(extras), None
+            else:
+                caller = torch.cuda.current_stream(self.device)
+                with torch.cuda.stream(self._stream):
+                    self._stream.wait_stream(caller)
+                    frame, extras = dispatch()
+                    with span("lerf.copy_down"):
+                        host = [_pinned_copy(frame.movedim(-3, -1))] + [
+                            _pinned_copy(e) if isinstance(e, torch.Tensor)
+                            else e for e in extras]
+                        done = torch.cuda.Event()
+                        done.record()
 
         def finish():
-            done.synchronize()
-            return self._value(host[0].numpy(), [_host(e) for e in host[1:]],
-                               then)
+            with span("lerf.result"):
+                if done is not None:
+                    with span("lerf.wait"):
+                        done.synchronize()
+                return self._value(host[0].numpy(),
+                                   [_host(e) for e in host[1:]], then)
 
         return ServingFuture(finish)
 
@@ -434,7 +452,7 @@ class _Predictor:
         as lerf_tpu's does."""
         img = _rgb_hwc(img_hwc)
         scale = (float(scale_h), float(scale_w))
-        with self._lock:
+        with self._locked():
             entry = self._serving_fn(img.shape[:2], scale)
         if entry is None:
             return ServingFuture.resolved(self.upscale(img, *scale))
@@ -794,6 +812,7 @@ class LutPredictor(_Predictor):
         input, contiguous; uint8 values lie in 0..255."""
         return u8.to(torch.int32, memory_format=torch.contiguous_format)
 
+    @spanned("lerf.stages")
     def _stages(self, img_i32: torch.Tensor):
         """img [..., H, W] int32 → (feat int32 [..., H, W], hyper int32
         [..., H, W, oC]).
@@ -972,6 +991,7 @@ class NetPredictor(_Predictor):
                                   memory_format=torch.contiguous_format),
                             self.norm)
 
+    @spanned("lerf.stages")
     def _stages(self, img_f: torch.Tensor):
         """img [..., H, W] float32 in [0,1] → (feat [..., H, W], hyper
         [..., H, W, oC]): int32 feature and codes, or float32 feature and

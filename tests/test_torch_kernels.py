@@ -55,7 +55,9 @@ training step on the card holds the CPU's within the tolerances its test
 states.  The async serving forms (uint8 staged through pinned memory,
 cast on the card, on the predictor's side stream) are bit-equal to the
 host-staged path and to their synchronous forms, with requests in
-flight, with cache entries evicted under them and from two threads.
+flight, with cache entries evicted under them and from two threads; each
+request's spans nest as ``lerf_torch.utils.spans`` lists them, on the
+host's track alone.
 """
 import math
 
@@ -2381,6 +2383,61 @@ def test_on_card_cast_equals_host_cast(cuda_device):
         assert got.is_contiguous() and got.dtype == want.dtype
         assert torch.equal(got.cpu(), want)
         assert torch.equal(pred._upload(img).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["lut", "imdn"])
+@pytest.mark.parametrize("call", ["upscale_dynamic_async",
+                                  "warp_dynamic_async"])
+def test_serving_spans_on_the_card(form, call, cuda_device):
+    """Under the profiler on the card each request is one ``lerf.request``
+    holding its lock, upload, stages, one ``lerf.resample`` and
+    ``lerf.copy_down``, and one ``lerf.result`` holding ``lerf.wait``; the
+    spans are host ranges only: no device activity carries a ``lerf.``
+    name (a user annotation would be copied onto the device's track)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pred = serving_predictor(form, cuda_device)
+    rng = np.random.RandomState(19)
+    imgs = [rng.randint(0, 256, (45, 77, 3)).astype(np.uint8)
+            for _ in range(3)]
+    mat = jitter_matrix(6, (2.0, 2.0))
+    send = {"upscale_dynamic_async": lambda img: pred.upscale_dynamic_async(
+        img, 2.0, 2.0), "warp_dynamic_async": lambda img: pred
+        .warp_dynamic_async(img, mat, (90, 154))}[call]
+    send(imgs[0]).result()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        futs = [send(img) for img in imgs]
+        for f in futs:
+            f.result()
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    assert not [e.name() for e in events if e.name().startswith("lerf.")
+                and e.device_type() == DeviceType.CUDA]
+    found = sorted(((e.name(), e.start_ns(), e.end_ns()) for e in events
+                    if e.name().startswith("lerf.")),
+                   key=lambda s: (s[1], -s[2]))
+    names = [s[0] for s in found]
+    for name in ("lerf.request", "lerf.upload", "lerf.stages",
+                 "lerf.resample", "lerf.copy_down", "lerf.result",
+                 "lerf.wait"):
+        assert names.count(name) == 3, name
+    parent = {"lerf.upload": "lerf.request", "lerf.stages": "lerf.request",
+              "lerf.resample": "lerf.request",
+              "lerf.copy_down": "lerf.request", "lerf.wait": "lerf.result",
+              "lerf.request": None, "lerf.result": None}
+    for name, s, e in found:
+        holders = sorted((pe - ps, pn) for pn, ps, pe in found
+                         if (pn, ps, pe) != (name, s, e)
+                         and ps <= s and e <= pe)
+        if name in parent:
+            assert (holders[0][1] if holders else None) == parent[name], \
+                name
+    reqs = [s for s in found if s[0] == "lerf.request"]
+    results = [s for s in found if s[0] == "lerf.result"]
+    assert all(r[2] <= q[1] for r, q in zip(reqs, results))
 
 
 # -- windows of output rows (the row-sharded paths' shards) ----------------
