@@ -478,6 +478,14 @@ IMDN_NF = 12              # the reference LeRF-Net's width (5 modules a tower)
 IMDN_FEAT_ATOL = 1e-3
 IMDN_HYPER_ATOL = 1e-5
 IMDN_U8_SHARE = 0.001
+# the float32 base towers on the card run csrc/imdn_conv.cu: a tower is
+# fea, 5 modules x (c1, c2, c3, the fused end c4 + c5 (+ lr on the last)),
+# up: 22 launches, both towers 44 a call, whatever the frames in it
+IMDN_CONV_LAUNCHES = 2 * (2 + 4 * 5)
+# the kernel against its twin (F.conv2d under cudnn_fp32 and the same
+# epilogue in torch): float32 sums of at most 12 x 9 products a group of
+# values in [-1, 1] in another order than cuDNN's, a few ulp
+IMDN_CONV_ATOL = 1e-5
 # the transfer, card against CPU: a head's float32 chain summed in another
 # order flips round(clip(out) * 127) at a .5 edge, by 1 LSB
 TRANSFER_EQUAL_SHARE = 0.999
@@ -1214,13 +1222,15 @@ class _Bf16Count:
 
 
 def kernel_modules():
-    """Every kernel wrapper module by its kernel's name (``srnet_ensemble``
+    """Every kernel wrapper module by its kernel's name (``imdn_conv``
+    counts the float32 IMDN towers' convs; ``srnet_ensemble``
     counts K3's launches of either type, ``srnet_ensemble_bf16`` those of
     its bf16 kernel; so K1's and K5's bf16 instances, and
     ``steering_warp_rings`` K5's rings instance; ``warp_rings_geometry``
     is the kernel that writes a homography's rings on the card;
     ``*_bf16_feature`` K1's and K5's instances that take a bf16 feature
     beside float32 maps, K5's matrix and rings instances both)."""
+    from lerf_torch.ops.kernels import imdn_conv
     from lerf_torch.ops.kernels import lut_stage as k2
     from lerf_torch.ops.kernels import resize as k1
     from lerf_torch.ops.kernels import resize_bwd as k6
@@ -1229,7 +1239,7 @@ def kernel_modules():
     from lerf_torch.ops.kernels import warp as k5
     return {"steering_resize": k1, "lut_stage": k2, "srnet_ensemble": k3,
             "srnet_ensemble_int8": k4, "steering_warp": k5,
-            "steering_resize_bwd": k6,
+            "steering_resize_bwd": k6, "imdn_conv": imdn_conv,
             "srnet_ensemble_bf16": _Bf16Count(k3),
             "steering_resize_bf16": _Bf16Count(k1),
             "steering_warp_bf16": _Bf16Count(k5),
@@ -2368,13 +2378,15 @@ def imdn_phases(dev, frame, feat_lut, hyper_lut):
     """Phase 24: the IMDN (LeRF-Net) form at full width, ``IMDN2(nf=12)``,
     for the "base" and "s2d" backends: ``upscale`` 360×640 → ×4 and
     ``warp`` → 1440×2560 under ``warp_matrix()`` with the launch counts
-    (SR one K1, warp one K5, no other kernel of the port); a 96×160 crop
+    (SR one K1, warp one K5, and for "base" the towers' 44 ``imdn_conv``
+    launches, no other kernel of the port); a 96×160 crop
     against the CPU path (feature within ``IMDN_FEAT_ATOL``, hyper within
     ``IMDN_HYPER_ATOL``, the frames within one level on at most
     ``IMDN_U8_SHARE``, the SR frame the twin resize of the card's own
     stages but for .5 ties, the warp's mask equal); the whole calls, the
-    device parts, the towers' device time (the profiler's cuDNN and
-    elementwise rows) beside their bound, and K1 / K5.  Then K1's and K5's
+    device parts, the towers' device time (the profiler's rows but K1's
+    and the copies: ``imdn_conv``'s kernels for "base", cuDNN's and the
+    elementwise kernels for "s2d") beside their bound, and K1 / K5.  Then K1's and K5's
     float modes on the towers' own outputs beside their int32 modes on the
     LUT stages' (the main path's uint8 mode, alternating rounds, and the
     profiler).  Returns the float modes' kernel rows and the launches."""
@@ -2404,9 +2416,11 @@ def imdn_phases(dev, frame, feat_lut, hyper_lut):
         pred = NetPredictor.from_imdn(model, backend=backend)
         if pred.device.type != "cuda":
             raise AssertionError(f"default device is {pred.device}")
+        towers = {"imdn_conv": IMDN_CONV_LAUNCHES} if backend == "base" \
+            else {}
         (out, feat, hyper), sr_launches = counted_run(
             lambda: pred.upscale(frame, SCALE, SCALE, return_aux=True),
-            {"steering_resize": 1}, f"IMDN upscale ({backend})")
+            {"steering_resize": 1, **towers}, f"IMDN upscale ({backend})")
         if (out.shape != (oh, ow, 3) or out.dtype != np.uint8
                 or feat.shape != (3, LR_H, LR_W) or feat.dtype != np.float32
                 or hyper.shape != (3, LR_H, LR_W, 3)
@@ -2418,7 +2432,7 @@ def imdn_phases(dev, frame, feat_lut, hyper_lut):
                                  f"{hyper.shape} out of shape or range")
         (wout, wmask), warp_launches = counted_run(
             lambda: pred.warp(frame, matrix, WARP_OUT),
-            {"steering_warp": 1}, f"IMDN warp ({backend})")
+            {"steering_warp": 1, **towers}, f"IMDN warp ({backend})")
         if (wout.shape != WARP_OUT + (3,) or wout.dtype != np.uint8
                 or wmask.shape != WARP_OUT or not wmask.any()):
             raise AssertionError(f"IMDN warp ({backend}): output "
@@ -2484,7 +2498,8 @@ def imdn_phases(dev, frame, feat_lut, hyper_lut):
         towers = [r for r in rows if r not in port and r not in copies]
         tower_ms = sum(ms for _, _, ms in towers)
         conv_ms = sum(ms for name, _, ms in towers
-                      if "xmma" in name or "conv" in name or "gemm" in name)
+                      if any(k in name for k in ("imdn_", "xmma", "conv",
+                                                 "gemm")))
         result["tower_ms"][backend] = tower_ms
         emit_timed({"phase": "imdn_timing", "backend": backend,
                     "frames": 10, "upscale_ms": upscale_ms,
@@ -2560,14 +2575,148 @@ def imdn_phases(dev, frame, feat_lut, hyper_lut):
     return rows, result["launches"]
 
 
+def imdn_conv_check(dev):
+    """Phase 24b, first part: ``imdn_conv``'s three calls against their
+    plain twins on the card (``imdn_conv.twin_check``, which the card
+    tests run too) at ragged shapes, a batch of 3 and a 1080×1920 frame.
+    Returns the largest difference."""
+    import torch
+    from lerf_torch.ops.kernels import imdn_conv as kc
+
+    g = torch.Generator().manual_seed(0)
+    return max(kc.twin_check(dev, n, h, w, IMDN_CONV_ATOL, g)
+               for n, h, w in ((1, 1, 1), (1, 7, 5), (3, 37, 53),
+                               (1, 1080, 1920)))
+
+
+def imdn_conv_phase(dev):
+    """Phase 24b: the float32 base towers' kernel (``csrc/imdn_conv.cu``).
+    Its calls against their twins (:func:`imdn_conv_check`); then both
+    towers of ``IMDN2(nf=12)`` on the kernel path against the cuDNN path
+    (``apply_tower_s2d`` at block 1 with the stages' clamps, the
+    library's yardstick, which the port no longer calls on this path) at
+    360×640 and 1080×1920 (largest difference and share differing), a
+    batch of 3 bit-equal to its frames, 22 launches a tower; and its time
+    a frame at both sizes by events, graph replays and the profiler,
+    beside the bound (every multiply-add at the float32 FFMA rate), the
+    plain twins' time (the same calls on ``conv_plain`` / ``tail_plain``
+    / ``tower_end_plain``) and ``library_ms``.  Returns the kernel
+    table's row but its launches (the main path's, phase 24's)."""
+    import torch
+    from lerf_torch.models import imdn_s2d as m
+    from lerf_torch.ops.kernels import imdn_conv as kc
+
+    err = imdn_conv_check(dev)
+    model = imdn_model()
+    towers = {st: m._torch_tower(m.convert_tower(m.tower_arrays(
+        getattr(model, f"stage{st}")), 1), dev) for st in (1, 2)}
+    kts = {st: m.kernel_tower(t, 5) for st, t in towers.items()}
+
+    def kernel(x):
+        feat = m.apply_tower_kernel(kts[1], x, stage=1, nf=IMDN_NF,
+                                    num_modules=5)
+        return feat, m.apply_tower_kernel(kts[2], x, stage=2, nf=IMDN_NF,
+                                          num_modules=5, oc=3)
+
+    def plain(x):
+        calls = kc.conv, kc.tail, kc.tower_end
+        kc.conv, kc.tail, kc.tower_end = (kc.conv_plain, kc.tail_plain,
+                                          kc.tower_end_plain)
+        try:
+            with m.cudnn_fp32():
+                return kernel(x)
+        finally:
+            kc.conv, kc.tail, kc.tower_end = calls
+
+    def library(x):
+        with m.cudnn_fp32():
+            y1 = torch.clamp(m.apply_tower_s2d(towers[1], x, block=1,
+                                               nf=IMDN_NF), -1, 1)
+            y2 = torch.clamp(m.apply_tower_s2d(towers[2], x, block=1,
+                                               nf=IMDN_NF), -1, 1)
+            y2 = (y2 / 2 + 0.5).reshape((x.shape[0], 3, -1) + x.shape[-2:])
+            return y1 * 127 + 127, torch.movedim(y2, 1, -1)
+
+    g = torch.Generator().manual_seed(1)
+    rows = {}
+    with torch.no_grad():
+        for h, w in ((LR_H, LR_W), (1080, 1920)):
+            x = torch.rand((1, 3, h, w), generator=g).to(dev)
+            (got, counts) = counted_run(lambda: kernel(x),
+                                        {"imdn_conv": IMDN_CONV_LAUNCHES},
+                                        f"imdn_conv towers {h}x{w}")
+            want = library(x)
+            torch.cuda.synchronize()
+            diff = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            share = [float((a != b).float().mean())
+                     for a, b in zip(got, want)]
+            if not (diff[0] <= IMDN_FEAT_ATOL and diff[1] <= IMDN_HYPER_ATOL):
+                raise AssertionError(f"imdn_conv towers {h}x{w}: feat "
+                                     f"{diff[0]}, hyper {diff[1]} from the "
+                                     "cuDNN path")
+            if h == LR_H:
+                xb = torch.rand((3, 3, h, w), generator=g).to(dev)
+                gb = kernel(xb)
+                for i in range(3):
+                    gi = kernel(xb[i:i + 1])
+                    if not all(torch.equal(a[i:i + 1], b)
+                               for a, b in zip(gb, gi)):
+                        raise AssertionError("imdn_conv towers: a batch of "
+                                             f"3 differs from frame {i}")
+            _, macs, _ = imdn_tower_work(model, h, w)
+            bound_ms = 2 * macs / NON_TENSOR_OPS_PER_S * 1e3
+            iters = 10 if h > LR_H else 30
+            ms = event_ms(lambda: kernel(x), iters=iters)
+            g_ms = graph_ms(lambda: kernel(x), iters)
+            dev_rows = device_rows(lambda: kernel(x))
+            kern = [r for r in dev_rows if "imdn_" in r[0]]
+            prof_ms = sum(r[2] for r in kern)
+            row = {"phase": "imdn_conv_towers", "in": [h, w],
+                   "launches": counts["imdn_conv"],
+                   "max_abs_vs_library": {"feat": diff[0], "hyper": diff[1]},
+                   "share_differing_vs_library": {"feat": share[0],
+                                                  "hyper": share[1]},
+                   "batch3_bit_equal_to_frames": h == LR_H or None,
+                   "ms": ms, "graph_ms": g_ms,
+                   "profiler_ms": prof_ms,
+                   "profiler_launches": sum(r[1] for r in kern),
+                   "plain_ms": event_ms(lambda: plain(x), iters=3,
+                                        warmup=1),
+                   "library_ms": event_ms(lambda: library(x), iters=3,
+                                          warmup=1),
+                   "bound_ms": bound_ms, "bound_by": "operations",
+                   # by graph replays: the profiler drops rows (its
+                   # launches below the 44 made)
+                   "share_of_bound": bound_ms / g_ms,
+                   "rows": [[k[:60], n, t] for k, n, t in
+                            sorted(kern, key=lambda r: -r[2])]}
+            emit_timed(row)
+            rows[h] = row
+    main = rows[1080]
+    return {"name": "imdn_conv", "route": "cuda",
+            "source": "lerf_torch/csrc/imdn_conv.cu",
+            "replaces": "none: cuDNN and the elementwise passes "
+                        "(lerf_tpu/models/imdn_s2d.py:148-162, XLA convs)",
+            "max_abs_err": err,
+            "ms": main["ms"], "graph_ms": main["graph_ms"],
+            "profiler_ms": main["profiler_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "operations",
+            "share_of_bound": main["share_of_bound"],
+            "library_ms": main["library_ms"],
+            "at_360x640": {k: rows[LR_H][k] for k in (
+                "ms", "graph_ms", "profiler_ms", "plain_ms", "library_ms",
+                "bound_ms", "share_of_bound")}}
+
+
 def imdn_serving_phase(dev, frame):
     """Phase 25: the IMDN form's serving forms on the card (base backend):
     ``upscale_dynamic`` (×2.5), ``upscale_batch`` of 4 at ×4,
     ``warp_dynamic``, ``warp_device`` and ``warp_batch`` of 4 under
     ``warp_matrix(0..3)``, each bit-equal to ``upscale`` / ``warp`` on the
-    card frame by frame (the batch runs the towers frame by frame, then one
-    launch of K1 or K5), each call one K1 or K5 launch; their ms a call
-    beside ``upscale``'s and ``warp``'s."""
+    card frame by frame (the batch runs the towers' kernels once over the
+    batch, then one launch of K1 or K5), each call one K1 or K5 launch and
+    the towers' 44 ``imdn_conv`` launches; their ms a call beside
+    ``upscale``'s and ``warp``'s."""
     from lerf_torch.pipeline import NetPredictor
 
     pred = NetPredictor.from_imdn(imdn_model())
@@ -2575,8 +2724,8 @@ def imdn_serving_phase(dev, frame):
     frames = np.stack([frame] + [rng.randint(0, 256, frame.shape)
                                  .astype(np.uint8) for _ in range(3)])
     mats = np.stack([warp_matrix(k) for k in range(4)])
-    sr = {"steering_resize": 1}
-    wp = {"steering_warp": 1}
+    sr = {"steering_resize": 1, "imdn_conv": IMDN_CONV_LAUNCHES}
+    wp = {"steering_warp": 1, "imdn_conv": IMDN_CONV_LAUNCHES}
     want = [pred.upscale(f, SCALE, SCALE) for f in frames]
     got, _ = counted_run(lambda: pred.upscale_batch(frames, SCALE, SCALE),
                          sr, "IMDN upscale_batch")
@@ -3505,7 +3654,8 @@ def serving_forms(banks, params):
                   {"lut_stage": 2}),
         "net_k4": (NetPredictor.from_srnets(params, backend="pallas_int8"),
                    {"srnet_ensemble_int8": 2}),
-        "imdn": (NetPredictor.from_imdn(imdn_model(), backend="base"), {}),
+        "imdn": (NetPredictor.from_imdn(imdn_model(), backend="base"),
+                 {"imdn_conv": IMDN_CONV_LAUNCHES}),
     }
 
 
@@ -4346,7 +4496,8 @@ def sharded_imdn_phase(dev, frame):
     exchange form (the input row-sharded, ONE halo exchange: 2 neighbour
     transfers across each interior boundary, no all-gather) against the
     single-device towers, feature within 1e-3 and hyper maps within 1e-5;
-    the SR pipeline's frame within one level on <= 0.1 %."""
+    the SR pipeline's frame within one level on <= 0.1 %; "base" runs each
+    shard's towers on ``imdn_conv`` (44 launches a shard)."""
     import torch
     from lerf_torch.ops.geometry import ResizeGeometry
     from lerf_torch.models.imdn_s2d import tower_halo_rows
@@ -4360,6 +4511,11 @@ def sharded_imdn_phase(dev, frame):
         frame.transpose(2, 0, 1)).astype(np.float32)).to(dev)
     geom = ResizeGeometry.create((LR_H, LR_W), scale_factors=[SCALE] * 2)
     for backend in ("base", "s2d"):
+        def towers(n):
+            # a shard runs both towers on its band: imdn_conv for "base"
+            return ({"imdn_conv": n * IMDN_CONV_LAUNCHES}
+                    if backend == "base" else {})
+
         pred = NetPredictor.from_imdn(model, backend=backend, device=dev)
         want, feat_w, hyper_w = pred.upscale(frame, SCALE, SCALE,
                                              return_aux=True)
@@ -4379,7 +4535,7 @@ def sharded_imdn_phase(dev, frame):
                         slabs, model, mesh, backend=backend))
                     gathers, exchanges = 0, 1
                 (feat, hyper), counts, transfers, coll = mesh_counted(
-                    call, {}, f"sharded IMDN {backend} {form} x{n}",
+                    call, towers(n), f"sharded IMDN {backend} {form} x{n}",
                     n_gathers=gathers, n_exchanges=exchanges)
                 fe = float((feat.cat().cpu() - feat_w).abs().max())
                 he = float((hyper.cat().cpu() - hyper_w).abs().max())
@@ -4399,7 +4555,8 @@ def sharded_imdn_phase(dev, frame):
                 lambda: sharded_imdn_sr_pipeline(
                     x, model, geom, mesh, backend=backend,
                     out_dtype=torch.uint8).to_host().transpose(1, 2, 0),
-                {"steering_resize": n}, f"sharded IMDN SR {backend} x{n}")
+                {"steering_resize": n, **towers(n)},
+                f"sharded IMDN SR {backend} x{n}")
             d = np.abs(got.astype(int) - want.astype(int))
             share = float((d > 0).mean())
             if d.max() > 1 or share > IMDN_U8_SHARE:
@@ -5232,13 +5389,14 @@ def gate(d, tol, what):
 
 def towers_ms(pred, x):
     """The towers' profiler device ms a frame of ``pred.run_device(x)``
-    (every device row but K1's and copies), their cuDNN convolutions'
-    alone, and the towers' launches."""
+    (every device row but K1's and copies), their convolutions' alone
+    (cuDNN's, or ``imdn_conv``'s for the float32 base towers), and the
+    towers' launches."""
     rows = device_rows(lambda: pred.run_device(x, (SCALE, SCALE)))
     towers = [r for r in rows if "steering_resize_kernel" not in r[0]
               and not r[0].startswith(("Memcpy", "Memset"))]
     conv = sum(ms for name, _, ms in towers
-               if "xmma" in name or "conv" in name or "gemm" in name)
+               if any(k in name for k in ("imdn_", "xmma", "conv", "gemm")))
     return (sum(ms for _, _, ms in towers), conv,
             sum(n for _, n, _ in towers))
 
@@ -6525,6 +6683,9 @@ def main() -> int:
     # -- 24. the IMDN form at full width, both backends ----------------------
     float_rows, imdn_launches = imdn_phases(dev, frame, feat_d, hyper_d)
 
+    # -- 24b. the float32 base towers' kernel, its time ---------------------
+    imdn_conv_row = imdn_conv_phase(dev)
+
     # -- 25. the IMDN serving forms ------------------------------------------
     imdn_serving_phase(dev, frame)
 
@@ -6716,6 +6877,10 @@ def main() -> int:
     # -- 51b. the pairs of one float32 and one bf16 input ---------------------
     kernels += mixed_pair_phase(dev, np.random.RandomState(17),
                                 float_pair_counts)
+
+    # the towers' launches as the main path makes them (phase 24's upscale)
+    kernels.append({**imdn_conv_row,
+                    "launches": auto["upscale"]["imdn_conv"]})
 
     # -- 52. result ----------------------------------------------------------
     emit({"phase": "exact_division",

@@ -23,7 +23,10 @@ shape buckets) and its 3-tuple row mask: the port's row-sharded towers
 that end at the image edges, where the convs' own zero padding is the
 whole image's, so they need only the halo, :func:`tower_halo_rows`.
 
-On the card every conv runs in full float32 under a scoped
+On the card the float32 base towers run on their own kernel
+(:func:`apply_tower_kernel`, ``csrc/imdn_conv.cu``: float32 FFMA, the
+elementwise steps in its epilogues, about 22 launches a tower).  The
+s2d and bf16 towers run on cuDNN, in full float32 under a scoped
 ``torch.backends.cudnn.flags(..., allow_tf32=False)`` (:func:`cudnn_fp32`),
 restored on exit: cuDNN's default on Hopper is TF32.
 
@@ -261,6 +264,87 @@ def tower_halo_rows() -> int:
     return TOWER_SPATIAL_CONVS
 
 
+def kernel_tower(tower: Dict, num_modules: int) -> Dict:
+    """A float32 base tower (:func:`_torch_tower` at block 1) as the
+    kernel path's weights (:mod:`lerf_torch.ops.kernels.imdn_conv`):
+    ``fea``, ``lr``, ``up`` and each module's ``c1``..``c5`` as
+    ``ConvWeights``, and each module's ``tail``, its end fused (c4 + c5,
+    on the last module also lr) where the fused end takes the widths (nf
+    at most 12), else ``None`` (c4, c5 and lr run as convs of their
+    own)."""
+    from ..ops.kernels import imdn_conv as kc
+
+    def cw(p):
+        return kc.ConvWeights.create(*p)
+
+    out = {name: cw(tower[name]) for name in ("fea", "lr", "up")}
+    mods = [{c: cw(tower[f"imd{i}"][c]) for c in ("c1", "c2", "c3", "c4",
+                                                  "c5")}
+            for i in range(num_modules)]
+    fused = bool(mods) and all(kc.TailWeights.fits(m["c4"], m["c5"],
+                                                   out["lr"]) for m in mods)
+    for i, m in enumerate(mods):
+        lr = out["lr"] if i == num_modules - 1 else None
+        m["tail"] = (kc.TailWeights.create(m["c4"], m["c5"], lr) if fused
+                     else None)
+        out[f"imd{i}"] = m
+    return out
+
+
+def apply_tower_kernel(kt: Dict, x: torch.Tensor, *, stage: int, nf: int,
+                       num_modules: int, half: int = 127, oc: int = 1,
+                       distillation_rate: float = 0.25) -> torch.Tensor:
+    """IMDN_RTC forward (upscale 1) and the stage's clamp and scale on
+    :func:`kernel_tower` weights, one :mod:`~lerf_torch.ops.kernels.
+    imdn_conv` call a step: ``fea``; a module's c1, c2, c3 (leaky ReLU,
+    the distilled channels stored straight into the module's concat
+    buffer) and its end (c4 + c5 + the module's input, fused; the last
+    module's also lr + ``fea``'s output); the up conv with the clamp and
+    scale (stage 1: ``· half + half``, [N, cout, H, W]; stage 2: ``/ 2 +
+    0.5``, [N, cout / oc, H, W, oc]).  ``x``: float32 [N, C, H, W],
+    contiguous.  The same steps as :func:`apply_tower_s2d` at block 1 and
+    :func:`make_chw_stage_fns`' clamps (on CPU tensors each call is its
+    plain twin, bit-equal to them)."""
+    from ..ops.kernels import imdn_conv as kc
+
+    n, _, h, w = x.shape
+    dc = int(nf * distillation_rate)
+    rc = nf - dc
+
+    def new(c):
+        return x.new_empty((n, c, h, w))
+
+    fea = new(nf)
+    kc.conv(x, kt["fea"], fea)
+    ta, tb = new(rc), new(rc)
+    fused = num_modules > 0 and kt["imd0"]["tail"] is not None
+    dist = new(3 * dc if fused else 4 * dc)
+    r = fea
+    for i in range(num_modules):
+        m = kt[f"imd{i}"]
+        kc.conv(r, m["c1"], ta, act=True, dist=dist[:, :dc])
+        kc.conv(ta, m["c2"], tb, act=True, dist=dist[:, dc:2 * dc])
+        kc.conv(tb, m["c3"], ta, act=True, dist=dist[:, 2 * dc:3 * dc])
+        out = new(nf) if r is fea else r        # a pixel's own in place
+        if fused:
+            kc.tail(ta, m["tail"], dist, r, out,
+                    h=fea if i == num_modules - 1 else None)
+        else:
+            kc.conv(ta, m["c4"], None, dist=dist[:, 3 * dc:])
+            kc.conv(dist, m["c5"], out, residual=r)
+        r = out
+    if not fused:
+        # not in place: above 12 outputs another block may still read r
+        out = new(nf)
+        kc.conv(r, kt["lr"], out, residual=fea)
+        r = out
+    cout = kt["up"].cout
+    y = (x.new_empty((n, cout, h, w)) if stage == 1
+         else x.new_empty((n, cout // oc, h, w, oc)))
+    kc.tower_end(r, kt["up"], y, stage=stage, half=half, oc=oc)
+    return y
+
+
 def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",
                        block: int = 2, norm: int = 255, out_c: int = 3,
                        device=None, dtype=None):
@@ -276,19 +360,30 @@ def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",
     ``model``'s weights are read once here (on ``device``), re-embedded
     for ``block`` by "s2d" (block 1, the identity, for "base") and cast to
     the compute type ``dtype`` (``None``: the model's, ``model.dtype``),
-    which the outputs keep.  Both run under :func:`cudnn_fp32`, a batch
-    frame by frame."""
+    which the outputs keep.
+
+    Float32 base towers whose weights lie on a card run on the towers'
+    own kernel (:func:`apply_tower_kernel`: one launch a conv, the
+    elementwise steps, concats, clamps and stage 2's order in its
+    epilogues, a batch in one launch: its sums run in an order that does
+    not depend on the batch).  Every other tower (the CPU, s2d, bf16) runs
+    :func:`apply_tower_s2d` under :func:`cudnn_fp32`, a batch frame by
+    frame."""
     b = block if resolve_backend(backend) == "s2d" else 1
     dtype = model.dtype if dtype is None else dtype
     half = norm // 2
+    n_mod = model.stage1.num_modules
     towers = {s: _torch_tower(convert_tower(tower_arrays(getattr(model, s)),
                                             b), device, dtype)
               for s in ("stage1", "stage2")}
+    on_card = (b == 1 and dtype == torch.float32
+               and towers["stage1"]["fea"][0].device.type == "cuda")
+    kernel = ({s: kernel_tower(t, n_mod) for s, t in towers.items()}
+              if on_card else None)
 
     def tower(stage, x):
         return apply_tower_s2d(towers[stage], x, block=b, nf=model.nf,
-                               num_modules=model.stage1.num_modules,
-                               dtype=dtype)
+                               num_modules=n_mod, dtype=dtype)
 
     def run(stage, x):
         # frame by frame: cuDNN may pick another algorithm (another order
@@ -301,10 +396,22 @@ def make_chw_stage_fns(model: IMDN2, *, backend: str = "auto",
         y = ys[0] if len(ys) == 1 else torch.cat(ys)
         return y.reshape(x.shape[:-3] + y.shape[-3:])
 
+    def run_kernel(stage, x, oc):
+        frames = x.reshape((-1,) + x.shape[-3:]).contiguous()
+        with torch.no_grad():
+            y = apply_tower_kernel(kernel[stage], frames,
+                                   stage=int(stage[-1]), nf=model.nf,
+                                   num_modules=n_mod, half=half, oc=oc)
+        return y.reshape(x.shape[:-3] + y.shape[1:])
+
     def s1(x):
+        if kernel is not None:
+            return run_kernel("stage1", x, 1)
         return torch.clamp(run("stage1", x), -1, 1) * half + half
 
     def s2(x):
+        if kernel is not None:
+            return run_kernel("stage2", x, out_c)
         y = torch.clamp(run("stage2", x), -1, 1) / 2 + 0.5   # [..., oC·C, H, W]
         c = x.shape[-3]
         y = y.reshape(y.shape[:-3] + (out_c, c) + y.shape[-2:])

@@ -10,6 +10,9 @@
 * K6 ``resize_bwd.steering_resize_grad``, the training resize's backward
   (behind ``resize.steering_resize_train``) —
   ``csrc/steering_resize_bwd.cu``
+* ``imdn_conv.conv`` / ``tail`` / ``tower_end``, the float32 IMDN towers'
+  convs with their epilogues (no TPU kernel: XLA convs there) —
+  ``csrc/imdn_conv.cu``
 
 Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
 kernel for CUDA tensors, counting launches in the module's ``launches``.

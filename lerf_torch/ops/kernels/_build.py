@@ -169,6 +169,24 @@ def _declare(lib):
         vp, i32, i32, i32, i32, i32, i32,    # members (host), M, C, H, W, nf, oC
         f32, vp]                             # half, stream
     lib.lerf_srnet_ensemble_int8.restype = i32
+    i64 = ctypes.c_longlong
+    lib.lerf_imdn_conv.argtypes = [
+        vp, i64, vp, vp,                     # x, its frame stride, w, b
+        vp, i64, vp, i64, i32,               # out, stride, dist, stride, split
+        vp, i64,                             # residual, its frame stride
+        i32, i32, i32, i32, i32,             # frames, cin, cout, H, W
+        i32, i32, i32, i32,                  # k, group, act, end
+        i32, f32, i32, i32,                  # stage, half, oc, vec
+        vp]                                  # stream
+    lib.lerf_imdn_conv.restype = i32
+    lib.lerf_imdn_tail.argtypes = [
+        vp, i64, vp, vp, vp,                 # x, its frame stride, w, b, fuse
+        vp, i64, i32,                        # dist, its frame stride, n_dist
+        vp, i64, vp, i64,                    # residual, stride, h, stride
+        vp, i64,                             # out, its frame stride
+        i32, i32, i32, i32, i32, i32,        # frames, cin, nf, H, W, vec
+        vp]                                  # stream
+    lib.lerf_imdn_tail.restype = i32
     lib.lerf_error_string.argtypes = [i32]
     lib.lerf_error_string.restype = ctypes.c_char_p
 

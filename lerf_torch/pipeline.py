@@ -951,8 +951,10 @@ class NetPredictor(_Predictor):
         ``norm`` in bf16 for stage 2, nothing widened; ``return_aux``
         gives bf16 tensors).  ``backend``: "base", "s2d" (the space-to-depth
         re-embedding at ``s2d_block``) or "auto"
-        (:func:`lerf_torch.models.imdn_s2d.resolve_backend`).  Every conv
-        runs under the scoped full-float32 cuDNN flags
+        (:func:`lerf_torch.models.imdn_s2d.resolve_backend`).  On a card the
+        float32 base towers run on their own kernel (``imdn_conv``, one
+        launch a conv); every other conv runs under the scoped
+        full-float32 cuDNN flags
         (:func:`~lerf_torch.models.imdn_s2d.cudnn_fp32`).  Inference
         only."""
         from .models.imdn_s2d import make_chw_stage_fns

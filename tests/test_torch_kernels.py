@@ -1731,11 +1731,15 @@ def test_imdn_serving_forms_on_card_equal_frames(cuda_device):
 
 
 @pytest.mark.cuda
-def test_imdn_restores_the_cudnn_flags_on_card(cuda_device):
+@pytest.mark.parametrize("backend", ["base", "s2d"])
+def test_imdn_restores_the_cudnn_flags_on_card(backend, cuda_device):
+    """The cuDNN towers (s2d; "base" runs ``imdn_conv`` on the card) leave
+    the cuDNN flags as they found them."""
     flags = (torch.backends.cudnn.enabled, torch.backends.cudnn.benchmark,
              torch.backends.cudnn.deterministic,
              torch.backends.cudnn.allow_tf32)
-    pred = NetPredictor.from_imdn(imdn_model(), device=cuda_device)
+    pred = NetPredictor.from_imdn(imdn_model(), device=cuda_device,
+                                  backend=backend)
     pred.upscale(np.zeros((16, 20, 3), np.uint8), 2, 2)
     assert (torch.backends.cudnn.enabled, torch.backends.cudnn.benchmark,
             torch.backends.cudnn.deterministic,
@@ -1743,6 +1747,136 @@ def test_imdn_restores_the_cudnn_flags_on_card(cuda_device):
 
 
 # -- the bf16 instances of K1 and K5 (the bf16 IMDN form) -------------------
+
+# -- imdn_conv: the float32 base towers' convs with their epilogues ---------
+
+# the kernel against its twin (F.conv2d under cudnn_fp32, the same epilogue
+# in torch): float32 sums of the same products of values in [-1, 1] in
+# another order than cuDNN's (a few ulp; 3e-8 measured on the H100)
+IMDN_CONV_ATOL = 1e-5
+IMDN_CONV_SHAPES = [(1, 1, 1), (1, 7, 5), (3, 37, 53), (1, 1080, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", IMDN_CONV_SHAPES)
+def test_imdn_conv_kernel_equals_twin_on_card(shape, cuda_device):
+    """Every epilogue (bias, leaky ReLU, residual, the split store into a
+    slice of a wider buffer), groups above 12 outputs, two staged chunks
+    (cin 24), the fused module end with and without lr (also in place) and
+    both tower ends (``imdn_conv.twin_check``, which chip_smoke runs
+    too)."""
+    from lerf_torch.ops.kernels import imdn_conv as kc
+    kc.twin_check(cuda_device, *shape, IMDN_CONV_ATOL,
+                  torch.Generator().manual_seed(0))
+
+
+def imdn_kernel_towers(dev, nf=12):
+    from lerf_torch.models import imdn_s2d as m
+    model = imdn_model(nf)
+    towers = {st: m._torch_tower(m.convert_tower(m.tower_arrays(
+        getattr(model, f"stage{st}")), 1), dev) for st in (1, 2)}
+    return towers, {st: m.kernel_tower(t, 5) for st, t in towers.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2])
+def test_imdn_conv_tower_batch_equals_frames_on_card(stage, cuda_device):
+    """The kernel's sums run in an order that depends on nothing but the
+    weights' shape: a batch of 3 gives each frame's own bits; a tower is
+    22 launches whatever the batch."""
+    from lerf_torch.models import imdn_s2d as m
+    from lerf_torch.ops.kernels import imdn_conv as kc
+    kt = imdn_kernel_towers(cuda_device)[1][stage]
+    x = torch.rand((3, 3, 45, 77),
+                   generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    oc = 1 if stage == 1 else 3
+    before = kc.launches
+    batch = m.apply_tower_kernel(kt, x, stage=stage, nf=12, num_modules=5,
+                                 oc=oc)
+    assert kc.launches - before == 22
+    for i in range(3):
+        one = m.apply_tower_kernel(kt, x[i:i + 1], stage=stage, nf=12,
+                                   num_modules=5, oc=oc)
+        assert torch.equal(batch[i:i + 1], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [12, 8, 16])
+def test_imdn_conv_towers_match_the_cudnn_path_on_card(nf, cuda_device):
+    """Both towers on the kernel path against ``apply_tower_s2d`` on cuDNN
+    (block 1, the stages' clamps) on the card: the feature within 1e-3,
+    the hyper maps within 1e-5 (float32 sums in another order), at nf 12
+    (fused module ends), 8 and 16 (convs of their own)."""
+    from lerf_torch.models import imdn_s2d as m
+    towers, kt = imdn_kernel_towers(cuda_device, nf)
+    x = torch.rand((2, 3, 37, 53),
+                   generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    with torch.no_grad(), m.cudnn_fp32():
+        y1 = torch.clamp(m.apply_tower_s2d(towers[1], x, block=1, nf=nf),
+                         -1, 1) * 127 + 127
+        y2 = torch.clamp(m.apply_tower_s2d(towers[2], x, block=1, nf=nf),
+                         -1, 1) / 2 + 0.5
+    y2 = torch.movedim(y2.reshape(2, 3, 3, 37, 53), 1, -1)
+    got1 = m.apply_tower_kernel(kt[1], x, stage=1, nf=nf, num_modules=5)
+    got2 = m.apply_tower_kernel(kt[2], x, stage=2, nf=nf, num_modules=5,
+                                oc=3)
+    torch.testing.assert_close(got1, y1, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got2, y2, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_imdn_predictor_frame_matches_the_cudnn_path_on_card(cuda_device):
+    """``NetPredictor.from_imdn`` runs its float32 base towers on
+    ``imdn_conv`` (44 launches a frame); its uint8 frame against K1 on the
+    cuDNN path's stage outputs: within one level on ≤ 0.1 % of pixels."""
+    from lerf_torch.models import imdn_s2d as m
+    from lerf_torch.ops.kernels import imdn_conv as kc
+    from lerf_torch.ops.lut_pipeline import divide_exact
+    dev = cuda_device
+    img = np.random.RandomState(13).randint(0, 256, (45, 77, 3)) \
+        .astype(np.uint8)
+    pred = NetPredictor.from_imdn(imdn_model(), device=dev)
+    before = kc.launches
+    got = pred.upscale(img, 4, 4)
+    assert kc.launches - before == 44
+    towers, _ = imdn_kernel_towers(dev)
+    x = divide_exact(torch.from_numpy(img.transpose(2, 0, 1).copy())
+                     .to(dev).to(torch.float32), 255)[None]
+    with torch.no_grad(), m.cudnn_fp32():
+        feat = torch.clamp(m.apply_tower_s2d(towers[1], x, block=1, nf=12),
+                           -1, 1) * 127 + 127
+        hyp = torch.clamp(m.apply_tower_s2d(
+            towers[2], divide_exact(feat, 255), block=1, nf=12),
+            -1, 1) / 2 + 0.5
+    hyp = torch.movedim(hyp.reshape(1, 3, 3, 45, 77), 1, -1)[0]
+    geom = ResizeGeometry.create((45, 77), scale_factors=[4, 4])
+    want = k1.steering_resize(feat[0], hyp.contiguous(), geom,
+                              out_dtype=torch.uint8)
+    want = want.cpu().numpy().transpose(1, 2, 0)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.001
+
+
+@pytest.mark.cuda
+def test_imdn_conv_launches_on_the_tensors_card(cuda_device):
+    """``run_device`` on a predictor whose weights and input lie on a card
+    that is not the current one: the towers' kernel launches there (on
+    that card's current stream), as K1 does, and gives the bits the same
+    call gives on the current card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (a tensor off the current card)")
+    img = np.random.RandomState(14).randint(0, 256, (3, 45, 77))
+    got = []
+    for d in (0, 1):
+        dev = torch.device("cuda", d)
+        pred = NetPredictor.from_imdn(imdn_model(), device=dev)
+        x = torch.from_numpy(img).to(dev).to(torch.float32) / 255
+        with torch.cuda.device(0):
+            out = pred.run_device(x, (2.0, 2.0))
+        torch.cuda.synchronize(dev)
+        got.append([t.cpu() for t in out])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
 
 # K1's and K5's bf16 instances against their twins (the plain ops on the
 # same bf16 tensors, on the card): the Gaussian's bf16 quotient within
